@@ -1,0 +1,91 @@
+"""The port's ``RandAugment.apply`` against the JAX package's
+``RandAugment(2, M, elementwise=True)``, bit-equal on the same images and
+the same draws.
+
+``jax.random`` streams cannot be reproduced by a torch generator, so the
+test replays the JAX package's key splits (augmentation_schemes.py: per
+round ``kd, ks, ko``; the op index from ``kd``, the sign from ``ks``, the
+CutOut centres from the CutOut op's key) and hands those draws to the
+port. Seeds 0 and 1 at batch 16 draw all 16 ops between them."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chambers_tpu.augmentations.augmentation_schemes import (
+    RandAugment as JaxRandAugment,
+)
+from chambers_tpu.ops import image_ops as jops
+from chambers_tpu_torch.augmentations.augmentation_schemes import RandAugment
+
+_B, _H, _W = 16, 64, 64
+
+
+def _jax_draws(key, b, h, w, n_transforms=2, n_ops=16, cutout_index=14):
+    draws = []
+    for key_round in jax.random.split(key, n_transforms):
+        kd, ks, ko = jax.random.split(key_round, 3)
+        idx = jax.random.randint(kd, (b,), 0, n_ops)
+        sign = jops.random_sign(ks, (b,))
+        op_keys = jax.random.split(ko, n_ops)
+        key_y, key_x = jax.random.split(op_keys[cutout_index])
+        cy = jax.random.randint(key_y, (b,), 0, h)
+        cx = jax.random.randint(key_x, (b,), 0, w)
+        draws.append({k: torch.tensor(np.asarray(v)) for k, v in
+                      (("idx", idx), ("sign", sign), ("cy", cy), ("cx", cx))})
+    for d in draws:
+        d["idx"] = d["idx"].to(torch.int64)
+    return draws
+
+
+@pytest.fixture(scope="module")
+def images():
+    rng = np.random.RandomState(0)
+    return rng.randint(0, 256, (_B, _H, _W, 3), dtype=np.uint8)
+
+
+def test_seeds_draw_every_op(images):
+    drawn = set()
+    for seed in (0, 1):
+        for d in _jax_draws(jax.random.PRNGKey(seed), _B, _H, _W):
+            drawn |= set(d["idx"].tolist())
+    assert drawn == set(range(16))
+
+
+@pytest.mark.parametrize("magnitude", [10, 9, 0])
+def test_apply_matches_jax(images, magnitude):
+    jax_aug = JaxRandAugment(n_transforms=2, magnitude=magnitude,
+                             elementwise=True)
+    jax_aug.fused_round_kernel = False  # the masked XLA composition
+    run = jax.jit(lambda x, k: jax_aug(x, key=k))
+    for seed in (0, 1):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(run(jnp.asarray(images), key))
+        draws = _jax_draws(key, _B, _H, _W)
+        for fused in (True, False):
+            aug = RandAugment(2, magnitude, elementwise=True,
+                              fused_round_kernel=fused)
+            got = aug.apply(torch.from_numpy(images), draws).numpy()
+            diff = int((want != got).sum())
+            assert diff == 0, (magnitude, seed, fused, diff)
+
+
+def test_call_samples_on_the_images_device(images):
+    aug = RandAugment(2, 10, elementwise=True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.from_numpy(images)
+    out = aug(x, generator=g)
+    assert out.shape == x.shape and out.dtype == torch.uint8
+    # the same generator state gives the same draws and output
+    draws = aug.sample(_B, (_H, _W), torch.Generator().manual_seed(0),
+                       device="cpu")
+    assert torch.equal(aug.apply(x, draws), out)
+    assert all(0 <= int(d["idx"].min()) and int(d["idx"].max()) < 16
+               for d in draws)
+
+
+def test_whole_batch_policy_not_ported():
+    with pytest.raises(NotImplementedError):
+        RandAugment(2, 10)

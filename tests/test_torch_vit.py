@@ -1,0 +1,211 @@
+"""The port's ViT stack against the JAX package's on the same weights: the
+JAX package's seeded init, converted with ``state_dict_from_jax``.
+
+Tolerances (float32) are the reference's sub-module parity gates
+(BASELINE.md): 1e-5 for gelu, LayerNorm and MHA, 1e-4 for a whole encoder
+layer, and max |logit Δ| < 1e-3 for the model. Sums run in another order
+in the two frameworks, so float32 results agree to roundoff, not bits."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from chambers_tpu.activations import gelu as jax_gelu
+from chambers_tpu.augmentations import ImageNetNormalization
+from chambers_tpu.layers.attention import MultiHeadAttention as JaxMHA
+from chambers_tpu.layers.normalization import FastLayerNorm as JaxFastLN
+from chambers_tpu.layers.normalization import l2_normalize as jax_l2
+from chambers_tpu.layers.transformer import EncoderLayer as JaxEncoderLayer
+from chambers_tpu.models.backbones import vision_transformer as jvit
+from chambers_tpu_torch.activations import gelu
+from chambers_tpu_torch.layers.attention import MultiHeadAttention
+from chambers_tpu_torch.layers.normalization import (
+    FastLayerNorm,
+    LayerNorm,
+    l2_normalize,
+)
+from chambers_tpu_torch.layers.transformer import EncoderLayer
+from chambers_tpu_torch.models.backbones import vision_transformer as tvit
+from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
+
+CPU = "cpu"
+D, N_HEADS, FF = 48, 3, 96
+
+
+def _rand(shape, seed=0, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+def _load(module, params):
+    module.load_state_dict(state_dict_from_jax(jax.device_get(params)))
+    return module.eval()
+
+
+def _max_abs(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
+
+
+def test_gelu():
+    x = _rand((4, 33), scale=3.0)
+    assert _max_abs(jax_gelu(jnp.asarray(x)), gelu(torch.from_numpy(x))) \
+        <= 1e-5
+    assert _max_abs(jax_gelu(jnp.asarray(x), approximate=True),
+                    gelu(torch.from_numpy(x), approximate=True)) <= 1e-5
+
+
+def test_layer_norms():
+    x = _rand((2, 5, D), scale=2.0) + 0.5
+    params = {"scale": _rand((D,), 1), "bias": _rand((D,), 2)}
+    want = nn.LayerNorm(epsilon=1e-6).apply({"params": params}, x)
+    got = _load(LayerNorm(D, device=CPU), params)(torch.from_numpy(x))
+    assert _max_abs(want, got.detach()) <= 1e-5
+    want = JaxFastLN(stats_dtype=jnp.float32).apply({"params": params}, x)
+    got = _load(FastLayerNorm(D, stats_dtype=torch.float32, device=CPU),
+                params)(torch.from_numpy(x))
+    assert _max_abs(want, got.detach()) <= 1e-5
+    # bf16 output dtype contract: dtype given -> that dtype
+    got = LayerNorm(D, dtype=torch.bfloat16, device=CPU)
+    got.reset_parameters()
+    assert got(torch.from_numpy(x)).dtype == torch.bfloat16
+
+
+def test_l2_normalize():
+    x = _rand((3, 7))
+    assert _max_abs(jax_l2(jnp.asarray(x)),
+                    l2_normalize(torch.from_numpy(x))) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["self", "cross_masked_causal"])
+def test_multi_head_attention(kind):
+    b, t, tv = 2, 9, 9
+    q = _rand((b, t, D), 3)
+    if kind == "self":
+        inputs_j = [jnp.asarray(q)] * 3
+        mask = None
+    else:
+        v, k = _rand((b, tv, D), 4), _rand((b, tv, D), 5)
+        inputs_j = [jnp.asarray(q), jnp.asarray(v), jnp.asarray(k)]
+        v_mask = np.ones((b, tv), bool)
+        v_mask[1, 6:] = False
+        mask = [None, v_mask]
+    causal = kind != "self"
+    jmod = JaxMHA(head_dim=D // N_HEADS, num_heads=N_HEADS, causal=causal)
+    variables = jmod.init(jax.random.PRNGKey(0), inputs_j)
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * _rand(a.shape, 6), variables["params"])
+    want = jmod.apply({"params": params}, inputs_j, mask=mask)
+    port = _load(MultiHeadAttention(D, D // N_HEADS, N_HEADS, causal=causal,
+                                    device=CPU), params)
+    inputs_t = [torch.tensor(np.asarray(a)) for a in inputs_j]
+    if kind == "self":
+        inputs_t = [inputs_t[0]] * 3
+    mask_t = None if mask is None else [None, torch.from_numpy(mask[1])]
+    got = port(inputs_t, mask=mask_t)
+    assert _max_abs(want, got.detach()) <= 1e-5
+
+
+@pytest.mark.parametrize("pre_norm", [True, False])
+def test_encoder_layer(pre_norm):
+    x = _rand((2, 9, D), 7)
+    jmod = JaxEncoderLayer(embed_dim=D, num_heads=N_HEADS, ff_dim=FF,
+                           pre_norm=pre_norm)
+    params = jmod.init(jax.random.PRNGKey(1), x)["params"]
+    want = jmod.apply({"params": params}, x)
+    port = _load(EncoderLayer(D, N_HEADS, FF, pre_norm=pre_norm, device=CPU),
+                 params)
+    assert _max_abs(want, port(torch.from_numpy(x)).detach()) <= 1e-4
+
+
+def _tiny_jax_vit(**kw):
+    return jvit.VisionTransformer(
+        patch_size=16, patch_dim=D, n_encoder_layers=2, n_heads=N_HEADS,
+        ff_dim=FF, dropout_rate=0.0, classes=10, pooling="cls", **kw)
+
+
+def _tiny_port_vit(**kw):
+    return tvit.VisionTransformer(16, D, 2, N_HEADS, FF, image_size=(32, 32),
+                                  classes=10, device=CPU, **kw)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """JAX seeded init of the tiny ViT, folded, and a uint8 batch."""
+    variables = _tiny_jax_vit().init(jax.random.PRNGKey(0),
+                                     jnp.zeros((1, 32, 32, 3)))
+    folded = jvit.fold_imagenet_normalization(variables, mode="tf")
+    x8 = np.random.RandomState(8).randint(0, 256, (4, 32, 32, 3), np.uint8)
+    return variables, folded, x8
+
+
+def test_vit_f32_logits(tiny):
+    _, folded, x8 = tiny
+    want = _tiny_jax_vit().apply(folded, jnp.asarray(x8), deterministic=True)
+    port = _load(_tiny_port_vit(), folded["params"])
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x8))
+    assert got.dtype == torch.float32 and got.shape == (4, 10)
+    assert _max_abs(want, got) < 1e-3
+
+
+def test_vit_bf16_logits(tiny):
+    """bf16 activations and bf16 scores on both sides. The two frameworks
+    round at different places (matmul outputs, softmax sums, LayerNorm
+    outputs), so each carries its own bf16 error: JAX's bf16 logits differ
+    from its f32 ones by ~0.4% of the logit range on this model, and two
+    such errors may add. The bound is 2% of the range."""
+    _, folded, x8 = tiny
+    jmod = _tiny_jax_vit(dtype=jnp.bfloat16, score_dtype=jnp.bfloat16)
+    want = np.asarray(jmod.apply(folded, jnp.asarray(x8), deterministic=True))
+    port = _load(_tiny_port_vit(dtype=torch.bfloat16,
+                                score_dtype=torch.bfloat16), folded["params"])
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x8))
+    assert got.dtype == torch.float32
+    assert _max_abs(want, got) <= 0.02 * float(np.ptp(want))
+
+
+@pytest.mark.parametrize("mode", ["tf", "torch", "caffe"])
+def test_fold_imagenet_normalization(tiny, mode):
+    variables, _, x8 = tiny
+    want = jvit.fold_imagenet_normalization(variables, mode=mode)
+    sd = state_dict_from_jax(jax.device_get(variables["params"]))
+    got = tvit.fold_imagenet_normalization(sd, mode=mode)
+    # the kernel is a per-channel scale: 1e-6 relative. The bias adds a
+    # p*p*3-term sum taken in another order than JAX's einsum: 1e-6 of the
+    # sum of the terms' magnitudes
+    pe = want["params"]["patch_embeddings"]
+    np.testing.assert_allclose(got["patch_embeddings.kernel"].numpy(),
+                               np.asarray(pe["kernel"]), rtol=1e-6, atol=0)
+    offset = {"tf": [1.0] * 3, "torch": [2.2] * 3,
+              "caffe": [124.0] * 3}[mode]  # bounds on |offset_c|
+    terms = np.einsum("hwcd,c->d", np.abs(sd["patch_embeddings.kernel"]
+                                          .numpy()), offset)
+    err = np.abs(got["patch_embeddings.bias"].numpy() - np.asarray(pe["bias"]))
+    assert np.all(err <= 1e-6 * terms), float(np.max(err / terms))
+    assert torch.equal(sd["patch_embeddings.kernel"],
+                       torch.tensor(np.asarray(
+                           variables["params"]["patch_embeddings"]["kernel"])))
+    # folded model on raw pixels == unfolded model on normalized pixels
+    ref_in = np.asarray(ImageNetNormalization(mode=mode)(x8))
+    model = _tiny_port_vit()
+    model.load_state_dict(sd)
+    with torch.inference_mode():
+        ref = model(torch.tensor(ref_in))
+        model.load_state_dict(got)
+        out = model(torch.from_numpy(x8).float())
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_preset_seeded_init_is_deterministic():
+    a = tvit.ViTS16(input_shape=(32, 32, 3), classes=5, seed=3, device=CPU)
+    b = tvit.ViTS16(input_shape=(32, 32, 3), classes=5, seed=3, device=CPU)
+    for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(p, q), name
+    assert a.pos_embedding.embeddings.shape == (5, 384)
+    assert float(a.encoder.layers[0].norm1.scale.detach().min()) == 1.0
