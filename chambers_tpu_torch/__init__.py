@@ -12,7 +12,9 @@ in ``ops/csrc`` and are built with ``nvcc`` at first use
 runs its plain PyTorch version instead.
 
 Slice 1 covers the serving main path: per-image ``RandAugment(2, 10)`` into
-ViT-B/16 inference in bf16.
+ViT-B/16 inference in bf16. Slice 2 covers a training path: blockwise flash
+attention, forward and backward (``ops/flash_attention.py``), and the padded
+``Seq2SeqTransformer`` train step that runs on it (``models/transformer.py``).
 """
 
 from chambers_tpu_torch._device import resolve_device

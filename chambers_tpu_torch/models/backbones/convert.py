@@ -2,8 +2,11 @@
 
 The port names every submodule and parameter as the Flax modules do, so
 the conversion flattens the nested ``variables["params"]`` dict with ``.``
-and turns Flax's list naming ``layers_<i>`` into ``layers.<i>``. It takes
-numpy arrays (``jax.device_get`` of the params, or ``np.asarray`` of each
+and turns Flax's list naming ``layers_<i>`` into ``layers.<i>``. That
+covers the ViT and the ``Seq2SeqTransformer``: its top-level ``inputs_embed``,
+``targets_embed`` (Flax's ``nn.Embed`` keeps one array, ``embedding``, and so
+does the port's ``Embed``), ``encoder``, ``decoder`` and ``vocab_head`` keep
+their names. It takes numpy arrays (``jax.device_get`` of the params, or ``np.asarray`` of each
 leaf) and imports no JAX.
 """
 

@@ -108,8 +108,11 @@ class VisionTransformer(nn.Module):
             device=device)
         self.pos_embedding = LearnedEmbedding1D(
             n_tokens + 1, patch_dim, param_dtype=param_dtype, device=device)
+        # the ViT's training dropout is not ported yet: its encoder is
+        # built without any, so a model left in train mode computes the same
         self.encoder = Encoder(
-            patch_dim, n_heads, ff_dim, n_encoder_layers, pre_norm=True,
+            patch_dim, n_heads, ff_dim, n_encoder_layers,
+            attention_dropout_rate=0.0, dense_dropout_rate=0.0, pre_norm=True,
             norm_output=True, dtype=dtype, param_dtype=param_dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,

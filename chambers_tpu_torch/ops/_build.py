@@ -4,10 +4,12 @@ plain C interface, loaded through ``ctypes``.
 The library is built at first use into ``build/`` at the root of the
 checkout, under a name keyed by a hash of the sources and the flags, so an
 edited source rebuilds and an unchanged one loads at once. Only sources in
-the repository are compiled. ``--fmad=false`` keeps every float multiply
-rounded on its own, as the JAX package's blends require. ``nvcc``'s
-register and spill report (``-Xptxas -v``) is kept beside the library as
-``<name>-<hash>.log``.
+the repository are compiled. Flags are per library: ``NVCC_FLAGS`` holds
+``--fmad=false``, which keeps every float multiply rounded on its own, as
+the JAX package's image blends require (the ``warp`` library);
+``FMA_FLAGS`` is the same list without it, for kernels whose inner products
+are FMAs (the ``flash_attention`` library). ``nvcc``'s register and spill
+report (``-Xptxas -v``) is kept beside the library as ``<name>-<hash>.log``.
 """
 
 import ctypes
@@ -24,6 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+FMA_FLAGS = [f for f in NVCC_FLAGS if f != "--fmad=false"]
 
 
 def _nvcc() -> str:
@@ -38,12 +41,14 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def build(name: str, sources) -> Path:
-    """Compile ``sources`` (names under ``csrc/``) into
-    ``build/<name>-<hash>.so`` unless it exists; return its path. The
-    compiler's report goes beside it as ``.log``."""
+def build(name: str, sources, flags=None) -> Path:
+    """Compile ``sources`` (names under ``csrc/``) with ``flags``
+    (``NVCC_FLAGS`` if None) into ``build/<name>-<hash>.so`` unless it
+    exists; return its path. The compiler's report goes beside it as
+    ``.log``."""
+    flags = NVCC_FLAGS if flags is None else list(flags)
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in paths:
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -51,7 +56,7 @@ def build(name: str, sources) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
@@ -64,6 +69,31 @@ def build(name: str, sources) -> Path:
     return out
 
 
-def load(name: str, sources) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, sources)))
+def load(name: str, sources, flags=None) -> ctypes.CDLL:
+    """Build if needed and load; every library exports
+    ``cuda_error_string(int) -> const char*`` for :func:`check_launch`."""
+    lib = ctypes.CDLL(str(build(name, sources, flags)))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ptr(tensor) -> ctypes.c_void_p:
+    """A tensor's address as a launcher argument; None is a null pointer."""
+    return ctypes.c_void_p(None if tensor is None else tensor.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device`` as a launcher argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(lib, code, name):
+    """Raise if a launcher returned anything but ``cudaSuccess``: a refused
+    launch never runs and a later synchronize does not report it."""
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
+                           f"({lib.cuda_error_string(code).decode()})")
 

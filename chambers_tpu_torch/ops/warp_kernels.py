@@ -40,15 +40,7 @@ def _library():
     lib.warp_launch.restype = i32
     lib.fused_round_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
     lib.fused_round_launch.restype = i32
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check_launch(lib, code, name):
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
-                           f"({lib.cuda_error_string(code).decode()})")
 
 
 def _resolve_fill(fill_value, dtype=np.uint8):
@@ -165,12 +157,7 @@ def fused_round_plain(images, n1, n2, n3, op_class, cut_cy, cut_cx,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+_ptr, _stream, _check_launch = _build.ptr, _build.stream, _build.check_launch
 
 
 def launch_warp(images, out, n1, n2, n3, fill, pad):

@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. In order, it:
 
 1. prints the card's name and power limit;
-2. builds the CUDA kernels from ``chambers_tpu_torch/ops/csrc`` with nvcc;
+2. builds the two CUDA libraries (``warp`` with ``--fmad=false``,
+   ``flash_attention`` with FMAs) from ``chambers_tpu_torch/ops/csrc`` with
+   nvcc, both at once;
 3. holds kernel K2 (the separable warp) bit-equal to its plain PyTorch
    version at ``[32, 224, 224, 3]``;
 4. holds kernel K1 (the fused RandAugment round) bit-equal to its plain
@@ -21,9 +23,27 @@ the CUDA toolkit. In order, it:
    the masked-composition path, each with the launch counters set to 0
    just before and read just after; checks the logits against float32
    references, times the steps with CUDA events and profiles three steps;
-7. times each kernel and its plain version at the main path's shapes;
-8. prints one ``kernels`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+7. times K1, K2 and their plain versions at the main path's shapes;
+8. holds the flash attention kernels K3a (forward), K3b (dK/dV) and K3c
+   (dQ) against their plain versions, through ``flash_attention`` and its
+   backward as the paths call them, at the train step's three uses
+   (``[16, 8, 512, 64]`` bf16 with a ragged key mask, causal and not),
+   ViT-B/16's shape in bf16 and float32, cross lengths 130 x 260 and
+   260 x 130 with the diagonal at the end, and a batch item with no valid
+   key;
+9. drives the second main path — the padded ``Seq2SeqTransformer`` train
+   step with ``attention_impl="flash"`` at full width (vocabulary 1024,
+   width 512, 8 heads, 4 + 4 layers, bf16, batch 16, lengths 512, 20-30%
+   ragged padding, AdamW): first step's loss and logits against the dense
+   attention path, 2 warm-up steps and three timed runs of 5 steps with
+   the launch counters set to 0 just before and read just after, and a
+   profile of two steps;
+10. runs a ViT-B/16-wide, 2-layer ``VisionTransformer`` on the flash kernel
+    against the dense path in float32;
+11. times K3a-c at ``[128, 512, 64]`` bf16 beside their plain versions and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+12. prints one ``kernels`` JSON line with all five kernels, the card line,
+    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -32,6 +52,7 @@ imports nothing of JAX or of ``chambers_tpu``.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +62,10 @@ WARMUP, STEPS, REPEATS, MASKED_STEPS = 3, 20, 3, 5
 FILL, PAD = 128, 32
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# the seq2seq train step, as the JAX package's tools/bench_seq2seq_flash.py
+S2S = dict(vocab=1024, t=512, batch=16, dim=512, heads=8, layers=4)
+S2S_WARMUP, S2S_STEPS, S2S_REPEATS = 2, 5, 3
 CARD = ""
 
 
@@ -101,8 +126,487 @@ def warp_matrices(torch, iops, b, device):
     return torch.cat([kinds[i % len(kinds)] for i in range(b)])
 
 
+def kernel_name(mangled):
+    """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
+    64>``; a name it cannot read comes back as it is."""
+    found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
+                      mangled)
+    if not found:
+        return mangled
+    if not found.group(2):
+        return found.group(1)
+    dtype = "bf16" if "bfloat" in found.group(2) else "f32"
+    return f"{found.group(1)}<{dtype}, {found.group(3)}>"
+
+
 def max_abs_diff(a, b):
     return int((a.int() - b.int()).abs().max())
+
+
+def ragged_mask(torch, b, t, dev, seed=0):
+    """``[b, t]`` bool key mask with 20-30% trailing padding per row."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    keep = (t * (0.70 + 0.10 * rng.rand(b))).astype(int)
+    return torch.arange(t, device=dev)[None, :] < torch.tensor(
+        keep, device=dev)[:, None]
+
+
+def closeness(got, ref, rtol):
+    """``(max |d|, max (|d| - rtol |ref|), ||d|| / ||ref||)`` of two tensors,
+    in float32: the largest error, the absolute tolerance that an
+    element-wise check at ``rtol`` needs, and the relative rms error."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    norm = float(ref.norm())
+    return (float(d.max()), float((d - rtol * ref.abs()).max()),
+            float(d.norm()) / norm if norm else float(d.norm()))
+
+
+def flash_tolerance(torch, dtype, ref, gradient):
+    """``(rtol, atol, rms)``: each element is held to ``|d| <= atol + rtol
+    |ref|`` and the relative rms error to ``rms``.
+
+    float32: kernel and plain version sum in another order; 2e-5 on outputs
+    as the JAX package's tests hold its kernel, gradients 1e-4 of their
+    largest value, and 1e-5 rms (a few hundred float32 roundings).
+
+    bf16: rtol is one step of the output type (2^-7 of the value at most):
+    the two round the same float32 sum, up to its order, to neighbouring
+    values. atol is for the probabilities, which the kernel rounds to bf16
+    at the running max and the plain version at the final one: every term
+    p v moves by up to 2^-9 of itself on each side, and the weights sum to
+    one over values of size ~1, so 2^-8. A gradient takes the same: its
+    di = sum(o do) comes from the kernel's own o. Rounding errors are spread
+    evenly, so their rms is under half a step: 2^-8 of the reference's rms
+    catches a fault in the low bits that no maximum can."""
+    if dtype == torch.float32:
+        atol = 1e-4 * max(1.0, float(ref.abs().max())) if gradient else 2e-5
+        return 0.0, atol, 1e-5
+    return 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
+
+
+def check_flash_kernels(torch, fa, dev):
+    """Phase 8: K3a-c against their plain versions on the card, through the
+    wrapper the paths call: ``flash_attention`` forward and its backward,
+    so the operand checks and copies, the fold, the scale's reciprocal and
+    the chain of saved tensors (the backward kernels read the forward
+    kernel's own o, l, m) are held as well. Returns the max abs errors at
+    the train step's shape, by kernel."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
+    path_mask = ragged_mask(torch, b, t, dev)
+    dead = path_mask[:2].clone()
+    dead[1] = False
+    # (label, b, n, tq, tk, dtype, causal, mask, layout of q, k, v)
+    cases = [
+        ("path: encoder self / cross, key mask", b, n, t, t, bf16, False,
+         path_mask, "permuted"),
+        ("path: decoder self, causal + key mask", b, n, t, t, bf16, True,
+         path_mask, "stacked"),
+        ("ViT-B/16 shape bf16", 2, 12, 197, 197, bf16, False, None, "plain"),
+        ("ViT shape float32", 2, 3, 197, 197, f32, False, None, "stacked"),
+        ("cross lengths 130x260 causal float32", 1, 2, 130, 260, f32, True,
+         None, "plain"),
+        ("cross lengths 260x130 causal float32, 130 rows with no key", 1, 2,
+         260, 130, f32, True, None, "plain"),
+        ("batch item with no valid key", 2, n, t, t, bf16, False, dead,
+         "permuted"),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    path_err = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for label, b_, n_, tq, tk, dtype, causal, mask, layout in cases:
+        def rand(tt):
+            if layout == "permuted":  # as a projection's einsum may hand over
+                return torch.randn((b_, tt, n_, h), device=dev,
+                                   generator=gen).to(dtype).permute(0, 2, 1, 3)
+            return torch.randn((b_, n_, tt, h), device=dev,
+                               generator=gen).to(dtype)
+
+        if layout == "stacked":  # slices of one self-attention projection
+            q, v, k = torch.randn((3, b_, n_, tq, h), device=dev,
+                                  generator=gen).to(dtype)
+        else:
+            q, v, k = rand(tq), rand(tk), rand(tk)
+        do = rand(tq)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(q, v, k, causal=causal, kv_mask=mask)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+
+        def fold(x):
+            return x.detach().reshape(b_ * n_, x.shape[2], h)
+
+        fq, fk, fv, fdo = fold(q), fold(k), fold(v), fold(do)
+        fmask = None if mask is None else mask.float()
+        scale = h ** -0.5
+        o_p, l_p, m_p = fa.flash_forward_plain(fq, fk, fv, scale, causal,
+                                               fmask, n_)
+        dq_p, dk_p, dv_p = fa.flash_backward_plain(
+            fq, fk, fv, o_p, l_p, m_p, fdo, scale, causal, fmask, n_)
+        # the statistics the wrapper saved: the same launch gives them again
+        o_again, l, m = fa.launch_forward(fq, fk, fv, fmask, scale, causal, n_)
+        torch.cuda.synchronize()
+        check(torch.equal(o_again, fold(o)), f"the kernel repeats ({label})")
+
+        pairs = {"o": (o, o_p), "dq": (dq, dq_p), "dk": (dk, dk_p),
+                 "dv": (dv, dv_p)}
+        errs, report = {}, []
+        for name, (got, ref) in pairs.items():
+            got = fold(got)
+            check(got.dtype == dtype and tuple(got.shape) == tuple(ref.shape),
+                  f"{name} has the inputs' type and shape ({label})")
+            rtol, atol, rms_limit = flash_tolerance(torch, dtype, ref,
+                                                    name != "o")
+            errs[name], needs, rms = closeness(got, ref, rtol)
+            report.append(f"{name} {errs[name]:.3g} (over rtol "
+                          f"{max(needs, 0.0):.3g} <= {atol:.3g}, rms "
+                          f"{rms:.3g} <= {rms_limit:.3g})")
+            check(needs <= atol, f"K3 {name} within atol {atol:.3g} + rtol "
+                                 f"{rtol:.3g} per element ({label})")
+            check(rms <= rms_limit, f"K3 {name} rms error ({label})")
+            check(bool(torch.isfinite(got).all()), f"finite {name} ({label})")
+        log(f"K3 vs plain [{label}] [{b_ * n_}, {tq}x{tk}, {h}] "
+            f"{str(dtype).split('.')[-1]} {layout}: max |d| "
+            + ", ".join(report))
+        check(bool(torch.isfinite(l).all()) and bool(torch.isfinite(m).all()),
+              f"finite l, m ({label})")
+        check(bool(torch.allclose(l, l_p, rtol=1e-4, atol=1e-6))
+              and bool(torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)),
+              f"saved l, m agree ({label})")
+        if mask is dead:  # batch item 1
+            check(not any(bool(x[1].any()) for x in (o, dq, dk, dv)),
+                  "a batch item with no valid key gives exact zeros")
+        if causal and tq > tk:
+            check(not bool(o[:, :, :tq - tk].any())
+                  and not bool(dq[:, :, :tq - tk].any()),
+                  "rows above the end-aligned diagonal give exact zeros")
+        if label.startswith("path"):
+            path_err["fwd"] = max(path_err["fwd"], errs["o"])
+            path_err["dkv"] = max(path_err["dkv"], errs["dk"], errs["dv"])
+            path_err["dq"] = max(path_err["dq"], errs["dq"])
+    return path_err
+
+
+def seq2seq_tokens(torch, dev):
+    """Source and target tokens with 20-30% ragged trailing padding (id 0),
+    as tools/bench_seq2seq_flash.py of the JAX package makes them."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    b, t, vocab = S2S["batch"], S2S["t"], S2S["vocab"]
+    src = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    tgt = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    for row in range(b):
+        keep = int(t * (0.70 + 0.10 * rng.rand()))
+        src[row, keep:] = 0
+        tgt[row, keep:] = 0
+    return torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev)
+
+
+def seq2seq_loss(torch, model, src, tgt):
+    """Masked cross-entropy on the next token; padding labels excluded."""
+    logits = model([src, tgt], deterministic=True)
+    labels = torch.roll(tgt, -1, dims=1)
+    mask = (labels != 0).float().flatten()
+    ce = torch.nn.functional.cross_entropy(
+        logits.float().flatten(0, 1), labels.flatten(), reduction="none")
+    return (ce * mask).sum() / mask.sum(), logits
+
+
+def device_time_by_kind(torch, events):
+    """Self device time in ms of a profile, split into the flash kernels,
+    matrix products and everything else."""
+    kinds = {"flash_fwd_kernel": 0.0, "flash_bwd_dkv_kernel": 0.0,
+             "flash_bwd_dq_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    counts = dict.fromkeys(kinds, 0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        kind = next((k for k in kinds if k in key), None)
+        if kind is None:
+            kind = "gemm" if any(w in key for w in (
+                "gemm", "nvjet", "cutlass", "xmma", "cublas")) else "other"
+        kinds[kind] += e.self_device_time_total / 1e3
+        counts[kind] += e.count
+    return kinds, counts
+
+
+def seq2seq_path(torch, fa, dev):
+    """Phase 9: the padded Seq2SeqTransformer train step on the flash
+    kernels at full width. Returns the launch counts of the timed steps."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models import Seq2SeqTransformer
+
+    def build(impl):
+        model = Seq2SeqTransformer(
+            input_vocab_size=S2S["vocab"], output_vocab_size=S2S["vocab"],
+            embed_dim=S2S["dim"], num_heads=S2S["heads"],
+            dim_feedforward=4 * S2S["dim"],
+            num_encoder_layers=S2S["layers"],
+            num_decoder_layers=S2S["layers"], dropout_rate=0.0,
+            dtype=torch.bfloat16, attention_impl=impl, device=dev)
+        return initializers.init_module(
+            model, torch.Generator(device=dev).manual_seed(0)).train()
+
+    model = build("flash")
+    dense = build("xla")
+    dense.load_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    src, tgt = seq2seq_tokens(torch, dev)
+    vocab = S2S["vocab"]
+
+    def tokens_of(i):
+        # varied per step, padding kept
+        return torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt
+
+    # first step's loss and logits against the dense attention path: both
+    # models are bf16 with float32 softmax statistics and differ in where
+    # the probabilities are rounded, so 1e-2 relative on the loss and a
+    # cosine of 0.999 over the logits of the real (non-padding) positions
+    with torch.no_grad():
+        loss_f, logits_f = seq2seq_loss(torch, model, *tokens_of(0))
+        loss_d, logits_d = seq2seq_loss(torch, dense, *tokens_of(0))
+    real = (tgt != 0)
+    a, b = logits_f[real].float().flatten(), logits_d[real].float().flatten()
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    rel = abs(float(loss_f) - float(loss_d)) / abs(float(loss_d))
+    log(f"seq2seq first step, flash vs dense attention: loss "
+        f"{float(loss_f):.5f} vs {float(loss_d):.5f} (rel {rel:.2e}), logits "
+        f"cosine {cos:.6f}, max |d| {float((a - b).abs().max()):.4f}")
+    check(tuple(logits_f.shape) == (S2S["batch"], S2S["t"], vocab),
+          "logits [16, 512, 1024]")
+    check(rel <= 1e-2 and cos >= 0.999,
+          "flash train step's first loss and logits follow the dense path")
+    del dense, logits_f, logits_d
+
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+    def step(i):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = seq2seq_loss(torch, model, *tokens_of(i))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    for i in range(S2S_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    losses, runs, host_runs = [], [], []
+    for r in range(S2S_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses += [step(S2S_WARMUP + r * S2S_STEPS + i)
+                   for i in range(S2S_STEPS)]
+        end.record()
+        end.synchronize()
+        host_runs.append((time.perf_counter() - t0) * 1e3 / S2S_STEPS)
+        runs.append(start.elapsed_time(end) / S2S_STEPS)
+    launches = dict(fa.flash_attention.launches)
+    n_steps = S2S_STEPS * S2S_REPEATS
+    ms = sorted(runs)[len(runs) // 2]
+    losses = [float(x) for x in losses]
+    positions = S2S["batch"] * 2 * S2S["t"]
+    real_tokens = int((src != 0).sum() + (tgt != 0).sum())
+    log(f"seq2seq train step ({n_params / 1e6:.1f} M parameters, batch "
+        f"{S2S['batch']}, {S2S['t']} + {S2S['t']} tokens a row, bf16): median "
+        f"of {S2S_REPEATS} runs of {S2S_STEPS} steps {ms:.3f} ms/step (CUDA "
+        f"events; runs {', '.join(f'{x:.3f}' for x in runs)}; host clock "
+        f"{', '.join(f'{x:.3f}' for x in host_runs)}), "
+        f"{positions / (ms / 1e3):.0f} tokens/s with padding, "
+        f"{real_tokens / (ms / 1e3):.0f} without, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {CARD}")
+    log(f"seq2seq losses: {[round(x, 4) for x in losses]}; launches over "
+        f"{n_steps} steps: {launches}")
+    per_step = 3 * S2S["layers"]
+    check(all(launches[k] == per_step * n_steps for k in launches),
+          "K3a, K3b and K3c each launched 12 times per train step")
+    check(all(math.isfinite(x) for x in losses), "finite losses")
+    check(losses[-1] <= losses[0] * 1.02, "losses falling or flat")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_prof):
+            step(i)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    log(events.table(sort_by="self_device_time_total", row_limit=12))
+    kinds, counts = device_time_by_kind(torch, events)
+    busy = sum(kinds.values()) / n_prof
+    log(f"seq2seq profile, device ms per step on {CARD}: " + ", ".join(
+        f"{k} {v / n_prof:.3f} ({counts[k] // n_prof} launches)"
+        for k, v in kinds.items()))
+    log(f"seq2seq profile: {busy:.3f} ms of device time per step against "
+        f"{ms:.3f} ms/step unprofiled: device busy {100 * busy / ms:.1f}%, "
+        f"flash kernels {100 * sum(v for k, v in kinds.items() if 'flash' in k) / n_prof / ms:.1f}% "
+        f"of a step, on {CARD}")
+    return launches
+
+
+def vit_on_flash(torch, fa, dev, images):
+    """Phase 10: a ViT-B/16-wide VisionTransformer on the flash kernel
+    against the dense path, float32, two layers."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+
+    def build(impl):
+        return VisionTransformer(16, 768, 2, 12, 3072, attention_impl=impl,
+                                 device=dev)
+
+    flash = initializers.init_module(
+        build("flash"), torch.Generator(device=dev).manual_seed(2)).eval()
+    dense = build("xla").eval()
+    dense.load_state_dict(flash.state_dict())
+    before = fa.flash_attention.launches["fwd"]
+    with torch.inference_mode():
+        x = images[:4].float() / 127.5 - 1.0
+        got, want = flash(x), dense(x)
+    torch.cuda.synchronize()
+    count = fa.flash_attention.launches["fwd"] - before
+    d = float((got - want).abs().max())
+    log(f"ViT (width 768, 12 heads, 2 layers, 197 tokens) float32, flash vs "
+        f"dense attention: max |d logit| {d:.3g} of range "
+        f"{float(want.max() - want.min()):.3g}; {count} forward launches")
+    check(count == 2, "one K3a launch per encoder layer")
+    check(d < 1e-3 and bool(torch.isfinite(got).all()),
+          "ViT on the flash kernel matches the dense path")
+
+
+def time_flash_kernels(torch, fa, dev, launches, errors):
+    """Phase 11: K3a-c at the train step's shape, [128, 512, 64] bf16 with
+    the ragged key mask (encoder self-attention and cross attention: 8 of a
+    step's 12 launches of each kernel; the causal use is timed beside it).
+    Returns the three rows of the ``kernels`` line."""
+    F = torch.nn.functional
+    b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
+    bn, scale = b * n, h ** -0.5
+    mask = ragged_mask(torch, b, t, dev)
+    fmask = mask.float()
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand():
+        return torch.randn((bn, t, h), device=dev,
+                           generator=gen).to(torch.bfloat16)
+
+    # cycle over sets larger together than the 50 MB L2
+    sets = []
+    for _ in range(3):
+        q, k, v, do = rand(), rand(), rand(), rand()
+        o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, n)
+        sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
+    turn = iter(range(10 ** 9))
+
+    def nxt():
+        return sets[next(turn) % len(sets)]
+
+    def bwd_args(causal):
+        q, k, v, do, _, l, m, di = nxt()
+        return (q, k, v, do, l, m, di, fmask, scale, causal, n)
+
+    def plain_bwd():
+        q, k, v, do, o, l, m, _ = nxt()
+        return fa.flash_backward_plain(q, k, v, o, l, m, do, scale, False,
+                                       fmask, n)
+
+    def four(x):
+        return x.view(b, n, t, h)
+
+    attn_mask = mask[:, None, None, :]
+
+    def sdpa():
+        q, k, v = nxt()[:3]
+        return F.scaled_dot_product_attention(four(q), four(k), four(v),
+                                              attn_mask=attn_mask)
+
+    q0, k0, v0, do0 = (four(x).clone().requires_grad_(i < 3)
+                       for i, x in enumerate(sets[0][:4]))
+    out0 = F.scaled_dot_product_attention(q0, k0, v0, attn_mask=attn_mask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out0, (q0, k0, v0), do0,
+                                   retain_graph=True)
+
+    def wrapped():
+        q, k, v = (four(x) for x in nxt()[:3])
+        return fa.flash_attention(q, v, k, kv_mask=mask)
+
+    elem = 2  # bytes of a bf16 value
+    qkv = 3 * bn * t * h * elem
+    stats = bn * t * 4                       # one float32 row statistic
+    pairs = bn * t * t * h                   # multiply-adds of one product
+    plain_fwd_ms = cuda_ms(torch, lambda: fa.flash_forward_plain(
+        *nxt()[:3], scale, False, fmask, n), 10)
+    plain_bwd_ms = cuda_ms(torch, plain_bwd, 10)
+    lib_fwd_ms = cuda_ms(torch, sdpa, 20, backlog=True)
+    lib_bwd_ms = cuda_ms(torch, sdpa_bwd, 20, backlog=True)
+    wrapper_ms = cuda_ms(torch, wrapped, 20)
+    specs = (
+        ("flash_fwd", "fwd", lambda c: fa.launch_forward(
+            *nxt()[:3], fmask, scale, c, n),
+         qkv + bn * t * h * elem + 2 * stats + b * t * 4, 4 * pairs,
+         "chambers_tpu/ops/flash_attention.py:190 _flash_forward",
+         plain_fwd_ms, lib_fwd_ms),
+        ("flash_bwd_dkv", "dkv", lambda c: fa.launch_backward_dkv(
+            *bwd_args(c)),
+         qkv + bn * t * h * elem + 3 * stats + b * t * 4
+         + 2 * bn * t * h * elem, 8 * pairs,
+         "chambers_tpu/ops/flash_attention.py:387 _flash_backward (dK/dV)",
+         plain_bwd_ms, lib_bwd_ms),
+        ("flash_bwd_dq", "dq", lambda c: fa.launch_backward_dq(
+            *bwd_args(c)),
+         qkv + bn * t * h * elem + 3 * stats + b * t * 4
+         + bn * t * h * elem, 6 * pairs,
+         "chambers_tpu/ops/flash_attention.py:418 _flash_backward (dQ)",
+         plain_bwd_ms, lib_bwd_ms),
+    )
+    rows = []
+    for name, key, bare, nbytes, ops, replaces, plain_ms, lib_ms in specs:
+        kernel_ms = cuda_ms(torch, lambda: bare(False), 20, backlog=True)
+        causal_ms = cuda_ms(torch, lambda: bare(True), 20, backlog=True)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        causal_bound_ms = max(bytes_ms, ops_ms / 2)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "chambers_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": errors[key], "bit_equal": False,
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms if key == "fwd" else None,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "causal_ms": causal_ms,
+            "causal_bound_ms": causal_bound_ms,
+            "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
+            "note": ("plain_ms and library_ms are the whole backward, dK/dV "
+                     "and dQ together" if key != "fwd" else
+                     "library_ms is F.scaled_dot_product_attention with the "
+                     "same key mask"),
+            "card": CARD,
+        })
+        log(f"{name} [128, 512, 64] bf16 key mask: kernel "
+            f"{kernel_ms * 1e3:.1f} us ({rows[-1]['achieved_tflops']:.1f} "
+            f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
+            f"{causal_bound_ms * 1e3:.2f} us) on {CARD}")
+    log(f"flash_attention wrapper call, forward: {wrapper_ms * 1e3:.1f} us "
+        f"on {CARD}")
+    torch.cuda.synchronize()
+    return rows
 
 
 def main():
@@ -124,6 +628,7 @@ def main():
         fold_imagenet_normalization,
     )
     from chambers_tpu_torch.ops import _build
+    from chambers_tpu_torch.ops import flash_attention as fa
     from chambers_tpu_torch.ops import image_ops as iops
     from chambers_tpu_torch.ops import warp_kernels as wk
 
@@ -138,14 +643,33 @@ def main():
         f" | {torch.cuda.get_device_name(0)}")
 
     # 2. build
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_build(library):
+        t0 = time.perf_counter()
+        return _build.build(*library), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = _build.build(*wk.LIBRARY)
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {path.name}")
-    report = path.with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  nvcc:", line.strip())
+    with ThreadPoolExecutor(2) as jobs:  # one nvcc each, started together
+        built = list(jobs.map(timed_build, (wk.LIBRARY, fa.LIBRARY)))
+    log(f"build: {time.perf_counter() - t0:.1f} s for both libraries")
+    no_fma = []
+    for path, seconds in built:
+        report = path.with_suffix(".log").read_text().splitlines()
+        no_fma.append("--fmad=false" in report[0])  # the nvcc command line
+        log(f"build: {seconds:.1f} s -> {path.name} "
+            f"({'--fmad=false' if no_fma[-1] else 'FMAs allowed'})")
+        kernel = spills = ""
+        for line in report:
+            if "Compiling entry" in line:
+                kernel = kernel_name(line.split("'")[1])
+            if "bytes spill" in line:
+                spills = line.strip()
+            if "registers" in line:
+                log(f"  nvcc {kernel}: {line.split(':')[-1].strip()}; "
+                    f"{spills}")
+    check(no_fma == [True, False], "warp is built with --fmad=false, "
+                                   "flash_attention with FMAs")
 
     def rand_images(n=BATCH):
         return torch.randint(0, 256, (n, SIZE, SIZE, 3), dtype=torch.uint8,
@@ -401,6 +925,14 @@ def main():
             f"bound {bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}) on "
             f"{CARD}")
     torch.cuda.synchronize()
+    del cold, pool, model
+
+    # 8-11. flash attention: kernels against plain versions, the seq2seq
+    # train step, a ViT on the kernel, kernel times
+    flash_errors = check_flash_kernels(torch, fa, dev)
+    flash_launches = seq2seq_path(torch, fa, dev)
+    vit_on_flash(torch, fa, dev, imgs)
+    rows += time_flash_kernels(torch, fa, dev, flash_launches, flash_errors)
 
     log(json.dumps({"kernels": rows}))
     log(CARD)

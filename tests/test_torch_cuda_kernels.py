@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions on the
-card, at odd sizes the main path does not reach. Marked ``cuda``: they skip
+"""The CUDA kernels K1, K2 and K3a-c (flash attention forward, dK/dV, dQ)
+against their plain PyTorch versions on the card, at odd sizes the main
+paths do not reach. Marked ``cuda``: they skip
 on a machine without a card. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from chambers_tpu_torch.augmentations.augmentation_schemes import RandAugment
+from chambers_tpu_torch.ops import flash_attention as fa
 from chambers_tpu_torch.ops import image_ops as iops
 from chambers_tpu_torch.ops import warp_kernels as wk
 
@@ -96,3 +98,118 @@ def test_kernel_wrappers_count_and_reject(dev):
         wk.fused_round(x.float(), ident, 0, 0, 0, fill_value=0, pad=2,
                        color_factor=1.0, sharp_factor=1.0, cut_half=0,
                        cut_fill=0)
+
+
+# (b, n, tq, tk, h, dtype, causal, masked): ragged edges, one tile and many,
+# cross lengths with the diagonal at the end (more keys than queries and
+# fewer), bn not a multiple of anything
+FLASH_CASES = [
+    (2, 3, 197, 197, 64, torch.float32, False, False),
+    (1, 2, 130, 260, 64, torch.float32, True, False),
+    (1, 2, 4, 8, 64, torch.float32, True, True),
+    (3, 2, 70, 150, 64, torch.float32, False, True),
+    (2, 5, 257, 257, 64, torch.bfloat16, True, True),
+    (1, 1, 63, 65, 64, torch.bfloat16, False, True),
+    (2, 2, 64, 1, 64, torch.float32, False, False),
+    (1, 2, 260, 130, 64, torch.float32, True, False),  # rows with no key
+]
+
+
+def _flash_inputs(dev, b, n, tq, tk, h, dtype, masked, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(t):
+        return torch.randn((b * n, t, h), device=dev, generator=g).to(dtype)
+
+    q, k, v, do = rand(tq), rand(tk), rand(tk), rand(tq)
+    mask = None
+    if masked:
+        mask = (torch.rand((b, tk), device=dev, generator=g) > 0.3).float()
+        mask[:, 0] = 1.0
+        mask[-1] = 0.0  # the last batch item has no valid key
+    return q, k, v, do, mask
+
+
+def _assert_close(got, ref, dtype, grad=False):
+    """Element-wise |d| <= atol + rtol |ref| and a relative rms limit.
+    float32: sums run in another order (2e-5 on outputs, 1e-4 of a
+    gradient's largest value, rms 1e-5). bf16: rtol is one step of the
+    output type, atol the two roundings of the probabilities (2^-9 of each
+    term p v on either side), and the rms of evenly spread rounding errors
+    stays under half a step."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    if dtype == torch.float32:
+        rtol, rms = 0.0, 1e-5
+        atol = 1e-4 * max(1.0, float(ref.abs().max())) if grad else 2e-5
+    else:
+        rtol, atol, rms = 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
+    assert float((d - rtol * ref.abs()).max()) <= atol
+    # a reference that cancels to zero (with one key ds = 0, so dq = dk = 0
+    # up to rounding) has no relative error to speak of
+    if float(ref.abs().max()) > 1e-3:
+        assert float(d.norm() / ref.norm()) <= rms
+
+
+@pytest.mark.parametrize("b,n,tq,tk,h,dtype,causal,masked", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
+                                   masked):
+    q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype, masked)
+    scale = h ** -0.5
+    o, l, m = fa.launch_forward(q, k, v, mask, scale, causal, n)
+    o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal, mask, n)
+    torch.cuda.synchronize()
+    _assert_close(o, o_p, dtype)
+    assert bool(torch.isfinite(m).all())
+    assert torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(l, l_p, rtol=1e-4, atol=1e-6)
+    if masked:
+        assert not o[-n:].any() and not l[-n:].any()
+
+    # the backward kernels on the forward kernel's own saved o, l, m, as
+    # the autograd function chains them
+    args = (q, k, v, do, l, m, fa.delta(o, do), mask, scale, causal, n)
+    dk, dv = fa.launch_backward_dkv(*args)
+    dq = fa.launch_backward_dq(*args)
+    want = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do, scale, causal,
+                                   mask, n)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        _assert_close(got, ref, dtype, grad=True)
+    if masked:
+        assert not dq[-n:].any() and not dk[-n:].any() and not dv[-n:].any()
+    if causal and tq > tk:  # rows above the end-aligned diagonal
+        assert not o[:, :tq - tk].any() and not dq[:, :tq - tk].any()
+
+
+def test_flash_attention_autograd_counts_and_rejects(dev):
+    b, n, t, h = 2, 2, 100, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    # slices of one stacked projection, as the attention layer hands over
+    qkv = torch.randn((3, b, n, t, h), device=dev, generator=g,
+                      requires_grad=True)
+    mask = torch.rand((b, t), device=dev, generator=g) > 0.2
+    mask[:, 0] = True
+    before = dict(fa.flash_attention.launches)
+    out = fa.flash_attention(qkv[0], qkv[1], qkv[2], causal=True,
+                             kv_mask=mask)
+    out.pow(2).sum().backward()
+    after = fa.flash_attention.launches
+    assert {k: after[k] - before[k] for k in after} == {
+        "fwd": 1, "dkv": 1, "dq": 1}
+    cpu = qkv.detach().cpu().requires_grad_()
+    ref = fa.flash_attention(cpu[0], cpu[1], cpu[2], causal=True,
+                             kv_mask=mask.cpu())
+    ref.pow(2).sum().backward()
+    assert float((out.detach().cpu() - ref.detach()).abs().max()) <= 2e-5
+    assert float((qkv.grad.cpu() - cpu.grad).abs().max()) <= 1e-3
+    # permuted views are copied, not refused; other head sizes are refused
+    perm = torch.randn((b, t, n, h), device=dev, generator=g).permute(
+        0, 2, 1, 3)
+    got = fa.flash_attention(perm, perm)
+    want = fa.flash_attention(perm.cpu(), perm.cpu())
+    assert float((got.cpu() - want).abs().max()) <= 2e-5
+    bad = torch.randn((1, 1, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(bad, bad)

@@ -1,0 +1,316 @@
+"""The port's flash attention on the CPU (its plain versions, through the
+hand-written autograd function) against the JAX package's Pallas kernels
+run in interpret mode, on the same numpy inputs.
+
+Tolerances are those of ``tests/test_flash_attention.py``: float32 outputs
+2e-5 (sums run in another order), bf16 outputs 3e-2 (the rounding of the
+output type at |o| of a few units), gradients atol 1e-3 / rtol 1e-3, and
+5e-3 under the padding mask. The saved softmax statistics ``l, m`` are held
+to ``_flash_forward``'s at rtol 1e-5."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chambers_tpu.layers.attention import MultiHeadAttention as JaxMHA
+from chambers_tpu.ops import flash_attention as jflash
+from chambers_tpu_torch.layers.attention import (
+    MultiHeadAttention,
+    scaled_dot_product_attention,
+)
+from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
+from chambers_tpu_torch.ops import flash_attention as tflash
+
+CPU = "cpu"
+
+
+def _qkv(seed, shape_q, shape_kv=None, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    shape_kv = shape_kv or shape_q
+    return (rng.randn(*shape_q).astype(dtype),
+            rng.randn(*shape_kv).astype(dtype),
+            rng.randn(*shape_kv).astype(dtype))
+
+
+def _mask(seed, b, t, keep_first, drop=0.25):
+    mask = np.random.RandomState(seed).rand(b, t) > drop
+    mask[:, :keep_first] = True
+    return mask
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _f32(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+# name: (q shape, kv shape, causal, mask (seed, keep_first, drop) or "none"
+# or "zeros", bf16)
+FORWARD_CASES = {
+    "vit_197": ((2, 3, 197, 64), None, False, None, False),
+    "vit_197_causal": ((2, 3, 197, 64), None, True, None, False),
+    "non_multiple_577": ((1, 2, 577, 64), None, False, None, False),
+    "cross_130x260": ((1, 2, 130, 64), (1, 2, 260, 64), False, None, False),
+    "bf16_197": ((2, 3, 197, 64), None, False, None, True),
+    "kv_mask": ((2, 3, 197, 64), None, False, (7, 2, 0.25), False),
+    "kv_mask_causal": ((2, 3, 197, 64), None, True, (7, 2, 0.25), False),
+    "kv_mask_cross_70x150": ((2, 2, 70, 32), (2, 2, 150, 32), False,
+                             (9, 1, 0.3), False),
+    "kv_mask_bf16_causal": ((2, 2, 140, 64), None, True, (11, 2, 0.25),
+                            True),
+    "fully_masked_rows": ((1, 2, 130, 16), None, False, "zeros", False),
+    "causal_cross_4x8": ((1, 2, 4, 64), (1, 2, 8, 64), True, None, False),
+    "causal_cross_130x260": ((1, 1, 130, 64), (1, 1, 260, 64), True, None,
+                             False),
+}
+
+
+def _case(name):
+    shape_q, shape_kv, causal, mask, bf16 = FORWARD_CASES[name]
+    q, k, v = _qkv(len(name), shape_q, shape_kv)
+    b, tk = shape_q[0], (shape_kv or shape_q)[2]
+    if mask == "zeros":
+        mask = np.zeros((b, tk), bool)
+    elif mask is not None:
+        mask = _mask(mask[0], b, tk, mask[1], mask[2])
+    return q, k, v, causal, mask, bf16
+
+
+@pytest.mark.parametrize("name", sorted(FORWARD_CASES))
+def test_forward_matches_jax_kernel(name):
+    q, k, v, causal, mask, bf16 = _case(name)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                            torch.float32)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    want = jflash.flash_attention(
+        jq, jv, jk, causal=causal,
+        kv_mask=None if mask is None else jnp.asarray(mask))
+    got = tflash.flash_attention(
+        _t(q, tdt), _t(v, tdt), _t(k, tdt), causal=causal,
+        kv_mask=None if mask is None else _t(mask))
+    assert got.dtype == tdt and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(_f32(got), np.asarray(want, np.float32),
+                               atol=3e-2 if bf16 else 2e-5)
+    if name == "fully_masked_rows":
+        assert np.array_equal(_f32(got), np.zeros(q.shape, np.float32))
+
+    # the saved statistics against _flash_forward's
+    b, n, tq, h = q.shape
+    tk = k.shape[2]
+    fold = lambda x: x.reshape(b * n, x.shape[2], h)
+    scale = 1.0 / math.sqrt(h)
+    block_q, block_k = jflash._auto_block(tq), jflash._auto_block(tk)
+    _, l_want, m_want = jflash._flash_forward(
+        fold(jq), fold(jk), fold(jv), scale, causal, block_q, block_k, True,
+        kv_mask=None if mask is None else jnp.asarray(mask, jnp.float32),
+        n_heads=n)
+    _, l_got, m_got = tflash.flash_forward_plain(
+        fold(_t(q, tdt)), fold(_t(k, tdt)), fold(_t(v, tdt)), scale, causal,
+        None if mask is None else _t(mask, torch.float32), n)
+    assert l_got.dtype == m_got.dtype == torch.float32
+    assert tuple(l_got.shape) == tuple(m_got.shape) == (b * n, tq, 1)
+    np.testing.assert_allclose(m_got.numpy(), np.asarray(m_want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(l_got.numpy(), np.asarray(l_want), rtol=1e-4,
+                               atol=1e-6)
+
+
+# name: (q shape, kv shape, causal, mask, atol, rtol)
+GRAD_CASES = {
+    "plain_64": ((2, 1, 64, 64), None, False, None, 1e-3, 1e-3),
+    "causal_130": ((1, 1, 130, 64), None, True, None, 1e-3, 1e-3),
+    "kv_mask_197": ((2, 3, 197, 64), None, False, (8, 2, 0.25), 5e-3, 1e-3),
+    "kv_mask_causal_140": ((2, 2, 140, 32), None, True, (12, 2, 0.25), 5e-3,
+                           1e-3),
+    "causal_cross_4x8": ((1, 2, 4, 64), (1, 2, 8, 64), True, None, 1e-3,
+                         1e-3),
+    "cross_70x150_mask": ((2, 2, 70, 32), (2, 2, 150, 32), False,
+                          (9, 1, 0.3), 5e-3, 1e-3),
+}
+
+
+def _torch_grads(fn, q, k, v):
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    fn(tq, tk, tv).pow(2).sum().backward()
+    return [_f32(x.grad) for x in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_gradients_match_jax_kernel_and_dense_autograd(name):
+    shape_q, shape_kv, causal, mask, atol, rtol = GRAD_CASES[name]
+    q, k, v = _qkv(100 + len(name), shape_q, shape_kv)
+    if mask is not None:
+        mask = _mask(mask[0], shape_q[0], k.shape[2], mask[1], mask[2])
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else _t(mask)
+
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jflash.flash_attention(
+            q, v, k, causal=causal, kv_mask=jmask) ** 2),
+        argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    got = _torch_grads(
+        lambda q, k, v: tflash.flash_attention(q, v, k, causal=causal,
+                                               kv_mask=tmask), q, k, v)
+    dense = _torch_grads(
+        lambda q, k, v: scaled_dot_product_attention(
+            q, v, k, causal=causal, v_mask=tmask), q, k, v)
+    for g, w, d in zip(got, want, dense):
+        np.testing.assert_allclose(g, np.asarray(w), atol=atol, rtol=rtol)
+        np.testing.assert_allclose(g, d, atol=atol, rtol=rtol)
+
+
+def test_fully_masked_rows_have_zero_finite_gradients():
+    q, k, v = _qkv(3, (2, 2, 40, 16))
+    mask = np.ones((2, 40), bool)
+    mask[1] = False  # batch item 1 has no valid key at all
+    got = _torch_grads(
+        lambda q, k, v: tflash.flash_attention(q, v, k, kv_mask=_t(mask)),
+        q, k, v)
+    for g in got:
+        assert np.isfinite(g).all()
+        assert np.array_equal(g[1], np.zeros_like(g[1]))
+        assert np.abs(g[0]).max() > 0
+
+
+def test_causal_rows_above_the_end_aligned_diagonal_are_zero():
+    """More queries than keys: the first ``tq - tk`` rows see no key and
+    give zeros, with ``l == 0`` and ``m`` at the mask value."""
+    tq, tk = 9, 4
+    q, k, v = _qkv(8, (1, 2, tq, 16), (1, 2, tk, 16))
+    ts = [_t(x).requires_grad_() for x in (q, k, v)]
+    out = tflash.flash_attention(ts[0], ts[2], ts[1], causal=True)
+    out.pow(2).sum().backward()
+    assert not out[:, :, :tq - tk].any() and out[:, :, tq - tk:].any()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
+    assert not ts[0].grad[:, :, :tq - tk].any()
+    dense = scaled_dot_product_attention(_t(q), _t(v), _t(k), causal=True)
+    np.testing.assert_allclose(_f32(out[:, :, tq - tk:]),
+                               _f32(dense[:, :, tq - tk:]), atol=2e-5)
+    _, l, m = tflash.flash_forward_plain(
+        *(_t(x).reshape(2, -1, 16) for x in (q, k, v)), 0.25, True)
+    assert not l[:, :tq - tk].any()
+    assert bool((m[:, :tq - tk] == tflash.MASK_VALUE).all())
+
+
+def test_bf16_gradients_have_input_dtype_and_follow_float32():
+    q, k, v = _qkv(4, (1, 2, 70, 64))
+    mask = _t(_mask(5, 1, 70, 2))
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = [_t(x, dtype).requires_grad_() for x in (q, k, v)]
+        out = tflash.flash_attention(ts[0], ts[2], ts[1], causal=True,
+                                     kv_mask=mask)
+        out.float().pow(2).sum().backward()
+        assert all(t.grad.dtype == dtype for t in ts)
+        grads[dtype] = [_f32(t.grad) for t in ts]
+    for g16, g32 in zip(grads[torch.bfloat16], grads[torch.float32]):
+        # bf16 inputs, probabilities and outputs: ~3 significant digits
+        assert np.abs(g16 - g32).max() <= 0.05 * np.abs(g32).max()
+
+
+def test_scale_is_a_divisor_and_key_defaults_to_value():
+    q, k, v = _qkv(6, (1, 1, 9, 8))
+    want = jflash.flash_attention(jnp.asarray(q), jnp.asarray(v), scale=3.0)
+    got = tflash.flash_attention(_t(q), _t(v), scale=3.0)
+    np.testing.assert_allclose(_f32(got), np.asarray(want), atol=2e-5)
+    dense = scaled_dot_product_attention(_t(q), _t(v), scale=3.0)
+    np.testing.assert_allclose(_f32(got), _f32(dense), atol=2e-5)
+
+
+def test_wrapper_rejects_what_it_does_not_take():
+    q, k, v = (_t(x) for x in _qkv(7, (2, 2, 5, 8)))
+    with pytest.raises(ValueError, match="kv_mask shape"):
+        tflash.flash_attention(q, v, k, kv_mask=torch.ones(2, 4).bool())
+    with pytest.raises(ValueError, match="kv_mask shape"):
+        jflash.flash_attention(jnp.asarray(q.numpy()), jnp.asarray(v.numpy()),
+                               kv_mask=jnp.ones((2, 4), bool))
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q.half(), v.half(), k.half())
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, v[:, :, :4], k)
+    assert set(tflash.flash_attention.launches) == {"fwd", "dkv", "dq"}
+
+
+@pytest.mark.parametrize("kind", ["self_masked", "cross_causal_masked"])
+def test_multi_head_attention_flash_matches_jax_module(kind):
+    rng = np.random.RandomState(0)
+    b, t, d, n = 2, 140, 32, 4
+    x = rng.randn(b, t, d).astype(np.float32)
+    mask = rng.rand(b, t) > 0.25
+    mask[:, 0] = True
+    causal = kind != "self_masked"
+    if causal:
+        mem = rng.randn(b, t, d).astype(np.float32)
+        jin, tin = [x, mem, mem], [_t(x), _t(mem), _t(mem)]
+        tin[2] = tin[1]
+    else:
+        jin, tin = [x, x], [_t(x)] * 3
+    jmod = JaxMHA(head_dim=d // n, num_heads=n, dropout_rate=0.0,
+                  causal=causal, attention_impl="flash")
+    params = jmod.init(jax.random.PRNGKey(0), jin)["params"]
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * np.random.RandomState(1).randn(*a.shape).astype(
+            np.float32), params)
+    want = jmod.apply({"params": params}, jin, mask=[mask, mask])
+    port = MultiHeadAttention(d, d // n, n, causal=causal,
+                              attention_impl="flash", device=CPU)
+    port.load_state_dict(state_dict_from_jax(jax.device_get(params)))
+    got = port.eval()(tin, mask=[_t(mask), _t(mask)])
+    np.testing.assert_allclose(_f32(got), np.asarray(want), atol=2e-5)
+
+
+def test_multi_head_attention_flash_refuses_score_dtype():
+    x = _t(_qkv(0, (1, 4, 8))[0])
+    with pytest.raises(ValueError, match="score_dtype"):
+        MultiHeadAttention(8, 4, 2, attention_impl="flash",
+                           score_dtype=torch.bfloat16, device=CPU)([x, x, x])
+    jx = jnp.asarray(x.numpy())
+    jmod = JaxMHA(head_dim=4, num_heads=2, attention_impl="flash",
+                  score_dtype=jnp.bfloat16)
+    with pytest.raises(ValueError, match="score_dtype"):
+        jmod.init(jax.random.PRNGKey(0), [jx, jx])
+
+
+def test_attention_dropout_keep_share_scaling_and_dense_switch():
+    rate, t = 0.25, 64
+    q = torch.zeros(1, 1, t, 4)          # uniform probabilities 1 / t
+    v = torch.ones(1, 1, t, 4)
+    gen = torch.Generator().manual_seed(0)
+    out = scaled_dot_product_attention(q, v, dropout_rate=rate,
+                                       deterministic=False, generator=gen)
+    # each row sums kept probabilities (1/t) / (1 - rate): the keep share
+    kept = out[0, 0, :, 0] * (1 - rate)
+    assert abs(float(kept.mean()) - (1 - rate)) < 0.03
+    assert float(kept.min()) < 1.0 and bool(
+        torch.allclose(kept * t, (kept * t).round(), atol=1e-4))
+    same = scaled_dot_product_attention(q, v, dropout_rate=rate,
+                                        deterministic=True)
+    assert bool(torch.allclose(same, torch.ones_like(same)))
+    with pytest.raises(NotImplementedError):
+        scaled_dot_product_attention(q, v, dropout_rate=rate,
+                                     deterministic=False, impl="flash")
+
+    # the module never gives way to the dense path on its own: with
+    # attention_impl="flash" an active dropout raises, and the kernel path
+    # runs whenever dropout is off
+    x = _t(_qkv(2, (2, 10, 16))[0])
+    mha = MultiHeadAttention(16, 8, 2, attention_impl="flash",
+                             dropout_rate=rate, device=CPU)
+    mha.reset_parameters(torch.Generator().manual_seed(1))
+    dense = MultiHeadAttention(16, 8, 2, dropout_rate=rate, device=CPU)
+    dense.load_state_dict(mha.state_dict())
+    with pytest.raises(NotImplementedError, match="dropout"):
+        mha.train()([x, x, x], generator=torch.Generator().manual_seed(3))
+    b = dense.train()([x, x, x], generator=torch.Generator().manual_seed(3))
+    c = mha.eval()([x, x, x])
+    assert not torch.equal(b, c)
+    assert torch.equal(mha.train()([x, x, x], deterministic=True), c)
+    np.testing.assert_allclose(_f32(c), _f32(dense.eval()([x, x, x])),
+                               atol=2e-5)

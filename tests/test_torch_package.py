@@ -83,9 +83,16 @@ def test_not_yet_ported_paths_say_so():
     )
     from chambers_tpu_torch.quantization import QuantDense
 
+    from chambers_tpu_torch.layers.transformer import Encoder
+
+    # the flash kernel is ported: the branch runs (on the CPU through its
+    # plain version); the mixture-of-experts layers still wait
     q = torch.zeros(1, 1, 2, 4)
+    assert torch.equal(scaled_dot_product_attention(q, q, impl="flash"), q)
+    with pytest.raises(ValueError, match="impl"):
+        scaled_dot_product_attention(q, q, impl="pallas")
     with pytest.raises(NotImplementedError, match="later slice"):
-        scaled_dot_product_attention(q, q, impl="flash")
+        Encoder(8, 2, 16, 2, moe_every_n=2, device="cpu")
     dense = QuantDense(4, 3, device="cpu")
     dense.kernel_scale = torch.ones(1, 3)
     with pytest.raises(NotImplementedError, match="int8"):
