@@ -8,8 +8,10 @@ the repository are compiled. Flags are per library: ``NVCC_FLAGS`` holds
 ``--fmad=false``, which keeps every float multiply rounded on its own, as
 the JAX package's image blends require (the ``warp`` library);
 ``FMA_FLAGS`` is the same list without it, for kernels whose inner products
-are FMAs (the ``flash_attention`` library). ``nvcc``'s register and spill
-report (``-Xptxas -v``) is kept beside the library as ``<name>-<hash>.log``.
+are FMAs or tensor-core products (the ``flash_attention`` library).
+``--threads 0`` lets ``nvcc`` compile a library's sources side by side. Its
+register and spill report (``-Xptxas -v``) is kept beside the library as
+``<name>-<hash>.log``.
 """
 
 import ctypes
@@ -24,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--threads", "0", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 FMA_FLAGS = [f for f in NVCC_FLAGS if f != "--fmad=false"]
 
@@ -45,7 +48,8 @@ def build(name: str, sources, flags=None) -> Path:
     """Compile ``sources`` (names under ``csrc/``) with ``flags``
     (``NVCC_FLAGS`` if None) into ``build/<name>-<hash>.so`` unless it
     exists; return its path. The compiler's report goes beside it as
-    ``.log``."""
+    ``.log``. A ``.cuh`` among the sources is a header the others include:
+    it counts in the hash and is not handed to the compiler."""
     flags = NVCC_FLAGS if flags is None else list(flags)
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(flags).encode())
@@ -56,7 +60,8 @@ def build(name: str, sources, flags=None) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp),
+           *(str(p) for p in paths if p.suffix != ".cuh")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"

@@ -2,7 +2,10 @@
 // backward, with a plain C interface loaded through ctypes
 // (chambers_tpu_torch/ops/flash_attention.py holds the wrapper, the
 // autograd function and the plain PyTorch versions they are checked
-// against).
+// against). This source holds the C interface, the forward kernel for both
+// types and the float32 backward kernels; bfloat16 backward calls go to the
+// tensor-core kernels of flash_attention_bwd.cu, the library's second
+// source.
 //
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
@@ -24,14 +27,18 @@
 // 34 MB (10.2 us at an H100 SXM's 3.35 TB/s) and does 4 * bn * tq * tk * h
 // = 8.6 GFLOP (8.7 us at the tensor cores' 989 TFLOP/s in bf16): the two
 // are level, and longer sequences tip it to operations. dK/dV (17.2 GFLOP,
-// 17.4 us) and dQ (12.9 GFLOP, 13.0 us) are bound by operations. These
-// first kernels do not use the tensor cores: every product is a float32 FMA
-// on the CUDA cores, whose peak of 67 TFLOP/s is a fifteenth of that rate,
-// so they sit far from the bound by construction (measured 26 to 31
-// TFLOP/s, about 3% of the bound, on an NVIDIA H100 80GB HBM3 at 700 W by
-// chip_smoke.py). That is the price of one simple code path that is exact
-// for both input types (a bf16 product is exact in float32, so the sums
-// differ from a tensor-core product only in their order).
+// 17.4 us) and dQ (12.9 GFLOP, 13.0 us) are bound by operations. The
+// kernels in this file do not use the tensor cores: every product is a
+// float32 FMA on the CUDA cores, whose peak of 67 TFLOP/s is a fifteenth of
+// that rate, so they sit far from the bf16 bound by construction (measured
+// 26 to 31 TFLOP/s on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py).
+// That is the price of one simple code path that is exact for both input
+// types (a bf16 product is exact in float32, so the sums differ from a
+// tensor-core product only in their order). float32 operands need it: the
+// card holds float32 gradients to 1e-4 of their largest value, which TF32's
+// three digits cannot meet. The bfloat16 backward, where the gap to a
+// library call was widest, no longer takes these kernels; the forward still
+// does for both types.
 //
 // Design: the TPU grid's last, sequential dimension carried m, l and the
 // accumulators in VMEM scratch from step to step. Here that dimension is a
@@ -56,8 +63,9 @@
 // Takes head size 64 (the kernels are templates over it; only 64 is
 // instantiated, being the only one a path runs and the card checks),
 // float32 or bfloat16, contiguous operands whose base addresses are
-// multiples of 16 bytes. Built WITHOUT
-// --fmad=false: the inner products are FMAs.
+// multiples of 16 bytes. Built WITHOUT --fmad=false: the inner products of
+// these kernels are FMAs, and those of flash_attention_bwd.cu run on the
+// tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -585,13 +593,26 @@ constexpr int kBFloat16 = 1;
 
 }  // namespace
 
+// the bfloat16 backward on the tensor cores, head size 64
+// (flash_attention_bwd.cu)
+cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* l, const void* m,
+                               const void* di, const void* kv_mask, void* dk,
+                               void* dv, int bn, int tq, int tk, int n_heads,
+                               float scale, int causal, cudaStream_t stream);
+cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* l, const void* m,
+                              const void* di, const void* kv_mask, void* dq,
+                              int bn, int tq, int tk, int n_heads, float scale,
+                              int causal, cudaStream_t stream);
+
 // dtype: 0 float32, 1 bfloat16; h: 64. Anything else is refused
-// with cudaErrorInvalidValue. Empty problems launch nothing.
-#define FLASH_DISPATCH(LAUNCH, ...)                                          \
+// with cudaErrorInvalidValue. Empty problems launch nothing. The backward
+// takes other kernels for bfloat16 (BF16) than for float32 (LAUNCH).
+#define FLASH_DISPATCH(LAUNCH, BF16, ...)                                    \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
-  if (dtype == kBFloat16 && h == 64)                                         \
-    return (int)LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                      \
+  if (dtype == kBFloat16 && h == 64) return (int)BF16(__VA_ARGS__);          \
   return (int)cudaErrorInvalidValue;
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -599,8 +620,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int bn, int tq, int tk, int h, int n_heads,
                          float scale, int causal, int dtype, void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_fwd, q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
-                 scale, causal, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_fwd, (launch_fwd<__nv_bfloat16, 64>), q, k, v,
+                 kv_mask, o, l, m, bn, tq, tk, n_heads, scale, causal,
+                 (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -610,8 +632,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int n_heads, float scale, int causal, int dtype,
                              void* stream) {
   if (bn == 0 || tk == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, l, m, di, kv_mask, dk, dv, bn, tq,
-                 tk, n_heads, scale, causal, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_dkv, flash_bwd_dkv_bf16, q, k, v, dout, l, m, di,
+                 kv_mask, dk, dv, bn, tq, tk, n_heads, scale, causal,
+                 (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -621,8 +644,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int causal, int dtype,
                             void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
-                 n_heads, scale, causal, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_dq, flash_bwd_dq_bf16, q, k, v, dout, l, m, di,
+                 kv_mask, dq, bn, tq, tk, n_heads, scale, causal,
+                 (cudaStream_t)stream)
 }
 
 extern "C" const char* cuda_error_string(int code) {

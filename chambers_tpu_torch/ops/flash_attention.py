@@ -1,6 +1,6 @@
 """Blockwise (flash) attention: the wrapper, the autograd function and the
-plain PyTorch versions of the three CUDA kernels in
-``csrc/flash_attention.cu``.
+plain PyTorch versions of the CUDA kernels in ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu``.
 
 Port of ``chambers_tpu/ops/flash_attention.py``:
 
@@ -10,8 +10,12 @@ Port of ``chambers_tpu/ops/flash_attention.py``:
 - K3b ``flash_bwd_dkv`` replaces the dK/dV call of ``_flash_backward``.
 - K3c ``flash_bwd_dq`` replaces its dQ call.
 
-See the note at the top of the CUDA source for what bounds the kernels on
-the card and for their design. :func:`flash_attention` is the public
+K3b and K3c are two kernels each behind one C function: bfloat16 operands
+take the tensor-core kernels of ``flash_attention_bwd.cu`` (built on
+``flash_tiles.cuh``), float32 operands the FMA kernels of
+``flash_attention.cu``, which also holds K3a for both types. See the notes
+at the top of the CUDA sources for what bounds the kernels on the card and
+for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
 JAX function's. It goes through :class:`FlashAttentionFunction`, which
 saves ``q, k, v, o, l, m`` and the mask and launches K3a in ``forward`` and
@@ -25,9 +29,10 @@ On CPU tensors the function runs :func:`flash_forward_plain` and
 :func:`flash_backward_plain`, which state the kernels' semantics in
 PyTorch: zeros for a row whose keys are all masked, the causal diagonal at
 the sequence end, scores from the input type with float32 accumulation,
-probabilities cast to ``v``'s type before ``p v``, a float32 backward that
-recomputes ``p`` from the saved ``l, m``. On a CUDA tensor it launches the
-kernels or raises: there is no fallback.
+probabilities cast to ``v``'s type before ``p v``, a backward that
+recomputes ``p`` from the saved ``l, m`` in float32 and rounds ``p`` and
+``ds`` to the operands' type before the products that consume them. On a
+CUDA tensor it launches the kernels or raises: there is no fallback.
 
 The kernels take contiguous operands: the wrapper makes ``q, k, v`` and the
 incoming gradient contiguous (a copy when a projection hands over a
@@ -44,7 +49,9 @@ import torch
 
 from chambers_tpu_torch.ops import _build
 
-LIBRARY = ("flash_attention", ["flash_attention.cu"], _build.FMA_FLAGS)
+LIBRARY = ("flash_attention",
+           ["flash_attention.cu", "flash_attention_bwd.cu",
+            "flash_tiles.cuh"], _build.FMA_FLAGS)
 HEAD_SIZES = (64,)              # head_dim the CUDA kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
@@ -59,7 +66,9 @@ def _library():
     lib.flash_fwd.argtypes = [ptr] * 7 + tail
     lib.flash_bwd_dkv.argtypes = [ptr] * 10 + tail
     lib.flash_bwd_dq.argtypes = [ptr] * 9 + tail
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+    lib.flash_tile_products.argtypes = [ptr] * 5
+    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
+               lib.flash_tile_products):
         fn.restype = i32
     return lib
 
@@ -117,8 +126,12 @@ def flash_forward_plain(q, k, v, scale, causal=False, kv_mask=None,
 
 def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
                          kv_mask=None, n_heads=1):
-    """K3b and K3c in PyTorch: ``(dq, dk, dv)`` from the saved ``l, m``,
-    in float32, cast to the inputs' types at the end."""
+    """K3b and K3c in PyTorch: ``(dq, dk, dv)`` from the saved ``l, m``.
+    ``p`` and ``ds`` are computed in float32 and rounded to the operands'
+    type before ``pᵀ do``, ``dsᵀ q`` and ``ds k`` (a tensor-core product in
+    bfloat16 takes bfloat16 on both sides; the identity for float32), the
+    products accumulate in float32, and the results are cast to the
+    inputs' types at the end."""
     keep = _keep_mask(q.shape[1], k.shape[1], causal, kv_mask, n_heads,
                       q.device)
     do32 = do.float()
@@ -127,6 +140,7 @@ def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
     if keep is not None:
         p = torch.where(keep, p, 0.0)
     ds = p * (torch.matmul(do32, v.float().transpose(1, 2)) - delta(o, do))
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dv = torch.matmul(p.transpose(1, 2), do32)
     dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
     dq = torch.matmul(ds, k.float()) * scale
@@ -199,7 +213,8 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
-    """Launch K3b alone: ``(dk, dv)``."""
+    """Launch K3b alone: ``(dk, dv)``. bfloat16 operands run
+    ``flash_bwd_dkv_tc_kernel``, float32 ``flash_bwd_dkv_kernel``."""
     lib = _library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -214,7 +229,8 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
 
 def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
-    """Launch K3c alone: ``dq``."""
+    """Launch K3c alone: ``dq``. bfloat16 operands run
+    ``flash_bwd_dq_tc_kernel``, float32 ``flash_bwd_dq_kernel``."""
     lib = _library()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -225,6 +241,28 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
     _check_launch(lib, code, "flash_bwd_dq_kernel")
     flash_attention.launches["dq"] += 1
     return dq
+
+
+def tile_products(x, y):
+    """The two products the bfloat16 backward kernels are built from, alone,
+    for a check on the card: ``x [128, 64]`` and ``y [64, 64]`` bfloat16
+    CUDA tensors give ``x yᵀ`` and ``bf16(x yᵀ) y`` as float32
+    ``[128, 64]``, through the kernels' own copies into shared memory,
+    fragments and tensor-core products."""
+    if (x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16
+            or tuple(x.shape) != (128, 64) or tuple(y.shape) != (64, 64)
+            or x.device.type != "cuda" or y.device != x.device):
+        raise ValueError("tile_products takes bfloat16 CUDA tensors "
+                         "[128, 64] and [64, 64]")
+    lib = _library()
+    x, y = _operand(x), _operand(y)
+    nt = torch.empty((128, 64), dtype=torch.float32, device=x.device)
+    tn = torch.empty_like(nt)
+    with torch.cuda.device(x.device):
+        code = lib.flash_tile_products(_ptr(x), _ptr(y), _ptr(nt), _ptr(tn),
+                                       _build.stream(x.device))
+    _check_launch(lib, code, "flash_tile_products_kernel")
+    return nt, tn
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -8,8 +8,8 @@ the CUDA toolkit. In order, it:
 
 1. prints the card's name and power limit;
 2. builds the two CUDA libraries (``warp`` with ``--fmad=false``,
-   ``flash_attention`` with FMAs) from ``chambers_tpu_torch/ops/csrc`` with
-   nvcc, both at once;
+   ``flash_attention`` with FMAs, from its two sources and their header)
+   from ``chambers_tpu_torch/ops/csrc`` with nvcc, both at once;
 3. holds kernel K2 (the separable warp) bit-equal to its plain PyTorch
    version at ``[32, 224, 224, 3]``;
 4. holds kernel K1 (the fused RandAugment round) bit-equal to its plain
@@ -28,9 +28,12 @@ the CUDA toolkit. In order, it:
    (dQ) against their plain versions, through ``flash_attention`` and its
    backward as the paths call them, at the train step's three uses
    (``[16, 8, 512, 64]`` bf16 with a ragged key mask, causal and not),
-   ViT-B/16's shape in bf16 and float32, cross lengths 130 x 260 and
-   260 x 130 with the diagonal at the end, and a batch item with no valid
-   key;
+   ViT-B/16's shape, cross lengths 130 x 260 and 260 x 130 with the
+   diagonal at the end, 63 x 65, 257 x 257 and 70 x 150 with key masks, one
+   key, and a batch item with no valid key, in bf16 (the tensor-core
+   backward kernels) and in float32 (the FMA ones); two backward launches
+   must give the same bits, and the two matrix products the bf16 backward
+   is built from are held alone against ``torch.matmul``;
 9. drives the second main path — the padded ``Seq2SeqTransformer`` train
    step with ``attention_impl="flash"`` at full width (vocabulary 1024,
    width 512, 8 heads, 4 + 4 layers, bf16, batch 16, lengths 512, 20-30%
@@ -41,7 +44,8 @@ the CUDA toolkit. In order, it:
 10. runs a ViT-B/16-wide, 2-layer ``VisionTransformer`` on the flash kernel
     against the dense path in float32;
 11. times K3a-c at ``[128, 512, 64]`` bf16 beside their plain versions and
-    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
+    and the float32 instances of K3b and K3c once;
 12. prints one ``kernels`` JSON line with all five kernels, the card line,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -128,13 +132,16 @@ def warp_matrices(torch, iops, b, device):
 
 def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
-    64>``; a name it cannot read comes back as it is."""
+    64>``, ``..flash_bwd_dq_tc_kernelILi2EE..`` -> ``flash_bwd_dq_tc_kernel<2
+    warpgroups>``; a name it cannot read comes back as it is."""
     found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
                       mangled)
     if not found:
         return mangled
     if not found.group(2):
-        return found.group(1)
+        groups = re.search(r"_kernelILi(\d)EE", mangled)
+        return found.group(1) + (f"<{groups.group(1)} warpgroups>"
+                                 if groups else "")
     dtype = "bf16" if "bfloat" in found.group(2) else "f32"
     return f"{found.group(1)}<{dtype}, {found.group(3)}>"
 
@@ -151,6 +158,15 @@ def ragged_mask(torch, b, t, dev, seed=0):
     keep = (t * (0.70 + 0.10 * rng.rand(b))).astype(int)
     return torch.arange(t, device=dev)[None, :] < torch.tensor(
         keep, device=dev)[:, None]
+
+
+def scattered_mask(torch, b, t, dev, seed):
+    """``[b, t]`` bool key mask that drops about 30% of the keys anywhere
+    and keeps the first."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = torch.rand((b, t), device=dev, generator=gen) > 0.3
+    keep[:, 0] = True
+    return keep
 
 
 def closeness(got, ref, rtol):
@@ -213,6 +229,18 @@ def check_flash_kernels(torch, fa, dev):
          260, 130, f32, True, None, "plain"),
         ("batch item with no valid key", 2, n, t, t, bf16, False, dead,
          "permuted"),
+        # the same edges for the bf16 backward kernels
+        ("cross lengths 130x260 causal bf16", 1, 2, 130, 260, bf16, True,
+         None, "plain"),
+        ("cross lengths 260x130 causal bf16, 130 rows with no key", 1, 2,
+         260, 130, bf16, True, None, "plain"),
+        ("63x65 bf16, key mask", 2, 1, 63, 65, bf16, False,
+         scattered_mask(torch, 2, 65, dev, 11), "plain"),
+        ("257x257 causal bf16, key mask", 2, 5, 257, 257, bf16, True,
+         scattered_mask(torch, 2, 257, dev, 12), "stacked"),
+        ("70x150 bf16, key mask", 3, 2, 70, 150, bf16, False,
+         scattered_mask(torch, 3, 150, dev, 13), "permuted"),
+        ("one key bf16", 2, 2, 64, 1, bf16, False, None, "plain"),
     ]
     gen = torch.Generator(device=dev).manual_seed(1)
     path_err = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
@@ -232,7 +260,11 @@ def check_flash_kernels(torch, fa, dev):
         do = rand(tq)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         o = fa.flash_attention(q, v, k, causal=causal, kv_mask=mask)
-        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+        again = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+              f"the backward kernels repeat ({label})")
 
         def fold(x):
             return x.detach().reshape(b_ * n_, x.shape[2], h)
@@ -259,12 +291,23 @@ def check_flash_kernels(torch, fa, dev):
             rtol, atol, rms_limit = flash_tolerance(torch, dtype, ref,
                                                     name != "o")
             errs[name], needs, rms = closeness(got, ref, rtol)
-            report.append(f"{name} {errs[name]:.3g} (over rtol "
-                          f"{max(needs, 0.0):.3g} <= {atol:.3g}, rms "
-                          f"{rms:.3g} <= {rms_limit:.3g})")
             check(needs <= atol, f"K3 {name} within atol {atol:.3g} + rtol "
                                  f"{rtol:.3g} per element ({label})")
-            check(rms <= rms_limit, f"K3 {name} rms error ({label})")
+            if tk == 1 and name in ("dq", "dk"):
+                # With one key p = 1 and ds = do . v - di = 0: what is left
+                # is the difference of two float32 sums of 64 products of
+                # size ~1 taken in two orders, ~1e-6, on either side. A
+                # relative error of that says nothing, so both are held to
+                # 2e-5 in absolute value instead.
+                top = max(float(got.abs().max()), float(ref.abs().max()))
+                closeness_note = f"both |x| <= {top:.3g} <= 2e-05"
+                check(top <= 2e-5, f"K3 {name} cancels to zero ({label})")
+            else:
+                closeness_note = f"rms {rms:.3g} <= {rms_limit:.3g}"
+                check(rms <= rms_limit, f"K3 {name} rms error ({label})")
+            report.append(
+                f"{name} {errs[name]:.3g} (over rtol {max(needs, 0.0):.3g} "
+                f"<= {atol:.3g}, {closeness_note})")
             check(bool(torch.isfinite(got).all()), f"finite {name} ({label})")
         log(f"K3 vs plain [{label}] [{b_ * n_}, {tq}x{tk}, {h}] "
             f"{str(dtype).split('.')[-1]} {layout}: max |d| "
@@ -286,6 +329,29 @@ def check_flash_kernels(torch, fa, dev):
             path_err["dkv"] = max(path_err["dkv"], errs["dk"], errs["dv"])
             path_err["dq"] = max(path_err["dq"], errs["dq"])
     return path_err
+
+
+def check_tile_products(torch, fa, dev):
+    """The two matrix products of the bf16 backward kernels' tiling alone
+    against ``torch.matmul``: ``x yᵀ`` from two tiles in shared memory, and
+    its bf16 rounding times ``y`` read along its rows, with the first
+    product's accumulator as the register operand. Holds the fragment
+    layout, the swizzle and the descriptors apart from the softmax. Sums
+    of 64 bf16 products in float32 in another order: 1e-5 of the largest
+    value."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((128, 64), device=dev, generator=gen).bfloat16()
+    y = torch.randn((64, 64), device=dev, generator=gen).bfloat16()
+    nt, tn = fa.tile_products(x, y)
+    torch.cuda.synchronize()
+    nt_ref = x.float() @ y.float().T
+    tn_ref = nt.bfloat16().float() @ y.float()
+    for name, got, ref in (("x y^T", nt, nt_ref), ("bf16(x y^T) y", tn,
+                                                   tn_ref)):
+        d, top = float((got - ref).abs().max()), float(ref.abs().max())
+        log(f"tile product {name} vs torch.matmul: max |d| {d:.3g} of "
+            f"{top:.3g}")
+        check(d <= 1e-5 * top, f"tile product {name} agrees with matmul")
 
 
 def seq2seq_tokens(torch, dev):
@@ -317,8 +383,8 @@ def seq2seq_loss(torch, model, src, tgt):
 def device_time_by_kind(torch, events):
     """Self device time in ms of a profile, split into the flash kernels,
     matrix products and everything else."""
-    kinds = {"flash_fwd_kernel": 0.0, "flash_bwd_dkv_kernel": 0.0,
-             "flash_bwd_dq_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"flash_fwd": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0,
+             "gemm": 0.0, "other": 0.0}
     counts = dict.fromkeys(kinds, 0)
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -487,8 +553,9 @@ def vit_on_flash(torch, fa, dev, images):
 def time_flash_kernels(torch, fa, dev, launches, errors):
     """Phase 11: K3a-c at the train step's shape, [128, 512, 64] bf16 with
     the ragged key mask (encoder self-attention and cross attention: 8 of a
-    step's 12 launches of each kernel; the causal use is timed beside it).
-    Returns the three rows of the ``kernels`` line."""
+    step's 12 launches of each kernel; the causal use is timed beside it),
+    and the float32 instances of K3b and K3c, which are other kernels, at
+    the same shape. Returns the three rows of the ``kernels`` line."""
     F = torch.nn.functional
     b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
     bn, scale = b * n, h ** -0.5
@@ -542,6 +609,22 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
         q, k, v = (four(x) for x in nxt()[:3])
         return fa.flash_attention(q, v, k, kv_mask=mask)
 
+    # the float32 backward: one set (the inputs alone are 67 MB)
+    q32, k32, v32, do32 = (x.float() for x in sets[0][:4])
+    o32, l32, m32 = fa.flash_forward_plain(q32, k32, v32, scale, False, fmask,
+                                           n)
+    args32 = (q32, k32, v32, do32, l32, m32, fa.delta(o32, do32), fmask,
+              scale, False, n)
+    float32_ms = {
+        "fwd": None,
+        "dkv": cuda_ms(torch, lambda: fa.launch_backward_dkv(*args32), 10,
+                       backlog=True),
+        "dq": cuda_ms(torch, lambda: fa.launch_backward_dq(*args32), 10,
+                      backlog=True)}
+    del q32, k32, v32, do32, o32, l32, m32, args32
+    source = {"fwd": "flash_attention.cu", "dkv": "flash_attention_bwd.cu",
+              "dq": "flash_attention_bwd.cu"}
+
     elem = 2  # bytes of a bf16 value
     qkv = 3 * bn * t * h * elem
     stats = bn * t * 4                       # one float32 row statistic
@@ -581,7 +664,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
         causal_bound_ms = max(bytes_ms, ops_ms / 2)
         rows.append({
             "name": name, "route": "cuda",
-            "source": "chambers_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": "chambers_tpu_torch/ops/csrc/" + source[key],
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": errors[key], "bit_equal": False,
             "ms": kernel_ms, "plain_ms": plain_ms,
@@ -591,6 +674,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
             "library_ms": lib_ms, "causal_ms": causal_ms,
             "causal_bound_ms": causal_bound_ms,
             "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
+            "float32_ms": float32_ms[key],
             "note": ("plain_ms and library_ms are the whole backward, dK/dV "
                      "and dQ together" if key != "fwd" else
                      "library_ms is F.scaled_dot_product_attention with the "
@@ -602,7 +686,10 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
             f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
-            f"{causal_bound_ms * 1e3:.2f} us) on {CARD}")
+            f"{causal_bound_ms * 1e3:.2f} us)"
+            + (f", float32 operands (the FMA kernels) "
+               f"{float32_ms[key] * 1e3:.1f} us" if key != "fwd" else "")
+            + f" on {CARD}")
     log(f"flash_attention wrapper call, forward: {wrapper_ms * 1e3:.1f} us "
         f"on {CARD}")
     torch.cuda.synchronize()
@@ -930,6 +1017,7 @@ def main():
     # 8-11. flash attention: kernels against plain versions, the seq2seq
     # train step, a ViT on the kernel, kernel times
     flash_errors = check_flash_kernels(torch, fa, dev)
+    check_tile_products(torch, fa, dev)
     flash_launches = seq2seq_path(torch, fa, dev)
     vit_on_flash(torch, fa, dev, imgs)
     rows += time_flash_kernels(torch, fa, dev, flash_launches, flash_errors)

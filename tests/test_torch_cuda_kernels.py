@@ -1,9 +1,10 @@
 """The CUDA kernels K1, K2 and K3a-c (flash attention forward, dK/dV, dQ)
 against their plain PyTorch versions on the card, at odd sizes the main
-paths do not reach. Marked ``cuda``: they skip
-on a machine without a card. On the card:
+paths do not reach. The backward K3b, K3c is two pairs of kernels: bf16
+operands take the tensor-core pair, float32 the FMA pair. Marked ``cuda``:
+they skip on a machine without a card. On the card:
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
 
 import math
@@ -112,6 +113,16 @@ FLASH_CASES = [
     (1, 1, 63, 65, 64, torch.bfloat16, False, True),
     (2, 2, 64, 1, 64, torch.float32, False, False),
     (1, 2, 260, 130, 64, torch.float32, True, False),  # rows with no key
+    # the same edges for the bf16 backward kernels (tiles of 64 rows, one
+    # warpgroup a block in K3b, two in K3c): the last batch item of a masked case has no
+    # valid key, the others do
+    (1, 2, 130, 260, 64, torch.bfloat16, True, False),
+    (1, 2, 260, 130, 64, torch.bfloat16, True, False),
+    (2, 1, 63, 65, 64, torch.bfloat16, False, True),
+    (3, 2, 70, 150, 64, torch.bfloat16, False, True),
+    (2, 2, 64, 1, 64, torch.bfloat16, False, False),
+    (2, 12, 197, 197, 64, torch.bfloat16, False, False),
+    (2, 3, 300, 200, 64, torch.bfloat16, True, True),
 ]
 
 
@@ -130,13 +141,17 @@ def _flash_inputs(dev, b, n, tq, tk, h, dtype, masked, seed=0):
     return q, k, v, do, mask
 
 
-def _assert_close(got, ref, dtype, grad=False):
+def _assert_close(got, ref, dtype, grad=False, cancels=False):
     """Element-wise |d| <= atol + rtol |ref| and a relative rms limit.
     float32: sums run in another order (2e-5 on outputs, 1e-4 of a
     gradient's largest value, rms 1e-5). bf16: rtol is one step of the
     output type, atol the two roundings of the probabilities (2^-9 of each
     term p v on either side), and the rms of evenly spread rounding errors
-    stays under half a step."""
+    stays under half a step. ``cancels``: the value is zero analytically
+    (with one key p = 1 and ds = do . v - di = 0, so dq = dk = 0) and what
+    is left on either side is the difference of two float32 sums of 64
+    products taken in two orders, ~1e-6; a relative error of that says
+    nothing, so both sides are held to 2e-5 in absolute value instead."""
     got, ref = got.float(), ref.float()
     d = (got - ref).abs()
     if dtype == torch.float32:
@@ -145,10 +160,11 @@ def _assert_close(got, ref, dtype, grad=False):
     else:
         rtol, atol, rms = 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
     assert float((d - rtol * ref.abs()).max()) <= atol
-    # a reference that cancels to zero (with one key ds = 0, so dq = dk = 0
-    # up to rounding) has no relative error to speak of
-    if float(ref.abs().max()) > 1e-3:
-        assert float(d.norm() / ref.norm()) <= rms
+    if cancels:
+        assert max(float(got.abs().max()), float(ref.abs().max())) <= 2e-5
+    else:  # a reference of exact zeros (no valid key) takes exact zeros
+        norm = float(ref.norm())
+        assert float(d.norm()) / (norm if norm else 1.0) <= rms
 
 
 @pytest.mark.parametrize("b,n,tq,tk,h,dtype,causal,masked", FLASH_CASES)
@@ -174,13 +190,64 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
     want = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do, scale, causal,
                                    mask, n)
     torch.cuda.synchronize()
-    for got, ref in zip((dq, dk, dv), want):
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
-        _assert_close(got, ref, dtype, grad=True)
+        _assert_close(got, ref, dtype, grad=True,
+                      cancels=tk == 1 and name != "dv")
+    # each output is written once by one block, no atomics: the same bits
+    again = (fa.launch_backward_dq(*args), *fa.launch_backward_dkv(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
     if masked:
         assert not dq[-n:].any() and not dk[-n:].any() and not dv[-n:].any()
     if causal and tq > tk:  # rows above the end-aligned diagonal
         assert not o[:, :tq - tk].any() and not dq[:, :tq - tk].any()
+
+
+def test_tile_products_match_matmul(dev):
+    """One product of each kind of the bf16 backward's tiling, alone: ``x
+    yᵀ`` from two swizzled tiles in shared memory, and its bf16 rounding
+    times ``y`` read along its rows with the first accumulator as the
+    register operand. Sums of 64 bf16 products in float32, in another order
+    than ``torch.matmul``'s: 1e-5 of the largest value. Known values first:
+    with ``y`` the identity both products return ``x``."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((128, 64), device=dev, generator=g).bfloat16()
+    nt, tn = fa.tile_products(x, torch.eye(64, device=dev).bfloat16())
+    torch.cuda.synchronize()
+    assert torch.equal(nt, x.float()) and torch.equal(tn, x.float())
+    y = torch.randn((64, 64), device=dev, generator=g).bfloat16()
+    nt, tn = fa.tile_products(x, y)
+    torch.cuda.synchronize()
+    nt_ref = x.float() @ y.float().T
+    tn_ref = nt.bfloat16().float() @ y.float()
+    assert float((nt - nt_ref).abs().max()) <= 1e-5 * float(nt_ref.abs().max())
+    assert float((tn - tn_ref).abs().max()) <= 1e-5 * float(tn_ref.abs().max())
+    with pytest.raises(ValueError):
+        fa.tile_products(x.float(), y)
+
+
+def test_backward_dtype_chooses_the_kernels(dev):
+    """bf16 operands run the tensor-core kernels, float32 the FMA kernels:
+    read from the profiler's kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, 64, dtype, False)
+        o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 2)
+        args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.launch_backward_dkv(*args)
+            fa.launch_backward_dq(*args)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    assert "flash_bwd_dkv_kernel" in names[torch.float32]
+    assert "flash_bwd_dq_kernel" in names[torch.float32]
+    assert "_tc_kernel" not in names[torch.float32]
+    assert "flash_bwd_dkv_tc_kernel" in names[torch.bfloat16]
+    assert "flash_bwd_dq_tc_kernel" in names[torch.bfloat16]
 
 
 def test_flash_attention_autograd_counts_and_rejects(dev):

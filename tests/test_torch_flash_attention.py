@@ -166,6 +166,85 @@ def test_gradients_match_jax_kernel_and_dense_autograd(name):
         np.testing.assert_allclose(g, d, atol=atol, rtol=rtol)
 
 
+# name: (q shape, kv shape, causal, mask (seed, keep_first, drop) or "dead")
+BF16_BACKWARD_CASES = {
+    "plain_130": ((2, 2, 130, 64), None, False, None),
+    "causal_197": ((1, 2, 197, 64), None, True, None),
+    "kv_mask_140": ((2, 3, 140, 64), None, False, (8, 2, 0.25)),
+    "causal_kv_mask_cross_70x150": ((2, 2, 70, 64), (2, 2, 150, 64), True,
+                                    (9, 1, 0.3)),
+    "dead_batch_item_96": ((2, 2, 96, 64), None, False, "dead"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_BACKWARD_CASES))
+def test_bf16_backward_plain_matches_jax_kernels(name):
+    """``flash_backward_plain`` in bf16 against the Pallas dK/dV and dQ
+    kernels in interpret mode, on the same bf16 ``q, k, v, do`` and the
+    same saved ``o, l, m`` (``_flash_forward``'s), so only the backward
+    differs.
+
+    The plain version states the CUDA kernels' arithmetic: ``p`` and ``ds``
+    are rounded to bf16 before ``pᵀ do``, ``dsᵀ q`` and ``ds k``, because a
+    bf16 tensor-core product takes bf16 on both sides. The Pallas kernels
+    keep them in float32. Tolerance: rtol 2^-7 is one step of the bf16
+    output (both round a float32 sum to a neighbouring value); atol is 2^-8
+    of the gradient's largest value, since every term of a sum moves by up
+    to 2^-9 of itself, twice over for ``ds`` (its own rounding on top of
+    the output's), and the terms cancel, so the error follows the
+    gradient's scale and not the element's; the relative rms error stays
+    under 2^-8 (measured 2.5e-3 to 2.8e-3: two independent bf16 roundings
+    of the output). A batch item with no valid key gives exact zeros on
+    both sides."""
+    shape_q, shape_kv, causal, mask = BF16_BACKWARD_CASES[name]
+    shape_kv = shape_kv or shape_q
+    rng = np.random.RandomState(len(name))
+    q, do = (rng.randn(*shape_q).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(*shape_kv).astype(np.float32) for _ in range(2))
+    b, n, tq, h = shape_q
+    tk = shape_kv[2]
+    if mask == "dead":
+        mask = np.ones((b, tk), bool)
+        mask[1] = False
+    elif mask is not None:
+        mask = _mask(mask[0], b, tk, mask[1], mask[2])
+
+    def fold(x):
+        return x.reshape(b * n, x.shape[2], h)
+
+    jq, jk, jv, jdo = (jnp.asarray(fold(x), jnp.bfloat16)
+                       for x in (q, k, v, do))
+    jmask = None if mask is None else jnp.asarray(mask, jnp.float32)
+    scale = 1.0 / math.sqrt(h)
+    blocks = dict(block_q=jflash._auto_block(tq),
+                  block_k=jflash._auto_block(tk))
+    o, l, m = jflash._flash_forward(
+        jq, jk, jv, scale, causal, blocks["block_q"], blocks["block_k"],
+        True, kv_mask=jmask, n_heads=n)
+    want = jflash._flash_backward(
+        jq, jk, jv, o, l, m, jdo, scale=scale, causal=causal, interpret=True,
+        kv_mask=jmask, n_heads=n, **blocks)
+
+    def bf16(x):
+        return _t(np.asarray(x, np.float32), torch.bfloat16)
+
+    got = tflash.flash_backward_plain(
+        bf16(jq), bf16(jk), bf16(jv), bf16(o), _t(np.array(l)),
+        _t(np.array(m)), bf16(jdo), scale, causal,
+        None if mask is None else _t(mask).float(), n)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = _f32(g), np.asarray(w, np.float32)
+        d = np.abs(g - w)
+        atol = 2.0 ** -8 * max(1.0, float(np.abs(w).max()))
+        assert float((d - 2.0 ** -7 * np.abs(w)).max()) <= atol
+        assert np.linalg.norm(d) <= 2.0 ** -8 * np.linalg.norm(w)
+        if name.startswith("dead"):
+            per_item = g.reshape(b, n, -1)
+            assert np.array_equal(per_item[1], np.zeros_like(per_item[1]))
+            assert np.abs(per_item[0]).max() > 0
+
+
 def test_fully_masked_rows_have_zero_finite_gradients():
     q, k, v = _qkv(3, (2, 2, 40, 16))
     mask = np.ones((2, 40), bool)

@@ -99,3 +99,23 @@ def test_not_yet_ported_paths_say_so():
         dense(torch.zeros(2, 4))
     with pytest.raises(NotImplementedError, match="weights"):
         tvit.ViTB16(weights="imagenet21k+_224", device="cpu")
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "warp_kernels"])
+def test_library_lists_every_source_it_is_built_from(module):
+    """A library is rebuilt when the hash of its listed sources changes, so
+    the list must name every file of ``csrc/`` that a listed source
+    includes: an edited header that is not listed would leave a stale
+    library in ``build/``."""
+    import importlib
+    import re
+
+    from chambers_tpu_torch.ops import _build
+
+    ops = importlib.import_module(f"chambers_tpu_torch.ops.{module}")
+    sources = ops.LIBRARY[1]
+    assert any(s.endswith(".cu") for s in sources)
+    for name in sources:
+        text = (_build.CSRC / name).read_text()
+        for header in re.findall(r'#include\s+"([^"]+)"', text):
+            assert header in sources, f"{name} includes {header}"
