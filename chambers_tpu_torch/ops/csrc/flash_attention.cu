@@ -2,15 +2,17 @@
 // backward, with a plain C interface loaded through ctypes
 // (chambers_tpu_torch/ops/flash_attention.py holds the wrapper, the
 // autograd function and the plain PyTorch versions they are checked
-// against). This source holds the C interface, the forward kernel for both
-// types and the float32 backward kernels; bfloat16 backward calls go to the
-// tensor-core kernels of flash_attention_bwd.cu, the library's second
-// source.
+// against). The flash_attention library has three sources, and each C
+// function below chooses its kernel by the operands' type:
+//   bfloat16  the tensor-core kernels: flash_attention_fwd.cu (K3a) and
+//             flash_attention_bwd.cu (K3b, K3c), both on flash_tiles.cuh
+//   float32   the FMA kernels of this file, for all three
 //
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
+// (the bf16 kernels carry the same names with _tc).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -21,7 +23,8 @@
 // with di = sum(o * do) computed by the wrapper. The key padding mask is
 // [b, tk] float32 and shared by the heads of a batch item (bn / n_heads);
 // the causal diagonal sits at the sequence end (col <= row + tk - tq);
-// a query row with no valid key gives exactly zero, forward and backward.
+// a query row with no valid key gives exactly zero, forward and backward,
+// and keeps m at the mask value.
 //
 // Bound: at the train step's shape, [128, 512, 64] bf16, the forward moves
 // 34 MB (10.2 us at an H100 SXM's 3.35 TB/s) and does 4 * bn * tq * tk * h
@@ -30,15 +33,11 @@
 // 17.4 us) and dQ (12.9 GFLOP, 13.0 us) are bound by operations. The
 // kernels in this file do not use the tensor cores: every product is a
 // float32 FMA on the CUDA cores, whose peak of 67 TFLOP/s is a fifteenth of
-// that rate, so they sit far from the bf16 bound by construction (measured
-// 26 to 31 TFLOP/s on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py).
-// That is the price of one simple code path that is exact for both input
-// types (a bf16 product is exact in float32, so the sums differ from a
-// tensor-core product only in their order). float32 operands need it: the
-// card holds float32 gradients to 1e-4 of their largest value, which TF32's
-// three digits cannot meet. The bfloat16 backward, where the gap to a
-// library call was widest, no longer takes these kernels; the forward still
-// does for both types.
+// the bf16 rate (measured 26 to 31 TFLOP/s on an NVIDIA H100 80GB HBM3 at
+// 700 W by chip_smoke.py). float32 operands need them: the card holds
+// float32 outputs to 2e-5 and gradients to 1e-4 of their largest value,
+// which TF32's three digits cannot meet. bfloat16 operands, where the gap
+// to a library call was widest, take the tensor-core kernels.
 //
 // Design: the TPU grid's last, sequential dimension carried m, l and the
 // accumulators in VMEM scratch from step to step. Here that dimension is a
@@ -46,40 +45,41 @@
 // queries (forward, dQ) or of keys (dK/dV), keeps its accumulators in
 // registers over the whole loop, and writes each output once. Nothing is
 // carried between blocks and there are no atomics, so results repeat from
-// run to run. Tiles are staged in shared memory as float32 (bf16 is widened
-// on the way in, with 16-byte loads) in rows padded by four floats, which
-// makes the float4 reads of the inner products free of bank conflicts.
-// Threads form a 16 x 16 grid; thread (ty, tx) computes rows ty + 16 r and
-// columns tx + 16 c of a 64 x 64 score tile (a 4 x 4 register tile), and
-// rows ty + 16 r of the [64, h] accumulators. The softmax's row reductions
-// run over the 16 lanes that share a row with shuffles. The dK/dV kernel
-// computes the transposed score tile (keys by queries) directly, so its
-// second products read p^T and ds^T from shared memory in natural layout.
-// The ragged edge (row >= tq, col >= tk) is masked in the kernel; operands
-// are not padded. Tiles wholly above the causal diagonal are skipped.
-// The forward keeps the accumulator unnormalised and divides by l once at
-// the end, where the TPU kernel renormalises at every key step.
+// run to run. Tiles are staged in shared memory in rows padded by four
+// floats, which makes the float4 reads of the inner products free of bank
+// conflicts. Threads form a 16 x 16 grid; thread (ty, tx) computes rows
+// ty + 16 r and columns tx + 16 c of a 64 x 64 score tile (a 4 x 4 register
+// tile), and rows ty + 16 r of the [64, h] accumulators. The softmax's row
+// reductions run over the 16 lanes that share a row with shuffles. The
+// dK/dV kernel computes the transposed score tile (keys by queries)
+// directly, so its second products read p^T and ds^T from shared memory in
+// natural layout. The ragged edge (row >= tq, col >= tk) is masked in the
+// kernel; operands are not padded. Tiles wholly above the causal diagonal
+// are skipped. The forward keeps the accumulator unnormalised and divides
+// by l once at the end, where the TPU kernel renormalises at every key
+// step.
 //
-// Takes head size 64 (the kernels are templates over it; only 64 is
-// instantiated, being the only one a path runs and the card checks),
-// float32 or bfloat16, contiguous operands whose base addresses are
-// multiples of 16 bytes. Built WITHOUT --fmad=false: the inner products of
-// these kernels are FMAs, and those of flash_attention_bwd.cu run on the
-// tensor cores.
+// Takes head size 64 (the kernels are templates over the type and the head
+// size; only float32 and 64 are instantiated, being what a path runs and
+// the card checks), contiguous operands whose base addresses are multiples
+// of 16 bytes. Built WITHOUT --fmad=false: the inner products of these
+// kernels are FMAs, and those of the bf16 kernels run on the tensor cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
+
+using flash_tiles::allow_smem;
+using flash_tiles::kMaskValue;
 
 constexpr int kTile = 64;       // query rows and key rows per tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kPad = 4;         // floats of padding per shared-memory row
 constexpr int kLdp = kTile + kPad;
-// -0.7 * float32 max, rounded from double as the JAX package's _MASK_VALUE
-constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
 
 template <typename T>
 struct Elem;
@@ -93,36 +93,6 @@ struct Elem<float> {
   static __device__ __forceinline__ void store4(float* dst, float a, float b,
                                                 float c, float d) {
     *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* src,
-                                              float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]);
-    const float2 b = __bfloat1622float2(h[1]);
-    const float2 c = __bfloat1622float2(h[2]);
-    const float2 d = __bfloat1622float2(h[3]);
-    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* dst, float a,
-                                                float b, float c, float d) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
-  }
-  // the probabilities are cast to v's type before p v
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
   }
 };
 
@@ -330,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
         // the explicit zero makes a fully masked row sum to l == 0
         const float p = ok[c] ? expf(s[r][c] - m_next) : 0.f;
         sum += p;
-        Ps[(ty + 16 * r) * kLdp + tx + 16 * c] = Elem<T>::round(p);
+        Ps[(ty + 16 * r) * kLdp + tx + 16 * c] = p;
       }
       sum = row_sum(sum);
       l_run[r] = l_run[r] * alpha + sum;
@@ -544,11 +514,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* kv_mask, void* o, void* l, void* m, int bn,
                        int tq, int tk, int n_heads, float scale, int causal,
                        cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem(HD));
+  const cudaError_t err = allow_smem<flash_fwd_kernel<T, HD>>(
+      fwd_smem(HD));
   if (err != cudaSuccess) return err;
-  kernel<<<tiles(bn, tq), kThreads, fwd_smem(HD), stream>>>(
+  flash_fwd_kernel<T, HD><<<tiles(bn, tq), kThreads, fwd_smem(HD), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask, (T*)o,
       (float*)l, (float*)m, tq, tk, n_heads, scale, causal);
   return cudaGetLastError();
@@ -560,11 +529,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* di, const void* kv_mask, void* dq, int bn,
                       int tq, int tk, int n_heads, float scale, int causal,
                       cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem(HD));
+  const cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, HD>>(
+      dq_smem(HD));
   if (err != cudaSuccess) return err;
-  kernel<<<tiles(bn, tq), kThreads, dq_smem(HD), stream>>>(
+  flash_bwd_dq_kernel<T, HD>
+      <<<tiles(bn, tq), kThreads, dq_smem(HD), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)l,
       (const float*)m, (const float*)di, (const float*)kv_mask, (T*)dq, tq,
       tk, n_heads, scale, causal);
@@ -577,11 +546,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* di, const void* kv_mask, void* dk,
                        void* dv, int bn, int tq, int tk, int n_heads,
                        float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem(HD));
+  const cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, HD>>(
+      dkv_smem(HD));
   if (err != cudaSuccess) return err;
-  kernel<<<tiles(bn, tk), kThreads, dkv_smem(HD), stream>>>(
+  flash_bwd_dkv_kernel<T, HD>
+      <<<tiles(bn, tk), kThreads, dkv_smem(HD), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)l,
       (const float*)m, (const float*)di, (const float*)kv_mask, (T*)dk,
       (T*)dv, tq, tk, n_heads, scale, causal);
@@ -593,8 +562,12 @@ constexpr int kBFloat16 = 1;
 
 }  // namespace
 
-// the bfloat16 backward on the tensor cores, head size 64
-// (flash_attention_bwd.cu)
+// the bfloat16 kernels on the tensor cores, head size 64
+// (flash_attention_fwd.cu, flash_attention_bwd.cu)
+cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
+                           const void* kv_mask, void* o, void* l, void* m,
+                           int bn, int tq, int tk, int n_heads, float scale,
+                           int causal, cudaStream_t stream);
 cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                const void* dout, const void* l, const void* m,
                                const void* di, const void* kv_mask, void* dk,
@@ -607,8 +580,8 @@ cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               int causal, cudaStream_t stream);
 
 // dtype: 0 float32, 1 bfloat16; h: 64. Anything else is refused
-// with cudaErrorInvalidValue. Empty problems launch nothing. The backward
-// takes other kernels for bfloat16 (BF16) than for float32 (LAUNCH).
+// with cudaErrorInvalidValue. Empty problems launch nothing. float32 takes
+// this file's kernels (LAUNCH), bfloat16 the tensor-core ones (BF16).
 #define FLASH_DISPATCH(LAUNCH, BF16, ...)                                    \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
@@ -620,9 +593,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int bn, int tq, int tk, int h, int n_heads,
                          float scale, int causal, int dtype, void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_fwd, (launch_fwd<__nv_bfloat16, 64>), q, k, v,
-                 kv_mask, o, l, m, bn, tq, tk, n_heads, scale, causal,
-                 (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_fwd, flash_fwd_bf16, q, k, v, kv_mask, o, l, m, bn,
+                 tq, tk, n_heads, scale, causal, (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -80,8 +80,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "flash_tiles.cuh"
 
 namespace {
@@ -99,19 +97,6 @@ constexpr int kRowsBytes = 2 * kTileRows * 4; // per-row floats of a stage
 constexpr size_t smem_bytes(int groups) {
   return 1024 + groups * 2 * kTileBytes + kStages * (kStageBytes + kRowsBytes)
          + 64;
-}
-
-struct Lanes {
-  int tid, lane, group, warp_in_group, g, t;
-  __device__ Lanes()
-      : tid(threadIdx.x), lane(threadIdx.x & 31), group(threadIdx.x >> 7),
-        warp_in_group((threadIdx.x >> 5) & 3), g((threadIdx.x & 31) >> 2),
-        t(threadIdx.x & 3) {}
-};
-
-// dynamic shared memory from the next multiple of 1024 bytes
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 struct RowStats {
@@ -178,7 +163,7 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
     for (int w = 0; w < 4 * kGroups; ++w) last = max(last, flags_s[w]);
     k_end = last + 1;
   }
-  const int steps = (k_end + kTileRows - 1) / kTileRows;
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   stage_rows<kOwned, kThreads>(q_s, q + (size_t)bn * tq * kHead, q0, tq,
                                at.tid);
   stage_rows<kOwned, kThreads>(do_s, dout + (size_t)bn * tq * kHead, q0, tq,
@@ -544,25 +529,6 @@ __global__ void __launch_bounds__(256, 1)
     nt[row * kHead + col] = first[i];
     tn[row * kHead + col] = second[i];
   }
-}
-
-// Let kKernel use `bytes` of dynamic shared memory: set once for each
-// device, on the first launch there, not before every launch.
-template <auto kKernel>
-cudaError_t allow_smem(size_t bytes) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> allowed[kMaxDevices];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const bool known = device < kMaxDevices;
-  if (known && allowed[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && known)
-    allowed[device].store(true, std::memory_order_release);
-  return err;
 }
 
 inline dim3 owned_tiles(int bn, int t, int groups) {

@@ -1,7 +1,8 @@
 // Device functions for the tensor-core flash attention kernels: bf16 tiles
 // in shared memory, the asynchronous copies that fill them, and the matrix
-// products over them. flash_attention_bwd.cu (K3b, K3c) is built on these;
-// a forward kernel on the tensor cores needs the same pieces.
+// products over them. flash_attention_fwd.cu (K3a) and
+// flash_attention_bwd.cu (K3b, K3c) are built on these; allow_smem, at the
+// end, serves the launchers of all three sources.
 //
 // Tiles. Head size is 64, so a row of q, k, v or do is 128 bytes of bf16. A
 // tile is 64 rows, 8 KB, stored [row][h] with the 128-byte swizzle: the
@@ -44,7 +45,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace flash_tiles {
 
@@ -53,9 +57,27 @@ constexpr int kRowBytes = kHead * 2;           // 128
 constexpr int kTileRows = 64;
 constexpr int kTileBytes = kTileRows * kRowBytes;  // 8192
 constexpr float kLog2e = 1.4426950408889634f;
+// the score of a masked pair: -0.7 * float32 max, rounded from double as
+// the JAX package's _MASK_VALUE; a row that no key reaches keeps it as m
+constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
+
+// a thread's place in its block: warpgroup, warp of the group, and the
+// (g, t) = (lane / 4, lane % 4) of the fragment layout below
+struct Lanes {
+  int tid, lane, group, warp_in_group, g, t;
+  __device__ Lanes()
+      : tid(threadIdx.x), lane(threadIdx.x & 31), group(threadIdx.x >> 7),
+        warp_in_group((threadIdx.x >> 5) & 3), g((threadIdx.x & 31) >> 2),
+        t(threadIdx.x & 3) {}
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// dynamic shared memory from the next multiple of 1024 bytes
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // byte offset of 16-byte chunk `chunk` of row `row` from the operand's start
@@ -299,6 +321,29 @@ __device__ __forceinline__ void store_zero_rows(__nv_bfloat16* dst, int row0,
       *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHead + c * 8) =
           make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Let kKernel use `bytes` of dynamic shared memory: set once for each
+// device, on the first launch there, not before every launch.
+template <auto kKernel>
+cudaError_t allow_smem(size_t bytes) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool known = device < kMaxDevices;
+  if (known && allowed[device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && known)
+    allowed[device].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace flash_tiles

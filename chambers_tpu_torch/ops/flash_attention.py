@@ -1,6 +1,7 @@
 """Blockwise (flash) attention: the wrapper, the autograd function and the
-plain PyTorch versions of the CUDA kernels in ``csrc/flash_attention.cu``
-and ``csrc/flash_attention_bwd.cu``.
+plain PyTorch versions of the CUDA kernels of the ``flash_attention``
+library, whose three sources are ``csrc/flash_attention.cu``,
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
 
 Port of ``chambers_tpu/ops/flash_attention.py``:
 
@@ -10,11 +11,14 @@ Port of ``chambers_tpu/ops/flash_attention.py``:
 - K3b ``flash_bwd_dkv`` replaces the dK/dV call of ``_flash_backward``.
 - K3c ``flash_bwd_dq`` replaces its dQ call.
 
-K3b and K3c are two kernels each behind one C function: bfloat16 operands
-take the tensor-core kernels of ``flash_attention_bwd.cu`` (built on
-``flash_tiles.cuh``), float32 operands the FMA kernels of
-``flash_attention.cu``, which also holds K3a for both types. See the notes
-at the top of the CUDA sources for what bounds the kernels on the card and
+Each is two kernels behind one C function, chosen by the operands' type:
+bfloat16 takes the tensor-core kernels, ``flash_fwd_tc_kernel`` of
+``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
+``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (both built on
+``flash_tiles.cuh``); float32 takes the FMA kernels ``flash_fwd_kernel``,
+``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` of
+``flash_attention.cu``, which also holds the C interface. See the notes at
+the top of the CUDA sources for what bounds the kernels on the card and
 for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
 JAX function's. It goes through :class:`FlashAttentionFunction`, which
@@ -27,12 +31,14 @@ computes it outside its kernels.
 
 On CPU tensors the function runs :func:`flash_forward_plain` and
 :func:`flash_backward_plain`, which state the kernels' semantics in
-PyTorch: zeros for a row whose keys are all masked, the causal diagonal at
-the sequence end, scores from the input type with float32 accumulation,
-probabilities cast to ``v``'s type before ``p v``, a backward that
-recomputes ``p`` from the saved ``l, m`` in float32 and rounds ``p`` and
-``ds`` to the operands' type before the products that consume them. On a
-CUDA tensor it launches the kernels or raises: there is no fallback.
+PyTorch: zeros for a row whose keys are all masked (with ``l == 0`` and
+``m`` at the mask value), the causal diagonal at the sequence end, scores
+from the input type with float32 accumulation, ``l`` summed from the
+unrounded float32 probabilities, probabilities cast to ``v``'s type before
+``p v``, a backward that recomputes ``p`` from the saved ``l, m`` in
+float32 and rounds ``p`` and ``ds`` to the operands' type before the
+products that consume them. On a CUDA tensor it launches the kernels or
+raises: there is no fallback.
 
 The kernels take contiguous operands: the wrapper makes ``q, k, v`` and the
 incoming gradient contiguous (a copy when a projection hands over a
@@ -50,8 +56,8 @@ import torch
 from chambers_tpu_torch.ops import _build
 
 LIBRARY = ("flash_attention",
-           ["flash_attention.cu", "flash_attention_bwd.cu",
-            "flash_tiles.cuh"], _build.FMA_FLAGS)
+           ["flash_attention.cu", "flash_attention_fwd.cu",
+            "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
 HEAD_SIZES = (64,)              # head_dim the CUDA kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
@@ -196,7 +202,9 @@ def _tail(q, k, scale, causal, n_heads):
 
 
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
-    """Launch K3a alone on checked, contiguous CUDA operands."""
+    """Launch K3a alone on checked, contiguous CUDA operands: ``(o, l, m)``.
+    bfloat16 operands run ``flash_fwd_tc_kernel``, float32
+    ``flash_fwd_kernel``."""
     lib = _library()
     bn, tq, _ = q.shape
     o = torch.empty_like(q)

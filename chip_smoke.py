@@ -8,7 +8,7 @@ the CUDA toolkit. In order, it:
 
 1. prints the card's name and power limit;
 2. builds the two CUDA libraries (``warp`` with ``--fmad=false``,
-   ``flash_attention`` with FMAs, from its two sources and their header)
+   ``flash_attention`` with FMAs, from its three sources and their header)
    from ``chambers_tpu_torch/ops/csrc`` with nvcc, both at once;
 3. holds kernel K2 (the separable warp) bit-equal to its plain PyTorch
    version at ``[32, 224, 224, 3]``;
@@ -30,10 +30,12 @@ the CUDA toolkit. In order, it:
    (``[16, 8, 512, 64]`` bf16 with a ragged key mask, causal and not),
    ViT-B/16's shape, cross lengths 130 x 260 and 260 x 130 with the
    diagonal at the end, 63 x 65, 257 x 257 and 70 x 150 with key masks, one
-   key, and a batch item with no valid key, in bf16 (the tensor-core
-   backward kernels) and in float32 (the FMA ones); two backward launches
-   must give the same bits, and the two matrix products the bf16 backward
-   is built from are held alone against ``torch.matmul``;
+   key, one query against 300 keys, and a batch item with no valid key, in
+   bf16 (the tensor-core kernels) and in float32 (the FMA ones); two
+   launches of each kernel must give the same bits, the profiler must show
+   the tensor-core forward for bf16 and the FMA one for float32, and the
+   two matrix products the bf16 backward is built from are held alone
+   against ``torch.matmul``;
 9. drives the second main path — the padded ``Seq2SeqTransformer`` train
    step with ``attention_impl="flash"`` at full width (vocabulary 1024,
    width 512, 8 heads, 4 + 4 layers, bf16, batch 16, lengths 512, 20-30%
@@ -45,7 +47,7 @@ the CUDA toolkit. In order, it:
     against the dense path in float32;
 11. times K3a-c at ``[128, 512, 64]`` bf16 beside their plain versions and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
-    and the float32 instances of K3b and K3c once;
+    and their float32 instances (the FMA kernels) once;
 12. prints one ``kernels`` JSON line with all five kernels, the card line,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -71,6 +73,8 @@ BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 S2S = dict(vocab=1024, t=512, batch=16, dim=512, heads=8, layers=4)
 S2S_WARMUP, S2S_STEPS, S2S_REPEATS = 2, 5, 3
 CARD = ""
+# a flash kernel's name in a profiler key, mangled or not
+FLASH_KERNEL = r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc)?_kernel)"
 
 
 def check(ok, what):
@@ -241,6 +245,8 @@ def check_flash_kernels(torch, fa, dev):
         ("70x150 bf16, key mask", 3, 2, 70, 150, bf16, False,
          scattered_mask(torch, 3, 150, dev, 13), "permuted"),
         ("one key bf16", 2, 2, 64, 1, bf16, False, None, "plain"),
+        ("one query against 300 keys bf16, key mask", 2, 2, 1, 300, bf16,
+         False, scattered_mask(torch, 2, 300, dev, 14), "plain"),
     ]
     gen = torch.Generator(device=dev).manual_seed(1)
     path_err = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
@@ -276,10 +282,15 @@ def check_flash_kernels(torch, fa, dev):
                                                fmask, n_)
         dq_p, dk_p, dv_p = fa.flash_backward_plain(
             fq, fk, fv, o_p, l_p, m_p, fdo, scale, causal, fmask, n_)
-        # the statistics the wrapper saved: the same launch gives them again
+        # the statistics the wrapper saved: the same launch gives them
+        # again, to the bit, twice
         o_again, l, m = fa.launch_forward(fq, fk, fv, fmask, scale, causal, n_)
+        third = fa.launch_forward(fq, fk, fv, fmask, scale, causal, n_)
         torch.cuda.synchronize()
-        check(torch.equal(o_again, fold(o)), f"the kernel repeats ({label})")
+        check(torch.equal(o_again, fold(o))
+              and all(torch.equal(a, b) for a, b in zip(third,
+                                                        (o_again, l, m))),
+              f"the forward kernel repeats ({label})")
 
         pairs = {"o": (o, o_p), "dq": (dq, dq_p), "dk": (dk, dk_p),
                  "dv": (dv, dv_p)}
@@ -317,13 +328,19 @@ def check_flash_kernels(torch, fa, dev):
         check(bool(torch.allclose(l, l_p, rtol=1e-4, atol=1e-6))
               and bool(torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)),
               f"saved l, m agree ({label})")
-        if mask is dead:  # batch item 1
-            check(not any(bool(x[1].any()) for x in (o, dq, dk, dv)),
-                  "a batch item with no valid key gives exact zeros")
+        if mask is dead:  # batch item 1: rows n_ .. 2 n_ - 1 of l, m
+            check(not any(bool(x[1].any()) for x in (o, dq, dk, dv))
+                  and not bool(l[n_:].any())
+                  and bool((m[n_:] == fa.MASK_VALUE).all()),
+                  "a batch item with no valid key gives exact zeros, l = 0 "
+                  "and m at the mask value")
         if causal and tq > tk:
             check(not bool(o[:, :, :tq - tk].any())
-                  and not bool(dq[:, :, :tq - tk].any()),
-                  "rows above the end-aligned diagonal give exact zeros")
+                  and not bool(dq[:, :, :tq - tk].any())
+                  and not bool(l[:, :tq - tk].any())
+                  and bool((m[:, :tq - tk] == fa.MASK_VALUE).all()),
+                  "rows above the end-aligned diagonal give exact zeros, "
+                  "l = 0 and m at the mask value")
         if label.startswith("path"):
             path_err["fwd"] = max(path_err["fwd"], errs["o"])
             path_err["dkv"] = max(path_err["dkv"], errs["dk"], errs["dv"])
@@ -354,6 +371,31 @@ def check_tile_products(torch, fa, dev):
         check(d <= 1e-5 * top, f"tile product {name} agrees with matmul")
 
 
+def check_forward_kernel_names(torch, fa, dev):
+    """Which kernel each type's forward launches, read from the profiler:
+    bf16 runs ``flash_fwd_tc_kernel`` (tensor cores), float32
+    ``flash_fwd_kernel`` (FMAs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for dtype, want, other in ((torch.bfloat16, "flash_fwd_tc_kernel",
+                                "flash_fwd_kernel"),
+                               (torch.float32, "flash_fwd_kernel",
+                                "flash_fwd_tc_kernel")):
+        q, k, v = (torch.randn((4, 96, 64), device=dev,
+                               generator=gen).to(dtype) for _ in range(3))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.launch_forward(q, k, v, None, 0.125, False, 2)
+            torch.cuda.synchronize()
+        names = {found.group(1) for e in prof.key_averages()
+                 if (found := re.search(FLASH_KERNEL, e.key))}
+        log(f"profiler: {str(dtype).split('.')[-1]} forward runs "
+            f"{sorted(names)}")
+        check(want in names and other not in names,
+              f"{str(dtype).split('.')[-1]} forward runs {want}")
+
+
 def seq2seq_tokens(torch, dev):
     """Source and target tokens with 20-30% ragged trailing padding (id 0),
     as tools/bench_seq2seq_flash.py of the JAX package makes them."""
@@ -382,10 +424,12 @@ def seq2seq_loss(torch, model, src, tgt):
 
 def device_time_by_kind(torch, events):
     """Self device time in ms of a profile, split into the flash kernels,
-    matrix products and everything else."""
+    matrix products and everything else, with the names of the flash
+    kernels that ran under each of their kinds."""
     kinds = {"flash_fwd": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0,
              "gemm": 0.0, "other": 0.0}
     counts = dict.fromkeys(kinds, 0)
+    names = {k: set() for k in kinds}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -394,9 +438,11 @@ def device_time_by_kind(torch, events):
         if kind is None:
             kind = "gemm" if any(w in key for w in (
                 "gemm", "nvjet", "cutlass", "xmma", "cublas")) else "other"
+        elif found := re.search(FLASH_KERNEL, key):
+            names[kind].add(found.group(1))
         kinds[kind] += e.self_device_time_total / 1e3
         counts[kind] += e.count
-    return kinds, counts
+    return kinds, counts, names
 
 
 def seq2seq_path(torch, fa, dev):
@@ -507,11 +553,13 @@ def seq2seq_path(torch, fa, dev):
         torch.cuda.synchronize()
     events = prof.key_averages()
     log(events.table(sort_by="self_device_time_total", row_limit=12))
-    kinds, counts = device_time_by_kind(torch, events)
+    kinds, counts, names = device_time_by_kind(torch, events)
     busy = sum(kinds.values()) / n_prof
     log(f"seq2seq profile, device ms per step on {CARD}: " + ", ".join(
-        f"{k} {v / n_prof:.3f} ({counts[k] // n_prof} launches)"
-        for k, v in kinds.items()))
+        f"{' '.join([k, *sorted(names[k])])} {v / n_prof:.3f} "
+        f"({counts[k] // n_prof} launches)" for k, v in kinds.items()))
+    check(names["flash_fwd"] == {"flash_fwd_tc_kernel"},
+          "the bf16 train step runs the tensor-core forward")
     log(f"seq2seq profile: {busy:.3f} ms of device time per step against "
         f"{ms:.3f} ms/step unprofiled: device busy {100 * busy / ms:.1f}%, "
         f"flash kernels {100 * sum(v for k, v in kinds.items() if 'flash' in k) / n_prof / ms:.1f}% "
@@ -554,7 +602,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
     """Phase 11: K3a-c at the train step's shape, [128, 512, 64] bf16 with
     the ragged key mask (encoder self-attention and cross attention: 8 of a
     step's 12 launches of each kernel; the causal use is timed beside it),
-    and the float32 instances of K3b and K3c, which are other kernels, at
+    and the float32 instances of K3a-c, which are other kernels, at
     the same shape. Returns the three rows of the ``kernels`` line."""
     F = torch.nn.functional
     b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
@@ -616,13 +664,14 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
     args32 = (q32, k32, v32, do32, l32, m32, fa.delta(o32, do32), fmask,
               scale, False, n)
     float32_ms = {
-        "fwd": None,
+        "fwd": cuda_ms(torch, lambda: fa.launch_forward(
+            q32, k32, v32, fmask, scale, False, n), 10, backlog=True),
         "dkv": cuda_ms(torch, lambda: fa.launch_backward_dkv(*args32), 10,
                        backlog=True),
         "dq": cuda_ms(torch, lambda: fa.launch_backward_dq(*args32), 10,
                       backlog=True)}
     del q32, k32, v32, do32, o32, l32, m32, args32
-    source = {"fwd": "flash_attention.cu", "dkv": "flash_attention_bwd.cu",
+    source = {"fwd": "flash_attention_fwd.cu", "dkv": "flash_attention_bwd.cu",
               "dq": "flash_attention_bwd.cu"}
 
     elem = 2  # bytes of a bf16 value
@@ -687,9 +736,8 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
             f"{causal_bound_ms * 1e3:.2f} us)"
-            + (f", float32 operands (the FMA kernels) "
-               f"{float32_ms[key] * 1e3:.1f} us" if key != "fwd" else "")
-            + f" on {CARD}")
+            + f", float32 operands (the FMA kernel) "
+              f"{float32_ms[key] * 1e3:.1f} us on {CARD}")
     log(f"flash_attention wrapper call, forward: {wrapper_ms * 1e3:.1f} us "
         f"on {CARD}")
     torch.cuda.synchronize()
@@ -1018,6 +1066,7 @@ def main():
     # train step, a ViT on the kernel, kernel times
     flash_errors = check_flash_kernels(torch, fa, dev)
     check_tile_products(torch, fa, dev)
+    check_forward_kernel_names(torch, fa, dev)
     flash_launches = seq2seq_path(torch, fa, dev)
     vit_on_flash(torch, fa, dev, imgs)
     rows += time_flash_kernels(torch, fa, dev, flash_launches, flash_errors)

@@ -1,7 +1,7 @@
 """The CUDA kernels K1, K2 and K3a-c (flash attention forward, dK/dV, dQ)
 against their plain PyTorch versions on the card, at odd sizes the main
-paths do not reach. The backward K3b, K3c is two pairs of kernels: bf16
-operands take the tensor-core pair, float32 the FMA pair. Marked ``cuda``:
+paths do not reach. Each of K3a, K3b, K3c is two kernels: bf16 operands
+take the tensor-core one, float32 the FMA one. Marked ``cuda``:
 they skip on a machine without a card. On the card:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -103,7 +103,9 @@ def test_kernel_wrappers_count_and_reject(dev):
 
 # (b, n, tq, tk, h, dtype, causal, masked): ragged edges, one tile and many,
 # cross lengths with the diagonal at the end (more keys than queries and
-# fewer), bn not a multiple of anything
+# fewer), bn not a multiple of anything; masked is False, True (about 30%
+# of the keys dropped anywhere, the last batch item none kept) or "ragged"
+# (20-30% trailing padding, as the train step's batches)
 FLASH_CASES = [
     (2, 3, 197, 197, 64, torch.float32, False, False),
     (1, 2, 130, 260, 64, torch.float32, True, False),
@@ -123,6 +125,12 @@ FLASH_CASES = [
     (2, 2, 64, 1, 64, torch.bfloat16, False, False),
     (2, 12, 197, 197, 64, torch.bfloat16, False, False),
     (2, 3, 300, 200, 64, torch.bfloat16, True, True),
+    # the bf16 forward kernel's own edges: one query row, the train step's
+    # shape cut in batch, and queries so far past the keys under the causal
+    # mask that whole blocks see no key
+    (2, 2, 1, 300, 64, torch.bfloat16, False, True),
+    (8, 8, 512, 512, 64, torch.bfloat16, False, "ragged"),
+    (1, 2, 500, 100, 64, torch.bfloat16, True, False),
 ]
 
 
@@ -134,7 +142,10 @@ def _flash_inputs(dev, b, n, tq, tk, h, dtype, masked, seed=0):
 
     q, k, v, do = rand(tq), rand(tk), rand(tk), rand(tq)
     mask = None
-    if masked:
+    if masked == "ragged":
+        keep = tk * (0.7 + 0.1 * torch.rand((b, 1), device=dev, generator=g))
+        mask = (torch.arange(tk, device=dev) < keep.long()).float()
+    elif masked:
         mask = (torch.rand((b, tk), device=dev, generator=g) > 0.3).float()
         mask[:, 0] = 1.0
         mask[-1] = 0.0  # the last batch item has no valid key
@@ -179,8 +190,12 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
     assert bool(torch.isfinite(m).all())
     assert torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)
     assert torch.allclose(l, l_p, rtol=1e-4, atol=1e-6)
-    if masked:
+    # no atomics in the forward either: a second launch gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.launch_forward(q, k, v, mask, scale, causal, n), (o, l, m)))
+    if masked is True:  # the last batch item has no valid key
         assert not o[-n:].any() and not l[-n:].any()
+        assert bool((m[-n:] == fa.MASK_VALUE).all())
 
     # the backward kernels on the forward kernel's own saved o, l, m, as
     # the autograd function chains them
@@ -198,10 +213,12 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
     again = (fa.launch_backward_dq(*args), *fa.launch_backward_dkv(*args))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
-    if masked:
+    if masked is True:
         assert not dq[-n:].any() and not dk[-n:].any() and not dv[-n:].any()
     if causal and tq > tk:  # rows above the end-aligned diagonal
         assert not o[:, :tq - tk].any() and not dq[:, :tq - tk].any()
+        assert not l[:, :tq - tk].any()
+        assert bool((m[:, :tq - tk] == fa.MASK_VALUE).all())
 
 
 def test_tile_products_match_matmul(dev):
@@ -227,22 +244,41 @@ def test_tile_products_match_matmul(dev):
         fa.tile_products(x.float(), y)
 
 
+def _kernel_names(fn):
+    """The names of the kernels ``fn`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+def test_forward_dtype_chooses_the_kernels(dev):
+    """bf16 operands run the tensor-core forward, float32 the FMA one: read
+    from the profiler's kernel names."""
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, 64, dtype, True)
+        names[dtype] = _kernel_names(
+            lambda: fa.launch_forward(q, k, v, mask, 0.125, False, 2))
+    assert "flash_fwd_kernel" in names[torch.float32]
+    assert "_tc_kernel" not in names[torch.float32]
+    assert "flash_fwd_tc_kernel" in names[torch.bfloat16]
+    assert "flash_fwd_kernel" not in names[torch.bfloat16]
+
+
 def test_backward_dtype_chooses_the_kernels(dev):
     """bf16 operands run the tensor-core kernels, float32 the FMA kernels:
     read from the profiler's kernel names."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, 64, dtype, False)
         o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 2)
         args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa.launch_backward_dkv(*args)
-            fa.launch_backward_dq(*args)
-            torch.cuda.synchronize()
-        names[dtype] = " ".join(e.key for e in prof.key_averages())
+        names[dtype] = _kernel_names(lambda: (fa.launch_backward_dkv(*args),
+                                              fa.launch_backward_dq(*args)))
     assert "flash_bwd_dkv_kernel" in names[torch.float32]
     assert "flash_bwd_dq_kernel" in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]

@@ -119,3 +119,14 @@ def test_library_lists_every_source_it_is_built_from(module):
         text = (_build.CSRC / name).read_text()
         for header in re.findall(r'#include\s+"([^"]+)"', text):
             assert header in sources, f"{name} includes {header}"
+
+
+def test_every_cuda_source_is_in_a_library():
+    """A source under ``csrc/`` that no library lists is never compiled."""
+    from chambers_tpu_torch.ops import _build, flash_attention, warp_kernels
+
+    listed = {s for library in (flash_attention.LIBRARY,
+                                warp_kernels.LIBRARY) for s in library[1]}
+    found = {p.name for p in _build.CSRC.iterdir()
+             if p.suffix in (".cu", ".cuh")}
+    assert found == listed
