@@ -11,10 +11,15 @@ Port of ``chambers_tpu/ops/warp_pallas.py``:
   op — warp, Color, Sharpness, CutOut or passthrough.
 
 Both kernels live in ``csrc/warp.cu`` (see the note there for their design
-and bound). A wrapper checks its inputs, allocates the output with
-``torch.empty``, launches on the current stream and adds one to its
-``launches`` counter. On a CPU tensor it runs the plain version instead;
-on a CUDA tensor it launches the kernel or raises — there is no fallback.
+and bound). They compute the three shear passes' shift vectors themselves
+from the ``[b, 8]`` transforms, so a wrapper checks its inputs, casts a
+per-image input only where it is not yet on the device in the kernel's
+type, allocates the output with ``torch.empty_like`` and makes one launch
+on the current stream, adding one to its ``launches`` counter. The plain
+versions take the shift vectors from :func:`_shift_vectors`, so the card's
+bit-equality checks hold the kernels' float arithmetic too. On a CPU tensor
+a wrapper runs the plain version instead; on a CUDA tensor it launches the
+kernel or raises — there is no fallback.
 """
 
 import ctypes
@@ -35,11 +40,14 @@ LIBRARY = ("warp", ["warp.cu"])
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load(*LIBRARY)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.warp_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.warp_launch.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.warp_launch.restype = i32
-    lib.fused_round_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+    lib.fused_round_launch.argtypes = (
+        [ptr] * 3 + [i32] + [ptr] * 4 + [f32, ptr, f32] + [i32] * 7 + [ptr])
     lib.fused_round_launch.restype = i32
+    lib.warp_launch_shape.argtypes = [ptr] + [i32] * 4 + [ptr]
+    lib.warp_launch_shape.restype = None
     return lib
 
 
@@ -157,35 +165,92 @@ def fused_round_plain(images, n1, n2, n3, op_class, cut_cy, cut_cx,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_ptr, _stream, _check_launch = _build.ptr, _build.stream, _build.check_launch
+_ptr, _stream = _build.ptr, _build.stream
+TOO_LARGE = -1  # the launchers' code for an image beyond 32-bit offsets
 
 
-def launch_warp(images, out, n1, n2, n3, fill, pad):
-    """Launch K2 alone on prepared device arguments (the wrapper's last
-    step); raises if CUDA refuses the launch."""
+def _check_launch(lib, code, name, images):
+    """Raise if a launcher refused: for an image too large, naming the
+    limit; else with the CUDA error."""
+    if code == TOO_LARGE:
+        _, h, w, c = images.shape
+        raise ValueError(
+            f"{name}: a {h} x {w} x {c} uint8 image has {h * w * c} bytes; "
+            f"the kernel indexes an image with 32-bit offsets, so it takes "
+            f"at most {2 ** 31 - 1} bytes an image")
+    _build.check_launch(lib, code, name)
+
+
+def launch_shape(images, round_kernel):
+    """The launch shape for ``images``: ``rows`` and ``threads`` a block
+    and the block's shared memory, ``smem_bytes`` (K1 if
+    ``round_kernel``, else K2)."""
+    _, h, w, c = images.shape
+    shape = (ctypes.c_int * 3)()
+    _library().warp_launch_shape(_ptr(images), h, w, c, int(round_kernel),
+                                 shape)
+    return {"rows": shape[0], "threads": shape[1], "smem_bytes": shape[2]}
+
+
+def _device_transforms(transforms, b, device):
+    """float32 transforms on the device and their row stride: ``[b, 8]``
+    (stride 8) or one ``[8]`` for the whole batch (stride 0)."""
+    t = torch.as_tensor(transforms, dtype=torch.float32, device=device)
+    if t.shape == (8,):
+        return t.contiguous(), 0
+    if t.shape != (b, 8):
+        raise ValueError(f"expected [{b}, 8] transforms, got {tuple(t.shape)}")
+    return t.contiguous(), 8
+
+
+def _factor(value, b, device):
+    """A blend factor as the kernel takes it: ``(None, scalar)`` for a
+    number, ``([b] float32 tensor, 0.0)`` for a tensor (a 0-d tensor is
+    expanded on the device, not read back)."""
+    if isinstance(value, np.ndarray):
+        value = torch.from_numpy(value)
+    if isinstance(value, torch.Tensor):
+        v = value.to(device=device, dtype=torch.float32)
+        if v.ndim == 0:
+            v = v.expand(b)
+        if v.shape != (b,):
+            raise ValueError(f"expected a scalar or [{b}] values, got "
+                             f"{tuple(v.shape)}")
+        return v.contiguous(), 0.0
+    return None, float(np.float32(value))
+
+
+def launch_warp(images, out, transforms, fill, pad):
+    """Launch K2 alone on a checked batch and ``transforms`` as
+    :func:`_device_transforms` gives them; raises if the launch is
+    refused."""
     lib = _library()
     b, h, w, c = images.shape
+    t, t_stride = transforms
     with torch.cuda.device(images.device):
         code = lib.warp_launch(
-            _ptr(images), _ptr(out), _ptr(n1), _ptr(n2), _ptr(n3),
-            b, h, w, c, pad, fill, _stream(images.device))
-    _check_launch(lib, code, "warp_kernel")
+            _ptr(images), _ptr(out), _ptr(t), t_stride, b, h, w, c, pad,
+            fill, _stream(images.device))
+    _check_launch(lib, code, "warp_kernel", images)
     return out
 
 
-def launch_fused_round(images, out, n1, n2, n3, op_class, cy, cx, fc, fs,
+def launch_fused_round(images, out, transforms, op_class, cy, cx, fc, fs,
                        fill, pad, cut_half, cut_fill):
-    """Launch K1 alone on prepared device arguments (int32 ``op_class``,
-    ``cy``, ``cx``; float32 ``fc``, ``fs``; all ``[b]``)."""
+    """Launch K1 alone on the arguments :func:`kernel_round_args` prepares:
+    device transforms and their stride, int32 ``op_class``, int64 ``cy``,
+    ``cx`` (``[b]``), and each factor as ``(tensor or None, scalar)``."""
     lib = _library()
-    b, h, w, c = images.shape
+    b, h, w, _ = images.shape
+    t, t_stride = transforms
+    (fc_t, fc_s), (fs_t, fs_s) = fc, fs
     with torch.cuda.device(images.device):
         code = lib.fused_round_launch(
-            _ptr(images), _ptr(out), _ptr(n1), _ptr(n2), _ptr(n3),
-            _ptr(op_class), _ptr(cy), _ptr(cx), _ptr(fc), _ptr(fs),
-            b, h, w, c, pad, fill, cut_half, cut_fill,
+            _ptr(images), _ptr(out), _ptr(t), t_stride, _ptr(op_class),
+            _ptr(cy), _ptr(cx), _ptr(fc_t), fc_s, _ptr(fs_t), fs_s,
+            b, h, w, pad, fill, cut_half, cut_fill,
             _stream(images.device))
-    _check_launch(lib, code, "fused_round_kernel")
+    _check_launch(lib, code, "fused_round_kernel", images)
     return out
 
 
@@ -196,11 +261,11 @@ def transform_affine_separable(images, transforms, fill_value, pad):
     _check_images(images, "transform_affine_separable")
     b, h, w, _ = images.shape
     fill = _resolve_fill(fill_value)
-    t = torch.as_tensor(transforms, dtype=torch.float32, device=images.device)
-    n1, n2, n3 = _shift_vectors(t, b, h, w, pad)
     if images.device.type == "cpu":
-        return warp_plain(images, n1, n2, n3, fill, pad)
-    out = launch_warp(images, torch.empty_like(images), n1, n2, n3, fill, pad)
+        t = torch.as_tensor(transforms, dtype=torch.float32, device="cpu")
+        return warp_plain(images, *_shift_vectors(t, b, h, w, pad), fill, pad)
+    t = _device_transforms(transforms, b, images.device)
+    out = launch_warp(images, torch.empty_like(images), t, fill, pad)
     transform_affine_separable.launches += 1
     return out
 
@@ -211,8 +276,9 @@ transform_affine_separable.launches = 0
 def fused_round_args(images, transforms, op_class, cut_cy, cut_cx, *,
                      fill_value, pad, color_factor, sharp_factor, cut_half,
                      cut_fill):
-    """Checked, device-resident arguments of K1 (see :func:`fused_round`),
-    in :func:`launch_fused_round`'s order after ``images, out``."""
+    """Checked arguments of K1's plain version (see :func:`fused_round`),
+    in :func:`fused_round_plain`'s order after ``images``: the shift
+    vectors and every per-image value as a ``[b]`` tensor."""
     _check_images(images, "fused_round", channels=3)
     b, h, w, _ = images.shape
     dev = images.device
@@ -228,6 +294,26 @@ def fused_round_args(images, transforms, op_class, cut_cy, cut_cx, *,
             _resolve_fill(cut_fill))
 
 
+def kernel_round_args(images, transforms, op_class, cut_cy, cut_cx, *,
+                      fill_value, pad, color_factor, sharp_factor, cut_half,
+                      cut_fill):
+    """Checked arguments of the K1 kernel, in :func:`launch_fused_round`'s
+    order after ``images, out``. The kernel computes the shift vectors
+    itself; a per-image value already on the device in the kernel's type
+    (int32 ``op_class``, int64 centres, float32 factors) is passed as it
+    is, with no copy and no launch."""
+    _check_images(images, "fused_round", channels=3)
+    b = images.shape[0]
+    dev = images.device
+    return (_device_transforms(transforms, b, dev),
+            _per_image(op_class, b, torch.int32, dev),
+            _per_image(cut_cy, b, torch.int64, dev),
+            _per_image(cut_cx, b, torch.int64, dev),
+            _factor(color_factor, b, dev), _factor(sharp_factor, b, dev),
+            _resolve_fill(fill_value), pad, int(cut_half),
+            _resolve_fill(cut_fill))
+
+
 def fused_round(images, transforms, op_class, cut_cy, cut_cx, **kwargs):
     """K1: one augmentation round over the non-LUT ops, dispatched per
     image on ``op_class`` ``[b]`` (PASSTHROUGH, WARP, COLOR, SHARPNESS,
@@ -237,14 +323,14 @@ def fused_round(images, transforms, op_class, cut_cy, cut_cx, **kwargs):
     :param transforms: ``[b, 8]`` det-1 affines (identity where unused).
     :param cut_cy, cut_cx: ``[b]`` cutout centres (read for CUTOUT only).
     :param kwargs: ``fill_value``, ``pad``; ``color_factor`` and
-        ``sharp_factor``, blend factors as a scalar or ``[b]`` (the kernel
-        always takes them per image); ``cut_half``, half the side of the
-        cutout square; ``cut_fill``.
+        ``sharp_factor``, blend factors as a scalar or ``[b]``; ``cut_half``,
+        half the side of the cutout square; ``cut_fill``.
     """
-    args = fused_round_args(images, transforms, op_class, cut_cy, cut_cx,
-                            **kwargs)
     if images.device.type == "cpu":
-        return fused_round_plain(images, *args)
+        return fused_round_plain(images, *fused_round_args(
+            images, transforms, op_class, cut_cy, cut_cx, **kwargs))
+    args = kernel_round_args(images, transforms, op_class, cut_cy, cut_cx,
+                             **kwargs)
     out = launch_fused_round(images, torch.empty_like(images), *args)
     fused_round.launches += 1
     return out

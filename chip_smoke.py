@@ -23,7 +23,8 @@ the CUDA toolkit. In order, it:
    the masked-composition path, each with the launch counters set to 0
    just before and read just after; checks the logits against float32
    references, times the steps with CUDA events and profiles three steps;
-7. times K1, K2 and their plain versions at the main path's shapes;
+7. times K1, K2, their plain versions, their wrapper calls and a device
+   ``copy_`` of the same image bytes at the main path's shapes;
 8. holds the flash attention kernels K3a (forward), K3b (dK/dV) and K3c
    (dQ) against their plain versions, through ``flash_attention`` and its
    backward as the paths call them, at the train step's three uses
@@ -137,15 +138,19 @@ def warp_matrices(torch, iops, b, device):
 def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
     64>``, ``..flash_bwd_dq_tc_kernelILi2EE..`` -> ``flash_bwd_dq_tc_kernel<2
-    warpgroups>``; a name it cannot read comes back as it is."""
+    warpgroups>``, ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a
+    name it cannot read comes back as it is."""
     found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
                       mangled)
     if not found:
         return mangled
     if not found.group(2):
         groups = re.search(r"_kernelILi(\d)EE", mangled)
-        return found.group(1) + (f"<{groups.group(1)} warpgroups>"
-                                 if groups else "")
+        if not groups:
+            return found.group(1)
+        if found.group(1) == "warp_kernel":  # templated on the channels
+            return f"warp_kernel<c={groups.group(1) if groups.group(1) != '0' else 'any'}>"
+        return f"{found.group(1)}<{groups.group(1)} warpgroups>"
     dtype = "bf16" if "bfloat" in found.group(2) else "f32"
     return f"{found.group(1)}<{dtype}, {found.group(3)}>"
 
@@ -1003,41 +1008,52 @@ def main():
         cold[0], aug.round_matrices(d0["idx"], d0["sign"], SIZE, SIZE),
         d0["idx"], d0["cy"], d0["cx"])
     del round_kw["images"]
-    k1_args = wk.fused_round_args(cold[0], **round_kw)
+    k1_args = wk.kernel_round_args(cold[0], **round_kw)
+    plain_args = wk.fused_round_args(cold[0], **round_kw)
+    k2_transforms = wk._device_transforms(mats, BATCH, dev)
     out = torch.empty_like(cold[0])
-    classes = k1_args[3]
+    classes = k1_args[1]
     kinds = {name: int((classes == k).sum()) for name, k in (
         ("warp", wk.WARP), ("color", wk.COLOR), ("sharpness", wk.SHARPNESS),
         ("cutout", wk.CUTOUT), ("passthrough", wk.PASSTHROUGH))}
     log(f"timed round's op classes: {kinds}")
 
     img_bytes = BATCH * SIZE * SIZE * 3
-    wp = SIZE + 2 * PAD
-    shift_bytes = 4 * BATCH * (2 * SIZE + wp)
+    transform_bytes = 4 * 8 * BATCH
+    # per-image values the kernel reads: int32 op class, int64 centres, and
+    # a factor only where it is a [b] tensor (scalars on the main path)
+    scalar_bytes = BATCH * (4 + 8 + 8) + sum(
+        4 * BATCH for factor, _ in k1_args[4:6] if factor is not None)
     # operations per output byte, by class (integer and float32 ALU work):
     # passthrough 1, warp ~10 index ops, color ~12, sharpness ~20, cutout ~6
     per_byte = {"passthrough": 1, "warp": 10, "color": 12, "sharpness": 20,
                 "cutout": 6}
     k1_ops = sum(per_byte[k] * n for k, n in kinds.items()) * SIZE * SIZE * 3
+    # the floor a kernel that reads and writes each byte once reaches on
+    # this card: a device copy_ of the same bytes, on the same cold inputs
+    flat = torch.empty(img_bytes, dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(torch, lambda: flat.copy_(nxt().view(-1)), 50,
+                      backlog=True)
     cases = (
         ("fused_round",
          lambda: wk.launch_fused_round(nxt(), out, *k1_args),
-         lambda: wk.fused_round_plain(nxt(), *k1_args),
+         lambda: wk.fused_round_plain(nxt(), *plain_args),
          lambda: wk.fused_round(nxt(), **round_kw),
-         2 * img_bytes + shift_bytes + 4 * 5 * BATCH, k1_ops,
+         2 * img_bytes + transform_bytes + scalar_bytes, k1_ops,
          "chambers_tpu/ops/warp_pallas.py:317 fused_round_pallas",
-         launches["fused_round"]),
+         launches["fused_round"], wk.launch_shape(cold[0], True)),
         ("warp",
-         lambda: wk.launch_warp(nxt(), out, n1, n2, n3, FILL, PAD),
+         lambda: wk.launch_warp(nxt(), out, k2_transforms, FILL, PAD),
          lambda: wk.warp_plain(nxt(), n1, n2, n3, FILL, PAD),
          lambda: wk.transform_affine_separable(nxt(), mats, FILL, PAD),
-         2 * img_bytes + shift_bytes, 10 * img_bytes,
+         2 * img_bytes + transform_bytes, 10 * img_bytes,
          "chambers_tpu/ops/warp_pallas.py:144 "
          "transform_affine_separable_pallas",
-         masked_launches["warp"]),
+         masked_launches["warp"], wk.launch_shape(cold[0], False)),
     )
     rows = []
-    for name, bare, plain, wrapped, nbytes, ops, replaces, count in cases:
+    for (name, bare, plain, wrapped, nbytes, ops, replaces, count,
+         shape) in cases:
         kernel_ms = cuda_ms(torch, bare, 50, backlog=True)
         plain_ms = cuda_ms(torch, plain, 10)
         wrapper_ms = cuda_ms(torch, wrapped, 20)
@@ -1053,12 +1069,22 @@ def main():
             "ms": kernel_ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "card": CARD,
+            "library_ms": None, "copy_ms": copy_ms,
+            "cluster_size": 1, "rows_per_block": shape["rows"],
+            "threads_per_block": shape["threads"],
+            "smem_per_block": shape["smem_bytes"],
+            "note": "copy_ms is a device copy_ of the images' bytes, the "
+                    "floor of a kernel that reads and writes each once; it "
+                    "computes another function, so it is no library_ms",
+            "card": CARD,
         })
-        log(f"{name}: kernel {kernel_ms * 1e3:.1f} us, wrapper call "
-            f"{wrapper_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}) on "
-            f"{CARD}")
+        log(f"{name}: kernel {kernel_ms * 1e3:.2f} us ({bound_ms / kernel_ms:.0%}"
+            f" of the bound), wrapper call {wrapper_ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({rows[-1]['bound_by']}), copy_ of the images "
+            f"{copy_ms * 1e3:.2f} us; {shape['rows']} rows, "
+            f"{shape['threads']} threads and {shape['smem_bytes']} bytes of "
+            f"shared memory a block, no cluster, on {CARD}")
     torch.cuda.synchronize()
     del cold, pool, model
 

@@ -87,6 +87,124 @@ def test_randaugment_compositions_equal(dev):
         assert torch.equal(got.cpu(), fused.apply(x.cpu(), cpu_draws))
 
 
+def _round_inputs(dev, b, h, w, seed, op_class=None, mats=None,
+                  cy=None, cx=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device=dev,
+                      generator=g)
+    if op_class is None:
+        op_class = torch.arange(b, device=dev, dtype=torch.int32) % 5
+    if cy is None:
+        cy = torch.randint(-5, h + 5, (b,), device=dev, generator=g)
+        cx = torch.randint(-5, w + 5, (b,), device=dev, generator=g)
+    if mats is None:
+        mats = _mats(b, h, w, dev)
+    return x, mats, op_class, cy, cx
+
+
+def _round_matches_plain(x, mats, op_class, cy, cx, **kw):
+    """K1 against its plain version, twice (the same bits both times)."""
+    got = wk.fused_round(x, mats, op_class, cy, cx, **kw)
+    again = wk.fused_round(x, mats, op_class, cy, cx, **kw)
+    want = wk.fused_round_plain(
+        x, *wk.fused_round_args(x, mats, op_class, cy, cx, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    return got
+
+
+ROUND_KW = dict(fill_value=128, pad=8, color_factor=1.72, sharp_factor=1.9,
+                cut_half=9, cut_fill=3)
+
+
+def test_fused_round_kernel_at_384px(dev):
+    """All five classes over rounds of a batch of 4 at 384 px, the size of
+    the AutoAugment ViT-L/16 config, with its padding."""
+    for shift in range(5):
+        op = (torch.arange(4, device=dev, dtype=torch.int32) + shift) % 5
+        x, mats, op, cy, cx = _round_inputs(dev, 4, 384, 384, shift,
+                                            op_class=op)
+        _round_matches_plain(x, mats, op, cy, cx, **dict(ROUND_KW, pad=54))
+
+
+@pytest.mark.parametrize("h", [1, 2, 3])
+def test_kernels_on_images_of_few_rows(dev, h):
+    """Fewer rows than a block takes, and Sharpness with no interior."""
+    x, mats, op, cy, cx = _round_inputs(dev, 10, h, 64, h)
+    _round_matches_plain(x, mats, op, cy, cx, **ROUND_KW)
+    got = wk.transform_affine_separable(x, mats, 77, 8)
+    n1, n2, n3 = wk._shift_vectors(mats, 10, h, 64, 8)
+    assert torch.equal(got, wk.warp_plain(x, n1, n2, n3, 77, 8))
+
+
+def test_fused_round_fills_and_cutout_outside(dev):
+    """A 1000 px translation fills every byte; cutout centres outside the
+    image change nothing, centres on its corners cut a quarter square."""
+    b, h, w = 6, 64, 48
+    far = iops.translate_x_matrices(torch.full((b,), 1000.0, device=dev))
+    op = torch.full((b,), wk.WARP, dtype=torch.int32, device=dev)
+    x, mats, op, cy, cx = _round_inputs(dev, b, h, w, 5, op_class=op,
+                                        mats=far)
+    assert bool((_round_matches_plain(x, mats, op, cy, cx, **ROUND_KW)
+                 == 128).all())
+    op = torch.full((b,), wk.CUTOUT, dtype=torch.int32, device=dev)
+    cy = torch.tensor([-50, h + 50, -9, h + 9, 0, h], device=dev)
+    cx = torch.tensor([3, 3, -9, w + 9, 0, w], device=dev)
+    got = _round_matches_plain(x, iops.identity_matrices(b, dev), op, cy, cx,
+                               **ROUND_KW)
+    assert torch.equal(got[:4], x[:4])
+    assert bool((got[4, :9, :9] == 3).all()) and torch.equal(got[4, 9:],
+                                                             x[4, 9:])
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 2])
+@pytest.mark.parametrize("shape,offset", [((41, 33), 0), ((40, 48), 1)])
+def test_warp_kernel_any_channels_unaligned(dev, c, shape, offset):
+    """Planes of odd sizes, and a batch that starts one byte past a 16-byte
+    boundary: the byte path, for every channel count."""
+    b, (h, w) = 5, shape
+    g = torch.Generator(device=dev).manual_seed(c)
+    n = b * h * w * c
+    store = torch.randint(0, 256, (n + offset,), dtype=torch.uint8,
+                          device=dev, generator=g)
+    x = store[offset:].view(b, h, w, c)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    mats = _mats(b, h, w, dev)
+    got = wk.transform_affine_separable(x, mats, 77, 9)
+    again = wk.transform_affine_separable(x, mats, 77, 9)
+    n1, n2, n3 = wk._shift_vectors(mats, b, h, w, 9)
+    want = wk.warp_plain(x, n1, n2, n3, 77, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+def test_image_beyond_the_limit_raises(dev):
+    """An image of 2^31 bytes or more is beyond the kernels' 32-bit offsets:
+    refused with the limit named, and counted as no launch."""
+    x = torch.zeros((1, 46341, 46341, 1), dtype=torch.uint8, device=dev)
+    before = wk.transform_affine_separable.launches
+    with pytest.raises(ValueError, match="at most 2147483647 bytes"):
+        wk.transform_affine_separable(x, iops.identity_matrices(1, dev), 0, 4)
+    assert wk.transform_affine_separable.launches == before
+
+
+def test_fused_round_is_one_launch(dev):
+    """With the per-image inputs on the device in the kernel's types, a
+    call launches one CUDA kernel and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, mats, op, cy, cx = _round_inputs(dev, 8, 64, 64, 6)
+    wk.fused_round(x, mats, op, cy, cx, **ROUND_KW)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wk.fused_round(x, mats, op, cy, cx, **ROUND_KW)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels if "fused_round_kernel" in e.name]
+    assert len(kernels) == 1, [e.name for e in kernels]
+
+
 def test_kernel_wrappers_count_and_reject(dev):
     x = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
     ident = iops.identity_matrices(2, dev)
