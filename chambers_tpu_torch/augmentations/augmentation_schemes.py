@@ -1,8 +1,10 @@
-"""Per-image RandAugment over uint8 batches.
+"""Per-image RandAugment and AutoAugment over uint8 batches.
 
 Port of ``chambers_tpu/augmentations/augmentation_schemes.py`` for
-``RandAugment(elementwise=True)``: the magnitude maps, the static pointwise
-lookup tables, the policy warp and both compositions of a round.
+``RandAugment(elementwise=True)`` and ``AutoAugment(elementwise=True)``: the
+magnitude maps, the static pointwise lookup tables, the policy warp and both
+compositions of a round (AutoAugment's stage is the same round with its own
+draws, see :class:`AutoAugment`).
 
 Sampling is split from applying. :meth:`RandAugment.sample` draws, for each
 round, the op index, the sign of the op's magnitude and the CutOut centre of
@@ -12,12 +14,18 @@ package made and hold the outputs bit-equal.
 
 A round runs in one of two compositions, selected by ``fused_round_kernel``:
 
-- fused (the default): the warp, Color, Sharpness and CutOut candidates go
-  through one launch of kernel K1 (``warp_kernels.fused_round``), in which
-  every image computes only its own op;
+- fused: the warp, Color, Sharpness and CutOut candidates go through one
+  launch of kernel K1 (``warp_kernels.fused_round``), in which every image
+  computes only its own op;
 - masked: one warp of the whole batch through kernel K2
   (``warp_kernels.transform_affine_separable``), then Color, Sharpness and
   CutOut over the whole batch, each selected in by mask.
+
+``fused_round_kernel=None`` (the default) picks the fused composition for a
+uint8 batch of three channels, which is all K1 takes, and the masked one
+for any other batch, as the JAX package routes a batch that is not uint8
+RGB; True or False forces one. The JAX package's TPU-only gate on the
+kernel's VMEM working set has no counterpart here.
 
 Either way the eight per-pixel-value ops (AutoContrast, Equalize, Invert,
 Brightness, Contrast, Posterize, Solarize, SolarizeAdd) compose into one
@@ -145,6 +153,14 @@ def _rotation_pad(theta, h, w):
     return int(np.ceil(np.tan(abs(theta) / 2.0) * (d - 1) / 2.0)) + 2
 
 
+def _fused_round_applicable(scheme, images):
+    """Whether a round goes through K1: ``scheme.fused_round_kernel`` if it
+    is True or False, else whether the batch is uint8 RGB."""
+    if scheme.fused_round_kernel is not None:
+        return scheme.fused_round_kernel
+    return images.dtype == torch.uint8 and images.shape[-1] == 3
+
+
 def _policy_warp(images, mats, max_rotation_rad=None):
     """One separable warp per policy round with per-image affine ``mats``
     ``[b, 8]`` (kernel K2). Rotations round once per shear pass, so a source
@@ -157,12 +173,105 @@ def _policy_warp(images, mats, max_rotation_rad=None):
         images, mats, fill_value=_FILL_VALUE, pad=pad)
 
 
+# projective op -> (matrices of signed values for an h x w image, the
+# op's value from its magnitude)
+_PROJECTIVE_OPS = {
+    "ShearX": (lambda v, h, w: image_ops.shear_x_matrices(v),
+               lambda m: m / _MAX_MAGNITUDE * 0.3),
+    "ShearY": (lambda v, h, w: image_ops.shear_y_matrices(v),
+               lambda m: m / _MAX_MAGNITUDE * 0.3),
+    "TranslateX": (lambda v, h, w: image_ops.translate_x_matrices(v),
+                   lambda m: m / _MAX_MAGNITUDE * 100),
+    "TranslateY": (lambda v, h, w: image_ops.translate_y_matrices(v),
+                   lambda m: m / _MAX_MAGNITUDE * 100),
+    "Rotate": (image_ops.rotation_matrices,
+               lambda m: m / _MAX_MAGNITUDE * 30.0 * math.pi / 180.0),
+}
+_KERNEL_CLASSES = {"Color": warp_kernels.COLOR,
+                   "Sharpness": warp_kernels.SHARPNESS,
+                   "CutOut": warp_kernels.CUTOUT}
+
+
+def _op_tables(specs, h, w, device):
+    """Per-op tables on ``device`` for the ops ``specs``, ``[(name,
+    magnitude), ...]`` at ``h x w``: static LUT rows ``rows [n, 256]``
+    (identity for ops without a static table); the masks ``is_lut``,
+    ``is_autocontrast``, ``is_equalize`` and ``is_color``; K1's class
+    ``op_class``; Color's factor ``color_factor``; and ``projective_kind``
+    (1 + the op's place in ``_PROJECTIVE_OPS``, 0 for other ops) with the
+    op's unsigned value ``projective_value``."""
+    n = len(specs)
+    rows = np.tile(np.arange(256, dtype=np.uint8), (n, 1))
+    masks = {k: np.zeros(n, bool) for k in (
+        "is_lut", "is_autocontrast", "is_equalize", "is_color")}
+    op_class = np.full(n, warp_kernels.PASSTHROUGH, np.int32)
+    color_factor = np.zeros(n, np.float32)
+    kind, value = np.zeros(n, np.int64), np.zeros(n, np.float32)
+    projective = list(_PROJECTIVE_OPS)
+    for i, (name, magnitude) in enumerate(specs):
+        if name in _PROJECTIVE_OPS:
+            op_class[i] = warp_kernels.WARP
+            kind[i] = projective.index(name) + 1
+            value[i] = _PROJECTIVE_OPS[name][1](magnitude or 0)
+        elif name in _KERNEL_CLASSES:
+            # a CutOut of size 0 is the identity
+            if name != "CutOut" or _magnitude_to_cutout_kwargs(
+                    magnitude)["mask_size"]:
+                op_class[i] = _KERNEL_CLASSES[name]
+            if name == "Color":
+                masks["is_color"][i] = True
+                color_factor[i] = _magnitude_to_enhance_kwargs(
+                    magnitude)["factor"]
+        else:
+            masks["is_lut"][i] = True
+            masks["is_autocontrast"][i] = name == "AutoContrast"
+            masks["is_equalize"][i] = name == "Equalize"
+            table = _static_pointwise_table(name, magnitude, h, w)
+            if table is not None:
+                rows[i] = table
+            elif name not in ("AutoContrast", "Equalize"):
+                raise NotImplementedError(
+                    f"op {name} has no elementwise form")
+    tables = dict(rows=rows, op_class=op_class, color_factor=color_factor,
+                  projective_kind=kind, projective_value=value, **masks)
+    return {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
+
+
+def _projective_matrices(t, op_idx, sign, h, w):
+    """Per-image ``[b, 8]`` affine: the projective op ``op_idx`` drew, at
+    ``sign`` times its value, from :func:`_op_tables`' ``t``; identity for
+    an image that drew another op."""
+    kind = t["projective_kind"][op_idx]
+    value = sign * t["projective_value"][op_idx]
+    mats = image_ops.identity_matrices(op_idx.shape[0], op_idx.device)
+    for k, (build, _) in enumerate(_PROJECTIVE_OPS.values(), 1):
+        mats = torch.where((kind == k)[:, None], build(value, h, w), mats)
+    return mats
+
+
+def _apply_lut_block(images, t, op_idx, result):
+    """The per-pixel-value ops as one ``[b*c, 256]`` table gathered per
+    (image, channel): each image's static row of :func:`_op_tables`' ``t``,
+    or its AutoContrast or Equalize table; images whose op ``op_idx`` is no
+    table op keep ``result``."""
+    c = images.shape[-1]
+    lut = t["rows"][op_idx].repeat_interleave(c, dim=0)  # [b*c, 256]
+    for name, tables in (("is_autocontrast", image_ops.autocontrast_luts),
+                         ("is_equalize", image_ops.equalize_luts)):
+        sel = t[name][op_idx].repeat_interleave(c)[:, None]
+        lut = torch.where(sel, tables(images), lut)
+    lut_out = image_ops.apply_channel_luts(images, lut)
+    return torch.where(t["is_lut"][op_idx][:, None, None, None], lut_out,
+                       result)
+
+
 class RandAugment:
     """``n_transforms`` random ops per image at fixed magnitude over the
     16-op pool. Only the per-image (``elementwise=True``) policy is ported.
 
-    ``fused_round_kernel`` selects a round's composition: True (default)
-    runs kernel K1 once per round, False the masked composition over K2.
+    ``fused_round_kernel`` selects a round's composition: True runs kernel
+    K1 once per round, False the masked composition over K2, None (default)
+    K1 for a uint8 RGB batch and the masked composition for any other.
     """
 
     OP_NAMES = (
@@ -170,14 +279,10 @@ class RandAugment:
         "Color", "Sharpness", "ShearX", "ShearY", "TranslateX", "TranslateY",
         "Posterize", "Solarize", "SolarizeAdd", "CutOut", "Rotate",
     )
-    _PROJECTIVE = {"ShearX": 7, "ShearY": 8, "TranslateX": 9,
-                   "TranslateY": 10, "Rotate": 15}
     _COLOR, _SHARPNESS, _CUTOUT = 5, 6, 14
-    _AUTOCONTRAST, _EQUALIZE = 0, 1
-    _STATIC_LUT_OPS = (2, 3, 4, 11, 12, 13)  # Invert ... SolarizeAdd
 
     def __init__(self, n_transforms: int, magnitude: float,
-                 elementwise: bool = False, fused_round_kernel: bool = True):
+                 elementwise: bool = False, fused_round_kernel=None):
         if not elementwise:
             raise NotImplementedError(
                 "Only RandAugment(elementwise=True) is ported; the "
@@ -187,18 +292,7 @@ class RandAugment:
         self.elementwise = elementwise
         self.fused_round_kernel = fused_round_kernel
         self.transforms = [_get_transform(n, magnitude) for n in self.OP_NAMES]
-        self._shear_level = magnitude / _MAX_MAGNITUDE * 0.3
-        self._translate_px = magnitude / _MAX_MAGNITUDE * 100
-        self._rotate_rad = magnitude / _MAX_MAGNITUDE * 30.0 * math.pi / 180.0
-        classes = np.full(len(self.OP_NAMES), warp_kernels.PASSTHROUGH,
-                          np.int32)
-        for k_i in self._PROJECTIVE.values():
-            classes[k_i] = warp_kernels.WARP
-        classes[self._COLOR] = warp_kernels.COLOR
-        classes[self._SHARPNESS] = warp_kernels.SHARPNESS
-        if self.transforms[self._CUTOUT].mask_size:  # 0 is the identity
-            classes[self._CUTOUT] = warp_kernels.CUTOUT
-        self._op_classes = classes
+        self._rotate_rad = _PROJECTIVE_OPS["Rotate"][1](magnitude)
         self._tables = {}  # (h, w, device) -> see _device_tables
 
     # -- sampling ------------------------------------------------------------
@@ -230,24 +324,26 @@ class RandAugment:
     # -- applying ------------------------------------------------------------
 
     def apply(self, images, draws):
-        """Run the rounds on uint8 ``[b, h, w, 3]`` ``images`` with the given
+        """Run the rounds on uint8 ``[b, h, w, c]`` ``images`` with the given
         draws (see :meth:`sample`)."""
+        t = self._device_tables(*images.shape[1:3], images.device)
+        use_kernel = _fused_round_applicable(self, images)
         for d in draws:
             idx = d["idx"]
             mats = self.round_matrices(idx, d["sign"], *images.shape[1:3])
-            if self.fused_round_kernel:
+            if use_kernel:
                 result = self._fused_round(images, mats, idx, d["cy"],
                                            d["cx"])
             else:
                 result = _policy_warp(images, mats,
                                       max_rotation_rad=self._rotate_rad)
-            result = self._apply_lut_ops(images, idx, result)
-            if not self.fused_round_kernel:
+            result = _apply_lut_block(images, t, idx, result)
+            if not use_kernel:
                 # the non-LUT pointwise ops over the whole batch, masked in
                 for k_i in (self._COLOR, self._SHARPNESS, self._CUTOUT):
-                    t = self.transforms[k_i]
-                    out = (t(images, centers=(d["cy"], d["cx"]))
-                           if k_i == self._CUTOUT else t(images))
+                    op = self.transforms[k_i]
+                    out = (op(images, centers=(d["cy"], d["cx"]))
+                           if k_i == self._CUTOUT else op(images))
                     result = torch.where((idx == k_i)[:, None, None, None],
                                          out, result)
             images = result
@@ -256,31 +352,18 @@ class RandAugment:
     def round_matrices(self, idx, sign, h, w):
         """Per-image ``[b, 8]`` affine: the sampled projective op's matrix,
         identity for images that drew another op."""
-        b = idx.shape[0]
-        mats = image_ops.identity_matrices(b, idx.device)
-        for name, build, value in (
-            ("ShearX", image_ops.shear_x_matrices, self._shear_level),
-            ("ShearY", image_ops.shear_y_matrices, self._shear_level),
-            ("TranslateX", image_ops.translate_x_matrices,
-             self._translate_px),
-            ("TranslateY", image_ops.translate_y_matrices,
-             self._translate_px),
-        ):
-            sel = (idx == self._PROJECTIVE[name])[:, None]
-            mats = torch.where(sel, build(sign * value), mats)
-        sel = (idx == self._PROJECTIVE["Rotate"])[:, None]
-        rot = image_ops.rotation_matrices(sign * self._rotate_rad, h, w)
-        return torch.where(sel, rot, mats)
+        return _projective_matrices(self._device_tables(h, w, idx.device),
+                                    idx, sign, h, w)
 
     def fused_round_args(self, images, mats, idx, cy, cx):
         """Arguments of K1 for one round (``warp_kernels.fused_round``)."""
         h, w = images.shape[1:3]
-        _, classes, _ = self._device_tables(h, w, images.device)
+        t = self._device_tables(h, w, images.device)
         color = self.transforms[self._COLOR]
         sharp = self.transforms[self._SHARPNESS]
         cut = self.transforms[self._CUTOUT]
         return dict(
-            images=images, transforms=mats, op_class=classes[idx],
+            images=images, transforms=mats, op_class=t["op_class"][idx],
             cut_cy=cy, cut_cx=cx, fill_value=_FILL_VALUE,
             pad=_rotation_pad(self._rotate_rad, h, w),
             color_factor=color.factor, sharp_factor=sharp.factor,
@@ -292,33 +375,196 @@ class RandAugment:
             **self.fused_round_args(images, mats, idx, cy, cx))
 
     def _device_tables(self, h, w, device):
-        """Per-op tables on the device, cached: static LUT rows ``[16, 256]``
-        (identity for ops without a static table), the op -> K1 class map
-        ``[16]`` and the LUT-op mask ``[16]``."""
+        """:func:`_op_tables` of the 16 ops, cached per size and device."""
         key = (h, w, str(device))
         if key not in self._tables:
-            rows = np.tile(np.arange(256, dtype=np.uint8), (16, 1))
-            for k_i in self._STATIC_LUT_OPS:
-                rows[k_i] = _static_pointwise_table(self.OP_NAMES[k_i],
-                                                    self.magnitude, h, w)
-            is_lut = np.zeros(16, bool)
-            is_lut[[self._AUTOCONTRAST, self._EQUALIZE,
-                    *self._STATIC_LUT_OPS]] = True
-            self._tables[key] = tuple(
-                torch.from_numpy(a).to(device)
-                for a in (rows, self._op_classes, is_lut))
+            self._tables[key] = _op_tables(
+                [(name, self.magnitude) for name in self.OP_NAMES], h, w,
+                device)
         return self._tables[key]
 
-    def _apply_lut_ops(self, images, idx, result):
-        """The eight per-pixel-value ops as one ``[b*c, 256]`` table
-        gathered per (image, channel); other images keep ``result``."""
-        b, h, w, c = images.shape
-        rows, _, is_lut = self._device_tables(h, w, images.device)
-        lut = rows[idx].repeat_interleave(c, dim=0)  # [b*c, 256]
-        idx_bc = idx.repeat_interleave(c)[:, None]
-        lut = torch.where(idx_bc == self._AUTOCONTRAST,
-                          image_ops.autocontrast_luts(images), lut)
-        lut = torch.where(idx_bc == self._EQUALIZE,
-                          image_ops.equalize_luts(images), lut)
-        lut_out = image_ops.apply_channel_luts(images, lut)
-        return torch.where(is_lut[idx][:, None, None, None], lut_out, result)
+
+# [(Transform, Probability, Magnitude), (Transform, Probability, Magnitude)]
+_AUTO_AUGMENT_POLICY_V0 = [
+    [("Equalize", 0.8, None), ("ShearY", 0.8, 4)],
+    [("Color", 0.4, 9), ("Equalize", 0.6, None)],
+    [("Color", 0.4, 1), ("Rotate", 0.6, 8)],
+    [("Solarize", 0.8, 3), ("Equalize", 0.4, 7)],
+    [("Solarize", 0.4, 2), ("Solarize", 0.6, 2)],
+    [("Color", 0.2, 0), ("Equalize", 0.8, None)],
+    [("Equalize", 0.4, None), ("SolarizeAdd", 0.8, 3)],
+    [("ShearX", 0.2, 9), ("Rotate", 0.6, 8)],
+    [("Color", 0.6, 1), ("Equalize", 1.0, None)],
+    [("Invert", 0.4, None), ("Rotate", 0.6, 0)],
+    [("Equalize", 1.0, None), ("ShearY", 0.6, 3)],
+    [("Color", 0.4, 7), ("Equalize", 0.6, None)],
+    [("Posterize", 0.4, 6), ("AutoContrast", 0.4, None)],
+    [("Solarize", 0.6, 8), ("Color", 0.6, 9)],
+    [("Solarize", 0.2, 4), ("Rotate", 0.8, 9)],
+    [("Rotate", 1.0, 7), ("TranslateY", 0.8, 9)],
+    [("ShearX", 0.0, 0), ("Solarize", 0.8, 4)],
+    [("ShearY", 0.8, 0), ("Color", 0.6, 4)],
+    [("Color", 1.0, 0), ("Rotate", 0.6, 2)],
+    [("Equalize", 0.8, None), ("Equalize", 0.0, None)],
+    [("Equalize", 1.0, None), ("AutoContrast", 0.6, None)],
+    [("ShearY", 0.4, 7), ("SolarizeAdd", 0.6, 7)],
+    [("Posterize", 0.8, 2), ("Solarize", 0.6, 10)],
+    [("Solarize", 0.6, 8), ("Equalize", 0.6, 1)],
+    [("Color", 0.8, 6), ("Rotate", 0.4, 5)],
+]
+
+
+class AutoAugment:
+    """The AutoAugment V0 policy, one sub-policy pair per image. Only the
+    per-image (``elementwise=True``) policy is ported.
+
+    The 25 sub-policies index a table of unique ``(op, magnitude)`` specs,
+    interned in the JAX package's order (both ``Equalize`` entries and the
+    probability-0 ones included). :meth:`sample` draws each image's
+    sub-policy and, for each of the two stages, whether its op fires and
+    the sign of its magnitude; :meth:`apply` is deterministic given those
+    draws. The V0 table samples no Sharpness or CutOut, so a stage needs no
+    other randomness.
+
+    A stage builds one ``[b, 8]`` affine per image (identity unless it drew
+    a projective op), then runs one of two compositions, chosen as in
+    :class:`RandAugment` by ``fused_round_kernel``:
+
+    - fused: one launch of K1 (``warp_kernels.fused_round``) in which each
+      image warps, takes Color at its own factor, or passes through (also
+      where its op does not fire);
+    - masked: one warp of the whole batch (K2), then Color over the whole
+      batch at per-image factors, selected in by mask.
+
+    Then one ``[b*c, 256]`` table block: Equalize, AutoContrast and the
+    static tables of Invert, Posterize, Solarize and SolarizeAdd; and last
+    ``where(fires, result, images)``. The fill padding comes from the
+    largest Rotate magnitude of the table (27 degrees).
+    """
+
+    def __init__(self, elementwise: bool = False, fused_round_kernel=None):
+        if not elementwise:
+            raise NotImplementedError(
+                "Only AutoAugment(elementwise=True) is ported; the "
+                "whole-batch policy comes with ROADMAP.md §1 item 5.")
+        self.elementwise = elementwise
+        self.fused_round_kernel = fused_round_kernel
+        self._unique = {}    # (name, magnitude) -> index
+        self._op_specs = []  # [(name, magnitude), ...]
+        self.policies = []   # [((op_idx, p), (op_idx, p)), ...]
+        for (t1, p1, m1), (t2, p2, m2) in _AUTO_AUGMENT_POLICY_V0:
+            self.policies.append(
+                ((self._intern(t1, m1), p1), (self._intern(t2, m2), p2)))
+        self._max_rotation = max(
+            _PROJECTIVE_OPS["Rotate"][1](m or 0)
+            for name, m in self._op_specs if name == "Rotate")
+        self._tables = {}    # (h, w, device) -> see _device_tables
+        self._policy = {}    # device -> see policy_tables
+
+    def _intern(self, name, magnitude):
+        key = (name, magnitude)
+        if key not in self._unique:
+            self._unique[key] = len(self._op_specs)
+            self._op_specs.append(key)
+        return self._unique[key]
+
+    def policy_tables(self, device):
+        """The sub-policies on ``device``, cached: ``op_of_policy`` (int64
+        ``[2, 25]``, each stage's spec index) and ``prob`` (float32 ``[2,
+        25]``, each stage's probability)."""
+        key = str(device)
+        if key not in self._policy:
+            self._policy[key] = {
+                name: torch.tensor([[p[s][i] for p in self.policies]
+                                    for s in (0, 1)], dtype=dtype,
+                                   device=device)
+                for name, i, dtype in (("op_of_policy", 0, torch.int64),
+                                       ("prob", 1, torch.float32))}
+        return self._policy[key]
+
+    # -- sampling ------------------------------------------------------------
+
+    def sample(self, batch, generator=None, device=None):
+        """Draw the policy's randomness on ``device``: ``policy_idx`` (int64
+        ``[b]``) and, per stage, ``do`` (bool ``[b]``, the op fires: a
+        uniform draw below its probability) and ``sign`` (±1 float32
+        ``[b]``), as ``{"policy_idx": ..., "stages": [{"do", "sign"}] * 2}``.
+        """
+        device = resolve_device(device)
+        prob = self.policy_tables(device)["prob"]
+        policy_idx = torch.randint(0, len(self.policies), (batch,),
+                                   generator=generator, device=device)
+        stages = []
+        for s in (0, 1):
+            u = torch.rand(batch, generator=generator, device=device)
+            stages.append({
+                "do": u < prob[s][policy_idx],
+                "sign": image_augmentations.random_sign(batch, generator,
+                                                        device)})
+        return {"policy_idx": policy_idx, "stages": stages}
+
+    def __call__(self, images, generator=None):
+        return self.apply(images, self.sample(images.shape[0], generator,
+                                              images.device))
+
+    # -- applying ------------------------------------------------------------
+
+    def stage_ops(self, draws, s):
+        """Spec index ``[b]`` of each image's op in stage ``s``."""
+        policy_idx = draws["policy_idx"]
+        return self.policy_tables(policy_idx.device)["op_of_policy"][s][
+            policy_idx]
+
+    def apply(self, images, draws):
+        """Run both stages on uint8 ``[b, h, w, c]`` ``images`` with the
+        given draws (see :meth:`sample`)."""
+        b, h, w, _ = images.shape
+        t = self._device_tables(h, w, images.device)
+        use_kernel = _fused_round_applicable(self, images)
+        for s, stage in enumerate(draws["stages"]):
+            op_idx = self.stage_ops(draws, s)
+            do = stage["do"]
+            mats = self.stage_matrices(op_idx, stage["sign"], h, w)
+            if use_kernel:
+                result = warp_kernels.fused_round(**self.fused_stage_args(
+                    images, mats, op_idx, do))
+            else:
+                result = _policy_warp(images, mats,
+                                      max_rotation_rad=self._max_rotation)
+            result = _apply_lut_block(images, t, op_idx, result)
+            if not use_kernel:
+                color = image_ops.color(images, t["color_factor"][op_idx])
+                result = torch.where(
+                    t["is_color"][op_idx][:, None, None, None], color, result)
+            images = torch.where(do[:, None, None, None], result, images)
+        return images
+
+    def stage_matrices(self, op_idx, sign, h, w):
+        """Per-image ``[b, 8]`` affine of one stage: the drawn projective
+        op's matrix at ``sign`` times its value, identity for other ops."""
+        return _projective_matrices(self._device_tables(h, w, op_idx.device),
+                                    op_idx, sign, h, w)
+
+    def fused_stage_args(self, images, mats, op_idx, do):
+        """Arguments of K1 for one stage: WARP, COLOR or PASSTHROUGH per
+        image (PASSTHROUGH where the op does not fire or is a table op),
+        Color's factor per image."""
+        h, w = images.shape[1:3]
+        t = self._device_tables(h, w, images.device)
+        zeros = torch.zeros_like(op_idx)
+        return dict(
+            images=images, transforms=mats,
+            op_class=torch.where(do, t["op_class"][op_idx],
+                                 warp_kernels.PASSTHROUGH),
+            cut_cy=zeros, cut_cx=zeros, fill_value=_FILL_VALUE,
+            pad=_rotation_pad(self._max_rotation, h, w),
+            color_factor=t["color_factor"][op_idx], sharp_factor=0.0,
+            cut_half=0, cut_fill=0)
+
+    def _device_tables(self, h, w, device):
+        """:func:`_op_tables` of the interned specs, cached per size and
+        device."""
+        key = (h, w, str(device))
+        if key not in self._tables:
+            self._tables[key] = _op_tables(self._op_specs, h, w, device)
+        return self._tables[key]

@@ -28,14 +28,25 @@ Attention dropout is active when ``dropout_rate > 0`` and the call is not
 deterministic (``deterministic=None`` reads ``not self.training``); it
 draws from the ``generator`` given, else from torch's default one. The
 incremental decode cache comes with generation, in a later slice.
+
+Once quantized (``chambers_tpu_torch.quantization.quantize_model``) the
+four projections are int8 with float32 scales ``w_{query,value,key}_scale``
+``[1, n, h]`` and ``w_projection_scale`` ``[1, d, 1]``: activations quantize
+per token, the products accumulate in int32 (``quantization.int_mm``), and
+scores, softmax and the rest stay in the compute dtype, as in the JAX
+package. The three input projections share one GEMM operand ``[d, 3·n·h]``
+in ``[query, value, key]`` order: a self-attention call makes one product
+against all of it, a cross-attention call one against each third.
 """
 
 import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from chambers_tpu_torch import initializers
+from chambers_tpu_torch import quantization as quant
 from chambers_tpu_torch._device import resolve_device
 
 _MASK_BIAS = -1e9
@@ -126,11 +137,64 @@ class MultiHeadAttention(nn.Module):
         self.w_projection = initializers.new_param((n, d, h), param_dtype,
                                                    device)
         self.b_projection = initializers.new_param((1, d), param_dtype, device)
+        for name in ("query", "value", "key", "projection"):
+            self.register_buffer(f"w_{name}_scale", None)
+        # GEMM operands of the int8 projections (quantization.gemm_operand)
+        # and the input projections' scales stacked to match
+        self.register_buffer("_qkv_gemm", None, persistent=False)
+        self.register_buffer("_qkv_scale", None, persistent=False)
+        self.register_buffer("_projection_gemm", None, persistent=False)
+        self.register_load_state_dict_post_hook(
+            lambda module, keys: module.prepare_int8())
 
     def reset_parameters(self, generator=None):
         for name in ("query", "value", "key", "projection"):
             self.kernel_init(getattr(self, f"w_{name}"), generator)
             initializers.zeros(getattr(self, f"b_{name}"))
+
+    def prepare_int8(self):
+        """Derive the GEMM operands of int8 projections (a no-op on a float
+        layer): ``[d, 3·n·h]`` over query, value and key, each third padded
+        alone, and ``[n·h, d]`` for the output projection."""
+        if self.w_query_scale is None:
+            return
+        d, n, h = self.w_query.shape
+        self._qkv_gemm = quant.gemm_operand(torch.cat([
+            F.pad(w.detach().reshape(d, n * h), (0, -n * h % 8))
+            for w in (self.w_query, self.w_value, self.w_key)], dim=1))
+        self._qkv_scale = torch.cat([self.w_query_scale, self.w_value_scale,
+                                     self.w_key_scale])  # [3, n, h]
+        self._projection_gemm = quant.gemm_operand(
+            self.w_projection.detach().permute(0, 2, 1).reshape(n * h, d))
+
+    def _int8_qkv(self, x, parts):
+        """The int8 input projections ``parts`` (0 query, 1 value, 2 key) of
+        ``x`` ``[b, t, d]``: ``[len(parts), b, n, t, h]`` before the bias,
+        in the compute dtype (``btd,sdnh->sbnth``)."""
+        b, t, d = x.shape
+        n, h = self.w_query.shape[1:]
+        third = self._qkv_gemm.shape[1] // 3
+        w = self._qkv_gemm[:, parts[0] * third:(parts[-1] + 1) * third]
+        x_q, s_x = quant.dynamic_quantize(x.reshape(b * t, d))
+        acc = quant.int_mm(x_q, w, w.shape[1])
+        acc = acc.reshape(b, t, len(parts), third)[..., :n * h]
+        s_w = self._qkv_scale[parts[0]:parts[-1] + 1]
+        out = (acc.reshape(b, t, len(parts), n, h)
+               * s_x.view(b, t, 1, 1, 1)              # [b, t, 1, 1, 1]
+               * s_w.view(1, 1, len(parts), n, h))    # [1, 1, s, n, h]
+        return out.to(x.dtype).permute(2, 0, 3, 1, 4)
+
+    def _int8_projection(self, attention, dtype):
+        """The int8 output projection ``bnth,ndh->btd`` of ``attention``
+        ``[b, n, t, h]``, activations quantized over ``(n, h)``."""
+        b, n, t, h = attention.shape
+        a_q, s_a = quant.dynamic_quantize(attention, (1, 3))  # [b, 1, t, 1]
+        a_q = a_q.permute(0, 2, 1, 3).reshape(b * t, n * h)
+        d = self.w_projection.shape[1]
+        acc = quant.int_mm(a_q, self._projection_gemm, d).reshape(b, t, d)
+        return ((acc * s_a.view(b, t, 1)
+                 * self.w_projection_scale.view(1, 1, d)).to(dtype)
+                + self.b_projection.to(dtype))
 
     def forward(self, inputs, mask=None, deterministic=None, generator=None):
         if deterministic is None:
@@ -139,14 +203,22 @@ class MultiHeadAttention(nn.Module):
         v = inputs[1]
         k = inputs[2] if len(inputs) > 2 else v
         self_attention = v is q and k is v
+        quantized = self.w_query_scale is not None
         dtype = self.dtype or q.dtype
         q, v, k = (x.to(dtype) for x in (q, v, k))
 
-        def project(x, w, b):
+        def project(x, w, b, part):
+            if quantized:
+                return self._int8_qkv(x, (part,))[0] + b.to(dtype)
             return (torch.einsum("btd,dnh->bnth", x, w.to(dtype))
                     + b.to(dtype))
 
-        if self_attention:
+        if self_attention and quantized:
+            b_qkv = torch.stack([self.b_query, self.b_value,
+                                 self.b_key]).to(dtype)
+            qkv = self._int8_qkv(q, (0, 1, 2)) + b_qkv[:, None]
+            query, value, key = qkv[0], qkv[1], qkv[2]
+        elif self_attention:
             w_qkv = torch.stack([self.w_query, self.w_value,
                                  self.w_key]).to(dtype)
             b_qkv = torch.stack([self.b_query, self.b_value,
@@ -154,9 +226,9 @@ class MultiHeadAttention(nn.Module):
             qkv = torch.einsum("btd,sdnh->sbnth", q, w_qkv) + b_qkv[:, None]
             query, value, key = qkv[0], qkv[1], qkv[2]
         else:
-            query = project(q, self.w_query, self.b_query)
-            value = project(v, self.w_value, self.b_value)
-            key = project(k, self.w_key, self.b_key)
+            query = project(q, self.w_query, self.b_query, 0)
+            value = project(v, self.w_value, self.b_value, 1)
+            key = project(k, self.w_key, self.b_key, 2)
 
         q_mask, v_mask = mask if mask is not None else (None, None)
         # flash computes float32 softmax statistics and cannot honour
@@ -171,6 +243,8 @@ class MultiHeadAttention(nn.Module):
             v_mask=v_mask, dropout_rate=self.dropout_rate,
             deterministic=deterministic, generator=generator,
             impl=self.attention_impl, score_dtype=self.score_dtype)
+        if quantized:
+            return self._int8_projection(attention, dtype)
         return (torch.einsum("bnth,ndh->btd", attention,
                              self.w_projection.to(dtype))
                 + self.b_projection.to(dtype))

@@ -8,6 +8,13 @@ covers the ViT and the ``Seq2SeqTransformer``: its top-level ``inputs_embed``,
 does the port's ``Embed``), ``encoder``, ``decoder`` and ``vocab_head`` keep
 their names. It takes numpy arrays (``jax.device_get`` of the params, or ``np.asarray`` of each
 leaf) and imports no JAX.
+
+The JAX package's int8 variables (``quantize_variables``) carry a ``quant``
+collection that mirrors the params tree with ``<name>_scale`` leaves; pass
+it as ``quant`` and its leaves become the port's ``<key>_scale`` entries
+beside the int8 kernels, the ``state_dict`` that
+``quantization.quantize_state_dict`` makes and
+``quantization.load_quantized_state_dict`` installs.
 """
 
 import re
@@ -18,9 +25,10 @@ import torch
 _LIST_ITEM = re.compile(r"^(layers)_(\d+)$")
 
 
-def state_dict_from_jax(params, prefix=""):
-    """Nested dict of arrays -> flat ``{name: torch.Tensor}``."""
-    out = {}
+def state_dict_from_jax(params, prefix="", quant=None):
+    """Nested dict of arrays -> flat ``{name: torch.Tensor}``; the scales of
+    a ``quant`` collection, if given, are added under their own keys."""
+    out = {} if quant is None else state_dict_from_jax(quant, prefix)
     for name, value in params.items():
         m = _LIST_ITEM.match(name)
         key = prefix + (f"{m.group(1)}.{m.group(2)}" if m else name)

@@ -13,9 +13,16 @@ against the JAX package's ``[p, p, c, d]`` conv kernel — the same function
 as the stride-``p`` VALID convolution, and it keeps cuDNN's default TF32
 convolution out of a float32 comparison.
 
-Presets build from the port's own seeded init (``weights=None``); the JAX
-package's weights convert with ``convert.state_dict_from_jax``. Released
-``.h5`` checkpoints, DeiT and dropout (training) come in later slices.
+``dropout_rate`` (0.1 by default, as in the JAX package) drives the
+embedding dropout after the position embedding and the encoder's attention
+and dense dropout. It is active when the forward's ``deterministic`` is
+False (``None`` reads ``not self.training``): a directly built model is in
+train mode, so call ``.eval()`` to serve it.
+
+Presets build from the port's own seeded init (``weights=None``) and return
+the model in eval mode; the JAX package's weights convert with
+``convert.state_dict_from_jax``. Released ``.h5`` checkpoints, DeiT,
+``remat`` and the mixture-of-experts layers come in later slices.
 """
 
 from typing import Optional
@@ -29,7 +36,7 @@ from chambers_tpu_torch.layers.embedding import (
     ConcatEmbedding,
     LearnedEmbedding1D,
 )
-from chambers_tpu_torch.layers.transformer import Encoder
+from chambers_tpu_torch.layers.transformer import Encoder, _dropout
 from chambers_tpu_torch.quantization import QuantDense, promote_dtype
 
 # 'tf'-mode ImageNet normalization, x / 127.5 - 1, and the other two modes
@@ -88,14 +95,20 @@ class VisionTransformer(nn.Module):
     """ViT over ``[batch, H, W, 3]`` images of size ``image_size``."""
 
     def __init__(self, patch_size, patch_dim, n_encoder_layers, n_heads,
-                 ff_dim, image_size=(224, 224), include_top=True,
-                 pooling="cls", feature_dim=None, classes=1000,
-                 classifier_activation=None, dtype=None,
-                 param_dtype=torch.float32, attention_impl="xla",
-                 score_dtype=None, gelu_approximate=False,
-                 norm_stats_dtype=None, device=None):
+                 ff_dim, dropout_rate=0.1, image_size=(224, 224),
+                 include_top=True, pooling="cls", feature_dim=None,
+                 classes=1000, classifier_activation=None, dtype=None,
+                 param_dtype=torch.float32, remat=False,
+                 attention_impl="xla", score_dtype=None,
+                 gelu_approximate=False, norm_stats_dtype=None,
+                 moe_every_n=0, device=None):
         super().__init__()
+        if remat or moe_every_n:
+            raise NotImplementedError(
+                "VisionTransformer's remat and mixture-of-experts layers "
+                "are not ported yet (ROADMAP.md §1 item 5).")
         device = resolve_device(device)
+        self.dropout_rate = dropout_rate
         self.pooling = pooling
         self.include_top = include_top
         self.classifier_activation = classifier_activation
@@ -108,11 +121,10 @@ class VisionTransformer(nn.Module):
             device=device)
         self.pos_embedding = LearnedEmbedding1D(
             n_tokens + 1, patch_dim, param_dtype=param_dtype, device=device)
-        # the ViT's training dropout is not ported yet: its encoder is
-        # built without any, so a model left in train mode computes the same
         self.encoder = Encoder(
             patch_dim, n_heads, ff_dim, n_encoder_layers,
-            attention_dropout_rate=0.0, dense_dropout_rate=0.0, pre_norm=True,
+            attention_dropout_rate=dropout_rate,
+            dense_dropout_rate=dropout_rate, pre_norm=True,
             norm_output=True, dtype=dtype, param_dtype=param_dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,
@@ -124,17 +136,24 @@ class VisionTransformer(nn.Module):
             self.predictions = QuantDense(feature_dim or patch_dim, classes,
                                           **head)
 
-    def embed(self, x):
+    def embed(self, x, deterministic=None, generator=None):
         """images -> encoder token sequence ``[b, 1 + hw/p², d]``."""
+        if deterministic is None:
+            deterministic = not self.training
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.patch_embeddings(x)
         x = self.add_cls_token(x)
         x = self.pos_embedding(x)
-        return self.encoder(x)
+        x = _dropout(x, self.dropout_rate, deterministic, generator)
+        return self.encoder(x, deterministic=deterministic,
+                            generator=generator)
 
-    def forward(self, x):
-        x = _pool(self.embed(x), self.pooling)
+    def forward(self, x, deterministic=None, generator=None):
+        """``[b, H, W, 3]`` images -> float32 logits (or features). Dropout
+        is active unless ``deterministic`` (``None``: ``not
+        self.training``) and draws from ``generator``."""
+        x = _pool(self.embed(x, deterministic, generator), self.pooling)
         if self.feature is not None:
             x = torch.tanh(self.feature(x))
         if self.include_top:
@@ -147,9 +166,10 @@ class VisionTransformer(nn.Module):
 def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
     def preset(input_shape=None, include_top=True, weights=None,
                pooling="cls", feature_dim=None, classes=1000,
-               classifier_activation=None, dtype=None, attention_impl="xla",
-               score_dtype=None, gelu_approximate=False,
-               norm_stats_dtype=None, seed: int = 0, device=None):
+               classifier_activation=None, dtype=None, dropout_rate=0.1,
+               attention_impl="xla", score_dtype=None,
+               gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
+               device=None):
         """Build, seed-initialise and return the model in eval mode."""
         if weights is not None:
             raise NotImplementedError(
@@ -160,7 +180,7 @@ def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
         input_shape = input_shape or (224, 224, 3)
         model = VisionTransformer(
             patch_size, patch_dim, n_layers, n_heads, ff_dim,
-            image_size=tuple(input_shape[:2]), include_top=include_top,
+            dropout_rate=dropout_rate, image_size=tuple(input_shape[:2]), include_top=include_top,
             pooling=pooling, feature_dim=feature_dim, classes=classes,
             classifier_activation=classifier_activation, dtype=dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,

@@ -64,7 +64,10 @@ def to_grayscale(images):
     inv = np.float32(1.0) / np.float32(255.0)
     unit = images.to(torch.float32) * float(inv)
     w = [float(v) for v in _GRAY_WEIGHTS]
-    gray = (w[0] * unit[..., 0] + w[1] * unit[..., 1]) + w[2] * unit[..., 2]
+    # channel i of a c < 3 image is its last one, as the JAX package's
+    # static index clamps: a one-channel image weighs channel 0 three times
+    r, g, b = (unit[..., min(i, images.shape[-1] - 1)] for i in range(3))
+    gray = (w[0] * r + w[1] * g) + w[2] * b
     return (gray * 255.5).clamp(0.0, 255.0).to(torch.uint8)[..., None]
 
 
@@ -101,10 +104,25 @@ def _autocontrast_params(images):
     hi = images.amax(dim=(1, 2)).to(torch.float32).reshape(-1)
     denom = hi - lo
     safe = torch.where(denom == 0, torch.ones_like(denom), denom)
-    scale = torch.where(denom > 0, 255.0 / safe, torch.zeros_like(denom))
+    # a tensor over a tensor rounds once, as JAX's division does; a Python
+    # scalar over a tensor is computed as reciprocal(safe) * 255, which
+    # rounds twice and misrounds 46 of the 255 ranges
+    scale = torch.where(denom > 0, torch.full_like(safe, 255.0) / safe,
+                        torch.zeros_like(denom))
     offset = -lo * scale
     mask = (hi > lo).to(torch.float32)
     return scale * mask + (1 - mask), offset * mask
+
+
+def _rescale(x, scale, offset):
+    """``x * scale + offset`` rounded once to float32, as the fused
+    multiply-add that XLA makes of it under ``jit``, where the JAX package's
+    pipelines run it. For pixel values ``x`` (8 bits) and float32 ``scale``,
+    ``offset`` the product is exact in float64 and the sum is too (it spans
+    under 40 bits), so one rounding to float32 gives the fused result on
+    any device."""
+    return (x.to(torch.float64) * scale.to(torch.float64)
+            + offset.to(torch.float64)).to(torch.float32)
 
 
 def autocontrast(images):
@@ -113,7 +131,7 @@ def autocontrast(images):
     b, c = images.shape[0], images.shape[3]
     scale = scale.reshape(b, c)[:, None, None, :]
     offset = offset.reshape(b, c)[:, None, None, :]
-    x = images.to(torch.float32) * scale + offset
+    x = _rescale(images, scale, offset)
     return x.clamp(0.0, 255.0).to(torch.uint8)
 
 
@@ -179,7 +197,7 @@ def autocontrast_luts(images):
     """Autocontrast tables per (image, channel), ``[b*c, 256]`` uint8."""
     scale, offset = _autocontrast_params(images)
     v = torch.arange(256, dtype=torch.float32, device=images.device)[None]
-    lut = v * scale[:, None] + offset[:, None]
+    lut = _rescale(v, scale[:, None], offset[:, None])
     return lut.clamp(0.0, 255.0).to(torch.uint8)
 
 

@@ -49,8 +49,32 @@ the CUDA toolkit. In order, it:
 11. times K3a-c at ``[128, 512, 64]`` bf16 beside their plain versions and
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
     and their float32 instances (the FMA kernels) once;
-12. prints one ``kernels`` JSON line with all five kernels, the card line,
-    and last ``{"ok": true, "device": {...}}``.
+12. (a) serves ``bench.py``'s config 1 through int8 PTQ: ViT-B/16 in bf16
+    with bf16 scores, seed 0, the normalization folded and then
+    ``quantize_model``, behind RandAugment(2, 10), batch 32 at 224 px,
+    three timed runs of 20 steps in turns with the same bf16 model; checks
+    the int8 logits against the bf16 ones (relative L2 under 0.05, the JAX
+    package's envelope), every int8 product, quantize pass and QuantDense
+    layer of a float32 int8 model on the card bit-equal to the CPU's on the
+    card's own operands, and profiles both with device time by kind
+    (quantize passes, ``_int_mm``, attention core, other);
+13. (b) drives AutoAugment into ViT-L/16 at 384 px, batch 128, 24 layers,
+    in bf16 with bf16 scores and then in int8: the fused (K1) and masked
+    (K2) compositions bit-equal at ``[128, 384, 384, 3]``, logits of 8
+    images at the phase-6 gate of a float32 reference, 2 warm-up steps and
+    three timed runs of 5 steps, peak memory, profiles;
+14. (c) holds K1 and K2 bit-equal to their plain versions at ``[128, 384,
+    384, 3]``, pad 48, on both stages of a real AutoAugment draw (K1 on
+    the stage's classes and with every image a WARP, K2 on the stage's
+    matrices), then times K1 (on a stage's class mix) and K2 there, 56.6
+    MB each way, against their bytes bound and a device ``copy_``;
+15. (d) holds ``quantization.int_mm`` exact against the int32 product at
+    every int8 shape of the two paths, in both weight layouts, and times
+    it against the int8 bound and a bf16 ``torch.matmul``;
+16. prints a ``paths`` and an ``int_mm`` JSON line, one ``kernels`` JSON
+    line with all five kernels (K1 and K2 with their 384 px shape as
+    ``shape_384``), the card line, and last ``{"ok": true, "device":
+    {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -749,6 +773,549 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 12-15. the int8 serving path and AutoAugment -> ViT-L/16 at 384 px
+# ---------------------------------------------------------------------------
+
+# published H100 SXM dense int8 tensor-core rate (data sheet, 700 W)
+INT8_OPS_PER_S = 1979e12
+L_BATCH, L_SIZE = 128, 384
+L_WARMUP, L_STEPS, L_REPEATS = 2, 5, 3
+LABELS = ("int8 quantize", "int8 _int_mm", "attention core")
+
+
+class labelled:
+    """Within the block, ``dynamic_quantize``, ``int_mm`` and the attention
+    core (scores, softmax, P·V) run under ``record_function`` ranges whose
+    device time the profiler sums: the split of a step's device time by
+    kind. Outside it the package runs unlabelled."""
+
+    def __init__(self, torch):
+        from chambers_tpu_torch import quantization as tq
+        from chambers_tpu_torch.layers import attention
+
+        self.slots = [(tq, "dynamic_quantize", LABELS[0]),
+                      (tq, "int_mm", LABELS[1]),
+                      (attention, "scaled_dot_product_attention", LABELS[2])]
+        self.record = torch.profiler.record_function
+
+    def __enter__(self):
+        self.saved = []
+        for module, name, label in self.slots:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with self.record(_label):
+                    return _fn(*a, **kw)
+
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def profile_by_kind(torch, step, n):
+    """Device ms per step of ``n`` profiled steps, by kind: the labelled
+    ranges (quantize passes, ``_int_mm``, the attention core), matrix
+    products elsewhere (kernel names) and everything else; and device
+    kernel launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with labelled(torch), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cpu_side, device = (torch.autograd.DeviceType.CPU,
+                        torch.autograd.DeviceType.CUDA)
+    # a labelled range also appears on the device timeline as an
+    # annotation spanning its kernels and the gaps between them: kernels
+    # only in the total, and each range's kernels from its host side
+    cuda = [e for e in events
+            if e.device_type == device and e.key not in LABELS]
+    total = sum(e.self_device_time_total for e in cuda) / 1e3
+    launches = sum(e.count for e in cuda)
+    gemm = sum(e.self_device_time_total for e in cuda if any(
+        w in e.key.lower() for w in ("gemm", "nvjet", "cutlass", "xmma",
+                                     "cublas"))) / 1e3
+    ranges = {label: sum(e.device_time_total for e in events
+                         if e.key == label and e.device_type == cpu_side)
+              / 1e3 for label in LABELS}
+    kinds = {k: v / n for k, v in ranges.items()}
+    kinds["other"] = (total - sum(ranges.values())) / n
+    return {"device_ms": total / n, "by_kind_ms": kinds,
+            "gemm_named_ms": gemm / n, "launches": launches / n,
+            "table": events.table(sort_by="self_device_time_total",
+                                  row_limit=10)}
+
+
+def timed_runs(torch, wk, step, repeats, steps, warmup):
+    """``repeats`` runs of ``steps`` steps after ``warmup``, CUDA events,
+    with the launch counters set to 0 just before the runs and read just
+    after. Returns (ms per step of each run, launches, last output)."""
+    for i in range(warmup):
+        step(i)
+    torch.cuda.synchronize()
+    wk.fused_round.launches = 0
+    wk.transform_affine_separable.launches = 0
+    runs = []
+    for r in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(steps):
+            out = step(r * steps + i)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / steps)
+    launches = {"fused_round": wk.fused_round.launches,
+                "warp": wk.transform_affine_separable.launches}
+    return runs, launches, out
+
+
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def cosine(torch, got, want):
+    return float(torch.nn.functional.cosine_similarity(
+        got.double().flatten(), want.double().flatten(), dim=0))
+
+
+def check_int8_against_cpu(torch, tq, state_dict, x, dev):
+    """A float32 int8 ViT-B/16 on the card against the same model on the
+    CPU, on 4 images. Every int8 product and every quantize pass of the
+    card's forward is recomputed on the CPU from the card's own operands and
+    must give the same bits, and every QuantDense layer (the MLPs and the
+    head: products, rescale and bias) must give the same bits on the card's
+    own input: the int8 work is exact on both. End to end the two differ by
+    more: their float work (LayerNorm, softmax, the attention products)
+    rounds in other orders, by ~1e-6, and wherever that moves an activation
+    across a rounding boundary its int8 code differs by one, which the next
+    layers carry on. That gap is reported beside the float32 model's own
+    card-to-CPU gap and held to the int8 envelope, 0.05."""
+    from chambers_tpu_torch.models.backbones.vision_transformer import ViTB16
+
+    card = ViTB16(seed=0, device=dev)
+    card.load_state_dict(state_dict)
+    cpu = ViTB16(seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    float_rel = rel_l2(card(x).cpu(), cpu(x.cpu()))
+    tq.quantize_model(card)
+    tq.load_quantized_state_dict(
+        cpu, {k: v.cpu() for k, v in card.state_dict().items()})
+
+    quantized, products, dense = [], [], []
+    plain_quantize, plain_int_mm = tq.dynamic_quantize, tq.int_mm
+
+    def quantize(x, reduce_axes=(-1,)):
+        q, s = plain_quantize(x, reduce_axes)
+        quantized.append((x.cpu(), reduce_axes, q.cpu(), s.cpu()))
+        return q, s
+
+    def int_mm(x_q, w, n):
+        acc = plain_int_mm(x_q, w, n)
+        products.append((x_q.cpu(), w.cpu(), n, acc.cpu()))
+        return acc
+
+    cpu_layers = dict(cpu.named_modules())
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, name=name: dense.append((name, i[0].cpu(), o.cpu())))
+        for name, m in card.named_modules() if isinstance(m, tq.QuantDense)]
+    tq.dynamic_quantize, tq.int_mm = quantize, int_mm
+    try:
+        got = card(x).cpu()
+    finally:
+        tq.dynamic_quantize, tq.int_mm = plain_quantize, plain_int_mm
+        for h in hooks:
+            h.remove()
+    for inp, axes, q, s in quantized:
+        q2, s2 = tq.dynamic_quantize(inp, axes)
+        check(torch.equal(q, q2) and torch.equal(s, s2),
+              f"int8 codes and scales on the card equal the CPU's "
+              f"({tuple(inp.shape)})")
+    for x_q, w, n, acc in products:
+        check(torch.equal(acc, tq.int_mm(x_q, w, n)),
+              f"_int_mm on the card equals the CPU's ({tuple(x_q.shape)} x "
+              f"{tuple(w.shape)})")
+    for name, inp, out in dense:
+        check(torch.equal(out, cpu_layers[name](inp)),
+              f"int8 QuantDense {name} on the card equals the CPU's")
+    want = cpu(x.cpu())
+    rel = rel_l2(got, want)
+    log(f"float32 int8 ViT-B/16, card vs CPU (4 images): {len(quantized)} "
+        f"quantize passes, {len(products)} int8 products and {len(dense)} "
+        f"QuantDense layers bit-equal on the card's own operands; end to "
+        f"end rel L2 {rel:.3g} (max |d| {float((got - want).abs().max()):.3g})"
+        f" where the float32 model's is {float_rel:.3g}")
+    depth = len(card.encoder.layers)
+    check(len(products) == 4 * depth + 1 and len(dense) == 2 * depth + 1,
+          "every int8 product of the forward was held")
+    check(rel < 0.05, "int8 model on the card within the int8 envelope of "
+                      "the CPU's")
+
+
+def int8_serving_path(torch, wk, dev, aug, rand_images):
+    """Phase 12 (a): bench.py's config 1 served through int8 PTQ, in
+    bench.py's order (fold the normalization, then quantize), timed in
+    turns with the same bf16 model; its logits against the bf16 model's
+    (the JAX package's envelope, 0.05) and a float32 int8 model on the card
+    against the same model on the CPU (:func:`check_int8_against_cpu`).
+    Returns the timed runs and profiles of both."""
+    import copy
+
+    from chambers_tpu_torch import quantization as tq
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        ViTB16,
+        fold_imagenet_normalization,
+    )
+
+    bf16 = ViTB16(dtype=torch.bfloat16, score_dtype=torch.bfloat16, seed=0,
+                  device=dev)
+    bf16.load_state_dict(fold_imagenet_normalization(bf16.state_dict()))
+    int8 = tq.quantize_model(copy.deepcopy(bf16))
+    pool = [rand_images() for _ in range(STEPS)]
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def stepper(model):
+        def step(i):
+            draws = aug.sample(BATCH, (SIZE, SIZE), gen, dev)
+            return model(aug.apply(pool[i % len(pool)], draws))
+        return step
+
+    results = {}
+    with torch.inference_mode():
+        for r in range(REPEATS):  # in turns: bf16, int8, bf16, int8, ...
+            for name, model in (("bf16", bf16), ("int8", int8)):
+                runs, launches, logits = timed_runs(
+                    torch, wk, stepper(model), 1, STEPS,
+                    WARMUP if r == 0 else 0)
+                check(tuple(logits.shape) == (BATCH, 1000)
+                      and bool(torch.isfinite(logits).all()),
+                      f"finite [32, 1000] logits ({name})")
+                res = results.setdefault(name, {"runs": [], "k1": 0})
+                res["runs"] += runs
+                res["k1"] += launches["fused_round"]
+        for name, res in results.items():
+            ms = sorted(res["runs"])[len(res["runs"]) // 2]
+            res["ms"] = ms
+            log(f"int8 path (a), ViT-B/16 {name}: median of {REPEATS} runs "
+                f"of {STEPS} steps {ms:.3f} ms/batch, "
+                f"{BATCH / (ms / 1e3):.1f} img/s (runs "
+                f"{', '.join(f'{x:.3f}' for x in res['runs'])}), batch "
+                f"{BATCH}, {SIZE} px, K1 launches {res['k1']} on {CARD}")
+        check(results["int8"]["k1"] == 2 * STEPS * REPEATS,
+              "K1 launched twice per step on the int8 path")
+
+        draws = aug.sample(BATCH, (SIZE, SIZE), gen, dev)
+        x = aug.apply(pool[0], draws)
+        augment_ms = cuda_ms(torch, lambda: aug.apply(pool[0], draws), 20)
+        for name, model in (("bf16", bf16), ("int8", int8)):
+            results[name]["augment_ms"] = augment_ms
+            results[name]["forward_ms"] = cuda_ms(torch, lambda: model(x), 20)
+            log(f"int8 path (a) breakdown, {name}: RandAugment(2,10) "
+                f"{augment_ms:.3f} ms, ViT-B/16 {results[name]['forward_ms']:.3f}"
+                f" ms per batch of {BATCH} (CUDA events) on {CARD}")
+        rel = rel_l2(int8(x), bf16(x))
+        log(f"int8 vs bf16 ViT-B/16 logits (32 images): rel L2 {rel:.4f} "
+            f"(the JAX package's envelope 0.05)")
+        check(rel < 0.05, "int8 logits within 0.05 of the bf16 model's")
+
+        check_int8_against_cpu(torch, tq, bf16.state_dict(), x[:4], dev)
+
+        for name, model in (("bf16", bf16), ("int8", int8)):
+            prof = profile_by_kind(torch, stepper(model), 3)
+            results[name]["profile"] = prof
+            log(prof["table"])
+            log(f"int8 path (a), ViT-B/16 {name} profile: "
+                f"{prof['device_ms']:.3f} ms of device time and "
+                f"{prof['launches']:.0f} kernel launches a step; by kind "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            prof["by_kind_ms"].items())
+                + f" ms (matrix-product kernels by name "
+                f"{prof['gemm_named_ms']:.3f} ms) on {CARD}")
+    return results
+
+
+def autoaugment_vitl_path(torch, wk, dev):
+    """Phase 13 (b): AutoAugment -> ViT-L/16 at 384 px, batch 128, bf16
+    with bf16 scores, then int8, at full depth. The two compositions
+    bit-equal at [128, 384, 384, 3]; logits of 8 images at the phase-6
+    gate (cosine 0.98) of a float32 reference; timed runs and profiles.
+    Returns the results, K1's arguments for both stages of one draw on
+    one batch (phase 14) and the launch counts."""
+    import copy
+
+    from chambers_tpu_torch import quantization as tq
+    from chambers_tpu_torch.augmentations.augmentation_schemes import (
+        AutoAugment,
+    )
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        ViTL16,
+        fold_imagenet_normalization,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def batch():
+        return torch.randint(0, 256, (L_BATCH, L_SIZE, L_SIZE, 3),
+                             dtype=torch.uint8, device=dev, generator=gen)
+
+    aug = AutoAugment(elementwise=True)
+    masked = AutoAugment(elementwise=True, fused_round_kernel=False)
+    pool = [batch() for _ in range(4)]
+    draws = aug.sample(L_BATCH, gen, dev)
+    a = aug.apply(pool[0], draws)
+    torch.cuda.synchronize()
+    wk.transform_affine_separable.launches = 0
+    b = masked.apply(pool[0], draws)
+    torch.cuda.synchronize()
+    k2_launches = wk.transform_affine_separable.launches
+    check(k2_launches == 2, "K2 launched once per stage (masked)")
+    diff = int((a != b).sum())
+    log(f"AutoAugment fused (K1) vs masked (K2) at [128, 384, 384, 3]: "
+        f"{diff} differing bytes; {int((a != pool[0]).sum())} bytes changed "
+        f"by the policy")
+    check(diff == 0, "AutoAugment's compositions bit-equal at 384 px")
+
+    augment_ms = cuda_ms(torch, lambda: aug.apply(pool[0], draws), 5)
+    shape = dict(input_shape=(L_SIZE, L_SIZE, 3), seed=0, device=dev)
+    bf16 = ViTL16(dtype=torch.bfloat16, score_dtype=torch.bfloat16, **shape)
+    bf16.load_state_dict(fold_imagenet_normalization(bf16.state_dict()))
+    int8 = tq.quantize_model(copy.deepcopy(bf16))
+    results = {}
+    with torch.inference_mode():
+        ref = ViTL16(**shape)
+        ref.load_state_dict(bf16.state_dict())
+        want = ref(a[:8])
+        del ref
+        for name, model in (("bf16", bf16), ("int8", int8)):
+            got = model(a[:8])
+            cos, rel = cosine(torch, got, want), rel_l2(got, want)
+            log(f"ViT-L/16 384 px {name} vs float32 (8 images): cosine "
+                f"{cos:.5f}, rel L2 {rel:.4f}")
+            check(cos >= 0.98 and bool(torch.isfinite(got).all()),
+                  f"ViT-L/16 {name} logits follow the float32 ones")
+
+        for name, model in (("bf16", bf16), ("int8", int8)):
+            def step(i, model=model):
+                d = aug.sample(L_BATCH, gen, dev)
+                return model(aug.apply(pool[i % len(pool)], d))
+
+            torch.cuda.reset_peak_memory_stats()
+            runs, launches, logits = timed_runs(torch, wk, step, L_REPEATS,
+                                                L_STEPS, L_WARMUP)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            forward_ms = cuda_ms(torch, lambda: model(a), 2)
+            check(tuple(logits.shape) == (L_BATCH, 1000)
+                  and bool(torch.isfinite(logits).all()),
+                  f"finite [128, 1000] logits ({name})")
+            check(launches["fused_round"] == 2 * L_STEPS * L_REPEATS,
+                  "K1 launched once per stage")
+            ms = sorted(runs)[len(runs) // 2]
+            prof = profile_by_kind(torch, step, 2)
+            results[name] = {"ms": ms, "runs": runs, "launches": launches,
+                             "peak_gib": peak, "profile": prof,
+                             "forward_ms": forward_ms,
+                             "augment_ms": augment_ms}
+            log(prof["table"])
+            log(f"AutoAugment -> ViT-L/16 384 px {name} (b): median of "
+                f"{L_REPEATS} runs of {L_STEPS} steps {ms:.3f} ms/batch, "
+                f"{L_BATCH / (ms / 1e3):.1f} img/s (runs "
+                f"{', '.join(f'{x:.3f}' for x in runs)}); AutoAugment "
+                f"{augment_ms:.3f} ms and the model {forward_ms:.3f} ms alone "
+                f"(CUDA events); peak memory "
+                f"{peak:.2f} GiB, launches {launches}; profile "
+                f"{prof['device_ms']:.3f} ms of device time and "
+                f"{prof['launches']:.0f} kernel launches a step, by kind "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            prof["by_kind_ms"].items())
+                + f" ms (matrix-product kernels by name "
+                f"{prof['gemm_named_ms']:.3f} ms) on {CARD}")
+    stages = []
+    for s, d in enumerate(draws["stages"]):
+        op_idx = aug.stage_ops(draws, s)
+        mats = aug.stage_matrices(op_idx, d["sign"], L_SIZE, L_SIZE)
+        stages.append(aug.fused_stage_args(pool[0], mats, op_idx, d["do"]))
+    del bf16, int8, pool
+    # K1's count is path (b)'s timed runs; K2 does not run on path (b)
+    # (the default composition is K1's), so its count is the masked
+    # composition check's above, counted from 0
+    launches = {"fused_round": {f"path (b) {n}": r["launches"]["fused_round"]
+                                for n, r in results.items()},
+                "warp": {"masked composition check": k2_launches}}
+    return results, stages, launches
+
+
+def check_kernels_at_384(torch, wk, stages):
+    """K1 and K2 against their plain versions at [128, 384, 384, 3], pad
+    48, on both stages of a real AutoAugment draw: K1 on the stage's class
+    mix and with every image a WARP, K2 on the stage's matrices. Bit
+    equality is required. Returns ``{kernel: (bit_equal, max_abs_err)}``."""
+    errors = {"fused_round": 0, "warp": 0}
+    for s, stage in enumerate(stages):
+        images, mats, pad = stage["images"], stage["transforms"], stage["pad"]
+        b, h, w, _ = images.shape
+        all_warp = dict(stage, op_class=torch.full_like(stage["op_class"],
+                                                        wk.WARP))
+        for label, args in (("the stage's classes", stage),
+                            ("every image a WARP", all_warp)):
+            got = wk.fused_round(**args)
+            want = wk.fused_round_plain(images, *wk.fused_round_args(**args))
+            diff = int((got != want).sum())
+            log(f"K1 vs plain at {list(images.shape)}, pad {pad}, stage {s}, "
+                f"{label}: {diff} differing bytes")
+            check(diff == 0, "K1 bit-equal to its plain version at 384 px")
+            errors["fused_round"] = max(errors["fused_round"],
+                                        max_abs_diff(got, want))
+        got = wk.transform_affine_separable(images, mats, stage["fill_value"],
+                                            pad)
+        want = wk.warp_plain(images, *wk._shift_vectors(mats, b, h, w, pad),
+                             stage["fill_value"], pad)
+        diff = int((got != want).sum())
+        log(f"K2 vs plain at {list(images.shape)}, pad {pad}, stage {s}: "
+            f"{diff} differing bytes; {int((got != images).sum())} bytes "
+            f"moved by the warp")
+        check(diff == 0, "K2 bit-equal to its plain version at 384 px")
+        errors["warp"] = max(errors["warp"], max_abs_diff(got, want))
+        del got, want
+    return {k: (True, v) for k, v in errors.items()}
+
+
+def time_kernels_at_384(torch, wk, dev, stages, launches):
+    """Phase 14 (c): K1 and K2 at [128, 384, 384, 3], 56.6 MB each way,
+    more than the 50 MB L2: first held bit-equal to their plain versions
+    there (:func:`check_kernels_at_384`), then timed, K1 on the class mix
+    of a real AutoAugment stage, K2 on its matrices, against the bytes
+    bound and a device ``copy_`` of the same bytes. Returns the
+    ``shape_384`` entries of the two rows."""
+    held = check_kernels_at_384(torch, wk, stages)
+    stage = stages[0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cold = [torch.randint(0, 256, (L_BATCH, L_SIZE, L_SIZE, 3),
+                          dtype=torch.uint8, device=dev, generator=gen)
+            for _ in range(3)]
+    turn = iter(range(10 ** 9))
+
+    def nxt():
+        return cold[next(turn) % len(cold)]
+
+    kw = {k: v for k, v in stage.items() if k != "images"}
+    k1_args = wk.kernel_round_args(cold[0], **kw)
+    classes = k1_args[1]
+    kinds = {name: int((classes == k).sum()) for name, k in (
+        ("warp", wk.WARP), ("color", wk.COLOR), ("passthrough",
+                                                  wk.PASSTHROUGH))}
+    mats, pad = stage["transforms"], stage["pad"]
+    k2_t = wk._device_transforms(mats, L_BATCH, dev)
+    out = torch.empty_like(cold[0])
+    img_bytes = cold[0].numel()
+    flat = torch.empty(img_bytes, dtype=torch.uint8, device=dev)
+    copy_ms = cuda_ms(torch, lambda: flat.copy_(nxt().view(-1)), 30,
+                      backlog=True)
+    per_byte = {"passthrough": 1, "warp": 10, "color": 12}
+    pixels = L_SIZE * L_SIZE * 3
+    specs = {
+        "fused_round": (lambda: wk.launch_fused_round(nxt(), out, *k1_args),
+                        2 * img_bytes + 32 * L_BATCH + L_BATCH * (4 + 16 + 4),
+                        sum(per_byte[k] * n for k, n in kinds.items())
+                        * pixels),
+        "warp": (lambda: wk.launch_warp(nxt(), out, k2_t, FILL, pad),
+                 2 * img_bytes + 32 * L_BATCH, 10 * img_bytes),
+    }
+    entries = {}
+    for name, (bare, nbytes, ops) in specs.items():
+        ms = cuda_ms(torch, bare, 30, backlog=True)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        entries[name] = {
+            "shape": [L_BATCH, L_SIZE, L_SIZE, 3], "ms": ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "copy_ms": copy_ms, "launches": launches[name],
+            "bit_equal": held[name][0], "max_abs_err": held[name][1],
+            "class_mix": kinds if name == "fused_round" else None,
+            "pad": pad}
+        log(f"{name} at [128, 384, 384, 3]: kernel {ms * 1e3:.2f} us "
+            f"({bound / ms:.0%} of the {entries[name]['bound_by']} bound "
+            f"{bound * 1e3:.2f} us), copy_ of the images {copy_ms * 1e3:.2f} "
+            f"us{'; classes ' + str(kinds) if name == 'fused_round' else ''}"
+            f" on {CARD}")
+    del cold
+    return entries
+
+
+def int_mm_shapes():
+    """(label, m, k, n) of every int8 product of the two int8 paths: the
+    tokens of a batch times each projection and MLP weight, and the heads
+    at m = 32 and 128."""
+    b_m, l_m = BATCH * 197, L_BATCH * 577
+    return [("ViT-B/16 b32 qkv", b_m, 768, 2304),
+            ("ViT-B/16 b32 proj", b_m, 768, 768),
+            ("ViT-B/16 b32 mlp1", b_m, 768, 3072),
+            ("ViT-B/16 b32 mlp2", b_m, 3072, 768),
+            ("ViT-L/16 b128 qkv", l_m, 1024, 3072),
+            ("ViT-L/16 b128 proj", l_m, 1024, 1024),
+            ("ViT-L/16 b128 mlp1", l_m, 1024, 4096),
+            ("ViT-L/16 b128 mlp2", l_m, 4096, 1024),
+            ("ViT-B/16 head m32", 32, 768, 1000),
+            ("ViT-B/16 head m128", 128, 768, 1000),
+            ("ViT-L/16 head m32", 32, 1024, 1000),
+            ("ViT-L/16 head m128", 128, 1024, 1000)]
+
+
+def time_int_mm(torch, dev):
+    """Phase 15 (d): ``quantization.int_mm`` at the int8 paths' shapes in
+    both weight layouts, exact against the int32 product (taken in float64,
+    where every partial sum is an integer under 2^53), against the int8
+    bound and a bf16 ``torch.matmul`` of the same shape (a yardstick)."""
+    from chambers_tpu_torch import quantization as tq
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows = []
+    for label, m, k, n in int_mm_shapes():
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev,
+                          generator=gen)
+        want = x.double() @ w.double()
+        row = {"shape": label, "m": m, "k": k, "n": n}
+        # the package's column-major operand ("nk", an [n, k] row-major
+        # tensor's transpose) and a row-major one ("kn")
+        column_major = tq.gemm_operand(w)
+        for layout, operand in (("nk", column_major),
+                                ("kn", column_major.contiguous())):
+            acc = tq.int_mm(x, operand, n)
+            check(torch.equal(acc.double(), want),
+                  f"_int_mm exact at {label} ({layout})")
+            row[f"ms_{layout}"] = cuda_ms(
+                torch, lambda: tq.int_mm(x, operand, n), 20, backlog=True)
+        del want
+        xb, wb = x.bfloat16(), w.bfloat16()
+        row["bf16_matmul_ms"] = cuda_ms(torch, lambda: torch.matmul(xb, wb),
+                                        20, backlog=True)
+        ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+        bytes_ms = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = max(ops_ms, bytes_ms)
+        row["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        row["exact"] = True
+        rows.append(row)
+        best = min(row["ms_nk"], row["ms_kn"])
+        log(f"_int_mm {label} [{m} x {k} -> {n}]: exact; nk "
+            f"{row['ms_nk'] * 1e3:.1f} us, kn {row['ms_kn'] * 1e3:.1f} us, "
+            f"bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}; best "
+            f"at {row['bound_ms'] / best:.0%}), bf16 matmul "
+            f"{row['bf16_matmul_ms'] * 1e3:.1f} us on {CARD}")
+        del x, w, xb, wb
+    return rows
+
+
 def main():
     global CARD
     import torch
@@ -940,8 +1507,9 @@ def main():
         tiny = dict(image_size=(32, 32), classes=10)
         tiny_cpu = initializers.init_module(
             VisionTransformer(16, 48, 2, 3, 96, device="cpu", **tiny),
-            torch.Generator().manual_seed(1))
-        tiny_gpu = VisionTransformer(16, 48, 2, 3, 96, device=dev, **tiny)
+            torch.Generator().manual_seed(1)).eval()
+        tiny_gpu = VisionTransformer(16, 48, 2, 3, 96, device=dev,
+                                     **tiny).eval()
         tiny_gpu.load_state_dict(tiny_cpu.state_dict())
         x_small = x_aug[:4, :32, :32].contiguous()
         d_tiny = float((tiny_gpu(x_small).cpu()
@@ -1096,6 +1664,31 @@ def main():
     flash_launches = seq2seq_path(torch, fa, dev)
     vit_on_flash(torch, fa, dev, imgs)
     rows += time_flash_kernels(torch, fa, dev, flash_launches, flash_errors)
+
+    # 12-15. the int8 serving path (a), AutoAugment -> ViT-L/16 at 384 px
+    # (b), K1 and K2 at that shape (c), _int_mm at the paths' shapes (d)
+    int8_path = int8_serving_path(torch, wk, dev, aug, rand_images)
+    vitl_path, stages, l_launches = autoaugment_vitl_path(torch, wk, dev)
+    at_384 = time_kernels_at_384(torch, wk, dev, stages, l_launches)
+    for row in rows:
+        if row["name"] in at_384:
+            row["shape_384"] = at_384[row["name"]]
+    int_mm_rows = time_int_mm(torch, dev)
+    paths = {
+        f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
+                          "img_s": batch / (r["ms"] / 1e3),
+                          "device_ms": r["profile"]["device_ms"],
+                          "device_ms_by_kind": r["profile"]["by_kind_ms"],
+                          "launches_per_step": r["profile"]["launches"],
+                          "forward_ms": r["forward_ms"],
+                          "augment_ms": r["augment_ms"],
+                          "peak_gib": r.get("peak_gib")}
+        for cfg, batch, results in (
+            ("randaugment_vitb16_224 (a)", BATCH, int8_path),
+            ("autoaugment_vitl16_384 (b)", L_BATCH, vitl_path))
+        for name, r in results.items()}
+    log(json.dumps({"paths": paths, "card": CARD}))
+    log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 
     log(json.dumps({"kernels": rows}))
     log(CARD)

@@ -363,12 +363,15 @@ def test_tile_products_match_matmul(dev):
 
 
 def _kernel_names(fn):
-    """The names of the kernels ``fn`` launches, from the profiler."""
+    """The names of the kernels three calls of ``fn`` launch, from the
+    profiler (which can drop a kernel's record: three calls make a name
+    missing from all of them unlikely)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(3):
+            fn()
         torch.cuda.synchronize()
     return " ".join(e.key for e in prof.key_averages())
 
@@ -434,3 +437,97 @@ def test_flash_attention_autograd_counts_and_rejects(dev):
     bad = torch.randn((1, 1, 8, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(bad, bad)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 768, 1000), (6304, 768, 2304),
+                                   (40, 36, 20)])
+@pytest.mark.parametrize("layout", ["column-major", "row-major"])
+def test_int_mm_exact_on_the_card(dev, m, k, n, layout):
+    """``quantization.int_mm`` (cuBLASLt's int8 GEMM through
+    ``torch._int_mm``) against the int32 product in float64, exact: every
+    partial sum is an integer under 2^53. m = 8 and k, n = 36, 20 are
+    padded with zeros; 6304 x 768 x 2304 is ViT-B/16's stacked projection
+    at batch 32, unpadded."""
+    from chambers_tpu_torch import quantization as tq
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), device=dev, generator=g,
+                      dtype=torch.int8)
+    operand = tq.gemm_operand(w)
+    if layout == "row-major":
+        operand = operand.contiguous()
+    acc = tq.int_mm(x, operand, n)
+    want = x.double() @ w.double()
+    assert acc.dtype == torch.int32 and acc.shape == (m, n)
+    assert torch.equal(acc.double(), want)
+
+
+def test_quantized_vit_on_the_card_matches_the_cpu(dev):
+    """A 2-layer float32 int8 ViT with a 10-class head (padded to 16
+    columns, 4 rows padded to 17): card against CPU within 1e-4 relative;
+    the accumulators are exact on both, the float work around them sums
+    in other orders."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch import quantization as tq
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+
+    kw = dict(image_size=(32, 32), classes=10)
+    cpu = initializers.init_module(
+        VisionTransformer(16, 64, 2, 4, 128, device="cpu", **kw),
+        torch.Generator().manual_seed(3)).eval()
+    tq.quantize_model(cpu)
+    card = VisionTransformer(16, 64, 2, 4, 128, device=dev, **kw).eval()
+    tq.load_quantized_state_dict(card, cpu.state_dict())
+    assert card.predictions.kernel.dtype == torch.int8
+    x = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_autoaugment_compositions_equal_at_384px(dev, fused):
+    """AutoAugment's stage through K1 or through K2 and the whole-batch
+    Color, against the CPU's plain versions on the same draws."""
+    from chambers_tpu_torch.augmentations.augmentation_schemes import (
+        AutoAugment,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randint(0, 256, (12, 384, 384, 3), dtype=torch.uint8,
+                      device=dev, generator=g)
+    aug = AutoAugment(elementwise=True, fused_round_kernel=fused)
+    draws = aug.sample(12, g, dev)
+    cpu_draws = {"policy_idx": draws["policy_idx"].cpu(),
+                 "stages": [{k: v.cpu() for k, v in s.items()}
+                            for s in draws["stages"]]}
+    launches = (wk.fused_round.launches,
+                wk.transform_affine_separable.launches)
+    got = aug.apply(x, draws)
+    ran = (wk.fused_round.launches - launches[0],
+           wk.transform_affine_separable.launches - launches[1])
+    assert ran == ((2, 0) if fused else (0, 2))
+    other = AutoAugment(elementwise=True, fused_round_kernel=not fused)
+    assert torch.equal(got, other.apply(x, draws))
+    assert torch.equal(got.cpu(), aug.apply(x.cpu(), cpu_draws))
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+def test_randaugment_other_channel_counts_on_the_card(dev, channels):
+    """A batch that is not RGB takes the masked composition, over K2, by
+    default, and matches the CPU's plain versions."""
+    g = torch.Generator(device=dev).manual_seed(channels)
+    x = torch.randint(0, 256, (16, 64, 64, channels), dtype=torch.uint8,
+                      device=dev, generator=g)
+    aug = RandAugment(2, 10, elementwise=True)
+    draws = aug.sample(16, (64, 64), g, dev)
+    cpu_draws = [{k: v.cpu() for k, v in d.items()} for d in draws]
+    k1 = wk.fused_round.launches
+    got = aug.apply(x, draws)
+    assert wk.fused_round.launches == k1
+    assert torch.equal(got.cpu(), aug.apply(x.cpu(), cpu_draws))

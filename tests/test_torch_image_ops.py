@@ -152,3 +152,62 @@ def test_cutout_equal_on_jax_centres(mask_size):
     got = tops.cutout(torch.from_numpy(x), torch.tensor(cy), torch.tensor(cx),
                       mask_size, 128)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _every_range():
+    """One ``[1, 2]`` one-channel image per ``(lo, hi)`` with ``0 <= lo <=
+    hi <= 255``: its two pixels are ``lo`` and ``hi``."""
+    lo, hi = np.triu_indices(256)
+    return np.stack([lo, hi], axis=1).astype(np.uint8).reshape(-1, 1, 2, 1)
+
+
+def test_autocontrast_luts_every_range():
+    """Bit-equal tables for all 32,896 channel ranges. JAX's pipelines run
+    the op under ``jit``, where XLA rounds ``255 / (hi - lo)`` once and
+    contracts ``v * scale + offset`` into one rounding; the port does both
+    (``image_ops._autocontrast_params``, ``_rescale``). A scalar over a
+    tensor in torch rounds the scale twice and misses 46 of the 255 ranges."""
+    x = _every_range()
+    want = np.asarray(jax.jit(jops.autocontrast_luts)(jnp.asarray(x)))
+    got = tops.autocontrast_luts(torch.from_numpy(x)).numpy()
+    assert want.shape == got.shape == (x.shape[0], 256)
+    assert int((want != got).any(axis=1).sum()) == 0
+
+
+def test_autocontrast_on_a_ramp():
+    """Every channel spans 0-7, a range whose scale 255/7 a double rounding
+    misses."""
+    x = (np.arange(4 * 8 * 8 * 3) % 8).astype(np.uint8).reshape(4, 8, 8, 3)
+    want = np.asarray(jax.jit(jops.autocontrast)(jnp.asarray(x)))
+    got = tops.autocontrast(torch.from_numpy(x)).numpy()
+    assert int((want != got).sum()) == 0
+
+
+_ONE_CHANNEL = [
+    ("to_grayscale", lambda m, x: m.to_grayscale(x)),
+    ("color_1.72", lambda m, x: m.color(x, 1.72)),
+    ("color_per_image", lambda m, x: m.color(x, _PER_IMAGE)),
+    ("color_0.1", lambda m, x: m.color(x, 0.1)),
+]
+
+
+@pytest.mark.parametrize("case", _ONE_CHANNEL, ids=[c[0] for c in _ONE_CHANNEL])
+def test_one_channel_bit_equal(case):
+    """A one-channel image weighs its channel three times in the grayscale
+    sum, in the same float order, as the JAX package's clamped index does."""
+    _, op = case
+    x = np.random.RandomState(3).randint(0, 256, (4, 24, 20, 1), np.uint8)
+    want = np.asarray(op(jops, x))
+    got = op(_TorchArgs(), x).numpy()
+    assert want.shape == got.shape == x.shape[:3] + (1,)
+    assert int((want != got).sum()) == 0
+
+
+def test_color_op_on_one_channel():
+    from chambers_tpu.augmentations.image_augmentations import Color as JColor
+    from chambers_tpu_torch.augmentations.image_augmentations import Color
+
+    x = np.random.RandomState(4).randint(0, 256, (3, 16, 16, 1), np.uint8)
+    want = np.asarray(JColor(factor=1.9)(jnp.asarray(x)))
+    got = Color(1.9)(torch.from_numpy(x)).numpy()
+    assert int((want != got).sum()) == 0

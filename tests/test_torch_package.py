@@ -81,7 +81,10 @@ def test_not_yet_ported_paths_say_so():
     from chambers_tpu_torch.layers.attention import (
         scaled_dot_product_attention,
     )
-    from chambers_tpu_torch.quantization import QuantDense
+    from chambers_tpu_torch.augmentations.augmentation_schemes import (
+        AutoAugment,
+    )
+    from chambers_tpu_torch.quantization import QuantDense, quantize_model
 
     from chambers_tpu_torch.layers.transformer import Encoder
 
@@ -93,10 +96,14 @@ def test_not_yet_ported_paths_say_so():
         scaled_dot_product_attention(q, q, impl="pallas")
     with pytest.raises(NotImplementedError, match="later slice"):
         Encoder(8, 2, 16, 2, moe_every_n=2, device="cpu")
+    # the int8 path is ported; the whole-batch policies still wait
     dense = QuantDense(4, 3, device="cpu")
-    dense.kernel_scale = torch.ones(1, 3)
-    with pytest.raises(NotImplementedError, match="int8"):
-        dense(torch.zeros(2, 4))
+    dense.reset_parameters(torch.Generator().manual_seed(0))
+    quantize_model(dense)
+    assert dense.kernel.dtype == torch.int8
+    assert dense(torch.zeros(2, 4)).shape == (2, 3)
+    with pytest.raises(NotImplementedError, match="§1 item 5"):
+        AutoAugment()
     with pytest.raises(NotImplementedError, match="weights"):
         tvit.ViTB16(weights="imagenet21k+_224", device="cpu")
 

@@ -89,3 +89,39 @@ def test_call_samples_on_the_images_device(images):
 def test_whole_batch_policy_not_ported():
     with pytest.raises(NotImplementedError):
         RandAugment(2, 10)
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+@pytest.mark.parametrize("composition", ["default", "masked"])
+def test_other_channel_counts_match_jax(channels, composition):
+    """K1 takes RGB only, so by default a batch of another channel count
+    takes the masked composition, as the JAX package routes it; both
+    packages' defaults are compared, and the port's forced masked one."""
+    x = np.random.RandomState(channels).randint(
+        0, 256, (_B, 32, 32, channels), dtype=np.uint8)
+    jax_aug = JaxRandAugment(n_transforms=2, magnitude=10, elementwise=True)
+    forced = {} if composition == "default" else {"fused_round_kernel": False}
+    aug = RandAugment(2, 10, elementwise=True, **forced)
+    for seed in (0, 1):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.jit(lambda x, k: jax_aug(x, key=k))(
+            jnp.asarray(x), key))
+        got = aug.apply(torch.from_numpy(x), _jax_draws(key, _B, 32, 32))
+        assert got.shape == x.shape
+        assert int((want != got.numpy()).sum()) == 0, (channels, seed)
+
+
+@pytest.mark.parametrize("dtype,channels,fused", [
+    (torch.uint8, 3, True), (torch.uint8, 1, False), (torch.uint8, 4, False),
+    (torch.float32, 3, False)])
+def test_default_routes_rgb_uint8_to_the_kernel(dtype, channels, fused):
+    from chambers_tpu_torch.augmentations.augmentation_schemes import (
+        _fused_round_applicable,
+    )
+
+    x = torch.zeros((2, 8, 8, channels), dtype=dtype)
+    assert _fused_round_applicable(RandAugment(2, 10, elementwise=True),
+                                   x) is fused
+    for forced in (True, False):
+        aug = RandAugment(2, 10, elementwise=True, fused_round_kernel=forced)
+        assert _fused_round_applicable(aug, x) is forced

@@ -192,7 +192,7 @@ def test_fold_imagenet_normalization(tiny, mode):
                            variables["params"]["patch_embeddings"]["kernel"])))
     # folded model on raw pixels == unfolded model on normalized pixels
     ref_in = np.asarray(ImageNetNormalization(mode=mode)(x8))
-    model = _tiny_port_vit()
+    model = _tiny_port_vit().eval()
     model.load_state_dict(sd)
     with torch.inference_mode():
         ref = model(torch.tensor(ref_in))
@@ -209,3 +209,59 @@ def test_preset_seeded_init_is_deterministic():
         assert torch.equal(p, q), name
     assert a.pos_embedding.embeddings.shape == (5, 384)
     assert float(a.encoder.layers[0].norm1.scale.detach().min()) == 1.0
+
+
+def test_vit_dropout_rate_zero_matches_jax_in_train_mode(tiny):
+    """At rate 0 every dropout is the identity, also in train mode (the
+    port's default for a directly built model, JAX's ``deterministic=
+    False``): the f32 logit gate, 1e-3."""
+    _, folded, x8 = tiny
+    want = _tiny_jax_vit().apply(folded, jnp.asarray(x8), deterministic=False)
+    port = _tiny_port_vit(dropout_rate=0.0)
+    port.load_state_dict(state_dict_from_jax(jax.device_get(
+        folded["params"])))
+    assert port.training
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x8))
+    assert _max_abs(want, got) < 1e-3
+
+
+def test_vit_eval_mode_at_the_default_rate_matches_jax(tiny):
+    """The default rate, 0.1 as in the JAX package, is inactive in eval
+    mode and under ``deterministic=True``."""
+    _, folded, x8 = tiny
+    jmod = jvit.VisionTransformer(
+        patch_size=16, patch_dim=D, n_encoder_layers=2, n_heads=N_HEADS,
+        ff_dim=FF, classes=10, pooling="cls")
+    assert jmod.dropout_rate == 0.1
+    want = jmod.apply(folded, jnp.asarray(x8), deterministic=True)
+    port = _load(_tiny_port_vit(), folded["params"])
+    assert port.dropout_rate == 0.1
+    assert port.encoder.layers[0].multi_head_attention.dropout_rate == 0.1
+    assert port.encoder.layers[0].dense_dropout_rate == 0.1
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x8))
+        again = port.train()(torch.from_numpy(x8), deterministic=True)
+    assert _max_abs(want, got) < 1e-3
+    assert torch.equal(got, again)
+
+
+def test_vit_train_mode_draws_from_the_generator(tiny):
+    _, folded, x8 = tiny
+    port = _tiny_port_vit()
+    port.load_state_dict(state_dict_from_jax(jax.device_get(
+        folded["params"])))
+    x = torch.from_numpy(x8)
+    with torch.inference_mode():
+        a = port(x, generator=torch.Generator().manual_seed(3))
+        b = port(x, generator=torch.Generator().manual_seed(3))
+        c = port(x, generator=torch.Generator().manual_seed(4))
+        ref = port.eval()(x)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("kw", [{"remat": True}, {"moe_every_n": 2}])
+def test_vit_remat_and_moe_say_so(kw):
+    with pytest.raises(NotImplementedError, match=r"§1 item 5"):
+        _tiny_port_vit(**kw)
