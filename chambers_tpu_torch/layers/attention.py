@@ -26,8 +26,24 @@ Two implementations, chosen by ``impl`` / ``attention_impl``:
 
 Attention dropout is active when ``dropout_rate > 0`` and the call is not
 deterministic (``deterministic=None`` reads ``not self.training``); it
-draws from the ``generator`` given, else from torch's default one. The
-incremental decode cache comes with generation, in a later slice.
+draws from the ``generator`` given, else from torch's default one.
+
+Incremental decoding passes a ``cache``, a dict of tensors that the caller
+makes once (:meth:`MultiHeadAttention.init_self_cache`,
+:meth:`MultiHeadAttention.init_cross_cache`) and hands to every step; the
+names are the JAX module's ``cache`` collection:
+
+- self-attention: ``cached_key``, ``cached_value`` ``[b, n, max_len, h]``,
+  ``valid_mask`` ``[b, max_len]`` and ``cache_index``. A step (one query
+  position) projects its token, writes key, value and the token's mask
+  (all true without one) at position ``index`` (``cache_index`` when None)
+  in place, and attends over the whole buffer with the validity row as the
+  key mask and no causal mask: unwritten slots are invalid.
+- cross attention: ``cached_key``, ``cached_value``, the memory projected
+  once when the cache is made; a step projects only its query.
+
+With ``"flash"`` a cached step runs K3a at one query row, where the JAX
+module sends every cached step to dense attention.
 
 Once quantized (``chambers_tpu_torch.quantization.quantize_model``) the
 four projections are int8 with float32 scales ``w_{query,value,key}_scale``
@@ -196,7 +212,43 @@ class MultiHeadAttention(nn.Module):
                  * self.w_projection_scale.view(1, 1, d)).to(dtype)
                 + self.b_projection.to(dtype))
 
-    def forward(self, inputs, mask=None, deterministic=None, generator=None):
+    def _project(self, x, part):
+        """The input projection ``part`` (0 query, 1 value, 2 key) of ``x``
+        ``[b, t, d]`` in its dtype: ``[b, n, t, h]``."""
+        name = ("query", "value", "key")[part]
+        b = getattr(self, f"b_{name}").to(x.dtype)
+        if self.w_query_scale is not None:
+            return self._int8_qkv(x, (part,))[0] + b
+        w = getattr(self, f"w_{name}").to(x.dtype)
+        return torch.einsum("btd,dnh->bnth", x, w) + b
+
+    def init_self_cache(self, batch, max_len, dtype, device):
+        """An empty self-attention cache for ``[batch, max_len]`` targets
+        whose activations are ``dtype``: every slot invalid."""
+        n, h = self.w_query.shape[1:]
+        dtype = self.dtype or dtype
+        return {
+            "cached_key": torch.zeros((batch, n, max_len, h), dtype=dtype,
+                                      device=device),
+            "cached_value": torch.zeros((batch, n, max_len, h), dtype=dtype,
+                                        device=device),
+            "valid_mask": torch.zeros((batch, max_len), dtype=torch.bool,
+                                      device=device),
+            "cache_index": 0,
+        }
+
+    def init_cross_cache(self, memory):
+        """A cross-attention cache: ``memory`` ``[b, t, d]`` projected to
+        its keys and values once."""
+        memory = memory.to(self.dtype or memory.dtype)
+        return {"cached_key": self._project(memory, 2),
+                "cached_value": self._project(memory, 1)}
+
+    def forward(self, inputs, mask=None, deterministic=None, generator=None,
+                cache=None, index=None):
+        """``inputs = [q, v]`` or ``[q, v, k]``, ``mask = [q_mask, v_mask]``.
+        With a ``cache`` the call is one decode step (see the module
+        docstring); a cross-attention step then ignores ``v`` and ``k``."""
         if deterministic is None:
             deterministic = not self.training
         q = inputs[0]
@@ -205,15 +257,12 @@ class MultiHeadAttention(nn.Module):
         self_attention = v is q and k is v
         quantized = self.w_query_scale is not None
         dtype = self.dtype or q.dtype
-        q, v, k = (x.to(dtype) for x in (q, v, k))
+        q = q.to(dtype)
 
-        def project(x, w, b, part):
-            if quantized:
-                return self._int8_qkv(x, (part,))[0] + b.to(dtype)
-            return (torch.einsum("btd,dnh->bnth", x, w.to(dtype))
-                    + b.to(dtype))
-
-        if self_attention and quantized:
+        if cache is not None and not self_attention:
+            query = self._project(q, 0)
+            key, value = cache["cached_key"], cache["cached_value"]
+        elif self_attention and quantized:
             b_qkv = torch.stack([self.b_query, self.b_value,
                                  self.b_key]).to(dtype)
             qkv = self._int8_qkv(q, (0, 1, 2)) + b_qkv[:, None]
@@ -226,11 +275,25 @@ class MultiHeadAttention(nn.Module):
             qkv = torch.einsum("btd,sdnh->sbnth", q, w_qkv) + b_qkv[:, None]
             query, value, key = qkv[0], qkv[1], qkv[2]
         else:
-            query = project(q, self.w_query, self.b_query, 0)
-            value = project(v, self.w_value, self.b_value, 1)
-            key = project(k, self.w_key, self.b_key, 2)
+            query = self._project(q, 0)
+            value = self._project(v.to(dtype), 1)
+            key = self._project(k.to(dtype), 2)
 
         q_mask, v_mask = mask if mask is not None else (None, None)
+        causal = self.causal
+        if cache is not None and self_attention:
+            if query.shape[2] != 1:
+                raise ValueError(
+                    "cached decode expects one query position per step, "
+                    f"got {query.shape[2]}")
+            i = cache["cache_index"] if index is None else index
+            cache["cached_key"][:, :, i] = key[:, :, 0]
+            cache["cached_value"][:, :, i] = value[:, :, 0]
+            cache["valid_mask"][:, i] = (True if v_mask is None
+                                         else v_mask[:, 0])
+            cache["cache_index"] = i + 1
+            key, value = cache["cached_key"], cache["cached_value"]
+            v_mask, causal = cache["valid_mask"], False
         # flash computes float32 softmax statistics and cannot honour
         # score_dtype
         if self.attention_impl == "flash" and self.score_dtype is not None:
@@ -239,7 +302,7 @@ class MultiHeadAttention(nn.Module):
                 "statistics; score_dtype is an option of the dense path — "
                 "set one or the other.")
         attention = scaled_dot_product_attention(
-            query, value, key, causal=self.causal, q_mask=q_mask,
+            query, value, key, causal=causal, q_mask=q_mask,
             v_mask=v_mask, dropout_rate=self.dropout_rate,
             deterministic=deterministic, generator=generator,
             impl=self.attention_impl, score_dtype=self.score_dtype)

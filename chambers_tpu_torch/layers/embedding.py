@@ -50,14 +50,18 @@ class PositionalEncoding1D(nn.Module):
         self.add_to_input = add_to_input
         self._tables = {}
 
-    def forward(self, x):
-        key = (x.shape[1], x.shape[2], x.dtype, x.device)
+    def table(self, seq_len, dim, dtype, device):
+        """The ``[1, seq_len, dim]`` encoding in ``dtype`` on ``device``."""
+        key = (seq_len, dim, dtype, device)
         enc = self._tables.get(key)
         if enc is None:
-            table = positional_encoding_1d(x.shape[1], x.shape[2],
-                                           self.temperature)
-            enc = torch.from_numpy(table).to(x.device).to(x.dtype)
+            table = positional_encoding_1d(seq_len, dim, self.temperature)
+            enc = torch.from_numpy(table).to(device).to(dtype)
             self._tables[key] = enc
+        return enc
+
+    def forward(self, x):
+        enc = self.table(x.shape[1], x.shape[2], x.dtype, x.device)
         if self.add_to_input:
             return x + enc
         return enc

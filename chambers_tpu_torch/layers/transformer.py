@@ -15,9 +15,14 @@ query. ``Decoder(return_sequence=True)`` stacks every layer's output to
 ``[batch, n_layers, t, d]``.
 
 Dropout follows the calls' ``deterministic`` argument (``None`` reads ``not
-self.training``) and draws from ``generator``. The mixture-of-experts
-layers, rematerialisation and the incremental decode cache come in later
-slices.
+self.training``) and draws from ``generator``.
+
+Incremental decoding: ``Decoder.init_cache(memory, max_len)`` makes one
+dict per layer, ``{"multi_head_attention1": <self-attention cache>,
+"multi_head_attention2": <cross-attention cache>}`` (see
+``layers/attention.py``), and a call with ``cache=`` and ``index=`` runs
+one target position through every layer, writing into the caches in place.
+The mixture-of-experts layers and rematerialisation come in later slices.
 """
 
 import torch
@@ -135,35 +140,60 @@ class DecoderLayer(_Block):
         self.multi_head_attention2 = MultiHeadAttention(embed_dim,
                                                         causal=False, **mha)
 
-    def forward(self, inputs, mask=None, deterministic=None, generator=None):
+    def init_cache(self, memory, max_len):
+        """This layer's decode cache for ``[b, max_len]`` targets over
+        ``memory`` ``[b, t, d]``: an empty self-attention buffer and the
+        memory's keys and values (after ``norm2`` in the pre-norm order,
+        the quirk below)."""
+        if self.pre_norm:
+            memory = self.norm2(memory)
+        return {
+            "multi_head_attention1": self.multi_head_attention1
+            .init_self_cache(memory.shape[0], max_len, memory.dtype,
+                             memory.device),
+            "multi_head_attention2": self.multi_head_attention2
+            .init_cross_cache(memory)}
+
+    def forward(self, inputs, mask=None, deterministic=None, generator=None,
+                cache=None, index=None):
         """``inputs = [x, memory]``; ``mask = [target mask, memory mask]``,
-        each ``[b, t]`` bool or None."""
+        each ``[b, t]`` bool or None. With a ``cache`` (:meth:`init_cache`)
+        ``x`` is the one target position ``index``; the memory is then read
+        from the cache."""
         if deterministic is None:
             deterministic = not self.training
         x, x_enc = inputs
         q_mask, v_mask = mask if mask is not None else (None, None)
         rng = (deterministic, generator)
+        caches = (None, None) if cache is None else (
+            cache["multi_head_attention1"], cache["multi_head_attention2"])
         if self.pre_norm:
-            x = x + self._self_attn(self.norm1(x), q_mask, *rng)
+            x = x + self._self_attn(self.norm1(x), q_mask, *rng, caches[0],
+                                    index)
             # quirk kept for parity: the memory goes through the same norm2
             # as the query
-            x = x + self._cross_attn(self.norm2(x), self.norm2(x_enc),
-                                     q_mask, v_mask, *rng)
+            memory = x_enc if cache is not None else self.norm2(x_enc)
+            x = x + self._cross_attn(self.norm2(x), memory, q_mask, v_mask,
+                                     *rng, caches[1])
             return x + self._mlp(self.norm3(x), *rng)
-        x = self.norm1(x + self._self_attn(x, q_mask, *rng))
-        x = self.norm2(x + self._cross_attn(x, x_enc, q_mask, v_mask, *rng))
+        x = self.norm1(x + self._self_attn(x, q_mask, *rng, caches[0],
+                                           index))
+        x = self.norm2(x + self._cross_attn(x, x_enc, q_mask, v_mask, *rng,
+                                            caches[1]))
         return self.norm3(x + self._mlp(x, *rng))
 
-    def _self_attn(self, q, mask, deterministic, generator):
+    def _self_attn(self, q, mask, deterministic, generator, cache=None,
+                   index=None):
         attention = self.multi_head_attention1(
             [q, q, q], mask=[mask, mask], deterministic=deterministic,
-            generator=generator)
+            generator=generator, cache=cache, index=index)
         return self._drop(attention, deterministic, generator)
 
-    def _cross_attn(self, q, v, q_mask, v_mask, deterministic, generator):
+    def _cross_attn(self, q, v, q_mask, v_mask, deterministic, generator,
+                    cache=None):
         attention = self.multi_head_attention2(
             [q, v, v], mask=[q_mask, v_mask], deterministic=deterministic,
-            generator=generator)
+            generator=generator, cache=cache)
         return self._drop(attention, deterministic, generator)
 
 
@@ -241,14 +271,22 @@ class Decoder(_Stack):
                               device=device))
         self.return_sequence = return_sequence
 
-    def forward(self, inputs, mask=None, deterministic=None, generator=None):
+    def init_cache(self, memory, max_len):
+        """The decode cache of every layer (``DecoderLayer.init_cache``)."""
+        return [layer.init_cache(memory, max_len) for layer in self.layers]
+
+    def forward(self, inputs, mask=None, deterministic=None, generator=None,
+                cache=None, index=None):
         """``inputs = [x, memory]`` -> ``[b, t, d]``, or every layer's
-        output ``[b, n_layers, t, d]`` with ``return_sequence``."""
+        output ``[b, n_layers, t, d]`` with ``return_sequence``. With a
+        ``cache`` (:meth:`init_cache`) ``x`` is the one target position
+        ``index``."""
         x, x_encoder = inputs
         sequence = []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             x = layer([x, x_encoder], mask=mask, deterministic=deterministic,
-                      generator=generator)
+                      generator=generator,
+                      cache=None if cache is None else cache[i], index=index)
             sequence.append(x)
         if self.return_sequence:
             if self.norm_layer is not None:

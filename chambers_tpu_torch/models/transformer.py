@@ -13,8 +13,16 @@ With ``attention_impl="flash"`` every attention runs the blockwise CUDA
 kernels with the padding masks applied in the kernel
 (``chambers_tpu_torch.ops.flash_attention``), which have no attention
 dropout: build with ``dropout_rate=0.0`` to train on them (a call with
-attention dropout active raises). The cached ``decode_step`` comes with
-generation, in a later slice, as do the mixture-of-experts options.
+attention dropout active raises). The mixture-of-experts options come in
+a later slice.
+
+Incremental decoding (``models/generation.py``): ``init_cache(x_enc,
+max_len)`` primes the per-layer caches for a ``[b, max_len]`` target
+buffer, and ``decode_step`` runs one target position through them. The JAX
+package primes by running the whole decoder over a zero buffer; the port
+allocates the empty self-attention buffers and projects the memory's keys
+and values once per layer, which gives the same cache (unwritten slots are
+invalid either way).
 """
 
 import torch
@@ -60,6 +68,8 @@ class Seq2SeqTransformer(nn.Module):
                  device=None):
         super().__init__()
         device = resolve_device(device)
+        self.embed_dim = embed_dim
+        self.moe_every_n = moe_every_n
         self.inputs_embed = Embed(input_vocab_size, embed_dim, dtype,
                                   device=device)
         self.targets_embed = Embed(output_vocab_size, embed_dim, dtype,
@@ -96,6 +106,34 @@ class Seq2SeqTransformer(nn.Module):
                              deterministic=deterministic,
                              generator=generator)
         return self.vocab_head(x_dec)
+
+    def init_cache(self, x_enc, max_len):
+        """The decode cache for ``[b, max_len]`` targets over the encoder
+        memory ``x_enc`` ``[b, t_src, d]``: a list with one dict per decoder
+        layer (``Decoder.init_cache``)."""
+        return self.decoder.init_cache(x_enc, max_len)
+
+    def decode_step(self, token, index, x_enc, input_mask, max_len, cache):
+        """One incremental decode step over a primed cache.
+
+        :param token: ``[b, 1]`` integer tokens fed at target position
+            ``index`` (BOS at step 0, then the previous step's token).
+        :param index: the target position, a Python int (the number of
+            steps already taken).
+        :param max_len: length of the target buffer; the positional row is
+            cut from the same ``positional_encoding_1d(max_len, d)`` table
+            the full-length path uses.
+        :returns: ``([b, 1, vocab]`` logits, ``cache)``; the step writes
+            into ``cache`` in place.
+        """
+        target_mask = token != 0
+        x = self.targets_embed(token)
+        enc = self.pos_encoding.table(max_len, self.embed_dim, x.dtype,
+                                      x.device)
+        x = x + enc[:, index:index + 1]
+        x = self.decoder([x, x_enc], mask=[target_mask, input_mask],
+                         deterministic=True, cache=cache, index=index)
+        return self.vocab_head(x), cache
 
     def forward(self, inputs, deterministic=None, generator=None):
         """``inputs = [input_tokens, target_tokens]``, integer ``[b, t]``;

@@ -71,10 +71,32 @@ the CUDA toolkit. In order, it:
 15. (d) holds ``quantization.int_mm`` exact against the int32 product at
     every int8 shape of the two paths, in both weight layouts, and times
     it against the int8 bound and a bf16 ``torch.matmul``;
-16. prints a ``paths`` and an ``int_mm`` JSON line, one ``kernels`` JSON
+16. decodes 128 tokens for the 16 sources of phase 9 on the same model in
+    eval mode (bf16, flash) through the decode cache, greedy, beam (4,
+    EOS 2, length penalty 0.6) and sampled (T 0.8, top-k 50, top-p 0.9):
+    a cached greedy call launches K3a 4 + 8 x 128 times (the encoder once,
+    4 self and 4 cross steps a token, tallied by shape); in float32 (the
+    FMA kernels) cached greedy and beam tokens equal full recompute over 16
+    steps; the first cached step's bf16 logits follow the full-length
+    decoder's at position 0; each mode's ms per decoded token, tokens/s,
+    device time a step by kind, launches a step and peak memory;
+17. holds K3a at one query row to its plain version at the cached step's
+    two shapes (q ``[128, 1, 64]`` against k/v ``[128, 512, 64]`` with the
+    ragged source mask, and ``[128, 128, 64]`` half written) and times it
+    against its bound and SDPA with the same mask;
+18. runs ``bench.py``'s config 4, uncut: the ViT-S/16 embedder in bf16
+    with bf16 scores, batch 256 of seeded float32 224 px images, labels
+    ``arange(256) % 64``, ``MultiSimilarityLoss`` on ``l2_normalize(z)``
+    and the port's ``AdamW(weight_decay=1e-4, learning_rate=1e-3,
+    decay_exclude=["bias", "norm"])``: the decayed parameters equal the
+    JAX package's (listed as data), the first loss is finite and within 5%
+    of the same step in float32, one AdamW update of every parameter
+    equals a float64 recomputation to 1e-6; ms/step, img/s, device time by
+    kind, busy share and peak memory;
+19. prints a ``paths`` and an ``int_mm`` JSON line, one ``kernels`` JSON
     line with all five kernels (K1 and K2 with their 384 px shape as
-    ``shape_384``), the card line, and last ``{"ok": true, "device":
-    {...}}``.
+    ``shape_384``, K3a's two decode shapes as rows of their own after
+    it), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -451,17 +473,27 @@ def seq2seq_loss(torch, model, src, tgt):
     return (ce * mask).sum() / mask.sum(), logits
 
 
+def device_kernels(torch, events):
+    """The kernels of a profile's averaged events: its device events less
+    the ranges that the host annotates (``record_function``, and PyTorch's
+    own ``Optimizer.step#...``), which also appear on the device timeline,
+    spanning their kernels and the gaps between them."""
+    ranges = {e.key for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in ranges]
+
+
 def device_time_by_kind(torch, events):
-    """Self device time in ms of a profile, split into the flash kernels,
-    matrix products and everything else, with the names of the flash
-    kernels that ran under each of their kinds."""
+    """Self device time in ms of a profile's kernels, split into the flash
+    kernels, matrix products and everything else, with the names of the
+    flash kernels that ran under each of their kinds."""
     kinds = {"flash_fwd": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0,
              "gemm": 0.0, "other": 0.0}
     counts = dict.fromkeys(kinds, 0)
     names = {k: set() for k in kinds}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device_kernels(torch, events):
         key = e.key.lower()
         kind = next((k for k in kinds if k in key), None)
         if kind is None:
@@ -830,13 +862,10 @@ def profile_by_kind(torch, step, n):
             step(i)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    cpu_side, device = (torch.autograd.DeviceType.CPU,
-                        torch.autograd.DeviceType.CUDA)
-    # a labelled range also appears on the device timeline as an
-    # annotation spanning its kernels and the gaps between them: kernels
-    # only in the total, and each range's kernels from its host side
-    cuda = [e for e in events
-            if e.device_type == device and e.key not in LABELS]
+    cpu_side = torch.autograd.DeviceType.CPU
+    # kernels only in the total, and each labelled range's kernels from its
+    # host side
+    cuda = device_kernels(torch, events)
     total = sum(e.self_device_time_total for e in cuda) / 1e3
     launches = sum(e.count for e in cuda)
     gemm = sum(e.self_device_time_total for e in cuda if any(
@@ -1316,6 +1345,508 @@ def time_int_mm(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 16-18. cached generation on the seq2seq model, K3a at one query row, and
+# the metric-learning train step (ViT-S/16 + MS loss + AdamW)
+# ---------------------------------------------------------------------------
+
+GEN_LEN = 128              # decode steps of the generation phase
+GEN_CHECK_LEN = 16         # steps of the float32 cached/recompute check
+# bench.py's config 4: ViT-S/16 embedder, batch 256 at 224 px, 64 classes
+ML = dict(batch=256, size=224, classes=64, width=384, depth=12, heads=6,
+          mlp=1536, features=128)
+ML_WARMUP, ML_STEPS, ML_REPEATS = 2, 5, 3
+BETA_1, BETA_2, ADAM_EPS = 0.9, 0.999, 1e-7
+
+
+def vits16_decayed_paths():
+    """The JAX package's paths of the ViT-S/16 embedder's parameters that
+    ``decay_exclude=["bias", "norm"]`` leaves to weight decay, listed as
+    data (``tests/test_torch_optimizers.py`` holds the list to JAX's
+    ``decay_mask``)."""
+    per_layer = ["dense1/kernel", "dense2/kernel"] + [
+        f"multi_head_attention/{w}_{name}" for w in ("w", "b")
+        for name in ("query", "value", "key", "projection")]
+    return (["add_cls_token/embeddings", "feature/kernel",
+             "patch_embeddings/kernel", "pos_embedding/embeddings"]
+            + [f"encoder/layers_{i}/{p}" for i in range(ML["depth"])
+               for p in per_layer])
+
+
+class shape_tally:
+    """Within the block, every K3a launch is also tallied by its ``(tq,
+    tk)``: which attention a launch served. It wraps
+    ``flash_attention.launch_forward`` and leaves the wrapper's own count
+    as it is."""
+
+    def __init__(self, fa):
+        self.fa, self.counts = fa, {}
+
+    def __enter__(self):
+        self.saved = self.fa.launch_forward
+
+        def tallied(q, k, *args, _fn=self.saved):
+            key = (q.shape[1], k.shape[1])
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return _fn(q, k, *args)
+
+        self.fa.launch_forward = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.launch_forward = self.saved
+
+
+def build_seq2seq(torch, dev, dtype):
+    """The seq2seq model of phase 9 (seed 0) in eval mode, bf16 or float32,
+    on the flash kernels."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models import Seq2SeqTransformer
+
+    model = Seq2SeqTransformer(
+        input_vocab_size=S2S["vocab"], output_vocab_size=S2S["vocab"],
+        embed_dim=S2S["dim"], num_heads=S2S["heads"],
+        dim_feedforward=4 * S2S["dim"], num_encoder_layers=S2S["layers"],
+        num_decoder_layers=S2S["layers"], dropout_rate=0.0, dtype=dtype,
+        attention_impl="flash", device=dev)
+    return initializers.init_module(
+        model, torch.Generator(device=dev).manual_seed(0)).eval()
+
+
+def generation_path(torch, fa, dev):
+    """Phase 16: cached greedy, beam (4, EOS 2, length penalty 0.6) and
+    sampled (T 0.8, top-k 50, top-p 0.9) decoding of 128 tokens for 16
+    sources of 512 on the bf16 seq2seq model. Checks the K3a launches of a
+    cached greedy call, cached against full recompute in float32, and the
+    first cached step's bf16 logits against the full-length decoder's.
+    Returns the results by mode and the K3a tally by shape."""
+    from chambers_tpu_torch.models import (
+        beam_search_decode,
+        greedy_decode,
+        sample_decode,
+    )
+
+    model = build_seq2seq(torch, dev, torch.bfloat16)
+    src, _ = seq2seq_tokens(torch, dev)
+    b, layers = S2S["batch"], S2S["layers"]
+    gen = torch.Generator(device=dev)
+    modes = {
+        "greedy": lambda n: greedy_decode(model, src, max_len=n, bos_id=1),
+        "beam": lambda n: beam_search_decode(
+            model, src, max_len=n, bos_id=1, beam_size=4, eos_id=2,
+            length_penalty=0.6),
+        "sample": lambda n: sample_decode(
+            model, src, gen.manual_seed(16), max_len=n, bos_id=1,
+            temperature=0.8, top_k=50, top_p=0.9),
+    }
+
+    # K3a launches of one cached greedy call, by shape
+    modes["greedy"](4)
+    torch.cuda.synchronize()
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    with shape_tally(fa) as tally:
+        out = modes["greedy"](GEN_LEN)
+        torch.cuda.synchronize()
+    launches = dict(fa.flash_attention.launches)
+    want = layers + 2 * layers * GEN_LEN
+    log(f"generation: K3a launches of a cached greedy call of {GEN_LEN} "
+        f"tokens {launches['fwd']} (want {layers} + 8 x {GEN_LEN} = {want}), "
+        f"by (tq, tk) {tally.counts}")
+    check(launches["fwd"] == want and launches["dkv"] == 0
+          and launches["dq"] == 0,
+          "a cached greedy call launches K3a 4 + 8 x max_len times")
+    check(tally.counts == {(S2S["t"], S2S["t"]): layers,
+                           (1, GEN_LEN): layers * GEN_LEN,
+                           (1, S2S["t"]): layers * GEN_LEN},
+          "K3a ran the encoder once and 4 self and 4 cross steps a token")
+    check(tuple(out.shape) == (b, GEN_LEN) and bool(
+        ((out >= 0) & (out < S2S["vocab"])).all()), "greedy tokens [16, 128]")
+
+    # float32 (the FMA kernels): cached decoding equals full recompute
+    f32 = build_seq2seq(torch, dev, None)
+    for name, decode, kw in (
+            ("greedy", greedy_decode, {}),
+            ("beam", beam_search_decode, dict(beam_size=4, eos_id=2,
+                                              length_penalty=0.6))):
+        cached = decode(f32, src, max_len=GEN_CHECK_LEN, bos_id=1,
+                        use_cache=True, **kw)
+        full = decode(f32, src, max_len=GEN_CHECK_LEN, bos_id=1,
+                      use_cache=False, **kw)
+        differ = int((cached != full).sum())
+        log(f"generation float32 {name}, cached vs full recompute over "
+            f"{GEN_CHECK_LEN} steps: {differ} differing tokens of "
+            f"{cached.numel()}")
+        check(differ == 0, f"float32 cached {name} tokens equal full "
+                           "recompute")
+    del f32
+
+    # bf16: the first cached step's logits against the full-length
+    # decoder's at position 0; the two run the same operations at other
+    # shapes (one row against 128), so they round apart by a few bf16
+    # steps: cosine 0.999 and max |d| 1/16 of the largest logit
+    with torch.no_grad():
+        x_enc, mask = model.encode(src, deterministic=True)
+        cache = model.init_cache(x_enc, GEN_LEN)
+        bos = torch.ones((b, 1), dtype=torch.long, device=dev)
+        step0, _ = model.decode_step(bos, 0, x_enc, mask, GEN_LEN, cache)
+        buffer = torch.zeros((b, GEN_LEN), dtype=torch.long, device=dev)
+        buffer[:, 0] = 1
+        full0 = model.decode(buffer, x_enc, mask, deterministic=True)[:, :1]
+    got, ref = step0.float().flatten(), full0.float().flatten()
+    cos = cosine(torch, got, ref)
+    d = float((got - ref).abs().max())
+    top = float(ref.abs().max())
+    log(f"generation bf16, first cached step vs the full-length decoder at "
+        f"position 0: cosine {cos:.6f}, max |d| {d:.4f} of max |logit| "
+        f"{top:.4f}")
+    check(cos >= 0.999 and d <= top / 16,
+          "bf16 first cached step follows the full-length decoder")
+
+    results = {}
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, run in modes.items():
+        run(GEN_LEN)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs, host = [], []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = run(GEN_LEN)
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            runs.append(start.elapsed_time(end))
+        check(tuple(out.shape) == (b, GEN_LEN), f"{name} tokens [16, 128]")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(GEN_LEN)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if name == "greedy":  # which host operations make the launches
+            log(events.table(sort_by="count", row_limit=15))
+        kinds, counts, names = device_time_by_kind(torch, events)
+        ms = min(runs)
+        res = {"ms": ms, "runs_ms": runs, "host_ms": host,
+               "ms_per_token": ms / GEN_LEN,
+               "tokens_s": b * GEN_LEN / (ms / 1e3),
+               "device_ms_per_step": {k: v / GEN_LEN
+                                      for k, v in kinds.items()},
+               "launches_per_step": sum(counts.values()) / GEN_LEN,
+               "k3a_per_step": counts["flash_fwd"] / GEN_LEN,
+               "busy": sum(kinds.values()) / ms, "peak_gib": peak}
+        results[name] = res
+        log(f"generation {name}: {ms:.1f} ms for {GEN_LEN} tokens x {b} "
+            f"sources (runs {', '.join(f'{x:.1f}' for x in runs)}; host "
+            f"clock {', '.join(f'{x:.1f}' for x in host)}), "
+            f"{res['ms_per_token']:.3f} ms per decoded token, "
+            f"{res['tokens_s']:.0f} tokens/s, peak memory {peak:.2f} GiB; "
+            f"device ms a step: " + ", ".join(
+                f"{' '.join([k, *sorted(names[k])])} {v:.4f}"
+                for k, v in res["device_ms_per_step"].items())
+            + f"; {res['launches_per_step']:.1f} kernel launches a step "
+            f"({res['k3a_per_step']:.1f} K3a); device busy "
+            f"{100 * res['busy']:.1f}% on {CARD}")
+        check(names["flash_fwd"] == {"flash_fwd_tc_kernel"},
+              f"bf16 {name} decoding runs the tensor-core forward")
+    return results, {f"{tq}x{tk}": n for (tq, tk), n in tally.counts.items()}
+
+
+def time_decode_kernels(torch, fa, dev, tally):
+    """Phase 17: K3a at one query row, the cached step's two shapes: q
+    ``[128, 1, 64]`` bf16 against k/v ``[128, 512, 64]`` with the ragged
+    source mask (cross attention) and against ``[128, 128, 64]`` with a
+    validity row half written (self attention, step 64 of 128), each held
+    against ``flash_forward_plain`` and timed against its bound and SDPA
+    with the same mask. Returns the two rows of the ``kernels`` line."""
+    F = torch.nn.functional
+    b, n, h = S2S["batch"], S2S["heads"], 64
+    bn, scale = b * n, h ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(17)
+    half = torch.arange(GEN_LEN, device=dev)[None, :] < GEN_LEN // 2
+    cases = (("cross", S2S["t"], ragged_mask(torch, b, S2S["t"], dev)),
+             ("self", GEN_LEN, half.expand(b, GEN_LEN)))
+    rows = []
+    for kind, tk, mask in cases:
+        fmask = mask.float().contiguous()
+        # inputs cycled beyond the 50 MB L2, as a decode step finds them
+        sets = [tuple(torch.randn((bn, t, h), device=dev, generator=gen)
+                      .to(torch.bfloat16) for t in (1, tk, tk))
+                for _ in range(max(2, int(64e6 // (2 * bn * tk * h * 2))))]
+        turn = iter(range(10 ** 9))
+
+        def nxt():
+            return sets[next(turn) % len(sets)]
+
+        q, k, v = sets[0]
+        got, l_got, m_got = fa.launch_forward(q, k, v, fmask, scale, False, n)
+        want, l_want, m_want = fa.flash_forward_plain(q, k, v, scale, False,
+                                                      fmask, n)
+        again = fa.launch_forward(q, k, v, fmask, scale, False, n)[0]
+        torch.cuda.synchronize()
+        rtol, atol, rms = flash_tolerance(torch, torch.bfloat16, want, False)
+        err, need, rel = closeness(got, want, rtol)
+        log(f"K3a decode {kind} [128, 1, 64] x [128, {tk}, 64] bf16 vs "
+            f"plain: max |d| {err:.3g} (needs atol {need:.3g} <= {atol:.3g} "
+            f"at rtol {rtol:.3g}), rel rms {rel:.3g}; l within "
+            f"{float((l_got - l_want).abs().max() / l_want.abs().max()):.2g} "
+            f"relative; two launches bit-equal "
+            f"{bool(torch.equal(got, again))}")
+        check(need <= atol and rel <= rms,
+              f"K3a at one query row ({kind}) matches its plain version")
+        check(torch.equal(got, again), "two K3a launches give the same bits")
+
+        four = (lambda x: x.view(b, n, x.shape[1], h))
+        attn_mask = mask[:, None, None, :]
+        kernel_ms = cuda_ms(torch, lambda: fa.launch_forward(
+            *nxt(), fmask, scale, False, n), 200, backlog=True)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_forward_plain(
+            *nxt(), scale, False, fmask, n), 20)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            *(four(x) for x in nxt()), attn_mask=attn_mask), 200,
+            backlog=True)
+        def wrapped():
+            q, k, v = (four(x) for x in nxt())
+            return fa.flash_attention(q, v, k, kv_mask=mask)
+
+        wrapper_ms = cuda_ms(torch, wrapped, 50)
+        valid = int(mask.sum())  # keys this data needs, per head
+        nbytes = (bn * h * 2                  # q
+                  + 2 * n * valid * h * 2     # the valid rows of k and v
+                  + b * tk * 4                # the float32 mask
+                  + bn * h * 2 + 2 * bn * 4)  # o, l, m
+        ops = 4 * n * valid * h
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        full_kv_ms = 2 * bn * tk * h * 2 / HBM_BYTES_PER_S * 1e3
+        launches = tally.get(f"1x{tk}", 0)
+        rows.append({
+            "name": f"flash_fwd (decode, {kind} attention)", "route": "cuda",
+            "source": "chambers_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "replaces": "chambers_tpu/ops/flash_attention.py:190 "
+                        "_flash_forward",
+            "launches": launches, "max_abs_err": err, "bit_equal": False,
+            "ms": kernel_ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "full_kv_bound_ms": full_kv_ms,
+            "shape": f"q [128, 1, 64] x k/v [128, {tk}, 64] bf16, "
+                     f"{valid} of {b * tk} keys valid",
+            "note": "launches: the K3a launches of this shape in phase 16's "
+                    "cached greedy call; bound_ms counts the valid keys "
+                    "only, full_kv_bound_ms all of k and v; library_ms is "
+                    "F.scaled_dot_product_attention with the same mask",
+            "card": CARD})
+        log(f"K3a decode {kind}: kernel {kernel_ms * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; all of k and "
+            f"v {full_kv_ms * 1e3:.2f} us), SDPA {lib_ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, wrapper call {wrapper_ms * 1e3:.1f} us;"
+            f" {launches} launches in the greedy call, on {CARD}")
+        del sets
+    return rows
+
+
+def metric_learning_path(torch, dev):
+    """Phase 18: bench.py's config 4, uncut: the ViT-S/16 embedder (bf16,
+    bf16 scores) at batch 256 of seeded float32 224 px images, labels
+    ``arange(256) % 64``, ``MultiSimilarityLoss`` on ``l2_normalize(z)``
+    and the port's ``AdamW(weight_decay=1e-4, learning_rate=1e-3,
+    decay_exclude=["bias", "norm"])``. Checks the decayed set against the
+    JAX package's (as data), the first loss against the same step in
+    float32 on the card, and one AdamW update of every parameter against a
+    float64 recomputation; times and profiles the step."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.layers.normalization import l2_normalize
+    from chambers_tpu_torch.losses import MultiSimilarityLoss
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+    from chambers_tpu_torch.optimizers import AdamW, jax_path
+    import numpy as np
+
+    def build(dtype):
+        return VisionTransformer(
+            16, ML["width"], ML["depth"], ML["heads"], ML["mlp"],
+            dropout_rate=0.0, image_size=(ML["size"], ML["size"]),
+            include_top=False, pooling="cls", feature_dim=ML["features"],
+            dtype=dtype, score_dtype=dtype, device=dev)
+
+    model = initializers.init_module(
+        build(torch.bfloat16),
+        torch.Generator(device=dev).manual_seed(0)).train()
+    batch = ML["batch"]
+    x = torch.rand((batch, ML["size"], ML["size"], 3), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(18))
+    labels = torch.arange(batch, device=dev) % ML["classes"]
+    loss_fn = MultiSimilarityLoss()
+    opt = AdamW(model.named_parameters(), weight_decay=1e-4,
+                learning_rate=1e-3, decay_exclude=["bias", "norm"])
+    names = {id(p): name for name, p in model.named_parameters()}
+    decayed = {jax_path(names[id(p)]) for g in opt.param_groups
+               if g["decay"] for p in g["params"]}
+    listed = set(vits16_decayed_paths())
+    log(f"metric learning: {len(decayed)} of {len(names)} parameters decay; "
+        f"the JAX package's list has {len(listed)}")
+    check(decayed == listed, "the decayed parameters are the JAX package's")
+
+    def loss_of(m):
+        z = m(x, deterministic=True)
+        return loss_fn(labels, l2_normalize(z, axis=-1))
+
+    # the first step's loss against the same step in float32 on the card
+    ref = build(None).train()
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss32 = float(loss_of(ref))
+    del ref
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    first = float(step())
+    rel = abs(first - loss32) / abs(loss32)
+    log(f"metric learning first loss: bf16 {first:.5f}, float32 "
+        f"{loss32:.5f} (rel {rel:.3g})")
+    # bf16 embeddings move each similarity by ~2^-8, and beta = 40 turns
+    # that into a few percent of a negative term: 5% of the loss
+    check(math.isfinite(first) and rel <= 0.05,
+          "first loss finite and within 5% of the float32 step's")
+
+    # one AdamW update of every parameter against float64: the moments,
+    # gradients and parameters from before the update, the bias
+    # corrections as optax computes them (float32 betas)
+    opt.zero_grad(set_to_none=True)
+    loss_of(model).backward()
+    count = opt.param_groups[0]["count"]
+    before = {n: (p.detach().double(), p.grad.double(),
+                  opt.state[p]["mu"].double(), opt.state[p]["nu"].double())
+              for n, p in model.named_parameters()}
+    decays = {names[id(p)]: g["decay"] for g in opt.param_groups
+              for p in g["params"]}
+    opt.step()
+    c1 = float(1 - np.float32(BETA_1) ** np.float32(count + 1))
+    c2 = float(1 - np.float32(BETA_2) ** np.float32(count + 1))
+    worst = 0.0
+    for n, p in model.named_parameters():
+        p0, g, mu0, nu = before[n]
+        mu = (1 - BETA_1) * g + BETA_1 * mu0
+        nu = (1 - BETA_2) * g * g + BETA_2 * nu
+        root = torch.sqrt(nu / c2) + ADAM_EPS
+        u = -1e-3 * (mu / c1) / root
+        if decays[n]:
+            u = u - 1e-4 * p0
+        want = p0 + u
+        # the size of the terms summed: the parameter and the update with
+        # its first moment's two terms taken apart (they can cancel)
+        terms = torch.maximum(p0.abs(), 1e-3 * ((1 - BETA_1) * g.abs()
+                                                + BETA_1 * mu0.abs())
+                              / c1 / root)
+        worst = max(worst, float(((p.detach().double() - want).abs()
+                                  / terms.clamp(min=1e-30)).max()))
+    log(f"metric learning: one AdamW update (step {count + 1}) of all "
+        f"{len(before)} parameters against float64, largest error "
+        f"{worst:.3g} of the size of the terms summed")
+    check(worst <= 1e-6, "AdamW's update equals the float64 recomputation "
+                         "to 1e-6")
+
+    for _ in range(ML_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, losses = [], []
+    for _ in range(ML_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [step() for _ in range(ML_STEPS)]
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / ML_STEPS)
+    ms = sorted(runs)[len(runs) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), "finite losses")
+    prof = profile_train_step(torch, model, opt, loss_of, 2)
+    log(prof.pop("table"))
+    res = {"ms": ms, "runs": runs, "img_s": batch / (ms / 1e3),
+           "profile": prof, "peak_gib": peak,
+           "busy": prof["device_ms"] / ms, "losses": losses,
+           "first_loss": first, "first_loss_f32": loss32}
+    log(f"metric-learning train step (ViT-S/16 b{batch} bf16 + MS loss + "
+        f"AdamW): median of {ML_REPEATS} runs of {ML_STEPS} steps "
+        f"{ms:.3f} ms/step, {res['img_s']:.1f} img/s (runs "
+        f"{', '.join(f'{r:.3f}' for r in runs)}), peak memory {peak:.2f} "
+        f"GiB; kernels {prof['device_ms']:.3f} ms a step (busy "
+        f"{100 * res['busy']:.1f}%), {prof['launches']:.0f} launches; by "
+        f"phase " + ", ".join(f"{k} {v:.3f}" for k, v in
+                              prof["by_phase_ms"].items())
+        + f" ms; matrix products {prof['gemm_ms']:.3f} ms; the optimizer "
+        f"spans {prof['optimizer_span_ms']:.3f} ms of the device timeline "
+        f"for {prof['optimizer_launches']:.0f} launches; losses "
+        f"{[round(v, 4) for v in losses]} on {CARD}")
+    return res
+
+
+def kernels_under(event):
+    """Kernels launched by a profiled host event and its children."""
+    return len(event.kernels) + sum(kernels_under(c)
+                                    for c in event.cpu_children)
+
+
+def profile_train_step(torch, model, opt, loss_of, n):
+    """Device ms a train step over ``n`` profiled steps, by phase: the
+    forward with the loss and the optimizer under ``record_function``
+    ranges (their kernels, read from the host side), the backward the
+    rest; matrix-product kernels by name; launches; and the span of the
+    optimizer's own range on the device timeline (its kernels and the gaps
+    between them, which a host-bound optimizer leaves)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    phases = ("forward and loss", "optimizer")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            opt.zero_grad(set_to_none=True)
+            with record_function(phases[0]):
+                loss = loss_of(model)
+            loss.backward()
+            with record_function(phases[1]):
+                opt.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = device_kernels(torch, events)
+    total = sum(e.self_device_time_total for e in cuda) / 1e3 / n
+    host = {e.key: e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    by_phase = {p: host[p].device_time_total / 1e3 / n for p in phases}
+    by_phase["backward"] = total - sum(by_phase.values())
+    span = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key.startswith("Optimizer.step")) / 1e3 / n
+    return {"device_ms": total, "by_phase_ms": by_phase,
+            "gemm_ms": sum(e.self_device_time_total for e in cuda if any(
+                w in e.key.lower() for w in (
+                    "gemm", "nvjet", "cutlass", "xmma", "cublas")))
+            / 1e3 / n,
+            "launches": sum(e.count for e in cuda) / n,
+            "optimizer_launches": sum(
+                kernels_under(e) for e in prof.events()
+                if e.name == phases[1]) / n,
+            "optimizer_span_ms": span,
+            "table": events.table(sort_by="self_device_time_total",
+                                  row_limit=12)}
+
+
 def main():
     global CARD
     import torch
@@ -1674,6 +2205,14 @@ def main():
         if row["name"] in at_384:
             row["shape_384"] = at_384[row["name"]]
     int_mm_rows = time_int_mm(torch, dev)
+
+    # 16-18. cached generation, K3a at one query row, the metric-learning
+    # train step
+    decode, tally = generation_path(torch, fa, dev)
+    decode_rows = time_decode_kernels(torch, fa, dev, tally)
+    k3a = next(i for i, row in enumerate(rows) if row["name"] == "flash_fwd")
+    rows[k3a + 1:k3a + 1] = decode_rows
+    metric = metric_learning_path(torch, dev)
     paths = {
         f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
                           "img_s": batch / (r["ms"] / 1e3),
@@ -1687,6 +2226,17 @@ def main():
             ("randaugment_vitb16_224 (a)", BATCH, int8_path),
             ("autoaugment_vitl16_384 (b)", L_BATCH, vitl_path))
         for name, r in results.items()}
+    paths["seq2seq generation (16 x 512 sources, 128 tokens, bf16)"] = decode
+    paths["metric learning (ViT-S/16 b256 bf16, MS loss, AdamW)"] = {
+        "ms_per_step": metric["ms"], "runs_ms": metric["runs"],
+        "img_s": metric["img_s"], "device_ms": metric["profile"]["device_ms"],
+        "device_ms_by_phase": metric["profile"]["by_phase_ms"],
+        "gemm_ms": metric["profile"]["gemm_ms"],
+        "optimizer_span_ms": metric["profile"]["optimizer_span_ms"],
+        "launches_per_step": metric["profile"]["launches"],
+        "busy": metric["busy"], "peak_gib": metric["peak_gib"],
+        "first_loss": metric["first_loss"],
+        "first_loss_float32": metric["first_loss_f32"]}
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

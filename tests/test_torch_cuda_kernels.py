@@ -531,3 +531,63 @@ def test_randaugment_other_channel_counts_on_the_card(dev, channels):
     got = aug.apply(x, draws)
     assert wk.fused_round.launches == k1
     assert torch.equal(got.cpu(), aug.apply(x.cpu(), cpu_draws))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,tk", [("cross", 512), ("self", 128)])
+def test_flash_forward_at_one_query_row(dev, kind, tk, dtype):
+    """K3a at a cached decode step's shapes: q ``[128, 1, 64]`` against
+    k/v ``[128, 512, 64]`` with a ragged source mask (cross attention) and
+    ``[128, 128, 64]`` with validity rows written to different depths, one
+    of them a single slot (self attention), through the wrapper a step
+    calls, against ``flash_forward_plain``."""
+    b, n, h = 16, 8, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((b, n, t, h), device=dev, generator=g).to(dtype)
+               for t in (1, tk, tk))
+    if kind == "cross":
+        keep = tk * (0.7 + 0.1 * torch.rand((b, 1), device=dev, generator=g))
+    else:
+        keep = torch.randint(1, tk + 1, (b, 1), device=dev, generator=g)
+        keep[0] = 1
+    mask = torch.arange(tk, device=dev) < keep
+    before = fa.flash_attention.launches["fwd"]
+    got = fa.flash_attention(q, v, k, kv_mask=mask)
+    assert fa.flash_attention.launches["fwd"] == before + 1
+    fold = (lambda x: x.reshape(b * n, x.shape[2], h))
+    want = fa.flash_forward_plain(fold(q), fold(k), fold(v), h ** -0.5,
+                                  False, mask.float(), n)[0]
+    torch.cuda.synchronize()
+    _assert_close(got.reshape(b * n, 1, h), want, dtype)
+
+
+def test_cached_greedy_decode_equals_full_recompute_on_the_card(dev):
+    """A float32 seq2seq model on the flash kernels (the FMA ones): cached
+    greedy and beam tokens equal full recompute, and a cached greedy call
+    launches K3a once per encoder layer and twice per decoder layer and
+    step."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models import (
+        Seq2SeqTransformer,
+        beam_search_decode,
+        greedy_decode,
+    )
+
+    model = initializers.init_module(Seq2SeqTransformer(
+        input_vocab_size=64, output_vocab_size=64, embed_dim=128,
+        num_heads=2, dim_feedforward=256, num_encoder_layers=2,
+        num_decoder_layers=2, dropout_rate=0.0, attention_impl="flash",
+        device=dev), torch.Generator(device=dev).manual_seed(3)).eval()
+    g = torch.Generator(device=dev).manual_seed(4)
+    src = torch.randint(1, 64, (4, 40), device=dev, generator=g)
+    src[0, 30:] = 0
+    max_len = 12
+    before = fa.flash_attention.launches["fwd"]
+    cached = greedy_decode(model, src, max_len=max_len, bos_id=1)
+    assert fa.flash_attention.launches["fwd"] - before == 2 + 4 * max_len
+    assert torch.equal(cached, greedy_decode(model, src, max_len=max_len,
+                                             bos_id=1, use_cache=False))
+    kw = dict(max_len=max_len, bos_id=1, beam_size=3, eos_id=2,
+              length_penalty=0.6)
+    assert torch.equal(beam_search_decode(model, src, **kw),
+                       beam_search_decode(model, src, use_cache=False, **kw))
