@@ -1,5 +1,6 @@
-"""Multi-head attention with the Chambers per-head parameter layout
-(port of ``chambers_tpu/layers/attention.py``).
+"""Multi-head attention with the Chambers per-head parameter layout, and
+``scaled_attention``/``ScaledAttention`` (port of
+``chambers_tpu/layers/attention.py``).
 
 Per-head projections keep the checkpoint layout: ``w_query``, ``w_value``,
 ``w_key`` ``(d, num_heads, head_dim)`` with biases ``(num_heads, 1,
@@ -129,6 +130,54 @@ def scaled_dot_product_attention(query, value, key=None, scale=None,
     if q_mask is not None:
         out = out * q_mask[:, None, :, None].to(out.dtype)
     return out
+
+
+def _key_scale(key_dim, key):
+    """``sqrt(key_dim)`` (the key's last axis if None), rounded to
+    float32."""
+    dim = key_dim if key_dim is not None else key.shape[-1]
+    return float(torch.sqrt(torch.tensor(float(dim), dtype=torch.float32)))
+
+
+def scaled_attention(query, value, key=None, key_dim=None, causal=False,
+                     q_mask=None, v_mask=None):
+    """Dense dot-product attention with the scores divided by
+    ``sqrt(key_dim)`` (the reference's ``ScaledAttention``)."""
+    if key is None:
+        key = value
+    return scaled_dot_product_attention(
+        query, value, key, scale=_key_scale(key_dim, key), causal=causal,
+        q_mask=q_mask, v_mask=v_mask)
+
+
+class ScaledAttention:
+    """Layer-style :func:`scaled_attention` over ``inputs = [q, v]`` or
+    ``[q, v, k]`` with ``mask = [q_mask, v_mask]``. With ``dropout > 0`` a
+    call with ``training=True`` drops attention probabilities with draws
+    from ``generator`` (the JAX layer's ``key``), and raises without one."""
+
+    def __init__(self, key_dim=None, causal=False, dropout=0.0):
+        self.key_dim = key_dim
+        self.causal = causal
+        self.dropout = dropout
+
+    def __call__(self, inputs, mask=None, generator=None, training=False):
+        q, v = inputs[0], inputs[1]
+        k = inputs[2] if len(inputs) > 2 else v
+        q_mask, v_mask = mask if mask is not None else (None, None)
+        if training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError(
+                    "ScaledAttention(dropout>0) requires a torch.Generator "
+                    "`generator` when training=True.")
+            return scaled_dot_product_attention(
+                q, v, k, scale=_key_scale(self.key_dim, k),
+                causal=self.causal, q_mask=q_mask, v_mask=v_mask,
+                dropout_rate=self.dropout, deterministic=False,
+                generator=generator)
+        return scaled_attention(q, v, k, key_dim=self.key_dim,
+                                causal=self.causal, q_mask=q_mask,
+                                v_mask=v_mask)
 
 
 class MultiHeadAttention(nn.Module):

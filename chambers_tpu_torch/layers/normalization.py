@@ -1,4 +1,5 @@
-"""LayerNorms and L2 normalization (port of
+"""LayerNorms and L2 normalization, ``l2_normalize`` and its layer
+``L2Normalization`` (port of
 ``chambers_tpu/layers/normalization.py`` and of ``flax.linen.LayerNorm``
 as ``chambers_tpu.layers.transformer._make_norm`` uses it).
 
@@ -18,6 +19,16 @@ from chambers_tpu_torch.quantization import promote_dtype
 def l2_normalize(x, axis=-1, epsilon=1e-12):
     norm_sq = torch.sum(x * x, dim=axis, keepdim=True)
     return x * torch.rsqrt(torch.clamp(norm_sq, min=epsilon))
+
+
+class L2Normalization:
+    """Callable layer: ``l2_normalize`` along ``axis``."""
+
+    def __init__(self, axis=-1):
+        self.axis = axis
+
+    def __call__(self, inputs):
+        return l2_normalize(inputs, axis=self.axis)
 
 
 class _Norm(nn.Module):

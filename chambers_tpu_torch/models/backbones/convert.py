@@ -2,8 +2,10 @@
 
 The port names every submodule and parameter as the Flax modules do, so
 the conversion flattens the nested ``variables["params"]`` dict with ``.``
-and turns Flax's list naming ``layers_<i>`` into ``layers.<i>``. That
-covers the ViT and the ``Seq2SeqTransformer``: its top-level ``inputs_embed``,
+and turns Flax's list naming ``<name>_<i>`` into ``<name>.<i>`` for the
+list attributes in ``LIST_ATTRIBUTES``: the stacks' ``layers`` and DETR's
+``bbox_head``. That covers the ViT, DETR and the ``Seq2SeqTransformer``:
+its top-level ``inputs_embed``,
 ``targets_embed`` (Flax's ``nn.Embed`` keeps one array, ``embedding``, and so
 does the port's ``Embed``), ``encoder``, ``decoder`` and ``vocab_head`` keep
 their names. It takes numpy arrays (``jax.device_get`` of the params, or ``np.asarray`` of each
@@ -22,7 +24,9 @@ import re
 import numpy as np
 import torch
 
-_LIST_ITEM = re.compile(r"^(layers)_(\d+)$")
+# the port's nn.ModuleList attributes that Flax names ``<name>_<i>``
+LIST_ATTRIBUTES = ("layers", "bbox_head")
+_LIST_ITEM = re.compile(rf"^({'|'.join(LIST_ATTRIBUTES)})_(\d+)$")
 
 
 def state_dict_from_jax(params, prefix="", quant=None):

@@ -20,11 +20,11 @@ package's order, is::
 learning rate or weight decay reads it. Keras's ``epsilon=1e-7`` is the
 default. ``decay_include``/``decay_exclude`` are regexes matched
 (``re.search``) against the JAX package's parameter paths (``/``-joined,
-``layers_<i>``), into which the port's names (``.``-joined, ``layers.<i>``)
-are turned back, so the same parameters decay; the decayed and the other
-parameters are two parameter groups. The parameters come as
-``model.named_parameters()``, a ``{name: tensor}`` dict or a module; bare
-tensors take no decay filter.
+``layers_<i>``, ``bbox_head_<i>``), into which the port's names
+(``.``-joined, ``layers.<i>``) are turned back, so the same parameters
+decay; the decayed and the other parameters are two parameter groups. The
+parameters come as ``model.named_parameters()``, a ``{name: tensor}`` dict
+or a module; bare tensors take no decay filter.
 
 Not ported yet (ROADMAP.md §1 item 6, with the callbacks they serve):
 ``WeightDecayExtension``, ``mutable_lr`` (``mutable_lr=True`` raises) and
@@ -36,6 +36,8 @@ import re
 import numpy as np
 import torch
 from torch import nn
+
+from chambers_tpu_torch.models.backbones.convert import LIST_ATTRIBUTES
 
 
 def _named(params):
@@ -53,11 +55,12 @@ def _named(params):
 def jax_path(name):
     """The port's parameter name as the JAX package's pytree path:
     ``encoder.layers.0.norm1.scale`` -> ``encoder/layers_0/norm1/scale``
-    (the inverse of ``convert.state_dict_from_jax``)."""
+    (the inverse of ``convert.state_dict_from_jax``, over the same list
+    attributes)."""
     parts, out = name.split("."), []
     for part in parts:
-        if part.isdigit() and out and out[-1] == "layers":
-            out[-1] = f"layers_{part}"
+        if part.isdigit() and out and out[-1] in LIST_ATTRIBUTES:
+            out[-1] = f"{out[-1]}_{part}"
         else:
             out.append(part)
     return "/".join(out)

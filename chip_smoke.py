@@ -93,7 +93,25 @@ the CUDA toolkit. In order, it:
     of the same step in float32, one AdamW update of every parameter
     equals a float64 recomputation to 1e-6; ms/step, img/s, device time by
     kind, busy share and peak memory;
-19. prints a ``paths`` and an ``int_mm`` JSON line, one ``kernels`` JSON
+19. runs ``bench.py``'s config 5, uncut: DETR (6 + 6 layers, width 256,
+    8 heads, MLP 2048, 100 queries, 91 classes) in bf16 at batch 8 of 224
+    px images with 20 target slots drawn from ``RandomState(0)`` in
+    ``bench.py``'s order, ``deterministic=True``, the loss summed over the
+    6 decoder layers and the port's ``AdamW(weight_decay=1e-4,
+    learning_rate=1e-4, decay_exclude=["bias", "norm"])``, each step
+    adding ``1e-4 * i`` to the input, in the three matcher modes of
+    ``BENCH_DETR_MATCHER``: the ε-auction on the card, a Hungarian
+    assignment computed once outside the timed steps, and scipy's
+    Hungarian matcher on every step. Checks the decayed parameters against
+    the JAX package's (listed as data), the first loss against the same
+    step in float32 (within 5%), and on one step's ``[48, 20, 100]`` costs
+    the card's auction against its CPU run (equal), its columns (distinct)
+    and its totals (within ``n·eps`` of scipy's optimum); for each mode
+    ms/step, img/s, device time by phase (matcher, forward and loss,
+    backward, optimizer), launches, busy share, the auction's iterations
+    on the step's costs and peak memory;
+20. prints a ``paths`` JSON line (the three DETR modes among its rows) and
+    an ``int_mm`` JSON line, one ``kernels`` JSON
     line with all five kernels (K1 and K2 with their 384 px shape as
     ``shape_384``, K3a's two decode shapes as rows of their own after
     it), the card line, and last ``{"ok": true, "device": {...}}``.
@@ -1803,13 +1821,15 @@ def kernels_under(event):
                                     for c in event.cpu_children)
 
 
-def profile_train_step(torch, model, opt, loss_of, n):
+def profile_train_step(torch, model, opt, loss_of, n, inner=()):
     """Device ms a train step over ``n`` profiled steps, by phase: the
     forward with the loss and the optimizer under ``record_function``
     ranges (their kernels, read from the host side), the backward the
-    rest; matrix-product kernels by name; launches; and the span of the
-    optimizer's own range on the device timeline (its kernels and the gaps
-    between them, which a host-bound optimizer leaves)."""
+    rest; ranges named in ``inner``, which ``loss_of`` opens inside the
+    forward, are taken out of it as phases of their own; matrix-product
+    kernels by name; launches; and the span of the optimizer's own range
+    on the device timeline (its kernels and the gaps between them, which a
+    host-bound optimizer leaves)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     phases = ("forward and loss", "optimizer")
@@ -1829,6 +1849,10 @@ def profile_train_step(torch, model, opt, loss_of, n):
     host = {e.key: e for e in events
             if e.device_type == torch.autograd.DeviceType.CPU}
     by_phase = {p: host[p].device_time_total / 1e3 / n for p in phases}
+    for name in inner:  # a range that launched nothing is not recorded
+        by_phase[name] = (host[name].device_time_total / 1e3 / n
+                          if name in host else 0.0)
+        by_phase[phases[0]] -= by_phase[name]
     by_phase["backward"] = total - sum(by_phase.values())
     span = sum(e.self_device_time_total for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1845,6 +1869,285 @@ def profile_train_step(torch, model, opt, loss_of, n):
             "optimizer_span_ms": span,
             "table": events.table(sort_by="self_device_time_total",
                                   row_limit=12)}
+
+
+# ---------------------------------------------------------------------------
+# 19. the DETR train step (bench.py's config 5) in its three matcher modes
+# ---------------------------------------------------------------------------
+
+# bench.py's config 5, uncut: DETR with 6 + 6 layers, width 256, 8 heads,
+# MLP 2048 and 100 queries over 91 classes, batch 8 at 224 px, 20 target
+# slots; the loss sums the decoder's 6 layers
+DETR = dict(batch=8, size=224, classes=91, targets=20, queries=100,
+            width=256, heads=8, mlp=2048, layers=6)
+DETR_WARMUP, DETR_STEPS, DETR_REPEATS = 2, 5, 3
+# BENCH_DETR_MATCHER's modes; "hungarian" is bench.py's "callback"
+DETR_MODES = ("auction", "precomputed", "hungarian")
+DETR_EPS, DETR_ITERS = 1e-2, 200    # DETRLoss's auction defaults
+
+
+def detr_decayed_paths():
+    """The JAX package's paths of DETR's parameters that
+    ``decay_exclude=["bias", "norm"]`` leaves to weight decay, listed as
+    data (``tests/test_torch_detection.py`` holds the list to JAX's
+    ``decay_mask``)."""
+    attention = [f"{w}_{name}" for w in ("w", "b")
+                 for name in ("query", "value", "key", "projection")]
+    dense = ["dense1/kernel", "dense2/kernel"]
+    layers = range(DETR["layers"])
+    return (["backbone/kernel", "class_head/kernel", "query_embed"]
+            + [f"bbox_head_{i}/kernel" for i in range(3)]
+            + [f"encoder/layers_{i}/{p}" for i in layers
+               for p in dense + [f"multi_head_attention/{a}"
+                                 for a in attention]]
+            + [f"decoder/layers_{i}/{p}" for i in layers
+               for p in dense + [f"multi_head_attention{k}/{a}"
+                                 for k in (1, 2) for a in attention]])
+
+
+def detr_batch(torch, dev):
+    """bench.py's batch, drawn from ``RandomState(0)`` in its order:
+    images, labels, boxes, then ``mask = rand < 0.6``."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    b, t = DETR["batch"], DETR["targets"]
+    x = rng.rand(b, DETR["size"], DETR["size"], 3).astype(np.float32)
+    labels = rng.randint(0, DETR["classes"], (b, t))
+    boxes = rng.rand(b, t, 4).astype(np.float32)
+    mask = rng.rand(b, t) < 0.6
+    targets = {"labels": labels, "boxes": boxes, "mask": mask}
+    return (torch.from_numpy(x).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in targets.items()})
+
+
+def detr_layer_costs(torch, det, outputs, targets):
+    """The matching costs ``[L·b, t, q]`` of every decoder layer's outputs,
+    folded as ``DETRLoss``'s one auction over all layers folds them."""
+    logits, boxes = outputs["logits"], outputs["boxes"]
+    b, n_layers = logits.shape[:2]
+
+    def fold(v):
+        return v.transpose(0, 1).reshape((n_layers * b,) + v.shape[2:])
+
+    def tile(v):
+        return torch.cat([v] * n_layers, dim=0)
+
+    return det.matching_cost_matrix(
+        fold(logits), fold(boxes), tile(targets["labels"]),
+        tile(targets["boxes"]), tile(targets["mask"]))
+
+
+def check_detr_auction(torch, det, cost):
+    """On one step's costs: the card's auction equals the plain CPU run of
+    the same function on the same costs, every problem's columns are
+    distinct and each total lies within ``n·eps`` of scipy's optimum.
+    Returns the iterations the loop ran (every problem in lockstep)."""
+    import numpy as np
+
+    got = det.auction_assignment(cost, eps=DETR_EPS, max_iters=DETR_ITERS)
+    want = det.auction_assignment(cost.cpu(), eps=DETR_EPS,
+                                  max_iters=DETR_ITERS)
+    same = bool(torch.equal(got.cpu(), want))
+    cols = got.cpu().numpy()
+    n = cost.shape[1]
+    distinct = all(len(set(row)) == n for row in cols)
+    _, iterations = det._auction_rows(-cost.to(torch.float32), DETR_EPS,
+                                      DETR_ITERS, 1)
+    c = cost.cpu().numpy().astype(np.float64)
+    best = det._lsa_host(c)
+    rows = np.arange(n)
+    gaps = [float(ci[rows, a].sum() - ci[rows, o].sum())
+            for ci, a, o in zip(c, cols, best)]
+    log(f"DETR auction on one step's costs {tuple(cost.shape)}: card equals "
+        f"its CPU run: {same}; distinct columns: {distinct}; {iterations} "
+        f"iterations (of {DETR_ITERS}); largest gap to scipy's optimum "
+        f"{max(gaps):.3g} (bound n·eps = {n * DETR_EPS:.3g}); "
+        f"{sum(g > 0 for g in gaps)} of {len(gaps)} problems above it "
+        f"by any amount")
+    check(same, "the auction on the card equals its CPU run")
+    check(distinct, "every problem's columns are distinct")
+    check(max(gaps) <= n * DETR_EPS, "each total within n·eps of scipy's")
+    return iterations
+
+
+def detr_path(torch, dev):
+    """Phase 19: bench.py's config 5, uncut: the DETR train step in bf16
+    (``deterministic=True``, as bench.py's step) with the loss summed over
+    the 6 decoder layers and the port's ``AdamW(weight_decay=1e-4,
+    learning_rate=1e-4, decay_exclude=["bias", "norm"])``, each step adding
+    ``1e-4 * i`` to the input, in the three matcher modes. Checks the
+    decayed set against the JAX package's (as data), the first loss
+    against the same step in float32 and the auction on one step's costs;
+    times and profiles each mode."""
+    from torch.profiler import record_function
+
+    from chambers_tpu_torch.losses import detection as det
+    from chambers_tpu_torch.models.detection import build_detr
+    from chambers_tpu_torch.optimizers import AdamW, jax_path
+
+    x, targets = detr_batch(torch, dev)
+
+    def build(dtype):
+        return build_detr(
+            num_classes=DETR["classes"],
+            input_shape=(DETR["size"], DETR["size"], 3),
+            num_queries=DETR["queries"], embed_dim=DETR["width"],
+            num_heads=DETR["heads"], ff_dim=DETR["mlp"],
+            num_encoder_layers=DETR["layers"],
+            num_decoder_layers=DETR["layers"], aux_loss=True, dtype=dtype,
+            seed=0, device=dev).train()
+
+    def optimizer(model):
+        return AdamW(model.named_parameters(), weight_decay=1e-4,
+                     learning_rate=1e-4, decay_exclude=["bias", "norm"])
+
+    model = build(torch.bfloat16)
+    opt = optimizer(model)
+    names = {id(p): name for name, p in model.named_parameters()}
+    decayed = {jax_path(names[id(p)]) for g in opt.param_groups
+               if g["decay"] for p in g["params"]}
+    listed = set(detr_decayed_paths())
+    log(f"DETR: {len(decayed)} of {len(names)} parameters decay; the JAX "
+        f"package's list has {len(listed)}")
+    check(decayed == listed, "DETR's decayed parameters are the JAX "
+                             "package's")
+
+    # the first step's loss against the same step in float32 on the card,
+    # each matched by its own auction
+    auction_loss = det.DETRLoss(DETR["classes"], matcher="auction")
+    ref = build(None)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss32 = float(auction_loss(ref(x, deterministic=True), targets))
+    del ref
+
+    # each mode trains its own model from the same weights; the timed runs
+    # go in turns, so that the host's speed, which sets a step's time,
+    # weighs on every mode alike
+    modes = {}
+    for mode in DETR_MODES:
+        if mode != DETR_MODES[0]:
+            model = build(torch.bfloat16)
+            opt = optimizer(model)
+        loss_fn = det.DETRLoss(
+            DETR["classes"],
+            matcher="auction" if mode == "auction" else "hungarian")
+        precomputed = None
+        if mode == "precomputed":
+            with torch.no_grad():
+                precomputed = loss_fn.match(model(x, deterministic=True),
+                                            targets)
+        modes[mode] = (model, opt, loss_fn, precomputed)
+
+    def step(mode, i):
+        model, opt, loss_fn, precomputed = modes[mode]
+        opt.zero_grad(set_to_none=True)
+        out = model(x + 1e-4 * i, deterministic=True)
+        loss = loss_fn(out, targets, assignment=precomputed)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    first = {mode: float(step(mode, 0)) for mode in DETR_MODES}
+    rel = abs(first["auction"] - loss32) / abs(loss32)
+    log(f"DETR first loss: bf16 {first['auction']:.5f}, float32 "
+        f"{loss32:.5f} (rel {rel:.3g})")
+    check(math.isfinite(first["auction"]) and rel <= 0.05,
+          "DETR's first loss finite and within 5% of the float32 step's")
+    for mode in DETR_MODES:
+        for i in range(1, DETR_WARMUP):
+            step(mode, i)
+    torch.cuda.synchronize()
+    runs = {mode: [] for mode in DETR_MODES}
+    losses = {mode: [] for mode in DETR_MODES}
+    peak = dict.fromkeys(DETR_MODES, 0.0)
+    for _ in range(DETR_REPEATS):
+        for mode in DETR_MODES:
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses[mode] += [step(mode, i) for i in range(DETR_STEPS)]
+            end.record()
+            end.synchronize()
+            runs[mode].append(start.elapsed_time(end) / DETR_STEPS)
+            peak[mode] = max(peak[mode],
+                             torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    results = {}
+    for mode in DETR_MODES:
+        model, opt, loss_fn, precomputed = modes[mode]
+        ms = sorted(runs[mode])[len(runs[mode]) // 2]
+        mode_losses = [float(v) for v in losses[mode]]
+        check(all(math.isfinite(v) for v in mode_losses),
+              f"DETR {mode}: finite losses")
+
+        # the profiled step runs the same work with the matcher taken out
+        # of the loss call, under a range of its own
+        def loss_of(m, mode=mode, loss_fn=loss_fn, precomputed=precomputed):
+            out = m(x, deterministic=True)
+            with record_function("matcher"):
+                if mode == "auction":
+                    assignment = loss_fn._auction_all_layers(
+                        out["logits"], out["boxes"], targets)
+                elif mode == "hungarian":
+                    assignment = loss_fn.match(out, targets)
+                else:
+                    assignment = precomputed
+            return loss_fn(out, targets, assignment=assignment)
+
+        prof = profile_train_step(torch, model, opt, loss_of, 2,
+                                  inner=("matcher",))
+        log(prof.pop("table"))
+        with torch.no_grad():
+            out = model(x, deterministic=True)
+            cost = detr_layer_costs(torch, det, out, targets)
+            # the matcher's wall time alone: the host's clock around one
+            # call that ends in a synchronize, median of 5
+            matcher_ms = 0.0
+            if mode != "precomputed":
+                matcher = (
+                    (lambda: loss_fn._auction_all_layers(
+                        out["logits"], out["boxes"], targets))
+                    if mode == "auction" else
+                    (lambda: loss_fn.match(out, targets)))
+                walls = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    matcher()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                matcher_ms = sorted(walls)[2]
+        if mode == "auction":
+            iterations = check_detr_auction(torch, det, cost)
+        else:
+            _, iterations = det._auction_rows(-cost, DETR_EPS, DETR_ITERS, 1)
+        res = {"ms": ms, "runs": runs[mode],
+               "img_s": DETR["batch"] / (ms / 1e3), "profile": prof,
+               "peak_gib": peak[mode], "busy": prof["device_ms"] / ms,
+               "auction_iterations": iterations, "matcher_ms": matcher_ms,
+               "losses": mode_losses, "first_loss": first[mode]}
+        if mode == "auction":
+            res["first_loss_f32"] = loss32
+        results[mode] = res
+        log(f"DETR train step (config 5, b{DETR['batch']} bf16, matcher="
+            f"{mode}): median of {DETR_REPEATS} runs of {DETR_STEPS} steps "
+            f"(in turns with the other modes) {ms:.3f} ms/step, "
+            f"{res['img_s']:.1f} img/s (runs "
+            f"{', '.join(f'{r:.3f}' for r in runs[mode])}), peak memory "
+            f"{peak[mode]:.2f} GiB; kernels {prof['device_ms']:.3f} ms a "
+            f"step (busy {100 * res['busy']:.1f}%), {prof['launches']:.0f} "
+            f"launches; by phase " + ", ".join(
+                f"{k} {v:.3f}" for k, v in prof["by_phase_ms"].items())
+            + f" ms; the matcher takes {matcher_ms:.3f} ms of wall time "
+            f"alone; the optimizer spans {prof['optimizer_span_ms']:.3f} ms "
+            f"of the device timeline; the auction runs {iterations} "
+            f"iterations on this step's costs; losses "
+            f"{[round(v, 4) for v in mode_losses]} on {CARD}")
+    del modes
+    return results
 
 
 def main():
@@ -2213,6 +2516,10 @@ def main():
     k3a = next(i for i, row in enumerate(rows) if row["name"] == "flash_fwd")
     rows[k3a + 1:k3a + 1] = decode_rows
     metric = metric_learning_path(torch, dev)
+
+    # 19. the DETR train step (bench.py's config 5) in its three matcher
+    # modes
+    detr = detr_path(torch, dev)
     paths = {
         f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
                           "img_s": batch / (r["ms"] / 1e3),
@@ -2237,6 +2544,20 @@ def main():
         "busy": metric["busy"], "peak_gib": metric["peak_gib"],
         "first_loss": metric["first_loss"],
         "first_loss_float32": metric["first_loss_f32"]}
+    for mode, r in detr.items():
+        paths[f"detr (config 5, b{DETR['batch']} 224 px bf16, AdamW, "
+              f"matcher={mode})"] = {
+            "ms_per_step": r["ms"], "runs_ms": r["runs"],
+            "img_s": r["img_s"], "device_ms": r["profile"]["device_ms"],
+            "device_ms_by_phase": r["profile"]["by_phase_ms"],
+            "gemm_ms": r["profile"]["gemm_ms"],
+            "launches_per_step": r["profile"]["launches"],
+            "busy": r["busy"], "peak_gib": r["peak_gib"],
+            "optimizer_span_ms": r["profile"]["optimizer_span_ms"],
+            "matcher_wall_ms": r["matcher_ms"],
+            "auction_iterations": r["auction_iterations"],
+            "first_loss": r["first_loss"],
+            "first_loss_float32": r.get("first_loss_f32")}
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

@@ -591,3 +591,48 @@ def test_cached_greedy_decode_equals_full_recompute_on_the_card(dev):
               length_penalty=0.6)
     assert torch.equal(beam_search_decode(model, src, **kw),
                        beam_search_decode(model, src, use_cache=False, **kw))
+
+
+def test_auction_on_the_card_equals_its_cpu_run(dev):
+    """The ε-auction's float32 body and first-maximum ties give the same
+    assignment on the card as on the CPU, on costs with 1e6-padded rows
+    (the slow cascade) and with the fallback after a few iterations."""
+    from chambers_tpu_torch.losses import detection as det
+
+    g = torch.Generator().manual_seed(5)
+    cost = torch.randn(48, 20, 100, generator=g)
+    cost[:, 12:] = 1e6
+    cost[::5, 6:] = 1e6
+    for eps, max_iters in ((1e-2, 200), (1e-3, 200), (1e-2, 4)):
+        want = det.auction_assignment(cost, eps=eps, max_iters=max_iters)
+        got = det.auction_assignment(cost.to(dev), eps=eps,
+                                     max_iters=max_iters)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+def test_small_detr_loss_is_finite_on_the_card(dev):
+    """The small DETR in bf16 with the auction-matched loss over its
+    decoder layers, one AdamW step: finite loss and gradients."""
+    from chambers_tpu_torch.losses.detection import DETRLoss
+    from chambers_tpu_torch.models.detection import build_detr
+    from chambers_tpu_torch.optimizers import AdamW
+
+    model = build_detr(num_classes=7, input_shape=(64, 64, 3),
+                       num_queries=10, embed_dim=32, num_heads=4, ff_dim=64,
+                       num_encoder_layers=1, num_decoder_layers=2,
+                       dtype=torch.bfloat16, device=dev).train()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand((3, 64, 64, 3), device=dev, generator=g)
+    targets = {"labels": torch.randint(0, 7, (3, 4), device=dev,
+                                       generator=g),
+               "boxes": torch.rand((3, 4, 4), device=dev, generator=g),
+               "mask": torch.rand((3, 4), device=dev, generator=g) < 0.6}
+    opt = AdamW(model.named_parameters(), weight_decay=1e-4,
+                learning_rate=1e-4, decay_exclude=["bias", "norm"])
+    loss = DETRLoss(num_classes=7, matcher="auction")(
+        model(x, deterministic=True), targets)
+    loss.backward()
+    opt.step()
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())

@@ -137,3 +137,40 @@ def test_every_cuda_source_is_in_a_library():
     found = {p.name for p in _build.CSRC.iterdir()
              if p.suffix in (".cu", ".cuh")}
     assert found == listed
+
+
+def _slice8_entry_points():
+    from chambers_tpu_torch.layers.embedding import LearnedEmbedding0D
+    from chambers_tpu_torch.layers.pooling import GlobalGeneralizedMean
+    from chambers_tpu_torch.models.detection import DETR, build_detr
+
+    small = dict(num_queries=4, embed_dim=8, num_heads=2, ff_dim=16,
+                 num_encoder_layers=1, num_decoder_layers=1)
+    return {
+        "build_detr": lambda **kw: build_detr(3, input_shape=(32, 32, 3),
+                                              **small, **kw),
+        "DETR": lambda **kw: DETR(3, **small, **kw),
+        "GlobalGeneralizedMean": lambda **kw: GlobalGeneralizedMean(**kw),
+        "LearnedEmbedding0D": lambda **kw: LearnedEmbedding0D(4, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_slice8_entry_points()))
+def test_detection_and_retrieval_modules_raise_without_a_card(name, no_cuda):
+    make = _slice8_entry_points()[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    module = make(device="cpu")
+    assert all(p.device.type == "cpu" for p in module.parameters())
+
+
+def test_matchers_answer_on_the_costs_device():
+    """The auction runs where its costs are; the Hungarian matcher copies
+    the costs to the host and its answer back."""
+    from chambers_tpu_torch.losses import detection as det
+
+    cost = torch.rand(2, 3, 5)
+    for match in (det.auction_assignment, det.linear_sum_assignment):
+        cols = match(cost)
+        assert cols.device == cost.device and cols.dtype == torch.int64
+        assert cols.shape == (2, 3)
