@@ -1,10 +1,15 @@
-"""Per-image RandAugment and AutoAugment over uint8 batches.
+"""RandAugment and AutoAugment over uint8 batches.
 
-Port of ``chambers_tpu/augmentations/augmentation_schemes.py`` for
-``RandAugment(elementwise=True)`` and ``AutoAugment(elementwise=True)``: the
-magnitude maps, the static pointwise lookup tables, the policy warp and both
-compositions of a round (AutoAugment's stage is the same round with its own
-draws, see :class:`AutoAugment`).
+Port of ``chambers_tpu/augmentations/augmentation_schemes.py``: the
+magnitude maps, the static pointwise lookup tables, the policy warp, both
+compositions of a per-image round (AutoAugment's stage is the same round
+with its own draws, see :class:`AutoAugment`), and the whole-batch
+policies (``elementwise=False``, the reference default): one op (or one
+sub-policy) a round for the whole batch, chosen on a host generator as a
+Python value, so only the chosen op runs and choosing never waits for the
+card. The whole-batch ops are :mod:`image_augmentations`' own (the dense
+nearest warp for the geometric ones), as the JAX package's ``lax.switch``
+runs them.
 
 Sampling is split from applying. :meth:`RandAugment.sample` draws, for each
 round, the op index, the sign of the op's magnitude and the CutOut centre of
@@ -266,12 +271,14 @@ def _apply_lut_block(images, t, op_idx, result):
 
 
 class RandAugment:
-    """``n_transforms`` random ops per image at fixed magnitude over the
-    16-op pool. Only the per-image (``elementwise=True``) policy is ported.
+    """``n_transforms`` random ops at fixed magnitude over the 16-op pool,
+    one op a round for the whole batch (``elementwise=False``, the
+    default) or one per image.
 
-    ``fused_round_kernel`` selects a round's composition: True runs kernel
-    K1 once per round, False the masked composition over K2, None (default)
-    K1 for a uint8 RGB batch and the masked composition for any other.
+    Per image, ``fused_round_kernel`` selects a round's composition: True
+    runs kernel K1 once per round, False the masked composition over K2,
+    None (default) K1 for a uint8 RGB batch and the masked composition for
+    any other. For the whole batch a round runs the chosen op alone.
     """
 
     OP_NAMES = (
@@ -283,10 +290,6 @@ class RandAugment:
 
     def __init__(self, n_transforms: int, magnitude: float,
                  elementwise: bool = False, fused_round_kernel=None):
-        if not elementwise:
-            raise NotImplementedError(
-                "Only RandAugment(elementwise=True) is ported; the "
-                "whole-batch RandomChoice policy comes in a later slice.")
         self.n_transforms = n_transforms
         self.magnitude = magnitude
         self.elementwise = elementwise
@@ -299,11 +302,27 @@ class RandAugment:
 
     def sample(self, batch, size, generator=None, device=None):
         """Draw every round's randomness: a list of ``n_transforms`` dicts
-        with ``idx`` (op index, int64 ``[b]``), ``sign`` (±1 float32
-        ``[b]``), ``cy`` and ``cx`` (CutOut centre, int64 ``[b]``) on
-        ``device``, for images of ``size = (h, w)``."""
+        with ``idx`` (op index, int64 ``[b]``; for the whole batch a Python
+        int), ``sign`` (±1 float32 ``[b]``), ``cy`` and ``cx`` (CutOut
+        centre, int64 ``[b]``) on ``device``, for images of ``size = (h,
+        w)``. Per image the draws are made on ``device`` by ``generator``;
+        for the whole batch on the host, by a host ``generator``, and the
+        tensors then moved to ``device``."""
         device = resolve_device(device)
         h, w = size
+        if not self.elementwise:
+            generator = image_augmentations.host_generator(generator)
+            draws = []
+            for _ in range(self.n_transforms):
+                idx = int(torch.randint(0, len(self.OP_NAMES), (),
+                                        generator=generator))
+                d = {"sign": image_augmentations.random_sign(
+                    batch, generator, "cpu")}
+                d.update(self.transforms[self._CUTOUT].sample(
+                    batch, size, generator, "cpu"))
+                draws.append({"idx": idx, **image_augmentations.to_device(
+                    d, device)})
+            return draws
         draws = []
         for _ in range(self.n_transforms):
             idx = torch.randint(0, len(self.OP_NAMES), (batch,),
@@ -326,6 +345,10 @@ class RandAugment:
     def apply(self, images, draws):
         """Run the rounds on uint8 ``[b, h, w, c]`` ``images`` with the given
         draws (see :meth:`sample`)."""
+        if not self.elementwise:
+            for d in draws:
+                images = self.transforms[d["idx"]].apply(images, d)
+            return images
         t = self._device_tables(*images.shape[1:3], images.device)
         use_kernel = _fused_round_applicable(self, images)
         for d in draws:
@@ -415,8 +438,13 @@ _AUTO_AUGMENT_POLICY_V0 = [
 
 
 class AutoAugment:
-    """The AutoAugment V0 policy, one sub-policy pair per image. Only the
-    per-image (``elementwise=True``) policy is ported.
+    """The AutoAugment V0 policy: one sub-policy pair for the whole batch
+    (``elementwise=False``, the default) or one per image.
+
+    For the whole batch, :meth:`sample` draws the sub-policy (a Python int)
+    and, per stage, whether its op fires (a Python bool) on a host
+    generator, with the op's signs; :meth:`apply` runs each stage's op
+    alone when it fires, as two ``RandomChance`` stages.
 
     The 25 sub-policies index a table of unique ``(op, magnitude)`` specs,
     interned in the JAX package's order (both ``Equalize`` entries and the
@@ -443,10 +471,6 @@ class AutoAugment:
     """
 
     def __init__(self, elementwise: bool = False, fused_round_kernel=None):
-        if not elementwise:
-            raise NotImplementedError(
-                "Only AutoAugment(elementwise=True) is ported; the "
-                "whole-batch policy comes with ROADMAP.md §1 item 5.")
         self.elementwise = elementwise
         self.fused_round_kernel = fused_round_kernel
         self._unique = {}    # (name, magnitude) -> index
@@ -455,6 +479,7 @@ class AutoAugment:
         for (t1, p1, m1), (t2, p2, m2) in _AUTO_AUGMENT_POLICY_V0:
             self.policies.append(
                 ((self._intern(t1, m1), p1), (self._intern(t2, m2), p2)))
+        self._ops = [_get_transform(name, m) for name, m in self._op_specs]
         self._max_rotation = max(
             _PROJECTIVE_OPS["Rotate"][1](m or 0)
             for name, m in self._op_specs if name == "Rotate")
@@ -489,8 +514,23 @@ class AutoAugment:
         ``[b]``) and, per stage, ``do`` (bool ``[b]``, the op fires: a
         uniform draw below its probability) and ``sign`` (±1 float32
         ``[b]``), as ``{"policy_idx": ..., "stages": [{"do", "sign"}] * 2}``.
-        """
+        For the whole batch ``policy_idx`` is a Python int and ``do`` a
+        Python bool, drawn on a host ``generator``; the signs are moved to
+        ``device``."""
         device = resolve_device(device)
+        if not self.elementwise:
+            generator = image_augmentations.host_generator(generator)
+            policy_idx = int(torch.randint(0, len(self.policies), (),
+                                           generator=generator))
+            stages = []
+            for s in (0, 1):
+                p = self.policies[policy_idx][s][1]
+                do = float(torch.rand((), generator=generator)) < p
+                sign = image_augmentations.random_sign(batch, generator,
+                                                       "cpu")
+                stages.append({"do": do, "sign": sign})
+            return {"policy_idx": policy_idx,
+                    "stages": image_augmentations.to_device(stages, device)}
         prob = self.policy_tables(device)["prob"]
         policy_idx = torch.randint(0, len(self.policies), (batch,),
                                    generator=generator, device=device)
@@ -518,6 +558,12 @@ class AutoAugment:
     def apply(self, images, draws):
         """Run both stages on uint8 ``[b, h, w, c]`` ``images`` with the
         given draws (see :meth:`sample`)."""
+        if not self.elementwise:
+            policy = self.policies[draws["policy_idx"]]
+            for (op, _), stage in zip(policy, draws["stages"]):
+                if stage["do"]:
+                    images = self._ops[op].apply(images, stage)
+            return images
         b, h, w, _ = images.shape
         t = self._device_tables(h, w, images.device)
         use_kernel = _fused_round_applicable(self, images)

@@ -1,6 +1,7 @@
-"""Vision Transformer backbone (port of
+"""Vision Transformer and distilled ViT (DeiT) backbones (port of
 ``chambers_tpu/models/backbones/vision_transformer.py``: ``VisionTransformer``,
-``_pool``, the ViT presets and ``fold_imagenet_normalization``).
+``DistilledVisionTransformer``, ``_pool``, the ViT and DeiT presets and
+``fold_imagenet_normalization``).
 
 Architecture: patch embedding (kernel = stride = patch size) -> CLS token
 -> learned position embedding -> pre-norm ``Encoder`` with output norm ->
@@ -19,10 +20,16 @@ and dense dropout. It is active when the forward's ``deterministic`` is
 False (``None`` reads ``not self.training``): a directly built model is in
 train mode, so call ``.eval()`` to serve it.
 
+DeiT adds a distillation token, prepended before the CLS token (the
+tokens run ``[cls, dist, patches...]``, the position table has two rows
+more than the patches) and a second head, ``predictions_dist``, on token 1.
+As in the JAX package, ``_pool`` crops only token 0, so DeiT's ``avg``,
+``max`` and ``sum`` poolings include the distillation token.
+
 Presets build from the port's own seeded init (``weights=None``) and return
 the model in eval mode; the JAX package's weights convert with
-``convert.state_dict_from_jax``. Released ``.h5`` checkpoints, DeiT,
-``remat`` and the mixture-of-experts layers come in later slices.
+``convert.state_dict_from_jax``. Released ``.h5`` checkpoints, ``remat``
+and the mixture-of-experts layers come in later slices.
 """
 
 from typing import Optional
@@ -94,6 +101,8 @@ def _pool(x, method: Optional[str]):
 class VisionTransformer(nn.Module):
     """ViT over ``[batch, H, W, 3]`` images of size ``image_size``."""
 
+    _extra_tokens = 1  # the CLS token
+
     def __init__(self, patch_size, patch_dim, n_encoder_layers, n_heads,
                  ff_dim, dropout_rate=0.1, image_size=(224, 224),
                  include_top=True, pooling="cls", feature_dim=None,
@@ -105,8 +114,8 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if remat or moe_every_n:
             raise NotImplementedError(
-                "VisionTransformer's remat and mixture-of-experts layers "
-                "are not ported yet (ROADMAP.md §1 item 5).")
+                f"{type(self).__name__}'s remat and mixture-of-experts "
+                "layers are not ported yet (ROADMAP.md §1 item 5(d)).")
         device = resolve_device(device)
         self.dropout_rate = dropout_rate
         self.pooling = pooling
@@ -120,7 +129,8 @@ class VisionTransformer(nn.Module):
             1, patch_dim, axis=1, side="left", param_dtype=param_dtype,
             device=device)
         self.pos_embedding = LearnedEmbedding1D(
-            n_tokens + 1, patch_dim, param_dtype=param_dtype, device=device)
+            n_tokens + self._extra_tokens, patch_dim,
+            param_dtype=param_dtype, device=device)
         self.encoder = Encoder(
             patch_dim, n_heads, ff_dim, n_encoder_layers,
             attention_dropout_rate=dropout_rate,
@@ -136,6 +146,9 @@ class VisionTransformer(nn.Module):
             self.predictions = QuantDense(feature_dim or patch_dim, classes,
                                           **head)
 
+    def _prepend_tokens(self, x):
+        return self.add_cls_token(x)
+
     def embed(self, x, deterministic=None, generator=None):
         """images -> encoder token sequence ``[b, 1 + hw/p², d]``."""
         if deterministic is None:
@@ -143,7 +156,7 @@ class VisionTransformer(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.patch_embeddings(x)
-        x = self.add_cls_token(x)
+        x = self._prepend_tokens(x)
         x = self.pos_embedding(x)
         x = _dropout(x, self.dropout_rate, deterministic, generator)
         return self.encoder(x, deterministic=deterministic,
@@ -161,6 +174,66 @@ class VisionTransformer(nn.Module):
             if self.classifier_activation is not None:
                 x = self.classifier_activation(x)
         return x.to(torch.float32)
+
+
+class DistilledVisionTransformer(VisionTransformer):
+    """DeiT: a ViT with a distillation token and a second head.
+
+    The forward returns ``[x_cls, x_dist]`` (float32): the ``predictions``
+    head on the pooled sequence (``pooling``: ``cls`` takes token 0; the
+    default ``None`` keeps the whole sequence, as the JAX module does) and
+    ``predictions_dist`` on the distillation token; with
+    ``return_dist_token=False`` their mean."""
+
+    _extra_tokens = 2  # CLS and distillation tokens
+
+    def __init__(self, patch_size, patch_dim, n_encoder_layers, n_heads,
+                 ff_dim, dropout_rate=0.1, image_size=(224, 224),
+                 return_dist_token=True, include_top=True, pooling=None,
+                 classes=1000, classifier_activation=None, dtype=None,
+                 param_dtype=torch.float32, remat=False,
+                 attention_impl="xla", score_dtype=None,
+                 gelu_approximate=False, norm_stats_dtype=None,
+                 moe_every_n=0, device=None):
+        super().__init__(
+            patch_size, patch_dim, n_encoder_layers, n_heads, ff_dim,
+            dropout_rate=dropout_rate, image_size=image_size,
+            include_top=include_top, pooling=pooling, classes=classes,
+            classifier_activation=classifier_activation, dtype=dtype,
+            param_dtype=param_dtype, remat=remat,
+            attention_impl=attention_impl, score_dtype=score_dtype,
+            gelu_approximate=gelu_approximate,
+            norm_stats_dtype=norm_stats_dtype, moe_every_n=moe_every_n,
+            device=device)
+        device = resolve_device(device)
+        self.return_dist_token = return_dist_token
+        self.add_dist_token = ConcatEmbedding(
+            1, patch_dim, axis=1, side="left", param_dtype=param_dtype,
+            device=device)
+        if include_top:
+            self.predictions_dist = QuantDense(
+                patch_dim, classes, dtype=dtype, param_dtype=param_dtype,
+                device=device)
+
+    def _prepend_tokens(self, x):
+        # the distillation token first, then CLS: [cls, dist, patches...]
+        return self.add_cls_token(self.add_dist_token(x))
+
+    def forward(self, x, deterministic=None, generator=None):
+        """``[b, H, W, 3]`` images -> ``[x_cls, x_dist]`` float32 logits
+        (or their mean without ``return_dist_token``)."""
+        x = self.embed(x, deterministic, generator)
+        x_cls, x_dist = _pool(x, self.pooling), x[:, 1]
+        if self.include_top:
+            x_cls = self.predictions(x_cls)
+            x_dist = self.predictions_dist(x_dist)
+            if self.classifier_activation is not None:
+                x_cls = self.classifier_activation(x_cls)
+                x_dist = self.classifier_activation(x_dist)
+        x_cls, x_dist = x_cls.to(torch.float32), x_dist.to(torch.float32)
+        if self.return_dist_token:
+            return [x_cls, x_dist]
+        return (x_cls + x_dist) / 2.0
 
 
 def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
@@ -193,11 +266,46 @@ def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
     return preset
 
 
+def _deit_preset(model_name, patch_size, patch_dim, n_layers, n_heads,
+                 ff_dim):
+    def preset(return_dist_token=True, input_shape=None, include_top=True,
+               weights=None, pooling="cls", classes=1000,
+               classifier_activation=None, dtype=None,
+               attention_impl="xla", score_dtype=None,
+               gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
+               device=None):
+        """Build, seed-initialise and return the model in eval mode, with
+        ``dropout_rate=0.1`` as the JAX package's DeiT presets fix it."""
+        if weights is not None:
+            raise NotImplementedError(
+                "pretrained DeiT weights are not ported yet (the .h5 import "
+                "comes in a later slice); use weights=None, or load a "
+                "state_dict converted with state_dict_from_jax.")
+        device = resolve_device(device)
+        input_shape = input_shape or (224, 224, 3)
+        model = DistilledVisionTransformer(
+            patch_size, patch_dim, n_layers, n_heads, ff_dim,
+            dropout_rate=0.1, image_size=tuple(input_shape[:2]),
+            return_dist_token=return_dist_token, include_top=include_top,
+            pooling=pooling, classes=classes,
+            classifier_activation=classifier_activation, dtype=dtype,
+            attention_impl=attention_impl, score_dtype=score_dtype,
+            gelu_approximate=gelu_approximate,
+            norm_stats_dtype=norm_stats_dtype, device=device)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        return initializers.init_module(model, generator).eval()
+
+    preset.__name__ = model_name
+    return preset
+
+
 ViTS16 = _vit_preset("vits16", 16, 384, 12, 6, 1536)
 ViTB16 = _vit_preset("vitb16", 16, 768, 12, 12, 3072)
 ViTB32 = _vit_preset("vitb32", 32, 768, 12, 12, 3072)
 ViTL16 = _vit_preset("vitl16", 16, 1024, 24, 16, 4096)
 ViTL32 = _vit_preset("vitl32", 32, 1024, 24, 16, 4096)
+DeiTS16 = _deit_preset("deits16", 16, 384, 12, 6, 1536)
+DeiTB16 = _deit_preset("deitb16", 16, 768, 12, 12, 3072)
 
 
 def fold_imagenet_normalization(state_dict, mode: str = "tf"):
@@ -213,8 +321,9 @@ def fold_imagenet_normalization(state_dict, mode: str = "tf"):
     and the model then takes raw [0, 255] pixels. Folded in float32 and cast
     back to the parameters' dtype.
 
-    :param state_dict: a ViT ``state_dict`` with ``patch_embeddings.kernel``
-        ``[kh, kw, 3, d]`` and ``patch_embeddings.bias``.
+    :param state_dict: a ViT or DeiT ``state_dict`` with
+        ``patch_embeddings.kernel`` ``[kh, kw, 3, d]`` and
+        ``patch_embeddings.bias``.
     :return: a new ``state_dict``; the input is not changed.
     """
     if mode == "tf":
@@ -235,8 +344,8 @@ def fold_imagenet_normalization(state_dict, mode: str = "tf"):
         raise ValueError("Unknown mode " + str(mode))
     if "patch_embeddings.kernel" not in state_dict:
         raise ValueError("state_dict has no 'patch_embeddings.kernel': "
-                         "fold_imagenet_normalization applies to ViT patch "
-                         "embeddings only")
+                         "fold_imagenet_normalization applies to ViT and "
+                         "DeiT patch embeddings only")
     k0 = state_dict["patch_embeddings.kernel"]
     b0 = state_dict["patch_embeddings.bias"]
     if k0.ndim != 4 or k0.shape[2] != 3:

@@ -156,6 +156,19 @@ def contrast(images, factor):
     return blend(degenerate, images, factor)
 
 
+def contrast_true_mean(images, factor):
+    """Contrast about each image's own mean gray level (the original
+    AutoAugment formulation): the gray levels sum exactly (in float64;
+    under 2^24, so float32 sums them exactly too), one float32 division by
+    the pixel count, rounded half to even and clipped to uint8."""
+    gray = to_grayscale(images).to(torch.float64)
+    total = gray.sum(dim=(1, 2, 3)).to(torch.float32)
+    count = torch.full_like(total, gray[0].numel())
+    mean = torch.round(total / count).clamp(0, 255).to(torch.uint8)
+    degenerate = mean[:, None, None, None].expand(images.shape)
+    return blend(degenerate, images, factor)
+
+
 def channel_histograms(images):
     """Per-(image, channel) 256-bin histograms, ``[b*c, 256]`` int32.
 
@@ -252,11 +265,19 @@ def cutout(images, cy, cx, mask_size, constant_values=0):
 # geometry: projective matrices and the separable warp
 # ---------------------------------------------------------------------------
 
-def transform(images, transforms, fill_value=0):
-    """Nearest-neighbour projective warp (tfa.image.transform contract):
-    ``transforms`` ``[8]`` or ``[b, 8]`` map output ``(x, y)`` to input
+def transform(images, transforms, fill_value=0, interpolation="nearest"):
+    """Projective warp (tfa.image.transform contract): ``transforms``
+    ``[8]`` or ``[b, 8]`` map output ``(x, y)`` to input
     ``((a0 x + a1 y + a2) / k, (b0 x + b1 y + b2) / k)``,
-    ``k = c0 x + c1 y + 1``; out-of-bounds samples take ``fill_value``."""
+    ``k = c0 x + c1 y + 1``; out-of-bounds samples take ``fill_value``.
+
+    ``interpolation="nearest"`` picks ``floor(x + 0.5)``; ``"bilinear"``
+    weighs four taps in float32, each out-of-bounds tap at ``fill_value``,
+    in the JAX package's order (``t00 (1-fx)(1-fy) + t10 fx (1-fy) + t01
+    (1-fx) fy + t11 fx fy``, left to right, every product rounded), and
+    integer images come back as ``round(clip(., 0, 255))``. (The JAX
+    package takes ``interpolation`` third; here ``fill_value`` keeps the
+    third place it had before bilinear was ported.)"""
     b, h, w, c = images.shape
     dev = images.device
     t = torch.as_tensor(transforms, dtype=torch.float32, device=dev)
@@ -266,12 +287,142 @@ def transform(images, transforms, fill_value=0):
     oy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
     a0, a1, a2, b0, b1, b2, c0, c1 = (t[:, i, None, None] for i in range(8))
     k = c0 * ox + c1 * oy + 1.0
-    ix = torch.floor((a0 * ox + a1 * oy + a2) / k + 0.5).to(torch.int64)
-    iy = torch.floor((b0 * ox + b1 * oy + b2) / k + 0.5).to(torch.int64)
-    valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    sx = (a0 * ox + a1 * oy + a2) / k
+    sy = (b0 * ox + b1 * oy + b2) / k
     bidx = torch.arange(b, device=dev)[:, None, None]
-    gathered = images[bidx, iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
-    return gathered.masked_fill(~valid[..., None], fill_value)
+    if interpolation == "nearest":
+        ix = torch.floor(sx + 0.5).to(torch.int64)
+        iy = torch.floor(sy + 0.5).to(torch.int64)
+        valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        gathered = images[bidx, iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+        return gathered.masked_fill(~valid[..., None], fill_value)
+    if interpolation != "bilinear":
+        raise ValueError(f"Unknown interpolation '{interpolation}'")
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+    fx = (sx - x0f)[..., None]
+    fy = (sy - y0f)[..., None]
+    fill = float(np.float32(fill_value))
+
+    def tap(xi, yi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        g = images[bidx, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        return g.to(torch.float32).masked_fill(~valid[..., None], fill)
+
+    out = (tap(x0, y0) * (1 - fx) * (1 - fy)
+           + tap(x0 + 1, y0) * fx * (1 - fy)
+           + tap(x0, y0 + 1) * (1 - fx) * fy
+           + tap(x0 + 1, y0 + 1) * fx * fy)
+    if not images.is_floating_point():
+        out = torch.round(out.clamp(0, 255))
+    return out.to(images.dtype)
+
+
+def _resize_weights(m, n):
+    """``[m, n]`` float32 weights of a linear resize from ``m`` to ``n``
+    samples, as ``jax.image.resize`` computes them under ``jit`` (with
+    ``antialias``): half-pixel centres, a triangle kernel stretched by the
+    downscale factor, each output's weights divided by their sum, zero
+    outside the input. Computed on the host in numpy float32 in the
+    jitted order: ``1 - |d| * (1 / kernel_scale)`` rounded once (XLA
+    turns the division into a product and contracts it into a fused
+    multiply-add, emulated in float64), the sum over the inputs taken in
+    order."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n / m)
+    recip = f32(1) / f32(max(inv_scale, 1.0))
+    sample = (np.arange(n, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None])
+    weights = np.maximum(f32(0), (1.0 - dist.astype(np.float64)
+                                  * np.float64(recip)).astype(f32))
+    total = np.zeros(n, f32)
+    for row in weights:
+        total = total + row
+    safe = np.where(total != 0, total, f32(1))
+    weights = np.where(np.abs(total) > f32(1000 * np.finfo(f32).eps),
+                       weights / safe, f32(0))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(inside[None, :], weights, f32(0)).astype(f32)
+
+
+def _nearest_indices(m, n):
+    """Source index of each of ``n`` outputs resized from ``m`` samples:
+    ``floor((i + 0.5) * m / n)`` in float32, as ``jax.image.resize``."""
+    f32 = np.float32
+    return np.floor((np.arange(n, dtype=f32) + f32(0.5)) * f32(m) / f32(n)
+                    ).astype(np.int64)
+
+
+def resize(images, size, method="bilinear"):
+    """Resize ``[b, h, w, c]`` images to ``size = (height, width)`` with
+    ``jax.image.resize``'s semantics, as the JAX package's ``Resizing``
+    and ``ResizingMinMax`` call it: ``"nearest"`` gathers, ``"bilinear"``
+    applies :func:`_resize_weights` as one float32 product over the height
+    axis and one over the width axis (an axis whose size does not change
+    is left as it is). Returns float32; the callers round integer images.
+    """
+    b, h, w, c = images.shape
+    nh, nw = size
+    x = images.to(torch.float32)
+    dev = images.device
+    if method == "nearest":
+        rows = torch.from_numpy(_nearest_indices(h, nh)).to(dev)
+        cols = torch.from_numpy(_nearest_indices(w, nw)).to(dev)
+        return x[:, rows][:, :, cols]
+    if method != "bilinear":
+        raise ValueError(f"Unknown resize method '{method}'")
+    if nh != h:
+        weights = torch.from_numpy(_resize_weights(h, nh)).to(dev)
+        x = torch.einsum("bhwc,hk->bkwc", x, weights)
+    if nw != w:
+        weights = torch.from_numpy(_resize_weights(w, nw)).to(dev)
+        x = torch.einsum("bhwc,wk->bhkc", x, weights)
+    return x
+
+
+def _warp(images, transforms, interpolation, fill_value):
+    return transform(images, transforms.to(images.device), fill_value,
+                     interpolation)
+
+
+def rotate(images, radians, interpolation="nearest", fill_value=0):
+    """Rotate about the centre; ``radians`` scalar or per-image ``[b]``."""
+    h, w = images.shape[1], images.shape[2]
+    return _warp(images, rotation_matrices(radians, h, w), interpolation,
+                 fill_value)
+
+
+def shear_x(images, level, interpolation="nearest", fill_value=0):
+    """Horizontal shear by ``level`` (scalar or ``[b]``)."""
+    return _warp(images, shear_x_matrices(level), interpolation, fill_value)
+
+
+def shear_y(images, level, interpolation="nearest", fill_value=0):
+    """Vertical shear by ``level`` (scalar or ``[b]``)."""
+    return _warp(images, shear_y_matrices(level), interpolation, fill_value)
+
+
+def translate(images, translations, interpolation="nearest", fill_value=0):
+    """Translate by ``[dx, dy]`` (``[2]`` or ``[b, 2]``): the content moves
+    by +dx/+dy, so the matrix holds the negated values (tfa convention)."""
+    tr = torch.as_tensor(translations, dtype=torch.float32)
+    if tr.ndim == 1:
+        tr = tr[None].expand(images.shape[0], 2)
+    z, o = torch.zeros_like(tr[:, 0]), torch.ones_like(tr[:, 0])
+    mats = torch.stack([o, z, -tr[:, 0], z, o, -tr[:, 1], z, z], dim=1)
+    return _warp(images, mats, interpolation, fill_value)
+
+
+def translate_x(images, pixels, interpolation="nearest", fill_value=0):
+    """Reference TranslateX: the content moves by ``-pixels`` horizontally."""
+    return _warp(images, translate_x_matrices(pixels), interpolation,
+                 fill_value)
+
+
+def translate_y(images, pixels, interpolation="nearest", fill_value=0):
+    """Reference TranslateY: the content moves by ``-pixels`` vertically."""
+    return _warp(images, translate_y_matrices(pixels), interpolation,
+                 fill_value)
 
 
 def identity_matrices(batch, device=None):

@@ -29,8 +29,9 @@ the CUDA toolkit. In order, it:
    (dQ) against their plain versions, through ``flash_attention`` and its
    backward as the paths call them, at the train step's three uses
    (``[16, 8, 512, 64]`` bf16 with a ragged key mask, causal and not),
-   ViT-B/16's shape, cross lengths 130 x 260 and 260 x 130 with the
-   diagonal at the end, 63 x 65, 257 x 257 and 70 x 150 with key masks, one
+   ViT-B/16's shape, DeiT-B/16's 198 x 198 with no mask, cross lengths
+   130 x 260 and 260 x 130 with the diagonal at the end, 63 x 65, 257 x
+   257 and 70 x 150 with key masks, one
    key, one query against 300 keys, and a batch item with no valid key, in
    bf16 (the tensor-core kernels) and in float32 (the FMA ones); two
    launches of each kernel must give the same bits, the profiler must show
@@ -110,11 +111,37 @@ the CUDA toolkit. In order, it:
     ms/step, img/s, device time by phase (matcher, forward and loss,
     backward, optimizer), launches, busy share, the auction's iterations
     on the step's costs and peak memory;
-20. prints a ``paths`` JSON line (the three DETR modes among its rows) and
-    an ``int_mm`` JSON line, one ``kernels`` JSON
-    line with all five kernels (K1 and K2 with their 384 px shape as
-    ``shape_384``, K3a's two decode shapes as rows of their own after
-    it), the card line, and last ``{"ok": true, "device": {...}}``.
+20. runs the DeiT recipe's train step at DeiT-B/16's widths (patch 16,
+    width 768, 12 layers, 12 heads, MLP 3072, 1000 classes) in bf16,
+    batch 128 of seeded uint8 224 px images, labels ``arange(128) %
+    1000``, whole-batch RandAugment(2, 9) (drawn on a host generator) and
+    the 'tf' normalization, the port's ``AdamW(weight_decay=0.05,
+    decay_exclude=["bias", "norm", "cls", "dist"])`` under
+    ``LinearWarmup(CosineDecay(5e-4), 2)``, in two modes whose timed runs
+    take turns: ``recipe`` (``mixup_or_cutmix`` of MixUp(0.8) and
+    CutMix(1.0) with label smoothing 0.1, a ViT on dense attention with
+    bf16 scores, categorical cross-entropy on the soft labels) and
+    ``distilled`` (a ``DistilledVisionTransformer`` on the flash kernels,
+    K3a-c 12 times a step each at ``[1536, 198, 64]``, hard distillation
+    from a frozen bf16 ViT-B/16, top-1 and top-5 accuracies streamed on
+    the card). Checks the augmentation on the card against its CPU run
+    (each of the 16 ops forced, bilinear Rotate and Shear bit for bit,
+    ``mixup_or_cutmix`` within 1e-6 in both branches), the decayed sets
+    against the JAX package's (listed as data), each first loss against
+    float32 (within 5%), the distilled flash step against dense attention
+    (loss within 1e-2, gradients at cosine >= 0.99), K3a-c's launches and
+    the streamed accuracies against a CPU recomputation; for each mode
+    ms/step, img/s, device time by phase (augmentation, teacher, forward
+    and loss, backward, optimizer), the attention core's device time,
+    launches, busy share and peak memory. Then times K3a-c at ``[1536,
+    198, 64]`` bf16 with no mask beside their bounds and
+    ``F.scaled_dot_product_attention``;
+21. prints a ``paths`` JSON line (the three DETR modes and the two DeiT
+    modes among its rows) and an ``int_mm`` JSON line, one ``kernels``
+    JSON line with all five kernels (K1 and K2 with their 384 px shape as
+    ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, K3a's two
+    decode shapes as rows of their own after it), the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -295,6 +322,10 @@ def check_flash_kernels(torch, fa, dev):
         ("path: decoder self, causal + key mask", b, n, t, t, bf16, True,
          path_mask, "stacked"),
         ("ViT-B/16 shape bf16", 2, 12, 197, 197, bf16, False, None, "plain"),
+        # DeiT-B/16's 198 tokens (phase 20): the last key tile holds 6 keys
+        # of 64, covered by the kernels' bounds, with no key mask
+        ("DeiT-B/16 shape 198x198 bf16, no mask", 2, 12, 198, 198, bf16,
+         False, None, "permuted"),
         ("ViT shape float32", 2, 3, 197, 197, f32, False, None, "stacked"),
         ("cross lengths 130x260 causal float32", 1, 2, 130, 260, f32, True,
          None, "plain"),
@@ -1829,7 +1860,8 @@ def profile_train_step(torch, model, opt, loss_of, n, inner=()):
     forward, are taken out of it as phases of their own; matrix-product
     kernels by name; launches; and the span of the optimizer's own range
     on the device timeline (its kernels and the gaps between them, which a
-    host-bound optimizer leaves)."""
+    host-bound optimizer leaves); and the profile's averaged events, as
+    ``events``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     phases = ("forward and loss", "optimizer")
@@ -1868,7 +1900,8 @@ def profile_train_step(torch, model, opt, loss_of, n, inner=()):
                 if e.name == phases[1]) / n,
             "optimizer_span_ms": span,
             "table": events.table(sort_by="self_device_time_total",
-                                  row_limit=12)}
+                                  row_limit=12),
+            "events": events}
 
 
 # ---------------------------------------------------------------------------
@@ -2148,6 +2181,547 @@ def detr_path(torch, dev):
             f"{[round(v, 4) for v in mode_losses]} on {CARD}")
     del modes
     return results
+
+
+# ---------------------------------------------------------------------------
+# 20. the DeiT-B/16 recipe's train step: recipe (MixUp/CutMix, ViT, soft
+# cross-entropy) and distilled (DeiT on the flash kernels, hard
+# distillation from a frozen ViT-B/16)
+# ---------------------------------------------------------------------------
+
+# DeiT-B/16 at DeiT's per-card batch (1024 over 8 cards), 1000 classes
+DEIT = dict(batch=128, size=224, classes=1000, patch=16, width=768,
+            depth=12, heads=12, mlp=3072)
+DEIT_TOKENS = (DEIT["size"] // DEIT["patch"]) ** 2 + 2  # + cls and dist
+DEIT_WARMUP, DEIT_STEPS, DEIT_REPEATS = 2, 3, 3
+DEIT_DECAY_EXCLUDE = ["bias", "norm", "cls", "dist"]
+DEIT_MODES = ("recipe", "distilled")
+
+
+def deit_decayed_paths():
+    """The JAX package's paths of the ViT-B/16 (``recipe``) and DeiT-B/16
+    (``distilled``) parameters that the recipe's ``decay_exclude=["bias",
+    "norm", "cls", "dist"]`` leaves to weight decay, listed as data; one
+    list for both, since ``dist`` excludes the distillation token and the
+    ``predictions_dist`` head alike (``tests/test_torch_deit.py`` holds it
+    to JAX's ``decay_mask`` on both models)."""
+    per_layer = ["dense1/kernel", "dense2/kernel"] + [
+        f"multi_head_attention/{w}_{name}" for w in ("w", "b")
+        for name in ("query", "value", "key", "projection")]
+    return (["patch_embeddings/kernel", "pos_embedding/embeddings",
+             "predictions/kernel"]
+            + [f"encoder/layers_{i}/{p}" for i in range(DEIT["depth"])
+               for p in per_layer])
+
+
+def deit_teacher(torch, dev):
+    """The distilled mode's frozen teacher: the port's ViT-B/16 preset in
+    bf16 with bf16 scores, seeded (seed 2), in eval mode, without
+    gradients."""
+    from chambers_tpu_torch.models.backbones.vision_transformer import ViTB16
+
+    teacher = ViTB16(dtype=torch.bfloat16, score_dtype=torch.bfloat16,
+                     seed=2, device=dev)
+    return teacher.requires_grad_(False)
+
+
+def check_deit_augmentation(torch, dev, images, labels, aug, norm, mixup,
+                            cutmix):
+    """Phase 20's augmentation on the card against its CPU run on the same
+    draws: whole-batch RandAugment(2, 9) with each of the 16 ops forced
+    once (16 images) and two drawn rounds at the whole batch, bit for bit;
+    bilinear Rotate (``RandomRotation``), ShearX and ShearY, bit for bit
+    (their matrices built on the host in both runs); and
+    ``mixup_or_cutmix`` after the 'tf' normalization in both branches,
+    within 1e-6."""
+    from chambers_tpu_torch.augmentations import (
+        RandomRotation,
+        ShearX,
+        ShearY,
+        mixup_or_cutmix,
+    )
+    from chambers_tpu_torch.augmentations.image_augmentations import (
+        to_device,
+    )
+
+    host = torch.Generator().manual_seed(200)
+    size = (DEIT["size"], DEIT["size"])
+    n_few = min(16, images.shape[0])
+    few, few_cpu = images[:n_few], images[:n_few].cpu()
+    template = aug.sample(n_few, size, host, "cpu")[0]
+    changed = []
+    for op in range(16):
+        d = dict(template, idx=op)
+        got = aug.apply(few, [to_device(d, dev)]).cpu()
+        want = aug.apply(few_cpu, [d])
+        check(torch.equal(got, want),
+              f"whole-batch RandAugment op {aug.OP_NAMES[op]} on the card "
+              "equals its CPU run")
+        changed.append(int((want != few_cpu).sum()))
+    log(f"phase 20: whole-batch RandAugment(2, 9), each of the 16 ops forced "
+        f"on {n_few} images: card == CPU bit for bit; bytes each op changed: "
+        + ", ".join(f"{n} {c}" for n, c in zip(aug.OP_NAMES, changed)))
+    draws = aug.sample(DEIT["batch"], size, host, "cpu")
+    augmented = aug.apply(images, to_device(draws, dev))
+    augmented_cpu = aug.apply(images.cpu(), draws)
+    check(torch.equal(augmented.cpu(), augmented_cpu),
+          "whole-batch RandAugment(2, 9) at the whole batch, card == CPU")
+    log(f"phase 20: two drawn rounds (ops {[d['idx'] for d in draws]}) at "
+        f"{list(images.shape)}: card == CPU bit for bit")
+    for op in (RandomRotation(0.1), ShearX(0.27, interpolation="bilinear",
+                                          fill_value=128),
+               ShearY(0.27, interpolation="bilinear", fill_value=128)):
+        d = op.sample(n_few, size, host, "cpu")
+        got = op.apply(few, d).cpu()
+        want = op.apply(few_cpu, d)
+        check(torch.equal(got, want), f"bilinear {type(op).__name__} on "
+                                      "the card equals its CPU run")
+    log("phase 20: bilinear RandomRotation(0.1), ShearX and ShearY on the "
+        "card equal their CPU runs bit for bit")
+    x = norm(augmented)
+    check(torch.equal(x.cpu(), norm(augmented_cpu)),
+          "'tf' normalization on the card equals its CPU run")
+    for use_cutmix in (False, True):
+        op = cutmix if use_cutmix else mixup
+        mix = {"use_cutmix": use_cutmix,
+               "draws": op.sample(DEIT["batch"], size, host, "cpu")}
+        gx, gy = mixup_or_cutmix(x, labels, mixup=mixup, cutmix=cutmix,
+                                 draws=mix)
+        wx, wy = mixup_or_cutmix(x.cpu(), labels.cpu(), mixup=mixup,
+                                 cutmix=cutmix, draws=mix)
+        err = max(float((gx.cpu() - wx).abs().max()),
+                  float((gy.cpu() - wy).abs().max()))
+        log(f"phase 20: {'CutMix' if use_cutmix else 'MixUp'} on the card "
+            f"against the CPU: max |d| {err:.3g} (draws {mix['draws']})")
+        check(err <= 1e-6, "mixup_or_cutmix on the card within 1e-6 of the "
+                           "CPU")
+
+
+def check_streamed_accuracy(torch, accs, logits, labels):
+    """The accuracies streamed on the card against a recomputation on the
+    CPU from the same logits: the label's rank among the scores, ties to
+    the lower index, as ``lax.top_k``."""
+    import numpy as np
+
+    scores = torch.cat(logits).cpu().double().numpy()
+    lab = labels.cpu().numpy()
+    lab = np.tile(lab, len(logits))
+    own = scores[np.arange(len(lab)), lab][:, None]
+    index = np.arange(scores.shape[1])[None, :]
+    rank = ((scores > own).sum(1)
+            + ((scores == own) & (index < lab[:, None])).sum(1))
+    want = {"top1": float((rank < 1).mean()), "top5": float((rank < 5).mean())}
+    got = {k: m.result() for k, m in accs.items()}
+    log(f"phase 20 distilled: streamed accuracies on the card {got}, CPU "
+        f"recomputation from the same {len(lab)} logit rows {want}")
+    for k in got:
+        check(abs(got[k] - want[k]) <= 1e-6,
+              f"streamed {k} accuracy equals the CPU recomputation")
+    return got
+
+
+def deit_path(torch, fa, dev):
+    """Phase 20: the DeiT recipe's train step at DeiT-B/16's widths (patch
+    16, width 768, 12 layers, 12 heads, MLP 3072, 1000 classes), bf16,
+    batch 128 of seeded uint8 224 px images, labels ``arange(128) %
+    1000``, seeded weights; whole-batch RandAugment(2, 9) and the 'tf'
+    normalization; the port's AdamW(weight_decay=0.05, decay_exclude=
+    ["bias", "norm", "cls", "dist"]) under LinearWarmup(CosineDecay(5e-4),
+    2). Two modes: ``recipe`` (mixup_or_cutmix, ViT on dense attention
+    with bf16 scores, categorical cross-entropy on the soft labels) and
+    ``distilled`` (DeiT on the flash kernels, hard distillation from a
+    frozen bf16 ViT-B/16, streamed accuracies). Checks the augmentation on
+    the card against the CPU, the decayed sets, each first loss against
+    float32, the flash step against dense attention, K3a-c's launches and
+    the streamed accuracies; times both modes in turns and profiles
+    them."""
+    from torch.profiler import record_function
+
+    from chambers_tpu_torch import initializers, metrics
+    from chambers_tpu_torch.augmentations import (
+        CutMix,
+        ImageNetNormalization,
+        MixUp,
+        RandAugment,
+        mixup_or_cutmix,
+        sample_mixup_or_cutmix,
+    )
+    from chambers_tpu_torch.losses import (
+        CategoricalCrossentropy,
+        DistillationLoss,
+    )
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        DistilledVisionTransformer,
+        VisionTransformer,
+    )
+    from chambers_tpu_torch.optimizers import AdamW, jax_path
+    from chambers_tpu_torch.schedules import CosineDecay, LinearWarmup
+
+    bf16 = torch.bfloat16
+    b, size, classes = DEIT["batch"], DEIT["size"], DEIT["classes"]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    host = torch.Generator().manual_seed(20)
+    pool = [torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                          device=dev, generator=gen) for _ in range(2)]
+    labels = torch.arange(b, device=dev) % classes
+    aug, norm = RandAugment(2, 9), ImageNetNormalization("tf")
+    mixup = MixUp(0.8, classes, label_smoothing=0.1)
+    cutmix = CutMix(1.0, classes, label_smoothing=0.1)
+    check_deit_augmentation(torch, dev, pool[0], labels, aug, norm, mixup,
+                            cutmix)
+
+    widths = [DEIT[k] for k in ("patch", "width", "depth", "heads", "mlp")]
+
+    def build(mode, dtype, impl="flash"):
+        kw = dict(dropout_rate=0.0, image_size=(size, size),
+                  classes=classes, dtype=dtype, device=dev)
+        if mode == "recipe":
+            return VisionTransformer(*widths, attention_impl="xla",
+                                     score_dtype=dtype, **kw)
+        return DistilledVisionTransformer(*widths, pooling="cls",
+                                          attention_impl=impl, **kw)
+
+    models, opts = {}, {}
+    listed = set(deit_decayed_paths())
+    for seed, mode in enumerate(DEIT_MODES):
+        model = initializers.init_module(
+            build(mode, bf16),
+            torch.Generator(device=dev).manual_seed(seed)).train()
+        opts[mode] = AdamW(
+            model.named_parameters(), weight_decay=0.05,
+            learning_rate=LinearWarmup(CosineDecay(5e-4, decay_steps=100),
+                                       warmup_steps=2),
+            decay_exclude=DEIT_DECAY_EXCLUDE)
+        models[mode] = model
+        names = {id(p): n for n, p in model.named_parameters()}
+        decayed = {jax_path(names[id(p)]) for g in opts[mode].param_groups
+                   if g["decay"] for p in g["params"]}
+        log(f"phase 20 {mode}: {len(decayed)} of {len(names)} parameters "
+            f"decay; the JAX package's list has {len(listed)}")
+        check(decayed == listed,
+              f"{mode}: the decayed parameters are the JAX package's")
+    teacher = deit_teacher(torch, dev)
+    cce = CategoricalCrossentropy(from_logits=True)
+    distill = DistillationLoss("hard")
+    accs = {"top1": metrics.SparseCategoricalAccuracy(device=dev),
+            "top5": metrics.SparseTopKCategoricalAccuracy(5, device=dev)}
+    cls_logits = []
+
+    def batch_of(mode, i):
+        """One batch's inputs and targets: augmentation drawn on the host
+        generator; for ``recipe`` mixed, for ``distilled`` with the frozen
+        teacher's logits."""
+        with record_function("augmentation"):
+            draws = aug.sample(b, (size, size), host, dev)
+            x = norm(aug.apply(pool[i % len(pool)], draws))
+            if mode == "recipe":
+                mix = sample_mixup_or_cutmix(
+                    b, (size, size), host, mixup=mixup, cutmix=cutmix,
+                    switch_prob=0.5, device=dev)
+                return mixup_or_cutmix(x, labels, mixup=mixup,
+                                       cutmix=cutmix, draws=mix)
+        with record_function("teacher"), torch.no_grad():
+            return x, (labels, teacher(x))
+
+    def loss_on(mode, model, batch, stream=False):
+        x, y = batch
+        if mode == "recipe":
+            return cce(y, model(x, deterministic=True))
+        out = model(x, deterministic=True)
+        if stream:
+            cls = out[0].detach()
+            cls_logits.append(cls)
+            for m in accs.values():
+                m.update_state(labels, cls)
+        return distill(y, out)
+
+    def step(mode, i, stream=False):
+        model, opt = models[mode], opts[mode]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_on(mode, model, batch_of(mode, i), stream)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    # the first step of each mode: its loss against the same step in
+    # float32; in distilled, the flash step against dense attention
+    first, first32, flash_vs_dense = {}, {}, {}
+    for mode in DEIT_MODES:
+        model, opt = models[mode], opts[mode]
+        batch = batch_of(mode, 0)
+        opt.zero_grad(set_to_none=True)
+        loss = loss_on(mode, model, batch)
+        loss.backward()
+        first[mode] = float(loss.detach())
+        ref = build(mode, None).train()
+        ref.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            first32[mode] = float(loss_on(mode, ref, batch))
+        del ref
+        rel = abs(first[mode] - first32[mode]) / abs(first32[mode])
+        log(f"phase 20 {mode}: first loss bf16 {first[mode]:.5f}, float32 "
+            f"{first32[mode]:.5f} (rel {rel:.3g})")
+        check(math.isfinite(first[mode]) and rel <= 0.05,
+              f"{mode}: first loss finite and within 5% of float32's")
+        if mode == "distilled":
+            dense = build(mode, bf16, impl="xla").train()
+            dense.load_state_dict(model.state_dict())
+            dense_loss = loss_on(mode, dense, batch)
+            dense_loss.backward()
+            grads = dict(model.named_parameters())
+            flat = torch.cat([p.grad.double().flatten()
+                              for p in grads.values()])
+            flat_dense = torch.cat([p.grad.double().flatten()
+                                    for p in dense.parameters()])
+            # the key projection's bias has an exact gradient of 0
+            # (softmax does not see a shift of all of a row's scores): its
+            # rounding noise has no direction to agree on
+            worst = min(float(torch.nn.functional.cosine_similarity(
+                g.grad.double().flatten(), d.grad.double().flatten(), dim=0))
+                for (name, g), d in zip(grads.items(), dense.parameters())
+                if not name.endswith("b_key"))
+            flash_vs_dense = {
+                "loss_rel": abs(first[mode] - float(dense_loss.detach()))
+                / abs(float(dense_loss.detach())),
+                "grad_cosine": float(torch.nn.functional.cosine_similarity(
+                    flat, flat_dense, dim=0)),
+                "worst_parameter_cosine": worst}
+            del dense, flat, flat_dense
+            log(f"phase 20 distilled: first step on flash against dense "
+                f"attention (float32 scores): loss rel "
+                f"{flash_vs_dense['loss_rel']:.3g}, gradient cosine "
+                f"{flash_vs_dense['grad_cosine']:.6f} (worst parameter but "
+                f"the key biases {worst:.6f})")
+            check(flash_vs_dense["loss_rel"] <= 1e-2,
+                  "distilled: flash loss within 1e-2 of dense attention")
+            check(flash_vs_dense["grad_cosine"] >= 0.99,
+                  "distilled: flash gradients at cosine >= 0.99 to dense")
+        opt.step()
+    torch.cuda.synchronize()
+
+    # the timed runs, the two modes in turns, the flash counters set to 0
+    # just before them and read just after
+    for mode in DEIT_MODES:
+        for i in range(DEIT_WARMUP):
+            step(mode, 1 + i)
+    torch.cuda.synchronize()
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    runs = {mode: [] for mode in DEIT_MODES}
+    losses = {mode: [] for mode in DEIT_MODES}
+    for r in range(DEIT_REPEATS):
+        for mode in DEIT_MODES:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(DEIT_STEPS):
+                losses[mode].append(step(mode, 10 + r * DEIT_STEPS + i,
+                                         stream=mode == "distilled"))
+            end.record()
+            end.synchronize()
+            runs[mode].append(start.elapsed_time(end) / DEIT_STEPS)
+    launches = dict(fa.flash_attention.launches)
+    timed = DEIT_STEPS * DEIT_REPEATS
+    log(f"phase 20: flash launches over {timed} distilled and {timed} recipe "
+        f"steps: {launches}")
+    check(all(launches[k] == DEIT["depth"] * timed for k in launches),
+          "K3a, K3b and K3c launch 12 times a distilled step")
+    streamed = check_streamed_accuracy(torch, accs, cls_logits, labels)
+
+    results = {}
+    for mode in DEIT_MODES:
+        model, opt = models[mode], opts[mode]
+        ms = sorted(runs[mode])[len(runs[mode]) // 2]
+        mode_losses = [float(v) for v in losses[mode]]
+        check(all(math.isfinite(v) for v in mode_losses),
+              f"{mode}: finite losses")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(mode, 50)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        inner = ("augmentation",) + (("teacher",) if mode == "distilled"
+                                     else ())
+        with labelled(torch):
+            prof = profile_train_step(
+                torch, model, opt,
+                lambda m, mode=mode: loss_on(mode, m, batch_of(mode, 60)),
+                2, inner=inner)
+        events = prof.pop("events")
+        log(prof.pop("table"))
+        kinds, counts, _ = device_time_by_kind(torch, events)
+        on_host = {e.key: e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU}
+        dense_fwd = (on_host[LABELS[2]].device_time_total / 1e3 / 2
+                     if LABELS[2] in on_host else 0.0)
+        dense_bwd = sum(
+            e.device_time_total for e in on_host.values()
+            if e.key.startswith("autograd::engine::evaluate_function")
+            and e.key.endswith(("BmmBackward0", "SoftmaxBackward0"))) / 1e3 / 2
+        flash_ms = {k: kinds[k] / 2 for k in ("flash_fwd", "flash_bwd_dkv",
+                                               "flash_bwd_dq")}
+        if mode == "recipe":
+            core = {"dense forward (scores, softmax, P.V)": dense_fwd,
+                    "dense backward (bmm, softmax)": dense_bwd}
+        else:  # the labelled range holds K3a and the teacher's dense core
+            core = {"K3a": flash_ms["flash_fwd"],
+                    "K3b": flash_ms["flash_bwd_dkv"],
+                    "K3c": flash_ms["flash_bwd_dq"],
+                    "teacher's dense forward": dense_fwd
+                    - flash_ms["flash_fwd"]}
+        res = {"ms": ms, "runs": runs[mode], "img_s": b / (ms / 1e3),
+               "profile": prof, "busy": prof["device_ms"] / ms,
+               "peak_gib": peak, "attention_core_ms": core,
+               "losses": mode_losses, "first_loss": first[mode],
+               "first_loss_f32": first32[mode],
+               "flash_launches_per_step": {
+                   k: counts[k] / 2 for k in ("flash_fwd", "flash_bwd_dkv",
+                                               "flash_bwd_dq")}}
+        if mode == "distilled":
+            res["flash_vs_dense"] = flash_vs_dense
+            res["streamed_accuracy"] = streamed
+            res["flash_launches_timed"] = launches
+            res["timed_steps"] = timed
+        results[mode] = res
+        log(f"phase 20 {mode} (DeiT-B/16 widths, b{b} bf16): median of "
+            f"{DEIT_REPEATS} runs of {DEIT_STEPS} steps (in turns with the "
+            f"other mode) {ms:.3f} ms/step, {res['img_s']:.1f} img/s (runs "
+            f"{', '.join(f'{r:.3f}' for r in runs[mode])}), peak memory "
+            f"{peak:.2f} GiB (both modes' models resident); kernels "
+            f"{prof['device_ms']:.3f} ms a step (busy "
+            f"{100 * res['busy']:.1f}%), {prof['launches']:.0f} launches; "
+            f"by phase " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     prof["by_phase_ms"].items())
+            + "; attention core " + ", ".join(
+                f"{k} {v:.3f}" for k, v in core.items())
+            + f" ms; matrix products {prof['gemm_ms']:.3f} ms; the "
+            f"optimizer spans {prof['optimizer_span_ms']:.3f} ms of the "
+            f"device timeline; losses {[round(v, 4) for v in mode_losses]} "
+            f"on {CARD}")
+    del models, opts, teacher, pool
+    torch.cuda.synchronize()
+    return results
+
+
+def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
+    """K3a-c at phase 20's shape, ``[128 * 12, 198, 64]`` bf16 with no key
+    mask, one launch at a time behind a queued backlog, inputs cycled
+    beyond the 50 MB L2, beside their plain versions, their bounds and
+    ``F.scaled_dot_product_attention`` with the same operands (forward and
+    its whole backward, a yardstick the port never calls). Returns each
+    kernel's numbers by row name, for the rows' ``shape_198``."""
+    F = torch.nn.functional
+    b, n, t, h = DEIT["batch"], DEIT["heads"], DEIT_TOKENS, 64
+    bn, scale = b * n, h ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rand():
+        return torch.randn((bn, t, h), device=dev,
+                           generator=gen).to(torch.bfloat16)
+
+    sets = []  # 3 sets of 195 MB together
+    for _ in range(3):
+        q, k, v, do = rand(), rand(), rand(), rand()
+        o, l, m = fa.launch_forward(q, k, v, None, scale, False, n)
+        sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
+    # the kernels against their plain versions at this shape, once
+    q, k, v, do, o, l, m, di = sets[0]
+    o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, False, None, n)
+    grads = (fa.launch_backward_dq(q, k, v, do, l, m, di, None, scale,
+                                   False, n),
+             *fa.launch_backward_dkv(q, k, v, do, l, m, di, None, scale,
+                                     False, n))
+    grads_p = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do, scale,
+                                      False, None, n)
+    errors = {}
+    for key, got, ref in (("fwd", o, o_p), ("dq", grads[0], grads_p[0]),
+                          ("dkv", grads[1], grads_p[1]),
+                          ("dkv", grads[2], grads_p[2])):
+        rtol, atol, rms_limit = flash_tolerance(torch, torch.bfloat16, ref,
+                                                key != "fwd")
+        err, needs, rms = closeness(got, ref, rtol)
+        check(needs <= atol and rms <= rms_limit,
+              f"K3 {key} at [{bn}, {t}, {h}] within its tolerance")
+        errors[key] = max(errors.get(key, 0.0), err)
+    turn = iter(range(10 ** 9))
+
+    def nxt():
+        return sets[next(turn) % len(sets)]
+
+    def four(x):
+        return x.view(b, n, t, h)
+
+    def sdpa():
+        q, k, v = nxt()[:3]
+        return F.scaled_dot_product_attention(four(q), four(k), four(v))
+
+    q0, k0, v0, do0 = (four(x).clone().requires_grad_(i < 3)
+                       for i, x in enumerate(sets[0][:4]))
+    out0 = F.scaled_dot_product_attention(q0, k0, v0)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out0, (q0, k0, v0), do0,
+                                   retain_graph=True)
+
+    def bwd_args():
+        q, k, v, do, _, l, m, di = nxt()
+        return (q, k, v, do, l, m, di, None, scale, False, n)
+
+    def plain_bwd():
+        q, k, v, do, o, l, m, _ = nxt()
+        return fa.flash_backward_plain(q, k, v, o, l, m, do, scale, False,
+                                       None, n)
+
+    elem = 2
+    qkv = 3 * bn * t * h * elem
+    stats = bn * t * 4
+    pairs = bn * t * t * h
+    lib_fwd_ms = cuda_ms(torch, sdpa, 20, backlog=True)
+    lib_bwd_ms = cuda_ms(torch, sdpa_bwd, 20, backlog=True)
+    plain_fwd_ms = cuda_ms(torch, lambda: fa.flash_forward_plain(
+        *nxt()[:3], scale, False, None, n), 5)
+    plain_bwd_ms = cuda_ms(torch, plain_bwd, 5)
+    specs = (
+        ("flash_fwd", "fwd", lambda: fa.launch_forward(
+            *nxt()[:3], None, scale, False, n),
+         qkv + bn * t * h * elem + 2 * stats, 4 * pairs, plain_fwd_ms,
+         lib_fwd_ms),
+        ("flash_bwd_dkv", "dkv", lambda: fa.launch_backward_dkv(*bwd_args()),
+         qkv + bn * t * h * elem + 3 * stats + 2 * bn * t * h * elem,
+         8 * pairs, plain_bwd_ms, lib_bwd_ms),
+        ("flash_bwd_dq", "dq", lambda: fa.launch_backward_dq(*bwd_args()),
+         qkv + bn * t * h * elem + 3 * stats + bn * t * h * elem, 6 * pairs,
+         plain_bwd_ms, lib_bwd_ms),
+    )
+    out = {}
+    for name, key, bare, nbytes, ops, plain_ms, lib_ms in specs:
+        kernel_ms = cuda_ms(torch, bare, 20, backlog=True)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        out[name] = {
+            "shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
+            "max_abs_err": errors[key], "launches": launches[key],
+            "launches_per_step": launches[key] / steps,
+            "note": ("library_ms is F.scaled_dot_product_attention's "
+                     "forward with the same operands" if key == "fwd" else
+                     "plain_ms and library_ms are the whole backward, "
+                     "dK/dV and dQ together"),
+            "card": CARD}
+        log(f"{name} [{bn}, {t}, {h}] bf16 no mask: kernel "
+            f"{kernel_ms * 1e3:.1f} us ({out[name]['achieved_tflops']:.1f} "
+            f"TFLOP/s, {bound_ms / kernel_ms:.0%} of the bound), plain "
+            f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({out[name]['bound_by']}; bytes "
+            f"{bytes_ms * 1e3:.2f}, operations {ops_ms * 1e3:.2f}); "
+            f"{launches[key]} launches in phase 20's {steps} timed distilled "
+            f"steps, on {CARD}")
+    torch.cuda.synchronize()
+    return out
 
 
 def main():
@@ -2520,6 +3094,16 @@ def main():
     # 19. the DETR train step (bench.py's config 5) in its three matcher
     # modes
     detr = detr_path(torch, dev)
+
+    # 20. the DeiT-B/16 recipe's train step in its two modes, and K3a-c
+    # at its shape
+    deit = deit_path(torch, fa, dev)
+    at_198 = time_flash_kernels_at_198(
+        torch, fa, dev, deit["distilled"]["flash_launches_timed"],
+        deit["distilled"]["timed_steps"])
+    for row in rows:
+        if row["name"] in at_198:
+            row["shape_198"] = at_198[row["name"]]
     paths = {
         f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
                           "img_s": batch / (r["ms"] / 1e3),
@@ -2558,6 +3142,23 @@ def main():
             "auction_iterations": r["auction_iterations"],
             "first_loss": r["first_loss"],
             "first_loss_float32": r.get("first_loss_f32")}
+    for mode, r in deit.items():
+        paths[f"deit-b/16 {mode} (b{DEIT['batch']} 224 px bf16, "
+              f"RandAugment(2, 9), AdamW)"] = {
+            "ms_per_step": r["ms"], "runs_ms": r["runs"],
+            "img_s": r["img_s"], "device_ms": r["profile"]["device_ms"],
+            "device_ms_by_phase": r["profile"]["by_phase_ms"],
+            "attention_core_ms": r["attention_core_ms"],
+            "gemm_ms": r["profile"]["gemm_ms"],
+            "launches_per_step": r["profile"]["launches"],
+            "flash_launches_per_step": r["flash_launches_per_step"],
+            "busy": r["busy"], "peak_gib": r["peak_gib"],
+            "optimizer_span_ms": r["profile"]["optimizer_span_ms"],
+            "first_loss": r["first_loss"],
+            "first_loss_float32": r["first_loss_f32"],
+            **({"flash_vs_dense": r["flash_vs_dense"],
+                "streamed_accuracy": r["streamed_accuracy"]}
+               if mode == "distilled" else {})}
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

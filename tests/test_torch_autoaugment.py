@@ -146,5 +146,28 @@ def test_sample_and_call():
 
 
 def test_whole_batch_policy_not_ported():
-    with pytest.raises(NotImplementedError, match=r"§1 item 5"):
-        AutoAugment()
+    """The whole-batch policy (the default, which raised until it was
+    ported) against the JAX package's ``AutoAugment()`` under ``jit``,
+    bit-equal on its draws: the sub-policy from ``key_policy``, and per
+    stage whether the op fires and its signs from the stage's ``key_draw,
+    key_op`` (``tests/test_torch_augmentation_layers.py`` covers every
+    sub-policy)."""
+    jax_whole, whole = JaxAutoAugment(), AutoAugment()
+    images = np.random.RandomState(5).randint(0, 256, (8, 32, 32, 3),
+                                              np.uint8)
+    run = jax.jit(lambda x, k: jax_whole(x, key=k))
+    for seed in range(6):
+        key = jax.random.PRNGKey(seed)
+        key_policy, *stage_keys = jax.random.split(key, 3)
+        idx = int(jax.random.randint(key_policy, (), 0, 25))
+        stages = []
+        for s, k in enumerate(stage_keys):
+            key_draw, key_op = jax.random.split(k)
+            stages.append({
+                "do": bool(jax.random.uniform(key_draw, ())
+                           < whole.policies[idx][s][1]),
+                "sign": torch.tensor(np.asarray(
+                    jops.random_sign(key_op, (8,))))})
+        got = whole.apply(torch.from_numpy(images),
+                          {"policy_idx": idx, "stages": stages})
+        assert np.array_equal(got.numpy(), np.asarray(run(images, key)))

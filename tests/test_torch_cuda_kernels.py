@@ -242,6 +242,9 @@ FLASH_CASES = [
     (3, 2, 70, 150, 64, torch.bfloat16, False, True),
     (2, 2, 64, 1, 64, torch.bfloat16, False, False),
     (2, 12, 197, 197, 64, torch.bfloat16, False, False),
+    # DeiT-B/16's 198 tokens with no key mask: the last key tile holds 6
+    # keys of 64, covered by the kernels' bounds alone
+    (2, 12, 198, 198, 64, torch.bfloat16, False, False),
     (2, 3, 300, 200, 64, torch.bfloat16, True, True),
     # the bf16 forward kernel's own edges: one query row, the train step's
     # shape cut in batch, and queries so far past the keys under the causal
@@ -636,3 +639,26 @@ def test_small_detr_loss_is_finite_on_the_card(dev):
     opt.step()
     assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+@pytest.mark.parametrize("magnitude", [9, 10])
+def test_whole_batch_randaugment_on_the_card_equals_the_cpu(dev, magnitude):
+    """Whole-batch RandAugment on the card against its CPU run on the same
+    host draws, bit for bit, with each of the 16 ops forced once."""
+    from chambers_tpu_torch.augmentations.image_augmentations import (
+        to_device,
+    )
+
+    aug = RandAugment(2, magnitude)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(0, 256, (8, 56, 48, 3), dtype=torch.uint8, device=dev,
+                      generator=g)
+    template = aug.sample(8, (56, 48), torch.Generator().manual_seed(0),
+                          "cpu")[0]
+    for op in range(16):
+        d = dict(template, idx=op)
+        got = aug.apply(x, [to_device(d, dev)])
+        assert torch.equal(got.cpu(), aug.apply(x.cpu(), [d])), op
+    draws = aug.sample(8, (56, 48), torch.Generator().manual_seed(1), dev)
+    assert all(isinstance(d["idx"], int) and d["sign"].is_cuda
+               for d in draws)

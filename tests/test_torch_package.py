@@ -96,14 +96,22 @@ def test_not_yet_ported_paths_say_so():
         scaled_dot_product_attention(q, q, impl="pallas")
     with pytest.raises(NotImplementedError, match="later slice"):
         Encoder(8, 2, 16, 2, moe_every_n=2, device="cpu")
-    # the int8 path is ported; the whole-batch policies still wait
+    # the int8 path and the whole-batch policies are ported
     dense = QuantDense(4, 3, device="cpu")
     dense.reset_parameters(torch.Generator().manual_seed(0))
     quantize_model(dense)
     assert dense.kernel.dtype == torch.int8
     assert dense(torch.zeros(2, 4)).shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        AutoAugment()
+    whole = AutoAugment()
+    x = torch.randint(0, 256, (2, 8, 8, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0))
+    draws = whole.sample(2, torch.Generator().manual_seed(1), device="cpu")
+    want = x
+    for (op, _), stage in zip(whole.policies[draws["policy_idx"]],
+                              draws["stages"]):
+        if stage["do"]:
+            want = whole._ops[op].apply(want, stage)
+    assert torch.equal(whole.apply(x, draws), want)
     with pytest.raises(NotImplementedError, match="weights"):
         tvit.ViTB16(weights="imagenet21k+_224", device="cpu")
 

@@ -86,9 +86,27 @@ def test_call_samples_on_the_images_device(images):
                for d in draws)
 
 
-def test_whole_batch_policy_not_ported():
-    with pytest.raises(NotImplementedError):
-        RandAugment(2, 10)
+def test_whole_batch_policy_not_ported(images):
+    """The whole-batch policy (the default, which raised until it was
+    ported) against the JAX package's ``RandAugment(2, 10)`` under ``jit``,
+    bit-equal on its draws: per round ``key_draw, key_op``, one op index
+    for the batch from ``key_draw``, the signs and CutOut centres from
+    ``key_op``."""
+    jax_whole = JaxRandAugment(n_transforms=2, magnitude=10)
+    run = jax.jit(lambda x, k: jax_whole(x, key=k))
+    for seed in (0, 1, 2):
+        key = jax.random.PRNGKey(seed)
+        draws = []
+        for key_round in jax.random.split(key, 2):
+            key_draw, key_op = jax.random.split(key_round)
+            key_y, key_x = jax.random.split(key_op)
+            draws.append({k: torch.tensor(np.asarray(v)) for k, v in (
+                ("sign", jops.random_sign(key_op, (_B,))),
+                ("cy", jax.random.randint(key_y, (_B,), 0, _H)),
+                ("cx", jax.random.randint(key_x, (_B,), 0, _W)))})
+            draws[-1]["idx"] = int(jax.random.randint(key_draw, (), 0, 16))
+        got = RandAugment(2, 10).apply(torch.from_numpy(images), draws)
+        assert np.array_equal(got.numpy(), np.asarray(run(images, key)))
 
 
 @pytest.mark.parametrize("channels", [1, 4])
