@@ -44,6 +44,14 @@ def glorot_uniform(t, generator=None):
     return variance_scaling(t, 1.0, "fan_avg", "uniform", generator)
 
 
+def he_uniform(t, generator=None):
+    return variance_scaling(t, 2.0, "fan_in", "uniform", generator)
+
+
+def he_normal(t, generator=None):
+    return variance_scaling(t, 2.0, "fan_in", "truncated_normal", generator)
+
+
 @torch.no_grad()
 def truncated_normal_002(t, generator=None):
     """flax ``truncated_normal(stddev=0.02)``: a unit normal truncated to

@@ -26,12 +26,19 @@ more than the patches) and a second head, ``predictions_dist``, on token 1.
 As in the JAX package, ``_pool`` crops only token 0, so DeiT's ``avg``,
 ``max`` and ``sum`` poolings include the distillation token.
 
-Presets build from the port's own seeded init (``weights=None``) and return
-the model in eval mode; the JAX package's weights convert with
-``convert.state_dict_from_jax``. Released ``.h5`` checkpoints, ``remat``
-and the mixture-of-experts layers come in later slices.
+Presets build from the port's own seeded init and return the model in eval
+mode. ``weights`` takes a released spec of ``WEIGHTS_HASHES`` (its ``.h5``
+file must be in ``weights_cache_dir()``, ``CHAMBERS_TPU_WEIGHTS_DIR``;
+nothing is downloaded, a missing file raises ``FileNotFoundError`` naming
+it) or the path of a Keras ``.h5`` file, imported with
+``h5_import.load_vit_h5_weights``; the default is ``None`` (the JAX
+presets default to the released spec). The JAX package's weights convert
+with ``convert.state_dict_from_jax``. ``remat`` and the mixture-of-experts
+layers are not ported yet (ROADMAP.md §1 item 5 (d)).
 """
 
+import os
+import warnings
 from typing import Optional
 
 import torch
@@ -44,6 +51,10 @@ from chambers_tpu_torch.layers.embedding import (
     LearnedEmbedding1D,
 )
 from chambers_tpu_torch.layers.transformer import Encoder, _dropout
+from chambers_tpu_torch.models.backbones.h5_import import (
+    import_h5,
+    load_vit_h5_weights,
+)
 from chambers_tpu_torch.quantization import QuantDense, promote_dtype
 
 # 'tf'-mode ImageNet normalization, x / 127.5 - 1, and the other two modes
@@ -51,6 +62,91 @@ from chambers_tpu_torch.quantization import QuantDense, promote_dtype
 _CAFFE_MEAN = (103.939, 116.779, 123.68)
 _TORCH_MEAN = (0.485, 0.456, 0.406)
 _TORCH_STD = (0.229, 0.224, 0.225)
+
+# Released-weight location (vision_transformer.py:15) and registry of
+# released pretrained-weight specs (vision_transformer.py:16-96).
+# model_name -> {weights_spec: (top_md5, no_top_md5, file_suffix)}
+BASE_WEIGHTS_PATH = "https://github.com/chjort/chambers/releases/download/v1.1/"
+WEIGHTS_HASHES = {
+    "vits16": {
+        "imagenet_224_deit": (
+            "6df5bc5734ace3fc83e4a2e826cfe37c",
+            "3ddca7413a039e9a8979c1718e33c597",
+            "imagenet_1000_224_deit",
+        ),
+    },
+    "vitb16": {
+        "imagenet21k": (None, "7600a249df4c5460e16ee8637a104683", "imagenet_21k_224"),
+        "imagenet21k+_224": (
+            "6c987252c94ae15c34e4b2ef8b69b026",
+            "fb29e40486b4dd1b82ac8635555bed65",
+            "imagenet_21k_1000_224",
+        ),
+        "imagenet21k+_384": (
+            "f189719ecc305d0ccd9525206f741409",
+            "e69336a399b1a334adf72ad237df2c30",
+            "imagenet_21k_1000_384",
+        ),
+        "imagenet_224_deit": (
+            "b313ff9ff936ac4639199e8c28cf2ca4",
+            "600c2033dc9f53181147596c867f62f6",
+            "imagenet_21k_1000_224_deit",
+        ),
+        "imagenet_384_deit": (
+            "134ee39f1a10c276f528b521a4353647",
+            "e3a4c07722b7e3a62cbf4b2c137759e3",
+            "imagenet_21k_1000_384_deit",
+        ),
+    },
+    "vitb32": {
+        "imagenet21k": (None, "14f8c10584cf61786a658723cc8d1b68", "imagenet_21k_224"),
+        "imagenet21k+_384": (
+            "d4b41bf765992566151f5915cc1b275b",
+            "aa8863a833d9e3e592768c5c95d74361",
+            "imagenet_21k_1000_384",
+        ),
+    },
+    "vitl16": {
+        "imagenet21k": (None, "ad70eb7a7a50daf3c96a790b2f7c38ca", "imagenet_21k_224"),
+        "imagenet21k+_224": (
+            "c39ee61dfd071a1e1a8994fed58dec35",
+            "51dbbcabe79feb81237369909dc14d2e",
+            "imagenet_21k_1000_224",
+        ),
+        "imagenet21k+_384": (
+            "451f946387516c835f576dff7b5074f5",
+            "a0775f7493bd816fcb0513fb813d180c",
+            "imagenet_21k_1000_384",
+        ),
+    },
+    "vitl32": {
+        "imagenet21k": (None, "645d669250d87f5d8ba0a2fb1188c510", "imagenet_21k_224"),
+        "imagenet21k+_384": (
+            "8aacec1f38deaec287b2122ded1bbff4",
+            "6aa0e4197259e0a369972221af546cf0",
+            "imagenet_21k_1000_384",
+        ),
+    },
+    "deits16": {
+        "imagenet_224": (
+            "309350442160f3e9bc325a0cdeac49ef",
+            "bf207ba3aeb8ec578eb0c5157192f59c",
+            "imagenet_1000_224",
+        ),
+    },
+    "deitb16": {
+        "imagenet_224": (
+            "898b74940e3a61e90b802dae47af4428",
+            "2ae45d564218b76fea4aa03cc0db279b",
+            "imagenet_1000_224",
+        ),
+        "imagenet_384": (
+            "ca3e7ca40e4b96ead9508ea1e5e35893",
+            "1e3be99ad5acc90101f80e94469c815e",
+            "imagenet_1000_384",
+        ),
+    },
+}
 
 
 class PatchEmbedding(nn.Module):
@@ -236,6 +332,93 @@ class DistilledVisionTransformer(VisionTransformer):
         return (x_cls + x_dist) / 2.0
 
 
+def _are_weights_pretrained(weights, model_name):
+    return (model_name in WEIGHTS_HASHES) and (weights in WEIGHTS_HASHES[model_name])
+
+
+def _get_model_info(weights, model_name):
+    """(default_size, has_feature) for a weight spec (reference :103-114)."""
+    if _are_weights_pretrained(weights, model_name):
+        suffix = WEIGHTS_HASHES[model_name][weights][2].replace("_deit", "")
+        default_size = int(suffix.split("_")[-1])
+        has_feature = "21k" in suffix and "1000" not in suffix
+    else:
+        default_size = 224
+        has_feature = False
+    return default_size, has_feature
+
+
+def weights_cache_dir() -> str:
+    """Where named weight specs are looked up: ``CHAMBERS_TPU_WEIGHTS_DIR``,
+    else ``~/.chambers_tpu/models``."""
+    return os.environ.get(
+        "CHAMBERS_TPU_WEIGHTS_DIR",
+        os.path.join(os.path.expanduser("~"), ".chambers_tpu", "models"),
+    )
+
+
+def cached_weights(file_name, source):
+    """The path of ``file_name`` in :func:`weights_cache_dir`, or
+    ``FileNotFoundError`` naming it and ``source``: nothing is
+    downloaded."""
+    path = os.path.join(weights_cache_dir(), file_name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"Pretrained weights expect the file {file_name} in "
+            f"{weights_cache_dir()} (set CHAMBERS_TPU_WEIGHTS_DIR to "
+            f"override): place {source} there, or pass weights=None. "
+            "Nothing is downloaded.")
+    return path
+
+
+def _resolve_weights_path(model_name, weights, include_top):
+    """Map a pretrained spec to its cached file (no network)."""
+    _, _, suffix = WEIGHTS_HASHES[model_name][weights]
+    top = "" if include_top else "_no_top"
+    return cached_weights(f"{model_name}_{suffix}{top}.h5",
+                          "the chjort/chambers v1.1 release file")
+
+
+def _build(module_cls, model_name, widths, weights, input_shape,
+           include_top, seed, device, feature_dim=None, **kwargs):
+    """The presets' builder (the JAX package's ``_build``): a named weight
+    spec fixes the input size (and, for the 21k-only files, a ``feature``
+    head without a top) and loads its cached ``.h5`` file; a path loads
+    that file; ``None`` keeps the seeded init. Returns eval mode."""
+    pretrained = _are_weights_pretrained(weights, model_name)
+    default_size, has_feature = _get_model_info(weights, model_name)
+    if module_cls is VisionTransformer:
+        if pretrained and feature_dim is not None:
+            raise ValueError(
+                "'weights' and 'feature_dim' are mutually exclusive.")
+        if pretrained and has_feature:
+            feature_dim = widths[1]
+            if include_top:
+                warnings.warn(f"weights '{weights}' has no top. "
+                              "'include_top' will be set to False.")
+                include_top = False
+        kwargs["feature_dim"] = feature_dim
+    input_shape = tuple(input_shape or (default_size, default_size, 3))
+    if pretrained:
+        expected = (default_size, default_size, input_shape[-1])
+        if input_shape != expected:
+            raise ValueError(
+                f"Weights '{weights}' require `input_shape` to be {expected}.")
+    if None in input_shape:
+        raise ValueError("Input shape must be fully specified; got input "
+                         f"shape {input_shape}.")
+    path = (_resolve_weights_path(model_name, weights, include_top)
+            if pretrained else weights)
+    device = resolve_device(device)
+    model = module_cls(*widths, image_size=input_shape[:2],
+                       include_top=include_top, device=device, **kwargs)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    initializers.init_module(model, generator).eval()
+    if path is not None:
+        import_h5(model, path, load_vit_h5_weights)
+    return model
+
+
 def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
     def preset(input_shape=None, include_top=True, weights=None,
                pooling="cls", feature_dim=None, classes=1000,
@@ -243,24 +426,18 @@ def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
                attention_impl="xla", score_dtype=None,
                gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
                device=None):
-        """Build, seed-initialise and return the model in eval mode."""
-        if weights is not None:
-            raise NotImplementedError(
-                "pretrained ViT weights are not ported yet (the .h5 import "
-                "comes in a later slice); use weights=None, or load a "
-                "state_dict converted with state_dict_from_jax.")
-        device = resolve_device(device)
-        input_shape = input_shape or (224, 224, 3)
-        model = VisionTransformer(
-            patch_size, patch_dim, n_layers, n_heads, ff_dim,
-            dropout_rate=dropout_rate, image_size=tuple(input_shape[:2]), include_top=include_top,
-            pooling=pooling, feature_dim=feature_dim, classes=classes,
+        """Build, seed-initialise, load ``weights`` (a spec of
+        ``WEIGHTS_HASHES`` or an ``.h5`` path) and return the model in
+        eval mode."""
+        return _build(
+            VisionTransformer, model_name,
+            (patch_size, patch_dim, n_layers, n_heads, ff_dim), weights,
+            input_shape, include_top, seed, device, feature_dim=feature_dim,
+            dropout_rate=dropout_rate, pooling=pooling, classes=classes,
             classifier_activation=classifier_activation, dtype=dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,
-            norm_stats_dtype=norm_stats_dtype, device=device)
-        generator = torch.Generator(device=device).manual_seed(seed)
-        return initializers.init_module(model, generator).eval()
+            norm_stats_dtype=norm_stats_dtype)
 
     preset.__name__ = model_name
     return preset
@@ -274,26 +451,19 @@ def _deit_preset(model_name, patch_size, patch_dim, n_layers, n_heads,
                attention_impl="xla", score_dtype=None,
                gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
                device=None):
-        """Build, seed-initialise and return the model in eval mode, with
-        ``dropout_rate=0.1`` as the JAX package's DeiT presets fix it."""
-        if weights is not None:
-            raise NotImplementedError(
-                "pretrained DeiT weights are not ported yet (the .h5 import "
-                "comes in a later slice); use weights=None, or load a "
-                "state_dict converted with state_dict_from_jax.")
-        device = resolve_device(device)
-        input_shape = input_shape or (224, 224, 3)
-        model = DistilledVisionTransformer(
-            patch_size, patch_dim, n_layers, n_heads, ff_dim,
-            dropout_rate=0.1, image_size=tuple(input_shape[:2]),
-            return_dist_token=return_dist_token, include_top=include_top,
-            pooling=pooling, classes=classes,
-            classifier_activation=classifier_activation, dtype=dtype,
-            attention_impl=attention_impl, score_dtype=score_dtype,
-            gelu_approximate=gelu_approximate,
-            norm_stats_dtype=norm_stats_dtype, device=device)
-        generator = torch.Generator(device=device).manual_seed(seed)
-        return initializers.init_module(model, generator).eval()
+        """Build, seed-initialise, load ``weights`` (a spec of
+        ``WEIGHTS_HASHES`` or an ``.h5`` path) and return the model in
+        eval mode, with ``dropout_rate=0.1`` as the JAX package's DeiT
+        presets fix it."""
+        return _build(
+            DistilledVisionTransformer, model_name,
+            (patch_size, patch_dim, n_layers, n_heads, ff_dim), weights,
+            input_shape, include_top, seed, device, dropout_rate=0.1,
+            return_dist_token=return_dist_token, pooling=pooling,
+            classes=classes, classifier_activation=classifier_activation,
+            dtype=dtype, attention_impl=attention_impl,
+            score_dtype=score_dtype, gelu_approximate=gelu_approximate,
+            norm_stats_dtype=norm_stats_dtype)
 
     preset.__name__ = model_name
     return preset

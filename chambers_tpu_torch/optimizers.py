@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from chambers_tpu_torch.models.backbones.convert import LIST_ATTRIBUTES
+from chambers_tpu_torch.models.backbones.convert import jax_path
 
 
 def _named(params):
@@ -50,20 +50,6 @@ def _named(params):
     items = list(params)
     return [item if isinstance(item, tuple) else (None, item)
             for item in items]
-
-
-def jax_path(name):
-    """The port's parameter name as the JAX package's pytree path:
-    ``encoder.layers.0.norm1.scale`` -> ``encoder/layers_0/norm1/scale``
-    (the inverse of ``convert.state_dict_from_jax``, over the same list
-    attributes)."""
-    parts, out = name.split("."), []
-    for part in parts:
-        if part.isdigit() and out and out[-1] in LIST_ATTRIBUTES:
-            out[-1] = f"{out[-1]}_{part}"
-        else:
-            out.append(part)
-    return "/".join(out)
 
 
 def _decays(names, decay_include, decay_exclude):

@@ -136,8 +136,28 @@ the CUDA toolkit. In order, it:
     launches, busy share and peak memory. Then times K3a-c at ``[1536,
     198, 64]`` bf16 with no mask beside their bounds and
     ``F.scaled_dot_product_attention``;
-21. prints a ``paths`` JSON line (the three DETR modes and the two DeiT
-    modes among its rows) and an ``int_mm`` JSON line, one ``kernels``
+21. (a) serves uint8 ``[64, 224, 224, 3]`` from a seed in bf16, each
+    model behind its own ``preprocess_input``, through ResNeXt-50 (top,
+    softmax over 1000 classes), SE-ResNeXt-50 (top) and BN-Inception
+    (``with_pooling(..., "avg")``, the 1024-d descriptor), seeded random
+    weights: each float32 model on the card against the same weights on
+    the CPU (4 images; softmax within 1e-5, the descriptor within 1e-4 of
+    its largest magnitude), bf16 features against float32 (cosine >=
+    0.98); the models' timed runs in turns, ms/batch, img/s, device time
+    by kind (convolution, BatchNorm, pooling, GEMM, other elementwise),
+    launches, busy share, peak memory and the bf16 bound from the counted
+    operations. (b) runs the train step of
+    ``examples/train_cnn_classifier.py`` at full width: SE-ResNet-50, 224
+    px, 1000 classes, batch 64, bf16, BatchNorm in train mode, the
+    example's cross-entropy over softmax outputs and ``SGDW(1e-4,
+    LinearWarmup(0.01, 5), momentum 0.9, decay_exclude=["bias",
+    "scale"])``: the decayed set (the conv and dense kernels), the first
+    loss against float32 (5%), one float32 step at batch 8 on the card
+    against the CPU (loss within 1e-5 relative, the running statistics
+    within 1e-4), the statistics moving; ms/step, img/s, device time by
+    phase, launches, busy share and peak memory;
+22. prints a ``paths`` JSON line (the three DETR modes, the two DeiT
+    modes and the CNN rows among its rows) and an ``int_mm`` JSON line, one ``kernels``
     JSON line with all five kernels (K1 and K2 with their 384 px shape as
     ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, K3a's two
     decode shapes as rows of their own after it), the card line, and last
@@ -867,17 +887,18 @@ LABELS = ("int8 quantize", "int8 _int_mm", "attention core")
 
 class labelled:
     """Within the block, ``dynamic_quantize``, ``int_mm`` and the attention
-    core (scores, softmax, P·V) run under ``record_function`` ranges whose
-    device time the profiler sums: the split of a step's device time by
-    kind. Outside it the package runs unlabelled."""
+    core (scores, softmax, P·V) — or the ``(owner, attribute, label)``
+    ``slots`` given — run under ``record_function`` ranges whose device
+    time the profiler sums: the split of a step's device time by kind.
+    Outside it the package runs unlabelled."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, slots=None):
         from chambers_tpu_torch import quantization as tq
         from chambers_tpu_torch.layers import attention
 
-        self.slots = [(tq, "dynamic_quantize", LABELS[0]),
-                      (tq, "int_mm", LABELS[1]),
-                      (attention, "scaled_dot_product_attention", LABELS[2])]
+        self.slots = slots or [
+            (tq, "dynamic_quantize", LABELS[0]), (tq, "int_mm", LABELS[1]),
+            (attention, "scaled_dot_product_attention", LABELS[2])]
         self.record = torch.profiler.record_function
 
     def __enter__(self):
@@ -2724,6 +2745,386 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. the CNN backbones: serving ResNeXt-50, SE-ResNeXt-50 and BN-Inception,
+# and the SE-ResNet-50 train step of examples/train_cnn_classifier.py
+# ---------------------------------------------------------------------------
+
+CNN = dict(batch=64, size=224, classes=1000, check_images=4, cosine_images=8,
+           step_check_batch=8)
+CNN_WARMUP, CNN_STEPS, CNN_REPEATS = 2, 5, 3
+CNN_MODELS = ("resnext50", "seresnext50", "bninception")
+CNN_KINDS = ("convolution", "batchnorm", "pooling", "gemm")
+
+
+def cnn_slots(torch):
+    """:class:`labelled`'s slots for the CNNs: ``Conv.forward`` (the
+    weight's cast and layout included), ``BatchNorm.forward``, the pools
+    with their padding (``F.pad``, ``F.max_pool2d``, ``F.avg_pool2d``) and
+    ``QuantDense.forward`` (the head's GEMM); the rest is the other
+    elementwise work (ReLU, residual adds, the SE gates, means, softmax,
+    the input's normalization)."""
+    from chambers_tpu_torch.layers import convolution
+    from chambers_tpu_torch.quantization import QuantDense
+
+    F = torch.nn.functional
+    return [(convolution.Conv, "forward", CNN_KINDS[0]),
+            (convolution.BatchNorm, "forward", CNN_KINDS[1]),
+            (F, "pad", CNN_KINDS[2]), (F, "max_pool2d", CNN_KINDS[2]),
+            (F, "avg_pool2d", CNN_KINDS[2]),
+            (QuantDense, "forward", CNN_KINDS[3])]
+
+
+def cnn_profile(torch, step, n):
+    """Device ms a call of ``step`` over ``n`` profiled calls, by kind
+    (:func:`cnn_slots`), kernel launches a call and the table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with labelled(torch, cnn_slots(torch)), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = device_kernels(torch, events)
+    total = sum(e.self_device_time_total for e in cuda) / 1e3 / n
+    host = {e.key: e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    kinds = {k: host[k].device_time_total / 1e3 / n if k in host else 0.0
+             for k in CNN_KINDS}
+    kinds["other elementwise"] = total - sum(kinds.values())
+    return {"device_ms": total, "by_kind_ms": kinds,
+            "launches": sum(e.count for e in cuda) / n,
+            "table": events.table(sort_by="self_device_time_total",
+                                  row_limit=10)}
+
+
+def cnn_flops(torch, model, x):
+    """Operations of one forward on ``x``: 2 x the multiply-adds of every
+    convolution and dense layer, from their weights' and outputs' shapes
+    (counted with forward hooks)."""
+    from chambers_tpu_torch.layers.convolution import Conv
+    from chambers_tpu_torch.quantization import QuantDense
+
+    total = [0]
+
+    def count(module, args, out):
+        k = module.kernel
+        per_output = k.shape[:-1].numel()  # kh kw in/groups, or in
+        total[0] += 2 * out.numel() * per_output
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv, QuantDense))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def cnn_builders(torch):
+    """name -> (builder(dtype, device, **kw) -> model in eval mode, the
+    model's preprocess_input)."""
+    from chambers_tpu_torch.models.backbones import (
+        BNInception,
+        ResNeXt50,
+        SEResNeXt50,
+    )
+    from chambers_tpu_torch.models.backbones import inception, resnext, senet
+
+    return {
+        "resnext50": (lambda dtype, device, **kw: ResNeXt50(
+            dtype=dtype, device=device, **kw), resnext.preprocess_input),
+        "seresnext50": (lambda dtype, device, **kw: SEResNeXt50(
+            dtype=dtype, device=device, **kw), senet.preprocess_input),
+        "bninception": (lambda dtype, device, **kw: BNInception(
+            pooling="avg", dtype=dtype, device=device),
+            inception.preprocess_input),
+    }
+
+
+def check_cnn_serving(torch, dev, name, model, build, pre, images):
+    """The float32 model on the card against the same weights on the CPU
+    (4 images: softmax within 1e-5, BN-Inception's descriptor within 1e-4
+    of its largest magnitude), and bf16 features against float32 ones
+    (cosine >= 0.98 on 8 images: ResNeXt-50 without its top, pooled;
+    SE-ResNeXt-50's feature map; BN-Inception's descriptor)."""
+    x = pre(images[:CNN["check_images"]])
+    cpu = build(None, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got = model(x).cpu()
+        want = cpu(x.cpu())
+    err = float((got - want).abs().max())
+    limit = 1e-5 if name != "bninception" else 1e-4 * float(
+        want.abs().max())
+    log(f"phase 21 {name}: float32 on the card against the CPU, "
+        f"{tuple(got.shape)}: max |d| {err:.3g} (limit {limit:.3g})")
+    check(bool(torch.isfinite(got).all()) and err <= limit,
+          f"{name}: float32 output on the card equals the CPU's")
+    del cpu
+
+    state = model.state_dict()
+    top_free = {k: v for k, v in state.items()
+                if not k.startswith("QuantDense_0.")}
+    feats = {}
+    for dtype in (None, torch.bfloat16):
+        if name == "resnext50":
+            m = build(dtype, dev, include_top=False, pooling="avg")
+        elif name == "seresnext50":
+            m = build(dtype, dev, include_top=False)
+        else:
+            m = build(dtype, dev)
+        m.load_state_dict(top_free)
+        with torch.no_grad():
+            feats[dtype] = m(pre(images[:CNN["cosine_images"]]))
+        del m
+    cos = cosine(torch, feats[torch.bfloat16], feats[None])
+    log(f"phase 21 {name}: bf16 features {tuple(feats[None].shape)} against "
+        f"float32: cosine {cos:.6f}")
+    check(cos >= 0.98, f"{name}: bf16 features follow the float32 ones")
+    return {"card_vs_cpu_max_abs": err, "bf16_cosine": cos}
+
+
+def cnn_serving_path(torch, dev):
+    """Phase 21 (a): ResNeXt-50 (top, softmax over 1000 classes),
+    SE-ResNeXt-50 (top) and BN-Inception (no top, ``with_pooling(...,
+    "avg")``, the 1024-d descriptor) serving uint8 ``[64, 224, 224, 3]``
+    from a seed in bf16, each behind its own ``preprocess_input``: checks,
+    then the models' timed runs in turns (CUDA events), a profile each,
+    peak memory."""
+    b, size = CNN["batch"], CNN["size"]
+    images = torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(21))
+    builders = cnn_builders(torch)
+    checks, models = {}, {}
+    for name, (build, pre) in builders.items():
+        model = build(None, dev)
+        checks[name] = check_cnn_serving(torch, dev, name, model, build, pre,
+                                         images)
+        models[name] = build(torch.bfloat16, dev)
+        models[name].load_state_dict(model.state_dict())
+        del model
+
+    def step(name):
+        return models[name](builders[name][1](images))
+
+    flops = {}
+    with torch.no_grad():
+        for name in CNN_MODELS:
+            flops[name] = cnn_flops(torch, models[name],
+                                    builders[name][1](images[:1]))
+            for _ in range(CNN_WARMUP):
+                out = step(name)
+            check(bool(torch.isfinite(out).all()), f"{name}: finite output")
+        torch.cuda.synchronize()
+        runs = {name: [] for name in CNN_MODELS}
+        for _ in range(CNN_REPEATS):
+            for name in CNN_MODELS:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(CNN_STEPS):
+                    out = step(name)
+                end.record()
+                end.synchronize()
+                runs[name].append(start.elapsed_time(end) / CNN_STEPS)
+        results = {}
+        for name in CNN_MODELS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = step(name)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            shape = tuple(out.shape)
+            check(shape == ((b, 1000) if name != "bninception"
+                            else (b, 1024)), f"{name}: output shape")
+            prof = cnn_profile(torch, lambda name=name: step(name), 3)
+            log(prof.pop("table"))
+            ms = sorted(runs[name])[len(runs[name]) // 2]
+            # the bound: the operations at the bf16 rate against the bytes
+            # (the uint8 images read, bf16 weights read once, the output)
+            ops = flops[name] * b
+            nbytes = (images.numel() + 2 * sum(
+                p.numel() for p in models[name].parameters())
+                + 4 * out.numel())
+            bound_ms = max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+                           ) * 1e3
+            res = {"ms": ms, "runs": runs[name], "img_s": b / (ms / 1e3),
+                   "profile": prof, "busy": prof["device_ms"] / ms,
+                   "peak_gib": peak, "gflop_per_image": flops[name] / 1e9,
+                   "bound_ms": bound_ms, "output_shape": shape,
+                   **checks[name]}
+            results[name] = res
+            log(f"phase 21 {name} (b{b} {size} px bf16): median of "
+                f"{CNN_REPEATS} runs of {CNN_STEPS} batches (in turns) "
+                f"{ms:.3f} ms/batch, {res['img_s']:.1f} img/s (runs "
+                f"{', '.join(f'{r:.3f}' for r in runs[name])}); "
+                f"{flops[name] / 1e9:.2f} GFLOP an image, bound "
+                f"{bound_ms:.3f} ms a batch; kernels {prof['device_ms']:.3f} "
+                f"ms a batch (busy {100 * res['busy']:.1f}%), "
+                f"{prof['launches']:.0f} launches; by kind " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in prof["by_kind_ms"].items())
+                + f" ms; peak memory {peak:.2f} GiB on {CARD}")
+    del models, images
+    torch.cuda.synchronize()
+    return results
+
+
+def cnn_cross_entropy(torch, y_true, y_pred):
+    """One-hot cross-entropy over softmax outputs
+    (examples/train_cnn_classifier.py:34-36)."""
+    return -torch.mean(torch.sum(y_true * torch.log(y_pred + 1e-8), dim=-1))
+
+
+def cnn_train_step_path(torch, dev):
+    """Phase 21 (b): the train step of examples/train_cnn_classifier.py at
+    full width: SE-ResNet-50 at 224 px, 1000 classes, batch 64 of seeded
+    uint8 images behind 'torch'-mode normalization, one-hot labels
+    ``arange(64) % 1000``, bf16, BatchNorm in train mode
+    (``deterministic=False``), ``SGDW(weight_decay=1e-4,
+    learning_rate=LinearWarmup(0.01, warmup_steps=5), momentum=0.9,
+    decay_exclude=["bias", "scale"])``. Checks the decayed set (the conv
+    and dense kernels), the first bf16 loss against float32, one float32
+    step at batch 8 on the card against the CPU (loss within 1e-5
+    relative, every running mean and variance within 1e-4 of its largest
+    magnitude) and that the running statistics move; times and profiles
+    the step."""
+    from chambers_tpu_torch.models.backbones import SEResNet50
+    from chambers_tpu_torch.models.backbones.senet import preprocess_input
+    from chambers_tpu_torch.optimizers import SGDW
+    from chambers_tpu_torch.schedules import LinearWarmup
+
+    b, size, classes = CNN["batch"], CNN["size"], CNN["classes"]
+    gen = torch.Generator(device=dev).manual_seed(211)
+    x = preprocess_input(torch.randint(0, 256, (b, size, size, 3),
+                                       dtype=torch.uint8, device=dev,
+                                       generator=gen))
+    y = torch.nn.functional.one_hot(torch.arange(b, device=dev) % classes,
+                                    classes).float()
+
+    def make(dtype, device):
+        return SEResNet50(dtype=dtype, device=device, seed=0).train()
+
+    def sgdw(model):
+        return SGDW(model.named_parameters(), weight_decay=1e-4,
+                    learning_rate=LinearWarmup(0.01, warmup_steps=5),
+                    momentum=0.9, decay_exclude=["bias", "scale"])
+
+    def loss_of(m, xs=x, ys=y):
+        return cnn_cross_entropy(torch, ys, m(xs, deterministic=False))
+
+    # one float32 step at batch 8, the card against the CPU
+    n = CNN["step_check_batch"]
+    f32 = {"card": make(None, dev), "cpu": make(None, "cpu")}
+    f32["cpu"].load_state_dict(f32["card"].state_dict())
+    step_loss = {}
+    for where, m in f32.items():
+        opt = sgdw(m)
+        device = next(m.parameters()).device
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(m, x[:n].to(device), y[:n].to(device))
+        loss.backward()
+        opt.step()
+        step_loss[where] = float(loss.detach())
+    step_rel = (abs(step_loss["card"] - step_loss["cpu"])
+                / abs(step_loss["cpu"]))
+    stats = {k: v for k, v in f32["cpu"].state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    card_state = f32["card"].state_dict()
+    worst = max(float((card_state[k].cpu() - v).abs().max()
+                      / v.abs().max().clamp(min=1e-30))
+                for k, v in stats.items())
+    log(f"phase 21 SE-ResNet-50 float32 step at b{n}, card against CPU: "
+        f"loss {step_loss['card']:.6f} vs {step_loss['cpu']:.6f} (rel "
+        f"{step_rel:.3g}); {len(stats)} running statistics, worst "
+        f"{worst:.3g} of their largest magnitude")
+    check(step_rel <= 1e-5,
+          "float32 step: loss on the card equals the CPU's")
+    check(worst <= 1e-4, "float32 step: running statistics on the card "
+                         "equal the CPU's")
+    del f32
+
+    model = make(torch.bfloat16, dev)
+    opt = sgdw(model)
+    names = {id(p): name for name, p in model.named_parameters()}
+    decayed = {names[id(p)] for g in opt.param_groups if g["decay"]
+               for p in g["params"]}
+    kernels = {name for name in names.values() if name.endswith(".kernel")}
+    log(f"phase 21 SE-ResNet-50: {len(decayed)} of {len(names)} parameters "
+        f"decay, {len(kernels)} conv and dense kernels")
+    check(decayed == kernels and all(
+        k.endswith(("Conv_0.kernel", "Conv_1.kernel", "QuantDense_0.kernel"))
+        for k in kernels), "the decayed set is the conv and dense kernels")
+
+    ref = make(None, dev)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss32 = float(loss_of(ref))
+    del ref
+    before = model._ConvBN_0.BatchNorm_0.mean.clone()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    first = float(step())
+    rel = abs(first - loss32) / abs(loss32)
+    log(f"phase 21 SE-ResNet-50: first loss bf16 {first:.5f}, float32 "
+        f"{loss32:.5f} (rel {rel:.3g})")
+    check(math.isfinite(first) and rel <= 0.05,
+          "first loss finite and within 5% of float32's")
+    for _ in range(CNN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, losses = [], []
+    for _ in range(CNN_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [step() for _ in range(CNN_STEPS)]
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / CNN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), "finite losses")
+    moved = float((model._ConvBN_0.BatchNorm_0.mean - before).abs().max())
+    check(moved > 0, "the running statistics move")
+    ms = sorted(runs)[len(runs) // 2]
+    ops = 3 * cnn_flops(torch, model.eval(), x[:1]) * b  # forward + 2x back
+    model.train()
+    prof = profile_train_step(torch, model, opt, loss_of, 2)
+    log(prof.pop("table"))
+    prof.pop("events")
+    res = {"ms": ms, "runs": runs, "img_s": b / (ms / 1e3), "profile": prof,
+           "busy": prof["device_ms"] / ms, "peak_gib": peak,
+           "first_loss": first, "first_loss_f32": loss32, "losses": losses,
+           "stats_moved": moved, "f32_step_card_vs_cpu": {
+               "loss_rel": step_rel, "stats_worst_rel": worst},
+           "bound_ms": ops / BF16_OPS_PER_S * 1e3}
+    log(f"phase 21 SE-ResNet-50 train step (b{b} {size} px bf16, SGDW): "
+        f"median of {CNN_REPEATS} runs of {CNN_STEPS} steps {ms:.3f} "
+        f"ms/step, {res['img_s']:.1f} img/s (runs "
+        f"{', '.join(f'{r:.3f}' for r in runs)}), bound "
+        f"{res['bound_ms']:.3f} ms; peak memory {peak:.2f} GiB; kernels "
+        f"{prof['device_ms']:.3f} ms a step (busy {100 * res['busy']:.1f}%),"
+        f" {prof['launches']:.0f} launches; by phase " + ", ".join(
+            f"{k} {v:.3f}" for k, v in prof["by_phase_ms"].items())
+        + f" ms; matrix products {prof['gemm_ms']:.3f} ms; the optimizer "
+        f"spans {prof['optimizer_span_ms']:.3f} ms of the device timeline "
+        f"for {prof['optimizer_launches']:.0f} launches; running mean moved "
+        f"{moved:.3g}; losses {[round(v, 4) for v in losses]} on {CARD}")
+    del model, opt, x
+    torch.cuda.synchronize()
+    return res
+
+
 def main():
     global CARD
     import torch
@@ -3104,6 +3505,10 @@ def main():
     for row in rows:
         if row["name"] in at_198:
             row["shape_198"] = at_198[row["name"]]
+
+    # 21. the CNN backbones: serving (a) and the SE-ResNet-50 train step (b)
+    cnn_serving = cnn_serving_path(torch, dev)
+    cnn_step = cnn_train_step_path(torch, dev)
     paths = {
         f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
                           "img_s": batch / (r["ms"] / 1e3),
@@ -3159,6 +3564,30 @@ def main():
             **({"flash_vs_dense": r["flash_vs_dense"],
                 "streamed_accuracy": r["streamed_accuracy"]}
                if mode == "distilled" else {})}
+    for name, r in cnn_serving.items():
+        paths[f"cnn serving {name} (b{CNN['batch']} 224 px bf16)"] = {
+            "ms_per_batch": r["ms"], "runs_ms": r["runs"],
+            "img_s": r["img_s"], "device_ms": r["profile"]["device_ms"],
+            "device_ms_by_kind": r["profile"]["by_kind_ms"],
+            "launches_per_step": r["profile"]["launches"],
+            "busy": r["busy"], "peak_gib": r["peak_gib"],
+            "gflop_per_image": r["gflop_per_image"],
+            "bound_ms": r["bound_ms"],
+            "card_vs_cpu_max_abs": r["card_vs_cpu_max_abs"],
+            "bf16_cosine": r["bf16_cosine"]}
+    paths[f"se-resnet-50 train step (b{CNN['batch']} 224 px bf16, SGDW)"] = {
+        "ms_per_step": cnn_step["ms"], "runs_ms": cnn_step["runs"],
+        "img_s": cnn_step["img_s"],
+        "device_ms": cnn_step["profile"]["device_ms"],
+        "device_ms_by_phase": cnn_step["profile"]["by_phase_ms"],
+        "gemm_ms": cnn_step["profile"]["gemm_ms"],
+        "launches_per_step": cnn_step["profile"]["launches"],
+        "optimizer_span_ms": cnn_step["profile"]["optimizer_span_ms"],
+        "busy": cnn_step["busy"], "peak_gib": cnn_step["peak_gib"],
+        "bound_ms": cnn_step["bound_ms"],
+        "first_loss": cnn_step["first_loss"],
+        "first_loss_float32": cnn_step["first_loss_f32"],
+        "f32_step_card_vs_cpu": cnn_step["f32_step_card_vs_cpu"]}
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

@@ -178,11 +178,13 @@ def test_distilled_vit_on_flash_matches_jax():
 
 @pytest.mark.parametrize("preset,width,depth,heads,mlp", [
     ("DeiTS16", 384, 12, 6, 1536), ("DeiTB16", 768, 12, 12, 3072)])
-def test_deit_presets(preset, width, depth, heads, mlp):
+def test_deit_presets(preset, width, depth, heads, mlp, tmp_path,
+                      monkeypatch):
     """Each preset's parameters have the JAX preset's names and shapes
     (the JAX module's shapes from ``jax.eval_shape``); the presets fix
-    ``dropout_rate=0.1``, return eval mode and refuse pretrained weights
-    until the ``.h5`` import is ported."""
+    ``dropout_rate=0.1``, return eval mode and look for released weights
+    in the cache directory, naming the missing file (nothing is
+    downloaded)."""
     module = jvit.DistilledVisionTransformer(
         patch_size=16, patch_dim=width, n_encoder_layers=depth,
         n_heads=heads, ff_dim=mlp, dropout_rate=0.1, pooling="cls")
@@ -199,7 +201,9 @@ def test_deit_presets(preset, width, depth, heads, mlp):
                                 return_dist_token=False, device=CPU)(
         torch.zeros(2, 32, 32, 3))
     assert tuple(out.shape) == (2, 3)
-    with pytest.raises(NotImplementedError, match="weights"):
+    monkeypatch.setenv("CHAMBERS_TPU_WEIGHTS_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError,
+                       match=f"{preset.lower()}_imagenet_1000_224.h5"):
         getattr(tvit, preset)(weights="imagenet_224", device=CPU)
 
 

@@ -75,9 +75,26 @@ def test_entry_points_raise_without_a_card(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     model = tvit.ViTS16(input_shape=(32, 32, 3), classes=3, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    # the CNN backbones and their layers
+    from chambers_tpu_torch.layers import convolution
+    from chambers_tpu_torch.models.backbones import inception, resnext, senet
+
+    small = senet.MODELS_PARAMS["seresnet50"]._replace(repetitions=(1,))
+    for make in (lambda **kw: resnext.ResNeXt50(**kw),
+                 lambda **kw: senet.SEResNet50(**kw),
+                 lambda **kw: senet.SENet(small, **kw),
+                 lambda **kw: inception.BNInception(**kw),
+                 lambda **kw: convolution.Conv(3, 4, 3, **kw),
+                 lambda **kw: convolution.BatchNorm(4, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for module in (senet.SENet(small, device="cpu"),
+                   convolution.BatchNorm(4, device="cpu")):
+        assert all(t.device.type == "cpu" for t in module.state_dict()
+                   .values())
 
 
-def test_not_yet_ported_paths_say_so():
+def test_not_yet_ported_paths_say_so(tmp_path, monkeypatch):
     from chambers_tpu_torch.layers.attention import (
         scaled_dot_product_attention,
     )
@@ -112,7 +129,11 @@ def test_not_yet_ported_paths_say_so():
         if stage["do"]:
             want = whole._ops[op].apply(want, stage)
     assert torch.equal(whole.apply(x, draws), want)
-    with pytest.raises(NotImplementedError, match="weights"):
+    # released weights load from the cache directory; nothing is
+    # downloaded, and a missing file is named
+    monkeypatch.setenv("CHAMBERS_TPU_WEIGHTS_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError,
+                       match="vitb16_imagenet_21k_1000_224.h5"):
         tvit.ViTB16(weights="imagenet21k+_224", device="cpu")
 
 
