@@ -11,12 +11,43 @@ in ``ops/csrc`` and are built with ``nvcc`` at first use
 (``chambers_tpu_torch.ops._build``); on CPU tensors every kernel wrapper
 runs its plain PyTorch version instead.
 
-Slice 1 covers the serving main path: per-image ``RandAugment(2, 10)`` into
-ViT-B/16 inference in bf16. Slice 2 covers a training path: blockwise flash
-attention, forward and backward (``ops/flash_attention.py``), and the padded
-``Seq2SeqTransformer`` train step that runs on it (``models/transformer.py``).
+Submodules load on first attribute access, as the JAX package's do
+(``chambers_tpu_torch.losses``); the ones not ported yet (``callbacks``,
+``training``, ``utils``, ``data``, ``parallel``, ``serving``) raise an
+``AttributeError`` that names their ROADMAP item.
 """
 
 from chambers_tpu_torch._device import resolve_device
 
 __all__ = ["resolve_device"]
+
+_SUBMODULES = (
+    "activations", "augmentations", "initializers", "layers", "losses",
+    "metrics", "miners", "models", "ops", "optimizers", "quantization",
+    "schedules",
+)
+# the JAX package's submodules that the port has no counterpart of yet,
+# and the item of ROADMAP.md §1 that ports each
+_NOT_PORTED = {"callbacks": 6, "training": 6, "utils": 6, "data": 7,
+               "parallel": 8, "serving": 8}
+
+
+def __getattr__(name):
+    """Lazy subpackage import: ``import chambers_tpu_torch;
+    chambers_tpu_torch.losses`` imports ``losses`` on first use."""
+    if name in _SUBMODULES:
+        import importlib
+
+        module = importlib.import_module(f"chambers_tpu_torch.{name}")
+        globals()[name] = module
+        return module
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"chambers_tpu_torch.{name} is not ported yet (ROADMAP.md §1 "
+            f"item {_NOT_PORTED[name]})")
+    raise AttributeError(
+        f"module 'chambers_tpu_torch' has no attribute '{name}'")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_SUBMODULES))

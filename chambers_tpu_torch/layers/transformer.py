@@ -22,12 +22,25 @@ dict per layer, ``{"multi_head_attention1": <self-attention cache>,
 "multi_head_attention2": <cross-attention cache>}`` (see
 ``layers/attention.py``), and a call with ``cache=`` and ``index=`` runs
 one target position through every layer, writing into the caches in place.
-The mixture-of-experts layers and rematerialisation come in later slices.
+
+Routing (``layers/moe.py``): with ``moe_every_n = n > 0`` every n-th layer
+of a stack, ``(i + 1) % n == 0``, is a ``MoEEncoderLayer`` or
+``MoEDecoderLayer`` whose MLP is a ``MoEMLP`` (submodule ``moe``, still
+``layers.<i>``); the ``moe_*`` arguments set its router. A routed decoder
+has no cached decode step: its layers contest expert capacity across the
+target positions, so generation recomputes the whole buffer instead.
+
+``remat=True`` recomputes each layer's activations during backward
+(``torch.utils.checkpoint``, non-reentrant) while gradients are enabled.
+The recompute replays the dropout masks: it restores the explicit
+``generator``'s state of the forward and afterwards puts back the state it
+found, so later draws do not repeat.
 """
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from chambers_tpu_torch import initializers
 from chambers_tpu_torch._device import resolve_device
@@ -59,11 +72,13 @@ def _dropout(x, rate, deterministic, generator):
 
 
 class _Block(nn.Module):
-    """What the two layer kinds share: the norms, the MLP and dropout."""
+    """What the two layer kinds share: the norms, the MLP (``dense1`` and
+    ``dense2``, or with ``moe`` the router's arguments, a ``MoEMLP``
+    named ``moe``) and dropout."""
 
     def __init__(self, n_norms, embed_dim, ff_dim, dense_dropout_rate,
                  norm_epsilon, pre_norm, dtype, param_dtype,
-                 gelu_approximate, norm_stats_dtype, device):
+                 gelu_approximate, norm_stats_dtype, device, moe):
         super().__init__()
         self.pre_norm = pre_norm
         self.gelu_approximate = gelu_approximate
@@ -74,15 +89,26 @@ class _Block(nn.Module):
                                norm_stats_dtype, device))
         dense = dict(dtype=dtype, param_dtype=param_dtype,
                      kernel_init=initializers.glorot_uniform, device=device)
-        self.dense1 = QuantDense(embed_dim, ff_dim, **dense)
-        self.dense2 = QuantDense(ff_dim, embed_dim, **dense)
+        if moe is None:
+            self.moe = None
+            self.dense1 = QuantDense(embed_dim, ff_dim, **dense)
+            self.dense2 = QuantDense(ff_dim, embed_dim, **dense)
+        else:
+            from chambers_tpu_torch.layers.moe import MoEMLP
+
+            self.moe = MoEMLP(embed_dim, ff_dim,
+                              gelu_approximate=gelu_approximate, **moe,
+                              **dense)
 
     def _drop(self, x, deterministic, generator):
         return _dropout(x, self.dense_dropout_rate, deterministic, generator)
 
     def _mlp(self, x, deterministic, generator):
-        x = self.dense2(gelu(self.dense1(x),
-                             approximate=self.gelu_approximate))
+        if self.moe is not None:
+            x = self.moe(x)
+        else:
+            x = self.dense2(gelu(self.dense1(x),
+                                 approximate=self.gelu_approximate))
         return self._drop(x, deterministic, generator)
 
 
@@ -92,11 +118,11 @@ class EncoderLayer(_Block):
                  norm_epsilon=1e-6, pre_norm=False, dtype=None,
                  param_dtype=torch.float32, attention_impl="xla",
                  score_dtype=None, gelu_approximate=False,
-                 norm_stats_dtype=None, device=None):
+                 norm_stats_dtype=None, device=None, moe=None):
         device = resolve_device(device)
         super().__init__(2, embed_dim, ff_dim, dense_dropout_rate,
                          norm_epsilon, pre_norm, dtype, param_dtype,
-                         gelu_approximate, norm_stats_dtype, device)
+                         gelu_approximate, norm_stats_dtype, device, moe)
         self.multi_head_attention = MultiHeadAttention(
             embed_dim, head_dim=embed_dim // num_heads, num_heads=num_heads,
             dtype=dtype, param_dtype=param_dtype,
@@ -126,11 +152,11 @@ class DecoderLayer(_Block):
                  norm_epsilon=1e-6, pre_norm=False, causal=True, dtype=None,
                  param_dtype=torch.float32, attention_impl="xla",
                  score_dtype=None, gelu_approximate=False,
-                 norm_stats_dtype=None, device=None):
+                 norm_stats_dtype=None, device=None, moe=None):
         device = resolve_device(device)
         super().__init__(3, embed_dim, ff_dim, dense_dropout_rate,
                          norm_epsilon, pre_norm, dtype, param_dtype,
-                         gelu_approximate, norm_stats_dtype, device)
+                         gelu_approximate, norm_stats_dtype, device, moe)
         mha = dict(head_dim=embed_dim // num_heads, num_heads=num_heads,
                    dtype=dtype, param_dtype=param_dtype,
                    attention_impl=attention_impl, score_dtype=score_dtype,
@@ -197,26 +223,62 @@ class DecoderLayer(_Block):
         return self._drop(attention, deterministic, generator)
 
 
-class _Stack(nn.Module):
-    """``layers.<i>`` and the optional output norm ``norm_layer``."""
+def _remat(fn, generator, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant). The
+    recompute runs with the explicit ``generator`` in the state the forward
+    found it in, so it draws the same dropout masks, and then puts back the
+    state that it found. (``checkpoint`` itself replays only the global
+    generators.)"""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    start, calls = generator.get_state(), []
 
-    def __init__(self, layer_cls, num_layers, norm_output, moe_every_n,
-                 layer_kwargs):
+    def run(*a):
+        if not calls:
+            calls.append(1)
+            return fn(*a)
+        found = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(found)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+class _Stack(nn.Module):
+    """``layers.<i>`` (every ``moe_every_n``-th one routed) and the
+    optional output norm ``norm_layer``."""
+
+    def __init__(self, layer_cls, moe_cls, num_layers, norm_output, remat,
+                 moe_every_n, routing, layer_kwargs):
         super().__init__()
-        if moe_every_n:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet; they come in "
-                "a later slice.")
         device = resolve_device(layer_kwargs["device"])
         layer_kwargs = dict(layer_kwargs, device=device)
-        self.layers = nn.ModuleList(layer_cls(**layer_kwargs)
-                                    for _ in range(num_layers))
+        self.remat = remat
+        self.moe_every_n = moe_every_n
+        self.layers = nn.ModuleList(
+            moe_cls(**routing, **layer_kwargs)
+            if moe_every_n > 0 and (i + 1) % moe_every_n == 0
+            else layer_cls(**layer_kwargs) for i in range(num_layers))
         self.norm_layer = (
             _make_norm(layer_kwargs["embed_dim"],
                        layer_kwargs["norm_epsilon"], layer_kwargs["dtype"],
                        layer_kwargs["param_dtype"],
                        layer_kwargs["norm_stats_dtype"], device)
             if norm_output else None)
+
+    def _remat_on(self):
+        return self.remat and torch.is_grad_enabled()
+
+
+def _routing(n_experts, capacity_factor, router_z_loss_weight,
+             n_selected_experts, group_size):
+    """A routed layer's ``moe`` argument: its ``MoEMLP``'s router."""
+    return dict(n_experts=n_experts, capacity_factor=capacity_factor,
+                router_z_loss_weight=router_z_loss_weight,
+                n_selected_experts=n_selected_experts, group_size=group_size)
 
 
 class Encoder(_Stack):
@@ -225,8 +287,17 @@ class Encoder(_Stack):
                  norm_epsilon=1e-6, pre_norm=False, norm_output=False,
                  dtype=None, param_dtype=torch.float32, attention_impl="xla",
                  score_dtype=None, gelu_approximate=False,
-                 norm_stats_dtype=None, moe_every_n=0, device=None):
-        super().__init__(EncoderLayer, num_layers, norm_output, moe_every_n,
+                 norm_stats_dtype=None, moe_every_n=0, moe_n_experts=8,
+                 moe_capacity_factor=1.25, moe_router_z_loss_weight=0.0,
+                 moe_n_selected_experts=1, moe_group_size=None, remat=False,
+                 device=None):
+        from chambers_tpu_torch.layers.moe import MoEEncoderLayer
+
+        super().__init__(EncoderLayer, MoEEncoderLayer, num_layers,
+                         norm_output, remat, moe_every_n,
+                         _routing(moe_n_experts, moe_capacity_factor,
+                                  moe_router_z_loss_weight,
+                                  moe_n_selected_experts, moe_group_size),
                          dict(embed_dim=embed_dim, num_heads=num_heads,
                               ff_dim=ff_dim,
                               attention_dropout_rate=attention_dropout_rate,
@@ -241,8 +312,11 @@ class Encoder(_Stack):
 
     def forward(self, x, mask=None, deterministic=None, generator=None):
         for layer in self.layers:
-            x = layer(x, mask=mask, deterministic=deterministic,
-                      generator=generator)
+            def run(x, layer=layer):
+                return layer(x, mask=mask, deterministic=deterministic,
+                             generator=generator)
+
+            x = _remat(run, generator, x) if self._remat_on() else run(x)
         if self.norm_layer is not None:
             x = self.norm_layer(x)
         return x
@@ -255,8 +329,17 @@ class Decoder(_Stack):
                  causal=True, return_sequence=False, dtype=None,
                  param_dtype=torch.float32, attention_impl="xla",
                  score_dtype=None, gelu_approximate=False,
-                 norm_stats_dtype=None, moe_every_n=0, device=None):
-        super().__init__(DecoderLayer, num_layers, norm_output, moe_every_n,
+                 norm_stats_dtype=None, moe_every_n=0, moe_n_experts=8,
+                 moe_capacity_factor=1.25, moe_router_z_loss_weight=0.0,
+                 moe_n_selected_experts=1, moe_group_size=None, remat=False,
+                 device=None):
+        from chambers_tpu_torch.layers.moe import MoEDecoderLayer
+
+        super().__init__(DecoderLayer, MoEDecoderLayer, num_layers,
+                         norm_output, remat, moe_every_n,
+                         _routing(moe_n_experts, moe_capacity_factor,
+                                  moe_router_z_loss_weight,
+                                  moe_n_selected_experts, moe_group_size),
                          dict(embed_dim=embed_dim, num_heads=num_heads,
                               ff_dim=ff_dim,
                               attention_dropout_rate=attention_dropout_rate,
@@ -282,11 +365,23 @@ class Decoder(_Stack):
         ``cache`` (:meth:`init_cache`) ``x`` is the one target position
         ``index``."""
         x, x_encoder = inputs
+        if cache is not None and self.moe_every_n > 0:
+            raise NotImplementedError(
+                "a cached decode step is not supported on a routed decoder "
+                f"(moe_every_n={self.moe_every_n}): routed layers contest "
+                "expert capacity across target positions; decode with full "
+                "recompute (use_cache=False).")
         sequence = []
         for i, layer in enumerate(self.layers):
-            x = layer([x, x_encoder], mask=mask, deterministic=deterministic,
-                      generator=generator,
-                      cache=None if cache is None else cache[i], index=index)
+            def run(x, x_encoder, layer=layer, i=i):
+                return layer([x, x_encoder], mask=mask,
+                             deterministic=deterministic, generator=generator,
+                             cache=None if cache is None else cache[i],
+                             index=index)
+
+            x = (_remat(run, generator, x, x_encoder)
+                 if cache is None and self._remat_on()
+                 else run(x, x_encoder))
             sequence.append(x)
         if self.return_sequence:
             if self.norm_layer is not None:

@@ -11,6 +11,9 @@ does the port's ``Embed``), ``encoder``, ``decoder`` and ``vocab_head`` keep
 their names. The CNN backbones register their submodules under Flax's
 automatic names (``_ConvBN_0``, ``Conv_0``, ``BatchNorm_0``, ``_Block3_3``,
 ``QuantDense_0``) in Flax's creation order, so they flatten the same way.
+A routed layer's ``moe`` (``w_router`` ``[d, E]``, the expert banks ``w1``
+``[E, d, F]`` and ``w2`` ``[E, F, d]``, ``b1``, ``b2``) keeps JAX's layout:
+no array is transposed.
 It takes numpy arrays (``jax.device_get`` of the params, or ``np.asarray``
 of each leaf) and imports no JAX.
 

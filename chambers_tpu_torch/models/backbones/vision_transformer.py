@@ -1,7 +1,7 @@
 """Vision Transformer and distilled ViT (DeiT) backbones (port of
 ``chambers_tpu/models/backbones/vision_transformer.py``: ``VisionTransformer``,
-``DistilledVisionTransformer``, ``_pool``, the ViT and DeiT presets and
-``fold_imagenet_normalization``).
+``DistilledVisionTransformer``, ``_pool``, the ViT and DeiT presets,
+``preprocess_input`` and ``fold_imagenet_normalization``).
 
 Architecture: patch embedding (kernel = stride = patch size) -> CLS token
 -> learned position embedding -> pre-norm ``Encoder`` with output norm ->
@@ -33,8 +33,14 @@ nothing is downloaded, a missing file raises ``FileNotFoundError`` naming
 it) or the path of a Keras ``.h5`` file, imported with
 ``h5_import.load_vit_h5_weights``; the default is ``None`` (the JAX
 presets default to the released spec). The JAX package's weights convert
-with ``convert.state_dict_from_jax``. ``remat`` and the mixture-of-experts
-layers are not ported yet (ROADMAP.md §1 item 5 (d)).
+with ``convert.state_dict_from_jax``.
+
+``remat=True`` recomputes each encoder layer during backward
+(``layers/transformer.py``). ``moe_every_n > 0`` routes every n-th encoder
+MLP through a mixture of experts (the V-MoE placement, ``layers/moe.py``;
+``moe_aux_loss(model)`` is its training loss term); the presets take
+``moe_every_n``, ``moe_n_experts`` and ``moe_capacity_factor`` and refuse
+routing together with a ``weights`` file, which holds no experts.
 """
 
 import os
@@ -206,12 +212,10 @@ class VisionTransformer(nn.Module):
                  param_dtype=torch.float32, remat=False,
                  attention_impl="xla", score_dtype=None,
                  gelu_approximate=False, norm_stats_dtype=None,
-                 moe_every_n=0, device=None):
+                 moe_every_n=0, moe_n_experts=8, moe_capacity_factor=1.25,
+                 moe_router_z_loss_weight=0.0, moe_n_selected_experts=1,
+                 moe_group_size=None, device=None):
         super().__init__()
-        if remat or moe_every_n:
-            raise NotImplementedError(
-                f"{type(self).__name__}'s remat and mixture-of-experts "
-                "layers are not ported yet (ROADMAP.md §1 item 5(d)).")
         device = resolve_device(device)
         self.dropout_rate = dropout_rate
         self.pooling = pooling
@@ -234,7 +238,12 @@ class VisionTransformer(nn.Module):
             norm_output=True, dtype=dtype, param_dtype=param_dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,
-            norm_stats_dtype=norm_stats_dtype, device=device)
+            norm_stats_dtype=norm_stats_dtype, moe_every_n=moe_every_n,
+            moe_n_experts=moe_n_experts,
+            moe_capacity_factor=moe_capacity_factor,
+            moe_router_z_loss_weight=moe_router_z_loss_weight,
+            moe_n_selected_experts=moe_n_selected_experts,
+            moe_group_size=moe_group_size, remat=remat, device=device)
         head = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.feature = (QuantDense(patch_dim, feature_dim, **head)
                         if feature_dim is not None else None)
@@ -290,7 +299,9 @@ class DistilledVisionTransformer(VisionTransformer):
                  param_dtype=torch.float32, remat=False,
                  attention_impl="xla", score_dtype=None,
                  gelu_approximate=False, norm_stats_dtype=None,
-                 moe_every_n=0, device=None):
+                 moe_every_n=0, moe_n_experts=8, moe_capacity_factor=1.25,
+                 moe_router_z_loss_weight=0.0, moe_n_selected_experts=1,
+                 moe_group_size=None, device=None):
         super().__init__(
             patch_size, patch_dim, n_encoder_layers, n_heads, ff_dim,
             dropout_rate=dropout_rate, image_size=image_size,
@@ -300,7 +311,11 @@ class DistilledVisionTransformer(VisionTransformer):
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,
             norm_stats_dtype=norm_stats_dtype, moe_every_n=moe_every_n,
-            device=device)
+            moe_n_experts=moe_n_experts,
+            moe_capacity_factor=moe_capacity_factor,
+            moe_router_z_loss_weight=moe_router_z_loss_weight,
+            moe_n_selected_experts=moe_n_selected_experts,
+            moe_group_size=moe_group_size, device=device)
         device = resolve_device(device)
         self.return_dist_token = return_dist_token
         self.add_dist_token = ConcatEmbedding(
@@ -385,6 +400,11 @@ def _build(module_cls, model_name, widths, weights, input_shape,
     spec fixes the input size (and, for the 21k-only files, a ``feature``
     head without a top) and loads its cached ``.h5`` file; a path loads
     that file; ``None`` keeps the seeded init. Returns eval mode."""
+    if kwargs.get("moe_every_n") and weights is not None:
+        raise ValueError(
+            "moe_every_n adds expert weights that a weights file does not "
+            "hold; use weights=None (train from scratch), or load a dense "
+            "model and upcycle it by hand.")
     pretrained = _are_weights_pretrained(weights, model_name)
     default_size, has_feature = _get_model_info(weights, model_name)
     if module_cls is VisionTransformer:
@@ -424,7 +444,8 @@ def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
                pooling="cls", feature_dim=None, classes=1000,
                classifier_activation=None, dtype=None, dropout_rate=0.1,
                attention_impl="xla", score_dtype=None,
-               gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
+               gelu_approximate=False, norm_stats_dtype=None, moe_every_n=0,
+               moe_n_experts=8, moe_capacity_factor=1.25, seed: int = 0,
                device=None):
         """Build, seed-initialise, load ``weights`` (a spec of
         ``WEIGHTS_HASHES`` or an ``.h5`` path) and return the model in
@@ -437,7 +458,9 @@ def _vit_preset(model_name, patch_size, patch_dim, n_layers, n_heads, ff_dim):
             classifier_activation=classifier_activation, dtype=dtype,
             attention_impl=attention_impl, score_dtype=score_dtype,
             gelu_approximate=gelu_approximate,
-            norm_stats_dtype=norm_stats_dtype)
+            norm_stats_dtype=norm_stats_dtype, moe_every_n=moe_every_n,
+            moe_n_experts=moe_n_experts,
+            moe_capacity_factor=moe_capacity_factor)
 
     preset.__name__ = model_name
     return preset
@@ -449,7 +472,8 @@ def _deit_preset(model_name, patch_size, patch_dim, n_layers, n_heads,
                weights=None, pooling="cls", classes=1000,
                classifier_activation=None, dtype=None,
                attention_impl="xla", score_dtype=None,
-               gelu_approximate=False, norm_stats_dtype=None, seed: int = 0,
+               gelu_approximate=False, norm_stats_dtype=None, moe_every_n=0,
+               moe_n_experts=8, moe_capacity_factor=1.25, seed: int = 0,
                device=None):
         """Build, seed-initialise, load ``weights`` (a spec of
         ``WEIGHTS_HASHES`` or an ``.h5`` path) and return the model in
@@ -463,7 +487,9 @@ def _deit_preset(model_name, patch_size, patch_dim, n_layers, n_heads,
             classes=classes, classifier_activation=classifier_activation,
             dtype=dtype, attention_impl=attention_impl,
             score_dtype=score_dtype, gelu_approximate=gelu_approximate,
-            norm_stats_dtype=norm_stats_dtype)
+            norm_stats_dtype=norm_stats_dtype, moe_every_n=moe_every_n,
+            moe_n_experts=moe_n_experts,
+            moe_capacity_factor=moe_capacity_factor)
 
     preset.__name__ = model_name
     return preset
@@ -476,6 +502,13 @@ ViTL16 = _vit_preset("vitl16", 16, 1024, 24, 16, 4096)
 ViTL32 = _vit_preset("vitl32", 32, 1024, 24, 16, 4096)
 DeiTS16 = _deit_preset("deits16", 16, 384, 12, 6, 1536)
 DeiTB16 = _deit_preset("deitb16", 16, 768, 12, 12, 3072)
+
+
+def preprocess_input(x):
+    """'tf'-mode ImageNet scaling to [-1, 1] (vision_transformer.py:640)."""
+    from chambers_tpu_torch.augmentations import ImageNetNormalization
+
+    return ImageNetNormalization(mode="tf")(x)
 
 
 def fold_imagenet_normalization(state_dict, mode: str = "tf"):

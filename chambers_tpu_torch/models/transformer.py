@@ -13,8 +13,13 @@ With ``attention_impl="flash"`` every attention runs the blockwise CUDA
 kernels with the padding masks applied in the kernel
 (``chambers_tpu_torch.ops.flash_attention``), which have no attention
 dropout: build with ``dropout_rate=0.0`` to train on them (a call with
-attention dropout active raises). The mixture-of-experts options come in
-a later slice.
+attention dropout active raises).
+
+``moe_every_n > 0`` routes every n-th layer of BOTH stacks through a
+mixture-of-experts MLP (the GShard setting, ``layers/moe.py``); add
+``layers.moe.moe_aux_loss(model)`` to the task loss to train the routers.
+A routed model has no cached decode step: generation recomputes the whole
+target buffer.
 
 Incremental decoding (``models/generation.py``): ``init_cache(x_enc,
 max_len)`` primes the per-layer caches for a ``[b, max_len]`` target
@@ -65,7 +70,9 @@ class Seq2SeqTransformer(nn.Module):
                  num_heads, dim_feedforward, num_encoder_layers,
                  num_decoder_layers, dropout_rate=0.1, dtype=None,
                  attention_impl="xla", score_dtype=None, moe_every_n=0,
-                 device=None):
+                 moe_n_experts=8, moe_capacity_factor=1.25,
+                 moe_router_z_loss_weight=0.0, moe_n_selected_experts=1,
+                 moe_group_size=None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.embed_dim = embed_dim
@@ -79,7 +86,11 @@ class Seq2SeqTransformer(nn.Module):
                      ff_dim=dim_feedforward,
                      attention_dropout_rate=dropout_rate,
                      dense_dropout_rate=dropout_rate, pre_norm=False,
-                     moe_every_n=moe_every_n, dtype=dtype,
+                     moe_every_n=moe_every_n, moe_n_experts=moe_n_experts,
+                     moe_capacity_factor=moe_capacity_factor,
+                     moe_router_z_loss_weight=moe_router_z_loss_weight,
+                     moe_n_selected_experts=moe_n_selected_experts,
+                     moe_group_size=moe_group_size, dtype=dtype,
                      attention_impl=attention_impl, score_dtype=score_dtype,
                      device=device)
         self.encoder = Encoder(num_layers=num_encoder_layers, **stack)

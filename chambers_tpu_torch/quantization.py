@@ -8,7 +8,9 @@ The scheme is the JAX package's, value for value:
   as size-1 dims. A quantized kernel keeps its shape and its ``state_dict``
   key (only the dtype becomes int8); its scale is the entry
   ``<key>_scale``: ``kernel_scale`` ``[1, N]``, ``w_{query,key,value}_scale``
-  ``[1, n, h]``, ``w_projection_scale`` ``[1, d, 1]``.
+  ``[1, n, h]``, ``w_projection_scale`` ``[1, d, 1]``, and the MoE expert
+  banks' ``w1_scale``/``w2_scale`` ``[E, 1, out]`` (per expert and output
+  channel).
 - **Activations**: symmetric per-row int8 computed on the fly, absmax over
   the contraction axes of each row.
 - **Compute**: ``int8 @ int8 -> int32``, rescaled by ``s_x * s_w`` in
@@ -25,7 +27,8 @@ twice.
 the port hands it to ``torch._int_mm`` (cuBLASLt on the card), through 2-D
 operands for the four layouts the package uses (``...k,kf->...f`` in
 :class:`QuantDense`; the stacked ``btd,sdnh->sbnth``, ``btd,dnh->bnth`` and
-``bnth,ndh->btd`` in ``layers/attention.py``). On the card ``_int_mm``
+``bnth,ndh->btd`` in ``layers/attention.py``; one product an expert for
+``gecd,edf->gecf`` in ``layers/moe.py``). On the card ``_int_mm``
 takes ``m > 16`` rows and ``k``, ``n`` that are multiples of 8, so
 :func:`int_mm` pads with zero rows and columns, which changes no sum, and
 slices the result; it never falls back to a float product. The weight
@@ -33,11 +36,12 @@ operand is derived once, when a model is quantized or loaded
 (:func:`gemm_operand`), padded and column-major; the ``state_dict`` keeps
 the JAX package's shapes.
 
-What gets quantized: 2-D ``kernel`` entries (:class:`QuantDense`) and the
+What gets quantized: 2-D ``kernel`` entries (:class:`QuantDense`), the
 ``MultiHeadAttention`` projections ``w_query``, ``w_key``, ``w_value``
-``(d, n, h)`` and ``w_projection`` ``(n, d, h)``. The patch embedding's 4-D
-kernel, biases, norms and embeddings stay float. The MoE expert banks come
-with the MoE port (ROADMAP.md §1 item 5).
+``(d, n, h)`` and ``w_projection`` ``(n, d, h)``, and the ``MoEMLP`` expert
+banks ``w1`` ``(E, d, F)`` and ``w2`` ``(E, F, d)`` (activations quantized
+per dispatched row). The patch embedding's 4-D kernel, biases, norms,
+embeddings and the MoE router ``w_router`` stay float.
 
 Use::
 
@@ -67,6 +71,9 @@ _MIN_ROWS = 17  # _int_mm on the card takes m > 16
 _MHA_QKV = ("w_query", "w_key", "w_value")  # (d, n, h): contract d
 _MHA_PROJ = "w_projection"                  # (n, d, h): contract (n, h)
 _MHA_GROUP = (*_MHA_QKV, _MHA_PROJ)
+_MOE_BANKS = ("w1", "w2")                   # (E, d, F)/(E, F, d): contract 1
+# weights one layer consumes together: they quantize all or none
+_GROUPS = (_MHA_GROUP, _MOE_BANKS)
 
 
 def promote_dtype(*tensors, dtype=None):
@@ -112,14 +119,15 @@ def dynamic_quantize(x, reduce_axes=(-1,)):
 
 
 def gemm_operand(w):
-    """An int8 ``[k, n]`` weight as ``_int_mm``'s second operand: padded
-    with zero rows and columns to multiples of 8 and held column-major, the
-    transpose of a row-major ``[n8, k8]`` (cuBLASLt's "TN" int8 layout). On
-    an H100 it ran 4-7x faster than a row-major ``[k8, n8]`` at every shape
-    of the int8 ViT paths (``chip_smoke.py`` phase 15 times both). Derived
-    once per weight, never per call."""
-    k, n = w.shape
-    return F.pad(w, (0, -n % 8, 0, -k % 8)).t().contiguous().t()
+    """An int8 ``[..., k, n]`` weight as ``_int_mm``'s second operand (each
+    ``[k, n]`` matrix of a stack): padded with zero rows and columns to
+    multiples of 8 and held column-major, the transpose of a row-major
+    ``[n8, k8]`` (cuBLASLt's "TN" int8 layout). On an H100 it ran 4-7x
+    faster than a row-major ``[k8, n8]`` at every shape of the int8 ViT
+    paths (``chip_smoke.py`` phase 15 times both). Derived once per weight,
+    never per call."""
+    k, n = w.shape[-2:]
+    return F.pad(w, (0, -n % 8, 0, -k % 8)).mT.contiguous().mT
 
 
 def int_mm(x_q, w, n):
@@ -202,6 +210,8 @@ def _reduce_axes(name, value):
         return (0,)                       # scale [1, n, h]
     if name == _MHA_PROJ and value.ndim == 3:
         return (0, 2)                     # scale [1, d, 1]
+    if name in _MOE_BANKS and value.ndim == 3:
+        return (1,)                       # scale [E, 1, out]
     return None
 
 
@@ -217,7 +227,8 @@ def quantize_state_dict(state_dict, include=None):
         entries are passed on as they are.
     :raises ValueError: if the ``state_dict`` is already quantized, if
         nothing is quantizable, or if ``include`` splits the four projections
-        of one attention layer, which are consumed together.
+        of one attention layer or the two banks of one ``MoEMLP``, which are
+        consumed together.
     """
     if any(key.endswith("_scale") and key[:-len("_scale")] in state_dict
            for key in state_dict):
@@ -227,15 +238,16 @@ def quantize_state_dict(state_dict, include=None):
     for key, value in state_dict.items():
         prefix, _, name = key.rpartition(".")
         axes = _reduce_axes(name, value)
-        if name in _MHA_GROUP and value.ndim == 3:
-            groups.setdefault(prefix, {})[name] = False
+        group = next((g for g in _GROUPS if name in g), None)
+        if group is not None and value.ndim == 3:
+            groups.setdefault((prefix, group), {})[name] = False
         if axes is None or (pattern is not None and not pattern.search(key)):
             out[key] = value
             continue
         out[key], out[key + "_scale"] = quantize_weight(value, axes)
-        if name in _MHA_GROUP:
-            groups[prefix][name] = True
-    for prefix, done in groups.items():
+        if group is not None:
+            groups[prefix, group][name] = True
+    for (prefix, _), done in groups.items():
         if any(done.values()) and not all(done.values()):
             yes = sorted(n for n, d in done.items() if d)
             no = sorted(n for n, d in done.items() if not d)

@@ -156,12 +156,36 @@ the CUDA toolkit. In order, it:
     against the CPU (loss within 1e-5 relative, the running statistics
     within 1e-4), the statistics moving; ms/step, img/s, device time by
     phase, launches, busy share and peak memory;
-22. prints a ``paths`` JSON line (the three DETR modes, the two DeiT
-    modes and the CNN rows among its rows) and an ``int_mm`` JSON line, one ``kernels``
-    JSON line with all five kernels (K1 and K2 with their 384 px shape as
-    ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, K3a's two
-    decode shapes as rows of their own after it), the card line, and last
-    ``{"ok": true, "device": {...}}``.
+22. runs the mixture-of-experts paths. (a) ``tools/bench_moe.py``'s cell:
+    the ViT-S/16 (patch 16, width 384, 12 layers, 6 heads, MLP 1536,
+    dropout 0, no head, CLS pooling) in bf16 at batch 32 of seeded 224 px
+    inputs, dense and with every second MLP routed over 8 experts, top-1
+    and top-2: the forward and the train step (mean squared features plus
+    ``moe_aux_loss``, ``p -= 1e-3·g``), each variant's runs in turns, with
+    parameters, ms/step, img/s, the ratio to dense, launches, busy share,
+    peak memory and device time by routed stage (router and top-k,
+    building dispatch and combine, the dispatch product, the experts, the
+    combine product); a float32 top-2 ``MoEMLP`` at these widths on
+    ``[6304, 384]`` against its CPU run (routing equal but on near-ties,
+    outputs within 1e-5), the pooled float32 top-2 features against the
+    CPU's (cosine >= 0.999), the top-2 step with ``remat`` against without
+    (loss and gradients within 1e-6 relative, less peak memory), and the
+    int8 top-2 model: its expert products and banks bit-equal to the CPU's
+    on the card's own operands, its forward timed beside bf16's. (b) the
+    GShard setting on phase 9's train step: every second layer of both
+    stacks routed, top-2 of 8, on the flash kernels (K3a-c 12 launches
+    each a step), masked cross-entropy plus the aux loss, the port's
+    AdamW(1e-4, weight decay 1e-4): the first loss against dense
+    attention (1%), 2 warm-ups, three timed runs of 5 steps, a profile
+    by phase and routed stage, and greedy decoding of 16 tokens by full
+    recompute in float32, its tokens equal to the CPU's;
+23. prints a ``paths`` JSON line (the three DETR modes, the two DeiT
+    modes, the CNN rows and phase 22's among its rows) and an ``int_mm``
+    JSON line, one ``kernels`` JSON line with all five kernels (K1 and K2
+    with their 384 px shape as ``shape_384``, K3a-c with phase 20's shape
+    as ``shape_198`` and phase 22's launches as ``launches_gshard``, K3a's
+    two decode shapes as rows of their own after it), the card line, and
+    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -2778,22 +2802,33 @@ def cnn_slots(torch):
 def cnn_profile(torch, step, n):
     """Device ms a call of ``step`` over ``n`` profiled calls, by kind
     (:func:`cnn_slots`), kernel launches a call and the table."""
+    return profile_kinds(torch, lambda i: step(), n, cnn_slots(torch),
+                         "other elementwise")
+
+
+def profile_kinds(torch, step, n, slots, other):
+    """Device ms a call of ``step(i)`` over ``n`` profiled calls, by the
+    kinds that ``slots`` label (:class:`labelled`) and the rest as
+    ``other`` (a ``forward`` kind holds others and is not taken from the
+    rest); kernel launches a call and the table."""
     from torch.profiler import ProfilerActivity, profile
 
-    with labelled(torch, cnn_slots(torch)), profile(activities=[
+    kinds = list(dict.fromkeys(label for _, _, label in slots))
+    with labelled(torch, slots), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
+        for i in range(n):
+            step(i)
         torch.cuda.synchronize()
     events = prof.key_averages()
     cuda = device_kernels(torch, events)
     total = sum(e.self_device_time_total for e in cuda) / 1e3 / n
     host = {e.key: e for e in events
             if e.device_type == torch.autograd.DeviceType.CPU}
-    kinds = {k: host[k].device_time_total / 1e3 / n if k in host else 0.0
-             for k in CNN_KINDS}
-    kinds["other elementwise"] = total - sum(kinds.values())
-    return {"device_ms": total, "by_kind_ms": kinds,
+    by_kind = {k: host[k].device_time_total / 1e3 / n if k in host else 0.0
+               for k in kinds}
+    by_kind[other] = total - sum(v for k, v in by_kind.items()
+                                 if k != "forward")
+    return {"device_ms": total, "by_kind_ms": by_kind,
             "launches": sum(e.count for e in cuda) / n,
             "table": events.table(sort_by="self_device_time_total",
                                   row_limit=10)}
@@ -3123,6 +3158,520 @@ def cnn_train_step_path(torch, dev):
     del model, opt, x
     torch.cuda.synchronize()
     return res
+
+
+# ---------------------------------------------------------------------------
+# 22. mixture-of-experts: the MoE ViT-S/16 of tools/bench_moe.py (dense,
+# top-1 and top-2 over 8 experts), and the GShard seq2seq train step on the
+# flash kernels
+# ---------------------------------------------------------------------------
+
+# tools/bench_moe.py's cell: ViT-S/16 at 224 px, batch 32, bf16, no head
+MOE = dict(batch=32, size=224, patch=16, width=384, layers=12, heads=6,
+           mlp=1536, experts=8, check_images=4)
+MOE_WARMUP, MOE_STEPS, MOE_REPEATS = 2, 10, 3
+MOE_VARIANTS = {
+    "dense": {},
+    "moe_top1_e8": dict(moe_every_n=2, moe_n_experts=8),
+    "moe_top2_e8": dict(moe_every_n=2, moe_n_experts=8,
+                        moe_n_selected_experts=2)}
+MOE_KINDS = ("router and top-k", "dispatch/combine build",
+             "dispatch product", "experts", "combine product")
+MOE_OUTSIDE = "outside the routed stages"
+# the GShard setting on phase 9's model: every second layer of both
+# stacks routed, top-2 of 8 experts
+GSHARD = dict(moe_every_n=2, moe_n_experts=8, moe_n_selected_experts=2)
+GSHARD_DECODE = 16
+
+
+def moe_slots(torch, forward_of=()):
+    """:class:`labelled`'s slots for a routed model: the five stages of
+    every ``MoEMLP`` forward (router and top-k, building dispatch and
+    combine, the dispatch product, the experts' MLPs, the combine
+    product), and the ``forward`` of each class in ``forward_of`` as a
+    range of its own, which holds the five."""
+    from chambers_tpu_torch.layers.moe import MoEMLP
+
+    stages = ("route", "dispatch_and_combine", "enqueue", "experts",
+              "dequeue")
+    return ([(MoEMLP, name, kind) for name, kind in zip(stages, MOE_KINDS)]
+            + [(cls, "forward", "forward") for cls in forward_of])
+
+
+def run_in_turns(torch, steps, warmup, repeats, n):
+    """``name -> step(i)``: ``warmup`` calls of each, then ``repeats``
+    rounds in which each name's ``n`` calls are timed with CUDA events,
+    the names in turns. Returns ``name -> [ms a call of each run]``."""
+    for step in steps.values():
+        for i in range(warmup):
+            step(i)
+    torch.cuda.synchronize()
+    runs = {name: [] for name in steps}
+    for r in range(repeats):
+        for name, step in steps.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(n):
+                step(r * n + i)
+            end.record()
+            end.synchronize()
+            runs[name].append(start.elapsed_time(end) / n)
+    return runs
+
+
+def median(runs):
+    return sorted(runs)[len(runs) // 2]
+
+
+def moe_vit(torch, dev, dtype, remat=False, **moe):
+    """tools/bench_moe.py's model, seed 0, in train mode."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+
+    model = VisionTransformer(
+        MOE["patch"], MOE["width"], MOE["layers"], MOE["heads"], MOE["mlp"],
+        dropout_rate=0.0, image_size=(MOE["size"], MOE["size"]),
+        include_top=False, pooling="cls", dtype=dtype, remat=remat,
+        device=dev, **moe)
+    return initializers.init_module(
+        model, torch.Generator(device=dev).manual_seed(0))
+
+
+def moe_vit_loss(torch, model, x):
+    """tools/bench_moe.py's training objective: mean of the squared
+    features plus every routed layer's aux loss."""
+    from chambers_tpu_torch.layers.moe import moe_aux_loss
+
+    return model(x).float().pow(2).mean() + moe_aux_loss(model)
+
+
+def check_moe_mlp_on_card(torch, dev, x):
+    """A float32 top-2 ``MoEMLP`` at the ViT-S/16 widths on the card
+    against its CPU run on the same weights and the ``[6304, 384]``
+    tokens: the routing equal except on tokens whose top-k margin (the
+    smallest gap between the sorted probabilities down to the (k+1)-th)
+    is under 1e-5, the output within 1e-5 on every token whose kept
+    experts are the same on both."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.layers.moe import MoEMLP
+
+    kw = dict(n_selected_experts=2)
+    cpu = initializers.init_module(
+        MoEMLP(MOE["width"], MOE["mlp"], MOE["experts"], device="cpu", **kw),
+        torch.Generator().manual_seed(22))
+    card = MoEMLP(MOE["width"], MOE["mlp"], MOE["experts"], device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    xc = x.cpu()
+    routed = {}
+    with torch.no_grad():
+        for name, m, inp in (("cpu", cpu, xc), ("card", card, x)):
+            y = m(inp).cpu()
+            _, probs, gates, experts = m.route(inp[None])
+            dispatch, _, _ = m.dispatch_and_combine(
+                gates, experts, m.capacity(inp.shape[0]), torch.float32)
+            routed[name] = (y, probs[0].cpu(), experts[0].cpu(),
+                            dispatch[0].sum(-1).cpu())
+    y_cpu, probs, e_cpu, kept_cpu = routed["cpu"]
+    y_card, _, e_card, kept_card = routed["card"]
+    k = kw["n_selected_experts"]
+    p = probs.sort(dim=-1, descending=True).values[:, :k + 1]
+    margin = (p[:, :-1] - p[:, 1:]).min(dim=-1).values
+    flipped = (e_cpu != e_card).any(-1)
+    near = margin < 1e-5
+    same = (kept_cpu == kept_card).all(-1)
+    err = float((y_card - y_cpu).abs()[same].max())
+    log(f"phase 22 MoEMLP float32 [{x.shape[0]}, {x.shape[1]}] top-{k} of "
+        f"{MOE['experts']}, card vs CPU: {int(flipped.sum())} tokens routed "
+        f"apart, {int(near.sum())} tokens with a top-k margin under 1e-5, "
+        f"{int((~same).sum())} with other kept experts; max |d| over the "
+        f"other {int(same.sum())} tokens {err:.3g}")
+    check(bool((flipped <= near).all()),
+          "card and CPU route apart only on near-ties")
+    check(err <= 1e-5, "MoEMLP on the card within 1e-5 of the CPU")
+    return {"tokens": x.shape[0], "routed_apart": int(flipped.sum()),
+            "near_ties": int(near.sum()), "max_abs_err": err}
+
+
+def check_moe_int8_on_card(torch, tq, state_dict, x):
+    """The float32 int8 top-2 model on the card against the same model on
+    the CPU, on ``x``: every int8 product (the experts' ``int_mm`` calls,
+    the attention projections and MLPs of the dense layers) and every
+    expert bank's int8 output (the quantize pass, the products, the
+    rescale and the bias) recomputed on the CPU from the card's own
+    operands must give the same bits."""
+    from chambers_tpu_torch.layers.moe import MoEMLP
+
+    card, cpu = (
+        moe_vit(torch, d, None, **MOE_VARIANTS["moe_top2_e8"]).eval()
+        for d in (x.device, "cpu"))
+    card.load_state_dict(state_dict)
+    cpu.load_state_dict({k: v.cpu() for k, v in state_dict.items()})
+    tq.quantize_model(card)
+    tq.load_quantized_state_dict(
+        cpu, {k: v.cpu() for k, v in card.state_dict().items()})
+    names = {id(m): name for name, m in card.named_modules()}
+    cpu_modules = dict(cpu.named_modules())
+    products, banks = [], []
+    plain_int_mm, plain_bank = tq.int_mm, MoEMLP.bank
+
+    def int_mm(x_q, w, n):
+        acc = plain_int_mm(x_q, w, n)
+        products.append((x_q.cpu(), w.cpu(), n, acc.cpu()))
+        return acc
+
+    def bank(self, h, name, dtype):
+        out = plain_bank(self, h, name, dtype)
+        banks.append((names[id(self)], h.cpu(), name, dtype, out.cpu()))
+        return out
+
+    tq.int_mm, MoEMLP.bank = int_mm, bank
+    try:
+        with torch.no_grad():
+            got = card(x).cpu()
+    finally:
+        tq.int_mm, MoEMLP.bank = plain_int_mm, plain_bank
+    for x_q, w, n, acc in products:
+        check(torch.equal(acc, tq.int_mm(x_q, w, n)),
+              f"_int_mm on the card equals the CPU's ({tuple(x_q.shape)} x "
+              f"{tuple(w.shape)})")
+    with torch.no_grad():
+        for name, h, which, dtype, out in banks:
+            check(torch.equal(out, cpu_modules[name].bank(h, which, dtype)),
+                  f"int8 expert bank {name}.{which} on the card equals the "
+                  f"CPU's")
+        want = cpu(x.cpu())
+    expert_products = sum(MOE["experts"] for _ in banks)
+    log(f"phase 22 int8 top-2 ViT-S/16 float32, card vs CPU ({x.shape[0]} "
+        f"images): {len(products)} int8 products ({expert_products} of them "
+        f"the experts') and {len(banks)} expert banks' outputs bit-equal on "
+        f"the card's own operands; end to end rel L2 {rel_l2(got, want):.3g}")
+    routed = sum(isinstance(m, MoEMLP) for m in card.modules())
+    check(len(banks) == 2 * routed, "every expert bank was held")
+    return {"int8_products": len(products), "expert_banks": len(banks),
+            "bit_equal": True, "end_to_end_rel_l2": rel_l2(got, want)}
+
+
+def moe_vit_path(torch, dev):
+    """Phase 22 (a): tools/bench_moe.py's cell on the card. The dense,
+    top-1 and top-2 ViT-S/16 (bf16, batch 32 at 224 px, every second MLP
+    routed over 8 experts): the forward and the train step (mean squared
+    features plus the aux loss, ``p -= 1e-3·g``), each timed in turns,
+    profiled by kind; a float32 ``MoEMLP`` and the whole float32 top-2
+    model against the CPU; ``remat`` against none on the top-2 step; the
+    int8 top-2 model's expert products bit-equal to the CPU's and its
+    forward timed beside bf16's."""
+    from chambers_tpu_torch import quantization as tq
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+
+    b, size = MOE["batch"], MOE["size"]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((b, size, size, 3), device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    eps = 0.01 * torch.randn((MOE_STEPS, b, size, size, 3), device=dev,
+                             generator=gen, dtype=torch.bfloat16)
+    models = {name: moe_vit(torch, dev, torch.bfloat16, **moe).train()
+              for name, moe in MOE_VARIANTS.items()}
+    params = {name: list(m.parameters()) for name, m in models.items()}
+    n_params = {name: sum(p.numel() for p in ps)
+                for name, ps in params.items()}
+
+    def forward(name):
+        def step(i):
+            with torch.no_grad():
+                return models[name](x + eps[i % MOE_STEPS])
+        return step
+
+    def train(name):
+        def step(i):
+            m, ps = models[name], params[name]
+            loss = moe_vit_loss(torch, m, x + eps[i % MOE_STEPS])
+            grads = torch.autograd.grad(loss, ps)
+            with torch.no_grad():
+                torch._foreach_add_(ps, grads, alpha=-1e-3)
+            return loss.detach()
+        return step
+
+    # the checks against the CPU, on the seeded weights
+    tokens = torch.nn.functional.layer_norm(
+        torch.randn((b * (1 + (size // MOE["patch"]) ** 2), MOE["width"]),
+                    device=dev, generator=gen), (MOE["width"],))
+    mlp_check = check_moe_mlp_on_card(torch, dev, tokens)
+    top2 = {k: v.detach().float() for k, v in
+            models["moe_top2_e8"].state_dict().items()}
+    images = x[:MOE["check_images"]].float()
+    f32 = []
+    for d in (dev, torch.device("cpu")):
+        m = moe_vit(torch, d, None, **MOE_VARIANTS["moe_top2_e8"]).eval()
+        m.load_state_dict({k: v.to(d) for k, v in top2.items()})
+        with torch.no_grad():
+            f32.append(m(images.to(d)).cpu())
+    cos = cosine(torch, *f32)
+    log(f"phase 22 top-2 ViT-S/16 float32 pooled features, card vs CPU "
+        f"({MOE['check_images']} images): cosine {cos:.7f}, rel L2 "
+        f"{rel_l2(*f32):.3g}")
+    check(cos >= 0.999, "the float32 top-2 model on the card follows the "
+                        "CPU's")
+    int8_check = check_moe_int8_on_card(torch, tq, top2, images)
+
+    # remat against none: the top-2 step's first loss and gradients, and
+    # the memory each holds at its peak
+    remat_run = {}
+    for remat in (False, True):
+        m = moe_vit(torch, dev, torch.bfloat16, remat=remat,
+                    **MOE_VARIANTS["moe_top2_e8"]).train()
+        m.load_state_dict(models["moe_top2_e8"].state_dict())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = moe_vit_loss(torch, m, x)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        remat_run[remat] = (loss.item(), [g.float() for g in grads],
+                            (torch.cuda.max_memory_allocated() - base)
+                            / 2 ** 30)
+        del m, loss, grads
+    (l0, g0, m0), (l1, g1, m1) = remat_run[False], remat_run[True]
+    grad_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                   for a, b in zip(g1, g0))
+    loss_rel = abs(l1 - l0) / abs(l0)
+    log(f"phase 22 top-2 step, remat against none: loss {l1:.6f} vs "
+        f"{l0:.6f} (rel {loss_rel:.3g}), largest relative gradient "
+        f"difference {grad_rel:.3g}; peak memory above the resident models "
+        f"{m1:.2f} GiB with remat, {m0:.2f} GiB without, on {CARD}")
+    check(loss_rel <= 1e-6 and grad_rel <= 1e-6,
+          "remat gives the step's loss and gradients")
+    check(m1 < m0, "remat holds less memory at its peak")
+    del g0, g1, remat_run
+
+    # the timed runs: forward, then the train step, the variants in turns
+    results = {name: {"params": n_params[name]} for name in MOE_VARIANTS}
+    for mode, make in (("forward", forward), ("train", train)):
+        runs = run_in_turns(torch, {n: make(n) for n in MOE_VARIANTS},
+                            MOE_WARMUP, MOE_REPEATS, MOE_STEPS)
+        for name in MOE_VARIANTS:
+            step = make(name)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(0)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            prof = profile_kinds(
+                torch, step, 2, moe_slots(torch, (VisionTransformer,)),
+                MOE_OUTSIDE)
+            if name != "dense" and mode == "forward":
+                log(prof["table"])
+            ms = median(runs[name])
+            results[name][mode] = {
+                "ms": ms, "runs": runs[name], "img_s": b / (ms / 1e3),
+                "peak_gib": peak, "device_ms": prof["device_ms"],
+                "by_kind_ms": prof["by_kind_ms"],
+                "launches": prof["launches"],
+                "busy": prof["device_ms"] / ms}
+        dense_ms = results["dense"][mode]["ms"]
+        for name in MOE_VARIANTS:
+            r = results[name][mode]
+            r["vs_dense"] = r["ms"] / dense_ms
+            kinds = r["by_kind_ms"]
+            log(f"phase 22 {name} {mode} (ViT-S/16 b{b} {size} px bf16, "
+                f"{n_params[name] / 1e6:.1f} M parameters): median of "
+                f"{MOE_REPEATS} runs of {MOE_STEPS} steps {r['ms']:.3f} "
+                f"ms/step (runs {', '.join(f'{v:.3f}' for v in r['runs'])}),"
+                f" {r['img_s']:.1f} img/s, {r['vs_dense']:.3f}x dense; "
+                f"{r['launches']:.0f} launches a step, device "
+                f"{r['device_ms']:.3f} ms (busy {100 * r['busy']:.1f}%), "
+                f"peak {r['peak_gib']:.2f} GiB above the resident models; "
+                f"device ms by kind: forward {kinds['forward']:.3f} (" +
+                ", ".join(f"{k} {kinds[k]:.3f}" for k in MOE_KINDS) +
+                f"), {MOE_OUTSIDE} {kinds[MOE_OUTSIDE]:.3f}, on {CARD}")
+
+    # the int8 top-2 forward beside bf16, in turns
+    int8 = moe_vit(torch, dev, torch.bfloat16,
+                   **MOE_VARIANTS["moe_top2_e8"]).eval()
+    int8.load_state_dict(models["moe_top2_e8"].state_dict())
+    tq.quantize_model(int8)
+    bf16 = models["moe_top2_e8"].eval()
+
+    def serve(m):
+        def step(i):
+            with torch.no_grad():
+                return m(x + eps[i % MOE_STEPS])
+        return step
+
+    runs = run_in_turns(torch, {"bf16": serve(bf16), "int8": serve(int8)},
+                        MOE_WARMUP, MOE_REPEATS, MOE_STEPS)
+    int8_ms = {k: median(v) for k, v in runs.items()}
+    log(f"phase 22 top-2 forward, int8 (quantize_model) against bf16: "
+        f"{int8_ms['int8']:.3f} against {int8_ms['bf16']:.3f} ms/step "
+        f"(runs int8 {', '.join(f'{v:.3f}' for v in runs['int8'])}; bf16 "
+        f"{', '.join(f'{v:.3f}' for v in runs['bf16'])}), on {CARD}")
+    results["moe_top2_e8"]["int8_forward"] = {
+        "ms": int8_ms["int8"], "runs": runs["int8"],
+        "bf16_ms": int8_ms["bf16"], **int8_check}
+    results["checks"] = {"moe_mlp_float32": mlp_check,
+                         "top2_float32_cosine": cos,
+                         "remat": {"loss_rel": loss_rel,
+                                   "grad_rel": grad_rel,
+                                   "peak_gib": m1, "peak_gib_plain": m0}}
+    del models, int8, bf16, x, eps
+    return results
+
+
+def gshard_path(torch, fa, dev):
+    """Phase 22 (b): the GShard setting on phase 9's train step: the padded
+    Seq2SeqTransformer at full width on the flash kernels with every second
+    layer of both stacks routed, top-2 of 8 experts, masked cross-entropy
+    plus the aux loss and the port's AdamW(1e-4, weight decay 1e-4). The
+    first loss against dense attention on the same weights, K3a-c counted
+    over the timed steps (12 launches each a step), a profile by phase and
+    by routed stage, and greedy decoding of 16 tokens by full recompute in
+    float32 on the card, its tokens equal to the CPU's."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.layers.moe import MoEMLP, moe_aux_loss
+    from chambers_tpu_torch.models import Seq2SeqTransformer, greedy_decode
+    from chambers_tpu_torch.optimizers import AdamW
+
+    def build(impl, dtype=torch.bfloat16, device=dev):
+        model = Seq2SeqTransformer(
+            input_vocab_size=S2S["vocab"], output_vocab_size=S2S["vocab"],
+            embed_dim=S2S["dim"], num_heads=S2S["heads"],
+            dim_feedforward=4 * S2S["dim"],
+            num_encoder_layers=S2S["layers"],
+            num_decoder_layers=S2S["layers"], dropout_rate=0.0,
+            dtype=dtype, attention_impl=impl, device=device, **GSHARD)
+        return initializers.init_module(
+            model, torch.Generator(device=device).manual_seed(0)).train()
+
+    model = build("flash")
+    routed = [n for n, m in model.named_modules() if isinstance(m, MoEMLP)]
+    check(len(routed) == 4, "2 routed encoder and 2 routed decoder layers")
+    dense = build("xla")
+    dense.load_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    src, tgt = seq2seq_tokens(torch, dev)
+    vocab = S2S["vocab"]
+
+    def tokens_of(i):
+        return torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt
+
+    def loss_of(m, i=0):
+        loss, _ = seq2seq_loss(torch, m, *tokens_of(i))
+        return loss + moe_aux_loss(m)
+
+    with torch.no_grad():
+        first_f, first_d = float(loss_of(model)), float(loss_of(dense))
+    rel = abs(first_f - first_d) / abs(first_d)
+    log(f"phase 22 GShard seq2seq first step, flash vs dense attention: "
+        f"loss {first_f:.5f} vs {first_d:.5f} (rel {rel:.2e})")
+    check(rel <= 1e-2, "the routed flash step's first loss follows dense "
+                       "attention's")
+    del dense
+
+    opt = AdamW(model.named_parameters(), weight_decay=1e-4,
+                learning_rate=1e-4)
+
+    def step(i):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, i)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    for i in range(S2S_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    losses, runs = [], []
+    for r in range(S2S_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [step(S2S_WARMUP + r * S2S_STEPS + i)
+                   for i in range(S2S_STEPS)]
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / S2S_STEPS)
+    launches = dict(fa.flash_attention.launches)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    n_steps = S2S_STEPS * S2S_REPEATS
+    ms = median(runs)
+    losses = [float(v) for v in losses]
+    positions = S2S["batch"] * 2 * S2S["t"]
+    per_step = 3 * S2S["layers"]
+    check(all(launches[k] == per_step * n_steps for k in launches),
+          "K3a, K3b and K3c each launched 12 times a routed train step")
+    check(all(math.isfinite(v) for v in losses), "finite losses")
+    with labelled(torch, moe_slots(torch)):
+        prof = profile_train_step(torch, model, opt, loss_of, 2)
+    log(prof["table"])
+    host = {e.key: e for e in prof["events"]
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    kinds = {k: host[k].device_time_total / 1e3 / 2 if k in host else 0.0
+             for k in MOE_KINDS}
+    log(f"phase 22 GShard seq2seq train step ({n_params / 1e6:.1f} M "
+        f"parameters, top-2 of {GSHARD['moe_n_experts']} experts every "
+        f"second layer, batch {S2S['batch']}, {S2S['t']} + {S2S['t']} tokens"
+        f" a row, bf16, flash): median of {S2S_REPEATS} runs of {S2S_STEPS} "
+        f"steps {ms:.3f} ms/step (runs {', '.join(f'{v:.3f}' for v in runs)}"
+        f"), {positions / (ms / 1e3):.0f} tokens/s with padding; launches "
+        f"over {n_steps} steps {launches}; {prof['launches']:.0f} kernel "
+        f"launches a step, device {prof['device_ms']:.3f} ms (busy "
+        f"{100 * prof['device_ms'] / ms:.1f}%): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in prof["by_phase_ms"].items())
+        + "; the routed stages' forward: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in kinds.items())
+        + f"; peak {peak:.2f} GiB above the model and optimizer state, on "
+        f"{CARD}")
+    log(f"phase 22 GShard losses: {[round(v, 4) for v in losses]}")
+
+    # greedy decoding by full recompute, float32, card against CPU
+    state = {k: v.float() for k, v in model.state_dict().items()}
+    decoded, seconds = [], []
+    for d in (dev, torch.device("cpu")):
+        m = build("flash", None, d).eval()
+        m.load_state_dict({k: v.to(d) for k, v in state.items()})
+        t0 = time.perf_counter()
+        decoded.append(greedy_decode(m, src.to(d), max_len=GSHARD_DECODE,
+                                     bos_id=1).cpu())
+        seconds.append(time.perf_counter() - t0)
+        del m
+    same = torch.equal(*decoded)
+    log(f"phase 22 GShard greedy decode of {GSHARD_DECODE} tokens x "
+        f"{src.shape[0]} sources by full recompute, float32 (on the card "
+        f"the FMA flash kernels, on the CPU their plain versions): card "
+        f"{seconds[0]:.2f} s, CPU {seconds[1]:.2f} s; tokens equal: {same};"
+        f" first row {decoded[0][0].tolist()}")
+    check(same, "the card's greedy tokens equal the CPU's")
+    return {"ms_per_step": ms, "runs_ms": runs,
+            "tokens_s": positions / (ms / 1e3),
+            "device_ms": prof["device_ms"],
+            "device_ms_by_phase": prof["by_phase_ms"],
+            "routed_forward_ms_by_kind": kinds,
+            "launches_per_step": prof["launches"],
+            "flash_launches_per_step": {k: v / n_steps
+                                        for k, v in launches.items()},
+            "busy": prof["device_ms"] / ms, "peak_gib": peak,
+            "first_loss": first_f, "first_loss_dense": first_d,
+            "greedy_tokens_equal": same}, launches
+
+
+def moe_path(torch, fa, dev):
+    """Phase 22: (a) and (b), with its own wall time."""
+    t0 = time.perf_counter()
+    vit = moe_vit_path(torch, dev)
+    torch.cuda.empty_cache()
+    gshard, launches = gshard_path(torch, fa, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return vit, gshard, launches
 
 
 def main():
@@ -3509,6 +4058,15 @@ def main():
     # 21. the CNN backbones: serving (a) and the SE-ResNet-50 train step (b)
     cnn_serving = cnn_serving_path(torch, dev)
     cnn_step = cnn_train_step_path(torch, dev)
+
+    # 22. mixture of experts: the MoE ViT-S/16 (a) and the GShard seq2seq
+    # step on the flash kernels (b)
+    moe_vit_results, gshard, gshard_launches = moe_path(torch, fa, dev)
+    for row in rows:
+        key = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+               "flash_bwd_dq": "dq"}.get(row["name"])
+        if key:
+            row["launches_gshard"] = gshard_launches[key]
     paths = {
         f"{cfg} {name}": {"ms_per_batch": r["ms"], "runs_ms": r["runs"],
                           "img_s": batch / (r["ms"] / 1e3),
@@ -3588,6 +4146,23 @@ def main():
         "first_loss": cnn_step["first_loss"],
         "first_loss_float32": cnn_step["first_loss_f32"],
         "f32_step_card_vs_cpu": cnn_step["f32_step_card_vs_cpu"]}
+    for name in MOE_VARIANTS:
+        for mode in ("forward", "train"):
+            r = moe_vit_results[name][mode]
+            paths[f"moe vit-s/16 {name} {mode} (b{MOE['batch']} 224 px "
+                  f"bf16)"] = {
+                "ms_per_step": r["ms"], "runs_ms": r["runs"],
+                "img_s": r["img_s"], "vs_dense": r["vs_dense"],
+                "params": moe_vit_results[name]["params"],
+                "device_ms": r["device_ms"],
+                "device_ms_by_kind": r["by_kind_ms"],
+                "launches_per_step": r["launches"], "busy": r["busy"],
+                "peak_gib": r["peak_gib"]}
+    paths["moe vit-s/16 moe_top2_e8 int8 forward"] = moe_vit_results[
+        "moe_top2_e8"]["int8_forward"]
+    paths["moe vit-s/16 checks"] = moe_vit_results["checks"]
+    paths["gshard seq2seq train step (top-2 of 8, b16 512 + 512 bf16, "
+          "flash, AdamW)"] = gshard
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

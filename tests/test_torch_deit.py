@@ -176,6 +176,62 @@ def test_distilled_vit_on_flash_matches_jax():
         assert _max_abs(want_grads[name], p.grad) <= 1e-4, name
 
 
+@pytest.mark.parametrize("impl,k", [("xla", 1), ("flash", 2)])
+def test_routed_distilled_vit_matches_jax(impl, k):
+    """The 2-layer DeiT with its second MLP routed over 4 experts: both
+    heads within 1e-4, the aux loss within 1e-6 relative, the gradients of
+    the heads' product plus the aux loss within 1e-4."""
+    from chambers_tpu.layers.moe import moe_aux_loss as jax_moe_aux_loss
+    from chambers_tpu_torch.layers.moe import MoEEncoderLayer, moe_aux_loss
+
+    routed = dict(moe_every_n=2, moe_n_experts=4, moe_n_selected_experts=k,
+                  attention_impl=impl)
+    module, params = _jax_deit(**routed)
+    x = _images(2)
+
+    def total(p):
+        (cls, dist), state = module.apply({"params": p}, jnp.asarray(x),
+                                          mutable=["intermediates"])
+        aux = jax_moe_aux_loss(state["intermediates"])
+        return jnp.sum(cls * dist) / 100.0 + aux, (cls, dist, aux)
+
+    (_, (want_cls, want_dist, aux_want)), jgrads = jax.value_and_grad(
+        total, has_aux=True)(params)
+    model = _port_deit(params, **routed)
+    assert isinstance(model.encoder.layers[1], MoEEncoderLayer)
+    cls, dist = model(_t(x))
+    aux = moe_aux_loss(model)
+    ((cls * dist).sum().div(100.0) + aux).backward()
+    assert _max_abs(want_cls, cls.detach()) <= 1e-4
+    assert _max_abs(want_dist, dist.detach()) <= 1e-4
+    np.testing.assert_allclose(aux.item(), float(aux_want), rtol=1e-6)
+    want_grads = state_dict_from_jax(jax.device_get(jgrads))
+    for name, p in model.named_parameters():
+        assert _max_abs(want_grads[name], p.grad) <= 1e-4, name
+
+
+def test_distilled_vit_remat_on_flash_matches_plain():
+    """``remat=True`` on the routed DeiT over the flash kernels (plain
+    versions here): the same heads, aux loss and gradients as without."""
+    from chambers_tpu_torch.layers.moe import moe_aux_loss
+
+    kw = dict(attention_impl="flash", moe_every_n=2, moe_n_experts=4)
+    _, params = _jax_deit(**kw)
+    x = _t(_images(3))
+    runs = []
+    for remat in (False, True):
+        model = _port_deit(params, remat=remat, **kw).train()
+        cls, dist = model(x)
+        aux = moe_aux_loss(model)
+        ((cls * dist).sum() + aux).backward()
+        runs.append((cls.detach(), dist.detach(), aux.detach(),
+                     {n: p.grad for n, p in model.named_parameters()}))
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+    for name, grad in runs[0][3].items():
+        assert torch.equal(grad, runs[1][3][name]), name
+
+
 @pytest.mark.parametrize("preset,width,depth,heads,mlp", [
     ("DeiTS16", 384, 12, 6, 1536), ("DeiTB16", 768, 12, 12, 3072)])
 def test_deit_presets(preset, width, depth, heads, mlp, tmp_path,
@@ -205,6 +261,17 @@ def test_deit_presets(preset, width, depth, heads, mlp, tmp_path,
     with pytest.raises(FileNotFoundError,
                        match=f"{preset.lower()}_imagenet_1000_224.h5"):
         getattr(tvit, preset)(weights="imagenet_224", device=CPU)
+    # routing: the presets take it, and refuse it with weights, as JAX's
+    routed = getattr(tvit, preset)(input_shape=(32, 32, 3), classes=3,
+                                   moe_every_n=4, moe_n_experts=2,
+                                   device=CPU)
+    assert [layer.moe is not None for layer in routed.encoder.layers] == [
+        i % 4 == 3 for i in range(depth)]
+    with pytest.raises(ValueError, match="moe_every_n"):
+        getattr(tvit, preset)(weights="imagenet_224", moe_every_n=2,
+                              device=CPU)
+    with pytest.raises(ValueError, match="moe_every_n"):
+        getattr(jvit, preset)(weights="imagenet_224", moe_every_n=2)
 
 
 def test_deit_state_dict_converts():

@@ -7,6 +7,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -101,18 +102,19 @@ def test_not_yet_ported_paths_say_so(tmp_path, monkeypatch):
     from chambers_tpu_torch.augmentations.augmentation_schemes import (
         AutoAugment,
     )
+    from chambers_tpu_torch.optimizers import AdamW
     from chambers_tpu_torch.quantization import QuantDense, quantize_model
 
-    from chambers_tpu_torch.layers.transformer import Encoder
-
     # the flash kernel is ported: the branch runs (on the CPU through its
-    # plain version); the mixture-of-experts layers still wait
+    # plain version); the optimizers' mutable learning rate waits for the
+    # callbacks
     q = torch.zeros(1, 1, 2, 4)
     assert torch.equal(scaled_dot_product_attention(q, q, impl="flash"), q)
     with pytest.raises(ValueError, match="impl"):
         scaled_dot_product_attention(q, q, impl="pallas")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Encoder(8, 2, 16, 2, moe_every_n=2, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"§1 item 6"):
+        AdamW([torch.zeros(2, requires_grad=True)], weight_decay=1e-4,
+              mutable_lr=True)
     # the int8 path and the whole-batch policies are ported
     dense = QuantDense(4, 3, device="cpu")
     dense.reset_parameters(torch.Generator().manual_seed(0))
@@ -203,3 +205,64 @@ def test_matchers_answer_on_the_costs_device():
         cols = match(cost)
         assert cols.device == cost.device and cols.dtype == torch.int64
         assert cols.shape == (2, 3)
+
+
+def _init_names(path):
+    """The names a package's ``__init__.py`` imports: its public list."""
+    tree = ast.parse(open(path).read(), path)
+    return {alias.asname or alias.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for alias in node.names}
+
+
+def test_layers_export_the_jax_packages_names():
+    """``chambers_tpu_torch.layers`` re-exports every name of
+    ``chambers_tpu.layers``, the ``ops`` submodule and the mixture-of-experts
+    layers included; the JAX list is read from its source, not imported."""
+    import chambers_tpu_torch.layers as layers
+
+    want = _init_names(os.path.join(ROOT, "chambers_tpu", "layers",
+                                    "__init__.py"))
+    assert {"MoEMLP", "MoEEncoderLayer", "MoEDecoderLayer", "moe_aux_loss",
+            "ops", "MultiHeadAttention", "RMAC"} <= want
+    assert _init_names(os.path.join(PKG, "layers", "__init__.py")) == want
+    assert all(hasattr(layers, name) for name in want)
+    assert layers.ops.__name__ == "chambers_tpu_torch.layers.ops"
+
+
+def test_vit_preprocess_input_is_bit_equal_to_jax():
+    from chambers_tpu.models.backbones import vision_transformer as jvit
+
+    x = np.random.RandomState(0).randint(0, 256, (2, 8, 8, 3)).astype(
+        np.uint8)
+    want = np.asarray(jvit.preprocess_input(x))
+    got = tvit.preprocess_input(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_submodules_load_lazily_and_unported_ones_name_their_item():
+    code = (
+        "import sys, chambers_tpu_torch as c\n"
+        "assert 'chambers_tpu_torch.losses' not in sys.modules\n"
+        "assert c.losses is sys.modules['chambers_tpu_torch.losses']\n"
+        "assert 'losses' in dir(c) and 'models' in dir(c)\n"
+        "for name, item in [('callbacks', 6), ('training', 6), ('utils', 6),"
+        " ('data', 7), ('parallel', 8), ('serving', 8)]:\n"
+        "    try:\n"
+        "        getattr(c, name)\n"
+        "    except AttributeError as e:\n"
+        "        assert f'item {item}' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(name)\n"
+        "try:\n"
+        "    c.no_such_module\n"
+        "except AttributeError:\n"
+        "    pass\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in sys.path if p]))
+    out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

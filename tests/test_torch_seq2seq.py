@@ -7,7 +7,13 @@ Tolerances: 1e-4 for a decoder layer or stack (the reference's encoder-layer
 gate; sums run in another order in the two frameworks), loss rtol 1e-5 and
 gradients atol 1e-4 for the whole model (the JAX package's own flash-vs-dense
 gates in ``tests/models/test_seq2seq.py``), and rtol 1e-4 on the losses of
-three AdamW steps."""
+three AdamW steps.
+
+Routed stacks and models (``moe_every_n``) are held to the same gates and
+their summed aux loss to 1e-6 relative; ``remat=True`` to ``remat=False``
+exactly (the recompute runs the same operations on the same inputs),
+with active dropout on an explicit generator too; greedy decoding of a
+routed model recomputes the whole buffer and gives JAX's tokens."""
 
 import jax
 import jax.numpy as jnp
@@ -17,18 +23,22 @@ import pytest
 import torch
 
 from chambers_tpu.layers import embedding as jemb
+from chambers_tpu.layers.moe import moe_aux_loss as jax_moe_aux_loss
 from chambers_tpu.layers.transformer import Decoder as JaxDecoder
+from chambers_tpu.layers.transformer import Encoder as JaxEncoder
 from chambers_tpu.layers.transformer import DecoderLayer as JaxDecoderLayer
 from chambers_tpu.models import Seq2SeqTransformer as JaxSeq2Seq
+from chambers_tpu.models import generation as jgen
 from chambers_tpu_torch import initializers
 from chambers_tpu_torch.layers import embedding as temb
+from chambers_tpu_torch.layers.moe import MoEMLP, moe_aux_loss
 from chambers_tpu_torch.layers.transformer import (
     Decoder,
     DecoderLayer,
     Encoder,
     EncoderLayer,
 )
-from chambers_tpu_torch.models import Seq2SeqTransformer
+from chambers_tpu_torch.models import Seq2SeqTransformer, greedy_decode
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 
 CPU = "cpu"
@@ -138,12 +148,6 @@ def test_decoder_stack(kind):
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-4)
-
-
-def test_stacks_refuse_moe():
-    for cls in (Encoder, Decoder):
-        with pytest.raises(NotImplementedError):
-            cls(D, N_HEADS, FF, 2, moe_every_n=2, device=CPU)
 
 
 def test_dense_dropout_keep_share_scaling_and_determinism():
@@ -306,3 +310,245 @@ def test_seq2seq_defaults_to_cuda_and_raises_without_a_card():
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match="CUDA"):
         Seq2SeqTransformer(VOCAB, VOCAB, D, N_HEADS, FF, 1, 1)
+
+
+# --- routed stacks and models, remat ----------------------------------------
+
+_ROUTED = {
+    "encoder_top1": (JaxEncoder, Encoder, dict(moe_n_experts=4)),
+    "encoder_top2_pre_norm": (JaxEncoder, Encoder, dict(
+        moe_n_experts=4, moe_n_selected_experts=2, pre_norm=True,
+        norm_output=True, moe_router_z_loss_weight=1e-3)),
+    "decoder_top2": (JaxDecoder, Decoder, dict(
+        moe_n_experts=4, moe_n_selected_experts=2)),
+    "decoder_top1_groups_pre_norm": (JaxDecoder, Decoder, dict(
+        moe_n_experts=4, moe_group_size=9, moe_capacity_factor=0.75,
+        pre_norm=True)),
+}
+
+
+def _stack_inputs(cls):
+    x, mem = _rand((2, 9, D), 10), _rand((2, 11, D), 11)
+    q_mask, v_mask = _masks(2, 9, 11)
+    if cls in (JaxEncoder, Encoder):
+        return [x], dict(mask=q_mask)
+    return [[x, mem]], dict(mask=[q_mask, v_mask])
+
+
+def _torch(tree):
+    if isinstance(tree, list):
+        return [_torch(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _torch(v) for k, v in tree.items()}
+    return torch.from_numpy(tree)
+
+
+@pytest.mark.parametrize("kind", sorted(_ROUTED))
+def test_routed_stack_matches_jax(kind):
+    """Every second layer routed: outputs, the aux loss and the gradients
+    of sum(y·r) + aux against JAX's."""
+    jcls, cls, kw = _ROUTED[kind]
+    kw = dict(kw, embed_dim=D, num_heads=N_HEADS, ff_dim=FF, num_layers=4,
+              moe_every_n=2, attention_dropout_rate=0.0,
+              dense_dropout_rate=0.0)
+    args, call = _stack_inputs(jcls)
+    jmod = jcls(**kw)
+    params = _perturbed(jmod.init(jax.random.PRNGKey(2), *args)["params"])
+    r = _rand((2, 9, D), 12)
+
+    def loss(p):
+        y, state = jmod.apply({"params": p}, *args, mutable=["intermediates"],
+                              **call)
+        return (jnp.sum(y * r) + jax_moe_aux_loss(state["intermediates"]),
+                (y, jax_moe_aux_loss(state["intermediates"])))
+
+    (_, (want, aux_want)), grads = jax.value_and_grad(loss, has_aux=True)(
+        params)
+    port = _load(cls(device=CPU, **kw), params)
+    assert [isinstance(layer.moe, MoEMLP) for layer in port.layers] == [
+        False, True] * 2
+    got = port(*_torch(args), **_torch(call))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4)
+    aux = moe_aux_loss(port)
+    np.testing.assert_allclose(aux.item(), float(aux_want), rtol=1e-6)
+    (torch.sum(got * torch.from_numpy(r)) + aux).backward()
+    want_grads = state_dict_from_jax(jax.device_get(grads))
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_routed_seq2seq_logits_loss_and_gradients(impl):
+    """The GShard setting, top-2 of 4 experts in every second layer of both
+    stacks: logits, the masked cross-entropy plus the aux loss, and every
+    gradient against JAX's."""
+    src, tgt = _tokens()
+    kw = dict(input_vocab_size=VOCAB, output_vocab_size=VOCAB, embed_dim=D,
+              num_heads=N_HEADS, dim_feedforward=FF, num_encoder_layers=2,
+              num_decoder_layers=2, dropout_rate=0.0, attention_impl=impl,
+              moe_every_n=2, moe_n_experts=4, moe_n_selected_experts=2)
+    jmodel = JaxSeq2Seq(**kw)
+    params = _perturbed(
+        jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"])
+    port = _load(Seq2SeqTransformer(device=CPU, **kw), params)
+    ce = _jax_loss(jmodel, src, tgt)
+
+    def loss(p):
+        _, state = jmodel.apply({"params": p}, (src, tgt),
+                                mutable=["intermediates"])
+        return ce(p) + jax_moe_aux_loss(state["intermediates"])
+
+    loss_want, grads = jax.value_and_grad(loss)(params)
+    want = jmodel.apply({"params": params}, (src, tgt))
+    tsrc, ttgt = torch.from_numpy(src), torch.from_numpy(tgt)
+    with torch.no_grad():
+        got = port([tsrc, ttgt])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    total = _torch_loss(port, tsrc, ttgt) + moe_aux_loss(port)
+    total.backward()
+    np.testing.assert_allclose(total.item(), float(loss_want), rtol=1e-5)
+    want_grads = state_dict_from_jax(jax.device_get(grads))
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   atol=1e-4, err_msg=name)
+
+
+def _remat_pair(cls, routed, **kw):
+    kw = dict(kw, embed_dim=D, num_heads=N_HEADS, ff_dim=FF, num_layers=2,
+              moe_every_n=2 if routed else 0, moe_n_experts=4,
+              moe_n_selected_experts=2, device=CPU)
+    plain = initializers.init_module(cls(**kw),
+                                     torch.Generator().manual_seed(0))
+    remat = cls(remat=True, **kw)
+    remat.load_state_dict(plain.state_dict())
+    return plain.train(), remat.train()
+
+
+def _run_for_grads(model, args, call, generator=None):
+    r = torch.from_numpy(_rand((2, 9, D), 13))
+    y = model(*args, generator=generator, **call)
+    aux = moe_aux_loss(model)
+    (torch.sum(y * r) + aux).backward()
+    return y.detach(), aux.detach(), {
+        n: p.grad for n, p in model.named_parameters()}
+
+
+_STACKS = [(cls, routed) for cls in (Encoder, Decoder)
+           for routed in (False, True)]
+
+
+@pytest.mark.parametrize("cls,routed", _STACKS,
+                         ids=[f"{c.__name__}-{'moe' if r else 'dense'}"
+                              for c, r in _STACKS])
+def test_remat_matches_plain(cls, routed):
+    """``remat=True`` gives the outputs, aux loss and gradients of
+    ``remat=False`` (as ``tests/layers/test_transformer.py`` holds JAX's
+    ``nn.remat``), and so JAX's outputs."""
+    plain, remat = _remat_pair(cls, routed, attention_dropout_rate=0.0,
+                               dense_dropout_rate=0.0)
+    args, call = _stack_inputs(cls)
+    args, call = _torch(args), _torch(call)
+    y0, aux0, g0 = _run_for_grads(plain, args, call)
+    y1, aux1, g1 = _run_for_grads(remat, args, call)
+    assert torch.equal(y0, y1) and torch.equal(aux0, aux1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+    jcls = JaxEncoder if cls is Encoder else JaxDecoder
+    jmod = jcls(embed_dim=D, num_heads=N_HEADS, ff_dim=FF, num_layers=2,
+                moe_every_n=2 if routed else 0, moe_n_experts=4,
+                moe_n_selected_experts=2, remat=True,
+                attention_dropout_rate=0.0, dense_dropout_rate=0.0)
+    jargs, jcall = _stack_inputs(cls)
+    want = jmod.apply({"params": _nest(plain.state_dict())}, *jargs, **jcall)
+    np.testing.assert_allclose(y1.numpy(), np.asarray(want), atol=1e-4)
+
+
+def _nest(state_dict):
+    """A port ``state_dict`` as JAX's nested params (``layers.<i>`` ->
+    ``layers_<i>``)."""
+    from chambers_tpu_torch.models.backbones.convert import jax_path
+
+    out = {}
+    for key, value in state_dict.items():
+        *path, leaf = jax_path(key).split("/")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.numpy()
+    return out
+
+
+@pytest.mark.parametrize("cls,routed", _STACKS,
+                         ids=[f"{c.__name__}-{'moe' if r else 'dense'}"
+                              for c, r in _STACKS])
+def test_remat_replays_dropout_from_the_generator(cls, routed):
+    """Active dropout (attention 0.1, dense 0.2) drawn from an explicit
+    generator: the recompute draws the forward's masks, so the gradients
+    equal those without remat, and the generator ends where it ends
+    without remat. ``checkpoint`` alone restores only the global
+    generators: recomputing with the generator as backward finds it gives
+    other masks and other gradients."""
+    from torch.utils.checkpoint import checkpoint
+
+    plain, remat = _remat_pair(cls, routed, attention_dropout_rate=0.1,
+                               dense_dropout_rate=0.2)
+    args, call = _stack_inputs(cls)
+    args, call = _torch(args), _torch(call)
+    gens = [torch.Generator().manual_seed(7) for _ in range(3)]
+    y0, aux0, g0 = _run_for_grads(plain, args, call, gens[0])
+    y1, aux1, g1 = _run_for_grads(remat, args, call, gens[1])
+    assert not torch.equal(y0, plain.eval()(*args, **call))  # dropout ran
+    assert torch.equal(y0, y1) and torch.equal(aux0, aux1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+    # the trouble spot, shown: no replay, other masks, other gradients
+    remat.zero_grad()
+    x = args[0][0] if cls is Decoder else args[0]
+    for layer in remat.layers:
+        if cls is Decoder:
+            x = checkpoint(lambda h, m, layer=layer: layer(
+                [h, m], generator=gens[2], **call), x, args[0][1],
+                use_reentrant=False)
+        else:
+            x = checkpoint(lambda h, layer=layer: layer(
+                h, generator=gens[2], **call), x, use_reentrant=False)
+    assert torch.equal(x.detach(), y0)
+    (torch.sum(x * torch.from_numpy(_rand((2, 9, D), 13)))
+     + moe_aux_loss(remat)).backward()
+    assert not all(torch.equal(g0[n], p.grad)
+                   for n, p in remat.named_parameters())
+
+
+def test_routed_greedy_decode_recomputes_and_matches_jax():
+    """A routed decoder has no cached step: greedy decoding recomputes the
+    whole target buffer (``_resolve_use_cache``), and gives JAX's tokens
+    (``tests/models/test_generation.py:79-93``'s model)."""
+    kw = dict(input_vocab_size=16, output_vocab_size=16, embed_dim=32,
+              num_heads=2, dim_feedforward=64, num_encoder_layers=2,
+              num_decoder_layers=2, dropout_rate=0.0, moe_every_n=2,
+              moe_n_experts=4, moe_n_selected_experts=2)
+    jmodel = JaxSeq2Seq(**kw)
+    dummy = (jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 8), jnp.int32))
+    params = _perturbed(jmodel.init(jax.random.PRNGKey(0), dummy)["params"],
+                        seed=3)
+    src = np.random.default_rng(7).integers(1, 16, (2, 8)).astype(np.int32)
+    want = jgen.greedy_decode(jmodel, {"params": params}, jnp.asarray(src),
+                              max_len=6, bos_id=1)
+    port = _load(Seq2SeqTransformer(device=CPU, **kw), params)
+    tsrc = torch.from_numpy(src.astype(np.int64))
+    got = greedy_decode(port, tsrc, max_len=6, bos_id=1)
+    assert got.shape == (2, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(greedy_decode(port, tsrc, max_len=6, bos_id=1,
+                                     use_cache=False), got)
+    with pytest.raises(NotImplementedError, match="use_cache=False"):
+        greedy_decode(port, tsrc, max_len=6, bos_id=1, use_cache=True)
+    memory, mask = port.encode(tsrc)
+    cache = port.init_cache(memory, 6)
+    with pytest.raises(NotImplementedError, match="routed decoder"):
+        port.decode_step(torch.ones((2, 1), dtype=torch.long), 0, memory,
+                         mask, 6, cache)

@@ -261,7 +261,92 @@ def test_vit_train_mode_draws_from_the_generator(tiny):
     assert not torch.equal(a, c) and not torch.equal(a, ref)
 
 
-@pytest.mark.parametrize("kw", [{"remat": True}, {"moe_every_n": 2}])
-def test_vit_remat_and_moe_say_so(kw):
-    with pytest.raises(NotImplementedError, match=r"§1 item 5"):
-        _tiny_port_vit(**kw)
+
+def _routed(k):
+    return dict(moe_every_n=2, moe_n_experts=4, moe_n_selected_experts=k)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_routed_vit_matches_jax(tiny, k):
+    """The 2-layer ViT with its second MLP routed (top-k of 4 experts):
+    logits at the model gate, 1e-3, the aux loss within 1e-6 relative and
+    the gradients of the logits' sum of squares plus the aux loss within
+    1e-4."""
+    from chambers_tpu.layers.moe import moe_aux_loss as jax_moe_aux_loss
+    from chambers_tpu_torch.layers.moe import MoEEncoderLayer, moe_aux_loss
+
+    _, _, x8 = tiny
+    x = np.asarray(x8, np.float32) / 127.5 - 1.0
+    jmod = _tiny_jax_vit(**_routed(k))
+    params = jmod.init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 32, 3)))[
+        "params"]
+
+    def loss(p):
+        y, state = jmod.apply({"params": p}, x, mutable=["intermediates"])
+        aux = jax_moe_aux_loss(state["intermediates"])
+        return jnp.sum(y ** 2) + aux, (y, aux)
+
+    (_, (want, aux_want)), grads = jax.value_and_grad(loss, has_aux=True)(
+        params)
+    port = _load(_tiny_port_vit(dropout_rate=0.0, **_routed(k)), params)
+    assert isinstance(port.encoder.layers[1], MoEEncoderLayer)
+    got = port(torch.from_numpy(x))
+    assert _max_abs(want, got.detach()) < 1e-3
+    aux = moe_aux_loss(port)
+    np.testing.assert_allclose(aux.item(), float(aux_want), rtol=1e-6)
+    (torch.sum(got ** 2) + aux).backward()
+    want_grads = state_dict_from_jax(jax.device_get(grads))
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("routed", [False, True])
+def test_vit_remat_matches_plain(tiny, routed):
+    """``remat=True`` against ``remat=False`` on the same weights in train
+    mode, at the default dropout rate, 0.1, drawn from a seeded explicit
+    generator: equal logits, aux loss and gradients, and the generator's
+    state after backward as without remat."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.layers.moe import moe_aux_loss
+
+    _, _, x8 = tiny
+    kw = _routed(2) if routed else {}
+    plain = initializers.init_module(_tiny_port_vit(**kw),
+                                     torch.Generator().manual_seed(0))
+    remat = _tiny_port_vit(remat=True, **kw)
+    remat.load_state_dict(plain.state_dict())
+    runs = []
+    for model in (plain, remat):
+        gen = torch.Generator().manual_seed(5)
+        y = model(torch.from_numpy(x8), generator=gen)
+        aux = moe_aux_loss(model)
+        (torch.sum(y ** 2) + aux).backward()
+        runs.append((y.detach(), aux.detach(), gen.get_state(),
+                     {n: p.grad for n, p in model.named_parameters()}))
+    (y0, a0, s0, g0), (y1, a1, s1, g1) = runs
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    assert torch.equal(s0, s1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+    with torch.no_grad():
+        assert not torch.equal(y0, plain.eval()(torch.from_numpy(x8)))
+
+
+def test_vit_presets_take_moe_and_refuse_it_with_weights(tmp_path):
+    model = tvit.ViTS16(input_shape=(32, 32, 3), classes=5, moe_every_n=2,
+                        moe_n_experts=4, moe_capacity_factor=2.0,
+                        device=CPU)
+    routed = [layer.moe for layer in model.encoder.layers
+              if layer.moe is not None]
+    assert len(routed) == 6
+    assert routed[0].n_experts == 4 and routed[0].capacity_factor == 2.0
+    assert not model.training
+    with torch.no_grad():
+        assert model(torch.zeros(2, 32, 32, 3)).shape == (2, 5)
+    # a released spec (as the JAX preset refuses it) or a file
+    with pytest.raises(ValueError, match="moe_every_n"):
+        jvit.ViTS16(weights="imagenet_224_deit", moe_every_n=2)
+    for weights in ("imagenet_224_deit", str(tmp_path / "vits16.h5")):
+        with pytest.raises(ValueError, match="moe_every_n"):
+            tvit.ViTS16(weights=weights, moe_every_n=2, device=CPU)
