@@ -12,9 +12,9 @@ in ``ops/csrc`` and are built with ``nvcc`` at first use
 runs its plain PyTorch version instead.
 
 Submodules load on first attribute access, as the JAX package's do
-(``chambers_tpu_torch.losses``); the ones not ported yet (``callbacks``,
-``training``, ``utils``, ``data``, ``parallel``, ``serving``) raise an
-``AttributeError`` that names their ROADMAP item.
+(``chambers_tpu_torch.losses``); the ones not ported yet (``data``,
+``parallel``, ``serving``) raise an ``AttributeError`` that names their
+ROADMAP item.
 """
 
 from chambers_tpu_torch._device import resolve_device
@@ -22,14 +22,13 @@ from chambers_tpu_torch._device import resolve_device
 __all__ = ["resolve_device"]
 
 _SUBMODULES = (
-    "activations", "augmentations", "initializers", "layers", "losses",
-    "metrics", "miners", "models", "ops", "optimizers", "quantization",
-    "schedules",
+    "activations", "augmentations", "callbacks", "initializers", "layers",
+    "losses", "metrics", "miners", "models", "ops", "optimizers",
+    "quantization", "schedules", "serialization", "training", "utils",
 )
 # the JAX package's submodules that the port has no counterpart of yet,
 # and the item of ROADMAP.md §1 that ports each
-_NOT_PORTED = {"callbacks": 6, "training": 6, "utils": 6, "data": 7,
-               "parallel": 8, "serving": 8}
+_NOT_PORTED = {"data": 7, "parallel": 8, "serving": 8}
 
 
 def __getattr__(name):

@@ -185,8 +185,9 @@ class _Geometric(_Random):
 
 
 class Rotate(_Geometric):
-    def __init__(self, degrees, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, degrees, interpolation="nearest", fill_mode="constant",
+                 fill_value=0):
+        super().__init__(interpolation, fill_mode, fill_value)
         self.degrees = degrees
         self._radians = degrees * math.pi / 180.0
 
@@ -195,8 +196,9 @@ class Rotate(_Geometric):
 
 
 class ShearX(_Geometric):
-    def __init__(self, level, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, level, interpolation="nearest", fill_mode="constant",
+                 fill_value=0):
+        super().__init__(interpolation, fill_mode, fill_value)
         self.level = level
 
     def _matrices(self, sign, h, w):
@@ -204,8 +206,9 @@ class ShearX(_Geometric):
 
 
 class ShearY(_Geometric):
-    def __init__(self, level, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, level, interpolation="nearest", fill_mode="constant",
+                 fill_value=0):
+        super().__init__(interpolation, fill_mode, fill_value)
         self.level = level
 
     def _matrices(self, sign, h, w):
@@ -213,8 +216,9 @@ class ShearY(_Geometric):
 
 
 class TranslateX(_Geometric):
-    def __init__(self, pixels, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, pixels, interpolation="nearest", fill_mode="constant",
+                 fill_value=0):
+        super().__init__(interpolation, fill_mode, fill_value)
         self.pixels = pixels
 
     def _matrices(self, sign, h, w):
@@ -222,8 +226,9 @@ class TranslateX(_Geometric):
 
 
 class TranslateY(_Geometric):
-    def __init__(self, pixels, **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, pixels, interpolation="nearest", fill_mode="constant",
+                 fill_value=0):
+        super().__init__(interpolation, fill_mode, fill_value)
         self.pixels = pixels
 
     def _matrices(self, sign, h, w):

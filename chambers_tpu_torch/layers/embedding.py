@@ -165,7 +165,9 @@ class LearnedEmbedding1D(nn.Module):
     def __init__(self, seq_len, dim, add_to_input=True,
                  param_dtype=torch.float32, device=None):
         super().__init__()
+        self.seq_len, self.dim = seq_len, dim
         self.add_to_input = add_to_input
+        self.param_dtype = param_dtype
         self.embeddings = initializers.new_param(
             (seq_len, dim), param_dtype, resolve_device(device))
 
@@ -184,7 +186,9 @@ class LearnedEmbedding0D(nn.Module):
     def __init__(self, dim, add_to_input=True, param_dtype=torch.float32,
                  device=None):
         super().__init__()
+        self.dim = dim
         self.add_to_input = add_to_input
+        self.param_dtype = param_dtype
         self.embeddings = initializers.new_param(
             (1, dim), param_dtype, resolve_device(device))
 

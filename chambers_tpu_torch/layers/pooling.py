@@ -34,7 +34,7 @@ class GlobalGeneralizedMean(nn.Module):
         if not shared and channels is None:
             raise ValueError("a per-channel p (shared=False) needs channels")
         self.init_p = p
-        self.trainable = trainable
+        self.shared, self.trainable, self.channels = shared, trainable, channels
         shape = (1,) if shared else (channels,)
         self.p = nn.Parameter(torch.full(shape, float(p), dtype=param_dtype,
                                          device=resolve_device(device)))
@@ -42,6 +42,12 @@ class GlobalGeneralizedMean(nn.Module):
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.p.fill_(float(self.init_p))
+
+    def get_config(self):
+        """The constructor's arguments (``p`` is the initial value; the
+        parameter of that name is a tensor)."""
+        return {"p": self.init_p, "shared": self.shared,
+                "trainable": self.trainable, "channels": self.channels}
 
     def forward(self, x):
         p = self.p if self.trainable else self.p.detach()

@@ -36,16 +36,16 @@ from chambers_tpu_torch.models.backbones.convert import (
 
 
 def import_h5(model, path, loader, *args):
-    """Load the ``.h5`` file at ``path`` into ``model`` in place:
-    ``loader(path, jax_variables(model), *args)`` maps it onto the model's
-    variables, which then replace its parameters and statistics. Any other
-    file (a ``Model.save_weights`` msgpack) raises: that format comes with
-    the training harness, ROADMAP.md §1 item 6."""
+    """Load the weights file at ``path`` into ``model`` in place. A ``.h5``
+    file goes through ``loader(path, jax_variables(model), *args)``, which
+    maps it onto the model's variables; any other file is read as a
+    ``Model.save_weights`` msgpack (Flax's format, of either package).
+    Either way the variables then replace the model's parameters and
+    statistics."""
     if not str(path).endswith(".h5"):
-        raise NotImplementedError(
-            f"{path!r}: the port imports Keras .h5 weight files only; "
-            "Model.save_weights checkpoints come with the training harness "
-            "(ROADMAP.md §1 item 6).")
+        from chambers_tpu_torch.utils import msgpack_io
+
+        return load_jax_variables(model, msgpack_io.load(str(path)))
     return load_jax_variables(model, loader(str(path), jax_variables(model),
                                             *args))
 

@@ -11,8 +11,8 @@ is the NHWC feature map, ``[b, 7, 7, 1024]`` at 224 px, in float32;
 retrieval descriptor.
 
 ``BNInception(weights_path=...)`` takes the path of the stored model's
-``.h5`` file (imported by creation order with ``load_convbn_h5_weights``),
-``None`` for the cached release file ``bninception_imagenet_1000_no_top.h5``
+``.h5`` file (imported by creation order with ``load_convbn_h5_weights``)
+or of a ``Model.save_weights`` msgpack file of either package, ``None`` for the cached release file ``bninception_imagenet_1000_no_top.h5``
 in ``weights_cache_dir()`` (nothing is downloaded), or ``False`` (the
 default here; the JAX package defaults to ``None``) for the port's seeded
 init.

@@ -26,9 +26,18 @@ decay; the decayed and the other parameters are two parameter groups. The
 parameters come as ``model.named_parameters()``, a ``{name: tensor}`` dict
 or a module; bare tensors take no decay filter.
 
-Not ported yet (ROADMAP.md §1 item 6, with the callbacks they serve):
-``WeightDecayExtension``, ``mutable_lr`` (``mutable_lr=True`` raises) and
-``get_lr_scale``/``set_lr_scale``.
+``mutable_lr=True`` adds a host-settable factor on the learning rate,
+``lr_scale`` (1.0 at first), which :func:`set_lr_scale` changes and
+:func:`get_lr_scale` reads (``callbacks.ReduceLROnPlateau`` and
+``LearningRateScheduler`` drive it). It multiplies the step after the
+learning rate and before the decoupled decay, so the decay keeps its
+strength when the rate drops, as in the JAX package. It lives in the
+parameter groups, so ``state_dict`` (and a checkpoint) carries it.
+
+:func:`extend_with_weight_decay` and :class:`WeightDecayExtension` add the
+decoupled decay to any other optimizer (a ``torch.optim`` one included):
+``-wd·p`` of the parameter from before the base optimizer's step, added
+after it.
 """
 
 import re
@@ -123,11 +132,6 @@ class _DecoupledOptimizer(torch.optim.Optimizer):
     update direction for one parameter."""
 
     def __init__(self, params, config):
-        if config["mutable_lr"]:
-            raise NotImplementedError(
-                "mutable_lr (the host-settable lr scale that "
-                "ReduceLROnPlateau and LearningRateScheduler use) comes with "
-                "the callbacks, ROADMAP.md §1 item 6.")
         if (config["clipnorm"] is not None
                 and config["global_clipnorm"] is not None):
             raise ValueError(
@@ -140,6 +144,9 @@ class _DecoupledOptimizer(torch.optim.Optimizer):
         groups = [{"params": [p for (_, p), d in zip(named, decays)
                               if d is decay],
                    "decay": decay, "count": 0} for decay in (True, False)]
+        if config["mutable_lr"]:
+            for group in groups:
+                group["lr_scale"] = 1.0
         super().__init__([g for g in groups if g["params"]], {})
         self._config = config
 
@@ -182,6 +189,8 @@ class _DecoupledOptimizer(torch.optim.Optimizer):
         grads = self._clip([p.grad for _, p in params])
         for (group, p), g in zip(params, grads):
             u = self._direction(p, g, self.state[p], count) * -lr
+            if "lr_scale" in group:
+                u = u * group["lr_scale"]
             if group["decay"]:
                 u = u - wd * p
             p.add_(u)
@@ -252,3 +261,152 @@ class SGDW(_DecoupledOptimizer):
         if self._config["nesterov"]:
             return g + momentum * trace
         return trace
+
+
+def _scaled_groups(optimizer):
+    while not hasattr(optimizer, "param_groups") or hasattr(optimizer, "base"):
+        optimizer = optimizer.base
+    return [g for g in optimizer.param_groups if "lr_scale" in g]
+
+
+def get_lr_scale(optimizer):
+    """The mutable learning-rate factor, or None when the optimizer was not
+    built with ``mutable_lr=True``."""
+    groups = _scaled_groups(optimizer)
+    return float(groups[0]["lr_scale"]) if groups else None
+
+
+def set_lr_scale(optimizer, scale):
+    """Set the mutable learning-rate factor of every parameter group."""
+    groups = _scaled_groups(optimizer)
+    if not groups:
+        raise ValueError(
+            "the optimizer carries no mutable lr scale: construct it with "
+            "mutable_lr=True (AdamW/SGDW) to use ReduceLROnPlateau / "
+            "LearningRateScheduler")
+    for group in groups:
+        group["lr_scale"] = float(scale)
+
+
+def _param_names(optimizer):
+    names = []
+    for group in optimizer.param_groups:
+        group_names = group.get("param_names")
+        if group_names is None:
+            return None
+        names += list(group_names)
+    return names
+
+
+class DecoupledWeightDecay:
+    """``base`` (any optimizer) with the decoupled decay added: before its
+    step, ``-wd(count)·p`` of each decayed parameter with a gradient is
+    taken; after it, added. ``parameter groups``, ``state``, ``zero_grad``
+    and the ``state_dict`` round trip pass through (the count rides along
+    in the ``state_dict``)."""
+
+    def __init__(self, base, weight_decay, decayed):
+        self.base = base
+        self.weight_decay = weight_decay
+        self._decayed = list(decayed)
+        self.count = 0
+
+    @property
+    def param_groups(self):
+        return self.base.param_groups
+
+    @property
+    def state(self):
+        return self.base.state
+
+    def zero_grad(self, set_to_none=True):
+        self.base.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        wd = _value(self.weight_decay, self.count)
+        decay = [(p, p * -wd) for p in self._decayed if p.grad is not None]
+        loss = self.base.step(closure)
+        for p, d in decay:
+            p.add_(d)
+        self.count += 1
+        return loss
+
+    def state_dict(self):
+        return {"base": self.base.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        self.base.load_state_dict(state_dict["base"])
+        self.count = int(state_dict["count"])
+
+
+def _decay_flags(optimizer, decay_include, decay_exclude):
+    n = sum(len(g["params"]) for g in optimizer.param_groups)
+    if decay_include is None and decay_exclude is None:
+        return [True] * n
+    names = _param_names(optimizer)
+    if names is None:
+        raise ValueError(
+            "decay_include/decay_exclude match parameter names: build the "
+            "base optimizer over named parameters (model.named_parameters())")
+    return _decays(names, decay_include, decay_exclude)
+
+
+def extend_with_weight_decay(base_optimizer, weight_decay, decay_include=None,
+                             decay_exclude=None):
+    """Any optimizer -> its decoupled-weight-decay variant. ``base_optimizer``
+    is an optimizer (built over named parameters when a decay filter is
+    given) or a factory ``named_params -> optimizer``, for which a factory
+    comes back. With no ``weight_decay`` the base is returned as it is."""
+    if not weight_decay:
+        return base_optimizer
+    if not hasattr(base_optimizer, "param_groups"):
+        def factory(named_params):
+            return extend_with_weight_decay(
+                base_optimizer(named_params), weight_decay, decay_include,
+                decay_exclude)
+        return factory
+    # the flags follow the groups' parameter order
+    flags = _decay_flags(base_optimizer, decay_include, decay_exclude)
+    params = [p for g in base_optimizer.param_groups for p in g["params"]]
+    return DecoupledWeightDecay(
+        base_optimizer, weight_decay,
+        [p for p, d in zip(params, flags) if d])
+
+
+class WeightDecayExtension:
+    """The decoupled decay with regex filtering as a value object (the JAX
+    package's public ``WeightDecayExtension``): ``extend(base)`` is
+    :func:`extend_with_weight_decay` with this configuration, and
+    ``mask(params)`` says which parameters decay."""
+
+    def __init__(self, weight_decay, decay_include=None, decay_exclude=None):
+        if decay_include is not None and decay_exclude is not None:
+            raise ValueError(
+                "Got both `decay_include` and `decay_exclude` arguments. "
+                "Use only `decay_include` or `decay_exclude`.")
+        self.weight_decay = weight_decay
+        self.decay_include = decay_include
+        self.decay_exclude = decay_exclude
+
+    def mask(self, params):
+        """``{name: bool}`` over the parameters (as :func:`decay_mask`)."""
+        return decay_mask(params, decay_include=self.decay_include,
+                          decay_exclude=self.decay_exclude)
+
+    def extend(self, base_optimizer):
+        return extend_with_weight_decay(
+            base_optimizer, self.weight_decay,
+            decay_include=self.decay_include,
+            decay_exclude=self.decay_exclude)
+
+    __call__ = extend
+
+    def get_config(self):
+        return {"weight_decay": self.weight_decay,
+                "decay_include": self.decay_include,
+                "decay_exclude": self.decay_exclude}
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(**config)

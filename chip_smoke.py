@@ -179,13 +179,36 @@ the CUDA toolkit. In order, it:
     attention (1%), 2 warm-ups, three timed runs of 5 steps, a profile
     by phase and routed stage, and greedy decoding of 16 tokens by full
     recompute in float32, its tokens equal to the CPU's;
-23. prints a ``paths`` JSON line (the three DETR modes, the two DeiT
-    modes, the CNN rows and phase 22's among its rows) and an ``int_mm``
-    JSON line, one ``kernels`` JSON line with all five kernels (K1 and K2
-    with their 384 px shape as ``shape_384``, K3a-c with phase 20's shape
-    as ``shape_198`` and phase 22's launches as ``launches_gshard``, K3a's
-    two decode shapes as rows of their own after it), the card line, and
-    last ``{"ok": true, "device": {...}}``.
+23. drives the training harness through the user's entry points. (a)
+    phase 9's seq2seq step through ``Trainer.fit``: the first 3 losses
+    against phase 9's hand-written step on the same batches and init
+    (``torch.optim.AdamW``, constant rate, ``spe=1``, no EMA); K3a-c 12
+    launches each a step under ``fit``, counted from 0 just before and
+    read just after; the harness's config (the port's AdamW under
+    ``LinearWarmup(1e-4, 4)``, EMA 0.999, a streamed token accuracy,
+    validation on 2 batches, ``ExperimentCallback``) at
+    ``steps_per_execution=4`` bit-equal to ``1``; SIGTERM mid-epoch, the
+    checkpoint restored into a fresh Trainer and resumed with
+    ``initial_epoch``/``skip_batches``, bit-equal to the uninterrupted run;
+    the CSV and event files read back; ms/step and tokens/s of ``spe`` 1
+    and 4 and the hand-written step in turns, launches, busy share, peak
+    memory, checkpoint size and save and restore seconds. (b) ``bench.py``'s
+    config 4 through ``Model(vit).compile/fit`` on uint8 host batches of
+    256: the first 3 losses against phase 18's hand-written step, ms/step
+    at N = 1 and 4 against it in turns, the share of the host -> device
+    copy the prefetcher hides, ``evaluate`` and ``predict``. (c) LoRA
+    rank 8 on ViT-B/16 b32 bf16, 5 steps: the backbone bit-equal to its
+    start, the adapters and head moved, the optimizer state the adapters'
+    and head's only, ``merge_lora``'s forward against the adapted one;
+    ms/step and peak memory against a full fine-tune in turns;
+24. prints a ``trainer`` JSON line (phase 23), a ``paths`` JSON line (the
+    three DETR modes, the two DeiT modes, the CNN rows and phase 22's
+    among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
+    with all five kernels (K1 and K2 with their 384 px shape as
+    ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, phase
+    22's launches as ``launches_gshard`` and phase 23's timed fit's as
+    ``launches_trainer``, K3a's two decode shapes as rows of their own
+    after it), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -3674,6 +3697,647 @@ def moe_path(torch, fa, dev):
     return vit, gshard, launches
 
 
+# ---------------------------------------------------------------------------
+# 23. the training harness on the card: phase 9's seq2seq step through
+# Trainer.fit (a), config 4 through the Keras facade (b), LoRA on ViT-B/16
+# (c)
+# ---------------------------------------------------------------------------
+
+FIT = dict(batches=6, epochs=2, val=2, window=4)   # (a): 12 steps a run
+FIT_TIMED, FIT_REPEATS = 8, 3                       # steps a timed fit call
+KERAS_BATCHES = 8                                    # (b): host batches
+LORA = dict(batch=32, steps=5, rank=8, classes=1000)
+
+
+def s2s_batches(torch, n, offset=0):
+    """Phase 9's batches as ``((src, tgt_in), labels)`` host elements:
+    ``tokens_of(i)``'s varied sources, the next-token labels."""
+    src, tgt = seq2seq_tokens(torch, torch.device("cpu"))
+    vocab = S2S["vocab"]
+    labels = torch.roll(tgt, -1, dims=1)
+    return [((torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt),
+             labels) for i in range(offset, offset + n)]
+
+
+def masked_ce(torch):
+    """Phase 9's loss as a ``loss(y_true, y_pred)``: masked cross-entropy
+    on the next token, padding labels excluded (the same ops as
+    ``seq2seq_loss``)."""
+    def loss(labels, logits):
+        mask = (labels != 0).float().flatten()
+        ce = torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), labels.flatten(), reduction="none")
+        return (ce * mask).sum() / mask.sum()
+    return loss
+
+
+class TokenAccuracy:
+    """A streaming metric (state on the card): next-token accuracy over the
+    non-padding labels."""
+
+    name = "token_accuracy"
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+
+    def init(self):
+        zero = self.torch.zeros((), device=self.dev)
+        return {"hits": zero, "count": zero.clone()}
+
+    def update(self, state, labels, logits):
+        mask = labels != 0
+        hits = ((logits.argmax(-1) == labels) & mask).sum()
+        return {"hits": state["hits"] + hits,
+                "count": state["count"] + mask.sum()}
+
+    def compute(self, state):
+        return state["hits"] / state["count"]
+
+
+class LossTape:
+    """Wraps a loss and keeps every step's value on the card (train steps
+    only: evaluation runs under ``no_grad``)."""
+
+    def __init__(self, torch, loss):
+        self.torch, self.loss, self.values = torch, loss, []
+
+    def __call__(self, y_true, y_pred):
+        value = self.loss(y_true, y_pred)
+        if self.torch.is_grad_enabled():
+            self.values.append(value.detach())
+        return value
+
+    def floats(self):
+        return [float(v) for v in self.values]
+
+
+def same_bits(torch, a, b):
+    return all(torch.equal(a[k], b[k]) for k in a) and set(a) == set(b)
+
+
+def optimizer_moments(opt):
+    """``{index: tensor}`` of every tensor in the optimizer's state."""
+    out = {}
+    for i, (_, state) in enumerate(sorted(
+            opt.state_dict()["state"].items())):
+        for key, value in state.items():
+            if hasattr(value, "shape"):
+                out[f"{i}.{key}"] = value
+    return out
+
+
+def fit_profile(torch, run, steps):
+    """Kernels, device ms and launches a step over one profiled call of
+    ``run`` (which takes ``steps`` train steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = device_kernels(torch, events)
+    return {"device_ms": sum(e.self_device_time_total for e in kernels)
+            / 1e3 / steps,
+            "launches": sum(e.count for e in kernels) / steps,
+            "table": events.table(sort_by="self_device_time_total",
+                                  row_limit=10)}
+
+
+def trainer_seq2seq_path(torch, fa, dev, workdir):
+    """Phase 23 (a): phase 9's seq2seq train step (nothing cut, flash)
+    through ``Trainer.fit``. Checks: with a constant rate, ``spe=1`` and no
+    EMA, the first 3 losses against phase 9's hand-written step on the same
+    batches and init (``torch.optim.AdamW``); K3a-c launched 12 times each
+    a step under ``fit``; the harness's config (the port's AdamW under
+    ``LinearWarmup(1e-4, 4)``, EMA 0.999, a streaming token accuracy,
+    validation on 2 batches, ``ExperimentCallback``) with
+    ``steps_per_execution=4`` bit-equal to ``1``; SIGTERM mid-epoch, the
+    checkpoint restored into a fresh Trainer and ``fit(initial_epoch,
+    skip_batches)`` bit-equal to the uninterrupted run; the CSV and event
+    files. Times ``spe`` 1 and 4 against phase 9's step in turns."""
+    import signal
+    from functools import partial
+
+    from chambers_tpu_torch.callbacks import Callback, ExperimentCallback
+    from chambers_tpu_torch.optimizers import AdamW
+    from chambers_tpu_torch.schedules import LinearWarmup
+    from chambers_tpu_torch.training import Trainer
+    from chambers_tpu_torch.training.checkpoint import PreemptionCheckpoint
+    from chambers_tpu_torch.utils.tensorboard import read_events
+
+    def build():
+        model = build_seq2seq(torch, dev, torch.bfloat16)
+        return model.train()
+
+    loss = masked_ce(torch)
+    per_step = 3 * S2S["layers"]
+
+    # the hand-written step of phase 9 and the Trainer on the same batches
+    data = s2s_batches(torch, 3)
+    hand = build()
+    opt = torch.optim.AdamW(hand.parameters(), lr=1e-4, weight_decay=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8)
+    hand_losses = []
+    for (src, tgt), labels in data:
+        opt.zero_grad(set_to_none=True)
+        value = loss(labels.to(dev), hand([src.to(dev), tgt.to(dev)],
+                                          deterministic=True))
+        value.backward()
+        opt.step()
+        hand_losses.append(float(value.detach()))
+    del hand, opt
+    module = build()
+    tape = LossTape(torch, loss)
+    trainer = Trainer(module, tape, torch.optim.AdamW(
+        module.parameters(), lr=1e-4, weight_decay=1e-4, betas=(0.9, 0.999),
+        eps=1e-8))
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    trainer.fit(data, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_attention.launches)
+    fit_losses = tape.floats()
+    bit_equal = fit_losses == hand_losses
+    gap = max(abs(a - b) / abs(b) for a, b in zip(fit_losses, hand_losses))
+    log(f"phase 23 (a): Trainer.fit's first losses {fit_losses} against "
+        f"phase 9's hand-written step {hand_losses}: "
+        f"{'bit-equal' if bit_equal else f'largest gap {gap:.3g}'}; flash "
+        f"launches over 3 steps {launches}")
+    check(gap <= 2 ** -7, "Trainer.fit's losses follow the hand-written "
+                          "step (bit-equal expected, bf16 rtol 2^-7)")
+    check(all(v == per_step * 3 for v in launches.values()),
+          "K3a, K3b and K3c launched 12 times each a step under Trainer.fit")
+    del module, trainer
+
+    # the harness's config at spe 1 and 4, and the preemption run
+    train = s2s_batches(torch, FIT["batches"])
+    val = s2s_batches(torch, FIT["val"], offset=100)
+
+    def harness(spe):
+        module = build()
+        tape = LossTape(torch, loss)
+        trainer = Trainer(
+            module, tape, partial(AdamW, weight_decay=1e-4,
+                                  learning_rate=LinearWarmup(
+                                      1e-4, warmup_steps=4)),
+            metrics={"token_accuracy": TokenAccuracy(torch, dev)},
+            ema_decay=0.999, steps_per_execution=spe)
+        return module, trainer, tape
+
+    runs = {}
+    for spe in (1, FIT["window"]):
+        module, trainer, tape = harness(spe)
+        exp = ExperimentCallback(os.path.join(workdir, f"exp_spe{spe}"))
+        for key in fa.flash_attention.launches:
+            fa.flash_attention.launches[key] = 0
+        history = trainer.fit(train, epochs=FIT["epochs"],
+                              validation_data=val, callbacks=[exp],
+                              verbose=False)
+        torch.cuda.synchronize()
+        runs[spe] = dict(module=module, trainer=trainer, history=history,
+                         losses=tape.floats(), exp=exp,
+                         launches=dict(fa.flash_attention.launches))
+    one, four = runs[1], runs[FIT["window"]]
+    n_steps = FIT["batches"] * FIT["epochs"]
+    state_of = (lambda r: (r["trainer"].state.params, r["trainer"].ema_variables,
+                           optimizer_moments(r["trainer"].optimizer)))
+    equal = [same_bits(torch, a, b)
+             for a, b in zip(state_of(one), state_of(four))]
+    log(f"phase 23 (a): spe=1 and spe={FIT['window']} over {n_steps} steps: "
+        f"losses {'equal' if one['losses'] == four['losses'] else 'differ'} "
+        f"({[round(v, 5) for v in four['losses']]}); parameters, EMA, "
+        f"moments bit-equal {equal}; epoch logs {four['history']}; flash "
+        f"launches {four['launches']}")
+    check(one["losses"] == four["losses"] and all(equal)
+          and one["history"] == four["history"],
+          "steps_per_execution=4 bit-equal to 1")
+    # validation runs K3a alone: 12 launches a batch
+    val_fwd = per_step * FIT["val"] * FIT["epochs"]
+    check(four["launches"] == {"fwd": per_step * n_steps + val_fwd,
+                               "dkv": per_step * n_steps,
+                               "dq": per_step * n_steps},
+          "K3a-c 12 launches each a step under the windowed fit, and K3a "
+          "12 a validation batch")
+
+    # the experiment directory: CSV and event files, read back
+    exp = four["exp"]
+    csv_path = os.path.join(exp.log_dir, "epoch_results.txt")
+    with open(csv_path) as f:
+        rows = f.read().strip().splitlines()
+    tags = {}
+    for sub in ("train", "validation"):
+        for name in os.listdir(os.path.join(exp.log_dir, sub)):
+            for event in read_events(os.path.join(exp.log_dir, sub, name)):
+                for v in event.get("values", []):
+                    tags.setdefault(sub, set()).add(v["tag"])
+    ckpts = sorted(os.listdir(exp.checkpoint_dir))
+    log(f"phase 23 (a): ExperimentCallback wrote {len(rows) - 1} CSV rows "
+        f"({rows[0]}), event tags {tags}, checkpoints {ckpts}, export "
+        f"{sorted(os.listdir(exp.export_dir))}")
+    check(len(rows) == FIT["epochs"] + 1 and "epoch_loss" in tags["train"]
+          and "epoch_loss" in tags["validation"] and "init.msgpack" in ckpts,
+          "the CSV log and the event files exist and read back")
+
+    # preemption: SIGTERM at the end of the second epoch's first window
+    # (step 10), a fresh Trainer restored from the checkpoint, resumed
+    class Sigterm(Callback):
+        def __init__(self):
+            self.epoch = 0
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+
+        def on_train_batch_end(self, batch, logs=None):
+            if self.epoch == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    ckpt_dir = os.path.join(workdir, "preempt")
+    module, trainer, _ = harness(FIT["window"])
+    preempt = PreemptionCheckpoint(ckpt_dir, trainer, max_to_keep=1)
+    trainer.fit(train, epochs=FIT["epochs"], validation_data=val,
+                callbacks=[Sigterm(), preempt], verbose=False)
+    check(preempt.preempted and trainer.step < n_steps,
+          "SIGTERM stopped the run at a window boundary")
+    stopped = trainer.step
+    path = os.path.join(ckpt_dir, f"{stopped}.pt")
+    ckpt_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    preempt.manager.save(stopped, trainer.state.as_dict(), force=True)
+    save_s = time.perf_counter() - t0
+    del module, trainer
+    module, trainer, _ = harness(FIT["window"])
+    t0 = time.perf_counter()
+    restored = PreemptionCheckpoint(ckpt_dir, trainer).restore_into(trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored and trainer.step == stopped, "the checkpoint restored")
+    trainer.fit(train, epochs=FIT["epochs"], validation_data=val,
+                initial_epoch=stopped // FIT["batches"],
+                skip_batches=stopped % FIT["batches"], verbose=False)
+    resumed = [same_bits(torch, a, b)
+               for a, b in zip(state_of(dict(trainer=trainer)),
+                               state_of(four))]
+    log(f"phase 23 (a): SIGTERM at step {stopped}, checkpoint "
+        f"{ckpt_bytes / 2 ** 20:.1f} MiB, save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s; resumed to step {trainer.step}: parameters, "
+        f"EMA, moments bit-equal to the uninterrupted run {resumed}")
+    check(trainer.step == n_steps and all(resumed),
+          "preemption and resume bit-equal to the uninterrupted run")
+    del module, trainer, runs, one, four
+
+    # timing: spe 1 and 4 against phase 9's hand-written step, in turns
+    timed = s2s_batches(torch, FIT_TIMED, offset=200)
+    dev_timed = [((s.to(dev), t.to(dev)), y.to(dev)) for (s, t), y in timed]
+    hand = build()
+    opt = torch.optim.AdamW(hand.parameters(), lr=1e-4, weight_decay=1e-4,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+    def hand_steps(_):
+        for (src, tgt), labels in dev_timed:
+            opt.zero_grad(set_to_none=True)
+            loss(labels, hand([src, tgt], deterministic=True)).backward()
+            opt.step()
+
+    trainers = {spe: harness(spe)[1] for spe in (1, FIT["window"])}
+    steps = {"phase 9 step": hand_steps}
+    for spe, t in trainers.items():
+        steps[f"fit spe={spe}"] = (
+            lambda _, t=t: t.fit(timed, epochs=1, verbose=False))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = run_in_turns(torch, steps, 1, FIT_REPEATS, 1)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ms = {k: median(v) / FIT_TIMED for k, v in runs.items()}
+    tokens = S2S["batch"] * 2 * S2S["t"]
+    profiles = {k: fit_profile(torch, lambda k=k: steps[k](0), FIT_TIMED)
+                for k in steps}
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+    steps[f"fit spe={FIT['window']}"](0)
+    torch.cuda.synchronize()
+    timed_launches = dict(fa.flash_attention.launches)
+    check(all(v == per_step * FIT_TIMED for v in timed_launches.values()),
+          "K3a-c 12 launches each a step in the timed fit")
+    out = {"losses_vs_phase9": {"fit": fit_losses, "hand": hand_losses,
+                                "bit_equal": bit_equal, "max_rel_gap": gap},
+           "spe_bit_equal": True, "resume_bit_equal": True,
+           "preempted_at_step": stopped, "checkpoint_mib":
+           ckpt_bytes / 2 ** 20, "checkpoint_save_s": save_s,
+           "checkpoint_restore_s": restore_s,
+           "flash_launches_per_step": {k: v / FIT_TIMED for k, v in
+                                       timed_launches.items()},
+           "flash_launches": launches, "peak_gib_above_models": peak,
+           "ms_per_step": ms, "runs_ms": {k: [r / FIT_TIMED for r in v]
+                                          for k, v in runs.items()},
+           "tokens_s": {k: tokens / (v / 1e3) for k, v in ms.items()},
+           "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+           "launches_per_step": {k: p["launches"]
+                                 for k, p in profiles.items()},
+           "busy": {k: profiles[k]["device_ms"] / ms[k] for k in ms}}
+    log(profiles[f"fit spe={FIT['window']}"]["table"])
+    log(f"phase 23 (a) seq2seq (b16, 512 + 512 bf16, flash) median of "
+        f"{FIT_REPEATS} runs of {FIT_TIMED} steps, in turns: " + "; ".join(
+            f"{k} {ms[k]:.3f} ms/step ({out['tokens_s'][k]:.0f} tokens/s, "
+            f"runs {', '.join(f'{r:.3f}' for r in out['runs_ms'][k])}), "
+            f"kernels {out['device_ms'][k]:.3f} ms, busy "
+            f"{100 * out['busy'][k]:.1f}%, {out['launches_per_step'][k]:.0f}"
+            f" launches" for k in ms)
+        + f"; peak {peak:.2f} GiB above the resident models on {CARD}")
+    return out, timed_launches
+
+
+def keras_metric_learning_path(torch, dev):
+    """Phase 23 (b): ``bench.py``'s config 4 (``tools/bench_trainer_fit.py``'s
+    setup, uncut) through the Keras facade: the ViT-S/16 embedder in bf16,
+    batches of 256 host-resident uint8 images, P×K labels ``arange(256) %
+    64``, the MS loss on ``l2_normalize``d features and the port's AdamW,
+    ``Model(vit).compile(...)`` and array-form ``fit`` at
+    ``steps_per_execution`` 1 and 4, then ``evaluate`` and ``predict``.
+    Checks the first 3 losses against phase 18's hand-written step on the
+    same batches; times fit at N = 1 and 4 against the hand-written step
+    (device-resident batches) in turns, and the same Trainer fed
+    device-resident batches, to read the share of the host -> device copy
+    that the prefetcher hides."""
+    from functools import partial
+
+    import numpy as np
+
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.layers.normalization import l2_normalize
+    from chambers_tpu_torch.losses import MultiSimilarityLoss
+    from chambers_tpu_torch.models import Model
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+    from chambers_tpu_torch.optimizers import AdamW
+
+    b = ML["batch"]
+
+    def build():
+        vit = VisionTransformer(
+            16, ML["width"], ML["depth"], ML["heads"], ML["mlp"],
+            dropout_rate=0.0, image_size=(ML["size"], ML["size"]),
+            include_top=False, pooling="cls", feature_dim=ML["features"],
+            dtype=torch.bfloat16, score_dtype=torch.bfloat16, device=dev)
+        return initializers.init_module(
+            vit, torch.Generator(device=dev).manual_seed(0)).train()
+
+    ms_loss = MultiSimilarityLoss()
+
+    def loss(y_true, y_pred):
+        return ms_loss(y_true, l2_normalize(y_pred, axis=-1))
+
+    optimizer = partial(AdamW, weight_decay=1e-4, learning_rate=1e-3,
+                        decay_exclude=["bias", "norm"])
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 256, (KERAS_BATCHES * b, ML["size"], ML["size"], 3),
+                    np.uint8)
+    y = np.tile(np.arange(b) % ML["classes"], KERAS_BATCHES)
+
+    # phase 18's hand-written step on the same first 3 batches
+    hand = build()
+    opt = optimizer(list(hand.named_parameters()))
+    hand_losses = []
+    for i in range(3):
+        xb = torch.from_numpy(x[i * b:(i + 1) * b]).to(dev)
+        yb = torch.from_numpy(y[i * b:(i + 1) * b]).to(dev)
+        opt.zero_grad(set_to_none=True)
+        value = loss(yb, hand(xb, deterministic=True))
+        value.backward()
+        opt.step()
+        hand_losses.append(float(value.detach()))
+    tape = LossTape(torch, loss)
+    model = Model(build()).compile(optimizer=optimizer, loss=tape,
+                                   steps_per_execution=1)
+    model.fit(x[:3 * b], y[:3 * b], batch_size=b, shuffle=False,
+              verbose=False)
+    fit_losses = tape.floats()
+    gap = max(abs(a - c) / abs(c) for a, c in zip(fit_losses, hand_losses))
+    log(f"phase 23 (b): Model.fit's first losses {fit_losses} against phase "
+        f"18's hand-written step {hand_losses}: "
+        f"{'bit-equal' if fit_losses == hand_losses else f'gap {gap:.3g}'}")
+    check(gap <= 2 ** -7, "Model.fit's losses follow the hand-written step "
+                          "(bit-equal expected, bf16 rtol 2^-7)")
+    evaluated = model.evaluate(x[:2 * b], y[:2 * b], batch_size=b,
+                               verbose=False)
+    feats = model.predict(x[:b], batch_size=b)
+    check(np.isfinite(evaluated) and feats.shape == (b, ML["features"])
+          and np.isfinite(feats).all(), "evaluate and predict")
+    del hand, opt
+
+    # timing in turns: the hand-written step on device-resident batches,
+    # fit at N = 1 and 4 from the host, and fit at N = 4 fed
+    # device-resident batches
+    n = KERAS_BATCHES
+    dev_x = torch.from_numpy(x[:n * b]).to(dev)
+    dev_y = torch.from_numpy(y[:n * b]).to(dev)
+    hand = build()
+    opt = optimizer(list(hand.named_parameters()))
+
+    def hand_steps(_):
+        for i in range(n):
+            opt.zero_grad(set_to_none=True)
+            loss(dev_y[i * b:(i + 1) * b],
+                 hand(dev_x[i * b:(i + 1) * b], deterministic=True)).backward()
+            opt.step()
+
+    models = {spe: Model(build()).compile(optimizer=optimizer, loss=loss,
+                                          steps_per_execution=spe)
+              for spe in (1, 4)}
+    resident = [(dev_x[i * b:(i + 1) * b], dev_y[i * b:(i + 1) * b])
+                for i in range(n)]
+    steps = {"phase 18 step": hand_steps}
+    for spe, m in models.items():
+        steps[f"fit spe={spe}"] = (lambda _, m=m: m.fit(
+            x, y, batch_size=b, shuffle=False, verbose=False))
+    steps["fit spe=4, device-resident"] = (
+        lambda _: models[4].trainer.fit(resident, epochs=1, verbose=False))
+    runs = run_in_turns(torch, steps, 1, FIT_REPEATS, 1)
+    ms = {k: median(v) / n for k, v in runs.items()}
+    # what a host-fed step does that a device-resident one does not: the
+    # host's batch preparation (the array form's gather, pinning), timed
+    # on the host clock, and the copy to the card, timed with CUDA events
+    from chambers_tpu_torch.models.model import _ArrayBatcher
+    from chambers_tpu_torch.training.trainer import _host_tensor
+
+    t0 = time.perf_counter()
+    pinned = [_host_tensor(xb).pin_memory() for xb, _ in _ArrayBatcher(
+        [x, y], b)]
+    prep_ms = (time.perf_counter() - t0) * 1e3 / n
+    copy_ms = cuda_ms(torch, lambda: pinned[0].to(dev, non_blocking=True),
+                      10)
+    visible = ms["fit spe=4"] - ms["fit spe=4, device-resident"]
+    hidden = 1.0 - visible / (prep_ms + copy_ms)
+    del pinned
+    profiles = {k: fit_profile(torch, lambda k=k: steps[k](0), n)
+                for k in ("phase 18 step", "fit spe=4")}
+    out = {"first_losses": {"fit": fit_losses, "hand": hand_losses,
+                            "bit_equal": fit_losses == hand_losses},
+           "ms_per_step": ms, "runs_ms": {k: [r / n for r in v]
+                                          for k, v in runs.items()},
+           "img_s": {k: b / (v / 1e3) for k, v in ms.items()},
+           "h2d_copy_ms_per_batch": copy_ms,
+           "host_batch_prep_ms": prep_ms,
+           "host_fed_over_resident_ms": visible,
+           "prep_and_copy_share_hidden": hidden,
+           "harness_ms_over_phase18": {
+               k: ms[k] - ms["phase 18 step"] for k in ms},
+           "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+           "launches_per_step": {k: p["launches"]
+                                 for k, p in profiles.items()},
+           "evaluate_loss": float(evaluated)}
+    log(f"phase 23 (b) config 4 (ViT-S/16 b{b} bf16, uint8 host batches) "
+        f"median of {FIT_REPEATS} runs of {n} steps, in turns: " + "; ".join(
+            f"{k} {v:.3f} ms/step ({out['img_s'][k]:.1f} img/s)"
+            for k, v in ms.items())
+        + f"; a batch's host preparation (gather, pinning) {prep_ms:.3f} "
+        f"ms and copy to the card {copy_ms:.3f} ms, against {visible:.3f} ms "
+        f"a step more than device-resident batches: {100 * hidden:.1f}% of "
+        f"them hidden; kernels a step {out['device_ms']} ms, "
+        f"launches {out['launches_per_step']} on {CARD}")
+    return out
+
+
+def lora_vitb16_path(torch, dev):
+    """Phase 23 (c): ``examples/finetune_lora.py``'s recipe at ViT-B/16's
+    widths: rank-8 adapters on every Dense/MHA projection,
+    ``trainable=[lora.TRAINABLE, "predictions"]``, bf16, batch 32 at 224
+    px, 5 steps. Checks the frozen backbone bit-equal to its start, the
+    adapters and head moved, ``merge_lora``'s forward against the adapted
+    one (cosine >= 0.9999), and the optimizer state holding the adapters
+    and the head only; times it against a full fine-tune in turns."""
+    from functools import partial
+
+    import numpy as np
+
+    from chambers_tpu_torch.losses import SparseCategoricalCrossentropy
+    from chambers_tpu_torch.models import Model
+    from chambers_tpu_torch.models.backbones.vision_transformer import ViTB16
+    from chambers_tpu_torch.optimizers import AdamW
+    from chambers_tpu_torch.training import Trainer, lora
+
+    def build():
+        return ViTB16(dtype=torch.bfloat16, dropout_rate=0.0, seed=0,
+                      device=dev)
+
+    rng = np.random.RandomState(23)
+    b = LORA["batch"]
+    data = [(rng.rand(b, SIZE, SIZE, 3).astype(np.float32),
+             rng.randint(0, LORA["classes"], b))
+            for _ in range(LORA["steps"])]
+    loss = SparseCategoricalCrossentropy(from_logits=True)
+    optimizer = partial(AdamW, weight_decay=1e-4, learning_rate=1e-3)
+
+    vit = build()
+    start = {k: v.clone() for k, v in vit.state_dict().items()}
+    lora.apply_to_model(vit, LORA["rank"],
+                        torch.Generator(device=dev).manual_seed(1))
+    trainer = Trainer(Model(vit), loss, optimizer,
+                      trainable=[lora.TRAINABLE, "predictions"])
+    n_adapters = sum(p.numel() for n, p in vit.named_parameters()
+                     if "_lora_" in n)
+    trainer.fit(data, epochs=1, verbose=False)
+    after = vit.state_dict()
+    frozen_equal = all(torch.equal(after[k], v) for k, v in start.items()
+                       if not k.startswith("predictions"))
+    head_moved = not torch.equal(after["predictions.kernel"],
+                                 start["predictions.kernel"])
+    b_moved = sum(int(after[k].abs().sum() > 0) for k in after
+                  if k.endswith("_lora_b"))
+    n_b = sum(1 for k in after if k.endswith("_lora_b"))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for s in trainer.optimizer.state.values()
+                      for t in s.values() if hasattr(t, "numel"))
+    trained = sum(p.numel() for p in vit.parameters() if p.requires_grad)
+    x = torch.from_numpy(data[0][0]).to(dev)
+    vit.eval()
+    base = build()
+    base.load_state_dict(lora.merge_lora(vit.state_dict()))
+    with torch.no_grad():
+        adapted = vit(x).float().flatten()
+        merged = base(x).float().flatten()
+    cos = float(torch.nn.functional.cosine_similarity(adapted, merged, dim=0))
+    log(f"phase 23 (c) LoRA rank {LORA['rank']} on ViT-B/16: {n_b} adapter "
+        f"pairs ({n_adapters} values); backbone bit-equal to its start "
+        f"{frozen_equal}; head moved {head_moved}; {b_moved} of {n_b} B "
+        f"factors moved; optimizer state {state_bytes / 2 ** 20:.2f} MiB for "
+        f"{trained} trained values (AdamW's two moments: "
+        f"{8 * trained / 2 ** 20:.2f} MiB); merged forward against the "
+        f"adapted one: cosine {cos:.7f}, max |d| "
+        f"{float((adapted - merged).abs().max()):.3g}")
+    check(frozen_equal and head_moved and b_moved == n_b,
+          "the backbone stays bit-equal; the adapters and the head move")
+    check(state_bytes == 8 * trained,
+          "the optimizer state holds the adapters and the head only")
+    check(cos >= 0.9999, "merge_lora's forward equals the adapted forward")
+    del base
+
+    # LoRA against a full fine-tune of the same model, in turns
+    full = build()
+    full_trainer = Trainer(Model(full), loss, optimizer)
+    vit.train()
+    steps = {"lora": lambda _: trainer.fit(data, epochs=1, verbose=False),
+             "full fine-tune": lambda _: full_trainer.fit(
+                 data, epochs=1, verbose=False)}
+    peaks = {}
+    for name, step in steps.items():
+        step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        step(0)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base_bytes) \
+            / 2 ** 30
+    runs = run_in_turns(torch, steps, 0, FIT_REPEATS, 1)
+    ms = {k: median(v) / LORA["steps"] for k, v in runs.items()}
+    profiles = {k: fit_profile(torch, lambda k=k: steps[k](0),
+                               LORA["steps"]) for k in steps}
+    full_bytes = sum(t.numel() * t.element_size()
+                     for s in full_trainer.optimizer.state.values()
+                     for t in s.values() if hasattr(t, "numel"))
+    out = {"ms_per_step": ms, "runs_ms": {k: [r / LORA["steps"] for r in v]
+                                          for k, v in runs.items()},
+           "img_s": {k: b / (v / 1e3) for k, v in ms.items()},
+           "peak_gib_above_resident": peaks,
+           "optimizer_state_mib": {"lora": state_bytes / 2 ** 20,
+                                   "full fine-tune": full_bytes / 2 ** 20},
+           "adapter_values": n_adapters, "merge_cosine": cos,
+           "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+           "launches_per_step": {k: p["launches"]
+                                 for k, p in profiles.items()},
+           "busy": {k: profiles[k]["device_ms"] / ms[k] for k in ms}}
+    log(f"phase 23 (c) ViT-B/16 b{b} bf16, median of {FIT_REPEATS} runs of "
+        f"{LORA['steps']} steps in turns: " + "; ".join(
+            f"{k} {v:.3f} ms/step, kernels {out['device_ms'][k]:.3f} ms "
+            f"(busy {100 * out['busy'][k]:.1f}%, "
+            f"{out['launches_per_step'][k]:.0f} launches), peak "
+            f"{peaks[k]:.2f} GiB above the resident state, optimizer state "
+            f"{out['optimizer_state_mib'][k]:.1f} MiB"
+            for k, v in ms.items()) + f" on {CARD}")
+    return out
+
+
+def harness_path(torch, fa, dev):
+    """Phase 23: (a), (b) and (c) in a scratch directory of the checkout,
+    removed afterwards."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase23")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        seq2seq, launches = trainer_seq2seq_path(torch, fa, dev, workdir)
+        keras = keras_metric_learning_path(torch, dev)
+        lora_run = lora_vitb16_path(torch, dev)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"seq2seq_fit": seq2seq, "keras_config4": keras,
+            "lora_vitb16": lora_run}, launches
+
+
 def main():
     global CARD
     import torch
@@ -4163,6 +4827,16 @@ def main():
     paths["moe vit-s/16 checks"] = moe_vit_results["checks"]
     paths["gshard seq2seq train step (top-2 of 8, b16 512 + 512 bf16, "
           "flash, AdamW)"] = gshard
+
+    # 23. the training harness: phase 9's step through Trainer.fit (a),
+    # config 4 through the Keras facade (b), LoRA on ViT-B/16 (c)
+    harness, harness_launches = harness_path(torch, fa, dev)
+    for row in rows:
+        key = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+               "flash_bwd_dq": "dq"}.get(row["name"])
+        if key:
+            row["launches_trainer"] = harness_launches[key]
+    log(json.dumps({"trainer": harness, "card": CARD}))
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

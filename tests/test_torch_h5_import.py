@@ -679,13 +679,26 @@ def test_weights_argument_checks():
 
 
 @pytest.mark.parametrize("build", [
-    lambda p: tvit.ViTS16(weights=p, input_shape=(32, 32, 3), device="cpu"),
-    lambda p: tse.SENet(tse.MODELS_PARAMS["seresnet50"]._replace(
-        repetitions=(1,)), weights=p, device="cpu"),
-    lambda p: tinc.BNInception(weights_path=p, device="cpu"),
+    lambda p, s: tvit.ViTS16(weights=p, input_shape=(32, 32, 3), seed=s,
+                             device="cpu"),
+    lambda p, s: tse.SENet(tse.MODELS_PARAMS["seresnet50"]._replace(
+        repetitions=(1,)), weights=p, seed=s, device="cpu"),
+    lambda p, s: tinc.BNInception(weights_path=p or False, seed=s,
+                                  device="cpu"),
 ], ids=["vit", "senet", "bninception"])
 def test_a_non_h5_file_names_the_training_harness(tmp_path, build):
+    """A file that is not ``.h5`` is a ``Model.save_weights`` msgpack (the
+    training harness's format, ROADMAP.md §1 item 6): it loads, and an
+    empty one says it is truncated."""
+    from chambers_tpu_torch.models import Model
+
+    source = build(None, 1)
     path = tmp_path / "weights.msgpack"
-    path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build(str(path))
+    Model(source).save_weights(str(path))
+    loaded = build(str(path), 0)
+    for key, value in source.state_dict().items():
+        assert torch.equal(loaded.state_dict()[key], value), key
+    empty = tmp_path / "empty.msgpack"
+    empty.write_bytes(b"")
+    with pytest.raises(ValueError, match="truncated"):
+        build(str(empty), 0)

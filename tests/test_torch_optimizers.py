@@ -219,10 +219,13 @@ def test_config_round_trip_and_refusals():
     sgdw = topt.SGDW(params, weight_decay=1e-4, momentum=0.9)
     assert (sgdw.get_config()
             == jopt.SGDW(weight_decay=1e-4, momentum=0.9).get_config())
-    with pytest.raises(NotImplementedError, match="§1 item 6"):
-        topt.AdamW(params, weight_decay=1e-4, mutable_lr=True)
-    with pytest.raises(NotImplementedError, match="§1 item 6"):
-        topt.SGDW(params, weight_decay=1e-4, mutable_lr=True)
+    # mutable_lr came with the callbacks: the config round-trips as JAX's
+    # and the scale starts at 1 in every parameter group
+    for cls, jcls in ((topt.AdamW, jopt.AdamW), (topt.SGDW, jopt.SGDW)):
+        mut = cls(params, weight_decay=1e-4, mutable_lr=True)
+        assert mut.get_config() == jcls(weight_decay=1e-4,
+                                        mutable_lr=True).get_config()
+        assert all(g["lr_scale"] == 1.0 for g in mut.param_groups)
     with pytest.raises(ValueError, match="decay_include"):
         topt.AdamW(params, weight_decay=1e-4, decay_include=["a"],
                    decay_exclude=["b"])
