@@ -12,8 +12,8 @@ in ``ops/csrc`` and are built with ``nvcc`` at first use
 runs its plain PyTorch version instead.
 
 Submodules load on first attribute access, as the JAX package's do
-(``chambers_tpu_torch.losses``); the ones not ported yet (``data``,
-``parallel``, ``serving``) raise an ``AttributeError`` that names their
+(``chambers_tpu_torch.losses``); the ones not ported yet (``parallel``,
+``serving``) raise an ``AttributeError`` that names their
 ROADMAP item.
 """
 
@@ -22,13 +22,13 @@ from chambers_tpu_torch._device import resolve_device
 __all__ = ["resolve_device"]
 
 _SUBMODULES = (
-    "activations", "augmentations", "callbacks", "initializers", "layers",
-    "losses", "metrics", "miners", "models", "ops", "optimizers",
+    "activations", "augmentations", "callbacks", "data", "initializers",
+    "layers", "losses", "metrics", "miners", "models", "ops", "optimizers",
     "quantization", "schedules", "serialization", "training", "utils",
 )
 # the JAX package's submodules that the port has no counterpart of yet,
 # and the item of ROADMAP.md §1 that ports each
-_NOT_PORTED = {"data": 7, "parallel": 8, "serving": 8}
+_NOT_PORTED = {"parallel": 8, "serving": 8}
 
 
 def __getattr__(name):

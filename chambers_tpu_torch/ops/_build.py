@@ -11,7 +11,9 @@ the JAX package's image blends require (the ``warp`` library);
 are FMAs or tensor-core products (the ``flash_attention`` library).
 ``--threads 0`` lets ``nvcc`` compile a library's sources side by side. Its
 register and spill report (``-Xptxas -v``) is kept beside the library as
-``<name>-<hash>.log``.
+``<name>-<hash>.log``. The host input pipeline's C++ sources
+(``chambers_tpu_torch/data/_native``) build the same way with ``g++``
+(:func:`compile_library`).
 """
 
 import ctypes
@@ -51,17 +53,28 @@ def build(name: str, sources, flags=None) -> Path:
     ``.log``. A ``.cuh`` among the sources is a header the others include:
     it counts in the hash and is not handed to the compiler."""
     flags = NVCC_FLAGS if flags is None else list(flags)
-    paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(flags).encode())
+    return compile_library(name, [CSRC / s for s in sources], flags, _nvcc)
+
+
+def compile_library(name: str, paths, flags, compiler, libraries=()) -> Path:
+    """Compile the source files ``paths`` with ``compiler()`` (a function
+    that returns the compiler's path, called only when a build is needed)
+    and ``flags``, linking ``libraries``, into ``build/<name>-<hash>.so``
+    unless it exists, the hash taken over the sources, the flags and the
+    libraries; return its path. The compiler's report goes beside it as
+    ``.log``; a failed build raises ``RuntimeError`` with it. The host
+    input pipeline builds its C++ sources with ``g++`` through this too
+    (``chambers_tpu_torch.data.native``)."""
+    digest = hashlib.sha256(" ".join([*flags, *libraries]).encode())
     for p in paths:
-        digest.update(p.read_bytes())
+        digest.update(Path(p).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp),
-           *(str(p) for p in paths if p.suffix != ".cuh")]
+    cmd = [compiler(), *flags, "-o", str(tmp),
+           *(str(p) for p in paths if Path(p).suffix != ".cuh"), *libraries]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
@@ -69,7 +82,8 @@ def build(name: str, sources, flags=None) -> Path:
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}:\n{log}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed building {name}:\n"
+                           f"{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

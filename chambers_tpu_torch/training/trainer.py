@@ -20,8 +20,9 @@ with Keras-style callback hooks, the options of the JAX package's
   window; batch callbacks fire once a window with the last step's logs,
   and ``stop_training`` is honoured at window boundaries. The steps are
   the ones ``N=1`` runs, in the same order, so the numbers are the same;
-- batches reach the card through :class:`_DevicePrefetcher`: pinned host
-  memory, ``non_blocking`` copies on a copy stream, at most ``depth``
+- batches reach the card through ``data/loader.py``'s
+  :class:`_DevicePrefetcher` (which ``device_prefetch`` shares): pinned
+  host memory, ``non_blocking`` copies on a copy stream, at most ``depth``
   batches ahead of the step;
 - one explicit ``torch.Generator`` seeded from ``seed`` feeds the module's
   dropout (its ``generator=`` argument).
@@ -36,7 +37,6 @@ import inspect
 import itertools
 import re
 import time
-from collections import deque
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 
@@ -44,6 +44,12 @@ import numpy as np
 import torch
 
 from chambers_tpu_torch.callbacks import Callback, CallbackList
+from chambers_tpu_torch.data.loader import (
+    _DevicePrefetcher,
+    _leaves,
+    _to_device,
+    _tree_map,
+)
 from chambers_tpu_torch.models.backbones.convert import jax_path
 
 
@@ -69,33 +75,6 @@ class TrainState:
         return {f.name: getattr(self, f.name) for f in fields(self)}
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return None if tree is None else fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def _host_tensor(x):
-    """A batch leaf as a CPU tensor: numpy float64 becomes float32, as in
-    the JAX package (which runs with 64-bit types off)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    arr = np.asarray(x)
-    if arr.dtype == np.float64:
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr))
-
-
 class _PushbackIterator:
     """Iterator wrapper with one-batch pushback (window boundary cuts)."""
 
@@ -113,61 +92,6 @@ class _PushbackIterator:
 
     def push(self, item):
         self._stack.append(item)
-
-
-class _DevicePrefetcher:
-    """Host -> device prefetching over a batch iterator.
-
-    ``place(*batch)`` moves a batch to the device; with a CUDA copy
-    ``stream`` it runs on that stream (pinned memory, ``non_blocking``
-    copies), an event marks the batch's copies, and on delivery the
-    consuming stream waits for that event and every tensor of the batch
-    is recorded on it (``record_stream``), so its memory is never reused
-    while the step still reads it. Keeps at most ``depth`` batches placed
-    ahead of the consumer. Lazy: constructing it pulls no batch.
-    """
-
-    def __init__(self, it, place, depth: int = 2, stream=None):
-        self._it = it
-        self._place = place
-        self._queue = deque()
-        self._depth = depth
-        self._stream = stream
-        self._started = False
-
-    def _fill(self, n):
-        for _ in range(n):
-            try:
-                batch = next(self._it)
-            except StopIteration:
-                return
-            if self._stream is None:
-                self._queue.append((self._place(*batch), None))
-                continue
-            with torch.cuda.stream(self._stream):
-                placed = self._place(*batch)
-                event = torch.cuda.Event()
-                event.record(self._stream)
-            self._queue.append((placed, event))
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        if not self._started:
-            self._started = True
-            self._fill(self._depth)
-        if not self._queue:
-            raise StopIteration
-        out, event = self._queue.popleft()
-        if event is not None:
-            current = torch.cuda.current_stream()
-            current.wait_event(event)
-            for t in _leaves(out):
-                if isinstance(t, torch.Tensor) and t.is_cuda:
-                    t.record_stream(current)
-        self._fill(1)
-        return out
 
 
 def _clone(tensors):
@@ -584,17 +508,11 @@ class Trainer:
         return logs
 
     # -- data -------------------------------------------------------------------
-    def _to_device(self, x):
-        t = _host_tensor(x)
-        if self.device.type != "cuda" or t.is_cuda:
-            return t.to(self.device)
-        if not t.is_pinned():
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     def _place_batch(self, x, y, sw=None):
-        return (_tree_map(self._to_device, x), _tree_map(self._to_device, y),
-                _tree_map(self._to_device, sw))
+        def place(leaf):
+            return _to_device(leaf, self.device)
+
+        return _tree_map(place, x), _tree_map(place, y), _tree_map(place, sw)
 
     def _prefetch(self, it):
         return _DevicePrefetcher(it, self._place_batch,

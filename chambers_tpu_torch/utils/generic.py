@@ -3,8 +3,6 @@
 ``set_dtype_policy_deep`` sets the compute ``dtype`` of every submodule
 that has one, in place: the port's layers keep float32 parameters and cast
 at use, as the JAX package's do under a ``dtype`` clone.
-``ProgressBar.dataset_apply_fn`` needs the host data pipeline's
-``Dataset`` (ROADMAP.md §1 item 7) and raises.
 """
 
 import inspect
@@ -165,7 +163,15 @@ class ProgressBar:
         self.stream.flush()
 
     def dataset_apply_fn(self, dataset):
-        raise NotImplementedError(
-            "ProgressBar.dataset_apply_fn wraps the host data pipeline's "
-            "Dataset, which is not ported yet (ROADMAP.md §1 item 7); call "
-            "add()/update() from the loop instead")
+        """``dataset`` as a :class:`~chambers_tpu_torch.data.Dataset` that
+        advances the bar by one for each element it yields."""
+        bar = self
+
+        def gen():
+            for el in dataset:
+                bar.add(1)
+                yield el
+
+        from chambers_tpu_torch.data.core import Dataset
+
+        return Dataset(gen)

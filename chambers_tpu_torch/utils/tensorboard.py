@@ -3,12 +3,11 @@
 
 ``Event`` protos (tensorflow/core/util/event.proto) in TFRecord framing:
 each record is ``uint64 length, masked crc32c(length), data, masked
-crc32c(data)``, little-endian. The port keeps its own pure-Python copy of
-the framing, the CRC32C (Castagnoli, one 256-entry table: event files are
-small) and the few protobuf fields it needs, so it imports nothing of the
-JAX package. Apart from the wall time, a file written here holds the bytes
-the JAX package writes for the same calls, and each package reads the
-other's.
+crc32c(data)``, little-endian. The framing, the CRC32C and the protobuf
+helpers are the host data pipeline's (``chambers_tpu_torch.data.tfrecord``),
+as the JAX package's module takes them from its own. Apart from the wall
+time, a file written here holds the bytes the JAX package writes for the
+same calls, and each package reads the other's.
 
 Summary kinds: scalars (``simple_value``), histograms (``HistogramProto``
 with TF's exponential buckets or explicit ``bins``) and text (a
@@ -26,123 +25,20 @@ from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
 
+from chambers_tpu_torch.data.tfrecord import (
+    _crc32c as crc32c,
+    _iter_fields,
+    _len_delim,
+    _masked_crc as masked_crc32c,
+    _signed_varint,
+    _tag,
+    _varint,
+    _zigzag_to_signed as _to_signed,
+    read_tfrecord as read_records,
+)
+
 __all__ = ["SummaryWriter", "read_events", "default_histogram_buckets",
            "masked_crc32c"]
-
-
-# ---------------------------------------------------------------------------
-# CRC32C and the TFRecord framing
-# ---------------------------------------------------------------------------
-
-def _crc_table():
-    table = []
-    for i in range(256):
-        c = i
-        for _ in range(8):
-            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
-        table.append(c)
-    return table
-
-
-_CRC_TABLE = _crc_table()
-
-
-def crc32c(data: bytes) -> int:
-    crc = 0xFFFFFFFF
-    table = _CRC_TABLE
-    for b in data:
-        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
-    return crc ^ 0xFFFFFFFF
-
-
-def masked_crc32c(data: bytes) -> int:
-    """TFRecord's masked CRC: the CRC32C rotated right by 15 bits plus
-    ``0xa282ead8``, modulo 2**32."""
-    crc = crc32c(data)
-    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
-
-
-def read_records(path: str, verify: bool = True) -> Iterator[bytes]:
-    """The payloads of a TFRecord file, CRC-checked."""
-    with open(path, "rb") as f:
-        while True:
-            header = f.read(8)
-            if not header:
-                return
-            if len(header) != 8:
-                raise ValueError(f"truncated TFRecord header in {path}")
-            (length,) = struct.unpack("<Q", header)
-            (hcrc,) = struct.unpack("<I", f.read(4))
-            data = f.read(length)
-            (dcrc,) = struct.unpack("<I", f.read(4))
-            if verify and (hcrc != masked_crc32c(header)
-                           or dcrc != masked_crc32c(data)):
-                raise ValueError(f"TFRecord CRC mismatch in {path}")
-            yield data
-
-
-# ---------------------------------------------------------------------------
-# protobuf wire format: the fields the Event protos use
-# ---------------------------------------------------------------------------
-
-def _varint(n: int) -> bytes:
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if n:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _read_varint(buf: bytes, pos: int):
-    result = shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _tag(field: int, wire: int) -> bytes:
-    return _varint((field << 3) | wire)
-
-
-def _len_delim(field: int, payload: bytes) -> bytes:
-    return _tag(field, 2) + _varint(len(payload)) + payload
-
-
-def _signed_varint(n: int) -> bytes:
-    return _varint(n & 0xFFFFFFFFFFFFFFFF)
-
-
-def _to_signed(v: int) -> int:
-    """int64 fields are two's-complement varints."""
-    return v - (1 << 64) if v >= (1 << 63) else v
-
-
-def _iter_fields(buf: bytes):
-    """``(field, wire type, value)``; length-delimited values as bytes."""
-    pos, n = 0, len(buf)
-    while pos < n:
-        key, pos = _read_varint(buf, pos)
-        field, wire = key >> 3, key & 7
-        if wire == 0:
-            val, pos = _read_varint(buf, pos)
-        elif wire == 1:
-            val, pos = buf[pos:pos + 8], pos + 8
-        elif wire == 2:
-            ln, pos = _read_varint(buf, pos)
-            val, pos = buf[pos:pos + ln], pos + ln
-        elif wire == 5:
-            val, pos = buf[pos:pos + 4], pos + 4
-        else:
-            raise ValueError(f"unsupported protobuf wire type {wire}")
-        yield field, wire, val
 
 
 def _double(field: int, value: float) -> bytes:

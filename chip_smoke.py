@@ -201,14 +201,36 @@ the CUDA toolkit. In order, it:
     start, the adapters and head moved, the optimizer state the adapters'
     and head's only, ``merge_lora``'s forward against the adapted one;
     ms/step and peak memory against a full fine-tune in turns;
-24. prints a ``trainer`` JSON line (phase 23), a ``paths`` JSON line (the
+24. drives the host data pipeline (``chambers_tpu_torch.data``) into
+    config 4's step through ``Trainer.fit``, as
+    ``examples/train_metric_learning.py`` does: the ViT-S/16 embedder in
+    bf16, ``apply_fn`` = per-image RandAugment(2, 9) on the card (K1, two
+    launches a step) -> 'tf' normalization -> the ViT -> ``l2_normalize``,
+    the MS loss and the port's AdamW under ``LinearWarmup``. 1024 seeded
+    uint8 224 px images of 64 classes go through ``dataset_to_tfrecord``
+    (154 MB, the native CRC32C built with g++) and come back through
+    ``tfrecord_to_dataset`` -> ``shuffle(1024, seed=42)`` -> ``repeat``
+    -> ``batch(256)`` -> ``prefetch``. Checks the round trip bit for bit,
+    the seed's stream twice the same bytes, each epoch's batches every
+    image once, the first loss of ``fit`` from the file bit-equal to the
+    same step fed the same batch from memory, K1's launches under
+    ``fit``; times the pipeline alone through ``device_prefetch``, ``fit``
+    from the file against the same batches from memory in turns, with the
+    busy share, launches a step and the share of the pipeline's work
+    hidden. The image-folder leg (a P×K JPEG folder through the native
+    decoder) needs libjpeg's headers and library, which the H100 machine
+    lacks (PERF.md §4), and is not in the script;
+25. prints a ``trainer`` JSON line (phase 23), a ``data_pipeline`` JSON
+    line (phase 24), a ``paths`` JSON line (the
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
     with all five kernels (K1 and K2 with their 384 px shape as
     ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, phase
-    22's launches as ``launches_gshard`` and phase 23's timed fit's as
-    ``launches_trainer``, K3a's two decode shapes as rows of their own
-    after it), the card line, and last ``{"ok": true, "device": {...}}``.
+    22's launches as ``launches_gshard``, phase 23's timed fit's as
+    ``launches_trainer`` and K1's in phase 24's fit calls as
+    ``launches_data_pipeline``, K3a's two decode shapes as rows of their
+    own after it), the card line, and last ``{"ok": true, "device":
+    {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -4159,7 +4181,7 @@ def keras_metric_learning_path(torch, dev):
     # host's batch preparation (the array form's gather, pinning), timed
     # on the host clock, and the copy to the card, timed with CUDA events
     from chambers_tpu_torch.models.model import _ArrayBatcher
-    from chambers_tpu_torch.training.trainer import _host_tensor
+    from chambers_tpu_torch.data.loader import _host_tensor
 
     t0 = time.perf_counter()
     pinned = [_host_tensor(xb).pin_memory() for xb, _ in _ArrayBatcher(
@@ -4336,6 +4358,281 @@ def harness_path(torch, fa, dev):
         shutil.rmtree(workdir, ignore_errors=True)
     return {"seq2seq_fit": seq2seq, "keras_config4": keras,
             "lora_vitb16": lora_run}, launches
+
+
+# ---------------------------------------------------------------------------
+# 24. the host data pipeline: config 4's step through Trainer.fit fed from a
+# TFRecord file, as examples/train_metric_learning.py feeds it from files
+# ---------------------------------------------------------------------------
+
+# 64 classes x 16 seeded 224 px images (154 MB of records), batches of 256
+# (an epoch of the file is 4 batches); a fit call runs a warm-up epoch of
+# 4 steps and two timed ones
+DATA = dict(images=1024, classes=64, batch=256, epoch_steps=4,
+            timed_epochs=2, repeats=3, pipeline_batches=8)
+
+
+def epoch_clock(torch):
+    """A callback that synchronizes the card at every epoch's end and
+    keeps the host clock there in ``ends``: epoch ``e``'s steps took
+    ``ends[e] - ends[e - 1]``."""
+    from chambers_tpu_torch.callbacks import Callback
+
+    class EpochClock(Callback):
+        def __init__(self):
+            self.ends = []
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+
+    return EpochClock()
+
+
+def config4_trainer(torch, dev, loss_wrapper=None):
+    """``examples/train_metric_learning.py``'s Trainer at config 4's widths:
+    the ViT-S/16 embedder (bf16, bf16 scores, seeded init), ``apply_fn`` =
+    per-image RandAugment(2, 9) on the card (K1, one launch a round) ->
+    ``ImageNetNormalization("tf")`` -> the ViT -> ``l2_normalize``, the MS
+    loss, the port's AdamW(1e-4, decay_exclude=["bias", "norm",
+    "embeddings"]) under ``LinearWarmup(3e-4, 50)``."""
+    from functools import partial
+
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.augmentations.augmentation_schemes import (
+        RandAugment,
+    )
+    from chambers_tpu_torch.augmentations.image_augmentations import (
+        ImageNetNormalization,
+    )
+    from chambers_tpu_torch.layers.normalization import l2_normalize
+    from chambers_tpu_torch.losses import MultiSimilarityLoss
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+    from chambers_tpu_torch.optimizers import AdamW
+    from chambers_tpu_torch.schedules import LinearWarmup
+    from chambers_tpu_torch.training import Trainer
+
+    vit = initializers.init_module(VisionTransformer(
+        16, ML["width"], ML["depth"], ML["heads"], ML["mlp"],
+        dropout_rate=0.0, image_size=(ML["size"], ML["size"]),
+        include_top=False, pooling="cls", feature_dim=ML["features"],
+        dtype=torch.bfloat16, score_dtype=torch.bfloat16, device=dev),
+        torch.Generator(device=dev).manual_seed(0))
+    augment = RandAugment(2, 9, elementwise=True)
+    normalize = ImageNetNormalization("tf")
+
+    def apply_fn(module, x, deterministic, generator):
+        if not deterministic:
+            x = augment.apply(x, augment.sample(
+                x.shape[0], tuple(x.shape[1:3]), generator, x.device))
+        return l2_normalize(module(normalize(x), deterministic=deterministic,
+                                   generator=generator), axis=-1)
+
+    loss = MultiSimilarityLoss()
+    return Trainer(vit, loss if loss_wrapper is None else loss_wrapper(loss),
+                   partial(AdamW, weight_decay=1e-4,
+                           decay_exclude=["bias", "norm", "embeddings"],
+                           learning_rate=LinearWarmup(3e-4, 50)),
+                   apply_fn=apply_fn, seed=0)
+
+
+def data_pipeline_path(torch, wk, dev):
+    """Phase 24: 1024 seeded uint8 224 px images of 64 classes through
+    ``dataset_to_tfrecord`` into a file, back through
+    ``tfrecord_to_dataset`` -> ``shuffle(1024, seed=42)`` -> ``repeat`` ->
+    ``batch(256)`` -> ``prefetch``, into config 4's ``Trainer.fit``.
+    Checks: the round trip bit for bit; a second iteration with the seed
+    the same bytes; each epoch's four batches every image once; the first
+    loss of ``fit`` from the file bit-equal to the same step fed the same
+    batch from memory with the same generator state; K1 two launches a
+    step under ``fit``. Measures the pipeline alone through
+    ``device_prefetch``, ``fit`` from the file against the same batches
+    from memory in turns, the busy share and launches a step, and the
+    share of the pipeline's host work and copy hidden behind the step."""
+    import shutil
+
+    import numpy as np
+
+    from chambers_tpu_torch.data import (
+        Dataset,
+        dataset_to_tfrecord,
+        device_prefetch,
+        native,
+        native_crc,
+        tfrecord_to_dataset,
+    )
+
+    n, b = DATA["images"], DATA["batch"]
+    spe, timed = DATA["epoch_steps"], DATA["timed_epochs"]
+    steps = spe * timed  # timed steps a fit call
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase24")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        rng = np.random.RandomState(0)
+        images = rng.randint(0, 256, (n, ML["size"], ML["size"], 3), np.uint8)
+        labels = np.repeat(np.arange(DATA["classes"]),
+                           n // DATA["classes"]).astype(np.int64)
+        path = os.path.join(workdir, "config4.tfrecord")
+        check(native_crc.available(), "the native CRC32C builds with g++")
+        t0 = time.perf_counter()
+        count = dataset_to_tfrecord(
+            Dataset.from_tensor_slices((images, labels)), path)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = list(tfrecord_to_dataset(path))
+        read_s = time.perf_counter() - t0
+        check(count == len(back) == n and all(
+            x.dtype == np.uint8 and np.array_equal(x, images[i])
+            and int(y) == labels[i] for i, (x, y) in enumerate(back)),
+            "the TFRecord round trip gives the arrays back bit for bit")
+        del back
+        log(f"phase 24: {n} images through dataset_to_tfrecord, "
+            f"{size / 1e6:.1f} MB written in {write_s:.2f} s and read back "
+            f"bit for bit in {read_s:.2f} s ({n / read_s:.0f} records/s); "
+            f"native CRC32C built, native JPEG decoder "
+            f"{'built' if native.available() else 'not buildable here'}; "
+            f"os.cpu_count() {os.cpu_count()}")
+
+        def pipeline():
+            return (tfrecord_to_dataset(path).shuffle(n, seed=42).repeat()
+                    .batch(b, drop_remainder=True).prefetch())
+
+        # the seed's stream: the same bytes twice; an epoch (4 batches)
+        # holds every image once. The first batches are also the memory
+        # runs' data below.
+        per_epoch = n // b
+        first, second = (
+            [batch for _, batch in zip(range(per_epoch + 1), pipeline())]
+            for _ in range(2))
+        check(all(np.array_equal(x1, x2) and np.array_equal(y1, y2)
+                  for (x1, y1), (x2, y2) in zip(first, second)),
+              "a second iteration with the same seed gives the same bytes")
+        del second
+        epoch = first[:per_epoch]
+        fingerprints = [np.sort(np.ascontiguousarray(
+            x.reshape(len(x), -1)[:, :16]).view(np.uint64).ravel()) for x in (
+                np.concatenate([x for x, _ in epoch]), images)]
+        counts = np.bincount(np.concatenate([y for _, y in epoch]),
+                             minlength=DATA["classes"])
+        check(np.array_equal(*fingerprints)
+              and counts.tolist() == [n // DATA["classes"]] * DATA["classes"],
+              "an epoch's batches hold every image once")
+
+        # the pipeline alone through device_prefetch: the first batch
+        # (the shuffle buffer's fill, 1024 records), then steady batches
+        m = DATA["pipeline_batches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = device_prefetch(pipeline(), size=2)
+        next(it)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(m):
+            placed = next(it)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3 / m
+        check(placed[0].is_cuda and tuple(placed[0].shape) == (
+            b, ML["size"], ML["size"], 3), "device_prefetch places [256, "
+                                           "224, 224, 3] uint8 on the card")
+        del it, placed
+        pinned = torch.from_numpy(first[0][0]).pin_memory()
+        copy_ms = cuda_ms(torch, lambda: pinned.to(dev, non_blocking=True),
+                          10)
+        del pinned
+        log(f"phase 24 pipeline alone (TFRecord -> shuffle -> batch "
+            f"{b} -> prefetch -> device_prefetch): first batch "
+            f"{first_s:.3f} s, then {pipe_ms:.3f} ms a batch "
+            f"({b / (pipe_ms / 1e3):.0f} img/s) over {m} batches; the "
+            f"batch's copy alone {copy_ms:.3f} ms; threads: one prefetch "
+            f"producer, no decode (the records are raw uint8), "
+            f"os.cpu_count() {os.cpu_count()}, on {CARD}")
+
+        # the first loss from the file against the same batch from memory
+        tapes = []
+
+        def taped(loss):
+            tape = LossTape(torch, loss)
+            tapes.append(tape)
+            return tape
+
+        from_file = config4_trainer(torch, dev, taped)
+        from_memory = config4_trainer(torch, dev, taped)
+        from_file.fit(pipeline(), epochs=1, steps_per_epoch=1,
+                      verbose=False)
+        from_memory.fit(first[:1], epochs=1, verbose=False)
+        losses = [t.floats()[0] for t in tapes]
+        log(f"phase 24: the first loss of fit from the file {losses[0]!r}, "
+            f"from memory {losses[1]!r}")
+        check(losses[0] == losses[1] and math.isfinite(losses[0]),
+              "fit's first loss from the file is bit-equal to the same "
+              "step fed the same batch from memory")
+
+        # fit from the file against the same batches from memory (an epoch
+        # of the file), in turns: each call an untimed epoch (the shuffle
+        # buffer's fill, the prefetch queue's) and `timed` timed ones
+        memory = first[:per_epoch]
+        runs = {"files": [], "memory": []}
+        fit_launches = []
+        for _ in range(DATA["repeats"]):
+            for mode, trainer, data in (("files", from_file, None),
+                                        ("memory", from_memory, memory)):
+                clock = epoch_clock(torch)
+                torch.cuda.synchronize()
+                wk.fused_round.launches = 0
+                trainer.fit(pipeline() if data is None else data,
+                            epochs=1 + timed, steps_per_epoch=spe,
+                            callbacks=[clock], verbose=False)
+                if mode == "files":
+                    fit_launches.append(wk.fused_round.launches)
+                runs[mode].append((clock.ends[timed] - clock.ends[0]) * 1e3
+                                  / steps)
+        log(f"phase 24 K1 launches in each files fit call of "
+            f"{steps + spe} steps: {fit_launches}")
+        check(fit_launches == [2 * (steps + spe)] * DATA["repeats"],
+              "K1 launched twice a step under fit from the file")
+        ms = {k: median(v) for k, v in runs.items()}
+        profile = fit_profile(torch, lambda: from_file.fit(
+            pipeline(), epochs=1, steps_per_epoch=spe, verbose=False), spe)
+        visible = ms["files"] - ms["memory"]
+        hidden = 1.0 - visible / pipe_ms
+        out = {"records": n, "file_mb": size / 1e6, "write_s": write_s,
+               "read_s": read_s, "first_batch_s": first_s,
+               "pipeline_ms_per_batch": pipe_ms,
+               "pipeline_img_s": b / (pipe_ms / 1e3),
+               "copy_ms_per_batch": copy_ms, "cpu_count": os.cpu_count(),
+               "producer_threads": 1, "decode_threads": 0,
+               "first_loss": {"files": losses[0], "memory": losses[1],
+                              "bit_equal": losses[0] == losses[1]},
+               "ms_per_step": ms, "runs_ms": runs,
+               "img_s": {k: b / (v / 1e3) for k, v in ms.items()},
+               "files_over_memory_ms": visible,
+               "pipeline_share_hidden": hidden,
+               "device_ms_per_step": profile["device_ms"],
+               "busy": profile["device_ms"] / ms["files"],
+               "launches_per_step": profile["launches"],
+               "k1_launches_per_fit": fit_launches}
+        log(profile["table"])
+        log(f"phase 24 config 4 through Trainer.fit (ViT-S/16 b{b} bf16, "
+            f"RandAugment(2, 9) on the card), median of "
+            f"{DATA['repeats']} runs of {steps} steps in turns: from the "
+            f"TFRecord file {ms['files']:.3f} ms/step "
+            f"({out['img_s']['files']:.1f} img/s; runs {runs['files']}), "
+            f"the same batches from memory {ms['memory']:.3f} ms/step "
+            f"({out['img_s']['memory']:.1f} img/s; runs {runs['memory']}); "
+            f"{visible:.3f} ms a step more from the file against the "
+            f"pipeline's {pipe_ms:.3f} ms a batch: {100 * hidden:.1f}% "
+            f"hidden; kernels {profile['device_ms']:.3f} ms a step (busy "
+            f"{100 * out['busy']:.1f}%), {profile['launches']:.0f} launches "
+            f"a step, on {CARD}")
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def main():
@@ -4837,6 +5134,14 @@ def main():
         if key:
             row["launches_trainer"] = harness_launches[key]
     log(json.dumps({"trainer": harness, "card": CARD}))
+
+    # 24. the host data pipeline: config 4's step through Trainer.fit from
+    # a TFRecord file
+    data_run = data_pipeline_path(torch, wk, dev)
+    for row in rows:
+        if row["name"] == "fused_round":
+            row["launches_data_pipeline"] = data_run["k1_launches_per_fit"]
+    log(json.dumps({"data_pipeline": data_run, "card": CARD}))
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
 

@@ -127,8 +127,9 @@ def test_not_yet_ported_paths_say_so(tmp_path, monkeypatch):
                 mesh=object())
     with pytest.raises(NotImplementedError, match=r"§1 item 8"):
         ExperimentCallback(str(tmp_path), serving_input_shape=(4,))
-    with pytest.raises(AttributeError, match=r"§1 item 7"):
-        data.pair_iteration_dataset
+    # the host data pipeline came with item 7
+    assert data.valid_cardinality(data.pair_iteration_dataset(
+        np.zeros((2, 1)), np.zeros((2, 1)), 1, 1)) is False
     # the int8 path and the whole-batch policies are ported
     dense = QuantDense(4, 3, device="cpu")
     dense.reset_parameters(torch.Generator().manual_seed(0))
@@ -243,6 +244,31 @@ def test_layers_export_the_jax_packages_names():
     assert layers.ops.__name__ == "chambers_tpu_torch.layers.ops"
 
 
+def test_data_exports_the_jax_packages_names_and_imports_no_jax():
+    """``chambers_tpu_torch.data`` exports exactly the names of
+    ``chambers_tpu.data`` (read from its source, not imported), and no
+    module of it, the native loaders included, imports JAX or the JAX
+    package, even the JAX package's pure-numpy modules."""
+    import chambers_tpu_torch.data as data
+
+    want = _init_names(os.path.join(ROOT, "chambers_tpu", "data",
+                                    "__init__.py"))
+    assert {"Dataset", "InterleaveImageClassDataset", "device_prefetch",
+            "tfrecord_to_dataset", "save_dataset"} <= want
+    assert _init_names(os.path.join(PKG, "data", "__init__.py")) == want
+    assert all(hasattr(data, name) for name in want)
+    files = sorted(f for f in os.listdir(os.path.join(PKG, "data"))
+                   if f.endswith(".py"))
+    assert {"core.py", "dataset.py", "io.py", "native.py", "native_crc.py",
+            "records.py", "persist.py", "tfrecord.py",
+            "loader.py"} <= set(files)
+    for f in files:
+        names = list(_imports(os.path.join(PKG, "data", f)))
+        assert not [n for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "chambers_tpu")
+                    ], (f, names)
+
+
 def test_vit_preprocess_input_is_bit_equal_to_jax():
     from chambers_tpu.models.backbones import vision_transformer as jvit
 
@@ -260,9 +286,10 @@ def test_submodules_load_lazily_and_unported_ones_name_their_item():
         "assert 'chambers_tpu_torch.losses' not in sys.modules\n"
         "assert c.losses is sys.modules['chambers_tpu_torch.losses']\n"
         "assert 'losses' in dir(c) and 'models' in dir(c)\n"
-        "for name in ['callbacks', 'training', 'utils', 'serialization']:\n"
+        "for name in ['callbacks', 'training', 'utils', 'serialization',\n"
+        "             'data']:\n"
         "    assert getattr(c, name) is sys.modules[f'chambers_tpu_torch.{name}']\n"
-        "for name, item in [('data', 7), ('parallel', 8), ('serving', 8)]:\n"
+        "for name, item in [('parallel', 8), ('serving', 8)]:\n"
         "    try:\n"
         "        getattr(c, name)\n"
         "    except AttributeError as e:\n"

@@ -175,8 +175,19 @@ def test_timer_and_progress_bar_render_as_jax():
         outs.append([line.split(" - ")[0] for line in
                      stream.getvalue().split("\r") if line])
     assert outs[0] == outs[1] == ["1/4 [==>.....]", "3/4 [======>.]"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        generic.ProgressBar(total=3).dataset_apply_fn([1, 2, 3])
+    # dataset_apply_fn: the port's Dataset, one step a yielded element
+    outs = []
+    for mod in (generic, jgeneric):
+        stream = io.StringIO()
+        bar = mod.ProgressBar(total=3, cols=6, stream=stream)
+        ds = bar.dataset_apply_fn([1, 2, 3])
+        assert type(ds).__module__.endswith("data.core")
+        assert list(ds) == [1, 2, 3] and bar._steps == 3
+        outs.append([line.split(" - ")[0] for line in
+                     stream.getvalue().split("\r") if line])
+    assert type(generic.ProgressBar(1).dataset_apply_fn([])).__module__ == (
+        "chambers_tpu_torch.data.core")
+    assert outs[0] == outs[1]
 
 
 def test_model_memory_usage():
@@ -190,10 +201,21 @@ def test_model_memory_usage():
 
 
 def test_utils_data_is_left_to_item_7():
+    """Item 7 ported ``utils/data.py``: its four names exist and stream
+    what the JAX package's do (``tests/test_torch_eval_utils.py`` holds
+    them to JAX in full)."""
+    from chambers_tpu.utils import data as jdata
     from chambers_tpu_torch.utils import data
 
-    with pytest.raises(AttributeError, match="item 7"):
-        data.batch_predict_pairs
+    for name in ("valid_cardinality", "pair_iteration_dataset",
+                 "reshape_pair_predictions", "batch_predict_pairs"):
+        assert callable(getattr(data, name))
+    q, c = np.arange(5)[:, None], np.arange(3)[:, None]
+    got = list(data.pair_iteration_dataset(q, c, 2, 2))
+    want = list(jdata.pair_iteration_dataset(q, c, 2, 2))
+    assert len(got) == len(want) == 6
+    for (a, b), (ja, jb) in zip(got, want):
+        assert np.array_equal(a, ja) and np.array_equal(b, jb)
 
 
 # --- profiling ----------------------------------------------------------------------
