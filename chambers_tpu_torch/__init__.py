@@ -12,9 +12,7 @@ in ``ops/csrc`` and are built with ``nvcc`` at first use
 runs its plain PyTorch version instead.
 
 Submodules load on first attribute access, as the JAX package's do
-(``chambers_tpu_torch.losses``); the ones not ported yet (``parallel``,
-``serving``) raise an ``AttributeError`` that names their
-ROADMAP item.
+(``chambers_tpu_torch.losses``).
 """
 
 from chambers_tpu_torch._device import resolve_device
@@ -24,11 +22,9 @@ __all__ = ["resolve_device"]
 _SUBMODULES = (
     "activations", "augmentations", "callbacks", "data", "initializers",
     "layers", "losses", "metrics", "miners", "models", "ops", "optimizers",
-    "quantization", "schedules", "serialization", "training", "utils",
+    "parallel", "quantization", "schedules", "serialization", "serving",
+    "training", "utils",
 )
-# the JAX package's submodules that the port has no counterpart of yet,
-# and the item of ROADMAP.md §1 that ports each
-_NOT_PORTED = {"parallel": 8, "serving": 8}
 
 
 def __getattr__(name):
@@ -40,10 +36,6 @@ def __getattr__(name):
         module = importlib.import_module(f"chambers_tpu_torch.{name}")
         globals()[name] = module
         return module
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"chambers_tpu_torch.{name} is not ported yet (ROADMAP.md §1 "
-            f"item {_NOT_PORTED[name]})")
     raise AttributeError(
         f"module 'chambers_tpu_torch' has no attribute '{name}'")
 

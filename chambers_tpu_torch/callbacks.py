@@ -10,8 +10,8 @@ JAX package's directory layout: ``logs/epoch_results.txt`` (CSV),
 (TensorBoard event files, :mod:`chambers_tpu_torch.utils.tensorboard`),
 ``model/checkpoints/init.msgpack`` and ``{epoch:02d}-{monitor:.5f}.msgpack``
 (Flax's msgpack weight format, which the JAX package's
-``Model.load_weights`` reads) and ``model/export/``. Its serving export
-(``serving_input_shape``) comes with ``serving``, ROADMAP.md §1 item 8.
+``Model.load_weights`` reads) and ``model/export/``, with the serving
+artifact ``model.pt2`` when ``serving_input_shape`` is given.
 """
 
 import csv
@@ -489,7 +489,8 @@ class ExperimentCallback(CallbackList):
     - ``model/checkpoints/init.msgpack`` at train start and
       ``{epoch:02d}-{monitor:.5f}.msgpack`` per epoch
     - ``model/export/`` at train end: ``model.msgpack`` (the variables)
-      and ``opt_state.pt`` (the optimizer's ``state_dict``)
+      and ``opt_state.pt`` (the optimizer's ``state_dict``), and with
+      ``serving_input_shape`` the serving artifact ``model.pt2``
     - ``config_dump.json`` if a config dict is given
     """
 
@@ -497,14 +498,10 @@ class ExperimentCallback(CallbackList):
                  checkpoint_mode="auto", tensorboard_update_freq="epoch",
                  config_dump: Optional[dict] = None,
                  serving_input_shape=None):
-        """``serving_input_shape``: per-example input shape; the serving
-        export it asks for comes with ``serving`` (ROADMAP.md §1 item 8),
-        so giving it raises."""
-        if serving_input_shape is not None:
-            raise NotImplementedError(
-                "ExperimentCallback(serving_input_shape=...) writes a "
-                "serving artifact, which comes with serving (ROADMAP.md §1 "
-                "item 8)")
+        """``serving_input_shape``: per-example input shape; when given,
+        train end also writes ``model/export/model.pt2``, the
+        ``serving.export_serving_artifact`` of the live module with a
+        dynamic batch (the JAX package writes ``model.stablehlo``)."""
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         self.experiment_dir = os.path.join(experiments_dir, now)
         self.log_dir = os.path.join(self.experiment_dir, "logs")
@@ -544,6 +541,12 @@ class ExperimentCallback(CallbackList):
 
     def on_train_end(self, logs=None):
         self.model.export(self.export_dir)
+        if self.serving_input_shape is not None:
+            from chambers_tpu_torch.serving import export_serving_artifact
+
+            export_serving_artifact(
+                self.model, os.path.join(self.export_dir, "model.pt2"),
+                self.serving_input_shape)
         for c in self.callbacks:
             c.on_train_end(logs)
 

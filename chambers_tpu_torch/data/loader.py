@@ -112,6 +112,19 @@ class _DevicePrefetcher:
         return out
 
 
+def _sharded(x, sharding, device):
+    """This rank's rows of the global batch leaf ``x`` copied to ``device``
+    and wrapped as the global ``DTensor`` under ``sharding``."""
+    from torch.distributed.tensor import DTensor
+
+    from chambers_tpu_torch.parallel.sharding import _validated, _local_shard
+
+    _validated("batch", x, sharding.spec, sharding.mesh)
+    rows = _local_shard(_host_tensor(x), sharding.mesh, sharding.spec)
+    return DTensor.from_local(_to_device(rows, device), sharding.mesh,
+                              sharding.placements)
+
+
 def device_prefetch(iterable: Iterable, size: int = 2, device=None,
                     sharding=None) -> Iterator:
     """Iterate batches (arrays, tensors, or tuples, lists and dicts of
@@ -119,19 +132,24 @@ def device_prefetch(iterable: Iterable, size: int = 2, device=None,
     with at most ``size`` batches copied ahead of use, on a copy stream of
     their own. Raises without a card unless ``device="cpu"``.
 
-    :param sharding: the JAX package places batches on a mesh with it;
-        meshes come with ``parallel`` (ROADMAP.md §1 item 8) and it raises.
+    :param sharding: a ``parallel.sharding.NamedSharding`` (e.g.
+        ``batch_sharding(mesh)``): every leaf is a global batch, of which
+        only this rank's rows are copied, and comes out as a ``DTensor``
+        sharded so (the JAX package's sharded ``jax.Array``). The device is
+        then the mesh's. The rows must divide over the mesh axis.
     """
-    if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch(sharding=...): meshes come with parallel "
-            "(ROADMAP.md §1 item 8)")
     if size < 1:
         raise ValueError("size must be >= 1")
+    if sharding is not None:
+        from chambers_tpu_torch.parallel.distributed import mesh_device
+
+        device = mesh_device(sharding.mesh)
     device = resolve_device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def place(batch):
+        if sharding is not None:
+            return _tree_map(lambda x: _sharded(x, sharding, device), batch)
         return _tree_map(lambda x: _to_device(x, device), batch)
 
     return _DevicePrefetcher(((batch,) for batch in iterable), place,

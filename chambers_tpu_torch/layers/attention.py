@@ -69,11 +69,31 @@ from chambers_tpu_torch._device import resolve_device
 _MASK_BIAS = -1e9
 
 
+def keep_mask(shape, rate, generator, device, dims=()):
+    """Dropout's keep mask (probability ``1 - rate``) of ``shape`` from
+    ``generator``. ``dims`` are ``(dim, process group)`` pairs (a None group
+    is skipped) of the dimensions this call holds one rank's share of: the
+    batch rows under ``parallel.distributed.data_parallel``, tensor-parallel
+    heads. Each rank draws the whole mask and keeps its share, so that the
+    share is what a run without a mesh draws for those rows, when they
+    divide."""
+    dims = [(dim, group) for dim, group in dims if group is not None]
+    whole = list(shape)
+    for dim, group in dims:
+        whole[dim] *= torch.distributed.get_world_size(group)
+    keep = torch.empty(whole, dtype=torch.float32, device=device).bernoulli_(
+        1.0 - rate, generator=generator).bool()
+    for dim, group in dims:
+        keep = keep.chunk(torch.distributed.get_world_size(group), dim=dim)[
+            torch.distributed.get_rank(group)]
+    return keep
+
+
 def scaled_dot_product_attention(query, value, key=None, scale=None,
                                  causal=False, q_mask=None, v_mask=None,
                                  dropout_rate=0.0, deterministic=True,
                                  generator=None, impl="xla",
-                                 score_dtype=None):
+                                 score_dtype=None, dropout_dims=()):
     """Attention over ``[batch, heads, time, head_dim]``.
 
     :param scale: score divisor; defaults to ``sqrt(head_dim)``.
@@ -84,6 +104,9 @@ def scaled_dot_product_attention(query, value, key=None, scale=None,
         unless ``deterministic``; drawn from ``generator``.
     :param score_dtype: dtype of the scores and the softmax (float32 if
         None).
+    :param dropout_dims: ``(dim, process group)`` pairs of dimensions this
+        call holds one rank's share of (batch rows, tensor-parallel heads);
+        the dropout mask is drawn whole and sliced (:func:`keep_mask`).
     """
     if key is None:
         key = value
@@ -123,8 +146,8 @@ def scaled_dot_product_attention(query, value, key=None, scale=None,
         scores = scores.masked_fill(~keep, _MASK_BIAS)
     probs = torch.softmax(scores, dim=-1)
     if use_dropout:
-        keep = torch.empty_like(probs, dtype=torch.float32).bernoulli_(
-            1.0 - dropout_rate, generator=generator).bool()
+        keep = keep_mask(probs.shape, dropout_rate, generator, probs.device,
+                         dropout_dims)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(probs.to(value.dtype), value)
     if q_mask is not None:
@@ -181,6 +204,16 @@ class ScaledAttention:
 
 
 class MultiHeadAttention(nn.Module):
+    """On a mesh (``parallel.sharding``) whose rules shard the heads of the
+    four projections over one axis, the layer holds this rank's heads:
+    ``_tp_group`` is that axis's group, the inputs' gradients are summed
+    over it and the output projection's partial products are summed before
+    its bias. Under ``parallel.distributed.data_parallel`` the batch's
+    group is ``_batch_group``, over which the dropout mask is drawn."""
+
+    _tp_group = None
+    _batch_group = None
+
     def __init__(self, embed_dim, head_dim=64, num_heads=8, causal=False,
                  dtype=None, param_dtype=torch.float32, attention_impl="xla",
                  score_dtype=None, kernel_init=None, dropout_rate=0.1,
@@ -305,6 +338,19 @@ class MultiHeadAttention(nn.Module):
         k = inputs[2] if len(inputs) > 2 else v
         self_attention = v is q and k is v
         quantized = self.w_query_scale is not None
+        group = self._tp_group
+        if group is not None:
+            from chambers_tpu_torch.parallel.distributed import (
+                reduce_backward,
+            )
+
+            q = reduce_backward(q, group)
+            if self_attention:
+                v = k = q
+            else:
+                same = k is v
+                v = reduce_backward(v, group)
+                k = v if same else reduce_backward(k, group)
         dtype = self.dtype or q.dtype
         q = q.to(dtype)
 
@@ -354,9 +400,16 @@ class MultiHeadAttention(nn.Module):
             query, value, key, causal=causal, q_mask=q_mask,
             v_mask=v_mask, dropout_rate=self.dropout_rate,
             deterministic=deterministic, generator=generator,
-            impl=self.attention_impl, score_dtype=self.score_dtype)
+            impl=self.attention_impl, score_dtype=self.score_dtype,
+            dropout_dims=((0, self._batch_group), (1, group)))
         if quantized:
             return self._int8_projection(attention, dtype)
-        return (torch.einsum("bnth,ndh->btd", attention,
-                             self.w_projection.to(dtype))
-                + self.b_projection.to(dtype))
+        out = torch.einsum("bnth,ndh->btd", attention,
+                           self.w_projection.to(dtype))
+        if group is not None:
+            from chambers_tpu_torch.parallel.distributed import (
+                reduce_forward,
+            )
+
+            out = reduce_forward(out, group)
+        return out + self.b_projection.to(dtype)

@@ -142,9 +142,13 @@ class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm`` over the last axis of NHWC input (see the
     module docstring); ``forward(x, train)`` normalizes with the batch's
     statistics and updates the running ones when ``train``, else with the
-    running ones."""
+    running ones. Under ``parallel.distributed.data_parallel`` the batch is
+    this rank's rows of one sharded over ``_batch_group``, and its
+    statistics are the global batch's (each rank's means all-reduced; a
+    padded tail batch counts its zero rows)."""
 
     momentum = 0.99
+    _batch_group = None
 
     def __init__(self, features, epsilon=1e-5, dtype=None, device=None):
         super().__init__()
@@ -171,8 +175,19 @@ class BatchNorm(nn.Module):
         if train:
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = tuple(range(x.ndim - 1))
-            mean = xs.mean(axes)
-            var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+            mean, square = xs.mean(axes), (xs * xs).mean(axes)
+            group = self._batch_group
+            if group is not None:
+                # a batch sharded over processes: the global batch's
+                # statistics, as the JAX layer computes them under a mesh
+                from chambers_tpu_torch.parallel.distributed import (
+                    reduce_both,
+                )
+
+                n = torch.distributed.get_world_size(group)
+                mean, square = reduce_both(
+                    torch.stack([mean, square]), group) / n
+            var = torch.clamp(square - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean
                                 + (1 - self.momentum) * mean)

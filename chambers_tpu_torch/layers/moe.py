@@ -66,7 +66,17 @@ class MoEMLP(nn.Module):
     Parameters, under the JAX package's names: ``w_router`` ``[d, E]``,
     ``w1`` ``[E, d, F]``, ``b1`` ``[E, F]``, ``w2`` ``[E, F, d]``, ``b2``
     ``[E, d]``. ``n_selected_experts=1`` gates each token by the raw
-    softmax probability of its expert; for k > 1 the k gates sum to 1."""
+    softmax probability of its expert; for k > 1 the k gates sum to 1.
+
+    On a batch sharded over processes (``_batch_sharding``, the ``(mesh,
+    axis)`` that ``parallel.distributed.data_parallel`` sets), or with its
+    banks sharded over an expert axis (``_expert_axis``, set by
+    ``parallel.sharding``), the forward is
+    ``parallel.expert_parallel.routed_forward``: the same routing over the
+    global batch."""
+
+    _expert_axis = None
+    _batch_sharding = None
 
     def __init__(self, embed_dim, ff_dim, n_experts, capacity_factor=1.25,
                  aux_loss_weight=1e-2, router_z_loss_weight=0.0,
@@ -136,10 +146,16 @@ class MoEMLP(nn.Module):
             gates = gates / gates.sum(dim=-1, keepdim=True)
         return logits, probs, gates, experts
 
-    def dispatch_and_combine(self, gates, experts, capacity, dtype):
+    def dispatch_and_combine(self, gates, experts, capacity, dtype,
+                             counts=None):
         """The dense ``[g, s, E, capacity]`` dispatch (0/1) and combine
         (gate-weighted) tensors in ``dtype``, and the first choices'
-        one-hot ``[g, s, E]`` for the load-balancing loss."""
+        one-hot ``[g, s, E]`` for the load-balancing loss.
+
+        ``counts``, for tokens that are one slice of a group spread over
+        processes (``parallel.expert_parallel``), maps this slice's
+        selections of each expert ``[g, E]`` to ``(before, total)``: the
+        selections of the slices ahead of it, and of the whole group."""
         E = self.n_experts
         ids = torch.arange(E, device=experts.device)
         slots = torch.arange(capacity, device=experts.device)
@@ -149,6 +165,11 @@ class MoEMLP(nn.Module):
             # queue position: this rank's earlier tokens of the expert,
             # after every lower rank's selections of it
             pos = (oh.cumsum(dim=1) * oh).sum(-1) - 1
+            mine = oh.sum(1)
+            total = mine
+            if counts is not None:
+                before, total = counts(mine)
+                pos = pos + (oh * before[:, None, :]).sum(-1)
             if r:
                 pos = pos + (oh * used[:, None, :]).sum(-1)
             # pos >= capacity matches no slot: the selection is dropped
@@ -156,10 +177,10 @@ class MoEMLP(nn.Module):
             disp = (oh.bool()[..., None] & in_slot[:, :, None, :]).to(dtype)
             comb = disp * gates[..., r].to(dtype)[:, :, None, None]
             if r == 0:
-                first, dispatch, combine, used = oh, disp, comb, oh.sum(1)
+                first, dispatch, combine, used = oh, disp, comb, total
             else:
                 dispatch, combine = dispatch + disp, combine + comb
-                used = used + oh.sum(1)
+                used = used + total
         return dispatch, combine, first
 
     def enqueue(self, dispatch, xg):
@@ -201,6 +222,14 @@ class MoEMLP(nn.Module):
         return (acc * s_x * scale).to(dtype) + b.to(dtype)[:, None, :]
 
     def forward(self, inputs):
+        if self._expert_axis is not None or self._batch_sharding is not None:
+            from chambers_tpu_torch.parallel.expert_parallel import (
+                routed_forward,
+            )
+
+            out = routed_forward(self, inputs)
+            if out is not None:
+                return out
         d, E = inputs.shape[-1], self.n_experts
         dtype = self.dtype or inputs.dtype
         x = inputs.reshape(-1, d)

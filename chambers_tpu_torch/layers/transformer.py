@@ -45,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from chambers_tpu_torch import initializers
 from chambers_tpu_torch._device import resolve_device
 from chambers_tpu_torch.activations import gelu
-from chambers_tpu_torch.layers.attention import MultiHeadAttention
+from chambers_tpu_torch.layers.attention import MultiHeadAttention, keep_mask
 from chambers_tpu_torch.layers.normalization import FastLayerNorm, LayerNorm
 from chambers_tpu_torch.quantization import QuantDense
 
@@ -59,22 +59,35 @@ def _make_norm(dim, epsilon, dtype, param_dtype, stats_dtype, device):
                          device)
 
 
-def _dropout(x, rate, deterministic, generator):
+def _dropout(x, rate, deterministic, generator, batch_group=None):
     """Inverted dropout as ``flax.linen.Dropout``: keep with probability
-    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``."""
+    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``. With a
+    ``generator`` and a ``batch_group`` (the caller's ``_batch_group``: its
+    batch is this rank's rows of one sharded over that group) each rank
+    draws the whole batch's mask and keeps its rows."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         return F.dropout(x, rate, training=True)
-    keep = torch.empty_like(x, dtype=torch.float32).bernoulli_(
-        1.0 - rate, generator=generator).bool()
+    keep = keep_mask(x.shape, rate, generator, x.device,
+                     ((0, batch_group),))
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class _Block(nn.Module):
     """What the two layer kinds share: the norms, the MLP (``dense1`` and
     ``dense2``, or with ``moe`` the router's arguments, a ``MoEMLP``
-    named ``moe``) and dropout."""
+    named ``moe``) and dropout.
+
+    On a mesh (``parallel.sharding``) whose rules shard ``dense1``'s
+    columns and ``dense2``'s rows over one axis, the MLP runs on this
+    rank's slice of the hidden units: ``_tp_group`` is that axis's group,
+    which the input's gradient is summed over, and ``dense2`` sums the
+    partial products. ``_batch_group`` is as ``MultiHeadAttention``'s, for
+    the dense dropout."""
+
+    _tp_group = None
+    _batch_group = None
 
     def __init__(self, n_norms, embed_dim, ff_dim, dense_dropout_rate,
                  norm_epsilon, pre_norm, dtype, param_dtype,
@@ -101,12 +114,19 @@ class _Block(nn.Module):
                               **dense)
 
     def _drop(self, x, deterministic, generator):
-        return _dropout(x, self.dense_dropout_rate, deterministic, generator)
+        return _dropout(x, self.dense_dropout_rate, deterministic, generator,
+                        self._batch_group)
 
     def _mlp(self, x, deterministic, generator):
         if self.moe is not None:
             x = self.moe(x)
         else:
+            if self._tp_group is not None:
+                from chambers_tpu_torch.parallel.distributed import (
+                    reduce_backward,
+                )
+
+                x = reduce_backward(x, self._tp_group)
             x = self.dense2(gelu(self.dense1(x),
                                  approximate=self.gelu_approximate))
         return self._drop(x, deterministic, generator)

@@ -78,15 +78,20 @@ def jax_variables(module):
     """``{"params": ..., "batch_stats": ...}``: the module's parameters and
     its persistent buffers (the BatchNorm statistics) as nested dicts of
     numpy copies under the JAX package's paths, each level in registration
-    order — Flax's creation order for the modules that keep it."""
+    order — Flax's creation order for the modules that keep it. A module
+    placed on a mesh (``parallel.sharding``) gives its parameters whole, its
+    shards gathered (every rank must call)."""
     buffers = {name for name, _ in module.named_buffers()}
+    whole = lambda t: t
+    if getattr(module, "_mesh", None) is not None:
+        from chambers_tpu_torch.parallel.sharding import full_tensor as whole
     out = {"params": {}, "batch_stats": {}}
-    for key, value in module.state_dict().items():
+    for key, value in module.state_dict(keep_vars=True).items():
         node = out["batch_stats" if key in buffers else "params"]
         *path, leaf = jax_path(key).split("/")
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = value.detach().cpu().numpy().copy()
+        node[leaf] = whole(value).detach().cpu().numpy().copy()
     return out
 
 

@@ -236,7 +236,11 @@ class SEBottleneck(_SEBlock):
 
 
 class SENetModule(nn.Module):
-    """The SENet body (senet.py:326-474) over ``[b, H, W, c]`` images."""
+    """The SENet body (senet.py:326-474) over ``[b, H, W, c]`` images.
+    ``_batch_group`` is set under ``parallel.distributed.data_parallel``,
+    for SENet-154's dropout (``layers.transformer._dropout``)."""
+
+    _batch_group = None
 
     def __init__(self, model_params, include_top=True, classes=1000,
                  dtype=None, in_channels=3, device=None):
@@ -310,7 +314,7 @@ class SENetModule(nn.Module):
             x = x.mean((1, 2))
             if self.model_params.dropout is not None:
                 x = _dropout(x, self.model_params.dropout, deterministic,
-                             generator)
+                             generator, self._batch_group)
             x = self.QuantDense_0(x)
             x = torch.softmax(x.to(torch.float32), dim=-1)
         return x.to(torch.float32)

@@ -201,9 +201,12 @@ def _pool(x, method: Optional[str]):
 
 
 class VisionTransformer(nn.Module):
-    """ViT over ``[batch, H, W, 3]`` images of size ``image_size``."""
+    """ViT over ``[batch, H, W, 3]`` images of size ``image_size``.
+    ``_batch_group`` is set under ``parallel.distributed.data_parallel``,
+    for the embedding dropout (``layers.transformer._dropout``)."""
 
     _extra_tokens = 1  # the CLS token
+    _batch_group = None
 
     def __init__(self, patch_size, patch_dim, n_encoder_layers, n_heads,
                  ff_dim, dropout_rate=0.1, image_size=(224, 224),
@@ -263,7 +266,8 @@ class VisionTransformer(nn.Module):
         x = self.patch_embeddings(x)
         x = self._prepend_tokens(x)
         x = self.pos_embedding(x)
-        x = _dropout(x, self.dropout_rate, deterministic, generator)
+        x = _dropout(x, self.dropout_rate, deterministic, generator,
+                     self._batch_group)
         return self.encoder(x, deterministic=deterministic,
                             generator=generator)
 

@@ -26,6 +26,12 @@ its Gumbel noise from a ``torch.Generator``, or takes it from the caller
 as ``gumbel_noise`` (one ``[b, vocab]`` array per step): a draw is
 ``argmax(logits + noise)``, what ``jax.random.categorical`` computes.
 
+On a mesh (``chambers_tpu_torch.parallel``) the source tokens may come as
+a ``DTensor`` sharded by rows (``shard_batch``): each rank decodes its rows
+and the result is sharded the same way; a module placed with tensor
+parallel rules decodes on its heads' shards (its caches hold this rank's
+heads).
+
 Beam search keeps ``lax.top_k``'s order: among equal scores the lower
 index comes first (a stable descending sort). Between steps the beams'
 self-attention caches are reordered to their parents; the cross-attention
@@ -33,6 +39,8 @@ entries are left as they are, since every beam of a source row holds the
 same memory.
 """
 
+import functools
+import sys
 import warnings
 
 import torch
@@ -166,7 +174,37 @@ def _run(model, tokens, select, max_len, bos_id, eos_id, pad_id, use_cache):
                         tokens.device)
 
 
+def _sharded_rows(decode):
+    """Let ``decode`` take the source tokens as a ``DTensor`` sharded by
+    rows (``parallel.shard_batch``): it decodes this rank's rows, inside
+    ``parallel.distributed.data_parallel`` over that axis, and returns its
+    results sharded the same way."""
+
+    @functools.wraps(decode)
+    def wrapper(model, tokens, *args, **kwargs):
+        # no DTensor exists before its module is loaded: the common path
+        # imports nothing
+        dtensor = sys.modules.get("torch.distributed.tensor")
+        if dtensor is None or not isinstance(tokens, dtensor.DTensor):
+            return decode(model, tokens, *args, **kwargs)
+        from chambers_tpu_torch.parallel.distributed import data_parallel
+
+        mesh, placements = tokens.device_mesh, tokens.placements
+        axis = next(name for name, p in zip(mesh.mesh_dim_names, placements)
+                    if isinstance(p, dtensor.Shard) and p.dim == 0)
+        with data_parallel(model, mesh, axis):
+            out = decode(model, tokens.to_local(), *args, **kwargs)
+
+        def wrap(t):
+            return dtensor.DTensor.from_local(t, mesh, placements)
+
+        return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+    return wrapper
+
+
 @torch.no_grad()
+@_sharded_rows
 def greedy_decode(model, tokens, *, max_len, bos_id, eos_id=None, pad_id=0,
                   use_cache=None):
     """Greedy-decode ``max_len`` tokens for every source row.
@@ -197,6 +235,7 @@ def _gumbel(shape, generator, device):
 
 
 @torch.no_grad()
+@_sharded_rows
 def sample_decode(model, tokens, generator=None, *, max_len, bos_id,
                   temperature=1.0, top_k=None, top_p=None, eos_id=None,
                   pad_id=0, use_cache=None, gumbel_noise=None):
@@ -297,6 +336,7 @@ def _top_k_stable(x, k):
 
 
 @torch.no_grad()
+@_sharded_rows
 def beam_search_decode(model, tokens, *, max_len, bos_id, beam_size,
                        eos_id=None, pad_id=0, length_penalty=0.0,
                        return_scores=False, use_cache=None):

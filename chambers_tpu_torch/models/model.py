@@ -167,9 +167,17 @@ class Model:
                              generator=generator)
 
     @torch.no_grad()
-    def predict(self, x, batch_size: int = 32):
+    def predict(self, x, batch_size: int = 32, mesh=None):
         """Batched inference in eval mode over host arrays (``x`` may be a
-        nested tuple/list/dict of them); returns numpy."""
+        nested tuple/list/dict of them); returns numpy.
+
+        ``mesh``: split each batch into the ranks' rows over the mesh's
+        ``data`` axis and gather the outputs (data-parallel inference; a
+        tail that does not divide is padded and the padding dropped).
+        Defaults to the mesh the model was :meth:`compile`-d with, if
+        any."""
+        if mesh is None:
+            mesh = getattr(getattr(self, "_trainer", None), "mesh", None)
         x = _map(_as_array, x)
         n = _leaves(x)[0].shape[0]
         device = self.device
@@ -178,9 +186,13 @@ class Model:
         outs = []
         try:
             for i in range(0, n, batch_size):
-                batch = _map(lambda leaf: torch.as_tensor(
-                    leaf[i:i + batch_size]).to(device), x)
-                out = self.apply_fn(batch, deterministic=True)
+                batch = _map(lambda leaf: leaf[i:i + batch_size], x)
+                if mesh is None:
+                    batch = _map(lambda leaf: torch.as_tensor(leaf).to(
+                        device), batch)
+                    out = self.apply_fn(batch, deterministic=True)
+                else:
+                    out = self._predict_sharded(batch, mesh, device)
                 outs.append(_map(lambda t: t.detach().float().cpu().numpy()
                                  if t.is_floating_point()
                                  else t.cpu().numpy(), out))
@@ -192,6 +204,20 @@ class Model:
             return type(outs[0])(np.concatenate(parts, 0)
                                  for parts in zip(*outs))
         return np.concatenate(outs, 0)
+
+    def _predict_sharded(self, batch, mesh, device):
+        from chambers_tpu_torch.parallel.distributed import (
+            data_parallel,
+            gather_rows,
+            local_rows,
+        )
+
+        rows = _leaves(batch)[0].shape[0]
+        batch = _map(lambda leaf: torch.as_tensor(
+            local_rows(leaf, mesh)).to(device), batch)
+        with data_parallel(self.module, mesh):
+            out = self.apply_fn(batch, deterministic=True)
+        return _map(lambda t: gather_rows(t, mesh, rows), out)
 
     def count_params(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
@@ -458,8 +484,8 @@ class Model:
 
     def export(self, directory: str):
         """``model.msgpack`` (the variables) and ``config.json`` (name and
-        module class), the JAX package's full-model export. A serving
-        artifact comes with ``serving``, ROADMAP.md §1 item 8."""
+        module class), the JAX package's full-model export. The serving
+        artifact is ``serving.export_serving_artifact``'s."""
         import json
         import os
 

@@ -49,6 +49,7 @@ that is already contiguous).
 import ctypes
 import functools
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -273,21 +274,48 @@ def tile_products(x, y):
     return nt, tn
 
 
+@torch.library.custom_op("chambers_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_mask: Optional[torch.Tensor], scale: float, causal: bool,
+              n_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3a as the operator ``torch.ops.chambers_tpu_torch.flash_fwd``:
+    ``(o, l, m)`` over checked ``[bn, t, h]`` operands. On CUDA tensors it
+    launches the kernel (:func:`launch_forward`); on CPU tensors it runs
+    :func:`flash_forward_plain`.
+
+    Being an operator, it survives ``torch.export``: an exported flash
+    model carries this call, not a copy of either body, and its fake
+    registration gives the tracer the outputs' shapes without running
+    anything. ``torch.export.load`` of such a program needs the operator
+    registered, that is ``chambers_tpu_torch.ops.flash_attention``
+    imported first."""
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, scale, causal, kv_mask, n_heads)
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    if kv_mask is not None:
+        kv_mask = _operand(kv_mask)
+    return launch_forward(q, k, v, kv_mask, scale, causal, n_heads)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, kv_mask, scale, causal, n_heads):
+    stats = q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)
+    return torch.empty_like(q), stats, torch.empty_like(stats)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """``o = attention(q, k, v)`` over ``[bn, t, h]`` with a hand-written
-    backward; ``scale`` multiplies the scores."""
+    backward; ``scale`` multiplies the scores. The forward is the
+    :func:`flash_fwd` operator."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, n_heads):
         _check_operands(q, k, v, kv_mask, n_heads)
-        if q.device.type == "cpu":
-            o, l, m = flash_forward_plain(q, k, v, scale, causal, kv_mask,
-                                          n_heads)
-        else:
-            q, k, v = _operand(q), _operand(k), _operand(v)
-            if kv_mask is not None:
-                kv_mask = _operand(kv_mask)
-            o, l, m = launch_forward(q, k, v, kv_mask, scale, causal, n_heads)
+        # contiguous here, so that the operator and the backward share one
+        # copy; the alignment is checked where a kernel launches (a traced
+        # tensor has no address)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, l, m = flash_fwd(q, k, v, kv_mask, scale, causal, n_heads)
         ctx.save_for_backward(q, k, v, o, l, m, kv_mask)
         ctx.attention = (scale, causal, n_heads)
         return o
@@ -300,7 +328,9 @@ class FlashAttentionFunction(torch.autograd.Function):
             dq, dk, dv = flash_backward_plain(q, k, v, o, l, m, do, scale,
                                               causal, kv_mask, n_heads)
         else:
-            do = _operand(do)
+            q, k, v, do = _operand(q), _operand(k), _operand(v), _operand(do)
+            if kv_mask is not None:
+                kv_mask = _operand(kv_mask)
             args = (q, k, v, do, l, m, delta(o, do), kv_mask, scale, causal,
                     n_heads)
             dk, dv = launch_backward_dkv(*args)

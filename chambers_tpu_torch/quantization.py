@@ -148,7 +148,13 @@ def int_mm(x_q, w, n):
 class QuantDense(nn.Module):
     """``flax.linen.Dense`` with the JAX package's parameter names and
     layout — ``kernel`` ``[in, out]``, ``bias`` ``[out]`` — that runs the
-    int8 path once its ``kernel_scale`` is set (:func:`quantize_model`)."""
+    int8 path once its ``kernel_scale`` is set (:func:`quantize_model`).
+
+    A row-parallel layer of a module placed on a mesh
+    (``parallel.sharding``) holds its kernel's rows for this rank and sums
+    the ranks' products over ``_reduce_group`` before the bias."""
+
+    _reduce_group = None
 
     def __init__(self, in_features, features, use_bias=True, dtype=None,
                  param_dtype=torch.float32, kernel_init=None, device=None):
@@ -182,6 +188,13 @@ class QuantDense(nn.Module):
         if self.kernel_scale is None:
             dtype = promote_dtype(x, self.kernel, self.bias, dtype=self.dtype)
             y = torch.matmul(x.to(dtype), self.kernel.to(dtype))
+            if self._reduce_group is not None:
+                # row-parallel: the ranks' partial products summed
+                from chambers_tpu_torch.parallel.distributed import (
+                    reduce_forward,
+                )
+
+                y = reduce_forward(y, self._reduce_group)
             if self.bias is not None:
                 y = y + self.bias.to(dtype)
             return y

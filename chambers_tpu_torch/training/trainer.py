@@ -27,8 +27,15 @@ with Keras-style callback hooks, the options of the JAX package's
 - one explicit ``torch.Generator`` seeded from ``seed`` feeds the module's
   dropout (its ``generator=`` argument).
 
-Data-parallel training (``mesh=``, ``param_sharding_rules=``) comes with
-``parallel``, ROADMAP.md §1 item 8, and raises.
+With a ``mesh`` (``chambers_tpu_torch.parallel``, one process a device) the
+same steps run data-parallel over its ``data`` axis: the module is placed
+by ``param_sharding_rules`` (replicated without them), so the optimizer
+built after it keeps its state at each parameter's shard; every batch is
+split into the ranks' rows (a tail batch that does not divide is padded
+with zero rows and the padding dropped from the outputs, so it counts
+exactly as without a mesh); the outputs are gathered and the loss and the
+metrics computed on the global batch on every rank; the gradients are
+summed over ``data`` (``parallel.sharding.reduce_gradients``).
 """
 
 from __future__ import annotations
@@ -116,6 +123,12 @@ class _CallbackModel:
     @property
     def module(self):
         return self._trainer.module
+
+    def apply_fn(self, x, deterministic=True):
+        """The trainer's forward (its ``apply_fn``), what a serving export
+        of the live module traces."""
+        trainer = self._trainer
+        return trainer._apply_fn(trainer.module, x, deterministic, None)
 
     def get_weights(self):
         """A copy of the learnable state (parameters and buffers)."""
@@ -206,6 +219,10 @@ class Trainer:
         metric (``init``/``update``/``compute``, state on the device).
     :param apply_fn: optional ``apply_fn(module, x, deterministic,
         generator)`` in place of the module's call.
+    :param mesh: a ``DeviceMesh`` (``parallel.create_mesh``): the steps
+        run data-parallel over its ``data`` axis (see the module docstring).
+    :param param_sharding_rules: ``(regex, PartitionSpec)`` rules that
+        place the parameters on the mesh (``parallel.sharding``).
     """
 
     def __init__(self, model, loss, optimizer,
@@ -228,10 +245,12 @@ class Trainer:
         update. ``trainable``: a regex, a list of regexes (any
         ``re.search``-matches the parameter's JAX path) or a callable
         ``path -> bool``."""
-        if mesh is not None or param_sharding_rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=..., param_sharding_rules=...): data-parallel "
-                "training comes with parallel (ROADMAP.md §1 item 8)")
+        if param_sharding_rules is not None and mesh is None:
+            raise ValueError("param_sharding_rules= places parameters on a "
+                             "mesh: pass mesh= as well")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh= takes a DeviceMesh (parallel."
+                            f"create_mesh), got {type(mesh).__name__}")
         if gradient_accumulation_steps < 1:
             raise ValueError(
                 "gradient_accumulation_steps must be >= 1, got "
@@ -269,6 +288,11 @@ class Trainer:
             self.weighted_metrics)
 
         _refuse_quantized(module)
+        self.mesh = mesh
+        if mesh is not None and getattr(module, "_mesh", None) is not mesh:
+            from chambers_tpu_torch.parallel.sharding import shard_params
+
+            shard_params(module, mesh, param_sharding_rules)
         named = list(module.named_parameters())
         self.device = named[0][1].device if named else torch.device("cpu")
         if trainable is not None:
@@ -476,7 +500,7 @@ class Trainer:
         the device; nothing here waits for the card."""
         self.optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            y_pred = self._apply_fn(self.module, x, False, self.generator)
+            y_pred = self._forward(x, y, False, self.generator)
             loss = self._loss_value(y, y_pred, sw)
             aux = None
             if self._has_moe:
@@ -485,6 +509,10 @@ class Trainer:
                 aux = moe_aux_loss(self.module)
                 loss = loss + aux
         loss.backward()
+        if self.mesh is not None:
+            from chambers_tpu_torch.parallel.sharding import reduce_gradients
+
+            reduce_gradients(self.module)
         if self._accum == 1 or self._accumulate():
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
@@ -502,16 +530,40 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, metric_states, x, y, sw=None):
-        y_pred = self._apply_fn(self.module, x, True, None)
+        y_pred = self._forward(x, y, True, None)
         logs = self._metric_logs(y, y_pred, metric_states, sw)
         logs["loss"] = torch.as_tensor(self._loss_value(y, y_pred, sw))
         return logs
+
+    def _forward(self, x, y, deterministic, generator):
+        """The module's outputs for the batch; on a mesh ``x`` holds this
+        rank's rows and the outputs come back as the global batch, as many
+        rows as ``y`` has. Every rank then computes the loss and metrics on
+        the whole batch, as the JAX loss sees it under a mesh: the pair
+        losses, NT-Xent and the DETR matcher need every row, not a rank's
+        share. The price is a gather of the outputs a step (PERF.md §6
+        counts its bytes for phase 9's step)."""
+        if self.mesh is None:
+            return self._apply_fn(self.module, x, deterministic, generator)
+        from chambers_tpu_torch.parallel.distributed import (
+            data_parallel,
+            gather_rows,
+        )
+
+        with data_parallel(self.module, self.mesh):
+            y_pred = self._apply_fn(self.module, x, deterministic, generator)
+        n = _leaves(y)[0].shape[0]
+        return _tree_map(lambda t: gather_rows(t, self.mesh, n), y_pred)
 
     # -- data -------------------------------------------------------------------
     def _place_batch(self, x, y, sw=None):
         def place(leaf):
             return _to_device(leaf, self.device)
 
+        if self.mesh is not None:
+            from chambers_tpu_torch.parallel.distributed import local_rows
+
+            x = _tree_map(lambda leaf: local_rows(leaf, self.mesh), x)
         return _tree_map(place, x), _tree_map(place, y), _tree_map(place, sw)
 
     def _prefetch(self, it):
@@ -780,4 +832,4 @@ class Trainer:
 
         model = self.model if isinstance(self.model, Model) else Model(
             self.module)
-        return model.predict(x, batch_size=batch_size)
+        return model.predict(x, batch_size=batch_size, mesh=self.mesh)

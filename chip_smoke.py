@@ -220,17 +220,46 @@ the CUDA toolkit. In order, it:
     hidden. The image-folder leg (a P×K JPEG folder through the native
     decoder) needs libjpeg's headers and library, which the H100 machine
     lacks (PERF.md §4), and is not in the script;
-25. prints a ``trainer`` JSON line (phase 23), a ``data_pipeline`` JSON
-    line (phase 24), a ``paths`` JSON line (the
+25. serves and scales out (``scale_out_path``, in ``build/phase25``). (a)
+    ``bench.py``'s config-1 ViT-B/16 (bf16, bf16 scores, the normalization
+    folded, seed 0, dense attention) exported with a dynamic batch
+    (``serving.export_serving_artifact``), the file's size and the export
+    time, and reloaded by a fresh interpreter that imports only torch and
+    numpy: its logits at batches 1, 4 and 32 against the eager module's
+    (bit-equal expected, held to 2% of the logit range); (b)
+    ``HTTPModelServer(batch_size=32, max_delay_ms=5)`` on the reloaded
+    artifact: 256 single-image ``.npy`` requests from 64 client threads,
+    then 8 JSON ones, every row against the eager model's, ``/stats``
+    counting 264; requests/s and client-side p50/p90/p99 of each round,
+    batches, padded rows and the artifact's device time a batch beside
+    phase 6's model-only time; (c) the same weights on the flash kernels
+    exported through the K3a operator (12 in the program) and served by
+    ``BatchedServer``: 12 ``flash_fwd_tc_kernel`` launches a batch (the
+    counter and the profiler), its logits against the eager flash model
+    and the dense one. Then, after ``init_distributed`` over NCCL at world
+    size 1: (d) phase 9's step through ``Trainer(mesh=create_mesh({"data":
+    1, "model": 1}), param_sharding_rules=SEQ2SEQ_TENSOR_PARALLEL_RULES)``
+    against the meshless ``fit`` (first 3 losses; ms/step in turns,
+    kernels, launches, busy share; K3a-c 12 a step); (e)
+    ``context_parallel_attention`` at ``[16, 8, 512, 64]`` bf16 forward
+    and backward bit-equal to ``flash_attention``, K3a-c once each; (f) an
+    FSDP step on phase 9's model, an EP step on phase 22's MoE ViT-S/16
+    top-2 of 8 and ``pipeline_apply`` (S = 1, M = 4) over 4 layers against
+    their meshless runs, and ``distributed_recall_at_k`` on config 4's 256
+    embeddings against ``utils.ranking``;
+26. prints a ``trainer`` JSON line (phase 23), a ``data_pipeline`` JSON
+    line (phase 24), a ``serving_and_scale_out`` JSON line (phase 25), a
+    ``paths`` JSON line (the
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
     with all five kernels (K1 and K2 with their 384 px shape as
     ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, phase
     22's launches as ``launches_gshard``, phase 23's timed fit's as
     ``launches_trainer`` and K1's in phase 24's fit calls as
-    ``launches_data_pipeline``, K3a's two decode shapes as rows of their
-    own after it), the card line, and last ``{"ok": true, "device":
-    {...}}``.
+    ``launches_data_pipeline``, phase 25's as ``launches_served_flash``,
+    ``launches_trainer_mesh`` and ``launches_context_parallel``, K3a's two
+    decode shapes as rows of their own after it), the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
 imports nothing of JAX or of ``chambers_tpu``.
@@ -4635,6 +4664,623 @@ def data_pipeline_path(torch, wk, dev):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 25. serving and scale-out: ViT-B/16 exported and served (torch.export, the
+# batched HTTP server), a flash ViT exported through the K3a operator, and
+# the parallel paths at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+SERVE = dict(batch=32, requests=256, json_requests=8, clients=64,
+             max_delay_ms=5, reload_batches=(1, 4, 32))
+PP = dict(layers=4, batch=16, t=128, microbatches=4)
+BF16_LOGIT_BOUND = 0.02         # of the logit range: the port's bf16 bound
+
+
+def logit_gap(torch, got, want):
+    """``(max |d|, share bit-equal, bound)`` of bf16 logits against a
+    reference: the bound is 2% of the reference's range."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return (float((got - want).abs().max()),
+            float((got == want).float().mean()),
+            BF16_LOGIT_BOUND * float(want.max() - want.min()))
+
+
+def flash_counts(fa):
+    return dict(fa.flash_attention.launches)
+
+
+def zero_flash(fa):
+    for key in fa.flash_attention.launches:
+        fa.flash_attention.launches[key] = 0
+
+
+def http_requests(port, images, binary, clients):
+    """One single-image request for each of ``images``, ``.npy`` bodies
+    when ``binary`` else JSON, from ``clients`` threads: the rows, each
+    request's latency on the client (s) and the wall seconds."""
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    def post(i):
+        x = images[i:i + 1]
+        if binary:
+            buf = io.BytesIO()
+            np.save(buf, x)
+            body, kind = buf.getvalue(), "application/octet-stream"
+        else:
+            body = json.dumps({"instances": x.tolist()}).encode()
+            kind = "application/json"
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/models/vit:predict", data=body,
+            headers={"Content-Type": kind}, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(request, timeout=120) as response:
+            check(response.status == 200, "the server answered 200")
+            payload = response.read()
+        seconds = time.perf_counter() - t0
+        if binary:
+            return np.load(io.BytesIO(payload))[0], seconds
+        return (np.asarray(json.loads(payload)["predictions"][0],
+                           np.float32), seconds)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        out = list(pool.map(post, range(len(images))))
+    wall = time.perf_counter() - t0
+    return np.stack([r for r, _ in out]), [s for _, s in out], wall
+
+
+def nearest_rank(values, q):
+    values = sorted(values)
+    return values[min(max(math.ceil(q * len(values)) - 1, 0),
+                      len(values) - 1)]
+
+
+def call_profile(torch, fn, calls):
+    """Kernels, device ms and launches a call over ``calls`` profiled
+    calls of ``fn``."""
+    return fit_profile(torch, lambda: [fn() for _ in range(calls)], calls)
+
+
+def flash_kernels_of(torch, fa, fn, calls=3):
+    """``calls`` calls of ``fn`` in one profile: the launch counts of each
+    (the counters, zeroed just before the call) and the names of the flash
+    kernels the profiler saw. The profiler names the kernels only: it can
+    drop a kernel's record, so its counts are not held (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            zero_flash(fa)
+            fn()
+            torch.cuda.synchronize()
+            counts.append(flash_counts(fa))
+    names = set()
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(FLASH_KERNEL, event.name)
+            if m:
+                names.add(m.group(1))
+    return counts, sorted(names)
+
+
+def serving_path(torch, fa, dev, workdir, vit_ms):
+    """Phase 25 (a)-(c): bench.py's config-1 ViT-B/16 exported with a
+    dynamic batch and reloaded in a fresh interpreter that imports only
+    torch and numpy; served by ``HTTPModelServer``; the same weights on the
+    flash kernels exported through the K3a operator and served by
+    ``BatchedServer``."""
+    import numpy as np
+
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        ViTB16,
+        fold_imagenet_normalization,
+    )
+    from chambers_tpu_torch.serving import (
+        BatchedServer,
+        HTTPModelServer,
+        export_serving_artifact,
+        load_serving_artifact,
+    )
+
+    b = SERVE["batch"]
+    model = ViTB16(dtype=torch.bfloat16, score_dtype=torch.bfloat16, seed=0,
+                   device=dev)
+    model.load_state_dict(fold_imagenet_normalization(model.state_dict()))
+    model.eval()
+    n_images = SERVE["requests"] + SERVE["json_requests"]
+    images = torch.rand((n_images, SIZE, SIZE, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(25))
+    with torch.inference_mode():
+        eager = torch.cat([model(images[i:i + b]) for i in
+                           range(0, n_images, b)]).float().cpu()
+    host_images = images.cpu().numpy()
+    out = {}
+
+    # (a) export with a dynamic batch, reload in a fresh interpreter
+    path = os.path.join(workdir, "vitb16.pt2")
+    t0 = time.perf_counter()
+    nbytes = export_serving_artifact(model, path, (SIZE, SIZE, 3))
+    export_s = time.perf_counter() - t0
+    xfile = os.path.join(workdir, "x.npy")
+    outfile = os.path.join(workdir, "out.npz")
+    np.save(xfile, host_images[:max(SERVE["reload_batches"])])
+    script = (
+        "import sys, time, numpy as np, torch\n"
+        "t0 = time.perf_counter()\n"
+        f"program = torch.export.load({path!r}).module()\n"
+        "load_s = time.perf_counter() - t0\n"
+        f"x = torch.from_numpy(np.load({xfile!r})).cuda()\n"
+        "outs = {}\n"
+        "with torch.inference_mode():\n"
+        f"    for b in {SERVE['reload_batches']!r}:\n"
+        "        outs[str(b)] = program(x[:b]).float().cpu().numpy()\n"
+        "bad = [m for m in sys.modules if m.startswith('chambers')]\n"
+        "assert not bad, bad\n"
+        f"np.savez({outfile!r}, load_s=load_s, **outs)\n")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", script], check=True, timeout=600)
+    reload_s = time.perf_counter() - t0
+    reloaded = np.load(outfile)
+    gaps = {}
+    for bsz in SERVE["reload_batches"]:
+        with torch.inference_mode():
+            want = model(images[:bsz])
+        gap, equal, bound = logit_gap(
+            torch, torch.from_numpy(reloaded[str(bsz)]), want)
+        gaps[bsz] = {"max_abs": gap, "bit_equal_share": equal,
+                     "bound": bound}
+        check(gap <= bound, f"the reloaded artifact's logits at batch {bsz} "
+                            "within 2% of the logit range of the eager ones")
+    log(f"phase 25 (a): ViT-B/16 bf16 exported in {export_s:.1f} s, "
+        f"{nbytes / 2 ** 20:.1f} MiB; a fresh interpreter (torch and numpy "
+        f"only) loaded it in {float(reloaded['load_s']):.2f} s and served "
+        f"batches {SERVE['reload_batches']} ({reload_s:.1f} s with its "
+        f"start): " + ", ".join(
+            f"b{k} max |d| {v['max_abs']:.3g} (bound {v['bound']:.3g}), "
+            f"{100 * v['bit_equal_share']:.1f}% bit-equal"
+            for k, v in gaps.items()) + f" on {CARD}")
+    out["export"] = {"seconds": export_s, "mib": nbytes / 2 ** 20,
+                     "reload_subprocess_s": reload_s,
+                     "load_s": float(reloaded["load_s"]), "reload": gaps}
+
+    # (b) the HTTP server on the reloaded artifact
+    serve = load_serving_artifact(path)
+    check(serve.device.type == "cuda", "the artifact serves on the card")
+    x32 = images[:b]
+    profiled = call_profile(torch, lambda: serve(x32), 3)
+    n_bin = SERVE["requests"]
+    rounds = {}
+    with HTTPModelServer(serve, batch_size=b, port=0,
+                         max_delay_ms=SERVE["max_delay_ms"],
+                         dtype=np.float32) as server:
+        for kind, binary, part, clients in (
+                ("npy", True, host_images[:n_bin], SERVE["clients"]),
+                ("json", False, host_images[n_bin:],
+                 SERVE["json_requests"])):
+            before = dict(server.stats)
+            rows, latencies, wall = http_requests(server.port, part, binary,
+                                                  clients)
+            rounds[kind] = {
+                "requests": len(part), "clients": clients, "wall_s": wall,
+                "requests_s": len(part) / wall,
+                "latency_ms": {f"p{q}": 1e3 * nearest_rank(latencies,
+                                                             q / 100)
+                               for q in (50, 90, 99)},
+                "batches": server.stats["batches"] - before["batches"],
+                "padded_rows": (server.stats["padded_rows"]
+                                - before["padded_rows"]),
+                "rows": rows}
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    rows = np.concatenate([rounds[k].pop("rows") for k in ("npy", "json")])
+    gap, equal, bound = logit_gap(torch, torch.from_numpy(rows), eager)
+    check(gap <= bound, "every served prediction within 2% of the logit "
+                        "range of the eager model's row")
+    check(stats["requests"] == n_images, "/stats counts every request")
+    out["http"] = {
+        "rounds": rounds, "stats": stats,
+        "max_abs_vs_eager": gap, "bit_equal_share": equal, "bound": bound,
+        "device_ms_a_batch": profiled["device_ms"],
+        "launches_a_batch": profiled["launches"],
+        "model_only_ms_phase6": vit_ms}
+    log(f"phase 25 (b): HTTPModelServer(batch {b}, max_delay_ms "
+        f"{SERVE['max_delay_ms']}) on the reloaded artifact: " + "; ".join(
+            f"{r['requests']} single-image {k} requests from {r['clients']} "
+            f"clients {r['requests_s']:.1f} requests/s, latency p50 "
+            f"{r['latency_ms']['p50']:.1f} / p90 {r['latency_ms']['p90']:.1f}"
+            f" / p99 {r['latency_ms']['p99']:.1f} ms, {r['batches']} batches,"
+            f" {r['padded_rows']} padded rows" for k, r in rounds.items())
+        + f"; /stats {stats['requests']} requests; max |d| against the "
+        f"eager rows {gap:.3g} (bound {bound:.3g}, {100 * equal:.1f}% "
+        f"bit-equal); the artifact's device time {profiled['device_ms']:.3f}"
+        f" ms a batch of {b} ({profiled['launches']:.0f} launches) against "
+        f"phase 6's model-only {vit_ms:.3f} ms on {CARD}")
+
+    # (c) the same weights on the flash kernels, exported through K3a
+    flash = ViTB16(dtype=torch.bfloat16, attention_impl="flash", seed=0,
+                   device=dev)
+    flash.load_state_dict(model.state_dict())
+    flash.eval()
+    flash_path = os.path.join(workdir, "vitb16_flash.pt2")
+    t0 = time.perf_counter()
+    flash_bytes = export_serving_artifact(flash, flash_path, (SIZE, SIZE, 3))
+    flash_export_s = time.perf_counter() - t0
+    program = torch.export.load(flash_path)
+    operators = sum("chambers_tpu_torch.flash_fwd" in str(n.target)
+                    for n in program.graph.nodes
+                    if n.op == "call_function")
+    check(operators == 12, "the exported flash ViT calls the K3a operator "
+                           "once a layer")
+    serve_flash = load_serving_artifact(flash_path)
+    with torch.inference_mode():
+        want = flash(x32)
+    zero_flash(fa)
+    with BatchedServer(serve_flash, batch_size=b,
+                       max_delay_ms=SERVE["max_delay_ms"]) as server:
+        served = np.stack([f.result(timeout=120) for f in
+                           server.submit_many(host_images[:b])])
+        served_stats = dict(server.stats)
+    torch.cuda.synchronize()
+    served_launches = flash_counts(fa)
+    check(served_stats["batches"] == 1
+          and served_launches == {"fwd": 12, "dkv": 0, "dq": 0},
+          "K3a 12 launches for the one served batch")
+    profiled_flash = call_profile(torch, lambda: serve_flash(x32), 3)
+    readings, kernel_names = flash_kernels_of(torch, fa,
+                                              lambda: serve_flash(x32))
+    log(f"phase 25 (c): 3 profiled served batches: launches {readings}, "
+        f"the profiler's flash kernels {kernel_names}")
+    check(all(r == {"fwd": 12, "dkv": 0, "dq": 0} for r in readings),
+          "K3a 12 launches in each profiled served batch")
+    check(kernel_names == ["flash_fwd_tc_kernel"],
+          "the profiler names flash_fwd_tc_kernel as the served kernel")
+    gap, equal, bound = logit_gap(torch, torch.from_numpy(served), want)
+    check(gap <= bound, "the served flash logits follow the eager flash "
+                        "model's")
+    dense_gap = float((torch.from_numpy(served) - eager[:b]).abs().max())
+    out["flash"] = {
+        "export_s": flash_export_s, "mib": flash_bytes / 2 ** 20,
+        "operators": operators, "launches_a_batch": served_launches,
+        "profiled_launches": readings, "profiled_kernels": kernel_names,
+        "max_abs_vs_eager_flash": gap, "bit_equal_share": equal,
+        "bound": bound, "max_abs_vs_dense": dense_gap,
+        "device_ms_a_batch": profiled_flash["device_ms"],
+        "launches_per_batch": profiled_flash["launches"]}
+    log(f"phase 25 (c): flash ViT-B/16 exported in {flash_export_s:.1f} s "
+        f"({operators} K3a operators in the program); served one batch "
+        f"through BatchedServer: K3a launches {served_launches}, "
+        f"{kernel_names} in the profile; against the eager flash "
+        f"model max |d| {gap:.3g} ({100 * equal:.1f}% bit-equal, bound "
+        f"{bound:.3g}), against the dense model {dense_gap:.3g}; "
+        f"{profiled_flash['device_ms']:.3f} ms of device time a batch "
+        f"against the dense artifact's {profiled['device_ms']:.3f} on {CARD}")
+    return out, served_launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_path(torch, fa, dev):
+    """Phase 25 (d)-(f) at world size 1 over NCCL: phase 9's seq2seq step
+    through ``Trainer(mesh=, param_sharding_rules=)`` against the meshless
+    fit, context-parallel attention against ``flash_attention``, an FSDP
+    step, an EP step on phase 22's MoE ViT-S/16 top-2 and ``pipeline_apply``
+    (S = 1, M = 4) against their meshless runs, and
+    ``distributed_recall_at_k`` on config 4's embeddings against
+    ``utils.ranking``."""
+    import torch.distributed as dist
+
+    from chambers_tpu_torch.layers.normalization import l2_normalize
+    from chambers_tpu_torch.layers.transformer import EncoderLayer
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.parallel import (
+        SEQ2SEQ_TENSOR_PARALLEL_RULES,
+        context_parallel_attention,
+        create_mesh,
+        distributed_recall_at_k,
+        fsdp_rules,
+        init_distributed,
+        moe_expert_parallel_rules,
+        pipeline_apply,
+        shard_params,
+        stack_pipeline_stages,
+    )
+    from chambers_tpu_torch.parallel.distributed import data_parallel
+    from chambers_tpu_torch.training import Trainer
+    from chambers_tpu_torch.utils.ranking import (
+        recall_at_k,
+        score_matrix_to_binary_ranking,
+    )
+
+    info = init_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(dist.get_backend() == "nccl" and info["process_count"] == 1,
+          "init_distributed started NCCL at world size 1")
+    out = {"init": info}
+    loss = masked_ce(torch)
+    per_step = 3 * S2S["layers"]
+
+    def seq2seq_trainer(mesh, rules):
+        module = build_seq2seq(torch, dev, torch.bfloat16).train()
+        tape = LossTape(torch, loss)
+        trainer = Trainer(module, tape, torch.optim.AdamW(
+            module.parameters(), lr=1e-4, weight_decay=1e-4,
+            betas=(0.9, 0.999), eps=1e-8), mesh=mesh,
+            param_sharding_rules=rules)
+        return module, trainer, tape
+
+    # (d) phase 9's step under a {data: 1, model: 1} mesh
+    mesh = create_mesh({"data": 1, "model": 1})
+    data = s2s_batches(torch, 3)
+    losses, launches = {}, {}
+    for key, m, rules in (("meshless", None, None),
+                          ("mesh", mesh, SEQ2SEQ_TENSOR_PARALLEL_RULES)):
+        module, trainer, tape = seq2seq_trainer(m, rules)
+        zero_flash(fa)
+        trainer.fit(data, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        losses[key], launches[key] = tape.floats(), flash_counts(fa)
+        if key == "mesh":
+            # Trainer(mesh=) gathers every rank's outputs and computes the
+            # loss on the whole batch (the pair losses and the DETR matcher
+            # need every row): its bytes a step against the gradients'
+            # all-reduce, at 8 data ranks (one 8-card host), the same batch
+            (src0, tgt0), _ = data[0]
+            with torch.no_grad():
+                logits = module([src0.to(dev), tgt0.to(dev)],
+                                deterministic=True)
+            ranks = 8
+            out_bytes = logits.numel() * logits.element_size()
+            grad_bytes = sum(p.numel() * p.element_size()
+                             for p in module.parameters())
+            traffic = {
+                "data_ranks": ranks, "output_bytes": out_bytes,
+                "gather_bytes_a_rank": out_bytes * (ranks - 1) / ranks,
+                "gradient_allreduce_bytes_a_rank":
+                    2 * grad_bytes * (ranks - 1) / ranks}
+            del logits
+        del module, trainer
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                  losses["meshless"]))
+    check(gap <= 2 ** -7, "the mesh fit's first losses follow the "
+                          "meshless fit's")
+    check(all(v == per_step * 3 for v in launches["mesh"].values()),
+          "K3a-c 12 launches each a step under Trainer(mesh=)")
+    timed = s2s_batches(torch, FIT_TIMED, offset=200)
+    trainers = {"meshless": seq2seq_trainer(None, None)[1],
+                "mesh": seq2seq_trainer(
+                    mesh, SEQ2SEQ_TENSOR_PARALLEL_RULES)[1]}
+    steps = {k: (lambda _, t=t: t.fit(timed, epochs=1, verbose=False))
+             for k, t in trainers.items()}
+    runs = run_in_turns(torch, steps, 1, FIT_REPEATS, 1)
+    ms = {k: median(v) / FIT_TIMED for k, v in runs.items()}
+    profiles = {k: fit_profile(torch, lambda k=k: steps[k](0), FIT_TIMED)
+                for k in steps}
+    zero_flash(fa)
+    steps["mesh"](0)
+    torch.cuda.synchronize()
+    timed_launches = flash_counts(fa)
+    check(all(v == per_step * FIT_TIMED for v in timed_launches.values()),
+          "K3a-c 12 launches each a step in the timed mesh fit")
+    out["trainer_mesh"] = {
+        "losses": losses, "bit_equal": losses["mesh"] == losses["meshless"],
+        "max_rel_gap": gap, "ms_per_step": ms, "traffic": traffic,
+        "runs_ms": {k: [r / FIT_TIMED for r in v] for k, v in runs.items()},
+        "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+        "launches_per_step": {k: p["launches"] for k, p in profiles.items()},
+        "busy": {k: profiles[k]["device_ms"] / ms[k] for k in ms},
+        "flash_launches_per_step": {k: v / FIT_TIMED
+                                    for k, v in timed_launches.items()}}
+    log(f"phase 25 (d): phase 9's step through Trainer(mesh={{data: 1, "
+        f"model: 1}}, SEQ2SEQ_TENSOR_PARALLEL_RULES) over NCCL: first losses "
+        f"{losses['mesh']} against the meshless fit's {losses['meshless']}"
+        f" ({'bit-equal' if out['trainer_mesh']['bit_equal'] else f'gap {gap:.3g}'}"
+        f"); median of {FIT_REPEATS} fits of {FIT_TIMED} steps in turns: "
+        + "; ".join(f"{k} {ms[k]:.3f} ms/step, kernels "
+                    f"{profiles[k]['device_ms']:.3f} ms, busy "
+                    f"{100 * profiles[k]['device_ms'] / ms[k]:.1f}%, "
+                    f"{profiles[k]['launches']:.0f} launches" for k in ms)
+        + f" on {CARD}; at {ranks} data ranks a rank would receive "
+        f"{traffic['gather_bytes_a_rank'] / 2 ** 20:.1f} MiB of gathered "
+        f"outputs a step ({out_bytes / 2 ** 20:.1f} MiB of logits) against "
+        f"{traffic['gradient_allreduce_bytes_a_rank'] / 2 ** 20:.1f} MiB of "
+        f"the gradients' ring all-reduce")
+    del trainers, steps
+
+    # (e) context-parallel attention at [16, 8, 512, 64] bf16
+    g = torch.Generator(device=dev).manual_seed(26)
+    shape = (S2S["batch"], S2S["heads"], S2S["t"], 64)
+    q, k, v = (torch.randn(shape, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    do = torch.randn(shape, device=dev, generator=g, dtype=torch.bfloat16)
+    cp_mesh = create_mesh({"data": 1})
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = fn(qq, vv, kk)
+        o.backward(do)
+        return o, qq.grad, kk.grad, vv.grad
+
+    want = run(lambda a, b_, c: fa.flash_attention(a, b_, c))
+    zero_flash(fa)
+    got = run(lambda a, b_, c: context_parallel_attention(
+        a, b_, c, mesh=cp_mesh))
+    torch.cuda.synchronize()
+    cp_launches = flash_counts(fa)
+    cp_equal = [bool(torch.equal(a, b_)) for a, b_ in zip(got, want)]
+    check(all(cp_equal), "context-parallel attention bit-equal to "
+                         "flash_attention at world size 1 (output, dq, dk, "
+                         "dv)")
+    check(cp_launches == {"fwd": 1, "dkv": 1, "dq": 1},
+          "K3a-c launched once each by context-parallel attention")
+    out["context_parallel"] = {"shape": list(shape), "bit_equal": cp_equal,
+                               "launches": cp_launches}
+    log(f"phase 25 (e): context_parallel_attention at {list(shape)} bf16, "
+        f"forward and backward: output and dq/dk/dv bit-equal to "
+        f"flash_attention {cp_equal}; launches {cp_launches}")
+
+    # (f) FSDP, EP and PP steps, and the distributed recall
+    def step_loss(model, forward):
+        model.zero_grad(set_to_none=True)
+        value = forward(model)
+        value.backward()
+        grad = torch.cat([p.grad.float().flatten() for p in model.parameters()
+                          if p.grad is not None])
+        return float(value.detach()), grad
+
+    src, tgt = seq2seq_tokens(torch, dev)
+    labels = torch.roll(tgt, -1, dims=1)
+    s2s_loss = lambda m: loss(labels, m([src, tgt], deterministic=True))
+    ref = step_loss(build_seq2seq(torch, dev, torch.bfloat16).train(),
+                    s2s_loss)
+    fsdp_mesh = create_mesh({"data": 1})
+    placed = build_seq2seq(torch, dev, torch.bfloat16).train()
+    rules = fsdp_rules(placed, fsdp_mesh)
+    shard_params(placed, fsdp_mesh, rules)
+    with data_parallel(placed, fsdp_mesh):
+        fsdp = step_loss(placed, s2s_loss)
+    sharded = sum(1 for _, spec in rules if len(spec))
+    fsdp_rel = rel_l2(fsdp[1], ref[1])
+    check(fsdp[0] == ref[0] and fsdp_rel <= 1e-2,
+          "the FSDP step's loss equals the meshless step's, its gradients "
+          "within 1e-2 relative L2 (bit-equal expected; the embedding's "
+          "backward accumulates in any order)")
+    x = torch.randn((MOE["batch"], MOE["size"], MOE["size"], 3), device=dev,
+                    generator=g)
+    ep_ref = step_loss(moe_vit(torch, dev, torch.bfloat16,
+                               **MOE_VARIANTS["moe_top2_e8"]),
+                       lambda m: moe_vit_loss(torch, m, x))
+    ep_mesh = create_mesh({"data": 1, "expert": 1})
+    routed = shard_params(moe_vit(torch, dev, torch.bfloat16,
+                                  **MOE_VARIANTS["moe_top2_e8"]),
+                          ep_mesh, moe_expert_parallel_rules("expert"))
+    with data_parallel(routed, ep_mesh):
+        ep = step_loss(routed, lambda m: moe_vit_loss(torch, m, x))
+    ep_rel = rel_l2(ep[1], ep_ref[1])
+    check(ep[0] == ep_ref[0] and ep_rel <= 1e-2,
+          "the EP step's loss equals the meshless step's, its gradients "
+          "within 1e-2 relative L2 (bit-equal expected)")
+    layers = [initializers.init_module(EncoderLayer(
+        S2S["dim"], S2S["heads"], 4 * S2S["dim"], attention_dropout_rate=0.0,
+        dense_dropout_rate=0.0, pre_norm=True, dtype=torch.bfloat16,
+        device=dev), torch.Generator(device=dev).manual_seed(i))
+        for i in range(PP["layers"])]
+    h = torch.randn((PP["batch"], PP["t"], S2S["dim"]), device=dev,
+                    generator=g)
+    seq = h
+    with torch.no_grad():
+        for layer in layers:
+            seq = layer(seq, deterministic=True)
+    from torch.func import functional_call
+
+    stacked = stack_pipeline_stages([stack_pipeline_stages(
+        [dict(layer.named_parameters()) for layer in layers])])
+
+    def stage_fn(params, a):
+        for i in range(PP["layers"]):
+            a = functional_call(layers[0], {n: p[i] for n, p in
+                                            params.items()},
+                                (a,), {"deterministic": True})
+        return a
+
+    with torch.no_grad():
+        piped = pipeline_apply(stage_fn, stacked, h, mesh=create_mesh(
+            {"pipe": 1}), axis="pipe", n_microbatches=PP["microbatches"])
+    pp_gap = float((piped.float() - seq.float()).abs().max())
+    check(pp_gap <= BF16_LOGIT_BOUND * float(seq.float().abs().max()),
+          "pipeline_apply (S = 1, M = 4) follows the sequential layers")
+    vits = config4_embedder(torch, dev)
+    images = torch.rand((ML["batch"], ML["size"], ML["size"], 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(18))
+    with torch.inference_mode():
+        z = l2_normalize(vits(images).float(), axis=-1)
+    y = torch.arange(ML["batch"], device=dev) % ML["classes"]
+    recalls = {}
+    ranking = score_matrix_to_binary_ranking(z @ z.T, y, y,
+                                             remove_top1=True)
+    for kk in (1, 5):
+        got_r = float(distributed_recall_at_k(z, z, y, y, k=kk,
+                                              mesh=fsdp_mesh,
+                                              remove_top1=True))
+        want_r = float(recall_at_k(ranking, kk))
+        recalls[kk] = (got_r, want_r)
+        check(abs(got_r - want_r) <= 1e-6, f"distributed recall@{kk} equals "
+                                           "utils.ranking's")
+    out["forms"] = {"fsdp": {"loss": fsdp[0], "loss_meshless": ref[0],
+                             "grad_rel_l2": fsdp_rel,
+                             "sharded_rules": sharded},
+                    "ep": {"loss": ep[0], "loss_meshless": ep_ref[0],
+                           "grad_rel_l2": ep_rel},
+                    "pp": {"max_abs_vs_sequential": pp_gap},
+                    "recall": {str(k): v for k, v in recalls.items()}}
+    log(f"phase 25 (f): FSDP step on phase 9's model ({sharded} parameters "
+        f"under a data spec) loss {fsdp[0]:.6f}, meshless {ref[0]:.6f}, "
+        f"gradients rel L2 {fsdp_rel:.3g}; EP step on the MoE ViT-S/16 "
+        f"top-2 of 8 loss {ep[0]:.6f}, meshless {ep_ref[0]:.6f}, gradients "
+        f"rel L2 {ep_rel:.3g}; "
+        f"pipeline_apply (S = 1, M = {PP['microbatches']}) over "
+        f"{PP['layers']} layers max |d| {pp_gap:.3g} against the layers in "
+        f"sequence; recall@1/@5 on config 4's 256 embeddings "
+        f"{recalls} (distributed, utils.ranking)")
+    dist.destroy_process_group()
+    return out, timed_launches, cp_launches
+
+
+def config4_embedder(torch, dev):
+    """Config 4's ViT-S/16 embedder (bf16, bf16 scores, seed 0), eval."""
+    from chambers_tpu_torch import initializers
+    from chambers_tpu_torch.models.backbones.vision_transformer import (
+        VisionTransformer,
+    )
+
+    model = VisionTransformer(
+        16, ML["width"], ML["depth"], ML["heads"], ML["mlp"],
+        dropout_rate=0.0, image_size=(ML["size"], ML["size"]),
+        include_top=False, pooling="cls", feature_dim=ML["features"],
+        dtype=torch.bfloat16, score_dtype=torch.bfloat16, device=dev)
+    return initializers.init_module(
+        model, torch.Generator(device=dev).manual_seed(0)).eval()
+
+
+def scale_out_path(torch, fa, dev, vit_ms):
+    """Phase 25: (a)-(c) then (d)-(f), in a scratch directory of the
+    checkout, removed afterwards."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase25")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    try:
+        serving, served_launches = serving_path(torch, fa, dev, workdir,
+                                                vit_ms)
+        torch.cuda.empty_cache()
+        mesh, mesh_launches, cp_launches = mesh_path(torch, fa, dev)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"phase 25: {seconds:.1f} s")
+    return ({"serving": serving, "mesh": mesh, "seconds": seconds},
+            {"launches_served_flash": served_launches,
+             "launches_trainer_mesh": mesh_launches,
+             "launches_context_parallel": cp_launches})
+
+
 def main():
     global CARD
     import torch
@@ -4643,6 +5289,15 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    phase_seconds, clock = {}, [time.perf_counter()]
+
+    def lap(phases):
+        """The seconds since the last lap, under ``phases``: what each
+        group of phases costs of the run's time limit."""
+        now = time.perf_counter()
+        phase_seconds[phases] = round(now - clock[0], 1)
+        clock[0] = now
+
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chambers_tpu_torch.augmentations.augmentation_schemes import (
         RandAugment,
@@ -4975,6 +5630,7 @@ def main():
     torch.cuda.synchronize()
     del cold, pool, model
 
+    lap("build, 1-7")
     # 8-11. flash attention: kernels against plain versions, the seq2seq
     # train step, a ViT on the kernel, kernel times
     flash_errors = check_flash_kernels(torch, fa, dev)
@@ -4984,6 +5640,7 @@ def main():
     vit_on_flash(torch, fa, dev, imgs)
     rows += time_flash_kernels(torch, fa, dev, flash_launches, flash_errors)
 
+    lap("8-11")
     # 12-15. the int8 serving path (a), AutoAugment -> ViT-L/16 at 384 px
     # (b), K1 and K2 at that shape (c), _int_mm at the paths' shapes (d)
     int8_path = int8_serving_path(torch, wk, dev, aug, rand_images)
@@ -4994,6 +5651,7 @@ def main():
             row["shape_384"] = at_384[row["name"]]
     int_mm_rows = time_int_mm(torch, dev)
 
+    lap("12-15")
     # 16-18. cached generation, K3a at one query row, the metric-learning
     # train step
     decode, tally = generation_path(torch, fa, dev)
@@ -5002,10 +5660,12 @@ def main():
     rows[k3a + 1:k3a + 1] = decode_rows
     metric = metric_learning_path(torch, dev)
 
+    lap("16-18")
     # 19. the DETR train step (bench.py's config 5) in its three matcher
     # modes
     detr = detr_path(torch, dev)
 
+    lap("19")
     # 20. the DeiT-B/16 recipe's train step in its two modes, and K3a-c
     # at its shape
     deit = deit_path(torch, fa, dev)
@@ -5016,10 +5676,12 @@ def main():
         if row["name"] in at_198:
             row["shape_198"] = at_198[row["name"]]
 
+    lap("20")
     # 21. the CNN backbones: serving (a) and the SE-ResNet-50 train step (b)
     cnn_serving = cnn_serving_path(torch, dev)
     cnn_step = cnn_train_step_path(torch, dev)
 
+    lap("21")
     # 22. mixture of experts: the MoE ViT-S/16 (a) and the GShard seq2seq
     # step on the flash kernels (b)
     moe_vit_results, gshard, gshard_launches = moe_path(torch, fa, dev)
@@ -5125,6 +5787,7 @@ def main():
     paths["gshard seq2seq train step (top-2 of 8, b16 512 + 512 bf16, "
           "flash, AdamW)"] = gshard
 
+    lap("22")
     # 23. the training harness: phase 9's step through Trainer.fit (a),
     # config 4 through the Keras facade (b), LoRA on ViT-B/16 (c)
     harness, harness_launches = harness_path(torch, fa, dev)
@@ -5135,6 +5798,7 @@ def main():
             row["launches_trainer"] = harness_launches[key]
     log(json.dumps({"trainer": harness, "card": CARD}))
 
+    lap("23")
     # 24. the host data pipeline: config 4's step through Trainer.fit from
     # a TFRecord file
     data_run = data_pipeline_path(torch, wk, dev)
@@ -5142,8 +5806,24 @@ def main():
         if row["name"] == "fused_round":
             row["launches_data_pipeline"] = data_run["k1_launches_per_fit"]
     log(json.dumps({"data_pipeline": data_run, "card": CARD}))
+
+    lap("24")
+    # 25. serving and scale-out: ViT-B/16 exported, reloaded and served
+    # over HTTP, a flash ViT through the K3a operator, the parallel paths
+    # at world size 1 over NCCL
+    scale_out, scale_launches = scale_out_path(torch, fa, dev, vit_ms)
+    for row in rows:
+        key = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+               "flash_bwd_dq": "dq"}.get(row["name"])
+        if key:
+            for name, counts in scale_launches.items():
+                row[name] = counts[key]
+    log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
+    lap("25")
+    log(json.dumps({"seconds_by_phase": phase_seconds,
+                    "seconds": round(sum(phase_seconds.values()), 1)}))
 
     log(json.dumps({"kernels": rows}))
     log(CARD)

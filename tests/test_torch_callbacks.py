@@ -290,8 +290,26 @@ def test_experiment_callback_layout_and_files_both_packages_read(tmp_path):
 
 
 def test_experiment_callback_serving_export_raises_naming_item_8(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcb.ExperimentCallback(str(tmp_path), serving_input_shape=(4,))
+    # the export came with item 8: train end writes model/export/model.pt2
+    # beside model.msgpack, the live module's forward, and it serves any
+    # batch (exact: the same float32 program)
+    from chambers_tpu_torch.serving import load_serving_artifact
+
+    _, net = _pair()
+    trainer = Trainer(net, loss=lambda a, b: torch.mean((a - b) ** 2),
+                      optimizer=lambda named: torch.optim.SGD(
+                          [p for _, p in named], lr=1e-2))
+    data = [(np.ones((8, 4), np.float32), np.ones((8, 1), np.float32))] * 2
+    cb = tcb.ExperimentCallback(str(tmp_path), serving_input_shape=(4,))
+    trainer.fit(data, epochs=1, callbacks=[cb], verbose=False)
+    export = os.path.join(cb.export_dir)
+    assert os.path.exists(os.path.join(export, "model.msgpack"))
+    serve = load_serving_artifact(os.path.join(export, "model.pt2"))
+    for b in (1, 5):
+        x = torch.from_numpy(np.random.RandomState(b).rand(b, 4).astype(
+            np.float32))
+        with torch.no_grad():
+            assert torch.equal(serve(x), net(x))
 
 
 class TestTensorBoard:

@@ -1,9 +1,9 @@
 """``chambers_tpu_torch.data.device_prefetch`` on the CPU: the batches of
 the JAX package's ``device_prefetch``, in order, as tensors on the asked
 device, at most ``size`` placed ahead; the CUDA default raises without a
-card; ``size=0`` and ``sharding=`` raise. On the card the copy stream and
-its events are the Trainer's prefetcher's, which
-``tests/test_torch_cuda_trainer.py`` holds there."""
+card; ``size=0`` raises and ``sharding=`` yields ``DTensor`` batches. On
+the card the copy stream and its events are the Trainer's prefetcher's,
+which ``tests/test_torch_cuda_trainer.py`` holds there."""
 
 import numpy as np
 import pytest
@@ -61,8 +61,16 @@ def test_feeds_a_dataset_pipeline():
 def test_arguments_are_checked():
     with pytest.raises(ValueError, match="size"):
         device_prefetch([1], size=0, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"§1 item 8"):
-        device_prefetch([1], device="cpu", sharding=object())
+    from torch.distributed.tensor import DTensor
+
+    from chambers_tpu_torch.parallel import batch_sharding, create_mesh
+
+    # a one-device mesh: every batch comes out as a DTensor holding it all
+    mesh = create_mesh({"data": 1}, device="cpu")
+    batch = np.arange(6, dtype=np.float32).reshape(3, 2)
+    (out,) = list(device_prefetch([batch], sharding=batch_sharding(mesh)))
+    assert isinstance(out, DTensor) and out.shape == (3, 2)
+    np.testing.assert_array_equal(out.to_local().numpy(), batch)
 
 
 def test_cuda_by_default(monkeypatch):

@@ -379,3 +379,28 @@ def test_decoder_cache_steps_equal_the_full_length_decoder(pre_norm, impl):
                            cache=cache, index=i)
             np.testing.assert_allclose(step[:, 0].numpy(),
                                        full[:, i].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("decode,extra", [
+    (greedy_decode, {}),
+    (beam_search_decode, dict(beam_size=2)),
+    (sample_decode, dict(temperature=1.5)),
+], ids=["greedy", "beam", "sample"])
+def test_decoding_records_no_autograd_graph(params, decode, extra):
+    """Every decoder runs its steps with autograd off, so a module whose
+    parameters require grad saves no activations while it decodes."""
+    _, _, port = _models(params, "xla")
+    assert all(p.requires_grad for p in port.parameters())
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda *_: seen.append(torch.is_grad_enabled()))
+        for m in port.modules()]
+    try:
+        out = decode(port, _port(_sources(12)), max_len=MAX_LEN, bos_id=BOS,
+                     **extra)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    assert torch.is_grad_enabled()
+    assert not out.requires_grad
+    assert seen and not any(seen)

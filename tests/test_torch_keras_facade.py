@@ -428,7 +428,7 @@ def test_evaluate_on_an_empty_dataset_says_so():
         tm.evaluate([], verbose=False)
 
 
-def test_export_of_a_serving_artifact_is_left_to_item_8():
+def test_export_of_a_serving_artifact_is_left_to_item_8(tmp_path):
     from chambers_tpu_torch.training.trainer import _CallbackModel
 
     _, tm = _pair()
@@ -436,7 +436,16 @@ def test_export_of_a_serving_artifact_is_left_to_item_8():
     facade = _CallbackModel(tm.trainer)
     assert facade.module is tm.module
     assert facade.base_learning_rate == 1e-3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        from chambers_tpu_torch.callbacks import ExperimentCallback
+    # serving came with item 8: the facade's forward exports and serves
+    from chambers_tpu_torch.serving import (
+        export_serving_artifact,
+        load_serving_artifact,
+    )
 
-        ExperimentCallback("unused", serving_input_shape=(8,))
+    path = str(tmp_path / "facade.pt2")
+    export_serving_artifact(facade, path, (8,), batch_size=4)
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 8).astype(
+        np.float32))
+    with torch.no_grad():
+        assert torch.equal(load_serving_artifact(path)(x),
+                           facade.apply_fn(x))

@@ -110,7 +110,8 @@ def test_not_yet_ported_paths_say_so(tmp_path, monkeypatch):
 
     # the flash kernel is ported: the branch runs (on the CPU through its
     # plain version); the optimizers' mutable learning rate came with the
-    # callbacks; data-parallel training and serving exports wait for item 8
+    # callbacks; data-parallel training and serving exports came with
+    # item 8
     q = torch.zeros(1, 1, 2, 4)
     assert torch.equal(scaled_dot_product_attention(q, q, impl="flash"), q)
     with pytest.raises(ValueError, match="impl"):
@@ -122,11 +123,11 @@ def test_not_yet_ported_paths_say_so(tmp_path, monkeypatch):
     from chambers_tpu_torch.training import Trainer
     from chambers_tpu_torch.utils import data
 
-    with pytest.raises(NotImplementedError, match=r"§1 item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(QuantDense(2, 1, device="cpu"), loss=None, optimizer=None,
                 mesh=object())
-    with pytest.raises(NotImplementedError, match=r"§1 item 8"):
-        ExperimentCallback(str(tmp_path), serving_input_shape=(4,))
+    cb = ExperimentCallback(str(tmp_path), serving_input_shape=(4,))
+    assert cb.serving_input_shape == (4,)
     # the host data pipeline came with item 7
     assert data.valid_cardinality(data.pair_iteration_dataset(
         np.zeros((2, 1)), np.zeros((2, 1)), 1, 1)) is False
@@ -281,21 +282,16 @@ def test_vit_preprocess_input_is_bit_equal_to_jax():
 
 
 def test_submodules_load_lazily_and_unported_ones_name_their_item():
+    # every submodule is ported (item 8 brought parallel and serving): all
+    # load lazily, an unknown name raises
     code = (
         "import sys, chambers_tpu_torch as c\n"
         "assert 'chambers_tpu_torch.losses' not in sys.modules\n"
         "assert c.losses is sys.modules['chambers_tpu_torch.losses']\n"
         "assert 'losses' in dir(c) and 'models' in dir(c)\n"
         "for name in ['callbacks', 'training', 'utils', 'serialization',\n"
-        "             'data']:\n"
+        "             'data', 'parallel', 'serving']:\n"
         "    assert getattr(c, name) is sys.modules[f'chambers_tpu_torch.{name}']\n"
-        "for name, item in [('parallel', 8), ('serving', 8)]:\n"
-        "    try:\n"
-        "        getattr(c, name)\n"
-        "    except AttributeError as e:\n"
-        "        assert f'item {item}' in str(e), e\n"
-        "    else:\n"
-        "        raise AssertionError(name)\n"
         "try:\n"
         "    c.no_such_module\n"
         "except AttributeError:\n"
@@ -308,3 +304,31 @@ def test_submodules_load_lazily_and_unported_ones_name_their_item():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["parallel", "serving"])
+def test_item_8_modules_have_the_jax_names(name):
+    """``parallel`` exports exactly the names of the JAX package's
+    ``parallel/__init__.py``; ``serving`` has its public functions and
+    classes."""
+    import importlib
+    import inspect
+
+    jax_module = importlib.import_module(f"chambers_tpu.{name}")
+    port = importlib.import_module(f"chambers_tpu_torch.{name}")
+
+    def public(module):
+        return {n for n, v in vars(module).items() if not n.startswith("_")
+                and not inspect.ismodule(v)
+                and getattr(v, "__module__", module.__name__)
+                .startswith(module.__name__.split(".")[0])}
+
+    if name == "parallel":
+        assert public(port) == public(jax_module)
+    else:
+        want = {n for n in public(jax_module)
+                if getattr(vars(jax_module)[n], "__module__", "")
+                == jax_module.__name__}
+        assert want == {"export_serving_artifact", "load_serving_artifact",
+                        "BatchedServer", "HTTPModelServer"}
+        assert want <= public(port)

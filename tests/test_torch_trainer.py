@@ -354,9 +354,8 @@ def test_terminate_on_nan(spe, check, epochs_run, steps_run):
     (dict(ema_decay=1.0), ValueError, "ema_decay"),
     (dict(trainable=r"does_not_exist_xyz"), ValueError,
      "matches no parameters"),
-    (dict(mesh=object()), NotImplementedError, "item 8"),
-    (dict(param_sharding_rules=[("kernel", None)]), NotImplementedError,
-     "item 8"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(param_sharding_rules=[("kernel", None)]), ValueError, "mesh="),
 ])
 def test_invalid_arguments_raise(kwargs, error, match):
     _, net = _pair()
