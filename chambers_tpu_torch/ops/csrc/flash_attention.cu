@@ -59,10 +59,15 @@
 // by l once at the end, where the TPU kernel renormalises at every key
 // step.
 //
-// Takes head size 64 (the kernels are templates over the type and the head
-// size; only float32 and 64 are instantiated, being what a path runs and
-// the card checks), contiguous operands whose base addresses are multiples
-// of 16 bytes. Built WITHOUT --fmad=false: the inner products of these
+// Takes head size 64 or 128 (the kernels are templates over the type and
+// the head size, in steps of 64; float32 is instantiated at both, bfloat16
+// goes to the tensor-core kernels, built at both; the wrapper zero-pads any
+// other head size up to 128 to the next of them), contiguous operands whose
+// base addresses are multiples of 16 bytes. At 128 the FMA kernels keep the
+// same 16 x 16 threads, each holding 8 columns of every accumulator row
+// (two groups of 4, 64 apart), and stage 64-row tiles of 132 floats a row:
+// 116, 149 and 167 KB of shared memory for K3a, K3c and K3b; nvcc gives
+// them 128, 128 and 222 registers, and K3c spills 48 bytes. Built WITHOUT --fmad=false: the inner products of these
 // kernels are FMAs, and those of the bf16 kernels run on the tensor cores.
 
 #include <cuda_runtime.h>
@@ -562,30 +567,33 @@ constexpr int kBFloat16 = 1;
 
 }  // namespace
 
-// the bfloat16 kernels on the tensor cores, head size 64
-// (flash_attention_fwd.cu, flash_attention_bwd.cu)
-cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
+// the bfloat16 kernels on the tensor cores, at `panels` = head size / 64,
+// 1 or 2 (flash_attention_fwd.cu, flash_attention_bwd.cu)
+cudaError_t flash_fwd_bf16(int panels, const void* q, const void* k, const void* v,
                            const void* kv_mask, void* o, void* l, void* m,
                            int bn, int tq, int tk, int n_heads, float scale,
                            int causal, cudaStream_t stream);
-cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+cudaError_t flash_bwd_dkv_bf16(int panels, const void* q, const void* k, const void* v,
                                const void* dout, const void* l, const void* m,
                                const void* di, const void* kv_mask, void* dk,
                                void* dv, int bn, int tq, int tk, int n_heads,
                                float scale, int causal, cudaStream_t stream);
-cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+cudaError_t flash_bwd_dq_bf16(int panels, const void* q, const void* k, const void* v,
                               const void* dout, const void* l, const void* m,
                               const void* di, const void* kv_mask, void* dq,
                               int bn, int tq, int tk, int n_heads, float scale,
                               int causal, cudaStream_t stream);
 
-// dtype: 0 float32, 1 bfloat16; h: 64. Anything else is refused
+// dtype: 0 float32, 1 bfloat16; h: 64 or 128. Anything else is refused
 // with cudaErrorInvalidValue. Empty problems launch nothing. float32 takes
 // this file's kernels (LAUNCH), bfloat16 the tensor-core ones (BF16).
 #define FLASH_DISPATCH(LAUNCH, BF16, ...)                                    \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
-  if (dtype == kBFloat16 && h == 64) return (int)BF16(__VA_ARGS__);          \
+  if (dtype == kFloat32 && h == 128)                                         \
+    return (int)LAUNCH<float, 128>(__VA_ARGS__);                             \
+  if (dtype == kBFloat16 && (h == 64 || h == 128))                           \
+    return (int)BF16(h / 64, __VA_ARGS__);                                   \
   return (int)cudaErrorInvalidValue;
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,

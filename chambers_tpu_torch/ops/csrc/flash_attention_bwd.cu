@@ -11,7 +11,8 @@
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
 // tiles dq += ds k scale; the [b, tk] key mask shared by a batch item's
 // heads, the causal diagonal at the sequence end, exact zeros for a row or a
-// batch item with no valid key, any tq and tk, head size 64.
+// batch item with no valid key, any tq and tk, head size 64 or 128 (one or
+// two panels, a template parameter; the wrapper pads other sizes).
 //
 // Bound: operations. At [128, 512, 64] dK/dV is four products of
 // 128 x 512 x 512 x 64 multiply-adds, 17.2 GFLOP, 17.4 us at the tensor
@@ -22,11 +23,16 @@
 // Design (flash_tiles.cuh has the tile layout and the product functions).
 // * A block is one warpgroup (K3b) or two (K3c), each owning 64 rows: keys
 //   in K3b, queries in K3c. Its own operands (K and V, or Q and dO: 16 KB a
-//   warpgroup) are copied to shared memory once; the other side passes by
-//   in tiles of 64 rows (16 KB a step) through a ring of three stages filled
-//   with cp.async, two steps ahead of the products. Each step has one
+//   warpgroup a panel) are copied to shared memory once; the other side
+//   passes by in tiles of 64 rows (16 KB a step a panel) through a ring of
+//   three stages filled with cp.async, two steps ahead of the products.
+//   Each step has one
 //   __syncthreads: after it the step's tiles are visible to all and the
 //   stage that the copy started next overwrites has been read by all.
+// * At head size 128 the score and do . v^T products run over both panels
+//   (eight k16 steps each), and dQ, dK and dV are two [64 x 64]
+//   accumulators each, one a panel, each fed the same P or dS by its own
+//   four wgmma; the epilogues loop over the panels.
 // * Each warpgroup computes its 64 rows against the passing 64 with wgmma:
 //   the score tile and the do . v^T tile with both operands in shared
 //   memory, then p and ds on the accumulator fragments in registers,
@@ -75,6 +81,14 @@
 //   K3c  two warpgroups a block (256 threads), 128 registers, 83 KB: two
 //        blocks an SM by both. One warpgroup a block, three an SM, was
 //        level with it.
+//   Head size 128: K3b keeps one warpgroup a block, its dK and dV now 128
+//   float32 registers a thread, 131 KB of shared memory: one block an SM,
+//   and __launch_bounds__ lets the registers grow to 255: 246, no spills.
+//   The other way to hold the accumulators, two warpgroups sharing the
+//   block's 64 keys and splitting the head's panels, would compute the
+//   score and do . v^T tiles twice (the tensor cores' work 1.5 times over)
+//   and the softmax twice. K3c keeps two warpgroups, 163 KB: one block an
+//   SM, 166 registers, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,17 +100,21 @@ namespace {
 
 using namespace flash_tiles;
 
-// warpgroups a block, and blocks an SM the compiler fits the registers to
-constexpr int kDkvGroups = 1, kDkvBlocks = 3;
-constexpr int kDqGroups = 2, kDqBlocks = 2;
+// warpgroups a block, and blocks an SM the compiler fits the registers to,
+// by head panels
+constexpr int kDkvGroups = 1;
+constexpr int kDqGroups = 2;
+constexpr int dkv_blocks(int panels) { return panels == 1 ? 3 : 1; }
+constexpr int dq_blocks(int panels) { return panels == 1 ? 2 : 1; }
 constexpr int kStages = 3;                    // ring of passing tiles
-constexpr int kStageBytes = 2 * kTileBytes;   // two tiles: 16 KB
 constexpr int kRowsBytes = 2 * kTileRows * 4; // per-row floats of a stage
 
-// a block of `groups` warpgroups owns groups * 64 rows of two operands
-constexpr size_t smem_bytes(int groups) {
-  return 1024 + groups * 2 * kTileBytes + kStages * (kStageBytes + kRowsBytes)
-         + 64;
+// a block of `groups` warpgroups owns groups * 64 rows of two operands; a
+// stage holds two tiles
+template <int kPanels>
+__host__ __device__ constexpr size_t smem_bytes(int groups) {
+  return 1024 + groups * 2 * tile_bytes<kPanels>() +
+         kStages * (2 * tile_bytes<kPanels>() + kRowsBytes) + 64;
 }
 
 struct RowStats {
@@ -104,7 +122,8 @@ struct RowStats {
 };
 
 // K3c: dq for the block's query rows over all key tiles
-__global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
+template <int kPanels>
+__global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
     flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -117,19 +136,21 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
                            int n_heads, float scale, int causal) {
   constexpr int kGroups = kDqGroups, kThreads = 128 * kGroups,
                 kOwned = kTileRows * kGroups;
+  constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
+                kStageBytes = 2 * kTile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(smem);
-  const uint32_t do_s = q_s + kGroups * kTileBytes;
-  const uint32_t ring = q_s + 2 * kGroups * kTileBytes;
-  float* valid_s = reinterpret_cast<float*>(smem + 2 * kGroups * kTileBytes +
+  const uint32_t do_s = q_s + kGroups * kTile;
+  const uint32_t ring = q_s + 2 * kGroups * kTile;
+  float* valid_s = reinterpret_cast<float*>(smem + 2 * kGroups * kTile +
                                             kStages * kStageBytes);
   int* flags_s = reinterpret_cast<int*>(valid_s + kStages * 2 * kTileRows);
 
   const Lanes at;
   const int bn = blockIdx.x, q0 = blockIdx.y * kOwned;
-  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHead;
-  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHead;
+  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHd;
+  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -164,17 +185,18 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
     k_end = last + 1;
   }
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
-  stage_rows<kOwned, kThreads>(q_s, q + (size_t)bn * tq * kHead, q0, tq,
-                               at.tid);
-  stage_rows<kOwned, kThreads>(do_s, dout + (size_t)bn * tq * kHead, q0, tq,
-                               at.tid);
+  stage_rows<kOwned, kThreads, kPanels>(q_s, q + (size_t)bn * tq * kHd, q0,
+                                        tq, at.tid);
+  stage_rows<kOwned, kThreads, kPanels>(do_s, dout + (size_t)bn * tq * kHd,
+                                        q0, tq, at.tid);
 
   auto stage_step = [&](int step) {
     if (step < steps) {
       const int stage = step % kStages, k0 = step * kTileRows;
       const uint32_t k_s = ring + stage * kStageBytes;
-      stage_rows<kTileRows, kThreads>(k_s, kb, k0, tk, at.tid);
-      stage_rows<kTileRows, kThreads>(k_s + kTileBytes, vb, k0, tk, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
+                                               at.tid);
       if (at.tid < kTileRows) {  // which keys of the tile take part
         const int col = k0 + at.tid;
         float* dst = valid_s + stage * kTileRows + at.tid;
@@ -197,9 +219,12 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
   const float scale2 = scale * kLog2e;
   const bool rows_inside = group_row0 + kTileRows <= tq;
 
-  float acc[32];
+  // dQ: one [64 x 64] accumulator a panel
+  float acc[kPanels][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
 
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();
@@ -217,12 +242,12 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
         (causal && k0 > group_row0 + kTileRows - 1 + offset))
       continue;
     const uint32_t k_s = ring + stage * kStageBytes;
-    const uint32_t v_s = k_s + kTileBytes;
+    const uint32_t v_s = k_s + kTile;
 
     float s[32], dp[32];
     products_begin();
-    product_nt(s, q_s + at.group * kTileBytes, k_s);
-    product_nt(dp, do_s + at.group * kTileBytes, v_s);
+    product_nt<kPanels>(s, q_s + at.group * kTile, k_s);
+    product_nt<kPanels>(dp, do_s + at.group * kTile, v_s);
     products_end();
     keep_registers(s);
     keep_registers(dp);
@@ -266,24 +291,31 @@ __global__ void __launch_bounds__(128 * kDqGroups, kDqBlocks)
     pack_a_fragments(s, ds);
 
     products_begin();
-    product_tn(acc, ds, k_s);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      product_tn(acc[p], ds, k_s + p * kPanelBytes);
     products_end();
     keep_registers(ds);
-    keep_registers(acc);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) keep_registers(acc[p]);
   }
 
   if (steps == 0) {  // the copies of Q and dO have met no barrier yet
     cp_async_wait<0>();
     __syncthreads();
   }
-  // the group's own Q tile is read no more
-  store_accumulator(dq + (size_t)bn * tq * kHead,
-                    smem + at.group * kTileBytes, acc, scale, group_row0, tq,
-                    1 + at.group, at.tid & 127);
+  // the group's own Q tile is read no more: panel p of dQ leaves through
+  // panel p of it
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p)
+    store_accumulator<kHd>(dq + (size_t)bn * tq * kHd + p * kPanelCols,
+                           smem + at.group * kTile + p * kPanelBytes, acc[p],
+                           scale, group_row0, tq, 1 + at.group, at.tid & 127);
 }
 
 // K3b: dk, dv for the block's 64 keys over all query tiles
-__global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
+template <int kPanels>
+__global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
     flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -297,20 +329,22 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
                             int n_heads, float scale, int causal) {
   static_assert(kDkvGroups == 1, "one warpgroup owns the block's keys");
   constexpr int kThreads = 128;
+  constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
+                kStageBytes = 2 * kTile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t k_s = smem_u32(smem);
-  const uint32_t v_s = k_s + kTileBytes;
-  const uint32_t ring = k_s + 2 * kTileBytes;
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t ring = k_s + 2 * kTile;
   // [stage][exponent offset, di][query of the tile]
-  float* rows_s = reinterpret_cast<float*>(smem + 2 * kTileBytes +
+  float* rows_s = reinterpret_cast<float*>(smem + 2 * kTile +
                                            kStages * kStageBytes);
   int* flags_s = reinterpret_cast<int*>(rows_s + kStages * 2 * kTileRows);
 
   const Lanes at;
   const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
-  const __nv_bfloat16* qb = q + (size_t)bn * tq * kHead;
-  const __nv_bfloat16* dob = dout + (size_t)bn * tq * kHead;
+  const __nv_bfloat16* qb = q + (size_t)bn * tq * kHd;
+  const __nv_bfloat16* dob = dout + (size_t)bn * tq * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -324,8 +358,9 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
     if (step < steps) {
       const int stage = step % kStages, q0 = (first + step) * kTileRows;
       const uint32_t q_s = ring + stage * kStageBytes;
-      stage_rows<kTileRows, kThreads>(q_s, qb, q0, tq, at.tid);
-      stage_rows<kTileRows, kThreads>(q_s + kTileBytes, dob, q0, tq, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(q_s, qb, q0, tq, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(q_s + kTile, dob, q0, tq,
+                                               at.tid);
     }
     cp_async_commit();
   };
@@ -377,24 +412,27 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
     keys_all &= flags_s[w] & 2;
   }
   if (!keys_any) {  // no key of the block takes part: zeros, nothing read
-    store_zero_rows(dv + (size_t)bn * tk * kHead, k0, tk, at.tid);
-    store_zero_rows(dk + (size_t)bn * tk * kHead, k0, tk, at.tid);
+    store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, at.tid);
+    store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, k0, tk, at.tid);
     return;
   }
 
-  stage_rows<kTileRows, kThreads>(k_s, k + (size_t)bn * tk * kHead, k0, tk,
-                                  at.tid);
-  stage_rows<kTileRows, kThreads>(v_s, v + (size_t)bn * tk * kHead, k0, tk,
-                                  at.tid);
+  stage_rows<kTileRows, kThreads, kPanels>(k_s, k + (size_t)bn * tk * kHd,
+                                           k0, tk, at.tid);
+  stage_rows<kTileRows, kThreads, kPanels>(v_s, v + (size_t)bn * tk * kHd,
+                                           k0, tk, at.tid);
   stage_step(0);
   stage_step(1);
   store_rows(0, rows0);
   store_rows(1, rows1);
   const float scale2 = scale * kLog2e;
 
-  float dk_acc[32], dv_acc[32];
+  // dK and dV: one [64 x 64] accumulator a panel each
+  float dk_acc[kPanels][32], dv_acc[kPanels][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();
@@ -406,14 +444,14 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
     // a tile whose last row does not reach the block's first key is skipped
     if (!(causal && k0 > q0 + kTileRows - 1 + offset)) {
       const uint32_t q_s = ring + stage * kStageBytes;
-      const uint32_t do_s = q_s + kTileBytes;
+      const uint32_t do_s = q_s + kTile;
       const float* lse2_s = rows_s + stage * 2 * kTileRows;
       const float* di_s = lse2_s + kTileRows;
 
       float st[32], dpt[32];  // [key][query]
       products_begin();
-      product_nt(st, k_s, q_s);
-      product_nt(dpt, v_s, do_s);
+      product_nt<kPanels>(st, k_s, q_s);
+      product_nt<kPanels>(dpt, v_s, do_s);
       products_end();
       keep_registers(st);
       keep_registers(dpt);
@@ -465,13 +503,19 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
       pack_a_fragments(dpt, dst);
 
       products_begin();
-      product_tn(dv_acc, pt, do_s);
-      product_tn(dk_acc, dst, q_s);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        product_tn(dv_acc[p], pt, do_s + p * kPanelBytes);
+        product_tn(dk_acc[p], dst, q_s + p * kPanelBytes);
+      }
       products_end();
       keep_registers(pt);
       keep_registers(dst);
-      keep_registers(dv_acc);
-      keep_registers(dk_acc);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        keep_registers(dv_acc[p]);
+        keep_registers(dk_acc[p]);
+      }
     }
     store_rows(step + kStages - 1, ahead);
   }
@@ -480,11 +524,17 @@ __global__ void __launch_bounds__(128 * kDkvGroups, kDkvBlocks)
     cp_async_wait<0>();
     __syncthreads();
   }
-  // the block's own K and V tiles are read no more
-  store_accumulator(dv + (size_t)bn * tk * kHead, smem, dv_acc, 1.f, k0, tk,
-                    1, at.tid);
-  store_accumulator(dk + (size_t)bn * tk * kHead, smem + kTileBytes, dk_acc,
-                    scale, k0, tk, 1, at.tid);
+  // the block's own K and V tiles are read no more: panel p of dV leaves
+  // through panel p of K, and of dK through panel p of V
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p) {
+    store_accumulator<kHd>(dv + (size_t)bn * tk * kHd + p * kPanelCols,
+                           smem + p * kPanelBytes, dv_acc[p], 1.f, k0, tk, 1,
+                           at.tid);
+    store_accumulator<kHd>(dk + (size_t)bn * tk * kHd + p * kPanelCols,
+                           smem + kTile + p * kPanelBytes, dk_acc[p], scale,
+                           k0, tk, 1, at.tid);
+  }
 }
 
 // The two products of the tiling alone, for a test on the card: x [128, 64]
@@ -498,10 +548,10 @@ __global__ void __launch_bounds__(256, 1)
                                float* __restrict__ tn) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t x_s = smem_u32(smem), y_s = x_s + 2 * kTileBytes;
+  const uint32_t x_s = smem_u32(smem), y_s = x_s + 2 * kPanelBytes;
   const Lanes at;
-  stage_rows<2 * kTileRows, 256>(x_s, x, 0, 2 * kTileRows, at.tid);
-  stage_rows<kTileRows, 256>(y_s, y, 0, kTileRows, at.tid);
+  stage_rows<2 * kTileRows, 256, 1>(x_s, x, 0, 2 * kTileRows, at.tid);
+  stage_rows<kTileRows, 256, 1>(y_s, y, 0, kTileRows, at.tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -510,7 +560,7 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) second[i] = 0.f;
   products_begin();
-  product_nt(first, x_s + at.group * kTileBytes, y_s);
+  product_nt<1>(first, x_s + at.group * kPanelBytes, y_s);
   products_end();
   keep_registers(first);
   uint32_t a[4][4];
@@ -526,8 +576,8 @@ __global__ void __launch_bounds__(256, 1)
   for (int i = 0; i < 32; ++i) {
     const int row = row_a + 8 * ((i >> 1) & 1);
     const int col = 8 * (i >> 2) + 2 * at.t + (i & 1);
-    nt[row * kHead + col] = first[i];
-    tn[row * kHead + col] = second[i];
+    nt[row * kPanelCols + col] = first[i];
+    tn[row * kPanelCols + col] = second[i];
   }
 }
 
@@ -536,49 +586,85 @@ inline dim3 owned_tiles(int bn, int t, int groups) {
   return dim3(bn, (t + owned - 1) / owned);
 }
 
-}  // namespace
-
-cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                               const void* dout, const void* l, const void* m,
-                               const void* di, const void* kv_mask, void* dk,
-                               void* dv, int bn, int tq, int tk, int n_heads,
-                               float scale, int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes(kDkvGroups);
-  const cudaError_t err = allow_smem<flash_bwd_dkv_tc_kernel>(kSmem);
+template <int kPanels>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* l, const void* m,
+                       const void* di, const void* kv_mask, void* dk,
+                       void* dv, int bn, int tq, int tk, int n_heads,
+                       float scale, int causal, cudaStream_t stream) {
+  constexpr size_t kSmem = smem_bytes<kPanels>(kDkvGroups);
+  const cudaError_t err =
+      allow_smem<flash_bwd_dkv_tc_kernel<kPanels>>(kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_tc_kernel<<<owned_tiles(bn, tk, kDkvGroups), 128 * kDkvGroups,
-                            kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)l,
-      (const float*)m, (const float*)di, (const float*)kv_mask,
-      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, tq, tk, n_heads, scale, causal);
+  flash_bwd_dkv_tc_kernel<kPanels>
+      <<<owned_tiles(bn, tk, kDkvGroups), 128 * kDkvGroups, kSmem, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+          (const float*)l, (const float*)m, (const float*)di,
+          (const float*)kv_mask, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, tq,
+          tk, n_heads, scale, causal);
   return cudaGetLastError();
 }
 
-cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                              const void* dout, const void* l, const void* m,
-                              const void* di, const void* kv_mask, void* dq,
-                              int bn, int tq, int tk, int n_heads, float scale,
-                              int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes(kDqGroups);
-  const cudaError_t err = allow_smem<flash_bwd_dq_tc_kernel>(kSmem);
+template <int kPanels>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* l, const void* m,
+                      const void* di, const void* kv_mask, void* dq, int bn,
+                      int tq, int tk, int n_heads, float scale, int causal,
+                      cudaStream_t stream) {
+  constexpr size_t kSmem = smem_bytes<kPanels>(kDqGroups);
+  const cudaError_t err = allow_smem<flash_bwd_dq_tc_kernel<kPanels>>(kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_tc_kernel<<<owned_tiles(bn, tq, kDqGroups), 128 * kDqGroups,
-                           kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)l,
-      (const float*)m, (const float*)di, (const float*)kv_mask,
-      (__nv_bfloat16*)dq, tq, tk, n_heads, scale, causal);
+  flash_bwd_dq_tc_kernel<kPanels>
+      <<<owned_tiles(bn, tq, kDqGroups), 128 * kDqGroups, kSmem, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+          (const float*)l, (const float*)m, (const float*)di,
+          (const float*)kv_mask, (__nv_bfloat16*)dq, tq, tk, n_heads, scale,
+          causal);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// panels: the head size over 64, 1 or 2
+cudaError_t flash_bwd_dkv_bf16(int panels, const void* q, const void* k,
+                               const void* v, const void* dout, const void* l,
+                               const void* m, const void* di,
+                               const void* kv_mask, void* dk, void* dv,
+                               int bn, int tq, int tk, int n_heads,
+                               float scale, int causal, cudaStream_t stream) {
+  if (panels == 1)
+    return launch_dkv<1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn, tq,
+                         tk, n_heads, scale, causal, stream);
+  if (panels == 2)
+    return launch_dkv<2>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn, tq,
+                         tk, n_heads, scale, causal, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t flash_bwd_dq_bf16(int panels, const void* q, const void* k,
+                              const void* v, const void* dout, const void* l,
+                              const void* m, const void* di,
+                              const void* kv_mask, void* dq, int bn, int tq,
+                              int tk, int n_heads, float scale, int causal,
+                              cudaStream_t stream) {
+  if (panels == 1)
+    return launch_dq<1>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
+                        n_heads, scale, causal, stream);
+  if (panels == 2)
+    return launch_dq<2>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
+                        n_heads, scale, causal, stream);
+  return cudaErrorInvalidValue;
 }
 
 // x [128, 64], y [64, 64] bf16 -> nt, tn [128, 64] float32
 extern "C" int flash_tile_products(const void* x, const void* y, void* nt,
                                    void* tn, void* stream) {
   const cudaError_t err =
-      allow_smem<flash_tile_products_kernel>(smem_bytes(2));
+      allow_smem<flash_tile_products_kernel>(smem_bytes<1>(2));
   if (err != cudaSuccess) return (int)err;
-  flash_tile_products_kernel<<<1, 256, smem_bytes(2),
+  flash_tile_products_kernel<<<1, 256, smem_bytes<1>(2),
                                (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, (float*)nt,
       (float*)tn);

@@ -11,8 +11,10 @@
 // the unrounded p, p rounded to bf16 before p v, o = acc / l once at the
 // end; the [b, tk] key mask shared by a batch item's heads, the causal
 // diagonal at the sequence end, exact zeros in o and l and m at the mask
-// value for a row with no valid key, any tq and tk, head size 64. Returns
-// o (bf16) and l, m (float32, natural units) for the backward kernels.
+// value for a row with no valid key, any tq and tk, head size 64 or 128
+// (one or two panels, a template parameter; the wrapper pads other sizes).
+// Returns o (bf16) and l, m (float32, natural units) for the backward
+// kernels.
 //
 // Bound: at [128, 512, 64] the forward is two products of
 // 128 x 512 x 512 x 64 multiply-adds, 8.6 GFLOP, 8.7 us at the tensor
@@ -23,11 +25,16 @@
 //
 // Design (flash_tiles.cuh has the tile layout and the product functions).
 // * A block is one warpgroup owning 64 query rows (kGroups). Its Q tile
-//   (8 KB) is copied to shared memory once; K and V pass in tiles of 64
-//   rows (16 KB a step) through a ring of kStages = 2 stages filled with
+//   (8 KB a panel) is copied to shared memory once; K and V pass in tiles
+//   of 64 rows (16 KB a step a panel) through a ring of kStages = 2 stages
+//   filled with
 //   cp.async one step ahead of the products, with one __syncthreads a step
 //   (after it the step's tile is visible to all and the other stage has
 //   been read by all).
+// * At head size 128 the score product runs over both panels (eight k16
+//   steps) into one accumulator, and O is two [64 x 64] accumulators, one a
+//   panel, each fed the same P by its own four wgmma; the rescale, the
+//   final division and the epilogue loop over them.
 // * Each warpgroup computes S = Q K^T for its 64 rows against the passing
 //   64 keys with wgmma (both operands in shared memory), runs the online
 //   softmax on the accumulator fragments in registers, rounds p to bf16 and
@@ -57,10 +64,13 @@
 //   bit for bit.
 //
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
-// chip_smoke.py prints): one warpgroup a block (128 threads), 106
-// registers, 42 KB of shared memory: four blocks an SM by registers
+// chip_smoke.py prints): one warpgroup a block (128 threads). Head size 64:
+// 106 registers, 42 KB of shared memory: four blocks an SM by registers
 // (__launch_bounds__ caps them at 128) and by shared memory; at
-// [128, 512, 64] 1024 blocks fill 528 slots in 1.94 rounds.
+// [128, 512, 64] 1024 blocks fill 528 slots in 1.94 rounds. Head size
+// 128: O doubles to 64 registers a thread and the tiles to 16 KB a row
+// block, 82 KB of shared memory: two blocks an SM by shared memory, and
+// __launch_bounds__ lets the registers grow past 128: 139, no spills.
 //
 // What holds it back, as measured on an H100 (PERF.md section 6): at
 // [128, 512, 64] with the key mask it runs at a third of the bound above
@@ -88,15 +98,26 @@ namespace {
 
 using namespace flash_tiles;
 
-// warpgroups a block, and blocks an SM the compiler fits the registers to
-constexpr int kGroups = 1, kBlocks = 4;
+// warpgroups a block, and blocks an SM the compiler fits the registers to,
+// by head panels
+constexpr int kGroups = 1;
+constexpr int blocks_per_sm(int panels) { return panels == 1 ? 4 : 2; }
 constexpr int kStages = 2;                    // ring of passing tiles
-constexpr int kStageBytes = 2 * kTileBytes;   // K and V: 16 KB
-constexpr size_t kSmem = 1024 + kGroups * kTileBytes +
-                         kStages * (kStageBytes + kTileRows * 4) +
-                         4 * kGroups * 4;
 
-__global__ void __launch_bounds__(128 * kGroups, kBlocks)
+// K and V of a step
+template <int kPanels>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * tile_bytes<kPanels>();
+}
+
+template <int kPanels>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + kGroups * tile_bytes<kPanels>() +
+         kStages * (stage_bytes<kPanels>() + kTileRows * 4) + 4 * kGroups * 4;
+}
+
+template <int kPanels>
+__global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -106,19 +127,21 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
                         int tq, int tk, int n_heads, float scale,
                         int causal) {
   constexpr int kThreads = 128 * kGroups, kOwned = kTileRows * kGroups;
+  constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
+                kStageBytes = stage_bytes<kPanels>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(smem);
-  const uint32_t ring = q_s + kGroups * kTileBytes;
-  float* valid_s = reinterpret_cast<float*>(smem + kGroups * kTileBytes +
+  const uint32_t ring = q_s + kGroups * kTile;
+  float* valid_s = reinterpret_cast<float*>(smem + kGroups * kTile +
                                             kStages * kStageBytes);
   int* flags_s = reinterpret_cast<int*>(valid_s + kStages * kTileRows);
 
   const Lanes at;
   const int in_group = at.tid & 127;
   const int bn = blockIdx.x, q0 = blockIdx.y * kOwned;
-  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHead;
-  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHead;
+  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHd;
+  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -143,10 +166,10 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   float* l_rows = l_out + (size_t)bn * tq;
   float* m_rows = m_out + (size_t)bn * tq;
-  __nv_bfloat16* o_rows = o + (size_t)bn * tq * kHead;
+  __nv_bfloat16* o_rows = o + (size_t)bn * tq * kHd;
 
   if (steps == 0) {  // no key reaches the block: zeros, nothing read
-    store_zero_rows(o_rows, group_row0, tq, in_group);
+    store_zero_rows<kHd>(o_rows, group_row0, tq, in_group);
     const int row = group_row0 + in_group;
     if (in_group < kTileRows && row < tq) {
       l_rows[row] = 0.f;
@@ -155,15 +178,16 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
     return;
   }
 
-  stage_rows<kOwned, kThreads>(q_s, q + (size_t)bn * tq * kHead, q0, tq,
-                               at.tid);
+  stage_rows<kOwned, kThreads, kPanels>(q_s, q + (size_t)bn * tq * kHd, q0,
+                                        tq, at.tid);
 
   auto stage_step = [&](int step) {
     if (step < steps) {
       const int stage = step % kStages, k0 = step * kTileRows;
       const uint32_t k_s = ring + stage * kStageBytes;
-      stage_rows<kTileRows, kThreads>(k_s, kb, k0, tk, at.tid);
-      stage_rows<kTileRows, kThreads>(k_s + kTileBytes, vb, k0, tk, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
+      stage_rows<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
+                                               at.tid);
       if (at.tid < kTileRows) {  // which keys of the tile take part
         const int col = k0 + at.tid;
         float* dst = valid_s + stage * kTileRows + at.tid;
@@ -186,9 +210,13 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
   for (int r = 0; r < 2; ++r)
     last_col[r] = causal ? row_a + 8 * r + offset : tk;
 
-  float acc[32], m_run[2] = {kMaskValue, kMaskValue}, l_part[2] = {0.f, 0.f};
+  // O: one [64 x 64] accumulator a panel
+  float acc[kPanels][32], m_run[2] = {kMaskValue, kMaskValue},
+                          l_part[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
 
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();
@@ -206,11 +234,11 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
         (causal && k0 > group_row0 + kTileRows - 1 + offset))
       continue;
     const uint32_t k_s = ring + stage * kStageBytes;
-    const uint32_t v_s = k_s + kTileBytes;
+    const uint32_t v_s = k_s + kTile;
 
     float s[32];
     products_begin();
-    product_nt(s, q_s + at.group * kTileBytes, k_s);
+    product_nt<kPanels>(s, q_s + at.group * kTile, k_s);
     products_end();
     keep_registers(s);
 
@@ -253,10 +281,12 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
       offset2[r] = m_new == kMaskValue ? 0.f : m_new * kLog2e;
       l_part[r] *= alpha;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[4 * j + 2 * r] *= alpha;
-        acc[4 * j + 2 * r + 1] *= alpha;
-      }
+      for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[p][4 * j + 2 * r] *= alpha;
+          acc[p][4 * j + 2 * r + 1] *= alpha;
+        }
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -268,10 +298,13 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
     pack_a_fragments(s, p);
 
     products_begin();
-    product_tn(acc, p, v_s);
+#pragma unroll
+    for (int panel = 0; panel < kPanels; ++panel)
+      product_tn(acc[panel], p, v_s + panel * kPanelBytes);
     products_end();
     keep_registers(p);
-    keep_registers(acc);
+#pragma unroll
+    for (int panel = 0; panel < kPanels; ++panel) keep_registers(acc[panel]);
   }
 
   // l over the quad, o = acc / l (a row with l == 0 has acc == 0)
@@ -288,26 +321,49 @@ __global__ void __launch_bounds__(128 * kGroups, kBlocks)
       m_rows[row] = m_run[r];
     }
   }
+  // the group's own Q tile is read no more: panel p of O leaves through
+  // panel p of it
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] *= inv[(i >> 1) & 1];
-  // the group's own Q tile is read no more
-  store_accumulator(o_rows, smem + at.group * kTileBytes, acc, 1.f,
-                    group_row0, tq, 1 + at.group, in_group);
+  for (int p = 0; p < kPanels; ++p) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
+    store_accumulator<kHd>(o_rows + p * kPanelCols,
+                           smem + at.group * kTile + p * kPanelBytes, acc[p],
+                           1.f, group_row0, tq, 1 + at.group, in_group);
+  }
+}
+
+template <int kPanels>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* kv_mask, void* o, void* l, void* m, int bn,
+                   int tq, int tk, int n_heads, float scale, int causal,
+                   cudaStream_t stream) {
+  constexpr size_t kSmem = smem_bytes<kPanels>();
+  const cudaError_t err = allow_smem<flash_fwd_tc_kernel<kPanels>>(kSmem);
+  if (err != cudaSuccess) return err;
+  constexpr int kOwned = kGroups * kTileRows;
+  flash_fwd_tc_kernel<kPanels>
+      <<<dim3(bn, (tq + kOwned - 1) / kOwned), 128 * kGroups, kSmem,
+         stream>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                   (const __nv_bfloat16*)v, (const float*)kv_mask,
+                   (__nv_bfloat16*)o, (float*)l, (float*)m, tq, tk, n_heads,
+                   scale, causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
-                           const void* kv_mask, void* o, void* l, void* m,
-                           int bn, int tq, int tk, int n_heads, float scale,
-                           int causal, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_fwd_tc_kernel>(kSmem);
-  if (err != cudaSuccess) return err;
-  constexpr int kOwned = kGroups * kTileRows;
-  flash_fwd_tc_kernel<<<dim3(bn, (tq + kOwned - 1) / kOwned), 128 * kGroups,
-                        kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const float*)kv_mask, (__nv_bfloat16*)o,
-      (float*)l, (float*)m, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
+// panels: the head size over 64, 1 or 2
+cudaError_t flash_fwd_bf16(int panels, const void* q, const void* k,
+                           const void* v, const void* kv_mask, void* o,
+                           void* l, void* m, int bn, int tq, int tk,
+                           int n_heads, float scale, int causal,
+                           cudaStream_t stream) {
+  if (panels == 1)
+    return launch<1>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads, scale,
+                     causal, stream);
+  if (panels == 2)
+    return launch<2>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads, scale,
+                     causal, stream);
+  return cudaErrorInvalidValue;
 }

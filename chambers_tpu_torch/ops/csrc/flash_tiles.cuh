@@ -4,20 +4,26 @@
 // flash_attention_bwd.cu (K3b, K3c) are built on these; allow_smem, at the
 // end, serves the launchers of all three sources.
 //
-// Tiles. Head size is 64, so a row of q, k, v or do is 128 bytes of bf16. A
-// tile is 64 rows, 8 KB, stored [row][h] with the 128-byte swizzle: the
-// 16-byte chunk c of row r lies at chunk c ^ (r & 7). Tiles start at
-// multiples of 1024 bytes, which makes that the layout wgmma's descriptors
-// call B128 (and what TMA's 128-byte swizzle would write). A taller operand
-// is tiles one after the other. One layout serves both ways an operand is
+// Panels and tiles. The head size is kPanels whole panels of 64 columns
+// (kPanels = 1 or 2: head size 64 or 128). A panel's row is 128 bytes of
+// bf16, and a panel of 64 rows, 8 KB, is stored [row][64] with the
+// 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r & 7).
+// Panels start at multiples of 1024 bytes, which makes that the layout
+// wgmma's descriptors call B128 (and what TMA's 128-byte swizzle would
+// write). A tile is 64 rows of the whole head: its kPanels panels one after
+// the other, panel p holding columns 64 p .. 64 p + 63. A taller operand is
+// tiles one after the other. One layout serves both ways an operand is
 // read:
-//   along h (K-major)    x . y^T, the reduction runs over a row's 64 values
-//   along rows (MN-major) p . y, the reduction runs over the tile's 64 rows
+//   along h (K-major)    x . y^T, the reduction runs over a row's values,
+//                        panel by panel
+//   along rows (MN-major) p . y, the reduction runs over the tile's 64
+//                        rows, one panel of output columns at a time
 //
 // Copies. stage_rows fills a tile with cp.async.cg, 16 bytes a thread, eight
-// neighbouring threads to one row (coalesced in device memory, conflict free
-// in shared memory). A row past the operand's end is filled with zeros by a
-// source size of 0, so the ragged edge needs no padded operand.
+// neighbouring threads to one row of a panel (coalesced in device memory,
+// conflict free in shared memory). A row past the operand's end is filled
+// with zeros by a source size of 0, so the ragged edge needs no padded
+// operand.
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -29,18 +35,20 @@
 // product in registers (pack_a_fragments), so probabilities never go
 // through shared memory.
 //   product_nt   acc = X . Y^T, both tiles read from shared memory through
-//                descriptors with the B128 layout: four wgmma, one per 16
-//                values of h
-//   product_tn   acc += A . Y, A in registers, Y read along its rows with
-//                the descriptor's transpose bit: four wgmma, one per 16 rows
+//                descriptors with the B128 layout: four wgmma a panel, one
+//                per 16 values of h
+//   product_tn   acc += A . Y, A in registers, Y one panel read along its
+//                rows with the descriptor's transpose bit: four wgmma, one
+//                per 16 rows; a head of two panels takes one call and one
+//                accumulator a panel
 // wgmma is asynchronous: products_begin() fences the registers before the
 // first product of a batch, products_end() commits and waits, and
 // keep_registers() pins operands and accumulators until then, so the
 // compiler neither reads an accumulator early nor reuses an A register
 // while the tensor cores still read it.
 //
-// store_accumulator sends an accumulator to device memory through a tile
-// in shared memory, as coalesced 16-byte stores.
+// store_accumulator sends an accumulator (one panel of columns) to device
+// memory through a panel in shared memory, as coalesced 16-byte stores.
 
 #pragma once
 
@@ -52,10 +60,10 @@
 
 namespace flash_tiles {
 
-constexpr int kHead = 64;                      // head size
-constexpr int kRowBytes = kHead * 2;           // 128
+constexpr int kPanelCols = 64;                 // head columns a panel
+constexpr int kRowBytes = kPanelCols * 2;      // 128: a panel's row
 constexpr int kTileRows = 64;
-constexpr int kTileBytes = kTileRows * kRowBytes;  // 8192
+constexpr int kPanelBytes = kTileRows * kRowBytes;  // 8192
 constexpr float kLog2e = 1.4426950408889634f;
 // the score of a masked pair: -0.7 * float32 max, rounded from double as
 // the JAX package's _MASK_VALUE; a row that no key reaches keeps it as m
@@ -80,9 +88,15 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// byte offset of 16-byte chunk `chunk` of row `row` from the operand's start
+// byte offset of 16-byte chunk `chunk` of row `row` from a panel's start
 __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
   return (uint32_t)(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
+// bytes of a tile of 64 rows of a head of kPanels panels
+template <int kPanels>
+__host__ __device__ constexpr int tile_bytes() {
+  return kPanels * kPanelBytes;
 }
 
 // ---------------------------------------------------------------------------
@@ -142,30 +156,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [row0, row0 + kRows) of a [rows, 64] bf16 array into the operand at
-// shared address `tile`; rows past the end become zeros. A thread copies
-// chunk tid % 8 of rows tid / 8 + i * kThreads / 8: that step is a multiple
-// of eight rows, so its swizzled chunk stays where it is from copy to copy
-// and the addresses are one base plus constants.
-template <int kRows, int kThreads>
+// rows [row0, row0 + kRows) of a [rows, 64 kPanels] bf16 array into the
+// operand at shared address `tile`; rows past the end become zeros. A
+// thread copies chunk tid % 8 of each panel of rows tid / 8 + i * kThreads
+// / 8: that step is a multiple of eight rows that divides 64, so its
+// swizzled chunk stays where it is from copy to copy, a row never leaves
+// its tile, and the addresses are one base plus constants.
+template <int kRows, int kThreads, int kPanels>
 __device__ __forceinline__ void stage_rows(uint32_t tile,
                                            const __nv_bfloat16* src, int row0,
                                            int rows, int tid) {
-  static_assert(kThreads % 64 == 0 && (kRows * 8) % kThreads == 0, "");
   constexpr int kCopies = kRows * 8 / kThreads, kRowStep = kThreads / 8;
+  constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>();
+  static_assert(kThreads % 64 == 0 && (kRows * 8) % kThreads == 0 &&
+                    kTileRows % kRowStep == 0, "");
   const int r = tid >> 3, c = tid & 7;
   const uint32_t dst = tile + swizzled(r, c);
-  const __nv_bfloat16* from = src + (size_t)(row0 + r) * kHead + c * 8;
+  const __nv_bfloat16* from = src + (size_t)(row0 + r) * kHd + c * 8;
+  // where copy i of panel p lands, from dst
+  auto at = [](int i, int p) {
+    const int dr = i * kRowStep;
+    return (uint32_t)((dr / kTileRows) * kTile +
+                      p * kPanelBytes + (dr % kTileRows) * kRowBytes);
+  };
   if (row0 + kRows <= rows) {
 #pragma unroll
     for (int i = 0; i < kCopies; ++i)
-      cp_async_16(dst + i * kRowStep * kRowBytes, from + i * kRowStep * kHead);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        cp_async_16(dst + at(i, p),
+                    from + i * kRowStep * kHd + p * kPanelCols);
   } else {
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
       const bool inside = row0 + r + i * kRowStep < rows;
-      cp_async_16(dst + i * kRowStep * kRowBytes,
-                  inside ? from + i * kRowStep * kHead : src, inside ? 16 : 0);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        cp_async_16(dst + at(i, p),
+                    inside ? from + i * kRowStep * kHd + p * kPanelCols : src,
+                    inside ? 16 : 0);
     }
   }
 }
@@ -240,24 +269,30 @@ __device__ __forceinline__ void products_end() {
 }
 
 // acc = X . Y^T: X the warpgroup's 64 rows at `x_tile`, Y the 64 rows at
-// `y_tile`, both read along h
+// `y_tile`, both tiles of kPanels panels read along h
+template <int kPanels>
 __device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t x_tile,
                                            uint32_t y_tile) {
-  const uint64_t dx = descriptor(x_tile), dy = descriptor(y_tile);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    // 16 values of h further on: 32 bytes, 2 in the descriptor's units
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        FLASH_TILES_ACC_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : FLASH_TILES_ACC(acc)
-        : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(ks));
+  for (int p = 0; p < kPanels; ++p) {
+    const uint64_t dx = descriptor(x_tile + p * kPanelBytes),
+                   dy = descriptor(y_tile + p * kPanelBytes);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // 16 values of h further on: 32 bytes, 2 in the descriptor's units;
+      // the first product of the batch overwrites acc, the others add
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          FLASH_TILES_ACC_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+          : FLASH_TILES_ACC(acc)
+          : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
+    }
   }
 }
 
 // acc += A . Y: A [64 x 64] in registers (pack_a_fragments), Y the 64 rows
-// at `y_tile` read along its rows (transposed)
+// of one panel at `y_tile` read along its rows (transposed)
 __device__ __forceinline__ void product_tn(float (&acc)[32],
                                            const uint32_t (&a)[4][4],
                                            uint32_t y_tile) {
@@ -280,12 +315,14 @@ __device__ __forceinline__ void product_tn(float (&acc)[32],
 // ---------------------------------------------------------------------------
 
 // A warpgroup's [64 x 64] accumulator times `mul` to rows [row0, row0 + 64)
-// of a [rows, 64] bf16 array, by way of a tile in shared memory that only
-// this warpgroup uses (`tile`, a generic pointer): fragments hold pairs of
-// values, rows of the output are 128 contiguous bytes, so the tile turns 16
+// and 64 columns of a [rows, kHd] bf16 array (`dst` points at the first
+// column of the panel), by way of a panel in shared memory that only this
+// warpgroup uses (`tile`, a generic pointer): fragments hold pairs of
+// values, a panel's rows are 128 contiguous bytes, so the panel turns 16
 // scattered 4-byte stores a thread into 4 coalesced 16-byte ones. The
 // swizzle keeps both the fragment stores and the row reads free of bank
 // conflicts. `barrier` is a named barrier of the warpgroup's own (1 .. 15).
+template <int kHd>
 __device__ __forceinline__ void store_accumulator(
     __nv_bfloat16* dst, uint8_t* tile, const float (&acc)[32], float mul,
     int row0, int rows, int barrier, int thread_in_group) {
@@ -304,21 +341,24 @@ __device__ __forceinline__ void store_accumulator(
   for (int i = 0; i < 4; ++i) {
     const int r = (thread_in_group >> 3) + 16 * i, c = thread_in_group & 7;
     if (row0 + r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHead + c * 8) =
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHd + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swizzled(r, c));
   }
 }
 
-// zeros to rows [row0, row0 + 64) of a [rows, 64] bf16 array, by one
+// zeros to rows [row0, row0 + 64) of a [rows, kHd] bf16 array, by one
 // warpgroup
+template <int kHd>
 __device__ __forceinline__ void store_zero_rows(__nv_bfloat16* dst, int row0,
                                                 int rows,
                                                 int thread_in_group) {
+  constexpr int kChunks = kHd / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (thread_in_group >> 3) + 16 * i, c = thread_in_group & 7;
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int r = (thread_in_group + 128 * i) / kChunks,
+              c = (thread_in_group + 128 * i) % kChunks;
     if (row0 + r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHead + c * 8) =
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHd + c * 8) =
           make_uint4(0u, 0u, 0u, 0u);
   }
 }

@@ -44,6 +44,17 @@ The kernels take contiguous operands: the wrapper makes ``q, k, v`` and the
 incoming gradient contiguous (a copy when a projection hands over a
 permuted view; none for the slices of a stacked self-attention projection
 that is already contiguous).
+
+Head sizes. The kernels are built for whole 64-column panels, at
+``HEAD_SIZES`` = 64 and 128. On a CUDA tensor any other head size up to
+128 is zero-padded to the next built size (:func:`kernel_head_size`,
+:func:`pad_head`): zero columns add nothing to ``q kᵀ``, the padded
+columns of ``o``, dQ, dK and dV are dropped, the scale comes from the true
+head size, and ``di`` is computed from the unpadded ``o`` and ``do``, so
+the padded call computes the unpadded one's function (the CPU tests hold
+the plain versions to that bit for bit). A head size above 128 raises: it
+is queued in ROADMAP.md §2. On CPU tensors the plain versions take any
+head size unpadded.
 """
 
 import ctypes
@@ -59,7 +70,7 @@ from chambers_tpu_torch.ops import _build
 LIBRARY = ("flash_attention",
            ["flash_attention.cu", "flash_attention_fwd.cu",
             "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
-HEAD_SIZES = (64,)              # head_dim the CUDA kernels are built for
+HEAD_SIZES = (64, 128)          # head_dim the CUDA kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -105,6 +116,26 @@ def delta(o, do):
     return (do.float() * o.float()).sum(dim=-1, keepdim=True)
 
 
+def kernel_head_size(h):
+    """The head size the CUDA kernels run a call of head size ``h`` at: the
+    smallest of ``HEAD_SIZES`` that holds it. Above the largest it raises:
+    head sizes over 128 are queued in ROADMAP.md §2."""
+    for size in HEAD_SIZES:
+        if h <= size:
+            return size
+    raise ValueError(
+        f"the CUDA kernels take head_dim up to {HEAD_SIZES[-1]} (built at "
+        f"{HEAD_SIZES}, smaller sizes zero-padded), got {h}; larger head "
+        f"sizes are queued in ROADMAP.md §2")
+
+
+def pad_head(x, size):
+    """``x`` with its last (head) dimension zero-padded to ``size`` (``x``
+    itself when it has that size)."""
+    h = x.shape[-1]
+    return x if h == size else torch.nn.functional.pad(x, (0, size - h))
+
+
 def _scores(q, k, scale):
     # bf16 products are exact in float32: this is q kᵀ in the input type
     # with float32 accumulation
@@ -132,13 +163,15 @@ def flash_forward_plain(q, k, v, scale, causal=False, kv_mask=None,
 
 
 def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
-                         kv_mask=None, n_heads=1):
+                         kv_mask=None, n_heads=1, di=None):
     """K3b and K3c in PyTorch: ``(dq, dk, dv)`` from the saved ``l, m``.
     ``p`` and ``ds`` are computed in float32 and rounded to the operands'
     type before ``pᵀ do``, ``dsᵀ q`` and ``ds k`` (a tensor-core product in
     bfloat16 takes bfloat16 on both sides; the identity for float32), the
     products accumulate in float32, and the results are cast to the
-    inputs' types at the end."""
+    inputs' types at the end. ``di`` (default :func:`delta` of ``o`` and
+    ``do``) is what the kernels are handed: a padded call passes the
+    unpadded operands' one."""
     keep = _keep_mask(q.shape[1], k.shape[1], causal, kv_mask, n_heads,
                       q.device)
     do32 = do.float()
@@ -146,7 +179,9 @@ def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
     p = torch.exp(_scores(q, k, scale) - m) / l_safe
     if keep is not None:
         p = torch.where(keep, p, 0.0)
-    ds = p * (torch.matmul(do32, v.float().transpose(1, 2)) - delta(o, do))
+    if di is None:
+        di = delta(o, do)
+    ds = p * (torch.matmul(do32, v.float().transpose(1, 2)) - di)
     p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dv = torch.matmul(p.transpose(1, 2), do32)
     dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
@@ -177,9 +212,8 @@ def _check_operands(q, k, v, kv_mask, n_heads):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CPU or CUDA, not "
                          f"{q.device}")
-    if q.device.type == "cuda" and h not in HEAD_SIZES:
-        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_SIZES}, "
-                         f"got {h}")
+    if q.device.type == "cuda":
+        kernel_head_size(h)  # raises above the largest built size
     if kv_mask is not None:
         if bn % n_heads or tuple(kv_mask.shape) != (bn // n_heads,
                                                     k.shape[1]):
@@ -198,14 +232,18 @@ def _operand(t):
 
 def _tail(q, k, scale, causal, n_heads):
     bn, tq, h = q.shape
+    if h not in HEAD_SIZES:
+        raise ValueError(f"the kernels are built at head_dim {HEAD_SIZES}, "
+                         f"got {h}: pad it (pad_head, kernel_head_size)")
     return (bn, tq, k.shape[1], h, n_heads, float(scale), int(bool(causal)),
             DTYPES[q.dtype], _build.stream(q.device))
 
 
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
-    """Launch K3a alone on checked, contiguous CUDA operands: ``(o, l, m)``.
-    bfloat16 operands run ``flash_fwd_tc_kernel``, float32
-    ``flash_fwd_kernel``."""
+    """Launch K3a alone on checked, contiguous CUDA operands of a built head
+    size: ``(o, l, m)``. bfloat16 operands run ``flash_fwd_tc_kernel``,
+    float32 ``flash_fwd_kernel``."""
+    tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     bn, tq, _ = q.shape
     o = torch.empty_like(q)
@@ -213,8 +251,7 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
     m = torch.empty_like(l)
     with torch.cuda.device(q.device):
         code = lib.flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask),
-                             _ptr(o), _ptr(l), _ptr(m),
-                             *_tail(q, k, scale, causal, n_heads))
+                             _ptr(o), _ptr(l), _ptr(m), *tail)
     _check_launch(lib, code, "flash_fwd_kernel")
     flash_attention.launches["fwd"] += 1
     return o, l, m
@@ -224,13 +261,13 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
     """Launch K3b alone: ``(dk, dv)``. bfloat16 operands run
     ``flash_bwd_dkv_tc_kernel``, float32 ``flash_bwd_dkv_kernel``."""
+    tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(do),
                                  _ptr(l), _ptr(m), _ptr(di), _ptr(kv_mask),
-                                 _ptr(dk), _ptr(dv),
-                                 *_tail(q, k, scale, causal, n_heads))
+                                 _ptr(dk), _ptr(dv), *tail)
     _check_launch(lib, code, "flash_bwd_dkv_kernel")
     flash_attention.launches["dkv"] += 1
     return dk, dv
@@ -240,13 +277,13 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
     """Launch K3c alone: ``dq``. bfloat16 operands run
     ``flash_bwd_dq_tc_kernel``, float32 ``flash_bwd_dq_kernel``."""
+    tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(do),
                                 _ptr(l), _ptr(m), _ptr(di), _ptr(kv_mask),
-                                _ptr(dq),
-                                *_tail(q, k, scale, causal, n_heads))
+                                _ptr(dq), *tail)
     _check_launch(lib, code, "flash_bwd_dq_kernel")
     flash_attention.launches["dq"] += 1
     return dq
@@ -306,35 +343,44 @@ def _flash_fwd_fake(q, k, v, kv_mask, scale, causal, n_heads):
 class FlashAttentionFunction(torch.autograd.Function):
     """``o = attention(q, k, v)`` over ``[bn, t, h]`` with a hand-written
     backward; ``scale`` multiplies the scores. The forward is the
-    :func:`flash_fwd` operator."""
+    :func:`flash_fwd` operator. On CUDA tensors a head size the kernels are
+    not built at is zero-padded to the next one (:func:`pad_head`): the
+    padded ``q, k, v, o`` are saved, the incoming gradient is padded and
+    the padded columns of every output are dropped."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, n_heads):
         _check_operands(q, k, v, kv_mask, n_heads)
+        h = q.shape[-1]
+        size = kernel_head_size(h) if q.device.type == "cuda" else h
         # contiguous here, so that the operator and the backward share one
         # copy; the alignment is checked where a kernel launches (a traced
         # tensor has no address)
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = (pad_head(x, size).contiguous() for x in (q, k, v))
         o, l, m = flash_fwd(q, k, v, kv_mask, scale, causal, n_heads)
         ctx.save_for_backward(q, k, v, o, l, m, kv_mask)
-        ctx.attention = (scale, causal, n_heads)
-        return o
+        ctx.attention = (scale, causal, n_heads, h)
+        return o if size == h else o[..., :h]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, l, m, kv_mask = ctx.saved_tensors
-        scale, causal, n_heads = ctx.attention
+        scale, causal, n_heads, h = ctx.attention
         if q.device.type == "cpu":
             dq, dk, dv = flash_backward_plain(q, k, v, o, l, m, do, scale,
                                               causal, kv_mask, n_heads)
         else:
             q, k, v, do = _operand(q), _operand(k), _operand(v), _operand(do)
+            # di of the unpadded o and do: what the unpadded call computes
+            di = delta(o[..., :h], do)
+            do = pad_head(do, q.shape[-1])
             if kv_mask is not None:
                 kv_mask = _operand(kv_mask)
-            args = (q, k, v, do, l, m, delta(o, do), kv_mask, scale, causal,
-                    n_heads)
+            args = (q, k, v, do, l, m, di, kv_mask, scale, causal, n_heads)
             dk, dv = launch_backward_dkv(*args)
             dq = launch_backward_dq(*args)
+            if q.shape[-1] != h:
+                dq, dk, dv = dq[..., :h], dk[..., :h], dv[..., :h]
         return dq, dk, dv, None, None, None, None
 
 

@@ -26,6 +26,14 @@ decay; the decayed and the other parameters are two parameter groups. The
 parameters come as ``model.named_parameters()``, a ``{name: tensor}`` dict
 or a module; bare tensors take no decay filter.
 
+Clipping reads whole parameters, as optax does on the global arrays of a
+mesh: the gradient of a parameter placed by ``parallel.sharding`` (one
+carrying ``.sharding``) holds this rank's shard, and its squared norm is
+summed over the ranks that hold the other shards
+(``parallel.sharding.whole_sq_norms``), so every rank scales by the same
+factor. Without placed parameters the norms are the local ones, the same
+arithmetic in the same order.
+
 ``mutable_lr=True`` adds a host-settable factor on the learning rate,
 ``lr_scale`` (1.0 at first), which :func:`set_lr_scale` changes and
 :func:`get_lr_scale` reads (``callbacks.ReduceLROnPlateau`` and
@@ -88,17 +96,23 @@ def decay_mask(params, decay_include=None, decay_exclude=None):
     return dict(zip(names, _decays(names, decay_include, decay_exclude)))
 
 
-def clip_by_norm(grads, max_norm):
+def clip_by_norm(grads, max_norm, sq_norms=None):
     """Keras ``clipnorm``: each tensor alone, ``g * max_norm / max(|g|,
-    max_norm)``."""
-    return [g * (max_norm / torch.clamp(torch.sqrt((g * g).sum()),
-                                        min=max_norm)) for g in grads]
+    max_norm)``. ``sq_norms``: each whole tensor's ``|g|²`` where ``grads``
+    hold shards (default: the tensors' own)."""
+    if sq_norms is None:
+        sq_norms = [(g * g).sum() for g in grads]
+    return [g * (max_norm / torch.clamp(torch.sqrt(sq), min=max_norm))
+            for g, sq in zip(grads, sq_norms)]
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, sq_norms=None):
     """``optax.clip_by_global_norm``: every tensor scaled by ``max_norm /
-    |all|`` when the joint norm ``|all|`` reaches ``max_norm``."""
-    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    |all|`` when the joint norm ``|all|`` reaches ``max_norm``.
+    ``sq_norms`` as for :func:`clip_by_norm`."""
+    if sq_norms is None:
+        sq_norms = [(g * g).sum() for g in grads]
+    g_norm = torch.sqrt(sum(sq_norms))
     trigger = g_norm < max_norm
     return [torch.where(trigger, g, g / g_norm * max_norm) for g in grads]
 
@@ -159,12 +173,22 @@ class _DecoupledOptimizer(torch.optim.Optimizer):
         ``params``."""
         return cls(params, **config)
 
-    def _clip(self, grads):
+    def _clip(self, params, grads):
+        """Clipping of the gradients ``grads`` of ``params``, by the norms of
+        the whole parameters (see the module docstring)."""
         c = self._config
+        sq_norms = None
+        if (c["clipnorm"] is not None or c["global_clipnorm"] is not None) \
+                and any(hasattr(p, "sharding") for p in params):
+            from chambers_tpu_torch.parallel.sharding import whole_sq_norms
+
+            sq_norms = whole_sq_norms(
+                grads, [getattr(p, "sharding", None) for p in params])
         if c["clipnorm"] is not None:
-            grads = clip_by_norm(grads, c["clipnorm"])
+            grads = clip_by_norm(grads, c["clipnorm"], sq_norms)
         if c["global_clipnorm"] is not None:
-            grads = clip_by_global_norm(grads, c["global_clipnorm"])
+            grads = clip_by_global_norm(grads, c["global_clipnorm"],
+                                        sq_norms)
         if c["clipvalue"] is not None:
             grads = [g.clamp(-c["clipvalue"], c["clipvalue"]) for g in grads]
         return grads
@@ -186,7 +210,8 @@ class _DecoupledOptimizer(torch.optim.Optimizer):
         wd = _value(c["weight_decay"], count) if c["weight_decay"] else 0.0
         params = [(group, p) for group in self.param_groups
                   for p in group["params"] if p.grad is not None]
-        grads = self._clip([p.grad for _, p in params])
+        grads = self._clip([p for _, p in params],
+                           [p.grad for _, p in params])
         for (group, p), g in zip(params, grads):
             u = self._direction(p, g, self.state[p], count) * -lr
             if "lr_scale" in group:

@@ -44,6 +44,14 @@ The batch axis is ``"data"``: a placed module is called on this rank's rows
 of a batch sharded over it; :func:`reduce_gradients` sums the gradients
 over it after the backward (``Trainer(mesh=)`` calls it), for every
 parameter whose spec does not name it (those reduce in their gather).
+
+Whole values from shards, as a global ``jax.Array`` gives them:
+:func:`whole_sq_norms` (each tensor's squared norm, what the optimizers'
+clipping reads), :func:`gather_tensors` / :func:`slice_tensors` (a
+``{name: tensor}`` dict) and :func:`gather_optimizer_state` /
+:func:`slice_optimizer_state` (an optimizer's ``state_dict``), which the
+Trainer's checkpointed state is made of. Every rank must call the
+gathering ones; no collective runs at world size 1 or without a mesh.
 """
 
 from __future__ import annotations
@@ -518,3 +526,107 @@ def full_tensor(t, sharding=None):
                 dist.all_gather(parts, x.contiguous(), group=group)
                 x = torch.cat(parts, dim=dim)
     return x
+
+
+def _shard_axes(sharding):
+    """The mesh axes ``sharding`` splits a tensor over, in the mesh's
+    order (so that every rank asks for the same group)."""
+    named = sharding.axes()
+    return tuple(a for a in sharding.mesh.mesh_dim_names if a in named)
+
+
+def whole_sq_norms(tensors, shardings):
+    """The squared L2 norm of each whole tensor, from this rank's shards:
+    a shard's ``(t * t).sum()`` summed over the ranks its sharding splits
+    the tensor across, and over no others (a replicated axis holds copies,
+    each counted once). ``shardings`` gives each tensor's
+    :class:`NamedSharding`, or None for a tensor that is whole on every
+    rank. One float32 all-reduce a group; where no group has more than one
+    rank (world size 1, no mesh) the local sums come back as they are.
+    Every rank must call."""
+    sums = [(t * t).sum() for t in tensors]
+    buckets = {}
+    for i, sharding in enumerate(shardings):
+        if sharding is None:
+            continue
+        axes = _shard_axes(sharding)
+        group = axis_group(sharding.mesh, axes)
+        if group is not None:
+            buckets.setdefault((id(sharding.mesh), axes),
+                               (group, []))[1].append(i)
+    for group, index in buckets.values():
+        flat = torch.stack([sums[i].float() for i in index])
+        dist.all_reduce(flat, group=group)
+        for j, i in enumerate(index):
+            sums[i] = flat[j].to(sums[i].dtype)
+    return sums
+
+
+def _whole(t, p):
+    """``t``, a tensor of placed parameter ``p``'s shard shape, gathered
+    whole by ``p``'s sharding; anything else as it is."""
+    sharding = getattr(p, "sharding", None)
+    if (sharding is None or not isinstance(t, torch.Tensor)
+            or tuple(t.shape) != tuple(p.shape)):
+        return t
+    return full_tensor(t, sharding)
+
+
+def _cut(t, p):
+    """``t``, a tensor of placed parameter ``p``'s whole shape, cut to this
+    rank's shard; anything else (a shard already) as it is."""
+    sharding = getattr(p, "sharding", None)
+    if (sharding is None or not isinstance(t, torch.Tensor)
+            or tuple(t.shape) != tuple(getattr(p, "global_shape", ()))):
+        return t
+    return _local_shard(t, sharding.mesh, sharding.spec)
+
+
+def gather_tensors(tensors, params):
+    """``{name: tensor}`` -> whole tensors: each tensor of a placed
+    parameter's shard shape (the parameter's value, its EMA shadow, its
+    accumulated gradient), ``params`` holding the parameter under the same
+    name, gathered by the parameter's :class:`NamedSharding`; the others
+    as they are. Every rank must call."""
+    return {name: _whole(t, params.get(name)) for name, t in tensors.items()}
+
+
+def slice_tensors(tensors, params):
+    """The inverse of :func:`gather_tensors`, with no collective: each
+    tensor of a placed parameter's whole shape cut to this rank's shard.
+    A tensor of the shard's shape stays as it is, so the live values
+    install back unchanged."""
+    return {name: _cut(t, params.get(name)) for name, t in tensors.items()}
+
+
+def _map_optimizer_state(state_dict, params, fn):
+    """``state_dict`` (an optimizer's) with ``fn(value, param)`` applied to
+    every state tensor of each parameter. ``params`` lists the parameters
+    in the optimizer's order, the order of the indices in its
+    ``param_groups``; the port's ``DecoupledWeightDecay`` nests its base's
+    ``state_dict`` under ``"base"``."""
+    if "state" not in state_dict:
+        return {**state_dict, "base": _map_optimizer_state(
+            state_dict["base"], params, fn)}
+    order = [i for group in state_dict["param_groups"]
+             for i in group["params"]]
+    index = dict(zip(order, params))
+    return {**state_dict, "state": {
+        i: {key: fn(v, index.get(i)) for key, v in per.items()}
+        for i, per in state_dict["state"].items()}}
+
+
+def gather_optimizer_state(state_dict, params):
+    """An optimizer's ``state_dict`` with each placed parameter's state
+    tensors (moments, traces) gathered whole by the parameter's
+    :class:`NamedSharding`; counts and other values as they are.
+    ``params``: the optimizer's parameters in its order. Every rank must
+    call."""
+    return _map_optimizer_state(state_dict, params, _whole)
+
+
+def slice_optimizer_state(state_dict, params):
+    """The inverse of :func:`gather_optimizer_state`, with no collective:
+    state tensors of a placed parameter's whole shape cut to this rank's
+    shard, so a state saved under any mesh or none loads under this one."""
+    return _map_optimizer_state(state_dict, params, _cut)

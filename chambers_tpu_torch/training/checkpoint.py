@@ -13,6 +13,15 @@ A checkpoint of a :class:`~chambers_tpu_torch.training.Trainer` holds its
 optimizer state, EMA shadow, gradient accumulator, step and generator
 state — everything that sets the next step, so a resumed run is
 bit-equal to an uninterrupted one.
+
+Under a mesh (``Trainer(mesh=)``, one process a device) the checkpoint
+holds whole tensors, as Orbax's of global arrays do: every rank gathers
+the Trainer's :meth:`~chambers_tpu_torch.training.Trainer.global_state`,
+the mesh's first rank writes it (the temporary name, then ``os.replace``)
+while the others wait at a barrier, and on restore every rank reads the
+same file and the Trainer keeps its shard. The file is the one a run
+without a mesh writes, so a checkpoint moves between meshes and to and
+from a run without one. Every rank must call ``save``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import signal
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from chambers_tpu_torch.callbacks import Callback
 
@@ -32,7 +42,10 @@ _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 class CheckpointManager:
     """Saves objects of tensors keyed by step and keeps the newest
     ``max_to_keep``; a save happens when ``step`` is a multiple of
-    ``save_interval_steps`` (or is forced).
+    ``save_interval_steps`` (or is forced). With a ``mesh`` (a
+    ``DeviceMesh`` over the processes of the run) every process calls
+    ``save`` with the same whole-tensor state, the mesh's first rank
+    writes it, and all of them return once it is on disk.
 
     Example::
 
@@ -45,11 +58,15 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, mesh=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, int(save_interval_steps))
+        self._shared = (mesh is not None and dist.is_initialized()
+                        and dist.get_world_size() > 1)
+        self._writer = (not self._shared
+                        or dist.get_rank() == int(mesh.mesh.flatten()[0]))
 
     def _path(self, step):
         return os.path.join(self.directory, f"{int(step)}.pt")
@@ -61,14 +78,23 @@ class CheckpointManager:
         if not force and (step % self.save_interval_steps
                           or (latest is not None and step <= latest)):
             return False
-        tmp = self._path(step) + f".tmp{os.getpid()}"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(step))
-        steps = self.all_steps()
-        if self.max_to_keep is not None:
-            for old in steps[:-self.max_to_keep]:
-                os.remove(self._path(old))
+        # under a mesh: every rank has decided before the file changes,
+        # and none goes on before it is there
+        self._barrier()
+        if self._writer:
+            tmp = self._path(step) + f".tmp{os.getpid()}"
+            torch.save(state, tmp)
+            os.replace(tmp, self._path(step))
+            steps = self.all_steps()
+            if self.max_to_keep is not None:
+                for old in steps[:-self.max_to_keep]:
+                    os.remove(self._path(old))
+        self._barrier()
         return True
+
+    def _barrier(self):
+        if self._shared:
+            dist.barrier()
 
     def restore(self, step: int, target: Any = None) -> Any:
         """The object saved at ``step``, its tensors on the CPU (or, given a
@@ -100,15 +126,18 @@ class CheckpointManager:
 class CheckpointCallback(Callback):
     """Trainer callback: checkpoint the full train state every epoch
     (:class:`chambers_tpu_torch.callbacks.ModelCheckpoint` writes weights
-    only)."""
+    only). Under the Trainer's mesh the state is its whole-tensor
+    ``global_state``, and every rank runs the callback."""
 
     def __init__(self, directory: str, trainer, max_to_keep: int = 3):
-        self.manager = CheckpointManager(directory, max_to_keep=max_to_keep)
+        self.manager = CheckpointManager(directory, max_to_keep=max_to_keep,
+                                         mesh=getattr(trainer, "mesh", None))
         self.trainer = trainer
 
     def _save(self, force=False):
         return self.manager.save(self.trainer.step,
-                                 self.trainer.state.as_dict(), force=force)
+                                 self.trainer.global_state().as_dict(),
+                                 force=force)
 
     def on_epoch_end(self, epoch, logs=None):
         self._save()
@@ -122,7 +151,8 @@ class CheckpointCallback(Callback):
         """Restore-on-start: load the latest checkpoint into ``trainer``.
         A checkpoint without an EMA shadow restored into an EMA Trainer
         seeds the shadow from the restored parameters; a shadow the
-        Trainer does not keep is dropped."""
+        Trainer does not keep is dropped. Under a mesh each rank keeps its
+        shard of the whole tensors."""
         restored = self.manager.restore_latest(trainer)
         if restored is None:
             return False

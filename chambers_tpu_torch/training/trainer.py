@@ -36,6 +36,17 @@ with zero rows and the padding dropped from the outputs, so it counts
 exactly as without a mesh); the outputs are gathered and the loss and the
 metrics computed on the global batch on every rank; the gradients are
 summed over ``data`` (``parallel.sharding.reduce_gradients``).
+
+The state under a mesh. :attr:`Trainer.state` stays the live local view:
+each rank's shards of the placed parameters, their optimizer moments, EMA
+shadow and accumulated gradients. :meth:`Trainer.global_state` gathers it
+into whole tensors (a collective: every rank calls it), the state JAX's
+global arrays hold; checkpoints (``training/checkpoint.py``) save that.
+Assigning :attr:`Trainer.state` takes either: a value of a placed
+parameter's whole shape is cut to this rank's shard, one of its shard's
+shape is copied as it is. So a checkpoint moves between meshes and to and
+from a run without one, as Orbax's restore into the target's sharding
+does.
 """
 
 from __future__ import annotations
@@ -361,7 +372,8 @@ class Trainer:
     # -- state --------------------------------------------------------------
     @property
     def state(self) -> TrainState:
-        """The live train state (references, not copies)."""
+        """The live train state (references, not copies). Under a mesh it
+        holds this rank's shards: :meth:`global_state` gathers them."""
         acc = None
         if self._accum > 1:
             acc = {"grads": self._acc, "mini_step": self._mini_step}
@@ -374,15 +386,26 @@ class Trainer:
     @state.setter
     def state(self, state):
         """Install a :class:`TrainState` (or its ``as_dict``), copying
-        its tensors into the live ones."""
+        its tensors into the live ones. Under a mesh a tensor of a placed
+        parameter's whole shape (a :meth:`global_state`, a checkpoint) is
+        cut to this rank's shard first."""
         if isinstance(state, TrainState):
             state = state.as_dict()
+        shard = self._sharded_names
         with torch.no_grad():
             for kind, live in (("params", self._params),
                                ("extra_vars", self._buffers)):
-                for name, value in state[kind].items():
+                for name, value in shard(state[kind]).items():
                     live[name].copy_(value)
-            self.optimizer.load_state_dict(state["opt_state"])
+            opt_state = state["opt_state"]
+            if self.mesh is not None:
+                from chambers_tpu_torch.parallel.sharding import (
+                    slice_optimizer_state,
+                )
+
+                opt_state = slice_optimizer_state(opt_state,
+                                                  self._optimizer_params())
+            self.optimizer.load_state_dict(opt_state)
             self.generator.set_state(state["rng"].to("cpu"))
             self._step = int(state["step"])
             if self.ema_decay is not None:
@@ -390,13 +413,54 @@ class Trainer:
                 source = ema if ema is not None else state["params"]
                 self._ema = {n: v.detach().to(self._params[n].device,
                                               copy=True)
-                             for n, v in source.items()}
+                             for n, v in shard(source).items()}
             acc = state.get("accumulation")
             if self._accum > 1 and acc is not None:
                 self._mini_step = int(acc["mini_step"])
                 self._acc = (None if acc["grads"] is None else
                              {n: v.to(self.device, copy=True)
-                              for n, v in acc["grads"].items()})
+                              for n, v in shard(acc["grads"]).items()})
+
+    def _sharded_names(self, tensors):
+        """``{name: tensor}`` with the whole values of placed parameters
+        cut to this rank's shards (as they are without a mesh)."""
+        if self.mesh is None:
+            return tensors
+        from chambers_tpu_torch.parallel.sharding import slice_tensors
+
+        return slice_tensors(tensors, self._params)
+
+    def _optimizer_params(self):
+        return [p for group in self.optimizer.param_groups
+                for p in group["params"]]
+
+    def global_state(self) -> TrainState:
+        """The train state with whole tensors, what a checkpoint holds:
+        under a mesh every placed parameter, its optimizer state, EMA
+        shadow and accumulated gradient gathered from the ranks' shards (a
+        collective: every rank must call); without one :attr:`state`
+        itself."""
+        state = self.state
+        if self.mesh is None:
+            return state
+        from chambers_tpu_torch.parallel.sharding import (
+            gather_optimizer_state,
+            gather_tensors,
+        )
+
+        def whole(tensors):
+            return (None if tensors is None
+                    else gather_tensors(tensors, self._params))
+
+        acc = state.accumulation
+        if acc is not None:
+            acc = {**acc, "grads": whole(acc["grads"])}
+        return TrainState(
+            params=whole(state.params), extra_vars=state.extra_vars,
+            opt_state=gather_optimizer_state(state.opt_state,
+                                             self._optimizer_params()),
+            rng=state.rng, step=state.step,
+            ema_params=whole(state.ema_params), accumulation=acc)
 
     @property
     def step(self) -> int:

@@ -186,7 +186,7 @@ the CUDA toolkit. In order, it:
     launches each a step under ``fit``, counted from 0 just before and
     read just after; the harness's config (the port's AdamW under
     ``LinearWarmup(1e-4, 4)``, EMA 0.999, a streamed token accuracy,
-    validation on 2 batches, ``ExperimentCallback``) at
+    validation on 1 batch, ``ExperimentCallback``) at
     ``steps_per_execution=4`` bit-equal to ``1``; SIGTERM mid-epoch, the
     checkpoint restored into a fresh Trainer and resumed with
     ``initial_epoch``/``skip_batches``, bit-equal to the uninterrupted run;
@@ -197,7 +197,7 @@ the CUDA toolkit. In order, it:
     256: the first 3 losses against phase 18's hand-written step, ms/step
     at N = 1 and 4 against it in turns, the share of the host -> device
     copy the prefetcher hides, ``evaluate`` and ``predict``. (c) LoRA
-    rank 8 on ViT-B/16 b32 bf16, 5 steps: the backbone bit-equal to its
+    rank 8 on ViT-B/16 b32 bf16, 3 steps: the backbone bit-equal to its
     start, the adapters and head moved, the optimizer state the adapters'
     and head's only, ``merge_lora``'s forward against the adapted one;
     ms/step and peak memory against a full fine-tune in turns;
@@ -247,9 +247,27 @@ the CUDA toolkit. In order, it:
     top-2 of 8 and ``pipeline_apply`` (S = 1, M = 4) over 4 layers against
     their meshless runs, and ``distributed_recall_at_k`` on config 4's 256
     embeddings against ``utils.ranking``;
-26. prints a ``trainer`` JSON line (phase 23), a ``data_pipeline`` JSON
-    line (phase 24), a ``serving_and_scale_out`` JSON line (phase 25), a
-    ``paths`` JSON line (the
+26. runs the flash kernels at head sizes other than 64 (``head_sizes_path``),
+    phase 9's width 512 over 16 heads (h 32, which the wrapper zero-pads to
+    the kernels' 64) and over 4 (h 128): (a) K3a-c through
+    ``flash_attention`` and its backward at ``[256, 512, 32]`` and ``[64,
+    512, 128]`` bf16 with the ragged key mask, causal and not, and at h 128
+    in float32, held to their plain versions with phase 8's tolerances and
+    timed at phase 11's tokens and FLOPs against their bounds and SDPA;
+    K3a at one query row at h 128 (``[64, 1, 128]`` against ``[64, 512,
+    128]``) held and timed as in phase 17; (b) phase 9's padded train step
+    at 16 and 4 heads, flash against dense attention on the same init: the
+    first loss and logits, the timed steps in turns, K3a-c 12 launches each
+    a flash step by the counters, ms/step, kernels, launches and busy
+    share; (c) greedy decoding of 16 tokens at h 128: in bf16 the K3a
+    launches by shape and the share of tokens equal to the dense path's,
+    in float32 (the FMA kernels) tokens equal to it; (d) one step of phase
+    9's model with ``global_clipnorm`` a quarter of its gradient norm under
+    ``Trainer(mesh={data: 1, model: 1})`` bit-equal to the meshless step;
+27. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
+    ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
+    line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``paths``
+    JSON line (the
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
     with all five kernels (K1 and K2 with their 384 px shape as
@@ -257,7 +275,9 @@ the CUDA toolkit. In order, it:
     22's launches as ``launches_gshard``, phase 23's timed fit's as
     ``launches_trainer`` and K1's in phase 24's fit calls as
     ``launches_data_pipeline``, phase 25's as ``launches_served_flash``,
-    ``launches_trainer_mesh`` and ``launches_context_parallel``, K3a's two
+    ``launches_trainer_mesh`` and ``launches_context_parallel``, K3a-c at
+    h 32 and 128 as ``shape_h32`` and ``shape_h128`` with their registers
+    and spills, K3a at one query row at h 128 as ``decode_h128``, K3a's two
     decode shapes as rows of their own after it), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -283,6 +303,8 @@ BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 S2S = dict(vocab=1024, t=512, batch=16, dim=512, heads=8, layers=4)
 S2S_WARMUP, S2S_STEPS, S2S_REPEATS = 2, 5, 3
 CARD = ""
+# registers and spilled bytes of each kernel, from the build's ptxas report
+PTXAS = {}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc)?_kernel)"
 
@@ -344,11 +366,35 @@ def warp_matrices(torch, iops, b, device):
     return torch.cat([kinds[i % len(kinds)] for i in range(b)])
 
 
+def read_build_report(path, seconds):
+    """Log a built library's nvcc report, kernel by kernel (registers,
+    spills), and keep each kernel's in ``PTXAS``; returns whether it was
+    built with ``--fmad=false``."""
+    report = path.with_suffix(".log").read_text().splitlines()
+    no_fma = "--fmad=false" in report[0]  # the nvcc command line
+    log(f"build: {seconds:.1f} s -> {path.name} "
+        f"({'--fmad=false' if no_fma else 'FMAs allowed'})")
+    kernel = spills = ""
+    for line in report:
+        if "Compiling entry" in line:
+            kernel = kernel_name(line.split("'")[1])
+        if "bytes spill" in line:
+            spills = line.strip()
+        if "registers" in line:
+            log(f"  nvcc {kernel}: {line.split(':')[-1].strip()}; {spills}")
+            PTXAS[kernel] = {
+                "registers": int(re.search(r"(\d+) registers",
+                                           line).group(1)),
+                "spill_bytes": sum(int(x) for x in re.findall(
+                    r"(\d+) bytes spill", spills))}
+    return no_fma
+
+
 def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
-    64>``, ``..flash_bwd_dq_tc_kernelILi2EE..`` -> ``flash_bwd_dq_tc_kernel<2
-    warpgroups>``, ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a
-    name it cannot read comes back as it is."""
+    64>``, ``..flash_bwd_dq_tc_kernelILi2EE..`` -> ``flash_bwd_dq_tc_kernel<
+    128>`` (two 64-column panels), ``..warp_kernelILi3EE..`` ->
+    ``warp_kernel<c=3>``; a name it cannot read comes back as it is."""
     found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
                       mangled)
     if not found:
@@ -359,7 +405,7 @@ def kernel_name(mangled):
             return found.group(1)
         if found.group(1) == "warp_kernel":  # templated on the channels
             return f"warp_kernel<c={groups.group(1) if groups.group(1) != '0' else 'any'}>"
-        return f"{found.group(1)}<{groups.group(1)} warpgroups>"
+        return f"{found.group(1)}<{64 * int(groups.group(1))}>"
     dtype = "bf16" if "bfloat" in found.group(2) else "f32"
     return f"{found.group(1)}<{dtype}, {found.group(3)}>"
 
@@ -421,15 +467,12 @@ def flash_tolerance(torch, dtype, ref, gradient):
     return 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
 
 
-def check_flash_kernels(torch, fa, dev):
-    """Phase 8: K3a-c against their plain versions on the card, through the
-    wrapper the paths call: ``flash_attention`` forward and its backward,
-    so the operand checks and copies, the fold, the scale's reciprocal and
-    the chain of saved tensors (the backward kernels read the forward
-    kernel's own o, l, m) are held as well. Returns the max abs errors at
-    the train step's shape, by kernel."""
+def phase8_cases(torch, dev):
+    """Phase 8's cases, ``(label, b, n, tq, tk, dtype, causal, mask, layout
+    of q, k, v)`` at head size 64, and the mask of its batch item with no
+    valid key."""
     f32, bf16 = torch.float32, torch.bfloat16
-    b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
+    b, n, t = S2S["batch"], S2S["heads"], S2S["t"]
     path_mask = ragged_mask(torch, b, t, dev)
     dead = path_mask[:2].clone()
     dead[1] = False
@@ -466,6 +509,22 @@ def check_flash_kernels(torch, fa, dev):
         ("one query against 300 keys bf16, key mask", 2, 2, 1, 300, bf16,
          False, scattered_mask(torch, 2, 300, dev, 14), "plain"),
     ]
+    return cases, dead
+
+
+def check_flash_kernels(torch, fa, dev, h=64, cases=None):
+    """Phase 8: K3a-c against their plain versions on the card, through the
+    wrapper the paths call: ``flash_attention`` forward and its backward,
+    so the operand checks and copies, the fold, the scale's reciprocal and
+    the chain of saved tensors (the backward kernels read the forward
+    kernel's own o, l, m) are held as well. Returns the max abs errors at
+    the train step's shape, by kernel. Phase 26 passes its own ``cases``
+    at head size ``h``: the direct launches then take operands padded to
+    the size the kernels are built at, as the wrapper pads them."""
+    dead = None
+    if cases is None:
+        cases, dead = phase8_cases(torch, dev)
+    size = fa.kernel_head_size(h)
     gen = torch.Generator(device=dev).manual_seed(1)
     path_err = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     for label, b_, n_, tq, tk, dtype, causal, mask, layout in cases:
@@ -502,10 +561,11 @@ def check_flash_kernels(torch, fa, dev):
             fq, fk, fv, o_p, l_p, m_p, fdo, scale, causal, fmask, n_)
         # the statistics the wrapper saved: the same launch gives them
         # again, to the bit, twice
-        o_again, l, m = fa.launch_forward(fq, fk, fv, fmask, scale, causal, n_)
-        third = fa.launch_forward(fq, fk, fv, fmask, scale, causal, n_)
+        padded = tuple(fa.pad_head(x, size) for x in (fq, fk, fv))
+        o_again, l, m = fa.launch_forward(*padded, fmask, scale, causal, n_)
+        third = fa.launch_forward(*padded, fmask, scale, causal, n_)
         torch.cuda.synchronize()
-        check(torch.equal(o_again, fold(o))
+        check(torch.equal(o_again[..., :h], fold(o))
               and all(torch.equal(a, b) for a, b in zip(third,
                                                         (o_again, l, m))),
               f"the forward kernel repeats ({label})")
@@ -546,7 +606,8 @@ def check_flash_kernels(torch, fa, dev):
         check(bool(torch.allclose(l, l_p, rtol=1e-4, atol=1e-6))
               and bool(torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)),
               f"saved l, m agree ({label})")
-        if mask is dead:  # batch item 1: rows n_ .. 2 n_ - 1 of l, m
+        if dead is not None and mask is dead:
+            # batch item 1: rows n_ .. 2 n_ - 1 of l, m
             check(not any(bool(x[1].any()) for x in (o, dq, dk, dv))
                   and not bool(l[n_:].any())
                   and bool((m[n_:] == fa.MASK_VALUE).all()),
@@ -826,15 +887,19 @@ def vit_on_flash(torch, fa, dev, images):
           "ViT on the flash kernel matches the dense path")
 
 
-def time_flash_kernels(torch, fa, dev, launches, errors):
+def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
     """Phase 11: K3a-c at the train step's shape, [128, 512, 64] bf16 with
     the ragged key mask (encoder self-attention and cross attention: 8 of a
     step's 12 launches of each kernel; the causal use is timed beside it),
     and the float32 instances of K3a-c, which are other kernels, at
-    the same shape. Returns the three rows of the ``kernels`` line."""
+    the same shape. Returns the three rows of the ``kernels`` line. Phase
+    26 times the same tokens at head size ``h`` over ``heads`` heads: the
+    kernels on operands padded to the size they are built at, the plain
+    versions, SDPA and the bounds at ``h``."""
     F = torch.nn.functional
-    b, n, t, h = S2S["batch"], S2S["heads"], S2S["t"], 64
+    b, n, t = S2S["batch"], heads or S2S["heads"], S2S["t"]
     bn, scale = b * n, h ** -0.5
+    size = fa.kernel_head_size(h)
     mask = ragged_mask(torch, b, t, dev)
     fmask = mask.float()
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -843,19 +908,26 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
         return torch.randn((bn, t, h), device=dev,
                            generator=gen).to(torch.bfloat16)
 
-    # cycle over sets larger together than the 50 MB L2
-    sets = []
+    # cycle over sets larger together than the 50 MB L2; the kernels read
+    # q, k, v, do padded to the built head size (the same tensors at 64)
+    sets, padded = [], []
     for _ in range(3):
         q, k, v, do = rand(), rand(), rand(), rand()
         o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, n)
         sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
+        padded.append(tuple(fa.pad_head(x, size) for x in (q, k, v, do)))
     turn = iter(range(10 ** 9))
 
     def nxt():
         return sets[next(turn) % len(sets)]
 
+    def nxt_padded():
+        return padded[next(turn) % len(sets)]
+
     def bwd_args(causal):
-        q, k, v, do, _, l, m, di = nxt()
+        i = next(turn) % len(sets)
+        q, k, v, do = padded[i]
+        _, _, _, _, _, l, m, di = sets[i]
         return (q, k, v, do, l, m, di, fmask, scale, causal, n)
 
     def plain_bwd():
@@ -889,8 +961,10 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
     q32, k32, v32, do32 = (x.float() for x in sets[0][:4])
     o32, l32, m32 = fa.flash_forward_plain(q32, k32, v32, scale, False, fmask,
                                            n)
-    args32 = (q32, k32, v32, do32, l32, m32, fa.delta(o32, do32), fmask,
-              scale, False, n)
+    di32 = fa.delta(o32, do32)
+    q32, k32, v32, do32 = (fa.pad_head(x, size) for x in (q32, k32, v32,
+                                                           do32))
+    args32 = (q32, k32, v32, do32, l32, m32, di32, fmask, scale, False, n)
     float32_ms = {
         "fwd": cuda_ms(torch, lambda: fa.launch_forward(
             q32, k32, v32, fmask, scale, False, n), 10, backlog=True),
@@ -898,7 +972,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
                        backlog=True),
         "dq": cuda_ms(torch, lambda: fa.launch_backward_dq(*args32), 10,
                       backlog=True)}
-    del q32, k32, v32, do32, o32, l32, m32, args32
+    del q32, k32, v32, do32, o32, l32, m32, di32, args32
     source = {"fwd": "flash_attention_fwd.cu", "dkv": "flash_attention_bwd.cu",
               "dq": "flash_attention_bwd.cu"}
 
@@ -914,7 +988,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
     wrapper_ms = cuda_ms(torch, wrapped, 20)
     specs = (
         ("flash_fwd", "fwd", lambda c: fa.launch_forward(
-            *nxt()[:3], fmask, scale, c, n),
+            *nxt_padded()[:3], fmask, scale, c, n),
          qkv + bn * t * h * elem + 2 * stats + b * t * 4, 4 * pairs,
          "chambers_tpu/ops/flash_attention.py:190 _flash_forward",
          plain_fwd_ms, lib_fwd_ms),
@@ -958,7 +1032,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors):
                      "same key mask"),
             "card": CARD,
         })
-        log(f"{name} [128, 512, 64] bf16 key mask: kernel "
+        log(f"{name} [{bn}, {t}, {h}] bf16 key mask: kernel "
             f"{kernel_ms * 1e3:.1f} us ({rows[-1]['achieved_tflops']:.1f} "
             f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
@@ -1565,18 +1639,19 @@ class shape_tally:
         self.fa.launch_forward = self.saved
 
 
-def build_seq2seq(torch, dev, dtype):
+def build_seq2seq(torch, dev, dtype, heads=None, impl="flash"):
     """The seq2seq model of phase 9 (seed 0) in eval mode, bf16 or float32,
-    on the flash kernels."""
+    on the flash kernels (``impl="xla"``: dense attention), its width over
+    ``heads`` heads (phase 9's 8 by default)."""
     from chambers_tpu_torch import initializers
     from chambers_tpu_torch.models import Seq2SeqTransformer
 
     model = Seq2SeqTransformer(
         input_vocab_size=S2S["vocab"], output_vocab_size=S2S["vocab"],
-        embed_dim=S2S["dim"], num_heads=S2S["heads"],
+        embed_dim=S2S["dim"], num_heads=heads or S2S["heads"],
         dim_feedforward=4 * S2S["dim"], num_encoder_layers=S2S["layers"],
         num_decoder_layers=S2S["layers"], dropout_rate=0.0, dtype=dtype,
-        attention_impl="flash", device=dev)
+        attention_impl=impl, device=dev)
     return initializers.init_module(
         model, torch.Generator(device=dev).manual_seed(0)).eval()
 
@@ -1725,15 +1800,17 @@ def generation_path(torch, fa, dev):
     return results, {f"{tq}x{tk}": n for (tq, tk), n in tally.counts.items()}
 
 
-def time_decode_kernels(torch, fa, dev, tally):
+def time_decode_kernels(torch, fa, dev, tally, h=64, heads=None,
+                        kinds=("cross", "self")):
     """Phase 17: K3a at one query row, the cached step's two shapes: q
     ``[128, 1, 64]`` bf16 against k/v ``[128, 512, 64]`` with the ragged
     source mask (cross attention) and against ``[128, 128, 64]`` with a
     validity row half written (self attention, step 64 of 128), each held
     against ``flash_forward_plain`` and timed against its bound and SDPA
-    with the same mask. Returns the two rows of the ``kernels`` line."""
+    with the same mask. Returns the two rows of the ``kernels`` line.
+    Phase 26 takes ``kinds`` at head size ``h`` over ``heads`` heads."""
     F = torch.nn.functional
-    b, n, h = S2S["batch"], S2S["heads"], 64
+    b, n = S2S["batch"], heads or S2S["heads"]
     bn, scale = b * n, h ** -0.5
     gen = torch.Generator(device=dev).manual_seed(17)
     half = torch.arange(GEN_LEN, device=dev)[None, :] < GEN_LEN // 2
@@ -1741,6 +1818,9 @@ def time_decode_kernels(torch, fa, dev, tally):
              ("self", GEN_LEN, half.expand(b, GEN_LEN)))
     rows = []
     for kind, tk, mask in cases:
+        if kind not in kinds:
+            continue
+        shape = f"[{bn}, 1, {h}] x [{bn}, {tk}, {h}]"
         fmask = mask.float().contiguous()
         # inputs cycled beyond the 50 MB L2, as a decode step finds them
         sets = [tuple(torch.randn((bn, t, h), device=dev, generator=gen)
@@ -1759,7 +1839,7 @@ def time_decode_kernels(torch, fa, dev, tally):
         torch.cuda.synchronize()
         rtol, atol, rms = flash_tolerance(torch, torch.bfloat16, want, False)
         err, need, rel = closeness(got, want, rtol)
-        log(f"K3a decode {kind} [128, 1, 64] x [128, {tk}, 64] bf16 vs "
+        log(f"K3a decode {kind} {shape} bf16 vs "
             f"plain: max |d| {err:.3g} (needs atol {need:.3g} <= {atol:.3g} "
             f"at rtol {rtol:.3g}), rel rms {rel:.3g}; l within "
             f"{float((l_got - l_want).abs().max() / l_want.abs().max()):.2g} "
@@ -1804,8 +1884,8 @@ def time_decode_kernels(torch, fa, dev, tally):
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms, "full_kv_bound_ms": full_kv_ms,
-            "shape": f"q [128, 1, 64] x k/v [128, {tk}, 64] bf16, "
-                     f"{valid} of {b * tk} keys valid",
+            "shape": f"q x k/v {shape} bf16, {valid} of {b * tk} keys "
+                     f"valid",
             "note": "launches: the K3a launches of this shape in phase 16's "
                     "cached greedy call; bound_ms counts the valid keys "
                     "only, full_kv_bound_ms all of k and v; library_ms is "
@@ -3754,10 +3834,13 @@ def moe_path(torch, fa, dev):
 # (c)
 # ---------------------------------------------------------------------------
 
-FIT = dict(batches=6, epochs=2, val=2, window=4)   # (a): 12 steps a run
-FIT_TIMED, FIT_REPEATS = 8, 3                       # steps a timed fit call
-KERAS_BATCHES = 8                                    # (b): host batches
-LORA = dict(batch=32, steps=5, rank=8, classes=1000)
+# depths, cut to make room for phase 26 (they were 6 training and 2
+# validation batches, 8 timed steps a fit call, 8 host batches, 5 LoRA
+# steps)
+FIT = dict(batches=5, epochs=2, val=1, window=4)   # (a): 10 steps a run
+FIT_TIMED, FIT_REPEATS = 4, 3                       # steps a timed fit call
+KERAS_BATCHES = 4                                    # (b): host batches
+LORA = dict(batch=32, steps=3, rank=8, classes=1000)
 
 
 def s2s_batches(torch, n, offset=0):
@@ -3991,7 +4074,7 @@ def trainer_seq2seq_path(torch, fa, dev, workdir):
           "the CSV log and the event files exist and read back")
 
     # preemption: SIGTERM at the end of the second epoch's first window
-    # (step 10), a fresh Trainer restored from the checkpoint, resumed
+    # (step 9), a fresh Trainer restored from the checkpoint, resumed
     class Sigterm(Callback):
         def __init__(self):
             self.epoch = 0
@@ -4379,14 +4462,24 @@ def harness_path(torch, fa, dev):
                            "build", "phase23")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds[part] = round(now - clock[0], 1)
+        clock[0] = now
+
     try:
         seq2seq, launches = trainer_seq2seq_path(torch, fa, dev, workdir)
+        lap("a")
         keras = keras_metric_learning_path(torch, dev)
+        lap("b")
         lora_run = lora_vitb16_path(torch, dev)
+        lap("c")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return {"seq2seq_fit": seq2seq, "keras_config4": keras,
-            "lora_vitb16": lora_run}, launches
+            "lora_vitb16": lora_run, "seconds": seconds}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5281,6 +5374,271 @@ def scale_out_path(torch, fa, dev, vit_ms):
              "launches_context_parallel": cp_launches})
 
 
+# ---------------------------------------------------------------------------
+# 26. head sizes other than 64
+# ---------------------------------------------------------------------------
+
+# phase 9's width 512 over 16 heads (h 32, which the wrapper pads to the
+# kernels' 64) and over 4 (h 128): phase 11's tokens and FLOPs, and phase
+# 9's step, at the other head sizes
+HEADS = {32: 16, 128: 4}
+HEADS_STEPS, HEADS_REPEATS, HEADS_PROFILED = 2, 3, 2
+HEADS_DECODE = 16          # tokens greedy (c) decodes
+FLASH_KEYS = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+              "flash_bwd_dq": "dq"}
+
+
+def head_size_cases(torch, dev, h, heads):
+    """Phase 26 (a)'s cases for ``check_flash_kernels`` at head size ``h``:
+    phase 8's two path cases at ``[16, heads, 512, h]`` bf16 with the
+    ragged key mask, and at 128 the float32 kernels."""
+    b, t = S2S["batch"], S2S["t"]
+    mask = ragged_mask(torch, b, t, dev)
+    cases = [
+        (f"path: encoder self / cross, key mask, h {h}", b, heads, t, t,
+         torch.bfloat16, False, mask, "permuted"),
+        (f"path: decoder self, causal + key mask, h {h}", b, heads, t, t,
+         torch.bfloat16, True, mask, "stacked")]
+    if h == 128:
+        cases.append((f"float32, key mask, h {h}", b, heads, t, t,
+                      torch.float32, False, mask, "plain"))
+    return cases
+
+
+def seq2seq_at_heads(torch, fa, dev):
+    """Phase 26 (b), (c): phase 9's padded train step at each head count of
+    ``HEADS``, flash against dense attention on the same init (the first
+    loss and logits; the timed steps in turns; K3a-c launches by the
+    counters, 12 each a flash step); then greedy decoding of
+    ``HEADS_DECODE`` tokens at h 128, on flash and dense: in bf16, the K3a
+    launches by shape and the share of equal tokens, and in float32 (the
+    FMA kernels), whose tokens must equal the dense path's."""
+    from chambers_tpu_torch.models import greedy_decode
+
+    src, tgt = seq2seq_tokens(torch, dev)
+    vocab, per_step = S2S["vocab"], 3 * S2S["layers"]
+
+    def tokens_of(i):
+        return torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt
+
+    out, steps, tallies, models = {}, {}, {}, {}
+    for h, heads in HEADS.items():
+        flash = build_seq2seq(torch, dev, torch.bfloat16, heads).train()
+        dense = build_seq2seq(torch, dev, torch.bfloat16, heads,
+                              "xla").train()
+        dense.load_state_dict(flash.state_dict())
+        models[h] = (flash, dense)
+        with torch.no_grad():
+            loss_f, logits_f = seq2seq_loss(torch, flash, *tokens_of(0))
+            loss_d, logits_d = seq2seq_loss(torch, dense, *tokens_of(0))
+        real = tgt != 0
+        a = logits_f[real].float().flatten()
+        b = logits_d[real].float().flatten()
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        rel = abs(float(loss_f) - float(loss_d)) / abs(float(loss_d))
+        log(f"phase 26 (b) h {h} ({heads} heads): first step, flash vs "
+            f"dense: loss {float(loss_f):.5f} vs {float(loss_d):.5f} (rel "
+            f"{rel:.2e}), logits cosine {cos:.6f}")
+        check(rel <= 1e-2 and cos >= 0.999,
+              f"h {h}: the flash step's first loss and logits follow the "
+              f"dense path")
+        out[f"h{h}"] = {"heads": heads, "first_loss": float(loss_f),
+                        "first_loss_dense": float(loss_d),
+                        "first_loss_rel_gap": rel, "logits_cosine": cos}
+        del logits_f, logits_d
+        for impl, model in (("flash", flash), ("dense", dense)):
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                    weight_decay=1e-4, betas=(0.9, 0.999),
+                                    eps=1e-8)
+            tally = tallies[f"{impl} h{h}"] = dict.fromkeys(
+                ("fwd", "dkv", "dq", "steps"), 0)
+
+            def step(i, model=model, opt=opt, tally=tally):
+                before = flash_counts(fa)
+                opt.zero_grad(set_to_none=True)
+                loss, _ = seq2seq_loss(torch, model, *tokens_of(i))
+                loss.backward()
+                opt.step()
+                after = flash_counts(fa)
+                for key in before:
+                    tally[key] += after[key] - before[key]
+                tally["steps"] += 1
+
+            steps[f"{impl} h{h}"] = step
+    runs = run_in_turns(torch, steps, 1, HEADS_REPEATS, HEADS_STEPS)
+    for name, tally in tallies.items():
+        want = per_step * tally["steps"] if name.startswith("flash") else 0
+        check(all(tally[k] == want for k in ("fwd", "dkv", "dq")),
+              f"{name}: K3a-c each launched 12 times a flash step "
+              f"(counters {tally})")
+    profiles = {name: fit_profile(torch, lambda step=step: [
+        step(i) for i in range(HEADS_PROFILED)], HEADS_PROFILED)
+        for name, step in steps.items()}
+    for name in steps:
+        ms = median(runs[name])
+        h = name.split(" h")[1]
+        row = out[f"h{h}"].setdefault(name.split()[0], {})
+        row.update({
+            "ms_per_step": ms, "runs_ms": runs[name],
+            "tokens_s": S2S["batch"] * 2 * S2S["t"] / (ms / 1e3),
+            "device_ms": profiles[name]["device_ms"],
+            "launches_per_step": profiles[name]["launches"],
+            "busy": profiles[name]["device_ms"] / ms,
+            "flash_launches": {k: tallies[name][k] for k in
+                               ("fwd", "dkv", "dq")},
+            "steps_counted": tallies[name]["steps"]})
+        log(f"phase 26 (b) {name} (b16, 512 + 512 bf16, AdamW): median of "
+            f"{HEADS_REPEATS} runs of {HEADS_STEPS} steps in turns "
+            f"{ms:.3f} ms/step (runs "
+            f"{', '.join(f'{r:.3f}' for r in runs[name])}), kernels "
+            f"{row['device_ms']:.3f} ms, busy {100 * row['busy']:.1f}%, "
+            f"{row['launches_per_step']:.0f} launches a step, flash "
+            f"launches {row['flash_launches']} over "
+            f"{row['steps_counted']} steps, on {CARD}")
+    del steps, profiles
+
+    # (c) greedy decoding at h 128
+    flash, dense = (m.eval() for m in models[128])
+    with torch.no_grad(), shape_tally(fa) as tally:
+        got = greedy_decode(flash, src, max_len=HEADS_DECODE, bos_id=1)
+    with torch.no_grad():
+        want = greedy_decode(dense, src, max_len=HEADS_DECODE, bos_id=1)
+    bf16_equal = float((got == want).float().mean())
+    del models, flash, dense
+    f32 = build_seq2seq(torch, dev, torch.float32, HEADS[128])
+    f32_dense = build_seq2seq(torch, dev, torch.float32, HEADS[128], "xla")
+    f32_dense.load_state_dict(f32.state_dict())
+    before = flash_counts(fa)["fwd"]
+    with torch.no_grad():
+        got32 = greedy_decode(f32, src, max_len=HEADS_DECODE, bos_id=1)
+        launches32 = flash_counts(fa)["fwd"] - before
+        want32 = greedy_decode(f32_dense, src, max_len=HEADS_DECODE,
+                               bos_id=1)
+    torch.cuda.synchronize()
+    tokens_equal = bool(torch.equal(got32, want32))
+    decode = {"tokens": HEADS_DECODE, "sources": int(src.shape[0]),
+              "bf16_k3a_launches_by_shape": {
+                  f"{tq}x{tk}": c for (tq, tk), c in tally.counts.items()},
+              "bf16_tokens_equal_share": bf16_equal,
+              "float32_tokens_equal": tokens_equal,
+              "float32_k3a_launches": launches32}
+    log(f"phase 26 (c) greedy decoding of {HEADS_DECODE} tokens x "
+        f"{src.shape[0]} sources at h 128: bf16 flash K3a launches by "
+        f"(tq, tk) {decode['bf16_k3a_launches_by_shape']}, "
+        f"{100 * bf16_equal:.1f}% of its tokens equal the dense path's; "
+        f"float32 (the FMA kernels, {launches32} K3a launches) tokens "
+        f"{'equal' if tokens_equal else 'differ from'} the dense path's")
+    check(tokens_equal, "float32 greedy tokens at h 128 on flash equal the "
+                        "dense path's")
+    check(tally.counts.get((1, S2S["t"]), 0) > 0,
+          "the cached steps ran K3a at one query row at h 128")
+    return out, decode
+
+
+def clipped_step_under_mesh(torch, dev):
+    """Phase 26 (d): one step of phase 9's model through ``Trainer`` with
+    the port's AdamW under ``global_clipnorm`` a quarter of the step's
+    gradient norm, without a mesh and under ``Trainer(mesh={data: 1,
+    model: 1}, SEQ2SEQ_TENSOR_PARALLEL_RULES)``: at world size 1 the
+    norms' collectives have no group, so parameters and moments must be
+    the meshless step's bits."""
+    from functools import partial
+
+    import torch.distributed as dist
+
+    from chambers_tpu_torch.optimizers import AdamW
+    from chambers_tpu_torch.parallel import (
+        SEQ2SEQ_TENSOR_PARALLEL_RULES,
+        create_mesh,
+    )
+    from chambers_tpu_torch.training import Trainer
+
+    loss = masked_ce(torch)
+    data = s2s_batches(torch, 1)
+    (src, tgt), labels = data[0]
+    probe = build_seq2seq(torch, dev, torch.bfloat16).train()
+    loss(labels.to(dev), probe([src.to(dev), tgt.to(dev)],
+                               deterministic=True)).backward()
+    norm = float(torch.sqrt(sum((p.grad.float() ** 2).sum()
+                                for p in probe.parameters())))
+    del probe
+    limit = norm / 4
+    mesh = create_mesh({"data": 1, "model": 1})
+    states = {}
+    for key, m, rules in (("meshless", None, None),
+                          ("mesh", mesh, SEQ2SEQ_TENSOR_PARALLEL_RULES)):
+        module = build_seq2seq(torch, dev, torch.bfloat16).train()
+        trainer = Trainer(module, loss, partial(
+            AdamW, weight_decay=1e-4, learning_rate=1e-4,
+            global_clipnorm=limit), mesh=m, param_sharding_rules=rules)
+        trainer.fit(data, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        states[key] = (dict(trainer.state.params),
+                       optimizer_moments(trainer.optimizer))
+        del module, trainer
+    equal = [same_bits(torch, a, b)
+             for a, b in zip(states["mesh"], states["meshless"])]
+    dist.destroy_process_group()
+    log(f"phase 26 (d): one step of phase 9's model with global_clipnorm "
+        f"{limit:.4g} (the step's gradient norm {norm:.4g}), Trainer(mesh="
+        f"{{data: 1, model: 1}}) against the meshless Trainer: parameters "
+        f"and moments bit-equal {equal}")
+    check(all(equal), "the clipped step under a mesh of one is the "
+                      "meshless step's bits")
+    return {"gradient_norm": norm, "global_clipnorm": limit,
+            "bit_equal": True}
+
+
+def head_sizes_path(torch, fa, dev, rows):
+    """Phase 26: (a) K3a-c at h 32 and 128 held to their plain versions
+    (``check_flash_kernels`` on ``head_size_cases``) and timed at phase
+    11's tokens (``time_flash_kernels``), K3a at one query row at h 128
+    (``time_decode_kernels``); (b), (c) ``seq2seq_at_heads``; (d)
+    ``clipped_step_under_mesh``. Adds ``shape_h32`` and ``shape_h128`` to
+    the K3a-c rows of the ``kernels`` line and ``decode_h128`` to K3a's;
+    returns the phase's JSON object."""
+    t0 = time.perf_counter()
+    steps, decode = seq2seq_at_heads(torch, fa, dev)
+    out = {"seq2seq": steps, "decode": decode}
+    for h, heads in HEADS.items():
+        errors = check_flash_kernels(torch, fa, dev, h,
+                                     head_size_cases(torch, dev, h, heads))
+        flash = steps[f"h{h}"]["flash"]
+        timed = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
+                                   errors, h, heads)
+        for row in rows:
+            key = FLASH_KEYS.get(row["name"])
+            got = next((r for r in timed if r["name"] == row["name"]), None)
+            if key is None or got is None:
+                continue
+            bf16 = f"{row['name']}_tc_kernel<{fa.kernel_head_size(h)}>"
+            f32 = f"{row['name']}_kernel<f32, {fa.kernel_head_size(h)}>"
+            row[f"shape_h{h}"] = {
+                "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
+                         f"ragged key mask",
+                "kernel_head_size": fa.kernel_head_size(h),
+                **{k: got[k] for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms",
+                    "wrapper_ms", "bound_ms", "bound_by", "library_ms",
+                    "causal_ms", "causal_bound_ms", "achieved_tflops",
+                    "float32_ms")},
+                "launches_over_steps": flash["steps_counted"],
+                "ptxas": PTXAS.get(bf16), "ptxas_float32": PTXAS.get(f32)}
+    decode_rows = time_decode_kernels(
+        torch, fa, dev, {f"1x{S2S['t']}": decode[
+            "bf16_k3a_launches_by_shape"].get(f"1x{S2S['t']}", 0)},
+        128, HEADS[128], ("cross",))
+    for row in rows:
+        if row["name"] == "flash_fwd":
+            row["decode_h128"] = {k: decode_rows[0][k] for k in (
+                "shape", "launches", "max_abs_err", "ms", "plain_ms",
+                "wrapper_ms", "bound_ms", "bound_by", "library_ms")}
+    out["clipped_mesh_step"] = clipped_step_under_mesh(torch, dev)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 26: {out['seconds']} s")
+    return out
+
+
 def main():
     global CARD
     import torch
@@ -5334,21 +5692,7 @@ def main():
     with ThreadPoolExecutor(2) as jobs:  # one nvcc each, started together
         built = list(jobs.map(timed_build, (wk.LIBRARY, fa.LIBRARY)))
     log(f"build: {time.perf_counter() - t0:.1f} s for both libraries")
-    no_fma = []
-    for path, seconds in built:
-        report = path.with_suffix(".log").read_text().splitlines()
-        no_fma.append("--fmad=false" in report[0])  # the nvcc command line
-        log(f"build: {seconds:.1f} s -> {path.name} "
-            f"({'--fmad=false' if no_fma[-1] else 'FMAs allowed'})")
-        kernel = spills = ""
-        for line in report:
-            if "Compiling entry" in line:
-                kernel = kernel_name(line.split("'")[1])
-            if "bytes spill" in line:
-                spills = line.strip()
-            if "registers" in line:
-                log(f"  nvcc {kernel}: {line.split(':')[-1].strip()}; "
-                    f"{spills}")
+    no_fma = [read_build_report(path, seconds) for path, seconds in built]
     check(no_fma == [True, False], "warp is built with --fmad=false, "
                                    "flash_attention with FMAs")
 
@@ -5819,9 +6163,14 @@ def main():
             for name, counts in scale_launches.items():
                 row[name] = counts[key]
     log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
+    lap("25")
+    # 26. head sizes 32 (padded) and 128: K3a-c alone, phase 9's step at 16
+    # and 4 heads, greedy decoding at 128, a clipped step under a mesh
+    heads = head_sizes_path(torch, fa, dev, rows)
+    log(json.dumps({"head_sizes": heads, "card": CARD}))
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
-    lap("25")
+    lap("26")
     log(json.dumps({"seconds_by_phase": phase_seconds,
                     "seconds": round(sum(phase_seconds.values()), 1)}))
 

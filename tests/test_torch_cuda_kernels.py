@@ -219,39 +219,40 @@ def test_kernel_wrappers_count_and_reject(dev):
                        cut_fill=0)
 
 
-# (b, n, tq, tk, h, dtype, causal, masked): ragged edges, one tile and many,
+# (b, n, tq, tk, dtype, causal, masked), each at every head size of HEADS:
+# ragged edges, one tile and many,
 # cross lengths with the diagonal at the end (more keys than queries and
 # fewer), bn not a multiple of anything; masked is False, True (about 30%
 # of the keys dropped anywhere, the last batch item none kept) or "ragged"
 # (20-30% trailing padding, as the train step's batches)
 FLASH_CASES = [
-    (2, 3, 197, 197, 64, torch.float32, False, False),
-    (1, 2, 130, 260, 64, torch.float32, True, False),
-    (1, 2, 4, 8, 64, torch.float32, True, True),
-    (3, 2, 70, 150, 64, torch.float32, False, True),
-    (2, 5, 257, 257, 64, torch.bfloat16, True, True),
-    (1, 1, 63, 65, 64, torch.bfloat16, False, True),
-    (2, 2, 64, 1, 64, torch.float32, False, False),
-    (1, 2, 260, 130, 64, torch.float32, True, False),  # rows with no key
+    (2, 3, 197, 197, torch.float32, False, False),
+    (1, 2, 130, 260, torch.float32, True, False),
+    (1, 2, 4, 8, torch.float32, True, True),
+    (3, 2, 70, 150, torch.float32, False, True),
+    (2, 5, 257, 257, torch.bfloat16, True, True),
+    (1, 1, 63, 65, torch.bfloat16, False, True),
+    (2, 2, 64, 1, torch.float32, False, False),
+    (1, 2, 260, 130, torch.float32, True, False),  # rows with no key
     # the same edges for the bf16 backward kernels (tiles of 64 rows, one
-    # warpgroup a block in K3b, two in K3c): the last batch item of a masked case has no
-    # valid key, the others do
-    (1, 2, 130, 260, 64, torch.bfloat16, True, False),
-    (1, 2, 260, 130, 64, torch.bfloat16, True, False),
-    (2, 1, 63, 65, 64, torch.bfloat16, False, True),
-    (3, 2, 70, 150, 64, torch.bfloat16, False, True),
-    (2, 2, 64, 1, 64, torch.bfloat16, False, False),
-    (2, 12, 197, 197, 64, torch.bfloat16, False, False),
+    # warpgroup a block in K3b, two in K3c): the last batch item of a masked
+    # case has no valid key, the others do
+    (1, 2, 130, 260, torch.bfloat16, True, False),
+    (1, 2, 260, 130, torch.bfloat16, True, False),
+    (2, 1, 63, 65, torch.bfloat16, False, True),
+    (3, 2, 70, 150, torch.bfloat16, False, True),
+    (2, 2, 64, 1, torch.bfloat16, False, False),
+    (2, 12, 197, 197, torch.bfloat16, False, False),
     # DeiT-B/16's 198 tokens with no key mask: the last key tile holds 6
     # keys of 64, covered by the kernels' bounds alone
-    (2, 12, 198, 198, 64, torch.bfloat16, False, False),
-    (2, 3, 300, 200, 64, torch.bfloat16, True, True),
+    (2, 12, 198, 198, torch.bfloat16, False, False),
+    (2, 3, 300, 200, torch.bfloat16, True, True),
     # the bf16 forward kernel's own edges: one query row, the train step's
     # shape cut in batch, and queries so far past the keys under the causal
     # mask that whole blocks see no key
-    (2, 2, 1, 300, 64, torch.bfloat16, False, True),
-    (8, 8, 512, 512, 64, torch.bfloat16, False, "ragged"),
-    (1, 2, 500, 100, 64, torch.bfloat16, True, False),
+    (2, 2, 1, 300, torch.bfloat16, False, True),
+    (8, 8, 512, 512, torch.bfloat16, False, "ragged"),
+    (1, 2, 500, 100, torch.bfloat16, True, False),
 ]
 
 
@@ -299,41 +300,56 @@ def _assert_close(got, ref, dtype, grad=False, cancels=False):
         assert float(d.norm()) / (norm if norm else 1.0) <= rms
 
 
-@pytest.mark.parametrize("b,n,tq,tk,h,dtype,causal,masked", FLASH_CASES)
+# head sizes: the two the kernels are built at, and one the wrapper pads
+HEADS = [32, 64, 128]
+
+
+@pytest.mark.parametrize("h", HEADS)
+@pytest.mark.parametrize("b,n,tq,tk,dtype,causal,masked", FLASH_CASES)
 def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
                                    masked):
+    """The kernels at a built head size against the plain versions at the
+    true one. A head size between them goes in zero-padded, as the wrapper
+    pads it: the padded columns of every output come back exact zeros and
+    are dropped, ``di`` is the unpadded operands'."""
     q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype, masked)
     scale = h ** -0.5
-    o, l, m = fa.launch_forward(q, k, v, mask, scale, causal, n)
+    size = fa.kernel_head_size(h)
+    qp, kp, vp, dop = (fa.pad_head(x, size) for x in (q, k, v, do))
+    o_full, l, m = fa.launch_forward(qp, kp, vp, mask, scale, causal, n)
+    o = o_full[..., :h]
     o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal, mask, n)
     torch.cuda.synchronize()
+    assert not o_full[..., h:].any()
     _assert_close(o, o_p, dtype)
     assert bool(torch.isfinite(m).all())
     assert torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)
     assert torch.allclose(l, l_p, rtol=1e-4, atol=1e-6)
     # no atomics in the forward either: a second launch gives the same bits
     assert all(torch.equal(a, b) for a, b in zip(
-        fa.launch_forward(q, k, v, mask, scale, causal, n), (o, l, m)))
+        fa.launch_forward(qp, kp, vp, mask, scale, causal, n),
+        (o_full, l, m)))
     if masked is True:  # the last batch item has no valid key
         assert not o[-n:].any() and not l[-n:].any()
         assert bool((m[-n:] == fa.MASK_VALUE).all())
 
     # the backward kernels on the forward kernel's own saved o, l, m, as
     # the autograd function chains them
-    args = (q, k, v, do, l, m, fa.delta(o, do), mask, scale, causal, n)
-    dk, dv = fa.launch_backward_dkv(*args)
-    dq = fa.launch_backward_dq(*args)
+    args = (qp, kp, vp, dop, l, m, fa.delta(o, do), mask, scale, causal, n)
+    padded = (*fa.launch_backward_dkv(*args), fa.launch_backward_dq(*args))
+    dk, dv, dq = (x[..., :h] for x in padded)
     want = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do, scale, causal,
                                    mask, n)
     torch.cuda.synchronize()
+    assert not any(x[..., h:].any() for x in padded)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         _assert_close(got, ref, dtype, grad=True,
                       cancels=tk == 1 and name != "dv")
     # each output is written once by one block, no atomics: the same bits
-    again = (fa.launch_backward_dq(*args), *fa.launch_backward_dkv(*args))
+    again = (*fa.launch_backward_dkv(*args), fa.launch_backward_dq(*args))
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+    assert all(torch.equal(a, b) for a, b in zip(again, padded))
     if masked is True:
         assert not dq[-n:].any() and not dk[-n:].any() and not dv[-n:].any()
     if causal and tq > tk:  # rows above the end-aligned diagonal
@@ -379,12 +395,13 @@ def _kernel_names(fn):
     return " ".join(e.key for e in prof.key_averages())
 
 
-def test_forward_dtype_chooses_the_kernels(dev):
+@pytest.mark.parametrize("h", [64, 128])
+def test_forward_dtype_chooses_the_kernels(dev, h):
     """bf16 operands run the tensor-core forward, float32 the FMA one: read
     from the profiler's kernel names."""
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, 64, dtype, True)
+        q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, True)
         names[dtype] = _kernel_names(
             lambda: fa.launch_forward(q, k, v, mask, 0.125, False, 2))
     assert "flash_fwd_kernel" in names[torch.float32]
@@ -393,12 +410,13 @@ def test_forward_dtype_chooses_the_kernels(dev):
     assert "flash_fwd_kernel" not in names[torch.bfloat16]
 
 
-def test_backward_dtype_chooses_the_kernels(dev):
+@pytest.mark.parametrize("h", [64, 128])
+def test_backward_dtype_chooses_the_kernels(dev, h):
     """bf16 operands run the tensor-core kernels, float32 the FMA kernels:
     read from the profiler's kernel names."""
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, 64, dtype, False)
+        q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, False)
         o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 2)
         args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 2)
         names[dtype] = _kernel_names(lambda: (fa.launch_backward_dkv(*args),
@@ -410,8 +428,9 @@ def test_backward_dtype_chooses_the_kernels(dev):
     assert "flash_bwd_dq_tc_kernel" in names[torch.bfloat16]
 
 
-def test_flash_attention_autograd_counts_and_rejects(dev):
-    b, n, t, h = 2, 2, 100, 64
+@pytest.mark.parametrize("h", HEADS)
+def test_flash_attention_autograd_counts_and_rejects(dev, h):
+    b, n, t = 2, 2, 100
     g = torch.Generator(device=dev).manual_seed(3)
     # slices of one stacked projection, as the attention layer hands over
     qkv = torch.randn((3, b, n, t, h), device=dev, generator=g,
@@ -431,15 +450,18 @@ def test_flash_attention_autograd_counts_and_rejects(dev):
     ref.pow(2).sum().backward()
     assert float((out.detach().cpu() - ref.detach()).abs().max()) <= 2e-5
     assert float((qkv.grad.cpu() - cpu.grad).abs().max()) <= 1e-3
-    # permuted views are copied, not refused; other head sizes are refused
+    # permuted views are copied, not refused; head sizes above 128 are
+    # refused, naming the queue
     perm = torch.randn((b, t, n, h), device=dev, generator=g).permute(
         0, 2, 1, 3)
     got = fa.flash_attention(perm, perm)
     want = fa.flash_attention(perm.cpu(), perm.cpu())
     assert float((got.cpu() - want).abs().max()) <= 2e-5
-    bad = torch.randn((1, 1, 8, 48), device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    bad = torch.randn((1, 1, 8, 160), device=dev)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP"):
         fa.flash_attention(bad, bad)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.launch_forward(bad[0], bad[0], bad[0], None, 0.1, False, 1)
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 768, 1000), (6304, 768, 2304),
@@ -536,15 +558,16 @@ def test_randaugment_other_channel_counts_on_the_card(dev, channels):
     assert torch.equal(got.cpu(), aug.apply(x.cpu(), cpu_draws))
 
 
+@pytest.mark.parametrize("h", HEADS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind,tk", [("cross", 512), ("self", 128)])
-def test_flash_forward_at_one_query_row(dev, kind, tk, dtype):
+def test_flash_forward_at_one_query_row(dev, kind, tk, dtype, h):
     """K3a at a cached decode step's shapes: q ``[128, 1, 64]`` against
     k/v ``[128, 512, 64]`` with a ragged source mask (cross attention) and
     ``[128, 128, 64]`` with validity rows written to different depths, one
     of them a single slot (self attention), through the wrapper a step
     calls, against ``flash_forward_plain``."""
-    b, n, h = 16, 8, 64
+    b, n = 16, 8
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v = (torch.randn((b, n, t, h), device=dev, generator=g).to(dtype)
                for t in (1, tk, tk))

@@ -327,6 +327,106 @@ def test_bf16_backward_plain_matches_jax_kernels(name):
             assert np.abs(per_item[0]).max() > 0
 
 
+HEAD_SIZES = [8, 32, 80, 128]
+
+
+def _close_bf16(got, want):
+    """bf16 against bf16: each element within rtol 2^-7 (one step of the
+    output) plus 2^-8 of the largest value (the roundings of the
+    probabilities, as above), and the relative rms error under 2^-8."""
+    got, want = _f32(got), np.asarray(want, np.float32)
+    d = np.abs(got - want)
+    atol = 2.0 ** -8 * max(1.0, float(np.abs(want).max()))
+    assert float((d - 2.0 ** -7 * np.abs(want)).max()) <= atol
+    assert np.linalg.norm(d) <= 2.0 ** -8 * max(np.linalg.norm(want), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", HEAD_SIZES)
+def test_head_sizes_match_jax_kernel(h, dtype):
+    """The port's ``flash_attention`` at head sizes other than 64 (its plain
+    versions, through the autograd function) against JAX's
+    ``flash_attention`` in interpret mode, causal with a key mask and cross
+    lengths 100 x 120: the output and the gradients of a random cotangent.
+    float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 as
+    ``_close_bf16``. On the card the kernels run these sizes at 64 or 128,
+    zero-padded (``test_padded_plain_call_is_bit_equal``)."""
+    rng = np.random.RandomState(h)
+    shape_q, shape_kv = (2, 2, 100, h), (2, 2, 120, h)
+    q, do = (rng.randn(*shape_q).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(*shape_kv).astype(np.float32) for _ in range(2))
+    mask = _mask(h + 1, 2, 120, 2)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+
+    def jax_attention(q, k, v):
+        return jflash.flash_attention(q, v, k, causal=True,
+                                      kv_mask=jnp.asarray(mask))
+
+    jin = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    want, vjp = jax.vjp(jax_attention, *jin)
+    want_grads = vjp(jnp.asarray(do, jdt))
+    tin = [_t(x, tdt).requires_grad_() for x in (q, k, v)]
+    got = tflash.flash_attention(tin[0], tin[2], tin[1], causal=True,
+                                 kv_mask=_t(mask))
+    got_grads = torch.autograd.grad(got, tin, _t(do, tdt))
+    assert got.dtype == tdt and tuple(got.shape) == shape_q
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), np.asarray(want), atol=1e-5)
+        for g, w in zip(got_grads, want_grads):
+            np.testing.assert_allclose(_f32(g), np.asarray(w), atol=1e-4,
+                                       rtol=1e-4)
+    else:
+        _close_bf16(got, want)
+        for g, w in zip(got_grads, want_grads):
+            assert g.dtype == torch.bfloat16
+            _close_bf16(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [8, 32, 80, 100])
+def test_padded_plain_call_is_bit_equal(h, dtype):
+    """What the wrapper does on the card at a head size the kernels are not
+    built at, in the plain versions: ``q, k, v`` and ``do`` zero-padded to
+    ``kernel_head_size(h)``, the scale from the true ``h``, ``di`` from the
+    unpadded ``o`` and ``do``. Every output equals the unpadded call's bit
+    for bit, and the padded columns are exact zeros."""
+    size = tflash.kernel_head_size(h)
+    assert size == (64 if h <= 64 else 128)
+    g = torch.Generator().manual_seed(h)
+    q, do = (torch.randn(6, 97, h, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(6, 131, h, generator=g).to(dtype) for _ in range(2))
+    mask = (torch.rand(2, 131, generator=g) > 0.3).float()
+    pad = lambda x: tflash.pad_head(x, size)  # noqa: E731
+    for causal in (False, True):
+        args = (h ** -0.5, causal, mask, 3)
+        o, l, m = tflash.flash_forward_plain(q, k, v, *args)
+        po, pl, pm = tflash.flash_forward_plain(pad(q), pad(k), pad(v), *args)
+        assert torch.equal(po[..., :h], o) and not po[..., h:].any()
+        assert torch.equal(pl, l) and torch.equal(pm, m)
+        want = tflash.flash_backward_plain(q, k, v, o, l, m, do, *args)
+        got = tflash.flash_backward_plain(
+            pad(q), pad(k), pad(v), po, pl, pm, pad(do), *args,
+            di=tflash.delta(po[..., :h], do))
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a[..., :h], b)
+            assert not a[..., h:].any()
+
+
+def test_kernel_head_sizes_and_the_limit():
+    """The kernels are built at 64 and 128; smaller sizes run padded to the
+    next of them, larger ones are refused naming the queue in ROADMAP.md."""
+    assert tflash.HEAD_SIZES == (64, 128)
+    assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 64, 65, 80,
+                                                 128)] == [
+        64, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tflash.kernel_head_size(129)
+    x = torch.ones(2, 3, 5)
+    assert tflash.pad_head(x, 5) is x
+    assert tuple(tflash.pad_head(x, 64).shape) == (2, 3, 64)
+
+
 def test_fully_masked_rows_have_zero_finite_gradients():
     q, k, v = _qkv(3, (2, 2, 40, 16))
     mask = np.ones((2, 40), bool)

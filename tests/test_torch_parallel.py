@@ -545,6 +545,69 @@ def ref_tail_batch(n):
     return dict(state=_state(variables["params"]), x=x, y=y), error
 
 
+def _seq2seq_module():
+    from chambers_tpu.models import Seq2SeqTransformer
+
+    return Seq2SeqTransformer(
+        input_vocab_size=24, output_vocab_size=24, embed_dim=32,
+        num_heads=4, dim_feedforward=64, num_encoder_layers=2,
+        num_decoder_layers=2, dropout_rate=0.0)
+
+
+def _seq2seq_batches(seed, count):
+    """``count`` batches ``((src, tgt), y)`` of 8 rows of 8 tokens (ids
+    1-23, some rows ending in padding) and float targets for the logits:
+    int64 tokens for the port, int32 for JAX."""
+    rng = np.random.RandomState(seed)
+    port, jax_batches = [], []
+    for _ in range(count):
+        src, tgt = (rng.randint(1, 24, (8, 8)) for _ in range(2))
+        src[::3, 6:] = 0
+        tgt[1::3, 5:] = 0
+        y = rng.randn(8, 8, 24).astype(np.float32)
+        port.append(((src.astype(np.int64), tgt.astype(np.int64)), y))
+        jax_batches.append(((src.astype(np.int32), tgt.astype(np.int32)), y))
+    return port, jax_batches
+
+
+def ref_clipped_mesh(n):
+    """The JAX package's meshless clipped run: 3 SGDW steps (momentum 0.9)
+    of the seq2seq model through its Trainer, with ``clipnorm`` at the
+    median of the first step's per-parameter gradient norms and with
+    ``global_clipnorm`` at half their joint norm, so both trigger."""
+    from chambers_tpu.models import Model
+    from chambers_tpu.training import Trainer
+
+    module = _seq2seq_module()
+    port, batches = _seq2seq_batches(21, 3)
+    variables = module.init(jax.random.PRNGKey(0), batches[0][0])
+    (x, y) = batches[0]
+    grads = jax.grad(lambda p: _jmse(y, module.apply({"params": p}, x)))(
+        variables["params"])
+    norms = [float(jnp.linalg.norm(g)) for g in jax.tree.leaves(grads)]
+    total = math.sqrt(sum(v * v for v in norms))
+    clip = {"clipnorm": float(np.median(norms)),
+            "global_clipnorm": 0.5 * total}
+    want = {}
+    for mode, limit in clip.items():
+        opt = jopt.SGDW(weight_decay=0.0, learning_rate=0.05, momentum=0.9,
+                        **{mode: limit})
+        trainer = Trainer(Model(module, variables), loss=_jmse,
+                          optimizer=opt)
+        trainer.fit(batches, epochs=1, verbose=False)
+        want[mode] = _state(trainer.variables["params"])
+    return (dict(state=_state(variables["params"]), batches=port, clip=clip),
+            {"params": want, "norms": norms, "total": total, "clip": clip})
+
+
+def ref_checkpoint_mesh(n):
+    """Port to port: the seq2seq model's weights and 4 batches."""
+    module = _seq2seq_module()
+    port, batches = _seq2seq_batches(22, 4)
+    variables = module.init(jax.random.PRNGKey(1), batches[0][0])
+    return dict(state=_state(variables["params"]), batches=port), None
+
+
 def _once(ref):
     """A reference that does not depend on the world size, computed once
     for every size."""
@@ -592,6 +655,8 @@ REFERENCES = {
     "tail_batch": _once(ref_tail_batch),
     "fsdp_rule_cases": lambda n: ({}, None),
     "dp_tp_ep_step": ref_dp_tp_ep_step,
+    "clipped_mesh": _once(ref_clipped_mesh),
+    "checkpoint_mesh": _once(ref_checkpoint_mesh),
 }
 # a label runs the worker check of another name
 CHECK_OF = {"cp_dryrun": "context_parallel", "cp_dense": "context_parallel"}
@@ -777,6 +842,71 @@ def test_trainer_mesh_with_tp_rules(world):
     assert np.isfinite(out["tp_history"]).all()
     np.testing.assert_allclose(out["tp_history"], out["tp_history_ref"],
                                rtol=1e-5)
+
+
+CLIPPED = [f"{kind}-{mode}" for kind in ("tp", "fsdp")
+           for mode in ("clipnorm", "global_clipnorm")]
+
+
+@pytest.mark.parametrize("case", CLIPPED)
+def test_trainer_mesh_clips_by_whole_parameter_norms(world, case):
+    """Clipping under a mesh takes the norms of whole parameters, as optax
+    does on JAX's global arrays: after 3 clipped SGD steps under the seq2seq
+    TP rules or fsdp_rules the gathered parameters equal the JAX package's
+    meshless run to 1e-5 (float32 sums in another order), and every rank
+    holds the same bits of each replicated parameter."""
+    n, mode = world[0], case.split("-", 1)[1]
+    want = world[2]["clipped_mesh"]
+    limit = want["clip"][mode]
+    if mode == "clipnorm":  # some parameters are clipped, some not
+        assert min(want["norms"]) < limit < max(want["norms"])
+    else:
+        assert want["total"] > limit
+    out = _result(world, "clipped_mesh")[case]
+    assert out["sharded"]
+    _close_params(out["params"], want["params"][mode], atol=1e-5)
+    for rank in range(1, n):
+        other = _result(world, "clipped_mesh", rank)[case]["replicated"]
+        assert set(other) == set(out["replicated"]) and other
+        for name, value in other.items():
+            np.testing.assert_array_equal(value, out["replicated"][name],
+                                          err_msg=name)
+
+
+def test_trainer_mesh_checkpoint_resumes_bit_equal(world):
+    """Under the seq2seq TP rules, CheckpointCallback saves at step 2 and a
+    fresh Trainer restores it: steps 3-4 give the uninterrupted run's
+    losses and parameters to the bit."""
+    out = _result(world, "checkpoint_mesh")
+    whole, saved, resumed = out["whole"], out["saved"], out["resumed"]
+    assert (saved["step"], resumed["step"], whole["step"]) == (2, 4, 4)
+    assert saved["losses"] == whole["losses"][:2]
+    assert resumed["losses"] == whole["losses"][2:]
+    assert set(resumed["params"]) == set(whole["params"])
+    for name, value in whole["params"].items():
+        np.testing.assert_array_equal(resumed["params"][name], value,
+                                      err_msg=name)
+
+
+def test_trainer_mesh_checkpoint_holds_whole_tensors(world):
+    """The TP run's checkpoint holds the tensors a meshless run's does,
+    name for name and shape for shape (parameters, optimizer moments,
+    generator state), and its parameters agree with the meshless ones to
+    float32 rounding."""
+    files = _result(world, "checkpoint_mesh")["files"]
+    assert files["tp"] == files["plain"]
+    assert any("opt_state/state" in k for k in files["tp"])
+    _close_params(files["tp_params"], files["plain_params"], atol=1e-5)
+
+
+def test_meshless_trainer_resumes_a_mesh_checkpoint(world):
+    """A Trainer without a mesh restores the TP checkpoint and continues
+    within 1e-6 of the TP run's steps 3-4."""
+    out = _result(world, "checkpoint_mesh")
+    got, want = out["meshless_resumed"], out["resumed"]
+    assert got["step"] == 4
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
+    _close_params(got["params"], want["params"], atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

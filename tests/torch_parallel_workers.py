@@ -1038,10 +1038,147 @@ def dropout_and_batchnorm(n, vit_state, images, bn_state, x):
     return out
 
 
+def _seq2seq(state):
+    from chambers_tpu_torch.models import Seq2SeqTransformer
+
+    return _load(Seq2SeqTransformer(24, 24, 32, 4, 64, 2, 2,
+                                    dropout_rate=0.0, device="cpu"), state)
+
+
+def _replicated(module):
+    """This rank's copy of every parameter its placement replicates."""
+    return {n: _np(p) for n, p in module.named_parameters()
+            if not p.sharding.axes()}
+
+
+def clipped_mesh(n, state, batches, clip):
+    """Trainer(mesh=) with clipping: 3 SGD steps of a seq2seq model placed
+    by the seq2seq TP rules and by fsdp_rules, with ``clipnorm`` and with
+    ``global_clipnorm``: the whole parameters and this rank's replicated
+    ones."""
+    from chambers_tpu_torch.optimizers import SGDW
+    from chambers_tpu_torch.parallel import (
+        SEQ2SEQ_TENSOR_PARALLEL_RULES,
+        fsdp_rules,
+    )
+    from chambers_tpu_torch.training import Trainer
+
+    out = {}
+    for kind in ("tp", "fsdp"):
+        for mode, limit in clip.items():
+            model = _seq2seq(state)
+            if kind == "tp":
+                mesh = _mesh({"data": n // 2, "model": 2})
+                rules = SEQ2SEQ_TENSOR_PARALLEL_RULES
+            else:
+                mesh = _mesh({"data": n})
+                rules = fsdp_rules(model, mesh, min_weight_size=512)
+            trainer = Trainer(
+                model, loss=_mse, mesh=mesh, param_sharding_rules=rules,
+                optimizer=lambda named: SGDW(
+                    named, weight_decay=0.0, learning_rate=0.05,
+                    momentum=0.9, **{mode: limit}))
+            trainer.fit(batches, epochs=1, verbose=False)
+            out[f"{kind}-{mode}"] = {
+                "params": _whole(model), "replicated": _replicated(model),
+                "sharded": sorted(n for n, p in model.named_parameters()
+                                  if p.sharding.axes())}
+    return out
+
+
+def _loss_recorder():
+    """A callback that appends every step's loss to the list returned with
+    it."""
+    from chambers_tpu_torch.callbacks import Callback
+
+    losses = []
+
+    class Record(Callback):
+        def on_train_batch_end(self, batch, logs=None):
+            losses.append(float(logs["loss"]))
+
+    return Record(), losses
+
+
+def _flat_shapes(tree, prefix=""):
+    """``{path: shape}`` of every tensor in a nested checkpoint object."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tuple(tree.shape)}
+    out = {}
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    for k, v in items:
+        out.update(_flat_shapes(v, f"{prefix}/{k}"))
+    return out
+
+
+def checkpoint_mesh(n, state, batches):
+    """A checkpoint under the seq2seq TP rules: 4 uninterrupted SGDW steps
+    (momentum 0.9: a trace a parameter, sharded as it is; Adam's first
+    directions would turn float noise in the key biases' zero gradients
+    into whole steps); 2 steps saved by CheckpointCallback and resumed by
+    a fresh Trainer for steps 3-4; the checkpoint file against a meshless
+    run's; a meshless Trainer resuming the TP checkpoint."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from chambers_tpu_torch.optimizers import SGDW
+    from chambers_tpu_torch.parallel import SEQ2SEQ_TENSOR_PARALLEL_RULES
+    from chambers_tpu_torch.training import Trainer
+    from chambers_tpu_torch.training.checkpoint import CheckpointCallback
+
+    box = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    root = box[0]
+
+    def run(mesh, data, directory=None, restore=None):
+        model = _seq2seq(state)
+        trainer = Trainer(
+            model, loss=_mse, mesh=mesh,
+            param_sharding_rules=SEQ2SEQ_TENSOR_PARALLEL_RULES if mesh
+            else None,
+            optimizer=lambda named: SGDW(named, weight_decay=1e-4,
+                                         learning_rate=0.05, momentum=0.9))
+        if restore is not None:
+            assert CheckpointCallback(restore, trainer).restore_into(trainer)
+        record, losses = _loss_recorder()
+        callbacks = [record]
+        if directory is not None:
+            callbacks.append(CheckpointCallback(directory, trainer))
+        trainer.fit(data, epochs=1, verbose=False, callbacks=callbacks)
+        return {"losses": losses, "params": _whole(model),
+                "step": trainer.step}
+
+    def tp():
+        return _mesh({"data": n // 2, "model": 2})
+
+    out = {"whole": run(tp(), batches)}
+    tp_dir = os.path.join(root, "tp")
+    out["saved"] = run(tp(), batches[:2], tp_dir)
+    out["resumed"] = run(tp(), batches[2:], restore=tp_dir)
+    plain_dir = os.path.join(root, f"plain{dist.get_rank()}")
+    run(None, batches[:2], plain_dir)
+    load = lambda d: torch.load(os.path.join(d, "2.pt"), weights_only=False)
+    tp_file, plain_file = load(tp_dir), load(plain_dir)
+    out["files"] = {"tp": _flat_shapes(tp_file),
+                    "plain": _flat_shapes(plain_file),
+                    "tp_params": {k: _np(v) for k, v in
+                                  tp_file["params"].items()},
+                    "plain_params": {k: _np(v) for k, v in
+                                     plain_file["params"].items()}}
+    out["meshless_resumed"] = run(None, batches[2:], restore=tp_dir)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 CHECKS = {f.__name__: f for f in (
     dropout_and_batchnorm,
     fsdp_rule_cases,
     mesh_api, dp_grad, tp_mha, dp_tp_vit, pp_step, ep_dp_step,
     dp_tp_ep_step, context_parallel, decode, fsdp_step, lora_freeze,
     nondivisible, wide_dp_tp, trainer_dp, quantized_tp, collective_eval,
-    pipeline_cases, ep_cases, tail_batch)}
+    pipeline_cases, ep_cases, tail_batch, clipped_mesh, checkpoint_mesh)}
