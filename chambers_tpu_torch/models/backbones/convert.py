@@ -98,7 +98,13 @@ def jax_variables(module):
 def load_jax_variables(module, variables):
     """Install ``{"params": ..., "batch_stats": ...}`` (nested arrays, the
     layout :func:`jax_variables` returns and the importers fill) into
-    ``module``; every entry of its ``state_dict`` must be given."""
-    module.load_state_dict(state_dict_from_jax(
-        variables["params"], batch_stats=variables.get("batch_stats")))
+    ``module``; every entry of its ``state_dict`` must be given. A module
+    placed on a mesh takes whole values, each cut to this rank's shard."""
+    state = state_dict_from_jax(variables["params"],
+                                batch_stats=variables.get("batch_stats"))
+    if getattr(module, "_mesh", None) is not None:
+        from chambers_tpu_torch.parallel.sharding import slice_tensors
+
+        state = slice_tensors(state, module.state_dict(keep_vars=True))
+    module.load_state_dict(state)
     return module

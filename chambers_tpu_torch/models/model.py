@@ -121,7 +121,8 @@ class Model:
     def variables(self):
         """The weights as the JAX package's ``variables``: ``{"params":
         ..., "batch_stats": ...}`` nested numpy copies under its paths
-        (``batch_stats`` only when the module has buffers)."""
+        (``batch_stats`` only when the module has buffers); whole under a
+        mesh, as JAX's global arrays (every rank must call)."""
         out = jax_variables(self.module)
         if not out["batch_stats"]:
             del out["batch_stats"]
@@ -136,9 +137,15 @@ class Model:
         p = next(self.module.parameters(), None)
         return p.device if p is not None else torch.device("cpu")
 
+    @property
+    def _mesh(self):
+        """The mesh the module is placed on, or None."""
+        return getattr(self.module, "_mesh", None)
+
     def replace_variables(self, variables) -> "Model":
         """Install ``{"params": ..., "batch_stats": ...}`` (nested arrays
-        under the JAX paths) into the module."""
+        under the JAX paths, whole) into the module; a placed module keeps
+        each value's shard."""
         load_jax_variables(self.module, variables)
         return self
 
@@ -471,13 +478,18 @@ class Model:
     # -- persistence -------------------------------------------------------------
     def save_weights(self, path: str):
         """Write the variables as Flax's msgpack (what the JAX package's
-        ``Model.save_weights`` writes and its ``load_weights`` reads)."""
+        ``Model.save_weights`` writes and its ``load_weights`` reads). A
+        module placed on a mesh writes its whole weights, from the mesh's
+        first rank (every rank must call)."""
+        from chambers_tpu_torch.parallel.sharding import write_once
         from chambers_tpu_torch.utils import msgpack_io
 
-        msgpack_io.dump(self.variables, path)
+        variables = self.variables
+        write_once(self._mesh, lambda: msgpack_io.dump(variables, path))
 
     def load_weights(self, path: str):
-        """Load a ``Model.save_weights`` file of either package."""
+        """Load a ``Model.save_weights`` file of either package (into a
+        placed module, each whole value cut to the rank's shard)."""
         from chambers_tpu_torch.utils import msgpack_io
 
         return self.replace_variables(msgpack_io.load(path))
@@ -489,8 +501,14 @@ class Model:
         import json
         import os
 
+        from chambers_tpu_torch.parallel.sharding import write_once
+
         os.makedirs(directory, exist_ok=True)
         self.save_weights(os.path.join(directory, "model.msgpack"))
         config = {"name": self.name, "module": type(self.module).__name__}
-        with open(os.path.join(directory, "config.json"), "w") as f:
-            json.dump(config, f, indent=2, default=str)
+
+        def write():
+            with open(os.path.join(directory, "config.json"), "w") as f:
+                json.dump(config, f, indent=2, default=str)
+
+        write_once(self._mesh, write)

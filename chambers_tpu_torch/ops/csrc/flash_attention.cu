@@ -4,15 +4,17 @@
 // autograd function and the plain PyTorch versions they are checked
 // against). The flash_attention library has three sources, and each C
 // function below chooses its kernel by the operands' type:
-//   bfloat16  the tensor-core kernels: flash_attention_fwd.cu (K3a) and
-//             flash_attention_bwd.cu (K3b, K3c), both on flash_tiles.cuh
-//   float32   the FMA kernels of this file, for all three
+//   bfloat16, float16  the tensor-core kernels: flash_attention_fwd.cu
+//                      (K3a) and flash_attention_bwd.cu (K3b, K3c), both
+//                      on flash_tiles.cuh, templated on the type
+//   float32            the FMA kernels of this file, for all three
 //
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
-// (the bf16 kernels carry the same names with _tc).
+// (the 16-bit kernels carry the same names with _tc; the float32 ones at
+// head size 256 with _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -36,8 +38,9 @@
 // the bf16 rate (measured 26 to 31 TFLOP/s on an NVIDIA H100 80GB HBM3 at
 // 700 W by chip_smoke.py). float32 operands need them: the card holds
 // float32 outputs to 2e-5 and gradients to 1e-4 of their largest value,
-// which TF32's three digits cannot meet. bfloat16 operands, where the gap
-// to a library call was widest, take the tensor-core kernels.
+// which TF32's three digits cannot meet. bfloat16 and float16 operands,
+// where the gap to a library call was widest, take the tensor-core
+// kernels.
 //
 // Design: the TPU grid's last, sequential dimension carried m, l and the
 // accumulators in VMEM scratch from step to step. Here that dimension is a
@@ -59,16 +62,31 @@
 // by l once at the end, where the TPU kernel renormalises at every key
 // step.
 //
-// Takes head size 64 or 128 (the kernels are templates over the type and
-// the head size, in steps of 64; float32 is instantiated at both, bfloat16
-// goes to the tensor-core kernels, built at both; the wrapper zero-pads any
-// other head size up to 128 to the next of them), contiguous operands whose
-// base addresses are multiples of 16 bytes. At 128 the FMA kernels keep the
-// same 16 x 16 threads, each holding 8 columns of every accumulator row
-// (two groups of 4, 64 apart), and stage 64-row tiles of 132 floats a row:
-// 116, 149 and 167 KB of shared memory for K3a, K3c and K3b; nvcc gives
-// them 128, 128 and 222 registers, and K3c spills 48 bytes. Built WITHOUT --fmad=false: the inner products of these
-// kernels are FMAs, and those of the bf16 kernels run on the tensor cores.
+// Takes head size 64, 128 or 256 (the kernels are templates over the type
+// and the head size, in steps of 64; float32 is instantiated at all three,
+// bfloat16 and float16 go to the tensor-core kernels, built at all three;
+// the wrapper zero-pads any other head size up to 256 to the next of
+// them), contiguous operands whose base addresses are multiples of 16
+// bytes. At 128 the FMA kernels keep the same 16 x 16 threads, each holding
+// 8 columns of every accumulator row (two groups of 4, 64 apart), and stage
+// 64-row tiles of 132 floats a row: 116, 149 and 167 KB of shared memory
+// for K3a, K3c and K3b; nvcc gives them 128, 128 and 222 registers, and K3c
+// spills 48 bytes.
+//
+// At 256 neither way fits: whole tiles of 260 floats a row would take 266
+// KB for K3b and K3c, and accumulators of 16 columns a thread would double
+// the registers of 128, K3b's past 255. So the _cols kernels give each
+// block HO = 128 of the head's output columns (blockIdx.z picks the half)
+// and the accumulators of 128, and stream the score products q k^T and
+// do v^T over the whole head in chunks of 64 columns through tiles of 68
+// floats a row; the second products read the block's 128 columns of v, k,
+// do or q. Both halves of a row tile compute the same scores: the
+// recompute doubles the score products' work (the float32 path is for
+// correctness, not speed) and keeps blocks independent. K3a's l and m are
+// written by the first half. 84, 118 and 169 KB of shared memory.
+//
+// Built WITHOUT --fmad=false: the inner products of these kernels are FMAs,
+// and those of the 16-bit kernels run on the tensor cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,9 +119,10 @@ struct Elem<float> {
   }
 };
 
-// rows [row0, row0 + 64) of a [rows, HD] array into dst[64][HD + kPad] as
-// float32; rows past the end are zero
-template <typename T, int HD>
+// rows [row0, row0 + 64) of HD columns of an array of row stride kStride
+// (``src`` at the first column) into dst[64][HD + kPad] as float32; rows
+// past the end are zero
+template <typename T, int HD, int kStride = HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int rows, int tid) {
   constexpr int kVec = Elem<T>::kVec;
@@ -114,7 +133,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
     const int c = (i % kPerRow) * kVec;
     float* d = dst + r * kLd + c;
     if (row0 + r < rows) {
-      Elem<T>::load(src + (size_t)(row0 + r) * HD + c, d);
+      Elem<T>::load(src + (size_t)(row0 + r) * kStride + c, d);
     } else {
 #pragma unroll
       for (int j = 0; j < kVec; j += 4)
@@ -141,6 +160,34 @@ __device__ __forceinline__ void gemm_nt(const float* A, const float* B,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * kLd + d);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float t = acc[r][c];
+        t = fmaf(a[r].x, b[c].x, t);
+        t = fmaf(a[r].y, b[c].y, t);
+        t = fmaf(a[r].z, b[c].z, t);
+        t = fmaf(a[r].w, b[c].w, t);
+        acc[r][c] = t;
+      }
+  }
+}
+
+// acc[r][c] += sum_{d < 64} A[ty + 16 r][d] * B[tx + 16 c][d], in the order
+// of gemm_nt: a 64-column chunk of a score product, A and B [64][kLdp]
+__device__ __forceinline__ void gemm_nt_add(const float* A, const float* B,
+                                            int ty, int tx,
+                                            float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int d = 0; d < kTile; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(A + (ty + 16 * r) * kLdp + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * kLdp + d);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -192,8 +239,9 @@ __device__ __forceinline__ void gemm_nn(const float* P, const float* V,
   }
 }
 
-// rows row0 + ty + 16 r of a [rows, HD] output, each times mul[r]
-template <typename T, int HD>
+// rows row0 + ty + 16 r of HD columns of an output of row stride kStride
+// (``dst`` at the first column), each times mul[r]
+template <typename T, int HD, int kStride = HD>
 __device__ __forceinline__ void store_rows(T* dst,
                                            const float (&acc)[4][HD / 16],
                                            const float (&mul)[4], int row0,
@@ -204,7 +252,7 @@ __device__ __forceinline__ void store_rows(T* dst,
     if (row >= rows) continue;
 #pragma unroll
     for (int g = 0; g < HD / 64; ++g)
-      Elem<T>::store4(dst + (size_t)row * HD + g * 64 + tx * 4,
+      Elem<T>::store4(dst + (size_t)row * kStride + g * 64 + tx * 4,
                       acc[r][g * 4 + 0] * mul[r], acc[r][g * 4 + 1] * mul[r],
                       acc[r][g * 4 + 2] * mul[r], acc[r][g * 4 + 3] * mul[r]);
   }
@@ -501,6 +549,296 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, HD>(dk + (size_t)bn * tk * HD, dk_acc, mul, k0, tk, ty, tx);
 }
 
+
+// ---------------------------------------------------------------------------
+// head size 256: HO of the HD output columns a block, the score products
+// streamed over the head in 64-column chunks (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// K3a
+template <typename T, int HD, int HO>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ kv_mask,
+                          T* __restrict__ o, float* __restrict__ l_out,
+                          float* __restrict__ m_out, int tq, int tk,
+                          int n_heads, float scale, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kLdo = HO + kPad;
+  float* Qc = smem;                  // a 64-column chunk of the query tile
+  float* Kc = Qc + kTile * kLdp;     // the same chunk of the key tile
+  float* Vs = Kc + kTile * kLdp;     // the block's HO columns of v
+  float* Ps = Vs + kTile * kLdo;
+  float* valid = Ps + kTile * kLdp;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
+  const T* qb = q + (size_t)bn * tq * HD;
+  const T* kb = k + (size_t)bn * tk * HD;
+  const T* vb = v + (size_t)bn * tk * HD;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  float m_run[4], l_run[4], acc[4][HO / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m_run[r] = kMaskValue;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < HO / 16; ++c) acc[r][c] = 0.f;
+  }
+
+  const int k_end = causal ? min(tk, q0 + kTile + offset) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the last step's readers of Vs, Ps are done
+    load_tile<T, HO, HD>(Vs, vb + c0, k0, tk, tid);
+    load_key_validity(valid, mask_row, k0, tk, tid);
+    float s[4][4] = {};
+    for (int c = 0; c < HD; c += kTile) {
+      if (c) __syncthreads();  // the last chunk's readers are done
+      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
+      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
+      __syncthreads();
+      gemm_nt_add(Qc, Kc, ty, tx, s);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + ty + 16 * r;
+      bool ok[4];
+      float mx = kMaskValue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jc = tx + 16 * c;
+        ok[c] = valid[jc] > 0.f && (!causal || k0 + jc <= row + offset);
+        s[r][c] = ok[c] ? s[r][c] * scale : kMaskValue;
+        mx = fmaxf(mx, s[r][c]);
+      }
+      mx = row_max(mx);
+      const float m_next = fmaxf(m_run[r], mx);
+      const float alpha = expf(m_run[r] - m_next);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = ok[c] ? expf(s[r][c] - m_next) : 0.f;
+        sum += p;
+        Ps[(ty + 16 * r) * kLdp + tx + 16 * c] = p;
+      }
+      sum = row_sum(sum);
+      l_run[r] = l_run[r] * alpha + sum;
+      m_run[r] = m_next;
+#pragma unroll
+      for (int c = 0; c < HO / 16; ++c) acc[r][c] *= alpha;
+    }
+    __syncthreads();
+    gemm_nn<HO>(Ps, Vs, ty, tx, acc);
+  }
+
+  float inv[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    inv[r] = l_run[r] == 0.f ? 1.f : 1.f / l_run[r];
+    const int row = q0 + ty + 16 * r;
+    if (blockIdx.z == 0 && tx == 0 && row < tq) {
+      l_out[(size_t)bn * tq + row] = l_run[r];
+      m_out[(size_t)bn * tq + row] = m_run[r];
+    }
+  }
+  store_rows<T, HO, HD>(o + (size_t)bn * tq * HD + c0, acc, inv, q0, tq, ty,
+                        tx);
+}
+
+// K3c
+template <typename T, int HD, int HO>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ l,
+                             const float* __restrict__ m,
+                             const float* __restrict__ di,
+                             const float* __restrict__ kv_mask,
+                             T* __restrict__ dq, int tq, int tk, int n_heads,
+                             float scale, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kLdo = HO + kPad;
+  float* Qc = smem;                  // 64-column chunks of q, do, k, v
+  float* dOc = Qc + kTile * kLdp;
+  float* Kc = dOc + kTile * kLdp;
+  float* Vc = Kc + kTile * kLdp;
+  float* Ks = Vc + kTile * kLdp;     // the block's HO columns of k
+  float* dSs = Ks + kTile * kLdo;
+  float* valid = dSs + kTile * kLdp;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
+  const T* qb = q + (size_t)bn * tq * HD;
+  const T* dob = dout + (size_t)bn * tq * HD;
+  const T* kb = k + (size_t)bn * tk * HD;
+  const T* vb = v + (size_t)bn * tk * HD;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  float m_row[4], linv_row[4], di_row[4], acc[4][HO / 16];
+  bool row_ok[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty + 16 * r;
+    row_ok[r] = row < tq;
+    const size_t at = (size_t)bn * tq + (row_ok[r] ? row : 0);
+    const float lr = l[at];
+    m_row[r] = m[at];
+    linv_row[r] = lr == 0.f ? 1.f : 1.f / lr;
+    di_row[r] = di[at];
+#pragma unroll
+    for (int c = 0; c < HO / 16; ++c) acc[r][c] = 0.f;
+  }
+
+  const int k_end = causal ? min(tk, q0 + kTile + offset) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    load_tile<T, HO, HD>(Ks, kb + c0, k0, tk, tid);
+    load_key_validity(valid, mask_row, k0, tk, tid);
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < HD; c += kTile) {
+      if (c) __syncthreads();
+      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
+      load_tile<T, kTile, HD>(dOc, dob + c, q0, tq, tid);
+      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
+      load_tile<T, kTile, HD>(Vc, vb + c, k0, tk, tid);
+      __syncthreads();
+      gemm_nt_add(Qc, Kc, ty, tx, s);
+      gemm_nt_add(dOc, Vc, ty, tx, dp);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jc = tx + 16 * c;
+        const bool ok = row_ok[r] && valid[jc] > 0.f &&
+                        (!causal || k0 + jc <= row + offset);
+        const float p =
+            ok ? expf(s[r][c] * scale - m_row[r]) * linv_row[r] : 0.f;
+        dSs[(ty + 16 * r) * kLdp + jc] = p * (dp[r][c] - di_row[r]);
+      }
+    }
+    __syncthreads();
+    gemm_nn<HO>(dSs, Ks, ty, tx, acc);
+  }
+
+  const float mul[4] = {scale, scale, scale, scale};
+  store_rows<T, HO, HD>(dq + (size_t)bn * tq * HD + c0, acc, mul, q0, tq, ty,
+                        tx);
+}
+
+// K3b
+template <typename T, int HD, int HO>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_cols_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ l,
+                              const float* __restrict__ m,
+                              const float* __restrict__ di,
+                              const float* __restrict__ kv_mask,
+                              T* __restrict__ dk, T* __restrict__ dv, int tq,
+                              int tk, int n_heads, float scale, int causal) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kLdo = HO + kPad;
+  float* Kc = smem;                  // 64-column chunks of k, v, q, do
+  float* Vc = Kc + kTile * kLdp;
+  float* Qc = Vc + kTile * kLdp;
+  float* dOc = Qc + kTile * kLdp;
+  float* Qs = dOc + kTile * kLdp;    // the block's HO columns of q and do
+  float* dOs = Qs + kTile * kLdo;
+  float* Pt = dOs + kTile * kLdo;    // [key][query]
+  float* dSt = Pt + kTile * kLdp;    // [key][query]
+  float* m_s = dSt + kTile * kLdp;   // per query of the tile
+  float* linv_s = m_s + kTile;
+  float* di_s = linv_s + kTile;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bn = blockIdx.x, k0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
+  const T* qb = q + (size_t)bn * tq * HD;
+  const T* dob = dout + (size_t)bn * tq * HD;
+  const T* kb = k + (size_t)bn * tk * HD;
+  const T* vb = v + (size_t)bn * tk * HD;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  bool key_ok[4];
+  float dk_acc[4][HO / 16], dv_acc[4][HO / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + ty + 16 * r;
+    key_ok[r] =
+        key < tk && (mask_row == nullptr || mask_row[key] > 0.f);
+#pragma unroll
+    for (int c = 0; c < HO / 16; ++c) {
+      dk_acc[r][c] = 0.f;
+      dv_acc[r][c] = 0.f;
+    }
+  }
+
+  int q_begin = 0;
+  if (causal && k0 - offset > 0) q_begin = (k0 - offset) / kTile * kTile;
+  for (int q0 = q_begin; q0 < tq; q0 += kTile) {
+    __syncthreads();
+    load_tile<T, HO, HD>(Qs, qb + c0, q0, tq, tid);
+    load_tile<T, HO, HD>(dOs, dob + c0, q0, tq, tid);
+    if (tid < kTile) {
+      const int row = q0 + tid;
+      const size_t at = (size_t)bn * tq + (row < tq ? row : 0);
+      const float lr = l[at];
+      m_s[tid] = m[at];
+      linv_s[tid] = lr == 0.f ? 1.f : 1.f / lr;
+      di_s[tid] = di[at];
+    }
+    float st[4][4] = {}, dpt[4][4] = {};  // [key r][query c]
+    for (int c = 0; c < HD; c += kTile) {
+      if (c) __syncthreads();
+      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
+      load_tile<T, kTile, HD>(Vc, vb + c, k0, tk, tid);
+      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
+      load_tile<T, kTile, HD>(dOc, dob + c, q0, tq, tid);
+      __syncthreads();
+      gemm_nt_add(Kc, Qc, ty, tx, st);
+      gemm_nt_add(Vc, dOc, ty, tx, dpt);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = k0 + ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jc = tx + 16 * c;
+        const int row = q0 + jc;
+        const bool ok =
+            key_ok[r] && row < tq && (!causal || key <= row + offset);
+        const float p =
+            ok ? expf(st[r][c] * scale - m_s[jc]) * linv_s[jc] : 0.f;
+        Pt[(ty + 16 * r) * kLdp + jc] = p;
+        dSt[(ty + 16 * r) * kLdp + jc] = p * (dpt[r][c] - di_s[jc]);
+      }
+    }
+    __syncthreads();
+    gemm_nn<HO>(Pt, dOs, ty, tx, dv_acc);
+    gemm_nn<HO>(dSt, Qs, ty, tx, dk_acc);
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  const float mul[4] = {scale, scale, scale, scale};
+  store_rows<T, HO, HD>(dv + (size_t)bn * tk * HD + c0, dv_acc, one, k0, tk,
+                        ty, tx);
+  store_rows<T, HO, HD>(dk + (size_t)bn * tk * HD + c0, dk_acc, mul, k0, tk,
+                        ty, tx);
+}
+
 constexpr size_t fwd_smem(int hd) {
   return sizeof(float) * (3 * kTile * (hd + kPad) + kTile * kLdp + kTile);
 }
@@ -562,38 +900,116 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// the _cols kernels' shared memory at HO output columns a block
+constexpr size_t fwd_cols_smem(int ho) {
+  return sizeof(float) * (3 * kTile * kLdp + kTile * (ho + kPad) + kTile);
+}
+constexpr size_t dq_cols_smem(int ho) {
+  return sizeof(float) *
+         (5 * kTile * kLdp + kTile * (ho + kPad) + kTile);
+}
+constexpr size_t dkv_cols_smem(int ho) {
+  return sizeof(float) *
+         (6 * kTile * kLdp + 2 * kTile * (ho + kPad) + 3 * kTile);
+}
+
+inline dim3 col_tiles(int bn, int t, int halves) {
+  return dim3(bn, (t + kTile - 1) / kTile, halves);
+}
+
+template <typename T, int HD, int HO = 128>
+cudaError_t launch_fwd_cols(const void* q, const void* k, const void* v,
+                            const void* kv_mask, void* o, void* l, void* m,
+                            int bn, int tq, int tk, int n_heads, float scale,
+                            int causal, cudaStream_t stream) {
+  constexpr size_t kSmem = fwd_cols_smem(HO);
+  const cudaError_t err = allow_smem<flash_fwd_cols_kernel<T, HD, HO>>(kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_cols_kernel<T, HD, HO>
+      <<<col_tiles(bn, tq, HD / HO), kThreads, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask,
+          (T*)o, (float*)l, (float*)m, tq, tk, n_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, int HO = 128>
+cudaError_t launch_dq_cols(const void* q, const void* k, const void* v,
+                           const void* dout, const void* l, const void* m,
+                           const void* di, const void* kv_mask, void* dq,
+                           int bn, int tq, int tk, int n_heads, float scale,
+                           int causal, cudaStream_t stream) {
+  constexpr size_t kSmem = dq_cols_smem(HO);
+  const cudaError_t err =
+      allow_smem<flash_bwd_dq_cols_kernel<T, HD, HO>>(kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_cols_kernel<T, HD, HO>
+      <<<col_tiles(bn, tq, HD / HO), kThreads, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+          (const float*)l, (const float*)m, (const float*)di,
+          (const float*)kv_mask, (T*)dq, tq, tk, n_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, int HO = 128>
+cudaError_t launch_dkv_cols(const void* q, const void* k, const void* v,
+                            const void* dout, const void* l, const void* m,
+                            const void* di, const void* kv_mask, void* dk,
+                            void* dv, int bn, int tq, int tk, int n_heads,
+                            float scale, int causal, cudaStream_t stream) {
+  constexpr size_t kSmem = dkv_cols_smem(HO);
+  const cudaError_t err =
+      allow_smem<flash_bwd_dkv_cols_kernel<T, HD, HO>>(kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_cols_kernel<T, HD, HO>
+      <<<col_tiles(bn, tk, HD / HO), kThreads, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+          (const float*)l, (const float*)m, (const float*)di,
+          (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale,
+          causal);
+  return cudaGetLastError();
+}
+
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
 
 }  // namespace
 
-// the bfloat16 kernels on the tensor cores, at `panels` = head size / 64,
-// 1 or 2 (flash_attention_fwd.cu, flash_attention_bwd.cu)
-cudaError_t flash_fwd_bf16(int panels, const void* q, const void* k, const void* v,
-                           const void* kv_mask, void* o, void* l, void* m,
-                           int bn, int tq, int tk, int n_heads, float scale,
-                           int causal, cudaStream_t stream);
-cudaError_t flash_bwd_dkv_bf16(int panels, const void* q, const void* k, const void* v,
-                               const void* dout, const void* l, const void* m,
-                               const void* di, const void* kv_mask, void* dk,
-                               void* dv, int bn, int tq, int tk, int n_heads,
-                               float scale, int causal, cudaStream_t stream);
-cudaError_t flash_bwd_dq_bf16(int panels, const void* q, const void* k, const void* v,
-                              const void* dout, const void* l, const void* m,
-                              const void* di, const void* kv_mask, void* dq,
-                              int bn, int tq, int tk, int n_heads, float scale,
-                              int causal, cudaStream_t stream);
+// the bfloat16 (f16 = 0) and float16 (f16 = 1) kernels on the tensor
+// cores, at `panels` = head size / 64, 1, 2 or 4 (flash_attention_fwd.cu,
+// flash_attention_bwd.cu)
+cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
+                         const void* v, const void* kv_mask, void* o, void* l,
+                         void* m, int bn, int tq, int tk, int n_heads,
+                         float scale, int causal, cudaStream_t stream);
+cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
+                             const void* k, const void* v, const void* dout,
+                             const void* l, const void* m, const void* di,
+                             const void* kv_mask, void* dk, void* dv, int bn,
+                             int tq, int tk, int n_heads, float scale,
+                             int causal, cudaStream_t stream);
+cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
+                            const void* k, const void* v, const void* dout,
+                            const void* l, const void* m, const void* di,
+                            const void* kv_mask, void* dq, int bn, int tq,
+                            int tk, int n_heads, float scale, int causal,
+                            cudaStream_t stream);
 
-// dtype: 0 float32, 1 bfloat16; h: 64 or 128. Anything else is refused
-// with cudaErrorInvalidValue. Empty problems launch nothing. float32 takes
-// this file's kernels (LAUNCH), bfloat16 the tensor-core ones (BF16).
-#define FLASH_DISPATCH(LAUNCH, BF16, ...)                                    \
+// dtype: 0 float32, 1 bfloat16, 2 float16; h: 64, 128 or 256. Anything
+// else is refused with cudaErrorInvalidValue. Empty problems launch
+// nothing. float32 takes this file's kernels (LAUNCH at 64 and 128, COLS
+// at 256), bfloat16 and float16 the tensor-core ones (TC).
+#define FLASH_DISPATCH(LAUNCH, COLS, TC, ...)                                \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
   if (dtype == kFloat32 && h == 128)                                         \
     return (int)LAUNCH<float, 128>(__VA_ARGS__);                             \
-  if (dtype == kBFloat16 && (h == 64 || h == 128))                           \
-    return (int)BF16(h / 64, __VA_ARGS__);                                   \
+  if (dtype == kFloat32 && h == 256)                                         \
+    return (int)COLS<float, 256>(__VA_ARGS__);                               \
+  if ((dtype == kBFloat16 || dtype == kFloat16) &&                           \
+      (h == 64 || h == 128 || h == 256))                                     \
+    return (int)TC(dtype == kFloat16, h / 64, __VA_ARGS__);                  \
   return (int)cudaErrorInvalidValue;
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -601,8 +1017,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int bn, int tq, int tk, int h, int n_heads,
                          float scale, int causal, int dtype, void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_fwd, flash_fwd_bf16, q, k, v, kv_mask, o, l, m, bn,
-                 tq, tk, n_heads, scale, causal, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_fwd, launch_fwd_cols, flash_fwd_tc, q, k, v, kv_mask,
+                 o, l, m, bn, tq, tk, n_heads, scale, causal,
+                 (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -612,9 +1029,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int n_heads, float scale, int causal, int dtype,
                              void* stream) {
   if (bn == 0 || tk == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dkv, flash_bwd_dkv_bf16, q, k, v, dout, l, m, di,
-                 kv_mask, dk, dv, bn, tq, tk, n_heads, scale, causal,
-                 (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_dkv, launch_dkv_cols, flash_bwd_dkv_tc, q, k, v,
+                 dout, l, m, di, kv_mask, dk, dv, bn, tq, tk, n_heads, scale,
+                 causal, (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -624,8 +1041,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int causal, int dtype,
                             void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dq, flash_bwd_dq_bf16, q, k, v, dout, l, m, di,
-                 kv_mask, dq, bn, tq, tk, n_heads, scale, causal,
+  FLASH_DISPATCH(launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v, dout,
+                 l, m, di, kv_mask, dq, bn, tq, tk, n_heads, scale, causal,
                  (cudaStream_t)stream)
 }
 

@@ -1,7 +1,7 @@
-// The flash attention backward kernels for bf16 operands, on the H100's
-// tensor cores. Second source of the flash_attention library;
-// flash_attention.cu holds the C interface, which sends bfloat16 here and
-// float32 to its own FMA kernels.
+// The flash attention backward kernels for bf16 and float16 operands, on
+// the H100's tensor cores. Second source of the flash_attention library;
+// flash_attention.cu holds the C interface, which sends bfloat16 and
+// float16 here and float32 to its own FMA kernels.
 //
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
@@ -11,8 +11,11 @@
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
 // tiles dq += ds k scale; the [b, tk] key mask shared by a batch item's
 // heads, the causal diagonal at the sequence end, exact zeros for a row or a
-// batch item with no valid key, any tq and tk, head size 64 or 128 (one or
-// two panels, a template parameter; the wrapper pads other sizes).
+// batch item with no valid key, any tq and tk, head size 64, 128 or 256
+// (one, two or four panels, a template parameter; the wrapper pads other
+// sizes). The operand type T (__nv_bfloat16 or __half) is the other
+// template parameter: it sets the rounding of p, ds and the outputs and
+// the wgmma instruction's type, nothing else.
 //
 // Bound: operations. At [128, 512, 64] dK/dV is four products of
 // 128 x 512 x 512 x 64 multiply-adds, 17.2 GFLOP, 17.4 us at the tensor
@@ -36,7 +39,7 @@
 // * Each warpgroup computes its 64 rows against the passing 64 with wgmma:
 //   the score tile and the do . v^T tile with both operands in shared
 //   memory, then p and ds on the accumulator fragments in registers,
-//   rounded to bf16 and fed straight back as the A operand of the second
+//   rounded to T and fed straight back as the A operand of the second
 //   products, whose other operand (dO, Q or K) is the same shared tile read
 //   along its rows. P and dS never touch shared memory. K3b computes the
 //   transposed score tile (keys by queries) so that p^T and ds^T are those
@@ -68,8 +71,23 @@
 // * Loads (row statistics, the mask) are started before the copies: a load
 //   queued behind 64 KB of cp.async returns after them.
 // * Differs from the float32 kernels in one rounding: p and ds are rounded
-//   to bf16 before the second products, because a bf16 tensor-core product
-//   takes bf16 on both sides (flash_backward_plain states the same).
+//   to T before the second products, because a 16-bit tensor-core product
+//   takes the same type on both sides (flash_backward_plain states the
+//   same).
+// * Head size 256 (four panels). K3b cannot hold dK and dV in one
+//   warpgroup: 256 float32 registers a thread for them alone. So a block of
+//   K3b is two warpgroups over the same 64 keys, each accumulating two
+//   panels of dK and two of dV (128 registers, as one warpgroup at 128).
+//   The score and do . v^T tiles are computed once, each by one warpgroup
+//   over the whole head (warpgroup 0 S^T, warpgroup 1 dP^T): warpgroup 1
+//   hands its dP^T to warpgroup 0 through shared memory (16 KB, each thread
+//   its own fragment's slots), warpgroup 0 computes p and ds and hands them
+//   back rounded to T, and both then run the second products on their own
+//   panels; two barriers a step. K3c at 256 keeps one warpgroup a block:
+//   its dQ is four panels, 128 registers, beside S, dP and dS (80), and two
+//   warpgroups on different rows would need 128 KB for their own Q and dO
+//   tiles before any passing tile. K3b and K3c then have two stages, not
+//   three, in shared memory (210 KB and 194 KB).
 //
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
 // chip_smoke.py prints):
@@ -87,10 +105,11 @@
 //   The other way to hold the accumulators, two warpgroups sharing the
 //   block's 64 keys and splitting the head's panels, would compute the
 //   score and do . v^T tiles twice (the tensor cores' work 1.5 times over)
-//   and the softmax twice. K3c keeps two warpgroups, 163 KB: one block an
+//   and the softmax twice, or hand them over as at 256. K3c keeps two warpgroups, 163 KB: one block an
 //   SM, 166 registers, no spills.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,20 +120,33 @@ namespace {
 using namespace flash_tiles;
 
 // warpgroups a block, and blocks an SM the compiler fits the registers to,
-// by head panels
-constexpr int kDkvGroups = 1;
-constexpr int kDqGroups = 2;
+// by head panels: K3b's warpgroups split the head's panels over the same
+// 64 keys, K3c's own 64 query rows each
+__host__ __device__ constexpr int dkv_groups(int panels) {
+  return panels == 4 ? 2 : 1;
+}
+__host__ __device__ constexpr int dq_groups(int panels) {
+  return panels == 4 ? 1 : 2;
+}
 constexpr int dkv_blocks(int panels) { return panels == 1 ? 3 : 1; }
 constexpr int dq_blocks(int panels) { return panels == 1 ? 2 : 1; }
-constexpr int kStages = 3;                    // ring of passing tiles
+// the ring of passing tiles
+__host__ __device__ constexpr int stages(int panels) {
+  return panels == 4 ? 2 : 3;
+}
 constexpr int kRowsBytes = 2 * kTileRows * 4; // per-row floats of a stage
+// K3b's hand-over between its two warpgroups: a [64 x 64] float32 tile, 32
+// values a thread
+constexpr int kHandBytes = 128 * 32 * 4;
 
-// a block of `groups` warpgroups owns groups * 64 rows of two operands; a
-// stage holds two tiles
+// a block owns `own` tiles of two operands (own = its warpgroups for K3c,
+// 1 for K3b), a stage holds two tiles, and K3b's split panels add the
+// hand-over
 template <int kPanels>
-__host__ __device__ constexpr size_t smem_bytes(int groups) {
-  return 1024 + groups * 2 * tile_bytes<kPanels>() +
-         kStages * (2 * tile_bytes<kPanels>() + kRowsBytes) + 64;
+__host__ __device__ constexpr size_t smem_bytes(int own, int hand) {
+  return 1024 + own * 2 * tile_bytes<kPanels>() +
+         stages(kPanels) * (2 * tile_bytes<kPanels>() + kRowsBytes) + hand +
+         64;
 }
 
 struct RowStats {
@@ -122,20 +154,18 @@ struct RowStats {
 };
 
 // K3c: dq for the block's query rows over all key tiles
-template <int kPanels>
-__global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
-    flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
+template <typename T, int kPanels>
+__global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
+    flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ l,
                            const float* __restrict__ m,
                            const float* __restrict__ di,
                            const float* __restrict__ kv_mask,
-                           __nv_bfloat16* __restrict__ dq, int tq, int tk,
-                           int n_heads, float scale, int causal) {
-  constexpr int kGroups = kDqGroups, kThreads = 128 * kGroups,
-                kOwned = kTileRows * kGroups;
+                           T* __restrict__ dq, int tq, int tk, int n_heads,
+                           float scale, int causal) {
+  constexpr int kGroups = dq_groups(kPanels), kThreads = 128 * kGroups,
+                kOwned = kTileRows * kGroups, kStages = stages(kPanels);
   constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
                 kStageBytes = 2 * kTile;
   extern __shared__ uint8_t smem_raw[];
@@ -149,8 +179,8 @@ __global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
 
   const Lanes at;
   const int bn = blockIdx.x, q0 = blockIdx.y * kOwned;
-  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHd;
-  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHd;
+  const T* kb = k + (size_t)bn * tk * kHd;
+  const T* vb = v + (size_t)bn * tk * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -210,8 +240,7 @@ __global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
     cp_async_commit();  // an empty group keeps the count of groups in step
   };
 
-  stage_step(0);
-  stage_step(1);
+  for (int step = 0; step < kStages - 1; ++step) stage_step(step);
 
   const float lse2[2] = {exponent_offset(stats[0].m, stats[0].l),
                          exponent_offset(stats[1].m, stats[1].l)};
@@ -246,8 +275,8 @@ __global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
 
     float s[32], dp[32];
     products_begin();
-    product_nt<kPanels>(s, q_s + at.group * kTile, k_s);
-    product_nt<kPanels>(dp, do_s + at.group * kTile, v_s);
+    product_nt<T, kPanels>(s, q_s + at.group * kTile, k_s);
+    product_nt<T, kPanels>(dp, do_s + at.group * kTile, v_s);
     products_end();
     keep_registers(s);
     keep_registers(dp);
@@ -288,12 +317,12 @@ __global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
       }
     }
     uint32_t ds[4][4];
-    pack_a_fragments(s, ds);
+    pack_a_fragments<T>(s, ds);
 
     products_begin();
 #pragma unroll
     for (int p = 0; p < kPanels; ++p)
-      product_tn(acc[p], ds, k_s + p * kPanelBytes);
+      product_tn<T>(acc[p], ds, k_s + p * kPanelBytes);
     products_end();
     keep_registers(ds);
 #pragma unroll
@@ -314,37 +343,48 @@ __global__ void __launch_bounds__(128 * kDqGroups, dq_blocks(kPanels))
 }
 
 // K3b: dk, dv for the block's 64 keys over all query tiles
-template <int kPanels>
-__global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
-    flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
+template <typename T, int kPanels>
+__global__ void __launch_bounds__(128 * dkv_groups(kPanels),
+                                  dkv_blocks(kPanels))
+    flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
                             const float* __restrict__ l,
                             const float* __restrict__ m,
                             const float* __restrict__ di,
                             const float* __restrict__ kv_mask,
-                            __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int tq, int tk,
-                            int n_heads, float scale, int causal) {
-  static_assert(kDkvGroups == 1, "one warpgroup owns the block's keys");
-  constexpr int kThreads = 128;
+                            T* __restrict__ dk, T* __restrict__ dv, int tq,
+                            int tk, int n_heads, float scale, int causal) {
+  // kGroups warpgroups over the same 64 keys, each accumulating kOwn of
+  // the head's panels of dK and dV
+  constexpr int kGroups = dkv_groups(kPanels), kOwn = kPanels / kGroups;
+  constexpr int kThreads = 128 * kGroups, kStages = stages(kPanels);
   constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
                 kStageBytes = 2 * kTile;
+  constexpr int kHand = kGroups > 1 ? kHandBytes : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t k_s = smem_u32(smem);
   const uint32_t v_s = k_s + kTile;
   const uint32_t ring = k_s + 2 * kTile;
+  // the hand-over between split warpgroups: [value of the fragment][thread
+  // of the warpgroup], 32 words a thread
+  uint32_t* hand_s = reinterpret_cast<uint32_t*>(smem + 2 * kTile +
+                                                 kStages * kStageBytes);
   // [stage][exponent offset, di][query of the tile]
   float* rows_s = reinterpret_cast<float*>(smem + 2 * kTile +
-                                           kStages * kStageBytes);
+                                           kStages * kStageBytes + kHand);
   int* flags_s = reinterpret_cast<int*>(rows_s + kStages * 2 * kTileRows);
 
   const Lanes at;
+  // the warpgroup, the thread's place in it and its first own panel (with
+  // one warpgroup constants, as the kernel had before the split)
+  const int group = kGroups == 1 ? 0 : at.group;
+  const int in_group = kGroups == 1 ? at.tid : at.tid & 127;
+  const int panel0 = group * kOwn;
   const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
-  const __nv_bfloat16* qb = q + (size_t)bn * tq * kHd;
-  const __nv_bfloat16* dob = dout + (size_t)bn * tq * kHd;
+  const T* qb = q + (size_t)bn * tq * kHd;
+  const T* dob = dout + (size_t)bn * tq * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -365,8 +405,8 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
     cp_async_commit();
   };
 
-  // The per-row statistics of a passing tile, read by 64 threads two steps
-  // ahead (load_rows), turned into the exponent offset and di, and put in
+  // The per-row statistics of a passing tile, read by 64 threads kStages - 1
+  // steps ahead (load_rows), turned into the exponent offset and di, put in
   // the stage's array at the end of the step (store_rows): the products in
   // between hide the loads.
   auto load_rows = [&](int step) {
@@ -412,8 +452,10 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
     keys_all &= flags_s[w] & 2;
   }
   if (!keys_any) {  // no key of the block takes part: zeros, nothing read
-    store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, at.tid);
-    store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, k0, tk, at.tid);
+    if (group == 0) {
+      store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, in_group);
+      store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, k0, tk, in_group);
+    }
     return;
   }
 
@@ -421,16 +463,16 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
                                            k0, tk, at.tid);
   stage_rows<kTileRows, kThreads, kPanels>(v_s, v + (size_t)bn * tk * kHd,
                                            k0, tk, at.tid);
-  stage_step(0);
-  stage_step(1);
+  for (int step = 0; step < kStages - 1; ++step) stage_step(step);
   store_rows(0, rows0);
-  store_rows(1, rows1);
+  if (kStages > 2) store_rows(1, rows1);
   const float scale2 = scale * kLog2e;
 
-  // dK and dV: one [64 x 64] accumulator a panel each
-  float dk_acc[kPanels][32], dv_acc[kPanels][32];
+  // dK and dV: one [64 x 64] accumulator a panel each, of the warpgroup's
+  // own panels
+  float dk_acc[kOwn][32], dv_acc[kOwn][32];
 #pragma unroll
-  for (int p = 0; p < kPanels; ++p)
+  for (int p = 0; p < kOwn; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
@@ -450,17 +492,38 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
 
       float st[32], dpt[32];  // [key][query]
       products_begin();
-      product_nt<kPanels>(st, k_s, q_s);
-      product_nt<kPanels>(dpt, v_s, do_s);
+      if (kGroups == 1) {
+        product_nt<T, kPanels>(st, k_s, q_s);
+        product_nt<T, kPanels>(dpt, v_s, do_s);
+      } else if (group == 0) {
+        product_nt<T, kPanels>(st, k_s, q_s);
+      } else {
+        product_nt<T, kPanels>(dpt, v_s, do_s);
+      }
       products_end();
-      keep_registers(st);
-      keep_registers(dpt);
+      if (kGroups == 1 || group == 0) keep_registers(st);
+      if (kGroups == 1 || group == 1) keep_registers(dpt);
+      if (kGroups > 1) {  // warpgroup 1's dP^T to warpgroup 0
+        if (group == 1) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            hand_s[i * 128 + in_group] = __float_as_uint(dpt[i]);
+        }
+        __syncthreads();
+        if (group == 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            dpt[i] = __uint_as_float(hand_s[i * 128 + in_group]);
+        }
+      }
 
       // every pair of the tile takes part: no test per element
       const bool unmasked =
           keys_all && q0 + kTileRows <= tq &&
           (!causal || k0 + kTileRows - 1 <= q0 + offset);
-      if (unmasked) {
+      // p and ds: by the one warpgroup, or by warpgroup 0 of two
+      const bool softmax_here = kGroups == 1 || group == 0;
+      if (softmax_here && unmasked) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float2 lse2 =
@@ -475,7 +538,7 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
             dpt[i] = p * (dpt[i] - (i & 1 ? di_r.y : di_r.x));  // ds
           }
         }
-      } else {
+      } else if (softmax_here) {
         // the first query row each of the thread's keys is seen by
         int first_row[2];
 #pragma unroll
@@ -499,20 +562,40 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
         }
       }
       uint32_t pt[4][4], dst[4][4];
-      pack_a_fragments(st, pt);
-      pack_a_fragments(dpt, dst);
+      if (softmax_here) {
+        pack_a_fragments<T>(st, pt);
+        pack_a_fragments<T>(dpt, dst);
+      }
+      if (kGroups > 1) {  // p and ds, rounded, over to warpgroup 1
+        if (group == 0) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            hand_s[i * 128 + in_group] = pt[i / 4][i % 4];
+            hand_s[(16 + i) * 128 + in_group] = dst[i / 4][i % 4];
+          }
+        }
+        __syncthreads();
+        if (group == 1) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            pt[i / 4][i % 4] = hand_s[i * 128 + in_group];
+            dst[i / 4][i % 4] = hand_s[(16 + i) * 128 + in_group];
+          }
+        }
+      }
 
       products_begin();
 #pragma unroll
-      for (int p = 0; p < kPanels; ++p) {
-        product_tn(dv_acc[p], pt, do_s + p * kPanelBytes);
-        product_tn(dk_acc[p], dst, q_s + p * kPanelBytes);
+      for (int p = 0; p < kOwn; ++p) {
+        const int panel = panel0 + p;
+        product_tn<T>(dv_acc[p], pt, do_s + panel * kPanelBytes);
+        product_tn<T>(dk_acc[p], dst, q_s + panel * kPanelBytes);
       }
       products_end();
       keep_registers(pt);
       keep_registers(dst);
 #pragma unroll
-      for (int p = 0; p < kPanels; ++p) {
+      for (int p = 0; p < kOwn; ++p) {
         keep_registers(dv_acc[p]);
         keep_registers(dk_acc[p]);
       }
@@ -525,15 +608,17 @@ __global__ void __launch_bounds__(128 * kDkvGroups, dkv_blocks(kPanels))
     __syncthreads();
   }
   // the block's own K and V tiles are read no more: panel p of dV leaves
-  // through panel p of K, and of dK through panel p of V
+  // through panel p of K, and of dK through panel p of V, each warpgroup's
+  // own panels under its own named barrier
 #pragma unroll
-  for (int p = 0; p < kPanels; ++p) {
-    store_accumulator<kHd>(dv + (size_t)bn * tk * kHd + p * kPanelCols,
-                           smem + p * kPanelBytes, dv_acc[p], 1.f, k0, tk, 1,
-                           at.tid);
-    store_accumulator<kHd>(dk + (size_t)bn * tk * kHd + p * kPanelCols,
-                           smem + kTile + p * kPanelBytes, dk_acc[p], scale,
-                           k0, tk, 1, at.tid);
+  for (int p = 0; p < kOwn; ++p) {
+    const int panel = panel0 + p;
+    store_accumulator<kHd>(dv + (size_t)bn * tk * kHd + panel * kPanelCols,
+                           smem + panel * kPanelBytes, dv_acc[p], 1.f, k0,
+                           tk, 1 + group, in_group);
+    store_accumulator<kHd>(dk + (size_t)bn * tk * kHd + panel * kPanelCols,
+                           smem + kTile + panel * kPanelBytes, dk_acc[p],
+                           scale, k0, tk, 1 + group, in_group);
   }
 }
 
@@ -560,13 +645,13 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
   for (int i = 0; i < 32; ++i) second[i] = 0.f;
   products_begin();
-  product_nt<1>(first, x_s + at.group * kPanelBytes, y_s);
+  product_nt<__nv_bfloat16, 1>(first, x_s + at.group * kPanelBytes, y_s);
   products_end();
   keep_registers(first);
   uint32_t a[4][4];
-  pack_a_fragments(first, a);
+  pack_a_fragments<__nv_bfloat16>(first, a);
   products_begin();
-  product_tn(second, a, y_s);
+  product_tn<__nv_bfloat16>(second, a, y_s);
   products_end();
   keep_registers(a);
   keep_registers(second);
@@ -586,85 +671,123 @@ inline dim3 owned_tiles(int bn, int t, int groups) {
   return dim3(bn, (t + owned - 1) / owned);
 }
 
-template <int kPanels>
+template <typename T, int kPanels>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* l, const void* m,
                        const void* di, const void* kv_mask, void* dk,
                        void* dv, int bn, int tq, int tk, int n_heads,
                        float scale, int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<kPanels>(kDkvGroups);
+  constexpr int kGroups = dkv_groups(kPanels);
+  constexpr size_t kSmem =
+      smem_bytes<kPanels>(1, kGroups > 1 ? kHandBytes : 0);
   const cudaError_t err =
-      allow_smem<flash_bwd_dkv_tc_kernel<kPanels>>(kSmem);
+      allow_smem<flash_bwd_dkv_tc_kernel<T, kPanels>>(kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_tc_kernel<kPanels>
-      <<<owned_tiles(bn, tk, kDkvGroups), 128 * kDkvGroups, kSmem, stream>>>(
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-          (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+  // the block's warpgroups share its 64 keys
+  flash_bwd_dkv_tc_kernel<T, kPanels>
+      <<<owned_tiles(bn, tk, 1), 128 * kGroups, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
           (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, tq,
-          tk, n_heads, scale, causal);
+          (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale,
+          causal);
   return cudaGetLastError();
 }
 
-template <int kPanels>
+template <typename T, int kPanels>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* l, const void* m,
                       const void* di, const void* kv_mask, void* dq, int bn,
                       int tq, int tk, int n_heads, float scale, int causal,
                       cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<kPanels>(kDqGroups);
-  const cudaError_t err = allow_smem<flash_bwd_dq_tc_kernel<kPanels>>(kSmem);
+  constexpr int kGroups = dq_groups(kPanels);
+  constexpr size_t kSmem = smem_bytes<kPanels>(kGroups, 0);
+  const cudaError_t err =
+      allow_smem<flash_bwd_dq_tc_kernel<T, kPanels>>(kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_tc_kernel<kPanels>
-      <<<owned_tiles(bn, tq, kDqGroups), 128 * kDqGroups, kSmem, stream>>>(
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-          (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+  flash_bwd_dq_tc_kernel<T, kPanels>
+      <<<owned_tiles(bn, tq, kGroups), 128 * kGroups, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
           (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (__nv_bfloat16*)dq, tq, tk, n_heads, scale,
-          causal);
+          (const float*)kv_mask, (T*)dq, tq, tk, n_heads, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dkv_panels(int panels, const void* q, const void* k,
+                       const void* v, const void* dout, const void* l,
+                       const void* m, const void* di, const void* kv_mask,
+                       void* dk, void* dv, int bn, int tq, int tk,
+                       int n_heads, float scale, int causal,
+                       cudaStream_t stream) {
+  if (panels == 1)
+    return launch_dkv<T, 1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
+                            tq, tk, n_heads, scale, causal, stream);
+  if (panels == 2)
+    return launch_dkv<T, 2>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
+                            tq, tk, n_heads, scale, causal, stream);
+  if (panels == 4)
+    return launch_dkv<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
+                            tq, tk, n_heads, scale, causal, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dq_panels(int panels, const void* q, const void* k,
+                      const void* v, const void* dout, const void* l,
+                      const void* m, const void* di, const void* kv_mask,
+                      void* dq, int bn, int tq, int tk, int n_heads,
+                      float scale, int causal, cudaStream_t stream) {
+  if (panels == 1)
+    return launch_dq<T, 1>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
+                           n_heads, scale, causal, stream);
+  if (panels == 2)
+    return launch_dq<T, 2>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
+                           n_heads, scale, causal, stream);
+  if (panels == 4)
+    return launch_dq<T, 4>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
+                           n_heads, scale, causal, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// panels: the head size over 64, 1 or 2
-cudaError_t flash_bwd_dkv_bf16(int panels, const void* q, const void* k,
-                               const void* v, const void* dout, const void* l,
-                               const void* m, const void* di,
-                               const void* kv_mask, void* dk, void* dv,
-                               int bn, int tq, int tk, int n_heads,
-                               float scale, int causal, cudaStream_t stream) {
-  if (panels == 1)
-    return launch_dkv<1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn, tq,
-                         tk, n_heads, scale, causal, stream);
-  if (panels == 2)
-    return launch_dkv<2>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn, tq,
-                         tk, n_heads, scale, causal, stream);
-  return cudaErrorInvalidValue;
+// f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
+// 2 or 4
+cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
+                             const void* k, const void* v, const void* dout,
+                             const void* l, const void* m, const void* di,
+                             const void* kv_mask, void* dk, void* dv, int bn,
+                             int tq, int tk, int n_heads, float scale,
+                             int causal, cudaStream_t stream) {
+  if (f16)
+    return dkv_panels<__half>(panels, q, k, v, dout, l, m, di, kv_mask, dk,
+                              dv, bn, tq, tk, n_heads, scale, causal, stream);
+  return dkv_panels<__nv_bfloat16>(panels, q, k, v, dout, l, m, di, kv_mask,
+                                   dk, dv, bn, tq, tk, n_heads, scale, causal,
+                                   stream);
 }
 
-cudaError_t flash_bwd_dq_bf16(int panels, const void* q, const void* k,
-                              const void* v, const void* dout, const void* l,
-                              const void* m, const void* di,
-                              const void* kv_mask, void* dq, int bn, int tq,
-                              int tk, int n_heads, float scale, int causal,
-                              cudaStream_t stream) {
-  if (panels == 1)
-    return launch_dq<1>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
-                        n_heads, scale, causal, stream);
-  if (panels == 2)
-    return launch_dq<2>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
-                        n_heads, scale, causal, stream);
-  return cudaErrorInvalidValue;
+cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
+                            const void* k, const void* v, const void* dout,
+                            const void* l, const void* m, const void* di,
+                            const void* kv_mask, void* dq, int bn, int tq,
+                            int tk, int n_heads, float scale, int causal,
+                            cudaStream_t stream) {
+  if (f16)
+    return dq_panels<__half>(panels, q, k, v, dout, l, m, di, kv_mask, dq,
+                             bn, tq, tk, n_heads, scale, causal, stream);
+  return dq_panels<__nv_bfloat16>(panels, q, k, v, dout, l, m, di, kv_mask,
+                                  dq, bn, tq, tk, n_heads, scale, causal,
+                                  stream);
 }
 
 // x [128, 64], y [64, 64] bf16 -> nt, tn [128, 64] float32
 extern "C" int flash_tile_products(const void* x, const void* y, void* nt,
                                    void* tn, void* stream) {
   const cudaError_t err =
-      allow_smem<flash_tile_products_kernel>(smem_bytes<1>(2));
+      allow_smem<flash_tile_products_kernel>(smem_bytes<1>(2, 0));
   if (err != cudaSuccess) return (int)err;
-  flash_tile_products_kernel<<<1, 256, smem_bytes<1>(2),
+  flash_tile_products_kernel<<<1, 256, smem_bytes<1>(2, 0),
                                (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, (float*)nt,
       (float*)tn);

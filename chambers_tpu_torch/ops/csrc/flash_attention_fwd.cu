@@ -1,20 +1,22 @@
-// The flash attention forward kernel for bf16 operands, on the H100's
-// tensor cores. Third source of the flash_attention library;
-// flash_attention.cu holds the C interface, which sends bfloat16 here and
-// float32 to its own FMA kernel.
+// The flash attention forward kernel for bf16 and float16 operands, on the
+// H100's tensor cores. Third source of the flash_attention library;
+// flash_attention.cu holds the C interface, which sends bfloat16 and
+// float16 here and float32 to its own FMA kernels.
 //
 // Replaces the Pallas TPU kernel of chambers_tpu/ops/flash_attention.py:
 //   flash_fwd_tc_kernel  <- _flash_forward / _flash_fwd_kernel  (K3a)
 // and computes what flash_attention.cu's note says it computes: per query
 // tile over all key tiles s = q k^T scale with float32 accumulation, a
 // running float32 max m, p = exp(s - m) zeroed where masked, l = sum p from
-// the unrounded p, p rounded to bf16 before p v, o = acc / l once at the
-// end; the [b, tk] key mask shared by a batch item's heads, the causal
-// diagonal at the sequence end, exact zeros in o and l and m at the mask
-// value for a row with no valid key, any tq and tk, head size 64 or 128
-// (one or two panels, a template parameter; the wrapper pads other sizes).
-// Returns o (bf16) and l, m (float32, natural units) for the backward
-// kernels.
+// the unrounded p, p rounded to the operand type before p v, o = acc / l
+// once at the end; the [b, tk] key mask shared by a batch item's heads, the
+// causal diagonal at the sequence end, exact zeros in o and l and m at the
+// mask value for a row with no valid key, any tq and tk, head size 64, 128
+// or 256 (one, two or four panels, a template parameter; the wrapper pads
+// other sizes). The operand type T (__nv_bfloat16 or __half) is the other
+// template parameter: it changes the rounding of p and the output and the
+// wgmma instruction's type, nothing else. Returns o (of T) and l, m
+// (float32, natural units) for the backward kernels.
 //
 // Bound: at [128, 512, 64] the forward is two products of
 // 128 x 512 x 512 x 64 multiply-adds, 8.6 GFLOP, 8.7 us at the tensor
@@ -31,13 +33,13 @@
 //   cp.async one step ahead of the products, with one __syncthreads a step
 //   (after it the step's tile is visible to all and the other stage has
 //   been read by all).
-// * At head size 128 the score product runs over both panels (eight k16
-//   steps) into one accumulator, and O is two [64 x 64] accumulators, one a
-//   panel, each fed the same P by its own four wgmma; the rescale, the
-//   final division and the epilogue loop over them.
+// * At head size 128 or 256 the score product runs over all panels (eight
+//   or sixteen k16 steps) into one accumulator, and O is two or four
+//   [64 x 64] accumulators, one a panel, each fed the same P by its own four
+//   wgmma; the rescale, the final division and the epilogue loop over them.
 // * Each warpgroup computes S = Q K^T for its 64 rows against the passing
 //   64 keys with wgmma (both operands in shared memory), runs the online
-//   softmax on the accumulator fragments in registers, rounds p to bf16 and
+//   softmax on the accumulator fragments in registers, rounds p to T and
 //   feeds it straight back as the A operand of O += P V, V read along its
 //   rows through the descriptor's transpose bit. P never touches shared
 //   memory. The row max comes from the thread's 16 values of the row and
@@ -71,6 +73,12 @@
 // 128: O doubles to 64 registers a thread and the tiles to 16 KB a row
 // block, 82 KB of shared memory: two blocks an SM by shared memory, and
 // __launch_bounds__ lets the registers grow past 128: 139, no spills.
+// Head size 256: one warpgroup still holds O, four panels of 32 float32
+// registers a thread, 128 of them beside the score tile's 32 and P's 16,
+// under the 255 a thread that one block an SM allows (__launch_bounds__
+// with 1): no need to split the panels across warpgroups, as K3b must.
+// Its tiles take 32 KB a row block, 162 KB of shared memory with the two
+// stages: one block an SM.
 //
 // What holds it back, as measured on an H100 (PERF.md section 6): at
 // [128, 512, 64] with the key mask it runs at a third of the bound above
@@ -88,6 +96,7 @@
 // the first copies are in flight.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -101,7 +110,9 @@ using namespace flash_tiles;
 // warpgroups a block, and blocks an SM the compiler fits the registers to,
 // by head panels
 constexpr int kGroups = 1;
-constexpr int blocks_per_sm(int panels) { return panels == 1 ? 4 : 2; }
+constexpr int blocks_per_sm(int panels) {
+  return panels == 1 ? 4 : panels == 2 ? 2 : 1;
+}
 constexpr int kStages = 2;                    // ring of passing tiles
 
 // K and V of a step
@@ -116,13 +127,12 @@ __host__ __device__ constexpr size_t smem_bytes() {
          kStages * (stage_bytes<kPanels>() + kTileRows * 4) + 4 * kGroups * 4;
 }
 
-template <int kPanels>
+template <typename T, int kPanels>
 __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
-    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
+    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
                         const float* __restrict__ kv_mask,
-                        __nv_bfloat16* __restrict__ o,
+                        T* __restrict__ o,
                         float* __restrict__ l_out, float* __restrict__ m_out,
                         int tq, int tk, int n_heads, float scale,
                         int causal) {
@@ -140,8 +150,8 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   const Lanes at;
   const int in_group = at.tid & 127;
   const int bn = blockIdx.x, q0 = blockIdx.y * kOwned;
-  const __nv_bfloat16* kb = k + (size_t)bn * tk * kHd;
-  const __nv_bfloat16* vb = v + (size_t)bn * tk * kHd;
+  const T* kb = k + (size_t)bn * tk * kHd;
+  const T* vb = v + (size_t)bn * tk * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -166,7 +176,7 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   float* l_rows = l_out + (size_t)bn * tq;
   float* m_rows = m_out + (size_t)bn * tq;
-  __nv_bfloat16* o_rows = o + (size_t)bn * tq * kHd;
+  T* o_rows = o + (size_t)bn * tq * kHd;
 
   if (steps == 0) {  // no key reaches the block: zeros, nothing read
     store_zero_rows<kHd>(o_rows, group_row0, tq, in_group);
@@ -238,7 +248,7 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
 
     float s[32];
     products_begin();
-    product_nt<kPanels>(s, q_s + at.group * kTile, k_s);
+    product_nt<T, kPanels>(s, q_s + at.group * kTile, k_s);
     products_end();
     keep_registers(s);
 
@@ -295,12 +305,12 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
       l_part[r] += s[i];
     }
     uint32_t p[4][4];
-    pack_a_fragments(s, p);
+    pack_a_fragments<T>(s, p);
 
     products_begin();
 #pragma unroll
     for (int panel = 0; panel < kPanels; ++panel)
-      product_tn(acc[panel], p, v_s + panel * kPanelBytes);
+      product_tn<T>(acc[panel], p, v_s + panel * kPanelBytes);
     products_end();
     keep_registers(p);
 #pragma unroll
@@ -333,37 +343,52 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   }
 }
 
-template <int kPanels>
+template <typename T, int kPanels>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, void* l, void* m, int bn,
                    int tq, int tk, int n_heads, float scale, int causal,
                    cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes<kPanels>();
-  const cudaError_t err = allow_smem<flash_fwd_tc_kernel<kPanels>>(kSmem);
+  const cudaError_t err = allow_smem<flash_fwd_tc_kernel<T, kPanels>>(kSmem);
   if (err != cudaSuccess) return err;
   constexpr int kOwned = kGroups * kTileRows;
-  flash_fwd_tc_kernel<kPanels>
+  flash_fwd_tc_kernel<T, kPanels>
       <<<dim3(bn, (tq + kOwned - 1) / kOwned), 128 * kGroups, kSmem,
-         stream>>>((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                   (const __nv_bfloat16*)v, (const float*)kv_mask,
-                   (__nv_bfloat16*)o, (float*)l, (float*)m, tq, tk, n_heads,
-                   scale, causal);
+         stream>>>((const T*)q, (const T*)k, (const T*)v,
+                   (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+                   tk, n_heads, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_panels(int panels, const void* q, const void* k,
+                          const void* v, const void* kv_mask, void* o,
+                          void* l, void* m, int bn, int tq, int tk,
+                          int n_heads, float scale, int causal,
+                          cudaStream_t stream) {
+  if (panels == 1)
+    return launch<T, 1>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
+                        scale, causal, stream);
+  if (panels == 2)
+    return launch<T, 2>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
+                        scale, causal, stream);
+  if (panels == 4)
+    return launch<T, 4>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
+                        scale, causal, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// panels: the head size over 64, 1 or 2
-cudaError_t flash_fwd_bf16(int panels, const void* q, const void* k,
-                           const void* v, const void* kv_mask, void* o,
-                           void* l, void* m, int bn, int tq, int tk,
-                           int n_heads, float scale, int causal,
-                           cudaStream_t stream) {
-  if (panels == 1)
-    return launch<1>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads, scale,
-                     causal, stream);
-  if (panels == 2)
-    return launch<2>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads, scale,
-                     causal, stream);
-  return cudaErrorInvalidValue;
+// f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
+// 2 or 4
+cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
+                         const void* v, const void* kv_mask, void* o, void* l,
+                         void* m, int bn, int tq, int tk, int n_heads,
+                         float scale, int causal, cudaStream_t stream) {
+  if (f16)
+    return launch_panels<__half>(panels, q, k, v, kv_mask, o, l, m, bn, tq,
+                                 tk, n_heads, scale, causal, stream);
+  return launch_panels<__nv_bfloat16>(panels, q, k, v, kv_mask, o, l, m, bn,
+                                      tq, tk, n_heads, scale, causal, stream);
 }

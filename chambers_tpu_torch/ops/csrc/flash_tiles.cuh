@@ -1,12 +1,18 @@
-// Device functions for the tensor-core flash attention kernels: bf16 tiles
-// in shared memory, the asynchronous copies that fill them, and the matrix
-// products over them. flash_attention_fwd.cu (K3a) and
+// Device functions for the tensor-core flash attention kernels: tiles of a
+// 16-bit type T in shared memory, the asynchronous copies that fill them,
+// and the matrix products over them. flash_attention_fwd.cu (K3a) and
 // flash_attention_bwd.cu (K3b, K3c) are built on these; allow_smem, at the
 // end, serves the launchers of all three sources.
 //
+// Types. T is __nv_bfloat16 or __half: both are 2 bytes, so the layout,
+// the copies and the descriptors are the same, and only two things take
+// the type: pack2<T> rounds two float32 values to T, and the wgmma
+// instructions name it (f32.bf16.bf16 or f32.f16.f16, float32 accumulators
+// either way).
+//
 // Panels and tiles. The head size is kPanels whole panels of 64 columns
-// (kPanels = 1 or 2: head size 64 or 128). A panel's row is 128 bytes of
-// bf16, and a panel of 64 rows, 8 KB, is stored [row][64] with the
+// (kPanels = 1, 2 or 4: head size 64, 128 or 256). A panel's row is 128
+// bytes of T, and a panel of 64 rows, 8 KB, is stored [row][64] with the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r & 7).
 // Panels start at multiples of 1024 bytes, which makes that the layout
 // wgmma's descriptors call B128 (and what TMA's 128-byte swizzle would
@@ -30,10 +36,12 @@
 // layout of wgmma.m64n64k16 (which four mma.m16n8k16 tiles share): warp w of
 // the group holds rows 16 w .. 16 w + 15, and a thread (g = lane / 4,
 // t = lane % 4) holds acc[4 j + 0, 1] = (row g, columns 8 j + 2 t, + 1) and
-// acc[4 j + 2, 3] = (row g + 8, same columns), j = 0 .. 7. Packed to bf16
-// two by two, the accumulator of 16 columns is the A operand of the next
+// acc[4 j + 2, 3] = (row g + 8, same columns), j = 0 .. 7. Packed to T two
+// by two, the accumulator of 16 columns is the A operand of the next
 // product in registers (pack_a_fragments), so probabilities never go
-// through shared memory.
+// through shared memory. The layout depends only on a thread's place in
+// its warpgroup, so two warpgroups that cover the same rows can hand each
+// other fragments through shared memory, thread by thread.
 //   product_nt   acc = X . Y^T, both tiles read from shared memory through
 //                descriptors with the B128 layout: four wgmma a panel, one
 //                per 16 values of h
@@ -53,15 +61,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace flash_tiles {
 
 constexpr int kPanelCols = 64;                 // head columns a panel
-constexpr int kRowBytes = kPanelCols * 2;      // 128: a panel's row
+constexpr int kRowBytes = kPanelCols * 2;      // 128: a panel's row of T
 constexpr int kTileRows = 64;
 constexpr int kPanelBytes = kTileRows * kRowBytes;  // 8192
 constexpr float kLog2e = 1.4426950408889634f;
@@ -156,23 +166,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [row0, row0 + kRows) of a [rows, 64 kPanels] bf16 array into the
+// rows [row0, row0 + kRows) of a [rows, 64 kPanels] array of T into the
 // operand at shared address `tile`; rows past the end become zeros. A
 // thread copies chunk tid % 8 of each panel of rows tid / 8 + i * kThreads
 // / 8: that step is a multiple of eight rows that divides 64, so its
 // swizzled chunk stays where it is from copy to copy, a row never leaves
 // its tile, and the addresses are one base plus constants.
-template <int kRows, int kThreads, int kPanels>
-__device__ __forceinline__ void stage_rows(uint32_t tile,
-                                           const __nv_bfloat16* src, int row0,
-                                           int rows, int tid) {
+template <int kRows, int kThreads, int kPanels, typename T>
+__device__ __forceinline__ void stage_rows(uint32_t tile, const T* src,
+                                           int row0, int rows, int tid) {
   constexpr int kCopies = kRows * 8 / kThreads, kRowStep = kThreads / 8;
   constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>();
   static_assert(kThreads % 64 == 0 && (kRows * 8) % kThreads == 0 &&
                     kTileRows % kRowStep == 0, "");
   const int r = tid >> 3, c = tid & 7;
   const uint32_t dst = tile + swizzled(r, c);
-  const __nv_bfloat16* from = src + (size_t)(row0 + r) * kHd + c * 8;
+  const T* from = src + (size_t)(row0 + r) * kHd + c * 8;
   // where copy i of panel p lands, from dst
   auto at = [](int i, int p) {
     const int dr = i * kRowStep;
@@ -203,21 +212,31 @@ __device__ __forceinline__ void stage_rows(uint32_t tile,
 // fragments
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two float32 values rounded to T (to nearest, ties to even), lo in the low
+// half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    static_assert(std::is_same_v<T, __nv_bfloat16>, "bf16 or f16");
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// a [64 x 64] accumulator, rounded to bf16, as the A operand of a product
+// a [64 x 64] accumulator, rounded to T, as the A operand of a product
 // over its 64 columns: a[ks] covers columns 16 ks .. 16 ks + 15
+template <typename T>
 __device__ __forceinline__ void pack_a_fragments(const float (&acc)[32],
                                                  uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = pack_bf16(acc[8 * ks + 0], acc[8 * ks + 1]);
-    a[ks][1] = pack_bf16(acc[8 * ks + 2], acc[8 * ks + 3]);
-    a[ks][2] = pack_bf16(acc[8 * ks + 4], acc[8 * ks + 5]);
-    a[ks][3] = pack_bf16(acc[8 * ks + 6], acc[8 * ks + 7]);
+    a[ks][0] = pack2<T>(acc[8 * ks + 0], acc[8 * ks + 1]);
+    a[ks][1] = pack2<T>(acc[8 * ks + 2], acc[8 * ks + 3]);
+    a[ks][2] = pack2<T>(acc[8 * ks + 4], acc[8 * ks + 5]);
+    a[ks][3] = pack2<T>(acc[8 * ks + 6], acc[8 * ks + 7]);
   }
 }
 
@@ -247,6 +266,18 @@ __device__ __forceinline__ void keep_registers(uint32_t (&x)[4][4]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
   "%30, %31}"
 
+// wgmma with both operands in shared memory (%32, %33 the descriptors, %34
+// nonzero to add to the accumulator), and with A in registers (%32-%35)
+// and B transposed (%36; %37 nonzero to add), on operands of type TYPE
+#define FLASH_TILES_WGMMA_SS(TYPE)                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "             \
+  FLASH_TILES_ACC_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define FLASH_TILES_WGMMA_RS(TYPE)                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "             \
+  FLASH_TILES_ACC_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
 // ---------------------------------------------------------------------------
 // products on wgmma (one call per warpgroup, by all its 128 threads)
 // ---------------------------------------------------------------------------
@@ -269,8 +300,8 @@ __device__ __forceinline__ void products_end() {
 }
 
 // acc = X . Y^T: X the warpgroup's 64 rows at `x_tile`, Y the 64 rows at
-// `y_tile`, both tiles of kPanels panels read along h
-template <int kPanels>
+// `y_tile`, both tiles of kPanels panels of T read along h
+template <typename T, int kPanels>
 __device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t x_tile,
                                            uint32_t y_tile) {
 #pragma unroll
@@ -281,18 +312,21 @@ __device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t x_tile,
     for (int ks = 0; ks < 4; ++ks) {
       // 16 values of h further on: 32 bytes, 2 in the descriptor's units;
       // the first product of the batch overwrites acc, the others add
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-          FLASH_TILES_ACC_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-          : FLASH_TILES_ACC(acc)
-          : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
+      if constexpr (std::is_same_v<T, __half>)
+        asm volatile(FLASH_TILES_WGMMA_SS("f16")
+                     : FLASH_TILES_ACC(acc)
+                     : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
+      else
+        asm volatile(FLASH_TILES_WGMMA_SS("bf16")
+                     : FLASH_TILES_ACC(acc)
+                     : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
     }
   }
 }
 
-// acc += A . Y: A [64 x 64] in registers (pack_a_fragments), Y the 64 rows
-// of one panel at `y_tile` read along its rows (transposed)
+// acc += A . Y: A [64 x 64] of T in registers (pack_a_fragments<T>), Y the
+// 64 rows of one panel at `y_tile` read along its rows (transposed)
+template <typename T>
 __device__ __forceinline__ void product_tn(float (&acc)[32],
                                            const uint32_t (&a)[4][4],
                                            uint32_t y_tile) {
@@ -300,13 +334,16 @@ __device__ __forceinline__ void product_tn(float (&acc)[32],
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     // 16 rows further on: 2048 bytes, 128 in the descriptor's units
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        FLASH_TILES_ACC_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : FLASH_TILES_ACC(acc)
-        : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]), "r"(a[ks][3]),
-          "l"(dy + 128 * ks), "r"(1));
+    if constexpr (std::is_same_v<T, __half>)
+      asm volatile(FLASH_TILES_WGMMA_RS("f16")
+                   : FLASH_TILES_ACC(acc)
+                   : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
+                     "r"(a[ks][3]), "l"(dy + 128 * ks), "r"(1));
+    else
+      asm volatile(FLASH_TILES_WGMMA_RS("bf16")
+                   : FLASH_TILES_ACC(acc)
+                   : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
+                     "r"(a[ks][3]), "l"(dy + 128 * ks), "r"(1));
   }
 }
 
@@ -315,17 +352,17 @@ __device__ __forceinline__ void product_tn(float (&acc)[32],
 // ---------------------------------------------------------------------------
 
 // A warpgroup's [64 x 64] accumulator times `mul` to rows [row0, row0 + 64)
-// and 64 columns of a [rows, kHd] bf16 array (`dst` points at the first
+// and 64 columns of a [rows, kHd] array of T (`dst` points at the first
 // column of the panel), by way of a panel in shared memory that only this
 // warpgroup uses (`tile`, a generic pointer): fragments hold pairs of
 // values, a panel's rows are 128 contiguous bytes, so the panel turns 16
 // scattered 4-byte stores a thread into 4 coalesced 16-byte ones. The
 // swizzle keeps both the fragment stores and the row reads free of bank
 // conflicts. `barrier` is a named barrier of the warpgroup's own (1 .. 15).
-template <int kHd>
+template <int kHd, typename T>
 __device__ __forceinline__ void store_accumulator(
-    __nv_bfloat16* dst, uint8_t* tile, const float (&acc)[32], float mul,
-    int row0, int rows, int barrier, int thread_in_group) {
+    T* dst, uint8_t* tile, const float (&acc)[32], float mul, int row0,
+    int rows, int barrier, int thread_in_group) {
   const int lane = thread_in_group & 31, g = lane >> 2, t = lane & 3;
   const int row_a = (thread_in_group >> 5) * 16 + g;
 #pragma unroll
@@ -334,8 +371,8 @@ __device__ __forceinline__ void store_accumulator(
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<uint32_t*>(tile + swizzled(row_a + 8 * half, j) +
                                    4 * t) =
-          pack_bf16(acc[4 * j + 2 * half] * mul,
-                    acc[4 * j + 2 * half + 1] * mul);
+          pack2<T>(acc[4 * j + 2 * half] * mul,
+                   acc[4 * j + 2 * half + 1] * mul);
   asm volatile("bar.sync %0, 128;\n" ::"r"(barrier) : "memory");
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -346,11 +383,10 @@ __device__ __forceinline__ void store_accumulator(
   }
 }
 
-// zeros to rows [row0, row0 + 64) of a [rows, kHd] bf16 array, by one
+// zeros to rows [row0, row0 + 64) of a [rows, kHd] array of T, by one
 // warpgroup
-template <int kHd>
-__device__ __forceinline__ void store_zero_rows(__nv_bfloat16* dst, int row0,
-                                                int rows,
+template <int kHd, typename T>
+__device__ __forceinline__ void store_zero_rows(T* dst, int row0, int rows,
                                                 int thread_in_group) {
   constexpr int kChunks = kHd / 8;  // 16-byte chunks a row
 #pragma unroll

@@ -12,12 +12,13 @@ Port of ``chambers_tpu/ops/flash_attention.py``:
 - K3c ``flash_bwd_dq`` replaces its dQ call.
 
 Each is two kernels behind one C function, chosen by the operands' type:
-bfloat16 takes the tensor-core kernels, ``flash_fwd_tc_kernel`` of
-``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
+bfloat16 and float16 take the tensor-core kernels, ``flash_fwd_tc_kernel``
+of ``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
 ``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (both built on
-``flash_tiles.cuh``); float32 takes the FMA kernels ``flash_fwd_kernel``,
-``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` of
-``flash_attention.cu``, which also holds the C interface. See the notes at
+``flash_tiles.cuh``, templated on the type); float32 takes the FMA kernels
+``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
+of ``flash_attention.cu`` (at head size 256 their ``_cols`` forms), which
+also holds the C interface. See the notes at
 the top of the CUDA sources for what bounds the kernels on the card and
 for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
@@ -46,13 +47,13 @@ permuted view; none for the slices of a stacked self-attention projection
 that is already contiguous).
 
 Head sizes. The kernels are built for whole 64-column panels, at
-``HEAD_SIZES`` = 64 and 128. On a CUDA tensor any other head size up to
-128 is zero-padded to the next built size (:func:`kernel_head_size`,
+``HEAD_SIZES`` = 64, 128 and 256. On a CUDA tensor any other head size up
+to 256 is zero-padded to the next built size (:func:`kernel_head_size`,
 :func:`pad_head`): zero columns add nothing to ``q kᵀ``, the padded
 columns of ``o``, dQ, dK and dV are dropped, the scale comes from the true
 head size, and ``di`` is computed from the unpadded ``o`` and ``do``, so
 the padded call computes the unpadded one's function (the CPU tests hold
-the plain versions to that bit for bit). A head size above 128 raises: it
+the plain versions to that bit for bit). A head size above 256 raises: it
 is queued in ROADMAP.md §2. On CPU tensors the plain versions take any
 head size unpadded.
 """
@@ -70,8 +71,8 @@ from chambers_tpu_torch.ops import _build
 LIBRARY = ("flash_attention",
            ["flash_attention.cu", "flash_attention_fwd.cu",
             "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
-HEAD_SIZES = (64, 128)          # head_dim the CUDA kernels are built for
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_SIZES = (64, 128, 256)     # head_dim the CUDA kernels are built for
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -119,7 +120,7 @@ def delta(o, do):
 def kernel_head_size(h):
     """The head size the CUDA kernels run a call of head size ``h`` at: the
     smallest of ``HEAD_SIZES`` that holds it. Above the largest it raises:
-    head sizes over 128 are queued in ROADMAP.md §2."""
+    head sizes over 256 are queued in ROADMAP.md §2."""
     for size in HEAD_SIZES:
         if h <= size:
             return size
@@ -137,8 +138,8 @@ def pad_head(x, size):
 
 
 def _scores(q, k, scale):
-    # bf16 products are exact in float32: this is q kᵀ in the input type
-    # with float32 accumulation
+    # products of bf16 or float16 values are exact in float32: this is
+    # q kᵀ in the input type with float32 accumulation
     return torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
 
 
@@ -167,7 +168,8 @@ def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
     """K3b and K3c in PyTorch: ``(dq, dk, dv)`` from the saved ``l, m``.
     ``p`` and ``ds`` are computed in float32 and rounded to the operands'
     type before ``pᵀ do``, ``dsᵀ q`` and ``ds k`` (a tensor-core product in
-    bfloat16 takes bfloat16 on both sides; the identity for float32), the
+    bfloat16 or float16 takes that type on both sides; the identity for
+    float32), the
     products accumulate in float32, and the results are cast to the
     inputs' types at the end. ``di`` (default :func:`delta` of ``o`` and
     ``do``) is what the kernels are handed: a padded call passes the
@@ -196,8 +198,8 @@ def flash_backward_plain(q, k, v, o, l, m, do, scale, causal=False,
 def _check_operands(q, k, v, kv_mask, n_heads):
     for name, t in (("query", q), ("key", k), ("value", v)):
         if not isinstance(t, torch.Tensor) or t.dtype not in DTYPES:
-            raise TypeError(f"flash_attention takes float32 or bfloat16 "
-                            f"tensors, got {name} "
+            raise TypeError(f"flash_attention takes float32, bfloat16 or "
+                            f"float16 tensors, got {name} "
                             f"{getattr(t, 'dtype', type(t))}")
         if t.ndim != 3:
             raise ValueError(f"{name} must be [bn, t, h], got "
@@ -241,8 +243,9 @@ def _tail(q, k, scale, causal, n_heads):
 
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
     """Launch K3a alone on checked, contiguous CUDA operands of a built head
-    size: ``(o, l, m)``. bfloat16 operands run ``flash_fwd_tc_kernel``,
-    float32 ``flash_fwd_kernel``."""
+    size: ``(o, l, m)``. bfloat16 and float16 operands run
+    ``flash_fwd_tc_kernel``, float32 ``flash_fwd_kernel`` (at 256
+    ``flash_fwd_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     bn, tq, _ = q.shape
@@ -259,8 +262,9 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
-    """Launch K3b alone: ``(dk, dv)``. bfloat16 operands run
-    ``flash_bwd_dkv_tc_kernel``, float32 ``flash_bwd_dkv_kernel``."""
+    """Launch K3b alone: ``(dk, dv)``. bfloat16 and float16 operands run
+    ``flash_bwd_dkv_tc_kernel``, float32 ``flash_bwd_dkv_kernel`` (at 256
+    ``flash_bwd_dkv_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -275,8 +279,9 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
 
 def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
-    """Launch K3c alone: ``dq``. bfloat16 operands run
-    ``flash_bwd_dq_tc_kernel``, float32 ``flash_bwd_dq_kernel``."""
+    """Launch K3c alone: ``dq``. bfloat16 and float16 operands run
+    ``flash_bwd_dq_tc_kernel``, float32 ``flash_bwd_dq_kernel`` (at 256
+    ``flash_bwd_dq_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     dq = torch.empty_like(q)

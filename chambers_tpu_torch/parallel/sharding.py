@@ -52,6 +52,9 @@ clipping reads), :func:`gather_tensors` / :func:`slice_tensors` (a
 :func:`slice_optimizer_state` (an optimizer's ``state_dict``), which the
 Trainer's checkpointed state is made of. Every rank must call the
 gathering ones; no collective runs at world size 1 or without a mesh.
+:func:`write_once` writes such whole values to one file from the mesh's
+first rank (checkpoints and the weight exports of ``Model`` and the
+Trainer).
 """
 
 from __future__ import annotations
@@ -630,3 +633,18 @@ def slice_optimizer_state(state_dict, params):
     state tensors of a placed parameter's whole shape cut to this rank's
     shard, so a state saved under any mesh or none loads under this one."""
     return _map_optimizer_state(state_dict, params, _cut)
+
+
+def write_once(mesh, write):
+    """Call ``write()`` on the mesh's first rank alone, between two
+    barriers: every rank has its whole values before the file changes, and
+    none returns before it is there. Without a mesh, or in a world of one
+    process, just ``write()``. Every rank must call."""
+    if mesh is None or not dist.is_initialized() or \
+            dist.get_world_size() == 1:
+        write()
+        return
+    dist.barrier()
+    if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+        write()
+    dist.barrier()

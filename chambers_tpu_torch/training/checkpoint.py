@@ -32,9 +32,9 @@ import signal
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from chambers_tpu_torch.callbacks import Callback
+from chambers_tpu_torch.parallel.sharding import write_once
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -63,10 +63,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, int(save_interval_steps))
-        self._shared = (mesh is not None and dist.is_initialized()
-                        and dist.get_world_size() > 1)
-        self._writer = (not self._shared
-                        or dist.get_rank() == int(mesh.mesh.flatten()[0]))
+        self._mesh = mesh
 
     def _path(self, step):
         return os.path.join(self.directory, f"{int(step)}.pt")
@@ -78,10 +75,8 @@ class CheckpointManager:
         if not force and (step % self.save_interval_steps
                           or (latest is not None and step <= latest)):
             return False
-        # under a mesh: every rank has decided before the file changes,
-        # and none goes on before it is there
-        self._barrier()
-        if self._writer:
+
+        def write():
             tmp = self._path(step) + f".tmp{os.getpid()}"
             torch.save(state, tmp)
             os.replace(tmp, self._path(step))
@@ -89,12 +84,11 @@ class CheckpointManager:
             if self.max_to_keep is not None:
                 for old in steps[:-self.max_to_keep]:
                     os.remove(self._path(old))
-        self._barrier()
-        return True
 
-    def _barrier(self):
-        if self._shared:
-            dist.barrier()
+        # under a mesh: every rank has decided before the file changes,
+        # and none goes on before it is there
+        write_once(self._mesh, write)
+        return True
 
     def restore(self, step: int, target: Any = None) -> Any:
         """The object saved at ``step``, its tensors on the CPU (or, given a

@@ -174,22 +174,35 @@ class _CallbackModel:
         return float(rate) if isinstance(rate, (int, float)) else None
 
     def save_weights(self, path):
+        """The variables as Flax's msgpack; under a mesh whole, written by
+        the mesh's first rank (every rank must call)."""
+        from chambers_tpu_torch.parallel.sharding import write_once
         from chambers_tpu_torch.utils import msgpack_io
 
-        msgpack_io.dump(self._trainer.variables, path)
+        variables = self._trainer.variables
+        write_once(self._trainer.mesh,
+                   lambda: msgpack_io.dump(variables, path))
 
     def export(self, directory):
         """``model.msgpack`` (the variables, Flax's format) and
-        ``opt_state.pt`` (the optimizer's ``state_dict``)."""
+        ``opt_state.pt`` (the optimizer's ``state_dict``); under a mesh
+        both whole, written by the mesh's first rank (every rank must
+        call)."""
         import os
 
+        from chambers_tpu_torch.parallel.sharding import write_once
         from chambers_tpu_torch.utils import msgpack_io
 
-        os.makedirs(directory, exist_ok=True)
-        msgpack_io.dump(self._trainer.variables,
-                        os.path.join(directory, "model.msgpack"))
-        torch.save(self._trainer.optimizer.state_dict(),
-                   os.path.join(directory, "opt_state.pt"))
+        trainer = self._trainer
+        variables, opt_state = trainer.variables, trainer._whole_opt_state()
+
+        def write():
+            os.makedirs(directory, exist_ok=True)
+            msgpack_io.dump(variables,
+                            os.path.join(directory, "model.msgpack"))
+            torch.save(opt_state, os.path.join(directory, "opt_state.pt"))
+
+        write_once(trainer.mesh, write)
 
 
 def _refuse_quantized(module):
@@ -434,6 +447,18 @@ class Trainer:
         return [p for group in self.optimizer.param_groups
                 for p in group["params"]]
 
+    def _whole_opt_state(self):
+        """The optimizer's ``state_dict``, under a mesh with every placed
+        parameter's state gathered whole (every rank must call)."""
+        opt_state = self.optimizer.state_dict()
+        if self.mesh is None:
+            return opt_state
+        from chambers_tpu_torch.parallel.sharding import (
+            gather_optimizer_state,
+        )
+
+        return gather_optimizer_state(opt_state, self._optimizer_params())
+
     def global_state(self) -> TrainState:
         """The train state with whole tensors, what a checkpoint holds:
         under a mesh every placed parameter, its optimizer state, EMA
@@ -443,10 +468,7 @@ class Trainer:
         state = self.state
         if self.mesh is None:
             return state
-        from chambers_tpu_torch.parallel.sharding import (
-            gather_optimizer_state,
-            gather_tensors,
-        )
+        from chambers_tpu_torch.parallel.sharding import gather_tensors
 
         def whole(tensors):
             return (None if tensors is None
@@ -457,8 +479,7 @@ class Trainer:
             acc = {**acc, "grads": whole(acc["grads"])}
         return TrainState(
             params=whole(state.params), extra_vars=state.extra_vars,
-            opt_state=gather_optimizer_state(state.opt_state,
-                                             self._optimizer_params()),
+            opt_state=self._whole_opt_state(),
             rng=state.rng, step=state.step,
             ema_params=whole(state.ema_params), accumulation=acc)
 
@@ -472,7 +493,8 @@ class Trainer:
         """``{"params": ..., "batch_stats": ...}``: the module's weights as
         nested dicts under the JAX package's paths (the layout of its
         ``Model.variables``); ``batch_stats`` only when there are
-        buffers."""
+        buffers. Under a mesh whole, as JAX's global arrays (every rank
+        must call)."""
         from chambers_tpu_torch.models.backbones.convert import jax_variables
 
         out = jax_variables(self.module)
@@ -484,12 +506,17 @@ class Trainer:
     def ema_variables(self):
         """The EMA shadow as ``{name: tensor}`` (``Trainer(ema_decay=)``);
         ``twin.load_state_dict(trainer.ema_variables, strict=False)`` puts
-        it into a twin of the module to evaluate or export it."""
+        it into a twin of the module to evaluate or export it. Under a
+        mesh whole, the shards gathered (every rank must call)."""
         if self._ema is None:
             raise ValueError(
                 "EMA is not enabled — construct the Trainer with "
                 "ema_decay=<float in [0, 1)>")
-        return self._ema
+        if self.mesh is None:
+            return self._ema
+        from chambers_tpu_torch.parallel.sharding import gather_tensors
+
+        return gather_tensors(self._ema, self._params)
 
     def get_lr_scale(self) -> Optional[float]:
         """The mutable lr factor (``AdamW/SGDW(mutable_lr=True)``), or None."""

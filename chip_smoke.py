@@ -249,11 +249,12 @@ the CUDA toolkit. In order, it:
     embeddings against ``utils.ranking``;
 26. runs the flash kernels at head sizes other than 64 (``head_sizes_path``),
     phase 9's width 512 over 16 heads (h 32, which the wrapper zero-pads to
-    the kernels' 64) and over 4 (h 128): (a) K3a-c through
-    ``flash_attention`` and its backward at ``[256, 512, 32]`` and ``[64,
-    512, 128]`` bf16 with the ragged key mask, causal and not, and at h 128
-    in float32, held to their plain versions with phase 8's tolerances and
-    timed at phase 11's tokens and FLOPs against their bounds and SDPA;
+    the kernels' 64), over 4 (h 128) and over 2 (h 256): (a) K3a-c through
+    ``flash_attention`` and its backward at ``[256, 512, 32]``, ``[64,
+    512, 128]`` and ``[32, 512, 256]`` bf16 with the ragged key mask,
+    causal and not, at h 128 and 256 in float32 and at h 256 in float16,
+    held to their plain versions with phase 8's tolerances and timed at
+    phase 11's tokens and FLOPs against their bounds and SDPA;
     K3a at one query row at h 128 (``[64, 1, 128]`` against ``[64, 512,
     128]``) held and timed as in phase 17; (b) phase 9's padded train step
     at 16 and 4 heads, flash against dense attention on the same init: the
@@ -264,9 +265,19 @@ the CUDA toolkit. In order, it:
     in float32 (the FMA kernels) tokens equal to it; (d) one step of phase
     9's model with ``global_clipnorm`` a quarter of its gradient norm under
     ``Trainer(mesh={data: 1, model: 1})`` bit-equal to the meshless step;
-27. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
+27. runs K3a-c in float16 (``float16_path``): (a) held to their plain
+    versions on phase 26's path shapes at h 32, 64 and 128 in float16, and
+    timed at phase 11's ``[128, 512, 64]`` against float16 SDPA and the
+    bound, beside phase 11's bf16 times; (b) phase 9's train step in
+    float16 (``use_mixed_precision("float16")`` activations, AdamW as in
+    phase 9, no loss scaling, as the JAX package has none): its first loss
+    against float32's on the same init (within 5%), its ms/step in turns
+    with the bf16 step, K3a-c 12 launches each a step by the counters, set
+    to 0 just before the timed steps and read just after;
+28. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
     ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
-    line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``paths``
+    line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``float16``
+    JSON line (phase 27), a ``paths``
     JSON line (the
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
@@ -276,8 +287,9 @@ the CUDA toolkit. In order, it:
     ``launches_trainer`` and K1's in phase 24's fit calls as
     ``launches_data_pipeline``, phase 25's as ``launches_served_flash``,
     ``launches_trainer_mesh`` and ``launches_context_parallel``, K3a-c at
-    h 32 and 128 as ``shape_h32`` and ``shape_h128`` with their registers
-    and spills, K3a at one query row at h 128 as ``decode_h128``, K3a's two
+    h 32, 128 and 256 as ``shape_h32``, ``shape_h128`` and ``shape_h256``
+    with their registers and spills, in float16 at ``[128, 512, 64]`` as
+    ``float16``, K3a at one query row at h 128 as ``decode_h128``, K3a's two
     decode shapes as rows of their own after it), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -306,7 +318,7 @@ CARD = ""
 # registers and spilled bytes of each kernel, from the build's ptxas report
 PTXAS = {}
 # a flash kernel's name in a profiler key, mangled or not
-FLASH_KERNEL = r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc)?_kernel)"
+FLASH_KERNEL = r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc|_cols)?_kernel)"
 
 
 def check(ok, what):
@@ -392,9 +404,11 @@ def read_build_report(path, seconds):
 
 def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
-    64>``, ``..flash_bwd_dq_tc_kernelILi2EE..`` -> ``flash_bwd_dq_tc_kernel<
-    128>`` (two 64-column panels), ``..warp_kernelILi3EE..`` ->
-    ``warp_kernel<c=3>``; a name it cannot read comes back as it is."""
+    64>``, ``..flash_bwd_dq_tc_kernelI6__halfLi2EE..`` ->
+    ``flash_bwd_dq_tc_kernel<f16, 128>`` (two 64-column panels),
+    ``..flash_fwd_cols_kernelIfLi256ELi128EE..`` -> ``flash_fwd_cols_kernel<
+    f32, 256>``, ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a name
+    it cannot read comes back as it is."""
     found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
                       mangled)
     if not found:
@@ -406,8 +420,12 @@ def kernel_name(mangled):
         if found.group(1) == "warp_kernel":  # templated on the channels
             return f"warp_kernel<c={groups.group(1) if groups.group(1) != '0' else 'any'}>"
         return f"{found.group(1)}<{64 * int(groups.group(1))}>"
-    dtype = "bf16" if "bfloat" in found.group(2) else "f32"
-    return f"{found.group(1)}<{dtype}, {found.group(3)}>"
+    dtype = ("bf16" if "bfloat" in found.group(2) else
+             "f16" if "half" in found.group(2) else "f32")
+    size = int(found.group(3))
+    if found.group(1).endswith("_tc_kernel"):  # templated on the panels
+        size *= 64
+    return f"{found.group(1)}<{dtype}, {size}>"
 
 
 def max_abs_diff(a, b):
@@ -464,6 +482,10 @@ def flash_tolerance(torch, dtype, ref, gradient):
     if dtype == torch.float32:
         atol = 1e-4 * max(1.0, float(ref.abs().max())) if gradient else 2e-5
         return 0.0, atol, 1e-5
+    if dtype == torch.float16:
+        # float16's steps are eight times finer: one step 2^-10, each term
+        # p v moved by up to its unit roundoff 2^-11 on either side
+        return 2.0 ** -10, 2.0 ** -10, 2.0 ** -11
     return 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
 
 
@@ -887,7 +909,8 @@ def vit_on_flash(torch, fa, dev, images):
           "ViT on the flash kernel matches the dense path")
 
 
-def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
+def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
+                       dtype=None):
     """Phase 11: K3a-c at the train step's shape, [128, 512, 64] bf16 with
     the ragged key mask (encoder self-attention and cross attention: 8 of a
     step's 12 launches of each kernel; the causal use is timed beside it),
@@ -895,8 +918,12 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
     the same shape. Returns the three rows of the ``kernels`` line. Phase
     26 times the same tokens at head size ``h`` over ``heads`` heads: the
     kernels on operands padded to the size they are built at, the plain
-    versions, SDPA and the bounds at ``h``."""
+    versions, SDPA and the bounds at ``h``. Phase 27 times them in
+    ``dtype`` float16 (the same kernels' other instance; SDPA in float16;
+    no float32 timing)."""
     F = torch.nn.functional
+    dtype = dtype or torch.bfloat16
+    type_name = str(dtype).split(".")[-1]
     b, n, t = S2S["batch"], heads or S2S["heads"], S2S["t"]
     bn, scale = b * n, h ** -0.5
     size = fa.kernel_head_size(h)
@@ -906,7 +933,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
 
     def rand():
         return torch.randn((bn, t, h), device=dev,
-                           generator=gen).to(torch.bfloat16)
+                           generator=gen).to(dtype)
 
     # cycle over sets larger together than the 50 MB L2; the kernels read
     # q, k, v, do padded to the built head size (the same tensors at 64)
@@ -957,26 +984,29 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
         q, k, v = (four(x) for x in nxt()[:3])
         return fa.flash_attention(q, v, k, kv_mask=mask)
 
-    # the float32 backward: one set (the inputs alone are 67 MB)
-    q32, k32, v32, do32 = (x.float() for x in sets[0][:4])
-    o32, l32, m32 = fa.flash_forward_plain(q32, k32, v32, scale, False, fmask,
-                                           n)
-    di32 = fa.delta(o32, do32)
-    q32, k32, v32, do32 = (fa.pad_head(x, size) for x in (q32, k32, v32,
-                                                           do32))
-    args32 = (q32, k32, v32, do32, l32, m32, di32, fmask, scale, False, n)
-    float32_ms = {
-        "fwd": cuda_ms(torch, lambda: fa.launch_forward(
-            q32, k32, v32, fmask, scale, False, n), 10, backlog=True),
-        "dkv": cuda_ms(torch, lambda: fa.launch_backward_dkv(*args32), 10,
-                       backlog=True),
-        "dq": cuda_ms(torch, lambda: fa.launch_backward_dq(*args32), 10,
-                      backlog=True)}
-    del q32, k32, v32, do32, o32, l32, m32, di32, args32
+    float32_ms = dict.fromkeys(("fwd", "dkv", "dq"))
+    if dtype == torch.bfloat16:
+        # the float32 backward: one set (the inputs alone are 67 MB)
+        q32, k32, v32, do32 = (x.float() for x in sets[0][:4])
+        o32, l32, m32 = fa.flash_forward_plain(q32, k32, v32, scale, False,
+                                               fmask, n)
+        di32 = fa.delta(o32, do32)
+        q32, k32, v32, do32 = (fa.pad_head(x, size) for x in (q32, k32, v32,
+                                                               do32))
+        args32 = (q32, k32, v32, do32, l32, m32, di32, fmask, scale, False,
+                  n)
+        float32_ms = {
+            "fwd": cuda_ms(torch, lambda: fa.launch_forward(
+                q32, k32, v32, fmask, scale, False, n), 10, backlog=True),
+            "dkv": cuda_ms(torch, lambda: fa.launch_backward_dkv(*args32),
+                           10, backlog=True),
+            "dq": cuda_ms(torch, lambda: fa.launch_backward_dq(*args32), 10,
+                          backlog=True)}
+        del q32, k32, v32, do32, o32, l32, m32, di32, args32
     source = {"fwd": "flash_attention_fwd.cu", "dkv": "flash_attention_bwd.cu",
               "dq": "flash_attention_bwd.cu"}
 
-    elem = 2  # bytes of a bf16 value
+    elem = 2  # bytes of a bf16 or float16 value
     qkv = 3 * bn * t * h * elem
     stats = bn * t * 4                       # one float32 row statistic
     pairs = bn * t * t * h                   # multiply-adds of one product
@@ -1010,7 +1040,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
         kernel_ms = cuda_ms(torch, lambda: bare(False), 20, backlog=True)
         causal_ms = cuda_ms(torch, lambda: bare(True), 20, backlog=True)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3  # float16's peak is the same
         bound_ms = max(bytes_ms, ops_ms)
         causal_bound_ms = max(bytes_ms, ops_ms / 2)
         rows.append({
@@ -1032,14 +1062,15 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None):
                      "same key mask"),
             "card": CARD,
         })
-        log(f"{name} [{bn}, {t}, {h}] bf16 key mask: kernel "
+        log(f"{name} [{bn}, {t}, {h}] {type_name} key mask: kernel "
             f"{kernel_ms * 1e3:.1f} us ({rows[-1]['achieved_tflops']:.1f} "
             f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
             f"{causal_bound_ms * 1e3:.2f} us)"
-            + f", float32 operands (the FMA kernel) "
-              f"{float32_ms[key] * 1e3:.1f} us on {CARD}")
+            + (f", float32 operands (the FMA kernel) "
+               f"{float32_ms[key] * 1e3:.1f} us" if float32_ms[key] else "")
+            + f" on {CARD}")
     log(f"flash_attention wrapper call, forward: {wrapper_ms * 1e3:.1f} us "
         f"on {CARD}")
     torch.cuda.synchronize()
@@ -1870,7 +1901,7 @@ def time_decode_kernels(torch, fa, dev, tally, h=64, heads=None,
                   + bn * h * 2 + 2 * bn * 4)  # o, l, m
         ops = 4 * n * valid * h
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3  # float16's peak is the same
         bound_ms = max(bytes_ms, ops_ms)
         full_kv_ms = 2 * bn * tk * h * 2 / HBM_BYTES_PER_S * 1e3
         launches = tally.get(f"1x{tk}", 0)
@@ -2896,7 +2927,7 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
     for name, key, bare, nbytes, ops, plain_ms, lib_ms in specs:
         kernel_ms = cuda_ms(torch, bare, 20, backlog=True)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3  # float16's peak is the same
         bound_ms = max(bytes_ms, ops_ms)
         out[name] = {
             "shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
@@ -5379,27 +5410,36 @@ def scale_out_path(torch, fa, dev, vit_ms):
 # ---------------------------------------------------------------------------
 
 # phase 9's width 512 over 16 heads (h 32, which the wrapper pads to the
-# kernels' 64) and over 4 (h 128): phase 11's tokens and FLOPs, and phase
-# 9's step, at the other head sizes
-HEADS = {32: 16, 128: 4}
+# kernels' 64), over 4 (h 128) and over 2 (h 256): phase 11's tokens and
+# FLOPs, and phase 9's step, at the other head sizes
+HEADS = {32: 16, 128: 4, 256: 2}
 HEADS_STEPS, HEADS_REPEATS, HEADS_PROFILED = 2, 3, 2
 HEADS_DECODE = 16          # tokens greedy (c) decodes
 FLASH_KEYS = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
               "flash_bwd_dq": "dq"}
 
 
-def head_size_cases(torch, dev, h, heads):
+def head_size_cases(torch, dev, h, heads, dtype=None):
     """Phase 26 (a)'s cases for ``check_flash_kernels`` at head size ``h``:
-    phase 8's two path cases at ``[16, heads, 512, h]`` bf16 with the
-    ragged key mask, and at 128 the float32 kernels."""
+    phase 8's two path cases at ``[16, heads, 512, h]`` in ``dtype`` (bf16
+    unless given; phase 27 passes float16) with the ragged key mask; with
+    bf16, at 128 and 256 the float32 kernels too, and at 256 the float16
+    instances on the two path shapes."""
+    dtype = dtype or torch.bfloat16
     b, t = S2S["batch"], S2S["t"]
     mask = ragged_mask(torch, b, t, dev)
     cases = [
         (f"path: encoder self / cross, key mask, h {h}", b, heads, t, t,
-         torch.bfloat16, False, mask, "permuted"),
+         dtype, False, mask, "permuted"),
         (f"path: decoder self, causal + key mask, h {h}", b, heads, t, t,
-         torch.bfloat16, True, mask, "stacked")]
-    if h == 128:
+         dtype, True, mask, "stacked")]
+    if dtype == torch.bfloat16 and h == 256:
+        cases += [
+            (f"float16, key mask, h {h}", b, heads, t, t, torch.float16,
+             False, mask, "permuted"),
+            (f"float16, causal + key mask, h {h}", b, heads, t, t,
+             torch.float16, True, mask, "stacked")]
+    if dtype == torch.bfloat16 and h >= 128:
         cases.append((f"float32, key mask, h {h}", b, heads, t, t,
                       torch.float32, False, mask, "plain"))
     return cases
@@ -5590,13 +5630,13 @@ def clipped_step_under_mesh(torch, dev):
 
 
 def head_sizes_path(torch, fa, dev, rows):
-    """Phase 26: (a) K3a-c at h 32 and 128 held to their plain versions
-    (``check_flash_kernels`` on ``head_size_cases``) and timed at phase
-    11's tokens (``time_flash_kernels``), K3a at one query row at h 128
-    (``time_decode_kernels``); (b), (c) ``seq2seq_at_heads``; (d)
-    ``clipped_step_under_mesh``. Adds ``shape_h32`` and ``shape_h128`` to
-    the K3a-c rows of the ``kernels`` line and ``decode_h128`` to K3a's;
-    returns the phase's JSON object."""
+    """Phase 26: (a) K3a-c at h 32, 128 and 256 held to their plain
+    versions (``check_flash_kernels`` on ``head_size_cases``) and timed at
+    phase 11's tokens (``time_flash_kernels``), K3a at one query row at h
+    128 (``time_decode_kernels``); (b), (c) ``seq2seq_at_heads``; (d)
+    ``clipped_step_under_mesh``. Adds ``shape_h32``, ``shape_h128`` and
+    ``shape_h256`` to the K3a-c rows of the ``kernels`` line and
+    ``decode_h128`` to K3a's; returns the phase's JSON object."""
     t0 = time.perf_counter()
     steps, decode = seq2seq_at_heads(torch, fa, dev)
     out = {"seq2seq": steps, "decode": decode}
@@ -5611,8 +5651,8 @@ def head_sizes_path(torch, fa, dev, rows):
             got = next((r for r in timed if r["name"] == row["name"]), None)
             if key is None or got is None:
                 continue
-            bf16 = f"{row['name']}_tc_kernel<{fa.kernel_head_size(h)}>"
-            f32 = f"{row['name']}_kernel<f32, {fa.kernel_head_size(h)}>"
+            size = fa.kernel_head_size(h)
+            cols = "_cols" if size == 256 else ""
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
@@ -5623,7 +5663,11 @@ def head_sizes_path(torch, fa, dev, rows):
                     "causal_ms", "causal_bound_ms", "achieved_tflops",
                     "float32_ms")},
                 "launches_over_steps": flash["steps_counted"],
-                "ptxas": PTXAS.get(bf16), "ptxas_float32": PTXAS.get(f32)}
+                "ptxas": PTXAS.get(f"{row['name']}_tc_kernel<bf16, {size}>"),
+                "ptxas_float16": PTXAS.get(
+                    f"{row['name']}_tc_kernel<f16, {size}>"),
+                "ptxas_float32": PTXAS.get(
+                    f"{row['name']}{cols}_kernel<f32, {size}>")}
     decode_rows = time_decode_kernels(
         torch, fa, dev, {f"1x{S2S['t']}": decode[
             "bf16_k3a_launches_by_shape"].get(f"1x{S2S['t']}", 0)},
@@ -5636,6 +5680,153 @@ def head_sizes_path(torch, fa, dev, rows):
     out["clipped_mesh_step"] = clipped_step_under_mesh(torch, dev)
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"phase 26: {out['seconds']} s")
+    return out
+
+
+# phase 27: the float16 checks at phase 26's head sizes and phase 11's 64,
+# and the float16 step's timed steps a run and runs in turns with bf16
+F16_HEADS = {32: 16, 64: 8, 128: 4}
+F16_STEPS, F16_REPEATS, F16_PROFILED = 3, 3, 2
+
+
+def float16_path(torch, fa, dev, rows):
+    """Phase 27: (a) K3a-c in float16 held to their plain versions
+    (``check_flash_kernels`` on ``head_size_cases`` in float16) at h 32, 64
+    and 128, and timed at ``[128, 512, 64]`` (``time_flash_kernels`` in
+    float16); (b) phase 9's step in float16 against float32's first loss,
+    in turns with the bf16 step, K3a-c launches a step by the counters.
+    Adds ``float16`` to the K3a-c rows of the ``kernels`` line; returns the
+    phase's JSON object."""
+    from chambers_tpu_torch.utils.generic import use_mixed_precision
+
+    t0 = time.perf_counter()
+    f16 = use_mixed_precision("float16")
+    check(f16 == torch.float16, "the float16 policy gives float16")
+    out = {"max_abs_err": {}}
+    errors = {}
+    for h, heads in F16_HEADS.items():
+        errors[h] = check_flash_kernels(torch, fa, dev, h, head_size_cases(
+            torch, dev, h, heads, f16))
+        out["max_abs_err"][f"h{h}"] = errors[h]
+
+    # (b) phase 9's step in float16, against float32's first loss and in
+    # turns with bf16
+    src, tgt = seq2seq_tokens(torch, dev)
+    vocab, per_step = S2S["vocab"], 3 * S2S["layers"]
+
+    def tokens_of(i):
+        return torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt
+
+    models = {"float16": build_seq2seq(torch, dev, f16).train(),
+              "bf16": build_seq2seq(torch, dev, torch.bfloat16).train()}
+    first = {}
+    with torch.no_grad():
+        for name, model in models.items():
+            first[name] = float(seq2seq_loss(torch, model, *tokens_of(0))[0])
+        f32 = build_seq2seq(torch, dev, torch.float32).train()
+        first["float32"] = float(seq2seq_loss(torch, f32, *tokens_of(0))[0])
+        del f32
+    rel = abs(first["float16"] - first["float32"]) / abs(first["float32"])
+    log(f"phase 27 (b) first loss: float16 {first['float16']:.5f}, bf16 "
+        f"{first['bf16']:.5f}, float32 {first['float32']:.5f} (float16 rel "
+        f"{rel:.2e})")
+    check(math.isfinite(first["float16"]) and rel <= 0.05,
+          "the float16 step's first loss within 5% of float32's")
+    steps, tallies, losses = {}, {}, {}
+    for name, model in models.items():
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                weight_decay=1e-4, betas=(0.9, 0.999),
+                                eps=1e-8)
+        tally = tallies[name] = dict.fromkeys(("fwd", "dkv", "dq", "steps"),
+                                              0)
+        seen = losses[name] = []
+
+        def step(i, model=model, opt=opt, tally=tally, seen=seen):
+            before = flash_counts(fa)
+            opt.zero_grad(set_to_none=True)
+            loss, _ = seq2seq_loss(torch, model, *tokens_of(i))
+            loss.backward()
+            opt.step()
+            after = flash_counts(fa)
+            for key in before:
+                tally[key] += after[key] - before[key]
+            tally["steps"] += 1
+            seen.append(loss.detach())
+
+        steps[name] = step
+    for step in steps.values():  # warm-up, outside the counted run
+        step(0)
+    for tally in tallies.values():
+        tally.update(dict.fromkeys(tally, 0))
+    zero_flash(fa)
+    runs = run_in_turns(torch, steps, 0, F16_REPEATS, F16_STEPS)
+    counted = flash_counts(fa)
+    n_steps = sum(t["steps"] for t in tallies.values())
+    check(all(counted[k] == per_step * n_steps for k in counted),
+          f"K3a-c each launched 12 times a step over the timed run "
+          f"({counted} in {n_steps} steps)")
+    for name, tally in tallies.items():
+        check(all(tally[k] == per_step * tally["steps"]
+                  for k in ("fwd", "dkv", "dq")),
+              f"{name}: K3a-c each launched 12 times a step ({tally})")
+    values = [float(x) for x in losses["float16"]]
+    check(all(math.isfinite(x) for x in values), "finite float16 losses")
+    profile = fit_profile(torch, lambda: [
+        steps["float16"](i) for i in range(F16_PROFILED)], F16_PROFILED)
+    ms = {name: median(r) for name, r in runs.items()}
+    out["step"] = {
+        "first_loss": first, "first_loss_rel_gap_float32": rel,
+        "ms_per_step": ms, "runs_ms": runs,
+        "tokens_s": {name: S2S["batch"] * 2 * S2S["t"] / (v / 1e3)
+                     for name, v in ms.items()},
+        "flash_launches": {name: {k: t[k] for k in ("fwd", "dkv", "dq")}
+                           for name, t in tallies.items()},
+        "steps_counted": {name: t["steps"] for name, t in tallies.items()},
+        "float16_losses": values,
+        "float16_device_ms": profile["device_ms"],
+        "float16_launches_per_step": profile["launches"],
+        "float16_busy": profile["device_ms"] / ms["float16"]}
+    log(f"phase 27 (b) phase 9's step (b16, 512 + 512, AdamW, no loss "
+        f"scaling): float16 {ms['float16']:.3f} ms/step (runs "
+        f"{', '.join(f'{r:.3f}' for r in runs['float16'])}), bf16 "
+        f"{ms['bf16']:.3f} (runs {', '.join(f'{r:.3f}' for r in runs['bf16'])})"
+        f" in turns; float16 kernels {profile['device_ms']:.3f} ms, "
+        f"{profile['launches']:.0f} launches a step, busy "
+        f"{100 * out['step']['float16_busy']:.1f}%; flash launches "
+        f"{out['step']['flash_launches']} over "
+        f"{out['step']['steps_counted']} steps; float16 losses "
+        f"{[round(x, 4) for x in values]}, on {CARD}")
+    del models, steps
+
+    # (a) the times at phase 11's shape, in float16
+    timed = time_flash_kernels(
+        torch, fa, dev, {k: tallies["float16"][k] for k in ("fwd", "dkv",
+                                                             "dq")},
+        errors[64], 64, S2S["heads"], f16)
+    for row in rows:
+        key = FLASH_KEYS.get(row["name"])
+        got = next((r for r in timed if r["name"] == row["name"]), None)
+        if key is None or got is None:
+            continue
+        row["float16"] = {
+            "shape": f"[{S2S['batch'] * S2S['heads']}, {S2S['t']}, 64] "
+                     f"float16, ragged key mask",
+            **{k: got[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
+                "bound_ms", "bound_by", "library_ms", "causal_ms",
+                "causal_bound_ms", "achieved_tflops")},
+            "bf16_ms": row["ms"], "bf16_causal_ms": row["causal_ms"],
+            "launches_over_steps": tallies["float16"]["steps"],
+            "ptxas": PTXAS.get(f"{row['name']}_tc_kernel<f16, 64>"),
+            "note": "library_ms is F.scaled_dot_product_attention in "
+                    "float16 with the same key mask; bf16_ms is phase 11's "
+                    "bf16 kernel in the same call"}
+        log(f"{row['name']} float16 against bf16 at [128, 512, 64]: "
+            f"{got['ms'] * 1e3:.1f} against {row['ms'] * 1e3:.1f} us, SDPA "
+            f"float16 {got['library_ms'] * 1e3:.1f} us, bound "
+            f"{got['bound_ms'] * 1e3:.2f} us, on {CARD}")
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 27: {out['seconds']} s")
     return out
 
 
@@ -6164,13 +6355,18 @@ def main():
                 row[name] = counts[key]
     log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
     lap("25")
-    # 26. head sizes 32 (padded) and 128: K3a-c alone, phase 9's step at 16
-    # and 4 heads, greedy decoding at 128, a clipped step under a mesh
+    # 26. head sizes 32 (padded), 128 and 256: K3a-c alone, phase 9's step
+    # at 16, 4 and 2 heads, greedy decoding at 128, a clipped step under a
+    # mesh
     heads = head_sizes_path(torch, fa, dev, rows)
     log(json.dumps({"head_sizes": heads, "card": CARD}))
+    lap("26")
+    # 27. float16: K3a-c at h 32, 64 and 128 and phase 9's step
+    float16 = float16_path(torch, fa, dev, rows)
+    log(json.dumps({"float16": float16, "card": CARD}))
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
-    lap("26")
+    lap("27")
     log(json.dumps({"seconds_by_phase": phase_seconds,
                     "seconds": round(sum(phase_seconds.values()), 1)}))
 

@@ -8,18 +8,19 @@ Builds the ``flash_attention`` library from ``OTHER_CHECKOUT``'s
 ``chambers_tpu_torch/ops/csrc`` beside this checkout's, both with this
 checkout's flags into its ``build/`` (``ops/_build.py``), and runs K3a
 (``flash_fwd``), K3b (``flash_bwd_dkv``) and K3c (``flash_bwd_dq``) of both
-libraries on the same seeded inputs at head size 64: the seq2seq train
-step's ``[128, 512, 64]`` with its ragged key mask, causal and not, ViT-B/16's
-197 tokens, cross lengths 130 x 260 and 260 x 130 under the causal mask,
-63 x 65 with a scattered key mask, one query row against 512 and 300 keys,
-in bf16 (the tensor-core kernels) and float32 (the FMA kernels). Every
-output (``o, l, m, dk, dv, dq``) of the two must be the same bits. Then it
-times each kernel of both libraries at the train step's shape, causal and
-not, with CUDA events over launches queued behind a backlog, the two
-libraries in turns (other, this, this, other, three rounds), on inputs
-cycled beyond the 50 MB L2. The libraries share the C interface that
-``ops/flash_attention.py`` calls. Prints one JSON line last and exits
-non-zero on any difference.
+libraries on the same seeded inputs at head sizes 64 and 128: the seq2seq
+train step's tokens (``[128, 512, 64]``, ``[64, 512, 128]``) with its
+ragged key mask, causal and not, ViT-B/16's 197 tokens, cross lengths 130
+x 260 and 260 x 130 under the causal mask, 63 x 65 with a scattered key
+mask, one query row against 512 and 300 keys, in bf16 (the tensor-core
+kernels) and float32 (the FMA kernels). Every output (``o, l, m, dk, dv,
+dq``) of the two must be the same bits. Then it times each kernel of both
+libraries at the train step's tokens at both head sizes, causal and not,
+with CUDA events over launches queued behind a backlog, the two libraries
+in turns (other, this, this, other, three rounds), on inputs cycled beyond
+the 50 MB L2. The libraries share the C interface that
+``ops/flash_attention.py`` calls, for the types and head sizes both take.
+Prints one JSON line last and exits non-zero on any difference.
 """
 
 import ctypes
@@ -92,12 +93,15 @@ def launch_one(torch, fa, lib, kernel, args):
                             ptr(di), ptr(mask), ptr(outs[5]), *tail)
 
 
-def time_both(torch, fa, libs, dev):
-    """ms a launch of K3a-c of each library at ``[128, 512, 64]`` bf16 with
-    a ragged key mask, causal and not: ``{kernel/causal: {library: [ms of
-    each round]}}``."""
+HEADS = (64, 128)
+
+
+def time_both(torch, fa, libs, dev, h):
+    """ms a launch of K3a-c of each library at ``[128 * 64 / h, 512, h]``
+    bf16 (the train step's tokens and FLOPs) with a ragged key mask, causal
+    and not: ``{kernel/causal: {library: [ms of each round]}}``."""
     gen = torch.Generator(device=dev).manual_seed(16)
-    bn, n, t, h = 128, 8, 512, 64
+    bn, n, t = 128 * 64 // h, 512 // h, 512
     keep = t * (0.7 + 0.1 * torch.rand((bn // n, 1), device=dev,
                                        generator=gen))
     mask = (torch.arange(t, device=dev) < keep.long()).float()
@@ -105,8 +109,9 @@ def time_both(torch, fa, libs, dev):
     for _ in range(3):  # 3 x 34 MB: beyond the L2
         q, k, v, do = (torch.randn((bn, t, h), device=dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(4))
-        o, l, m = fa.flash_forward_plain(q, k, v, 0.125, False, mask, n)
-        sets.append((q, k, v, do, l, m, fa.delta(o, do), mask, 0.125))
+        o, l, m = fa.flash_forward_plain(q, k, v, h ** -0.5, False, mask,
+                                         n)
+        sets.append((q, k, v, do, l, m, fa.delta(o, do), mask, h ** -0.5))
     # the outputs, written by every launch: o, l, m, dk, dv, dq
     outs = (torch.empty_like(q), torch.empty_like(l), torch.empty_like(m),
             torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
@@ -171,10 +176,11 @@ def main(other):
     ]
     gen = torch.Generator(device=dev).manual_seed(15)
     report, same = [], True
-    for label, bn, n, tq, tk, dtype, causal, kind in cases:
-        q, do = (torch.randn((bn, tq, 64), device=dev, generator=gen)
+    for (label, bn, n, tq, tk, dtype, causal, kind), h in (
+            (case, h) for h in HEADS for case in cases):
+        q, do = (torch.randn((bn, tq, h), device=dev, generator=gen)
                  .to(dtype) for _ in range(2))
-        k, v = (torch.randn((bn, tk, 64), device=dev, generator=gen)
+        k, v = (torch.randn((bn, tk, h), device=dev, generator=gen)
                 .to(dtype) for _ in range(2))
         b = bn // n
         mask = None
@@ -186,23 +192,27 @@ def main(other):
             mask = (torch.rand((b, tk), device=dev, generator=gen)
                     > 0.3).float()
             mask[:, 0] = 1.0
-        outs = {key: run(torch, fa, lib, q, k, v, do, mask, 0.125, causal, n)
+        outs = {key: run(torch, fa, lib, q, k, v, do, mask, h ** -0.5,
+                         causal, n)
                 for key, lib in libs.items()}
         differ = [x for x in outs["this"]
                   if not torch.equal(outs["this"][x], outs["other"][x])]
         same = same and not differ
-        report.append({"case": label, "shape": [bn, tq, tk, 64],
+        report.append({"case": label, "shape": [bn, tq, tk, h],
                        "dtype": str(dtype).split(".")[-1],
                        "bit_equal": not differ, "differing": differ})
-        print(f"{label} [{bn}, {tq}x{tk}, 64] {str(dtype).split('.')[-1]}: "
+        print(f"{label} [{bn}, {tq}x{tk}, {h}] {str(dtype).split('.')[-1]}: "
               f"{'bit-equal' if not differ else f'differ in {differ}'}",
               flush=True)
-    times = time_both(torch, fa, libs, dev)
-    for key, by in times.items():
-        print(f"{key} [128, 512, 64] bf16 key mask: "
-              + ", ".join(f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
-                          f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
-                          for name, v in by.items()), flush=True)
+    times = {}
+    for h in HEADS:
+        for key, by in time_both(torch, fa, libs, dev, h).items():
+            times[f"{key} h{h}"] = by
+            print(f"{key} [{128 * 64 // h}, 512, {h}] bf16 key mask: "
+                  + ", ".join(
+                      f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
+                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
+                      for name, v in by.items()), flush=True)
     print(json.dumps({"compare_flash_builds": report, "times_ms": times,
                       "other": str(other),
                       "card": torch.cuda.get_device_name(0),

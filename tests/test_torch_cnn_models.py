@@ -202,6 +202,68 @@ def test_bf16_model_keeps_close_to_float32(jax_models):
     assert cos >= 0.99 and jcos >= 0.99, (cos, jcos)
 
 
+# the port's bf16 cosine may fall this far below JAX's own: the gap
+# measured on the CPU (torch 2.13, jax on XLA:CPU) with the inputs of seeds
+# 13 and 14 was 0.0006 and -0.0001 (seeded: JAX 0.999268 and 0.998372,
+# the port 0.998628 and 0.998437) and 0.0080 and 0.0089 (random_bn: JAX
+# 0.953867 and 0.972979, the port 0.945909 and 0.964100); each margin is
+# about twice the larger gap
+BF16_GAP_MARGIN = {"seeded": 0.002, "random_bn": 0.02}
+
+
+@pytest.fixture(scope="module")
+def seresnext50_full():
+    """SE-ResNeXt-50 at full depth (3, 4, 6, 3) without its top, and the
+    JAX package's init at 64 px."""
+    params = jse.MODELS_PARAMS["seresnext50"]
+    module = jse.SENetModule(params, include_top=False)
+    variables = jax.jit(module.init)(jax.random.PRNGKey(5),
+                                     jnp.zeros((1, 64, 64, 3)))
+    return module, variables
+
+
+@pytest.mark.parametrize("init", sorted(BF16_GAP_MARGIN))
+def test_full_depth_bf16_gap_follows_jax(seresnext50_full, init):
+    """The bf16 CNN gap at full depth, the CPU's guard of the card's 0.98
+    check on SE-ResNeXt-50's bf16 feature map (``chip_smoke.py`` phase
+    21): both packages run the model in float32 and in bf16 (bf16
+    convolutions, float32 BatchNorm statistics) from the same converted
+    weights, the JAX package's init as it is (``seeded``) or with every
+    BatchNorm drawn at random (``random_bn``), on a batch of 2 seeded 64 px
+    images. The port's float32 output follows JAX's to a cosine of
+    0.99999 (measured 0.99999994 and up seeded, 0.9999995 with random
+    BatchNorm, where 50 layers of float32 sums in another order move the
+    largest element by 0.7% of the largest magnitude), and the cosine of
+    the port's bf16 output against its float32 one stays within
+    ``BF16_GAP_MARGIN`` of JAX's own bf16-against-float32 cosine."""
+    jmod, variables = seresnext50_full
+    variables = (_randomize_bn(variables, 6) if init == "random_bn"
+                 else _np(variables))
+    x = _x((2, 64, 64, 3), 13)
+    j32 = np.asarray(jmod.apply(variables, jnp.asarray(x)), np.float32)
+    j16 = np.asarray(jse.SENetModule(
+        jmod.model_params, include_top=False, dtype=jnp.bfloat16).apply(
+        variables, jnp.asarray(x)), np.float32)
+    port32 = load_jax_variables(tse.SENetModule(
+        tse.MODELS_PARAMS["seresnext50"], include_top=False, device="cpu"),
+        variables).eval()
+    port16 = tse.SENetModule(port32.model_params, include_top=False,
+                             dtype=torch.bfloat16, device="cpu").eval()
+    port16.load_state_dict(port32.state_dict())
+    with torch.no_grad():
+        t32 = port32(torch.from_numpy(x), deterministic=True).numpy()
+        t16 = port16(torch.from_numpy(x), deterministic=True).float().numpy()
+
+    def cosine(a, b):
+        return float(np.dot(a.ravel(), b.ravel()) / np.linalg.norm(a)
+                     / np.linalg.norm(b))
+
+    assert t32.shape == j32.shape == (2, 2, 2, 2048)
+    assert cosine(t32, j32) >= 0.99999
+    port_cos, jax_cos = cosine(t16, t32), cosine(j16, j32)
+    assert port_cos >= jax_cos - BF16_GAP_MARGIN[init], (port_cos, jax_cos)
+
+
 # --------------------------------------------------------------------------
 # the train step of examples/train_cnn_classifier.py, reduced depth
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The CUDA kernels K1, K2 and K3a-c (flash attention forward, dK/dV, dQ)
 against their plain PyTorch versions on the card, at odd sizes the main
-paths do not reach. Each of K3a, K3b, K3c is two kernels: bf16 operands
-take the tensor-core one, float32 the FMA one. Marked ``cuda``:
+paths do not reach. Each of K3a, K3b, K3c is two kernels: bf16 and float16
+operands take the tensor-core one, float32 the FMA one (at head size 256
+its ``_cols`` form). Marked ``cuda``:
 they skip on a machine without a card. On the card:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -253,6 +254,16 @@ FLASH_CASES = [
     (2, 2, 1, 300, torch.bfloat16, False, True),
     (8, 8, 512, 512, torch.bfloat16, False, "ragged"),
     (1, 2, 500, 100, torch.bfloat16, True, False),
+    # float16 on the same tensor-core kernels: the edges above, the train
+    # step's shape and whole blocks with no key
+    (2, 5, 257, 257, torch.float16, True, True),
+    (1, 2, 130, 260, torch.float16, True, False),
+    (1, 2, 260, 130, torch.float16, True, False),
+    (3, 2, 70, 150, torch.float16, False, True),
+    (2, 2, 64, 1, torch.float16, False, False),
+    (2, 2, 1, 300, torch.float16, False, True),
+    (8, 8, 512, 512, torch.float16, False, "ragged"),
+    (1, 2, 500, 100, torch.float16, True, False),
 ]
 
 
@@ -280,7 +291,10 @@ def _assert_close(got, ref, dtype, grad=False, cancels=False):
     gradient's largest value, rms 1e-5). bf16: rtol is one step of the
     output type, atol the two roundings of the probabilities (2^-9 of each
     term p v on either side), and the rms of evenly spread rounding errors
-    stays under half a step. ``cancels``: the value is zero analytically
+    stays under half a step. float16 in its own steps, eight times finer:
+    rtol 2^-10 (one step), atol 2^-10 (each term p v moves by up to
+    float16's unit roundoff 2^-11 of itself on either side) and rms 2^-11.
+    ``cancels``: the value is zero analytically
     (with one key p = 1 and ds = do . v - di = 0, so dq = dk = 0) and what
     is left on either side is the difference of two float32 sums of 64
     products taken in two orders, ~1e-6; a relative error of that says
@@ -290,6 +304,8 @@ def _assert_close(got, ref, dtype, grad=False, cancels=False):
     if dtype == torch.float32:
         rtol, rms = 0.0, 1e-5
         atol = 1e-4 * max(1.0, float(ref.abs().max())) if grad else 2e-5
+    elif dtype == torch.float16:
+        rtol, atol, rms = 2.0 ** -10, 2.0 ** -10, 2.0 ** -11
     else:
         rtol, atol, rms = 2.0 ** -7, 2.0 ** -8, 2.0 ** -8
     assert float((d - rtol * ref.abs()).max()) <= atol
@@ -300,8 +316,8 @@ def _assert_close(got, ref, dtype, grad=False, cancels=False):
         assert float(d.norm()) / (norm if norm else 1.0) <= rms
 
 
-# head sizes: the two the kernels are built at, and one the wrapper pads
-HEADS = [32, 64, 128]
+# head sizes: the three the kernels are built at, and one the wrapper pads
+HEADS = [32, 64, 128, 256]
 
 
 @pytest.mark.parametrize("h", HEADS)
@@ -395,37 +411,47 @@ def _kernel_names(fn):
     return " ".join(e.key for e in prof.key_averages())
 
 
-@pytest.mark.parametrize("h", [64, 128])
+SIXTEEN_BIT = (torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("h", [64, 128, 256])
 def test_forward_dtype_chooses_the_kernels(dev, h):
-    """bf16 operands run the tensor-core forward, float32 the FMA one: read
-    from the profiler's kernel names."""
+    """bf16 and float16 operands run the tensor-core forward, float32 the
+    FMA one (its ``_cols`` form at 256): read from the profiler's kernel
+    names."""
     names = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, True)
         names[dtype] = _kernel_names(
             lambda: fa.launch_forward(q, k, v, mask, 0.125, False, 2))
-    assert "flash_fwd_kernel" in names[torch.float32]
+    fma = "flash_fwd_cols_kernel" if h == 256 else "flash_fwd_kernel"
+    assert fma in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
-    assert "flash_fwd_tc_kernel" in names[torch.bfloat16]
-    assert "flash_fwd_kernel" not in names[torch.bfloat16]
+    for dtype in SIXTEEN_BIT:
+        assert "flash_fwd_tc_kernel" in names[dtype]
+        assert "flash_fwd_kernel" not in names[dtype]
+        assert "_cols_kernel" not in names[dtype]
 
 
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [64, 128, 256])
 def test_backward_dtype_chooses_the_kernels(dev, h):
-    """bf16 operands run the tensor-core kernels, float32 the FMA kernels:
-    read from the profiler's kernel names."""
+    """bf16 and float16 operands run the tensor-core kernels, float32 the
+    FMA kernels (``_cols`` at 256): read from the profiler's kernel
+    names."""
     names = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, False)
         o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 2)
         args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 2)
         names[dtype] = _kernel_names(lambda: (fa.launch_backward_dkv(*args),
                                               fa.launch_backward_dq(*args)))
-    assert "flash_bwd_dkv_kernel" in names[torch.float32]
-    assert "flash_bwd_dq_kernel" in names[torch.float32]
+    cols = "_cols" if h == 256 else ""
+    assert f"flash_bwd_dkv{cols}_kernel" in names[torch.float32]
+    assert f"flash_bwd_dq{cols}_kernel" in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
-    assert "flash_bwd_dkv_tc_kernel" in names[torch.bfloat16]
-    assert "flash_bwd_dq_tc_kernel" in names[torch.bfloat16]
+    for dtype in SIXTEEN_BIT:
+        assert "flash_bwd_dkv_tc_kernel" in names[dtype]
+        assert "flash_bwd_dq_tc_kernel" in names[dtype]
 
 
 @pytest.mark.parametrize("h", HEADS)
@@ -450,14 +476,14 @@ def test_flash_attention_autograd_counts_and_rejects(dev, h):
     ref.pow(2).sum().backward()
     assert float((out.detach().cpu() - ref.detach()).abs().max()) <= 2e-5
     assert float((qkv.grad.cpu() - cpu.grad).abs().max()) <= 1e-3
-    # permuted views are copied, not refused; head sizes above 128 are
+    # permuted views are copied, not refused; head sizes above 256 are
     # refused, naming the queue
     perm = torch.randn((b, t, n, h), device=dev, generator=g).permute(
         0, 2, 1, 3)
     got = fa.flash_attention(perm, perm)
     want = fa.flash_attention(perm.cpu(), perm.cpu())
     assert float((got.cpu() - want).abs().max()) <= 2e-5
-    bad = torch.randn((1, 1, 8, 160), device=dev)
+    bad = torch.randn((1, 1, 8, 288), device=dev)
     with pytest.raises(ValueError, match="head_dim.*ROADMAP"):
         fa.flash_attention(bad, bad)
     with pytest.raises(ValueError, match="head_dim"):

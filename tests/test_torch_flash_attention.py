@@ -6,7 +6,9 @@ Tolerances are those of ``tests/test_flash_attention.py``: float32 outputs
 2e-5 (sums run in another order), bf16 outputs 3e-2 (the rounding of the
 output type at |o| of a few units), gradients atol 1e-3 / rtol 1e-3, and
 5e-3 under the padding mask. The saved softmax statistics ``l, m`` are held
-to ``_flash_forward``'s at rtol 1e-5."""
+to ``_flash_forward``'s at rtol 1e-5. bf16 and float16 at any head size
+follow ``_close_half``, derived from each type's unit roundoff; the float16
+``Seq2SeqTransformer`` states its own."""
 
 import math
 
@@ -327,37 +329,53 @@ def test_bf16_backward_plain_matches_jax_kernels(name):
             assert np.abs(per_item[0]).max() > 0
 
 
-HEAD_SIZES = [8, 32, 80, 128]
+HEAD_SIZES = [8, 32, 80, 128, 160, 256]
+# the spacing of the type's values at 1: 2^-7 for bfloat16, 2^-10 for
+# float16 (unit roundoffs 2^-8 and 2^-11)
+STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 
-def _close_bf16(got, want):
-    """bf16 against bf16: each element within rtol 2^-7 (one step of the
-    output) plus 2^-8 of the largest value (the roundings of the
-    probabilities, as above), and the relative rms error under 2^-8."""
+def _close_half(got, want, dtype="bfloat16"):
+    """A 16-bit result against JAX's: each element within rtol ``step``
+    (one step of the output: both round a float32 sum, to neighbouring
+    values at worst) plus ``step / 2`` of the largest value, and the
+    relative rms error under ``step / 2``. The port rounds ``p`` and ``ds``
+    to the operand type before the backward's products (as the tensor-core
+    kernels must), JAX keeps them in float32: every term of a sum moves by
+    up to one unit roundoff (``step / 2``) of itself, and the terms cancel,
+    so the error follows the result's scale and not the element's. bf16:
+    rtol 2^-7, atol and rms 2^-8 (measured rms 2.5e-3 to 2.8e-3); float16:
+    rtol 2^-10, atol and rms 2^-11 = 4.9e-4 (measured rms 3.1e-4 to
+    3.5e-4, the largest element 2.1e-4 past its rtol)."""
+    step = STEP[dtype]
     got, want = _f32(got), np.asarray(want, np.float32)
     d = np.abs(got - want)
-    atol = 2.0 ** -8 * max(1.0, float(np.abs(want).max()))
-    assert float((d - 2.0 ** -7 * np.abs(want)).max()) <= atol
-    assert np.linalg.norm(d) <= 2.0 ** -8 * max(np.linalg.norm(want), 1e-30)
+    atol = step / 2 * max(1.0, float(np.abs(want).max()))
+    assert float((d - step * np.abs(want)).max()) <= atol
+    assert np.linalg.norm(d) <= step / 2 * max(np.linalg.norm(want), 1e-30)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+TYPES = {"float32": (jnp.float32, torch.float32),
+         "bfloat16": (jnp.bfloat16, torch.bfloat16),
+         "float16": (jnp.float16, torch.float16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("h", HEAD_SIZES)
 def test_head_sizes_match_jax_kernel(h, dtype):
     """The port's ``flash_attention`` at head sizes other than 64 (its plain
     versions, through the autograd function) against JAX's
     ``flash_attention`` in interpret mode, causal with a key mask and cross
     lengths 100 x 120: the output and the gradients of a random cotangent.
-    float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 as
-    ``_close_bf16``. On the card the kernels run these sizes at 64 or 128,
-    zero-padded (``test_padded_plain_call_is_bit_equal``)."""
+    float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 and float16 as
+    ``_close_half``. On the card the kernels run these sizes at 64, 128 or
+    256, zero-padded (``test_padded_plain_call_is_bit_equal``)."""
     rng = np.random.RandomState(h)
     shape_q, shape_kv = (2, 2, 100, h), (2, 2, 120, h)
     q, do = (rng.randn(*shape_q).astype(np.float32) for _ in range(2))
     k, v = (rng.randn(*shape_kv).astype(np.float32) for _ in range(2))
     mask = _mask(h + 1, 2, 120, 2)
-    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
-                else (jnp.bfloat16, torch.bfloat16))
+    jdt, tdt = TYPES[dtype]
 
     def jax_attention(q, k, v):
         return jflash.flash_attention(q, v, k, causal=True,
@@ -377,14 +395,15 @@ def test_head_sizes_match_jax_kernel(h, dtype):
             np.testing.assert_allclose(_f32(g), np.asarray(w), atol=1e-4,
                                        rtol=1e-4)
     else:
-        _close_bf16(got, want)
+        _close_half(got, want, dtype)
         for g, w in zip(got_grads, want_grads):
-            assert g.dtype == torch.bfloat16
-            _close_bf16(g, w)
+            assert g.dtype == tdt
+            _close_half(g, w, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [8, 32, 80, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [8, 32, 80, 100, 160, 200])
 def test_padded_plain_call_is_bit_equal(h, dtype):
     """What the wrapper does on the card at a head size the kernels are not
     built at, in the plain versions: ``q, k, v`` and ``do`` zero-padded to
@@ -392,7 +411,7 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
     unpadded ``o`` and ``do``. Every output equals the unpadded call's bit
     for bit, and the padded columns are exact zeros."""
     size = tflash.kernel_head_size(h)
-    assert size == (64 if h <= 64 else 128)
+    assert size == (64 if h <= 64 else 128 if h <= 128 else 256)
     g = torch.Generator().manual_seed(h)
     q, do = (torch.randn(6, 97, h, generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn(6, 131, h, generator=g).to(dtype) for _ in range(2))
@@ -414,14 +433,15 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
 
 
 def test_kernel_head_sizes_and_the_limit():
-    """The kernels are built at 64 and 128; smaller sizes run padded to the
-    next of them, larger ones are refused naming the queue in ROADMAP.md."""
-    assert tflash.HEAD_SIZES == (64, 128)
+    """The kernels are built at 64, 128 and 256; smaller sizes run padded to
+    the next of them, larger ones are refused naming the queue in
+    ROADMAP.md."""
+    assert tflash.HEAD_SIZES == (64, 128, 256)
     assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 64, 65, 80,
-                                                 128)] == [
-        64, 64, 64, 64, 128, 128, 128]
+                                                 128, 129, 200, 256)] == [
+        64, 64, 64, 64, 128, 128, 128, 256, 256, 256]
     with pytest.raises(ValueError, match="ROADMAP"):
-        tflash.kernel_head_size(129)
+        tflash.kernel_head_size(257)
     x = torch.ones(2, 3, 5)
     assert tflash.pad_head(x, 5) is x
     assert tuple(tflash.pad_head(x, 64).shape) == (2, 3, 64)
@@ -492,8 +512,8 @@ def test_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="kv_mask shape"):
         jflash.flash_attention(jnp.asarray(q.numpy()), jnp.asarray(v.numpy()),
                                kv_mask=jnp.ones((2, 4), bool))
-    with pytest.raises(TypeError):
-        tflash.flash_attention(q.half(), v.half(), k.half())
+    with pytest.raises(TypeError, match="float16"):
+        tflash.flash_attention(q.double(), v.double(), k.double())
     with pytest.raises(ValueError):
         tflash.flash_attention(q, v[:, :, :4], k)
     assert set(tflash.flash_attention.launches) == {"fwd", "dkv", "dq"}
@@ -575,3 +595,103 @@ def test_attention_dropout_keep_share_scaling_and_dense_switch():
     assert torch.equal(mha.train()([x, x, x], deterministic=True), c)
     np.testing.assert_allclose(_f32(c), _f32(dense.eval()([x, x, x])),
                                atol=2e-5)
+
+
+def test_float16_seq2seq_on_flash_matches_jax():
+    """A small float16 ``Seq2SeqTransformer`` on flash attention (2 + 2
+    layers, width 64, 4 heads of 16, vocabulary 64, ragged padding) built
+    under ``use_mixed_precision("float16")`` in both packages from the same
+    converted (perturbed) weights: logits, masked cross-entropy and the
+    float32 parameters' gradients against JAX's with its flash kernels in
+    interpret mode.
+
+    Tolerance: every layer rounds its activations to float16 (unit
+    roundoff 2^-11), after sums taken in another order in the two
+    frameworks, and the port rounds ``p`` and ``ds`` in the backward where
+    JAX does not (``_close_half``); over the dozen roundings on the path a
+    logit moves by a few float16 steps. Logits within 2^-8 of the largest
+    logit (measured 4.4e-3 at |logit| <= 3.54 against 1.38e-2), the loss to
+    rtol 2^-10 (measured 2.3e-5), each gradient within 2^-8 of the largest
+    gradient (measured 1.5e-4 at 0.12 against 4.7e-4)."""
+    from chambers_tpu.models import Seq2SeqTransformer as JaxSeq2Seq
+    from chambers_tpu.utils.generic import use_mixed_precision as jax_policy
+    from chambers_tpu_torch.models import Seq2SeqTransformer
+    from chambers_tpu_torch.utils.generic import use_mixed_precision
+    import optax
+
+    vocab = 64
+    rng = np.random.RandomState(3)
+    src, tgt = (rng.randint(1, vocab, (4, 24)) for _ in range(2))
+    src[1, 17:] = 0
+    tgt[2, 15:] = 0
+    kw = dict(input_vocab_size=vocab, output_vocab_size=vocab, embed_dim=64,
+              num_heads=4, dim_feedforward=128, num_encoder_layers=2,
+              num_decoder_layers=2, dropout_rate=0.0, attention_impl="flash")
+    jmodel = JaxSeq2Seq(dtype=jax_policy("float16"), **kw)
+    port = Seq2SeqTransformer(device=CPU, dtype=use_mixed_precision(
+        "float16"), **kw)
+    params = jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"]
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    noise = np.random.RandomState(5)
+    params = jax.tree_util.tree_unflatten(
+        tree, [a + 0.05 * noise.randn(*a.shape).astype(np.float32)
+               for a in leaves])
+    port.load_state_dict(state_dict_from_jax(jax.device_get(params)))
+    port.eval()
+
+    def jax_loss(p):
+        logits = jmodel.apply({"params": p}, (src, tgt), deterministic=True)
+        labels = jnp.roll(tgt, -1, axis=1)
+        mask = (labels != 0).astype(jnp.float32)
+        ce = optax.softmax_cross_entropy_with_integer_labels(
+            logits.astype(jnp.float32), labels)
+        return jnp.sum(ce * mask) / jnp.sum(mask), logits
+
+    (loss_want, logits_want), grads = jax.value_and_grad(
+        jax_loss, has_aux=True)(params)
+    tsrc, ttgt = torch.from_numpy(src), torch.from_numpy(tgt)
+    logits = port([tsrc, ttgt], deterministic=True)
+    labels = torch.roll(ttgt, -1, dims=1)
+    mask = (labels != 0).float()
+    ce = torch.nn.functional.cross_entropy(
+        logits.float().flatten(0, 1), labels.flatten().long(),
+        reduction="none")
+    loss = (ce * mask.flatten()).sum() / mask.sum()
+    loss.backward()
+
+    assert logits.dtype == torch.float16 and logits_want.dtype == jnp.float16
+    want = np.asarray(logits_want, np.float32)
+    np.testing.assert_allclose(_f32(logits), want,
+                               atol=2.0 ** -8 * np.abs(want).max())
+    np.testing.assert_allclose(loss.item(), float(loss_want), rtol=2.0 ** -10)
+    want_grads = state_dict_from_jax(jax.device_get(grads))
+    named = dict(port.named_parameters())
+    assert set(named) == set(want_grads)
+    largest = max(float(g.abs().max()) for g in want_grads.values())
+    for name, p in named.items():
+        assert p.grad.dtype == torch.float32
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   atol=2.0 ** -8 * largest, err_msg=name)
+
+
+def test_float16_flash_exports_through_the_operator():
+    """A float16 flash call traces: ``torch.export`` of a causal, masked
+    ``flash_attention`` on float16 operands calls the K3a operator
+    ``chambers_tpu_torch::flash_fwd`` once (its fake registration gives the
+    tracer float16 ``o`` and float32 ``l, m``), and the program gives the
+    eager call's bits."""
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v, mask):
+            return tflash.flash_attention(q, v, k, causal=True, kv_mask=mask)
+
+    q, k, v = (_t(x, torch.float16) for x in _qkv(9, (2, 2, 24, 32)))
+    mask = _t(_mask(10, 2, 24, 1))
+    with torch.no_grad():
+        program = torch.export.export(Attend(), (q, k, v, mask))
+        want = Attend()(q, k, v, mask)
+        got = program.module()(q, k, v, mask)
+    calls = [n for n in program.graph.nodes if n.op == "call_function"
+             and "chambers_tpu_torch.flash_fwd" in str(n.target)]
+    assert len(calls) == 1
+    assert got.dtype == torch.float16 and torch.equal(got, want)

@@ -608,6 +608,14 @@ def ref_checkpoint_mesh(n):
     return dict(state=_state(variables["params"]), batches=port), None
 
 
+def ref_export_mesh(n):
+    """Port to port: the seq2seq model's weights and 2 batches."""
+    module = _seq2seq_module()
+    port, batches = _seq2seq_batches(23, 2)
+    variables = module.init(jax.random.PRNGKey(2), batches[0][0])
+    return dict(state=_state(variables["params"]), batches=port), None
+
+
 def _once(ref):
     """A reference that does not depend on the world size, computed once
     for every size."""
@@ -657,6 +665,7 @@ REFERENCES = {
     "dp_tp_ep_step": ref_dp_tp_ep_step,
     "clipped_mesh": _once(ref_clipped_mesh),
     "checkpoint_mesh": _once(ref_checkpoint_mesh),
+    "export_mesh": _once(ref_export_mesh),
 }
 # a label runs the worker check of another name
 CHECK_OF = {"cp_dryrun": "context_parallel", "cp_dense": "context_parallel"}
@@ -907,6 +916,41 @@ def test_meshless_trainer_resumes_a_mesh_checkpoint(world):
     assert got["step"] == 4
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
     _close_params(got["params"], want["params"], atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["tp", "fsdp"])
+def test_trainer_mesh_exports_whole_weights(world, kind):
+    """After 2 AdamW steps with EMA under the seq2seq TP rules or
+    fsdp_rules, the callbacks' ``save_weights``, ``export``'s
+    ``model.msgpack`` and ``Model.save_weights`` write the bytes a meshless
+    Trainer holding the same gathered train state writes; ``export``'s
+    ``opt_state.pt`` holds its whole moments, value for value, and
+    ``ema_variables`` its whole EMA shadow, as JAX's global arrays are."""
+    out = _result(world, "export_mesh")[kind]
+    assert out["files"] == {"save_weights": True, "export": True,
+                            "model_save_weights": True}
+    assert out["opt_keys"] and out["opt_equal"]
+    assert out["opt_moment_shapes"] == out["whole_shapes"]
+    assert set(out["ema"]) == set(out["ema_want"])
+    for name, value in out["ema_want"].items():
+        np.testing.assert_array_equal(out["ema"][name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["tp", "fsdp"])
+def test_placed_model_loads_whole_weights(world, kind):
+    """``Model.load_weights`` of that file into a freshly placed module cuts
+    each whole value to the rank's shard: the gathered parameters equal
+    the meshless twin's to the bit, and the next forward (data-parallel
+    over the mesh) equals the twin's to 1e-5 (TP sums its products in
+    another order)."""
+    out = _result(world, "export_mesh")[kind]
+    assert out["sharded"]
+    assert set(out["loaded"]) == set(out["twin"])
+    for name, value in out["twin"].items():
+        np.testing.assert_array_equal(out["loaded"][name], value,
+                                      err_msg=name)
+    np.testing.assert_allclose(out["forward"], out["forward_want"],
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

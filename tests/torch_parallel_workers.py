@@ -1175,10 +1175,130 @@ def checkpoint_mesh(n, state, batches):
     return out
 
 
+def _flat_values(tree, prefix=""):
+    """``{path: numpy array}`` of every tensor in a nested object."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().cpu().numpy()}
+    out = {}
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    for k, v in items:
+        out.update(_flat_values(v, f"{prefix}/{k}"))
+    return out
+
+
+def export_mesh(n, state, batches):
+    """Weight exports and loads under a mesh, with the seq2seq TP rules and
+    with fsdp_rules: 2 AdamW steps with EMA, then the callbacks' facade's
+    ``save_weights`` and ``export``, ``Model.save_weights`` and
+    ``ema_variables``, each against what a meshless Trainer holding the
+    same (gathered) train state writes; and the ``save_weights`` file
+    loaded back into a freshly placed module by ``Model.load_weights``,
+    its parameters and next forward against the meshless twin's."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from chambers_tpu_torch.models import Model
+    from chambers_tpu_torch.optimizers import AdamW
+    from chambers_tpu_torch.parallel import (
+        SEQ2SEQ_TENSOR_PARALLEL_RULES,
+        fsdp_rules,
+    )
+    from chambers_tpu_torch.parallel.sharding import shard_params
+    from chambers_tpu_torch.training import Trainer
+    from chambers_tpu_torch.training.trainer import _CallbackModel
+
+    box = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    root, rank = box[0], dist.get_rank()
+
+    def trainer_for(model, mesh, rules):
+        return Trainer(model, loss=_mse, mesh=mesh, ema_decay=0.9,
+                       param_sharding_rules=rules,
+                       optimizer=lambda named: AdamW(
+                           named, weight_decay=1e-4, learning_rate=1e-3))
+
+    def write(trainer, model, stem):
+        facade = _CallbackModel(trainer)
+        facade.save_weights(stem + ".msgpack")
+        facade.export(stem + "_export")
+        Model(model).save_weights(stem + "_model.msgpack")
+        return {"ema": {k: _np(v) for k, v in
+                        trainer.ema_variables.items()}}
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def opt_state(stem):
+        return _flat_values(torch.load(
+            os.path.join(stem + "_export", "opt_state.pt"),
+            weights_only=False))
+
+    x = batches[0][0]
+    out = {}
+    for kind in ("tp", "fsdp"):
+        def placement():
+            model = _seq2seq(state)
+            if kind == "tp":
+                return (model, _mesh({"data": n // 2, "model": 2}),
+                        SEQ2SEQ_TENSOR_PARALLEL_RULES)
+            mesh = _mesh({"data": n})
+            return model, mesh, fsdp_rules(model, mesh, min_weight_size=512)
+
+        model, mesh, rules = placement()
+        trainer = trainer_for(model, mesh, rules)
+        trainer.fit(batches, epochs=1, verbose=False)
+        stem = os.path.join(root, kind)
+        got = write(trainer, model, stem)
+        # the meshless twin: the same train state, gathered
+        twin = _seq2seq(state)
+        twin_trainer = trainer_for(twin, None, None)
+        twin_trainer.state = trainer.global_state()
+        plain = os.path.join(root, f"{kind}_plain{rank}")
+        want = write(twin_trainer, twin, plain)
+        dist.barrier()
+        files = {name: read(stem + suffix) == read(plain + suffix)
+                 for name, suffix in (
+                     ("save_weights", ".msgpack"),
+                     ("export", "_export/model.msgpack"),
+                     ("model_save_weights", "_model.msgpack"))}
+        got_opt, want_opt = opt_state(stem), opt_state(plain)
+        whole_shapes = {n: tuple(p.shape) for n, p in twin.named_parameters()}
+        # a fresh module placed as the first one, the file loaded into it
+        placed, mesh, rules = placement()
+        with torch.no_grad():
+            for p in placed.parameters():
+                p.zero_()
+        shard_params(placed, mesh, rules)
+        Model(placed).load_weights(stem + ".msgpack")
+        out[kind] = {
+            "files": files,
+            "opt_keys": (sorted(got_opt) == sorted(want_opt)),
+            "opt_equal": all(np.array_equal(got_opt[k], want_opt[k])
+                             for k in want_opt if k in got_opt),
+            "opt_moment_shapes": sorted(
+                v.shape for k, v in got_opt.items() if k.endswith("/mu")),
+            "whole_shapes": sorted(whole_shapes.values()),
+            "ema": got["ema"], "ema_want": want["ema"],
+            "sharded": sorted(n for n, p in placed.named_parameters()
+                              if p.sharding.axes()),
+            "loaded": _whole(placed), "twin": _whole(twin),
+            "forward": Model(placed).predict(x, mesh=mesh),
+            "forward_want": Model(twin).predict(x)}
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 CHECKS = {f.__name__: f for f in (
     dropout_and_batchnorm,
     fsdp_rule_cases,
     mesh_api, dp_grad, tp_mha, dp_tp_vit, pp_step, ep_dp_step,
     dp_tp_ep_step, context_parallel, decode, fsdp_step, lora_freeze,
     nondivisible, wide_dp_tp, trainer_dp, quantized_tp, collective_eval,
-    pipeline_cases, ep_cases, tail_batch, clipped_mesh, checkpoint_mesh)}
+    pipeline_cases, ep_cases, tail_batch, clipped_mesh, checkpoint_mesh,
+    export_mesh)}
