@@ -13,8 +13,8 @@
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
-// (the 16-bit kernels carry the same names with _tc; the float32 ones at
-// head size 256 with _cols).
+// (the 16-bit kernels carry the same names with _tc, and above head size
+// 256 with _sliced; the float32 ones from head size 256 on with _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -62,28 +62,33 @@
 // by l once at the end, where the TPU kernel renormalises at every key
 // step.
 //
-// Takes head size 64, 128 or 256 (the kernels are templates over the type
-// and the head size, in steps of 64; float32 is instantiated at all three,
-// bfloat16 and float16 go to the tensor-core kernels, built at all three;
-// the wrapper zero-pads any other head size up to 256 to the next of
-// them), contiguous operands whose base addresses are multiples of 16
-// bytes. At 128 the FMA kernels keep the same 16 x 16 threads, each holding
-// 8 columns of every accumulator row (two groups of 4, 64 apart), and stage
+// Takes head size 64, 128 and every multiple of 64 from 256 on (float32:
+// the kernels below at 64 and 128, templates over the head size, and from
+// 256 on the _cols kernels, which take it at run time; bfloat16 and
+// float16 go to the tensor-core kernels, built at 64, 128 and 256, and
+// above 256 to the sliced ones, which take it at run time; the wrapper
+// zero-pads any other head size to the next of these), contiguous
+// operands whose base addresses are multiples of 16 bytes. At 128 the FMA
+// kernels keep the same 16 x 16 threads, each holding 8 columns of every
+// accumulator row (two groups of 4, 64 apart), and stage
 // 64-row tiles of 132 floats a row: 116, 149 and 167 KB of shared memory
 // for K3a, K3c and K3b; nvcc gives them 128, 128 and 222 registers, and K3c
 // spills 48 bytes.
 //
-// At 256 neither way fits: whole tiles of 260 floats a row would take 266
-// KB for K3b and K3c, and accumulators of 16 columns a thread would double
-// the registers of 128, K3b's past 255. So the _cols kernels give each
-// block HO = 128 of the head's output columns (blockIdx.z picks the half)
-// and the accumulators of 128, and stream the score products q k^T and
-// do v^T over the whole head in chunks of 64 columns through tiles of 68
-// floats a row; the second products read the block's 128 columns of v, k,
-// do or q. Both halves of a row tile compute the same scores: the
-// recompute doubles the score products' work (the float32 path is for
-// correctness, not speed) and keeps blocks independent. K3a's l and m are
-// written by the first half. 84, 118 and 169 KB of shared memory.
+// From 256 on neither way fits: whole tiles of 260 floats a row would take
+// 266 KB for K3b and K3c, and accumulators of 16 columns a thread would
+// double the registers of 128, K3b's past 255. So the _cols kernels give
+// each block HO = 128 of the head's output columns (blockIdx.z picks the
+// slice; where the head size is an odd multiple of 64 the last slice
+// holds 64, its other columns loaded as zeros and not stored) and the
+// accumulators of 128, and stream the score products q k^T and do v^T
+// over the whole head (its size a run-time argument) in chunks of 64
+// columns through tiles of 68 floats a row; the second products read the
+// block's columns of v, k, do or q. Every slice of a row tile computes the
+// same scores: the recompute multiplies the score products' work by the
+// number of slices (the float32 path is for correctness, not speed) and
+// keeps blocks independent. K3a's l and m are written by the first slice.
+// 84, 118 and 169 KB of shared memory.
 //
 // Built WITHOUT --fmad=false: the inner products of these kernels are FMAs,
 // and those of the 16-bit kernels run on the tensor cores.
@@ -96,7 +101,8 @@
 
 namespace {
 
-using flash_tiles::allow_smem;
+using flash_tiles::LaunchShape;
+using flash_tiles::launch_in;
 using flash_tiles::kMaskValue;
 
 constexpr int kTile = 64;       // query rows and key rows per tile
@@ -119,12 +125,13 @@ struct Elem<float> {
   }
 };
 
-// rows [row0, row0 + 64) of HD columns of an array of row stride kStride
+// rows [row0, row0 + 64) of HD columns of an array of row stride `stride`
 // (``src`` at the first column) into dst[64][HD + kPad] as float32; rows
-// past the end are zero
-template <typename T, int HD, int kStride = HD>
+// past the end, and columns from `cols` on, are zero
+template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows, int tid) {
+                                          int rows, int tid, int stride = HD,
+                                          int cols = HD) {
   constexpr int kVec = Elem<T>::kVec;
   constexpr int kPerRow = HD / kVec;
   constexpr int kLd = HD + kPad;
@@ -132,8 +139,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     float* d = dst + r * kLd + c;
-    if (row0 + r < rows) {
-      Elem<T>::load(src + (size_t)(row0 + r) * kStride + c, d);
+    if (row0 + r < rows && c < cols) {
+      Elem<T>::load(src + (size_t)(row0 + r) * stride + c, d);
     } else {
 #pragma unroll
       for (int j = 0; j < kVec; j += 4)
@@ -239,22 +246,27 @@ __device__ __forceinline__ void gemm_nn(const float* P, const float* V,
   }
 }
 
-// rows row0 + ty + 16 r of HD columns of an output of row stride kStride
-// (``dst`` at the first column), each times mul[r]
-template <typename T, int HD, int kStride = HD>
+// rows row0 + ty + 16 r of the first `cols` of HD columns (a multiple of
+// 64) of an output of row stride `stride` (``dst`` at the first column),
+// each times mul[r]
+template <typename T, int HD>
 __device__ __forceinline__ void store_rows(T* dst,
                                            const float (&acc)[4][HD / 16],
                                            const float (&mul)[4], int row0,
-                                           int rows, int ty, int tx) {
+                                           int rows, int ty, int tx,
+                                           int stride = HD, int cols = HD) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = row0 + ty + 16 * r;
     if (row >= rows) continue;
 #pragma unroll
     for (int g = 0; g < HD / 64; ++g)
-      Elem<T>::store4(dst + (size_t)row * kStride + g * 64 + tx * 4,
-                      acc[r][g * 4 + 0] * mul[r], acc[r][g * 4 + 1] * mul[r],
-                      acc[r][g * 4 + 2] * mul[r], acc[r][g * 4 + 3] * mul[r]);
+      if (g * 64 < cols)
+        Elem<T>::store4(dst + (size_t)row * stride + g * 64 + tx * 4,
+                        acc[r][g * 4 + 0] * mul[r],
+                        acc[r][g * 4 + 1] * mul[r],
+                        acc[r][g * 4 + 2] * mul[r],
+                        acc[r][g * 4 + 3] * mul[r]);
   }
 }
 
@@ -551,18 +563,19 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ---------------------------------------------------------------------------
-// head size 256: HO of the HD output columns a block, the score products
-// streamed over the head in 64-column chunks (see the note at the top)
+// head size 256 and above: HO of the hd output columns a block (the last
+// slice may hold 64), the score products streamed over the head in
+// 64-column chunks (see the note at the top)
 // ---------------------------------------------------------------------------
 
 // K3a
-template <typename T, int HD, int HO>
+template <typename T, int HO>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const float* __restrict__ kv_mask,
                           T* __restrict__ o, float* __restrict__ l_out,
-                          float* __restrict__ m_out, int tq, int tk,
+                          float* __restrict__ m_out, int tq, int tk, int hd,
                           int n_heads, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLdo = HO + kPad;
@@ -574,9 +587,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bn = blockIdx.x, q0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
-  const T* qb = q + (size_t)bn * tq * HD;
-  const T* kb = k + (size_t)bn * tk * HD;
-  const T* vb = v + (size_t)bn * tk * HD;
+  const int ho = min(HO, hd - c0);  // the slice's columns
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -593,13 +607,13 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(tk, q0 + kTile + offset) : tk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the last step's readers of Vs, Ps are done
-    load_tile<T, HO, HD>(Vs, vb + c0, k0, tk, tid);
+    load_tile<T, HO>(Vs, vb + c0, k0, tk, tid, hd, ho);
     load_key_validity(valid, mask_row, k0, tk, tid);
     float s[4][4] = {};
-    for (int c = 0; c < HD; c += kTile) {
+    for (int c = 0; c < hd; c += kTile) {
       if (c) __syncthreads();  // the last chunk's readers are done
-      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
-      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
+      load_tile<T, kTile>(Qc, qb + c, q0, tq, tid, hd);
+      load_tile<T, kTile>(Kc, kb + c, k0, tk, tid, hd);
       __syncthreads();
       gemm_nt_add(Qc, Kc, ty, tx, s);
     }
@@ -646,12 +660,12 @@ __global__ void __launch_bounds__(kThreads)
       m_out[(size_t)bn * tq + row] = m_run[r];
     }
   }
-  store_rows<T, HO, HD>(o + (size_t)bn * tq * HD + c0, acc, inv, q0, tq, ty,
-                        tx);
+  store_rows<T, HO>(o + (size_t)bn * tq * hd + c0, acc, inv, q0, tq, ty, tx,
+                    hd, ho);
 }
 
 // K3c
-template <typename T, int HD, int HO>
+template <typename T, int HO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v,
@@ -660,8 +674,8 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ m,
                              const float* __restrict__ di,
                              const float* __restrict__ kv_mask,
-                             T* __restrict__ dq, int tq, int tk, int n_heads,
-                             float scale, int causal) {
+                             T* __restrict__ dq, int tq, int tk, int hd,
+                             int n_heads, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLdo = HO + kPad;
   float* Qc = smem;                  // 64-column chunks of q, do, k, v
@@ -674,10 +688,11 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bn = blockIdx.x, q0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
-  const T* qb = q + (size_t)bn * tq * HD;
-  const T* dob = dout + (size_t)bn * tq * HD;
-  const T* kb = k + (size_t)bn * tk * HD;
-  const T* vb = v + (size_t)bn * tk * HD;
+  const int ho = min(HO, hd - c0);  // the slice's columns
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* dob = dout + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -700,15 +715,15 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(tk, q0 + kTile + offset) : tk;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
-    load_tile<T, HO, HD>(Ks, kb + c0, k0, tk, tid);
+    load_tile<T, HO>(Ks, kb + c0, k0, tk, tid, hd, ho);
     load_key_validity(valid, mask_row, k0, tk, tid);
     float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < HD; c += kTile) {
+    for (int c = 0; c < hd; c += kTile) {
       if (c) __syncthreads();
-      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
-      load_tile<T, kTile, HD>(dOc, dob + c, q0, tq, tid);
-      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
-      load_tile<T, kTile, HD>(Vc, vb + c, k0, tk, tid);
+      load_tile<T, kTile>(Qc, qb + c, q0, tq, tid, hd);
+      load_tile<T, kTile>(dOc, dob + c, q0, tq, tid, hd);
+      load_tile<T, kTile>(Kc, kb + c, k0, tk, tid, hd);
+      load_tile<T, kTile>(Vc, vb + c, k0, tk, tid, hd);
       __syncthreads();
       gemm_nt_add(Qc, Kc, ty, tx, s);
       gemm_nt_add(dOc, Vc, ty, tx, dp);
@@ -731,12 +746,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const float mul[4] = {scale, scale, scale, scale};
-  store_rows<T, HO, HD>(dq + (size_t)bn * tq * HD + c0, acc, mul, q0, tq, ty,
-                        tx);
+  store_rows<T, HO>(dq + (size_t)bn * tq * hd + c0, acc, mul, q0, tq, ty,
+                    tx, hd, ho);
 }
 
 // K3b
-template <typename T, int HD, int HO>
+template <typename T, int HO>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_cols_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
@@ -747,7 +762,8 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ di,
                               const float* __restrict__ kv_mask,
                               T* __restrict__ dk, T* __restrict__ dv, int tq,
-                              int tk, int n_heads, float scale, int causal) {
+                              int tk, int hd, int n_heads, float scale,
+                              int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLdo = HO + kPad;
   float* Kc = smem;                  // 64-column chunks of k, v, q, do
@@ -764,10 +780,11 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bn = blockIdx.x, k0 = blockIdx.y * kTile, c0 = blockIdx.z * HO;
-  const T* qb = q + (size_t)bn * tq * HD;
-  const T* dob = dout + (size_t)bn * tq * HD;
-  const T* kb = k + (size_t)bn * tk * HD;
-  const T* vb = v + (size_t)bn * tk * HD;
+  const int ho = min(HO, hd - c0);  // the slice's columns
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* dob = dout + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
@@ -790,8 +807,8 @@ __global__ void __launch_bounds__(kThreads)
   if (causal && k0 - offset > 0) q_begin = (k0 - offset) / kTile * kTile;
   for (int q0 = q_begin; q0 < tq; q0 += kTile) {
     __syncthreads();
-    load_tile<T, HO, HD>(Qs, qb + c0, q0, tq, tid);
-    load_tile<T, HO, HD>(dOs, dob + c0, q0, tq, tid);
+    load_tile<T, HO>(Qs, qb + c0, q0, tq, tid, hd, ho);
+    load_tile<T, HO>(dOs, dob + c0, q0, tq, tid, hd, ho);
     if (tid < kTile) {
       const int row = q0 + tid;
       const size_t at = (size_t)bn * tq + (row < tq ? row : 0);
@@ -801,12 +818,12 @@ __global__ void __launch_bounds__(kThreads)
       di_s[tid] = di[at];
     }
     float st[4][4] = {}, dpt[4][4] = {};  // [key r][query c]
-    for (int c = 0; c < HD; c += kTile) {
+    for (int c = 0; c < hd; c += kTile) {
       if (c) __syncthreads();
-      load_tile<T, kTile, HD>(Kc, kb + c, k0, tk, tid);
-      load_tile<T, kTile, HD>(Vc, vb + c, k0, tk, tid);
-      load_tile<T, kTile, HD>(Qc, qb + c, q0, tq, tid);
-      load_tile<T, kTile, HD>(dOc, dob + c, q0, tq, tid);
+      load_tile<T, kTile>(Kc, kb + c, k0, tk, tid, hd);
+      load_tile<T, kTile>(Vc, vb + c, k0, tk, tid, hd);
+      load_tile<T, kTile>(Qc, qb + c, q0, tq, tid, hd);
+      load_tile<T, kTile>(dOc, dob + c, q0, tq, tid, hd);
       __syncthreads();
       gemm_nt_add(Kc, Qc, ty, tx, st);
       gemm_nt_add(Vc, dOc, ty, tx, dpt);
@@ -833,10 +850,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   const float mul[4] = {scale, scale, scale, scale};
-  store_rows<T, HO, HD>(dv + (size_t)bn * tk * HD + c0, dv_acc, one, k0, tk,
-                        ty, tx);
-  store_rows<T, HO, HD>(dk + (size_t)bn * tk * HD + c0, dk_acc, mul, k0, tk,
-                        ty, tx);
+  store_rows<T, HO>(dv + (size_t)bn * tk * hd + c0, dv_acc, one, k0, tk, ty,
+                    tx, hd, ho);
+  store_rows<T, HO>(dk + (size_t)bn * tk * hd + c0, dk_acc, mul, k0, tk, ty,
+                    tx, hd, ho);
 }
 
 constexpr size_t fwd_smem(int hd) {
@@ -849,57 +866,6 @@ constexpr size_t dkv_smem(int hd) {
   return sizeof(float) *
          (4 * kTile * (hd + kPad) + 2 * kTile * kLdp + 3 * kTile);
 }
-
-inline dim3 tiles(int bn, int t) { return dim3(bn, (t + kTile - 1) / kTile); }
-
-template <typename T, int HD>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* kv_mask, void* o, void* l, void* m, int bn,
-                       int tq, int tk, int n_heads, float scale, int causal,
-                       cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_fwd_kernel<T, HD>>(
-      fwd_smem(HD));
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, HD><<<tiles(bn, tq), kThreads, fwd_smem(HD), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask, (T*)o,
-      (float*)l, (float*)m, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* l, const void* m,
-                      const void* di, const void* kv_mask, void* dq, int bn,
-                      int tq, int tk, int n_heads, float scale, int causal,
-                      cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, HD>>(
-      dq_smem(HD));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, HD>
-      <<<tiles(bn, tq), kThreads, dq_smem(HD), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)l,
-      (const float*)m, (const float*)di, (const float*)kv_mask, (T*)dq, tq,
-      tk, n_heads, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* l, const void* m,
-                       const void* di, const void* kv_mask, void* dk,
-                       void* dv, int bn, int tq, int tk, int n_heads,
-                       float scale, int causal, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, HD>>(
-      dkv_smem(HD));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, HD>
-      <<<tiles(bn, tk), kThreads, dkv_smem(HD), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)l,
-      (const float*)m, (const float*)di, (const float*)kv_mask, (T*)dk,
-      (T*)dv, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
-}
-
 
 // the _cols kernels' shared memory at HO output columns a block
 constexpr size_t fwd_cols_smem(int ho) {
@@ -914,60 +880,96 @@ constexpr size_t dkv_cols_smem(int ho) {
          (6 * kTile * kLdp + 2 * kTile * (ho + kPad) + 3 * kTile);
 }
 
-inline dim3 col_tiles(int bn, int t, int halves) {
-  return dim3(bn, (t + kTile - 1) / kTile, halves);
+constexpr int kColsHO = 128;  // output columns a _cols block
+
+constexpr int kFwd = 0, kDkv = 1, kDq = 2;  // flash_launch_shape's kernels
+
+// the float32 launch of `kernel` at head size hd: the whole-head kernels
+// (64 and 128) or, from 256 on, the _cols kernels, kColsHO columns a
+// block (the last slice may hold 64); a block owns kTile rows
+LaunchShape f32_shape(int kernel, int hd) {
+  const bool cols = hd >= 256;
+  const size_t smem[3][2] = {{fwd_smem(hd), fwd_cols_smem(kColsHO)},
+                             {dkv_smem(hd), dkv_cols_smem(kColsHO)},
+                             {dq_smem(hd), dq_cols_smem(kColsHO)}};
+  return {kThreads, smem[kernel][cols], kTile,
+          cols ? (hd + kColsHO - 1) / kColsHO : 1};
 }
 
-template <typename T, int HD, int HO = 128>
-cudaError_t launch_fwd_cols(const void* q, const void* k, const void* v,
-                            const void* kv_mask, void* o, void* l, void* m,
-                            int bn, int tq, int tk, int n_heads, float scale,
+template <typename T, int HD>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const void* kv_mask, void* o, void* l, void* m, int bn,
+                       int tq, int tk, int n_heads, float scale, int causal,
+                       cudaStream_t stream) {
+  return launch_in<flash_fwd_kernel<T, HD>>(
+      f32_shape(kFwd, HD), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+      tk, n_heads, scale, causal);
+}
+
+template <typename T, int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* l, const void* m,
+                      const void* di, const void* kv_mask, void* dq, int bn,
+                      int tq, int tk, int n_heads, float scale, int causal,
+                      cudaStream_t stream) {
+  return launch_in<flash_bwd_dq_kernel<T, HD>>(
+      f32_shape(kDq, HD), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dq, tq, tk, n_heads,
+      scale, causal);
+}
+
+template <typename T, int HD>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* l, const void* m,
+                       const void* di, const void* kv_mask, void* dk,
+                       void* dv, int bn, int tq, int tk, int n_heads,
+                       float scale, int causal, cudaStream_t stream) {
+  return launch_in<flash_bwd_dkv_kernel<T, HD>>(
+      f32_shape(kDkv, HD), bn, tk, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk,
+      n_heads, scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_fwd_cols(int hd, const void* q, const void* k,
+                            const void* v, const void* kv_mask, void* o,
+                            void* l, void* m, int bn, int tq, int tk,
+                            int n_heads, float scale, int causal,
+                            cudaStream_t stream) {
+  return launch_in<flash_fwd_cols_kernel<T, kColsHO>>(
+      f32_shape(kFwd, hd), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+      tk, hd, n_heads, scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_dq_cols(int hd, const void* q, const void* k,
+                           const void* v, const void* dout, const void* l,
+                           const void* m, const void* di, const void* kv_mask,
+                           void* dq, int bn, int tq, int tk, int n_heads,
+                           float scale, int causal, cudaStream_t stream) {
+  return launch_in<flash_bwd_dq_cols_kernel<T, kColsHO>>(
+      f32_shape(kDq, hd), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dq, tq, tk, hd, n_heads,
+      scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_dkv_cols(int hd, const void* q, const void* k,
+                            const void* v, const void* dout, const void* l,
+                            const void* m, const void* di,
+                            const void* kv_mask, void* dk, void* dv, int bn,
+                            int tq, int tk, int n_heads, float scale,
                             int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = fwd_cols_smem(HO);
-  const cudaError_t err = allow_smem<flash_fwd_cols_kernel<T, HD, HO>>(kSmem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_cols_kernel<T, HD, HO>
-      <<<col_tiles(bn, tq, HD / HO), kThreads, kSmem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask,
-          (T*)o, (float*)l, (float*)m, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD, int HO = 128>
-cudaError_t launch_dq_cols(const void* q, const void* k, const void* v,
-                           const void* dout, const void* l, const void* m,
-                           const void* di, const void* kv_mask, void* dq,
-                           int bn, int tq, int tk, int n_heads, float scale,
-                           int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = dq_cols_smem(HO);
-  const cudaError_t err =
-      allow_smem<flash_bwd_dq_cols_kernel<T, HD, HO>>(kSmem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_cols_kernel<T, HD, HO>
-      <<<col_tiles(bn, tq, HD / HO), kThreads, kSmem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (T*)dq, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD, int HO = 128>
-cudaError_t launch_dkv_cols(const void* q, const void* k, const void* v,
-                            const void* dout, const void* l, const void* m,
-                            const void* di, const void* kv_mask, void* dk,
-                            void* dv, int bn, int tq, int tk, int n_heads,
-                            float scale, int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = dkv_cols_smem(HO);
-  const cudaError_t err =
-      allow_smem<flash_bwd_dkv_cols_kernel<T, HD, HO>>(kSmem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_cols_kernel<T, HD, HO>
-      <<<col_tiles(bn, tk, HD / HO), kThreads, kSmem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale,
-          causal);
-  return cudaGetLastError();
+  return launch_in<flash_bwd_dkv_cols_kernel<T, kColsHO>>(
+      f32_shape(kDkv, hd), bn, tk, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, hd,
+      n_heads, scale, causal);
 }
 
 constexpr int kFloat32 = 0;
@@ -977,8 +979,8 @@ constexpr int kFloat16 = 2;
 }  // namespace
 
 // the bfloat16 (f16 = 0) and float16 (f16 = 1) kernels on the tensor
-// cores, at `panels` = head size / 64, 1, 2 or 4 (flash_attention_fwd.cu,
-// flash_attention_bwd.cu)
+// cores, at `panels` = head size / 64: 1, 2 or 4, or above 4 the sliced
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu)
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -995,20 +997,28 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
                             const void* kv_mask, void* dq, int bn, int tq,
                             int tk, int n_heads, float scale, int causal,
                             cudaStream_t stream);
+LaunchShape flash_fwd_tc_shape(int panels);
+LaunchShape flash_bwd_tc_shape(int dkv, int panels);
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; h: 64, 128 or 256. Anything
-// else is refused with cudaErrorInvalidValue. Empty problems launch
-// nothing. float32 takes this file's kernels (LAUNCH at 64 and 128, COLS
-// at 256), bfloat16 and float16 the tensor-core ones (TC).
+// the head sizes the kernels take: 64, 128, and every multiple of 64 from
+// 256 on
+inline bool head_size_taken(int h) {
+  return h == 64 || h == 128 || (h >= 256 && h % 64 == 0);
+}
+
+// dtype: 0 float32, 1 bfloat16, 2 float16; h: a size head_size_taken
+// accepts. Anything else is refused with cudaErrorInvalidValue. Empty
+// problems launch nothing. float32 takes this file's kernels (LAUNCH at 64
+// and 128, COLS from 256 on), bfloat16 and float16 the tensor-core ones
+// (TC).
 #define FLASH_DISPATCH(LAUNCH, COLS, TC, ...)                                \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
   if (dtype == kFloat32 && h == 128)                                         \
     return (int)LAUNCH<float, 128>(__VA_ARGS__);                             \
-  if (dtype == kFloat32 && h == 256)                                         \
-    return (int)COLS<float, 256>(__VA_ARGS__);                               \
-  if ((dtype == kBFloat16 || dtype == kFloat16) &&                           \
-      (h == 64 || h == 128 || h == 256))                                     \
+  if (dtype == kFloat32 && head_size_taken(h))                               \
+    return (int)COLS<float>(h, __VA_ARGS__);                                 \
+  if ((dtype == kBFloat16 || dtype == kFloat16) && head_size_taken(h))       \
     return (int)TC(dtype == kFloat16, h / 64, __VA_ARGS__);                  \
   return (int)cudaErrorInvalidValue;
 
@@ -1044,6 +1054,25 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   FLASH_DISPATCH(launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v, dout,
                  l, m, di, kv_mask, dq, bn, tq, tk, n_heads, scale, causal,
                  (cudaStream_t)stream)
+}
+
+// The launch shape a call of kernel `kernel` (0 K3a, 1 K3b, 2 K3c) at head
+// size h and type dtype takes, from the function its launcher calls:
+// threads a block, dynamic shared memory a block, and the slices of the
+// head (blocks along z). Returns cudaErrorInvalidValue for what the
+// dispatch refuses.
+extern "C" int flash_launch_shape(int kernel, int h, int dtype, int* shape) {
+  if (!head_size_taken(h) || kernel < kFwd || kernel > kDq ||
+      dtype < kFloat32 || dtype > kFloat16)
+    return (int)cudaErrorInvalidValue;
+  const LaunchShape s = dtype == kFloat32 ? f32_shape(kernel, h)
+                        : kernel == kFwd  ? flash_fwd_tc_shape(h / 64)
+                                          : flash_bwd_tc_shape(kernel == kDkv,
+                                                               h / 64);
+  shape[0] = s.threads;
+  shape[1] = (int)s.smem;
+  shape[2] = s.slices;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -6,15 +6,18 @@
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
+// and, at head sizes above 256, flash_bwd_dkv_sliced_kernel and
+// flash_bwd_dq_sliced_kernel
 // and computes what flash_attention.cu's note says they compute: per key
 // tile over all query tiles p = exp(s - m) / l, dv += p^T do,
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
 // tiles dq += ds k scale; the [b, tk] key mask shared by a batch item's
 // heads, the causal diagonal at the sequence end, exact zeros for a row or a
 // batch item with no valid key, any tq and tk, head size 64, 128 or 256
-// (one, two or four panels, a template parameter; the wrapper pads other
-// sizes). The operand type T (__nv_bfloat16 or __half) is the other
-// template parameter: it sets the rounding of p, ds and the outputs and
+// (one, two or four panels, a template parameter) and, in the sliced
+// kernels, any multiple of 64 above 256 (the wrapper pads other sizes).
+// The operand type T (__nv_bfloat16 or __half) is the other template
+// parameter: it sets the rounding of p, ds and the outputs and
 // the wgmma instruction's type, nothing else.
 //
 // Bound: operations. At [128, 512, 64] dK/dV is four products of
@@ -88,6 +91,30 @@
 //   warpgroups on different rows would need 128 KB for their own Q and dO
 //   tiles before any passing tile. K3b and K3c then have two stages, not
 //   three, in shared memory (210 KB and 194 KB).
+// * Head sizes above 256: the sliced kernels. The whole-tile design runs
+//   out of room there (at 256 K3b already takes 210 KB of shared memory
+//   and 255 registers), so a block is one warpgroup that owns 64 rows
+//   (query rows in K3c, keys in K3b) and one slice of the head's output
+//   columns (blockIdx.z): kDqSlice = 4 panels of dQ, or kDkvSlice = 2
+//   panels each of dK and dV, the accumulators of K3c at 256 and of K3b at
+//   128. The head size is a run-time argument: one instantiation per type
+//   serves every multiple of 64. A step passes through a ring of two 32 KB
+//   slots as items: for each panel of the head, that panel of the four
+//   operands of the two score products (Q, dO, K, V), accumulated over the
+//   whole padded head into S and dP (S^T and dP^T in K3b) with wgmma; then
+//   the slice's panels of the second products' other operand (K; or dO
+//   and Q), which the rounded dS (P and dS) multiply. One item is copied
+//   while the one before it is multiplied, one barrier an item. ds comes
+//   from dq_scores and dkv_scores, which the kernels above share, so the
+//   semantics are theirs; K3b's row statistics are read a step ahead and
+//   stored, folded, at its last item, as above. The cost: every slice
+//   computes the score products and ds again, so at 512 the tensor cores
+//   do 1.67 times K3c's work and 2.5 times K3b's, and the passing operands
+//   are copied again for each slice (from L2). 66 KB of shared memory;
+//   254 (K3b) and 248 (K3c) registers, no spills: two blocks an SM. ptxas
+//   injects a warpgroup.arrive before three (K3b) and five (K3c) of their
+//   wgmma batches (C7519: products under run-time conditions). Not tuned:
+//   the first right kernels at these sizes.
 //
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
 // chip_smoke.py prints):
@@ -153,6 +180,146 @@ struct RowStats {
   float m, l, di;
 };
 
+// K3c's ds = p (dp - di) on a warpgroup's score tile `s` (its 64 query rows
+// against the tile's 64 keys k0 ..) in place, p = exp2(s scale log2 e -
+// lse2) from the rows' exponent offsets; unless `unmasked`, zero where the
+// pair takes no part: a row past tq, a key whose `valid` flag is off, a key
+// past the row's diagonal.
+__device__ __forceinline__ void dq_scores(float (&s)[32],
+                                          const float (&dp)[32],
+                                          const float (&lse2)[2],
+                                          const float (&di_r)[2],
+                                          float scale2, bool unmasked,
+                                          const float* valid, int k0,
+                                          int row_a, int tq, int tk,
+                                          int causal, int offset, int t) {
+  if (unmasked) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2_fast(fmaf(s[i], scale2, -lse2[r])) * (dp[i] - di_r[r]);
+    }
+    return;
+  }
+  // the last key each of the thread's rows may see
+  int last_col[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    last_col[r] = row >= tq ? -1 : causal ? row + offset : tk;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 key_ok =
+        *reinterpret_cast<const float2*>(valid + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + 8 * j + 2 * t + e;
+      const bool col_ok = (e ? key_ok.y : key_ok.x) > 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r + e;
+        const float p = exp2_fast(fmaf(s[i], scale2, -lse2[r]));
+        s[i] = col_ok && col <= last_col[r] ? p * (dp[i] - di_r[r]) : 0.f;
+      }
+    }
+  }
+}
+
+// K3b's p and ds on a warpgroup's transposed tile (its 64 keys, the
+// thread's two from key_a, against the tile's 64 query rows q0 ..) in
+// place: st becomes p, dpt ds = p (dp - di), from the rows' exponent
+// offsets and di in shared memory (`lse2_s`, `di_s`); unless `unmasked`,
+// zero where the pair takes no part: a row past tq or above the key's
+// diagonal, a key the mask drops (`key_ok`).
+__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32],
+                                           const float* lse2_s,
+                                           const float* di_s, float scale2,
+                                           bool unmasked, int q0, int tq,
+                                           const bool (&key_ok)[2],
+                                           int key_a, int causal, int offset,
+                                           int t) {
+  if (unmasked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lse2 =
+          *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * t);
+      const float2 di_r =
+          *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int i = 4 * j; i < 4 * j + 4; ++i) {
+        const float p =
+            exp2_fast(fmaf(st[i], scale2, i & 1 ? -lse2.y : -lse2.x));
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - (i & 1 ? di_r.y : di_r.x));  // ds
+      }
+    }
+    return;
+  }
+  // the first query row each of the thread's keys is seen by
+  int first_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    first_row[r] = !key_ok[r] ? tq : causal ? key_a + 8 * r - offset : 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lse2 =
+        *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * t);
+    const float2 di_r =
+        *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int i = 4 * j; i < 4 * j + 4; ++i) {
+      const int row = q0 + 8 * j + 2 * t + (i & 1);
+      const bool ok = row < tq && row >= first_row[(i >> 1) & 1];
+      const float p =
+          exp2_fast(fmaf(st[i], scale2, i & 1 ? -lse2.y : -lse2.x));
+      st[i] = ok ? p : 0.f;
+      dpt[i] = ok ? p * (dpt[i] - (i & 1 ? di_r.y : di_r.x)) : 0.f;
+    }
+  }
+}
+
+// K3b: whether each of the thread's two keys (key_a and key_a + 8) takes
+// part, and whether any (`keys_any` nonzero) and all (`keys_all`) of the
+// block's 64 keys do, from the first warpgroup's four warps; `flags` holds
+// a word a warp; a barrier.
+__device__ __forceinline__ void block_keys(bool (&key_ok)[2], int& keys_any,
+                                           int& keys_all,
+                                           const float* mask_row, int key_a,
+                                           int tk, const Lanes& at,
+                                           int* flags) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    key_ok[r] = key < tk && (mask_row == nullptr || mask_row[key] > 0.f);
+  }
+  const bool any = __any_sync(0xffffffffu, key_ok[0] || key_ok[1]);
+  const bool all = __all_sync(0xffffffffu, key_ok[0] && key_ok[1]);
+  if (at.lane == 0) flags[at.tid >> 5] = (any ? 1 : 0) | (all ? 2 : 0);
+  __syncthreads();
+  keys_any = 0;
+  keys_all = 2;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    keys_any |= flags[w] & 1;
+    keys_all &= flags[w] & 2;
+  }
+}
+
+// the statistics of query row `row` of batch-head `bn`, zeros past tq
+__device__ __forceinline__ RowStats row_stats(const float* m, const float* l,
+                                              const float* di, int bn,
+                                              int tq, int row) {
+  RowStats r = {0.f, 0.f, 0.f};
+  if (row < tq) {
+    const size_t i = (size_t)bn * tq + row;
+    r.m = m[i];
+    r.l = l[i];
+    r.di = di[i];
+  }
+  return r;
+}
+
 // K3c: dq for the block's query rows over all key tiles
 template <typename T, int kPanels>
 __global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
@@ -202,18 +369,9 @@ __global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
 
   // keys past the last row's diagonal take no part, nor keys past the last
   // one the mask keeps (trailing padding)
-  int k_end = causal ? min(tk, q0 + kOwned + offset) : tk;
-  if (mask_row) {
-    int last = -1;
-    for (int col = at.tid; col < k_end; col += kThreads)
-      if (mask_row[col] > 0.f) last = col;
-    last = __reduce_max_sync(0xffffffffu, last);
-    if (at.lane == 0) flags_s[at.tid >> 5] = last;
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < 4 * kGroups; ++w) last = max(last, flags_s[w]);
-    k_end = last + 1;
-  }
+  const int k_end = kept_key_end<kThreads>(
+      mask_row, causal ? min(tk, q0 + kOwned + offset) : tk, at.tid,
+      flags_s);
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   stage_rows<kOwned, kThreads, kPanels>(q_s, q + (size_t)bn * tq * kHd, q0,
                                         tq, at.tid);
@@ -227,15 +385,9 @@ __global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
       stage_rows<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
       stage_rows<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
                                                at.tid);
-      if (at.tid < kTileRows) {  // which keys of the tile take part
-        const int col = k0 + at.tid;
-        float* dst = valid_s + stage * kTileRows + at.tid;
-        if (mask_row)
-          cp_async_4(smem_u32(dst), mask_row + (col < tk ? col : 0),
-                     col < tk ? 4 : 0);
-        else
-          *dst = col < tk ? 1.f : 0.f;
-      }
+      if (at.tid < kTileRows)  // which keys of the tile take part
+        stage_key_flag(valid_s + stage * kTileRows + at.tid, mask_row,
+                       k0 + at.tid, tk);
     }
     cp_async_commit();  // an empty group keeps the count of groups in step
   };
@@ -285,37 +437,8 @@ __global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
     const bool unmasked =
         n_valid == kTileRows && rows_inside &&
         (!causal || k0 + kTileRows - 1 <= group_row0 + offset);
-    if (unmasked) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1;
-        s[i] = exp2_fast(fmaf(s[i], scale2, -lse2[r])) * (dp[i] - di_r[r]);
-      }
-    } else {
-      // the last key each of the thread's rows may see
-      int last_col[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row_a + 8 * r;
-        last_col[r] = row >= tq ? -1 : causal ? row + offset : tk;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 key_ok =
-            *reinterpret_cast<const float2*>(valid + 8 * j + 2 * at.t);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * at.t + e;
-          const bool col_ok = (e ? key_ok.y : key_ok.x) > 0.f;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = 4 * j + 2 * r + e;
-            const float p = exp2_fast(fmaf(s[i], scale2, -lse2[r]));
-            s[i] = col_ok && col <= last_col[r] ? p * (dp[i] - di_r[r]) : 0.f;
-          }
-        }
-      }
-    }
+    dq_scores(s, dp, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq, tk,
+              causal, offset, at.t);
     uint32_t ds[4][4];
     pack_a_fragments<T>(s, ds);
 
@@ -433,24 +556,8 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
   // the thread's two keys: g and g + 8 of its warp's 16
   const int key_a = k0 + at.warp_in_group * 16 + at.g;
   bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_a + 8 * r;
-    key_ok[r] = key < tk && (mask_row == nullptr || mask_row[key] > 0.f);
-  }
-  // does any of the block's keys take part, do all
-  {
-    const bool any = __any_sync(0xffffffffu, key_ok[0] || key_ok[1]);
-    const bool all = __all_sync(0xffffffffu, key_ok[0] && key_ok[1]);
-    if (at.lane == 0) flags_s[at.tid >> 5] = (any ? 1 : 0) | (all ? 2 : 0);
-  }
-  __syncthreads();
-  int keys_any = 0, keys_all = 2;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    keys_any |= flags_s[w] & 1;
-    keys_all &= flags_s[w] & 2;
-  }
+  int keys_any, keys_all;
+  block_keys(key_ok, keys_any, keys_all, mask_row, key_a, tk, at, flags_s);
   if (!keys_any) {  // no key of the block takes part: zeros, nothing read
     if (group == 0) {
       store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, in_group);
@@ -523,44 +630,9 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
           (!causal || k0 + kTileRows - 1 <= q0 + offset);
       // p and ds: by the one warpgroup, or by warpgroup 0 of two
       const bool softmax_here = kGroups == 1 || group == 0;
-      if (softmax_here && unmasked) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 lse2 =
-              *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * at.t);
-          const float2 di_r =
-              *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * at.t);
-#pragma unroll
-          for (int i = 4 * j; i < 4 * j + 4; ++i) {
-            const float p =
-                exp2_fast(fmaf(st[i], scale2, i & 1 ? -lse2.y : -lse2.x));
-            st[i] = p;
-            dpt[i] = p * (dpt[i] - (i & 1 ? di_r.y : di_r.x));  // ds
-          }
-        }
-      } else if (softmax_here) {
-        // the first query row each of the thread's keys is seen by
-        int first_row[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          first_row[r] = !key_ok[r] ? tq : causal ? key_a + 8 * r - offset : 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 lse2 =
-              *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * at.t);
-          const float2 di_r =
-              *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * at.t);
-#pragma unroll
-          for (int i = 4 * j; i < 4 * j + 4; ++i) {
-            const int row = q0 + 8 * j + 2 * at.t + (i & 1);
-            const bool ok = row < tq && row >= first_row[(i >> 1) & 1];
-            const float p =
-                exp2_fast(fmaf(st[i], scale2, i & 1 ? -lse2.y : -lse2.x));
-            st[i] = ok ? p : 0.f;
-            dpt[i] = ok ? p * (dpt[i] - (i & 1 ? di_r.y : di_r.x)) : 0.f;
-          }
-        }
-      }
+      if (softmax_here)
+        dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
+                   key_a, causal, offset, at.t);
       uint32_t pt[4][4], dst[4][4];
       if (softmax_here) {
         pack_a_fragments<T>(st, pt);
@@ -666,9 +738,409 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-inline dim3 owned_tiles(int bn, int t, int groups) {
-  const int owned = groups * kTileRows;
-  return dim3(bn, (t + owned - 1) / owned);
+// ---------------------------------------------------------------------------
+// head sizes above 256: the sliced kernels (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kDqSlice = 4;   // panels of dQ a K3c block: 256 columns
+constexpr int kDkvSlice = 2;  // panels each of dK and dV a K3b block: 128
+
+// the ring, the tile's key flags (K3c) or the row statistics (K3b), flags
+__host__ __device__ constexpr size_t sliced_smem_bytes() {
+  return 1024 + kSlots * (kSlotBytes + kRowsBytes) + 64;
+}
+
+// K3c: dq for the block's 64 query rows and its slice of the head's
+// columns, over all key tiles
+template <typename T>
+__global__ void __launch_bounds__(128, 1)
+    flash_bwd_dq_sliced_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ l,
+                               const float* __restrict__ m,
+                               const float* __restrict__ di,
+                               const float* __restrict__ kv_mask,
+                               T* __restrict__ dq, int tq, int tk, int hd,
+                               int n_heads, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(smem);
+  float* valid_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
+  int* flags_s = reinterpret_cast<int*>(valid_s + kSlots * 2 * kTileRows);
+
+  const Lanes at;
+  const int panels = hd / kPanelCols;
+  const int panel0 = blockIdx.z * kDqSlice;
+  const int own = min(kDqSlice, panels - panel0);  // the slice's panels
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* dob = dout + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  // the thread's two rows, g and g + 8 of its warp's 16, and their
+  // statistics, loaded before any copy is started
+  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+  RowStats stats[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    stats[r] = row_stats(m, l, di, bn, tq, row_a + 8 * r);
+
+  // keys past the last row's diagonal take no part, nor keys past the last
+  // one the mask keeps (trailing padding)
+  const int k_end = kept_key_end<128>(
+      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
+      flags_s);
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
+  T* dq_cols = dq + (size_t)bn * tq * hd + panel0 * kPanelCols;
+  if (steps == 0) {  // no key reaches the block: zeros, nothing read
+    for (int p = 0; p < own; ++p)
+      store_zero_panel(dq_cols + p * kPanelCols, q0, tq, hd, at.tid);
+    return;
+  }
+
+  // A key step is `items` items through the ring: panel p of Q, dO, K and
+  // V for each panel of the head, then the slice's panels of K. The first
+  // item of a step also copies the tile's key flags.
+  const int items = panels + 1, total = steps * items;
+  auto stage_item = [&](int i) {
+    if (i < total) {
+      const int step = i / items, j = i - step * items;
+      const int k0 = step * kTileRows;
+      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+      if (j < panels) {
+        const int c = j * kPanelCols;
+        stage_panel<128>(slot, qb + c, q0, tq, hd, at.tid);
+        stage_panel<128>(slot + kPanelBytes, dob + c, q0, tq, hd, at.tid);
+        stage_panel<128>(slot + 2 * kPanelBytes, kb + c, k0, tk, hd, at.tid);
+        stage_panel<128>(slot + 3 * kPanelBytes, vb + c, k0, tk, hd, at.tid);
+        if (j == 0 && at.tid < kTileRows)  // which keys take part
+          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
+                         k0 + at.tid, tk);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kDqSlice; ++p)
+          if (p < own)
+            stage_panel<128>(slot + p * kPanelBytes,
+                             kb + (panel0 + p) * kPanelCols, k0, tk, hd,
+                             at.tid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage_item(0);
+  const float lse2[2] = {exponent_offset(stats[0].m, stats[0].l),
+                         exponent_offset(stats[1].m, stats[1].l)};
+  const float di_r[2] = {stats[0].di, stats[1].di};
+  const float scale2 = scale * kLog2e;
+  const bool rows_inside = q0 + kTileRows <= tq;
+
+  // S and dP over the whole head, dQ one [64 x 64] accumulator a panel of
+  // the slice
+  float s[32], dp[32], acc[kDqSlice][32];
+#pragma unroll
+  for (int p = 0; p < kDqSlice; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  uint32_t ds[4][4];
+  int n_valid = 0;
+
+  for (int i = 0; i < total; ++i) {
+    const int step = i / items, j = i - step * items;
+    const int k0 = step * kTileRows;
+    const float* valid = valid_s + (step % 2) * kTileRows;
+    cp_async_wait<0>();
+    if (j == 0)
+      n_valid = __syncthreads_count(at.tid < kTileRows && valid[at.tid] > 0.f);
+    else
+      __syncthreads();
+    stage_item(i + 1);
+    if (n_valid == 0) continue;  // no valid key in the step's tile
+    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+
+    if (j < panels) {
+      products_begin();
+      product_nt_panel<T>(s, slot, slot + 2 * kPanelBytes, 4 * j);
+      product_nt_panel<T>(dp, slot + kPanelBytes, slot + 3 * kPanelBytes,
+                          4 * j);
+      products_end();
+      keep_registers(s);
+      keep_registers(dp);
+      if (j == panels - 1) {  // S and dP are whole: ds
+        const bool unmasked =
+            n_valid == kTileRows && rows_inside &&
+            (!causal || k0 + kTileRows - 1 <= q0 + offset);
+        dq_scores(s, dp, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq,
+                  tk, causal, offset, at.t);
+        pack_a_fragments<T>(s, ds);
+      }
+    } else {
+      products_begin();
+#pragma unroll
+      for (int p = 0; p < kDqSlice; ++p)
+        if (p < own) product_tn<T>(acc[p], ds, slot + p * kPanelBytes);
+      products_end();
+      keep_registers(ds);
+#pragma unroll
+      for (int p = 0; p < kDqSlice; ++p) keep_registers(acc[p]);
+    }
+  }
+
+  // the ring is read no more: panel p of the slice leaves through panel p
+  // of the first slot
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kDqSlice; ++p)
+    if (p < own)
+      store_panel(dq_cols + p * kPanelCols, smem + p * kPanelBytes, acc[p],
+                  scale, q0, tq, hd, 1, at.tid);
+}
+
+// K3b: dk, dv for the block's 64 keys and its slice of the head's columns,
+// over all query tiles
+template <typename T>
+__global__ void __launch_bounds__(128, 1)
+    flash_bwd_dkv_sliced_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ dout,
+                                const float* __restrict__ l,
+                                const float* __restrict__ m,
+                                const float* __restrict__ di,
+                                const float* __restrict__ kv_mask,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                int tq, int tk, int hd, int n_heads,
+                                float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(smem);
+  // [step % 2][exponent offset, di][query of the tile]
+  float* rows_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
+  int* flags_s = reinterpret_cast<int*>(rows_s + kSlots * 2 * kTileRows);
+
+  const Lanes at;
+  const int panels = hd / kPanelCols;
+  const int panel0 = blockIdx.z * kDkvSlice;
+  const int own = min(kDkvSlice, panels - panel0);  // the slice's panels
+  const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* dob = dout + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  // under the causal mask only query rows with row + offset >= k0 reach
+  // this block's keys
+  const int first = causal && k0 - offset > 0 ? (k0 - offset) / kTileRows : 0;
+  const int steps = (tq + kTileRows - 1) / kTileRows - first;
+
+  // a passing tile's row statistics, read by 64 threads a step ahead into
+  // registers and stored, folded, at the end of the step before
+  auto load_rows = [&](int step) {
+    return step < steps && at.tid < kTileRows
+               ? row_stats(m, l, di, bn, tq,
+                           (first + step) * kTileRows + at.tid)
+               : RowStats{0.f, 0.f, 0.f};
+  };
+  auto store_rows = [&](int step, const RowStats& r) {
+    if (at.tid < kTileRows && step < steps) {
+      float* dst = rows_s + (step % 2) * 2 * kTileRows + at.tid;
+      dst[0] = exponent_offset(r.m, r.l);
+      dst[kTileRows] = r.di;
+    }
+  };
+  const RowStats rows0 = load_rows(0);
+
+  // the thread's two keys: g and g + 8 of its warp's 16
+  const int key_a = k0 + at.warp_in_group * 16 + at.g;
+  bool key_ok[2];
+  int keys_any, keys_all;
+  block_keys(key_ok, keys_any, keys_all, mask_row, key_a, tk, at, flags_s);
+  T* dk_cols = dk + (size_t)bn * tk * hd + panel0 * kPanelCols;
+  T* dv_cols = dv + (size_t)bn * tk * hd + panel0 * kPanelCols;
+  if (!keys_any) {  // no key of the block takes part: zeros, nothing read
+    for (int p = 0; p < own; ++p) {
+      store_zero_panel(dv_cols + p * kPanelCols, k0, tk, hd, at.tid);
+      store_zero_panel(dk_cols + p * kPanelCols, k0, tk, hd, at.tid);
+    }
+    return;
+  }
+
+  // A query step is `items` items through the ring: panel p of K, V, Q and
+  // dO for each panel of the head, then the slice's panels of dO and Q.
+  const int items = panels + 1, total = steps * items;
+  auto stage_item = [&](int i) {
+    if (i < total) {
+      const int step = i / items, j = i - step * items;
+      const int q0 = (first + step) * kTileRows;
+      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+      if (j < panels) {
+        const int c = j * kPanelCols;
+        stage_panel<128>(slot, kb + c, k0, tk, hd, at.tid);
+        stage_panel<128>(slot + kPanelBytes, vb + c, k0, tk, hd, at.tid);
+        stage_panel<128>(slot + 2 * kPanelBytes, qb + c, q0, tq, hd, at.tid);
+        stage_panel<128>(slot + 3 * kPanelBytes, dob + c, q0, tq, hd,
+                         at.tid);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kDkvSlice; ++p)
+          if (p < own) {
+            const int c = (panel0 + p) * kPanelCols;
+            stage_panel<128>(slot + p * kPanelBytes, dob + c, q0, tq, hd,
+                             at.tid);
+            stage_panel<128>(slot + (kDkvSlice + p) * kPanelBytes, qb + c,
+                             q0, tq, hd, at.tid);
+          }
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage_item(0);
+  store_rows(0, rows0);  // read after the first barrier
+  const float scale2 = scale * kLog2e;
+
+  // S^T and dP^T over the whole head, dK and dV one [64 x 64] accumulator
+  // a panel of the slice each
+  float st[32], dpt[32], dk_acc[kDkvSlice][32], dv_acc[kDkvSlice][32];
+#pragma unroll
+  for (int p = 0; p < kDkvSlice; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+  uint32_t pt[4][4], dst[4][4];
+  RowStats ahead = {0.f, 0.f, 0.f};
+
+  for (int i = 0; i < total; ++i) {
+    const int step = i / items, j = i - step * items;
+    const int q0 = (first + step) * kTileRows;
+    cp_async_wait<0>();
+    __syncthreads();
+    stage_item(i + 1);
+    if (j == 0) ahead = load_rows(step + 1);
+    // a tile whose last row does not reach the block's first key is skipped
+    const bool skip = causal && k0 > q0 + kTileRows - 1 + offset;
+    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+
+    if (!skip && j < panels) {
+      products_begin();
+      product_nt_panel<T>(st, slot, slot + 2 * kPanelBytes, 4 * j);
+      product_nt_panel<T>(dpt, slot + kPanelBytes, slot + 3 * kPanelBytes,
+                          4 * j);
+      products_end();
+      keep_registers(st);
+      keep_registers(dpt);
+      if (j == panels - 1) {  // S^T and dP^T are whole: p and ds
+        const float* lse2_s = rows_s + (step % 2) * 2 * kTileRows;
+        const bool unmasked =
+            keys_all && q0 + kTileRows <= tq &&
+            (!causal || k0 + kTileRows - 1 <= q0 + offset);
+        dkv_scores(st, dpt, lse2_s, lse2_s + kTileRows, scale2, unmasked, q0,
+                   tq, key_ok, key_a, causal, offset, at.t);
+        pack_a_fragments<T>(st, pt);
+        pack_a_fragments<T>(dpt, dst);
+      }
+    } else if (!skip) {
+      products_begin();
+#pragma unroll
+      for (int p = 0; p < kDkvSlice; ++p)
+        if (p < own) {
+          product_tn<T>(dv_acc[p], pt, slot + p * kPanelBytes);
+          product_tn<T>(dk_acc[p], dst, slot + (kDkvSlice + p) * kPanelBytes);
+        }
+      products_end();
+      keep_registers(pt);
+      keep_registers(dst);
+#pragma unroll
+      for (int p = 0; p < kDkvSlice; ++p) {
+        keep_registers(dv_acc[p]);
+        keep_registers(dk_acc[p]);
+      }
+    }
+    // the next step's statistics, read by its last score item after at
+    // least one more barrier; this step's are in the other half
+    if (j == panels) store_rows(step + 1, ahead);
+  }
+
+  // the ring is read no more: panel p of dV leaves through panel p of the
+  // first slot, of dK through panel kDkvSlice + p
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kDkvSlice; ++p)
+    if (p < own) {
+      store_panel(dv_cols + p * kPanelCols, smem + p * kPanelBytes, dv_acc[p],
+                  1.f, k0, tk, hd, 1, at.tid);
+      store_panel(dk_cols + p * kPanelCols,
+                  smem + (kDkvSlice + p) * kPanelBytes, dk_acc[p], scale, k0,
+                  tk, hd, 1, at.tid);
+    }
+}
+
+// K3b's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4 (a
+// block owns 64 keys, its warpgroups split the panels), the sliced kernel
+// above 4
+LaunchShape dkv_shape(int panels) {
+  if (panels > 4)
+    return {128, sliced_smem_bytes(), kTileRows,
+            (panels + kDkvSlice - 1) / kDkvSlice};
+  const int groups = dkv_groups(panels);
+  const int hand = groups > 1 ? kHandBytes : 0;
+  return {128 * groups,
+          panels == 1   ? smem_bytes<1>(1, hand)
+          : panels == 2 ? smem_bytes<2>(1, hand)
+                        : smem_bytes<4>(1, hand),
+          kTileRows, 1};
+}
+
+// K3c's: the whole-tile kernel (each warpgroup owns 64 query rows) or the
+// sliced one
+LaunchShape dq_shape(int panels) {
+  if (panels > 4)
+    return {128, sliced_smem_bytes(), kTileRows,
+            (panels + kDqSlice - 1) / kDqSlice};
+  const int groups = dq_groups(panels);
+  return {128 * groups,
+          panels == 1   ? smem_bytes<1>(groups, 0)
+          : panels == 2 ? smem_bytes<2>(groups, 0)
+                        : smem_bytes<4>(groups, 0),
+          groups * kTileRows, 1};
+}
+
+template <typename T>
+cudaError_t launch_dkv_sliced(int hd, const void* q, const void* k,
+                              const void* v, const void* dout, const void* l,
+                              const void* m, const void* di,
+                              const void* kv_mask, void* dk, void* dv,
+                              int bn, int tq, int tk, int n_heads,
+                              float scale, int causal, cudaStream_t stream) {
+  return launch_in<flash_bwd_dkv_sliced_kernel<T>>(
+      dkv_shape(hd / kPanelCols), bn, tk, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, hd,
+      n_heads, scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_dq_sliced(int hd, const void* q, const void* k,
+                             const void* v, const void* dout, const void* l,
+                             const void* m, const void* di,
+                             const void* kv_mask, void* dq, int bn, int tq,
+                             int tk, int n_heads, float scale, int causal,
+                             cudaStream_t stream) {
+  return launch_in<flash_bwd_dq_sliced_kernel<T>>(
+      dq_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dq, tq, tk, hd, n_heads,
+      scale, causal);
 }
 
 template <typename T, int kPanels>
@@ -677,20 +1149,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* di, const void* kv_mask, void* dk,
                        void* dv, int bn, int tq, int tk, int n_heads,
                        float scale, int causal, cudaStream_t stream) {
-  constexpr int kGroups = dkv_groups(kPanels);
-  constexpr size_t kSmem =
-      smem_bytes<kPanels>(1, kGroups > 1 ? kHandBytes : 0);
-  const cudaError_t err =
-      allow_smem<flash_bwd_dkv_tc_kernel<T, kPanels>>(kSmem);
-  if (err != cudaSuccess) return err;
-  // the block's warpgroups share its 64 keys
-  flash_bwd_dkv_tc_kernel<T, kPanels>
-      <<<owned_tiles(bn, tk, 1), 128 * kGroups, kSmem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale,
-          causal);
-  return cudaGetLastError();
+  return launch_in<flash_bwd_dkv_tc_kernel<T, kPanels>>(
+      dkv_shape(kPanels), bn, tk, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk,
+      n_heads, scale, causal);
 }
 
 template <typename T, int kPanels>
@@ -699,17 +1162,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* di, const void* kv_mask, void* dq, int bn,
                       int tq, int tk, int n_heads, float scale, int causal,
                       cudaStream_t stream) {
-  constexpr int kGroups = dq_groups(kPanels);
-  constexpr size_t kSmem = smem_bytes<kPanels>(kGroups, 0);
-  const cudaError_t err =
-      allow_smem<flash_bwd_dq_tc_kernel<T, kPanels>>(kSmem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_tc_kernel<T, kPanels>
-      <<<owned_tiles(bn, tq, kGroups), 128 * kGroups, kSmem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)l, (const float*)m, (const float*)di,
-          (const float*)kv_mask, (T*)dq, tq, tk, n_heads, scale, causal);
-  return cudaGetLastError();
+  return launch_in<flash_bwd_dq_tc_kernel<T, kPanels>>(
+      dq_shape(kPanels), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dq, tq, tk, n_heads,
+      scale, causal);
 }
 
 template <typename T>
@@ -728,6 +1185,10 @@ cudaError_t dkv_panels(int panels, const void* q, const void* k,
   if (panels == 4)
     return launch_dkv<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
+  if (panels > 4)
+    return launch_dkv_sliced<T>(panels * kPanelCols, q, k, v, dout, l, m, di,
+                                kv_mask, dk, dv, bn, tq, tk, n_heads, scale,
+                                causal, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -746,13 +1207,17 @@ cudaError_t dq_panels(int panels, const void* q, const void* k,
   if (panels == 4)
     return launch_dq<T, 4>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
                            n_heads, scale, causal, stream);
+  if (panels > 4)
+    return launch_dq_sliced<T>(panels * kPanelCols, q, k, v, dout, l, m, di,
+                               kv_mask, dq, bn, tq, tk, n_heads, scale,
+                               causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
-// 2 or 4
+// 2, 4 or any count above 4 (the sliced kernels)
 cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* l, const void* m, const void* di,
@@ -779,6 +1244,11 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
   return dq_panels<__nv_bfloat16>(panels, q, k, v, dout, l, m, di, kv_mask,
                                   dq, bn, tq, tk, n_heads, scale, causal,
                                   stream);
+}
+
+// the launch shape of K3b (dkv nonzero) or K3c at `panels` panels
+flash_tiles::LaunchShape flash_bwd_tc_shape(int dkv, int panels) {
+  return dkv ? dkv_shape(panels) : dq_shape(panels);
 }
 
 // x [128, 64], y [64, 64] bf16 -> nt, tn [128, 64] float32

@@ -4,7 +4,8 @@
 // float16 here and float32 to its own FMA kernels.
 //
 // Replaces the Pallas TPU kernel of chambers_tpu/ops/flash_attention.py:
-//   flash_fwd_tc_kernel  <- _flash_forward / _flash_fwd_kernel  (K3a)
+//   flash_fwd_tc_kernel      <- _flash_forward / _flash_fwd_kernel  (K3a)
+//   flash_fwd_sliced_kernel  the same, at head sizes above 256
 // and computes what flash_attention.cu's note says it computes: per query
 // tile over all key tiles s = q k^T scale with float32 accumulation, a
 // running float32 max m, p = exp(s - m) zeroed where masked, l = sum p from
@@ -12,8 +13,9 @@
 // once at the end; the [b, tk] key mask shared by a batch item's heads, the
 // causal diagonal at the sequence end, exact zeros in o and l and m at the
 // mask value for a row with no valid key, any tq and tk, head size 64, 128
-// or 256 (one, two or four panels, a template parameter; the wrapper pads
-// other sizes). The operand type T (__nv_bfloat16 or __half) is the other
+// or 256 (one, two or four panels, a template parameter) and, in the
+// sliced kernel, any multiple of 64 above 256 (the wrapper pads other
+// sizes). The operand type T (__nv_bfloat16 or __half) is the other
 // template parameter: it changes the rounding of p and the output and the
 // wgmma instruction's type, nothing else. Returns o (of T) and l, m
 // (float32, natural units) for the backward kernels.
@@ -80,6 +82,31 @@
 // Its tiles take 32 KB a row block, 162 KB of shared memory with the two
 // stages: one block an SM.
 //
+// Head sizes above 256: flash_fwd_sliced_kernel. The design above stages
+// whole tile rows, which at 256 already take 162 KB of the 227 KB a block
+// may have; at 512 one 64-row tile of Q is 64 KB. So a block owns 64 query
+// rows and one slice of kSlicePanels = 4 panels (256 columns) of O, picked
+// by blockIdx.z; the head size is a run-time argument, and one
+// instantiation per type serves every multiple of 64. A key step passes
+// through a ring of two 32 KB slots as items: the score product's
+// operands, Q's and K's panels two at a time, accumulated over the whole
+// padded head into one S with wgmma (the chain's first product
+// overwrites), then the slice's panels of V, which P, rounded to T,
+// multiplies. One item is copied while the one before it is multiplied,
+// with one barrier an item. The softmax (softmax_tile, shared with the
+// kernel above), the mask rules and the work they rule out are the
+// design's above, so the results follow the same semantics; slice 0 writes
+// l and m, and O leaves through the first slot once the ring is done. The
+// cost: every slice computes S and the softmax again, h / 256 times (at
+// 512 the tensor cores do 1.5 times the function's work, at 1024 2.5
+// times), and Q's panels are copied again at every key step (from L2).
+// 66 KB of shared memory and 236 registers, no spills (O is four panels,
+// as at 256): two blocks an SM. ptxas injects a warpgroup.arrive before
+// five of its wgmma batches (warning C7519), which run under run-time
+// conditions (the slice's panel count, an odd last panel of the head).
+// Not tuned: it is the first right kernel at these sizes (PERF.md section
+// 6 has its times: at [16, 512, 512] about half h 256's TFLOP/s).
+//
 // What holds it back, as measured on an H100 (PERF.md section 6): at
 // [128, 512, 64] with the key mask it runs at a third of the bound above
 // and in two thirds of F.scaled_dot_product_attention's time. Neither the
@@ -127,6 +154,69 @@ __host__ __device__ constexpr size_t smem_bytes() {
          kStages * (stage_bytes<kPanels>() + kTileRows * 4) + 4 * kGroups * 4;
 }
 
+// One key tile of the online softmax, on a warpgroup's score accumulator
+// `s` (its 64 rows against the tile's 64 keys), in place: unless
+// `unmasked`, the scores of masked pairs (a key whose `valid` flag is off,
+// or past the row's `last_col`) become -inf; then the new row max, the
+// rescale of l and of the kAcc O accumulators, p = exp2(s scale log2 e -
+// offset) summed into l, and p rounded to T as the A operand `p` of P V.
+template <typename T, int kAcc>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float (&acc)[kAcc][32], float (&m_run)[2],
+    float (&l_part)[2], uint32_t (&p)[4][4], const float* valid,
+    bool unmasked, int k0, const int (&last_col)[2], int t, float scale,
+    float scale2) {
+  if (!unmasked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 key_ok =
+          *reinterpret_cast<const float2*>(valid + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + 2 * t + e;
+        const bool col_ok = (e ? key_ok.y : key_ok.x) > 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          s[i] = col_ok && col <= last_col[r] ? s[i] : -INFINITY;
+        }
+      }
+    }
+  }
+
+  // the online softmax, by row: new max, rescale of l and the
+  // accumulator, and the row's exponent offset
+  float offset2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = s[2 * r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx * scale);
+    const float alpha = exp2_fast((m_run[r] - m_new) * kLog2e);
+    m_run[r] = m_new;
+    offset2[r] = m_new == kMaskValue ? 0.f : m_new * kLog2e;
+    l_part[r] *= alpha;
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[a][4 * j + 2 * r] *= alpha;
+        acc[a][4 * j + 2 * r + 1] *= alpha;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_fast(fmaf(s[i], scale2, -offset2[r]));
+    l_part[r] += s[i];
+  }
+  pack_a_fragments<T>(s, p);
+}
+
 template <typename T, int kPanels>
 __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -161,18 +251,9 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
 
   // keys past the last row's diagonal take no part, nor keys past the last
   // one the mask keeps (trailing padding)
-  int k_end = causal ? min(tk, q0 + kOwned + offset) : tk;
-  if (mask_row) {
-    int last = -1;
-    for (int col = at.tid; col < k_end; col += kThreads)
-      if (mask_row[col] > 0.f) last = col;
-    last = __reduce_max_sync(0xffffffffu, last);
-    if (at.lane == 0) flags_s[at.tid >> 5] = last;
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < 4 * kGroups; ++w) last = max(last, flags_s[w]);
-    k_end = last + 1;
-  }
+  const int k_end = kept_key_end<kThreads>(
+      mask_row, causal ? min(tk, q0 + kOwned + offset) : tk, at.tid,
+      flags_s);
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   float* l_rows = l_out + (size_t)bn * tq;
   float* m_rows = m_out + (size_t)bn * tq;
@@ -198,15 +279,9 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
       stage_rows<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
       stage_rows<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
                                                at.tid);
-      if (at.tid < kTileRows) {  // which keys of the tile take part
-        const int col = k0 + at.tid;
-        float* dst = valid_s + stage * kTileRows + at.tid;
-        if (mask_row)
-          cp_async_4(smem_u32(dst), mask_row + (col < tk ? col : 0),
-                     col < tk ? 4 : 0);
-        else
-          *dst = col < tk ? 1.f : 0.f;
-      }
+      if (at.tid < kTileRows)  // which keys of the tile take part
+        stage_key_flag(valid_s + stage * kTileRows + at.tid, mask_row,
+                       k0 + at.tid, tk);
     }
     cp_async_commit();  // an empty group keeps the count of groups in step
   };
@@ -256,56 +331,9 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     const bool unmasked =
         n_valid == kTileRows &&
         (!causal || k0 + kTileRows - 1 <= group_row0 + offset);
-    if (!unmasked) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 key_ok =
-            *reinterpret_cast<const float2*>(valid + 8 * j + 2 * at.t);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * at.t + e;
-          const bool col_ok = (e ? key_ok.y : key_ok.x) > 0.f;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = 4 * j + 2 * r + e;
-            s[i] = col_ok && col <= last_col[r] ? s[i] : -INFINITY;
-          }
-        }
-      }
-    }
-
-    // the online softmax, by row: new max, rescale of l and the
-    // accumulator, and the row's exponent offset
-    float offset2[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = s[2 * r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx * scale);
-      const float alpha = exp2_fast((m_run[r] - m_new) * kLog2e);
-      m_run[r] = m_new;
-      offset2[r] = m_new == kMaskValue ? 0.f : m_new * kLog2e;
-      l_part[r] *= alpha;
-#pragma unroll
-      for (int p = 0; p < kPanels; ++p)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[p][4 * j + 2 * r] *= alpha;
-          acc[p][4 * j + 2 * r + 1] *= alpha;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = exp2_fast(fmaf(s[i], scale2, -offset2[r]));
-      l_part[r] += s[i];
-    }
     uint32_t p[4][4];
-    pack_a_fragments<T>(s, p);
+    softmax_tile<T>(s, acc, m_run, l_part, p, valid, unmasked, k0, last_col,
+                    at.t, scale, scale2);
 
     products_begin();
 #pragma unroll
@@ -343,21 +371,224 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   }
 }
 
+// ---------------------------------------------------------------------------
+// head sizes above 256: the sliced kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kSlicePanels = 4;  // panels of O a block: 256 columns
+
+__host__ __device__ constexpr size_t sliced_smem_bytes() {
+  return 1024 + kSlots * (kSlotBytes + kTileRows * 4) + 4 * 4;
+}
+
+// K3a's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4, the
+// sliced kernel above 4
+LaunchShape fwd_shape(int panels) {
+  if (panels > 4)
+    return {128, sliced_smem_bytes(), kTileRows,
+            (panels + kSlicePanels - 1) / kSlicePanels};
+  return {128 * kGroups,
+          panels == 1   ? smem_bytes<1>()
+          : panels == 2 ? smem_bytes<2>()
+                        : smem_bytes<4>(),
+          kGroups * kTileRows, 1};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128, 1)
+    flash_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ kv_mask,
+                            T* __restrict__ o, float* __restrict__ l_out,
+                            float* __restrict__ m_out, int tq, int tk,
+                            int hd, int n_heads, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(smem);
+  float* valid_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
+  int* flags_s = reinterpret_cast<int*>(valid_s + kSlots * kTileRows);
+
+  const Lanes at;
+  const int panels = hd / kPanelCols;
+  const int panel0 = blockIdx.z * kSlicePanels;
+  const int own = min(kSlicePanels, panels - panel0);  // the slice's panels
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+  // the thread's two rows: g and g + 8 of its warp's 16
+  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+
+  // keys past the last row's diagonal take no part, nor keys past the last
+  // one the mask keeps (trailing padding)
+  const int k_end = kept_key_end<128>(
+      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
+      flags_s);
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
+  float* l_rows = l_out + (size_t)bn * tq;
+  float* m_rows = m_out + (size_t)bn * tq;
+  T* o_cols = o + (size_t)bn * tq * hd + panel0 * kPanelCols;
+
+  if (steps == 0) {  // no key reaches the block: zeros, nothing read
+    for (int p = 0; p < own; ++p)
+      store_zero_panel(o_cols + p * kPanelCols, q0, tq, hd, at.tid);
+    const int row = q0 + at.tid;
+    if (blockIdx.z == 0 && at.tid < kTileRows && row < tq) {
+      l_rows[row] = 0.f;
+      m_rows[row] = kMaskValue;
+    }
+    return;
+  }
+
+  // A key step is `items` items through the ring: the score product's
+  // operands, Q's and K's panels two at a time, then the slice's panels of
+  // V. The first item of a step also copies the tile's key flags.
+  const int score_items = (panels + 1) / 2, items = score_items + 1;
+  const int total = steps * items;
+  auto stage_item = [&](int i) {
+    if (i < total) {
+      const int step = i / items, j = i - step * items;
+      const int k0 = step * kTileRows;
+      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+      if (j < score_items) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = 2 * j + e;
+          if (p < panels) {
+            stage_panel<128>(slot + e * kPanelBytes, qb + p * kPanelCols, q0,
+                             tq, hd, at.tid);
+            stage_panel<128>(slot + (2 + e) * kPanelBytes,
+                             kb + p * kPanelCols, k0, tk, hd, at.tid);
+          }
+        }
+        if (j == 0 && at.tid < kTileRows)  // which keys take part
+          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
+                         k0 + at.tid, tk);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kSlicePanels; ++p)
+          if (p < own)
+            stage_panel<128>(slot + p * kPanelBytes,
+                             vb + (panel0 + p) * kPanelCols, k0, tk, hd,
+                             at.tid);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count of groups in step
+  };
+
+  stage_item(0);
+  const float scale2 = scale * kLog2e;
+  int last_col[2];  // the last key each of the thread's rows may see
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    last_col[r] = causal ? row_a + 8 * r + offset : tk;
+
+  // S over the whole head, O one [64 x 64] accumulator a panel of the slice
+  float s[32], acc[kSlicePanels][32], m_run[2] = {kMaskValue, kMaskValue},
+                                      l_part[2] = {0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < kSlicePanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  uint32_t p_frag[4][4];
+  int n_valid = 0;
+
+  for (int i = 0; i < total; ++i) {
+    const int step = i / items, j = i - step * items;
+    const int k0 = step * kTileRows;
+    const float* valid = valid_s + (step % 2) * kTileRows;
+    // one item in flight: wait for it, then one barrier (the item visible
+    // to all, the other slot read by all), which at a step's first item
+    // also counts the tile's valid keys
+    cp_async_wait<0>();
+    if (j == 0)
+      n_valid = __syncthreads_count(at.tid < kTileRows && valid[at.tid] > 0.f);
+    else
+      __syncthreads();
+    stage_item(i + 1);
+    if (n_valid == 0) continue;  // no valid key in the step's tile
+    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
+
+    if (j < score_items) {
+      products_begin();
+      product_nt_panel<T>(s, slot, slot + 2 * kPanelBytes, 8 * j);
+      if (2 * j + 1 < panels)
+        product_nt_panel<T>(s, slot + kPanelBytes, slot + 3 * kPanelBytes,
+                            8 * j + 4);
+      products_end();
+      keep_registers(s);
+      if (j == score_items - 1) {  // S is whole: the softmax
+        const bool unmasked =
+            n_valid == kTileRows &&
+            (!causal || k0 + kTileRows - 1 <= q0 + offset);
+        softmax_tile<T>(s, acc, m_run, l_part, p_frag, valid, unmasked, k0,
+                        last_col, at.t, scale, scale2);
+      }
+    } else {
+      products_begin();
+#pragma unroll
+      for (int p = 0; p < kSlicePanels; ++p)
+        if (p < own) product_tn<T>(acc[p], p_frag, slot + p * kPanelBytes);
+      products_end();
+      keep_registers(p_frag);
+#pragma unroll
+      for (int p = 0; p < kSlicePanels; ++p) keep_registers(acc[p]);
+    }
+  }
+
+  // l over the quad, o = acc / l (a row with l == 0 has acc == 0)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = l == 0.f ? 1.f : 1.f / l;
+    const int row = row_a + 8 * r;
+    if (blockIdx.z == 0 && at.t == 0 && row < tq) {
+      l_rows[row] = l;
+      m_rows[row] = m_run[r];
+    }
+  }
+  // the ring is read no more: panel p of the slice leaves through panel p
+  // of the first slot
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kSlicePanels; ++p) {
+    if (p < own) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
+      store_panel(o_cols + p * kPanelCols, smem + p * kPanelBytes, acc[p],
+                  1.f, q0, tq, hd, 1, at.tid);
+    }
+  }
+}
+
 template <typename T, int kPanels>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, void* l, void* m, int bn,
                    int tq, int tk, int n_heads, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<kPanels>();
-  const cudaError_t err = allow_smem<flash_fwd_tc_kernel<T, kPanels>>(kSmem);
-  if (err != cudaSuccess) return err;
-  constexpr int kOwned = kGroups * kTileRows;
-  flash_fwd_tc_kernel<T, kPanels>
-      <<<dim3(bn, (tq + kOwned - 1) / kOwned), 128 * kGroups, kSmem,
-         stream>>>((const T*)q, (const T*)k, (const T*)v,
-                   (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
-                   tk, n_heads, scale, causal);
-  return cudaGetLastError();
+  return launch_in<flash_fwd_tc_kernel<T, kPanels>>(
+      fwd_shape(kPanels), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+      tk, n_heads, scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_sliced(int hd, const void* q, const void* k,
+                          const void* v, const void* kv_mask, void* o,
+                          void* l, void* m, int bn, int tq, int tk,
+                          int n_heads, float scale, int causal,
+                          cudaStream_t stream) {
+  return launch_in<flash_fwd_sliced_kernel<T>>(
+      fwd_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+      tk, hd, n_heads, scale, causal);
 }
 
 template <typename T>
@@ -375,13 +606,16 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
   if (panels == 4)
     return launch<T, 4>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
                         scale, causal, stream);
+  if (panels > 4)
+    return launch_sliced<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
+                            bn, tq, tk, n_heads, scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
-// 2 or 4
+// 2, 4 or any count above 4 (the sliced kernel)
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -391,4 +625,9 @@ cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                                  tk, n_heads, scale, causal, stream);
   return launch_panels<__nv_bfloat16>(panels, q, k, v, kv_mask, o, l, m, bn,
                                       tq, tk, n_heads, scale, causal, stream);
+}
+
+// the launch shape of K3a at `panels` panels
+flash_tiles::LaunchShape flash_fwd_tc_shape(int panels) {
+  return fwd_shape(panels);
 }

@@ -1,8 +1,8 @@
 // Device functions for the tensor-core flash attention kernels: tiles of a
 // 16-bit type T in shared memory, the asynchronous copies that fill them,
 // and the matrix products over them. flash_attention_fwd.cu (K3a) and
-// flash_attention_bwd.cu (K3b, K3c) are built on these; allow_smem, at the
-// end, serves the launchers of all three sources.
+// flash_attention_bwd.cu (K3b, K3c) are built on these; LaunchShape and
+// launch_in, at the end, serve the launchers of all three sources.
 //
 // Types. T is __nv_bfloat16 or __half: both are 2 bytes, so the layout,
 // the copies and the descriptors are the same, and only two things take
@@ -11,7 +11,8 @@
 // either way).
 //
 // Panels and tiles. The head size is kPanels whole panels of 64 columns
-// (kPanels = 1, 2 or 4: head size 64, 128 or 256). A panel's row is 128
+// (kPanels = 1, 2 or 4: head size 64, 128 or 256; the sliced kernels of
+// larger heads take the count at run time). A panel's row is 128
 // bytes of T, and a panel of 64 rows, 8 KB, is stored [row][64] with the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r & 7).
 // Panels start at multiples of 1024 bytes, which makes that the layout
@@ -29,7 +30,8 @@
 // neighbouring threads to one row of a panel (coalesced in device memory,
 // conflict free in shared memory). A row past the operand's end is filled
 // with zeros by a source size of 0, so the ragged edge needs no padded
-// operand.
+// operand. stage_panel fills one panel the same way from an operand whose
+// row stride is known only at run time (the sliced kernels).
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -44,7 +46,8 @@
 // other fragments through shared memory, thread by thread.
 //   product_nt   acc = X . Y^T, both tiles read from shared memory through
 //                descriptors with the B128 layout: four wgmma a panel, one
-//                per 16 values of h
+//                per 16 values of h (product_nt_panel: one panel of the
+//                chain, which the sliced kernels call panel by panel)
 //   product_tn   acc += A . Y, A in registers, Y one panel read along its
 //                rows with the descriptor's transpose bit: four wgmma, one
 //                per 16 rows; a head of two panels takes one call and one
@@ -56,7 +59,8 @@
 // while the tensor cores still read it.
 //
 // store_accumulator sends an accumulator (one panel of columns) to device
-// memory through a panel in shared memory, as coalesced 16-byte stores.
+// memory through a panel in shared memory, as coalesced 16-byte stores
+// (store_panel: the same for a row stride known at run time).
 
 #pragma once
 
@@ -208,6 +212,62 @@ __device__ __forceinline__ void stage_rows(uint32_t tile, const T* src,
   }
 }
 
+// rows [row0, row0 + 64) of one panel of a [rows, stride] array of T (`src`
+// at the panel's first column) into the panel at shared address `panel`;
+// rows past the end become zeros. kThreads threads, each chunk tid % 8 of
+// rows tid / 8 + i * kThreads / 8, as stage_rows.
+template <int kThreads, typename T>
+__device__ __forceinline__ void stage_panel(uint32_t panel, const T* src,
+                                            int row0, int rows, int stride,
+                                            int tid) {
+  constexpr int kRowStep = kThreads / 8;
+  static_assert(kThreads % 64 == 0 && kTileRows % kRowStep == 0, "");
+  const int r = tid >> 3, c = tid & 7;
+#pragma unroll
+  for (int i = 0; i < kTileRows / kRowStep; ++i) {
+    const int row = r + i * kRowStep;
+    const bool inside = row0 + row < rows;
+    cp_async_16(panel + swizzled(row, c),
+                inside ? src + (size_t)(row0 + row) * stride + c * 8 : src,
+                inside ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the key mask
+// ---------------------------------------------------------------------------
+
+// The end of the keys a block of kThreads threads visits: `k_end`, cut to
+// one past the last key the batch item's mask keeps (trailing padding),
+// or k_end itself without a mask. `flags` holds a word a warp; a barrier.
+template <int kThreads>
+__device__ __forceinline__ int kept_key_end(const float* mask_row, int k_end,
+                                            int tid, int* flags) {
+  if (!mask_row) return k_end;
+  int last = -1;
+  for (int col = tid; col < k_end; col += kThreads)
+    if (mask_row[col] > 0.f) last = col;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((tid & 31) == 0) flags[tid >> 5] = last;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) last = max(last, flags[w]);
+  return last + 1;
+}
+
+// Whether key `col` takes part, into `dst` in shared memory: the mask's
+// value by an asynchronous copy (0 past tk), or without a mask 1 inside
+// the sequence.
+__device__ __forceinline__ void stage_key_flag(float* dst,
+                                               const float* mask_row,
+                                               int col, int tk) {
+  if (mask_row)
+    cp_async_4(smem_u32(dst), mask_row + (col < tk ? col : 0),
+               col < tk ? 4 : 0);
+  else
+    *dst = col < tk ? 1.f : 0.f;
+}
+
 // ---------------------------------------------------------------------------
 // fragments
 // ---------------------------------------------------------------------------
@@ -299,29 +359,38 @@ __device__ __forceinline__ void products_end() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// acc (+)= X . Y^T over one panel of h: X the warpgroup's 64 rows of the
+// panel at `x_panel`, Y the 64 rows of the panel at `y_panel`, read along
+// h. `add` is 4 times the panel's place in the chain: the first product of
+// the chain (add 0, its first 16 values) overwrites acc, the others add.
+template <typename T>
+__device__ __forceinline__ void product_nt_panel(float (&acc)[32],
+                                                 uint32_t x_panel,
+                                                 uint32_t y_panel, int add) {
+  const uint64_t dx = descriptor(x_panel), dy = descriptor(y_panel);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    // 16 values of h further on: 32 bytes, 2 in the descriptor's units
+    if constexpr (std::is_same_v<T, __half>)
+      asm volatile(FLASH_TILES_WGMMA_SS("f16")
+                   : FLASH_TILES_ACC(acc)
+                   : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(add + ks));
+    else
+      asm volatile(FLASH_TILES_WGMMA_SS("bf16")
+                   : FLASH_TILES_ACC(acc)
+                   : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(add + ks));
+  }
+}
+
 // acc = X . Y^T: X the warpgroup's 64 rows at `x_tile`, Y the 64 rows at
 // `y_tile`, both tiles of kPanels panels of T read along h
 template <typename T, int kPanels>
 __device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t x_tile,
                                            uint32_t y_tile) {
 #pragma unroll
-  for (int p = 0; p < kPanels; ++p) {
-    const uint64_t dx = descriptor(x_tile + p * kPanelBytes),
-                   dy = descriptor(y_tile + p * kPanelBytes);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      // 16 values of h further on: 32 bytes, 2 in the descriptor's units;
-      // the first product of the batch overwrites acc, the others add
-      if constexpr (std::is_same_v<T, __half>)
-        asm volatile(FLASH_TILES_WGMMA_SS("f16")
-                     : FLASH_TILES_ACC(acc)
-                     : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
-      else
-        asm volatile(FLASH_TILES_WGMMA_SS("bf16")
-                     : FLASH_TILES_ACC(acc)
-                     : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(4 * p + ks));
-    }
-  }
+  for (int p = 0; p < kPanels; ++p)
+    product_nt_panel<T>(acc, x_tile + p * kPanelBytes,
+                        y_tile + p * kPanelBytes, 4 * p);
 }
 
 // acc += A . Y: A [64 x 64] of T in registers (pack_a_fragments<T>), Y the
@@ -352,17 +421,19 @@ __device__ __forceinline__ void product_tn(float (&acc)[32],
 // ---------------------------------------------------------------------------
 
 // A warpgroup's [64 x 64] accumulator times `mul` to rows [row0, row0 + 64)
-// and 64 columns of a [rows, kHd] array of T (`dst` points at the first
+// and 64 columns of a [rows, stride] array of T (`dst` points at the first
 // column of the panel), by way of a panel in shared memory that only this
 // warpgroup uses (`tile`, a generic pointer): fragments hold pairs of
 // values, a panel's rows are 128 contiguous bytes, so the panel turns 16
 // scattered 4-byte stores a thread into 4 coalesced 16-byte ones. The
 // swizzle keeps both the fragment stores and the row reads free of bank
 // conflicts. `barrier` is a named barrier of the warpgroup's own (1 .. 15).
-template <int kHd, typename T>
-__device__ __forceinline__ void store_accumulator(
-    T* dst, uint8_t* tile, const float (&acc)[32], float mul, int row0,
-    int rows, int barrier, int thread_in_group) {
+template <typename T>
+__device__ __forceinline__ void store_panel(T* dst, uint8_t* tile,
+                                            const float (&acc)[32], float mul,
+                                            int row0, int rows, int stride,
+                                            int barrier,
+                                            int thread_in_group) {
   const int lane = thread_in_group & 31, g = lane >> 2, t = lane & 3;
   const int row_a = (thread_in_group >> 5) * 16 + g;
 #pragma unroll
@@ -378,9 +449,17 @@ __device__ __forceinline__ void store_accumulator(
   for (int i = 0; i < 4; ++i) {
     const int r = (thread_in_group >> 3) + 16 * i, c = thread_in_group & 7;
     if (row0 + r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * kHd + c * 8) =
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swizzled(r, c));
   }
+}
+
+// store_panel into a [rows, kHd] array
+template <int kHd, typename T>
+__device__ __forceinline__ void store_accumulator(
+    T* dst, uint8_t* tile, const float (&acc)[32], float mul, int row0,
+    int rows, int barrier, int thread_in_group) {
+  store_panel(dst, tile, acc, mul, row0, rows, kHd, barrier, thread_in_group);
 }
 
 // zeros to rows [row0, row0 + 64) of a [rows, kHd] array of T, by one
@@ -398,6 +477,32 @@ __device__ __forceinline__ void store_zero_rows(T* dst, int row0, int rows,
           make_uint4(0u, 0u, 0u, 0u);
   }
 }
+
+// zeros to rows [row0, row0 + 64) of one panel of a [rows, stride] array of
+// T (`dst` at the panel's first column), by one warpgroup
+template <typename T>
+__device__ __forceinline__ void store_zero_panel(T* dst, int row0, int rows,
+                                                 int stride,
+                                                 int thread_in_group) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (thread_in_group >> 3) + 16 * i, c = thread_in_group & 7;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + c * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the sliced kernels' ring (head sizes above 256)
+// ---------------------------------------------------------------------------
+
+// A slot holds four panels: the operands of the score products for one or
+// two panels of h, or the panels of the second products' operand that a
+// block's slice of output columns reads. Two slots take turns.
+constexpr int kSlotPanels = 4;
+constexpr int kSlotBytes = kSlotPanels * kPanelBytes;  // 32 KB
+constexpr int kSlots = 2;
 
 // ---------------------------------------------------------------------------
 // launch
@@ -420,6 +525,30 @@ cudaError_t allow_smem(size_t bytes) {
   if (err == cudaSuccess && known)
     allowed[device].store(true, std::memory_order_release);
   return err;
+}
+
+// A launch's shape: threads a block, dynamic shared memory a block, the
+// rows of the sequence a block owns, and the slices of the head (blocks
+// along z). Each kernel family has one function that gives it, which both
+// its launcher and flash_launch_shape call.
+struct LaunchShape {
+  int threads;
+  size_t smem;
+  int rows, slices;
+
+  dim3 grid(int bn, int t) const {
+    return dim3(bn, (t + rows - 1) / rows, slices);
+  }
+};
+
+// Launch kKernel in `shape` over bn heads of t rows.
+template <auto kKernel, class... Args>
+cudaError_t launch_in(const LaunchShape& shape, int bn, int t,
+                      cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_smem<kKernel>(shape.smem);
+  if (err != cudaSuccess) return err;
+  kKernel<<<shape.grid(bn, t), shape.threads, shape.smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace flash_tiles

@@ -17,8 +17,11 @@ of ``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
 ``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (both built on
 ``flash_tiles.cuh``, templated on the type); float32 takes the FMA kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
-of ``flash_attention.cu`` (at head size 256 their ``_cols`` forms), which
-also holds the C interface. See the notes at
+of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
+which also holds the C interface. Above head size 256 the 16-bit types take
+the sliced tensor-core kernels ``flash_fwd_sliced_kernel``,
+``flash_bwd_dkv_sliced_kernel`` and ``flash_bwd_dq_sliced_kernel``, which
+give each block one slice of the head's output columns. See the notes at
 the top of the CUDA sources for what bounds the kernels on the card and
 for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
@@ -46,16 +49,17 @@ incoming gradient contiguous (a copy when a projection hands over a
 permuted view; none for the slices of a stacked self-attention projection
 that is already contiguous).
 
-Head sizes. The kernels are built for whole 64-column panels, at
-``HEAD_SIZES`` = 64, 128 and 256. On a CUDA tensor any other head size up
-to 256 is zero-padded to the next built size (:func:`kernel_head_size`,
-:func:`pad_head`): zero columns add nothing to ``q kᵀ``, the padded
-columns of ``o``, dQ, dK and dV are dropped, the scale comes from the true
-head size, and ``di`` is computed from the unpadded ``o`` and ``do``, so
-the padded call computes the unpadded one's function (the CPU tests hold
-the plain versions to that bit for bit). A head size above 256 raises: it
-is queued in ROADMAP.md §2. On CPU tensors the plain versions take any
-head size unpadded.
+Head sizes. The kernels work on whole 64-column panels: up to 256 at
+``HEAD_SIZES`` = 64, 128 and 256, above it at any multiple of 64 (the
+sliced kernels, and the float32 ``_cols`` kernels, take the head size at
+run time). On a CUDA tensor any other head size is zero-padded to the
+next size the kernels take (:func:`kernel_head_size`, :func:`pad_head`):
+zero columns add nothing to ``q kᵀ``, the padded columns of ``o``, dQ, dK
+and dV are dropped, the scale comes from the true head size, and ``di`` is
+computed from the unpadded ``o`` and ``do``, so the padded call computes
+the unpadded one's function (the CPU tests hold the plain versions to that
+bit for bit). On CPU tensors the plain versions take any head size
+unpadded.
 """
 
 import ctypes
@@ -72,6 +76,7 @@ LIBRARY = ("flash_attention",
            ["flash_attention.cu", "flash_attention_fwd.cu",
             "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
 HEAD_SIZES = (64, 128, 256)     # head_dim the CUDA kernels are built for
+PANEL = 64                      # above HEAD_SIZES[-1]: any multiple of it
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -86,8 +91,9 @@ def _library():
     lib.flash_bwd_dkv.argtypes = [ptr] * 10 + tail
     lib.flash_bwd_dq.argtypes = [ptr] * 9 + tail
     lib.flash_tile_products.argtypes = [ptr] * 5
+    lib.flash_launch_shape.argtypes = [i32, i32, i32, ptr]
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
-               lib.flash_tile_products):
+               lib.flash_tile_products, lib.flash_launch_shape):
         fn.restype = i32
     return lib
 
@@ -119,15 +125,12 @@ def delta(o, do):
 
 def kernel_head_size(h):
     """The head size the CUDA kernels run a call of head size ``h`` at: the
-    smallest of ``HEAD_SIZES`` that holds it. Above the largest it raises:
-    head sizes over 256 are queued in ROADMAP.md §2."""
+    smallest of ``HEAD_SIZES`` that holds it, and above the largest the
+    next multiple of ``PANEL`` (the sliced kernels')."""
     for size in HEAD_SIZES:
         if h <= size:
             return size
-    raise ValueError(
-        f"the CUDA kernels take head_dim up to {HEAD_SIZES[-1]} (built at "
-        f"{HEAD_SIZES}, smaller sizes zero-padded), got {h}; larger head "
-        f"sizes are queued in ROADMAP.md §2")
+    return -(-h // PANEL) * PANEL
 
 
 def pad_head(x, size):
@@ -214,8 +217,6 @@ def _check_operands(q, k, v, kv_mask, n_heads):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CPU or CUDA, not "
                          f"{q.device}")
-    if q.device.type == "cuda":
-        kernel_head_size(h)  # raises above the largest built size
     if kv_mask is not None:
         if bn % n_heads or tuple(kv_mask.shape) != (bn // n_heads,
                                                     k.shape[1]):
@@ -234,18 +235,19 @@ def _operand(t):
 
 def _tail(q, k, scale, causal, n_heads):
     bn, tq, h = q.shape
-    if h not in HEAD_SIZES:
-        raise ValueError(f"the kernels are built at head_dim {HEAD_SIZES}, "
-                         f"got {h}: pad it (pad_head, kernel_head_size)")
+    if kernel_head_size(h) != h:
+        raise ValueError(f"the kernels take head_dim {HEAD_SIZES} and any "
+                         f"multiple of {PANEL} above, got {h}: pad it "
+                         f"(pad_head, kernel_head_size)")
     return (bn, tq, k.shape[1], h, n_heads, float(scale), int(bool(causal)),
             DTYPES[q.dtype], _build.stream(q.device))
 
 
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
-    """Launch K3a alone on checked, contiguous CUDA operands of a built head
-    size: ``(o, l, m)``. bfloat16 and float16 operands run
-    ``flash_fwd_tc_kernel``, float32 ``flash_fwd_kernel`` (at 256
-    ``flash_fwd_cols_kernel``)."""
+    """Launch K3a alone on checked, contiguous CUDA operands of a head size
+    the kernels take: ``(o, l, m)``. bfloat16 and float16 operands run
+    ``flash_fwd_tc_kernel`` (above 256 ``flash_fwd_sliced_kernel``),
+    float32 ``flash_fwd_kernel`` (from 256 on ``flash_fwd_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     bn, tq, _ = q.shape
@@ -263,7 +265,8 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
     """Launch K3b alone: ``(dk, dv)``. bfloat16 and float16 operands run
-    ``flash_bwd_dkv_tc_kernel``, float32 ``flash_bwd_dkv_kernel`` (at 256
+    ``flash_bwd_dkv_tc_kernel`` (above 256 ``flash_bwd_dkv_sliced_kernel``),
+    float32 ``flash_bwd_dkv_kernel`` (from 256 on
     ``flash_bwd_dkv_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
@@ -280,7 +283,8 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
 def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
     """Launch K3c alone: ``dq``. bfloat16 and float16 operands run
-    ``flash_bwd_dq_tc_kernel``, float32 ``flash_bwd_dq_kernel`` (at 256
+    ``flash_bwd_dq_tc_kernel`` (above 256 ``flash_bwd_dq_sliced_kernel``),
+    float32 ``flash_bwd_dq_kernel`` (from 256 on
     ``flash_bwd_dq_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
@@ -292,6 +296,20 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
     _check_launch(lib, code, "flash_bwd_dq_kernel")
     flash_attention.launches["dq"] += 1
     return dq
+
+
+def launch_shape(kernel, dtype, h):
+    """How a launch of ``kernel`` ("fwd", "dkv" or "dq") at head size ``h``
+    (one the kernels take) in ``dtype`` is shaped, as its launcher shapes
+    it: ``threads`` a block, the block's dynamic shared memory
+    ``smem_bytes``, and ``slices``, the blocks that split the head's output
+    columns."""
+    shape = (ctypes.c_int * 3)()
+    code = _library().flash_launch_shape(
+        ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], shape)
+    _check_launch(_library(), code, "flash_launch_shape")
+    return {"threads": shape[0], "smem_bytes": shape[1],
+            "slices": shape[2]}
 
 
 def tile_products(x, y):
@@ -348,10 +366,11 @@ def _flash_fwd_fake(q, k, v, kv_mask, scale, causal, n_heads):
 class FlashAttentionFunction(torch.autograd.Function):
     """``o = attention(q, k, v)`` over ``[bn, t, h]`` with a hand-written
     backward; ``scale`` multiplies the scores. The forward is the
-    :func:`flash_fwd` operator. On CUDA tensors a head size the kernels are
-    not built at is zero-padded to the next one (:func:`pad_head`): the
-    padded ``q, k, v, o`` are saved, the incoming gradient is padded and
-    the padded columns of every output are dropped."""
+    :func:`flash_fwd` operator. On CUDA tensors a head size the kernels do
+    not take is zero-padded to the next one (:func:`kernel_head_size`,
+    :func:`pad_head`): the padded ``q, k, v, o`` are saved, the incoming
+    gradient is padded and the padded columns of every output are
+    dropped."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, n_heads):

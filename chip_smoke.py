@@ -274,10 +274,26 @@ the CUDA toolkit. In order, it:
     against float32's on the same init (within 5%), its ms/step in turns
     with the bf16 step, K3a-c 12 launches each a step by the counters, set
     to 0 just before the timed steps and read just after;
-28. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
+28. runs the flash kernels at head sizes above 256 (``wide_heads_path``),
+    on the sliced tensor-core kernels and, in float32, the ``_cols`` FMA
+    kernels: (a) K3a-c through ``flash_attention`` and its backward at
+    ``[16, 512, 512]`` (phase 9's width over one head) with the ragged key
+    mask, causal and not, in bf16, float16 and float32, held to their
+    plain versions with phase 8's tolerances and timed in bf16 and float16
+    at phase 11's tokens against their bounds and SDPA, whose backend the
+    profiler names; (b) K3a-c held at h 288 (padded to 320), 384 and 1024
+    on small shapes (cross lengths under the causal mask, rows and a batch
+    item with no valid key, a scattered key mask) in the three types; (c)
+    phase 9's padded train step over one head of 512, flash against dense
+    attention on the same init (first loss and logits, the timed steps in
+    turns, K3a-c 12 launches each a step by the counters); (d) greedy
+    decoding of 16 tokens at h 512 (float32 tokens equal dense's) and K3a
+    at one query row, ``[16, 1, 512]`` against ``[16, 512, 512]``, held
+    and timed as in phase 17;
+29. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
     ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
     line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``float16``
-    JSON line (phase 27), a ``paths``
+    JSON line (phase 27), a ``wide_heads`` JSON line (phase 28), a ``paths``
     JSON line (the
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
@@ -289,8 +305,10 @@ the CUDA toolkit. In order, it:
     ``launches_trainer_mesh`` and ``launches_context_parallel``, K3a-c at
     h 32, 128 and 256 as ``shape_h32``, ``shape_h128`` and ``shape_h256``
     with their registers and spills, in float16 at ``[128, 512, 64]`` as
-    ``float16``, K3a at one query row at h 128 as ``decode_h128``, K3a's two
-    decode shapes as rows of their own after it), the card line, and last
+    ``float16``, at h 512 as ``shape_h512`` with their registers, spills
+    and launch shapes, K3a at one query row at h 128 and 512 as
+    ``decode_h128`` and ``decode_h512``, K3a's two decode shapes as rows of
+    their own after it), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -318,7 +336,8 @@ CARD = ""
 # registers and spilled bytes of each kernel, from the build's ptxas report
 PTXAS = {}
 # a flash kernel's name in a profiler key, mangled or not
-FLASH_KERNEL = r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc|_cols)?_kernel)"
+FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc|_cols|_sliced)?"
+                r"_kernel)")
 
 
 def check(ok, what):
@@ -380,25 +399,34 @@ def warp_matrices(torch, iops, b, device):
 
 def read_build_report(path, seconds):
     """Log a built library's nvcc report, kernel by kernel (registers,
-    spills), and keep each kernel's in ``PTXAS``; returns whether it was
+    spills, and the fences ptxas injected before a ``wgmma``, warning
+    C7519), and keep each kernel's in ``PTXAS``; returns whether it was
     built with ``--fmad=false``."""
     report = path.with_suffix(".log").read_text().splitlines()
     no_fma = "--fmad=false" in report[0]  # the nvcc command line
     log(f"build: {seconds:.1f} s -> {path.name} "
         f"({'--fmad=false' if no_fma else 'FMAs allowed'})")
     kernel = spills = ""
+    fences = {}
     for line in report:
+        if "(C7519)" in line and "'" in line:
+            name = kernel_name(line.split("'")[1])
+            fences[name] = fences.get(name, 0) + 1
         if "Compiling entry" in line:
             kernel = kernel_name(line.split("'")[1])
         if "bytes spill" in line:
             spills = line.strip()
-        if "registers" in line:
+        if re.search(r"Used \d+ registers", line):
             log(f"  nvcc {kernel}: {line.split(':')[-1].strip()}; {spills}")
             PTXAS[kernel] = {
                 "registers": int(re.search(r"(\d+) registers",
                                            line).group(1)),
                 "spill_bytes": sum(int(x) for x in re.findall(
                     r"(\d+) bytes spill", spills))}
+    for name, n in fences.items():
+        log(f"  nvcc {name}: warpgroup.arrive injected before a wgmma "
+            f"{n} times (C7519)")
+        PTXAS.setdefault(name, {})["fences_injected"] = n
     return no_fma
 
 
@@ -406,26 +434,32 @@ def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
     64>``, ``..flash_bwd_dq_tc_kernelI6__halfLi2EE..`` ->
     ``flash_bwd_dq_tc_kernel<f16, 128>`` (two 64-column panels),
-    ``..flash_fwd_cols_kernelIfLi256ELi128EE..`` -> ``flash_fwd_cols_kernel<
-    f32, 256>``, ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a name
-    it cannot read comes back as it is."""
-    found = re.search(r"\d{2}([a-z][a-z_]*_kernel)(?:I(\w+?)Li(\d+)E)?",
+    ``..flash_fwd_cols_kernelIfLi128EE..`` -> ``flash_fwd_cols_kernel<f32>``
+    and ``..flash_fwd_sliced_kernelI13__nv_bfloat16EE..`` ->
+    ``flash_fwd_sliced_kernel<bf16>`` (the head size at run time),
+    ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a name it cannot
+    read comes back as it is."""
+    found = re.search(r"\d{2}([a-z][a-z_]*_kernel)"
+                      r"(I(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?)?",
                       mangled)
     if not found:
         return mangled
+    name = found.group(1)
     if not found.group(2):
         groups = re.search(r"_kernelILi(\d)EE", mangled)
         if not groups:
-            return found.group(1)
-        if found.group(1) == "warp_kernel":  # templated on the channels
+            return name
+        if name == "warp_kernel":  # templated on the channels
             return f"warp_kernel<c={groups.group(1) if groups.group(1) != '0' else 'any'}>"
-        return f"{found.group(1)}<{64 * int(groups.group(1))}>"
-    dtype = ("bf16" if "bfloat" in found.group(2) else
-             "f16" if "half" in found.group(2) else "f32")
-    size = int(found.group(3))
-    if found.group(1).endswith("_tc_kernel"):  # templated on the panels
+        return f"{name}<{64 * int(groups.group(1))}>"
+    dtype = ("f32" if found.group(3) == "f" else
+             "bf16" if "bfloat" in found.group(3) else "f16")
+    if found.group(4) is None or name.endswith("_cols_kernel"):
+        return f"{name}<{dtype}>"
+    size = int(found.group(4))
+    if name.endswith("_tc_kernel"):  # templated on the panels
         size *= 64
-    return f"{found.group(1)}<{dtype}, {size}>"
+    return f"{name}<{dtype}, {size}>"
 
 
 def max_abs_diff(a, b):
@@ -534,16 +568,16 @@ def phase8_cases(torch, dev):
     return cases, dead
 
 
-def check_flash_kernels(torch, fa, dev, h=64, cases=None):
+def check_flash_kernels(torch, fa, dev, h=64, cases=None, dead=None):
     """Phase 8: K3a-c against their plain versions on the card, through the
     wrapper the paths call: ``flash_attention`` forward and its backward,
     so the operand checks and copies, the fold, the scale's reciprocal and
     the chain of saved tensors (the backward kernels read the forward
     kernel's own o, l, m) are held as well. Returns the max abs errors at
-    the train step's shape, by kernel. Phase 26 passes its own ``cases``
-    at head size ``h``: the direct launches then take operands padded to
-    the size the kernels are built at, as the wrapper pads them."""
-    dead = None
+    the train step's shape, by kernel. Phases 26 and 28 pass their own
+    ``cases`` at head size ``h`` (and ``dead``, the mask of a case whose
+    batch item 1 has no valid key): the direct launches then take operands
+    padded to the size the kernels take, as the wrapper pads them."""
     if cases is None:
         cases, dead = phase8_cases(torch, dev)
     size = fa.kernel_head_size(h)
@@ -920,7 +954,9 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
     kernels on operands padded to the size they are built at, the plain
     versions, SDPA and the bounds at ``h``. Phase 27 times them in
     ``dtype`` float16 (the same kernels' other instance; SDPA in float16;
-    no float32 timing)."""
+    no float32 timing). Bounds and TFLOP/s count the keys the mask keeps
+    (the kernels stop at a row's last valid key); ``full_kv_bound_ms``
+    counts every key."""
     F = torch.nn.functional
     dtype = dtype or torch.bfloat16
     type_name = str(dtype).split(".")[-1]
@@ -1006,43 +1042,59 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
     source = {"fwd": "flash_attention_fwd.cu", "dkv": "flash_attention_bwd.cu",
               "dq": "flash_attention_bwd.cu"}
 
+    # The bound counts the work this data needs: the kernels stop at a
+    # row's last valid key, so only the kept rows of k and v are read and
+    # only the kept keys are multiplied (causal: key j by the t - j rows at
+    # or after it). full_kv_bound_ms counts every key, as if unmasked.
     elem = 2  # bytes of a bf16 or float16 value
-    qkv = 3 * bn * t * h * elem
+    kept = n * int(mask.sum())               # rows of k and v kept
+    row_bytes = bn * t * h * elem            # q, do, o, dq: every row
+    kv = 2 * kept * h * elem                 # the kept rows of k and v
     stats = bn * t * 4                       # one float32 row statistic
-    pairs = bn * t * t * h                   # multiply-adds of one product
+    pairs = n * t * h * int(mask.sum())      # multiply-adds of one product
+    causal_pairs = n * h * int(((t - torch.arange(t, device=dev)) * mask)
+                               .sum())
+    full_pairs = bn * t * t * h
     plain_fwd_ms = cuda_ms(torch, lambda: fa.flash_forward_plain(
         *nxt()[:3], scale, False, fmask, n), 10)
     plain_bwd_ms = cuda_ms(torch, plain_bwd, 10)
     lib_fwd_ms = cuda_ms(torch, sdpa, 20, backlog=True)
     lib_bwd_ms = cuda_ms(torch, sdpa_bwd, 20, backlog=True)
     wrapper_ms = cuda_ms(torch, wrapped, 20)
+    # (name, key, launch, bytes beyond the kept k and v rows, products,
+    # replaces, plain_ms, library_ms): K3a reads q and writes o, l, m; K3b
+    # and K3c read q, do, l, m, di and write dk, dv or dq, all at every row
     specs = (
         ("flash_fwd", "fwd", lambda c: fa.launch_forward(
             *nxt_padded()[:3], fmask, scale, c, n),
-         qkv + bn * t * h * elem + 2 * stats + b * t * 4, 4 * pairs,
+         2 * row_bytes + 2 * stats, 4,
          "chambers_tpu/ops/flash_attention.py:190 _flash_forward",
          plain_fwd_ms, lib_fwd_ms),
         ("flash_bwd_dkv", "dkv", lambda c: fa.launch_backward_dkv(
             *bwd_args(c)),
-         qkv + bn * t * h * elem + 3 * stats + b * t * 4
-         + 2 * bn * t * h * elem, 8 * pairs,
+         4 * row_bytes + 3 * stats, 8,
          "chambers_tpu/ops/flash_attention.py:387 _flash_backward (dK/dV)",
          plain_bwd_ms, lib_bwd_ms),
         ("flash_bwd_dq", "dq", lambda c: fa.launch_backward_dq(
             *bwd_args(c)),
-         qkv + bn * t * h * elem + 3 * stats + b * t * 4
-         + bn * t * h * elem, 6 * pairs,
+         3 * row_bytes + 3 * stats, 6,
          "chambers_tpu/ops/flash_attention.py:418 _flash_backward (dQ)",
          plain_bwd_ms, lib_bwd_ms),
     )
     rows = []
-    for name, key, bare, nbytes, ops, replaces, plain_ms, lib_ms in specs:
+    for name, key, bare, other, per_pair, replaces, plain_ms, lib_ms in specs:
         kernel_ms = cuda_ms(torch, lambda: bare(False), 20, backlog=True)
         causal_ms = cuda_ms(torch, lambda: bare(True), 20, backlog=True)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        mask_bytes = b * t * 4
+        ops = per_pair * pairs
+        bytes_ms = (other + kv + mask_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / BF16_OPS_PER_S * 1e3  # float16's peak is the same
         bound_ms = max(bytes_ms, ops_ms)
-        causal_bound_ms = max(bytes_ms, ops_ms / 2)
+        causal_bound_ms = max(bytes_ms,
+                              per_pair * causal_pairs / BF16_OPS_PER_S * 1e3)
+        full_kv_bound_ms = max(
+            (other + 2 * row_bytes + mask_bytes) / HBM_BYTES_PER_S,
+            per_pair * full_pairs / BF16_OPS_PER_S) * 1e3
         rows.append({
             "name": name, "route": "cuda",
             "source": "chambers_tpu_torch/ops/csrc/" + source[key],
@@ -1054,12 +1106,16 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms, "causal_ms": causal_ms,
             "causal_bound_ms": causal_bound_ms,
+            "full_kv_bound_ms": full_kv_bound_ms,
             "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
             "float32_ms": float32_ms[key],
             "note": ("plain_ms and library_ms are the whole backward, dK/dV "
                      "and dQ together" if key != "fwd" else
                      "library_ms is F.scaled_dot_product_attention with the "
-                     "same key mask"),
+                     "same key mask")
+                    + f"; bound_ms and achieved_tflops count the {kept} of "
+                      f"{bn * t} key rows the mask keeps, full_kv_bound_ms "
+                      f"every key",
             "card": CARD,
         })
         log(f"{name} [{bn}, {t}, {h}] {type_name} key mask: kernel "
@@ -1067,7 +1123,8 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
             f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
-            f"{causal_bound_ms * 1e3:.2f} us)"
+            f"{causal_bound_ms * 1e3:.2f} us; all keys "
+            f"{full_kv_bound_ms * 1e3:.2f} us)"
             + (f", float32 operands (the FMA kernel) "
                f"{float32_ms[key] * 1e3:.1f} us" if float32_ms[key] else "")
             + f" on {CARD}")
@@ -5445,14 +5502,18 @@ def head_size_cases(torch, dev, h, heads, dtype=None):
     return cases
 
 
-def seq2seq_at_heads(torch, fa, dev):
+def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
+                     phase=26):
     """Phase 26 (b), (c): phase 9's padded train step at each head count of
-    ``HEADS``, flash against dense attention on the same init (the first
-    loss and logits; the timed steps in turns; K3a-c launches by the
-    counters, 12 each a flash step); then greedy decoding of
-    ``HEADS_DECODE`` tokens at h 128, on flash and dense: in bf16, the K3a
-    launches by shape and the share of equal tokens, and in float32 (the
-    FMA kernels), whose tokens must equal the dense path's."""
+    ``heads_of`` (``HEADS`` unless given: head count by head size), flash
+    against dense attention on the same init (the first loss and logits;
+    the timed steps in turns; K3a-c launches by the counters, 12 each a
+    flash step); then greedy decoding of ``HEADS_DECODE`` tokens at head
+    size ``decode_h``, on flash and dense: in bf16, the K3a launches by
+    shape and the share of equal tokens, and in float32 (the FMA kernels),
+    whose tokens must equal the dense path's. Phase 28 runs it at h 512
+    under its own ``phase`` label."""
+    heads_of = heads_of or HEADS
     from chambers_tpu_torch.models import greedy_decode
 
     src, tgt = seq2seq_tokens(torch, dev)
@@ -5462,7 +5523,7 @@ def seq2seq_at_heads(torch, fa, dev):
         return torch.where(src > 0, (src + i) % (vocab - 1) + 1, 0), tgt
 
     out, steps, tallies, models = {}, {}, {}, {}
-    for h, heads in HEADS.items():
+    for h, heads in heads_of.items():
         flash = build_seq2seq(torch, dev, torch.bfloat16, heads).train()
         dense = build_seq2seq(torch, dev, torch.bfloat16, heads,
                               "xla").train()
@@ -5476,7 +5537,7 @@ def seq2seq_at_heads(torch, fa, dev):
         b = logits_d[real].float().flatten()
         cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
         rel = abs(float(loss_f) - float(loss_d)) / abs(float(loss_d))
-        log(f"phase 26 (b) h {h} ({heads} heads): first step, flash vs "
+        log(f"phase {phase} (b) h {h} ({heads} heads): first step, flash vs "
             f"dense: loss {float(loss_f):.5f} vs {float(loss_d):.5f} (rel "
             f"{rel:.2e}), logits cosine {cos:.6f}")
         check(rel <= 1e-2 and cos >= 0.999,
@@ -5527,8 +5588,8 @@ def seq2seq_at_heads(torch, fa, dev):
             "flash_launches": {k: tallies[name][k] for k in
                                ("fwd", "dkv", "dq")},
             "steps_counted": tallies[name]["steps"]})
-        log(f"phase 26 (b) {name} (b16, 512 + 512 bf16, AdamW): median of "
-            f"{HEADS_REPEATS} runs of {HEADS_STEPS} steps in turns "
+        log(f"phase {phase} (b) {name} (b16, 512 + 512 bf16, AdamW): median "
+            f"of {HEADS_REPEATS} runs of {HEADS_STEPS} steps in turns "
             f"{ms:.3f} ms/step (runs "
             f"{', '.join(f'{r:.3f}' for r in runs[name])}), kernels "
             f"{row['device_ms']:.3f} ms, busy {100 * row['busy']:.1f}%, "
@@ -5537,16 +5598,17 @@ def seq2seq_at_heads(torch, fa, dev):
             f"{row['steps_counted']} steps, on {CARD}")
     del steps, profiles
 
-    # (c) greedy decoding at h 128
-    flash, dense = (m.eval() for m in models[128])
+    # (c) greedy decoding at decode_h
+    flash, dense = (m.eval() for m in models[decode_h])
     with torch.no_grad(), shape_tally(fa) as tally:
         got = greedy_decode(flash, src, max_len=HEADS_DECODE, bos_id=1)
     with torch.no_grad():
         want = greedy_decode(dense, src, max_len=HEADS_DECODE, bos_id=1)
     bf16_equal = float((got == want).float().mean())
     del models, flash, dense
-    f32 = build_seq2seq(torch, dev, torch.float32, HEADS[128])
-    f32_dense = build_seq2seq(torch, dev, torch.float32, HEADS[128], "xla")
+    f32 = build_seq2seq(torch, dev, torch.float32, heads_of[decode_h])
+    f32_dense = build_seq2seq(torch, dev, torch.float32, heads_of[decode_h],
+                              "xla")
     f32_dense.load_state_dict(f32.state_dict())
     before = flash_counts(fa)["fwd"]
     with torch.no_grad():
@@ -5562,16 +5624,16 @@ def seq2seq_at_heads(torch, fa, dev):
               "bf16_tokens_equal_share": bf16_equal,
               "float32_tokens_equal": tokens_equal,
               "float32_k3a_launches": launches32}
-    log(f"phase 26 (c) greedy decoding of {HEADS_DECODE} tokens x "
-        f"{src.shape[0]} sources at h 128: bf16 flash K3a launches by "
+    log(f"phase {phase} (c) greedy decoding of {HEADS_DECODE} tokens x "
+        f"{src.shape[0]} sources at h {decode_h}: bf16 flash K3a launches by "
         f"(tq, tk) {decode['bf16_k3a_launches_by_shape']}, "
         f"{100 * bf16_equal:.1f}% of its tokens equal the dense path's; "
         f"float32 (the FMA kernels, {launches32} K3a launches) tokens "
         f"{'equal' if tokens_equal else 'differ from'} the dense path's")
-    check(tokens_equal, "float32 greedy tokens at h 128 on flash equal the "
-                        "dense path's")
+    check(tokens_equal, f"float32 greedy tokens at h {decode_h} on flash "
+                        f"equal the dense path's")
     check(tally.counts.get((1, S2S["t"]), 0) > 0,
-          "the cached steps ran K3a at one query row at h 128")
+          f"the cached steps ran K3a at one query row at h {decode_h}")
     return out, decode
 
 
@@ -5652,7 +5714,6 @@ def head_sizes_path(torch, fa, dev, rows):
             if key is None or got is None:
                 continue
             size = fa.kernel_head_size(h)
-            cols = "_cols" if size == 256 else ""
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
@@ -5660,14 +5721,15 @@ def head_sizes_path(torch, fa, dev, rows):
                 **{k: got[k] for k in (
                     "launches", "max_abs_err", "ms", "plain_ms",
                     "wrapper_ms", "bound_ms", "bound_by", "library_ms",
-                    "causal_ms", "causal_bound_ms", "achieved_tflops",
-                    "float32_ms")},
+                    "causal_ms", "causal_bound_ms", "full_kv_bound_ms",
+                    "achieved_tflops", "float32_ms")},
                 "launches_over_steps": flash["steps_counted"],
                 "ptxas": PTXAS.get(f"{row['name']}_tc_kernel<bf16, {size}>"),
                 "ptxas_float16": PTXAS.get(
                     f"{row['name']}_tc_kernel<f16, {size}>"),
                 "ptxas_float32": PTXAS.get(
-                    f"{row['name']}{cols}_kernel<f32, {size}>")}
+                    f"{row['name']}_cols_kernel<f32>" if size >= 256 else
+                    f"{row['name']}_kernel<f32, {size}>")}
     decode_rows = time_decode_kernels(
         torch, fa, dev, {f"1x{S2S['t']}": decode[
             "bf16_k3a_launches_by_shape"].get(f"1x{S2S['t']}", 0)},
@@ -5814,7 +5876,7 @@ def float16_path(torch, fa, dev, rows):
             **{k: got[k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
                 "bound_ms", "bound_by", "library_ms", "causal_ms",
-                "causal_bound_ms", "achieved_tflops")},
+                "causal_bound_ms", "full_kv_bound_ms", "achieved_tflops")},
             "bf16_ms": row["ms"], "bf16_causal_ms": row["causal_ms"],
             "launches_over_steps": tallies["float16"]["steps"],
             "ptxas": PTXAS.get(f"{row['name']}_tc_kernel<f16, 64>"),
@@ -5827,6 +5889,139 @@ def float16_path(torch, fa, dev, rows):
             f"{got['bound_ms'] * 1e3:.2f} us, on {CARD}")
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"phase 27: {out['seconds']} s")
+    return out
+
+
+# phase 28: head sizes above 256 (the sliced kernels); phase 9's width over
+# one head, and small shapes at the other sizes, correctness only
+WIDE = {512: 1}
+WIDE_SMALL = (288, 384, 1024)
+
+
+def wide_small_cases(torch, dev, h, dtype):
+    """Phase 28 (b)'s small cases at head size ``h`` in ``dtype``: cross
+    lengths under the causal mask (130 rows with no key among them), a
+    scattered key mask, and a batch item with no valid key; and that
+    item's mask."""
+    dead = ragged_mask(torch, 2, 200, dev)
+    dead[1] = False
+    return [
+        (f"cross lengths 130x260 causal, h {h}", 1, 2, 130, 260, dtype,
+         True, None, "plain"),
+        (f"cross lengths 260x130 causal, 130 rows with no key, h {h}", 1,
+         2, 260, 130, dtype, True, None, "plain"),
+        (f"70x150 key mask, h {h}", 3, 2, 70, 150, dtype, False,
+         scattered_mask(torch, 3, 150, dev, 13), "permuted"),
+        (f"batch item with no valid key, h {h}", 2, 2, 200, 200, dtype,
+         False, dead, "stacked")], dead
+
+
+def sdpa_backend(torch, dev, h, heads, dtype):
+    """The backend ``F.scaled_dot_product_attention`` picks at ``[16, heads,
+    512, h]`` in ``dtype`` with the ragged key mask: PyTorch's own choice,
+    ``torch._fused_sdp_choice`` (flash_attention, efficient_attention,
+    cudnn_attention or math)."""
+    from torch.nn.attention import SDPBackend
+
+    b, t = S2S["batch"], S2S["t"]
+    mask = ragged_mask(torch, b, t, dev)[:, None, None, :]
+    q, k, v = (torch.empty((b, heads, t, h), device=dev, dtype=dtype)
+               .requires_grad_() for _ in range(3))
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0,
+                                              False)).name.lower()
+
+
+def wide_heads_path(torch, fa, dev, rows):
+    """Phase 28: head sizes above 256, on the sliced kernels (float32 on the
+    ``_cols`` kernels). (a) K3a-c through ``flash_attention`` and its
+    backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
+    ragged key mask, causal and not, in bf16, float16 and float32, held to
+    their plain versions with phase 8's tolerances and timed in bf16 and
+    float16 at phase 11's tokens and FLOPs against their bounds and SDPA
+    (whose backend is named); (b) K3a-c held at h 288 (padded to 320),
+    384 and 1024 on small shapes in the three types; (c), (d)
+    ``seq2seq_at_heads`` at one head of 512: the train step against dense,
+    K3a-c 12 launches each a step, and greedy decoding of 16 tokens, K3a
+    at one query row (``[16, 1, 512]`` against ``[16, 512, 512]``) held and
+    timed as in phase 17. Adds ``shape_h512`` to the K3a-c rows of the
+    ``kernels`` line and ``decode_h512`` to K3a's; returns the phase's
+    JSON object."""
+    t0 = time.perf_counter()
+    (h, heads), = WIDE.items()
+    steps, decode = seq2seq_at_heads(torch, fa, dev, WIDE, h, 28)
+    out = {"seq2seq": steps, "decode": decode, "max_abs_err": {}}
+    types = (torch.bfloat16, torch.float16, torch.float32)
+    errors = {}
+    for dtype in types:
+        name = str(dtype).split(".")[-1]
+        errors[dtype] = check_flash_kernels(
+            torch, fa, dev, h, head_size_cases(torch, dev, h, heads,
+                                               dtype)[:2])
+        out["max_abs_err"][f"h{h} {name}"] = errors[dtype]
+        for small in WIDE_SMALL:
+            cases, dead = wide_small_cases(torch, dev, small, dtype)
+            check_flash_kernels(torch, fa, dev, small, cases, dead)
+    out["small_sizes_held"] = {
+        "head_sizes": list(WIDE_SMALL),
+        "kernel_head_sizes": [fa.kernel_head_size(x) for x in WIDE_SMALL],
+        "types": [str(d).split(".")[-1] for d in types]}
+    flash = steps[f"h{h}"]["flash"]
+    timed = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
+                               errors[torch.bfloat16], h, heads)
+    timed16 = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
+                                 errors[torch.float16], h, heads,
+                                 torch.float16)
+    backend = sdpa_backend(torch, dev, h, heads, torch.bfloat16)
+    out["sdpa_backend"] = {"bf16": backend}
+    log(f"phase 28: SDPA at [{S2S['batch']}, {heads}, {S2S['t']}, {h}] bf16 "
+        f"with the key mask picks the {backend} backend")
+    for row in rows:
+        key = FLASH_KEYS.get(row["name"])
+        got = next((r for r in timed if r["name"] == row["name"]), None)
+        got16 = next((r for r in timed16 if r["name"] == row["name"]), None)
+        if key is None or got is None:
+            continue
+        row[f"shape_h{h}"] = {
+            "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
+                     f"ragged key mask",
+            "kernel_head_size": fa.kernel_head_size(h),
+            **{k: got[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
+                "bound_ms", "bound_by", "library_ms", "causal_ms",
+                "causal_bound_ms", "full_kv_bound_ms", "achieved_tflops",
+                "float32_ms")},
+            "library_backend": backend,
+            "launches_over_steps": flash["steps_counted"],
+            "float16": {k: got16[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "causal_ms",
+                "achieved_tflops")},
+            "float32_max_abs_err": errors[torch.float32][key],
+            "ptxas": PTXAS.get(f"{row['name']}_sliced_kernel<bf16>"),
+            "ptxas_float16": PTXAS.get(f"{row['name']}_sliced_kernel<f16>"),
+            "ptxas_float32": PTXAS.get(f"{row['name']}_cols_kernel<f32>"),
+            "launch_shape": fa.launch_shape(key, torch.bfloat16, h),
+            "launch_shape_float32": fa.launch_shape(key, torch.float32, h),
+            "note": "library_ms is F.scaled_dot_product_attention with the "
+                    "same key mask, on the backend named; the bound counts "
+                    "the function's work on the kept keys at the true head "
+                    "size, not the score products the slices repeat"}
+        log(f"{row['name']} h {h}: {got['ms'] * 1e3:.1f} us bf16, "
+            f"{got16['ms'] * 1e3:.1f} us float16, bound "
+            f"{got['bound_ms'] * 1e3:.2f} us, SDPA ({backend}) "
+            f"{got['library_ms'] * 1e3:.1f} us; registers "
+            f"{row[f'shape_h{h}']['ptxas']}, "
+            f"{row[f'shape_h{h}']['launch_shape']}, on {CARD}")
+    decode_rows = time_decode_kernels(
+        torch, fa, dev, {f"1x{S2S['t']}": decode[
+            "bf16_k3a_launches_by_shape"].get(f"1x{S2S['t']}", 0)},
+        h, heads, ("cross",))
+    for row in rows:
+        if row["name"] == "flash_fwd":
+            row[f"decode_h{h}"] = {k: decode_rows[0][k] for k in (
+                "shape", "launches", "max_abs_err", "ms", "plain_ms",
+                "wrapper_ms", "bound_ms", "bound_by", "library_ms")}
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 28: {out['seconds']} s")
     return out
 
 
@@ -6364,9 +6559,14 @@ def main():
     # 27. float16: K3a-c at h 32, 64 and 128 and phase 9's step
     float16 = float16_path(torch, fa, dev, rows)
     log(json.dumps({"float16": float16, "card": CARD}))
+    lap("27")
+    # 28. head sizes above 256: K3a-c at h 288, 384, 512 and 1024, phase
+    # 9's step over one head of 512, greedy decoding at 512
+    wide = wide_heads_path(torch, fa, dev, rows)
+    log(json.dumps({"wide_heads": wide, "card": CARD}))
+    lap("28")
     log(json.dumps({"paths": paths, "card": CARD}))
     log(json.dumps({"int_mm": int_mm_rows, "card": CARD}))
-    lap("27")
     log(json.dumps({"seconds_by_phase": phase_seconds,
                     "seconds": round(sum(phase_seconds.values()), 1)}))
 

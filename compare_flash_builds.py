@@ -8,18 +8,19 @@ Builds the ``flash_attention`` library from ``OTHER_CHECKOUT``'s
 ``chambers_tpu_torch/ops/csrc`` beside this checkout's, both with this
 checkout's flags into its ``build/`` (``ops/_build.py``), and runs K3a
 (``flash_fwd``), K3b (``flash_bwd_dkv``) and K3c (``flash_bwd_dq``) of both
-libraries on the same seeded inputs at head sizes 64 and 128: the seq2seq
-train step's tokens (``[128, 512, 64]``, ``[64, 512, 128]``) with its
-ragged key mask, causal and not, ViT-B/16's 197 tokens, cross lengths 130
-x 260 and 260 x 130 under the causal mask, 63 x 65 with a scattered key
-mask, one query row against 512 and 300 keys, in bf16 (the tensor-core
-kernels) and float32 (the FMA kernels). Every output (``o, l, m, dk, dv,
-dq``) of the two must be the same bits. Then it times each kernel of both
-libraries at the train step's tokens at both head sizes, causal and not,
-with CUDA events over launches queued behind a backlog, the two libraries
-in turns (other, this, this, other, three rounds), on inputs cycled beyond
-the 50 MB L2. The libraries share the C interface that
-``ops/flash_attention.py`` calls, for the types and head sizes both take.
+libraries on the same seeded inputs at head sizes 64, 128 and 256: the
+seq2seq train step's tokens (``[128, 512, 64]``, ``[64, 512, 128]``,
+``[32, 512, 256]``) with its ragged key mask, causal and not, ViT-B/16's
+197 tokens, cross lengths 130 x 260 and 260 x 130 under the causal mask,
+63 x 65 with a scattered key mask, one query row against 512 and 300
+keys, in bf16 (the tensor-core kernels) and float32 (the FMA kernels; at
+256 the ``_cols`` kernels). Every output (``o, l, m, dk, dv, dq``) of the
+two must be the same bits. Then it times each kernel of both libraries at
+the train step's tokens at each head size, causal and not, with CUDA
+events over launches queued behind a backlog, the two libraries in turns
+(other, this, this, other, three rounds), on inputs cycled beyond the 50
+MB L2. The libraries share the C interface that ``ops/flash_attention.py``
+calls, for the types and head sizes both take.
 Prints one JSON line last and exits non-zero on any difference.
 """
 
@@ -93,7 +94,7 @@ def launch_one(torch, fa, lib, kernel, args):
                             ptr(di), ptr(mask), ptr(outs[5]), *tail)
 
 
-HEADS = (64, 128)
+HEADS = (64, 128, 256)
 
 
 def time_both(torch, fa, libs, dev, h):

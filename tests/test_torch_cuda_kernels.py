@@ -328,6 +328,33 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
     true one. A head size between them goes in zero-padded, as the wrapper
     pads it: the padded columns of every output come back exact zeros and
     are dropped, ``di`` is the unpadded operands'."""
+    _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked)
+
+
+# head sizes above 256, on the sliced kernels (float32: the _cols kernels
+# with the head size at run time): 288 padded to 320, whose last slice is
+# partial, 384, 512 and 1024; the edges of FLASH_CASES at small shapes
+WIDE_HEADS = [288, 384, 512, 1024]
+WIDE_CASES = [
+    (2, 2, 257, 257, True, True),    # causal + key mask, an item with none
+    (1, 2, 130, 260, True, False),
+    (1, 2, 260, 130, True, False),   # rows with no key
+    (3, 2, 70, 150, False, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("h", WIDE_HEADS)
+@pytest.mark.parametrize("b,n,tq,tk,causal,masked", WIDE_CASES)
+def test_flash_kernels_above_256_match_plain(dev, b, n, tq, tk, h, dtype,
+                                             causal, masked):
+    """The kernels at head sizes above 256 against the plain versions, as
+    ``test_flash_kernels_match_plain`` holds them."""
+    _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked)
+
+
+def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
     q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype, masked)
     scale = h ** -0.5
     size = fa.kernel_head_size(h)
@@ -414,30 +441,32 @@ def _kernel_names(fn):
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 
 
-@pytest.mark.parametrize("h", [64, 128, 256])
+@pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_forward_dtype_chooses_the_kernels(dev, h):
-    """bf16 and float16 operands run the tensor-core forward, float32 the
-    FMA one (its ``_cols`` form at 256): read from the profiler's kernel
-    names."""
+    """bf16 and float16 operands run the tensor-core forward (its sliced
+    form above 256), float32 the FMA one (its ``_cols`` form from 256 on):
+    read from the profiler's kernel names."""
     names = {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, True)
         names[dtype] = _kernel_names(
             lambda: fa.launch_forward(q, k, v, mask, 0.125, False, 2))
-    fma = "flash_fwd_cols_kernel" if h == 256 else "flash_fwd_kernel"
+    fma = "flash_fwd_cols_kernel" if h >= 256 else "flash_fwd_kernel"
     assert fma in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
+    assert "_sliced_kernel" not in names[torch.float32]
+    tc = "flash_fwd_sliced_kernel" if h > 256 else "flash_fwd_tc_kernel"
     for dtype in SIXTEEN_BIT:
-        assert "flash_fwd_tc_kernel" in names[dtype]
+        assert tc in names[dtype]
         assert "flash_fwd_kernel" not in names[dtype]
         assert "_cols_kernel" not in names[dtype]
 
 
-@pytest.mark.parametrize("h", [64, 128, 256])
+@pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_backward_dtype_chooses_the_kernels(dev, h):
-    """bf16 and float16 operands run the tensor-core kernels, float32 the
-    FMA kernels (``_cols`` at 256): read from the profiler's kernel
-    names."""
+    """bf16 and float16 operands run the tensor-core kernels (``_sliced``
+    above 256), float32 the FMA kernels (``_cols`` from 256 on): read from
+    the profiler's kernel names."""
     names = {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, False)
@@ -445,16 +474,18 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
         args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 2)
         names[dtype] = _kernel_names(lambda: (fa.launch_backward_dkv(*args),
                                               fa.launch_backward_dq(*args)))
-    cols = "_cols" if h == 256 else ""
+    cols = "_cols" if h >= 256 else ""
     assert f"flash_bwd_dkv{cols}_kernel" in names[torch.float32]
     assert f"flash_bwd_dq{cols}_kernel" in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
+    assert "_sliced_kernel" not in names[torch.float32]
+    tc = "_sliced" if h > 256 else "_tc"
     for dtype in SIXTEEN_BIT:
-        assert "flash_bwd_dkv_tc_kernel" in names[dtype]
-        assert "flash_bwd_dq_tc_kernel" in names[dtype]
+        assert f"flash_bwd_dkv{tc}_kernel" in names[dtype]
+        assert f"flash_bwd_dq{tc}_kernel" in names[dtype]
 
 
-@pytest.mark.parametrize("h", HEADS)
+@pytest.mark.parametrize("h", HEADS + [288, 512])
 def test_flash_attention_autograd_counts_and_rejects(dev, h):
     b, n, t = 2, 2, 100
     g = torch.Generator(device=dev).manual_seed(3)
@@ -476,16 +507,14 @@ def test_flash_attention_autograd_counts_and_rejects(dev, h):
     ref.pow(2).sum().backward()
     assert float((out.detach().cpu() - ref.detach()).abs().max()) <= 2e-5
     assert float((qkv.grad.cpu() - cpu.grad).abs().max()) <= 1e-3
-    # permuted views are copied, not refused; head sizes above 256 are
-    # refused, naming the queue
+    # permuted views are copied, not refused; a launch at a head size the
+    # kernels do not take (300: the wrapper pads it to 320) is refused
     perm = torch.randn((b, t, n, h), device=dev, generator=g).permute(
         0, 2, 1, 3)
     got = fa.flash_attention(perm, perm)
     want = fa.flash_attention(perm.cpu(), perm.cpu())
     assert float((got.cpu() - want).abs().max()) <= 2e-5
-    bad = torch.randn((1, 1, 8, 288), device=dev)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP"):
-        fa.flash_attention(bad, bad)
+    bad = torch.randn((1, 1, 8, 300), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.launch_forward(bad[0], bad[0], bad[0], None, 0.1, False, 1)
 

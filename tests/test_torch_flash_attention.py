@@ -329,7 +329,7 @@ def test_bf16_backward_plain_matches_jax_kernels(name):
             assert np.abs(per_item[0]).max() > 0
 
 
-HEAD_SIZES = [8, 32, 80, 128, 160, 256]
+HEAD_SIZES = [8, 32, 80, 128, 160, 256, 320, 512]
 # the spacing of the type's values at 1: 2^-7 for bfloat16, 2^-10 for
 # float16 (unit roundoffs 2^-8 and 2^-11)
 STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
@@ -368,8 +368,10 @@ def test_head_sizes_match_jax_kernel(h, dtype):
     ``flash_attention`` in interpret mode, causal with a key mask and cross
     lengths 100 x 120: the output and the gradients of a random cotangent.
     float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 and float16 as
-    ``_close_half``. On the card the kernels run these sizes at 64, 128 or
-    256, zero-padded (``test_padded_plain_call_is_bit_equal``)."""
+    ``_close_half``. On the card the kernels run these sizes at 64, 128,
+    256 or the next multiple of 64 above 256 (320, 512: the sliced
+    kernels), zero-padded where the size is not one of them
+    (``test_padded_plain_call_is_bit_equal``)."""
     rng = np.random.RandomState(h)
     shape_q, shape_kv = (2, 2, 100, h), (2, 2, 120, h)
     q, do = (rng.randn(*shape_q).astype(np.float32) for _ in range(2))
@@ -403,7 +405,7 @@ def test_head_sizes_match_jax_kernel(h, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("h", [8, 32, 80, 100, 160, 200])
+@pytest.mark.parametrize("h", [8, 32, 80, 100, 160, 200, 288, 300])
 def test_padded_plain_call_is_bit_equal(h, dtype):
     """What the wrapper does on the card at a head size the kernels are not
     built at, in the plain versions: ``q, k, v`` and ``do`` zero-padded to
@@ -411,7 +413,8 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
     unpadded ``o`` and ``do``. Every output equals the unpadded call's bit
     for bit, and the padded columns are exact zeros."""
     size = tflash.kernel_head_size(h)
-    assert size == (64 if h <= 64 else 128 if h <= 128 else 256)
+    assert size == (64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256
+                    else -(-h // 64) * 64)
     g = torch.Generator().manual_seed(h)
     q, do = (torch.randn(6, 97, h, generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn(6, 131, h, generator=g).to(dtype) for _ in range(2))
@@ -433,15 +436,17 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
 
 
 def test_kernel_head_sizes_and_the_limit():
-    """The kernels are built at 64, 128 and 256; smaller sizes run padded to
-    the next of them, larger ones are refused naming the queue in
-    ROADMAP.md."""
-    assert tflash.HEAD_SIZES == (64, 128, 256)
+    """The kernels are built at 64, 128 and 256, and above 256 take every
+    multiple of 64 (the sliced kernels): a size up to 256 runs padded to
+    the next built one, a larger one to the next multiple of 64. There is
+    no upper limit."""
+    assert tflash.HEAD_SIZES == (64, 128, 256) and tflash.PANEL == 64
     assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 64, 65, 80,
                                                  128, 129, 200, 256)] == [
         64, 64, 64, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tflash.kernel_head_size(257)
+    assert [tflash.kernel_head_size(h) for h in (257, 288, 320, 321, 384,
+                                                 512, 1000, 1024, 4000)] == [
+        320, 320, 320, 384, 384, 512, 1024, 1024, 4032]
     x = torch.ones(2, 3, 5)
     assert tflash.pad_head(x, 5) is x
     assert tuple(tflash.pad_head(x, 64).shape) == (2, 3, 64)
@@ -695,3 +700,62 @@ def test_float16_flash_exports_through_the_operator():
              and "chambers_tpu_torch.flash_fwd" in str(n.target)]
     assert len(calls) == 1
     assert got.dtype == torch.float16 and torch.equal(got, want)
+
+
+def test_one_head_seq2seq_at_width_320_matches_jax():
+    """The slice as a whole on the CPU: a float32 ``Seq2SeqTransformer`` on
+    flash attention over one head of width 320 (2 + 2 layers, vocabulary
+    64, ragged padding), a head size that runs on the card in the sliced
+    kernels, with weights from the JAX package's init through
+    ``state_dict_from_jax``: logits, the masked cross-entropy and every
+    parameter's gradient against JAX's with its flash kernels in interpret
+    mode. float32 sums taken in other orders: logits and the loss to 1e-5,
+    gradients to 1e-4 of the largest gradient."""
+    from chambers_tpu.models import Seq2SeqTransformer as JaxSeq2Seq
+    from chambers_tpu_torch.models import Seq2SeqTransformer
+    import optax
+
+    vocab = 64
+    rng = np.random.RandomState(4)
+    src, tgt = (rng.randint(1, vocab, (3, 20)) for _ in range(2))
+    src[1, 13:] = 0
+    tgt[2, 11:] = 0
+    kw = dict(input_vocab_size=vocab, output_vocab_size=vocab,
+              embed_dim=320, num_heads=1, dim_feedforward=128,
+              num_encoder_layers=2, num_decoder_layers=2, dropout_rate=0.0,
+              attention_impl="flash")
+    jmodel = JaxSeq2Seq(**kw)
+    port = Seq2SeqTransformer(device=CPU, **kw)
+    params = jmodel.init(jax.random.PRNGKey(1), (src, tgt))["params"]
+    port.load_state_dict(state_dict_from_jax(jax.device_get(params)))
+    port.eval()
+
+    def jax_loss(p):
+        logits = jmodel.apply({"params": p}, (src, tgt), deterministic=True)
+        labels = jnp.roll(tgt, -1, axis=1)
+        mask = (labels != 0).astype(jnp.float32)
+        ce = optax.softmax_cross_entropy_with_integer_labels(logits, labels)
+        return jnp.sum(ce * mask) / jnp.sum(mask), logits
+
+    (loss_want, logits_want), grads = jax.value_and_grad(
+        jax_loss, has_aux=True)(params)
+    tsrc, ttgt = torch.from_numpy(src), torch.from_numpy(tgt)
+    logits = port([tsrc, ttgt], deterministic=True)
+    labels = torch.roll(ttgt, -1, dims=1)
+    mask = (labels != 0).float()
+    ce = torch.nn.functional.cross_entropy(
+        logits.flatten(0, 1), labels.flatten().long(), reduction="none")
+    loss = (ce * mask.flatten()).sum() / mask.sum()
+    loss.backward()
+
+    assert logits.dtype == torch.float32 and logits.shape == (3, 20, vocab)
+    np.testing.assert_allclose(_f32(logits), np.asarray(logits_want),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(loss_want), rtol=1e-5)
+    want_grads = state_dict_from_jax(jax.device_get(grads))
+    named = dict(port.named_parameters())
+    assert set(named) == set(want_grads)
+    largest = max(float(g.abs().max()) for g in want_grads.values())
+    for name, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(),
+                                   atol=1e-4 * largest, err_msg=name)
