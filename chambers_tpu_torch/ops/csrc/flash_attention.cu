@@ -14,7 +14,8 @@
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
 // (the 16-bit kernels carry the same names with _tc, and above head size
-// 256 with _sliced; the float32 ones from head size 256 on with _cols).
+// 256 with _sliced (K3a, K3c) or _cluster (K3b); the float32 ones from
+// head size 256 on with _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -999,6 +1000,7 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
                             cudaStream_t stream);
 LaunchShape flash_fwd_tc_shape(int panels);
 LaunchShape flash_bwd_tc_shape(int dkv, int panels);
+int flash_bwd_dkv_max_clusters(int f16, int panels);
 
 // the head sizes the kernels take: 64, 128, and every multiple of 64 from
 // 256 on
@@ -1058,9 +1060,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 
 // The launch shape a call of kernel `kernel` (0 K3a, 1 K3b, 2 K3c) at head
 // size h and type dtype takes, from the function its launcher calls:
-// threads a block, dynamic shared memory a block, and the slices of the
-// head (blocks along z). Returns cudaErrorInvalidValue for what the
-// dispatch refuses.
+// threads a block, dynamic shared memory a block, the slices of the head
+// (blocks along z), the blocks a cluster (1: none), and how many such
+// clusters the card holds at once (0 without clusters; asks the current
+// device). Returns cudaErrorInvalidValue for what the dispatch refuses.
 extern "C" int flash_launch_shape(int kernel, int h, int dtype, int* shape) {
   if (!head_size_taken(h) || kernel < kFwd || kernel > kDq ||
       dtype < kFloat32 || dtype > kFloat16)
@@ -1072,6 +1075,10 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int* shape) {
   shape[0] = s.threads;
   shape[1] = (int)s.smem;
   shape[2] = s.slices;
+  shape[3] = s.cluster;
+  shape[4] = s.cluster > 1
+                 ? flash_bwd_dkv_max_clusters(dtype == kFloat16, h / 64)
+                 : 0;
   return (int)cudaSuccess;
 }
 

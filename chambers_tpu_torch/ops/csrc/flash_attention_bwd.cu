@@ -6,16 +6,16 @@
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
-// and, at head sizes above 256, flash_bwd_dkv_sliced_kernel and
-// flash_bwd_dq_sliced_kernel
+// and, at head sizes above 256, flash_bwd_dkv_cluster_kernel and
+// flash_bwd_dq_sliced_kernel,
 // and computes what flash_attention.cu's note says they compute: per key
 // tile over all query tiles p = exp(s - m) / l, dv += p^T do,
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
 // tiles dq += ds k scale; the [b, tk] key mask shared by a batch item's
 // heads, the causal diagonal at the sequence end, exact zeros for a row or a
 // batch item with no valid key, any tq and tk, head size 64, 128 or 256
-// (one, two or four panels, a template parameter) and, in the sliced
-// kernels, any multiple of 64 above 256 (the wrapper pads other sizes).
+// (one, two or four panels, a template parameter) and, in the kernels
+// above 256, any multiple of 64 (the wrapper pads other sizes).
 // The operand type T (__nv_bfloat16 or __half) is the other template
 // parameter: it sets the rounding of p, ds and the outputs and
 // the wgmma instruction's type, nothing else.
@@ -91,30 +91,67 @@
 //   warpgroups on different rows would need 128 KB for their own Q and dO
 //   tiles before any passing tile. K3b and K3c then have two stages, not
 //   three, in shared memory (210 KB and 194 KB).
-// * Head sizes above 256: the sliced kernels. The whole-tile design runs
-//   out of room there (at 256 K3b already takes 210 KB of shared memory
-//   and 255 registers), so a block is one warpgroup that owns 64 rows
-//   (query rows in K3c, keys in K3b) and one slice of the head's output
-//   columns (blockIdx.z): kDqSlice = 4 panels of dQ, or kDkvSlice = 2
-//   panels each of dK and dV, the accumulators of K3c at 256 and of K3b at
-//   128. The head size is a run-time argument: one instantiation per type
-//   serves every multiple of 64. A step passes through a ring of two 32 KB
-//   slots as items: for each panel of the head, that panel of the four
-//   operands of the two score products (Q, dO, K, V), accumulated over the
-//   whole padded head into S and dP (S^T and dP^T in K3b) with wgmma; then
-//   the slice's panels of the second products' other operand (K; or dO
-//   and Q), which the rounded dS (P and dS) multiply. One item is copied
-//   while the one before it is multiplied, one barrier an item. ds comes
-//   from dq_scores and dkv_scores, which the kernels above share, so the
-//   semantics are theirs; K3b's row statistics are read a step ahead and
-//   stored, folded, at its last item, as above. The cost: every slice
-//   computes the score products and ds again, so at 512 the tensor cores
-//   do 1.67 times K3c's work and 2.5 times K3b's, and the passing operands
-//   are copied again for each slice (from L2). 66 KB of shared memory;
-//   254 (K3b) and 248 (K3c) registers, no spills: two blocks an SM. ptxas
-//   injects a warpgroup.arrive before three (K3b) and five (K3c) of their
-//   wgmma batches (C7519: products under run-time conditions). Not tuned:
-//   the first right kernels at these sizes.
+// * Head sizes above 256. The whole-tile design runs out of room there (at
+//   256 K3b already takes 210 KB of shared memory and 255 registers; at 512
+//   dK and dV for 64 keys are 256 KB of float32, an SM's whole register
+//   file), so the head's output columns are split over blocks along z, each
+//   owning 64 rows (query rows in K3c, keys in K3b) and one part of the
+//   columns. The head size is a run-time argument: one instantiation per
+//   type serves every multiple of 64.
+//   K3c: the sliced kernel. A block is one warpgroup that owns kDqSlice = 4
+//   panels of dQ, the accumulators of K3c at 256. A step passes through a
+//   ring of two 32 KB slots as items: for each panel of the head, that
+//   panel of Q, dO, K and V, accumulated over the whole padded head into S
+//   and dP with wgmma; then the slice's panels of K, which the rounded dS
+//   multiplies. One item is copied while the one before it is multiplied,
+//   one barrier an item. ds comes from dq_scores, which the kernels above
+//   share. The cost: every slice computes the score products and ds again,
+//   so at 512 the tensor cores do 1.67 times K3c's work, and the passing
+//   operands are copied again for each slice (from L2). 66 KB of shared
+//   memory, 248 registers, no spills: two blocks an SM. ptxas injects a
+//   warpgroup.arrive before five of its wgmma batches (C7519: products under
+//   run-time conditions).
+//   K3b: the cluster kernel. A block is two warpgroups over the same 64 keys
+//   and owns kDkvOwn = 4 panels each of dK and dV, two a warpgroup (as K3b
+//   at 256). The blocks over the same 64 keys form a thread-block cluster
+//   along z (cluster_split: n = ceil(panels / 4) blocks, at most the
+//   portable 8; a wider head takes several clusters, each owning 4 n panels
+//   of the output and each computing the score products over the whole
+//   head once). A block keeps its own panels of K and V and passes the
+//   other side's own panels through a ring of three 32 KB slots, one item
+//   ahead (both of a step's items are read to its end). Warpgroup 0
+//   computes the block's terms of S^T, warpgroup 1 those of dP^T, over its
+//   own panels with wgmma, and ClusterSum (flash_tiles.cuh) adds up the
+//   cluster's terms through distributed shared memory, each sum once and in
+//   rank order, so every block holds the same bits of S^T and dP^T.
+//   Warpgroup 1 hands dP^T over and warpgroup 0 hands p and ds back as at
+//   256 (dkv_scores), and the second products run on the block's own
+//   panels. So each (key tile, query tile) pair's products are computed
+//   once a cluster, and each operand panel is copied once a step, by the
+//   block that owns it. In a cluster of several chunks the block's parts
+//   of the other chunks pass through the ring first, one panel of all four
+//   operands an item. A part that runs past the head (h 320: blocks of four
+//   panels and of one) is filled with zeros, so the panel counts are
+//   compile-time constants; only the part inside the head is written.
+//   Every skip (no kept key, above the causal diagonal) depends on the
+//   block's keys alone, so the blocks of a cluster take the same ones and
+//   meet at the same cluster barriers, and no block overwrites or leaves
+//   its exchange buffer while another may still read it. 210 KB of shared
+//   memory, 256 threads: one block an SM.
+//   What bounds it, as measured on an H100 (PERF.md section 6): the
+//   exchange, not the products. Distributed shared memory moved a small
+//   fraction of what L2 gives an SM in every form tried, and every step
+//   waits for it: 16-byte loads of every block's terms (kept for clusters
+//   of two, 15% faster there than the general form), then of a
+//   reduce-scatter's share (kept from three blocks on, two loads in flight
+//   a thread: more took more registers, spilled, and ran slower), 8-byte
+//   st.async pushes counted by the owner's mbarrier, bulk copies between
+//   the blocks, plain remote stores. Its own panels went from two (one warpgroup, clusters of
+//   up to 8) to four (two warpgroups), which halved the terms it exchanges
+//   for the same work. K3c was built the same way (one warpgroup of four
+//   panels of dQ) and ran slower than the sliced kernel at 512 and 1024:
+//   it exchanges 32 KB a block a step for less work than K3b's, where the
+//   sliced K3c repeats its score products only 1.67 times (K3b 2.5).
 //
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
 // chip_smoke.py prints):
@@ -739,15 +776,72 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // ---------------------------------------------------------------------------
-// head sizes above 256: the sliced kernels (see the note at the top)
+// head sizes above 256: K3c's sliced kernel and K3b's cluster kernel (see
+// the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kDqSlice = 4;   // panels of dQ a K3c block: 256 columns
-constexpr int kDkvSlice = 2;  // panels each of dK and dV a K3b block: 128
+constexpr int kDqSlice = 4;  // panels of dQ a K3c block: 256 columns
+// panels each of dK and dV a K3b block owns, 256 columns: two warpgroups
+// of two panels each
+constexpr int kDkvOwn = 4;
+constexpr int kClusterSlots = 3;  // the ring's 32 KB slots
 
-// the ring, the tile's key flags (K3c) or the row statistics (K3b), flags
+// How a head of `panels` panels is cut for K3b's blocks, which own kDkvOwn
+// panels each: clusters of `blocks` blocks, `clusters` of them along z, as
+// few as the portable cluster size allows; each cluster owns blocks *
+// kDkvOwn panels (the last block's may run past the head).
+struct ClusterSplit {
+  int blocks, clusters;
+};
+
+__host__ __device__ constexpr ClusterSplit cluster_split(int panels) {
+  constexpr int most = kMaxCluster * kDkvOwn;  // a cluster's panels at most
+  const int clusters = (panels + most - 1) / most;
+  return {(panels + clusters * kDkvOwn - 1) / (clusters * kDkvOwn), clusters};
+}
+
+// K3c's sliced kernel: the ring, the tile's key flags, flags
 __host__ __device__ constexpr size_t sliced_smem_bytes() {
   return 1024 + kSlots * (kSlotBytes + kRowsBytes) + 64;
+}
+
+// K3b's cluster kernel: its own panels of K and V, the ring, ClusterSum's
+// buffer, the hand-over between its warpgroups, the row statistics for two
+// steps, flags
+__host__ __device__ constexpr size_t cluster_smem_bytes() {
+  return 1024 + 2 * kDkvOwn * kPanelBytes + kClusterSlots * kSlotBytes +
+         kExchangeBytes + kHandBytes + 2 * kRowsBytes + 64;
+}
+
+// A block's place: `n` blocks a cluster, this one `rank`; `chunks`
+// clusters along z, this one `chunk`. Chunk g of the head is panels
+// [g n kDkvOwn, (g + 1) n kDkvOwn), and the block's part of it starts at
+// first(g); its output columns are its part of its own chunk.
+struct ClusterPlace {
+  int n, rank, chunks, chunk;
+  __device__ ClusterPlace()
+      : n(cluster_blocks()), rank(cluster_rank()),
+        chunks(gridDim.z / cluster_blocks()),
+        chunk(blockIdx.z / cluster_blocks()) {}
+  __device__ int first(int g) const { return (g * n + rank) * kDkvOwn; }
+  // the first column of the e-th panel of the block's parts of the other
+  // chunks
+  __device__ int other_col(int e) const {
+    const int g = e / kDkvOwn;
+    return (first(g < chunk ? g : g + 1) + e % kDkvOwn) * kPanelCols;
+  }
+};
+
+// The panel from column `col` of rows [row0, row0 + 64) of a [rows, hd]
+// array of T into `panel`, by kThreads threads; a panel past the head's
+// end (col >= hd) becomes zeros.
+template <int kThreads, typename T>
+__device__ __forceinline__ void stage_head_panel(uint32_t panel, const T* src,
+                                                 int col, int row0, int rows,
+                                                 int hd, int tid) {
+  const bool inside = col < hd;
+  stage_panel<kThreads>(panel, inside ? src + col : src, row0,
+                        inside ? rows : 0, hd, tid);
 }
 
 // K3c: dq for the block's 64 query rows and its slice of the head's
@@ -903,32 +997,47 @@ __global__ void __launch_bounds__(128, 1)
                   scale, q0, tq, hd, 1, at.tid);
 }
 
-// K3b: dk, dv for the block's 64 keys and its slice of the head's columns,
-// over all query tiles
+// K3b: dk, dv for the block's 64 keys and its kDkvOwn panels each of the
+// head's columns, over all query tiles. Warpgroup 0 computes the block's
+// terms of S^T, warpgroup 1 those of dP^T, over the block's part of the
+// head; each sums its tile over the cluster, warpgroup 1 hands dP^T to
+// warpgroup 0, which computes p and ds and hands them back rounded, and
+// each warpgroup accumulates two of the block's panels of dK and dV.
 template <typename T>
-__global__ void __launch_bounds__(128, 1)
-    flash_bwd_dkv_sliced_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ dout,
-                                const float* __restrict__ l,
-                                const float* __restrict__ m,
-                                const float* __restrict__ di,
-                                const float* __restrict__ kv_mask,
-                                T* __restrict__ dk, T* __restrict__ dv,
-                                int tq, int tk, int hd, int n_heads,
-                                float scale, int causal) {
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dkv_cluster_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const T* __restrict__ dout,
+                                 const float* __restrict__ l,
+                                 const float* __restrict__ m,
+                                 const float* __restrict__ di,
+                                 const float* __restrict__ kv_mask,
+                                 T* __restrict__ dk, T* __restrict__ dv,
+                                 int tq, int tk, int hd, int n_heads,
+                                 float scale, int causal) {
+  constexpr int kOwnBytes = kDkvOwn * kPanelBytes;
+  constexpr int kGroupPanels = kDkvOwn / 2;  // of dK and dV a warpgroup
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t ring = smem_u32(smem);
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + kOwnBytes;
+  const uint32_t ring = k_s + 2 * kOwnBytes;
+  const uint32_t xbuf = ring + kClusterSlots * kSlotBytes;
+  // the hand-over between the warpgroups: [value of the fragment][thread
+  // of the warpgroup], 32 words a thread
+  uint32_t* hand_s = reinterpret_cast<uint32_t*>(
+      smem + 2 * kOwnBytes + kClusterSlots * kSlotBytes + kExchangeBytes);
   // [step % 2][exponent offset, di][query of the tile]
-  float* rows_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
-  int* flags_s = reinterpret_cast<int*>(rows_s + kSlots * 2 * kTileRows);
+  float* rows_s = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(hand_s) + kHandBytes);
+  int* flags_s = reinterpret_cast<int*>(rows_s + 2 * 2 * kTileRows);
 
   const Lanes at;
+  const int group = at.group, in_group = at.tid & 127;
+  const ClusterPlace place;
+  const int panel0 = place.first(place.chunk);
+  const int group_panel0 = panel0 + group * kGroupPanels;
   const int panels = hd / kPanelCols;
-  const int panel0 = blockIdx.z * kDkvSlice;
-  const int own = min(kDkvSlice, panels - panel0);  // the slice's panels
   const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
   const T* qb = q + (size_t)bn * tq * hd;
   const T* dob = dout + (size_t)bn * tq * hd;
@@ -939,7 +1048,8 @@ __global__ void __launch_bounds__(128, 1)
   const int offset = tk - tq;
 
   // under the causal mask only query rows with row + offset >= k0 reach
-  // this block's keys
+  // this block's keys; like every skip below, this depends on the keys
+  // alone, the same in every block of the cluster
   const int first = causal && k0 - offset > 0 ? (k0 - offset) / kTileRows : 0;
   const int steps = (tq + kTileRows - 1) / kTileRows - first;
 
@@ -960,138 +1070,205 @@ __global__ void __launch_bounds__(128, 1)
   };
   const RowStats rows0 = load_rows(0);
 
-  // the thread's two keys: g and g + 8 of its warp's 16
+  // the thread's two keys: g and g + 8 of its warp's 16 (the same in both
+  // warpgroups)
   const int key_a = k0 + at.warp_in_group * 16 + at.g;
   bool key_ok[2];
   int keys_any, keys_all;
   block_keys(key_ok, keys_any, keys_all, mask_row, key_a, tk, at, flags_s);
-  T* dk_cols = dk + (size_t)bn * tk * hd + panel0 * kPanelCols;
-  T* dv_cols = dv + (size_t)bn * tk * hd + panel0 * kPanelCols;
-  if (!keys_any) {  // no key of the block takes part: zeros, nothing read
-    for (int p = 0; p < own; ++p) {
-      store_zero_panel(dv_cols + p * kPanelCols, k0, tk, hd, at.tid);
-      store_zero_panel(dk_cols + p * kPanelCols, k0, tk, hd, at.tid);
+  T* dk_cols = dk + (size_t)bn * tk * hd + group_panel0 * kPanelCols;
+  T* dv_cols = dv + (size_t)bn * tk * hd + group_panel0 * kPanelCols;
+  if (!keys_any) {  // no key takes part: zeros, nothing read
+    for (int p = 0; p < kGroupPanels && group_panel0 + p < panels; ++p) {
+      store_zero_panel(dv_cols + p * kPanelCols, k0, tk, hd, in_group);
+      store_zero_panel(dk_cols + p * kPanelCols, k0, tk, hd, in_group);
     }
     return;
   }
 
-  // A query step is `items` items through the ring: panel p of K, V, Q and
-  // dO for each panel of the head, then the slice's panels of dO and Q.
-  const int items = panels + 1, total = steps * items;
+#pragma unroll
+  for (int p = 0; p < kDkvOwn; ++p) {
+    const int col = (panel0 + p) * kPanelCols;
+    stage_head_panel<256>(k_s + p * kPanelBytes, kb, col, k0, tk, hd, at.tid);
+    stage_head_panel<256>(v_s + p * kPanelBytes, vb, col, k0, tk, hd, at.tid);
+  }
+
+  // A query step is `items` items through the ring: for each panel of the
+  // block's parts of the other chunks, that panel of K, V, Q and dO; then
+  // the block's own panels of Q, then of dO. Both of the last two are read
+  // to the step's end, so the ring's next copy starts one item ahead.
+  const int extras = (place.chunks - 1) * kDkvOwn, items = extras + 2;
+  const int total = steps * items;
   auto stage_item = [&](int i) {
     if (i < total) {
       const int step = i / items, j = i - step * items;
       const int q0 = (first + step) * kTileRows;
-      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-      if (j < panels) {
-        const int c = j * kPanelCols;
-        stage_panel<128>(slot, kb + c, k0, tk, hd, at.tid);
-        stage_panel<128>(slot + kPanelBytes, vb + c, k0, tk, hd, at.tid);
-        stage_panel<128>(slot + 2 * kPanelBytes, qb + c, q0, tq, hd, at.tid);
-        stage_panel<128>(slot + 3 * kPanelBytes, dob + c, q0, tq, hd,
-                         at.tid);
+      const uint32_t slot = ring + (i % kClusterSlots) * kSlotBytes;
+      if (j < extras) {
+        const int col = place.other_col(j);
+        stage_head_panel<256>(slot, kb, col, k0, tk, hd, at.tid);
+        stage_head_panel<256>(slot + kPanelBytes, vb, col, k0, tk, hd,
+                              at.tid);
+        stage_head_panel<256>(slot + 2 * kPanelBytes, qb, col, q0, tq, hd,
+                              at.tid);
+        stage_head_panel<256>(slot + 3 * kPanelBytes, dob, col, q0, tq, hd,
+                              at.tid);
       } else {
+        const T* src = j == extras ? qb : dob;
 #pragma unroll
-        for (int p = 0; p < kDkvSlice; ++p)
-          if (p < own) {
-            const int c = (panel0 + p) * kPanelCols;
-            stage_panel<128>(slot + p * kPanelBytes, dob + c, q0, tq, hd,
-                             at.tid);
-            stage_panel<128>(slot + (kDkvSlice + p) * kPanelBytes, qb + c,
-                             q0, tq, hd, at.tid);
-          }
+        for (int p = 0; p < kDkvOwn; ++p)
+          stage_head_panel<256>(slot + p * kPanelBytes, src,
+                                (panel0 + p) * kPanelCols, q0, tq, hd,
+                                at.tid);
       }
     }
     cp_async_commit();
   };
 
-  stage_item(0);
+  stage_item(0);  // with the own panels of K and V
   store_rows(0, rows0);  // read after the first barrier
   const float scale2 = scale * kLog2e;
 
-  // S^T and dP^T over the whole head, dK and dV one [64 x 64] accumulator
-  // a panel of the slice each
-  float st[32], dpt[32], dk_acc[kDkvSlice][32], dv_acc[kDkvSlice][32];
+  // dK and dV: one [64 x 64] accumulator a panel of the warpgroup's own
+  float dk_acc[kGroupPanels][32], dv_acc[kGroupPanels][32];
 #pragma unroll
-  for (int p = 0; p < kDkvSlice; ++p)
+  for (int p = 0; p < kGroupPanels; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
-  uint32_t pt[4][4], dst[4][4];
-  RowStats ahead = {0.f, 0.f, 0.f};
+  ClusterSum<256> exchange(xbuf, place.n, place.rank, at.tid);
+  exchange.init();
 
-  for (int i = 0; i < total; ++i) {
-    const int step = i / items, j = i - step * items;
-    const int q0 = (first + step) * kTileRows;
+  // item i: wait for its copies, then start the next item's
+  int i = 0;
+  auto next_item = [&]() {
     cp_async_wait<0>();
     __syncthreads();
     stage_item(i + 1);
-    if (j == 0) ahead = load_rows(step + 1);
+    return ring + (i++ % kClusterSlots) * kSlotBytes;
+  };
+  // the warpgroup's tile: K . Q^T (warpgroup 0) or V . dO^T (1), panel by
+  // panel of operands at these offsets in a slot
+  const uint32_t own_s = group ? v_s : k_s;
+  const int extra_row = group * kPanelBytes, extra_col = (2 + group) * kPanelBytes;
+
+  for (int step = 0; step < steps; ++step) {
+    const int q0 = (first + step) * kTileRows;
+    // the next step's statistics, stored at the end of this one
+    const RowStats ahead = load_rows(step + 1);
     // a tile whose last row does not reach the block's first key is skipped
     const bool skip = causal && k0 > q0 + kTileRows - 1 + offset;
-    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-
-    if (!skip && j < panels) {
+    float x[32];  // this block's terms of S^T or dP^T, then their sums
+    for (int e = 0; e < extras; ++e) {
+      const uint32_t slot = next_item();
+      if (skip) continue;
       products_begin();
-      product_nt_panel<T>(st, slot, slot + 2 * kPanelBytes, 4 * j);
-      product_nt_panel<T>(dpt, slot + kPanelBytes, slot + 3 * kPanelBytes,
-                          4 * j);
+      product_nt_panel<T>(x, slot + extra_row, slot + extra_col, 4 * e);
       products_end();
-      keep_registers(st);
-      keep_registers(dpt);
-      if (j == panels - 1) {  // S^T and dP^T are whole: p and ds
-        const float* lse2_s = rows_s + (step % 2) * 2 * kTileRows;
-        const bool unmasked =
-            keys_all && q0 + kTileRows <= tq &&
-            (!causal || k0 + kTileRows - 1 <= q0 + offset);
-        dkv_scores(st, dpt, lse2_s, lse2_s + kTileRows, scale2, unmasked, q0,
-                   tq, key_ok, key_a, causal, offset, at.t);
-        pack_a_fragments<T>(st, pt);
-        pack_a_fragments<T>(dpt, dst);
-      }
-    } else if (!skip) {
+      keep_registers(x);
+    }
+    // the own panels: warpgroup 0's S^T as soon as Q is in, while dO is
+    // copied, then warpgroup 1's dP^T
+    auto own_products = [&](uint32_t passing) {
       products_begin();
 #pragma unroll
-      for (int p = 0; p < kDkvSlice; ++p)
-        if (p < own) {
-          product_tn<T>(dv_acc[p], pt, slot + p * kPanelBytes);
-          product_tn<T>(dk_acc[p], dst, slot + (kDkvSlice + p) * kPanelBytes);
+      for (int p = 0; p < kDkvOwn; ++p)
+        product_nt_panel<T>(x, own_s + p * kPanelBytes,
+                            passing + p * kPanelBytes, 4 * (extras + p));
+      products_end();
+      keep_registers(x);
+    };
+    const uint32_t q_slot = next_item();
+    if (!skip && group == 0) own_products(q_slot);
+    const uint32_t do_slot = next_item();
+    if (!skip && group == 1) own_products(do_slot);
+    if (!skip) {
+      exchange.add(x);
+
+      // warpgroup 1's dP^T to warpgroup 0, which turns S^T and dP^T into p
+      // and ds and hands them back rounded to T
+      if (group == 1) {
+#pragma unroll
+        for (int w = 0; w < 32; ++w)
+          hand_s[w * 128 + in_group] = __float_as_uint(x[w]);
+      }
+      __syncthreads();
+      uint32_t pt[4][4], dst[4][4];
+      if (group == 0) {
+        float dpt[32];
+#pragma unroll
+        for (int w = 0; w < 32; ++w)
+          dpt[w] = __uint_as_float(hand_s[w * 128 + in_group]);
+        const float* lse2_s = rows_s + (step % 2) * 2 * kTileRows;
+        const bool unmasked = keys_all && q0 + kTileRows <= tq &&
+                              (!causal || k0 + kTileRows - 1 <= q0 + offset);
+        dkv_scores(x, dpt, lse2_s, lse2_s + kTileRows, scale2, unmasked, q0,
+                   tq, key_ok, key_a, causal, offset, at.t);
+        pack_a_fragments<T>(x, pt);
+        pack_a_fragments<T>(dpt, dst);
+#pragma unroll
+        for (int w = 0; w < 16; ++w) {
+          hand_s[w * 128 + in_group] = pt[w / 4][w % 4];
+          hand_s[(16 + w) * 128 + in_group] = dst[w / 4][w % 4];
         }
+      }
+      __syncthreads();
+      if (group == 1) {
+#pragma unroll
+        for (int w = 0; w < 16; ++w) {
+          pt[w / 4][w % 4] = hand_s[w * 128 + in_group];
+          dst[w / 4][w % 4] = hand_s[(16 + w) * 128 + in_group];
+        }
+      }
+
+      products_begin();
+#pragma unroll
+      for (int p = 0; p < kGroupPanels; ++p) {
+        const int panel = group * kGroupPanels + p;
+        product_tn<T>(dv_acc[p], pt, do_slot + panel * kPanelBytes);
+        product_tn<T>(dk_acc[p], dst, q_slot + panel * kPanelBytes);
+      }
       products_end();
       keep_registers(pt);
       keep_registers(dst);
 #pragma unroll
-      for (int p = 0; p < kDkvSlice; ++p) {
+      for (int p = 0; p < kGroupPanels; ++p) {
         keep_registers(dv_acc[p]);
         keep_registers(dk_acc[p]);
       }
     }
-    // the next step's statistics, read by its last score item after at
-    // least one more barrier; this step's are in the other half
-    if (j == panels) store_rows(step + 1, ahead);
+    // read by the next step after at least one more barrier; this step's
+    // are in the other half
+    store_rows(step + 1, ahead);
   }
 
-  // the ring is read no more: panel p of dV leaves through panel p of the
-  // first slot, of dK through panel kDkvSlice + p
+  // no block leaves before the cluster's exchanges are done; the ring and
+  // the own K and V panels are read no more: panel p of dV leaves through
+  // panel p of K, of dK through panel p of V, each warpgroup's own under
+  // its own named barrier
+  exchange.finish();
   cp_async_wait<0>();
   __syncthreads();
 #pragma unroll
-  for (int p = 0; p < kDkvSlice; ++p)
-    if (p < own) {
-      store_panel(dv_cols + p * kPanelCols, smem + p * kPanelBytes, dv_acc[p],
-                  1.f, k0, tk, hd, 1, at.tid);
+  for (int p = 0; p < kGroupPanels; ++p)
+    if (group_panel0 + p < panels) {
+      const int panel = group * kGroupPanels + p;
+      store_panel(dv_cols + p * kPanelCols, smem + panel * kPanelBytes,
+                  dv_acc[p], 1.f, k0, tk, hd, 1 + group, in_group);
       store_panel(dk_cols + p * kPanelCols,
-                  smem + (kDkvSlice + p) * kPanelBytes, dk_acc[p], scale, k0,
-                  tk, hd, 1, at.tid);
+                  smem + kOwnBytes + panel * kPanelBytes, dk_acc[p], scale,
+                  k0, tk, hd, 1 + group, in_group);
     }
 }
 
 // K3b's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4 (a
-// block owns 64 keys, its warpgroups split the panels), the sliced kernel
+// block owns 64 keys, its warpgroups split the panels), the cluster kernel
 // above 4
 LaunchShape dkv_shape(int panels) {
-  if (panels > 4)
-    return {128, sliced_smem_bytes(), kTileRows,
-            (panels + kDkvSlice - 1) / kDkvSlice};
+  if (panels > 4) {
+    const ClusterSplit split = cluster_split(panels);
+    return {256, cluster_smem_bytes(), kTileRows,
+            split.blocks * split.clusters, split.blocks};
+  }
   const int groups = dkv_groups(panels);
   const int hand = groups > 1 ? kHandBytes : 0;
   return {128 * groups,
@@ -1116,13 +1293,14 @@ LaunchShape dq_shape(int panels) {
 }
 
 template <typename T>
-cudaError_t launch_dkv_sliced(int hd, const void* q, const void* k,
-                              const void* v, const void* dout, const void* l,
-                              const void* m, const void* di,
-                              const void* kv_mask, void* dk, void* dv,
-                              int bn, int tq, int tk, int n_heads,
-                              float scale, int causal, cudaStream_t stream) {
-  return launch_in<flash_bwd_dkv_sliced_kernel<T>>(
+cudaError_t launch_dkv_cluster(int hd, const void* q, const void* k,
+                               const void* v, const void* dout,
+                               const void* l, const void* m, const void* di,
+                               const void* kv_mask, void* dk, void* dv,
+                               int bn, int tq, int tk, int n_heads,
+                               float scale, int causal,
+                               cudaStream_t stream) {
+  return launch_cluster_in<flash_bwd_dkv_cluster_kernel<T>>(
       dkv_shape(hd / kPanelCols), bn, tk, stream, (const T*)q, (const T*)k,
       (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
       (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, hd,
@@ -1186,9 +1364,9 @@ cudaError_t dkv_panels(int panels, const void* q, const void* k,
     return launch_dkv<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
   if (panels > 4)
-    return launch_dkv_sliced<T>(panels * kPanelCols, q, k, v, dout, l, m, di,
-                                kv_mask, dk, dv, bn, tq, tk, n_heads, scale,
-                                causal, stream);
+    return launch_dkv_cluster<T>(panels * kPanelCols, q, k, v, dout, l, m,
+                                 di, kv_mask, dk, dv, bn, tq, tk, n_heads,
+                                 scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1217,7 +1395,7 @@ cudaError_t dq_panels(int panels, const void* q, const void* k,
 }  // namespace
 
 // f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
-// 2, 4 or any count above 4 (the sliced kernels)
+// 2, 4 or any count above 4 (K3b's cluster kernel, K3c's sliced one)
 cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* l, const void* m, const void* di,
@@ -1249,6 +1427,15 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 // the launch shape of K3b (dkv nonzero) or K3c at `panels` panels
 flash_tiles::LaunchShape flash_bwd_tc_shape(int dkv, int panels) {
   return dkv ? dkv_shape(panels) : dq_shape(panels);
+}
+
+// how many clusters of K3b's cluster kernel at `panels` panels (above 4)
+// of float16 (f16 nonzero) or bfloat16 the card holds at once
+int flash_bwd_dkv_max_clusters(int f16, int panels) {
+  const LaunchShape shape = dkv_shape(panels);
+  return f16 ? max_active_clusters<flash_bwd_dkv_cluster_kernel<__half>>(shape)
+             : max_active_clusters<
+                   flash_bwd_dkv_cluster_kernel<__nv_bfloat16>>(shape);
 }
 
 // x [128, 64], y [64, 64] bf16 -> nt, tn [128, 64] float32

@@ -11,8 +11,8 @@
 // either way).
 //
 // Panels and tiles. The head size is kPanels whole panels of 64 columns
-// (kPanels = 1, 2 or 4: head size 64, 128 or 256; the sliced kernels of
-// larger heads take the count at run time). A panel's row is 128
+// (kPanels = 1, 2 or 4: head size 64, 128 or 256; the sliced and cluster
+// kernels of larger heads take the count at run time). A panel's row is 128
 // bytes of T, and a panel of 64 rows, 8 KB, is stored [row][64] with the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r & 7).
 // Panels start at multiples of 1024 bytes, which makes that the layout
@@ -31,7 +31,7 @@
 // conflict free in shared memory). A row past the operand's end is filled
 // with zeros by a source size of 0, so the ragged edge needs no padded
 // operand. stage_panel fills one panel the same way from an operand whose
-// row stride is known only at run time (the sliced kernels).
+// row stride is known only at run time (the sliced and cluster kernels).
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -61,6 +61,10 @@
 // store_accumulator sends an accumulator (one panel of columns) to device
 // memory through a panel in shared memory, as coalesced 16-byte stores
 // (store_panel: the same for a row stride known at run time).
+//
+// Clusters. ClusterSum adds up an accumulator over the blocks of a
+// thread-block cluster through distributed shared memory, each sum taken
+// once, in rank order, so that every block holds the same bits of it.
 
 #pragma once
 
@@ -499,10 +503,189 @@ __device__ __forceinline__ void store_zero_panel(T* dst, int row0, int rows,
 
 // A slot holds four panels: the operands of the score products for one or
 // two panels of h, or the panels of the second products' operand that a
-// block's slice of output columns reads. Two slots take turns.
+// block's slice of output columns reads. Two slots take turns (K3b's
+// cluster kernel's ring has slots of the same size).
 constexpr int kSlotPanels = 4;
 constexpr int kSlotBytes = kSlotPanels * kPanelBytes;  // 32 KB
 constexpr int kSlots = 2;
+
+// ---------------------------------------------------------------------------
+// thread-block clusters (K3b above head size 256)
+// ---------------------------------------------------------------------------
+
+// the portable cluster size: the most blocks a cluster launches with
+// without an opt-in
+constexpr int kMaxCluster = 8;
+// ClusterSum's buffer: a block's terms (and, from three blocks on, its
+// sums), 16 bytes a thread a unit: 32 KB for 256 threads
+constexpr int kExchangeBytes = 32 * 1024;
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// the cluster's barrier, split: arrive releases this thread's earlier
+// reads and writes of shared memory to the cluster, wait returns once every
+// thread of every block of the cluster has arrived and acquires theirs
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at shared address `addr` of the cluster's block `rank`
+__device__ __forceinline__ float4 load_remote(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_shared(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 operator+(float4 x, float4 y) {
+  return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+}
+
+// Sums over the n blocks of a thread-block cluster of a warpgroup's [64 x
+// 64] float32 accumulator, which each of a block's kThreads threads holds
+// as 8 units of four values (unit u is values 4u .. 4u + 3). Every block
+// ends with the same bits: each sum is taken once, in rank order 0 .. n -
+// 1, and there are no atomics. Each thread stores its terms into the
+// block's buffer, [unit][thread], and reads the same slots of other blocks'
+// buffers through distributed shared memory, 16 bytes a load, kBatch loads
+// in flight. Two blocks read each other's terms. From three on, unit u
+// belongs to block u % n: its owner reads the others' terms of it, sums
+// them and leaves the sum in its buffer, and each block reads the sums of
+// the units it does not own from their owners, so every block reads and
+// serves the same bytes. The general form gives two blocks the same bits
+// and reads the same bytes, but meets the cluster's barrier once more a
+// call: on an H100 it ran K3b at [16, 512, 512] bf16 in 162.0 us against
+// the two-block branch's 137.2 (causal 98.6 against 83.8), in turns
+// (compare_flash_builds.py against a build without the branch). add() meets the cluster's barrier once (twice
+// from three blocks on) and arrives once more after its reads; the next
+// call, or finish(), waits there before the buffer is written again or the
+// block ends, so no block writes or leaves a buffer another still reads.
+// Every block of the cluster calls init() before the first add(), so no
+// block reads one that has not started, and finish() before it ends.
+template <int kThreads>
+struct ClusterSum {
+  static constexpr int kUnits = 8;
+  static constexpr int kBatch = 2;  // loads in flight a thread
+  uint32_t slots;  // this thread's slot of unit 0 in the buffer
+  int n, rank;
+  bool pending = false;  // add()'s reads may still run in other blocks
+
+  __device__ ClusterSum(uint32_t buffer, int n_, int rank_, int tid)
+      : slots(buffer + tid * 16), n(n_), rank(rank_) {}
+
+  __device__ void init() const {
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  __device__ void finish() const {
+    if (!pending) cluster_arrive();
+    cluster_wait();
+  }
+
+  __device__ static float4 get(const float (&a)[32], int u) {
+    return make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2], a[4 * u + 3]);
+  }
+
+  __device__ static void put(float (&a)[32], int u, float4 v) {
+    a[4 * u] = v.x;
+    a[4 * u + 1] = v.y;
+    a[4 * u + 2] = v.z;
+    a[4 * u + 3] = v.w;
+  }
+
+  __device__ uint32_t at(int u) const { return slots + u * kThreads * 16; }
+
+  // a becomes its sum over the cluster
+  __device__ void add(float (&a)[32]) {
+    if (pending) cluster_wait();
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) store_shared(at(u), get(a, u));
+    cluster_arrive();
+    cluster_wait();
+    if (n == 2) {  // each reads the other's terms
+#pragma unroll
+      for (int u0 = 0; u0 < kUnits; u0 += kBatch) {
+        float4 other[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          other[j] = load_remote(at(u0 + j), 1 - rank);
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const float4 own = get(a, u0 + j);
+          put(a, u0 + j, rank == 0 ? own + other[j] : other[j] + own);
+        }
+      }
+    } else {
+      // the owner's units: the others' terms kBatch blocks at a time, added
+      // in rank order
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        if (u % n != rank) continue;
+        const float4 own = get(a, u);
+        float4 sum = own;
+#pragma unroll
+        for (int r0 = 0; r0 < kMaxCluster; r0 += kBatch) {
+          float4 terms[kBatch];
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j)
+            if (r0 + j < n && r0 + j != rank)
+              terms[j] = load_remote(at(u), r0 + j);
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            if (r0 + j >= n) continue;
+            const float4 term = r0 + j == rank ? own : terms[j];
+            sum = r0 + j == 0 ? term : sum + term;
+          }
+        }
+        put(a, u, sum);
+        store_shared(at(u), sum);
+      }
+      cluster_arrive();
+      cluster_wait();
+      // the other units' sums, from their owners
+#pragma unroll
+      for (int u0 = 0; u0 < kUnits; u0 += kBatch) {
+        float4 sums[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if ((u0 + j) % n != rank)
+            sums[j] = load_remote(at(u0 + j), (u0 + j) % n);
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if ((u0 + j) % n != rank) put(a, u0 + j, sums[j]);
+      }
+    }
+    cluster_arrive();  // this block's reads are done
+    pending = true;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // launch
@@ -528,13 +711,15 @@ cudaError_t allow_smem(size_t bytes) {
 }
 
 // A launch's shape: threads a block, dynamic shared memory a block, the
-// rows of the sequence a block owns, and the slices of the head (blocks
-// along z). Each kernel family has one function that gives it, which both
-// its launcher and flash_launch_shape call.
+// rows of the sequence a block owns, the slices of the head (blocks along
+// z), and the blocks a cluster (along z; 1: no cluster). Each kernel family
+// has one function that gives it, which both its launcher and
+// flash_launch_shape call.
 struct LaunchShape {
   int threads;
   size_t smem;
   int rows, slices;
+  int cluster = 1;
 
   dim3 grid(int bn, int t) const {
     return dim3(bn, (t + rows - 1) / rows, slices);
@@ -549,6 +734,50 @@ cudaError_t launch_in(const LaunchShape& shape, int bn, int t,
   if (err != cudaSuccess) return err;
   kKernel<<<shape.grid(bn, t), shape.threads, shape.smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// kKernel's launch configuration in `shape`, clusters of shape.cluster
+// blocks along z; `attr` holds the cluster attribute the config points at
+struct ClusterConfig {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+
+  ClusterConfig(const LaunchShape& shape, dim3 grid, cudaStream_t stream) {
+    config.gridDim = grid;
+    config.blockDim = dim3(shape.threads);
+    config.dynamicSmemBytes = shape.smem;
+    config.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = shape.cluster;
+    config.attrs = attr;
+    config.numAttrs = 1;
+  }
+};
+
+// launch_in for a kernel that runs in clusters: a cluster the card cannot
+// place is refused here, with the launch's error
+template <auto kKernel, class... Args>
+cudaError_t launch_cluster_in(const LaunchShape& shape, int bn, int t,
+                              cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_smem<kKernel>(shape.smem);
+  if (err != cudaSuccess) return err;
+  const ClusterConfig c(shape, shape.grid(bn, t), stream);
+  return cudaLaunchKernelEx(&c.config, kKernel, args...);
+}
+
+// how many clusters of kKernel in `shape` the card can hold at once (0:
+// it cannot place one), or -1 on an error
+template <auto kKernel>
+int max_active_clusters(const LaunchShape& shape) {
+  if (allow_smem<kKernel>(shape.smem) != cudaSuccess) return -1;
+  const ClusterConfig c(shape, dim3(1, 1, shape.cluster), 0);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, (const void*)kKernel,
+                                     &c.config) != cudaSuccess)
+    return -1;
+  return clusters;
 }
 
 }  // namespace flash_tiles

@@ -19,9 +19,12 @@ of ``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
 of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
 which also holds the C interface. Above head size 256 the 16-bit types take
-the sliced tensor-core kernels ``flash_fwd_sliced_kernel``,
-``flash_bwd_dkv_sliced_kernel`` and ``flash_bwd_dq_sliced_kernel``, which
-give each block one slice of the head's output columns. See the notes at
+the sliced tensor-core kernels ``flash_fwd_sliced_kernel`` and
+``flash_bwd_dq_sliced_kernel``, which give each block one slice of the
+head's output columns, and the cluster kernel
+``flash_bwd_dkv_cluster_kernel``, whose blocks each own a slice of the
+columns and sum their terms of the score products over a thread-block
+cluster. See the notes at
 the top of the CUDA sources for what bounds the kernels on the card and
 for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
@@ -51,8 +54,8 @@ that is already contiguous).
 
 Head sizes. The kernels work on whole 64-column panels: up to 256 at
 ``HEAD_SIZES`` = 64, 128 and 256, above it at any multiple of 64 (the
-sliced kernels, and the float32 ``_cols`` kernels, take the head size at
-run time). On a CUDA tensor any other head size is zero-padded to the
+sliced and cluster kernels, and the float32 ``_cols`` kernels, take the
+head size at run time). On a CUDA tensor any other head size is zero-padded to the
 next size the kernels take (:func:`kernel_head_size`, :func:`pad_head`):
 zero columns add nothing to ``q kᵀ``, the padded columns of ``o``, dQ, dK
 and dV are dropped, the scale comes from the true head size, and ``di`` is
@@ -126,7 +129,7 @@ def delta(o, do):
 def kernel_head_size(h):
     """The head size the CUDA kernels run a call of head size ``h`` at: the
     smallest of ``HEAD_SIZES`` that holds it, and above the largest the
-    next multiple of ``PANEL`` (the sliced kernels')."""
+    next multiple of ``PANEL`` (the sliced and cluster kernels')."""
     for size in HEAD_SIZES:
         if h <= size:
             return size
@@ -265,7 +268,7 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
     """Launch K3b alone: ``(dk, dv)``. bfloat16 and float16 operands run
-    ``flash_bwd_dkv_tc_kernel`` (above 256 ``flash_bwd_dkv_sliced_kernel``),
+    ``flash_bwd_dkv_tc_kernel`` (above 256 ``flash_bwd_dkv_cluster_kernel``),
     float32 ``flash_bwd_dkv_kernel`` (from 256 on
     ``flash_bwd_dkv_cols_kernel``)."""
     tail = _tail(q, k, scale, causal, n_heads)
@@ -302,14 +305,17 @@ def launch_shape(kernel, dtype, h):
     """How a launch of ``kernel`` ("fwd", "dkv" or "dq") at head size ``h``
     (one the kernels take) in ``dtype`` is shaped, as its launcher shapes
     it: ``threads`` a block, the block's dynamic shared memory
-    ``smem_bytes``, and ``slices``, the blocks that split the head's output
-    columns."""
-    shape = (ctypes.c_int * 3)()
+    ``smem_bytes``, ``slices``, the blocks that split the head's output
+    columns, ``cluster``, the blocks of a thread-block cluster (1: none),
+    and ``max_active_clusters``, how many such clusters the current card
+    holds at once (0 without clusters)."""
+    shape = (ctypes.c_int * 5)()
     code = _library().flash_launch_shape(
         ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], shape)
     _check_launch(_library(), code, "flash_launch_shape")
     return {"threads": shape[0], "smem_bytes": shape[1],
-            "slices": shape[2]}
+            "slices": shape[2], "cluster": shape[3],
+            "max_active_clusters": shape[4]}
 
 
 def tile_products(x, y):

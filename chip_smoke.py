@@ -275,21 +275,25 @@ the CUDA toolkit. In order, it:
     with the bf16 step, K3a-c 12 launches each a step by the counters, set
     to 0 just before the timed steps and read just after;
 28. runs the flash kernels at head sizes above 256 (``wide_heads_path``),
-    on the sliced tensor-core kernels and, in float32, the ``_cols`` FMA
-    kernels: (a) K3a-c through ``flash_attention`` and its backward at
+    on K3a's and K3c's sliced and K3b's cluster tensor-core kernels and, in
+    float32, the ``_cols`` FMA kernels: (a) K3a-c through
+    ``flash_attention`` and its backward at
     ``[16, 512, 512]`` (phase 9's width over one head) with the ragged key
     mask, causal and not, in bf16, float16 and float32, held to their
     plain versions with phase 8's tolerances and timed in bf16 and float16
     at phase 11's tokens against their bounds and SDPA, whose backend the
-    profiler names; (b) K3a-c held at h 288 (padded to 320), 384 and 1024
-    on small shapes (cross lengths under the causal mask, rows and a batch
-    item with no valid key, a scattered key mask) in the three types; (c)
-    phase 9's padded train step over one head of 512, flash against dense
-    attention on the same init (first loss and logits, the timed steps in
-    turns, K3a-c 12 launches each a step by the counters); (d) greedy
-    decoding of 16 tokens at h 512 (float32 tokens equal dense's) and K3a
-    at one query row, ``[16, 1, 512]`` against ``[16, 512, 512]``, held
-    and timed as in phase 17;
+    profiler names; (b) K3a-c held at h 288 (padded to 320), 384, 1024
+    and 1088 on small shapes (cross lengths under the causal mask, rows and
+    a batch item with no valid key, a scattered key mask) in the three
+    types; (c) phase 9's padded train step over one head of 512, flash
+    against dense attention on the same init (first loss within 2e-4 of
+    dense's, logits, the timed steps in turns, K3a-c 12 launches each a
+    step by the counters); (d) greedy decoding of 16 tokens at h 512
+    (float32 tokens equal dense's) and K3a at one query row, ``[16, 1,
+    512]`` against ``[16, 512, 512]``, held and timed as in phase 17; (e)
+    K3a-c at ``[16, 512, h]`` for h 288, 384, 512, 1024 and 1088: each
+    one's time, TFLOP/s, share of its bound, registers and launch shape
+    (shared memory, cluster size, clusters the card holds at once);
 29. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
     ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
     line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``float16``
@@ -335,9 +339,15 @@ S2S_WARMUP, S2S_STEPS, S2S_REPEATS = 2, 5, 3
 CARD = ""
 # registers and spilled bytes of each kernel, from the build's ptxas report
 PTXAS = {}
+# what K3a-c move and compute at a [bn, t, h] shape, by kernel: the [bn, t,
+# h] operands read or written at every row (besides the kept rows of k and
+# v), the float32 row statistics, and the operations of a multiply-add
+# pair of one product times the products (K3a reads q and writes o, l, m;
+# K3b and K3c read q, do, l, m, di and write dk, dv or dq)
+FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
-FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_tc|_cols|_sliced)?"
-                r"_kernel)")
+FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
+                r"(?:_tc|_cols|_sliced|_cluster)?_kernel)")
 
 
 def check(ok, what):
@@ -1061,23 +1071,23 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
     lib_fwd_ms = cuda_ms(torch, sdpa, 20, backlog=True)
     lib_bwd_ms = cuda_ms(torch, sdpa_bwd, 20, backlog=True)
     wrapper_ms = cuda_ms(torch, wrapped, 20)
+    def work(key):  # bytes beyond the kept k and v rows, products
+        rows, stat_rows, per_pair = FLASH_WORK[key]
+        return rows * row_bytes + stat_rows * stats, per_pair
+
     # (name, key, launch, bytes beyond the kept k and v rows, products,
-    # replaces, plain_ms, library_ms): K3a reads q and writes o, l, m; K3b
-    # and K3c read q, do, l, m, di and write dk, dv or dq, all at every row
+    # replaces, plain_ms, library_ms)
     specs = (
         ("flash_fwd", "fwd", lambda c: fa.launch_forward(
-            *nxt_padded()[:3], fmask, scale, c, n),
-         2 * row_bytes + 2 * stats, 4,
+            *nxt_padded()[:3], fmask, scale, c, n), *work("fwd"),
          "chambers_tpu/ops/flash_attention.py:190 _flash_forward",
          plain_fwd_ms, lib_fwd_ms),
         ("flash_bwd_dkv", "dkv", lambda c: fa.launch_backward_dkv(
-            *bwd_args(c)),
-         4 * row_bytes + 3 * stats, 8,
+            *bwd_args(c)), *work("dkv"),
          "chambers_tpu/ops/flash_attention.py:387 _flash_backward (dK/dV)",
          plain_bwd_ms, lib_bwd_ms),
         ("flash_bwd_dq", "dq", lambda c: fa.launch_backward_dq(
-            *bwd_args(c)),
-         3 * row_bytes + 3 * stats, 6,
+            *bwd_args(c)), *work("dq"),
          "chambers_tpu/ops/flash_attention.py:418 _flash_backward (dQ)",
          plain_bwd_ms, lib_bwd_ms),
     )
@@ -5543,6 +5553,8 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
         check(rel <= 1e-2 and cos >= 0.999,
               f"h {h}: the flash step's first loss and logits follow the "
               f"dense path")
+        check(phase != 28 or rel <= 2e-4,
+              f"h {h}: the first loss within 2e-4 of the dense path's")
         out[f"h{h}"] = {"heads": heads, "first_loss": float(loss_f),
                         "first_loss_dense": float(loss_d),
                         "first_loss_rel_gap": rel, "logits_cosine": cos}
@@ -5892,10 +5904,16 @@ def float16_path(torch, fa, dev, rows):
     return out
 
 
-# phase 28: head sizes above 256 (the sliced kernels); phase 9's width over
-# one head, and small shapes at the other sizes, correctness only
+# phase 28: head sizes above 256 (the sliced K3a and K3c, K3b's cluster
+# kernel); phase 9's width over one head, small shapes at the other sizes,
+# and phase 9's tokens over one head timed at each
 WIDE = {512: 1}
-WIDE_SMALL = (288, 384, 1024)
+WIDE_SMALL = (288, 384, 1024, 1088)
+# the kernels' names above 256 in bf16 and float16, to read their
+# registers from the build's report
+WIDE_KERNELS = {"flash_fwd": "flash_fwd_sliced_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_cluster_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_sliced_kernel"}
 
 
 def wide_small_cases(torch, dev, h, dtype):
@@ -5931,19 +5949,88 @@ def sdpa_backend(torch, dev, h, heads, dtype):
                                               False)).name.lower()
 
 
+# phase 28 (e)'s head sizes
+WIDE_TIMED = (288, 384, 512, 1024, 1088)
+
+
+def time_wide_kernels(torch, fa, dev, h):
+    """Phase 28 (e): K3a-c at ``[16, 512, h]`` bf16 with the ragged key
+    mask (phase 9's tokens over one head) at a head size above 256: each
+    kernel's time (CUDA events over 20 launches behind a backlog, cycled
+    over three input sets beyond the L2) against its bound, counted as
+    ``time_flash_kernels`` counts it (the kept keys, the true head size,
+    ``FLASH_WORK``), the TFLOP/s that gives, its registers from the build's
+    report and its launch shape (shared memory, cluster size and, for
+    K3b's cluster kernel, how many clusters the card holds at once, which
+    must be at least one)."""
+    b, t = S2S["batch"], S2S["t"]
+    size, scale = fa.kernel_head_size(h), h ** -0.5
+    mask = ragged_mask(torch, b, t, dev)
+    fmask = mask.float()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    sets = []
+    for _ in range(3):
+        q, k, v, do = (torch.randn((b, t, h), device=dev, generator=gen)
+                       .bfloat16() for _ in range(4))
+        o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, 1)
+        sets.append((*(fa.pad_head(x, size) for x in (q, k, v, do)), l, m,
+                     fa.delta(o, do)))
+    turn = iter(range(10 ** 9))
+
+    def launch(key):
+        q, k, v, do, l, m, di = sets[next(turn) % len(sets)]
+        if key == "fwd":
+            return fa.launch_forward(q, k, v, fmask, scale, False, 1)
+        args = (q, k, v, do, l, m, di, fmask, scale, False, 1)
+        return (fa.launch_backward_dkv(*args) if key == "dkv"
+                else fa.launch_backward_dq(*args))
+
+    kept = int(mask.sum())
+    out = {"shape": f"[{b}, {t}, {h}] bf16, ragged key mask",
+           "kernel_head_size": size}
+    for name, key in FLASH_KEYS.items():
+        ms = cuda_ms(torch, lambda: launch(key), 20, backlog=True)
+        rows, stat_rows, per_pair = FLASH_WORK[key]
+        ops = per_pair * t * h * kept
+        moved = ((rows * b * t + 2 * kept) * h * 2 + stat_rows * b * t * 4
+                 + b * t * 4)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        shape = fa.launch_shape(key, torch.bfloat16, size)
+        if shape["cluster"] > 1:
+            check(shape["max_active_clusters"] > 0,
+                  f"h {h}: the card holds a cluster of {name} ({shape})")
+        out[name] = {
+            "kernel": WIDE_KERNELS[name], "ms": ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": max(bytes_ms, ops_ms) / ms,
+            "achieved_tflops": ops / (ms / 1e3) / 1e12,
+            "ptxas": PTXAS.get(f"{WIDE_KERNELS[name]}<bf16>"),
+            "launch_shape": shape}
+        log(f"phase 28 (e) {name} [{b}, {t}, {h}] bf16 key mask: "
+            f"{ms * 1e3:.1f} us, {out[name]['achieved_tflops']:.1f} TFLOP/s, "
+            f"{100 * out[name]['share_of_bound']:.1f}% of its bound "
+            f"({out[name]['bound_ms'] * 1e3:.2f} us, "
+            f"{out[name]['bound_by']}); ptxas {out[name]['ptxas']}; {shape}; "
+            f"on {CARD}")
+    return out
+
+
 def wide_heads_path(torch, fa, dev, rows):
-    """Phase 28: head sizes above 256, on the sliced kernels (float32 on the
-    ``_cols`` kernels). (a) K3a-c through ``flash_attention`` and its
-    backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
+    """Phase 28: head sizes above 256, on the sliced K3a and K3c and K3b's
+    cluster kernel (float32 on the ``_cols`` kernels). (a) K3a-c through
+    ``flash_attention`` and its backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
     ragged key mask, causal and not, in bf16, float16 and float32, held to
     their plain versions with phase 8's tolerances and timed in bf16 and
     float16 at phase 11's tokens and FLOPs against their bounds and SDPA
     (whose backend is named); (b) K3a-c held at h 288 (padded to 320),
-    384 and 1024 on small shapes in the three types; (c), (d)
+    384, 1024 and 1088 on small shapes in the three types; (c), (d)
     ``seq2seq_at_heads`` at one head of 512: the train step against dense,
     K3a-c 12 launches each a step, and greedy decoding of 16 tokens, K3a
     at one query row (``[16, 1, 512]`` against ``[16, 512, 512]``) held and
-    timed as in phase 17. Adds ``shape_h512`` to the K3a-c rows of the
+    timed as in phase 17; (e) ``time_wide_kernels`` at each of
+    ``WIDE_TIMED``. Adds ``shape_h512`` to the K3a-c rows of the
     ``kernels`` line and ``decode_h512`` to K3a's; returns the phase's
     JSON object."""
     t0 = time.perf_counter()
@@ -5996,8 +6083,8 @@ def wide_heads_path(torch, fa, dev, rows):
                 "max_abs_err", "ms", "plain_ms", "library_ms", "causal_ms",
                 "achieved_tflops")},
             "float32_max_abs_err": errors[torch.float32][key],
-            "ptxas": PTXAS.get(f"{row['name']}_sliced_kernel<bf16>"),
-            "ptxas_float16": PTXAS.get(f"{row['name']}_sliced_kernel<f16>"),
+            "ptxas": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<bf16>"),
+            "ptxas_float16": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<f16>"),
             "ptxas_float32": PTXAS.get(f"{row['name']}_cols_kernel<f32>"),
             "launch_shape": fa.launch_shape(key, torch.bfloat16, h),
             "launch_shape_float32": fa.launch_shape(key, torch.float32, h),
@@ -6020,6 +6107,8 @@ def wide_heads_path(torch, fa, dev, rows):
             row[f"decode_h{h}"] = {k: decode_rows[0][k] for k in (
                 "shape", "launches", "max_abs_err", "ms", "plain_ms",
                 "wrapper_ms", "bound_ms", "bound_by", "library_ms")}
+    out["sizes"] = {f"h{x}": time_wide_kernels(torch, fa, dev, x)
+                    for x in WIDE_TIMED}
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"phase 28: {out['seconds']} s")
     return out

@@ -331,10 +331,14 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
     _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked)
 
 
-# head sizes above 256, on the sliced kernels (float32: the _cols kernels
-# with the head size at run time): 288 padded to 320, whose last slice is
-# partial, 384, 512 and 1024; the edges of FLASH_CASES at small shapes
-WIDE_HEADS = [288, 384, 512, 1024]
+SIXTEEN_BIT = (torch.bfloat16, torch.float16)
+
+# head sizes above 256, on the sliced K3a and K3c and K3b's cluster kernel
+# (float32: the _cols kernels with the head size at run time): 288 padded
+# to 320, whose last slice is partial, 384, 512, 640 (the last block of a
+# cluster runs past the head), 1024, 1088 (clusters of five) and 2112 (two
+# clusters along the head); the edges of FLASH_CASES at small shapes
+WIDE_HEADS = [288, 384, 512, 640, 1024, 1088, 2112]
 WIDE_CASES = [
     (2, 2, 257, 257, True, True),    # causal + key mask, an item with none
     (1, 2, 130, 260, True, False),
@@ -352,6 +356,53 @@ def test_flash_kernels_above_256_match_plain(dev, b, n, tq, tk, h, dtype,
     """The kernels at head sizes above 256 against the plain versions, as
     ``test_flash_kernels_match_plain`` holds them."""
     _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked)
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("h", [512, 1088, 2112])
+def test_cluster_kernels_repeat_their_bits(dev, h, dtype):
+    """K3b above 256 sums its blocks' terms of the score products over a
+    cluster in rank order, with no atomics, and K3c's slices each write
+    their own columns: at phase 9's tokens over one head (``[16, 512, h]``,
+    the ragged key mask, causal and not; at 2112 two clusters along the
+    head), where many clusters run at once, three launches give the same
+    bits."""
+    q, k, v, do, mask = _flash_inputs(dev, 16, 1, 512, 512, h, dtype,
+                                      "ragged", seed=5)
+    for causal in (False, True):
+        o, l, m = fa.launch_forward(q, k, v, mask, h ** -0.5, causal, 1)
+        args = (q, k, v, do, l, m, fa.delta(o, do), mask, h ** -0.5, causal,
+                1)
+        first = (*fa.launch_backward_dkv(*args), fa.launch_backward_dq(*args))
+        for _ in range(2):
+            again = (*fa.launch_backward_dkv(*args),
+                     fa.launch_backward_dq(*args))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+        assert all(bool(torch.isfinite(x).all()) for x in first)
+
+
+@pytest.mark.parametrize("h", range(320, 2113, 64))
+def test_cluster_launch_shapes_fit_the_card(dev, h):
+    """Above 256 the blocks of K3b (two warpgroups) own 256 columns each,
+    in clusters along z of at most 8 blocks, as few clusters as that
+    allows: the shape the launcher reports, and that the card holds at
+    least one such cluster at once in both 16-bit types. K3c's slices (one
+    warpgroup, 256 columns each) run in no cluster."""
+    panels = h // 64
+    clusters = -(-panels // 32)
+    blocks = -(-panels // (clusters * 4))
+    for dtype in SIXTEEN_BIT:
+        shape = fa.launch_shape("dkv", dtype, h)
+        assert shape["threads"] == 256
+        assert shape["cluster"] == blocks <= 8
+        assert shape["slices"] == blocks * clusters
+        assert shape["max_active_clusters"] > 0
+        sliced = fa.launch_shape("dq", dtype, h)
+        assert (sliced["threads"], sliced["slices"], sliced["cluster"],
+                sliced["max_active_clusters"]) == (128, -(-panels // 4), 1, 0)
+    for kernel in ("dkv", "dq"):
+        assert fa.launch_shape(kernel, torch.float32, h)["cluster"] == 1
 
 
 def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
@@ -438,9 +489,6 @@ def _kernel_names(fn):
     return " ".join(e.key for e in prof.key_averages())
 
 
-SIXTEEN_BIT = (torch.bfloat16, torch.float16)
-
-
 @pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_forward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core forward (its sliced
@@ -464,9 +512,10 @@ def test_forward_dtype_chooses_the_kernels(dev, h):
 
 @pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_backward_dtype_chooses_the_kernels(dev, h):
-    """bf16 and float16 operands run the tensor-core kernels (``_sliced``
-    above 256), float32 the FMA kernels (``_cols`` from 256 on): read from
-    the profiler's kernel names."""
+    """bf16 and float16 operands run the tensor-core kernels (above 256
+    K3b's ``_cluster`` kernel and K3c's ``_sliced`` one), float32 the FMA
+    kernels (``_cols`` from 256 on): read from the profiler's kernel
+    names."""
     names = {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, False)
@@ -479,10 +528,13 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
     assert f"flash_bwd_dq{cols}_kernel" in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
     assert "_sliced_kernel" not in names[torch.float32]
-    tc = "_sliced" if h > 256 else "_tc"
+    assert "_cluster_kernel" not in names[torch.float32]
+    dkv, dq = ("_cluster", "_sliced") if h > 256 else ("_tc", "_tc")
     for dtype in SIXTEEN_BIT:
-        assert f"flash_bwd_dkv{tc}_kernel" in names[dtype]
-        assert f"flash_bwd_dq{tc}_kernel" in names[dtype]
+        assert f"flash_bwd_dkv{dkv}_kernel" in names[dtype]
+        assert f"flash_bwd_dq{dq}_kernel" in names[dtype]
+        assert "flash_bwd_dkv_sliced_kernel" not in names[dtype]
+        assert "flash_bwd_dq_cluster_kernel" not in names[dtype]
 
 
 @pytest.mark.parametrize("h", HEADS + [288, 512])

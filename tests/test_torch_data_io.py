@@ -6,6 +6,7 @@ decoder cannot be built (no ``g++`` or no libjpeg), as the JAX package's
 do."""
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -64,6 +65,25 @@ def decoder():
         pytest.skip("native decoder not buildable here (needs g++ and "
                     "libjpeg); the per-element path is the contract")
     return native
+
+
+@pytest.fixture
+def jax_decoder():
+    """The JAX package's native decoder, which the comparisons below read.
+    Every test worker imports ``tests/data/test_native_decode.py``, whose
+    collection builds that decoder into one file of a shared cache; a
+    worker whose build loses the race to another's keeps it marked as
+    failed for the rest of its run, though the other worker's library is
+    there. So where the library exists, or appears within a few seconds,
+    clear the mark and load it again. A decoder that still cannot be
+    loaded is handed over as it is, and the comparisons fail."""
+    so_path = os.path.join(jnative._cache_dir(), "libfastjpeg.so")
+    deadline = time.monotonic() + 10.0
+    while not jnative.available() and time.monotonic() < deadline:
+        time.sleep(0.2)
+        if os.path.exists(so_path):
+            jnative._LOAD_FAILED = False
+    return jnative
 
 
 def test_matching_equals_jax(image_dir, tmp_path):
@@ -152,34 +172,34 @@ def test_listing_cache_updates_when_the_dir_changes(tmp_path):
 
 # --- the native decoder -----------------------------------------------------
 
-def test_native_batch_equals_jax_and_pil(decoder, jpegs):
+def test_native_batch_equals_jax_and_pil(decoder, jax_decoder, jpegs):
     uniform, ragged = jpegs
     for files in (uniform, ragged):
         got = decoder.decode_jpeg_batch(files, num_threads=3)
-        want = jnative.decode_jpeg_batch(files, num_threads=3)
+        want = jax_decoder.decode_jpeg_batch(files, num_threads=3)
         for path, g, w in zip(files, got, want):
             assert np.array_equal(g, w)
             assert np.array_equal(g, np.asarray(
                 Image.open(path).convert("RGB")))
     stacked = decoder.decode_jpeg_batch(uniform, stack=True)
     assert stacked.shape == (6, 16, 24, 3)
-    assert np.array_equal(stacked, jnative.decode_jpeg_batch(uniform,
-                                                             stack=True))
+    assert np.array_equal(stacked, jax_decoder.decode_jpeg_batch(
+        uniform, stack=True))
     assert np.array_equal(decoder.decode_jpeg(uniform[2]), stacked[2])
 
 
-def test_native_grayscale_expands_to_rgb(decoder, image_dir):
+def test_native_grayscale_expands_to_rgb(decoder, jax_decoder, image_dir):
     got = decoder.decode_jpeg(str(image_dir / "gray.jpg"))
-    assert np.array_equal(got, jnative.decode_jpeg(str(image_dir /
-                                                       "gray.jpg")))
+    assert np.array_equal(got, jax_decoder.decode_jpeg(str(image_dir /
+                                                           "gray.jpg")))
     assert np.array_equal(got, np.asarray(
         Image.open(image_dir / "gray.jpg").convert("RGB")))
 
 
-def test_native_ifast_equals_jax(decoder, jpegs):
+def test_native_ifast_equals_jax(decoder, jax_decoder, jpegs):
     uniform, _ = jpegs
     got = decoder.decode_jpeg_batch(uniform, dct_method="ifast")
-    want = jnative.decode_jpeg_batch(uniform, dct_method="ifast")
+    want = jax_decoder.decode_jpeg_batch(uniform, dct_method="ifast")
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     with pytest.raises(ValueError, match="dct_method"):

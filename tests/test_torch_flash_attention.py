@@ -329,7 +329,7 @@ def test_bf16_backward_plain_matches_jax_kernels(name):
             assert np.abs(per_item[0]).max() > 0
 
 
-HEAD_SIZES = [8, 32, 80, 128, 160, 256, 320, 512]
+HEAD_SIZES = [8, 32, 80, 128, 160, 256, 320, 512, 640]
 # the spacing of the type's values at 1: 2^-7 for bfloat16, 2^-10 for
 # float16 (unit roundoffs 2^-8 and 2^-11)
 STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
@@ -360,8 +360,14 @@ TYPES = {"float32": (jnp.float32, torch.float32),
          "float16": (jnp.float16, torch.float16)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("h", HEAD_SIZES)
+# every head size in the three types, and 1088 (past one cluster of K3b's
+# blocks on the card) in bf16, the type the card's kernels run it in
+HEAD_CASES = [(h, dtype) for h in HEAD_SIZES
+              for dtype in ("float32", "bfloat16", "float16")] + [
+                  (1088, "bfloat16")]
+
+
+@pytest.mark.parametrize("h,dtype", HEAD_CASES)
 def test_head_sizes_match_jax_kernel(h, dtype):
     """The port's ``flash_attention`` at head sizes other than 64 (its plain
     versions, through the autograd function) against JAX's
@@ -369,8 +375,10 @@ def test_head_sizes_match_jax_kernel(h, dtype):
     lengths 100 x 120: the output and the gradients of a random cotangent.
     float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 and float16 as
     ``_close_half``. On the card the kernels run these sizes at 64, 128,
-    256 or the next multiple of 64 above 256 (320, 512: the sliced
-    kernels), zero-padded where the size is not one of them
+    256 or the next multiple of 64 above 256 (320, 512, 640, 1088: the
+    sliced K3a and K3c and K3b's cluster kernel, whose clusters end in a
+    part past the head at 320, 640 and 1088), zero-padded where the size
+    is not one of them
     (``test_padded_plain_call_is_bit_equal``)."""
     rng = np.random.RandomState(h)
     shape_q, shape_kv = (2, 2, 100, h), (2, 2, 120, h)
