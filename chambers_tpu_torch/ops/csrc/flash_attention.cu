@@ -105,6 +105,7 @@ namespace {
 using flash_tiles::LaunchShape;
 using flash_tiles::launch_in;
 using flash_tiles::kMaskValue;
+using flash_tiles::resident_blocks;
 
 constexpr int kTile = 64;       // query rows and key rows per tile
 constexpr int kThreads = 256;   // 16 x 16
@@ -998,7 +999,9 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
                             const void* kv_mask, void* dq, int bn, int tq,
                             int tk, int n_heads, float scale, int causal,
                             cudaStream_t stream);
-LaunchShape flash_fwd_tc_shape(int panels);
+int flash_fwd_tc_kernel_of(int panels, int tq, int tk);
+LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk);
+int flash_fwd_tc_resident(int f16, int panels, int tq, int tk);
 LaunchShape flash_bwd_tc_shape(int dkv, int panels);
 int flash_bwd_dkv_max_clusters(int f16, int panels);
 
@@ -1059,27 +1062,44 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The launch shape a call of kernel `kernel` (0 K3a, 1 K3b, 2 K3c) at head
-// size h and type dtype takes, from the function its launcher calls:
-// threads a block, dynamic shared memory a block, the slices of the head
-// (blocks along z), the blocks a cluster (1: none), and how many such
-// clusters the card holds at once (0 without clusters; asks the current
-// device). Returns cudaErrorInvalidValue for what the dispatch refuses.
-extern "C" int flash_launch_shape(int kernel, int h, int dtype, int* shape) {
+// size h, type dtype and lengths tq, tk takes, from the functions its
+// launcher calls: threads a block, dynamic shared memory a block, the slices
+// of the head (blocks along z), the blocks a cluster (1: none), how many
+// such clusters the card holds at once (0 without clusters), which kernel
+// of the family runs (KERNEL_NAMES in ops/flash_attention.py) and, for K3a,
+// how many of its blocks the card holds at once (0 for K3b and K3c). Asks
+// the current device. Returns cudaErrorInvalidValue for what the dispatch
+// refuses.
+extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
+                                  int tk, int* shape) {
   if (!head_size_taken(h) || kernel < kFwd || kernel > kDq ||
-      dtype < kFloat32 || dtype > kFloat16)
+      dtype < kFloat32 || dtype > kFloat16 || tq < 0 || tk < 0)
     return (int)cudaErrorInvalidValue;
+  const int f16 = dtype == kFloat16, panels = h / 64;
   const LaunchShape s = dtype == kFloat32 ? f32_shape(kernel, h)
-                        : kernel == kFwd  ? flash_fwd_tc_shape(h / 64)
-                                          : flash_bwd_tc_shape(kernel == kDkv,
-                                                               h / 64);
+                        : kernel == kFwd ? flash_fwd_tc_shape(panels, tq, tk)
+                                         : flash_bwd_tc_shape(kernel == kDkv,
+                                                              panels);
   shape[0] = s.threads;
   shape[1] = (int)s.smem;
   shape[2] = s.slices;
   shape[3] = s.cluster;
-  shape[4] = s.cluster > 1
-                 ? flash_bwd_dkv_max_clusters(dtype == kFloat16, h / 64)
-                 : 0;
-  return (int)cudaSuccess;
+  shape[4] = s.cluster > 1 ? flash_bwd_dkv_max_clusters(f16, panels) : 0;
+  // the family's kernels: float32 the FMA kernel (0) or its _cols form
+  // (1); the 16-bit ones from 2 on, K3a's whole-tile, short and sliced
+  // kernels, K3b's whole-tile and cluster kernels, K3c's whole-tile and
+  // sliced kernels
+  shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
+             : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)
+                                : (panels > 4 ? 3 : 2);
+  shape[6] = kernel != kFwd     ? 0
+             : dtype != kFloat32 ? flash_fwd_tc_resident(f16, panels, tq, tk)
+             : h == 64           ? resident_blocks<flash_fwd_kernel<float, 64>>(s)
+             : h == 128 ? resident_blocks<flash_fwd_kernel<float, 128>>(s)
+                        : resident_blocks<
+                              flash_fwd_cols_kernel<float, kColsHO>>(s);
+  return shape[6] < 0 ? (int)cudaErrorInvalidConfiguration
+                      : (int)cudaSuccess;
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -32,6 +32,8 @@
 // with zeros by a source size of 0, so the ragged edge needs no padded
 // operand. stage_panel fills one panel the same way from an operand whose
 // row stride is known only at run time (the sliced and cluster kernels).
+// K3a's short kernel fills whole heads by TMA instead (tma_load_head: the
+// copy engine writes the same swizzled layout, completion on an mbarrier).
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -238,6 +240,72 @@ __device__ __forceinline__ void stage_panel(uint32_t panel, const T* src,
 }
 
 // ---------------------------------------------------------------------------
+// tensor-memory copies and their barriers (K3a's short kernel)
+// ---------------------------------------------------------------------------
+
+// A TMA copy of a box of rows of a [heads, rows, 64] array of T, described
+// by a tensor map with the 128-byte swizzle, lands in the panel layout
+// above when its destination is 1024-byte aligned, and completes on an
+// mbarrier in shared memory that counts its bytes.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+
+// the inits visible to the other threads and to the copy engine (before
+// the block's barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, and add `bytes` to what the current phase waits for
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// this thread's reads and writes of shared memory ordered before later
+// copies into it by the copy engine (the asynchronous proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the box at rows 0.. of head `head` of the array `map` describes, to
+// shared address `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load_head(uint32_t dst, const void* map,
+                                              int head, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // the key mask
 // ---------------------------------------------------------------------------
 
@@ -307,6 +375,11 @@ __device__ __forceinline__ void pack_a_fragments(const float (&acc)[32],
 __device__ __forceinline__ void keep_registers(float (&x)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+__device__ __forceinline__ void keep_registers(float (&x)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
 __device__ __forceinline__ void keep_registers(uint32_t (&x)[4][4]) {
@@ -397,15 +470,45 @@ __device__ __forceinline__ void product_nt(float (&acc)[32], uint32_t x_tile,
                         y_tile + p * kPanelBytes, 4 * p);
 }
 
-// acc += A . Y: A [64 x 64] of T in registers (pack_a_fragments<T>), Y the
-// 64 rows of one panel at `y_tile` read along its rows (transposed)
+// acc = X . Y^T over one panel of h for the first 8 rows of Y only: the
+// [64 x 8] corner of product_nt's accumulator, the same sums (a key tile
+// that holds at most 8 keys). A thread holds (row g, columns 2 t, 2 t + 1)
+// and (row g + 8, the same columns): acc[0..3] of the wide layout.
 template <typename T>
+__device__ __forceinline__ void product_nt_n8(float (&acc)[4],
+                                              uint32_t x_panel,
+                                              uint32_t y_panel) {
+  const uint64_t dx = descriptor(x_panel), dy = descriptor(y_panel);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if constexpr (std::is_same_v<T, __half>)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k16.f32.f16.f16 "
+          "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(ks));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "l"(dx + 2 * ks), "l"(dy + 2 * ks), "r"(ks));
+  }
+}
+
+// acc += A . Y: A [64 x 64] of T in registers (pack_a_fragments<T>), Y the
+// 64 rows of one panel at `y_tile` read along its rows (transposed); with
+// kSteps < 4 only A's first 16 kSteps columns and Y's first 16 kSteps rows
+// (the rest of A zeros: their products add nothing)
+template <typename T, int kSteps = 4>
 __device__ __forceinline__ void product_tn(float (&acc)[32],
                                            const uint32_t (&a)[4][4],
                                            uint32_t y_tile) {
   const uint64_t dy = descriptor(y_tile);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks) {
     // 16 rows further on: 2048 bytes, 128 in the descriptor's units
     if constexpr (std::is_same_v<T, __half>)
       asm volatile(FLASH_TILES_WGMMA_RS("f16")
@@ -765,6 +868,31 @@ cudaError_t launch_cluster_in(const LaunchShape& shape, int bn, int t,
   if (err != cudaSuccess) return err;
   const ClusterConfig c(shape, shape.grid(bn, t), stream);
   return cudaLaunchKernelEx(&c.config, kKernel, args...);
+}
+
+// how many blocks of kKernel in `shape` the current card holds at once
+// (its SMs times the blocks an SM holds), or -1 on an error; asked once for
+// each device
+template <auto kKernel>
+int resident_blocks(const LaunchShape& shape) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> known[kMaxDevices];
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  if (device < kMaxDevices) {
+    const int blocks = known[device].load(std::memory_order_acquire);
+    if (blocks > 0) return blocks;
+  }
+  int sms = 0, per_sm = 0;
+  if (allow_smem<kKernel>(shape.smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kKernel, shape.threads, shape.smem) != cudaSuccess)
+    return -1;
+  if (device < kMaxDevices && sms * per_sm > 0)
+    known[device].store(sms * per_sm, std::memory_order_release);
+  return sms * per_sm;
 }
 
 // how many clusters of kKernel in `shape` the card can hold at once (0:

@@ -13,7 +13,9 @@ Port of ``chambers_tpu/ops/flash_attention.py``:
 
 Each is two kernels behind one C function, chosen by the operands' type:
 bfloat16 and float16 take the tensor-core kernels, ``flash_fwd_tc_kernel``
-of ``flash_attention_fwd.cu`` and ``flash_bwd_dkv_tc_kernel``,
+of ``flash_attention_fwd.cu`` (at head size 64 over 64 to 256 queries and
+1 to 256 keys, ViT lengths, its ``flash_fwd_short_kernel``, which keeps a
+head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel``,
 ``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (both built on
 ``flash_tiles.cuh``, templated on the type); float32 takes the FMA kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
@@ -32,7 +34,9 @@ JAX function's. It goes through :class:`FlashAttentionFunction`, which
 saves ``q, k, v, o, l, m`` and the mask and launches K3a in ``forward`` and
 K3b and K3c in ``backward``. The three ``launch_*`` functions are the only
 places where a kernel starts, and each adds one to its entry of
-``flash_attention.launches`` there. ``di = Σ o·do`` is
+``flash_attention.launches`` there (K3a also to the kernel that ran, in
+``flash_attention.forward_launches``; :func:`launch_shape` names the
+kernel the library's dispatch picks for a call). ``di = Σ o·do`` is
 computed with torch ops before the backward launches, as the JAX package
 computes it outside its kernels.
 
@@ -83,6 +87,18 @@ PANEL = 64                      # above HEAD_SIZES[-1]: any multiple of it
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+# each family's kernels, in the order of the library's flash_launch_shape:
+# float32 (FMA, then from head size 256 the _cols form), then the 16-bit
+# tensor-core kernels
+KERNEL_NAMES = {
+    "fwd": ("flash_fwd_kernel", "flash_fwd_cols_kernel",
+            "flash_fwd_tc_kernel", "flash_fwd_short_kernel",
+            "flash_fwd_sliced_kernel"),
+    "dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_cols_kernel",
+            "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_cluster_kernel"),
+    "dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_cols_kernel",
+           "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel"),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,7 +110,7 @@ def _library():
     lib.flash_bwd_dkv.argtypes = [ptr] * 10 + tail
     lib.flash_bwd_dq.argtypes = [ptr] * 9 + tail
     lib.flash_tile_products.argtypes = [ptr] * 5
-    lib.flash_launch_shape.argtypes = [i32, i32, i32, ptr]
+    lib.flash_launch_shape.argtypes = [i32] * 5 + [ptr]
     for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
                lib.flash_tile_products, lib.flash_launch_shape):
         fn.restype = i32
@@ -249,19 +265,25 @@ def _tail(q, k, scale, causal, n_heads):
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
     """Launch K3a alone on checked, contiguous CUDA operands of a head size
     the kernels take: ``(o, l, m)``. bfloat16 and float16 operands run
-    ``flash_fwd_tc_kernel`` (above 256 ``flash_fwd_sliced_kernel``),
-    float32 ``flash_fwd_kernel`` (from 256 on ``flash_fwd_cols_kernel``)."""
+    ``flash_fwd_short_kernel`` at head size 64 when a head's queries (64 to
+    256) and keys (1 to 256) fit in shared memory whole,
+    ``flash_fwd_tc_kernel`` otherwise (above 256 ``flash_fwd_sliced_kernel``),
+    float32 ``flash_fwd_kernel`` (from 256 on ``flash_fwd_cols_kernel``).
+    The launch counts in ``flash_attention.launches["fwd"]`` and under its
+    kernel's name in ``flash_attention.forward_launches``."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
-    bn, tq, _ = q.shape
+    bn, tq, h = q.shape
+    kernel = forward_kernel(q.dtype, h, tq, k.shape[1])
     o = torch.empty_like(q)
     l = torch.empty((bn, tq, 1), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     with torch.cuda.device(q.device):
         code = lib.flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask),
                              _ptr(o), _ptr(l), _ptr(m), *tail)
-    _check_launch(lib, code, "flash_fwd_kernel")
+    _check_launch(lib, code, kernel)
     flash_attention.launches["fwd"] += 1
+    flash_attention.forward_launches[kernel] += 1
     return o, l, m
 
 
@@ -301,21 +323,34 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
     return dq
 
 
-def launch_shape(kernel, dtype, h):
+def launch_shape(kernel, dtype, h, tq, tk):
     """How a launch of ``kernel`` ("fwd", "dkv" or "dq") at head size ``h``
-    (one the kernels take) in ``dtype`` is shaped, as its launcher shapes
-    it: ``threads`` a block, the block's dynamic shared memory
-    ``smem_bytes``, ``slices``, the blocks that split the head's output
-    columns, ``cluster``, the blocks of a thread-block cluster (1: none),
-    and ``max_active_clusters``, how many such clusters the current card
-    holds at once (0 without clusters)."""
-    shape = (ctypes.c_int * 5)()
+    (one the kernels take) in ``dtype`` over ``tq`` queries and ``tk`` keys
+    is shaped, as its launcher shapes it: ``kernel_name``, the kernel of
+    the family the dispatch picks, ``threads`` a block, the block's dynamic
+    shared memory ``smem_bytes``, ``slices``, the blocks that split the
+    head's output columns, ``cluster``, the blocks of a thread-block
+    cluster (1: none), ``max_active_clusters``, how many such clusters the
+    current card holds at once (0 without clusters), and for K3a
+    ``resident_blocks``, how many of its blocks the current card holds at
+    once (the short kernel launches that many, or one a head if fewer)."""
+    shape = (ctypes.c_int * 7)()
     code = _library().flash_launch_shape(
-        ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], shape)
+        ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], tq, tk, shape)
     _check_launch(_library(), code, "flash_launch_shape")
-    return {"threads": shape[0], "smem_bytes": shape[1],
-            "slices": shape[2], "cluster": shape[3],
-            "max_active_clusters": shape[4]}
+    out = {"kernel_name": KERNEL_NAMES[kernel][shape[5]],
+           "threads": shape[0], "smem_bytes": shape[1], "slices": shape[2],
+           "cluster": shape[3], "max_active_clusters": shape[4]}
+    if kernel == "fwd":
+        out["resident_blocks"] = shape[6]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def forward_kernel(dtype, h, tq, tk):
+    """The name of the kernel a K3a launch at these type, head size and
+    lengths runs, as the library's dispatch picks it."""
+    return launch_shape("fwd", dtype, h, tq, tk)["kernel_name"]
 
 
 def tile_products(x, y):
@@ -450,3 +485,5 @@ def flash_attention(query, value, key=None, scale=None, causal=False,
 
 
 flash_attention.launches = {"fwd": 0, "dkv": 0, "dq": 0}
+# K3a's launches by the kernel that ran
+flash_attention.forward_launches = dict.fromkeys(KERNEL_NAMES["fwd"], 0)

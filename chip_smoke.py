@@ -35,7 +35,8 @@ the CUDA toolkit. In order, it:
    key, one query against 300 keys, and a batch item with no valid key, in
    bf16 (the tensor-core kernels) and in float32 (the FMA ones); two
    launches of each kernel must give the same bits, the profiler must show
-   the tensor-core forward for bf16 and the FMA one for float32, and the
+   the short tensor-core forward for bf16 at 96 tokens, the whole-tile one
+   at 300 and the FMA one for float32, and the
    two matrix products the bf16 backward is built from are held alone
    against ``torch.matmul``;
 9. drives the second main path — the padded ``Seq2SeqTransformer`` train
@@ -133,9 +134,12 @@ the CUDA toolkit. In order, it:
     the streamed accuracies against a CPU recomputation; for each mode
     ms/step, img/s, device time by phase (augmentation, teacher, forward
     and loss, backward, optimizer), the attention core's device time,
-    launches, busy share and peak memory. Then times K3a-c at ``[1536,
-    198, 64]`` bf16 with no mask beside their bounds and
-    ``F.scaled_dot_product_attention``;
+    launches, busy share and peak memory. K3a runs
+    ``flash_fwd_short_kernel`` there, its 12 launches a step counted by
+    kernel over the timed steps. Then times K3a-c at ``[1536, 198, 64]``
+    bf16 with no mask beside their bounds and
+    ``F.scaled_dot_product_attention``, and K3a at phase 25 (c)'s served
+    ``[384, 197, 64]``;
 21. (a) serves uint8 ``[64, 224, 224, 3]`` from a seed in bf16, each
     model behind its own ``preprocess_input``, through ResNeXt-50 (top,
     softmax over 1000 classes), SE-ResNeXt-50 (top) and BN-Inception
@@ -234,8 +238,9 @@ the CUDA toolkit. In order, it:
     batches, padded rows and the artifact's device time a batch beside
     phase 6's model-only time; (c) the same weights on the flash kernels
     exported through the K3a operator (12 in the program) and served by
-    ``BatchedServer``: 12 ``flash_fwd_tc_kernel`` launches a batch (the
-    counter and the profiler), its logits against the eager flash model
+    ``BatchedServer``: 12 ``flash_fwd_short_kernel`` launches a batch (the
+    counters and the profiler) and that kernel's device time a batch, its
+    logits against the eager flash model
     and the dense one. Then, after ``init_distributed`` over NCCL at world
     size 1: (d) phase 9's step through ``Trainer(mesh=create_mesh({"data":
     1, "model": 1}), param_sharding_rules=SEQ2SEQ_TENSOR_PARALLEL_RULES)``
@@ -302,7 +307,9 @@ the CUDA toolkit. In order, it:
     three DETR modes, the two DeiT modes, the CNN rows and phase 22's
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
     with all five kernels (K1 and K2 with their 384 px shape as
-    ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, phase
+    ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, K3a's
+    short kernel as a row of its own after K3a's (phase 20's launches, its
+    time at 198 and, as ``shape_served``, at ``[384, 197, 64]``), phase
     22's launches as ``launches_gshard``, phase 23's timed fit's as
     ``launches_trainer`` and K1's in phase 24's fit calls as
     ``launches_data_pipeline``, phase 25's as ``launches_served_flash``,
@@ -347,7 +354,7 @@ PTXAS = {}
 FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"(?:_tc|_cols|_sliced|_cluster)?_kernel)")
+                r"(?:_tc|_short|_cols|_sliced|_cluster)?_kernel)")
 
 
 def check(ok, what):
@@ -717,17 +724,19 @@ def check_tile_products(torch, fa, dev):
 
 
 def check_forward_kernel_names(torch, fa, dev):
-    """Which kernel each type's forward launches, read from the profiler:
-    bf16 runs ``flash_fwd_tc_kernel`` (tensor cores), float32
+    """Which kernel each type's forward launches, read from the profiler
+    and held to the dispatch's own answer (``fa.forward_kernel``): bf16 at
+    96 tokens runs ``flash_fwd_short_kernel`` (a head resident), at 300
+    ``flash_fwd_tc_kernel`` (tensor cores, tiles passing), float32
     ``flash_fwd_kernel`` (FMAs)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    for dtype, want, other in ((torch.bfloat16, "flash_fwd_tc_kernel",
-                                "flash_fwd_kernel"),
-                               (torch.float32, "flash_fwd_kernel",
-                                "flash_fwd_tc_kernel")):
-        q, k, v = (torch.randn((4, 96, 64), device=dev,
+    wanted = ((torch.bfloat16, 96, "flash_fwd_short_kernel"),
+              (torch.bfloat16, 300, "flash_fwd_tc_kernel"),
+              (torch.float32, 96, "flash_fwd_kernel"))
+    for dtype, t, want in wanted:
+        q, k, v = (torch.randn((4, t, 64), device=dev,
                                generator=gen).to(dtype) for _ in range(3))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -735,10 +744,11 @@ def check_forward_kernel_names(torch, fa, dev):
             torch.cuda.synchronize()
         names = {found.group(1) for e in prof.key_averages()
                  if (found := re.search(FLASH_KERNEL, e.key))}
-        log(f"profiler: {str(dtype).split('.')[-1]} forward runs "
-            f"{sorted(names)}")
-        check(want in names and other not in names,
-              f"{str(dtype).split('.')[-1]} forward runs {want}")
+        log(f"profiler: {str(dtype).split('.')[-1]} forward at {t} tokens "
+            f"runs {sorted(names)}")
+        check(names == {want} and fa.forward_kernel(dtype, 64, t, t) == want,
+              f"{str(dtype).split('.')[-1]} forward at {t} tokens runs "
+              f"{want}")
 
 
 def seq2seq_tokens(torch, dev):
@@ -2802,8 +2812,7 @@ def deit_path(torch, fa, dev):
         for i in range(DEIT_WARMUP):
             step(mode, 1 + i)
     torch.cuda.synchronize()
-    for key in fa.flash_attention.launches:
-        fa.flash_attention.launches[key] = 0
+    zero_flash(fa)
     runs = {mode: [] for mode in DEIT_MODES}
     losses = {mode: [] for mode in DEIT_MODES}
     for r in range(DEIT_REPEATS):
@@ -2818,11 +2827,14 @@ def deit_path(torch, fa, dev):
             end.synchronize()
             runs[mode].append(start.elapsed_time(end) / DEIT_STEPS)
     launches = dict(fa.flash_attention.launches)
+    by_kernel = dict(fa.flash_attention.forward_launches)
     timed = DEIT_STEPS * DEIT_REPEATS
     log(f"phase 20: flash launches over {timed} distilled and {timed} recipe "
-        f"steps: {launches}")
+        f"steps: {launches}, K3a by kernel {by_kernel}")
     check(all(launches[k] == DEIT["depth"] * timed for k in launches),
           "K3a, K3b and K3c launch 12 times a distilled step")
+    check(by_kernel["flash_fwd_short_kernel"] == DEIT["depth"] * timed,
+          "K3a runs the short kernel 12 times a distilled step")
     streamed = check_streamed_accuracy(torch, accs, cls_logits, labels)
 
     results = {}
@@ -2878,6 +2890,7 @@ def deit_path(torch, fa, dev):
             res["flash_vs_dense"] = flash_vs_dense
             res["streamed_accuracy"] = streamed
             res["flash_launches_timed"] = launches
+            res["forward_launches_timed"] = by_kernel
             res["timed_steps"] = timed
         results[mode] = res
         log(f"phase 20 {mode} (DeiT-B/16 widths, b{b} bf16): median of "
@@ -2905,12 +2918,18 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
     mask, one launch at a time behind a queued backlog, inputs cycled
     beyond the 50 MB L2, beside their plain versions, their bounds and
     ``F.scaled_dot_product_attention`` with the same operands (forward and
-    its whole backward, a yardstick the port never calls). Returns each
-    kernel's numbers by row name, for the rows' ``shape_198``."""
+    its whole backward, a yardstick the port never calls); K3a names the
+    kernel that ran (the short kernel, a head resident in shared memory).
+    Returns each kernel's numbers by row name, for the rows' ``shape_198``,
+    and K3a alone at phase 25 (c)'s served ``[32 * 12, 197, 64]`` as
+    ``"served"``."""
     F = torch.nn.functional
     b, n, t, h = DEIT["batch"], DEIT["heads"], DEIT_TOKENS, 64
     bn, scale = b * n, h ** -0.5
     gen = torch.Generator(device=dev).manual_seed(21)
+    kernel = fa.forward_kernel(torch.bfloat16, h, t, t)
+    check(kernel == "flash_fwd_short_kernel",
+          f"K3a at [{bn}, {t}, {h}] bf16 takes the short kernel ({kernel})")
 
     def rand():
         return torch.randn((bn, t, h), device=dev,
@@ -2998,6 +3017,7 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
         bound_ms = max(bytes_ms, ops_ms)
         out[name] = {
             "shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
+            "kernel": kernel if key == "fwd" else None,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3016,8 +3036,72 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
             f"{bound_ms * 1e3:.2f} us ({out[name]['bound_by']}; bytes "
             f"{bytes_ms * 1e3:.2f}, operations {ops_ms * 1e3:.2f}); "
             f"{launches[key]} launches in phase 20's {steps} timed distilled "
-            f"steps, on {CARD}")
+            f"steps" + (f", kernel {kernel}" if key == "fwd" else "")
+            + f", on {CARD}")
+    del sets, q0, k0, v0, do0, out0
+    out["served"] = time_served_forward(torch, fa, dev)
     torch.cuda.synchronize()
+    return out
+
+
+def time_served_forward(torch, fa, dev):
+    """K3a at the served flash ViT-B/16's shape (phase 25 (c): a batch of
+    32, 12 heads, 197 tokens, bf16, no mask), ``[384, 197, 64]``: held to
+    its plain version, and timed as ``time_flash_kernels_at_198`` times it,
+    beside its plain version, its bound and SDPA."""
+    F = torch.nn.functional
+    b, n, t, h = SERVE["batch"], DEIT["heads"], SIZE ** 2 // 256 + 1, 64
+    bn, scale = b * n, h ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(25)
+    kernel = fa.forward_kernel(torch.bfloat16, h, t, t)
+    sets = [tuple(torch.randn((bn, t, h), device=dev, generator=gen)
+                  .bfloat16() for _ in range(3))
+            for _ in range(6)]  # 6 x 29 MB: beyond the L2
+    o, l, m = fa.launch_forward(*sets[0], None, scale, False, n)
+    o_p, l_p, m_p = fa.flash_forward_plain(*sets[0], scale, False, None, n)
+    rtol, atol, rms_limit = flash_tolerance(torch, torch.bfloat16, o_p,
+                                            False)
+    err, needs, rms = closeness(o, o_p, rtol)
+    check(needs <= atol and rms <= rms_limit
+          and bool(torch.allclose(l, l_p, rtol=1e-4, atol=1e-6))
+          and bool(torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)),
+          f"K3a at [{bn}, {t}, {h}] within its tolerance")
+    turn = iter(range(10 ** 9))
+
+    def nxt():
+        return sets[next(turn) % len(sets)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *(x.view(b, n, t, h) for x in nxt()))
+
+    nbytes = 4 * bn * t * h * 2 + 2 * bn * t * 4  # q, k, v, o; l, m
+    ops = 4 * bn * t * t * h
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    kernel_ms = cuda_ms(torch, lambda: fa.launch_forward(
+        *nxt(), None, scale, False, n), 20, backlog=True)
+    out = {"shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
+           "kernel": kernel, "ms": kernel_ms,
+           "plain_ms": cuda_ms(torch, lambda: fa.flash_forward_plain(
+               *nxt(), scale, False, None, n), 5),
+           "library_ms": cuda_ms(torch, sdpa, 20, backlog=True),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
+           "max_abs_err": err,
+           "launch_shape": fa.launch_shape("fwd", torch.bfloat16, h, t, t),
+           "note": "library_ms is F.scaled_dot_product_attention's forward "
+                   "with the same operands",
+           "card": CARD}
+    log(f"flash_fwd [{bn}, {t}, {h}] bf16 no mask (the served flash "
+        f"ViT-B/16's batch): kernel {kernel} {kernel_ms * 1e3:.1f} us "
+        f"({out['achieved_tflops']:.1f} TFLOP/s, "
+        f"{out['bound_ms'] / kernel_ms:.0%} of the bound), plain "
+        f"{out['plain_ms'] * 1e3:.1f} us, library "
+        f"{out['library_ms'] * 1e3:.1f} us, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); "
+        f"{out['launch_shape']}; on {CARD}")
     return out
 
 
@@ -4881,8 +4965,10 @@ def flash_counts(fa):
 
 
 def zero_flash(fa):
-    for key in fa.flash_attention.launches:
-        fa.flash_attention.launches[key] = 0
+    for counts in (fa.flash_attention.launches,
+                   fa.flash_attention.forward_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def http_requests(port, images, binary, clients):
@@ -5123,9 +5209,12 @@ def serving_path(torch, fa, dev, workdir, vit_ms):
         served_stats = dict(server.stats)
     torch.cuda.synchronize()
     served_launches = flash_counts(fa)
+    served_short = fa.flash_attention.forward_launches[
+        "flash_fwd_short_kernel"]
     check(served_stats["batches"] == 1
-          and served_launches == {"fwd": 12, "dkv": 0, "dq": 0},
-          "K3a 12 launches for the one served batch")
+          and served_launches == {"fwd": 12, "dkv": 0, "dq": 0}
+          and served_short == 12,
+          "K3a 12 launches for the one served batch, on the short kernel")
     profiled_flash = call_profile(torch, lambda: serve_flash(x32), 3)
     readings, kernel_names = flash_kernels_of(torch, fa,
                                               lambda: serve_flash(x32))
@@ -5133,8 +5222,17 @@ def serving_path(torch, fa, dev, workdir, vit_ms):
         f"the profiler's flash kernels {kernel_names}")
     check(all(r == {"fwd": 12, "dkv": 0, "dq": 0} for r in readings),
           "K3a 12 launches in each profiled served batch")
-    check(kernel_names == ["flash_fwd_tc_kernel"],
-          "the profiler names flash_fwd_tc_kernel as the served kernel")
+    check(kernel_names == ["flash_fwd_short_kernel"],
+          "the profiler names flash_fwd_short_kernel as the served kernel")
+    # the served K3a kernel's own device time a batch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            serve_flash(x32)
+        torch.cuda.synchronize()
+    k3a_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "flash_fwd_short_kernel" in e.key) / 1e3 / 3
     gap, equal, bound = logit_gap(torch, torch.from_numpy(served), want)
     check(gap <= bound, "the served flash logits follow the eager flash "
                         "model's")
@@ -5146,11 +5244,15 @@ def serving_path(torch, fa, dev, workdir, vit_ms):
         "max_abs_vs_eager_flash": gap, "bit_equal_share": equal,
         "bound": bound, "max_abs_vs_dense": dense_gap,
         "device_ms_a_batch": profiled_flash["device_ms"],
-        "launches_per_batch": profiled_flash["launches"]}
+        "launches_per_batch": profiled_flash["launches"],
+        "k3a_kernel": kernel_names[0], "k3a_launches_a_batch": served_short,
+        "k3a_device_ms_a_batch": k3a_ms}
     log(f"phase 25 (c): flash ViT-B/16 exported in {flash_export_s:.1f} s "
         f"({operators} K3a operators in the program); served one batch "
         f"through BatchedServer: K3a launches {served_launches}, "
-        f"{kernel_names} in the profile; against the eager flash "
+        f"{served_short} of them {kernel_names[0]}, {k3a_ms:.3f} ms of "
+        f"device time a batch; {kernel_names} in the profile; against the "
+        f"eager flash "
         f"model max |d| {gap:.3g} ({100 * equal:.1f}% bit-equal, bound "
         f"{bound:.3g}), against the dense model {dense_gap:.3g}; "
         f"{profiled_flash['device_ms']:.3f} ms of device time a batch "
@@ -5996,7 +6098,7 @@ def time_wide_kernels(torch, fa, dev, h):
                  + b * t * 4)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / BF16_OPS_PER_S * 1e3
-        shape = fa.launch_shape(key, torch.bfloat16, size)
+        shape = fa.launch_shape(key, torch.bfloat16, size, t, t)
         if shape["cluster"] > 1:
             check(shape["max_active_clusters"] > 0,
                   f"h {h}: the card holds a cluster of {name} ({shape})")
@@ -6086,8 +6188,10 @@ def wide_heads_path(torch, fa, dev, rows):
             "ptxas": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<bf16>"),
             "ptxas_float16": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<f16>"),
             "ptxas_float32": PTXAS.get(f"{row['name']}_cols_kernel<f32>"),
-            "launch_shape": fa.launch_shape(key, torch.bfloat16, h),
-            "launch_shape_float32": fa.launch_shape(key, torch.float32, h),
+            "launch_shape": fa.launch_shape(key, torch.bfloat16, h,
+                                            S2S["t"], S2S["t"]),
+            "launch_shape_float32": fa.launch_shape(key, torch.float32, h,
+                                                    S2S["t"], S2S["t"]),
             "note": "library_ms is F.scaled_dot_product_attention with the "
                     "same key mask, on the backend named; the bound counts "
                     "the function's work on the kept keys at the true head "
@@ -6491,9 +6595,39 @@ def main():
     at_198 = time_flash_kernels_at_198(
         torch, fa, dev, deit["distilled"]["flash_launches_timed"],
         deit["distilled"]["timed_steps"])
+    served_198 = at_198.pop("served")
     for row in rows:
         if row["name"] in at_198:
             row["shape_198"] = at_198[row["name"]]
+    # K3a's short kernel, a row of its own: phase 20's distilled step is
+    # its path (its launches counted over the timed steps), timed at that
+    # shape and at the served ViT-B/16's
+    short = at_198["flash_fwd"]
+    rows.insert(next(i for i, row in enumerate(rows)
+                     if row["name"] == "flash_bwd_dkv"), {
+        "name": "flash_fwd_short_kernel", "route": "cuda",
+        "source": "chambers_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "replaces": "chambers_tpu/ops/flash_attention.py:190 _flash_forward",
+        "launches": deit["distilled"]["forward_launches_timed"][
+            "flash_fwd_short_kernel"],
+        "launches_per_step": deit["distilled"]["forward_launches_timed"][
+            "flash_fwd_short_kernel"] / deit["distilled"]["timed_steps"],
+        "max_abs_err": short["max_abs_err"], "bit_equal": False,
+        "ms": short["ms"], "plain_ms": short["plain_ms"],
+        "bound_ms": short["bound_ms"], "bound_us": short["bound_ms"] * 1e3,
+        "bound_by": short["bound_by"], "library_ms": short["library_ms"],
+        "achieved_tflops": short["achieved_tflops"],
+        "shape": short["shape"], "dtype": "bf16", "key_mask": None,
+        "shape_served": served_198,
+        "ptxas": PTXAS.get("flash_fwd_short_kernel<bf16>"),
+        "ptxas_float16": PTXAS.get("flash_fwd_short_kernel<f16>"),
+        "launch_shape": fa.launch_shape("fwd", torch.bfloat16, 64,
+                                        DEIT_TOKENS, DEIT_TOKENS),
+        "note": "K3a at head size 64 when a head's 64 to 256 queries and "
+                "1 to 256 keys fit in shared memory whole; library_ms is "
+                "F.scaled_dot_product_attention's forward with the same "
+                "operands",
+        "card": CARD})
 
     lap("20")
     # 21. the CNN backbones: serving (a) and the SE-ResNet-50 train step (b)
@@ -6637,6 +6771,9 @@ def main():
         if key:
             for name, counts in scale_launches.items():
                 row[name] = counts[key]
+        if row["name"] == "flash_fwd_short_kernel":
+            row["launches_served_flash"] = scale_out["serving"]["flash"][
+                "k3a_launches_a_batch"]
     log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
     lap("25")
     # 26. head sizes 32 (padded), 128 and 256: K3a-c alone, phase 9's step

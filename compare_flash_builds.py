@@ -31,10 +31,22 @@ them) and on the library's own forward's. Then it times each kernel of
 both libraries at the train step's tokens at each head size (at 512 and
 1024 over one head), causal and not, with CUDA events over launches
 queued behind a backlog, the two libraries in turns (other, this, this,
-other, three rounds), on inputs cycled beyond the 50 MB L2. The libraries share the C interface that
+other, three rounds), on inputs cycled beyond the 50 MB L2. At ViT
+lengths (``SHORT_CASES``, head size 64, at most 256 keys: DeiT-B/16's 198
+tokens over 1536 heads, the served ViT-B/16's 197 over 384, in bf16 and
+float16, and the edges of the short forward kernel: causal cross lengths
+with rows that see no key, a scattered key mask whose last batch item
+keeps none, one key, 256 keys) every output must be the same bits too, and
+K3a is timed at the two ViT shapes in turns (other, this, this, other,
+three rounds) beside ``F.scaled_dot_product_attention`` on the same
+operands. The libraries share the C interface that
 ``ops/flash_attention.py`` calls, for the types and head sizes both take.
 Prints one JSON line last and exits non-zero on any difference beyond
 those.
+
+    python3 compare_flash_builds.py OTHER_CHECKOUT --short
+
+runs the ``SHORT_CASES`` and their times only.
 """
 
 import ctypes
@@ -114,6 +126,72 @@ PLAIN_HEADS = (2112,)
 # masked)
 PLAIN_CASES = ((2, 2, 257, 257, True, True), (1, 2, 130, 260, True, False),
                (1, 2, 260, 130, True, False), (3, 2, 70, 150, False, True))
+
+
+# K3a's short kernel's shapes (head size 64, at most 256 keys and queries):
+# (label, bn, n_heads, tq, tk, dtype name, causal, mask kind); the first
+# four are timed
+SHORT_CASES = [
+    ("DeiT-B/16 198 tokens", 1536, 12, 198, 198, "bfloat16", False, None),
+    ("DeiT-B/16 198 tokens", 1536, 12, 198, 198, "float16", False, None),
+    ("served ViT-B/16 197", 384, 12, 197, 197, "bfloat16", False, None),
+    ("served ViT-B/16 197", 384, 12, 197, 197, "float16", False, None),
+    ("causal 250x120, rows with no key", 4, 2, 250, 120, "bfloat16", True,
+     None),
+    ("causal 100x256, key mask", 6, 2, 100, 256, "float16", True, "ragged"),
+    ("198x198 scattered key mask, an item with none", 6, 3, 198, 198,
+     "bfloat16", False, "dead"),
+    ("causal 256x256, key mask", 8, 4, 256, 256, "bfloat16", True,
+     "ragged"),
+    ("64 rows against one key", 4, 2, 64, 1, "float16", False, None),
+]
+SHORT_TIMED = 4
+
+
+def time_short(torch, fa, libs, dev, bn, n, t, dtype):
+    """ms a launch of K3a of each library at ``[bn, t, 64]`` with no mask,
+    in turns (other, this, this, other, three rounds), and of
+    ``F.scaled_dot_product_attention`` on the same operands once a round:
+    ``{library or "sdpa": [ms of each round]}``."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h, scale = 64, 64 ** -0.5
+    per_set = 4 * bn * t * h * 2  # q, k, v and o
+    sets = []
+    for _ in range(max(2, -(-3 * 50 * 2 ** 20 // per_set))):  # 3 x the L2
+        sets.append(tuple(torch.randn((bn, t, h), device=dev, generator=gen)
+                          .to(dtype) for _ in range(3)))
+    l = torch.empty((bn, t, 1), dtype=torch.float32, device=dev)
+    outs = (torch.empty_like(sets[0][0]), l, torch.empty_like(l))
+
+    def timed(call):
+        for i in range(len(sets)):
+            call(i)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # queue the launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(30):
+            call(i)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 30
+
+    def sdpa(i):
+        q, k, v = (x.view(bn // n, n, t, h) for x in sets[i % len(sets)])
+        return F.scaled_dot_product_attention(q, k, v)
+
+    times = {"other": [], "this": [], "sdpa": []}
+    for _ in range(3):
+        for name in ("other", "this", "this", "other"):
+            times[name].append(timed(
+                lambda i, lib=libs[name]: launch_one(
+                    torch, fa, lib, "fwd",
+                    (*sets[i % len(sets)], None, None, None, None, None,
+                     scale, False, n, outs))))
+        times["sdpa"].append(timed(sdpa))
+    return times
 
 
 def close(got, ref, dtype):
@@ -239,7 +317,56 @@ def time_both(torch, fa, libs, dev, h):
     return times
 
 
-def main(other):
+def hold_cases(torch, fa, libs, dev, items):
+    """Run each ``((label, bn, n, tq, tk, dtype, causal, mask kind), h)``
+    of ``items`` through both libraries on the same seeded inputs: a report
+    a case, and whether every output is the same bits (at ``HEADS`` and for
+    the short cases) or within the card tests' tolerance (``WIDE_HEADS``)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    report, same = [], True
+    for (label, bn, n, tq, tk, dtype, causal, kind), h in items:
+        q, do = (torch.randn((bn, tq, h), device=dev, generator=gen)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((bn, tk, h), device=dev, generator=gen)
+                .to(dtype) for _ in range(2))
+        b = bn // n
+        mask = None
+        if kind == "ragged":
+            keep = tk * (0.7 + 0.1 * torch.rand((b, 1), device=dev,
+                                                generator=gen))
+            mask = (torch.arange(tk, device=dev) < keep.long()).float()
+        elif kind in ("scattered", "dead"):
+            mask = (torch.rand((b, tk), device=dev, generator=gen)
+                    > 0.3).float()
+            mask[:, 0] = 1.0
+            if kind == "dead":  # the last batch item keeps no key
+                mask[-1] = 0.0
+        outs = {key: run(torch, fa, lib, q, k, v, do, mask, h ** -0.5,
+                         causal, n)
+                for key, lib in libs.items()}
+        type_name = str(dtype).split(".")[-1]
+        differ = [x for x in outs["this"]
+                  if not torch.equal(outs["this"][x], outs["other"][x])]
+        beyond = differ if h not in WIDE_HEADS else [
+            x for x in differ
+            if not close(outs["this"][x], outs["other"][x],
+                         None if x in ("l", "m") else type_name)]
+        same = same and not beyond
+        report.append({"case": label, "shape": [bn, tq, tk, h],
+                       "dtype": type_name, "bit_equal": not differ,
+                       "differing": differ, "beyond_tolerance": beyond,
+                       "max_abs_diff": {
+                           x: float((outs["this"][x].float()
+                                     - outs["other"][x].float()).abs().max())
+                           for x in differ}})
+        print(f"{label} [{bn}, {tq}x{tk}, {h}] {type_name}: "
+              + ("bit-equal" if not differ else
+                 f"differ in {differ}, beyond tolerance in {beyond}"),
+              flush=True)
+    return report, same
+
+
+def main(other, short=False):
     import torch
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -284,50 +411,30 @@ def main(other):
         ("cross 260x130 causal", 2, 2, 260, 130, bf16, True, None),
         ("63x65 scattered key mask", 2, 1, 63, 65, f16, False, "scattered"),
     ]
-    gen = torch.Generator(device=dev).manual_seed(15)
-    report, same = [], True
-    for (label, bn, n, tq, tk, dtype, causal, kind), h in [
-            (case, h) for h in HEADS for case in cases] + [
-            (case, h) for h in WIDE_HEADS for case in wide_cases]:
-        q, do = (torch.randn((bn, tq, h), device=dev, generator=gen)
-                 .to(dtype) for _ in range(2))
-        k, v = (torch.randn((bn, tk, h), device=dev, generator=gen)
-                .to(dtype) for _ in range(2))
-        b = bn // n
-        mask = None
-        if kind == "ragged":
-            keep = tk * (0.7 + 0.1 * torch.rand((b, 1), device=dev,
-                                                generator=gen))
-            mask = (torch.arange(tk, device=dev) < keep.long()).float()
-        elif kind == "scattered":
-            mask = (torch.rand((b, tk), device=dev, generator=gen)
-                    > 0.3).float()
-            mask[:, 0] = 1.0
-        outs = {key: run(torch, fa, lib, q, k, v, do, mask, h ** -0.5,
-                         causal, n)
-                for key, lib in libs.items()}
+    short_cases = [(label, bn, n, tq, tk, getattr(torch, dtype), causal,
+                    kind)
+                   for label, bn, n, tq, tk, dtype, causal, kind
+                   in SHORT_CASES]
+    items = [] if short else [(case, h) for h in HEADS for case in cases] + [
+        (case, h) for h in WIDE_HEADS for case in wide_cases]
+    items += [(case, 64) for case in short_cases]
+    report, same = hold_cases(torch, fa, libs, dev, items)
+    short_times = {}
+    for label, bn, n, t, _, dtype, _, _ in short_cases[:SHORT_TIMED]:
+        by = time_short(torch, fa, libs, dev, bn, n, t, dtype)
         type_name = str(dtype).split(".")[-1]
-        differ = [x for x in outs["this"]
-                  if not torch.equal(outs["this"][x], outs["other"][x])]
-        beyond = differ if h in HEADS else [
-            x for x in differ
-            if not close(outs["this"][x], outs["other"][x],
-                         None if x in ("l", "m") else type_name)]
-        same = same and not beyond
-        report.append({"case": label, "shape": [bn, tq, tk, h],
-                       "dtype": type_name, "bit_equal": not differ,
-                       "differing": differ, "beyond_tolerance": beyond,
-                       "max_abs_diff": {
-                           x: float((outs["this"][x].float()
-                                     - outs["other"][x].float()).abs().max())
-                           for x in differ}})
-        print(f"{label} [{bn}, {tq}x{tk}, {h}] {type_name}: "
-              + ("bit-equal" if not differ else
-                 f"differ in {differ}, beyond tolerance in {beyond}"),
-              flush=True)
-    plain = plain_errors(torch, fa, libs, dev)
+        short_times[f"fwd {label} [{bn}, {t}, 64] {type_name}"] = by
+        # bytes K3a must move: q, k, v read, o written, l and m
+        bound_us = (4 * bn * t * 64 * 2 + 2 * bn * t * 4) / 3.35e12 * 1e6
+        print(f"fwd {label} [{bn}, {t}, 64] {type_name} no mask: "
+              + ", ".join(
+                  f"{key} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
+                  f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
+                  for key, v in by.items())
+              + f"; bytes bound {bound_us:.2f} us", flush=True)
+    plain = [] if short else plain_errors(torch, fa, libs, dev)
     times = {}
-    for h in HEADS + WIDE_HEADS:
+    for h in () if short else HEADS + WIDE_HEADS:
         for key, by in time_both(torch, fa, libs, dev, h).items():
             times[f"{key} h{h}"] = by
             print(f"{key} [{max(16, 128 * 64 // h)}, 512, {h}] bf16 key "
@@ -337,7 +444,7 @@ def main(other):
                       f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
                       for name, v in by.items()), flush=True)
     print(json.dumps({"compare_flash_builds": report, "plain": plain,
-                      "times_ms": times,
+                      "times_ms": times, "short_times_ms": short_times,
                       "other": str(other),
                       "card": torch.cuda.get_device_name(0),
                       "same_within_tolerance": same}))
@@ -345,7 +452,8 @@ def main(other):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    if len(args) not in (1, 2) or (len(args) == 2 and args[1] != "--short"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(args[0], short=len(args) == 2))

@@ -393,16 +393,19 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
     clusters = -(-panels // 32)
     blocks = -(-panels // (clusters * 4))
     for dtype in SIXTEEN_BIT:
-        shape = fa.launch_shape("dkv", dtype, h)
+        shape = fa.launch_shape("dkv", dtype, h, 512, 512)
+        assert shape["kernel_name"] == "flash_bwd_dkv_cluster_kernel"
         assert shape["threads"] == 256
         assert shape["cluster"] == blocks <= 8
         assert shape["slices"] == blocks * clusters
         assert shape["max_active_clusters"] > 0
-        sliced = fa.launch_shape("dq", dtype, h)
+        sliced = fa.launch_shape("dq", dtype, h, 512, 512)
+        assert sliced["kernel_name"] == "flash_bwd_dq_sliced_kernel"
         assert (sliced["threads"], sliced["slices"], sliced["cluster"],
                 sliced["max_active_clusters"]) == (128, -(-panels // 4), 1, 0)
     for kernel in ("dkv", "dq"):
-        assert fa.launch_shape(kernel, torch.float32, h)["cluster"] == 1
+        assert fa.launch_shape(kernel, torch.float32, h, 512,
+                               512)["cluster"] == 1
 
 
 def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
@@ -452,6 +455,75 @@ def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
         assert bool((m[:, :tq - tk] == fa.MASK_VALUE).all())
 
 
+# the short forward kernel's edges at head size 64: (b, n, tq, tk, causal,
+# masked); tk 257 and tq 257 take the whole-tile kernel
+SHORT_CASES = [
+    *((2, 3, 198, tk, False, False)
+      for tk in (1, 63, 64, 65, 197, 198, 255, 256, 257)),
+    (2, 2, 250, 120, True, False),      # causal: 130 rows see no key
+    (2, 2, 100, 256, True, "ragged"),
+    (2, 2, 257, 200, True, False),
+    (3, 2, 198, 198, False, True),      # the last batch item keeps no key
+    (2, 2, 64, 64, True, True),
+    (2, 4, 256, 256, True, True),
+    (1, 1, 198, 198, False, False),     # one head
+    (7, 19, 197, 197, False, False),    # 133 heads: more than the SMs
+    (128, 12, 198, 198, False, False),  # DeiT-B/16's 1536 heads
+]
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("b,n,tq,tk,causal,masked", SHORT_CASES)
+def test_short_forward_kernel_matches_plain(dev, b, n, tq, tk, causal,
+                                            masked, dtype):
+    """K3a's short kernel (a head's queries and keys resident, persistent
+    blocks) against the plain forward: ``o`` within the type's tolerance,
+    ``l`` and ``m`` as ``test_flash_kernels_match_plain`` holds them, rows
+    with no key (a batch item the mask empties, rows above the causal
+    diagonal) exact zeros with ``l == 0`` and ``m`` at the mask value, the
+    same bits from a second launch, and the launch counted under the kernel
+    that ran."""
+    q, k, v, _, mask = _flash_inputs(dev, b, n, tq, tk, 64, dtype, masked)
+    scale = 64 ** -0.5
+    short = 64 <= tq <= 256 and 1 <= tk <= 256
+    want_kernel = "flash_fwd_short_kernel" if short else "flash_fwd_tc_kernel"
+    before = dict(fa.flash_attention.forward_launches)
+    o, l, m = fa.launch_forward(q, k, v, mask, scale, causal, n)
+    after = fa.flash_attention.forward_launches
+    assert {key: after[key] - before[key] for key in after} == {
+        key: int(key == want_kernel) for key in after}
+    o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal, mask, n)
+    torch.cuda.synchronize()
+    _assert_close(o, o_p, dtype)
+    assert torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(l, l_p, rtol=1e-4, atol=1e-6)
+    again = fa.launch_forward(q, k, v, mask, scale, causal, n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (o, l, m)))
+    if masked is True:  # the last batch item has no valid key
+        assert not o[-n:].any() and not l[-n:].any()
+        assert bool((m[-n:] == fa.MASK_VALUE).all())
+    if causal and tq > tk:  # rows above the end-aligned diagonal
+        assert not o[:, :tq - tk].any() and not l[:, :tq - tk].any()
+        assert bool((m[:, :tq - tk] == fa.MASK_VALUE).all())
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+def test_short_kernel_repeats_its_bits(dev, dtype):
+    """At DeiT-B/16's ``[1536, 198, 64]`` and the served ViT-B/16's
+    ``[384, 197, 64]``, where each block walks many heads through its two
+    buffers, five launches give the same bits."""
+    for bn, t in ((1536, 198), (384, 197)):
+        q, k, v, _, _ = _flash_inputs(dev, bn // 12, 12, t, t, 64, dtype,
+                                      False, seed=9)
+        first = fa.launch_forward(q, k, v, None, 0.125, False, 12)
+        for _ in range(4):
+            again = fa.launch_forward(q, k, v, None, 0.125, False, 12)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+        assert bool(torch.isfinite(first[0]).all())
+
+
 def test_tile_products_match_matmul(dev):
     """One product of each kind of the bf16 backward's tiling, alone: ``x
     yᵀ`` from two swizzled tiles in shared memory, and its bf16 rounding
@@ -489,11 +561,28 @@ def _kernel_names(fn):
     return " ".join(e.key for e in prof.key_averages())
 
 
+# (tq, tk) of K3a's calls and the kernel a 16-bit one takes at head size
+# 64: the short kernel from 64 to 256 queries over 1 to 256 keys, the
+# whole-tile kernel outside (one query row, 257 keys or queries, fewer than
+# 64 queries)
+FORWARD_LENGTHS = [((96, 80), "flash_fwd_short_kernel"),
+                   ((198, 198), "flash_fwd_short_kernel"),
+                   ((64, 1), "flash_fwd_short_kernel"),
+                   ((256, 256), "flash_fwd_short_kernel"),
+                   ((1, 300), "flash_fwd_tc_kernel"),
+                   ((1, 128), "flash_fwd_tc_kernel"),
+                   ((63, 65), "flash_fwd_tc_kernel"),
+                   ((198, 257), "flash_fwd_tc_kernel"),
+                   ((257, 198), "flash_fwd_tc_kernel")]
+
+
 @pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_forward_dtype_chooses_the_kernels(dev, h):
-    """bf16 and float16 operands run the tensor-core forward (its sliced
-    form above 256), float32 the FMA one (its ``_cols`` form from 256 on):
-    read from the profiler's kernel names."""
+    """bf16 and float16 operands run the tensor-core forward (at head size
+    64 over at most 256 queries and keys its short form, above 256 its
+    sliced form), float32 the FMA one (its ``_cols`` form from 256 on): read
+    from the profiler's kernel names, the launch counter by kernel and
+    ``launch_shape``, which names the kernel the dispatch picks."""
     names = {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, True)
@@ -502,12 +591,35 @@ def test_forward_dtype_chooses_the_kernels(dev, h):
     fma = "flash_fwd_cols_kernel" if h >= 256 else "flash_fwd_kernel"
     assert fma in names[torch.float32]
     assert "_tc_kernel" not in names[torch.float32]
+    assert "_short_kernel" not in names[torch.float32]
     assert "_sliced_kernel" not in names[torch.float32]
-    tc = "flash_fwd_sliced_kernel" if h > 256 else "flash_fwd_tc_kernel"
+    tc = ("flash_fwd_short_kernel" if h == 64 else
+          "flash_fwd_sliced_kernel" if h > 256 else "flash_fwd_tc_kernel")
     for dtype in SIXTEEN_BIT:
         assert tc in names[dtype]
         assert "flash_fwd_kernel" not in names[dtype]
         assert "_cols_kernel" not in names[dtype]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (tq, tk), short_or_tc in FORWARD_LENGTHS:
+        for dtype in (torch.float32, *SIXTEEN_BIT):
+            want = (fma if dtype == torch.float32 else
+                    short_or_tc if h == 64 else tc)
+            shape = fa.launch_shape("fwd", dtype, h, tq, tk)
+            assert shape["kernel_name"] == want
+            assert shape["resident_blocks"] > 0
+            if want == "flash_fwd_short_kernel":
+                # one block an SM: four warpgroups over two buffers of a
+                # head's Q, K and V
+                assert shape["threads"] == 4 * 128
+                assert shape["smem_bytes"] > 2 * 3 * 32 * 1024
+                assert shape["resident_blocks"] == sms
+            q, k, v, _, _ = _flash_inputs(dev, 1, 2, tq, tk, h, dtype,
+                                          False)
+            before = dict(fa.flash_attention.forward_launches)
+            fa.launch_forward(q, k, v, None, 0.125, False, 2)
+            after = fa.flash_attention.forward_launches
+            assert {key: after[key] - before[key] for key in after} == {
+                key: int(key == want) for key in after}
 
 
 @pytest.mark.parametrize("h", [64, 128, 256, 512])

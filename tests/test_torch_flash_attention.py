@@ -89,6 +89,16 @@ FORWARD_CASES = {
                            (13, 1, 0.3), True),
     "bf16_causal_kv_mask_257": ((2, 2, 257, 64), None, True, (12, 1, 0.3),
                                 True),
+    # the short bf16 forward's edges (a head's queries and keys resident):
+    # DeiT-B/16's 198 tokens, causal cross lengths with rows that see no
+    # key, a batch item with no valid key, 256 keys under both masks
+    "bf16_short_198": ((2, 3, 198, 64), None, False, None, True),
+    "bf16_short_causal_cross_250x120": ((1, 2, 250, 64), (1, 2, 120, 64),
+                                        True, None, True),
+    "bf16_short_dead_batch_item_198": ((2, 2, 198, 64), None, False, "dead",
+                                       True),
+    "bf16_short_causal_kv_mask_256": ((2, 2, 256, 64), None, True,
+                                      (14, 1, 0.3), True),
 }
 
 
@@ -140,7 +150,7 @@ def test_forward_matches_jax_kernel(name):
     assert not got[:, :, :above].any()
     if name == "fully_masked_rows":
         assert np.array_equal(_f32(got), np.zeros(q.shape, np.float32))
-    if name == "bf16_dead_batch_item":
+    if name in ("bf16_dead_batch_item", "bf16_short_dead_batch_item_198"):
         assert not got[1].any() and got[0].any()
 
     # the saved statistics against _flash_forward's
@@ -530,6 +540,22 @@ def test_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         tflash.flash_attention(q, v[:, :, :4], k)
     assert set(tflash.flash_attention.launches) == {"fwd", "dkv", "dq"}
+
+
+def test_cpu_calls_count_no_kernel_launch():
+    """The launch counters belong to the kernels: a call on CPU tensors runs
+    the plain versions, forward and backward, and counts nothing. K3a's
+    counter by kernel holds every forward kernel the library's dispatch
+    names, in its order."""
+    counts = tflash.flash_attention.forward_launches
+    assert tuple(counts) == tflash.KERNEL_NAMES["fwd"]
+    assert "flash_fwd_short_kernel" in counts
+    before = (dict(tflash.flash_attention.launches), dict(counts))
+    q, k, v = (_t(x, torch.bfloat16).requires_grad_()
+               for x in _qkv(19, (1, 2, 198, 64)))
+    tflash.flash_attention(q, v, k).float().pow(2).sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+    assert (dict(tflash.flash_attention.launches), dict(counts)) == before
 
 
 @pytest.mark.parametrize("kind", ["self_masked", "cross_causal_masked"])
