@@ -1002,7 +1002,9 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 int flash_fwd_tc_kernel_of(int panels, int tq, int tk);
 LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk);
 int flash_fwd_tc_resident(int f16, int panels, int tq, int tk);
-LaunchShape flash_bwd_tc_shape(int dkv, int panels);
+int flash_bwd_dkv_kernel_of(int panels, int tq, int tk);
+LaunchShape flash_bwd_tc_shape(int dkv, int panels, int tq, int tk);
+int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk);
 int flash_bwd_dkv_max_clusters(int f16, int panels);
 
 // the head sizes the kernels take: 64, 128, and every multiple of 64 from
@@ -1066,8 +1068,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 // launcher calls: threads a block, dynamic shared memory a block, the slices
 // of the head (blocks along z), the blocks a cluster (1: none), how many
 // such clusters the card holds at once (0 without clusters), which kernel
-// of the family runs (KERNEL_NAMES in ops/flash_attention.py) and, for K3a,
-// how many of its blocks the card holds at once (0 for K3b and K3c). Asks
+// of the family runs (KERNEL_NAMES in ops/flash_attention.py) and, for K3a
+// and K3b, how many of its blocks the card holds at once (0 for K3c). Asks
 // the current device. Returns cudaErrorInvalidValue for what the dispatch
 // refuses.
 extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
@@ -1079,7 +1081,7 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   const LaunchShape s = dtype == kFloat32 ? f32_shape(kernel, h)
                         : kernel == kFwd ? flash_fwd_tc_shape(panels, tq, tk)
                                          : flash_bwd_tc_shape(kernel == kDkv,
-                                                              panels);
+                                                              panels, tq, tk);
   shape[0] = s.threads;
   shape[1] = (int)s.smem;
   shape[2] = s.slices;
@@ -1087,17 +1089,27 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   shape[4] = s.cluster > 1 ? flash_bwd_dkv_max_clusters(f16, panels) : 0;
   // the family's kernels: float32 the FMA kernel (0) or its _cols form
   // (1); the 16-bit ones from 2 on, K3a's whole-tile, short and sliced
-  // kernels, K3b's whole-tile and cluster kernels, K3c's whole-tile and
-  // sliced kernels
+  // kernels, K3b's whole-tile, short and cluster kernels, K3c's whole-tile
+  // and sliced kernels
   shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
              : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)
+             : kernel == kDkv   ? 2 + flash_bwd_dkv_kernel_of(panels, tq, tk)
                                 : (panels > 4 ? 3 : 2);
-  shape[6] = kernel != kFwd     ? 0
-             : dtype != kFloat32 ? flash_fwd_tc_resident(f16, panels, tq, tk)
-             : h == 64           ? resident_blocks<flash_fwd_kernel<float, 64>>(s)
-             : h == 128 ? resident_blocks<flash_fwd_kernel<float, 128>>(s)
-                        : resident_blocks<
-                              flash_fwd_cols_kernel<float, kColsHO>>(s);
+  if (kernel == kFwd)
+    shape[6] =
+        dtype != kFloat32 ? flash_fwd_tc_resident(f16, panels, tq, tk)
+        : h == 64         ? resident_blocks<flash_fwd_kernel<float, 64>>(s)
+        : h == 128        ? resident_blocks<flash_fwd_kernel<float, 128>>(s)
+                   : resident_blocks<flash_fwd_cols_kernel<float, kColsHO>>(s);
+  else if (kernel == kDkv)
+    shape[6] =
+        dtype != kFloat32 ? flash_bwd_dkv_resident(f16, panels, tq, tk)
+        : h == 64         ? resident_blocks<flash_bwd_dkv_kernel<float, 64>>(s)
+        : h == 128 ? resident_blocks<flash_bwd_dkv_kernel<float, 128>>(s)
+                   : resident_blocks<
+                         flash_bwd_dkv_cols_kernel<float, kColsHO>>(s);
+  else
+    shape[6] = 0;
   return shape[6] < 0 ? (int)cudaErrorInvalidConfiguration
                       : (int)cudaSuccess;
 }

@@ -7,7 +7,8 @@
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
 // and, at head sizes above 256, flash_bwd_dkv_cluster_kernel and
-// flash_bwd_dq_sliced_kernel,
+// flash_bwd_dq_sliced_kernel, and for K3b at head size 64 over at most 256
+// queries and 129 to 256 keys (ViT lengths) flash_bwd_dkv_short_kernel,
 // and computes what flash_attention.cu's note says they compute: per key
 // tile over all query tiles p = exp(s - m) / l, dv += p^T do,
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
@@ -153,6 +154,64 @@
 //   it exchanges 32 KB a block a step for less work than K3b's, where the
 //   sliced K3c repeats its score products only 1.67 times (K3b 2.5).
 //
+// ViT lengths: flash_bwd_dkv_short_kernel. At DeiT-B/16's [1536, 198, 64]
+// the whole-tile design launches 6144 blocks of 64 keys, a head's four key
+// blocks some 1536 blocks apart: between them the Q and dO of every head
+// (78 MB, more than the 50 MB L2) stream past, so each key block reads its
+// head's Q and dO from device memory again; each block pays a ring fill
+// and drain for four query steps, and the ragged ends (6 of 64 keys, 6 of
+// 64 queries) cost whole tiles. Launched with a head's key blocks next to
+// each other the same kernel ran 133.0 us against 172.7 (PERF.md section
+// 6): the re-reads cost 40 us. So here a block walks whole heads
+// persistently (one block an SM; heads blockIdx.x, + gridDim.x, ...):
+// * Two query buffers each hold a head's Q and dO (all tq <= 256 rows, 32
+//   KB each, the panel layout flash_tiles.cuh describes), filled by TMA
+//   (head_map, 128-byte swizzle, rows past tq as zeros) on an mbarrier;
+//   each byte crosses from device memory once. The last group done with
+//   a buffer refills it with the head two on.
+// * Three warpgroups each own one key tile (64 keys) of every head, its K
+//   and V in a slot of their own (8 KB each, by TMA on the slot's
+//   mbarrier), refilled with the next head's tile as soon as the group is
+//   done with it; dK and dV (64 float32 registers a thread) leave straight
+//   from the fragments (store_fragments), so no slot waits for an epilogue.
+//   A group runs K3b's arithmetic on its tile out of the resident buffers:
+//   per query tile S^T and dP^T with wgmma, p and ds (dkv_scores), rounded
+//   to T, into dV and dK, the query tiles in order, so dK and dV are the
+//   bits of flash_bwd_dkv_tc_kernel.
+// * The rows' exponent offsets and di go per query into an array of the
+//   group's own once a head: each thread copies its two rows of m, l and
+//   di (and of the key mask) by 4-byte cp.async a head ahead, then folds
+//   them. (A one-dimensional TMA copy of the rows, from a start that is
+//   not 16-byte aligned, raised "illegal instruction".)
+// * The query side's ragged end (at most 8 rows: 6 at 198, 5 at 197) takes
+//   an m64n8 S^T and dP^T and one k16 step of each second product.
+// * The key side's ragged end: a fourth key tile (tk above 192) goes to
+//   warpgroup j % 3 for the block's j-th head, after its own tile. When it
+//   holds 8 keys or fewer (6 at 198) its products run transposed, queries
+//   by keys (dkv_short_tail): S and dP as m64n8 products, p and ds rounded
+//   into two key-major panels of shared memory, then dV^T += dO^T P and
+//   dK^T += Q^T dS (product_t8, both operands in shared memory): an eighth
+//   of a tile's products, the same sums in the same order, and the same
+//   bits.
+// 384 threads, 168 registers, no spills, 220 KB of shared memory: one
+// block an SM.
+//
+// What binds it, as measured on an H100 (compare_flash_builds.py and
+// scratch ablations, PERF.md section 6): at [1536, 198, 64] bf16 122.5 us
+// against the whole-tile kernel's 170.1 and SDPA's whole backward 333.4;
+// the bytes bound is 70.8 us. Without copies after the first heads it
+// takes 118.0 us, without S^T and dP^T 107.0, without the second products
+// 112.6, without p and ds 108.6, with the copies alone 92.4: the three
+// warpgroups' chains of products and scores bind it, not device memory.
+// Handing the fourth tile to nobody made it slower (128.8 us): the turns
+// keep the groups out of step, so one's products overlap another's
+// scores. Tried, and slower: four warpgroups a block (a key tile each,
+// S^T and dP^T in halves of 32 queries to fit 128 registers; 147.3 us,
+// 36 bytes spilled), dV's product issued while ds is computed and p
+// while dP^T runs (175.2 against 122.8, 44 bytes spilled), the query
+// side's ragged end in the last full step's batches (144.7 against 122.9,
+// 56 bytes spilled): at 168 registers every extra live value spills.
+//
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
 // chip_smoke.py prints):
 //   K3b  one warpgroup a block (128 threads), 168 registers, 67 KB of
@@ -163,6 +222,9 @@
 //   K3c  two warpgroups a block (256 threads), 128 registers, 83 KB: two
 //        blocks an SM by both. One warpgroup a block, three an SM, was
 //        level with it.
+//   K3b at ViT lengths (the short kernel) three warpgroups a block (384
+//        threads), 168 registers (65,536 / 384 = 170), no spills, 220 KB
+//        of shared memory: one block an SM, 132 resident.
 //   Head size 128: K3b keeps one warpgroup a block, its dK and dV now 128
 //   float32 registers a thread, 131 KB of shared memory: one block an SM,
 //   and __launch_bounds__ lets the registers grow to 255: 246, no spills.
@@ -172,6 +234,7 @@
 //   and the softmax twice, or hand them over as at 256. K3c keeps two warpgroups, 163 KB: one block an
 //   SM, 166 registers, no spills.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -264,21 +327,24 @@ __device__ __forceinline__ void dq_scores(float (&s)[32],
 }
 
 // K3b's p and ds on a warpgroup's transposed tile (its 64 keys, the
-// thread's two from key_a, against the tile's 64 query rows q0 ..) in
-// place: st becomes p, dpt ds = p (dp - di), from the rows' exponent
-// offsets and di in shared memory (`lse2_s`, `di_s`); unless `unmasked`,
-// zero where the pair takes no part: a row past tq or above the key's
-// diagonal, a key the mask drops (`key_ok`).
-__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32],
+// thread's two from key_a, against the tile's 64 query rows q0 .., or its
+// first 32 or 8: kN = 32, 16 or 4 values a thread) in place: st becomes p,
+// dpt ds = p (dp - di), from the rows' exponent offsets and di in shared
+// memory (`lse2_s`, `di_s`, from row q0); unless `unmasked`, zero where the
+// pair takes no part: a row past tq or above the key's diagonal, a key the
+// mask drops (`key_ok`).
+template <int kN>
+__device__ __forceinline__ void dkv_scores(float (&st)[kN], float (&dpt)[kN],
                                            const float* lse2_s,
                                            const float* di_s, float scale2,
                                            bool unmasked, int q0, int tq,
                                            const bool (&key_ok)[2],
                                            int key_a, int causal, int offset,
                                            int t) {
+  constexpr int kCols = kN / 4;  // groups of 8 query columns
   if (unmasked) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const float2 lse2 =
           *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * t);
       const float2 di_r =
@@ -299,7 +365,7 @@ __device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32],
   for (int r = 0; r < 2; ++r)
     first_row[r] = !key_ok[r] ? tq : causal ? key_a + 8 * r - offset : 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kCols; ++j) {
     const float2 lse2 =
         *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * t);
     const float2 di_r =
@@ -1260,6 +1326,416 @@ __global__ void __launch_bounds__(256, 1)
     }
 }
 
+// ---------------------------------------------------------------------------
+// ViT lengths: K3b's short kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kShortRows = 256;  // the most queries or keys a head has
+constexpr int kKeyTiles = kShortRows / kTileRows;  // K and V slots: 4
+// warpgroups: one a key tile of the first three; the fourth tile's keys go
+// to each in turn
+constexpr int kShortGroups = 3;
+constexpr int kShortThreads = 128 * kShortGroups;
+constexpr int kHeadBytes = kShortRows * kRowBytes;  // Q, dO, K or V: 32 KB
+constexpr int kStatBytes = kShortRows * 4;          // a float a row
+// a query buffer: one head's Q and dO
+constexpr int kQueryBytes = 2 * kHeadBytes;
+// the transposed tail's p and ds, rounded: a panel of 8 key rows each
+constexpr int kTailBytes = 2 * 1024;
+// a group's rows: the next head's m, l, di and key flags as they arrive,
+// then this head's exponent offsets, di and key flags
+constexpr int kGroupRowsBytes = 7 * kStatBytes;
+
+__host__ __device__ constexpr size_t dkv_short_smem_bytes() {
+  // two query buffers, the K and V slots, the groups' tail panels and
+  // rows, a word a warp, the barriers (two query buffers, four key slots)
+  // and the two counts of groups done with a query buffer
+  return 1024 + 2 * kQueryBytes + 2 * kHeadBytes +
+         kShortGroups * (kTailBytes + kGroupRowsBytes) +
+         4 * kShortGroups * 4 + (2 + kKeyTiles) * 8 + 2 * 4;
+}
+
+// K3b at head size 64 when a head's queries and keys fit in shared memory
+// whole and its keys fill at least three key tiles (tk above 128), one for
+// each warpgroup; nothing else takes it
+bool takes_short_dkv(int panels, int tq, int tk) {
+  return panels == 1 && tq >= 1 && tq <= kShortRows &&
+         tk > 2 * kTileRows && tk <= kShortRows;
+}
+
+// One thread fills query buffer `buf` with a head's Q and dO (whole 64-row
+// tiles, rows past tq as zeros), on the buffer's barrier `full`.
+__device__ __forceinline__ void load_queries(uint32_t buf, uint32_t full,
+                                             const CUtensorMap* q_map,
+                                             const CUtensorMap* do_map,
+                                             int head, uint32_t bytes) {
+  mbar_arrive_expect(full, bytes);
+  tma_load_head(buf, q_map, head, full);
+  tma_load_head(buf + kHeadBytes, do_map, head, full);
+}
+
+// One thread fills key slot `tile` of K and V (`k_slot`, its V a head's
+// bytes on) with that tile of a head, on the slot's barrier `full`.
+__device__ __forceinline__ void load_keys(uint32_t k_slot, uint32_t full,
+                                          const CUtensorMap* k_map,
+                                          const CUtensorMap* v_map,
+                                          int head, int tile) {
+  mbar_arrive_expect(full, 2 * kPanelBytes);
+  tma_load_head(k_slot, k_map, head, full, tile * kTileRows);
+  tma_load_head(k_slot + kHeadBytes, v_map, head, full, tile * kTileRows);
+}
+
+// A thread's rows (`row` and `row` + 128) of a head's m, l and di, and of
+// its batch item's key mask, into the group's `raw` rows ([m, l, di,
+// mask][row]) by cp.async, zeros past tq (tk), one group of copies: the
+// thread reads them back itself a head later.
+__device__ __forceinline__ void stage_stats(float* raw, const float* m,
+                                            const float* l, const float* di,
+                                            const float* kv_mask, int head,
+                                            int n_heads, int tq, int tk,
+                                            int row) {
+  const size_t first = (size_t)head * tq;
+#pragma unroll
+  for (int r = row; r < kShortRows; r += 128) {
+    const bool inside = r < tq;
+    const size_t at = first + (inside ? r : 0);
+    cp_async_4(smem_u32(raw + r), m + at, inside ? 4 : 0);
+    cp_async_4(smem_u32(raw + kShortRows + r), l + at, inside ? 4 : 0);
+    cp_async_4(smem_u32(raw + 2 * kShortRows + r), di + at, inside ? 4 : 0);
+    if (kv_mask)
+      cp_async_4(smem_u32(raw + 3 * kShortRows + r),
+                 kv_mask + (size_t)(head / n_heads) * tk + (r < tk ? r : 0),
+                 r < tk ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+// One query step of K3b's arithmetic for a warpgroup's key tile: S^T and
+// dP^T over the step's queries from row q0 (kN values a thread: 32 for 64
+// queries and four k16 steps of the second products, 4 for the sequence's
+// last 8 or fewer and one), then p and ds, rounded to T, into dV and dK.
+// Each batch of products is straight-line code for the tensor cores.
+template <typename T, int kN>
+__device__ __forceinline__ void dkv_short_step(
+    float (&dk_acc)[32], float (&dv_acc)[32], uint32_t k_s, uint32_t v_s,
+    uint32_t q_s, uint32_t do_s, const float* lse2_s, const float* di_s,
+    float scale2, bool unmasked, int q0, int tq, const bool (&key_ok)[2],
+    int key_a, int causal, int offset, int t) {
+  constexpr int kSteps = (kN + 7) / 8;
+  float st[kN], dpt[kN];  // [key][query]
+  const uint32_t q_rows = q_s + q0 * kRowBytes, do_rows = do_s + q0 * kRowBytes;
+  products_begin();
+  if constexpr (kN == 4) {
+    product_nt_n8<T>(st, k_s, q_rows);
+    product_nt_n8<T>(dpt, v_s, do_rows);
+  } else {
+    product_nt<T, 1>(st, k_s, q_rows);
+    product_nt<T, 1>(dpt, v_s, do_rows);
+  }
+  products_end();
+  keep_registers(st);
+  keep_registers(dpt);
+  dkv_scores(st, dpt, lse2_s + q0, di_s + q0, scale2, unmasked, q0, tq,
+             key_ok, key_a, causal, offset, t);
+  uint32_t pt[kSteps][4], dst[kSteps][4];
+  pack_a_fragments<T>(st, pt);
+  pack_a_fragments<T>(dpt, dst);
+  products_begin();
+  product_tn<T, kSteps>(dv_acc, pt, do_rows);
+  product_tn<T, kSteps>(dk_acc, dst, q_rows);
+  products_end();
+  keep_registers(pt);
+  keep_registers(dst);
+  keep_registers(dv_acc);
+  keep_registers(dk_acc);
+}
+
+// The short kernel's state that every tile of a head shares: the query
+// buffer, the group's rows, the lengths and the mask rules.
+struct ShortHead {
+  uint32_t q_s, do_s;
+  const float *lse2_s, *di_s, *flags;
+  int tq, tk, q_tiles, causal, offset;
+  float scale, scale2;
+};
+
+// A warpgroup's dK and dV for the 64 keys of the tile at `k0` (in slots
+// `k_s`, `v_s`) over the head's query tiles, in K3b's order and with its
+// arithmetic, into rows k0 .. of `dk_rows`, `dv_rows`. `words` holds a word
+// a warp; a named barrier of the group's own (`bar_id`).
+template <typename T>
+__device__ __forceinline__ void dkv_short_tile(const ShortHead& h, int k0,
+                                               uint32_t k_s, uint32_t v_s,
+                                               T* dk_rows, T* dv_rows,
+                                               int* words, int bar_id,
+                                               const Lanes& at,
+                                               int in_group) {
+  // the thread's two keys (key_a and key_a + 8), and whether any and
+  // whether all of the tile's take part
+  const int key_a = k0 + at.warp_in_group * 16 + at.g;
+  const bool key_ok[2] = {h.flags[key_a] > 0.f, h.flags[key_a + 8] > 0.f};
+  const bool any = __any_sync(0xffffffffu, key_ok[0] || key_ok[1]);
+  const bool all = __all_sync(0xffffffffu, key_ok[0] && key_ok[1]);
+  if (at.lane == 0) words[at.warp_in_group] = (any ? 1 : 0) | (all ? 2 : 0);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+  int keys_any = 0, keys_all = 2;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    keys_any |= words[w] & 1;
+    keys_all &= words[w] & 2;
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");  // words read
+  // under the causal mask only query rows with row + offset >= k0 reach
+  // the tile's keys
+  const int first =
+      h.causal && k0 - h.offset > 0 ? (k0 - h.offset) / kTileRows : 0;
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int qt = keys_any ? first : h.q_tiles; qt < h.q_tiles; ++qt) {
+    const int q0 = qt * kTileRows;
+    // a tile whose last row does not reach the first key
+    if (h.causal && k0 > q0 + kTileRows - 1 + h.offset) continue;
+    if (h.tq - q0 <= 8) {
+      // the sequence's ragged end: at most 8 queries, an [64 x 8] S^T and
+      // dP^T and one k16 step of each second product
+      dkv_short_step<T, 4>(dk_acc, dv_acc, k_s, v_s, h.q_s, h.do_s,
+                           h.lse2_s, h.di_s, h.scale2, false, q0, h.tq,
+                           key_ok, key_a, h.causal, h.offset, at.t);
+    } else {
+      // every pair of the tile takes part: no test per element
+      const bool unmasked =
+          keys_all && q0 + kTileRows <= h.tq &&
+          (!h.causal || k0 + kTileRows - 1 <= q0 + h.offset);
+      dkv_short_step<T, 32>(dk_acc, dv_acc, k_s, v_s, h.q_s, h.do_s,
+                            h.lse2_s, h.di_s, h.scale2, unmasked, q0, h.tq,
+                            key_ok, key_a, h.causal, h.offset, at.t);
+    }
+  }
+  store_fragments(dv_rows, dv_acc, 1.f, k0, h.tk, in_group);
+  store_fragments(dk_rows, dk_acc, h.scale, k0, h.tk, in_group);
+}
+
+// The transposed tail: a warpgroup's dK and dV for the at most 8 keys of
+// the tile at `k0` (the sequence's ragged end), as [64 x 8] dV^T and dK^T
+// over the head's query tiles. Per query tile S and dP (its 64 queries
+// against the 8 keys, m64n8), p and ds from the rows' statistics, rounded
+// to T into two key-major panels (`tail`, P then dS), then dV^T += dO^T P
+// and dK^T += Q^T dS with both operands in shared memory: the same sums
+// as the tile's, in the same order, on an eighth of the keys' products.
+template <typename T>
+__device__ __forceinline__ void dkv_short_tail(const ShortHead& h, int k0,
+                                               uint32_t k_s, uint32_t v_s,
+                                               uint8_t* tail, T* dk_rows,
+                                               T* dv_rows, int bar_id,
+                                               const Lanes& at) {
+  // the thread's rows (queries, g and g + 8 of its warp's 16) and keys
+  // (2 t, 2 t + 1 of the 8)
+  const int row0 = at.warp_in_group * 16 + at.g;
+  bool key_ok[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) key_ok[e] = h.flags[k0 + 2 * at.t + e] > 0.f;
+  const uint32_t p_panel = smem_u32(tail), ds_panel = p_panel + 1024;
+  float dvt[4] = {0.f, 0.f, 0.f, 0.f}, dkt[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int qt = 0; qt < h.q_tiles; ++qt) {
+    const int q0 = qt * kTileRows;
+    if (h.causal && k0 > q0 + kTileRows - 1 + h.offset) continue;
+    const uint32_t q_rows = h.q_s + q0 * kRowBytes;
+    const uint32_t do_rows = h.do_s + q0 * kRowBytes;
+    float s[4], dp[4];  // [query][key]
+    products_begin();
+    product_nt_n8<T>(s, q_rows, k_s);
+    product_nt_n8<T>(dp, do_rows, v_s);
+    products_end();
+    keep_registers(s);
+    keep_registers(dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i >> 1) & 1, e = i & 1;
+      const int row = q0 + row0 + 8 * r, key = k0 + 2 * at.t + e;
+      const bool ok = row < h.tq && key_ok[e] &&
+                      (!h.causal || key <= row + h.offset);
+      const float p = exp2_fast(fmaf(s[i], h.scale2, -h.lse2_s[row]));
+      s[i] = ok ? p : 0.f;
+      dp[i] = ok ? p * (dp[i] - h.di_s[row]) : 0.f;
+    }
+    // p and ds, rounded to T, to [key][query] panels: the B operands
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = row0 + 8 * ((i >> 1) & 1), key = 2 * at.t + (i & 1);
+      const uint32_t at_c = swizzled(key, c >> 3) + (c & 7) * 2;
+      *reinterpret_cast<T*>(tail + at_c) = to_type<T>(s[i]);
+      *reinterpret_cast<T*>(tail + 1024 + at_c) = to_type<T>(dp[i]);
+    }
+    fence_async_shared();  // the panels' stores before the tensor cores'
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    products_begin();
+    if (h.tq - q0 <= 16) {  // the sequence's end: one k16 step of queries
+      product_t8<T, 1>(dvt, do_rows, p_panel);
+      product_t8<T, 1>(dkt, q_rows, ds_panel);
+    } else {
+      product_t8<T, 4>(dvt, do_rows, p_panel);
+      product_t8<T, 4>(dkt, q_rows, ds_panel);
+    }
+    products_end();
+    keep_registers(dvt);
+    keep_registers(dkt);
+  }
+  // dV^T and dK^T: (column row0 + 8 r, key 2 t + e) of the thread
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = row0 + 8 * ((i >> 1) & 1), key = k0 + 2 * at.t + (i & 1);
+    if (key < h.tk) {
+      dv_rows[(size_t)key * kPanelCols + col] = to_type<T>(dvt[i]);
+      dk_rows[(size_t)key * kPanelCols + col] = to_type<T>(dkt[i] * h.scale);
+    }
+  }
+}
+
+// K3b at ViT lengths: persistent blocks, each walking heads blockIdx.x, +
+// gridDim.x, ...; warpgroup g owns key tile g of every head, and the
+// fourth tile's keys (tk above 192) go to warpgroup j % 3 for the block's
+// j-th head: transposed when they are 8 or fewer, as a tile otherwise.
+template <typename T>
+__global__ void __launch_bounds__(kShortThreads, 1)
+    flash_bwd_dkv_short_kernel(__grid_constant__ const CUtensorMap q_map,
+                               __grid_constant__ const CUtensorMap do_map,
+                               __grid_constant__ const CUtensorMap k_map,
+                               __grid_constant__ const CUtensorMap v_map,
+                               const float* __restrict__ l,
+                               const float* __restrict__ m,
+                               const float* __restrict__ di,
+                               const float* __restrict__ kv_mask,
+                               T* __restrict__ dk, T* __restrict__ dv, int bn,
+                               int tq, int tk, int n_heads, float scale,
+                               int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t keys = base + 2 * kQueryBytes;  // K's slots, then V's
+  uint8_t* tails = smem + 2 * kQueryBytes + 2 * kHeadBytes;
+  float* group_rows =
+      reinterpret_cast<float*>(tails + kShortGroups * kTailBytes);
+  int* words = reinterpret_cast<int*>(group_rows) +
+               kShortGroups * kGroupRowsBytes / 4;
+  // full[b]: query buffer b holds its head; key_full[s]: key slot s holds
+  // its head's tile; done[b]: the groups that have finished with query
+  // buffer b
+  const uint32_t full0 = smem_u32(words + 4 * kShortGroups);
+  const uint32_t key_full0 = full0 + 2 * 8;
+  int* done = words + 4 * kShortGroups + 2 * (2 + kKeyTiles);
+  const int tiles = (tk + kTileRows - 1) / kTileRows;  // 3 or 4
+  const uint32_t q_bytes =
+      (tq + kTileRows - 1) / kTileRows * 2 * kPanelBytes;
+  const Lanes at;
+  if (at.tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(full0 + 8 * b, 1);
+      done[b] = 0;
+    }
+    for (int s = 0; s < kKeyTiles; ++s) mbar_init(key_full0 + 8 * s, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (at.tid == 0) {  // the block's first two heads' queries, its first keys
+    for (int b = 0; b < 2; ++b) {
+      const int head = blockIdx.x + b * gridDim.x;
+      if (head < bn)
+        load_queries(base + b * kQueryBytes, full0 + 8 * b, &q_map, &do_map,
+                     head, q_bytes);
+    }
+    for (int s = 0; s < tiles; ++s)
+      load_keys(keys + s * kPanelBytes, key_full0 + 8 * s, &k_map, &v_map,
+                blockIdx.x, s);
+  }
+
+  const int group = at.group, in_group = at.tid & 127;
+  const int bar_id = 1 + group;
+  float* raw = group_rows + group * 7 * kShortRows;  // m, l, di, mask
+  float* lse2_s = raw + 4 * kShortRows;
+  float* di_s = lse2_s + kShortRows;
+  float* flags = di_s + kShortRows;
+  int* group_words = words + 4 * group;
+  uint8_t* tail = tails + group * kTailBytes;
+  ShortHead h;
+  h.lse2_s = lse2_s;
+  h.di_s = di_s;
+  h.flags = flags;
+  h.tq = tq;
+  h.tk = tk;
+  h.q_tiles = (tq + kTileRows - 1) / kTileRows;
+  h.causal = causal;
+  h.offset = tk - tq;
+  h.scale = scale;
+  h.scale2 = scale * kLog2e;
+  stage_stats(raw, m, l, di, kv_mask, blockIdx.x, n_heads, tq, tk, in_group);
+
+  for (int head = blockIdx.x, j = 0; head < bn; head += gridDim.x, ++j) {
+    const int b = j & 1, next = head + gridDim.x;
+    h.q_s = base + b * kQueryBytes;
+    h.do_s = h.q_s + kHeadBytes;
+    // the rows' exponent offsets and di (zeros past tq, as K3b's) and the
+    // key flags, the group's own copy, from the rows this thread copied a
+    // head ago; then the next head's copies
+    cp_async_wait<0>();
+#pragma unroll
+    for (int r = in_group; r < kShortRows; r += 128) {
+      lse2_s[r] = r < tq ? exponent_offset(raw[r], raw[kShortRows + r]) : 0.f;
+      di_s[r] = raw[2 * kShortRows + r];
+      flags[r] = kv_mask ? raw[3 * kShortRows + r] : r < tk ? 1.f : 0.f;
+    }
+    if (next < bn)
+      stage_stats(raw, m, l, di, kv_mask, next, n_heads, tq, tk, in_group);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    mbar_wait(full0 + 8 * b, (j >> 1) & 1);
+    mbar_wait(key_full0 + 8 * group, j & 1);
+    __syncwarp();  // converged for the warpgroup's products
+    T* dk_rows = dk + (size_t)head * tk * kPanelCols;
+    T* dv_rows = dv + (size_t)head * tk * kPanelCols;
+    const uint32_t k_s = keys + group * kPanelBytes;
+    // the group's own tile
+    dkv_short_tile<T>(h, group * kTileRows, k_s, k_s + kHeadBytes, dk_rows,
+                      dv_rows, group_words, bar_id, at, in_group);
+    // the fourth tile's keys, this head's turn
+    const bool fourth = tiles > kShortGroups && j % kShortGroups == group;
+    const uint32_t k4 = keys + kShortGroups * kPanelBytes;
+    if (fourth) {
+      mbar_wait(key_full0 + 8 * kShortGroups, j & 1);
+      __syncwarp();
+      const int k0 = kShortGroups * kTileRows;
+      if (tk - k0 <= 8)
+        dkv_short_tail<T>(h, k0, k4, k4 + kHeadBytes, tail, dk_rows,
+                          dv_rows, bar_id, at);
+      else
+        dkv_short_tile<T>(h, k0, k4, k4 + kHeadBytes, dk_rows, dv_rows,
+                          group_words, bar_id, at, in_group);
+    }
+
+    // done with the buffers: the group's key slots take their next head,
+    // the last group done with the query buffer fills it with the head two
+    // on
+    fence_async_shared();  // this thread's accesses before the copies
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    if (in_group == 0) {
+      if (next < bn) {
+        load_keys(k_s, key_full0 + 8 * group, &k_map, &v_map, next, group);
+        if (fourth)
+          load_keys(k4, key_full0 + 8 * kShortGroups, &k_map, &v_map, next,
+                    kShortGroups);
+      }
+      __threadfence_block();
+      const bool last = atomicAdd(done + b, 1) == kShortGroups - 1;
+      if (last) done[b] = 0;
+      __threadfence_block();
+      if (last && head + 2 * gridDim.x < bn)
+        load_queries(h.q_s, full0 + 8 * b, &q_map, &do_map,
+                     head + 2 * gridDim.x, q_bytes);
+    }
+  }
+}
+
 // K3b's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4 (a
 // block owns 64 keys, its warpgroups split the panels), the cluster kernel
 // above 4
@@ -1334,6 +1810,37 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       n_heads, scale, causal);
 }
 
+LaunchShape dkv_short_shape() {
+  return {kShortThreads, dkv_short_smem_bytes(), kShortRows, 1};
+}
+
+// K3b's short kernel, persistent: as many blocks as the card holds, each
+// walking the heads blockIdx.x, + gridDim.x, ...
+template <typename T>
+cudaError_t launch_dkv_short(const void* q, const void* k, const void* v,
+                             const void* dout, const void* l, const void* m,
+                             const void* di, const void* kv_mask, void* dk,
+                             void* dv, int bn, int tq, int tk, int n_heads,
+                             float scale, int causal, cudaStream_t stream) {
+  // a copy brings whole tiles: rows past the sequence arrive as zeros
+  const int q_rows = (tq + kTileRows - 1) / kTileRows * kTileRows;
+  CUtensorMap maps[4];
+  cudaError_t err = head_map<T>(&maps[0], q, bn, tq, q_rows);
+  if (err == cudaSuccess) err = head_map<T>(&maps[1], dout, bn, tq, q_rows);
+  if (err == cudaSuccess) err = head_map<T>(&maps[2], k, bn, tk, kTileRows);
+  if (err == cudaSuccess) err = head_map<T>(&maps[3], v, bn, tk, kTileRows);
+  if (err != cudaSuccess) return err;
+  const LaunchShape shape = dkv_short_shape();
+  const int blocks = resident_blocks<flash_bwd_dkv_short_kernel<T>>(shape);
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  flash_bwd_dkv_short_kernel<T><<<bn < blocks ? bn : blocks, shape.threads,
+                                  shape.smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)l, (const float*)m,
+      (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, bn, tq, tk,
+      n_heads, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int kPanels>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* l, const void* m,
@@ -1354,6 +1861,9 @@ cudaError_t dkv_panels(int panels, const void* q, const void* k,
                        void* dk, void* dv, int bn, int tq, int tk,
                        int n_heads, float scale, int causal,
                        cudaStream_t stream) {
+  if (takes_short_dkv(panels, tq, tk))
+    return launch_dkv_short<T>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
+                               tq, tk, n_heads, scale, causal, stream);
   if (panels == 1)
     return launch_dkv<T, 1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
@@ -1424,9 +1934,48 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
                                   stream);
 }
 
-// the launch shape of K3b (dkv nonzero) or K3c at `panels` panels
-flash_tiles::LaunchShape flash_bwd_tc_shape(int dkv, int panels) {
-  return dkv ? dkv_shape(panels) : dq_shape(panels);
+// K3b's kernel for a call at `panels` panels and these lengths (0 the
+// whole-tile kernel, 1 the short kernel, 2 the cluster kernel)
+int flash_bwd_dkv_kernel_of(int panels, int tq, int tk) {
+  return takes_short_dkv(panels, tq, tk) ? 1 : panels > 4 ? 2 : 0;
+}
+
+// the launch shape of K3b (dkv nonzero) or K3c at `panels` panels and these
+// lengths
+flash_tiles::LaunchShape flash_bwd_tc_shape(int dkv, int panels, int tq,
+                                            int tk) {
+  if (!dkv) return dq_shape(panels);
+  return takes_short_dkv(panels, tq, tk) ? dkv_short_shape()
+                                         : dkv_shape(panels);
+}
+
+// how many blocks of K3b's kernel for these sizes, of float16 (f16
+// nonzero) or bfloat16, the current card holds at once (or -1)
+int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk) {
+  const LaunchShape shape = flash_bwd_tc_shape(1, panels, tq, tk);
+  switch (flash_bwd_dkv_kernel_of(panels, tq, tk) * 2 + (f16 ? 1 : 0)) {
+    case 2:
+      return resident_blocks<flash_bwd_dkv_short_kernel<__nv_bfloat16>>(
+          shape);
+    case 3:
+      return resident_blocks<flash_bwd_dkv_short_kernel<__half>>(shape);
+    case 4:
+      return resident_blocks<flash_bwd_dkv_cluster_kernel<__nv_bfloat16>>(
+          shape);
+    case 5:
+      return resident_blocks<flash_bwd_dkv_cluster_kernel<__half>>(shape);
+  }
+  if (panels == 1)
+    return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 1>>(shape)
+               : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 1>>(
+                     shape);
+  if (panels == 2)
+    return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 2>>(shape)
+               : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 2>>(
+                     shape);
+  return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 4>>(shape)
+             : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 4>>(
+                   shape);
 }
 
 // how many clusters of K3b's cluster kernel at `panels` panels (above 4)

@@ -964,54 +964,6 @@ LaunchShape short_shape() {
   return {kShortThreads, short_smem_bytes(), kShortRows, 1};
 }
 
-// the driver's cuTensorMapEncodeTiled, through the runtime (no link to the
-// driver library); null where the driver lacks it
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(entry)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a tensor map of a [bn, t, 64] array of T whose box is rows 0 .. `rows` of
-// one head, 128-byte swizzled; rows past t arrive as zeros
-template <typename T>
-cudaError_t head_map(CUtensorMap* map, const void* base, int bn, int t,
-                     int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {kPanelCols, (cuuint64_t)t, (cuuint64_t)bn};
-  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)t * kRowBytes};
-  const cuuint32_t box[3] = {kPanelCols, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult err = encode(
-      map,
-      std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return err == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // the short kernel, persistent: as many blocks as the card holds, each
 // walking the heads blockIdx.x, + gridDim.x, ...
 template <typename T>

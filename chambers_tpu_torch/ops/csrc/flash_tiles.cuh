@@ -32,8 +32,10 @@
 // with zeros by a source size of 0, so the ragged edge needs no padded
 // operand. stage_panel fills one panel the same way from an operand whose
 // row stride is known only at run time (the sliced and cluster kernels).
-// K3a's short kernel fills whole heads by TMA instead (tma_load_head: the
-// copy engine writes the same swizzled layout, completion on an mbarrier).
+// The short kernels (K3a's and K3b's, ViT lengths) fill whole heads or whole
+// tiles by TMA instead (tma_load_head: the copy engine writes the same
+// swizzled layout, completion on an mbarrier; head_map describes the
+// operand).
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -70,6 +72,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -240,7 +243,7 @@ __device__ __forceinline__ void stage_panel(uint32_t panel, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-memory copies and their barriers (K3a's short kernel)
+// tensor-memory copies and their barriers (the short kernels)
 // ---------------------------------------------------------------------------
 
 // A TMA copy of a box of rows of a [heads, rows, 64] array of T, described
@@ -294,14 +297,16 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the box at rows 0.. of head `head` of the array `map` describes, to
+// the box at rows `row`.. of head `head` of the array `map` describes, to
 // shared address `dst`, completing on `bar`
 __device__ __forceinline__ void tma_load_head(uint32_t dst, const void* map,
-                                              int head, uint32_t bar) {
+                                              int head, uint32_t bar,
+                                              int row = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head)
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(head)
       : "memory");
 }
 
@@ -358,33 +363,49 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// a [64 x 64] accumulator, rounded to T, as the A operand of a product
-// over its 64 columns: a[ks] covers columns 16 ks .. 16 ks + 15
+// one float32 value rounded to T (to nearest, ties to even), as pack2<T>
+// rounds each of its two
 template <typename T>
-__device__ __forceinline__ void pack_a_fragments(const float (&acc)[32],
-                                                 uint32_t (&a)[4][4]) {
+__device__ __forceinline__ T to_type(float x) {
+  if constexpr (std::is_same_v<T, __half>)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16_rn(x);
+}
+
+// a [64 x 64] accumulator (kN = 32 values a thread), or its first 8
+// columns (kN = 4, product_nt_n8's), rounded to T, as the A operand of a
+// product over those columns: a[ks] covers columns 16 ks .. 16 ks + 15; of
+// 8 columns, a[0]'s other 8 are zeros
+template <typename T, int kN>
+__device__ __forceinline__ void pack_a_fragments(const float (&acc)[kN],
+                                                 uint32_t (&a)[(kN + 7) / 8]
+                                                              [4]) {
+  if constexpr (kN == 4) {
+    a[0][0] = pack2<T>(acc[0], acc[1]);
+    a[0][1] = pack2<T>(acc[2], acc[3]);
+    a[0][2] = a[0][3] = 0u;
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = pack2<T>(acc[8 * ks + 0], acc[8 * ks + 1]);
-    a[ks][1] = pack2<T>(acc[8 * ks + 2], acc[8 * ks + 3]);
-    a[ks][2] = pack2<T>(acc[8 * ks + 4], acc[8 * ks + 5]);
-    a[ks][3] = pack2<T>(acc[8 * ks + 6], acc[8 * ks + 7]);
+    for (int ks = 0; ks < kN / 8; ++ks) {
+      a[ks][0] = pack2<T>(acc[8 * ks + 0], acc[8 * ks + 1]);
+      a[ks][1] = pack2<T>(acc[8 * ks + 2], acc[8 * ks + 3]);
+      a[ks][2] = pack2<T>(acc[8 * ks + 4], acc[8 * ks + 5]);
+      a[ks][3] = pack2<T>(acc[8 * ks + 6], acc[8 * ks + 7]);
+    }
   }
 }
 
-__device__ __forceinline__ void keep_registers(float (&x)[32]) {
+template <int kN>
+__device__ __forceinline__ void keep_registers(float (&x)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(x[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
-__device__ __forceinline__ void keep_registers(float (&x)[4]) {
+template <int kRows>
+__device__ __forceinline__ void keep_registers(uint32_t (&x)[kRows][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-__device__ __forceinline__ void keep_registers(uint32_t (&x)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
 }
@@ -501,11 +522,13 @@ __device__ __forceinline__ void product_nt_n8(float (&acc)[4],
 // acc += A . Y: A [64 x 64] of T in registers (pack_a_fragments<T>), Y the
 // 64 rows of one panel at `y_tile` read along its rows (transposed); with
 // kSteps < 4 only A's first 16 kSteps columns and Y's first 16 kSteps rows
-// (the rest of A zeros: their products add nothing)
-template <typename T, int kSteps = 4>
+// (the rest of A zeros: their products add nothing), which `a` may hold
+// alone
+template <typename T, int kSteps = 4, int kRows>
 __device__ __forceinline__ void product_tn(float (&acc)[32],
-                                           const uint32_t (&a)[4][4],
+                                           const uint32_t (&a)[kRows][4],
                                            uint32_t y_tile) {
+  static_assert(kSteps <= kRows, "a holds the steps' fragments");
   const uint64_t dy = descriptor(y_tile);
 #pragma unroll
   for (int ks = 0; ks < kSteps; ++ks) {
@@ -521,6 +544,33 @@ __device__ __forceinline__ void product_tn(float (&acc)[32],
                    : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
                      "r"(a[ks][3]), "l"(dy + 128 * ks), "r"(1));
   }
+}
+
+// acc += X^T . P for a [64 x 8] accumulator (4 values a thread, the layout
+// of product_nt_n8): X the 16 kSteps rows at `x_rows` of a panel read along
+// its rows (transposed, as product_tn reads Y), P a panel of 8 rows (its
+// columns the same 16 kSteps rows of X, read along h as product_nt reads
+// Y): both operands in shared memory. The same sums as product_tn's with
+// the two operands' roles swapped (a sequence's last keys as columns).
+template <typename T, int kSteps>
+__device__ __forceinline__ void product_t8(float (&acc)[4], uint32_t x_rows,
+                                           uint32_t p_panel) {
+  const uint64_t dx = descriptor(x_rows), dp = descriptor(p_panel);
+#define FLASH_TILES_T8(TYPE)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32." TYPE "." TYPE " "          \
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"                          \
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])                \
+      : "l"(dx + 128 * ks), "l"(dp + 2 * ks), "r"(1))
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    if constexpr (std::is_same_v<T, __half>)
+      FLASH_TILES_T8("f16");
+    else
+      FLASH_TILES_T8("bf16");
+  }
+#undef FLASH_TILES_T8
 }
 
 // ---------------------------------------------------------------------------
@@ -558,6 +608,31 @@ __device__ __forceinline__ void store_panel(T* dst, uint8_t* tile,
     if (row0 + r < rows)
       *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swizzled(r, c));
+  }
+}
+
+// A warpgroup's [64 x 64] accumulator times `mul` to rows [row0, row0 + 64)
+// of a [rows, 64] array of T, straight from the fragments (a quad's four
+// 4-byte stores fill 16 bytes of a row): no shared memory, so the tiles a
+// kernel staged stay free for its next copies. The same values as
+// store_panel.
+template <typename T>
+__device__ __forceinline__ void store_fragments(T* dst, const float (&acc)[32],
+                                                float mul, int row0, int rows,
+                                                int thread_in_group) {
+  const int lane = thread_in_group & 31, g = lane >> 2, t = lane & 3;
+  const int row_a = row0 + (thread_in_group >> 5) * 16 + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+    if (row < rows) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row * kPanelCols + 8 * j +
+                                     2 * t) =
+            pack2<T>(acc[4 * j + 2 * half] * mul,
+                     acc[4 * j + 2 * half + 1] * mul);
+    }
   }
 }
 
@@ -893,6 +968,54 @@ int resident_blocks(const LaunchShape& shape) {
   if (device < kMaxDevices && sms * per_sm > 0)
     known[device].store(sms * per_sm, std::memory_order_release);
   return sms * per_sm;
+}
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no link to the
+// driver library); null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(entry)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a tensor map of a [bn, t, 64] array of T whose box is `rows` rows of one
+// head, 128-byte swizzled; rows past t arrive as zeros
+template <typename T>
+cudaError_t head_map(CUtensorMap* map, const void* base, int bn, int t,
+                     int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {kPanelCols, (cuuint64_t)t, (cuuint64_t)bn};
+  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)t * kRowBytes};
+  const cuuint32_t box[3] = {kPanelCols, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult err = encode(
+      map,
+      std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return err == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // how many clusters of kKernel in `shape` the card can hold at once (0:

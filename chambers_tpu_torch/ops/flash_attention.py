@@ -15,8 +15,10 @@ Each is two kernels behind one C function, chosen by the operands' type:
 bfloat16 and float16 take the tensor-core kernels, ``flash_fwd_tc_kernel``
 of ``flash_attention_fwd.cu`` (at head size 64 over 64 to 256 queries and
 1 to 256 keys, ViT lengths, its ``flash_fwd_short_kernel``, which keeps a
-head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel``,
-``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (both built on
+head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel`` (at head size
+64 over 1 to 256 queries and 129 to 256 keys its
+``flash_bwd_dkv_short_kernel``, which keeps a head's Q and dO resident),
+``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (all built on
 ``flash_tiles.cuh``, templated on the type); float32 takes the FMA kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
 of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
@@ -35,7 +37,8 @@ saves ``q, k, v, o, l, m`` and the mask and launches K3a in ``forward`` and
 K3b and K3c in ``backward``. The three ``launch_*`` functions are the only
 places where a kernel starts, and each adds one to its entry of
 ``flash_attention.launches`` there (K3a also to the kernel that ran, in
-``flash_attention.forward_launches``; :func:`launch_shape` names the
+``flash_attention.forward_launches``, and K3b in
+``flash_attention.backward_launches``; :func:`launch_shape` names the
 kernel the library's dispatch picks for a call). ``di = Σ o·do`` is
 computed with torch ops before the backward launches, as the JAX package
 computes it outside its kernels.
@@ -95,7 +98,8 @@ KERNEL_NAMES = {
             "flash_fwd_tc_kernel", "flash_fwd_short_kernel",
             "flash_fwd_sliced_kernel"),
     "dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_cols_kernel",
-            "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_cluster_kernel"),
+            "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_short_kernel",
+            "flash_bwd_dkv_cluster_kernel"),
     "dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_cols_kernel",
            "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel"),
 }
@@ -290,18 +294,24 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
     """Launch K3b alone: ``(dk, dv)``. bfloat16 and float16 operands run
-    ``flash_bwd_dkv_tc_kernel`` (above 256 ``flash_bwd_dkv_cluster_kernel``),
-    float32 ``flash_bwd_dkv_kernel`` (from 256 on
-    ``flash_bwd_dkv_cols_kernel``)."""
+    ``flash_bwd_dkv_short_kernel`` at head size 64 when a head's queries (1
+    to 256) and keys (129 to 256) fit in shared memory whole,
+    ``flash_bwd_dkv_tc_kernel`` otherwise (above 256
+    ``flash_bwd_dkv_cluster_kernel``), float32 ``flash_bwd_dkv_kernel``
+    (from 256 on ``flash_bwd_dkv_cols_kernel``). The launch counts in
+    ``flash_attention.launches["dkv"]`` and under its kernel's name in
+    ``flash_attention.backward_launches``."""
     tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
+    kernel = backward_kernel(q.dtype, q.shape[2], q.shape[1], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(do),
                                  _ptr(l), _ptr(m), _ptr(di), _ptr(kv_mask),
                                  _ptr(dk), _ptr(dv), *tail)
-    _check_launch(lib, code, "flash_bwd_dkv_kernel")
+    _check_launch(lib, code, kernel)
     flash_attention.launches["dkv"] += 1
+    flash_attention.backward_launches[kernel] += 1
     return dk, dv
 
 
@@ -331,9 +341,9 @@ def launch_shape(kernel, dtype, h, tq, tk):
     shared memory ``smem_bytes``, ``slices``, the blocks that split the
     head's output columns, ``cluster``, the blocks of a thread-block
     cluster (1: none), ``max_active_clusters``, how many such clusters the
-    current card holds at once (0 without clusters), and for K3a
+    current card holds at once (0 without clusters), and for K3a and K3b
     ``resident_blocks``, how many of its blocks the current card holds at
-    once (the short kernel launches that many, or one a head if fewer)."""
+    once (a short kernel launches that many, or one a head if fewer)."""
     shape = (ctypes.c_int * 7)()
     code = _library().flash_launch_shape(
         ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], tq, tk, shape)
@@ -341,7 +351,7 @@ def launch_shape(kernel, dtype, h, tq, tk):
     out = {"kernel_name": KERNEL_NAMES[kernel][shape[5]],
            "threads": shape[0], "smem_bytes": shape[1], "slices": shape[2],
            "cluster": shape[3], "max_active_clusters": shape[4]}
-    if kernel == "fwd":
+    if kernel in ("fwd", "dkv"):
         out["resident_blocks"] = shape[6]
     return out
 
@@ -351,6 +361,13 @@ def forward_kernel(dtype, h, tq, tk):
     """The name of the kernel a K3a launch at these type, head size and
     lengths runs, as the library's dispatch picks it."""
     return launch_shape("fwd", dtype, h, tq, tk)["kernel_name"]
+
+
+@functools.lru_cache(maxsize=None)
+def backward_kernel(dtype, h, tq, tk):
+    """The name of the kernel a K3b launch at these type, head size and
+    lengths runs, as the library's dispatch picks it."""
+    return launch_shape("dkv", dtype, h, tq, tk)["kernel_name"]
 
 
 def tile_products(x, y):
@@ -485,5 +502,6 @@ def flash_attention(query, value, key=None, scale=None, causal=False,
 
 
 flash_attention.launches = {"fwd": 0, "dkv": 0, "dq": 0}
-# K3a's launches by the kernel that ran
+# K3a's and K3b's launches by the kernel that ran
 flash_attention.forward_launches = dict.fromkeys(KERNEL_NAMES["fwd"], 0)
+flash_attention.backward_launches = dict.fromkeys(KERNEL_NAMES["dkv"], 0)

@@ -33,7 +33,9 @@ the CUDA toolkit. In order, it:
    130 x 260 and 260 x 130 with the diagonal at the end, 63 x 65, 257 x
    257 and 70 x 150 with key masks, one
    key, one query against 300 keys, and a batch item with no valid key, in
-   bf16 (the tensor-core kernels) and in float32 (the FMA ones); two
+   bf16 (the tensor-core kernels) and in float32 (the FMA ones), and the
+   edges of K3b's short kernel (causal 120 x 250 and 200 x 136, one query
+   against 200 keys, 193 x 193, 198 x 198 in float16); two
    launches of each kernel must give the same bits, the profiler must show
    the short tensor-core forward for bf16 at 96 tokens, the whole-tile one
    at 300 and the FMA one for float32, and the
@@ -135,11 +137,11 @@ the CUDA toolkit. In order, it:
     ms/step, img/s, device time by phase (augmentation, teacher, forward
     and loss, backward, optimizer), the attention core's device time,
     launches, busy share and peak memory. K3a runs
-    ``flash_fwd_short_kernel`` there, its 12 launches a step counted by
-    kernel over the timed steps. Then times K3a-c at ``[1536, 198, 64]``
-    bf16 with no mask beside their bounds and
-    ``F.scaled_dot_product_attention``, and K3a at phase 25 (c)'s served
-    ``[384, 197, 64]``;
+    ``flash_fwd_short_kernel`` and K3b ``flash_bwd_dkv_short_kernel``
+    there, their 12 launches a step each counted by kernel over the timed
+    steps. Then times K3a-c at ``[1536, 198, 64]`` bf16 with no mask beside
+    their bounds and ``F.scaled_dot_product_attention``, and K3a and K3b at
+    phase 25 (c)'s served ``[384, 197, 64]``;
 21. (a) serves uint8 ``[64, 224, 224, 3]`` from a seed in bf16, each
     model behind its own ``preprocess_input``, through ResNeXt-50 (top,
     softmax over 1000 classes), SE-ResNeXt-50 (top) and BN-Inception
@@ -308,8 +310,9 @@ the CUDA toolkit. In order, it:
     among its rows) and an ``int_mm`` JSON line, one ``kernels`` JSON line
     with all five kernels (K1 and K2 with their 384 px shape as
     ``shape_384``, K3a-c with phase 20's shape as ``shape_198``, K3a's
-    short kernel as a row of its own after K3a's (phase 20's launches, its
-    time at 198 and, as ``shape_served``, at ``[384, 197, 64]``), phase
+    short kernel as a row of its own after K3a's and K3b's after K3b's
+    (phase 20's launches, the time at 198 and, as ``shape_served``, at
+    ``[384, 197, 64]``, registers and shared memory), phase
     22's launches as ``launches_gshard``, phase 23's timed fit's as
     ``launches_trainer`` and K1's in phase 24's fit calls as
     ``launches_data_pipeline``, phase 25's as ``launches_served_flash``,
@@ -581,6 +584,19 @@ def phase8_cases(torch, dev):
         ("one key bf16", 2, 2, 64, 1, bf16, False, None, "plain"),
         ("one query against 300 keys bf16, key mask", 2, 2, 1, 300, bf16,
          False, scattered_mask(torch, 2, 300, dev, 14), "plain"),
+        # the edges of K3b's short kernel (1 to 256 queries over 129 to 256
+        # keys): keys past 192 handed to each warpgroup in turn, a last
+        # query tile of one row, causal cross lengths, one query row
+        ("K3b short: causal 120x250 bf16", 1, 2, 120, 250, bf16, True, None,
+         "plain"),
+        ("K3b short: causal 200x136 bf16, key mask", 2, 2, 200, 136, bf16,
+         True, scattered_mask(torch, 2, 136, dev, 15), "plain"),
+        ("K3b short: one query against 200 keys bf16, key mask", 2, 2, 1,
+         200, bf16, False, scattered_mask(torch, 2, 200, dev, 16), "plain"),
+        ("K3b short: 193x193 bf16, a last query tile of one row", 1, 3, 193,
+         193, bf16, False, None, "stacked"),
+        ("K3b short: 198x198 float16", 2, 3, 198, 198, torch.float16, False,
+         None, "permuted"),
     ]
     return cases, dead
 
@@ -2828,13 +2844,17 @@ def deit_path(torch, fa, dev):
             runs[mode].append(start.elapsed_time(end) / DEIT_STEPS)
     launches = dict(fa.flash_attention.launches)
     by_kernel = dict(fa.flash_attention.forward_launches)
+    dkv_by_kernel = dict(fa.flash_attention.backward_launches)
     timed = DEIT_STEPS * DEIT_REPEATS
     log(f"phase 20: flash launches over {timed} distilled and {timed} recipe "
-        f"steps: {launches}, K3a by kernel {by_kernel}")
+        f"steps: {launches}, K3a by kernel {by_kernel}, K3b by kernel "
+        f"{dkv_by_kernel}")
     check(all(launches[k] == DEIT["depth"] * timed for k in launches),
           "K3a, K3b and K3c launch 12 times a distilled step")
     check(by_kernel["flash_fwd_short_kernel"] == DEIT["depth"] * timed,
           "K3a runs the short kernel 12 times a distilled step")
+    check(dkv_by_kernel["flash_bwd_dkv_short_kernel"] == DEIT["depth"] * timed,
+          "K3b runs the short kernel 12 times a distilled step")
     streamed = check_streamed_accuracy(torch, accs, cls_logits, labels)
 
     results = {}
@@ -2891,6 +2911,7 @@ def deit_path(torch, fa, dev):
             res["streamed_accuracy"] = streamed
             res["flash_launches_timed"] = launches
             res["forward_launches_timed"] = by_kernel
+            res["backward_launches_timed"] = dkv_by_kernel
             res["timed_steps"] = timed
         results[mode] = res
         log(f"phase 20 {mode} (DeiT-B/16 widths, b{b} bf16): median of "
@@ -2918,11 +2939,11 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
     mask, one launch at a time behind a queued backlog, inputs cycled
     beyond the 50 MB L2, beside their plain versions, their bounds and
     ``F.scaled_dot_product_attention`` with the same operands (forward and
-    its whole backward, a yardstick the port never calls); K3a names the
-    kernel that ran (the short kernel, a head resident in shared memory).
-    Returns each kernel's numbers by row name, for the rows' ``shape_198``,
-    and K3a alone at phase 25 (c)'s served ``[32 * 12, 197, 64]`` as
-    ``"served"``."""
+    its whole backward, a yardstick the port never calls); each names the
+    kernel that ran (K3a's and K3b's short kernels, a head's operands
+    resident in shared memory). Returns each kernel's numbers by row name,
+    for the rows' ``shape_198``, and K3a and K3b alone at phase 25 (c)'s
+    served ``[32 * 12, 197, 64]`` as ``"served"`` and ``"served_dkv"``."""
     F = torch.nn.functional
     b, n, t, h = DEIT["batch"], DEIT["heads"], DEIT_TOKENS, 64
     bn, scale = b * n, h ** -0.5
@@ -2930,6 +2951,13 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
     kernel = fa.forward_kernel(torch.bfloat16, h, t, t)
     check(kernel == "flash_fwd_short_kernel",
           f"K3a at [{bn}, {t}, {h}] bf16 takes the short kernel ({kernel})")
+    kernels = {"fwd": kernel,
+               "dkv": fa.backward_kernel(torch.bfloat16, h, t, t),
+               "dq": fa.launch_shape("dq", torch.bfloat16, h, t,
+                                     t)["kernel_name"]}
+    check(kernels["dkv"] == "flash_bwd_dkv_short_kernel",
+          f"K3b at [{bn}, {t}, {h}] bf16 takes the short kernel "
+          f"({kernels['dkv']})")
 
     def rand():
         return torch.randn((bn, t, h), device=dev,
@@ -3017,7 +3045,7 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
         bound_ms = max(bytes_ms, ops_ms)
         out[name] = {
             "shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
-            "kernel": kernel if key == "fwd" else None,
+            "kernel": kernels[key],
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3036,10 +3064,10 @@ def time_flash_kernels_at_198(torch, fa, dev, launches, steps):
             f"{bound_ms * 1e3:.2f} us ({out[name]['bound_by']}; bytes "
             f"{bytes_ms * 1e3:.2f}, operations {ops_ms * 1e3:.2f}); "
             f"{launches[key]} launches in phase 20's {steps} timed distilled "
-            f"steps" + (f", kernel {kernel}" if key == "fwd" else "")
-            + f", on {CARD}")
+            f"steps, kernel {kernels[key]}, on {CARD}")
     del sets, q0, k0, v0, do0, out0
     out["served"] = time_served_forward(torch, fa, dev)
+    out["served_dkv"] = time_served_backward(torch, fa, dev)
     torch.cuda.synchronize()
     return out
 
@@ -3102,6 +3130,98 @@ def time_served_forward(torch, fa, dev):
         f"{out['library_ms'] * 1e3:.1f} us, bound "
         f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); "
         f"{out['launch_shape']}; on {CARD}")
+    return out
+
+
+def time_served_backward(torch, fa, dev):
+    """K3b at the served flash ViT-B/16's shape, ``[384, 197, 64]`` bf16 with
+    no mask (a yardstick: serving runs no backward; a ViT trained at batch
+    32 gives K3b this shape): held to the plain backward, and timed as
+    ``time_flash_kernels_at_198`` times it, beside the plain backward, its
+    bound and SDPA's whole backward on the same operands."""
+    F = torch.nn.functional
+    b, n, t, h = SERVE["batch"], DEIT["heads"], SIZE ** 2 // 256 + 1, 64
+    bn, scale = b * n, h ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(26)
+    kernel = fa.backward_kernel(torch.bfloat16, h, t, t)
+    check(kernel == "flash_bwd_dkv_short_kernel",
+          f"K3b at [{bn}, {t}, {h}] bf16 takes the short kernel ({kernel})")
+    sets = []  # 6 x 39 MB: beyond the L2
+    for _ in range(6):
+        q, k, v, do = (torch.randn((bn, t, h), device=dev, generator=gen)
+                       .bfloat16() for _ in range(4))
+        o, l, m = fa.launch_forward(q, k, v, None, scale, False, n)
+        sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
+    q, k, v, do, o, l, m, di = sets[0]
+    dk, dv = fa.launch_backward_dkv(q, k, v, do, l, m, di, None, scale,
+                                    False, n)
+    o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, False, None, n)
+    _, dk_p, dv_p = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do,
+                                            scale, False, None, n)
+    err = 0.0
+    for got, ref in ((dk, dk_p), (dv, dv_p)):
+        rtol, atol, rms_limit = flash_tolerance(torch, torch.bfloat16, ref,
+                                                True)
+        e, needs, rms = closeness(got, ref, rtol)
+        check(needs <= atol and rms <= rms_limit,
+              f"K3b at [{bn}, {t}, {h}] within its tolerance")
+        err = max(err, e)
+    turn = iter(range(10 ** 9))
+
+    def nxt():
+        return sets[next(turn) % len(sets)]
+
+    def four(x):
+        return x.view(b, n, t, h)
+
+    graphs = []  # SDPA's forward of each set, for its backward
+    for q, k, v, do, *_ in sets:
+        leaves = [four(x).detach().requires_grad_() for x in (q, k, v)]
+        graphs.append((F.scaled_dot_product_attention(*leaves), leaves,
+                       four(do)))
+    which = iter(range(10 ** 9))
+
+    def sdpa_bwd():
+        out, leaves, grad = graphs[next(which) % len(graphs)]
+        return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    def bare():
+        q, k, v, do, _, l, m, di = nxt()
+        return fa.launch_backward_dkv(q, k, v, do, l, m, di, None, scale,
+                                      False, n)
+
+    def plain():
+        q, k, v, do, o, l, m, _ = nxt()
+        return fa.flash_backward_plain(q, k, v, o, l, m, do, scale, False,
+                                       None, n)
+
+    # q, k, v, do read; dk, dv written; l, m, di read
+    nbytes = 6 * bn * t * h * 2 + 3 * bn * t * 4
+    ops = 8 * bn * t * t * h
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    kernel_ms = cuda_ms(torch, bare, 20, backlog=True)
+    out = {"shape": [bn, t, h], "dtype": "bf16", "key_mask": None,
+           "kernel": kernel, "ms": kernel_ms,
+           "plain_ms": cuda_ms(torch, plain, 5),
+           "library_ms": cuda_ms(torch, sdpa_bwd, 20, backlog=True),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "achieved_tflops": ops / (kernel_ms / 1e3) / 1e12,
+           "max_abs_err": err,
+           "launch_shape": fa.launch_shape("dkv", torch.bfloat16, h, t, t),
+           "note": "plain_ms and library_ms are the whole backward, dK/dV "
+                   "and dQ together",
+           "card": CARD}
+    log(f"flash_bwd_dkv [{bn}, {t}, {h}] bf16 no mask (the served flash "
+        f"ViT-B/16's shape): kernel {kernel} {kernel_ms * 1e3:.1f} us "
+        f"({out['achieved_tflops']:.1f} TFLOP/s, "
+        f"{out['bound_ms'] / kernel_ms:.0%} of the bound), plain "
+        f"{out['plain_ms'] * 1e3:.1f} us, SDPA's backward "
+        f"{out['library_ms'] * 1e3:.1f} us, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); "
+        f"{out['launch_shape']}; on {CARD}")
+    del sets, graphs
     return out
 
 
@@ -4966,7 +5086,8 @@ def flash_counts(fa):
 
 def zero_flash(fa):
     for counts in (fa.flash_attention.launches,
-                   fa.flash_attention.forward_launches):
+                   fa.flash_attention.forward_launches,
+                   fa.flash_attention.backward_launches):
         for key in counts:
             counts[key] = 0
 
@@ -6596,6 +6717,7 @@ def main():
         torch, fa, dev, deit["distilled"]["flash_launches_timed"],
         deit["distilled"]["timed_steps"])
     served_198 = at_198.pop("served")
+    served_dkv = at_198.pop("served_dkv")
     for row in rows:
         if row["name"] in at_198:
             row["shape_198"] = at_198[row["name"]]
@@ -6627,6 +6749,37 @@ def main():
                 "1 to 256 keys fit in shared memory whole; library_ms is "
                 "F.scaled_dot_product_attention's forward with the same "
                 "operands",
+        "card": CARD})
+    # K3b's short kernel, a row of its own after K3b's: phase 20's distilled
+    # step is its path too
+    short_dkv = at_198["flash_bwd_dkv"]
+    dkv_timed = deit["distilled"]["backward_launches_timed"][
+        "flash_bwd_dkv_short_kernel"]
+    rows.insert(next(i for i, row in enumerate(rows)
+                     if row["name"] == "flash_bwd_dq"), {
+        "name": "flash_bwd_dkv_short_kernel", "route": "cuda",
+        "source": "chambers_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "chambers_tpu/ops/flash_attention.py:387 "
+                    "_flash_backward (dK/dV)",
+        "launches": dkv_timed,
+        "launches_per_step": dkv_timed / deit["distilled"]["timed_steps"],
+        "max_abs_err": short_dkv["max_abs_err"], "bit_equal": False,
+        "ms": short_dkv["ms"], "plain_ms": short_dkv["plain_ms"],
+        "bound_ms": short_dkv["bound_ms"],
+        "bound_us": short_dkv["bound_ms"] * 1e3,
+        "bound_by": short_dkv["bound_by"],
+        "library_ms": short_dkv["library_ms"],
+        "achieved_tflops": short_dkv["achieved_tflops"],
+        "shape": short_dkv["shape"], "dtype": "bf16", "key_mask": None,
+        "shape_198": short_dkv, "shape_served": served_dkv,
+        "ptxas": PTXAS.get("flash_bwd_dkv_short_kernel<bf16>"),
+        "ptxas_float16": PTXAS.get("flash_bwd_dkv_short_kernel<f16>"),
+        "launch_shape": fa.launch_shape("dkv", torch.bfloat16, 64,
+                                        DEIT_TOKENS, DEIT_TOKENS),
+        "note": "K3b at head size 64 when a head's 1 to 256 queries and 129 "
+                "to 256 keys fit in shared memory whole; plain_ms and "
+                "library_ms are the whole backward, dK/dV and dQ together "
+                "(SDPA's backward with the same operands)",
         "card": CARD})
 
     lap("20")

@@ -34,12 +34,15 @@ queued behind a backlog, the two libraries in turns (other, this, this,
 other, three rounds), on inputs cycled beyond the 50 MB L2. At ViT
 lengths (``SHORT_CASES``, head size 64, at most 256 keys: DeiT-B/16's 198
 tokens over 1536 heads, the served ViT-B/16's 197 over 384, in bf16 and
-float16, and the edges of the short forward kernel: causal cross lengths
-with rows that see no key, a scattered key mask whose last batch item
-keeps none, one key, 256 keys) every output must be the same bits too, and
-K3a is timed at the two ViT shapes in turns (other, this, this, other,
-three rounds) beside ``F.scaled_dot_product_attention`` on the same
-operands. The libraries share the C interface that
+float16, and the edges of the short forward and dK/dV kernels: causal
+cross lengths with rows that see no key or keys above every row's
+diagonal, a scattered key mask whose last batch item keeps none, one
+query row, one key, a last query tile of one row, 256 keys) every output,
+``dk`` and ``dv`` among them, must be the same bits too, and K3a and K3b
+are timed at the two ViT shapes in turns (other, this, this, other, three
+rounds) beside ``F.scaled_dot_product_attention`` on the same operands
+(its forward beside K3a, its whole backward beside K3b). The libraries
+share the C interface that
 ``ops/flash_attention.py`` calls, for the types and head sizes both take.
 Prints one JSON line last and exits non-zero on any difference beyond
 those.
@@ -128,9 +131,9 @@ PLAIN_CASES = ((2, 2, 257, 257, True, True), (1, 2, 130, 260, True, False),
                (1, 2, 260, 130, True, False), (3, 2, 70, 150, False, True))
 
 
-# K3a's short kernel's shapes (head size 64, at most 256 keys and queries):
-# (label, bn, n_heads, tq, tk, dtype name, causal, mask kind); the first
-# four are timed
+# K3a's and K3b's short kernels' shapes (head size 64, at most 256 keys and
+# queries): (label, bn, n_heads, tq, tk, dtype name, causal, mask kind); the
+# first four are timed
 SHORT_CASES = [
     ("DeiT-B/16 198 tokens", 1536, 12, 198, 198, "bfloat16", False, None),
     ("DeiT-B/16 198 tokens", 1536, 12, 198, 198, "float16", False, None),
@@ -144,25 +147,49 @@ SHORT_CASES = [
     ("causal 256x256, key mask", 8, 4, 256, 256, "bfloat16", True,
      "ragged"),
     ("64 rows against one key", 4, 2, 64, 1, "float16", False, None),
+    ("causal 120x250, keys above every row", 4, 2, 120, 250, "bfloat16",
+     True, None),
+    ("causal 200x136, scattered key mask", 6, 2, 200, 136, "float16", True,
+     "dead"),
+    ("one query row against 200 keys", 4, 2, 1, 200, "bfloat16", False,
+     "scattered"),
+    ("193x193, a last query tile of one row", 3, 3, 193, 193, "float16",
+     False, None),
 ]
 SHORT_TIMED = 4
 
 
-def time_short(torch, fa, libs, dev, bn, n, t, dtype):
-    """ms a launch of K3a of each library at ``[bn, t, 64]`` with no mask,
-    in turns (other, this, this, other, three rounds), and of
-    ``F.scaled_dot_product_attention`` on the same operands once a round:
-    ``{library or "sdpa": [ms of each round]}``."""
+def time_short(torch, fa, libs, dev, bn, n, t, dtype, kernel="fwd"):
+    """ms a launch of K3a (``kernel`` "fwd") or K3b ("dkv") of each library
+    at ``[bn, t, 64]`` with no mask, in turns (other, this, this, other,
+    three rounds), and once a round of ``F.scaled_dot_product_attention``
+    on the same operands, its forward beside K3a and its whole backward
+    (dQ, dK and dV) beside K3b: ``{library or "sdpa": [ms of each
+    round]}``."""
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(19)
     h, scale = 64, 64 ** -0.5
-    per_set = 4 * bn * t * h * 2  # q, k, v and o
+    # q, k, v and o; for K3b q, k, v, do, dk and dv
+    per_set = (4 if kernel == "fwd" else 6) * bn * t * h * 2
     sets = []
     for _ in range(max(2, -(-3 * 50 * 2 ** 20 // per_set))):  # 3 x the L2
-        sets.append(tuple(torch.randn((bn, t, h), device=dev, generator=gen)
-                          .to(dtype) for _ in range(3)))
+        q, k, v, do = (torch.randn((bn, t, h), device=dev, generator=gen)
+                       .to(dtype) for _ in range(4))
+        if kernel == "fwd":
+            sets.append((q, k, v, None, None, None, None))
+            continue
+        o, l, m = fa.flash_forward_plain(q, k, v, scale, False, None, n)
+        sets.append((q, k, v, do, l, m, fa.delta(o, do)))
     l = torch.empty((bn, t, 1), dtype=torch.float32, device=dev)
-    outs = (torch.empty_like(sets[0][0]), l, torch.empty_like(l))
+    outs = (torch.empty_like(sets[0][0]), l, torch.empty_like(l),
+            torch.empty_like(sets[0][1]), torch.empty_like(sets[0][2]))
+    graphs = []  # SDPA's forward of each set, for its backward
+    if kernel == "dkv":
+        for q, k, v, do, *_ in sets:
+            leaves = [x.view(bn // n, n, t, h).detach().requires_grad_()
+                      for x in (q, k, v)]
+            graphs.append((F.scaled_dot_product_attention(*leaves), leaves,
+                           do.view(bn // n, n, t, h)))
 
     def timed(call):
         for i in range(len(sets)):
@@ -179,7 +206,10 @@ def time_short(torch, fa, libs, dev, bn, n, t, dtype):
         return start.elapsed_time(end) / 30
 
     def sdpa(i):
-        q, k, v = (x.view(bn // n, n, t, h) for x in sets[i % len(sets)])
+        if kernel == "dkv":
+            out, leaves, do = graphs[i % len(graphs)]
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+        q, k, v = (x.view(bn // n, n, t, h) for x in sets[i % len(sets)][:3])
         return F.scaled_dot_product_attention(q, k, v)
 
     times = {"other": [], "this": [], "sdpa": []}
@@ -187,10 +217,10 @@ def time_short(torch, fa, libs, dev, bn, n, t, dtype):
         for name in ("other", "this", "this", "other"):
             times[name].append(timed(
                 lambda i, lib=libs[name]: launch_one(
-                    torch, fa, lib, "fwd",
-                    (*sets[i % len(sets)], None, None, None, None, None,
-                     scale, False, n, outs))))
+                    torch, fa, lib, kernel,
+                    (*sets[i % len(sets)], None, scale, False, n, outs))))
         times["sdpa"].append(timed(sdpa))
+    del graphs
     return times
 
 
@@ -420,18 +450,22 @@ def main(other, short=False):
     items += [(case, 64) for case in short_cases]
     report, same = hold_cases(torch, fa, libs, dev, items)
     short_times = {}
-    for label, bn, n, t, _, dtype, _, _ in short_cases[:SHORT_TIMED]:
-        by = time_short(torch, fa, libs, dev, bn, n, t, dtype)
-        type_name = str(dtype).split(".")[-1]
-        short_times[f"fwd {label} [{bn}, {t}, 64] {type_name}"] = by
-        # bytes K3a must move: q, k, v read, o written, l and m
-        bound_us = (4 * bn * t * 64 * 2 + 2 * bn * t * 4) / 3.35e12 * 1e6
-        print(f"fwd {label} [{bn}, {t}, 64] {type_name} no mask: "
-              + ", ".join(
-                  f"{key} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
-                  f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
-                  for key, v in by.items())
-              + f"; bytes bound {bound_us:.2f} us", flush=True)
+    for kernel in ("fwd", "dkv"):
+        for label, bn, n, t, _, dtype, _, _ in short_cases[:SHORT_TIMED]:
+            by = time_short(torch, fa, libs, dev, bn, n, t, dtype, kernel)
+            type_name = str(dtype).split(".")[-1]
+            short_times[f"{kernel} {label} [{bn}, {t}, 64] {type_name}"] = by
+            # bytes the kernel must move: K3a q, k, v read, o written, l
+            # and m; K3b q, k, v, do read, dk, dv written, l, m and di
+            bound_us = ((4 * bn * t * 64 * 2 + 2 * bn * t * 4)
+                        if kernel == "fwd" else
+                        (6 * bn * t * 64 * 2 + 3 * bn * t * 4)) / 3.35e12 * 1e6
+            print(f"{kernel} {label} [{bn}, {t}, 64] {type_name} no mask: "
+                  + ", ".join(
+                      f"{key} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
+                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
+                      for key, v in by.items())
+                  + f"; bytes bound {bound_us:.2f} us", flush=True)
     plain = [] if short else plain_errors(torch, fa, libs, dev)
     times = {}
     for h in () if short else HEADS + WIDE_HEADS:

@@ -36,6 +36,7 @@ from chambers_tpu_torch.augmentations.augmentation_schemes import (
     RandAugment,
 )
 from chambers_tpu_torch.ops import image_ops as tops
+from test_torch_package import one_torch_thread  # noqa: F401
 
 _B, _H, _W = 8, 24, 32
 _GEOMETRIC = ("Rotate", "ShearX", "ShearY", "TranslateX", "TranslateY")

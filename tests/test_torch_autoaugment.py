@@ -23,6 +23,7 @@ from chambers_tpu_torch.augmentations.augmentation_schemes import (
     _PROJECTIVE_OPS,
     AutoAugment,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "augmentations",
                       "golden_autoaugment_elementwise.npz")

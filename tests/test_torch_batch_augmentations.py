@@ -22,6 +22,7 @@ from chambers_tpu.augmentations import batch_augmentations as jba
 from chambers_tpu.ops import image_ops as jops
 from chambers_tpu_torch.augmentations import batch_augmentations as tba
 from chambers_tpu_torch.ops import image_ops as tops
+from test_torch_package import one_torch_thread  # noqa: F401
 
 _B, _H, _W, _C = 8, 16, 20, 5
 

@@ -26,6 +26,7 @@ from chambers_tpu.losses.distillation import (
 from chambers_tpu_torch import metrics as tmetrics
 from chambers_tpu_torch.losses import categorical as tcat
 from chambers_tpu_torch.losses.distillation import DistillationLoss
+from test_torch_package import one_torch_thread  # noqa: F401
 
 _N, _K = 12, 6
 _RTOL = 1e-6

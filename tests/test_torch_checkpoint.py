@@ -22,6 +22,7 @@ from chambers_tpu_torch.training.checkpoint import (
     PreemptionCheckpoint,
 )
 from chambers_tpu_torch.utils.profiling import benchmark, device_memory_stats
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 class _Net(torch.nn.Module):

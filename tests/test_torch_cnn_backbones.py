@@ -35,6 +35,7 @@ from chambers_tpu_torch.models.backbones.convert import (
     load_jax_variables,
     state_dict_from_jax,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 EPS = {"resnext": jrx._BN_EPS, "senet": jse._BN_EPS,
        "inception": jinc._BN_EPS}

@@ -38,6 +38,7 @@ from chambers_tpu_torch.models.backbones.convert import (
     load_jax_variables,
     state_dict_from_jax,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 def _x(shape, seed=0):

@@ -524,6 +524,90 @@ def test_short_kernel_repeats_its_bits(dev, dtype):
         assert bool(torch.isfinite(first[0]).all())
 
 
+# K3b's short kernel's edges at head size 64: (b, n, tq, tk, causal,
+# masked). It takes 1 to 256 queries over 129 to 256 keys; tk 1 to 128 and
+# 257 take the whole-tile kernel.
+SHORT_BACKWARD_CASES = [
+    *((2, 3, 198, tk, False, False)
+      for tk in (1, 63, 64, 128, 129, 197, 198, 255, 256, 257)),
+    (2, 2, 250, 200, True, False),      # causal: 50 rows see no key
+    (2, 2, 120, 250, True, False),      # causal, fewer queries than keys
+    (2, 2, 100, 256, True, "ragged"),
+    (2, 2, 1, 200, False, True),        # one query row
+    (2, 2, 193, 193, False, False),     # a last query tile of one row
+    (3, 2, 198, 198, False, True),      # the last batch item keeps no key
+    (2, 4, 256, 256, True, True),
+    (1, 1, 198, 198, False, False),     # one head
+    (7, 19, 197, 197, False, False),    # 133 heads: more than the SMs
+    (128, 12, 198, 198, False, False),  # DeiT-B/16's 1536 heads
+]
+
+
+def _short_dkv(tq, tk):
+    return 1 <= tq <= 256 and 128 < tk <= 256
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("b,n,tq,tk,causal,masked", SHORT_BACKWARD_CASES)
+def test_short_backward_dkv_matches_plain(dev, b, n, tq, tk, causal, masked,
+                                          dtype):
+    """K3b's short kernel (a head's Q and dO resident, persistent blocks,
+    a warpgroup a key tile) against the plain backward: dK and dV within
+    the type's tolerance on the forward kernel's own ``l, m``, exact zeros
+    for the keys the mask drops and for a batch item it empties, the same
+    bits from a second launch, and the launch counted under the kernel that
+    ran."""
+    q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, 64, dtype, masked)
+    scale = 64 ** -0.5
+    want_kernel = ("flash_bwd_dkv_short_kernel" if _short_dkv(tq, tk)
+                   else "flash_bwd_dkv_tc_kernel")
+    assert fa.backward_kernel(dtype, 64, tq, tk) == want_kernel
+    o, l, m = fa.launch_forward(q, k, v, mask, scale, causal, n)
+    args = (q, k, v, do, l, m, fa.delta(o, do), mask, scale, causal, n)
+    before = dict(fa.flash_attention.backward_launches)
+    dk, dv = fa.launch_backward_dkv(*args)
+    after = fa.flash_attention.backward_launches
+    assert {key: after[key] - before[key] for key in after} == {
+        key: int(key == want_kernel) for key in after}
+    o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal, mask, n)
+    _, dk_p, dv_p = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do,
+                                            scale, causal, mask, n)
+    torch.cuda.synchronize()
+    for name, got, ref in (("dk", dk, dk_p), ("dv", dv, dv_p)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        _assert_close(got, ref, dtype, grad=True,
+                      cancels=tk == 1 and name == "dk")
+    again = fa.launch_backward_dkv(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    if mask is not None:  # a key the mask drops has no kept query
+        dropped = (mask <= 0).repeat_interleave(n, dim=0)
+        assert not dk[dropped].any() and not dv[dropped].any()
+    if masked is True:  # the last batch item has no valid key
+        assert not dk[-n:].any() and not dv[-n:].any()
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+def test_short_dkv_kernel_repeats_its_bits(dev, dtype):
+    """At DeiT-B/16's ``[1536, 198, 64]`` and the served ViT-B/16's
+    ``[384, 197, 64]``, where each block walks many heads through its two
+    query buffers and its groups refill their key tiles, five launches of
+    K3b's short kernel give the same bits."""
+    for bn, t in ((1536, 198), (384, 197)):
+        q, k, v, do, _ = _flash_inputs(dev, bn // 12, 12, t, t, 64, dtype,
+                                       False, seed=9)
+        o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 12)
+        args = (q, k, v, do, l, m, fa.delta(o, do), None, 0.125, False, 12)
+        assert (fa.backward_kernel(dtype, 64, t, t)
+                == "flash_bwd_dkv_short_kernel")
+        first = fa.launch_backward_dkv(*args)
+        for _ in range(4):
+            again = fa.launch_backward_dkv(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+        assert all(bool(torch.isfinite(x).all()) for x in first)
+
+
 def test_tile_products_match_matmul(dev):
     """One product of each kind of the bf16 backward's tiling, alone: ``x
     yᵀ`` from two swizzled tiles in shared memory, and its bf16 rounding
@@ -622,12 +706,29 @@ def test_forward_dtype_chooses_the_kernels(dev, h):
                 key: int(key == want) for key in after}
 
 
+# (tq, tk) of K3b's calls and the kernel a 16-bit one takes at head size
+# 64: the short kernel from 1 to 256 queries over 129 to 256 keys, the
+# whole-tile kernel outside
+BACKWARD_LENGTHS = [((198, 198), "flash_bwd_dkv_short_kernel"),
+                    ((197, 197), "flash_bwd_dkv_short_kernel"),
+                    ((1, 200), "flash_bwd_dkv_short_kernel"),
+                    ((96, 129), "flash_bwd_dkv_short_kernel"),
+                    ((256, 256), "flash_bwd_dkv_short_kernel"),
+                    ((96, 128), "flash_bwd_dkv_tc_kernel"),
+                    ((64, 1), "flash_bwd_dkv_tc_kernel"),
+                    ((198, 257), "flash_bwd_dkv_tc_kernel"),
+                    ((257, 198), "flash_bwd_dkv_tc_kernel")]
+
+
 @pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_backward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core kernels (above 256
-    K3b's ``_cluster`` kernel and K3c's ``_sliced`` one), float32 the FMA
-    kernels (``_cols`` from 256 on): read from the profiler's kernel
-    names."""
+    K3b's ``_cluster`` kernel and K3c's ``_sliced`` one; at head size 64
+    over at most 256 queries and 129 to 256 keys K3b's short one), float32
+    the FMA kernels (``_cols`` from 256 on): read from the profiler's kernel
+    names, and for K3b at each of ``BACKWARD_LENGTHS`` from
+    ``launch_shape``, which names the kernel the dispatch picks, and the
+    launch counter by kernel."""
     names = {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
         q, k, v, do, _ = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, False)
@@ -647,6 +748,32 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
         assert f"flash_bwd_dq{dq}_kernel" in names[dtype]
         assert "flash_bwd_dkv_sliced_kernel" not in names[dtype]
         assert "flash_bwd_dq_cluster_kernel" not in names[dtype]
+        assert "_short_kernel" not in names[dtype]  # 80 keys: not short
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (tq, tk), short_or_tc in BACKWARD_LENGTHS:
+        for dtype in (torch.float32, *SIXTEEN_BIT):
+            want = (f"flash_bwd_dkv{cols}_kernel" if dtype == torch.float32
+                    else short_or_tc if h == 64
+                    else f"flash_bwd_dkv{dkv}_kernel")
+            shape = fa.launch_shape("dkv", dtype, h, tq, tk)
+            assert shape["kernel_name"] == want
+            assert fa.backward_kernel(dtype, h, tq, tk) == want
+            assert shape["resident_blocks"] > 0
+            if want == "flash_bwd_dkv_short_kernel":
+                # one block an SM: three warpgroups over two buffers of a
+                # head's Q and dO beside four key tiles of K and V
+                assert shape["threads"] == 3 * 128
+                assert shape["smem_bytes"] > 2 * 2 * 32 * 1024 + 64 * 1024
+                assert shape["resident_blocks"] == sms
+            q, k, v, do, _ = _flash_inputs(dev, 1, 2, tq, tk, h, dtype,
+                                           False)
+            o, l, m = fa.launch_forward(q, k, v, None, 0.125, False, 2)
+            before = dict(fa.flash_attention.backward_launches)
+            fa.launch_backward_dkv(q, k, v, do, l, m, fa.delta(o, do), None,
+                                   0.125, False, 2)
+            after = fa.flash_attention.backward_launches
+            assert {key: after[key] - before[key] for key in after} == {
+                key: int(key == want) for key in after}
 
 
 @pytest.mark.parametrize("h", HEADS + [288, 512])

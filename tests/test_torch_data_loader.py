@@ -12,6 +12,7 @@ import torch
 from chambers_tpu.data.loader import device_prefetch as jax_device_prefetch
 from chambers_tpu_torch.data import Dataset, device_prefetch
 from chambers_tpu_torch.data import loader
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 def _batches(n=7):

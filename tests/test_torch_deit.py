@@ -61,6 +61,8 @@ from chambers_tpu_torch.models.backbones import vision_transformer as tvit
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.optimizers import AdamW
 from chambers_tpu_torch.schedules import CosineDecay, LinearWarmup
+from test_torch_seq2seq import _dense_twin_init
+from test_torch_package import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 _B, _SIZE, _CLASSES = 8, 32, 10
@@ -81,11 +83,13 @@ def _images(seed=0, dtype=np.float32):
 
 
 def _jax_deit(**kw):
+    """The JAX DeiT and its seeded initial parameters (a flash model's
+    through its dense twin, ``_dense_twin_init``)."""
     cfg = dict(_SMALL, dropout_rate=0.0, classes=_CLASSES, pooling="cls")
     cfg.update(kw)
     module = jvit.DistilledVisionTransformer(**cfg)
-    params = module.init(jax.random.PRNGKey(0),
-                         jnp.zeros((1, _SIZE, _SIZE, 3)))["params"]
+    params = _dense_twin_init(module, jax.random.PRNGKey(0),
+                              jnp.zeros((1, _SIZE, _SIZE, 3)))
     return module, params
 
 

@@ -32,6 +32,7 @@ from chambers_tpu_torch.losses import detection as tdet
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.models.detection import DETR, build_detr
 from chambers_tpu_torch.optimizers import AdamW, decay_mask, jax_path
+from test_torch_package import one_torch_thread  # noqa: F401
 
 # the small DETR: 64 px, width 32, 4 heads, MLP 64, 1 + 2 layers, 10 queries
 SMALL = dict(num_classes=7, num_queries=10, embed_dim=32, num_heads=4,

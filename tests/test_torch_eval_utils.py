@@ -14,6 +14,7 @@ from chambers_tpu_torch.data.core import UNKNOWN_CARDINALITY
 from chambers_tpu_torch.layers import CosineSimilarity
 from chambers_tpu_torch.utils import data
 from chambers_tpu_torch.utils.ranking import score_matrix_to_binary_ranking
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 def _pair_cosine(inputs):

@@ -26,6 +26,8 @@ from chambers_tpu_torch.layers.attention import (
 )
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.ops import flash_attention as tflash
+from test_torch_seq2seq import _dense_twin_init
+from test_torch_package import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 
@@ -268,6 +270,17 @@ BF16_BACKWARD_CASES = {
     "causal_kv_mask_cross_70x150": ((2, 2, 70, 64), (2, 2, 150, 64), True,
                                     (9, 1, 0.3)),
     "dead_batch_item_96": ((2, 2, 96, 64), None, False, "dead"),
+    # ViT lengths, the shapes K3b's short kernel takes on the card:
+    # DeiT-B/16's 198 tokens (a last query tile of 6 rows, a last key tile
+    # of 6 keys), the served ViT-B/16's 197 under a key mask, a last query
+    # tile of one row and of eight, causal with tq != tk, fewer than 64 keys
+    "vit_198": ((1, 2, 198, 64), None, False, None),
+    "vit_197_kv_mask": ((1, 3, 197, 64), None, False, (15, 1, 0.25)),
+    "dead_batch_item_198": ((2, 2, 198, 64), None, False, "dead"),
+    "last_query_tile_one_row_193": ((1, 2, 193, 64), None, False, None),
+    "causal_cross_200x136": ((1, 2, 200, 64), (1, 2, 136, 64), True, None),
+    "causal_cross_120x250": ((1, 4, 120, 64), (1, 4, 250, 64), True, None),
+    "keys_below_64_130x40": ((1, 2, 130, 64), (1, 2, 40, 64), False, None),
 }
 
 
@@ -546,16 +559,21 @@ def test_cpu_calls_count_no_kernel_launch():
     """The launch counters belong to the kernels: a call on CPU tensors runs
     the plain versions, forward and backward, and counts nothing. K3a's
     counter by kernel holds every forward kernel the library's dispatch
-    names, in its order."""
+    names, in its order, and K3b's every dK/dV kernel."""
     counts = tflash.flash_attention.forward_launches
+    backward = tflash.flash_attention.backward_launches
     assert tuple(counts) == tflash.KERNEL_NAMES["fwd"]
+    assert tuple(backward) == tflash.KERNEL_NAMES["dkv"]
     assert "flash_fwd_short_kernel" in counts
-    before = (dict(tflash.flash_attention.launches), dict(counts))
+    assert "flash_bwd_dkv_short_kernel" in backward
+    before = (dict(tflash.flash_attention.launches), dict(counts),
+              dict(backward))
     q, k, v = (_t(x, torch.bfloat16).requires_grad_()
                for x in _qkv(19, (1, 2, 198, 64)))
     tflash.flash_attention(q, v, k).float().pow(2).sum().backward()
     assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
-    assert (dict(tflash.flash_attention.launches), dict(counts)) == before
+    assert (dict(tflash.flash_attention.launches), dict(counts),
+            dict(backward)) == before
 
 
 @pytest.mark.parametrize("kind", ["self_masked", "cross_causal_masked"])
@@ -669,7 +687,7 @@ def test_float16_seq2seq_on_flash_matches_jax():
     jmodel = JaxSeq2Seq(dtype=jax_policy("float16"), **kw)
     port = Seq2SeqTransformer(device=CPU, dtype=use_mixed_precision(
         "float16"), **kw)
-    params = jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"]
+    params = _dense_twin_init(jmodel, jax.random.PRNGKey(0), (src, tgt))
     leaves, tree = jax.tree_util.tree_flatten(params)
     noise = np.random.RandomState(5)
     params = jax.tree_util.tree_unflatten(
@@ -760,7 +778,7 @@ def test_one_head_seq2seq_at_width_320_matches_jax():
               attention_impl="flash")
     jmodel = JaxSeq2Seq(**kw)
     port = Seq2SeqTransformer(device=CPU, **kw)
-    params = jmodel.init(jax.random.PRNGKey(1), (src, tgt))["params"]
+    params = _dense_twin_init(jmodel, jax.random.PRNGKey(1), (src, tgt))
     port.load_state_dict(state_dict_from_jax(jax.device_get(params)))
     port.eval()
 

@@ -30,6 +30,7 @@ from chambers_tpu_torch.models import (
     sample_decode,
 )
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
+from test_torch_package import one_torch_thread  # noqa: F401
 
 BOS, VOCAB, MAX_LEN = 1, 16, 8
 CONFIG = dict(input_vocab_size=VOCAB, output_vocab_size=VOCAB, embed_dim=32,

@@ -44,6 +44,7 @@ from chambers_tpu_torch.models.backbones.convert import (
     jax_variables,
     load_jax_variables,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
 

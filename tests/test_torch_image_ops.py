@@ -10,6 +10,7 @@ import torch
 
 from chambers_tpu.ops import image_ops as jops
 from chambers_tpu_torch.ops import image_ops as tops
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 def _batch(seed=0, shape=(4, 40, 48, 3)):

@@ -26,6 +26,7 @@ from chambers_tpu_torch.models import Model
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.models.model import _ArrayBatcher
 from chambers_tpu_torch.quantization import QuantDense
+from test_torch_package import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -30,6 +30,7 @@ from chambers_tpu_torch.optimizers import SGDW
 from chambers_tpu_torch.quantization import QuantDense
 from chambers_tpu_torch.training import Trainer
 from chambers_tpu_torch.training import lora
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 class _JNet(nn.Module):

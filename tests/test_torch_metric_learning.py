@@ -35,6 +35,7 @@ from chambers_tpu_torch.models.backbones.vision_transformer import (
     VisionTransformer,
 )
 from chambers_tpu_torch.optimizers import AdamW
+from test_torch_package import one_torch_thread  # noqa: F401
 
 N, D = 12, 8
 

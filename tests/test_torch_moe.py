@@ -39,6 +39,7 @@ from chambers_tpu_torch.quantization import (
     load_quantized_state_dict,
     quantize_model,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 BF16_RTOL = 2.0 ** -7

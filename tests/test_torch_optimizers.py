@@ -29,6 +29,7 @@ from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.models.backbones.vision_transformer import (
     VisionTransformer,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 STEPS = 5
 

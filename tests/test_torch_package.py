@@ -20,6 +20,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "chambers_tpu_torch")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's PyTorch CPU work on one thread, and restore the
+    count after it. The suite runs modules side by side in several worker
+    processes (pytest-xdist), and PyTorch's default of a thread a core in
+    each of them oversubscribes the host, whose idle threads then spin
+    beside the other workers. The port's test modules import this fixture;
+    their results differ at most in float rounding, inside their
+    tolerances, and a module's own bit-for-bit comparisons run both sides
+    on the same count."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         chambers_tpu_torch.__path__, "chambers_tpu_torch."))

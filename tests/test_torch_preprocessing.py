@@ -22,6 +22,7 @@ import torch
 
 from chambers_tpu.augmentations import preprocessing as jpre
 from chambers_tpu_torch.augmentations import preprocessing as tpre
+from test_torch_package import one_torch_thread  # noqa: F401
 
 _B, _H, _W = 4, 16, 20
 

@@ -19,6 +19,7 @@ from chambers_tpu.augmentations.augmentation_schemes import (
 )
 from chambers_tpu.ops import image_ops as jops
 from chambers_tpu_torch.augmentations.augmentation_schemes import RandAugment
+from test_torch_package import one_torch_thread  # noqa: F401
 
 _B, _H, _W = 16, 64, 64
 

@@ -26,6 +26,7 @@ from chambers_tpu_torch.layers import distance as tdist
 from chambers_tpu_torch.layers import normalization as tnorm
 from chambers_tpu_torch.layers import ops as tops
 from chambers_tpu_torch.layers import pooling as tpool
+from test_torch_package import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -15,6 +15,8 @@ exactly (the recompute runs the same operations on the same inputs),
 with active dropout on an explicit generator too; greedy decoding of a
 routed model recomputes the whole buffer and gives JAX's tokens."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,7 @@ from chambers_tpu_torch.layers.transformer import (
 )
 from chambers_tpu_torch.models import Seq2SeqTransformer, greedy_decode
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
+from test_torch_package import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 D, N_HEADS, FF = 32, 2, 64
@@ -188,6 +191,36 @@ def _models(impl):
     return JaxSeq2Seq(**kw), Seq2SeqTransformer(device=CPU, **kw)
 
 
+def _dense_twin_init(model, key, inputs):
+    """``model.init(key, inputs)["params"]``, drawn through the dense twin
+    of a flash model: Flax draws each parameter from the seed by its path,
+    and the two attention paths share every path and shape, so the twin
+    gives the same parameters without running the flash kernels in
+    interpret mode."""
+    return model.clone(attention_impl="xla").init(key, inputs)["params"]
+
+
+@functools.lru_cache(maxsize=None)
+def _initial_params():
+    """The JAX model's seeded initial parameters (``PRNGKey(0)``) on
+    ``_tokens()``, the same for both attention paths, made once for the
+    module: several tests start from them (JAX arrays are immutable, so the
+    tests share them safely)."""
+    src, tgt = _tokens()
+    jmodel, _ = _models("flash")
+    return _dense_twin_init(jmodel, jax.random.PRNGKey(0), (src, tgt))
+
+
+@functools.lru_cache(maxsize=None)
+def _initial_loss_and_grads(impl):
+    """JAX's masked cross-entropy and its gradients at
+    ``_initial_params()``: the first step of every optimizer test."""
+    src, tgt = _tokens()
+    jmodel, _ = _models(impl)
+    return jax.value_and_grad(_jax_loss(jmodel, src, tgt))(
+        _initial_params())
+
+
 def _jax_loss(model, src, tgt):
     def loss(params):
         logits = model.apply({"params": params}, (src, tgt),
@@ -214,8 +247,7 @@ def _torch_loss(model, src, tgt):
 def test_seq2seq_logits_loss_and_gradients(impl):
     src, tgt = _tokens()
     jmodel, port = _models(impl)
-    params = _perturbed(
-        jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"])
+    params = _perturbed(_initial_params())
     _load(port, params)
     tsrc, ttgt = torch.from_numpy(src), torch.from_numpy(tgt)
 
@@ -246,15 +278,18 @@ def test_seq2seq_adamw_steps_match_optax(lr):
     three steps for a wrong update to show."""
     src, tgt = _tokens()
     jmodel, port = _models("flash")
-    params = jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"]
+    params = _initial_params()
     _load(port, params).train()
     tsrc, ttgt = torch.from_numpy(src), torch.from_numpy(tgt)
 
     opt = optax.adamw(lr, weight_decay=1e-4)
     state = opt.init(params)
     want = []
-    for _ in range(3):
-        loss, grads = jax.value_and_grad(_jax_loss(jmodel, src, tgt))(params)
+    for i in range(3):
+        # the first step starts from the same weights for every lr
+        loss, grads = (_initial_loss_and_grads("flash") if i == 0 else
+                       jax.value_and_grad(_jax_loss(jmodel, src, tgt))(
+                           params))
         updates, state = opt.update(grads, state, params)
         params = optax.apply_updates(params, updates)
         want.append(float(loss))
@@ -391,7 +426,7 @@ def test_routed_seq2seq_logits_loss_and_gradients(impl):
               moe_every_n=2, moe_n_experts=4, moe_n_selected_experts=2)
     jmodel = JaxSeq2Seq(**kw)
     params = _perturbed(
-        jmodel.init(jax.random.PRNGKey(0), (src, tgt))["params"])
+        _dense_twin_init(jmodel, jax.random.PRNGKey(0), (src, tgt)))
     port = _load(Seq2SeqTransformer(device=CPU, **kw), params)
     ce = _jax_loss(jmodel, src, tgt)
 

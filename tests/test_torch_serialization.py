@@ -12,6 +12,7 @@ import torch
 
 from chambers_tpu import serialization as JS
 from chambers_tpu_torch import serialization as TS
+from test_torch_package import one_torch_thread  # noqa: F401
 
 # (namespace, class, kwargs): objects both packages build from the same
 # arguments; metrics take the port's ``device`` on top

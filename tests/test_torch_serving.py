@@ -43,6 +43,7 @@ from chambers_tpu_torch.serving import (
     export_serving_artifact,
     load_serving_artifact,
 )
+from test_torch_package import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT = dict(patch_size=8, patch_dim=32, n_encoder_layers=2, n_heads=2,

@@ -11,6 +11,7 @@ import torch
 from chambers_tpu.data.tfrecord import _masked_crc as jax_masked_crc
 from chambers_tpu.utils import tensorboard as J
 from chambers_tpu_torch.utils import tensorboard as T
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 64, 1000])

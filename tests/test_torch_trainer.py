@@ -33,6 +33,7 @@ from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
 from chambers_tpu_torch.quantization import QuantDense
 from chambers_tpu_torch.training import Trainer
 from chambers_tpu_torch.training.trainer import _DevicePrefetcher
+from test_torch_package import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

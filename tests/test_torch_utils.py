@@ -18,6 +18,7 @@ from chambers_tpu.utils import ranking as jranking
 from chambers_tpu.utils import tensor as jtensor
 from chambers_tpu_torch.utils import generic, msgpack_io, profiling, pytree
 from chambers_tpu_torch.utils import ranking, tensor
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 # --- pytree --------------------------------------------------------------------

@@ -30,6 +30,7 @@ from chambers_tpu_torch.layers.normalization import (
 from chambers_tpu_torch.layers.transformer import EncoderLayer
 from chambers_tpu_torch.models.backbones import vision_transformer as tvit
 from chambers_tpu_torch.models.backbones.convert import state_dict_from_jax
+from test_torch_package import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 D, N_HEADS, FF = 48, 3, 96

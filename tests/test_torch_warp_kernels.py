@@ -12,6 +12,7 @@ from chambers_tpu.ops import warp_pallas
 from chambers_tpu_torch.augmentations import augmentation_schemes
 from chambers_tpu_torch.ops import image_ops as tops
 from chambers_tpu_torch.ops import warp_kernels
+from test_torch_package import one_torch_thread  # noqa: F401
 
 
 def _det1_mats(rng, h, w, n):
