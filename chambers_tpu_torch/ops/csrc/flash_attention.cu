@@ -14,8 +14,9 @@
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
 // (the 16-bit kernels carry the same names with _tc, and above head size
-// 256 with _sliced (K3a, K3c) or _cluster (K3b); the float32 ones from
-// head size 256 on with _cols).
+// 256 with _sliced (K3a, K3c) or _cluster (K3b), at head size 32 the
+// backward's with _narrow; the float32 ones from head size 256 on with
+// _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -982,7 +983,8 @@ constexpr int kFloat16 = 2;
 
 // the bfloat16 (f16 = 0) and float16 (f16 = 1) kernels on the tensor
 // cores, at `panels` = head size / 64: 1, 2 or 4, or above 4 the sliced
-// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu)
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu); the backward's
+// also at 0, head size 32, on the narrow kernels
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -1003,39 +1005,48 @@ int flash_fwd_tc_kernel_of(int panels, int tq, int tk);
 LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk);
 int flash_fwd_tc_resident(int f16, int panels, int tq, int tk);
 int flash_bwd_dkv_kernel_of(int panels, int tq, int tk);
+int flash_bwd_dq_kernel_of(int panels);
 LaunchShape flash_bwd_tc_shape(int dkv, int panels, int tq, int tk);
 int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk);
+int flash_bwd_dq_resident(int f16, int panels);
 int flash_bwd_dkv_max_clusters(int f16, int panels);
 
-// the head sizes the kernels take: 64, 128, and every multiple of 64 from
-// 256 on
-inline bool head_size_taken(int h) {
-  return h == 64 || h == 128 || (h >= 256 && h % 64 == 0);
+// the head size of the backward's narrow kernels (bfloat16 and float16)
+constexpr int kNarrowHead = 32;
+
+// the head sizes kernel `kernel` (kFwd, kDkv or kDq) takes in type dtype:
+// 64, 128, and every multiple of 64 from 256 on; K3b and K3c also 32 in
+// bfloat16 and float16
+inline bool head_size_taken(int kernel, int h, int dtype) {
+  return h == 64 || h == 128 || (h >= 256 && h % 64 == 0) ||
+         (h == kNarrowHead && kernel != kFwd &&
+          (dtype == kBFloat16 || dtype == kFloat16));
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 float16; h: a size head_size_taken
-// accepts. Anything else is refused with cudaErrorInvalidValue. Empty
-// problems launch nothing. float32 takes this file's kernels (LAUNCH at 64
-// and 128, COLS from 256 on), bfloat16 and float16 the tensor-core ones
-// (TC).
-#define FLASH_DISPATCH(LAUNCH, COLS, TC, ...)                                \
+// accepts for KERNEL. Anything else is refused with cudaErrorInvalidValue.
+// Empty problems launch nothing. float32 takes this file's kernels (LAUNCH
+// at 64 and 128, COLS from 256 on), bfloat16 and float16 the tensor-core
+// ones (TC, at h / 64 panels: 0 for the backward's narrow kernels).
+#define FLASH_DISPATCH(KERNEL, LAUNCH, COLS, TC, ...)                        \
+  if (dtype < kFloat32 || dtype > kFloat16 ||                                \
+      !head_size_taken(KERNEL, h, dtype))                                    \
+    return (int)cudaErrorInvalidValue;                                       \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
   if (dtype == kFloat32 && h == 128)                                         \
     return (int)LAUNCH<float, 128>(__VA_ARGS__);                             \
-  if (dtype == kFloat32 && head_size_taken(h))                               \
+  if (dtype == kFloat32)                                                     \
     return (int)COLS<float>(h, __VA_ARGS__);                                 \
-  if ((dtype == kBFloat16 || dtype == kFloat16) && head_size_taken(h))       \
-    return (int)TC(dtype == kFloat16, h / 64, __VA_ARGS__);                  \
-  return (int)cudaErrorInvalidValue;
+  return (int)TC(dtype == kFloat16, h / 64, __VA_ARGS__);
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_mask, void* o, void* l, void* m,
                          int bn, int tq, int tk, int h, int n_heads,
                          float scale, int causal, int dtype, void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_fwd, launch_fwd_cols, flash_fwd_tc, q, k, v, kv_mask,
-                 o, l, m, bn, tq, tk, n_heads, scale, causal,
+  FLASH_DISPATCH(kFwd, launch_fwd, launch_fwd_cols, flash_fwd_tc, q, k, v,
+                 kv_mask, o, l, m, bn, tq, tk, n_heads, scale, causal,
                  (cudaStream_t)stream)
 }
 
@@ -1046,9 +1057,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int n_heads, float scale, int causal, int dtype,
                              void* stream) {
   if (bn == 0 || tk == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dkv, launch_dkv_cols, flash_bwd_dkv_tc, q, k, v,
-                 dout, l, m, di, kv_mask, dk, dv, bn, tq, tk, n_heads, scale,
-                 causal, (cudaStream_t)stream)
+  FLASH_DISPATCH(kDkv, launch_dkv, launch_dkv_cols, flash_bwd_dkv_tc, q, k,
+                 v, dout, l, m, di, kv_mask, dk, dv, bn, tq, tk, n_heads,
+                 scale, causal, (cudaStream_t)stream)
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1058,9 +1069,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int causal, int dtype,
                             void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v, dout,
-                 l, m, di, kv_mask, dq, bn, tq, tk, n_heads, scale, causal,
-                 (cudaStream_t)stream)
+  FLASH_DISPATCH(kDq, launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v,
+                 dout, l, m, di, kv_mask, dq, bn, tq, tk, n_heads, scale,
+                 causal, (cudaStream_t)stream)
 }
 
 // The launch shape a call of kernel `kernel` (0 K3a, 1 K3b, 2 K3c) at head
@@ -1068,14 +1079,14 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 // launcher calls: threads a block, dynamic shared memory a block, the slices
 // of the head (blocks along z), the blocks a cluster (1: none), how many
 // such clusters the card holds at once (0 without clusters), which kernel
-// of the family runs (KERNEL_NAMES in ops/flash_attention.py) and, for K3a
-// and K3b, how many of its blocks the card holds at once (0 for K3c). Asks
-// the current device. Returns cudaErrorInvalidValue for what the dispatch
-// refuses.
+// of the family runs (KERNEL_NAMES in ops/flash_attention.py) and how many
+// of its blocks the card holds at once. Asks the current device. Returns
+// cudaErrorInvalidValue for what the dispatch refuses.
 extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
                                   int tk, int* shape) {
-  if (!head_size_taken(h) || kernel < kFwd || kernel > kDq ||
-      dtype < kFloat32 || dtype > kFloat16 || tq < 0 || tk < 0)
+  if (kernel < kFwd || kernel > kDq || dtype < kFloat32 ||
+      dtype > kFloat16 || !head_size_taken(kernel, h, dtype) || tq < 0 ||
+      tk < 0)
     return (int)cudaErrorInvalidValue;
   const int f16 = dtype == kFloat16, panels = h / 64;
   const LaunchShape s = dtype == kFloat32 ? f32_shape(kernel, h)
@@ -1089,12 +1100,12 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   shape[4] = s.cluster > 1 ? flash_bwd_dkv_max_clusters(f16, panels) : 0;
   // the family's kernels: float32 the FMA kernel (0) or its _cols form
   // (1); the 16-bit ones from 2 on, K3a's whole-tile, short and sliced
-  // kernels, K3b's whole-tile, short and cluster kernels, K3c's whole-tile
-  // and sliced kernels
+  // kernels, K3b's whole-tile, short, cluster and narrow kernels, K3c's
+  // whole-tile, sliced and narrow kernels
   shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
              : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)
              : kernel == kDkv   ? 2 + flash_bwd_dkv_kernel_of(panels, tq, tk)
-                                : (panels > 4 ? 3 : 2);
+                                : 2 + flash_bwd_dq_kernel_of(panels);
   if (kernel == kFwd)
     shape[6] =
         dtype != kFloat32 ? flash_fwd_tc_resident(f16, panels, tq, tk)
@@ -1109,7 +1120,12 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
                    : resident_blocks<
                          flash_bwd_dkv_cols_kernel<float, kColsHO>>(s);
   else
-    shape[6] = 0;
+    shape[6] =
+        dtype != kFloat32 ? flash_bwd_dq_resident(f16, panels)
+        : h == 64         ? resident_blocks<flash_bwd_dq_kernel<float, 64>>(s)
+        : h == 128 ? resident_blocks<flash_bwd_dq_kernel<float, 128>>(s)
+                   : resident_blocks<
+                         flash_bwd_dq_cols_kernel<float, kColsHO>>(s);
   return shape[6] < 0 ? (int)cudaErrorInvalidConfiguration
                       : (int)cudaSuccess;
 }

@@ -6,7 +6,9 @@
 // Replaces the Pallas TPU kernels of chambers_tpu/ops/flash_attention.py:
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
-// and, at head sizes above 256, flash_bwd_dkv_cluster_kernel and
+// and, at head size 32, flash_bwd_dkv_narrow_kernel and
+// flash_bwd_dq_narrow_kernel, at head sizes above 256,
+// flash_bwd_dkv_cluster_kernel and
 // flash_bwd_dq_sliced_kernel, and for K3b at head size 64 over at most 256
 // queries and 129 to 256 keys (ViT lengths) flash_bwd_dkv_short_kernel,
 // and computes what flash_attention.cu's note says they compute: per key
@@ -15,8 +17,9 @@
 // tiles dq += ds k scale; the [b, tk] key mask shared by a batch item's
 // heads, the causal diagonal at the sequence end, exact zeros for a row or a
 // batch item with no valid key, any tq and tk, head size 64, 128 or 256
-// (one, two or four panels, a template parameter) and, in the kernels
-// above 256, any multiple of 64 (the wrapper pads other sizes).
+// (one, two or four panels, a template parameter), 32 in the narrow
+// kernels and, in the kernels above 256, any multiple of 64 (the wrapper
+// pads other sizes).
 // The operand type T (__nv_bfloat16 or __half) is the other template
 // parameter: it sets the rounding of p, ds and the outputs and
 // the wgmma instruction's type, nothing else.
@@ -212,6 +215,54 @@
 // side's ragged end in the last full step's batches (144.7 against 122.9,
 // 56 bytes spilled): at 168 registers every extra live value spills.
 //
+// Head size 32: flash_bwd_dkv_narrow_kernel and flash_bwd_dq_narrow_kernel,
+// for bfloat16 and float16 (float32 keeps its FMA kernels at 64). Padded to
+// 64, K3b and K3c did every product twice over (half of each operand
+// zeros), copied and held tiles twice their size, and the wrapper padded
+// dO and cut dQ, dK and dV after each call. The narrow kernels work on
+// 32-column panels (flash_tiles.cuh: 64-byte rows, the 64-byte swizzle,
+// wgmma's B64 descriptors): S^T (or S) and dP^T (or dP) take two k16
+// steps, dV^T += P^T dO, dK^T += dS^T Q and dQ += dS K are m64n32 products
+// with 16 float32 registers a thread each. Otherwise they are K3b's and
+// K3c's whole-tile kernels: a block is one warpgroup over 64 rows of its
+// own (keys in K3b, query rows in K3c), the other side passing by in
+// tiles of 64 rows (4 KB an operand) through a ring of four stages filled
+// by cp.async three steps ahead, one __syncthreads a step, in K3b's or
+// K3c's order per tile (the tiles of the other side in order, the same
+// exponent offsets, p and ds rounded to T before the second products), so
+// dK, dV and dQ are the bits of the padded call's first 32 columns: the
+// padded columns only added exact zeros to every float32 sum. dK, dV and
+// dQ leave straight from the fragments.
+// At this head size the tensor work per score halves and the exponents do
+// not: over [256, 512, 32] with the ragged key mask the bytes (14.3 us for
+// K3b, 11.8 for K3c), the products (13.1 and 9.9 us) and the SFU's exp2,
+// one a kept score at 16 a clock an SM (12.1 us at 1980 MHz), are close.
+// The exponents of one warpgroup run under the products of the others: the
+// registers are fit to four blocks an SM (128 and 106 registers, 44 KB of
+// shared memory), and the SM's schedulers interleave them.
+// As measured on an H100 (compare_flash_builds.py --narrow, in turns
+// against the padded call; PERF.md section 6): K3b 53.6 us against 86.7,
+// K3c 43.1 against 64.2. Alone (scratch builds) the copies took 32.1 and
+// 25.3 us, the copies with the products and no exponents 41.2 and 28.9,
+// with the exponents and no products 30.8 and 25.4: each part alone is
+// near the copies' time, and the warpgroups' chains of products and
+// exponents (wait for S^T and dP^T, exponents, wait for the second
+// products) bound the whole. Tried, and slower: two warpgroups a block,
+// each over its own 64 rows, taking turns on the tensor cores on named
+// barriers (each issues its products and passes the turn before it waits,
+// so one's exponents run under the other's products), at one block an SM
+// (K3b 91.3-92.3 us, 163 registers; K3c 49.3) or two (K3b 62.7 at 128
+// registers); the same two warpgroups without turns (K3b 85.5 at one block
+// an SM, 58.5 at two; K3c 47.9); the next tile's score products issued
+// before this tile's exponents in each warpgroup (K3b 74.6 us at 171
+// registers, K3c 58.9 at 219: two blocks an SM); each step in two halves
+// of 32 rows, the second half's score products and the first half's second
+// products each running under the other half's exponents (K3b 56.2 us
+// against 53.8 in the same call, K3c 45.6 against 43.2; the same bits);
+// five ring stages (level); dQ's product left in flight across the next
+// step's copies (45.8 us: ptxas serialised the wgmma, C7515); one
+// warpgroup a block at three blocks an SM (K3b 63.3 us).
+//
 // Occupancy, as built (registers from nvcc's -Xptxas -v report, which
 // chip_smoke.py prints):
 //   K3b  one warpgroup a block (128 threads), 168 registers, 67 KB of
@@ -225,6 +276,9 @@
 //   K3b at ViT lengths (the short kernel) three warpgroups a block (384
 //        threads), 168 registers (65,536 / 384 = 170), no spills, 220 KB
 //        of shared memory: one block an SM, 132 resident.
+//   Head size 32 (the narrow kernels): one warpgroup a block, K3b 128
+//        registers, K3c 106, no spills, 44 KB of shared memory: four blocks
+//        an SM.
 //   Head size 128: K3b keeps one warpgroup a block, its dK and dV now 128
 //   float32 registers a thread, 131 KB of shared memory: one block an SM,
 //   and __launch_bounds__ lets the registers grow to 255: 246, no spills.
@@ -1736,10 +1790,299 @@ __global__ void __launch_bounds__(kShortThreads, 1)
   }
 }
 
-// K3b's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4 (a
-// block owns 64 keys, its warpgroups split the panels), the cluster kernel
-// above 4
+// ---------------------------------------------------------------------------
+// head size 32: the narrow kernels (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// A narrow block is one warpgroup that owns 64 rows (keys in K3b, query
+// rows in K3c) and passes the other side's tiles through a ring of
+// kNarrowStages stages; kNarrowBlocks blocks an SM (the registers are fit
+// to them).
+constexpr int kNarrowStages = 4;
+constexpr int kNarrowBlocks = 4;
+
+// its own two operands' tiles, the ring (two tiles and the rows' floats a
+// stage), flags
+__host__ __device__ constexpr size_t narrow_smem_bytes() {
+  return 1024 + 2 * kNarrowTileBytes +
+         kNarrowStages * (2 * kNarrowTileBytes + kRowsBytes) + 64;
+}
+
+LaunchShape narrow_shape() {
+  return {128, narrow_smem_bytes(), kTileRows, 1};
+}
+
+// K3b at head size 32: dk, dv for the block's 64 keys over all query tiles
+template <typename T>
+__global__ void __launch_bounds__(128, kNarrowBlocks)
+    flash_bwd_dkv_narrow_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ dout,
+                                const float* __restrict__ l,
+                                const float* __restrict__ m,
+                                const float* __restrict__ di,
+                                const float* __restrict__ kv_mask,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                int tq, int tk, int n_heads, float scale,
+                                int causal) {
+  constexpr int kTile = kNarrowTileBytes, kStages = kNarrowStages;
+  constexpr int kStageBytes = 2 * kTile, kHd = kNarrowCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t k_s = smem_u32(smem);
+  const uint32_t v_s = k_s + kTile;
+  const uint32_t ring = v_s + kTile;
+  // [stage][exponent offset, di][query of the tile]
+  float* rows_s =
+      reinterpret_cast<float*>(smem + 2 * kTile + kStages * kStageBytes);
+  int* flags_s = reinterpret_cast<int*>(rows_s + kStages * 2 * kTileRows);
+
+  const Lanes at;
+  const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
+  const T* qb = q + (size_t)bn * tq * kHd;
+  const T* dob = dout + (size_t)bn * tq * kHd;
+  T* dk_rows = dk + (size_t)bn * tk * kHd;
+  T* dv_rows = dv + (size_t)bn * tk * kHd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  // under the causal mask only query rows with row + offset >= k0 reach
+  // the block's keys: the first step's tile is the first that reaches them,
+  // so every step has work
+  const int first = causal && k0 - offset > 0 ? (k0 - offset) / kTileRows : 0;
+  const int steps = (tq + kTileRows - 1) / kTileRows - first;
+
+  auto stage_step = [&](int step) {
+    if (step < steps) {
+      const int stage = step % kStages, q0 = (first + step) * kTileRows;
+      const uint32_t q_s = ring + stage * kStageBytes;
+      stage_narrow_rows<kTileRows, 128>(q_s, qb, q0, tq, at.tid);
+      stage_narrow_rows<kTileRows, 128>(q_s + kTile, dob, q0, tq, at.tid);
+    }
+    cp_async_commit();
+  };
+
+  // the passing tile's row statistics, as flash_bwd_dkv_tc_kernel's:
+  // loaded by 64 threads kStages - 1 steps ahead, folded into the stage's
+  // array at the end of the step
+  auto load_rows = [&](int step) {
+    RowStats r = {0.f, 0.f, 0.f};
+    const int row = (first + step) * kTileRows + at.tid;
+    if (at.tid < kTileRows && step < steps && row < tq) {
+      const size_t i = (size_t)bn * tq + row;
+      r.m = m[i];
+      r.l = l[i];
+      r.di = di[i];
+    }
+    return r;
+  };
+  auto store_rows = [&](int step, const RowStats& r) {
+    if (at.tid < kTileRows && step < steps) {
+      float* dst = rows_s + (step % kStages) * 2 * kTileRows + at.tid;
+      dst[0] = exponent_offset(r.m, r.l);
+      dst[kTileRows] = r.di;
+    }
+  };
+  RowStats rows_ahead[kStages - 1];
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) rows_ahead[i] = load_rows(i);
+
+  // the thread's two keys: g and g + 8 of its warp's 16
+  const int key_a = k0 + at.warp_in_group * 16 + at.g;
+  bool key_ok[2];
+  int keys_any, keys_all;
+  block_keys(key_ok, keys_any, keys_all, mask_row, key_a, tk, at, flags_s);
+  if (!keys_any) {  // no key of the block takes part: zeros, nothing read
+    store_zero_rows<kHd>(dv_rows, k0, tk, at.tid);
+    store_zero_rows<kHd>(dk_rows, k0, tk, at.tid);
+    return;
+  }
+
+  stage_narrow_rows<kTileRows, 128>(k_s, k + (size_t)bn * tk * kHd, k0, tk,
+                                    at.tid);
+  stage_narrow_rows<kTileRows, 128>(v_s, v + (size_t)bn * tk * kHd, k0, tk,
+                                    at.tid);
+  for (int step = 0; step < kStages - 1; ++step) stage_step(step);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) store_rows(i, rows_ahead[i]);
+  const float scale2 = scale * kLog2e;
+
+  // dK and dV: one [64 x 32] accumulator each
+  float dk_acc[16], dv_acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const RowStats ahead = load_rows(step + kStages - 1);
+    stage_step(step + kStages - 1);
+
+    const int stage = step % kStages, q0 = (first + step) * kTileRows;
+    const uint32_t q_s = ring + stage * kStageBytes, do_s = q_s + kTile;
+    const float* lse2_s = rows_s + stage * 2 * kTileRows;
+    const float* di_s = lse2_s + kTileRows;
+
+    float st[32], dpt[32];  // [key][query]
+    products_begin();
+    product_nt_panel<T, kNarrowCols>(st, k_s, q_s, 0);
+    product_nt_panel<T, kNarrowCols>(dpt, v_s, do_s, 0);
+    products_end();
+    keep_registers(st);
+    keep_registers(dpt);
+
+    // every pair of the tile takes part: no test per element
+    const bool unmasked = keys_all && q0 + kTileRows <= tq &&
+                          (!causal || k0 + kTileRows - 1 <= q0 + offset);
+    dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
+               key_a, causal, offset, at.t);
+    uint32_t pt[4][4], dst[4][4];
+    pack_a_fragments<T>(st, pt);
+    pack_a_fragments<T>(dpt, dst);
+
+    products_begin();
+    product_tn<T>(dv_acc, pt, do_s);
+    product_tn<T>(dk_acc, dst, q_s);
+    products_end();
+    keep_registers(pt);
+    keep_registers(dst);
+    keep_registers(dv_acc);
+    keep_registers(dk_acc);
+    store_rows(step + kStages - 1, ahead);
+  }
+  cp_async_wait<0>();
+
+  store_fragments(dv_rows, dv_acc, 1.f, k0, tk, at.tid);
+  store_fragments(dk_rows, dk_acc, scale, k0, tk, at.tid);
+}
+
+// K3c at head size 32: dq for the block's 64 query rows over all key tiles
+template <typename T>
+__global__ void __launch_bounds__(128, kNarrowBlocks)
+    flash_bwd_dq_narrow_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ l,
+                               const float* __restrict__ m,
+                               const float* __restrict__ di,
+                               const float* __restrict__ kv_mask,
+                               T* __restrict__ dq, int tq, int tk,
+                               int n_heads, float scale, int causal) {
+  constexpr int kTile = kNarrowTileBytes, kStages = kNarrowStages;
+  constexpr int kStageBytes = 2 * kTile, kHd = kNarrowCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t do_s = q_s + kTile;
+  const uint32_t ring = do_s + kTile;
+  float* valid_s =
+      reinterpret_cast<float*>(smem + 2 * kTile + kStages * kStageBytes);
+  int* flags_s = reinterpret_cast<int*>(valid_s + kStages * 2 * kTileRows);
+
+  const Lanes at;
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
+  const T* kb = k + (size_t)bn * tk * kHd;
+  const T* vb = v + (size_t)bn * tk * kHd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+
+  // the thread's two rows and their statistics, loaded before any copy
+  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+  RowStats stats[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const size_t i = (size_t)bn * tq + (row < tq ? row : 0);
+    stats[r].m = m[i];
+    stats[r].l = l[i];
+    stats[r].di = di[i];
+  }
+
+  // keys past the last row's diagonal take no part, nor keys past the last
+  // one the mask keeps: no step's tile lies wholly above the diagonal
+  const int k_end = kept_key_end<128>(
+      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
+      flags_s);
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
+  stage_narrow_rows<kTileRows, 128>(q_s, q + (size_t)bn * tq * kHd, q0, tq,
+                                    at.tid);
+  stage_narrow_rows<kTileRows, 128>(do_s, dout + (size_t)bn * tq * kHd, q0,
+                                    tq, at.tid);
+
+  auto stage_step = [&](int step) {
+    if (step < steps) {
+      const int stage = step % kStages, k0 = step * kTileRows;
+      const uint32_t k_s = ring + stage * kStageBytes;
+      stage_narrow_rows<kTileRows, 128>(k_s, kb, k0, tk, at.tid);
+      stage_narrow_rows<kTileRows, 128>(k_s + kTile, vb, k0, tk, at.tid);
+      if (at.tid < kTileRows)  // which keys of the tile take part
+        stage_key_flag(valid_s + stage * kTileRows + at.tid, mask_row,
+                       k0 + at.tid, tk);
+    }
+    cp_async_commit();
+  };
+  for (int step = 0; step < kStages - 1; ++step) stage_step(step);
+
+  const float lse2[2] = {exponent_offset(stats[0].m, stats[0].l),
+                         exponent_offset(stats[1].m, stats[1].l)};
+  const float di_r[2] = {stats[0].di, stats[1].di};
+  const float scale2 = scale * kLog2e;
+  const bool rows_inside = q0 + kTileRows <= tq;
+
+  // dQ: one [64 x 32] accumulator
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    // the barrier also counts the tile's valid keys, each thread reading
+    // back the one flag it copied itself
+    const int stage = step % kStages, k0 = step * kTileRows;
+    const float* valid = valid_s + stage * kTileRows;
+    const int n_valid =
+        __syncthreads_count(at.tid < kTileRows && valid[at.tid] > 0.f);
+    stage_step(step + kStages - 1);
+    if (n_valid == 0) continue;  // no valid key in the tile
+    const uint32_t k_s = ring + stage * kStageBytes, v_s = k_s + kTile;
+
+    float s[32], dp[32];
+    products_begin();
+    product_nt_panel<T, kNarrowCols>(s, q_s, k_s, 0);
+    product_nt_panel<T, kNarrowCols>(dp, do_s, v_s, 0);
+    products_end();
+    keep_registers(s);
+    keep_registers(dp);
+
+    // every pair of the tile takes part: no test per element
+    const bool unmasked =
+        n_valid == kTileRows && rows_inside &&
+        (!causal || k0 + kTileRows - 1 <= q0 + offset);
+    dq_scores(s, dp, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq, tk,
+              causal, offset, at.t);
+    uint32_t ds[4][4];
+    pack_a_fragments<T>(s, ds);
+
+    products_begin();
+    product_tn<T>(acc, ds, k_s);
+    products_end();
+    keep_registers(ds);
+    keep_registers(acc);
+  }
+  cp_async_wait<0>();
+
+  store_fragments(dq + (size_t)bn * tq * kHd, acc, scale, q0, tq, at.tid);
+}
+
+// K3b's launch at `panels` panels: the narrow kernel at 0 (head size 32),
+// the whole-tile kernel at 1, 2 or 4 (a block owns 64 keys, its warpgroups
+// split the panels), the cluster kernel above 4
 LaunchShape dkv_shape(int panels) {
+  if (panels == 0) return narrow_shape();
   if (panels > 4) {
     const ClusterSplit split = cluster_split(panels);
     return {256, cluster_smem_bytes(), kTileRows,
@@ -1754,9 +2097,10 @@ LaunchShape dkv_shape(int panels) {
           kTileRows, 1};
 }
 
-// K3c's: the whole-tile kernel (each warpgroup owns 64 query rows) or the
-// sliced one
+// K3c's: the narrow kernel at 0 panels (head size 32), the whole-tile
+// kernel (each warpgroup owns 64 query rows) or the sliced one
 LaunchShape dq_shape(int panels) {
+  if (panels == 0) return narrow_shape();
   if (panels > 4)
     return {128, sliced_smem_bytes(), kTileRows,
             (panels + kDqSlice - 1) / kDqSlice};
@@ -1855,12 +2199,39 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
+cudaError_t launch_dkv_narrow(const void* q, const void* k, const void* v,
+                              const void* dout, const void* l, const void* m,
+                              const void* di, const void* kv_mask, void* dk,
+                              void* dv, int bn, int tq, int tk, int n_heads,
+                              float scale, int causal, cudaStream_t stream) {
+  return launch_in<flash_bwd_dkv_narrow_kernel<T>>(
+      narrow_shape(), bn, tk, stream, (const T*)q, (const T*)k, (const T*)v,
+      (const T*)dout, (const float*)l, (const float*)m, (const float*)di,
+      (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale, causal);
+}
+
+template <typename T>
+cudaError_t launch_dq_narrow(const void* q, const void* k, const void* v,
+                             const void* dout, const void* l, const void* m,
+                             const void* di, const void* kv_mask, void* dq,
+                             int bn, int tq, int tk, int n_heads, float scale,
+                             int causal, cudaStream_t stream) {
+  return launch_in<flash_bwd_dq_narrow_kernel<T>>(
+      narrow_shape(), bn, tq, stream, (const T*)q, (const T*)k, (const T*)v,
+      (const T*)dout, (const float*)l, (const float*)m, (const float*)di,
+      (const float*)kv_mask, (T*)dq, tq, tk, n_heads, scale, causal);
+}
+
+template <typename T>
 cudaError_t dkv_panels(int panels, const void* q, const void* k,
                        const void* v, const void* dout, const void* l,
                        const void* m, const void* di, const void* kv_mask,
                        void* dk, void* dv, int bn, int tq, int tk,
                        int n_heads, float scale, int causal,
                        cudaStream_t stream) {
+  if (panels == 0)
+    return launch_dkv_narrow<T>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
+                                tq, tk, n_heads, scale, causal, stream);
   if (takes_short_dkv(panels, tq, tk))
     return launch_dkv_short<T>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                                tq, tk, n_heads, scale, causal, stream);
@@ -1886,6 +2257,9 @@ cudaError_t dq_panels(int panels, const void* q, const void* k,
                       const void* m, const void* di, const void* kv_mask,
                       void* dq, int bn, int tq, int tk, int n_heads,
                       float scale, int causal, cudaStream_t stream) {
+  if (panels == 0)
+    return launch_dq_narrow<T>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq,
+                               tk, n_heads, scale, causal, stream);
   if (panels == 1)
     return launch_dq<T, 1>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
                            n_heads, scale, causal, stream);
@@ -1904,8 +2278,9 @@ cudaError_t dq_panels(int panels, const void* q, const void* k,
 
 }  // namespace
 
-// f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
-// 2, 4 or any count above 4 (K3b's cluster kernel, K3c's sliced one)
+// f16: float16 operands (else bfloat16); panels: the head size over 64, 0
+// (head size 32, the narrow kernels), 1, 2, 4 or any count above 4 (K3b's
+// cluster kernel, K3c's sliced one)
 cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* l, const void* m, const void* di,
@@ -1935,9 +2310,19 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 }
 
 // K3b's kernel for a call at `panels` panels and these lengths (0 the
-// whole-tile kernel, 1 the short kernel, 2 the cluster kernel)
+// whole-tile kernel, 1 the short kernel, 2 the cluster kernel, 3 the narrow
+// kernel)
 int flash_bwd_dkv_kernel_of(int panels, int tq, int tk) {
-  return takes_short_dkv(panels, tq, tk) ? 1 : panels > 4 ? 2 : 0;
+  return panels == 0                      ? 3
+         : takes_short_dkv(panels, tq, tk) ? 1
+         : panels > 4                      ? 2
+                                           : 0;
+}
+
+// K3c's kernel at `panels` panels (0 the whole-tile kernel, 1 the sliced
+// kernel, 2 the narrow kernel)
+int flash_bwd_dq_kernel_of(int panels) {
+  return panels == 0 ? 2 : panels > 4 ? 1 : 0;
 }
 
 // the launch shape of K3b (dkv nonzero) or K3c at `panels` panels and these
@@ -1964,6 +2349,11 @@ int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk) {
           shape);
     case 5:
       return resident_blocks<flash_bwd_dkv_cluster_kernel<__half>>(shape);
+    case 6:
+      return resident_blocks<flash_bwd_dkv_narrow_kernel<__nv_bfloat16>>(
+          shape);
+    case 7:
+      return resident_blocks<flash_bwd_dkv_narrow_kernel<__half>>(shape);
   }
   if (panels == 1)
     return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 1>>(shape)
@@ -1975,6 +2365,35 @@ int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk) {
                      shape);
   return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 4>>(shape)
              : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 4>>(
+                   shape);
+}
+
+// how many blocks of K3c's kernel at `panels` panels, of float16 (f16
+// nonzero) or bfloat16, the current card holds at once (or -1)
+int flash_bwd_dq_resident(int f16, int panels) {
+  const LaunchShape shape = dq_shape(panels);
+  switch (flash_bwd_dq_kernel_of(panels) * 2 + (f16 ? 1 : 0)) {
+    case 2:
+      return resident_blocks<flash_bwd_dq_sliced_kernel<__nv_bfloat16>>(
+          shape);
+    case 3:
+      return resident_blocks<flash_bwd_dq_sliced_kernel<__half>>(shape);
+    case 4:
+      return resident_blocks<flash_bwd_dq_narrow_kernel<__nv_bfloat16>>(
+          shape);
+    case 5:
+      return resident_blocks<flash_bwd_dq_narrow_kernel<__half>>(shape);
+  }
+  if (panels == 1)
+    return f16 ? resident_blocks<flash_bwd_dq_tc_kernel<__half, 1>>(shape)
+               : resident_blocks<flash_bwd_dq_tc_kernel<__nv_bfloat16, 1>>(
+                     shape);
+  if (panels == 2)
+    return f16 ? resident_blocks<flash_bwd_dq_tc_kernel<__half, 2>>(shape)
+               : resident_blocks<flash_bwd_dq_tc_kernel<__nv_bfloat16, 2>>(
+                     shape);
+  return f16 ? resident_blocks<flash_bwd_dq_tc_kernel<__half, 4>>(shape)
+             : resident_blocks<flash_bwd_dq_tc_kernel<__nv_bfloat16, 4>>(
                    shape);
 }
 

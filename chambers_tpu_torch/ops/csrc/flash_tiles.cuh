@@ -26,6 +26,15 @@
 //   along rows (MN-major) p . y, the reduction runs over the tile's 64
 //                        rows, one panel of output columns at a time
 //
+// Narrow tiles. At head size 32 the backward's operands are narrow panels:
+// rows of 64 bytes of T, stored [row][32] with the 64-byte swizzle (the
+// 16-byte chunk c of row r lies at chunk c ^ ((r >> 1) & 3)) from a
+// multiple of 1024 bytes, the layout wgmma's descriptors call B64 (512
+// bytes from one group of eight rows to the next). A tile of 64 rows is 4
+// KB, and a taller operand is rows one after the other. Products over them
+// take two k16 steps along h (product_nt_panel<T, kNarrowCols>) and n32
+// accumulators (product_tn and store_fragments on 16 values a thread).
+//
 // Copies. stage_rows fills a tile with cp.async.cg, 16 bytes a thread, eight
 // neighbouring threads to one row of a panel (coalesced in device memory,
 // conflict free in shared memory). A row past the operand's end is filled
@@ -87,6 +96,9 @@ constexpr int kPanelCols = 64;                 // head columns a panel
 constexpr int kRowBytes = kPanelCols * 2;      // 128: a panel's row of T
 constexpr int kTileRows = 64;
 constexpr int kPanelBytes = kTileRows * kRowBytes;  // 8192
+constexpr int kNarrowCols = 32;                // head columns a narrow panel
+constexpr int kNarrowRowBytes = kNarrowCols * 2;                 // 64
+constexpr int kNarrowTileBytes = kTileRows * kNarrowRowBytes;    // 4096
 constexpr float kLog2e = 1.4426950408889634f;
 // the score of a masked pair: -0.7 * float32 max, rounded from double as
 // the JAX package's _MASK_VALUE; a row that no key reaches keeps it as m
@@ -114,6 +126,11 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // byte offset of 16-byte chunk `chunk` of row `row` from a panel's start
 __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
   return (uint32_t)(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
+// the same for a narrow panel's 64-byte rows (the 64-byte swizzle)
+__device__ __forceinline__ uint32_t swizzled_narrow(int row, int chunk) {
+  return (uint32_t)(row * kNarrowRowBytes + ((chunk ^ ((row >> 1) & 3)) << 4));
 }
 
 // bytes of a tile of 64 rows of a head of kPanels panels
@@ -217,6 +234,35 @@ __device__ __forceinline__ void stage_rows(uint32_t tile, const T* src,
         cp_async_16(dst + at(i, p),
                     inside ? from + i * kRowStep * kHd + p * kPanelCols : src,
                     inside ? 16 : 0);
+    }
+  }
+}
+
+// rows [row0, row0 + kRows) of a [rows, 32] array of T into narrow rows at
+// shared address `tile`; rows past the end become zeros. A thread copies
+// chunk tid % 4 of rows tid / 4 + i * kThreads / 4: that step is a
+// multiple of eight rows, so its swizzled chunk stays where it is.
+template <int kRows, int kThreads, typename T>
+__device__ __forceinline__ void stage_narrow_rows(uint32_t tile, const T* src,
+                                                  int row0, int rows,
+                                                  int tid) {
+  constexpr int kRowStep = kThreads / 4, kCopies = kRows / kRowStep;
+  static_assert(kThreads % 32 == 0 && kRows % kRowStep == 0, "");
+  const int r = tid >> 2, c = tid & 3;
+  const uint32_t dst = tile + swizzled_narrow(r, c);
+  const T* from = src + (size_t)(row0 + r) * kNarrowCols + c * 8;
+  if (row0 + kRows <= rows) {
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i)
+      cp_async_16(dst + i * kRowStep * kNarrowRowBytes,
+                  from + i * kRowStep * kNarrowCols);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const bool inside = row0 + r + i * kRowStep < rows;
+      cp_async_16(dst + i * kRowStep * kNarrowRowBytes,
+                  inside ? from + i * kRowStep * kNarrowCols : src,
+                  inside ? 16 : 0);
     }
   }
 }
@@ -436,16 +482,33 @@ __device__ __forceinline__ void keep_registers(uint32_t (&x)[kRows][4]) {
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "             \
   FLASH_TILES_ACC_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
 
+// the same with A in registers for an n32 accumulator (16 values a thread:
+// %16-%19 A, %20 B's descriptor, %21 nonzero to add)
+#define FLASH_TILES_ACC16(d)                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define FLASH_TILES_WGMMA_RS_N32(TYPE)                                        \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPE "." TYPE " "             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "  \
+  "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+
 // ---------------------------------------------------------------------------
 // products on wgmma (one call per warpgroup, by all its 128 threads)
 // ---------------------------------------------------------------------------
 
-// descriptor of a swizzled operand at shared address `addr`: start address,
-// leading offset (not read for one 64-wide swizzled tile), 1024 bytes from
-// one group of eight rows to the next, layout B128
+// descriptor of a swizzled operand of kCols columns at shared address
+// `addr`: start address, leading offset (not read for one swizzled tile as
+// wide as its rows), the bytes from one group of eight rows to the next
+// (1024 for a panel of 64 columns, 512 for a narrow one of 32), layout B128
+// or B64
+template <int kCols = kPanelCols>
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
+  static_assert(kCols == kPanelCols || kCols == kNarrowCols, "");
+  constexpr uint64_t kGroup = 8 * kCols * 2, kLayout = kCols == kPanelCols ? 1 : 2;
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+         ((kGroup >> 4) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void products_begin() {
@@ -459,15 +522,17 @@ __device__ __forceinline__ void products_end() {
 
 // acc (+)= X . Y^T over one panel of h: X the warpgroup's 64 rows of the
 // panel at `x_panel`, Y the 64 rows of the panel at `y_panel`, read along
-// h. `add` is 4 times the panel's place in the chain: the first product of
+// h, one wgmma per 16 values (a narrow panel of kNarrowCols columns: two).
+// `add` is 4 times the panel's place in the chain: the first product of
 // the chain (add 0, its first 16 values) overwrites acc, the others add.
-template <typename T>
+template <typename T, int kCols = kPanelCols>
 __device__ __forceinline__ void product_nt_panel(float (&acc)[32],
                                                  uint32_t x_panel,
                                                  uint32_t y_panel, int add) {
-  const uint64_t dx = descriptor(x_panel), dy = descriptor(y_panel);
+  const uint64_t dx = descriptor<kCols>(x_panel),
+                 dy = descriptor<kCols>(y_panel);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < kCols / 16; ++ks) {
     // 16 values of h further on: 32 bytes, 2 in the descriptor's units
     if constexpr (std::is_same_v<T, __half>)
       asm volatile(FLASH_TILES_WGMMA_SS("f16")
@@ -523,26 +588,42 @@ __device__ __forceinline__ void product_nt_n8(float (&acc)[4],
 // 64 rows of one panel at `y_tile` read along its rows (transposed); with
 // kSteps < 4 only A's first 16 kSteps columns and Y's first 16 kSteps rows
 // (the rest of A zeros: their products add nothing), which `a` may hold
-// alone
-template <typename T, int kSteps = 4, int kRows>
-__device__ __forceinline__ void product_tn(float (&acc)[32],
+// alone. A [64 x 64] accumulator (kN = 32 values a thread) takes a panel of
+// 64 columns, a [64 x 32] one (kN = 16, wgmma m64n32k16) a narrow panel.
+template <typename T, int kSteps = 4, int kRows, int kN>
+__device__ __forceinline__ void product_tn(float (&acc)[kN],
                                            const uint32_t (&a)[kRows][4],
                                            uint32_t y_tile) {
   static_assert(kSteps <= kRows, "a holds the steps' fragments");
-  const uint64_t dy = descriptor(y_tile);
+  static_assert(kN == 32 || kN == 16, "n64 or n32");
+  constexpr int kCols = 2 * kN;
+  // 16 rows further on: 16 rows of 2 kCols bytes, in 16-byte units
+  constexpr int kStep = kCols * 2;
+  const uint64_t dy = descriptor<kCols>(y_tile);
 #pragma unroll
   for (int ks = 0; ks < kSteps; ++ks) {
-    // 16 rows further on: 2048 bytes, 128 in the descriptor's units
-    if constexpr (std::is_same_v<T, __half>)
+    if constexpr (kN == 16) {
+      if constexpr (std::is_same_v<T, __half>)
+        asm volatile(FLASH_TILES_WGMMA_RS_N32("f16")
+                     : FLASH_TILES_ACC16(acc)
+                     : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
+                       "r"(a[ks][3]), "l"(dy + kStep * ks), "r"(1));
+      else
+        asm volatile(FLASH_TILES_WGMMA_RS_N32("bf16")
+                     : FLASH_TILES_ACC16(acc)
+                     : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
+                       "r"(a[ks][3]), "l"(dy + kStep * ks), "r"(1));
+    } else if constexpr (std::is_same_v<T, __half>) {
       asm volatile(FLASH_TILES_WGMMA_RS("f16")
                    : FLASH_TILES_ACC(acc)
                    : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
-                     "r"(a[ks][3]), "l"(dy + 128 * ks), "r"(1));
-    else
+                     "r"(a[ks][3]), "l"(dy + kStep * ks), "r"(1));
+    } else {
       asm volatile(FLASH_TILES_WGMMA_RS("bf16")
                    : FLASH_TILES_ACC(acc)
                    : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]),
-                     "r"(a[ks][3]), "l"(dy + 128 * ks), "r"(1));
+                     "r"(a[ks][3]), "l"(dy + kStep * ks), "r"(1));
+    }
   }
 }
 
@@ -612,14 +693,15 @@ __device__ __forceinline__ void store_panel(T* dst, uint8_t* tile,
 }
 
 // A warpgroup's [64 x 64] accumulator times `mul` to rows [row0, row0 + 64)
-// of a [rows, 64] array of T, straight from the fragments (a quad's four
-// 4-byte stores fill 16 bytes of a row): no shared memory, so the tiles a
-// kernel staged stay free for its next copies. The same values as
-// store_panel.
-template <typename T>
-__device__ __forceinline__ void store_fragments(T* dst, const float (&acc)[32],
+// of a [rows, 64] array of T (kN = 32; a [64 x 32] one, kN = 16, to a [rows,
+// 32] array), straight from the fragments (a quad's four 4-byte stores
+// fill 16 bytes of a row): no shared memory, so the tiles a kernel staged
+// stay free for its next copies. The same values as store_panel.
+template <typename T, int kN>
+__device__ __forceinline__ void store_fragments(T* dst, const float (&acc)[kN],
                                                 float mul, int row0, int rows,
                                                 int thread_in_group) {
+  constexpr int kCols = 2 * kN;
   const int lane = thread_in_group & 31, g = lane >> 2, t = lane & 3;
   const int row_a = row0 + (thread_in_group >> 5) * 16 + g;
 #pragma unroll
@@ -627,8 +709,8 @@ __device__ __forceinline__ void store_fragments(T* dst, const float (&acc)[32],
     const int row = row_a + 8 * half;
     if (row < rows) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)row * kPanelCols + 8 * j +
+      for (int j = 0; j < kN / 4; ++j)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row * kCols + 8 * j +
                                      2 * t) =
             pack2<T>(acc[4 * j + 2 * half] * mul,
                      acc[4 * j + 2 * half + 1] * mul);

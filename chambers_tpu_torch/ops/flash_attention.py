@@ -19,7 +19,9 @@ head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel`` (at head size
 64 over 1 to 256 queries and 129 to 256 keys its
 ``flash_bwd_dkv_short_kernel``, which keeps a head's Q and dO resident),
 ``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (all built on
-``flash_tiles.cuh``, templated on the type); float32 takes the FMA kernels
+``flash_tiles.cuh``, templated on the type; at head size 32 the backward's
+``flash_bwd_dkv_narrow_kernel`` and ``flash_bwd_dq_narrow_kernel``, on
+32-column panels); float32 takes the FMA kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
 of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
 which also holds the C interface. Above head size 256 the 16-bit types take
@@ -36,10 +38,11 @@ JAX function's. It goes through :class:`FlashAttentionFunction`, which
 saves ``q, k, v, o, l, m`` and the mask and launches K3a in ``forward`` and
 K3b and K3c in ``backward``. The three ``launch_*`` functions are the only
 places where a kernel starts, and each adds one to its entry of
-``flash_attention.launches`` there (K3a also to the kernel that ran, in
-``flash_attention.forward_launches``, and K3b in
-``flash_attention.backward_launches``; :func:`launch_shape` names the
-kernel the library's dispatch picks for a call). ``di = Σ o·do`` is
+``flash_attention.launches`` there (and to the kernel that ran: K3a's in
+``flash_attention.forward_launches``, K3b's in
+``flash_attention.backward_launches``, K3c's in
+``flash_attention.dq_launches``; :func:`launch_shape` names the kernel the
+library's dispatch picks for a call). ``di = Σ o·do`` is
 computed with torch ops before the backward launches, as the JAX package
 computes it outside its kernels.
 
@@ -62,8 +65,10 @@ that is already contiguous).
 Head sizes. The kernels work on whole 64-column panels: up to 256 at
 ``HEAD_SIZES`` = 64, 128 and 256, above it at any multiple of 64 (the
 sliced and cluster kernels, and the float32 ``_cols`` kernels, take the
-head size at run time). On a CUDA tensor any other head size is zero-padded to the
-next size the kernels take (:func:`kernel_head_size`, :func:`pad_head`):
+head size at run time). The backward also takes ``NARROW`` = 32 in bfloat16
+and float16, on its narrow kernels. On a CUDA tensor any other head size is
+zero-padded to the next size the kernels take (:func:`kernel_head_size`
+for K3a, :func:`backward_head_size` for K3b and K3c, :func:`pad_head`):
 zero columns add nothing to ``q kᵀ``, the padded columns of ``o``, dQ, dK
 and dV are dropped, the scale comes from the true head size, and ``di`` is
 computed from the unpadded ``o`` and ``do``, so the padded call computes
@@ -87,6 +92,7 @@ LIBRARY = ("flash_attention",
             "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
 HEAD_SIZES = (64, 128, 256)     # head_dim the CUDA kernels are built for
 PANEL = 64                      # above HEAD_SIZES[-1]: any multiple of it
+NARROW = 32                     # the backward's narrow kernels (16-bit types)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -99,9 +105,10 @@ KERNEL_NAMES = {
             "flash_fwd_sliced_kernel"),
     "dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_cols_kernel",
             "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_short_kernel",
-            "flash_bwd_dkv_cluster_kernel"),
+            "flash_bwd_dkv_cluster_kernel", "flash_bwd_dkv_narrow_kernel"),
     "dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_cols_kernel",
-           "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel"),
+           "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel",
+           "flash_bwd_dq_narrow_kernel"),
 }
 
 
@@ -154,6 +161,15 @@ def kernel_head_size(h):
         if h <= size:
             return size
     return -(-h // PANEL) * PANEL
+
+
+def backward_head_size(h, dtype):
+    """The head size K3b and K3c run a call of head size ``h`` in ``dtype``
+    at: ``NARROW`` (32) for ``h <= 32`` in bfloat16 and float16, the narrow
+    kernels', else :func:`kernel_head_size`."""
+    if h <= NARROW and dtype in (torch.bfloat16, torch.float16):
+        return NARROW
+    return kernel_head_size(h)
 
 
 def pad_head(x, size):
@@ -256,12 +272,15 @@ def _operand(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _tail(q, k, scale, causal, n_heads):
+def _tail(q, k, scale, causal, n_heads, backward=False):
     bn, tq, h = q.shape
-    if kernel_head_size(h) != h:
+    if (backward_head_size(h, q.dtype) if backward
+            else kernel_head_size(h)) != h:
         raise ValueError(f"the kernels take head_dim {HEAD_SIZES} and any "
-                         f"multiple of {PANEL} above, got {h}: pad it "
-                         f"(pad_head, kernel_head_size)")
+                         f"multiple of {PANEL} above (the backward also "
+                         f"{NARROW} in bfloat16 and float16), got {h}: pad "
+                         f"it (pad_head, kernel_head_size, "
+                         f"backward_head_size)")
     return (bn, tq, k.shape[1], h, n_heads, float(scale), int(bool(causal)),
             DTYPES[q.dtype], _build.stream(q.device))
 
@@ -294,6 +313,7 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
 def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
                         n_heads):
     """Launch K3b alone: ``(dk, dv)``. bfloat16 and float16 operands run
+    ``flash_bwd_dkv_narrow_kernel`` at head size 32,
     ``flash_bwd_dkv_short_kernel`` at head size 64 when a head's queries (1
     to 256) and keys (129 to 256) fit in shared memory whole,
     ``flash_bwd_dkv_tc_kernel`` otherwise (above 256
@@ -301,7 +321,7 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
     (from 256 on ``flash_bwd_dkv_cols_kernel``). The launch counts in
     ``flash_attention.launches["dkv"]`` and under its kernel's name in
     ``flash_attention.backward_launches``."""
-    tail = _tail(q, k, scale, causal, n_heads)
+    tail = _tail(q, k, scale, causal, n_heads, backward=True)
     lib = _library()
     kernel = backward_kernel(q.dtype, q.shape[2], q.shape[1], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -318,18 +338,22 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
 def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
     """Launch K3c alone: ``dq``. bfloat16 and float16 operands run
-    ``flash_bwd_dq_tc_kernel`` (above 256 ``flash_bwd_dq_sliced_kernel``),
-    float32 ``flash_bwd_dq_kernel`` (from 256 on
-    ``flash_bwd_dq_cols_kernel``)."""
-    tail = _tail(q, k, scale, causal, n_heads)
+    ``flash_bwd_dq_narrow_kernel`` at head size 32, ``flash_bwd_dq_tc_kernel``
+    otherwise (above 256 ``flash_bwd_dq_sliced_kernel``), float32
+    ``flash_bwd_dq_kernel`` (from 256 on ``flash_bwd_dq_cols_kernel``). The
+    launch counts in ``flash_attention.launches["dq"]`` and under its
+    kernel's name in ``flash_attention.dq_launches``."""
+    tail = _tail(q, k, scale, causal, n_heads, backward=True)
     lib = _library()
+    kernel = dq_kernel(q.dtype, q.shape[2])
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(do),
                                 _ptr(l), _ptr(m), _ptr(di), _ptr(kv_mask),
                                 _ptr(dq), *tail)
-    _check_launch(lib, code, "flash_bwd_dq_kernel")
+    _check_launch(lib, code, kernel)
     flash_attention.launches["dq"] += 1
+    flash_attention.dq_launches[kernel] += 1
     return dq
 
 
@@ -341,19 +365,17 @@ def launch_shape(kernel, dtype, h, tq, tk):
     shared memory ``smem_bytes``, ``slices``, the blocks that split the
     head's output columns, ``cluster``, the blocks of a thread-block
     cluster (1: none), ``max_active_clusters``, how many such clusters the
-    current card holds at once (0 without clusters), and for K3a and K3b
+    current card holds at once (0 without clusters), and
     ``resident_blocks``, how many of its blocks the current card holds at
     once (a short kernel launches that many, or one a head if fewer)."""
     shape = (ctypes.c_int * 7)()
     code = _library().flash_launch_shape(
         ("fwd", "dkv", "dq").index(kernel), h, DTYPES[dtype], tq, tk, shape)
     _check_launch(_library(), code, "flash_launch_shape")
-    out = {"kernel_name": KERNEL_NAMES[kernel][shape[5]],
-           "threads": shape[0], "smem_bytes": shape[1], "slices": shape[2],
-           "cluster": shape[3], "max_active_clusters": shape[4]}
-    if kernel in ("fwd", "dkv"):
-        out["resident_blocks"] = shape[6]
-    return out
+    return {"kernel_name": KERNEL_NAMES[kernel][shape[5]],
+            "threads": shape[0], "smem_bytes": shape[1], "slices": shape[2],
+            "cluster": shape[3], "max_active_clusters": shape[4],
+            "resident_blocks": shape[6]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,6 +390,13 @@ def backward_kernel(dtype, h, tq, tk):
     """The name of the kernel a K3b launch at these type, head size and
     lengths runs, as the library's dispatch picks it."""
     return launch_shape("dkv", dtype, h, tq, tk)["kernel_name"]
+
+
+@functools.lru_cache(maxsize=None)
+def dq_kernel(dtype, h):
+    """The name of the kernel a K3c launch at this type and head size
+    runs, as the library's dispatch picks it."""
+    return launch_shape("dq", dtype, h, 1, 1)["kernel_name"]
 
 
 def tile_products(x, y):
@@ -425,22 +454,29 @@ class FlashAttentionFunction(torch.autograd.Function):
     """``o = attention(q, k, v)`` over ``[bn, t, h]`` with a hand-written
     backward; ``scale`` multiplies the scores. The forward is the
     :func:`flash_fwd` operator. On CUDA tensors a head size the kernels do
-    not take is zero-padded to the next one (:func:`kernel_head_size`,
-    :func:`pad_head`): the padded ``q, k, v, o`` are saved, the incoming
-    gradient is padded and the padded columns of every output are
-    dropped."""
+    not take is zero-padded to the next one, K3a's
+    (:func:`kernel_head_size`) in the forward, K3b's and K3c's
+    (:func:`backward_head_size`) for the backward (:func:`pad_head`):
+    ``q, k, v`` are saved padded to the backward's size and ``o`` cut to
+    it, the incoming gradient is padded to it, and the padded columns of
+    every output are dropped."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, n_heads):
         _check_operands(q, k, v, kv_mask, n_heads)
         h = q.shape[-1]
-        size = kernel_head_size(h) if q.device.type == "cuda" else h
+        cuda = q.device.type == "cuda"
+        size = kernel_head_size(h) if cuda else h
+        saved = backward_head_size(h, q.dtype) if cuda else h
         # contiguous here, so that the operator and the backward share one
-        # copy; the alignment is checked where a kernel launches (a traced
-        # tensor has no address)
-        q, k, v = (pad_head(x, size).contiguous() for x in (q, k, v))
-        o, l, m = flash_fwd(q, k, v, kv_mask, scale, causal, n_heads)
-        ctx.save_for_backward(q, k, v, o, l, m, kv_mask)
+        # copy where the two sizes agree; the alignment is checked where a
+        # kernel launches (a traced tensor has no address)
+        padded = [pad_head(x, size).contiguous() for x in (q, k, v)]
+        o, l, m = flash_fwd(*padded, kv_mask, scale, causal, n_heads)
+        if saved != size:
+            padded = [pad_head(x, saved).contiguous() for x in (q, k, v)]
+        ctx.save_for_backward(*padded, o if saved == size else o[..., :saved],
+                              l, m, kv_mask)
         ctx.attention = (scale, causal, n_heads, h)
         return o if size == h else o[..., :h]
 
@@ -502,6 +538,7 @@ def flash_attention(query, value, key=None, scale=None, causal=False,
 
 
 flash_attention.launches = {"fwd": 0, "dkv": 0, "dq": 0}
-# K3a's and K3b's launches by the kernel that ran
+# K3a's, K3b's and K3c's launches by the kernel that ran
 flash_attention.forward_launches = dict.fromkeys(KERNEL_NAMES["fwd"], 0)
 flash_attention.backward_launches = dict.fromkeys(KERNEL_NAMES["dkv"], 0)
+flash_attention.dq_launches = dict.fromkeys(KERNEL_NAMES["dq"], 0)

@@ -255,8 +255,10 @@ the CUDA toolkit. In order, it:
     their meshless runs, and ``distributed_recall_at_k`` on config 4's 256
     embeddings against ``utils.ranking``;
 26. runs the flash kernels at head sizes other than 64 (``head_sizes_path``),
-    phase 9's width 512 over 16 heads (h 32, which the wrapper zero-pads to
-    the kernels' 64), over 4 (h 128) and over 2 (h 256): (a) K3a-c through
+    phase 9's width 512 over 16 heads (h 32: K3a zero-padded to its 64,
+    K3b and K3c on their narrow kernels at 32, every launch of the flash
+    step held to have run them), over 4 (h 128) and over 2 (h 256): (a)
+    K3a-c through
     ``flash_attention`` and its backward at ``[256, 512, 32]``, ``[64,
     512, 128]`` and ``[32, 512, 256]`` bf16 with the ragged key mask,
     causal and not, at h 128 and 256 in float32 and at h 256 in float16,
@@ -357,7 +359,10 @@ PTXAS = {}
 FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"(?:_tc|_short|_cols|_sliced|_cluster)?_kernel)")
+                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow)?_kernel)")
+# exponents (ex2) an SM's special-function units give a clock: four in each
+# of its four partitions (H100)
+SFU_EXP2_PER_CLOCK = 16
 
 
 def check(ok, what):
@@ -375,6 +380,47 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz(torch, fn, readings_wanted=8, seconds=10.0):
+    """The SM clock the card holds while it runs ``fn`` back to back: the
+    median of ``nvidia-smi``'s readings every 50 ms, taken until
+    ``readings_wanted`` have come (``nvidia-smi`` takes a while to start)
+    or ``seconds`` have passed, of those taken while the card drew more
+    than 200 W (the busiest reading if none did; None if none came). The
+    sampling process is stopped before this returns."""
+    import threading
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        while (len(lines) < readings_wanted
+               and time.perf_counter() - t0 < seconds):
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        reader.join(timeout=60)
+    readings = []
+    for line in lines:
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:  # a reading the card did not give ([N/A])
+            continue
+        readings.append((mhz, watts))
+    busy = sorted(mhz for mhz, watts in readings if watts > 200)
+    if busy:
+        return busy[len(busy) // 2]
+    return max((mhz for mhz, _ in readings), default=None)
 
 
 def cuda_ms(torch, fn, iters, backlog=False):
@@ -998,7 +1044,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
     type_name = str(dtype).split(".")[-1]
     b, n, t = S2S["batch"], heads or S2S["heads"], S2S["t"]
     bn, scale = b * n, h ** -0.5
-    size = fa.kernel_head_size(h)
+    size, back = fa.kernel_head_size(h), fa.backward_head_size(h, dtype)
     mask = ragged_mask(torch, b, t, dev)
     fmask = mask.float()
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1008,13 +1054,16 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
                            generator=gen).to(dtype)
 
     # cycle over sets larger together than the 50 MB L2; the kernels read
-    # q, k, v, do padded to the built head size (the same tensors at 64)
-    sets, padded = [], []
+    # q, k, v, do padded to the head size they take, K3a's and the
+    # backward's (the same tensors at 64)
+    sets, padded, padded_back = [], [], []
     for _ in range(3):
         q, k, v, do = rand(), rand(), rand(), rand()
         o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, n)
         sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
         padded.append(tuple(fa.pad_head(x, size) for x in (q, k, v, do)))
+        padded_back.append(tuple(fa.pad_head(x, back)
+                                 for x in (q, k, v, do)))
     turn = iter(range(10 ** 9))
 
     def nxt():
@@ -1025,7 +1074,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
 
     def bwd_args(causal):
         i = next(turn) % len(sets)
-        q, k, v, do = padded[i]
+        q, k, v, do = padded_back[i]
         _, _, _, _, _, l, m, di = sets[i]
         return (q, k, v, do, l, m, di, fmask, scale, causal, n)
 
@@ -1117,6 +1166,12 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
          "chambers_tpu/ops/flash_attention.py:418 _flash_backward (dQ)",
          plain_bwd_ms, lib_bwd_ms),
     )
+    # the exponent bound: one ex2 a kept score in each of K3a-c, at the
+    # SM clock the card holds under K3b
+    mhz = sm_clock_mhz(torch, lambda: specs[1][2](False))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_ms = (pairs / h / (SFU_EXP2_PER_CLOCK * sms * mhz * 1e6) * 1e3
+              if mhz else None)
     rows = []
     for name, key, bare, other, per_pair, replaces, plain_ms, lib_ms in specs:
         kernel_ms = cuda_ms(torch, lambda: bare(False), 20, backlog=True)
@@ -1140,6 +1195,8 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
             "wrapper_ms": wrapper_ms if key == "fwd" else None,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_bound_ms": bytes_ms, "products_bound_ms": ops_ms,
+            "exp_bound_ms": exp_ms, "sm_clock_mhz": mhz,
             "library_ms": lib_ms, "causal_ms": causal_ms,
             "causal_bound_ms": causal_bound_ms,
             "full_kv_bound_ms": full_kv_bound_ms,
@@ -1158,7 +1215,9 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
             f"{kernel_ms * 1e3:.1f} us ({rows[-1]['achieved_tflops']:.1f} "
             f"TFLOP/s), causal {causal_ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; causal "
+            f"{bound_ms * 1e3:.2f} us ({rows[-1]['bound_by']}; bytes "
+            f"{bytes_ms * 1e3:.2f}, products {ops_ms * 1e3:.2f}, exponents "
+            f"{(exp_ms or 0) * 1e3:.2f} us at {mhz} MHz; causal "
             f"{causal_bound_ms * 1e3:.2f} us; all keys "
             f"{full_kv_bound_ms * 1e3:.2f} us)"
             + (f", float32 operands (the FMA kernel) "
@@ -5084,10 +5143,18 @@ def flash_counts(fa):
     return dict(fa.flash_attention.launches)
 
 
+def kernel_counts(fa):
+    """K3a-c's launches by the kernel that ran, one dict a kernel family."""
+    return {"fwd": dict(fa.flash_attention.forward_launches),
+            "dkv": dict(fa.flash_attention.backward_launches),
+            "dq": dict(fa.flash_attention.dq_launches)}
+
+
 def zero_flash(fa):
     for counts in (fa.flash_attention.launches,
                    fa.flash_attention.forward_launches,
-                   fa.flash_attention.backward_launches):
+                   fa.flash_attention.backward_launches,
+                   fa.flash_attention.dq_launches):
         for key in counts:
             counts[key] = 0
 
@@ -5699,8 +5766,9 @@ def scale_out_path(torch, fa, dev, vit_ms):
 # 26. head sizes other than 64
 # ---------------------------------------------------------------------------
 
-# phase 9's width 512 over 16 heads (h 32, which the wrapper pads to the
-# kernels' 64), over 4 (h 128) and over 2 (h 256): phase 11's tokens and
+# phase 9's width 512 over 16 heads (h 32: K3a padded to 64, the backward
+# on its narrow kernels), over 4 (h 128) and over 2 (h 256): phase 11's
+# tokens and
 # FLOPs, and phase 9's step, at the other head sizes
 HEADS = {32: 16, 128: 4, 256: 2}
 HEADS_STEPS, HEADS_REPEATS, HEADS_PROFILED = 2, 3, 2
@@ -5788,9 +5856,10 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
                                     eps=1e-8)
             tally = tallies[f"{impl} h{h}"] = dict.fromkeys(
                 ("fwd", "dkv", "dq", "steps"), 0)
+            tally["by_kernel"] = {"fwd": {}, "dkv": {}, "dq": {}}
 
             def step(i, model=model, opt=opt, tally=tally):
-                before = flash_counts(fa)
+                before, kernels = flash_counts(fa), kernel_counts(fa)
                 opt.zero_grad(set_to_none=True)
                 loss, _ = seq2seq_loss(torch, model, *tokens_of(i))
                 loss.backward()
@@ -5798,6 +5867,12 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
                 after = flash_counts(fa)
                 for key in before:
                     tally[key] += after[key] - before[key]
+                for key, counts in kernel_counts(fa).items():
+                    for name, n in counts.items():
+                        if n != kernels[key][name]:
+                            tally["by_kernel"][key][name] = (
+                                tally["by_kernel"][key].get(name, 0) + n
+                                - kernels[key][name])
                 tally["steps"] += 1
 
             steps[f"{impl} h{h}"] = step
@@ -5822,6 +5897,7 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
             "busy": profiles[name]["device_ms"] / ms,
             "flash_launches": {k: tallies[name][k] for k in
                                ("fwd", "dkv", "dq")},
+            "launches_by_kernel": tallies[name]["by_kernel"],
             "steps_counted": tallies[name]["steps"]})
         log(f"phase {phase} (b) {name} (b16, 512 + 512 bf16, AdamW): median "
             f"of {HEADS_REPEATS} runs of {HEADS_STEPS} steps in turns "
@@ -5937,31 +6013,50 @@ def head_sizes_path(torch, fa, dev, rows):
     t0 = time.perf_counter()
     steps, decode = seq2seq_at_heads(torch, fa, dev)
     out = {"seq2seq": steps, "decode": decode}
+    bf16, t = torch.bfloat16, S2S["t"]
     for h, heads in HEADS.items():
         errors = check_flash_kernels(torch, fa, dev, h,
                                      head_size_cases(torch, dev, h, heads))
         flash = steps[f"h{h}"]["flash"]
         timed = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
                                    errors, h, heads)
+        size = fa.kernel_head_size(h)
+        back = fa.backward_head_size(h, bf16)
+        # the kernel each of K3a-c runs at this head size, and the launches
+        # of the flash step by kernel: every one on it
+        ran = {"fwd": fa.forward_kernel(bf16, size, t, t),
+               "dkv": fa.backward_kernel(bf16, back, t, t),
+               "dq": fa.dq_kernel(bf16, back)}
+        for key, kernel in ran.items():
+            check(flash["launches_by_kernel"][key] == {
+                kernel: flash["flash_launches"][key]},
+                f"h {h}: the flash step's {key} launches all ran {kernel} "
+                f"({flash['launches_by_kernel'][key]})")
         for row in rows:
             key = FLASH_KEYS.get(row["name"])
             got = next((r for r in timed if r["name"] == row["name"]), None)
             if key is None or got is None:
                 continue
-            size = fa.kernel_head_size(h)
+            ptxas = (f"{ran[key]}<{{}}>" if ran[key].endswith("_narrow_kernel")
+                     else f"{row['name']}_tc_kernel<{{}}, {size}>")
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
-                "kernel_head_size": fa.kernel_head_size(h),
+                "kernel_head_size": size if key == "fwd" else back,
+                "kernel_name": ran[key],
+                "launch_shape": fa.launch_shape(key, bf16,
+                                                size if key == "fwd"
+                                                else back, t, t),
                 **{k: got[k] for k in (
                     "launches", "max_abs_err", "ms", "plain_ms",
                     "wrapper_ms", "bound_ms", "bound_by", "library_ms",
                     "causal_ms", "causal_bound_ms", "full_kv_bound_ms",
-                    "achieved_tflops", "float32_ms")},
+                    "achieved_tflops", "float32_ms", "bytes_bound_ms",
+                    "products_bound_ms", "exp_bound_ms", "sm_clock_mhz")},
+                "launches_by_kernel": flash["launches_by_kernel"][key],
                 "launches_over_steps": flash["steps_counted"],
-                "ptxas": PTXAS.get(f"{row['name']}_tc_kernel<bf16, {size}>"),
-                "ptxas_float16": PTXAS.get(
-                    f"{row['name']}_tc_kernel<f16, {size}>"),
+                "ptxas": PTXAS.get(ptxas.format("bf16")),
+                "ptxas_float16": PTXAS.get(ptxas.format("f16")),
                 "ptxas_float32": PTXAS.get(
                     f"{row['name']}_cols_kernel<f32>" if size >= 256 else
                     f"{row['name']}_kernel<f32, {size}>")}
@@ -6929,7 +7024,8 @@ def main():
                 "k3a_launches_a_batch"]
     log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
     lap("25")
-    # 26. head sizes 32 (padded), 128 and 256: K3a-c alone, phase 9's step
+    # 26. head sizes 32 (K3a padded, K3b and K3c narrow), 128 and 256:
+    # K3a-c alone, phase 9's step
     # at 16, 4 and 2 heads, greedy decoding at 128, a clipped step under a
     # mesh
     heads = head_sizes_path(torch, fa, dev, rows)

@@ -41,15 +41,25 @@ query row, one key, a last query tile of one row, 256 keys) every output,
 ``dk`` and ``dv`` among them, must be the same bits too, and K3a and K3b
 are timed at the two ViT shapes in turns (other, this, this, other, three
 rounds) beside ``F.scaled_dot_product_attention`` on the same operands
-(its forward beside K3a, its whole backward beside K3b). The libraries
-share the C interface that
-``ops/flash_attention.py`` calls, for the types and head sizes both take.
-Prints one JSON line last and exits non-zero on any difference beyond
-those.
+(its forward beside K3a, its whole backward beside K3b). At head sizes 8,
+16 and 32 (``NARROW_HEADS``) each library runs K3a padded to 64 and K3b
+and K3c at the head size its dispatch takes (``backward_size``: 32 where
+the library has the narrow kernels, else 64), as the wrapper pads them, on
+the same inputs, in bf16 and float16 (``NARROW_CASES``: the seq2seq step
+at 16 heads of 32 with its ragged key mask, causal and not, the cross
+lengths, a scattered key mask whose last batch item keeps none, one key,
+one query row, DeiT's 198 tokens); every output, cut to the head size,
+must be the same bits. K3b and K3c are timed there at ``[256, 512, 32]``
+in bf16 and float16, each library at its own size, in turns. The libraries
+share the C interface that ``ops/flash_attention.py`` calls, for the types
+and head sizes both take. Prints one JSON line last and exits non-zero on
+any difference beyond those.
 
     python3 compare_flash_builds.py OTHER_CHECKOUT --short
+    python3 compare_flash_builds.py OTHER_CHECKOUT --narrow
 
-runs the ``SHORT_CASES`` and their times only.
+run the ``SHORT_CASES`` and their times only, or the narrow cases and
+their times only.
 """
 
 import ctypes
@@ -67,37 +77,64 @@ def load(path):
     lib.flash_fwd.argtypes = [ptr] * 7 + tail
     lib.flash_bwd_dkv.argtypes = [ptr] * 10 + tail
     lib.flash_bwd_dq.argtypes = [ptr] * 9 + tail
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+    lib.flash_launch_shape.argtypes = [i32] * 5 + [ptr]
+    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
+               lib.flash_launch_shape):
         fn.restype = i32
     return lib
 
 
+def backward_size(torch, fa, lib, h, dtype):
+    """The head size ``lib`` runs K3b and K3c of head size ``h`` at: 32
+    for ``h <= 32`` in bf16 and float16 where its dispatch takes 32 (the
+    narrow kernels), else ``kernel_head_size(h)``."""
+    if h > 32 or dtype == torch.float32:
+        return fa.kernel_head_size(h)
+    shape = (ctypes.c_int * 7)()
+    taken = lib.flash_launch_shape(1, 32, fa.DTYPES[dtype], 1, 1, shape) == 0
+    return 32 if taken else fa.kernel_head_size(h)
+
+
 def run(torch, fa, lib, q, k, v, do, mask, scale, causal, n_heads):
     """K3a, then K3b and K3c on K3a's own ``o, l, m``, through ``lib``:
-    ``{name: output}``."""
+    ``{name: output}``. The operands are padded as the wrapper pads them,
+    for K3a to ``kernel_head_size``, for K3b and K3c to ``backward_size``,
+    and the outputs come back cut to the head size, their padded columns
+    checked to be zeros."""
     from chambers_tpu_torch.ops import _build
 
     ptr = _build.ptr
     bn, tq, h = q.shape
-    tail = (bn, tq, k.shape[1], h, n_heads, float(scale), int(causal),
-            fa.DTYPES[q.dtype], _build.stream(q.device))
-    o = torch.empty_like(q)
+    size, back = (fa.kernel_head_size(h),
+                  backward_size(torch, fa, lib, h, q.dtype))
+
+    def tail(n):
+        return (bn, tq, k.shape[1], n, n_heads, float(scale), int(causal),
+                fa.DTYPES[q.dtype], _build.stream(q.device))
+
+    qp, kp, vp = (fa.pad_head(x, size).contiguous() for x in (q, k, v))
+    o = torch.empty_like(qp)
     l = torch.empty((bn, tq, 1), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
-    codes = [lib.flash_fwd(ptr(q), ptr(k), ptr(v), ptr(mask), ptr(o),
-                           ptr(l), ptr(m), *tail)]
-    di = fa.delta(o, do)
-    dk, dv, dq = (torch.empty_like(x) for x in (k, v, q))
-    codes.append(lib.flash_bwd_dkv(ptr(q), ptr(k), ptr(v), ptr(do), ptr(l),
-                                   ptr(m), ptr(di), ptr(mask), ptr(dk),
-                                   ptr(dv), *tail))
-    codes.append(lib.flash_bwd_dq(ptr(q), ptr(k), ptr(v), ptr(do), ptr(l),
-                                  ptr(m), ptr(di), ptr(mask), ptr(dq),
-                                  *tail))
+    codes = [lib.flash_fwd(ptr(qp), ptr(kp), ptr(vp), ptr(mask), ptr(o),
+                           ptr(l), ptr(m), *tail(size))]
+    di = fa.delta(o[..., :h], do)
+    qb, kb, vb, dob = (fa.pad_head(x, back).contiguous()
+                       for x in (q, k, v, do))
+    dk, dv, dq = (torch.empty_like(x) for x in (kb, vb, qb))
+    codes.append(lib.flash_bwd_dkv(ptr(qb), ptr(kb), ptr(vb), ptr(dob),
+                                   ptr(l), ptr(m), ptr(di), ptr(mask),
+                                   ptr(dk), ptr(dv), *tail(back)))
+    codes.append(lib.flash_bwd_dq(ptr(qb), ptr(kb), ptr(vb), ptr(dob),
+                                  ptr(l), ptr(m), ptr(di), ptr(mask),
+                                  ptr(dq), *tail(back)))
     if any(codes):
         raise RuntimeError(f"a launch failed: CUDA errors {codes}")
     torch.cuda.synchronize()
-    return {"o": o, "l": l, "m": m, "dk": dk, "dv": dv, "dq": dq}
+    if any(bool(x[..., h:].any()) for x in (o, dk, dv, dq)):
+        raise RuntimeError(f"padded columns not zero at head size {h}")
+    return {"o": o[..., :h], "l": l, "m": m, "dk": dk[..., :h],
+            "dv": dv[..., :h], "dq": dq[..., :h]}
 
 
 def launch_one(torch, fa, lib, kernel, args):
@@ -124,6 +161,29 @@ def launch_one(torch, fa, lib, kernel, args):
 
 HEADS = (64, 128, 256)
 WIDE_HEADS = (512, 1024)
+NARROW_HEADS = (32, 16, 8)
+# the narrow kernels' cases (label, bn, n_heads, tq, tk, dtype name,
+# causal, mask kind), at each of NARROW_HEADS
+NARROW_CASES = [
+    ("seq2seq step at 16 heads, key mask", 256, 16, 512, 512, "bfloat16",
+     False, "ragged"),
+    ("seq2seq step at 16 heads, causal + key mask", 256, 16, 512, 512,
+     "bfloat16", True, "ragged"),
+    ("float16, seq2seq step at 16 heads, causal + key mask", 256, 16, 512,
+     512, "float16", True, "ragged"),
+    ("cross 130x260 causal", 4, 2, 130, 260, "bfloat16", True, None),
+    ("cross 260x130 causal, rows with no key", 4, 2, 260, 130, "float16",
+     True, None),
+    ("70x150 scattered key mask, an item with none", 6, 2, 70, 150,
+     "bfloat16", False, "dead"),
+    ("63x65 scattered key mask", 2, 1, 63, 65, "float16", False,
+     "scattered"),
+    ("64 rows against one key", 4, 2, 64, 1, "bfloat16", False, None),
+    ("one query row against 300 keys", 4, 2, 1, 300, "float16", False,
+     "scattered"),
+    ("DeiT-B/16 198 tokens", 48, 12, 198, 198, "bfloat16", False, None),
+    ("causal 129x129", 6, 3, 129, 129, "bfloat16", True, None),
+]
 PLAIN_HEADS = (2112,)
 # tests/test_torch_cuda_kernels.py's WIDE_CASES: (b, n, tq, tk, causal,
 # masked)
@@ -301,11 +361,15 @@ def plain_errors(torch, fa, libs, dev):
     return out
 
 
-def time_both(torch, fa, libs, dev, h):
-    """ms a launch of K3a-c of each library at ``[128 * 64 / h, 512, h]``
-    bf16 (the train step's tokens and FLOPs; above 256 ``[16, 512, h]``,
-    its tokens over one head) with a ragged key mask, causal and not:
-    ``{kernel/causal: {library: [ms of each round]}}``."""
+def time_both(torch, fa, libs, dev, h, dtype=None,
+              kernels=("fwd", "dkv", "dq")):
+    """ms a launch of ``kernels`` of K3a-c of each library at ``[128 * 64
+    / h, 512, h]`` in ``dtype`` (bf16 unless given; the train step's tokens
+    and FLOPs; above 256 ``[16, 512, h]``, its tokens over one head) with a
+    ragged key mask, causal and not, each library on operands padded to
+    the size it runs the kernel at: ``{kernel/causal: {library: [ms of each
+    round]}}``."""
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(16)
     bn, n, t = max(16, 128 * 64 // h), max(1, 512 // h), 512
     keep = t * (0.7 + 0.1 * torch.rand((bn // n, 1), device=dev,
@@ -314,23 +378,37 @@ def time_both(torch, fa, libs, dev, h):
     sets = []
     for _ in range(3):  # 3 x 34 MB: beyond the L2
         q, k, v, do = (torch.randn((bn, t, h), device=dev, generator=gen)
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dtype) for _ in range(4))
         o, l, m = fa.flash_forward_plain(q, k, v, h ** -0.5, False, mask,
                                          n)
         sets.append((q, k, v, do, l, m, fa.delta(o, do), mask, h ** -0.5))
+    size = {name: {"fwd": fa.kernel_head_size(h),
+                   "dkv": backward_size(torch, fa, lib, h, dtype),
+                   "dq": backward_size(torch, fa, lib, h, dtype)}
+            for name, lib in libs.items()}
+    padded = {}  # (set, head size): q, k, v, do padded to it
+    for i, (q, k, v, do, *_) in enumerate(sets):
+        for n_cols in {x for by in size.values() for x in by.values()}:
+            padded[i, n_cols] = tuple(fa.pad_head(x, n_cols).contiguous()
+                                      for x in (q, k, v, do))
     # the outputs, written by every launch: o, l, m, dk, dv, dq
-    outs = (torch.empty_like(q), torch.empty_like(l), torch.empty_like(m),
-            torch.empty_like(k), torch.empty_like(v), torch.empty_like(q))
+    outs = {n_cols: (torch.empty_like(x[0]), torch.empty_like(l),
+                     torch.empty_like(m), torch.empty_like(x[1]),
+                     torch.empty_like(x[2]), torch.empty_like(x[0]))
+            for (i, n_cols), x in padded.items() if i == 0}
     times = {}
-    for kernel in ("fwd", "dkv", "dq"):
+    for kernel in kernels:
         for causal in (False, True):
             key = f"{kernel}{' causal' if causal else ''}"
             times[key] = {"other": [], "this": []}
             for _ in range(3):
                 for name in ("other", "this", "this", "other"):
-                    def call(i, lib=libs[name]):
+                    n_cols = size[name][kernel]
+
+                    def call(i, lib=libs[name], n_cols=n_cols):
                         launch_one(torch, fa, lib, kernel,
-                                   (*sets[i % 3], causal, n, outs))
+                                   (*padded[i % 3, n_cols], *sets[i % 3][4:],
+                                    causal, n, outs[n_cols]))
 
                     for i in range(3):
                         call(i)
@@ -396,7 +474,7 @@ def hold_cases(torch, fa, libs, dev, items):
     return report, same
 
 
-def main(other, short=False):
+def main(other, short=False, narrow=False):
     import torch
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -445,12 +523,34 @@ def main(other, short=False):
                     kind)
                    for label, bn, n, tq, tk, dtype, causal, kind
                    in SHORT_CASES]
-    items = [] if short else [(case, h) for h in HEADS for case in cases] + [
+    narrow_cases = [(label, bn, n, tq, tk, getattr(torch, dtype), causal,
+                     kind)
+                    for label, bn, n, tq, tk, dtype, causal, kind
+                    in NARROW_CASES]
+    items = [] if short or narrow else [
+        (case, h) for h in HEADS for case in cases] + [
         (case, h) for h in WIDE_HEADS for case in wide_cases]
-    items += [(case, 64) for case in short_cases]
+    if not narrow:
+        items += [(case, 64) for case in short_cases]
+    if not short:
+        items += [(case, h) for h in NARROW_HEADS for case in narrow_cases]
     report, same = hold_cases(torch, fa, libs, dev, items)
+    narrow_times = {}
+    for dtype in (() if short else (bf16, f16)):
+        type_name = str(dtype).split(".")[-1]
+        for key, by in time_both(torch, fa, libs, dev, 32, dtype,
+                                 ("dkv", "dq")).items():
+            narrow_times[f"{key} h32 {type_name}"] = by
+            print(f"{key} [256, 512, 32] {type_name} key mask, each library "
+                  f"at its own head size (this "
+                  f"{backward_size(torch, fa, libs['this'], 32, dtype)}, "
+                  f"other {backward_size(torch, fa, libs['other'], 32, dtype)}"
+                  "): " + ", ".join(
+                      f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
+                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
+                      for name, v in by.items()), flush=True)
     short_times = {}
-    for kernel in ("fwd", "dkv"):
+    for kernel in (() if narrow else ("fwd", "dkv")):
         for label, bn, n, t, _, dtype, _, _ in short_cases[:SHORT_TIMED]:
             by = time_short(torch, fa, libs, dev, bn, n, t, dtype, kernel)
             type_name = str(dtype).split(".")[-1]
@@ -466,9 +566,9 @@ def main(other, short=False):
                       f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
                       for key, v in by.items())
                   + f"; bytes bound {bound_us:.2f} us", flush=True)
-    plain = [] if short else plain_errors(torch, fa, libs, dev)
+    plain = [] if short or narrow else plain_errors(torch, fa, libs, dev)
     times = {}
-    for h in () if short else HEADS + WIDE_HEADS:
+    for h in () if short or narrow else HEADS + WIDE_HEADS:
         for key, by in time_both(torch, fa, libs, dev, h).items():
             times[f"{key} h{h}"] = by
             print(f"{key} [{max(16, 128 * 64 // h)}, 512, {h}] bf16 key "
@@ -479,6 +579,7 @@ def main(other, short=False):
                       for name, v in by.items()), flush=True)
     print(json.dumps({"compare_flash_builds": report, "plain": plain,
                       "times_ms": times, "short_times_ms": short_times,
+                      "narrow_times_ms": narrow_times,
                       "other": str(other),
                       "card": torch.cuda.get_device_name(0),
                       "same_within_tolerance": same}))
@@ -487,7 +588,10 @@ def main(other, short=False):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    if len(args) not in (1, 2) or (len(args) == 2 and args[1] != "--short"):
+    if len(args) not in (1, 2) or (len(args) == 2
+                                   and args[1] not in ("--short",
+                                                       "--narrow")):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(args[0], short=len(args) == 2))
+    sys.exit(main(args[0], short=args[1:] == ["--short"],
+                  narrow=args[1:] == ["--narrow"]))

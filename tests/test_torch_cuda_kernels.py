@@ -409,10 +409,13 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
 
 
 def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
+    """K3a on operands padded to ``kernel_head_size``, K3b and K3c on
+    operands padded to ``backward_head_size`` (at h 32 in the 16-bit types
+    unpadded, on the narrow kernels), as the wrapper pads them."""
     q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype, masked)
     scale = h ** -0.5
-    size = fa.kernel_head_size(h)
-    qp, kp, vp, dop = (fa.pad_head(x, size) for x in (q, k, v, do))
+    size, back = fa.kernel_head_size(h), fa.backward_head_size(h, dtype)
+    qp, kp, vp = (fa.pad_head(x, size) for x in (q, k, v))
     o_full, l, m = fa.launch_forward(qp, kp, vp, mask, scale, causal, n)
     o = o_full[..., :h]
     o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal, mask, n)
@@ -432,8 +435,10 @@ def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
 
     # the backward kernels on the forward kernel's own saved o, l, m, as
     # the autograd function chains them
-    args = (qp, kp, vp, dop, l, m, fa.delta(o, do), mask, scale, causal, n)
+    args = (*(fa.pad_head(x, back) for x in (q, k, v, do)), l, m,
+            fa.delta(o, do), mask, scale, causal, n)
     padded = (*fa.launch_backward_dkv(*args), fa.launch_backward_dq(*args))
+    assert all(x.shape[-1] == back for x in padded)
     dk, dv, dq = (x[..., :h] for x in padded)
     want = fa.flash_backward_plain(q, k, v, o_p, l_p, m_p, do, scale, causal,
                                    mask, n)
@@ -774,6 +779,71 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
             after = fa.flash_attention.backward_launches
             assert {key: after[key] - before[key] for key in after} == {
                 key: int(key == want) for key in after}
+
+
+@pytest.mark.parametrize("h", [8, 16, 32])
+def test_narrow_backward_kernels_at_head_size_32(dev, h):
+    """At head sizes up to 32 bf16 and float16 run K3b and K3c on the
+    narrow kernels at 32 (one warpgroup of 64 rows a block, four blocks an
+    SM, 32-column tiles), float32 on the FMA kernels at 64:
+    ``launch_shape`` names them, the launch counters by kernel count them
+    through the autograd function, which pads the backward's operands to
+    32 only (at 32 not at all) and slices nothing at 32, and its gradients
+    hold to the CPU's; a launch at a head size the backward does not take
+    is refused."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in SIXTEEN_BIT:
+        assert fa.backward_head_size(h, dtype) == 32
+        dkv = fa.launch_shape("dkv", dtype, 32, 512, 512)
+        dq = fa.launch_shape("dq", dtype, 32, 512, 512)
+        assert dkv["kernel_name"] == "flash_bwd_dkv_narrow_kernel"
+        assert dq["kernel_name"] == "flash_bwd_dq_narrow_kernel"
+        for shape in (dkv, dq):
+            assert (shape["threads"], shape["slices"], shape["cluster"]) == (
+                128, 1, 1)
+            assert shape["resident_blocks"] == 4 * sms
+        assert fa.backward_kernel(dtype, 32, 198, 198) == (
+            "flash_bwd_dkv_narrow_kernel")
+        assert fa.dq_kernel(dtype, 32) == "flash_bwd_dq_narrow_kernel"
+        assert fa.launch_shape("fwd", dtype, 64, 512, 512)[
+            "kernel_name"] == "flash_fwd_tc_kernel"
+        with pytest.raises(RuntimeError):
+            fa.launch_shape("fwd", dtype, 32, 512, 512)
+    assert fa.backward_head_size(h, torch.float32) == 64
+    with pytest.raises(RuntimeError):
+        fa.launch_shape("dkv", torch.float32, 32, 512, 512)
+    for dtype in (*SIXTEEN_BIT, torch.float32):
+        q, k, v, do, mask = _flash_inputs(dev, 2, 3, 130, 150, h, dtype, True)
+        q, k, v = (x.view(2, 3, -1, h).requires_grad_() for x in (q, k, v))
+        before = (dict(fa.flash_attention.launches),
+                  dict(fa.flash_attention.backward_launches),
+                  dict(fa.flash_attention.dq_launches))
+        out = fa.flash_attention(q, v, k, causal=True, kv_mask=mask)
+        grads = torch.autograd.grad(out, (q, k, v), do.view(2, 3, -1, h))
+        after = (fa.flash_attention.launches,
+                 fa.flash_attention.backward_launches,
+                 fa.flash_attention.dq_launches)
+        assert {key: after[0][key] - before[0][key] for key in after[0]} == {
+            "fwd": 1, "dkv": 1, "dq": 1}
+        wide = dtype == torch.float32
+        for counts, was, kernel in (
+                (after[1], before[1], "flash_bwd_dkv_kernel" if wide
+                 else "flash_bwd_dkv_narrow_kernel"),
+                (after[2], before[2], "flash_bwd_dq_kernel" if wide
+                 else "flash_bwd_dq_narrow_kernel")):
+            assert {key: counts[key] - was[key] for key in counts} == {
+                key: int(key == kernel) for key in counts}
+        cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+        ref = fa.flash_attention(cpu[0], cpu[2], cpu[1], causal=True,
+                                 kv_mask=mask.cpu())
+        want = torch.autograd.grad(ref, cpu, do.view(2, 3, -1, h).cpu())
+        for got, ref_grad in zip(grads, want):
+            assert got.dtype == dtype and got.shape[-1] == h
+            _assert_close(got.cpu(), ref_grad, dtype, grad=True)
+    bad = torch.randn((2, 8, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.launch_backward_dq(bad, bad, bad, bad, None, None, None, None,
+                              0.1, False, 1)
 
 
 @pytest.mark.parametrize("h", HEADS + [288, 512])

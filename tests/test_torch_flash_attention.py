@@ -436,21 +436,26 @@ def test_head_sizes_match_jax_kernel(h, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("h", [8, 32, 80, 100, 160, 200, 288, 300])
+@pytest.mark.parametrize("h", [8, 32, 80, 100, 160, 200, 288, 300, 16])
 def test_padded_plain_call_is_bit_equal(h, dtype):
     """What the wrapper does on the card at a head size the kernels are not
     built at, in the plain versions: ``q, k, v`` and ``do`` zero-padded to
     ``kernel_head_size(h)``, the scale from the true ``h``, ``di`` from the
     unpadded ``o`` and ``do``. Every output equals the unpadded call's bit
-    for bit, and the padded columns are exact zeros."""
+    for bit, and the padded columns are exact zeros. The backward, padded
+    to ``backward_head_size(h, dtype)`` where that differs (h 8 and 16 to
+    32 in bfloat16 and float16, on the narrow kernels), on the forward's
+    ``o`` cut to that size, as the wrapper saves it: the same."""
     size = tflash.kernel_head_size(h)
     assert size == (64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256
                     else -(-h // 64) * 64)
+    back = tflash.backward_head_size(h, dtype)
+    assert back == (32 if h <= 32 and dtype != torch.float32 else size)
     g = torch.Generator().manual_seed(h)
     q, do = (torch.randn(6, 97, h, generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn(6, 131, h, generator=g).to(dtype) for _ in range(2))
     mask = (torch.rand(2, 131, generator=g) > 0.3).float()
-    pad = lambda x: tflash.pad_head(x, size)  # noqa: E731
+    pad = lambda x, n=size: tflash.pad_head(x, n)  # noqa: E731
     for causal in (False, True):
         args = (h ** -0.5, causal, mask, 3)
         o, l, m = tflash.flash_forward_plain(q, k, v, *args)
@@ -458,12 +463,27 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
         assert torch.equal(po[..., :h], o) and not po[..., h:].any()
         assert torch.equal(pl, l) and torch.equal(pm, m)
         want = tflash.flash_backward_plain(q, k, v, o, l, m, do, *args)
-        got = tflash.flash_backward_plain(
-            pad(q), pad(k), pad(v), po, pl, pm, pad(do), *args,
-            di=tflash.delta(po[..., :h], do))
-        for a, b in zip(got, want):
-            assert a.dtype == dtype and torch.equal(a[..., :h], b)
-            assert not a[..., h:].any()
+        for n in sorted({size, back}):
+            got = tflash.flash_backward_plain(
+                pad(q, n), pad(k, n), pad(v, n), po[..., :n], pl, pm,
+                pad(do, n), *args, di=tflash.delta(po[..., :h], do))
+            for a, b in zip(got, want):
+                assert a.dtype == dtype and a.shape[-1] == n
+                assert torch.equal(a[..., :h], b) and not a[..., h:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_backward_head_size(dtype):
+    """K3b and K3c take head size 32 in bfloat16 and float16 (the narrow
+    kernels), so the wrapper pads a smaller head only to 32 for them; K3a
+    and float32 keep ``kernel_head_size``."""
+    sizes = [tflash.backward_head_size(h, dtype) for h in (1, 8, 32, 33, 64)]
+    narrow = dtype != torch.float32
+    assert tflash.NARROW == 32
+    assert sizes == ([32, 32, 32, 64, 64] if narrow else [64, 64, 64, 64, 64])
+    assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 33, 64)] == [
+        64, 64, 64, 64, 64]
 
 
 def test_kernel_head_sizes_and_the_limit():
@@ -559,21 +579,26 @@ def test_cpu_calls_count_no_kernel_launch():
     """The launch counters belong to the kernels: a call on CPU tensors runs
     the plain versions, forward and backward, and counts nothing. K3a's
     counter by kernel holds every forward kernel the library's dispatch
-    names, in its order, and K3b's every dK/dV kernel."""
+    names, in its order, K3b's every dK/dV kernel and K3c's every dQ
+    kernel."""
     counts = tflash.flash_attention.forward_launches
     backward = tflash.flash_attention.backward_launches
+    dq = tflash.flash_attention.dq_launches
     assert tuple(counts) == tflash.KERNEL_NAMES["fwd"]
     assert tuple(backward) == tflash.KERNEL_NAMES["dkv"]
+    assert tuple(dq) == tflash.KERNEL_NAMES["dq"]
     assert "flash_fwd_short_kernel" in counts
     assert "flash_bwd_dkv_short_kernel" in backward
+    assert "flash_bwd_dkv_narrow_kernel" in backward
+    assert "flash_bwd_dq_narrow_kernel" in dq
     before = (dict(tflash.flash_attention.launches), dict(counts),
-              dict(backward))
+              dict(backward), dict(dq))
     q, k, v = (_t(x, torch.bfloat16).requires_grad_()
                for x in _qkv(19, (1, 2, 198, 64)))
     tflash.flash_attention(q, v, k).float().pow(2).sum().backward()
     assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
     assert (dict(tflash.flash_attention.launches), dict(counts),
-            dict(backward)) == before
+            dict(backward), dict(dq)) == before
 
 
 @pytest.mark.parametrize("kind", ["self_masked", "cross_causal_masked"])

@@ -72,7 +72,7 @@ def _imports(path):
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
      if f.endswith(".py")] + [os.path.join(ROOT, name) for name in (
-         "chip_smoke.py", "compare_flash_builds.py")]),
+         "chip_smoke.py", "compare_flash_builds.py", "card_faults.py")]),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_imports(path):
     roots = {name.split(".")[0] for name in _imports(path)}
