@@ -983,8 +983,8 @@ constexpr int kFloat16 = 2;
 
 // the bfloat16 (f16 = 0) and float16 (f16 = 1) kernels on the tensor
 // cores, at `panels` = head size / 64: 1, 2 or 4, or above 4 the sliced
-// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu); the backward's
-// also at 0, head size 32, on the narrow kernels
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu); also at 0, head
+// size 32, on the narrow kernels
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -1011,26 +1011,23 @@ int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk);
 int flash_bwd_dq_resident(int f16, int panels);
 int flash_bwd_dkv_max_clusters(int f16, int panels);
 
-// the head size of the backward's narrow kernels (bfloat16 and float16)
+// the head size of the narrow kernels (bfloat16 and float16)
 constexpr int kNarrowHead = 32;
 
-// the head sizes kernel `kernel` (kFwd, kDkv or kDq) takes in type dtype:
-// 64, 128, and every multiple of 64 from 256 on; K3b and K3c also 32 in
-// bfloat16 and float16
-inline bool head_size_taken(int kernel, int h, int dtype) {
+// the head sizes each kernel (K3a, K3b, K3c) takes in type dtype: 64, 128,
+// and every multiple of 64 from 256 on; also 32 in bfloat16 and float16
+inline bool head_size_taken(int h, int dtype) {
   return h == 64 || h == 128 || (h >= 256 && h % 64 == 0) ||
-         (h == kNarrowHead && kernel != kFwd &&
-          (dtype == kBFloat16 || dtype == kFloat16));
+         (h == kNarrowHead && (dtype == kBFloat16 || dtype == kFloat16));
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 float16; h: a size head_size_taken
-// accepts for KERNEL. Anything else is refused with cudaErrorInvalidValue.
-// Empty problems launch nothing. float32 takes this file's kernels (LAUNCH
-// at 64 and 128, COLS from 256 on), bfloat16 and float16 the tensor-core
-// ones (TC, at h / 64 panels: 0 for the backward's narrow kernels).
-#define FLASH_DISPATCH(KERNEL, LAUNCH, COLS, TC, ...)                        \
-  if (dtype < kFloat32 || dtype > kFloat16 ||                                \
-      !head_size_taken(KERNEL, h, dtype))                                    \
+// accepts. Anything else is refused with cudaErrorInvalidValue. Empty
+// problems launch nothing. float32 takes this file's kernels (LAUNCH at 64
+// and 128, COLS from 256 on), bfloat16 and float16 the tensor-core ones
+// (TC, at h / 64 panels: 0 for the narrow kernels).
+#define FLASH_DISPATCH(LAUNCH, COLS, TC, ...)                                \
+  if (dtype < kFloat32 || dtype > kFloat16 || !head_size_taken(h, dtype))    \
     return (int)cudaErrorInvalidValue;                                       \
   if (dtype == kFloat32 && h == 64)                                          \
     return (int)LAUNCH<float, 64>(__VA_ARGS__);                              \
@@ -1045,7 +1042,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int bn, int tq, int tk, int h, int n_heads,
                          float scale, int causal, int dtype, void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(kFwd, launch_fwd, launch_fwd_cols, flash_fwd_tc, q, k, v,
+  FLASH_DISPATCH(launch_fwd, launch_fwd_cols, flash_fwd_tc, q, k, v,
                  kv_mask, o, l, m, bn, tq, tk, n_heads, scale, causal,
                  (cudaStream_t)stream)
 }
@@ -1057,7 +1054,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int n_heads, float scale, int causal, int dtype,
                              void* stream) {
   if (bn == 0 || tk == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(kDkv, launch_dkv, launch_dkv_cols, flash_bwd_dkv_tc, q, k,
+  FLASH_DISPATCH(launch_dkv, launch_dkv_cols, flash_bwd_dkv_tc, q, k,
                  v, dout, l, m, di, kv_mask, dk, dv, bn, tq, tk, n_heads,
                  scale, causal, (cudaStream_t)stream)
 }
@@ -1069,7 +1066,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int causal, int dtype,
                             void* stream) {
   if (bn == 0 || tq == 0) return (int)cudaSuccess;
-  FLASH_DISPATCH(kDq, launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v,
+  FLASH_DISPATCH(launch_dq, launch_dq_cols, flash_bwd_dq_tc, q, k, v,
                  dout, l, m, di, kv_mask, dq, bn, tq, tk, n_heads, scale,
                  causal, (cudaStream_t)stream)
 }
@@ -1085,7 +1082,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
                                   int tk, int* shape) {
   if (kernel < kFwd || kernel > kDq || dtype < kFloat32 ||
-      dtype > kFloat16 || !head_size_taken(kernel, h, dtype) || tq < 0 ||
+      dtype > kFloat16 || !head_size_taken(h, dtype) || tq < 0 ||
       tk < 0)
     return (int)cudaErrorInvalidValue;
   const int f16 = dtype == kFloat16, panels = h / 64;
@@ -1099,9 +1096,9 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   shape[3] = s.cluster;
   shape[4] = s.cluster > 1 ? flash_bwd_dkv_max_clusters(f16, panels) : 0;
   // the family's kernels: float32 the FMA kernel (0) or its _cols form
-  // (1); the 16-bit ones from 2 on, K3a's whole-tile, short and sliced
-  // kernels, K3b's whole-tile, short, cluster and narrow kernels, K3c's
-  // whole-tile, sliced and narrow kernels
+  // (1); the 16-bit ones from 2 on, K3a's whole-tile, short, sliced and
+  // narrow kernels, K3b's whole-tile, short, cluster and narrow kernels,
+  // K3c's whole-tile, sliced and narrow kernels
   shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
              : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)
              : kernel == kDkv   ? 2 + flash_bwd_dkv_kernel_of(panels, tq, tk)

@@ -7,7 +7,9 @@
 //   flash_fwd_tc_kernel      <- _flash_forward / _flash_fwd_kernel  (K3a)
 //   flash_fwd_short_kernel   the same, at head size 64 over 64 to 256
 //                            queries and 1 to 256 keys (ViT lengths)
-//   flash_fwd_sliced_kernel  the same, at head sizes above 256
+//   flash_fwd_narrow_kernel  the same, at head size 32 (32-column tiles)
+//   flash_fwd_wide_kernel    the same, at head sizes above 256 up to 1152
+//   flash_fwd_sliced_kernel  the same, at head sizes above 1152
 // and computes what flash_attention.cu's note says it computes: per query
 // tile over all key tiles s = q k^T scale with float32 accumulation, a
 // running float32 max m, p = exp(s - m) zeroed where masked, l = sum p from
@@ -15,9 +17,9 @@
 // once at the end; the [b, tk] key mask shared by a batch item's heads, the
 // causal diagonal at the sequence end, exact zeros in o and l and m at the
 // mask value for a row with no valid key, any tq and tk, head size 64, 128
-// or 256 (one, two or four panels, a template parameter) and, in the
-// sliced kernel, any multiple of 64 above 256 (the wrapper pads other
-// sizes). The operand type T (__nv_bfloat16 or __half) is the other
+// or 256 (one, two or four panels, a template parameter), 32 in the narrow
+// kernel and, in the wide and sliced kernels, any multiple of 64 above 256
+// (the wrapper pads other sizes). The operand type T (__nv_bfloat16 or __half) is the other
 // template parameter: it changes the rounding of p and the output and the
 // wgmma instruction's type, nothing else. Returns o (of T) and l, m
 // (float32, natural units) for the backward kernels.
@@ -142,10 +144,44 @@
 // product's A operand (92.2 against 88.1), and the two pairs of groups
 // taking turns on the tensor cores by named barriers (93.4 against 89.4).
 //
-// Head sizes above 256: flash_fwd_sliced_kernel. The design above stages
+// Head size 32: flash_fwd_narrow_kernel. Padded to 64, K3a did every
+// product twice over (half of each operand zeros), copied and held tiles
+// twice their size, and the wrapper padded q, k and v and cut o on every
+// call. This kernel is the whole-tile design's body (fwd_tile_rows) at
+// panels 0, on flash_tiles.cuh's 32-column panels (64-byte rows, the
+// 64-byte swizzle, wgmma's B64 descriptors): the score product takes two
+// k16 steps (product_nt_panel<T, kNarrowCols>), P V is an m64n32 product
+// into 16 float32 registers a thread, and o leaves straight from the
+// fragments (store_fragments). Otherwise it is the design above: one
+// warpgroup over 64 query rows a block, K and V passing in 64-key tiles of
+// 4 KB each through a ring of three stages (stages(0)), one __syncthreads
+// a step, K3a's order and arithmetic per tile (softmax_tile, the same skip
+// rules), so o, l and m are the padded call's bits: the zero columns only
+// added exact zeros to every float32 sum. 80 registers, no spills, 30 KB
+// of shared memory: six blocks an SM (blocks_per_sm(0)).
+// As measured on an H100 (compare_flash_builds.py --only narrow against
+// 247356c, in turns, one call; PERF.md section 6): at [256, 512, 32] bf16
+// with the ragged key mask 39.3 us against the padded call's 57.6 (causal
+// 29.4 against 42.7), at [1536, 198, 32] 74.6 against 81.0; float16 39.4
+// and 74.3. In the call before it, against the same kernel written out on
+// its own (before it shared this body): 39.1 against 39.1, 74.2 against
+// 74.3, the same bits. The bytes bound is
+// 9.12 us; each of a head's row blocks reads the head's K and V again from
+// L2, and each block's chain of waits (copy, score product, softmax, P V)
+// binds, as in K3b's and K3c's narrow kernels. Tried, and slower: a block
+// holding a head's K and V whole (up to 512 keys, copied once) with two
+// warpgroups walking the head's row tiles, no copy and no block barrier
+// between key steps (the short kernel's recipe at 32 columns): 45.7 us
+// against 41.3 at [256, 512, 32] and 81.5 against 74.8 at [1536, 198, 32],
+// its groups' serial chains bind; four stages at five blocks an SM 41.0;
+// three at seven blocks an SM spill (72 registers) and take twice as long.
+//
+// Head sizes above 256: flash_fwd_wide_kernel, and above 1152
+// flash_fwd_sliced_kernel. The whole-tile design stages
 // whole tile rows, which at 256 already take 162 KB of the 227 KB a block
-// may have; at 512 one 64-row tile of Q is 64 KB. So a block owns 64 query
-// rows and one slice of kSlicePanels = 4 panels (256 columns) of O, picked
+// may have; at 512 one 64-row tile of Q is 64 KB. In the sliced kernel
+// (first), a block owns 64 query rows and one slice of kSlicePanels = 4
+// panels (256 columns) of O, picked
 // by blockIdx.z; the head size is a run-time argument, and one
 // instantiation per type serves every multiple of 64. A key step passes
 // through a ring of two 32 KB slots as items: the score product's
@@ -164,8 +200,44 @@
 // as at 256): two blocks an SM. ptxas injects a warpgroup.arrive before
 // five of its wgmma batches (warning C7519), which run under run-time
 // conditions (the slice's panel count, an odd last panel of the head).
-// Not tuned: it is the first right kernel at these sizes (PERF.md section
-// 6 has its times: at [16, 512, 512] about half h 256's TFLOP/s).
+// At [16, 512, 512] bf16 with the ragged key mask it took 56.0 us (PERF.md
+// section 6), its causal time the same: the call is one wave (256 blocks
+// on 132 SMs x 2), and each block moves 160 KB through L2 a key step (Q's
+// and K's panels, the slice's V), 320 KB an SM, 5.9 TB/s over the call.
+//
+// The wide kernel holds a 64-row tile of Q in shared memory for the whole
+// call and computes each (row tile, key tile) score product once a block:
+// a block is kWideGroups = 2 warpgroups over 64 query rows and a slice of
+// kWideSlicePanels = 8 panels (512 columns) of O, four panels a group
+// (128 float32 registers of O a thread; one slice up to h 512, two at
+// 1024, so there S is computed twice, not four times). K's panels pass two
+// at a time as 16 KB items through a ring of kWideSlots = 4 slots (three
+// items in flight, one __syncthreads an item); group g multiplies panel
+// 2j + g of item j into its own partial S, so each group's chain of k16
+// products is half the head; the two partial tiles are swapped thread by
+// thread through 16 KB of shared memory and added (S = the even panels'
+// sum + the odd panels', the same bits in both groups), and both groups
+// run softmax_tile on it, so each holds P and rescales its own panels of
+// O. Then V's items: item m carries panel m of each group's share. The
+// score sums differ from the sliced kernel's single chain in their last
+// bits; the results are held to the plain versions at the card tests'
+// tolerances (compare_flash_builds.py --only wide reports the largest
+// difference). Shared memory: Q's panels, 64 KB of ring, 16 KB for the
+// swap: up to 18 panels (h 1152) fit; 235 registers, no spills, no fences
+// injected: one block an SM. As measured on an H100 (compare_flash_builds.py
+// against 247356c's sliced kernel, in turns, one call; PERF.md section 6):
+// [16, 512, 512] 46.6 us against 54.9 (causal 47.0 against 55.5),
+// [16, 512, 1024] 123.4 against 171.9 (causal 113.2 against 156.8);
+// float16 46.5 against 54.7 and [16, 512, 1088] 175.2 against 251.8 in
+// earlier calls. Its
+// copies alone (no products) took 32.5 us at h 512 and its products
+// without copies 36.5 (both measured on the one-group form below): the L2
+// traffic of 128 KB a key step an SM and the items' chains of waits bind
+// together. Tried, and slower: one group computing S over the whole head
+// in the sliced kernel's order (the sliced kernel's bits) and handing P
+// and the row maxima to the other through shared memory, 52.7 us at 512,
+// 149.8 at 1024, 217.1 at 1088; six or eight ring slots level (47.1,
+// 46.2 against 47.2).
 //
 // What holds it back, as measured on an H100 (PERF.md section 6): at
 // [128, 512, 64] with the key mask it runs at a third of the bound above
@@ -197,35 +269,53 @@ namespace {
 
 using namespace flash_tiles;
 
-// warpgroups a block, and blocks an SM the compiler fits the registers to,
-// by head panels
+// warpgroups a block, blocks an SM the compiler fits the registers to, and
+// stages of the ring of passing tiles, by head panels (0: head size 32,
+// 32-column tiles)
 constexpr int kGroups = 1;
 constexpr int blocks_per_sm(int panels) {
-  return panels == 1 ? 4 : panels == 2 ? 2 : 1;
+  return panels == 0 ? 6 : panels == 1 ? 4 : panels == 2 ? 2 : 1;
 }
-constexpr int kStages = 2;                    // ring of passing tiles
+__host__ __device__ constexpr int stages(int panels) {
+  return panels == 0 ? 3 : 2;
+}
 
-// K and V of a step
+// a 64-row tile of the head: kPanels panels, or one narrow panel at 0
 template <int kPanels>
-__host__ __device__ constexpr int stage_bytes() {
-  return 2 * tile_bytes<kPanels>();
+__host__ __device__ constexpr int fwd_tile_bytes() {
+  return kPanels == 0 ? kNarrowTileBytes : tile_bytes<kPanels>();
 }
 
+// Q's tiles, the ring (K's and V's tiles and the keys' flags a stage), the
+// warps' words of kept_key_end
 template <int kPanels>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 1024 + kGroups * tile_bytes<kPanels>() +
-         kStages * (stage_bytes<kPanels>() + kTileRows * 4) + 4 * kGroups * 4;
+  return 1024 + kGroups * fwd_tile_bytes<kPanels>() +
+         stages(kPanels) * (2 * fwd_tile_bytes<kPanels>() + kTileRows * 4) +
+         4 * kGroups * 4;
+}
+
+// rows [row0, row0 + kRows) of the operand at `src` into the tile at
+// shared address `tile`, in kPanels panels or one narrow panel at 0
+template <int kRows, int kThreads, int kPanels, typename T>
+__device__ __forceinline__ void stage_tile(uint32_t tile, const T* src,
+                                           int row0, int rows, int tid) {
+  if constexpr (kPanels == 0)
+    stage_narrow_rows<kRows, kThreads>(tile, src, row0, rows, tid);
+  else
+    stage_rows<kRows, kThreads, kPanels>(tile, src, row0, rows, tid);
 }
 
 // One key tile of the online softmax, on a warpgroup's score accumulator
 // `s` (its 64 rows against the tile's 64 keys), in place: unless
 // `unmasked`, the scores of masked pairs (a key whose `valid` flag is off,
 // or past the row's `last_col`) become -inf; then the new row max, the
-// rescale of l and of the kAcc O accumulators, p = exp2(s scale log2 e -
+// rescale of l and of the kAcc O accumulators (kN = 32 values a thread for
+// 64 columns, 16 for the narrow kernel's 32), p = exp2(s scale log2 e -
 // offset) summed into l, and p rounded to T as the A operand `p` of P V.
-template <typename T, int kAcc>
+template <typename T, int kAcc, int kN>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float (&acc)[kAcc][32], float (&m_run)[2],
+    float (&s)[32], float (&acc)[kAcc][kN], float (&m_run)[2],
     float (&l_part)[2], uint32_t (&p)[4][4], const float* valid,
     bool unmasked, int k0, const int (&last_col)[2], int t, float scale,
     float scale2) {
@@ -266,7 +356,7 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
     for (int a = 0; a < kAcc; ++a)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN / 4; ++j) {
         acc[a][4 * j + 2 * r] *= alpha;
         acc[a][4 * j + 2 * r + 1] *= alpha;
       }
@@ -332,18 +422,20 @@ __device__ __forceinline__ void softmax_tile_n8(
   p[0][1] = pack2<T>(s[2], s[3]);
 }
 
+// K3a's whole-tile design (the note at the top), at kPanels panels of 64
+// columns or, at 0, one narrow panel of 32 (O one [64 x 32] accumulator)
 template <typename T, int kPanels>
-__global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
-    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const float* __restrict__ kv_mask,
-                        T* __restrict__ o,
-                        float* __restrict__ l_out, float* __restrict__ m_out,
-                        int tq, int tk, int n_heads, float scale,
-                        int causal) {
+__device__ __forceinline__ void fwd_tile_rows(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ kv_mask,
+    T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
+    int tq, int tk, int n_heads, float scale, int causal) {
+  constexpr bool kNarrow = kPanels == 0;
   constexpr int kThreads = 128 * kGroups, kOwned = kTileRows * kGroups;
-  constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
-                kStageBytes = stage_bytes<kPanels>();
+  constexpr int kHd = kNarrow ? kNarrowCols : kPanels * kPanelCols;
+  constexpr int kAccs = kNarrow ? 1 : kPanels, kN = kNarrow ? 16 : 32;
+  constexpr int kTile = fwd_tile_bytes<kPanels>(), kStageBytes = 2 * kTile,
+                kStages = stages(kPanels);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_u32(smem);
@@ -353,14 +445,17 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   int* flags_s = reinterpret_cast<int*>(valid_s + kStages * kTileRows);
 
   const Lanes at;
-  const int in_group = at.tid & 127;
+  // the thread's warpgroup, and its place in it (with one group a block,
+  // known to be 0 and the thread's index)
+  const int group = kGroups == 1 ? 0 : at.group;
+  const int in_group = kGroups == 1 ? at.tid : at.tid & 127;
   const int bn = blockIdx.x, q0 = blockIdx.y * kOwned;
   const T* kb = k + (size_t)bn * tk * kHd;
   const T* vb = v + (size_t)bn * tk * kHd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
-  const int group_row0 = q0 + at.group * kTileRows;
+  const int group_row0 = q0 + group * kTileRows;
   // the thread's two rows: g and g + 8 of its warp's 16
   const int row_a = group_row0 + at.warp_in_group * 16 + at.g;
 
@@ -384,15 +479,15 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     return;
   }
 
-  stage_rows<kOwned, kThreads, kPanels>(q_s, q + (size_t)bn * tq * kHd, q0,
+  stage_tile<kOwned, kThreads, kPanels>(q_s, q + (size_t)bn * tq * kHd, q0,
                                         tq, at.tid);
 
   auto stage_step = [&](int step) {
     if (step < steps) {
       const int stage = step % kStages, k0 = step * kTileRows;
       const uint32_t k_s = ring + stage * kStageBytes;
-      stage_rows<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
-      stage_rows<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
+      stage_tile<kTileRows, kThreads, kPanels>(k_s, kb, k0, tk, at.tid);
+      stage_tile<kTileRows, kThreads, kPanels>(k_s + kTile, vb, k0, tk,
                                                at.tid);
       if (at.tid < kTileRows)  // which keys of the tile take part
         stage_key_flag(valid_s + stage * kTileRows + at.tid, mask_row,
@@ -410,13 +505,13 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
   for (int r = 0; r < 2; ++r)
     last_col[r] = causal ? row_a + 8 * r + offset : tk;
 
-  // O: one [64 x 64] accumulator a panel
-  float acc[kPanels][32], m_run[2] = {kMaskValue, kMaskValue},
-                          l_part[2] = {0.f, 0.f};
+  // O: one [64 x 64] accumulator a panel, or one [64 x 32]
+  float acc[kAccs][kN], m_run[2] = {kMaskValue, kMaskValue},
+                        l_part[2] = {0.f, 0.f};
 #pragma unroll
-  for (int p = 0; p < kPanels; ++p)
+  for (int p = 0; p < kAccs; ++p)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    for (int i = 0; i < kN; ++i) acc[p][i] = 0.f;
 
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<kStages - 2>();
@@ -429,16 +524,20 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     stage_step(step + kStages - 1);
 
     // by warpgroup: no valid key in the tile, or the tile wholly above the
-    // diagonal of the group's last row
+    // diagonal of the group's last row (with one group a block, k_end has
+    // already stopped before such a tile)
     if (n_valid == 0 ||
-        (causal && k0 > group_row0 + kTileRows - 1 + offset))
+        (kGroups > 1 && causal && k0 > group_row0 + kTileRows - 1 + offset))
       continue;
     const uint32_t k_s = ring + stage * kStageBytes;
     const uint32_t v_s = k_s + kTile;
 
     float s[32];
     products_begin();
-    product_nt<T, kPanels>(s, q_s + at.group * kTile, k_s);
+    if constexpr (kNarrow)
+      product_nt_panel<T, kNarrowCols>(s, q_s, k_s, 0);
+    else
+      product_nt<T, kPanels>(s, q_s + group * kTile, k_s);
     products_end();
     keep_registers(s);
 
@@ -452,12 +551,12 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
 
     products_begin();
 #pragma unroll
-    for (int panel = 0; panel < kPanels; ++panel)
+    for (int panel = 0; panel < kAccs; ++panel)
       product_tn<T>(acc[panel], p, v_s + panel * kPanelBytes);
     products_end();
     keep_registers(p);
 #pragma unroll
-    for (int panel = 0; panel < kPanels; ++panel) keep_registers(acc[panel]);
+    for (int panel = 0; panel < kAccs; ++panel) keep_registers(acc[panel]);
   }
 
   // l over the quad, o = acc / l (a row with l == 0 has acc == 0)
@@ -475,15 +574,46 @@ __global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
     }
   }
   // the group's own Q tile is read no more: panel p of O leaves through
-  // panel p of it
+  // panel p of it; a narrow O leaves straight from the fragments
 #pragma unroll
-  for (int p = 0; p < kPanels; ++p) {
+  for (int p = 0; p < kAccs; ++p) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
-    store_accumulator<kHd>(o_rows + p * kPanelCols,
-                           smem + at.group * kTile + p * kPanelBytes, acc[p],
-                           1.f, group_row0, tq, 1 + at.group, in_group);
+    for (int i = 0; i < kN; ++i) acc[p][i] *= inv[(i >> 1) & 1];
+    if constexpr (kNarrow)
+      store_fragments(o_rows, acc[p], 1.f, group_row0, tq, in_group);
+    else
+      store_accumulator<kHd>(o_rows + p * kPanelCols,
+                             smem + group * kTile + p * kPanelBytes,
+                             acc[p], 1.f, group_row0, tq, 1 + group,
+                             in_group);
   }
+}
+
+// K3a at head size 64, 128 or 256
+template <typename T, int kPanels>
+__global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(kPanels))
+    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const float* __restrict__ kv_mask,
+                        T* __restrict__ o,
+                        float* __restrict__ l_out, float* __restrict__ m_out,
+                        int tq, int tk, int n_heads, float scale,
+                        int causal) {
+  fwd_tile_rows<T, kPanels>(q, k, v, kv_mask, o, l_out, m_out, tq, tk,
+                            n_heads, scale, causal);
+}
+
+// K3a at head size 32: the same design on 32-column tiles
+template <typename T>
+__global__ void __launch_bounds__(128 * kGroups, blocks_per_sm(0))
+    flash_fwd_narrow_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ kv_mask,
+                            T* __restrict__ o, float* __restrict__ l_out,
+                            float* __restrict__ m_out, int tq, int tk,
+                            int n_heads, float scale, int causal) {
+  fwd_tile_rows<T, 0>(q, k, v, kv_mask, o, l_out, m_out, tq, tk, n_heads,
+                      scale, causal);
 }
 
 // ---------------------------------------------------------------------------
@@ -750,14 +880,45 @@ __host__ __device__ constexpr size_t sliced_smem_bytes() {
   return 1024 + kSlots * (kSlotBytes + kTileRows * 4) + 4 * 4;
 }
 
-// K3a's launch at `panels` panels: the whole-tile kernel at 1, 2 or 4, the
-// sliced kernel above 4
+// Head sizes above 256 where Q's 64-row tile fits in shared memory beside
+// the ring: the wide kernel (see the note at the top). A block is
+// kWideGroups warpgroups over 64 query rows and one slice of
+// kWideSlicePanels panels of O, kSlicePanels of them a group; K's and V's
+// panels pass by two at a time through a ring of kWideSlots items.
+constexpr int kWideGroups = 2;
+constexpr int kWideThreads = 128 * kWideGroups;
+constexpr int kWideSlicePanels = kWideGroups * kSlicePanels;  // 512 columns
+constexpr int kWideSlots = 4;
+constexpr int kWideSlotBytes = 2 * kPanelBytes;
+constexpr size_t kBlockSmem = 232448;  // the most a block may have (sm_90)
+
+// Q's panels, the ring, two steps' key flags, the partial score tile the
+// groups swap, the warps' words of kept_key_end
+__host__ __device__ constexpr size_t wide_smem_bytes(int panels) {
+  return 1024 + (size_t)panels * kPanelBytes + kWideSlots * kWideSlotBytes +
+         2 * kTileRows * 4 + 32 * 128 * 4 + kWideThreads / 32 * 4;
+}
+
+// K3a above 4 panels on the wide kernel (else the sliced kernel)
+bool takes_wide(int panels) {
+  return panels > 4 && wide_smem_bytes(panels) <= kBlockSmem;
+}
+
+LaunchShape wide_shape(int panels) {
+  return {kWideThreads, wide_smem_bytes(panels), kTileRows,
+          (panels + kWideSlicePanels - 1) / kWideSlicePanels};
+}
+
+// K3a's launch at `panels` panels: the narrow kernel at 0 (head size 32),
+// the whole-tile kernel at 1, 2 or 4, the wide or the sliced kernel above 4
 LaunchShape fwd_shape(int panels) {
+  if (takes_wide(panels)) return wide_shape(panels);
   if (panels > 4)
     return {128, sliced_smem_bytes(), kTileRows,
             (panels + kSlicePanels - 1) / kSlicePanels};
   return {128 * kGroups,
-          panels == 1   ? smem_bytes<1>()
+          panels == 0   ? smem_bytes<0>()
+          : panels == 1 ? smem_bytes<1>()
           : panels == 2 ? smem_bytes<2>()
                         : smem_bytes<4>(),
           kGroups * kTileRows, 1};
@@ -937,12 +1098,238 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ kv_mask,
+                          T* __restrict__ o, float* __restrict__ l_out,
+                          float* __restrict__ m_out, int tq, int tk, int hd,
+                          int n_heads, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int panels = hd / kPanelCols;
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t ring = q_s + panels * kPanelBytes;
+  float* valid_s = reinterpret_cast<float*>(
+      smem + panels * kPanelBytes + kWideSlots * kWideSlotBytes);
+  // the partial score tile the groups swap, [value][thread of the group]
+  float* swap_s = valid_s + 2 * kTileRows;
+  int* flags_s = reinterpret_cast<int*>(swap_s + 32 * 128);
+
+  const Lanes at;
+  const int in_group = at.tid & 127;
+  const int panel0 = blockIdx.z * kWideSlicePanels;
+  const int slice = min(kWideSlicePanels, panels - panel0);
+  // the group's panels of O: kSlicePanels from panel0 + kSlicePanels group
+  const int own = max(0, min(kSlicePanels, slice - at.group * kSlicePanels));
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
+  const T* qb = q + (size_t)bn * tq * hd;
+  const T* kb = k + (size_t)bn * tk * hd;
+  const T* vb = v + (size_t)bn * tk * hd;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+  // the thread's two rows: g and g + 8 of its warp's 16
+  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+
+  // keys past the last row's diagonal take no part, nor keys past the last
+  // one the mask keeps (trailing padding)
+  const int k_end = kept_key_end<kWideThreads>(
+      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
+      flags_s);
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
+  float* l_rows = l_out + (size_t)bn * tq;
+  float* m_rows = m_out + (size_t)bn * tq;
+  T* o_cols = o + (size_t)bn * tq * hd + panel0 * kPanelCols;
+
+  if (steps == 0) {  // no key reaches the block: zeros, nothing read
+    for (int p = at.group; p < slice; p += kWideGroups)
+      store_zero_panel(o_cols + p * kPanelCols, q0, tq, hd, in_group);
+    const int row = q0 + at.tid;
+    if (blockIdx.z == 0 && at.tid < kTileRows && row < tq) {
+      l_rows[row] = 0.f;
+      m_rows[row] = kMaskValue;
+    }
+    return;
+  }
+
+  // Q's panels, once, with the first item
+  for (int p = 0; p < panels; ++p)
+    stage_panel<kWideThreads>(q_s + p * kPanelBytes, qb + p * kPanelCols,
+                              q0, tq, hd, at.tid);
+
+  // A key step is `items` items through the ring: K's panels two at a
+  // time (group g multiplies the item's panel g), then V's, panel m of each
+  // group's share in item m. The first item of a step also copies the
+  // tile's key flags.
+  const int score_items = (panels + 1) / 2;
+  const int v_items = min(kSlicePanels, slice);  // group 0's share, the most
+  const int items = score_items + v_items, total = steps * items;
+  auto stage_item = [&](int i) {
+    if (i < total) {
+      const int step = i / items, j = i - step * items;
+      const int k0 = step * kTileRows;
+      const uint32_t slot = ring + (i % kWideSlots) * kWideSlotBytes;
+      if (j < score_items) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (2 * j + e < panels)
+            stage_panel<kWideThreads>(slot + e * kPanelBytes,
+                                      kb + (2 * j + e) * kPanelCols, k0, tk,
+                                      hd, at.tid);
+        if (j == 0 && at.tid < kTileRows)  // which keys take part
+          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
+                         k0 + at.tid, tk);
+      } else {
+        const int m = j - score_items;
+#pragma unroll
+        for (int e = 0; e < kWideGroups; ++e)
+          if (e * kSlicePanels + m < slice)
+            stage_panel<kWideThreads>(
+                slot + e * kPanelBytes,
+                vb + (panel0 + e * kSlicePanels + m) * kPanelCols, k0, tk,
+                hd, at.tid);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count of groups in step
+  };
+  for (int i = 0; i < kWideSlots - 1; ++i) stage_item(i);
+
+  const float scale2 = scale * kLog2e;
+  int last_col[2];  // the last key each of the thread's rows may see
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    last_col[r] = causal ? row_a + 8 * r + offset : tk;
+
+  // S (group 0 over the even panels of the head, group 1 over the odd
+  // ones, then the sum), O one [64 x 64] accumulator a panel of the group's
+  // share
+  float s[32], acc[kSlicePanels][32], m_run[2] = {kMaskValue, kMaskValue},
+                                      l_part[2] = {0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < kSlicePanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  uint32_t p_frag[4][4];
+
+  // the next item: wait for it, then one barrier (the item visible to all,
+  // the slot the next copy fills read by all), which at a step's first
+  // item also counts the tile's valid keys
+  int item = 0, n_valid = 0;
+  auto next_item = [&](bool first) {
+    cp_async_wait<kWideSlots - 2>();
+    if (first)
+      n_valid = __syncthreads_count(
+          at.tid < kTileRows &&
+          valid_s[((item / items) % 2) * kTileRows + at.tid] > 0.f);
+    else
+      __syncthreads();
+    stage_item(item + kWideSlots - 1);
+    return ring + (item++ % kWideSlots) * kWideSlotBytes;
+  };
+
+  for (int step = 0; step < steps; ++step) {
+    const int k0 = step * kTileRows;
+    const float* valid = valid_s + (step % 2) * kTileRows;
+    for (int j = 0; j < score_items; ++j) {
+      const uint32_t slot = next_item(j == 0);
+      const int p = 2 * j + at.group;  // the group's panel of the item
+      if (n_valid == 0 || p >= panels) continue;
+      products_begin();
+      product_nt_panel<T>(s, q_s + p * kPanelBytes,
+                          slot + at.group * kPanelBytes, 4 * j);
+      products_end();
+      keep_registers(s);
+    }
+    if (n_valid != 0) {
+      // S = the even panels' sum + the odd panels': the groups swap their
+      // partial tiles thread by thread through one buffer (group 1's in,
+      // then group 0's in its place), and each adds the two
+      float* swap = swap_s + in_group;
+      if (at.group == 1)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) swap[128 * i] = s[i];
+      __syncthreads();
+      if (at.group == 0)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float odd = swap[128 * i];
+          swap[128 * i] = s[i];
+          s[i] += odd;
+        }
+      __syncthreads();
+      if (at.group == 1)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] += swap[128 * i];
+      // S is whole: the softmax, the same in both groups
+      const bool unmasked =
+          n_valid == kTileRows &&
+          (!causal || k0 + kTileRows - 1 <= q0 + offset);
+      softmax_tile<T>(s, acc, m_run, l_part, p_frag, valid, unmasked, k0,
+                      last_col, at.t, scale, scale2);
+    }
+#pragma unroll
+    for (int m = 0; m < kSlicePanels; ++m) {
+      if (m >= v_items) break;
+      const uint32_t slot = next_item(false);
+      if (n_valid == 0) continue;
+      if (m < own) {
+        products_begin();
+        product_tn<T>(acc[m], p_frag, slot + at.group * kPanelBytes);
+        products_end();
+        keep_registers(p_frag);
+        keep_registers(acc[m]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // l over the quad, o = acc / l (a row with l == 0 has acc == 0); group
+  // 0 of the first slice writes l and m
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = l == 0.f ? 1.f : 1.f / l;
+    const int row = row_a + 8 * r;
+    if (blockIdx.z == 0 && at.group == 0 && at.t == 0 && row < tq) {
+      l_rows[row] = l;
+      m_rows[row] = m_run[r];
+    }
+  }
+  __syncthreads();  // Q and the ring are read no more
+  // panel a of the group's share leaves through panel (4 group + a) of
+  // shared memory
+#pragma unroll
+  for (int a = 0; a < kSlicePanels; ++a) {
+    if (a < own) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] *= inv[(i >> 1) & 1];
+      const int p = at.group * kSlicePanels + a;
+      store_panel(o_cols + p * kPanelCols, smem + p * kPanelBytes, acc[a],
+                  1.f, q0, tq, hd, 1 + at.group, in_group);
+    }
+  }
+}
+
+// the whole-tile kernel at kPanels panels (0: the narrow kernel)
+template <typename T, int kPanels>
+constexpr auto tile_kernel() {
+  if constexpr (kPanels == 0)
+    return flash_fwd_narrow_kernel<T>;
+  else
+    return flash_fwd_tc_kernel<T, kPanels>;
+}
+
 template <typename T, int kPanels>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, void* l, void* m, int bn,
                    int tq, int tk, int n_heads, float scale, int causal,
                    cudaStream_t stream) {
-  return launch_in<flash_fwd_tc_kernel<T, kPanels>>(
+  return launch_in<tile_kernel<T, kPanels>()>(
       fwd_shape(kPanels), bn, tq, stream, (const T*)q, (const T*)k,
       (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
       tk, n_heads, scale, causal);
@@ -956,6 +1343,21 @@ cudaError_t launch_sliced(int hd, const void* q, const void* k,
                           cudaStream_t stream) {
   return launch_in<flash_fwd_sliced_kernel<T>>(
       fwd_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
+      tk, hd, n_heads, scale, causal);
+}
+
+// the wide kernel's shared memory depends on the head size: it is allowed
+// the most a block may have once, before its first launch or query
+template <typename T>
+cudaError_t launch_wide(int hd, const void* q, const void* k, const void* v,
+                        const void* kv_mask, void* o, void* l, void* m,
+                        int bn, int tq, int tk, int n_heads, float scale,
+                        int causal, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<flash_fwd_wide_kernel<T>>(kBlockSmem);
+  if (err != cudaSuccess) return err;
+  return launch_in<flash_fwd_wide_kernel<T>>(
+      wide_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
       (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
       tk, hd, n_heads, scale, causal);
 }
@@ -1001,6 +1403,9 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
   if (takes_short(panels, tq, tk))
     return launch_short<T>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
                            scale, causal, stream);
+  if (panels == 0)
+    return launch<T, 0>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
+                        scale, causal, stream);
   if (panels == 1)
     return launch<T, 1>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
                         scale, causal, stream);
@@ -1010,6 +1415,9 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
   if (panels == 4)
     return launch<T, 4>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
                         scale, causal, stream);
+  if (takes_wide(panels))
+    return launch_wide<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
+                          bn, tq, tk, n_heads, scale, causal, stream);
   if (panels > 4)
     return launch_sliced<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
                             bn, tq, tk, n_heads, scale, causal, stream);
@@ -1018,8 +1426,9 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
 
 }  // namespace
 
-// f16: float16 operands (else bfloat16); panels: the head size over 64, 1,
-// 2, 4 or any count above 4 (the sliced kernel)
+// f16: float16 operands (else bfloat16); panels: the head size over 64, 0
+// (head size 32, the narrow kernel), 1, 2, 4 or any count above 4 (the
+// wide kernel, or the sliced kernel where Q's tile does not fit)
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -1032,10 +1441,15 @@ cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
 }
 
 // K3a's kernel for a call at `panels` panels and these lengths (0 the
-// whole-tile kernel, 1 the short kernel, 2 the sliced kernel), its launch
-// shape, and the blocks of it the current card holds at once (or -1)
+// whole-tile kernel, 1 the short kernel, 2 the sliced kernel, 3 the narrow
+// kernel, 4 the wide kernel), its launch shape, and the blocks of it the
+// current card holds at once (or -1)
 int flash_fwd_tc_kernel_of(int panels, int tq, int tk) {
-  return takes_short(panels, tq, tk) ? 1 : panels > 4 ? 2 : 0;
+  return takes_short(panels, tq, tk) ? 1
+         : takes_wide(panels)        ? 4
+         : panels > 4                ? 2
+         : panels == 0               ? 3
+                                     : 0;
 }
 
 flash_tiles::LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk) {
@@ -1045,6 +1459,14 @@ flash_tiles::LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk) {
 int flash_fwd_tc_resident(int f16, int panels, int tq, int tk) {
   using flash_tiles::resident_blocks;
   const flash_tiles::LaunchShape shape = flash_fwd_tc_shape(panels, tq, tk);
+  // one block an SM at every wide size: allowed the most shared memory
+  // first, as its launcher allows it
+  if (takes_wide(panels) &&
+      (flash_tiles::allow_smem<flash_fwd_wide_kernel<__nv_bfloat16>>(
+           kBlockSmem) != cudaSuccess ||
+       flash_tiles::allow_smem<flash_fwd_wide_kernel<__half>>(kBlockSmem) !=
+           cudaSuccess))
+    return -1;
   switch (flash_fwd_tc_kernel_of(panels, tq, tk) * 2 + (f16 ? 1 : 0)) {
     case 2:
       return resident_blocks<flash_fwd_short_kernel<__nv_bfloat16>>(shape);
@@ -1054,6 +1476,14 @@ int flash_fwd_tc_resident(int f16, int panels, int tq, int tk) {
       return resident_blocks<flash_fwd_sliced_kernel<__nv_bfloat16>>(shape);
     case 5:
       return resident_blocks<flash_fwd_sliced_kernel<__half>>(shape);
+    case 6:
+      return resident_blocks<flash_fwd_narrow_kernel<__nv_bfloat16>>(shape);
+    case 7:
+      return resident_blocks<flash_fwd_narrow_kernel<__half>>(shape);
+    case 8:
+      return resident_blocks<flash_fwd_wide_kernel<__nv_bfloat16>>(shape);
+    case 9:
+      return resident_blocks<flash_fwd_wide_kernel<__half>>(shape);
   }
   if (panels == 1)
     return f16 ? resident_blocks<flash_fwd_tc_kernel<__half, 1>>(shape)

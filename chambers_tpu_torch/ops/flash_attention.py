@@ -19,14 +19,18 @@ head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel`` (at head size
 64 over 1 to 256 queries and 129 to 256 keys its
 ``flash_bwd_dkv_short_kernel``, which keeps a head's Q and dO resident),
 ``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (all built on
-``flash_tiles.cuh``, templated on the type; at head size 32 the backward's
-``flash_bwd_dkv_narrow_kernel`` and ``flash_bwd_dq_narrow_kernel``, on
-32-column panels); float32 takes the FMA kernels
+``flash_tiles.cuh``, templated on the type; at head size 32
+``flash_fwd_narrow_kernel``, ``flash_bwd_dkv_narrow_kernel`` and
+``flash_bwd_dq_narrow_kernel``, on 32-column panels); float32 takes the FMA
+kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
 of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
 which also holds the C interface. Above head size 256 the 16-bit types take
-the sliced tensor-core kernels ``flash_fwd_sliced_kernel`` and
-``flash_bwd_dq_sliced_kernel``, which give each block one slice of the
+K3a's ``flash_fwd_wide_kernel`` (two warpgroups over 64 query rows and up
+to 512 output columns a block, Q's tile resident, each score product
+computed once a block; above head size 1152, where Q's tile does not fit,
+the sliced ``flash_fwd_sliced_kernel``), K3c's sliced
+``flash_bwd_dq_sliced_kernel``, which gives each block one slice of the
 head's output columns, and the cluster kernel
 ``flash_bwd_dkv_cluster_kernel``, whose blocks each own a slice of the
 columns and sum their terms of the score products over a thread-block
@@ -65,16 +69,16 @@ that is already contiguous).
 Head sizes. The kernels work on whole 64-column panels: up to 256 at
 ``HEAD_SIZES`` = 64, 128 and 256, above it at any multiple of 64 (the
 sliced and cluster kernels, and the float32 ``_cols`` kernels, take the
-head size at run time). The backward also takes ``NARROW`` = 32 in bfloat16
-and float16, on its narrow kernels. On a CUDA tensor any other head size is
-zero-padded to the next size the kernels take (:func:`kernel_head_size`
-for K3a, :func:`backward_head_size` for K3b and K3c, :func:`pad_head`):
-zero columns add nothing to ``q kᵀ``, the padded columns of ``o``, dQ, dK
-and dV are dropped, the scale comes from the true head size, and ``di`` is
-computed from the unpadded ``o`` and ``do``, so the padded call computes
-the unpadded one's function (the CPU tests hold the plain versions to that
-bit for bit). On CPU tensors the plain versions take any head size
-unpadded.
+head size at run time). In bfloat16 and float16 the kernels also take
+``NARROW`` = 32, on their narrow kernels. On a CUDA tensor any other head
+size is zero-padded to the next size the kernels take in its type
+(:func:`kernel_head_size`, :func:`pad_head`), the same for K3a, K3b and
+K3c: zero columns add nothing to ``q kᵀ``, the padded columns of ``o``,
+dQ, dK and dV are dropped, the scale comes from the true head size, and
+``di`` is computed from the unpadded ``o`` and ``do``, so the padded call
+computes the unpadded one's function (the CPU tests hold the plain
+versions to that bit for bit). On CPU tensors the plain versions take any
+head size unpadded.
 """
 
 import ctypes
@@ -92,7 +96,7 @@ LIBRARY = ("flash_attention",
             "flash_attention_bwd.cu", "flash_tiles.cuh"], _build.FMA_FLAGS)
 HEAD_SIZES = (64, 128, 256)     # head_dim the CUDA kernels are built for
 PANEL = 64                      # above HEAD_SIZES[-1]: any multiple of it
-NARROW = 32                     # the backward's narrow kernels (16-bit types)
+NARROW = 32                     # the narrow kernels (16-bit types)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # masked scores: finite, so that exp(m_prev - m_next) never sees inf - inf
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -102,7 +106,8 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 KERNEL_NAMES = {
     "fwd": ("flash_fwd_kernel", "flash_fwd_cols_kernel",
             "flash_fwd_tc_kernel", "flash_fwd_short_kernel",
-            "flash_fwd_sliced_kernel"),
+            "flash_fwd_sliced_kernel", "flash_fwd_narrow_kernel",
+            "flash_fwd_wide_kernel"),
     "dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_cols_kernel",
             "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_short_kernel",
             "flash_bwd_dkv_cluster_kernel", "flash_bwd_dkv_narrow_kernel"),
@@ -153,23 +158,18 @@ def delta(o, do):
     return (do.float() * o.float()).sum(dim=-1, keepdim=True)
 
 
-def kernel_head_size(h):
-    """The head size the CUDA kernels run a call of head size ``h`` at: the
-    smallest of ``HEAD_SIZES`` that holds it, and above the largest the
-    next multiple of ``PANEL`` (the sliced and cluster kernels')."""
+def kernel_head_size(h, dtype):
+    """The head size K3a, K3b and K3c run a call of head size ``h`` in
+    ``dtype`` at: ``NARROW`` (32) for ``h <= 32`` in bfloat16 and float16,
+    the narrow kernels'; else the smallest of ``HEAD_SIZES`` that holds it,
+    and above the largest the next multiple of ``PANEL`` (the sliced and
+    cluster kernels')."""
+    if h <= NARROW and dtype in (torch.bfloat16, torch.float16):
+        return NARROW
     for size in HEAD_SIZES:
         if h <= size:
             return size
     return -(-h // PANEL) * PANEL
-
-
-def backward_head_size(h, dtype):
-    """The head size K3b and K3c run a call of head size ``h`` in ``dtype``
-    at: ``NARROW`` (32) for ``h <= 32`` in bfloat16 and float16, the narrow
-    kernels', else :func:`kernel_head_size`."""
-    if h <= NARROW and dtype in (torch.bfloat16, torch.float16):
-        return NARROW
-    return kernel_head_size(h)
 
 
 def pad_head(x, size):
@@ -272,15 +272,13 @@ def _operand(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _tail(q, k, scale, causal, n_heads, backward=False):
+def _tail(q, k, scale, causal, n_heads):
     bn, tq, h = q.shape
-    if (backward_head_size(h, q.dtype) if backward
-            else kernel_head_size(h)) != h:
+    if kernel_head_size(h, q.dtype) != h:
         raise ValueError(f"the kernels take head_dim {HEAD_SIZES} and any "
-                         f"multiple of {PANEL} above (the backward also "
-                         f"{NARROW} in bfloat16 and float16), got {h}: pad "
-                         f"it (pad_head, kernel_head_size, "
-                         f"backward_head_size)")
+                         f"multiple of {PANEL} above (also {NARROW} in "
+                         f"bfloat16 and float16), got {h}: pad it "
+                         f"(pad_head, kernel_head_size)")
     return (bn, tq, k.shape[1], h, n_heads, float(scale), int(bool(causal)),
             DTYPES[q.dtype], _build.stream(q.device))
 
@@ -288,10 +286,12 @@ def _tail(q, k, scale, causal, n_heads, backward=False):
 def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
     """Launch K3a alone on checked, contiguous CUDA operands of a head size
     the kernels take: ``(o, l, m)``. bfloat16 and float16 operands run
-    ``flash_fwd_short_kernel`` at head size 64 when a head's queries (64 to
-    256) and keys (1 to 256) fit in shared memory whole,
-    ``flash_fwd_tc_kernel`` otherwise (above 256 ``flash_fwd_sliced_kernel``),
-    float32 ``flash_fwd_kernel`` (from 256 on ``flash_fwd_cols_kernel``).
+    ``flash_fwd_narrow_kernel`` at head size 32, ``flash_fwd_short_kernel``
+    at head size 64 when a head's queries (64 to 256) and keys (1 to 256)
+    fit in shared memory whole,
+    ``flash_fwd_tc_kernel`` otherwise (above 256 ``flash_fwd_wide_kernel``,
+    above 1152 ``flash_fwd_sliced_kernel``), float32 ``flash_fwd_kernel``
+    (from 256 on ``flash_fwd_cols_kernel``).
     The launch counts in ``flash_attention.launches["fwd"]`` and under its
     kernel's name in ``flash_attention.forward_launches``."""
     tail = _tail(q, k, scale, causal, n_heads)
@@ -321,7 +321,7 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
     (from 256 on ``flash_bwd_dkv_cols_kernel``). The launch counts in
     ``flash_attention.launches["dkv"]`` and under its kernel's name in
     ``flash_attention.backward_launches``."""
-    tail = _tail(q, k, scale, causal, n_heads, backward=True)
+    tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     kernel = backward_kernel(q.dtype, q.shape[2], q.shape[1], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -343,7 +343,7 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
     ``flash_bwd_dq_kernel`` (from 256 on ``flash_bwd_dq_cols_kernel``). The
     launch counts in ``flash_attention.launches["dq"]`` and under its
     kernel's name in ``flash_attention.dq_launches``."""
-    tail = _tail(q, k, scale, causal, n_heads, backward=True)
+    tail = _tail(q, k, scale, causal, n_heads)
     lib = _library()
     kernel = dq_kernel(q.dtype, q.shape[2])
     dq = torch.empty_like(q)
@@ -454,29 +454,22 @@ class FlashAttentionFunction(torch.autograd.Function):
     """``o = attention(q, k, v)`` over ``[bn, t, h]`` with a hand-written
     backward; ``scale`` multiplies the scores. The forward is the
     :func:`flash_fwd` operator. On CUDA tensors a head size the kernels do
-    not take is zero-padded to the next one, K3a's
-    (:func:`kernel_head_size`) in the forward, K3b's and K3c's
-    (:func:`backward_head_size`) for the backward (:func:`pad_head`):
-    ``q, k, v`` are saved padded to the backward's size and ``o`` cut to
-    it, the incoming gradient is padded to it, and the padded columns of
-    every output are dropped."""
+    not take is zero-padded to the next one (:func:`kernel_head_size`,
+    :func:`pad_head`), the same for the forward and the backward: ``q, k,
+    v`` and ``o`` are saved padded, the incoming gradient is padded, and
+    the padded columns of every output are dropped."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, causal, n_heads):
         _check_operands(q, k, v, kv_mask, n_heads)
         h = q.shape[-1]
-        cuda = q.device.type == "cuda"
-        size = kernel_head_size(h) if cuda else h
-        saved = backward_head_size(h, q.dtype) if cuda else h
+        size = kernel_head_size(h, q.dtype) if q.device.type == "cuda" else h
         # contiguous here, so that the operator and the backward share one
-        # copy where the two sizes agree; the alignment is checked where a
-        # kernel launches (a traced tensor has no address)
+        # copy; the alignment is checked where a kernel launches (a traced
+        # tensor has no address)
         padded = [pad_head(x, size).contiguous() for x in (q, k, v)]
         o, l, m = flash_fwd(*padded, kv_mask, scale, causal, n_heads)
-        if saved != size:
-            padded = [pad_head(x, saved).contiguous() for x in (q, k, v)]
-        ctx.save_for_backward(*padded, o if saved == size else o[..., :saved],
-                              l, m, kv_mask)
+        ctx.save_for_backward(*padded, o, l, m, kv_mask)
         ctx.attention = (scale, causal, n_heads, h)
         return o if size == h else o[..., :h]
 

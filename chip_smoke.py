@@ -35,10 +35,14 @@ the CUDA toolkit. In order, it:
    key, one query against 300 keys, and a batch item with no valid key, in
    bf16 (the tensor-core kernels) and in float32 (the FMA ones), and the
    edges of K3b's short kernel (causal 120 x 250 and 200 x 136, one query
-   against 200 keys, 193 x 193, 198 x 198 in float16); two
+   against 200 keys, 193 x 193, 198 x 198 in float16), and the narrow
+   kernels' edges at head sizes 8, 16 and 32 in bf16 and float16 (one key,
+   one query against 300 keys, 198 x 198, causal cross lengths both ways,
+   a batch item with no valid key); two
    launches of each kernel must give the same bits, the profiler must show
    the short tensor-core forward for bf16 at 96 tokens, the whole-tile one
-   at 300 and the FMA one for float32, and the
+   at 300, the narrow one for float16 at h 32 and the FMA one for float32,
+   and the
    two matrix products the bf16 backward is built from are held alone
    against ``torch.matmul``;
 9. drives the second main path — the padded ``Seq2SeqTransformer`` train
@@ -255,9 +259,11 @@ the CUDA toolkit. In order, it:
     their meshless runs, and ``distributed_recall_at_k`` on config 4's 256
     embeddings against ``utils.ranking``;
 26. runs the flash kernels at head sizes other than 64 (``head_sizes_path``),
-    phase 9's width 512 over 16 heads (h 32: K3a zero-padded to its 64,
-    K3b and K3c on their narrow kernels at 32, every launch of the flash
-    step held to have run them), over 4 (h 128) and over 2 (h 256): (a)
+    phase 9's width 512 over 16 heads (h 32: K3a, K3b and K3c on their
+    narrow kernels at 32, every launch of the flash step held to have run
+    them by the counters by kernel, and every K3a launch to have run at its
+    model's own head size, none padded), over 4 (h 128) and over 2 (h 256):
+    (a)
     K3a-c through
     ``flash_attention`` and its backward at ``[256, 512, 32]``, ``[64,
     512, 128]`` and ``[32, 512, 256]`` bf16 with the ragged key mask,
@@ -284,25 +290,32 @@ the CUDA toolkit. In order, it:
     with the bf16 step, K3a-c 12 launches each a step by the counters, set
     to 0 just before the timed steps and read just after;
 28. runs the flash kernels at head sizes above 256 (``wide_heads_path``),
-    on K3a's and K3c's sliced and K3b's cluster tensor-core kernels and, in
-    float32, the ``_cols`` FMA kernels: (a) K3a-c through
+    on K3a's wide (up to h 1152) and K3c's sliced and K3b's cluster
+    tensor-core kernels and, in float32, the ``_cols`` FMA kernels: (a)
+    K3a-c through
     ``flash_attention`` and its backward at
     ``[16, 512, 512]`` (phase 9's width over one head) with the ragged key
     mask, causal and not, in bf16, float16 and float32, held to their
     plain versions with phase 8's tolerances and timed in bf16 and float16
     at phase 11's tokens against their bounds and SDPA, whose backend the
-    profiler names; (b) K3a-c held at h 288 (padded to 320), 384, 1024
-    and 1088 on small shapes (cross lengths under the causal mask, rows and
+    profiler names; (b) K3a-c held at h 288 (padded to 320), 384, 1024,
+    1088 and 1216 (the sliced K3a) on small shapes (cross lengths under the causal mask, rows and
     a batch item with no valid key, a scattered key mask) in the three
     types; (c) phase 9's padded train step over one head of 512, flash
     against dense attention on the same init (first loss within 2e-4 of
     dense's, logits, the timed steps in turns, K3a-c 12 launches each a
-    step by the counters); (d) greedy decoding of 16 tokens at h 512
-    (float32 tokens equal dense's) and K3a at one query row, ``[16, 1,
-    512]`` against ``[16, 512, 512]``, held and timed as in phase 17; (e)
-    K3a-c at ``[16, 512, h]`` for h 288, 384, 512, 1024 and 1088: each
-    one's time, TFLOP/s, share of its bound, registers and launch shape
-    (shared memory, cluster size, clusters the card holds at once);
+    step by the counters, every K3a launch of the step and of (d)'s bf16
+    decode on the kernel the dispatch names); (d) greedy decoding of 16
+    tokens at h 512 (float32 tokens equal dense's) and K3a at one query
+    row, ``[16, 1, 512]`` against ``[16, 512, 512]``, held and timed as in
+    phase 17; (e) K3a-c at ``[16, 512, h]`` for h 288, 384, 512, 1024 and
+    1088: K3a held to its plain version there, each one's time, TFLOP/s,
+    share of its bound, registers and launch shape (shared memory, cluster
+    size, clusters the card holds at once); (f) K3a above h 1152 on the
+    sliced kernel, at ``[16, 1, 512, 1216]``: held to its plain version,
+    driven once through ``flash_attention`` and its backward with the
+    counters at 0 just before and read just after (its one K3a launch on
+    ``flash_fwd_sliced_kernel``), and timed as phase 26 times K3a;
 29. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
     ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
     line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``float16``
@@ -322,9 +335,13 @@ the CUDA toolkit. In order, it:
     h 32, 128 and 256 as ``shape_h32``, ``shape_h128`` and ``shape_h256``
     with their registers and spills, in float16 at ``[128, 512, 64]`` as
     ``float16``, at h 512 as ``shape_h512`` with their registers, spills
-    and launch shapes, K3a at one query row at h 128 and 512 as
+    and launch shapes, K3a at h 1216 as ``shape_h1216``, K3a at one query row at h 128 and 512 as
     ``decode_h128`` and ``decode_h512``, K3a's two decode shapes as rows of
-    their own after it), the card line, and last
+    their own after it, and a row of its own for each kernel that runs
+    only at h 32 or above 256: the narrow K3a-c, the wide and the sliced
+    K3a, the cluster K3b and the sliced K3c, each with its launches on
+    phase 26's or 28's path, the sliced K3a's on 28 (f)'s call), the card
+    line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -359,7 +376,8 @@ PTXAS = {}
 FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow)?_kernel)")
+                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow|_wide)?"
+                r"_kernel)")
 # exponents (ex2) an SM's special-function units give a clock: four in each
 # of its four partitions (H100)
 SFU_EXP2_PER_CLOCK = 16
@@ -647,6 +665,34 @@ def phase8_cases(torch, dev):
     return cases, dead
 
 
+# phase 8's head sizes for the narrow kernels (bf16 and float16 run K3a-c
+# at 32, h 8 and 16 padded to it)
+NARROW_HEADS = (8, 16, 32)
+
+
+def narrow_cases(torch, dev, h):
+    """Phase 8's cases for the narrow kernels at head size ``h``, in bf16
+    and float16: one key, one query row against 300 keys with a key mask,
+    DeiT-B/16's 198 tokens, causal cross lengths both ways (130 rows that
+    see no key), a batch item with no valid key, and the mask of that
+    item."""
+    bf16, f16 = torch.bfloat16, torch.float16
+    dead = ragged_mask(torch, 2, 200, dev)
+    dead[1] = False
+    return [
+        (f"narrow h {h}: one key", 2, 2, 64, 1, bf16, False, None, "plain"),
+        (f"narrow h {h}: one query against 300 keys, key mask", 2, 2, 1,
+         300, f16, False, scattered_mask(torch, 2, 300, dev, 14), "plain"),
+        (f"narrow h {h}: DeiT-B/16 198x198", 2, 12, 198, 198, bf16, False,
+         None, "permuted"),
+        (f"narrow h {h}: cross lengths 130x260 causal", 1, 2, 130, 260, f16,
+         True, None, "plain"),
+        (f"narrow h {h}: cross lengths 260x130 causal, 130 rows with no "
+         f"key", 1, 2, 260, 130, bf16, True, None, "plain"),
+        (f"narrow h {h}: batch item with no valid key", 2, 2, 200, 200, f16,
+         False, dead, "permuted")], dead
+
+
 def check_flash_kernels(torch, fa, dev, h=64, cases=None, dead=None):
     """Phase 8: K3a-c against their plain versions on the card, through the
     wrapper the paths call: ``flash_attention`` forward and its backward,
@@ -659,10 +705,11 @@ def check_flash_kernels(torch, fa, dev, h=64, cases=None, dead=None):
     padded to the size the kernels take, as the wrapper pads them."""
     if cases is None:
         cases, dead = phase8_cases(torch, dev)
-    size = fa.kernel_head_size(h)
     gen = torch.Generator(device=dev).manual_seed(1)
     path_err = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     for label, b_, n_, tq, tk, dtype, causal, mask, layout in cases:
+        size = fa.kernel_head_size(h, dtype)
+
         def rand(tt):
             if layout == "permuted":  # as a projection's einsum may hand over
                 return torch.randn((b_, tt, n_, h), device=dev,
@@ -789,16 +836,18 @@ def check_forward_kernel_names(torch, fa, dev):
     """Which kernel each type's forward launches, read from the profiler
     and held to the dispatch's own answer (``fa.forward_kernel``): bf16 at
     96 tokens runs ``flash_fwd_short_kernel`` (a head resident), at 300
-    ``flash_fwd_tc_kernel`` (tensor cores, tiles passing), float32
-    ``flash_fwd_kernel`` (FMAs)."""
+    ``flash_fwd_tc_kernel`` (tensor cores, tiles passing), float16 at head
+    size 32 ``flash_fwd_narrow_kernel``, float32 ``flash_fwd_kernel``
+    (FMAs)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    wanted = ((torch.bfloat16, 96, "flash_fwd_short_kernel"),
-              (torch.bfloat16, 300, "flash_fwd_tc_kernel"),
-              (torch.float32, 96, "flash_fwd_kernel"))
-    for dtype, t, want in wanted:
-        q, k, v = (torch.randn((4, t, 64), device=dev,
+    wanted = ((torch.bfloat16, 96, 64, "flash_fwd_short_kernel"),
+              (torch.bfloat16, 300, 64, "flash_fwd_tc_kernel"),
+              (torch.float16, 300, 32, "flash_fwd_narrow_kernel"),
+              (torch.float32, 96, 64, "flash_fwd_kernel"))
+    for dtype, t, h, want in wanted:
+        q, k, v = (torch.randn((4, t, h), device=dev,
                                generator=gen).to(dtype) for _ in range(3))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -806,10 +855,10 @@ def check_forward_kernel_names(torch, fa, dev):
             torch.cuda.synchronize()
         names = {found.group(1) for e in prof.key_averages()
                  if (found := re.search(FLASH_KERNEL, e.key))}
-        log(f"profiler: {str(dtype).split('.')[-1]} forward at {t} tokens "
-            f"runs {sorted(names)}")
-        check(names == {want} and fa.forward_kernel(dtype, 64, t, t) == want,
-              f"{str(dtype).split('.')[-1]} forward at {t} tokens runs "
+        log(f"profiler: {str(dtype).split('.')[-1]} forward at {t} tokens, "
+            f"h {h} runs {sorted(names)}")
+        check(names == {want} and fa.forward_kernel(dtype, h, t, t) == want,
+              f"{str(dtype).split('.')[-1]} forward at {t} tokens, h {h} runs "
               f"{want}")
 
 
@@ -1044,7 +1093,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
     type_name = str(dtype).split(".")[-1]
     b, n, t = S2S["batch"], heads or S2S["heads"], S2S["t"]
     bn, scale = b * n, h ** -0.5
-    size, back = fa.kernel_head_size(h), fa.backward_head_size(h, dtype)
+    size = fa.kernel_head_size(h, dtype)
     mask = ragged_mask(torch, b, t, dev)
     fmask = mask.float()
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1054,16 +1103,13 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
                            generator=gen).to(dtype)
 
     # cycle over sets larger together than the 50 MB L2; the kernels read
-    # q, k, v, do padded to the head size they take, K3a's and the
-    # backward's (the same tensors at 64)
-    sets, padded, padded_back = [], [], []
+    # q, k, v, do padded to the head size they take
+    sets, padded = [], []
     for _ in range(3):
         q, k, v, do = rand(), rand(), rand(), rand()
         o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, n)
         sets.append((q, k, v, do, o, l, m, fa.delta(o, do)))
         padded.append(tuple(fa.pad_head(x, size) for x in (q, k, v, do)))
-        padded_back.append(tuple(fa.pad_head(x, back)
-                                 for x in (q, k, v, do)))
     turn = iter(range(10 ** 9))
 
     def nxt():
@@ -1074,7 +1120,7 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
 
     def bwd_args(causal):
         i = next(turn) % len(sets)
-        q, k, v, do = padded_back[i]
+        q, k, v, do = padded[i]
         _, _, _, _, _, l, m, di = sets[i]
         return (q, k, v, do, l, m, di, fmask, scale, causal, n)
 
@@ -1112,8 +1158,9 @@ def time_flash_kernels(torch, fa, dev, launches, errors, h=64, heads=None,
         o32, l32, m32 = fa.flash_forward_plain(q32, k32, v32, scale, False,
                                                fmask, n)
         di32 = fa.delta(o32, do32)
-        q32, k32, v32, do32 = (fa.pad_head(x, size) for x in (q32, k32, v32,
-                                                               do32))
+        size32 = fa.kernel_head_size(h, torch.float32)
+        q32, k32, v32, do32 = (fa.pad_head(x, size32)
+                               for x in (q32, k32, v32, do32))
         args32 = (q32, k32, v32, do32, l32, m32, di32, fmask, scale, False,
                   n)
         float32_ms = {
@@ -1800,12 +1847,13 @@ def vits16_decayed_paths():
 
 class shape_tally:
     """Within the block, every K3a launch is also tallied by its ``(tq,
-    tk)``: which attention a launch served. It wraps
+    tk)`` (``counts``: which attention a launch served) and by the head
+    size it ran at (``widths``: a padded call shows there). It wraps
     ``flash_attention.launch_forward`` and leaves the wrapper's own count
     as it is."""
 
     def __init__(self, fa):
-        self.fa, self.counts = fa, {}
+        self.fa, self.counts, self.widths = fa, {}, {}
 
     def __enter__(self):
         self.saved = self.fa.launch_forward
@@ -1813,6 +1861,7 @@ class shape_tally:
         def tallied(q, k, *args, _fn=self.saved):
             key = (q.shape[1], k.shape[1])
             self.counts[key] = self.counts.get(key, 0) + 1
+            self.widths[q.shape[2]] = self.widths.get(q.shape[2], 0) + 1
             return _fn(q, k, *args)
 
         self.fa.launch_forward = tallied
@@ -5766,10 +5815,9 @@ def scale_out_path(torch, fa, dev, vit_ms):
 # 26. head sizes other than 64
 # ---------------------------------------------------------------------------
 
-# phase 9's width 512 over 16 heads (h 32: K3a padded to 64, the backward
-# on its narrow kernels), over 4 (h 128) and over 2 (h 256): phase 11's
-# tokens and
-# FLOPs, and phase 9's step, at the other head sizes
+# phase 9's width 512 over 16 heads (h 32: K3a-c on their narrow
+# kernels), over 4 (h 128) and over 2 (h 256): phase 11's tokens and FLOPs,
+# and phase 9's step, at the other head sizes
 HEADS = {32: 16, 128: 4, 256: 2}
 HEADS_STEPS, HEADS_REPEATS, HEADS_PROFILED = 2, 3, 2
 HEADS_DECODE = 16          # tokens greedy (c) decodes
@@ -5816,6 +5864,8 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
     under its own ``phase`` label."""
     heads_of = heads_of or HEADS
     from chambers_tpu_torch.models import greedy_decode
+
+    zero_flash(fa)  # the counters count this path alone from here
 
     src, tgt = seq2seq_tokens(torch, dev)
     vocab, per_step = S2S["vocab"], 3 * S2S["layers"]
@@ -5876,15 +5926,22 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
                 tally["steps"] += 1
 
             steps[f"{impl} h{h}"] = step
-    runs = run_in_turns(torch, steps, 1, HEADS_REPEATS, HEADS_STEPS)
-    for name, tally in tallies.items():
-        want = per_step * tally["steps"] if name.startswith("flash") else 0
-        check(all(tally[k] == want for k in ("fwd", "dkv", "dq")),
-              f"{name}: K3a-c each launched 12 times a flash step "
-              f"(counters {tally})")
-    profiles = {name: fit_profile(torch, lambda step=step: [
-        step(i) for i in range(HEADS_PROFILED)], HEADS_PROFILED)
-        for name, step in steps.items()}
+    with shape_tally(fa) as widths:
+        runs = run_in_turns(torch, steps, 1, HEADS_REPEATS, HEADS_STEPS)
+        for name, tally in tallies.items():
+            want = per_step * tally["steps"] if name.startswith("flash") else 0
+            check(all(tally[k] == want for k in ("fwd", "dkv", "dq")),
+                  f"{name}: K3a-c each launched 12 times a flash step "
+                  f"(counters {tally})")
+        profiles = {name: fit_profile(torch, lambda step=step: [
+            step(i) for i in range(HEADS_PROFILED)], HEADS_PROFILED)
+            for name, step in steps.items()}
+    # every K3a launch of a flash step ran at its model's own head size:
+    # none was padded
+    check(widths.widths == {h: tallies[f"flash h{h}"]["fwd"]
+                            for h in heads_of},
+          f"the flash steps' K3a launches by head size {widths.widths} are "
+          f"their models' own, unpadded")
     for name in steps:
         ms = median(runs[name])
         h = name.split(" h")[1]
@@ -5898,6 +5955,9 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
             "flash_launches": {k: tallies[name][k] for k in
                                ("fwd", "dkv", "dq")},
             "launches_by_kernel": tallies[name]["by_kernel"],
+            "k3a_launches_by_head_size": (
+                {h: widths.widths.get(int(h), 0)}
+                if name.startswith("flash") else {}),
             "steps_counted": tallies[name]["steps"]})
         log(f"phase {phase} (b) {name} (b16, 512 + 512 bf16, AdamW): median "
             f"of {HEADS_REPEATS} runs of {HEADS_STEPS} steps in turns "
@@ -5911,8 +5971,12 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
 
     # (c) greedy decoding at decode_h
     flash, dense = (m.eval() for m in models[decode_h])
+    before = kernel_counts(fa)["fwd"]
     with torch.no_grad(), shape_tally(fa) as tally:
         got = greedy_decode(flash, src, max_len=HEADS_DECODE, bos_id=1)
+    by_kernel = {name: n - before[name]
+                 for name, n in kernel_counts(fa)["fwd"].items()
+                 if n != before[name]}
     with torch.no_grad():
         want = greedy_decode(dense, src, max_len=HEADS_DECODE, bos_id=1)
     bf16_equal = float((got == want).float().mean())
@@ -5932,6 +5996,7 @@ def seq2seq_at_heads(torch, fa, dev, heads_of=None, decode_h=128,
     decode = {"tokens": HEADS_DECODE, "sources": int(src.shape[0]),
               "bf16_k3a_launches_by_shape": {
                   f"{tq}x{tk}": c for (tq, tk), c in tally.counts.items()},
+              "bf16_k3a_launches_by_kernel": by_kernel,
               "bf16_tokens_equal_share": bf16_equal,
               "float32_tokens_equal": tokens_equal,
               "float32_k3a_launches": launches32}
@@ -6020,13 +6085,13 @@ def head_sizes_path(torch, fa, dev, rows):
         flash = steps[f"h{h}"]["flash"]
         timed = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
                                    errors, h, heads)
-        size = fa.kernel_head_size(h)
-        back = fa.backward_head_size(h, bf16)
+        size = fa.kernel_head_size(h, bf16)
+        size32 = fa.kernel_head_size(h, torch.float32)
         # the kernel each of K3a-c runs at this head size, and the launches
         # of the flash step by kernel: every one on it
         ran = {"fwd": fa.forward_kernel(bf16, size, t, t),
-               "dkv": fa.backward_kernel(bf16, back, t, t),
-               "dq": fa.dq_kernel(bf16, back)}
+               "dkv": fa.backward_kernel(bf16, size, t, t),
+               "dq": fa.dq_kernel(bf16, size)}
         for key, kernel in ran.items():
             check(flash["launches_by_kernel"][key] == {
                 kernel: flash["flash_launches"][key]},
@@ -6042,11 +6107,9 @@ def head_sizes_path(torch, fa, dev, rows):
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
-                "kernel_head_size": size if key == "fwd" else back,
+                "kernel_head_size": size,
                 "kernel_name": ran[key],
-                "launch_shape": fa.launch_shape(key, bf16,
-                                                size if key == "fwd"
-                                                else back, t, t),
+                "launch_shape": fa.launch_shape(key, bf16, size, t, t),
                 **{k: got[k] for k in (
                     "launches", "max_abs_err", "ms", "plain_ms",
                     "wrapper_ms", "bound_ms", "bound_by", "library_ms",
@@ -6058,8 +6121,8 @@ def head_sizes_path(torch, fa, dev, rows):
                 "ptxas": PTXAS.get(ptxas.format("bf16")),
                 "ptxas_float16": PTXAS.get(ptxas.format("f16")),
                 "ptxas_float32": PTXAS.get(
-                    f"{row['name']}_cols_kernel<f32>" if size >= 256 else
-                    f"{row['name']}_kernel<f32, {size}>")}
+                    f"{row['name']}_cols_kernel<f32>" if size32 >= 256 else
+                    f"{row['name']}_kernel<f32, {size32}>")}
     decode_rows = time_decode_kernels(
         torch, fa, dev, {f"1x{S2S['t']}": decode[
             "bf16_k3a_launches_by_shape"].get(f"1x{S2S['t']}", 0)},
@@ -6222,16 +6285,13 @@ def float16_path(torch, fa, dev, rows):
     return out
 
 
-# phase 28: head sizes above 256 (the sliced K3a and K3c, K3b's cluster
-# kernel); phase 9's width over one head, small shapes at the other sizes,
+# phase 28: head sizes above 256 (the wide K3a, the sliced K3c, K3b's
+# cluster kernel); phase 9's width over one head, small shapes at the other sizes,
 # and phase 9's tokens over one head timed at each
 WIDE = {512: 1}
-WIDE_SMALL = (288, 384, 1024, 1088)
-# the kernels' names above 256 in bf16 and float16, to read their
-# registers from the build's report
-WIDE_KERNELS = {"flash_fwd": "flash_fwd_sliced_kernel",
-                "flash_bwd_dkv": "flash_bwd_dkv_cluster_kernel",
-                "flash_bwd_dq": "flash_bwd_dq_sliced_kernel"}
+# 1216: the first size past the wide K3a's, on the sliced K3a
+WIDE_SMALL = (288, 384, 1024, 1088, 1216)
+SLICED = {1216: 1}
 
 
 def wide_small_cases(torch, dev, h, dtype):
@@ -6282,17 +6342,30 @@ def time_wide_kernels(torch, fa, dev, h):
     K3b's cluster kernel, how many clusters the card holds at once, which
     must be at least one)."""
     b, t = S2S["batch"], S2S["t"]
-    size, scale = fa.kernel_head_size(h), h ** -0.5
+    size, scale = fa.kernel_head_size(h, torch.bfloat16), h ** -0.5
     mask = ragged_mask(torch, b, t, dev)
     fmask = mask.float()
     gen = torch.Generator(device=dev).manual_seed(28)
-    sets = []
+    sets, plain = [], []
     for _ in range(3):
         q, k, v, do = (torch.randn((b, t, h), device=dev, generator=gen)
                        .bfloat16() for _ in range(4))
         o, l, m = fa.flash_forward_plain(q, k, v, scale, False, fmask, 1)
+        plain.append((o, l, m))
         sets.append((*(fa.pad_head(x, size) for x in (q, k, v, do)), l, m,
                      fa.delta(o, do)))
+    # K3a held to its plain version on the timed inputs, at phase 8's
+    # tolerances
+    o_k, l_k, m_k = fa.launch_forward(*sets[0][:3], fmask, scale, False, 1)
+    o_p, l_p, m_p = plain[0]
+    rtol, atol, rms_limit = flash_tolerance(torch, torch.bfloat16, o_p, False)
+    fwd_err, needs, rms = closeness(o_k[..., :h], o_p, rtol)
+    check(needs <= atol and rms <= rms_limit
+          and bool(torch.allclose(l_k, l_p, rtol=1e-4, atol=1e-6))
+          and bool(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-5)),
+          f"h {h}: K3a at [{b}, {t}, {h}] bf16 within phase 8's tolerances "
+          f"of its plain version (max |d| {fwd_err:.3g}, rms {rms:.3g})")
+    del plain, o_k, l_k, m_k
     turn = iter(range(10 ** 9))
 
     def launch(key):
@@ -6305,7 +6378,7 @@ def time_wide_kernels(torch, fa, dev, h):
 
     kept = int(mask.sum())
     out = {"shape": f"[{b}, {t}, {h}] bf16, ragged key mask",
-           "kernel_head_size": size}
+           "kernel_head_size": size, "fwd_max_abs_err": fwd_err}
     for name, key in FLASH_KEYS.items():
         ms = cuda_ms(torch, lambda: launch(key), 20, backlog=True)
         rows, stat_rows, per_pair = FLASH_WORK[key]
@@ -6315,16 +6388,17 @@ def time_wide_kernels(torch, fa, dev, h):
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / BF16_OPS_PER_S * 1e3
         shape = fa.launch_shape(key, torch.bfloat16, size, t, t)
+        kernel = shape["kernel_name"]
         if shape["cluster"] > 1:
             check(shape["max_active_clusters"] > 0,
                   f"h {h}: the card holds a cluster of {name} ({shape})")
         out[name] = {
-            "kernel": WIDE_KERNELS[name], "ms": ms,
+            "kernel": kernel, "ms": ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "share_of_bound": max(bytes_ms, ops_ms) / ms,
             "achieved_tflops": ops / (ms / 1e3) / 1e12,
-            "ptxas": PTXAS.get(f"{WIDE_KERNELS[name]}<bf16>"),
+            "ptxas": PTXAS.get(f"{kernel}<bf16>"),
             "launch_shape": shape}
         log(f"phase 28 (e) {name} [{b}, {t}, {h}] bf16 key mask: "
             f"{ms * 1e3:.1f} us, {out[name]['achieved_tflops']:.1f} TFLOP/s, "
@@ -6336,8 +6410,9 @@ def time_wide_kernels(torch, fa, dev, h):
 
 
 def wide_heads_path(torch, fa, dev, rows):
-    """Phase 28: head sizes above 256, on the sliced K3a and K3c and K3b's
-    cluster kernel (float32 on the ``_cols`` kernels). (a) K3a-c through
+    """Phase 28: head sizes above 256, on the wide K3a (the sliced one
+    above h 1152), the sliced K3c and K3b's cluster kernel (float32 on the
+    ``_cols`` kernels). (a) K3a-c through
     ``flash_attention`` and its backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
     ragged key mask, causal and not, in bf16, float16 and float32, held to
     their plain versions with phase 8's tolerances and timed in bf16 and
@@ -6368,9 +6443,24 @@ def wide_heads_path(torch, fa, dev, rows):
             check_flash_kernels(torch, fa, dev, small, cases, dead)
     out["small_sizes_held"] = {
         "head_sizes": list(WIDE_SMALL),
-        "kernel_head_sizes": [fa.kernel_head_size(x) for x in WIDE_SMALL],
+        "kernel_head_sizes": [fa.kernel_head_size(x, torch.bfloat16)
+                              for x in WIDE_SMALL],
         "types": [str(d).split(".")[-1] for d in types]}
     flash = steps[f"h{h}"]["flash"]
+    # K3a's launches by kernel, in the step and in the decode: every one
+    # on the kernel the dispatch names at this head size
+    t = S2S["t"]
+    step_kernel = fa.forward_kernel(torch.bfloat16, h, t, t)
+    decode_kernel = fa.forward_kernel(torch.bfloat16, h, 1, t)
+    check(flash["launches_by_kernel"]["fwd"] == {
+        step_kernel: flash["flash_launches"]["fwd"]},
+        f"h {h}: the step's K3a launches all ran {step_kernel} "
+        f"({flash['launches_by_kernel']['fwd']})")
+    check(set(decode["bf16_k3a_launches_by_kernel"]) == {decode_kernel}
+          and sum(decode["bf16_k3a_launches_by_kernel"].values())
+          == sum(decode["bf16_k3a_launches_by_shape"].values()),
+          f"h {h}: the decode's K3a launches all ran {decode_kernel} "
+          f"({decode['bf16_k3a_launches_by_kernel']})")
     timed = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
                                errors[torch.bfloat16], h, heads)
     timed16 = time_flash_kernels(torch, fa, dev, flash["flash_launches"],
@@ -6386,10 +6476,13 @@ def wide_heads_path(torch, fa, dev, rows):
         got16 = next((r for r in timed16 if r["name"] == row["name"]), None)
         if key is None or got is None:
             continue
+        shape = fa.launch_shape(key, torch.bfloat16, h, t, t)
+        kernel = shape["kernel_name"]
         row[f"shape_h{h}"] = {
             "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                      f"ragged key mask",
-            "kernel_head_size": fa.kernel_head_size(h),
+            "kernel_head_size": fa.kernel_head_size(h, torch.bfloat16),
+            "kernel_name": kernel,
             **{k: got[k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
                 "bound_ms", "bound_by", "library_ms", "causal_ms",
@@ -6401,11 +6494,10 @@ def wide_heads_path(torch, fa, dev, rows):
                 "max_abs_err", "ms", "plain_ms", "library_ms", "causal_ms",
                 "achieved_tflops")},
             "float32_max_abs_err": errors[torch.float32][key],
-            "ptxas": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<bf16>"),
-            "ptxas_float16": PTXAS.get(f"{WIDE_KERNELS[row['name']]}<f16>"),
+            "ptxas": PTXAS.get(f"{kernel}<bf16>"),
+            "ptxas_float16": PTXAS.get(f"{kernel}<f16>"),
             "ptxas_float32": PTXAS.get(f"{row['name']}_cols_kernel<f32>"),
-            "launch_shape": fa.launch_shape(key, torch.bfloat16, h,
-                                            S2S["t"], S2S["t"]),
+            "launch_shape": shape,
             "launch_shape_float32": fa.launch_shape(key, torch.float32, h,
                                                     S2S["t"], S2S["t"]),
             "note": "library_ms is F.scaled_dot_product_attention with the "
@@ -6429,9 +6521,108 @@ def wide_heads_path(torch, fa, dev, rows):
                 "wrapper_ms", "bound_ms", "bound_by", "library_ms")}
     out["sizes"] = {f"h{x}": time_wide_kernels(torch, fa, dev, x)
                     for x in WIDE_TIMED}
+    out["sliced"] = sliced_forward_path(torch, fa, dev, rows)
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"phase 28: {out['seconds']} s")
     return out
+
+
+def sliced_forward_path(torch, fa, dev, rows):
+    """Phase 28 (f): K3a above h 1152, where Q's tile no longer fits beside
+    the wide kernel's ring, on the sliced kernel, at ``SLICED``'s one head
+    over phase 9's tokens (``[16, 1, 512, 1216]`` bf16, the ragged key
+    mask): phase 28 (a)'s two path cases held to the plain versions; one
+    ``flash_attention`` call and its backward with the counters at 0 just
+    before and read just after, every K3a launch on
+    ``flash_fwd_sliced_kernel`` as ``launch_shape`` names it; then K3a
+    timed there as phase 26 times it. Adds ``shape_h1216`` to K3a's row of
+    the ``kernels`` line."""
+    (h, heads), = SLICED.items()
+    b, t = S2S["batch"], S2S["t"]
+    errors = check_flash_kernels(
+        torch, fa, dev, h, head_size_cases(torch, dev, h, heads)[:2])
+    shape = fa.launch_shape("fwd", torch.bfloat16, h, t, t)
+    kernel = shape["kernel_name"]
+    check(kernel == "flash_fwd_sliced_kernel",
+          f"h {h}: the dispatch names the sliced K3a ({shape})")
+    mask = ragged_mask(torch, b, t, dev)
+    gen = torch.Generator(device=dev).manual_seed(281)
+    q, k, v, do = (torch.randn((b, heads, t, h), device=dev, generator=gen)
+                   .bfloat16().requires_grad_(i < 3) for i in range(4))
+    torch.cuda.synchronize()
+    zero_flash(fa)  # the counters count this call alone from here
+    o = fa.flash_attention(q, v, k, kv_mask=mask)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_attention.launches)
+    by_kernel = kernel_counts(fa)
+    check(by_kernel["fwd"].get(kernel, 0) == launches["fwd"] == 1
+          and all(bool(torch.isfinite(x).all()) for x in (o, *grads)),
+          f"h {h}: the call's K3a launch ran {kernel} ({by_kernel['fwd']}), "
+          f"finite outputs")
+    del q, k, v, do, o, grads
+    timed = time_flash_kernels(torch, fa, dev, launches, errors, h, heads)
+    got = next(r for r in timed if r["name"] == "flash_fwd")
+    entry = {
+        "shape": f"[{b * heads}, {t}, {h}] bf16, ragged key mask",
+        "kernel_head_size": fa.kernel_head_size(h, torch.bfloat16),
+        "kernel_name": kernel,
+        **{x: got[x] for x in (
+            "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
+            "bound_ms", "bound_by", "exp_bound_ms", "library_ms",
+            "causal_ms", "causal_bound_ms", "achieved_tflops",
+            "float32_ms")},
+        "launches_by_kernel": by_kernel,
+        "ptxas": PTXAS.get(f"{kernel}<bf16>"),
+        "ptxas_float16": PTXAS.get(f"{kernel}<f16>"),
+        "launch_shape": shape,
+        "note": "launches: one flash_attention call and its backward; "
+                "library_ms is F.scaled_dot_product_attention with the "
+                "same key mask; the bound counts the function's work on the "
+                "kept keys at the true head size, not the score products "
+                "the slices repeat"}
+    for row in rows:
+        if row["name"] == "flash_fwd":
+            row[f"shape_h{h}"] = entry
+    log(f"phase 28 (f) flash_fwd h {h} on {kernel}: {got['ms'] * 1e3:.1f} "
+        f"us, causal {got['causal_ms'] * 1e3:.1f}, plain "
+        f"{got['plain_ms'] * 1e3:.1f}, SDPA {got['library_ms'] * 1e3:.1f}, "
+        f"bound {got['bound_ms'] * 1e3:.2f} us; ptxas {entry['ptxas']}; "
+        f"{shape}; on {CARD}")
+    return {"launches": launches, "launches_by_kernel": by_kernel,
+            "max_abs_err": errors, "kernel": kernel, "ms": got["ms"]}
+
+
+def rows_of_head_sizes(rows):
+    """A row of its own for each kernel that a K3a-c row's ``shape_h32``,
+    ``shape_h512`` or ``shape_h1216`` names (``kernel_name``) and no row
+    does yet: the narrow kernels at h 32, the wide K3a, the cluster K3b and
+    the sliced K3c above 256, the sliced K3a above 1152, with that shape's
+    launches on its path (phase 26 (b), 28 (c) or 28 (f)), its errors and
+    times; the head size's sub-dict stays in the
+    family's row. (At h 128 and 256 the family's own kernels run.)"""
+    names = {row["name"] for row in rows}
+    extra = []
+    for row in rows:
+        for key in ("shape_h32", "shape_h512", "shape_h1216"):
+            got = row.get(key)
+            if not got or got.get("kernel_name") in names | {None}:
+                continue
+            names.add(got["kernel_name"])
+            extra.append({
+                "name": got["kernel_name"], "route": "cuda",
+                "source": row["source"], "replaces": row["replaces"],
+                **{k: got.get(k) for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "wrapper_ms", "causal_ms",
+                    "achieved_tflops", "ptxas", "launch_shape", "shape")},
+                "bound_us": got["bound_ms"] * 1e3, "bit_equal": False,
+                "head_size": int(key[len("shape_h"):]),
+                "note": f"{row['name']}'s kernel at {key[len('shape_'):]}; "
+                        f"the row {row['name']} holds the same numbers under "
+                        f"{key}",
+                "card": CARD})
+    return extra
 
 
 def main():
@@ -6773,6 +6964,8 @@ def main():
     # 8-11. flash attention: kernels against plain versions, the seq2seq
     # train step, a ViT on the kernel, kernel times
     flash_errors = check_flash_kernels(torch, fa, dev)
+    for h in NARROW_HEADS:
+        check_flash_kernels(torch, fa, dev, h, *narrow_cases(torch, dev, h))
     check_tile_products(torch, fa, dev)
     check_forward_kernel_names(torch, fa, dev)
     flash_launches = seq2seq_path(torch, fa, dev)
@@ -7024,10 +7217,9 @@ def main():
                 "k3a_launches_a_batch"]
     log(json.dumps({"serving_and_scale_out": scale_out, "card": CARD}))
     lap("25")
-    # 26. head sizes 32 (K3a padded, K3b and K3c narrow), 128 and 256:
-    # K3a-c alone, phase 9's step
-    # at 16, 4 and 2 heads, greedy decoding at 128, a clipped step under a
-    # mesh
+    # 26. head sizes 32 (K3a-c on the narrow kernels), 128 and 256: K3a-c
+    # alone, phase 9's step at 16, 4 and 2 heads, greedy decoding at 128, a
+    # clipped step under a mesh
     heads = head_sizes_path(torch, fa, dev, rows)
     log(json.dumps({"head_sizes": heads, "card": CARD}))
     lap("26")
@@ -7035,8 +7227,9 @@ def main():
     float16 = float16_path(torch, fa, dev, rows)
     log(json.dumps({"float16": float16, "card": CARD}))
     lap("27")
-    # 28. head sizes above 256: K3a-c at h 288, 384, 512 and 1024, phase
-    # 9's step over one head of 512, greedy decoding at 512
+    # 28. head sizes above 256: K3a-c at h 288, 384, 512, 1024 and 1088,
+    # phase 9's step over one head of 512, greedy decoding at 512, the
+    # sliced K3a at 1216
     wide = wide_heads_path(torch, fa, dev, rows)
     log(json.dumps({"wide_heads": wide, "card": CARD}))
     lap("28")
@@ -7045,6 +7238,7 @@ def main():
     log(json.dumps({"seconds_by_phase": phase_seconds,
                     "seconds": round(sum(phase_seconds.values()), 1)}))
 
+    rows += rows_of_head_sizes(rows)
     log(json.dumps({"kernels": rows}))
     log(CARD)
     log(json.dumps({"ok": True, "device": {

@@ -42,24 +42,27 @@ query row, one key, a last query tile of one row, 256 keys) every output,
 are timed at the two ViT shapes in turns (other, this, this, other, three
 rounds) beside ``F.scaled_dot_product_attention`` on the same operands
 (its forward beside K3a, its whole backward beside K3b). At head sizes 8,
-16 and 32 (``NARROW_HEADS``) each library runs K3a padded to 64 and K3b
-and K3c at the head size its dispatch takes (``backward_size``: 32 where
-the library has the narrow kernels, else 64), as the wrapper pads them, on
-the same inputs, in bf16 and float16 (``NARROW_CASES``: the seq2seq step
+16 and 32 (``NARROW_HEADS``) each library runs K3a, K3b and K3c at the
+head size its dispatch takes for each (``head_size``: 32 where the library
+has that kernel's narrow form, else 64), as its wrapper pads them, on the
+same inputs, in bf16 and float16 (``NARROW_CASES``: the seq2seq step
 at 16 heads of 32 with its ragged key mask, causal and not, the cross
 lengths, a scattered key mask whose last batch item keeps none, one key,
 one query row, DeiT's 198 tokens); every output, cut to the head size,
-must be the same bits. K3b and K3c are timed there at ``[256, 512, 32]``
-in bf16 and float16, each library at its own size, in turns. The libraries
+must be the same bits. K3a, K3b and K3c are timed there at ``[256, 512,
+32]`` in bf16 and float16, each library at its own size, in turns, and K3a
+also at ``[1536, 198, 32]`` with no mask (``NARROW_SHAPE``). The libraries
 share the C interface that ``ops/flash_attention.py`` calls, for the types
 and head sizes both take. Prints one JSON line last and exits non-zero on
 any difference beyond those.
 
-    python3 compare_flash_builds.py OTHER_CHECKOUT --short
-    python3 compare_flash_builds.py OTHER_CHECKOUT --narrow
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only short
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only narrow
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only wide
 
-run the ``SHORT_CASES`` and their times only, or the narrow cases and
-their times only.
+run one part alone: the ``SHORT_CASES`` and their times, the narrow cases
+and their times, or the cases at ``WIDE_HEADS`` and K3a's times there in
+bf16 and float16 (the report says which outputs are bit-equal).
 """
 
 import ctypes
@@ -84,29 +87,31 @@ def load(path):
     return lib
 
 
-def backward_size(torch, fa, lib, h, dtype):
-    """The head size ``lib`` runs K3b and K3c of head size ``h`` at: 32
-    for ``h <= 32`` in bf16 and float16 where its dispatch takes 32 (the
-    narrow kernels), else ``kernel_head_size(h)``."""
+def head_size(torch, fa, lib, kernel, h, dtype):
+    """The head size ``lib`` runs ``kernel`` ("fwd", "dkv" or "dq") of head
+    size ``h`` at, as its wrapper pads it: 32 for ``h <= 32`` in bf16 and
+    float16 where its dispatch takes 32 for that kernel (the narrow
+    kernels), else 64; above 32 ``kernel_head_size``."""
     if h > 32 or dtype == torch.float32:
-        return fa.kernel_head_size(h)
+        return fa.kernel_head_size(h, dtype)
     shape = (ctypes.c_int * 7)()
-    taken = lib.flash_launch_shape(1, 32, fa.DTYPES[dtype], 1, 1, shape) == 0
-    return 32 if taken else fa.kernel_head_size(h)
+    taken = lib.flash_launch_shape(("fwd", "dkv", "dq").index(kernel), 32,
+                                   fa.DTYPES[dtype], 1, 1, shape) == 0
+    return 32 if taken else 64
 
 
 def run(torch, fa, lib, q, k, v, do, mask, scale, causal, n_heads):
     """K3a, then K3b and K3c on K3a's own ``o, l, m``, through ``lib``:
-    ``{name: output}``. The operands are padded as the wrapper pads them,
-    for K3a to ``kernel_head_size``, for K3b and K3c to ``backward_size``,
-    and the outputs come back cut to the head size, their padded columns
-    checked to be zeros."""
+    ``{name: output}``. The operands are padded as ``lib``'s wrapper pads
+    them (``head_size``: K3a and the backward apart where ``lib`` takes 32
+    for one and not the other), and the outputs come back cut to the head
+    size, their padded columns checked to be zeros."""
     from chambers_tpu_torch.ops import _build
 
     ptr = _build.ptr
     bn, tq, h = q.shape
-    size, back = (fa.kernel_head_size(h),
-                  backward_size(torch, fa, lib, h, q.dtype))
+    size, back = (head_size(torch, fa, lib, "fwd", h, q.dtype),
+                  head_size(torch, fa, lib, "dkv", h, q.dtype))
 
     def tail(n):
         return (bn, tq, k.shape[1], n, n_heads, float(scale), int(causal),
@@ -184,6 +189,9 @@ NARROW_CASES = [
     ("DeiT-B/16 198 tokens", 48, 12, 198, 198, "bfloat16", False, None),
     ("causal 129x129", 6, 3, 129, 129, "bfloat16", True, None),
 ]
+# K3a's second timed shape at head size 32: DeiT-B/16's 198 tokens over
+# 1536 heads of 32 columns (bn, n_heads, t)
+NARROW_SHAPE = (1536, 12, 198)
 PLAIN_HEADS = (2112,)
 # tests/test_torch_cuda_kernels.py's WIDE_CASES: (b, n, tq, tk, causal,
 # masked)
@@ -362,19 +370,22 @@ def plain_errors(torch, fa, libs, dev):
 
 
 def time_both(torch, fa, libs, dev, h, dtype=None,
-              kernels=("fwd", "dkv", "dq")):
+              kernels=("fwd", "dkv", "dq"), shape=None, masked=True,
+              causals=(False, True)):
     """ms a launch of ``kernels`` of K3a-c of each library at ``[128 * 64
     / h, 512, h]`` in ``dtype`` (bf16 unless given; the train step's tokens
-    and FLOPs; above 256 ``[16, 512, h]``, its tokens over one head) with a
-    ragged key mask, causal and not, each library on operands padded to
-    the size it runs the kernel at: ``{kernel/causal: {library: [ms of each
+    and FLOPs; above 256 ``[16, 512, h]``, its tokens over one head), or at
+    ``shape`` = ``(bn, n_heads, t)``, with a ragged key mask if ``masked``,
+    at each of ``causals``, each library on operands padded to the size it
+    runs the kernel at: ``{kernel/causal: {library: [ms of each
     round]}}``."""
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(16)
-    bn, n, t = max(16, 128 * 64 // h), max(1, 512 // h), 512
+    bn, n, t = shape or (max(16, 128 * 64 // h), max(1, 512 // h), 512)
     keep = t * (0.7 + 0.1 * torch.rand((bn // n, 1), device=dev,
                                        generator=gen))
-    mask = (torch.arange(t, device=dev) < keep.long()).float()
+    mask = ((torch.arange(t, device=dev) < keep.long()).float() if masked
+            else None)
     sets = []
     for _ in range(3):  # 3 x 34 MB: beyond the L2
         q, k, v, do = (torch.randn((bn, t, h), device=dev, generator=gen)
@@ -382,9 +393,8 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
         o, l, m = fa.flash_forward_plain(q, k, v, h ** -0.5, False, mask,
                                          n)
         sets.append((q, k, v, do, l, m, fa.delta(o, do), mask, h ** -0.5))
-    size = {name: {"fwd": fa.kernel_head_size(h),
-                   "dkv": backward_size(torch, fa, lib, h, dtype),
-                   "dq": backward_size(torch, fa, lib, h, dtype)}
+    size = {name: {kernel: head_size(torch, fa, lib, kernel, h, dtype)
+                   for kernel in ("fwd", "dkv", "dq")}
             for name, lib in libs.items()}
     padded = {}  # (set, head size): q, k, v, do padded to it
     for i, (q, k, v, do, *_) in enumerate(sets):
@@ -398,7 +408,7 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
             for (i, n_cols), x in padded.items() if i == 0}
     times = {}
     for kernel in kernels:
-        for causal in (False, True):
+        for causal in causals:
             key = f"{kernel}{' causal' if causal else ''}"
             times[key] = {"other": [], "this": []}
             for _ in range(3):
@@ -474,7 +484,7 @@ def hold_cases(torch, fa, libs, dev, items):
     return report, same
 
 
-def main(other, short=False, narrow=False):
+def main(other, only=None):
     import torch
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -527,71 +537,117 @@ def main(other, short=False, narrow=False):
                      kind)
                     for label, bn, n, tq, tk, dtype, causal, kind
                     in NARROW_CASES]
-    items = [] if short or narrow else [
-        (case, h) for h in HEADS for case in cases] + [
-        (case, h) for h in WIDE_HEADS for case in wide_cases]
-    if not narrow:
-        items += [(case, 64) for case in short_cases]
-    if not short:
-        items += [(case, h) for h in NARROW_HEADS for case in narrow_cases]
+    # each part: the cases it holds, and what it times (keys of the JSON
+    # line); --only runs one part, no flag every part, the cases at HEADS,
+    # the plain versions' distances and K3a-c's times at HEADS and
+    # WIDE_HEADS besides
+    parts = {
+        "short": ([(case, 64) for case in short_cases],
+                  lambda: {"short_times_ms": time_short_cases(
+                      torch, fa, libs, dev, short_cases[:SHORT_TIMED])}),
+        "narrow": ([(case, h) for h in NARROW_HEADS for case in narrow_cases],
+                   lambda: {"narrow_times_ms": time_narrow(torch, fa, libs,
+                                                           dev)}),
+        "wide": ([(case, h) for h in WIDE_HEADS for case in wide_cases],
+                 lambda: {"times_ms": time_heads(
+                     torch, fa, libs, dev, WIDE_HEADS, (bf16, f16),
+                     ("fwd",))}),
+    }
+    if only:
+        items, timed = parts[only]
+    else:
+        items = [(case, h) for h in HEADS for case in cases] + [
+            x for part in ("wide", "short", "narrow") for x in parts[part][0]]
+
+        def timed():
+            return {**parts["narrow"][1](), **parts["short"][1](),
+                    "plain": plain_errors(torch, fa, libs, dev),
+                    "times_ms": time_heads(torch, fa, libs, dev,
+                                           HEADS + WIDE_HEADS, (bf16,),
+                                           ("fwd", "dkv", "dq"))}
     report, same = hold_cases(torch, fa, libs, dev, items)
-    narrow_times = {}
-    for dtype in (() if short else (bf16, f16)):
-        type_name = str(dtype).split(".")[-1]
-        for key, by in time_both(torch, fa, libs, dev, 32, dtype,
-                                 ("dkv", "dq")).items():
-            narrow_times[f"{key} h32 {type_name}"] = by
-            print(f"{key} [256, 512, 32] {type_name} key mask, each library "
-                  f"at its own head size (this "
-                  f"{backward_size(torch, fa, libs['this'], 32, dtype)}, "
-                  f"other {backward_size(torch, fa, libs['other'], 32, dtype)}"
-                  "): " + ", ".join(
-                      f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
-                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
-                      for name, v in by.items()), flush=True)
-    short_times = {}
-    for kernel in (() if narrow else ("fwd", "dkv")):
-        for label, bn, n, t, _, dtype, _, _ in short_cases[:SHORT_TIMED]:
-            by = time_short(torch, fa, libs, dev, bn, n, t, dtype, kernel)
-            type_name = str(dtype).split(".")[-1]
-            short_times[f"{kernel} {label} [{bn}, {t}, 64] {type_name}"] = by
-            # bytes the kernel must move: K3a q, k, v read, o written, l
-            # and m; K3b q, k, v, do read, dk, dv written, l, m and di
-            bound_us = ((4 * bn * t * 64 * 2 + 2 * bn * t * 4)
-                        if kernel == "fwd" else
-                        (6 * bn * t * 64 * 2 + 3 * bn * t * 4)) / 3.35e12 * 1e6
-            print(f"{kernel} {label} [{bn}, {t}, 64] {type_name} no mask: "
-                  + ", ".join(
-                      f"{key} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
-                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
-                      for key, v in by.items())
-                  + f"; bytes bound {bound_us:.2f} us", flush=True)
-    plain = [] if short or narrow else plain_errors(torch, fa, libs, dev)
-    times = {}
-    for h in () if short or narrow else HEADS + WIDE_HEADS:
-        for key, by in time_both(torch, fa, libs, dev, h).items():
-            times[f"{key} h{h}"] = by
-            print(f"{key} [{max(16, 128 * 64 // h)}, 512, {h}] bf16 key "
-                  "mask: "
-                  + ", ".join(
-                      f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
-                      f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
-                      for name, v in by.items()), flush=True)
-    print(json.dumps({"compare_flash_builds": report, "plain": plain,
-                      "times_ms": times, "short_times_ms": short_times,
-                      "narrow_times_ms": narrow_times,
+    results = {"plain": [], "times_ms": {}, "short_times_ms": {},
+               "narrow_times_ms": {}, **timed()}
+    print(json.dumps({"compare_flash_builds": report, **results,
                       "other": str(other),
                       "card": torch.cuda.get_device_name(0),
                       "same_within_tolerance": same}))
     return 0 if same else 1
 
 
+def rounds(by):
+    """Each library's median ms and its rounds, as printed."""
+    return ", ".join(f"{name} {sorted(v)[len(v) // 2] * 1e3:.1f} us "
+                     f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v)})"
+                     for name, v in by.items())
+
+
+def time_narrow(torch, fa, libs, dev):
+    """K3a at ``NARROW_SHAPE`` with no mask, and K3a-c at ``[256, 512,
+    32]`` with the ragged key mask, causal and not, in bf16 and float16,
+    each library at the head size its dispatch takes."""
+    times = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        type_name = str(dtype).split(".")[-1]
+        for key, by in time_both(torch, fa, libs, dev, 32, dtype, ("fwd",),
+                                 NARROW_SHAPE, masked=False,
+                                 causals=(False,)).items():
+            times[f"{key} h32 [1536, 198] {type_name}"] = by
+            print(f"{key} [1536, 198, 32] {type_name} no mask: {rounds(by)}",
+                  flush=True)
+        for key, by in time_both(torch, fa, libs, dev, 32, dtype).items():
+            kernel = key.split()[0]
+            times[f"{key} h32 {type_name}"] = by
+            print(f"{key} [256, 512, 32] {type_name} key mask, each library "
+                  f"at its own head size (this "
+                  f"{head_size(torch, fa, libs['this'], kernel, 32, dtype)}, "
+                  f"other "
+                  f"{head_size(torch, fa, libs['other'], kernel, 32, dtype)}"
+                  f"): {rounds(by)}", flush=True)
+    return times
+
+
+def time_short_cases(torch, fa, libs, dev, timed_cases):
+    """K3a and K3b at each of ``timed_cases`` (the first ``SHORT_CASES``)
+    beside SDPA, with the bytes bound."""
+    times = {}
+    for kernel in ("fwd", "dkv"):
+        for label, bn, n, t, _, dtype, _, _ in timed_cases:
+            by = time_short(torch, fa, libs, dev, bn, n, t, dtype, kernel)
+            type_name = str(dtype).split(".")[-1]
+            times[f"{kernel} {label} [{bn}, {t}, 64] {type_name}"] = by
+            # bytes the kernel must move: K3a q, k, v read, o written, l
+            # and m; K3b q, k, v, do read, dk, dv written, l, m and di
+            bound_us = ((4 * bn * t * 64 * 2 + 2 * bn * t * 4)
+                        if kernel == "fwd" else
+                        (6 * bn * t * 64 * 2 + 3 * bn * t * 4)) / 3.35e12 * 1e6
+            print(f"{kernel} {label} [{bn}, {t}, 64] {type_name} no mask: "
+                  f"{rounds(by)}; bytes bound {bound_us:.2f} us", flush=True)
+    return times
+
+
+def time_heads(torch, fa, libs, dev, heads, dtypes, kernels):
+    """``kernels`` of K3a-c at the train step's tokens at each of
+    ``heads`` (``time_both``), in each of ``dtypes``."""
+    times = {}
+    for h in heads:
+        for dtype in dtypes:
+            type_name = str(dtype).split(".")[-1]
+            for key, by in time_both(torch, fa, libs, dev, h, dtype,
+                                     kernels).items():
+                times[f"{key} h{h} {type_name}"] = by
+                print(f"{key} [{max(16, 128 * 64 // h)}, 512, {h}] "
+                      f"{type_name} key mask: {rounds(by)}", flush=True)
+    return times
+
+
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    if len(args) not in (1, 2) or (len(args) == 2
-                                   and args[1] not in ("--short",
-                                                       "--narrow")):
-        print(__doc__.split("\n\n")[1], file=sys.stderr)
-        sys.exit(2)
-    sys.exit(main(args[0], short=args[1:] == ["--short"],
-                  narrow=args[1:] == ["--narrow"]))
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0])
+    parser.add_argument("other", help="the other checkout")
+    parser.add_argument("--only", choices=("short", "narrow", "wide"),
+                        help="hold and time one part alone")
+    args = parser.parse_args()
+    sys.exit(main(args.other, args.only))

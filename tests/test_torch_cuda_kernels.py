@@ -333,11 +333,13 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
 
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 
-# head sizes above 256, on the sliced K3a and K3c and K3b's cluster kernel
-# (float32: the _cols kernels with the head size at run time): 288 padded
-# to 320, whose last slice is partial, 384, 512, 640 (the last block of a
-# cluster runs past the head), 1024, 1088 (clusters of five) and 2112 (two
-# clusters along the head); the edges of FLASH_CASES at small shapes
+# head sizes above 256, on the wide K3a (up to 1152, beyond it the sliced
+# one), the sliced K3c and K3b's cluster kernel (float32: the _cols
+# kernels with the head size at run time): 288 padded to 320, whose last
+# slice is partial, 384, 512, 640 (the last block of a cluster runs past
+# the head; K3a's second slice holds two panels), 1024, 1088 (clusters of
+# five) and 2112 (two clusters along the head; K3a sliced); the edges of
+# FLASH_CASES at small shapes
 WIDE_HEADS = [288, 384, 512, 640, 1024, 1088, 2112]
 WIDE_CASES = [
     (2, 2, 257, 257, True, True),    # causal + key mask, an item with none
@@ -408,13 +410,39 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
                                512)["cluster"] == 1
 
 
+@pytest.mark.parametrize("h", range(320, 2113, 64))
+def test_wide_forward_launch_shapes_fit_the_card(dev, h):
+    """Above 256 K3a runs its wide kernel (two warpgroups over 64 query
+    rows, 512 columns of O a block, Q's tile resident) wherever Q's tile
+    fits in a block's shared memory beside the ring, up to 18 panels (h
+    1152), and the sliced kernel (one warpgroup, 256 columns a block)
+    beyond: the shape the launcher reports, one block an SM, at any
+    lengths, in both 16-bit types."""
+    panels = h // 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in SIXTEEN_BIT:
+        for tq, tk in ((512, 512), (1, 512), (198, 198)):
+            shape = fa.launch_shape("fwd", dtype, h, tq, tk)
+            if panels <= 18:
+                assert shape["kernel_name"] == "flash_fwd_wide_kernel"
+                assert (shape["threads"], shape["slices"]) == (
+                    256, -(-panels // 8))
+                assert shape["smem_bytes"] > panels * 8192
+                assert shape["resident_blocks"] == sms
+            else:
+                assert shape["kernel_name"] == "flash_fwd_sliced_kernel"
+                assert (shape["threads"], shape["slices"]) == (
+                    128, -(-panels // 4))
+            assert shape["cluster"] == 1
+
+
 def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
-    """K3a on operands padded to ``kernel_head_size``, K3b and K3c on
-    operands padded to ``backward_head_size`` (at h 32 in the 16-bit types
-    unpadded, on the narrow kernels), as the wrapper pads them."""
+    """K3a, K3b and K3c on operands padded to ``kernel_head_size`` (at h 32
+    in the 16-bit types unpadded, on the narrow kernels), as the wrapper
+    pads them."""
     q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype, masked)
     scale = h ** -0.5
-    size, back = fa.kernel_head_size(h), fa.backward_head_size(h, dtype)
+    size = back = fa.kernel_head_size(h, dtype)
     qp, kp, vp = (fa.pad_head(x, size) for x in (q, k, v))
     o_full, l, m = fa.launch_forward(qp, kp, vp, mask, scale, causal, n)
     o = o_full[..., :h]
@@ -639,7 +667,9 @@ def test_tile_products_match_matmul(dev):
 def _kernel_names(fn):
     """The names of the kernels three calls of ``fn`` launch, from the
     profiler (which can drop a kernel's record: three calls make a name
-    missing from all of them unlikely)."""
+    missing from all of them unlikely). A profile with no record at all
+    fails here and says so: the profiler then saw no kernel (CUPTI did not
+    start, or dropped every record), which says nothing of the dispatch."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -647,7 +677,11 @@ def _kernel_names(fn):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages())
+    names = " ".join(e.key for e in prof.key_averages())
+    assert names, ("the profiler recorded no kernel over three calls: it "
+                   "did not trace the card (CUPTI), the dispatch is not "
+                   "what failed")
+    return names
 
 
 # (tq, tk) of K3a's calls and the kernel a 16-bit one takes at head size
@@ -665,35 +699,42 @@ FORWARD_LENGTHS = [((96, 80), "flash_fwd_short_kernel"),
                    ((257, 198), "flash_fwd_tc_kernel")]
 
 
-@pytest.mark.parametrize("h", [64, 128, 256, 512])
+@pytest.mark.parametrize("h", [64, 128, 256, 512, 32])
 def test_forward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core forward (at head size
     64 over at most 256 queries and keys its short form, above 256 its
-    sliced form), float32 the FMA one (its ``_cols`` form from 256 on): read
-    from the profiler's kernel names, the launch counter by kernel and
-    ``launch_shape``, which names the kernel the dispatch picks."""
-    names = {}
+    wide form, at 32 its narrow form at any lengths), float32 the FMA one
+    (its ``_cols`` form from 256 on; at 32 padded to 64): read from the
+    profiler's kernel names, the launch counter by kernel and
+    ``launch_shape``, which names the kernel the dispatch picks. Each
+    assertion on the profiler's names prints the names it saw."""
+    names, size = {}, {}
     for dtype in (torch.float32, *SIXTEEN_BIT):
-        q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, h, dtype, True)
+        size[dtype] = fa.kernel_head_size(h, dtype)
+        q, k, v, _, mask = _flash_inputs(dev, 1, 2, 96, 80, size[dtype],
+                                         dtype, True)
         names[dtype] = _kernel_names(
             lambda: fa.launch_forward(q, k, v, mask, 0.125, False, 2))
     fma = "flash_fwd_cols_kernel" if h >= 256 else "flash_fwd_kernel"
-    assert fma in names[torch.float32]
-    assert "_tc_kernel" not in names[torch.float32]
-    assert "_short_kernel" not in names[torch.float32]
-    assert "_sliced_kernel" not in names[torch.float32]
+    seen = names[torch.float32]
+    assert fma in seen, seen
+    for other in ("_tc_kernel", "_short_kernel", "_sliced_kernel",
+                  "_narrow_kernel", "_wide_kernel"):
+        assert other not in seen, seen
     tc = ("flash_fwd_short_kernel" if h == 64 else
-          "flash_fwd_sliced_kernel" if h > 256 else "flash_fwd_tc_kernel")
+          "flash_fwd_narrow_kernel" if h == 32 else
+          "flash_fwd_wide_kernel" if h > 256 else "flash_fwd_tc_kernel")
     for dtype in SIXTEEN_BIT:
-        assert tc in names[dtype]
-        assert "flash_fwd_kernel" not in names[dtype]
-        assert "_cols_kernel" not in names[dtype]
+        seen = names[dtype]
+        assert tc in seen, seen
+        assert "flash_fwd_kernel" not in seen, seen
+        assert "_cols_kernel" not in seen, seen
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (tq, tk), short_or_tc in FORWARD_LENGTHS:
         for dtype in (torch.float32, *SIXTEEN_BIT):
             want = (fma if dtype == torch.float32 else
                     short_or_tc if h == 64 else tc)
-            shape = fa.launch_shape("fwd", dtype, h, tq, tk)
+            shape = fa.launch_shape("fwd", dtype, size[dtype], tq, tk)
             assert shape["kernel_name"] == want
             assert shape["resident_blocks"] > 0
             if want == "flash_fwd_short_kernel":
@@ -702,8 +743,8 @@ def test_forward_dtype_chooses_the_kernels(dev, h):
                 assert shape["threads"] == 4 * 128
                 assert shape["smem_bytes"] > 2 * 3 * 32 * 1024
                 assert shape["resident_blocks"] == sms
-            q, k, v, _, _ = _flash_inputs(dev, 1, 2, tq, tk, h, dtype,
-                                          False)
+            q, k, v, _, _ = _flash_inputs(dev, 1, 2, tq, tk, size[dtype],
+                                          dtype, False)
             before = dict(fa.flash_attention.forward_launches)
             fa.launch_forward(q, k, v, None, 0.125, False, 2)
             after = fa.flash_attention.forward_launches
@@ -790,10 +831,11 @@ def test_narrow_backward_kernels_at_head_size_32(dev, h):
     through the autograd function, which pads the backward's operands to
     32 only (at 32 not at all) and slices nothing at 32, and its gradients
     hold to the CPU's; a launch at a head size the backward does not take
-    is refused."""
+    is refused; K3a at 32 takes its own narrow kernel
+    (``test_narrow_forward_kernel_at_head_size_32``)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in SIXTEEN_BIT:
-        assert fa.backward_head_size(h, dtype) == 32
+        assert fa.kernel_head_size(h, dtype) == 32
         dkv = fa.launch_shape("dkv", dtype, 32, 512, 512)
         dq = fa.launch_shape("dq", dtype, 32, 512, 512)
         assert dkv["kernel_name"] == "flash_bwd_dkv_narrow_kernel"
@@ -807,11 +849,12 @@ def test_narrow_backward_kernels_at_head_size_32(dev, h):
         assert fa.dq_kernel(dtype, 32) == "flash_bwd_dq_narrow_kernel"
         assert fa.launch_shape("fwd", dtype, 64, 512, 512)[
             "kernel_name"] == "flash_fwd_tc_kernel"
+        assert fa.launch_shape("fwd", dtype, 32, 512, 512)[
+            "kernel_name"] == "flash_fwd_narrow_kernel"
+    assert fa.kernel_head_size(h, torch.float32) == 64
+    for kernel in ("fwd", "dkv"):
         with pytest.raises(RuntimeError):
-            fa.launch_shape("fwd", dtype, 32, 512, 512)
-    assert fa.backward_head_size(h, torch.float32) == 64
-    with pytest.raises(RuntimeError):
-        fa.launch_shape("dkv", torch.float32, 32, 512, 512)
+            fa.launch_shape(kernel, torch.float32, 32, 512, 512)
     for dtype in (*SIXTEEN_BIT, torch.float32):
         q, k, v, do, mask = _flash_inputs(dev, 2, 3, 130, 150, h, dtype, True)
         q, k, v = (x.view(2, 3, -1, h).requires_grad_() for x in (q, k, v))
@@ -844,6 +887,95 @@ def test_narrow_backward_kernels_at_head_size_32(dev, h):
     with pytest.raises(ValueError, match="head_dim"):
         fa.launch_backward_dq(bad, bad, bad, bad, None, None, None, None,
                               0.1, False, 1)
+
+
+# the narrow forward kernel's cases at h 8, 16 and 32: (b, n, tq, tk,
+# causal, masked); one key, one query row, DeiT's 198 tokens, causal cross
+# lengths (rows that see no key), a batch item the mask empties, the train
+# step's shape with its ragged mask
+NARROW_FORWARD_CASES = [
+    (2, 2, 64, 1, False, False),
+    (2, 2, 1, 300, False, True),
+    (2, 3, 198, 198, False, False),
+    (1, 2, 130, 260, True, False),
+    (1, 2, 260, 130, True, False),
+    (3, 2, 70, 150, False, True),
+    (4, 4, 512, 512, True, "ragged"),
+]
+
+
+@pytest.mark.parametrize("h", [8, 16, 32])
+def test_narrow_forward_kernel_at_head_size_32(dev, h):
+    """At head sizes up to 32 bf16 and float16 run K3a on its narrow kernel
+    at 32 (one warpgroup over 64 query rows a block, six blocks an SM,
+    32-column tiles), never padded to 64: ``launch_shape`` names it, the
+    counters by kernel count it through the autograd function (which pads h
+    8 and 16 to 32 and 32 not at all), ``o`` within the type's tolerance
+    of the plain forward and ``l``, ``m`` as the other kernels' tests hold
+    them, rows with no key exact zeros, a second launch the same bits, and
+    the gradients through the wrapper held to the CPU's; a launch at head
+    size 48 is refused."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in SIXTEEN_BIT:
+        shape = fa.launch_shape("fwd", dtype, 32, 512, 512)
+        assert shape["kernel_name"] == "flash_fwd_narrow_kernel"
+        assert (shape["threads"], shape["slices"], shape["cluster"]) == (
+            128, 1, 1)
+        assert shape["resident_blocks"] == 6 * sms
+        for tq, tk in ((1, 300), (198, 198), (96, 80)):
+            assert fa.forward_kernel(dtype, 32, tq, tk) == (
+                "flash_fwd_narrow_kernel")
+        for b, n, tq, tk, causal, masked in NARROW_FORWARD_CASES:
+            q, k, v, do, mask = _flash_inputs(dev, b, n, tq, tk, h, dtype,
+                                              masked)
+            scale = h ** -0.5
+            qp, kp, vp = (fa.pad_head(x, 32) for x in (q, k, v))
+            before = dict(fa.flash_attention.forward_launches)
+            o_full, l, m = fa.launch_forward(qp, kp, vp, mask, scale, causal,
+                                             n)
+            after = fa.flash_attention.forward_launches
+            assert {key: after[key] - before[key] for key in after} == {
+                key: int(key == "flash_fwd_narrow_kernel") for key in after}
+            o = o_full[..., :h]
+            o_p, l_p, m_p = fa.flash_forward_plain(q, k, v, scale, causal,
+                                                   mask, n)
+            torch.cuda.synchronize()
+            assert not o_full[..., h:].any()
+            _assert_close(o, o_p, dtype)
+            assert torch.allclose(m, m_p, rtol=1e-5, atol=1e-5)
+            assert torch.allclose(l, l_p, rtol=1e-4, atol=1e-6)
+            again = fa.launch_forward(qp, kp, vp, mask, scale, causal, n)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b_) for a, b_ in zip(again,
+                                                           (o_full, l, m)))
+            if masked is True:  # the last batch item has no valid key
+                assert not o[-n:].any() and not l[-n:].any()
+                assert bool((m[-n:] == fa.MASK_VALUE).all())
+            if causal and tq > tk:  # rows above the end-aligned diagonal
+                assert not o[:, :tq - tk].any() and not l[:, :tq - tk].any()
+                assert bool((m[:, :tq - tk] == fa.MASK_VALUE).all())
+        # through the autograd function: one K3a launch on the narrow
+        # kernel, gradients held to the CPU's
+        q, k, v, do, mask = _flash_inputs(dev, 2, 3, 130, 150, h, dtype, True)
+        q, k, v = (x.view(2, 3, -1, h).requires_grad_() for x in (q, k, v))
+        before = dict(fa.flash_attention.forward_launches)
+        out = fa.flash_attention(q, v, k, causal=True, kv_mask=mask)
+        grads = torch.autograd.grad(out, (q, k, v), do.view(2, 3, -1, h))
+        after = fa.flash_attention.forward_launches
+        assert {key: after[key] - before[key] for key in after} == {
+            key: int(key == "flash_fwd_narrow_kernel") for key in after}
+        cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+        ref = fa.flash_attention(cpu[0], cpu[2], cpu[1], causal=True,
+                                 kv_mask=mask.cpu())
+        want = torch.autograd.grad(ref, cpu, do.view(2, 3, -1, h).cpu())
+        assert out.dtype == dtype and out.shape[-1] == h
+        _assert_close(out.detach().cpu(), ref.detach(), dtype)
+        for got, ref_grad in zip(grads, want):
+            assert got.dtype == dtype and got.shape[-1] == h
+            _assert_close(got.cpu(), ref_grad, dtype, grad=True)
+    bad = torch.randn((2, 8, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.launch_forward(bad, bad, bad, None, 0.1, False, 1)
 
 
 @pytest.mark.parametrize("h", HEADS + [288, 512])

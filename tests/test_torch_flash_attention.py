@@ -399,9 +399,10 @@ def test_head_sizes_match_jax_kernel(h, dtype):
     float32 to 1e-5 (outputs) and 1e-4 (gradients), bf16 and float16 as
     ``_close_half``. On the card the kernels run these sizes at 64, 128,
     256 or the next multiple of 64 above 256 (320, 512, 640, 1088: the
-    sliced K3a and K3c and K3b's cluster kernel, whose clusters end in a
-    part past the head at 320, 640 and 1088), zero-padded where the size
-    is not one of them
+    wide K3a, the sliced K3c and K3b's cluster kernel, whose clusters end
+    in a part past the head at 320, 640 and 1088), at 32 in bfloat16 and
+    float16 (the narrow kernels), zero-padded where the size is not one of
+    them
     (``test_padded_plain_call_is_bit_equal``)."""
     rng = np.random.RandomState(h)
     shape_q, shape_kv = (2, 2, 100, h), (2, 2, 120, h)
@@ -440,17 +441,16 @@ def test_head_sizes_match_jax_kernel(h, dtype):
 def test_padded_plain_call_is_bit_equal(h, dtype):
     """What the wrapper does on the card at a head size the kernels are not
     built at, in the plain versions: ``q, k, v`` and ``do`` zero-padded to
-    ``kernel_head_size(h)``, the scale from the true ``h``, ``di`` from the
-    unpadded ``o`` and ``do``. Every output equals the unpadded call's bit
-    for bit, and the padded columns are exact zeros. The backward, padded
-    to ``backward_head_size(h, dtype)`` where that differs (h 8 and 16 to
-    32 in bfloat16 and float16, on the narrow kernels), on the forward's
-    ``o`` cut to that size, as the wrapper saves it: the same."""
-    size = tflash.kernel_head_size(h)
-    assert size == (64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256
-                    else -(-h // 64) * 64)
-    back = tflash.backward_head_size(h, dtype)
-    assert back == (32 if h <= 32 and dtype != torch.float32 else size)
+    ``kernel_head_size(h, dtype)`` (h 8 and 16 to 32 in bfloat16 and
+    float16, on the narrow kernels, forward and backward alike; 64 in
+    float32), the scale from the true ``h``, ``di`` from the unpadded ``o``
+    and ``do``. Every output equals the unpadded call's bit for bit, and
+    the padded columns are exact zeros. The backward runs on the padded
+    forward's own ``o``, as the wrapper saves it: the same."""
+    size = tflash.kernel_head_size(h, dtype)
+    assert size == (32 if h <= 32 and dtype != torch.float32
+                    else 64 if h <= 64 else 128 if h <= 128
+                    else 256 if h <= 256 else -(-h // 64) * 64)
     g = torch.Generator().manual_seed(h)
     q, do = (torch.randn(6, 97, h, generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn(6, 131, h, generator=g).to(dtype) for _ in range(2))
@@ -463,27 +463,29 @@ def test_padded_plain_call_is_bit_equal(h, dtype):
         assert torch.equal(po[..., :h], o) and not po[..., h:].any()
         assert torch.equal(pl, l) and torch.equal(pm, m)
         want = tflash.flash_backward_plain(q, k, v, o, l, m, do, *args)
-        for n in sorted({size, back}):
-            got = tflash.flash_backward_plain(
-                pad(q, n), pad(k, n), pad(v, n), po[..., :n], pl, pm,
-                pad(do, n), *args, di=tflash.delta(po[..., :h], do))
-            for a, b in zip(got, want):
-                assert a.dtype == dtype and a.shape[-1] == n
-                assert torch.equal(a[..., :h], b) and not a[..., h:].any()
+        got = tflash.flash_backward_plain(
+            pad(q), pad(k), pad(v), po, pl, pm, pad(do), *args,
+            di=tflash.delta(po[..., :h], do))
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and a.shape[-1] == size
+            assert torch.equal(a[..., :h], b) and not a[..., h:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_backward_head_size(dtype):
-    """K3b and K3c take head size 32 in bfloat16 and float16 (the narrow
-    kernels), so the wrapper pads a smaller head only to 32 for them; K3a
-    and float32 keep ``kernel_head_size``."""
-    sizes = [tflash.backward_head_size(h, dtype) for h in (1, 8, 32, 33, 64)]
+    """The one head size the kernels run a call at, forward and backward
+    alike (``kernel_head_size``): K3a, K3b and K3c take head size 32 in
+    bfloat16 and float16 (the narrow kernels), so the wrapper pads a
+    smaller head only to 32 there and 32 itself not at all; float32 pads
+    it to 64. Above 32 the types agree: the next built size, above 256 the
+    next multiple of 64."""
+    heads = (1, 8, 16, 32, 33, 48, 64, 100, 320)
+    sizes = [tflash.kernel_head_size(h, dtype) for h in heads]
     narrow = dtype != torch.float32
     assert tflash.NARROW == 32
-    assert sizes == ([32, 32, 32, 64, 64] if narrow else [64, 64, 64, 64, 64])
-    assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 33, 64)] == [
-        64, 64, 64, 64, 64]
+    assert sizes == ([32, 32, 32, 32] if narrow else [64] * 4) + [
+        64, 64, 64, 128, 320]
 
 
 def test_kernel_head_sizes_and_the_limit():
@@ -492,12 +494,15 @@ def test_kernel_head_sizes_and_the_limit():
     the next built one, a larger one to the next multiple of 64. There is
     no upper limit."""
     assert tflash.HEAD_SIZES == (64, 128, 256) and tflash.PANEL == 64
-    assert [tflash.kernel_head_size(h) for h in (1, 8, 32, 64, 65, 80,
-                                                 128, 129, 200, 256)] == [
+    f32 = torch.float32
+    assert [tflash.kernel_head_size(h, f32) for h in (1, 8, 32, 64, 65, 80,
+                                                      128, 129, 200, 256)] == [
         64, 64, 64, 64, 128, 128, 128, 256, 256, 256]
-    assert [tflash.kernel_head_size(h) for h in (257, 288, 320, 321, 384,
-                                                 512, 1000, 1024, 4000)] == [
-        320, 320, 320, 384, 384, 512, 1024, 1024, 4032]
+    for dtype in (f32, torch.bfloat16, torch.float16):
+        assert [tflash.kernel_head_size(h, dtype)
+                for h in (257, 288, 320, 321, 384, 512, 1000, 1024,
+                          4000)] == [
+            320, 320, 320, 384, 384, 512, 1024, 1024, 4032]
     x = torch.ones(2, 3, 5)
     assert tflash.pad_head(x, 5) is x
     assert tuple(tflash.pad_head(x, 64).shape) == (2, 3, 64)
@@ -588,15 +593,18 @@ def test_cpu_calls_count_no_kernel_launch():
     assert tuple(backward) == tflash.KERNEL_NAMES["dkv"]
     assert tuple(dq) == tflash.KERNEL_NAMES["dq"]
     assert "flash_fwd_short_kernel" in counts
+    assert "flash_fwd_narrow_kernel" in counts
     assert "flash_bwd_dkv_short_kernel" in backward
     assert "flash_bwd_dkv_narrow_kernel" in backward
     assert "flash_bwd_dq_narrow_kernel" in dq
     before = (dict(tflash.flash_attention.launches), dict(counts),
               dict(backward), dict(dq))
-    q, k, v = (_t(x, torch.bfloat16).requires_grad_()
-               for x in _qkv(19, (1, 2, 198, 64)))
-    tflash.flash_attention(q, v, k).float().pow(2).sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+    for h in (64, 32):  # 32: the narrow kernels' size on the card
+        q, k, v = (_t(x, torch.bfloat16).requires_grad_()
+                   for x in _qkv(19, (1, 2, 198, h)))
+        tflash.flash_attention(q, v, k).float().pow(2).sum().backward()
+        assert q.grad is not None
+        assert bool(torch.isfinite(q.grad.float()).all())
     assert (dict(tflash.flash_attention.launches), dict(counts),
             dict(backward), dict(dq)) == before
 
