@@ -13,10 +13,10 @@
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
-// (the 16-bit kernels carry the same names with _tc, and above head size
-// 256 with _sliced (K3a, K3c) or _cluster (K3b), at head size 32 the
-// backward's with _narrow; the float32 ones from head size 256 on with
-// _cols).
+// (the 16-bit kernels carry the same names with _tc, at head size 128 K3b's
+// with _producer, above head size 256 with _cluster (K3a, K3b) or _sliced
+// (K3c), at head size 32 with _narrow; the float32 ones from head size 256
+// on with _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -1004,6 +1004,7 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 int flash_fwd_tc_kernel_of(int panels, int tq, int tk);
 LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk);
 int flash_fwd_tc_resident(int f16, int panels, int tq, int tk);
+int flash_fwd_tc_max_clusters(int f16, int panels);
 int flash_bwd_dkv_kernel_of(int panels, int tq, int tk);
 int flash_bwd_dq_kernel_of(int panels);
 LaunchShape flash_bwd_tc_shape(int dkv, int panels, int tq, int tk);
@@ -1094,10 +1095,13 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   shape[1] = (int)s.smem;
   shape[2] = s.slices;
   shape[3] = s.cluster;
-  shape[4] = s.cluster > 1 ? flash_bwd_dkv_max_clusters(f16, panels) : 0;
+  shape[4] = s.cluster == 1   ? 0
+             : kernel == kFwd ? flash_fwd_tc_max_clusters(f16, panels)
+                              : flash_bwd_dkv_max_clusters(f16, panels);
   // the family's kernels: float32 the FMA kernel (0) or its _cols form
-  // (1); the 16-bit ones from 2 on, K3a's whole-tile, short, sliced and
-  // narrow kernels, K3b's whole-tile, short, cluster and narrow kernels,
+  // (1); the 16-bit ones from 2 on, K3a's whole-tile, short, narrow and
+  // cluster kernels, K3b's whole-tile, short, cluster, narrow and producer
+  // kernels,
   // K3c's whole-tile, sliced and narrow kernels
   shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
              : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)

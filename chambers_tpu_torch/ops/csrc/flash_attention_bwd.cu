@@ -7,7 +7,8 @@
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
 // and, at head size 32, flash_bwd_dkv_narrow_kernel and
-// flash_bwd_dq_narrow_kernel, at head sizes above 256,
+// flash_bwd_dq_narrow_kernel, at head size 128 for K3b
+// flash_bwd_dkv_producer_kernel, at head sizes above 256,
 // flash_bwd_dkv_cluster_kernel and
 // flash_bwd_dq_sliced_kernel, and for K3b at head size 64 over at most 256
 // queries and 129 to 256 keys (ViT lengths) flash_bwd_dkv_short_kernel,
@@ -279,14 +280,33 @@
 //   Head size 32 (the narrow kernels): one warpgroup a block, K3b 128
 //        registers, K3c 106, no spills, 44 KB of shared memory: four blocks
 //        an SM.
-//   Head size 128: K3b keeps one warpgroup a block, its dK and dV now 128
-//   float32 registers a thread, 131 KB of shared memory: one block an SM,
-//   and __launch_bounds__ lets the registers grow to 255: 246, no spills.
-//   The other way to hold the accumulators, two warpgroups sharing the
-//   block's 64 keys and splitting the head's panels, would compute the
-//   score and do . v^T tiles twice (the tensor cores' work 1.5 times over)
-//   and the softmax twice, or hand them over as at 256. K3c keeps two warpgroups, 163 KB: one block an
-//   SM, 166 registers, no spills.
+//   Head size 128: K3b's producer kernel (below), 384 threads, the
+//   consumers at 240 registers, no spills, 195 KB of shared memory: one
+//   block an SM. K3c keeps two warpgroups, 163 KB: one block an SM, 166
+//   registers, no spills.
+//
+// Head size 128: flash_bwd_dkv_producer_kernel. The whole-tile K3b held a
+// block's 64 keys' dK and dV in one warpgroup's registers (128 of its 246
+// a thread), 131 KB of shared memory: one warpgroup an SM, and nothing
+// filled the gaps in its chain (stage wait, S^T and dP^T, exponents, the
+// dV and dK products): 56.1 us at [64, 512, 128], where the h 64 kernel
+// does the same operations at three blocks an SM in 46.7. Here a block
+// owns 128 keys in two consumer warpgroups of 64 keys each, each keeping
+// its own dK and dV in registers, and a third warpgroup gives its
+// registers up (setmaxnreg: 24 a thread, the consumers 240) so that its
+// first warp is the producer: it copies the block's K and V tiles once and
+// the passing Q and dO tiles by TMA (tensor maps of [bn, t, 128] whose box
+// is one 64-row panel) into a ring of kPairStages = 4 stages on full and
+// empty mbarriers, with each tile's exponent offsets and di beside them.
+// So the two groups share each stage's Q and dO (half the bytes a key) and
+// their two chains interleave on the SM. Each group runs K3b's arithmetic
+// on its tile in the whole-tile kernel's order (the same products over the
+// query tiles in the same order), so dK and dV are its bits. As measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (compare_flash_builds.py --only
+// producer against 4fe19bb, in turns, one call; PERF.md section 6): at
+// [64, 512, 128] bf16 with the ragged key mask 45.5 us against 55.6
+// (causal 33.3 against 39.7; float16 45.5 against 55.9), every h 128 case
+// bit-equal.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -2078,11 +2098,248 @@ __global__ void __launch_bounds__(128, kNarrowBlocks)
   store_fragments(dq + (size_t)bn * tq * kHd, acc, scale, q0, tq, at.tid);
 }
 
+// ---------------------------------------------------------------------------
+// head size 128: K3b's producer kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kPairGroups = 2;    // consumer warpgroups, a key tile each
+constexpr int kPairKeys = kPairGroups * kTileRows;  // a block's keys: 128
+// the consumers and one warpgroup whose first warp is the producer
+constexpr int kPairThreads = 128 * (kPairGroups + 1);
+constexpr int kPairStages = 4;    // the ring of Q's and dO's tiles
+constexpr int kPairTile = tile_bytes<2>();          // a 64-row tile: 16 KB
+constexpr int kPairStageBytes = 2 * kPairTile;      // Q and dO: 32 KB
+
+// the groups' K and V tiles, the ring, each stage's row statistics, the
+// barriers (each stage's full and empty, K and V's), the consumer warps'
+// words
+__host__ __device__ constexpr size_t pair_smem_bytes() {
+  return 1024 + 2 * kPairGroups * kPairTile +
+         kPairStages * (kPairStageBytes + kRowsBytes) +
+         (2 * kPairStages + 1) * 8 + 4 * kPairGroups * 4;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPairThreads, 1)
+    flash_bwd_dkv_producer_kernel(__grid_constant__ const CUtensorMap q_map,
+                                  __grid_constant__ const CUtensorMap do_map,
+                                  __grid_constant__ const CUtensorMap k_map,
+                                  __grid_constant__ const CUtensorMap v_map,
+                                  const float* __restrict__ l,
+                                  const float* __restrict__ m,
+                                  const float* __restrict__ di,
+                                  const float* __restrict__ kv_mask,
+                                  T* __restrict__ dk, T* __restrict__ dv,
+                                  int tq, int tk, int n_heads, float scale,
+                                  int causal) {
+  constexpr int kHd = 2 * kPanelCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t k_s = smem_u32(smem);  // group g's K tile at g kPairTile
+  const uint32_t v_s = k_s + kPairGroups * kPairTile;
+  const uint32_t ring = v_s + kPairGroups * kPairTile;
+  // [stage][exponent offset, di][query of the tile]
+  float* rows_s = reinterpret_cast<float*>(
+      smem + 2 * kPairGroups * kPairTile + kPairStages * kPairStageBytes);
+  const uint32_t full0 = smem_u32(rows_s + kPairStages * 2 * kTileRows);
+  const uint32_t empty0 = full0 + 8 * kPairStages;
+  const uint32_t kv_full = empty0 + 8 * kPairStages;
+  int* flags_s = reinterpret_cast<int*>(smem + (kv_full + 8 - k_s));
+
+  const Lanes at;
+  const int bn = blockIdx.x, k0 = blockIdx.y * kPairKeys;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+  // under the causal mask only query rows with row + offset >= k0 reach
+  // the block's keys (group 1's keys skip more tiles below)
+  const int first = causal && k0 - offset > 0 ? (k0 - offset) / kTileRows : 0;
+  const int steps = (tq + kTileRows - 1) / kTileRows - first;
+
+  // a consumer thread's two keys, g and g + 8 of its warp's 16 of its
+  // group's tile, whether each takes part, and whether any and all of each
+  // group's 64 keys do
+  const int group = at.group, in_group = at.tid & 127;
+  const bool consumer = group < kPairGroups;
+  const int group_k0 = k0 + group * kTileRows;
+  const int key_a = group_k0 + at.warp_in_group * 16 + at.g;
+  bool key_ok[2] = {false, false};
+  if (consumer) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_a + 8 * r;
+      key_ok[r] = key < tk && (mask_row == nullptr || mask_row[key] > 0.f);
+    }
+    const bool any = __any_sync(0xffffffffu, key_ok[0] || key_ok[1]);
+    const bool all = __all_sync(0xffffffffu, key_ok[0] && key_ok[1]);
+    if (at.lane == 0) flags_s[at.tid >> 5] = (any ? 1 : 0) | (all ? 2 : 0);
+  }
+  __syncthreads();
+  int active = 0, keys_any = 0, keys_all = 2;  // the thread's group's
+#pragma unroll
+  for (int g = 0; g < kPairGroups; ++g) {
+    int any = 0, all = 2;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      any |= flags_s[4 * g + w] & 1;
+      all &= flags_s[4 * g + w] & 2;
+    }
+    active += any;
+    if (g == group) {
+      keys_any = any;
+      keys_all = all;
+    }
+  }
+  if (consumer && !keys_any) {  // no key of the group takes part: zeros
+    store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, group_k0, tk, in_group);
+    store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, group_k0, tk, in_group);
+  }
+  if (active == 0) return;  // nothing read
+  if (at.tid == 0) {
+    for (int s = 0; s < kPairStages; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty0 + 8 * s, 128 * active);  // the working consumers'
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (!consumer) {
+    // the producer: its warpgroup gives its registers up, and its first
+    // warp fills the ring kPairStages steps ahead of the consumers
+    producer_registers();
+    if (at.warp_in_group != 0) return;
+    if (at.lane == 0) {  // the groups' K and V tiles, once
+      mbar_arrive_expect(kv_full, 2 * kPairGroups * kPairTile);
+#pragma unroll
+      for (int g = 0; g < kPairGroups; ++g)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t at_tile = g * kPairTile + p * kPanelBytes;
+          tma_load_head(k_s + at_tile, &k_map, bn, kv_full,
+                        k0 + g * kTileRows, p * kPanelCols);
+          tma_load_head(v_s + at_tile, &v_map, bn, kv_full,
+                        k0 + g * kTileRows, p * kPanelCols);
+        }
+    }
+    for (int step = 0; step < steps; ++step) {
+      const int stage = step % kPairStages, use = step / kPairStages;
+      if (use > 0) mbar_wait(empty0 + 8 * stage, (use - 1) & 1);
+      const int q0 = (first + step) * kTileRows;
+      // the tile's rows: exponent offset and di (zeros past tq), two a lane
+      float* dst = rows_s + stage * 2 * kTileRows;
+#pragma unroll
+      for (int r = at.lane; r < kTileRows; r += 32) {
+        const RowStats st = row_stats(m, l, di, bn, tq, q0 + r);
+        dst[r] = exponent_offset(st.m, st.l);
+        dst[kTileRows + r] = st.di;
+      }
+      const uint32_t full = full0 + 8 * stage;
+      if (at.lane == 0) {
+        const uint32_t q_tile = ring + stage * kPairStageBytes;
+        mbar_arrive_expect(full, kPairStageBytes);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          tma_load_head(q_tile + p * kPanelBytes, &q_map, bn, full, q0,
+                        p * kPanelCols);
+          tma_load_head(q_tile + kPairTile + p * kPanelBytes, &do_map, bn,
+                        full, q0, p * kPanelCols);
+        }
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  consumer_registers();
+  if (!keys_any) return;  // written as zeros above
+  const uint32_t own_k = k_s + group * kPairTile;
+  const uint32_t own_v = v_s + group * kPairTile;
+  const float scale2 = scale * kLog2e;
+
+  // dK and dV: one [64 x 64] accumulator a panel each
+  float dk_acc[2][32], dv_acc[2][32];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int step = 0; step < steps; ++step) {
+    const int stage = step % kPairStages;
+    const int q0 = (first + step) * kTileRows;
+    mbar_wait(full0 + 8 * stage, (step / kPairStages) & 1);
+    __syncwarp();  // converged for the warpgroup's products
+    // a tile whose last row does not reach the group's first key is
+    // skipped
+    if (!(causal && group_k0 > q0 + kTileRows - 1 + offset)) {
+      const uint32_t q_s = ring + stage * kPairStageBytes;
+      const uint32_t do_s = q_s + kPairTile;
+      const float* lse2_s = rows_s + stage * 2 * kTileRows;
+      const float* di_s = lse2_s + kTileRows;
+
+      float st[32], dpt[32];  // [key][query]
+      products_begin();
+      product_nt<T, 2>(st, own_k, q_s);
+      product_nt<T, 2>(dpt, own_v, do_s);
+      products_end();
+      keep_registers(st);
+      keep_registers(dpt);
+
+      // every pair of the tile takes part: no test per element
+      const bool unmasked =
+          keys_all && q0 + kTileRows <= tq &&
+          (!causal || group_k0 + kTileRows - 1 <= q0 + offset);
+      dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
+                 key_a, causal, offset, at.t);
+      uint32_t pt[4][4], dst[4][4];
+      pack_a_fragments<T>(st, pt);
+      pack_a_fragments<T>(dpt, dst);
+
+      products_begin();
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        product_tn<T>(dv_acc[p], pt, do_s + p * kPanelBytes);
+        product_tn<T>(dk_acc[p], dst, q_s + p * kPanelBytes);
+      }
+      products_end();
+      keep_registers(pt);
+      keep_registers(dst);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        keep_registers(dv_acc[p]);
+        keep_registers(dk_acc[p]);
+      }
+    }
+    mbar_arrive(empty0 + 8 * stage);  // the thread is done with the stage
+  }
+
+  // the group's K and V tiles are read no more: panel p of dV leaves
+  // through panel p of its K tile, of dK through panel p of its V tile,
+  // under the group's own named barrier
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+  const size_t cols = (size_t)bn * tk * kHd;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    store_accumulator<kHd>(dv + cols + p * kPanelCols,
+                           smem + group * kPairTile + p * kPanelBytes,
+                           dv_acc[p], 1.f, group_k0, tk, 1 + group, in_group);
+    store_accumulator<kHd>(
+        dk + cols + p * kPanelCols,
+        smem + (kPairGroups + group) * kPairTile + p * kPanelBytes, dk_acc[p],
+        scale, group_k0, tk, 1 + group, in_group);
+  }
+}
+
 // K3b's launch at `panels` panels: the narrow kernel at 0 (head size 32),
-// the whole-tile kernel at 1, 2 or 4 (a block owns 64 keys, its warpgroups
-// split the panels), the cluster kernel above 4
+// the whole-tile kernel at 1 or 4 (a block owns 64 keys, its warpgroups
+// split the panels), the producer kernel at 2 (a block owns 128 keys), the
+// cluster kernel above 4
 LaunchShape dkv_shape(int panels) {
   if (panels == 0) return narrow_shape();
+  if (panels == 2) return {kPairThreads, pair_smem_bytes(), kPairKeys, 1};
   if (panels > 4) {
     const ClusterSplit split = cluster_split(panels);
     return {256, cluster_smem_bytes(), kTileRows,
@@ -2091,9 +2348,7 @@ LaunchShape dkv_shape(int panels) {
   const int groups = dkv_groups(panels);
   const int hand = groups > 1 ? kHandBytes : 0;
   return {128 * groups,
-          panels == 1   ? smem_bytes<1>(1, hand)
-          : panels == 2 ? smem_bytes<2>(1, hand)
-                        : smem_bytes<4>(1, hand),
+          panels == 1 ? smem_bytes<1>(1, hand) : smem_bytes<4>(1, hand),
           kTileRows, 1};
 }
 
@@ -2152,6 +2407,32 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
       (const float*)di, (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk,
       n_heads, scale, causal);
+}
+
+// the producer kernel at head size 128: tensor maps of Q, dO, K and V whose
+// boxes are one panel of 64 rows
+template <typename T>
+cudaError_t launch_dkv_producer(const void* q, const void* k, const void* v,
+                                const void* dout, const void* l,
+                                const void* m, const void* di,
+                                const void* kv_mask, void* dk, void* dv,
+                                int bn, int tq, int tk, int n_heads,
+                                float scale, int causal,
+                                cudaStream_t stream) {
+  constexpr int kCols = 2 * kPanelCols;
+  CUtensorMap maps[4];
+  cudaError_t err = head_map<T>(&maps[0], q, bn, tq, kTileRows, kCols);
+  if (err == cudaSuccess)
+    err = head_map<T>(&maps[1], dout, bn, tq, kTileRows, kCols);
+  if (err == cudaSuccess)
+    err = head_map<T>(&maps[2], k, bn, tk, kTileRows, kCols);
+  if (err == cudaSuccess)
+    err = head_map<T>(&maps[3], v, bn, tk, kTileRows, kCols);
+  if (err != cudaSuccess) return err;
+  return launch_in<flash_bwd_dkv_producer_kernel<T>>(
+      dkv_shape(2), bn, tk, stream, maps[0], maps[1], maps[2], maps[3],
+      (const float*)l, (const float*)m, (const float*)di,
+      (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale, causal);
 }
 
 LaunchShape dkv_short_shape() {
@@ -2239,8 +2520,9 @@ cudaError_t dkv_panels(int panels, const void* q, const void* k,
     return launch_dkv<T, 1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
   if (panels == 2)
-    return launch_dkv<T, 2>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
-                            tq, tk, n_heads, scale, causal, stream);
+    return launch_dkv_producer<T>(q, k, v, dout, l, m, di, kv_mask, dk, dv,
+                                  bn, tq, tk, n_heads, scale, causal,
+                                  stream);
   if (panels == 4)
     return launch_dkv<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
@@ -2311,11 +2593,12 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 
 // K3b's kernel for a call at `panels` panels and these lengths (0 the
 // whole-tile kernel, 1 the short kernel, 2 the cluster kernel, 3 the narrow
-// kernel)
+// kernel, 4 the producer kernel)
 int flash_bwd_dkv_kernel_of(int panels, int tq, int tk) {
   return panels == 0                      ? 3
          : takes_short_dkv(panels, tq, tk) ? 1
          : panels > 4                      ? 2
+         : panels == 2                     ? 4
                                            : 0;
 }
 
@@ -2354,14 +2637,15 @@ int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk) {
           shape);
     case 7:
       return resident_blocks<flash_bwd_dkv_narrow_kernel<__half>>(shape);
+    case 8:
+      return resident_blocks<flash_bwd_dkv_producer_kernel<__nv_bfloat16>>(
+          shape);
+    case 9:
+      return resident_blocks<flash_bwd_dkv_producer_kernel<__half>>(shape);
   }
   if (panels == 1)
     return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 1>>(shape)
                : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 1>>(
-                     shape);
-  if (panels == 2)
-    return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 2>>(shape)
-               : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 2>>(
                      shape);
   return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 4>>(shape)
              : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 4>>(

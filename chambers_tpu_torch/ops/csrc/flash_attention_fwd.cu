@@ -8,8 +8,7 @@
 //   flash_fwd_short_kernel   the same, at head size 64 over 64 to 256
 //                            queries and 1 to 256 keys (ViT lengths)
 //   flash_fwd_narrow_kernel  the same, at head size 32 (32-column tiles)
-//   flash_fwd_wide_kernel    the same, at head sizes above 256 up to 1152
-//   flash_fwd_sliced_kernel  the same, at head sizes above 1152
+//   flash_fwd_cluster_kernel the same, at head sizes above 256
 // and computes what flash_attention.cu's note says it computes: per query
 // tile over all key tiles s = q k^T scale with float32 accumulation, a
 // running float32 max m, p = exp(s - m) zeroed where masked, l = sum p from
@@ -18,8 +17,8 @@
 // causal diagonal at the sequence end, exact zeros in o and l and m at the
 // mask value for a row with no valid key, any tq and tk, head size 64, 128
 // or 256 (one, two or four panels, a template parameter), 32 in the narrow
-// kernel and, in the wide and sliced kernels, any multiple of 64 above 256
-// (the wrapper pads other sizes). The operand type T (__nv_bfloat16 or __half) is the other
+// kernel and, in the cluster kernel, any multiple of 64 above 256 (the
+// wrapper pads other sizes). The operand type T (__nv_bfloat16 or __half) is the other
 // template parameter: it changes the rounding of p and the output and the
 // wgmma instruction's type, nothing else. Returns o (of T) and l, m
 // (float32, natural units) for the backward kernels.
@@ -176,68 +175,89 @@
 // its groups' serial chains bind; four stages at five blocks an SM 41.0;
 // three at seven blocks an SM spill (72 registers) and take twice as long.
 //
-// Head sizes above 256: flash_fwd_wide_kernel, and above 1152
-// flash_fwd_sliced_kernel. The whole-tile design stages
-// whole tile rows, which at 256 already take 162 KB of the 227 KB a block
-// may have; at 512 one 64-row tile of Q is 64 KB. In the sliced kernel
-// (first), a block owns 64 query rows and one slice of kSlicePanels = 4
-// panels (256 columns) of O, picked
-// by blockIdx.z; the head size is a run-time argument, and one
-// instantiation per type serves every multiple of 64. A key step passes
-// through a ring of two 32 KB slots as items: the score product's
-// operands, Q's and K's panels two at a time, accumulated over the whole
-// padded head into one S with wgmma (the chain's first product
-// overwrites), then the slice's panels of V, which P, rounded to T,
-// multiplies. One item is copied while the one before it is multiplied,
-// with one barrier an item. The softmax (softmax_tile, shared with the
-// kernel above), the mask rules and the work they rule out are the
-// design's above, so the results follow the same semantics; slice 0 writes
-// l and m, and O leaves through the first slot once the ring is done. The
-// cost: every slice computes S and the softmax again, h / 256 times (at
-// 512 the tensor cores do 1.5 times the function's work, at 1024 2.5
-// times), and Q's panels are copied again at every key step (from L2).
-// 66 KB of shared memory and 236 registers, no spills (O is four panels,
-// as at 256): two blocks an SM. ptxas injects a warpgroup.arrive before
-// five of its wgmma batches (warning C7519), which run under run-time
-// conditions (the slice's panel count, an odd last panel of the head).
-// At [16, 512, 512] bf16 with the ragged key mask it took 56.0 us (PERF.md
-// section 6), its causal time the same: the call is one wave (256 blocks
-// on 132 SMs x 2), and each block moves 160 KB through L2 a key step (Q's
-// and K's panels, the slice's V), 320 KB an SM, 5.9 TB/s over the call.
-//
-// The wide kernel holds a 64-row tile of Q in shared memory for the whole
-// call and computes each (row tile, key tile) score product once a block:
-// a block is kWideGroups = 2 warpgroups over 64 query rows and a slice of
-// kWideSlicePanels = 8 panels (512 columns) of O, four panels a group
-// (128 float32 registers of O a thread; one slice up to h 512, two at
-// 1024, so there S is computed twice, not four times). K's panels pass two
-// at a time as 16 KB items through a ring of kWideSlots = 4 slots (three
-// items in flight, one __syncthreads an item); group g multiplies panel
-// 2j + g of item j into its own partial S, so each group's chain of k16
-// products is half the head; the two partial tiles are swapped thread by
-// thread through 16 KB of shared memory and added (S = the even panels'
-// sum + the odd panels', the same bits in both groups), and both groups
-// run softmax_tile on it, so each holds P and rescales its own panels of
-// O. Then V's items: item m carries panel m of each group's share. The
-// score sums differ from the sliced kernel's single chain in their last
-// bits; the results are held to the plain versions at the card tests'
-// tolerances (compare_flash_builds.py --only wide reports the largest
-// difference). Shared memory: Q's panels, 64 KB of ring, 16 KB for the
-// swap: up to 18 panels (h 1152) fit; 235 registers, no spills, no fences
-// injected: one block an SM. As measured on an H100 (compare_flash_builds.py
-// against 247356c's sliced kernel, in turns, one call; PERF.md section 6):
-// [16, 512, 512] 46.6 us against 54.9 (causal 47.0 against 55.5),
-// [16, 512, 1024] 123.4 against 171.9 (causal 113.2 against 156.8);
-// float16 46.5 against 54.7 and [16, 512, 1088] 175.2 against 251.8 in
-// earlier calls. Its
-// copies alone (no products) took 32.5 us at h 512 and its products
-// without copies 36.5 (both measured on the one-group form below): the L2
-// traffic of 128 KB a key step an SM and the items' chains of waits bind
-// together. Tried, and slower: one group computing S over the whole head
-// in the sliced kernel's order (the sliced kernel's bits) and handing P
-// and the row maxima to the other through shared memory, 52.7 us at 512,
-// 149.8 at 1024, 217.1 at 1088; six or eight ring slots level (47.1,
-// 46.2 against 47.2).
+// Head sizes above 256: flash_fwd_cluster_kernel. The whole-tile design
+// stages whole tile rows, which at 256 already take 162 KB of the 227 KB
+// a block may have; at 512 one 64-row tile of Q is 64 KB, and a 64-row
+// tile's O in float32 (16 KB a panel, 304 KB at h 1216) outgrows one
+// SM's register file above 512. So a row tile's output columns are
+// spread over the blocks of a thread-block cluster, and each score
+// product is computed once a cluster:
+// * A block has two consumer warpgroups over 64 query rows and owns at
+//   most kBlockPanels = 8 panels of O and of Q (Q's resident), half of
+//   them, rounded up, to group 0: 128 float32 registers of O a thread.
+//   The blocks over the same 64 rows form a cluster along z
+//   (fwd_cluster_split: as few blocks as hold the head's panels, the
+//   panels balanced over them, at h 1216 7 + 6 + 6; one block up to h 512;
+//   above h 4096 several clusters along z, each computing S over the whole
+//   head: a block also computes the terms of the panels its rank owns in
+//   the other clusters, their Q and K panels an item each). The head size
+//   is a run-time argument: one instantiation per type.
+// * A third warpgroup gives its registers up (setmaxnreg: 24 a thread, the
+//   consumers 240) and its first warp is the producer: it keeps TMA loads
+//   (tensor maps of [bn, t, h] whose box is one 64-row panel, the 128-byte
+//   swizzle) in flight into a ring of kClusterSlots = 6 items of two
+//   panels on mbarriers, full and empty, kClusterSlots items ahead of the
+//   consumers, and writes each key step's flags and count of valid keys
+//   beside its first item. The consumers never meet a block barrier for a
+//   copy.
+// * Key step s: the K items (group g multiplies its resident panels 2j +
+//   g with item j's, all of the group's panels in one batch of wgmma, a
+//   panel past the block's the panel of zeros, so each group's batch is
+//   straight-line code of four panels); the block's partial S (each
+//   group's half summed with the other's through 16 KB of shared memory,
+//   group 0's terms first); each group writes its half of the block's sum
+//   to the block's exchange buffer and lanes 0 .. n - 1 signal the cluster's
+//   n blocks' `ready` mbarriers (release at the cluster's scope, one lane a
+//   block, all at once). Then, while the other blocks catch up, P_{s-1} V
+//   over the step before's V items (each group's four panels of O in one
+//   batch); then the wait on `ready` (acquire at the cluster's scope), the
+//   sum of the n blocks' halves in rank order through distributed shared
+//   memory (two ranks' loads in flight), the halves swapped back, and the
+//   softmax (softmax_tile) on the same S bits in every group of every
+//   block. The two exchange buffers take turns; a block signals an
+//   exchange only after reading the one before, so waiting on one
+//   exchange's `ready` also tells that the buffer the next one overwrites
+//   has been read by every block. One cluster barrier at the start (every
+//   block's mbarriers set up) and one at the end (no block leaves while
+//   another reads its buffer).
+// * The mask rules and the work they rule out are the whole-tile
+//   design's, and depend on the rows and keys alone, the same in every
+//   block of a cluster, so the blocks take part in the same exchanges;
+//   block 0 of the first cluster writes l and m, and each group's O leaves
+//   through Q's panels.
+// The score sums are new bits (a cluster of one block, up to h 512, gives
+// the bits of flash_fwd_wide_kernel, named below, whose order it keeps);
+// they are held to the plain versions at the card tests' tolerances. 384
+// threads (ptxas reports the 168 registers a thread of the launch; the
+// consumers run at 240), no spills, no fences injected; 219 KB of shared
+// memory: one block an SM.
+// As measured on an NVIDIA H100 80GB HBM3 at 700 W (compare_flash_builds.py
+// --only cluster and --only wide against 4fe19bb, each in turns in one
+// call; PERF.md section 6), bf16 with the ragged key mask: [16, 512, 1216]
+// 159.2 us against the sliced kernel's 282.8 and SDPA's 212.5 (causal
+// 117.5 against 206.4; float16 159.7), [16, 512, 1536] 164.6 against
+// 365.3 (SDPA 255.2), [16, 512, 2112] 327.1 against 801.4 (SDPA 348.2),
+// [16, 512, 512] 36.3 against the wide kernel's 46.6 with its bits,
+// [16, 512, 1024] 78.6 against 123.2. What binds it (ablations: copies of
+// csrc with one edit each, compare_flash_builds.py --turns): the
+// consumers' chain. At 1216 its products without copies took 147.7 us of
+// 158.1, the copies alone 92.0; without any exchange it took 122.5, with
+// the block's swaps 128.4, with the signalling 135.4, with the remote
+// loads 158.9; at 2112 (clusters of five) 210.0, 215.7, 224.5 and 322.7.
+// Replaced or tried, and slower, each in turns against the design before
+// it: flash_fwd_sliced_kernel (a block one warpgroup and 256 columns of
+// O, every slice computing S again, 282.8 us at 1216);
+// flash_fwd_wide_kernel (two warpgroups over 512 columns of O with
+// Q's tile resident, S computed once a slice, cp.async by all threads
+// with a __syncthreads an item: 46.6 us at 512, 123.2 at 1024, 181.6 at
+// 1152; the cluster kernel took 36.3, 78.6 and 155.7); the first cluster
+// form (no producer: the wide kernel's ring and a cluster barrier an
+// exchange) 230.3 us at 1216, its ring alone 168.6, the same with the
+// blocks launched head-major or six ring slots level (227.3, 227.0);
+// with the producer, `free` mbarriers beside `ready` and one thread
+// signalling the n blocks in turn 203.4; that with P V under the exchange
+// 200.7; with each group's products batched 197.5 (then 159.2 with the
+// signalling above).
 //
 // What holds it back, as measured on an H100 (PERF.md section 6): at
 // [128, 512, 64] with the key mask it runs at a third of the bound above
@@ -871,51 +891,85 @@ __global__ void __launch_bounds__(kShortThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// head sizes above 256: the sliced kernel (see the note at the top)
+// head sizes above 256: the cluster kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kSlicePanels = 4;  // panels of O a block: 256 columns
+// The cluster kernel's block: kClusterGroups consumer warpgroups over 64
+// query rows and at most kBlockPanels panels of O (and of Q, resident),
+// kGroupPanels of them a group, and a warpgroup whose first warp is the
+// producer; its ring's items are two panels each
+constexpr int kClusterGroups = 2;
+constexpr int kGroupPanels = 4;  // 256 columns of O: 128 registers a thread
+constexpr int kBlockPanels = kClusterGroups * kGroupPanels;  // 512 columns
+constexpr int kConsumerThreads = 128 * kClusterGroups;
+constexpr int kClusterThreads = kConsumerThreads + 128;
+constexpr int kItemBytes = 2 * kPanelBytes;
+constexpr int kClusterSlots = 6;  // the ring's items
 
-__host__ __device__ constexpr size_t sliced_smem_bytes() {
-  return 1024 + kSlots * (kSlotBytes + kTileRows * 4) + 4 * 4;
+// [first, first + count) of `total` items split as evenly as they go over
+// `parts` parts: part i's
+struct Span {
+  int first, count;
+};
+
+__host__ __device__ constexpr Span balanced(int total, int parts, int i) {
+  return {i * (total / parts) + (i < total % parts ? i : total % parts),
+          total / parts + (i < total % parts ? 1 : 0)};
 }
 
-// Head sizes above 256 where Q's 64-row tile fits in shared memory beside
-// the ring: the wide kernel (see the note at the top). A block is
-// kWideGroups warpgroups over 64 query rows and one slice of
-// kWideSlicePanels panels of O, kSlicePanels of them a group; K's and V's
-// panels pass by two at a time through a ring of kWideSlots items.
-constexpr int kWideGroups = 2;
-constexpr int kWideThreads = 128 * kWideGroups;
-constexpr int kWideSlicePanels = kWideGroups * kSlicePanels;  // 512 columns
-constexpr int kWideSlots = 4;
-constexpr int kWideSlotBytes = 2 * kPanelBytes;
-constexpr size_t kBlockSmem = 232448;  // the most a block may have (sm_90)
+// How the cluster kernel cuts a head of `panels` panels: `clusters`
+// chunks of the head along z, as few as clusters of the portable size
+// allow, each chunk balanced over its cluster's `blocks` blocks, as few as
+// hold kBlockPanels panels a block (h 512: one block; h 1216: one cluster
+// of 7 + 6 + 6)
+struct FwdClusterSplit {
+  int blocks, clusters;
+};
 
-// Q's panels, the ring, two steps' key flags, the partial score tile the
-// groups swap, the warps' words of kept_key_end
-__host__ __device__ constexpr size_t wide_smem_bytes(int panels) {
-  return 1024 + (size_t)panels * kPanelBytes + kWideSlots * kWideSlotBytes +
-         2 * kTileRows * 4 + 32 * 128 * 4 + kWideThreads / 32 * 4;
+__host__ __device__ constexpr FwdClusterSplit fwd_cluster_split(int panels) {
+  constexpr int most = kMaxCluster * kBlockPanels;  // 64 a cluster
+  const int clusters = (panels + most - 1) / most;
+  const int widest = (panels + clusters - 1) / clusters;
+  return {(widest + kBlockPanels - 1) / kBlockPanels, clusters};
 }
 
-// K3a above 4 panels on the wide kernel (else the sliced kernel)
-bool takes_wide(int panels) {
-  return panels > 4 && wide_smem_bytes(panels) <= kBlockSmem;
+// the panels of O (and of Q) that block `rank` of the cluster over chunk
+// `chunk` of `chunks` owns
+__device__ __forceinline__ Span cluster_panels(int panels, int chunks,
+                                               int chunk, int n, int rank) {
+  const Span c = balanced(panels, chunks, chunk);
+  const Span b = balanced(c.count, n, rank);
+  return {c.first + b.first, b.count};
 }
 
-LaunchShape wide_shape(int panels) {
-  return {kWideThreads, wide_smem_bytes(panels), kTileRows,
-          (panels + kWideSlicePanels - 1) / kWideSlicePanels};
+// A block's [64 x 64] float32 score tile in shared memory, 8 units of four
+// values a thread of a warpgroup, [unit][thread]: 16 KB
+constexpr int kUnitBytes = 128 * 16;
+constexpr int kScoreTileBytes = 8 * kUnitBytes;
+// the consumers' named barrier (store_panel's are 1 and 2)
+constexpr int kConsumerBarrier = 3;
+
+// Q's own panels, a panel of zeros, the ring, the two exchange buffers,
+// the groups' swap buffer, the steps' key flags and counts of valid keys,
+// the barriers (each slot's full and empty, Q's, each exchange buffer's
+// ready), the warps' words of kept_key_end
+__host__ __device__ constexpr size_t cluster_smem_bytes() {
+  return 1024 + (kBlockPanels + 1) * kPanelBytes +
+         kClusterSlots * kItemBytes + 3 * kScoreTileBytes +
+         kClusterSlots * (kTileRows + 1) * 4 + (2 * kClusterSlots + 3) * 8 +
+         kClusterThreads / 32 * 4;
+}
+
+LaunchShape cluster_shape(int panels) {
+  const FwdClusterSplit split = fwd_cluster_split(panels);
+  return {kClusterThreads, cluster_smem_bytes(), kTileRows,
+          split.blocks * split.clusters, split.blocks};
 }
 
 // K3a's launch at `panels` panels: the narrow kernel at 0 (head size 32),
-// the whole-tile kernel at 1, 2 or 4, the wide or the sliced kernel above 4
+// the whole-tile kernel at 1, 2 or 4, the cluster kernel above 4
 LaunchShape fwd_shape(int panels) {
-  if (takes_wide(panels)) return wide_shape(panels);
-  if (panels > 4)
-    return {128, sliced_smem_bytes(), kTileRows,
-            (panels + kSlicePanels - 1) / kSlicePanels};
+  if (panels > 4) return cluster_shape(panels);
   return {128 * kGroups,
           panels == 0   ? smem_bytes<0>()
           : panels == 1 ? smem_bytes<1>()
@@ -924,227 +978,171 @@ LaunchShape fwd_shape(int panels) {
           kGroups * kTileRows, 1};
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128, 1)
-    flash_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const float* __restrict__ kv_mask,
-                            T* __restrict__ o, float* __restrict__ l_out,
-                            float* __restrict__ m_out, int tq, int tk,
-                            int hd, int n_heads, float scale, int causal) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t ring = smem_u32(smem);
-  float* valid_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
-  int* flags_s = reinterpret_cast<int*>(valid_s + kSlots * kTileRows);
+__device__ __forceinline__ float4 unit_of(const float (&a)[32], int u) {
+  return make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2], a[4 * u + 3]);
+}
 
-  const Lanes at;
-  const int panels = hd / kPanelCols;
-  const int panel0 = blockIdx.z * kSlicePanels;
-  const int own = min(kSlicePanels, panels - panel0);  // the slice's panels
-  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
-  const T* qb = q + (size_t)bn * tq * hd;
-  const T* kb = k + (size_t)bn * tk * hd;
-  const T* vb = v + (size_t)bn * tk * hd;
-  const float* mask_row =
-      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
-  const int offset = tk - tq;
-  // the thread's two rows: g and g + 8 of its warp's 16
-  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+__device__ __forceinline__ void set_unit(float (&a)[32], int u, float4 x) {
+  a[4 * u] = x.x;
+  a[4 * u + 1] = x.y;
+  a[4 * u + 2] = x.z;
+  a[4 * u + 3] = x.w;
+}
 
-  // keys past the last row's diagonal take no part, nor keys past the last
-  // one the mask keeps (trailing padding)
-  const int k_end = kept_key_end<128>(
-      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
-      flags_s);
-  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
-  float* l_rows = l_out + (size_t)bn * tq;
-  float* m_rows = m_out + (size_t)bn * tq;
-  T* o_cols = o + (size_t)bn * tq * hd + panel0 * kPanelCols;
+__device__ __forceinline__ float4 load_shared(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
 
-  if (steps == 0) {  // no key reaches the block: zeros, nothing read
-    for (int p = 0; p < own; ++p)
-      store_zero_panel(o_cols + p * kPanelCols, q0, tq, hd, at.tid);
-    const int row = q0 + at.tid;
-    if (blockIdx.z == 0 && at.tid < kTileRows && row < tq) {
-      l_rows[row] = 0.f;
-      m_rows[row] = kMaskValue;
-    }
-    return;
-  }
+// The cluster kernel's score tile, summed over the cluster in four parts,
+// each called by both warpgroups between barriers. Warpgroup g of every
+// block takes half g of the tile: units 4g .. 4g + 3, the fragment's
+// values 16g .. 16g + 15. `swap` and `xbuf` are the thread's slot of unit 0
+// in the block's swap buffer and in this step's exchange buffer.
+// 1. the group's terms of the other half, to the swap buffer
+template <int kHalf>
+__device__ __forceinline__ void scores_hand_over(const float (&s)[32],
+                                                 uint32_t swap) {
+#pragma unroll
+  for (int u = 4 * (1 - kHalf); u < 4 * (2 - kHalf); ++u)
+    store_shared(swap + u * kUnitBytes, unit_of(s, u));
+}
 
-  // A key step is `items` items through the ring: the score product's
-  // operands, Q's and K's panels two at a time, then the slice's panels of
-  // V. The first item of a step also copies the tile's key flags.
-  const int score_items = (panels + 1) / 2, items = score_items + 1;
-  const int total = steps * items;
-  auto stage_item = [&](int i) {
-    if (i < total) {
-      const int step = i / items, j = i - step * items;
-      const int k0 = step * kTileRows;
-      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-      if (j < score_items) {
+// 2. after a barrier: the block's sum of half kHalf, warpgroup 0's terms
+// first, into s and the exchange buffer
+template <int kHalf>
+__device__ __forceinline__ void scores_block_sum(float (&s)[32],
+                                                 uint32_t swap,
+                                                 uint32_t xbuf) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int p = 2 * j + e;
-          if (p < panels) {
-            stage_panel<128>(slot + e * kPanelBytes, qb + p * kPanelCols, q0,
-                             tq, hd, at.tid);
-            stage_panel<128>(slot + (2 + e) * kPanelBytes,
-                             kb + p * kPanelCols, k0, tk, hd, at.tid);
-          }
-        }
-        if (j == 0 && at.tid < kTileRows)  // which keys take part
-          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
-                         k0 + at.tid, tk);
-      } else {
-#pragma unroll
-        for (int p = 0; p < kSlicePanels; ++p)
-          if (p < own)
-            stage_panel<128>(slot + p * kPanelBytes,
-                             vb + (panel0 + p) * kPanelCols, k0, tk, hd,
-                             at.tid);
-      }
-    }
-    cp_async_commit();  // an empty group keeps the count of groups in step
-  };
-
-  stage_item(0);
-  const float scale2 = scale * kLog2e;
-  int last_col[2];  // the last key each of the thread's rows may see
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    last_col[r] = causal ? row_a + 8 * r + offset : tk;
-
-  // S over the whole head, O one [64 x 64] accumulator a panel of the slice
-  float s[32], acc[kSlicePanels][32], m_run[2] = {kMaskValue, kMaskValue},
-                                      l_part[2] = {0.f, 0.f};
-#pragma unroll
-  for (int p = 0; p < kSlicePanels; ++p)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
-  uint32_t p_frag[4][4];
-  int n_valid = 0;
-
-  for (int i = 0; i < total; ++i) {
-    const int step = i / items, j = i - step * items;
-    const int k0 = step * kTileRows;
-    const float* valid = valid_s + (step % 2) * kTileRows;
-    // one item in flight: wait for it, then one barrier (the item visible
-    // to all, the other slot read by all), which at a step's first item
-    // also counts the tile's valid keys
-    cp_async_wait<0>();
-    if (j == 0)
-      n_valid = __syncthreads_count(at.tid < kTileRows && valid[at.tid] > 0.f);
-    else
-      __syncthreads();
-    stage_item(i + 1);
-    if (n_valid == 0) continue;  // no valid key in the step's tile
-    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-
-    if (j < score_items) {
-      products_begin();
-      product_nt_panel<T>(s, slot, slot + 2 * kPanelBytes, 8 * j);
-      if (2 * j + 1 < panels)
-        product_nt_panel<T>(s, slot + kPanelBytes, slot + 3 * kPanelBytes,
-                            8 * j + 4);
-      products_end();
-      keep_registers(s);
-      if (j == score_items - 1) {  // S is whole: the softmax
-        const bool unmasked =
-            n_valid == kTileRows &&
-            (!causal || k0 + kTileRows - 1 <= q0 + offset);
-        softmax_tile<T>(s, acc, m_run, l_part, p_frag, valid, unmasked, k0,
-                        last_col, at.t, scale, scale2);
-      }
-    } else {
-      products_begin();
-#pragma unroll
-      for (int p = 0; p < kSlicePanels; ++p)
-        if (p < own) product_tn<T>(acc[p], p_frag, slot + p * kPanelBytes);
-      products_end();
-      keep_registers(p_frag);
-#pragma unroll
-      for (int p = 0; p < kSlicePanels; ++p) keep_registers(acc[p]);
-    }
-  }
-
-  // l over the quad, o = acc / l (a row with l == 0 has acc == 0)
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_part[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = l == 0.f ? 1.f : 1.f / l;
-    const int row = row_a + 8 * r;
-    if (blockIdx.z == 0 && at.t == 0 && row < tq) {
-      l_rows[row] = l;
-      m_rows[row] = m_run[r];
-    }
-  }
-  // the ring is read no more: panel p of the slice leaves through panel p
-  // of the first slot
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < kSlicePanels; ++p) {
-    if (p < own) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
-      store_panel(o_cols + p * kPanelCols, smem + p * kPanelBytes, acc[p],
-                  1.f, q0, tq, hd, 1, at.tid);
-    }
+  for (int u = 4 * kHalf; u < 4 * kHalf + 4; ++u) {
+    const float4 other = load_shared(swap + u * kUnitBytes);
+    const float4 own = unit_of(s, u);
+    const float4 sum = kHalf == 0 ? own + other : other + own;
+    set_unit(s, u, sum);
+    store_shared(xbuf + u * kUnitBytes, sum);
   }
 }
 
+// 3. once every block's sums are in: the cluster's sum of half kHalf, the
+// blocks' sums added in rank order 0 .. n - 1 (each block's own from its
+// registers, the others' through distributed shared memory, two ranks'
+// eight loads in flight at once), into s and the swap buffer
+template <int kHalf>
+__device__ __forceinline__ void scores_cluster_sum(float (&s)[32],
+                                                   uint32_t swap,
+                                                   uint32_t xbuf, int n,
+                                                   int rank) {
+  float4 sum[4];
+  for (int r0 = 0; r0 < n; r0 += 2) {
+    float4 term[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        term[e][u] =
+            r0 + e == rank || r0 + e >= n
+                ? unit_of(s, 4 * kHalf + u)
+                : load_remote(xbuf + (4 * kHalf + u) * kUnitBytes, r0 + e);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r0 + e < n) sum[u] = r0 + e == 0 ? term[e][u] : sum[u] + term[e][u];
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    set_unit(s, 4 * kHalf + u, sum[u]);
+    store_shared(swap + (4 * kHalf + u) * kUnitBytes, sum[u]);
+  }
+}
+
+// 4. after a barrier: the other group's half of the sum
+template <int kHalf>
+__device__ __forceinline__ void scores_take_over(float (&s)[32],
+                                                 uint32_t swap) {
+#pragma unroll
+  for (int u = 4 * (1 - kHalf); u < 4 * (2 - kHalf); ++u)
+    set_unit(s, u, load_shared(swap + u * kUnitBytes));
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ kv_mask,
-                          T* __restrict__ o, float* __restrict__ l_out,
-                          float* __restrict__ m_out, int tq, int tk, int hd,
-                          int n_heads, float scale, int causal) {
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    flash_fwd_cluster_kernel(__grid_constant__ const CUtensorMap q_map,
+                             __grid_constant__ const CUtensorMap k_map,
+                             __grid_constant__ const CUtensorMap v_map,
+                             const float* __restrict__ kv_mask,
+                             T* __restrict__ o, float* __restrict__ l_out,
+                             float* __restrict__ m_out, int tq, int tk,
+                             int hd, int n_heads, float scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const int panels = hd / kPanelCols;
+  // Q's panels and a panel of zeros, the score and P V products' stand-in
+  // for a panel a group does not have
+  constexpr int kQBytes = (kBlockPanels + 1) * kPanelBytes;
+  constexpr int kRingBytes = kClusterSlots * kItemBytes;
   const uint32_t q_s = smem_u32(smem);
-  const uint32_t ring = q_s + panels * kPanelBytes;
-  float* valid_s = reinterpret_cast<float*>(
-      smem + panels * kPanelBytes + kWideSlots * kWideSlotBytes);
-  // the partial score tile the groups swap, [value][thread of the group]
-  float* swap_s = valid_s + 2 * kTileRows;
-  int* flags_s = reinterpret_cast<int*>(swap_s + 32 * 128);
+  const uint32_t zeros = q_s + kBlockPanels * kPanelBytes;
+  const uint32_t ring = q_s + kQBytes;
+  const uint32_t xchg = ring + kRingBytes;  // two exchange buffers
+  const uint32_t swap_s = xchg + 2 * kScoreTileBytes;
+  // the key flags of the last kClusterSlots steps ([step][key]), written
+  // with a step's first item: a step is at least six items (a block owns
+  // at least five panels), so the producer, at most kClusterSlots items
+  // ahead, never overwrites a step's flags before its softmax
+  float* step_flags =
+      reinterpret_cast<float*>(smem + kQBytes + kRingBytes +
+                               3 * kScoreTileBytes);
+  const uint32_t full0 = smem_u32(step_flags + kClusterSlots * kTileRows);
+  const uint32_t empty0 = full0 + 8 * kClusterSlots;
+  const uint32_t q_full = empty0 + 8 * kClusterSlots;
+  const uint32_t ready0 = q_full + 8;
+  // and their counts of valid keys
+  int* step_valid = reinterpret_cast<int*>(smem + (ready0 + 16 - q_s));
+  int* words = step_valid + kClusterSlots;
 
   const Lanes at;
-  const int in_group = at.tid & 127;
-  const int panel0 = blockIdx.z * kWideSlicePanels;
-  const int slice = min(kWideSlicePanels, panels - panel0);
-  // the group's panels of O: kSlicePanels from panel0 + kSlicePanels group
-  const int own = max(0, min(kSlicePanels, slice - at.group * kSlicePanels));
+  const int group = at.group, in_group = at.tid & 127;
+  const int n = cluster_blocks(), rank = cluster_rank();
+  const int chunks = gridDim.z / n, chunk = blockIdx.z / n;
+  const int panels = hd / kPanelCols;
+  const Span mine = cluster_panels(panels, chunks, chunk, n, rank);
+  const int own = mine.count;
+  // group 0's panels of O are the first half0 of the block's, group 1's
+  // the rest
+  const int half0 = (own + 1) / 2;
+  const int group_own = group ? own - half0 : half0;
+  // the block's parts of the other chunks: the panels the blocks of the
+  // same rank own in the other clusters, whose score terms this block
+  // computes for its own cluster
+  int n_extra = 0;
+  for (int c = 0; c < chunks; ++c)
+    if (c != chunk) n_extra += cluster_panels(panels, chunks, c, n, rank).count;
   const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
-  const T* qb = q + (size_t)bn * tq * hd;
-  const T* kb = k + (size_t)bn * tk * hd;
-  const T* vb = v + (size_t)bn * tk * hd;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
-  // the thread's two rows: g and g + 8 of its warp's 16
+  // a consumer thread's two rows: g and g + 8 of its warp's 16
   const int row_a = q0 + at.warp_in_group * 16 + at.g;
 
   // keys past the last row's diagonal take no part, nor keys past the last
-  // one the mask keeps (trailing padding)
-  const int k_end = kept_key_end<kWideThreads>(
+  // one the mask keeps (trailing padding); the same in every block of the
+  // cluster, as is every skip below, so the blocks take part in the same
+  // exchanges
+  const int k_end = kept_key_end<kClusterThreads>(
       mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
-      flags_s);
+      words);
   const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
   float* l_rows = l_out + (size_t)bn * tq;
   float* m_rows = m_out + (size_t)bn * tq;
-  T* o_cols = o + (size_t)bn * tq * hd + panel0 * kPanelCols;
+  T* o_cols = o + (size_t)bn * tq * hd + mine.first * kPanelCols;
 
   if (steps == 0) {  // no key reaches the block: zeros, nothing read
-    for (int p = at.group; p < slice; p += kWideGroups)
+    for (int p = group; p < own && group < kClusterGroups; p += kClusterGroups)
       store_zero_panel(o_cols + p * kPanelCols, q0, tq, hd, in_group);
     const int row = q0 + at.tid;
     if (blockIdx.z == 0 && at.tid < kTileRows && row < tq) {
@@ -1154,114 +1152,255 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     return;
   }
 
-  // Q's panels, once, with the first item
-  for (int p = 0; p < panels; ++p)
-    stage_panel<kWideThreads>(q_s + p * kPanelBytes, qb + p * kPanelCols,
-                              q0, tq, hd, at.tid);
-
-  // A key step is `items` items through the ring: K's panels two at a
-  // time (group g multiplies the item's panel g), then V's, panel m of each
-  // group's share in item m. The first item of a step also copies the
-  // tile's key flags.
-  const int score_items = (panels + 1) / 2;
-  const int v_items = min(kSlicePanels, slice);  // group 0's share, the most
-  const int items = score_items + v_items, total = steps * items;
-  auto stage_item = [&](int i) {
-    if (i < total) {
-      const int step = i / items, j = i - step * items;
-      const int k0 = step * kTileRows;
-      const uint32_t slot = ring + (i % kWideSlots) * kWideSlotBytes;
-      if (j < score_items) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (2 * j + e < panels)
-            stage_panel<kWideThreads>(slot + e * kPanelBytes,
-                                      kb + (2 * j + e) * kPanelCols, k0, tk,
-                                      hd, at.tid);
-        if (j == 0 && at.tid < kTileRows)  // which keys take part
-          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
-                         k0 + at.tid, tk);
-      } else {
-        const int m = j - score_items;
-#pragma unroll
-        for (int e = 0; e < kWideGroups; ++e)
-          if (e * kSlicePanels + m < slice)
-            stage_panel<kWideThreads>(
-                slot + e * kPanelBytes,
-                vb + (panel0 + e * kSlicePanels + m) * kPanelCols, k0, tk,
-                hd, at.tid);
-      }
+  // A key step's score items pass through the ring, then the step
+  // before's V items: one panel each of Q and K of the block's parts of
+  // the other chunks, then its own panels of K two at a time (group g
+  // multiplies the item's panel g); V's panel m of each group's share in
+  // V's item m. A step's first item also brings the tile's key flags and
+  // the count of its valid keys.
+  const int score_items = (own + 1) / 2, v_items = half0;
+  if (at.tid == 0) {
+    for (int slot = 0; slot < kClusterSlots; ++slot) {
+      mbar_init(full0 + 8 * slot, 32);            // the producer's lanes
+      mbar_init(empty0 + 8 * slot, kConsumerThreads);  // the consumers
     }
-    cp_async_commit();  // an empty group keeps the count of groups in step
-  };
-  for (int i = 0; i < kWideSlots - 1; ++i) stage_item(i);
+    mbar_init(q_full, 1);
+    for (int b = 0; b < 2; ++b)
+      mbar_init(ready0 + 8 * b, n);  // a thread of each block
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // every block's barriers are set up before any block arrives on them
+  cluster_arrive();
+  cluster_wait();
 
+  if (group == kClusterGroups) {
+    // the producer: its warpgroup gives its registers up, and its first
+    // warp fills the ring kClusterSlots items ahead of the consumers
+    producer_registers();
+    if (at.warp_in_group == 0) {
+      const int lane = at.lane;
+      if (lane == 0) {  // Q's own panels, once
+        mbar_arrive_expect(q_full, own * kPanelBytes);
+        for (int p = 0; p < own; ++p)
+          tma_load_head(q_s + p * kPanelBytes, &q_map, bn, q_full, q0,
+                        (mine.first + p) * kPanelCols);
+      }
+      // item i of the ring: item j of a step's score items or V's item m
+      // of the step before
+      int i = 0;
+      auto fill = [&](int step, int j, bool score) {
+        const int slot = i % kClusterSlots, use = i / kClusterSlots;
+        ++i;
+        if (use > 0) mbar_wait(empty0 + 8 * slot, (use - 1) & 1);
+        const int k0 = step * kTileRows;
+        if (score && j == 0) {  // which keys of the step's tile take part
+          float* flags = step_flags + (step % kClusterSlots) * kTileRows;
+          int count = 0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + lane + 32 * e;
+            const float f = key >= tk ? 0.f : mask_row ? mask_row[key] : 1.f;
+            flags[lane + 32 * e] = f;
+            count += __popc(__ballot_sync(0xffffffffu, f > 0.f));
+          }
+          if (lane == 0) step_valid[step % kClusterSlots] = count;
+        }
+        const uint32_t full = full0 + 8 * slot;
+        if (lane != 0) {
+          mbar_arrive(full);
+          return;
+        }
+        const uint32_t dst = ring + slot * kItemBytes;
+        if (score && j < n_extra) {  // Q's and K's panel of another chunk
+          int e = j, col = 0;
+          for (int c = 0; c < chunks; ++c) {
+            if (c == chunk) continue;
+            const Span part = cluster_panels(panels, chunks, c, n, rank);
+            if (e < part.count) {
+              col = (part.first + e) * kPanelCols;
+              break;
+            }
+            e -= part.count;
+          }
+          mbar_arrive_expect(full, 2 * kPanelBytes);
+          tma_load_head(dst, &q_map, bn, full, q0, col);
+          tma_load_head(dst + kPanelBytes, &k_map, bn, full, k0, col);
+          return;
+        }
+        // the item's panels of the block's: K's p and p + 1, or V's m and
+        // half0 + m
+        const int m = score ? 2 * (j - n_extra) : j;
+        const int second = score ? m + 1 : half0 + m;
+        const bool two = second < own;
+        const CUtensorMap* map = score ? &k_map : &v_map;
+        mbar_arrive_expect(full, (two ? 2 : 1) * kPanelBytes);
+        tma_load_head(dst, map, bn, full, k0, (mine.first + m) * kPanelCols);
+        if (two)
+          tma_load_head(dst + kPanelBytes, map, bn, full, k0,
+                        (mine.first + second) * kPanelCols);
+      };
+      for (int step = 0; step <= steps; ++step) {
+        if (step < steps)
+          for (int j = 0; j < n_extra + score_items; ++j) fill(step, j, true);
+        if (step > 0)
+          for (int m = 0; m < v_items; ++m) fill(step - 1, m, false);
+      }
+      __syncwarp();
+    }
+    // the producer's warpgroup leaves with the consumers (below)
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  consumer_registers();
   const float scale2 = scale * kLog2e;
   int last_col[2];  // the last key each of the thread's rows may see
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     last_col[r] = causal ? row_a + 8 * r + offset : tk;
 
-  // S (group 0 over the even panels of the head, group 1 over the odd
-  // ones, then the sum), O one [64 x 64] accumulator a panel of the group's
-  // share
-  float s[32], acc[kSlicePanels][32], m_run[2] = {kMaskValue, kMaskValue},
+  // S (each group's terms over its panels, then the sums), O one [64 x 64]
+  // accumulator a panel of the group's share
+  float s[32], acc[kGroupPanels][32], m_run[2] = {kMaskValue, kMaskValue},
                                       l_part[2] = {0.f, 0.f};
 #pragma unroll
-  for (int p = 0; p < kSlicePanels; ++p)
+  for (int p = 0; p < kGroupPanels; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
   uint32_t p_frag[4][4];
-
-  // the next item: wait for it, then one barrier (the item visible to all,
-  // the slot the next copy fills read by all), which at a step's first
-  // item also counts the tile's valid keys
-  int item = 0, n_valid = 0;
-  auto next_item = [&](bool first) {
-    cp_async_wait<kWideSlots - 2>();
-    if (first)
-      n_valid = __syncthreads_count(
-          at.tid < kTileRows &&
-          valid_s[((item / items) % 2) * kTileRows + at.tid] > 0.f);
-    else
-      __syncthreads();
-    stage_item(item + kWideSlots - 1);
-    return ring + (item++ % kWideSlots) * kWideSlotBytes;
+  const uint32_t swap = swap_s + in_group * 16;
+  auto consumers_sync = [] {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBarrier),
+                 "n"(kConsumerThreads)
+                 : "memory");
   };
 
-  for (int step = 0; step < steps; ++step) {
+  for (int i = in_group + 128 * group; i < kPanelBytes / 16;
+       i += kConsumerThreads)
+    store_shared(zeros + 16 * i, make_float4(0.f, 0.f, 0.f, 0.f));
+  fence_async_shared();  // visible to the tensor cores' reads
+  consumers_sync();
+  mbar_wait(q_full, 0);
+  int item = 0, exchanges = 0;
+  // the next item's slot, once it has arrived
+  auto next_item = [&]() {
+    const int slot = item % kClusterSlots;
+    mbar_wait(full0 + 8 * slot, (item / kClusterSlots) & 1);
+    __syncwarp();  // converged for the warpgroup's products
+    ++item;
+    return slot;
+  };
+  auto release = [&](int slot) { mbar_arrive(empty0 + 8 * slot); };
+
+  // Step s: the score items and the block's sums of S_s; then, while the
+  // other blocks of the cluster catch up, P_{s-1} V over the step before's
+  // V items; then the cluster's sums and the softmax of S_s
+  int n_valid_before = 0;
+  for (int step = 0; step <= steps; ++step) {
     const int k0 = step * kTileRows;
-    const float* valid = valid_s + (step % 2) * kTileRows;
-    for (int j = 0; j < score_items; ++j) {
-      const uint32_t slot = next_item(j == 0);
-      const int p = 2 * j + at.group;  // the group's panel of the item
-      if (n_valid == 0 || p >= panels) continue;
-      products_begin();
-      product_nt_panel<T>(s, q_s + p * kPanelBytes,
-                          slot + at.group * kPanelBytes, 4 * j);
-      products_end();
-      keep_registers(s);
+    const float* valid = step_flags + (step % kClusterSlots) * kTileRows;
+    int n_valid = 0, b = 0, use = 0;
+    uint32_t xbuf = 0;
+    if (step < steps) {
+      // the chain of the group's score products: its panels of the other
+      // chunks, an item each, then its own, all four in one batch (a panel
+      // past the block's, p >= own, is the panel of zeros: it adds zeros)
+      int chain = 0;
+      for (int j = 0; j < n_extra; ++j) {
+        const int slot = next_item();
+        if (j == 0) n_valid = step_valid[step % kClusterSlots];
+        const uint32_t at_slot = ring + slot * kItemBytes;
+        if (n_valid != 0 && (j & 1) == group) {
+          products_begin();
+          product_nt_panel<T>(s, at_slot, at_slot + kPanelBytes, 4 * chain);
+          products_end();
+          keep_registers(s);
+          ++chain;
+        }
+        release(slot);
+      }
+      int slots[kGroupPanels] = {0, 0, 0, 0};
+#pragma unroll
+      for (int j = 0; j < kGroupPanels; ++j)
+        if (j < score_items) slots[j] = next_item();
+      if (n_extra == 0) n_valid = step_valid[step % kClusterSlots];
+      if (n_valid != 0) {
+        products_begin();
+#pragma unroll
+        for (int j = 0; j < kGroupPanels; ++j) {
+          const int p = 2 * j + group;
+          product_nt_panel<T>(
+              s, p < own ? q_s + p * kPanelBytes : zeros,
+              p < own ? ring + slots[j] * kItemBytes + group * kPanelBytes
+                      : zeros,
+              4 * (chain + j));
+        }
+        products_end();
+        keep_registers(s);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroupPanels; ++j)
+        if (j < score_items) release(slots[j]);
+      if (n_valid != 0) {
+        // S summed over the block's groups and the cluster's blocks, the
+        // same bits in every group of every block. Exchange buffer b takes
+        // every other exchange, and ready[b] counts the blocks whose sums
+        // are in their buffer b. A block signals an exchange only after
+        // reading the one before it, so the wait on ready for one exchange
+        // also tells that every block has read the buffer the next
+        // exchange overwrites.
+        b = exchanges & 1;
+        use = exchanges >> 1;
+        ++exchanges;
+        xbuf = xchg + b * kScoreTileBytes + in_group * 16;
+        if (group == 0)
+          scores_hand_over<0>(s, swap);
+        else
+          scores_hand_over<1>(s, swap);
+        consumers_sync();
+        if (group == 0)
+          scores_block_sum<0>(s, swap, xbuf);
+        else
+          scores_block_sum<1>(s, swap, xbuf);
+        consumers_sync();
+        if (n > 1 && at.tid < n) mbar_arrive_remote(ready0 + 8 * b, at.tid);
+      }
+    }
+    if (step > 0) {  // P_{s-1} V, the group's four panels in one batch
+      int slots[kGroupPanels] = {0, 0, 0, 0};
+#pragma unroll
+      for (int m = 0; m < kGroupPanels; ++m)
+        if (m < v_items) slots[m] = next_item();
+      if (n_valid_before != 0) {
+        products_begin();
+#pragma unroll
+        for (int m = 0; m < kGroupPanels; ++m)
+          product_tn<T>(acc[m], p_frag,
+                        m < group_own ? ring + slots[m] * kItemBytes +
+                                            group * kPanelBytes
+                                      : zeros);
+        products_end();
+        keep_registers(p_frag);
+#pragma unroll
+        for (int m = 0; m < kGroupPanels; ++m) keep_registers(acc[m]);
+      }
+#pragma unroll
+      for (int m = 0; m < kGroupPanels; ++m)
+        if (m < v_items) release(slots[m]);
     }
     if (n_valid != 0) {
-      // S = the even panels' sum + the odd panels': the groups swap their
-      // partial tiles thread by thread through one buffer (group 1's in,
-      // then group 0's in its place), and each adds the two
-      float* swap = swap_s + in_group;
-      if (at.group == 1)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) swap[128 * i] = s[i];
-      __syncthreads();
-      if (at.group == 0)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const float odd = swap[128 * i];
-          swap[128 * i] = s[i];
-          s[i] += odd;
-        }
-      __syncthreads();
-      if (at.group == 1)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] += swap[128 * i];
+      if (n > 1) mbar_wait_cluster(ready0 + 8 * b, use & 1);
+      if (group == 0)
+        scores_cluster_sum<0>(s, swap, xbuf, n, rank);
+      else
+        scores_cluster_sum<1>(s, swap, xbuf, n, rank);
+      consumers_sync();
+      if (group == 0)
+        scores_take_over<0>(s, swap);
+      else
+        scores_take_over<1>(s, swap);
       // S is whole: the softmax, the same in both groups
       const bool unmasked =
           n_valid == kTileRows &&
@@ -1269,24 +1408,15 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       softmax_tile<T>(s, acc, m_run, l_part, p_frag, valid, unmasked, k0,
                       last_col, at.t, scale, scale2);
     }
-#pragma unroll
-    for (int m = 0; m < kSlicePanels; ++m) {
-      if (m >= v_items) break;
-      const uint32_t slot = next_item(false);
-      if (n_valid == 0) continue;
-      if (m < own) {
-        products_begin();
-        product_tn<T>(acc[m], p_frag, slot + at.group * kPanelBytes);
-        products_end();
-        keep_registers(p_frag);
-        keep_registers(acc[m]);
-      }
-    }
+    n_valid_before = n_valid;
   }
-  cp_async_wait<0>();
+  // no block leaves while another may still read its exchange buffers or
+  // arrive on its barriers
+  cluster_arrive();
+  cluster_wait();
 
   // l over the quad, o = acc / l (a row with l == 0 has acc == 0); group
-  // 0 of the first slice writes l and m
+  // 0 of the first block writes l and m
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1295,22 +1425,21 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l == 0.f ? 1.f : 1.f / l;
     const int row = row_a + 8 * r;
-    if (blockIdx.z == 0 && at.group == 0 && at.t == 0 && row < tq) {
+    if (blockIdx.z == 0 && group == 0 && at.t == 0 && row < tq) {
       l_rows[row] = l;
       m_rows[row] = m_run[r];
     }
   }
-  __syncthreads();  // Q and the ring are read no more
-  // panel a of the group's share leaves through panel (4 group + a) of
-  // shared memory
+  // Q's panels are read no more (the cluster's barrier above): panel a of
+  // the group's share leaves through panel (half0 group + a) of them
 #pragma unroll
-  for (int a = 0; a < kSlicePanels; ++a) {
-    if (a < own) {
+  for (int a = 0; a < kGroupPanels; ++a) {
+    if (a < group_own) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[a][i] *= inv[(i >> 1) & 1];
-      const int p = at.group * kSlicePanels + a;
+      const int p = (group ? half0 : 0) + a;
       store_panel(o_cols + p * kPanelCols, smem + p * kPanelBytes, acc[a],
-                  1.f, q0, tq, hd, 1 + at.group, in_group);
+                  1.f, q0, tq, hd, 1 + group, in_group);
     }
   }
 }
@@ -1335,31 +1464,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       tk, n_heads, scale, causal);
 }
 
+// the cluster kernel: clusters of blocks along z over each chunk of the
+// head (launch_cluster_in; a cluster the card cannot place is refused
+// there)
 template <typename T>
-cudaError_t launch_sliced(int hd, const void* q, const void* k,
-                          const void* v, const void* kv_mask, void* o,
-                          void* l, void* m, int bn, int tq, int tk,
-                          int n_heads, float scale, int causal,
-                          cudaStream_t stream) {
-  return launch_in<flash_fwd_sliced_kernel<T>>(
-      fwd_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
-      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
-      tk, hd, n_heads, scale, causal);
-}
-
-// the wide kernel's shared memory depends on the head size: it is allowed
-// the most a block may have once, before its first launch or query
-template <typename T>
-cudaError_t launch_wide(int hd, const void* q, const void* k, const void* v,
-                        const void* kv_mask, void* o, void* l, void* m,
-                        int bn, int tq, int tk, int n_heads, float scale,
-                        int causal, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_fwd_wide_kernel<T>>(kBlockSmem);
+cudaError_t launch_cluster(int hd, const void* q, const void* k,
+                           const void* v, const void* kv_mask, void* o,
+                           void* l, void* m, int bn, int tq, int tk,
+                           int n_heads, float scale, int causal,
+                           cudaStream_t stream) {
+  // tensor maps of Q, K and V whose boxes are one panel of 64 rows
+  CUtensorMap maps[3];
+  cudaError_t err = head_map<T>(&maps[0], q, bn, tq, kTileRows, hd);
+  if (err == cudaSuccess) err = head_map<T>(&maps[1], k, bn, tk, kTileRows, hd);
+  if (err == cudaSuccess) err = head_map<T>(&maps[2], v, bn, tk, kTileRows, hd);
   if (err != cudaSuccess) return err;
-  return launch_in<flash_fwd_wide_kernel<T>>(
-      wide_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
-      (const T*)v, (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq,
-      tk, hd, n_heads, scale, causal);
+  return launch_cluster_in<flash_fwd_cluster_kernel<T>>(
+      cluster_shape(hd / kPanelCols), bn, tq, stream, maps[0], maps[1],
+      maps[2], (const float*)kv_mask, (T*)o, (float*)l, (float*)m, tq, tk, hd,
+      n_heads, scale, causal);
 }
 
 LaunchShape short_shape() {
@@ -1415,12 +1538,9 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
   if (panels == 4)
     return launch<T, 4>(q, k, v, kv_mask, o, l, m, bn, tq, tk, n_heads,
                         scale, causal, stream);
-  if (takes_wide(panels))
-    return launch_wide<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
-                          bn, tq, tk, n_heads, scale, causal, stream);
   if (panels > 4)
-    return launch_sliced<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
-                            bn, tq, tk, n_heads, scale, causal, stream);
+    return launch_cluster<T>(panels * kPanelCols, q, k, v, kv_mask, o, l, m,
+                             bn, tq, tk, n_heads, scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1428,7 +1548,7 @@ cudaError_t launch_panels(int panels, const void* q, const void* k,
 
 // f16: float16 operands (else bfloat16); panels: the head size over 64, 0
 // (head size 32, the narrow kernel), 1, 2, 4 or any count above 4 (the
-// wide kernel, or the sliced kernel where Q's tile does not fit)
+// cluster kernel)
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
                          const void* v, const void* kv_mask, void* o, void* l,
                          void* m, int bn, int tq, int tk, int n_heads,
@@ -1441,14 +1561,13 @@ cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
 }
 
 // K3a's kernel for a call at `panels` panels and these lengths (0 the
-// whole-tile kernel, 1 the short kernel, 2 the sliced kernel, 3 the narrow
-// kernel, 4 the wide kernel), its launch shape, and the blocks of it the
-// current card holds at once (or -1)
+// whole-tile kernel, 1 the short kernel, 2 the narrow kernel, 3 the
+// cluster kernel), its launch shape, the blocks of it the current card
+// holds at once (or -1), and the clusters (0 without)
 int flash_fwd_tc_kernel_of(int panels, int tq, int tk) {
   return takes_short(panels, tq, tk) ? 1
-         : takes_wide(panels)        ? 4
-         : panels > 4                ? 2
-         : panels == 0               ? 3
+         : panels > 4                ? 3
+         : panels == 0               ? 2
                                      : 0;
 }
 
@@ -1459,31 +1578,19 @@ flash_tiles::LaunchShape flash_fwd_tc_shape(int panels, int tq, int tk) {
 int flash_fwd_tc_resident(int f16, int panels, int tq, int tk) {
   using flash_tiles::resident_blocks;
   const flash_tiles::LaunchShape shape = flash_fwd_tc_shape(panels, tq, tk);
-  // one block an SM at every wide size: allowed the most shared memory
-  // first, as its launcher allows it
-  if (takes_wide(panels) &&
-      (flash_tiles::allow_smem<flash_fwd_wide_kernel<__nv_bfloat16>>(
-           kBlockSmem) != cudaSuccess ||
-       flash_tiles::allow_smem<flash_fwd_wide_kernel<__half>>(kBlockSmem) !=
-           cudaSuccess))
-    return -1;
   switch (flash_fwd_tc_kernel_of(panels, tq, tk) * 2 + (f16 ? 1 : 0)) {
     case 2:
       return resident_blocks<flash_fwd_short_kernel<__nv_bfloat16>>(shape);
     case 3:
       return resident_blocks<flash_fwd_short_kernel<__half>>(shape);
     case 4:
-      return resident_blocks<flash_fwd_sliced_kernel<__nv_bfloat16>>(shape);
-    case 5:
-      return resident_blocks<flash_fwd_sliced_kernel<__half>>(shape);
-    case 6:
       return resident_blocks<flash_fwd_narrow_kernel<__nv_bfloat16>>(shape);
-    case 7:
+    case 5:
       return resident_blocks<flash_fwd_narrow_kernel<__half>>(shape);
-    case 8:
-      return resident_blocks<flash_fwd_wide_kernel<__nv_bfloat16>>(shape);
-    case 9:
-      return resident_blocks<flash_fwd_wide_kernel<__half>>(shape);
+    case 6:
+      return resident_blocks<flash_fwd_cluster_kernel<__nv_bfloat16>>(shape);
+    case 7:
+      return resident_blocks<flash_fwd_cluster_kernel<__half>>(shape);
   }
   if (panels == 1)
     return f16 ? resident_blocks<flash_fwd_tc_kernel<__half, 1>>(shape)
@@ -1493,4 +1600,13 @@ int flash_fwd_tc_resident(int f16, int panels, int tq, int tk) {
                : resident_blocks<flash_fwd_tc_kernel<__nv_bfloat16, 2>>(shape);
   return f16 ? resident_blocks<flash_fwd_tc_kernel<__half, 4>>(shape)
              : resident_blocks<flash_fwd_tc_kernel<__nv_bfloat16, 4>>(shape);
+}
+
+// how many clusters of K3a's cluster kernel at `panels` panels (above 4) of
+// float16 (f16 nonzero) or bfloat16 the card holds at once
+int flash_fwd_tc_max_clusters(int f16, int panels) {
+  const LaunchShape shape = cluster_shape(panels);
+  return f16 ? max_active_clusters<flash_fwd_cluster_kernel<__half>>(shape)
+             : max_active_clusters<flash_fwd_cluster_kernel<__nv_bfloat16>>(
+                   shape);
 }

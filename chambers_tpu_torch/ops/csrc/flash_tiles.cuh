@@ -44,7 +44,8 @@
 // The short kernels (K3a's and K3b's, ViT lengths) fill whole heads or whole
 // tiles by TMA instead (tma_load_head: the copy engine writes the same
 // swizzled layout, completion on an mbarrier; head_map describes the
-// operand).
+// operand), and a producer warp fills K3a's cluster kernel's and K3b's
+// producer kernel's rings the same way, a panel of a wider head a copy.
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -77,7 +78,9 @@
 //
 // Clusters. ClusterSum adds up an accumulator over the blocks of a
 // thread-block cluster through distributed shared memory, each sum taken
-// once, in rank order, so that every block holds the same bits of it.
+// once, in rank order, so that every block holds the same bits of it;
+// mbar_arrive_remote and mbar_wait_cluster signal between the blocks of a
+// cluster on mbarriers (K3a's cluster kernel).
 
 #pragma once
 
@@ -337,23 +340,74 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// wait as mbar_wait, acquiring what the arrivals released at the cluster's
+// scope (arrivals from other blocks of the cluster: mbar_arrive_remote)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// arrive on the barrier at shared address `bar` of the cluster's block
+// `rank`, releasing this thread's earlier reads and writes at the
+// cluster's scope
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(bar), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote)
+      : "memory");
+}
+
 // this thread's reads and writes of shared memory ordered before later
 // copies into it by the copy engine (the asynchronous proxy)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the box at rows `row`.. of head `head` of the array `map` describes, to
-// shared address `dst`, completing on `bar`
+// the box at rows `row`.. and columns `col`.. of head `head` of the array
+// `map` describes, to shared address `dst`, completing on `bar`
 __device__ __forceinline__ void tma_load_head(uint32_t dst, const void* map,
                                               int head, uint32_t bar,
-                                              int row = 0) {
+                                              int row = 0, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
       "r"(head)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// producer and consumers (K3a above head size 256, K3b at 128)
+// ---------------------------------------------------------------------------
+
+// A block of two consumer warpgroups and one whose first warp is the
+// producer (384 threads, one block an SM) starts at 168 registers a thread;
+// the producer's warpgroup gives its registers up and the consumers take
+// them: 128 x 24 + 256 x 240 fit the SM's 65,536. Each is called by every
+// thread of its warpgroup.
+constexpr int kProducerRegisters = 24, kConsumerRegisters = 240;
+
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+      kProducerRegisters));
+}
+
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegisters));
 }
 
 // ---------------------------------------------------------------------------
@@ -1079,15 +1133,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a tensor map of a [bn, t, 64] array of T whose box is `rows` rows of one
-// head, 128-byte swizzled; rows past t arrive as zeros
+// a tensor map of a [bn, t, cols] array of T whose box is one panel (64
+// columns) of `rows` rows of one head, 128-byte swizzled; rows past t
+// arrive as zeros
 template <typename T>
 cudaError_t head_map(CUtensorMap* map, const void* base, int bn, int t,
-                     int rows) {
+                     int rows, int cols = kPanelCols) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {kPanelCols, (cuuint64_t)t, (cuuint64_t)bn};
-  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)t * kRowBytes};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)t,
+                              (cuuint64_t)bn};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)t * cols * 2};
   const cuuint32_t box[3] = {kPanelCols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult err = encode(

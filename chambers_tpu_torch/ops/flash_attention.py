@@ -18,7 +18,9 @@ of ``flash_attention_fwd.cu`` (at head size 64 over 64 to 256 queries and
 head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel`` (at head size
 64 over 1 to 256 queries and 129 to 256 keys its
 ``flash_bwd_dkv_short_kernel``, which keeps a head's Q and dO resident),
-``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (all built on
+``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (at head size
+128 K3b's ``flash_bwd_dkv_producer_kernel``, two warpgroups of 64 keys
+each fed by a producer warp; all built on
 ``flash_tiles.cuh``, templated on the type; at head size 32
 ``flash_fwd_narrow_kernel``, ``flash_bwd_dkv_narrow_kernel`` and
 ``flash_bwd_dq_narrow_kernel``, on 32-column panels); float32 takes the FMA
@@ -26,10 +28,11 @@ kernels
 ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
 of ``flash_attention.cu`` (from head size 256 on their ``_cols`` forms),
 which also holds the C interface. Above head size 256 the 16-bit types take
-K3a's ``flash_fwd_wide_kernel`` (two warpgroups over 64 query rows and up
-to 512 output columns a block, Q's tile resident, each score product
-computed once a block; above head size 1152, where Q's tile does not fit,
-the sliced ``flash_fwd_sliced_kernel``), K3c's sliced
+K3a's ``flash_fwd_cluster_kernel`` (blocks of two warpgroups over 64 query
+rows and up to 512 output columns, Q's panels resident, fed by a producer
+warp; above head size 512 several blocks form a thread-block cluster, each
+owning a part of the columns, and sum their terms of the score products
+over it, so each score product is computed once a cluster), K3c's sliced
 ``flash_bwd_dq_sliced_kernel``, which gives each block one slice of the
 head's output columns, and the cluster kernel
 ``flash_bwd_dkv_cluster_kernel``, whose blocks each own a slice of the
@@ -106,11 +109,11 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 KERNEL_NAMES = {
     "fwd": ("flash_fwd_kernel", "flash_fwd_cols_kernel",
             "flash_fwd_tc_kernel", "flash_fwd_short_kernel",
-            "flash_fwd_sliced_kernel", "flash_fwd_narrow_kernel",
-            "flash_fwd_wide_kernel"),
+            "flash_fwd_narrow_kernel", "flash_fwd_cluster_kernel"),
     "dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_cols_kernel",
             "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_short_kernel",
-            "flash_bwd_dkv_cluster_kernel", "flash_bwd_dkv_narrow_kernel"),
+            "flash_bwd_dkv_cluster_kernel", "flash_bwd_dkv_narrow_kernel",
+            "flash_bwd_dkv_producer_kernel"),
     "dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_cols_kernel",
            "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel",
            "flash_bwd_dq_narrow_kernel"),
@@ -289,8 +292,8 @@ def launch_forward(q, k, v, kv_mask, scale, causal, n_heads):
     ``flash_fwd_narrow_kernel`` at head size 32, ``flash_fwd_short_kernel``
     at head size 64 when a head's queries (64 to 256) and keys (1 to 256)
     fit in shared memory whole,
-    ``flash_fwd_tc_kernel`` otherwise (above 256 ``flash_fwd_wide_kernel``,
-    above 1152 ``flash_fwd_sliced_kernel``), float32 ``flash_fwd_kernel``
+    ``flash_fwd_tc_kernel`` otherwise (above 256 ``flash_fwd_cluster_kernel``),
+    float32 ``flash_fwd_kernel``
     (from 256 on ``flash_fwd_cols_kernel``).
     The launch counts in ``flash_attention.launches["fwd"]`` and under its
     kernel's name in ``flash_attention.forward_launches``."""
@@ -316,6 +319,7 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
     ``flash_bwd_dkv_narrow_kernel`` at head size 32,
     ``flash_bwd_dkv_short_kernel`` at head size 64 when a head's queries (1
     to 256) and keys (129 to 256) fit in shared memory whole,
+    ``flash_bwd_dkv_producer_kernel`` at head size 128,
     ``flash_bwd_dkv_tc_kernel`` otherwise (above 256
     ``flash_bwd_dkv_cluster_kernel``), float32 ``flash_bwd_dkv_kernel``
     (from 256 on ``flash_bwd_dkv_cols_kernel``). The launch counts in

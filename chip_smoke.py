@@ -290,8 +290,9 @@ the CUDA toolkit. In order, it:
     with the bf16 step, K3a-c 12 launches each a step by the counters, set
     to 0 just before the timed steps and read just after;
 28. runs the flash kernels at head sizes above 256 (``wide_heads_path``),
-    on K3a's wide (up to h 1152) and K3c's sliced and K3b's cluster
-    tensor-core kernels and, in float32, the ``_cols`` FMA kernels: (a)
+    on K3a's and K3b's cluster and K3c's sliced tensor-core kernels (K3a's
+    one block a cluster up to h 512) and, in float32, the ``_cols`` FMA
+    kernels: (a)
     K3a-c through
     ``flash_attention`` and its backward at
     ``[16, 512, 512]`` (phase 9's width over one head) with the ragged key
@@ -299,7 +300,8 @@ the CUDA toolkit. In order, it:
     plain versions with phase 8's tolerances and timed in bf16 and float16
     at phase 11's tokens against their bounds and SDPA, whose backend the
     profiler names; (b) K3a-c held at h 288 (padded to 320), 384, 1024,
-    1088 and 1216 (the sliced K3a) on small shapes (cross lengths under the causal mask, rows and
+    1088 and 1216 (K3a a cluster of three blocks) on small shapes (cross
+    lengths under the causal mask, rows and
     a batch item with no valid key, a scattered key mask) in the three
     types; (c) phase 9's padded train step over one head of 512, flash
     against dense attention on the same init (first loss within 2e-4 of
@@ -312,10 +314,11 @@ the CUDA toolkit. In order, it:
     1088: K3a held to its plain version there, each one's time, TFLOP/s,
     share of its bound, registers and launch shape (shared memory, cluster
     size, clusters the card holds at once); (f) K3a above h 1152 on the
-    sliced kernel, at ``[16, 1, 512, 1216]``: held to its plain version,
-    driven once through ``flash_attention`` and its backward with the
-    counters at 0 just before and read just after (its one K3a launch on
-    ``flash_fwd_sliced_kernel``), and timed as phase 26 times K3a;
+    cluster kernel, at ``[16, 1, 512, 1216]`` (a cluster of three blocks):
+    held to its plain version, driven once through ``flash_attention`` and
+    its backward with the counters at 0 just before and read just after
+    (its one K3a launch on ``flash_fwd_cluster_kernel``), and timed as
+    phase 26 times K3a, against SDPA;
 29. prints a ``trainer`` JSON line (phase 23, with its parts' seconds), a
     ``data_pipeline`` JSON line (phase 24), a ``serving_and_scale_out`` JSON
     line (phase 25), a ``head_sizes`` JSON line (phase 26), a ``float16``
@@ -335,13 +338,14 @@ the CUDA toolkit. In order, it:
     h 32, 128 and 256 as ``shape_h32``, ``shape_h128`` and ``shape_h256``
     with their registers and spills, in float16 at ``[128, 512, 64]`` as
     ``float16``, at h 512 as ``shape_h512`` with their registers, spills
-    and launch shapes, K3a at h 1216 as ``shape_h1216``, K3a at one query row at h 128 and 512 as
-    ``decode_h128`` and ``decode_h512``, K3a's two decode shapes as rows of
-    their own after it, and a row of its own for each kernel that runs
-    only at h 32 or above 256: the narrow K3a-c, the wide and the sliced
-    K3a, the cluster K3b and the sliced K3c, each with its launches on
-    phase 26's or 28's path, the sliced K3a's on 28 (f)'s call), the card
-    line, and last
+    and launch shapes, K3a at h 1216 as ``shape_h1216``, K3a at one query
+    row at h 128 and 512 as ``decode_h128`` and ``decode_h512``, K3a's two
+    decode shapes as rows of their own after it, and a row of its own for
+    each kernel that runs only at h 32, 128 or above 256: the narrow K3a-c,
+    K3b's producer kernel at h 128, K3a's and K3b's cluster kernels and the
+    sliced K3c, each with its launches on phase 26's or 28's path (K3a's
+    cluster kernel's row also holds its ``shape_h1216``), the card line,
+    and last
     ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -376,7 +380,7 @@ PTXAS = {}
 FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow|_wide)?"
+                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow|_producer)?"
                 r"_kernel)")
 # exponents (ex2) an SM's special-function units give a clock: four in each
 # of its four partitions (H100)
@@ -519,8 +523,8 @@ def kernel_name(mangled):
     64>``, ``..flash_bwd_dq_tc_kernelI6__halfLi2EE..`` ->
     ``flash_bwd_dq_tc_kernel<f16, 128>`` (two 64-column panels),
     ``..flash_fwd_cols_kernelIfLi128EE..`` -> ``flash_fwd_cols_kernel<f32>``
-    and ``..flash_fwd_sliced_kernelI13__nv_bfloat16EE..`` ->
-    ``flash_fwd_sliced_kernel<bf16>`` (the head size at run time),
+    and ``..flash_fwd_cluster_kernelI13__nv_bfloat16EE..`` ->
+    ``flash_fwd_cluster_kernel<bf16>`` (the head size at run time),
     ``..warp_kernelILi3EE..`` -> ``warp_kernel<c=3>``; a name it cannot
     read comes back as it is."""
     found = re.search(r"\d{2}([a-z][a-z_]*_kernel)"
@@ -6102,8 +6106,11 @@ def head_sizes_path(torch, fa, dev, rows):
             got = next((r for r in timed if r["name"] == row["name"]), None)
             if key is None or got is None:
                 continue
-            ptxas = (f"{ran[key]}<{{}}>" if ran[key].endswith("_narrow_kernel")
-                     else f"{row['name']}_tc_kernel<{{}}, {size}>")
+            # the narrow and producer kernels are templated on the type
+            # alone, the whole-tile ones on the panels too
+            ptxas = (f"{row['name']}_tc_kernel<{{}}, {size}>"
+                     if ran[key].endswith("_tc_kernel") else
+                     f"{ran[key]}<{{}}>")
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
@@ -6285,13 +6292,13 @@ def float16_path(torch, fa, dev, rows):
     return out
 
 
-# phase 28: head sizes above 256 (the wide K3a, the sliced K3c, K3b's
-# cluster kernel); phase 9's width over one head, small shapes at the other sizes,
-# and phase 9's tokens over one head timed at each
+# phase 28: head sizes above 256 (K3a's and K3b's cluster kernels, the
+# sliced K3c); phase 9's width over one head, small shapes at the other
+# sizes, and phase 9's tokens over one head timed at each
 WIDE = {512: 1}
-# 1216: the first size past the wide K3a's, on the sliced K3a
+# 1216: K3a a cluster of three blocks
 WIDE_SMALL = (288, 384, 1024, 1088, 1216)
-SLICED = {1216: 1}
+CLUSTERED = {1216: 1}
 
 
 def wide_small_cases(torch, dev, h, dtype):
@@ -6410,8 +6417,8 @@ def time_wide_kernels(torch, fa, dev, h):
 
 
 def wide_heads_path(torch, fa, dev, rows):
-    """Phase 28: head sizes above 256, on the wide K3a (the sliced one
-    above h 1152), the sliced K3c and K3b's cluster kernel (float32 on the
+    """Phase 28: head sizes above 256, on K3a's cluster kernel (one block a
+    cluster up to h 512), the sliced K3c and K3b's cluster kernel (float32 on the
     ``_cols`` kernels). (a) K3a-c through
     ``flash_attention`` and its backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
     ragged key mask, causal and not, in bf16, float16 and float32, held to
@@ -6521,30 +6528,33 @@ def wide_heads_path(torch, fa, dev, rows):
                 "wrapper_ms", "bound_ms", "bound_by", "library_ms")}
     out["sizes"] = {f"h{x}": time_wide_kernels(torch, fa, dev, x)
                     for x in WIDE_TIMED}
-    out["sliced"] = sliced_forward_path(torch, fa, dev, rows)
+    out["clustered"] = clustered_forward_path(torch, fa, dev, rows)
     out["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"phase 28: {out['seconds']} s")
     return out
 
 
-def sliced_forward_path(torch, fa, dev, rows):
-    """Phase 28 (f): K3a above h 1152, where Q's tile no longer fits beside
-    the wide kernel's ring, on the sliced kernel, at ``SLICED``'s one head
-    over phase 9's tokens (``[16, 1, 512, 1216]`` bf16, the ragged key
-    mask): phase 28 (a)'s two path cases held to the plain versions; one
-    ``flash_attention`` call and its backward with the counters at 0 just
-    before and read just after, every K3a launch on
-    ``flash_fwd_sliced_kernel`` as ``launch_shape`` names it; then K3a
-    timed there as phase 26 times it. Adds ``shape_h1216`` to K3a's row of
-    the ``kernels`` line."""
-    (h, heads), = SLICED.items()
+def clustered_forward_path(torch, fa, dev, rows):
+    """Phase 28 (f): K3a above h 1152, where a block no longer holds a row
+    tile's O, on the cluster kernel's clusters of three blocks, at
+    ``CLUSTERED``'s one head over phase 9's tokens (``[16, 1, 512, 1216]``
+    bf16, the ragged key mask): phase 28 (a)'s two path cases held to the
+    plain versions; one ``flash_attention`` call and its backward with the
+    counters at 0 just before and read just after, every K3a launch on
+    ``flash_fwd_cluster_kernel`` as ``launch_shape`` names it, in clusters
+    the card can place; then K3a timed there as phase 26 times it, against
+    SDPA with the same mask. Adds ``shape_h1216`` to K3a's row of the
+    ``kernels`` line."""
+    (h, heads), = CLUSTERED.items()
     b, t = S2S["batch"], S2S["t"]
     errors = check_flash_kernels(
         torch, fa, dev, h, head_size_cases(torch, dev, h, heads)[:2])
     shape = fa.launch_shape("fwd", torch.bfloat16, h, t, t)
     kernel = shape["kernel_name"]
-    check(kernel == "flash_fwd_sliced_kernel",
-          f"h {h}: the dispatch names the sliced K3a ({shape})")
+    check(kernel == "flash_fwd_cluster_kernel" and shape["cluster"] == 3
+          and shape["max_active_clusters"] > 0,
+          f"h {h}: the dispatch names K3a's cluster kernel in clusters of "
+          f"three blocks the card can place ({shape})")
     mask = ragged_mask(torch, b, t, dev)
     gen = torch.Generator(device=dev).manual_seed(281)
     q, k, v, do = (torch.randn((b, heads, t, h), device=dev, generator=gen)
@@ -6579,8 +6589,7 @@ def sliced_forward_path(torch, fa, dev, rows):
         "note": "launches: one flash_attention call and its backward; "
                 "library_ms is F.scaled_dot_product_attention with the "
                 "same key mask; the bound counts the function's work on the "
-                "kept keys at the true head size, not the score products "
-                "the slices repeat"}
+                "kept keys at the true head size"}
     for row in rows:
         if row["name"] == "flash_fwd":
             row[f"shape_h{h}"] = entry
@@ -6595,34 +6604,41 @@ def sliced_forward_path(torch, fa, dev, rows):
 
 def rows_of_head_sizes(rows):
     """A row of its own for each kernel that a K3a-c row's ``shape_h32``,
-    ``shape_h512`` or ``shape_h1216`` names (``kernel_name``) and no row
-    does yet: the narrow kernels at h 32, the wide K3a, the cluster K3b and
-    the sliced K3c above 256, the sliced K3a above 1152, with that shape's
-    launches on its path (phase 26 (b), 28 (c) or 28 (f)), its errors and
-    times; the head size's sub-dict stays in the
-    family's row. (At h 128 and 256 the family's own kernels run.)"""
+    ``shape_h128``, ``shape_h512`` or ``shape_h1216`` names
+    (``kernel_name``) other than the family's whole-tile kernel (whose
+    numbers the family's row holds): the narrow kernels at h 32, K3b's
+    producer kernel at h 128, K3a's and K3b's cluster kernels and the
+    sliced K3c above 256, with the first such shape's launches on its path
+    (phase 26 (b) or 28 (c)), its errors and times, and each later shape
+    that names the same kernel (K3a's cluster kernel at h 1216, phase 28
+    (f)) as a sub-dict of its row; the head size's sub-dict stays in the
+    family's row too."""
     names = {row["name"] for row in rows}
-    extra = []
+    extra = {}
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "wrapper_ms", "causal_ms",
+            "achieved_tflops", "ptxas", "launch_shape", "shape")
     for row in rows:
-        for key in ("shape_h32", "shape_h512", "shape_h1216"):
+        for key in ("shape_h32", "shape_h128", "shape_h512", "shape_h1216"):
             got = row.get(key)
-            if not got or got.get("kernel_name") in names | {None}:
+            kernel = got.get("kernel_name") if got else None
+            if (kernel is None or kernel in names
+                    or kernel.endswith("_tc_kernel")):
                 continue
-            names.add(got["kernel_name"])
-            extra.append({
-                "name": got["kernel_name"], "route": "cuda",
+            if kernel in extra:
+                extra[kernel][key] = {k: got.get(k) for k in keys}
+                continue
+            extra[kernel] = {
+                "name": kernel, "route": "cuda",
                 "source": row["source"], "replaces": row["replaces"],
-                **{k: got.get(k) for k in (
-                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "wrapper_ms", "causal_ms",
-                    "achieved_tflops", "ptxas", "launch_shape", "shape")},
+                **{k: got.get(k) for k in keys},
                 "bound_us": got["bound_ms"] * 1e3, "bit_equal": False,
                 "head_size": int(key[len("shape_h"):]),
                 "note": f"{row['name']}'s kernel at {key[len('shape_'):]}; "
                         f"the row {row['name']} holds the same numbers under "
                         f"{key}",
-                "card": CARD})
-    return extra
+                "card": CARD}
+    return list(extra.values())
 
 
 def main():
@@ -7228,8 +7244,8 @@ def main():
     log(json.dumps({"float16": float16, "card": CARD}))
     lap("27")
     # 28. head sizes above 256: K3a-c at h 288, 384, 512, 1024 and 1088,
-    # phase 9's step over one head of 512, greedy decoding at 512, the
-    # sliced K3a at 1216
+    # phase 9's step over one head of 512, greedy decoding at 512, K3a's
+    # clusters of three blocks at 1216
     wide = wide_heads_path(torch, fa, dev, rows)
     log(json.dumps({"wide_heads": wide, "card": CARD}))
     lap("28")

@@ -59,10 +59,28 @@ any difference beyond those.
     python3 compare_flash_builds.py OTHER_CHECKOUT --only short
     python3 compare_flash_builds.py OTHER_CHECKOUT --only narrow
     python3 compare_flash_builds.py OTHER_CHECKOUT --only wide
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only cluster
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only producer
 
-run one part alone: the ``SHORT_CASES`` and their times, the narrow cases
-and their times, or the cases at ``WIDE_HEADS`` and K3a's times there in
-bf16 and float16 (the report says which outputs are bit-equal).
+    python3 compare_flash_builds.py OTHER_CHECKOUT --turns 1216,2112 \
+        [--kernel fwd] [--also DIR,DIR]
+
+times one kernel ("fwd", "dkv" or "dq") of this checkout's library,
+OTHER's and each of ``--also``'s (another checkout, or a copy of ``csrc``
+with one edit: an ablation) in turns, at each head size's
+``time_both`` shape with its ragged key mask, causal and not, and prints
+each library's largest difference from this one's output (``time_turns``).
+Or one part alone: the ``SHORT_CASES`` and their times, the narrow cases
+and their times, the cases at ``WIDE_HEADS`` and K3a's times there in
+bf16 and float16, the same cases (and one query row against 512 keys) at
+``CLUSTER_HEADS``, above the wide K3a's sizes, where this library's K3a
+is held to the plain version at the card tests' tolerances (the two
+libraries' differences reported beside), and K3a timed there in bf16 and
+float16 beside
+``F.scaled_dot_product_attention`` (its forward with the same key mask, in
+each round), or the cases at head size 128, held bit for bit, and K3b
+timed there (``[64, 512, 128]``, causal and not, bf16 and float16) (the
+report says which outputs are bit-equal).
 """
 
 import ctypes
@@ -166,6 +184,9 @@ def launch_one(torch, fa, lib, kernel, args):
 
 HEADS = (64, 128, 256)
 WIDE_HEADS = (512, 1024)
+# K3a above the wide kernel's sizes (h 1152), on its cluster kernel: one
+# cluster of three blocks, of three and of five
+CLUSTER_HEADS = (1216, 1536, 2112)
 NARROW_HEADS = (32, 16, 8)
 # the narrow kernels' cases (label, bn, n_heads, tq, tk, dtype name,
 # causal, mask kind), at each of NARROW_HEADS
@@ -371,14 +392,16 @@ def plain_errors(torch, fa, libs, dev):
 
 def time_both(torch, fa, libs, dev, h, dtype=None,
               kernels=("fwd", "dkv", "dq"), shape=None, masked=True,
-              causals=(False, True)):
+              causals=(False, True), sdpa=False):
     """ms a launch of ``kernels`` of K3a-c of each library at ``[128 * 64
     / h, 512, h]`` in ``dtype`` (bf16 unless given; the train step's tokens
     and FLOPs; above 256 ``[16, 512, h]``, its tokens over one head), or at
     ``shape`` = ``(bn, n_heads, t)``, with a ragged key mask if ``masked``,
     at each of ``causals``, each library on operands padded to the size it
     runs the kernel at: ``{kernel/causal: {library: [ms of each
-    round]}}``."""
+    round]}}``. With ``sdpa``, K3a without the causal mask also times
+    ``F.scaled_dot_product_attention`` on the same operands and key mask
+    once a round (``"sdpa"``)."""
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(16)
     bn, n, t = shape or (max(16, 128 * 64 // h), max(1, 512 // h), 512)
@@ -406,11 +429,33 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
                      torch.empty_like(m), torch.empty_like(x[1]),
                      torch.empty_like(x[2]), torch.empty_like(x[0]))
             for (i, n_cols), x in padded.items() if i == 0}
+    def timed(call):
+        for i in range(3):
+            call(i)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # queue the launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(30):
+            call(i)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 30
+
+    def library_call(i):
+        q, k, v = (x.view(bn // n, n, t, h) for x in sets[i % 3][:3])
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if mask is None
+            else mask.bool()[:, None, None, :])
+
     times = {}
     for kernel in kernels:
         for causal in causals:
             key = f"{kernel}{' causal' if causal else ''}"
-            times[key] = {"other": [], "this": []}
+            with_sdpa = sdpa and kernel == "fwd" and not causal
+            times[key] = {"other": [], "this": [],
+                          **({"sdpa": []} if with_sdpa else {})}
             for _ in range(3):
                 for name in ("other", "this", "this", "other"):
                     n_cols = size[name][kernel]
@@ -420,26 +465,38 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
                                    (*padded[i % 3, n_cols], *sets[i % 3][4:],
                                     causal, n, outs[n_cols]))
 
-                    for i in range(3):
-                        call(i)
-                    torch.cuda.synchronize()
-                    torch.cuda._sleep(50_000_000)  # queue the launches
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for i in range(30):
-                        call(i)
-                    end.record()
-                    end.synchronize()
-                    times[key][name].append(start.elapsed_time(end) / 30)
+                    times[key][name].append(timed(call))
+                if with_sdpa:
+                    times[key]["sdpa"].append(timed(library_call))
     return times
 
 
-def hold_cases(torch, fa, libs, dev, items):
+def forward_near_plain(torch, fa, got, q, k, v, mask, causal, n):
+    """Whether K3a's ``o, l, m`` in ``got`` are within the card tests'
+    tolerances of ``flash_forward_plain`` on the same inputs
+    (``_hold_kernels_to_plain``: ``o`` by ``_assert_close``'s measure,
+    ``m`` rtol 1e-5, atol 1e-5, ``l`` rtol 1e-4, atol 1e-6), with the
+    largest difference of each."""
+    o, l, m = fa.flash_forward_plain(q, k, v, q.shape[-1] ** -0.5, causal,
+                                     mask, n)
+    type_name = str(q.dtype).split(".")[-1]
+    ok = (close(got["o"], o, type_name)
+          and bool(torch.allclose(got["m"], m, rtol=1e-5, atol=1e-5))
+          and bool(torch.allclose(got["l"], l, rtol=1e-4, atol=1e-6)))
+    return ok, {x: float((got[x].float() - ref.float()).abs().max())
+                for x, ref in (("o", o), ("l", l), ("m", m))}
+
+
+def hold_cases(torch, fa, libs, dev, items, against_plain=False):
     """Run each ``((label, bn, n, tq, tk, dtype, causal, mask kind), h)``
     of ``items`` through both libraries on the same seeded inputs: a report
-    a case, and whether every output is the same bits (at ``HEADS`` and for
-    the short cases) or within the card tests' tolerance (``WIDE_HEADS``)."""
+    a case, and whether every output is the same bits (up to head size 256)
+    or within the card tests' tolerance (above it). With
+    ``against_plain`` (K3a where the two libraries' kernels sum the score
+    products in other orders, each an approximation of the same sums) the
+    verdict is instead whether this library's forward is within the card
+    tests' tolerances of the plain version (``forward_near_plain``); the
+    differences from the other library are reported all the same."""
     gen = torch.Generator(device=dev).manual_seed(15)
     report, same = [], True
     for (label, bn, n, tq, tk, dtype, causal, kind), h in items:
@@ -465,22 +522,32 @@ def hold_cases(torch, fa, libs, dev, items):
         type_name = str(dtype).split(".")[-1]
         differ = [x for x in outs["this"]
                   if not torch.equal(outs["this"][x], outs["other"][x])]
-        beyond = differ if h not in WIDE_HEADS else [
+        beyond = differ if h <= 256 else [
             x for x in differ
             if not close(outs["this"][x], outs["other"][x],
                          None if x in ("l", "m") else type_name)]
-        same = same and not beyond
-        report.append({"case": label, "shape": [bn, tq, tk, h],
-                       "dtype": type_name, "bit_equal": not differ,
-                       "differing": differ, "beyond_tolerance": beyond,
-                       "max_abs_diff": {
-                           x: float((outs["this"][x].float()
-                                     - outs["other"][x].float()).abs().max())
-                           for x in differ}})
+        entry = {"case": label, "shape": [bn, tq, tk, h],
+                 "dtype": type_name, "bit_equal": not differ,
+                 "differing": differ, "beyond_tolerance": beyond,
+                 "max_abs_diff": {
+                     x: float((outs["this"][x].float()
+                               - outs["other"][x].float()).abs().max())
+                     for x in differ}}
+        verdict = ""
+        if against_plain:
+            near, err = forward_near_plain(torch, fa, outs["this"], q, k, v,
+                                           mask, causal, n)
+            same = same and near
+            entry.update(forward_near_plain=near, forward_plain_err=err)
+            verdict = (f"; this library's forward within the card tests' "
+                       f"tolerances of the plain version: {near} ({err})")
+        else:
+            same = same and not beyond
+        report.append(entry)
         print(f"{label} [{bn}, {tq}x{tk}, {h}] {type_name}: "
               + ("bit-equal" if not differ else
-                 f"differ in {differ}, beyond tolerance in {beyond}"),
-              flush=True)
+                 f"differ in {differ}, beyond tolerance in {beyond}")
+              + verdict, flush=True)
     return report, same
 
 
@@ -552,7 +619,19 @@ def main(other, only=None):
                  lambda: {"times_ms": time_heads(
                      torch, fa, libs, dev, WIDE_HEADS, (bf16, f16),
                      ("fwd",))}),
+        "cluster": ([(case, h) for h in CLUSTER_HEADS
+                     for case in wide_cases + [
+                         ("one query row, 512 keys", 16, 1, 1, 512, bf16,
+                          False, "ragged")]],
+                    lambda: {"times_ms": time_heads(
+                        torch, fa, libs, dev, CLUSTER_HEADS, (bf16, f16),
+                        ("fwd",), sdpa=True)}),
+        "producer": ([(case, 128) for case in cases],
+                     lambda: {"times_ms": time_heads(
+                         torch, fa, libs, dev, (128,), (bf16, f16),
+                         ("dkv",))}),
     }
+    against_plain = only == "cluster"
     if only:
         items, timed = parts[only]
     else:
@@ -565,7 +644,7 @@ def main(other, only=None):
                     "times_ms": time_heads(torch, fa, libs, dev,
                                            HEADS + WIDE_HEADS, (bf16,),
                                            ("fwd", "dkv", "dq"))}
-    report, same = hold_cases(torch, fa, libs, dev, items)
+    report, same = hold_cases(torch, fa, libs, dev, items, against_plain)
     results = {"plain": [], "times_ms": {}, "short_times_ms": {},
                "narrow_times_ms": {}, **timed()}
     print(json.dumps({"compare_flash_builds": report, **results,
@@ -573,6 +652,79 @@ def main(other, only=None):
                       "card": torch.cuda.get_device_name(0),
                       "same_within_tolerance": same}))
     return 0 if same else 1
+
+
+def time_turns(torch, fa, dirs, heads, kernel):
+    """``kernel`` of the libraries built from each of ``dirs`` (checkouts),
+    the first this one, in turns (each in order, then in reverse, two
+    rounds) at ``[16, 512, h]`` bf16 (up to h 256 the train step's
+    ``[128 * 64 / h, 512, h]``) with the ragged key mask, causal and not:
+    prints each library's largest difference from the first's output and
+    its median µs and rounds; returns ``{label: {dir: [µs]}}``."""
+    from chambers_tpu_torch.ops import _build
+
+    name, sources, flags = fa.LIBRARY
+    libs = {}
+    for d in dirs:
+        csrc = Path(d).resolve() / "chambers_tpu_torch" / "ops" / "csrc"
+        libs[d] = load(_build.compile_library(
+            name, [csrc / x for x in sources], flags, _build._nvcc))
+    dev = torch.device("cuda")
+    times = {}
+    for h in heads:
+        for causal in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(16)
+            bn, n, t = ((16, 1, 512) if h > 256 else
+                        (128 * 64 // h, 512 // h, 512))
+            keep = t * (0.7 + 0.1 * torch.rand((bn // n, 1), device=dev,
+                                               generator=gen))
+            mask = (torch.arange(t, device=dev) < keep.long()).float()
+            sets = []
+            for _ in range(3):
+                q, k, v, do = (torch.randn((bn, t, h), device=dev,
+                                           generator=gen).bfloat16()
+                               for _ in range(4))
+                o, l, m = fa.flash_forward_plain(q, k, v, h ** -0.5, False,
+                                                 mask, n)
+                sets.append((q, k, v, do, l, m, fa.delta(o, do), mask,
+                             h ** -0.5))
+            outs = (torch.empty_like(q), torch.empty_like(l),
+                    torch.empty_like(m), torch.empty_like(k),
+                    torch.empty_like(v), torch.empty_like(q))
+            at = {"fwd": 0, "dkv": 3, "dq": 5}[kernel]
+            first = None
+            for d, lib in libs.items():
+                launch_one(torch, fa, lib, kernel, (*sets[0], causal, n, outs))
+                torch.cuda.synchronize()
+                got = outs[at].clone()
+                first = got if first is None else first
+                print(f"  {d} h {h} causal {causal}: max |d| from "
+                      f"{dirs[0]} {float((got.float() - first.float()).abs().max()):.3g}",
+                      flush=True)
+            label = f"{kernel} h {h}{' causal' if causal else ''}"
+            times[label] = {d: [] for d in libs}
+            for _ in range(2):
+                for d in list(libs) + list(libs)[::-1]:
+                    def call(i, lib=libs[d]):
+                        launch_one(torch, fa, lib, kernel,
+                                   (*sets[i % 3], causal, n, outs))
+
+                    for i in range(3):
+                        call(i)
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(50_000_000)  # queue the launches
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for i in range(30):
+                        call(i)
+                    end.record()
+                    end.synchronize()
+                    times[label][d].append(start.elapsed_time(end) / 30 * 1e3)
+            for d, v in times[label].items():
+                print(f"{label} {d}: {sorted(v)[len(v) // 2]:.1f} us "
+                      f"({', '.join(f'{x:.1f}' for x in v)})", flush=True)
+    return times
 
 
 def rounds(by):
@@ -626,15 +778,16 @@ def time_short_cases(torch, fa, libs, dev, timed_cases):
     return times
 
 
-def time_heads(torch, fa, libs, dev, heads, dtypes, kernels):
+def time_heads(torch, fa, libs, dev, heads, dtypes, kernels, sdpa=False):
     """``kernels`` of K3a-c at the train step's tokens at each of
-    ``heads`` (``time_both``), in each of ``dtypes``."""
+    ``heads`` (``time_both``, with SDPA beside K3a if ``sdpa``), in each of
+    ``dtypes``."""
     times = {}
     for h in heads:
         for dtype in dtypes:
             type_name = str(dtype).split(".")[-1]
             for key, by in time_both(torch, fa, libs, dev, h, dtype,
-                                     kernels).items():
+                                     kernels, sdpa=sdpa).items():
                 times[f"{key} h{h} {type_name}"] = by
                 print(f"{key} [{max(16, 128 * 64 // h)}, 512, {h}] "
                       f"{type_name} key mask: {rounds(by)}", flush=True)
@@ -647,7 +800,32 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0])
     parser.add_argument("other", help="the other checkout")
-    parser.add_argument("--only", choices=("short", "narrow", "wide"),
+    parser.add_argument("--only", choices=("short", "narrow", "wide",
+                                           "cluster", "producer"),
                         help="hold and time one part alone")
+    parser.add_argument("--turns", help="time one kernel of this, the "
+                        "other and --also's libraries in turns at these "
+                        "head sizes (comma-separated)")
+    parser.add_argument("--kernel", default="fwd",
+                        choices=("fwd", "dkv", "dq"))
+    parser.add_argument("--also", default="",
+                        help="more checkouts for --turns (comma-separated)")
     args = parser.parse_args()
+    if args.turns:
+        import torch
+
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from chambers_tpu_torch.ops import flash_attention as fa
+
+        if not torch.cuda.is_available():
+            print("compare_flash_builds: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        print(torch.cuda.get_device_name(0), flush=True)
+        times = time_turns(
+            torch, fa, [str(Path(__file__).resolve().parent), args.other,
+                        *[d for d in args.also.split(",") if d]],
+            [int(h) for h in args.turns.split(",")], args.kernel)
+        print(json.dumps({"turns_us": times,
+                          "card": torch.cuda.get_device_name(0)}))
+        sys.exit(0)
     sys.exit(main(args.other, args.only))

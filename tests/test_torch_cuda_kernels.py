@@ -333,14 +333,16 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
 
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 
-# head sizes above 256, on the wide K3a (up to 1152, beyond it the sliced
-# one), the sliced K3c and K3b's cluster kernel (float32: the _cols
-# kernels with the head size at run time): 288 padded to 320, whose last
-# slice is partial, 384, 512, 640 (the last block of a cluster runs past
-# the head; K3a's second slice holds two panels), 1024, 1088 (clusters of
-# five) and 2112 (two clusters along the head; K3a sliced); the edges of
-# FLASH_CASES at small shapes
-WIDE_HEADS = [288, 384, 512, 640, 1024, 1088, 2112]
+# head sizes above 256, on K3a's and K3b's cluster kernels and the sliced
+# K3c (float32: the _cols kernels with the head size at run time): 288
+# padded to 320, whose last slice is partial, 384, 512 (K3a one block),
+# 640 (the last block of K3b's cluster runs past the head; K3a a cluster
+# of 5 + 5 panels), 1024, 1088 (K3b's clusters of five), 1216 (K3a's
+# cluster of 7 + 6 + 6 panels), 2112 (two clusters along the head for K3b;
+# K3a one cluster of five) and 4160 (K3a two clusters of five, each
+# computing the other's panels' score terms); the edges of FLASH_CASES at
+# small shapes
+WIDE_HEADS = [288, 384, 512, 640, 1024, 1088, 1216, 2112, 4160]
 WIDE_CASES = [
     (2, 2, 257, 257, True, True),    # causal + key mask, an item with none
     (1, 2, 130, 260, True, False),
@@ -363,21 +365,23 @@ def test_flash_kernels_above_256_match_plain(dev, b, n, tq, tk, h, dtype,
 @pytest.mark.parametrize("dtype", SIXTEEN_BIT)
 @pytest.mark.parametrize("h", [512, 1088, 2112])
 def test_cluster_kernels_repeat_their_bits(dev, h, dtype):
-    """K3b above 256 sums its blocks' terms of the score products over a
-    cluster in rank order, with no atomics, and K3c's slices each write
-    their own columns: at phase 9's tokens over one head (``[16, 512, h]``,
-    the ragged key mask, causal and not; at 2112 two clusters along the
-    head), where many clusters run at once, three launches give the same
-    bits."""
+    """K3b above 256 and K3a above 1152 sum their blocks' terms of the
+    score products over a cluster in rank order, with no atomics, and K3c's
+    slices each write their own columns: at phase 9's tokens over one head
+    (``[16, 512, h]``, the ragged key mask, causal and not; at 2112 two
+    clusters along the head for K3b, one of five blocks for K3a), where
+    many clusters run at once, three launches give the same bits."""
     q, k, v, do, mask = _flash_inputs(dev, 16, 1, 512, 512, h, dtype,
                                       "ragged", seed=5)
     for causal in (False, True):
         o, l, m = fa.launch_forward(q, k, v, mask, h ** -0.5, causal, 1)
         args = (q, k, v, do, l, m, fa.delta(o, do), mask, h ** -0.5, causal,
                 1)
-        first = (*fa.launch_backward_dkv(*args), fa.launch_backward_dq(*args))
+        first = (o, l, m, *fa.launch_backward_dkv(*args),
+                 fa.launch_backward_dq(*args))
         for _ in range(2):
-            again = (*fa.launch_backward_dkv(*args),
+            again = (*fa.launch_forward(q, k, v, mask, h ** -0.5, causal, 1),
+                     *fa.launch_backward_dkv(*args),
                      fa.launch_backward_dq(*args))
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(again, first))
@@ -412,28 +416,53 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
 
 @pytest.mark.parametrize("h", range(320, 2113, 64))
 def test_wide_forward_launch_shapes_fit_the_card(dev, h):
-    """Above 256 K3a runs its wide kernel (two warpgroups over 64 query
-    rows, 512 columns of O a block, Q's tile resident) wherever Q's tile
-    fits in a block's shared memory beside the ring, up to 18 panels (h
-    1152), and the sliced kernel (one warpgroup, 256 columns a block)
-    beyond: the shape the launcher reports, one block an SM, at any
-    lengths, in both 16-bit types."""
+    """Above 256 K3a runs its cluster kernel: blocks of two consumer
+    warpgroups over 64 query rows and at most 8 panels of O, Q's panels
+    resident, and a producer warpgroup (384 threads), one block an SM, in
+    clusters along z of as few blocks as hold the head's panels (one block,
+    no cluster, up to h 512), the panels balanced over them: the shape the
+    launcher reports, and that the card holds such clusters at once, at
+    any lengths, in both 16-bit types."""
     panels = h // 64
+    blocks = -(-panels // 8)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in SIXTEEN_BIT:
         for tq, tk in ((512, 512), (1, 512), (198, 198)):
             shape = fa.launch_shape("fwd", dtype, h, tq, tk)
-            if panels <= 18:
-                assert shape["kernel_name"] == "flash_fwd_wide_kernel"
-                assert (shape["threads"], shape["slices"]) == (
-                    256, -(-panels // 8))
-                assert shape["smem_bytes"] > panels * 8192
-                assert shape["resident_blocks"] == sms
-            else:
-                assert shape["kernel_name"] == "flash_fwd_sliced_kernel"
-                assert (shape["threads"], shape["slices"]) == (
-                    128, -(-panels // 4))
-            assert shape["cluster"] == 1
+            assert shape["kernel_name"] == "flash_fwd_cluster_kernel"
+            assert shape["threads"] == 3 * 128
+            assert shape["resident_blocks"] == sms
+            assert shape["slices"] == shape["cluster"] == blocks
+            # 0 without a cluster, as launch_shape reports it
+            assert (shape["max_active_clusters"] > 0) == (blocks > 1)
+
+
+@pytest.mark.parametrize("h,blocks,clusters", [(512, 1, 1), (1216, 3, 1),
+                                               (2112, 5, 1), (4160, 5, 2)])
+def test_cluster_forward_launch_shapes_fit_the_card(dev, h, blocks,
+                                                    clusters):
+    """K3a's cluster kernel's blocks (two consumer warpgroups and a
+    producer's, 384 threads, at most 8 panels of O each) form clusters
+    along z over each chunk of the head, as few clusters as the portable
+    size of 8 blocks allows (h 4160, 65 panels: the first size past one
+    cluster, two chunks of 33 and 32 panels), each chunk balanced over its
+    cluster's blocks: the shape the launcher reports, and that the card
+    holds clusters of it at once in both 16-bit types (at h 512 one block
+    and no cluster: 0 clusters, as launch_shape reports it)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in SIXTEEN_BIT:
+        shape = fa.launch_shape("fwd", dtype, h, 512, 512)
+        assert shape["kernel_name"] == "flash_fwd_cluster_kernel"
+        assert shape["threads"] == 3 * 128
+        assert shape["cluster"] == blocks
+        assert shape["slices"] == blocks * clusters
+        if blocks == 1:
+            assert shape["max_active_clusters"] == 0
+        else:
+            assert 0 < shape["max_active_clusters"] <= sms // blocks
+        assert shape["resident_blocks"] == sms
+        assert fa.launch_shape("fwd", torch.float32, h, 512,
+                               512)["cluster"] == 1
 
 
 def _hold_kernels_to_plain(dev, b, n, tq, tk, h, dtype, causal, masked):
@@ -699,11 +728,12 @@ FORWARD_LENGTHS = [((96, 80), "flash_fwd_short_kernel"),
                    ((257, 198), "flash_fwd_tc_kernel")]
 
 
-@pytest.mark.parametrize("h", [64, 128, 256, 512, 32])
+@pytest.mark.parametrize("h", [64, 128, 256, 512, 32, 1216])
 def test_forward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core forward (at head size
     64 over at most 256 queries and keys its short form, above 256 its
-    wide form, at 32 its narrow form at any lengths), float32 the FMA one
+    cluster form, at 32 its narrow form at any lengths), float32 the FMA
+    one
     (its ``_cols`` form from 256 on; at 32 padded to 64): read from the
     profiler's kernel names, the launch counter by kernel and
     ``launch_shape``, which names the kernel the dispatch picks. Each
@@ -718,12 +748,12 @@ def test_forward_dtype_chooses_the_kernels(dev, h):
     fma = "flash_fwd_cols_kernel" if h >= 256 else "flash_fwd_kernel"
     seen = names[torch.float32]
     assert fma in seen, seen
-    for other in ("_tc_kernel", "_short_kernel", "_sliced_kernel",
+    for other in ("_tc_kernel", "_short_kernel", "_cluster_kernel",
                   "_narrow_kernel", "_wide_kernel"):
         assert other not in seen, seen
     tc = ("flash_fwd_short_kernel" if h == 64 else
           "flash_fwd_narrow_kernel" if h == 32 else
-          "flash_fwd_wide_kernel" if h > 256 else "flash_fwd_tc_kernel")
+          "flash_fwd_cluster_kernel" if h > 256 else "flash_fwd_tc_kernel")
     for dtype in SIXTEEN_BIT:
         seen = names[dtype]
         assert tc in seen, seen
@@ -770,7 +800,10 @@ BACKWARD_LENGTHS = [((198, 198), "flash_bwd_dkv_short_kernel"),
 def test_backward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core kernels (above 256
     K3b's ``_cluster`` kernel and K3c's ``_sliced`` one; at head size 64
-    over at most 256 queries and 129 to 256 keys K3b's short one), float32
+    over at most 256 queries and 129 to 256 keys K3b's short one; at 128
+    K3b's ``_producer`` kernel: two warpgroups of 64 keys each, 128 keys a
+    block, and a third whose first warp feeds them, one block an SM),
+    float32
     the FMA kernels (``_cols`` from 256 on): read from the profiler's kernel
     names, and for K3b at each of ``BACKWARD_LENGTHS`` from
     ``launch_shape``, which names the kernel the dispatch picks, and the
@@ -788,7 +821,8 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
     assert "_tc_kernel" not in names[torch.float32]
     assert "_sliced_kernel" not in names[torch.float32]
     assert "_cluster_kernel" not in names[torch.float32]
-    dkv, dq = ("_cluster", "_sliced") if h > 256 else ("_tc", "_tc")
+    dkv, dq = (("_cluster", "_sliced") if h > 256 else
+               ("_producer", "_tc") if h == 128 else ("_tc", "_tc"))
     for dtype in SIXTEEN_BIT:
         assert f"flash_bwd_dkv{dkv}_kernel" in names[dtype]
         assert f"flash_bwd_dq{dq}_kernel" in names[dtype]
@@ -810,6 +844,13 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
                 # head's Q and dO beside four key tiles of K and V
                 assert shape["threads"] == 3 * 128
                 assert shape["smem_bytes"] > 2 * 2 * 32 * 1024 + 64 * 1024
+                assert shape["resident_blocks"] == sms
+            if want == "flash_bwd_dkv_producer_kernel":
+                # one block an SM: two consumer warpgroups' K and V tiles
+                # (64 KB) beside a ring of four stages of Q and dO (128 KB)
+                assert shape["threads"] == 3 * 128
+                assert shape["smem_bytes"] > 64 * 1024 + 4 * 32 * 1024
+                assert shape["slices"] == shape["cluster"] == 1
                 assert shape["resident_blocks"] == sms
             q, k, v, do, _ = _flash_inputs(dev, 1, 2, tq, tk, h, dtype,
                                            False)

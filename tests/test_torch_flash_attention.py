@@ -383,11 +383,12 @@ TYPES = {"float32": (jnp.float32, torch.float32),
          "float16": (jnp.float16, torch.float16)}
 
 
-# every head size in the three types, and 1088 (past one cluster of K3b's
-# blocks on the card) in bf16, the type the card's kernels run it in
+# every head size in the three types, 1088 (past one cluster of K3b's
+# blocks on the card) and 1216 (past the wide K3a, on its cluster kernel on
+# the card) in bf16, the type the card's kernels run them in
 HEAD_CASES = [(h, dtype) for h in HEAD_SIZES
               for dtype in ("float32", "bfloat16", "float16")] + [
-                  (1088, "bfloat16")]
+                  (1088, "bfloat16"), (1216, "bfloat16")]
 
 
 @pytest.mark.parametrize("h,dtype", HEAD_CASES)
