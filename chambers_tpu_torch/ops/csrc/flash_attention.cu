@@ -13,10 +13,10 @@
 //   flash_fwd_kernel      <- _flash_forward / _flash_fwd_kernel        (K3a)
 //   flash_bwd_dkv_kernel  <- _flash_backward / _flash_bwd_dkv_kernel   (K3b)
 //   flash_bwd_dq_kernel   <- _flash_backward / _flash_bwd_dq_kernel    (K3c)
-// (the 16-bit kernels carry the same names with _tc, at head size 128 K3b's
-// with _producer, above head size 256 with _cluster (K3a, K3b) or _sliced
-// (K3c), at head size 32 with _narrow; the float32 ones from head size 256
-// on with _cols).
+// (the 16-bit kernels carry the same names with _tc, at head sizes 128 and
+// 256 K3b's with _producer, above head size 256 with _cluster, at head
+// size 32 with _narrow; the float32 ones from head size 256 on with
+// _cols).
 //
 // What they compute, over [bn, t, h] operands (bn = batch * heads):
 //   forward  o = softmax(q k^T * scale) v by key tiles, with a float32
@@ -68,7 +68,7 @@
 // the kernels below at 64 and 128, templates over the head size, and from
 // 256 on the _cols kernels, which take it at run time; bfloat16 and
 // float16 go to the tensor-core kernels, built at 64, 128 and 256, and
-// above 256 to the sliced ones, which take it at run time; the wrapper
+// above 256 to the cluster ones, which take it at run time; the wrapper
 // zero-pads any other head size to the next of these), contiguous
 // operands whose base addresses are multiples of 16 bytes. At 128 the FMA
 // kernels keep the same 16 x 16 threads, each holding 8 columns of every
@@ -982,7 +982,7 @@ constexpr int kFloat16 = 2;
 }  // namespace
 
 // the bfloat16 (f16 = 0) and float16 (f16 = 1) kernels on the tensor
-// cores, at `panels` = head size / 64: 1, 2 or 4, or above 4 the sliced
+// cores, at `panels` = head size / 64: 1, 2 or 4, or above 4 the cluster
 // kernels (flash_attention_fwd.cu, flash_attention_bwd.cu); also at 0, head
 // size 32, on the narrow kernels
 cudaError_t flash_fwd_tc(int f16, int panels, const void* q, const void* k,
@@ -1011,6 +1011,7 @@ LaunchShape flash_bwd_tc_shape(int dkv, int panels, int tq, int tk);
 int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk);
 int flash_bwd_dq_resident(int f16, int panels);
 int flash_bwd_dkv_max_clusters(int f16, int panels);
+int flash_bwd_dq_max_clusters(int f16, int panels);
 
 // the head size of the narrow kernels (bfloat16 and float16)
 constexpr int kNarrowHead = 32;
@@ -1097,12 +1098,12 @@ extern "C" int flash_launch_shape(int kernel, int h, int dtype, int tq,
   shape[3] = s.cluster;
   shape[4] = s.cluster == 1   ? 0
              : kernel == kFwd ? flash_fwd_tc_max_clusters(f16, panels)
-                              : flash_bwd_dkv_max_clusters(f16, panels);
+             : kernel == kDkv ? flash_bwd_dkv_max_clusters(f16, panels)
+                              : flash_bwd_dq_max_clusters(f16, panels);
   // the family's kernels: float32 the FMA kernel (0) or its _cols form
   // (1); the 16-bit ones from 2 on, K3a's whole-tile, short, narrow and
   // cluster kernels, K3b's whole-tile, short, cluster, narrow and producer
-  // kernels,
-  // K3c's whole-tile, sliced and narrow kernels
+  // kernels, K3c's whole-tile, cluster and narrow kernels
   shape[5] = dtype == kFloat32 ? (h >= 256 ? 1 : 0)
              : kernel == kFwd   ? 2 + flash_fwd_tc_kernel_of(panels, tq, tk)
              : kernel == kDkv   ? 2 + flash_bwd_dkv_kernel_of(panels, tq, tk)

@@ -7,11 +7,11 @@
 //   flash_bwd_dkv_tc_kernel  <- _flash_backward / _flash_bwd_dkv_kernel  (K3b)
 //   flash_bwd_dq_tc_kernel   <- _flash_backward / _flash_bwd_dq_kernel   (K3c)
 // and, at head size 32, flash_bwd_dkv_narrow_kernel and
-// flash_bwd_dq_narrow_kernel, at head size 128 for K3b
+// flash_bwd_dq_narrow_kernel, at head sizes 128 and 256 for K3b
 // flash_bwd_dkv_producer_kernel, at head sizes above 256,
-// flash_bwd_dkv_cluster_kernel and
-// flash_bwd_dq_sliced_kernel, and for K3b at head size 64 over at most 256
-// queries and 129 to 256 keys (ViT lengths) flash_bwd_dkv_short_kernel,
+// flash_bwd_dkv_cluster_kernel and flash_bwd_dq_cluster_kernel, and for K3b
+// at head size 64 over at most 256 queries and 129 to 256 keys (ViT
+// lengths) flash_bwd_dkv_short_kernel,
 // and computes what flash_attention.cu's note says they compute: per key
 // tile over all query tiles p = exp(s - m) / l, dv += p^T do,
 // ds = p (do v^T - di), dk += ds^T q scale; per query tile over all key
@@ -83,19 +83,14 @@
 //   takes the same type on both sides (flash_backward_plain states the
 //   same).
 // * Head size 256 (four panels). K3b cannot hold dK and dV in one
-//   warpgroup: 256 float32 registers a thread for them alone. So a block of
-//   K3b is two warpgroups over the same 64 keys, each accumulating two
-//   panels of dK and two of dV (128 registers, as one warpgroup at 128).
-//   The score and do . v^T tiles are computed once, each by one warpgroup
-//   over the whole head (warpgroup 0 S^T, warpgroup 1 dP^T): warpgroup 1
-//   hands its dP^T to warpgroup 0 through shared memory (16 KB, each thread
-//   its own fragment's slots), warpgroup 0 computes p and ds and hands them
-//   back rounded to T, and both then run the second products on their own
-//   panels; two barriers a step. K3c at 256 keeps one warpgroup a block:
-//   its dQ is four panels, 128 registers, beside S, dP and dS (80), and two
-//   warpgroups on different rows would need 128 KB for their own Q and dO
-//   tiles before any passing tile. K3b and K3c then have two stages, not
-//   three, in shared memory (210 KB and 194 KB).
+//   warpgroup: 256 float32 registers a thread for them alone. So K3b runs
+//   the producer kernel there (the section at the end of this note): two
+//   warpgroups over the same 64 keys, each accumulating two panels of dK
+//   and two of dV. K3c at 256 keeps one warpgroup a block: its dQ is four
+//   panels, 128 registers, beside S, dP and dS (80), and two warpgroups on
+//   different rows would need 128 KB for their own Q and dO tiles before
+//   any passing tile. It has two stages, not three, in shared memory
+//   (194 KB).
 // * Head sizes above 256. The whole-tile design runs out of room there (at
 //   256 K3b already takes 210 KB of shared memory and 255 registers; at 512
 //   dK and dV for 64 keys are 256 KB of float32, an SM's whole register
@@ -103,19 +98,52 @@
 //   owning 64 rows (query rows in K3c, keys in K3b) and one part of the
 //   columns. The head size is a run-time argument: one instantiation per
 //   type serves every multiple of 64.
-//   K3c: the sliced kernel. A block is one warpgroup that owns kDqSlice = 4
-//   panels of dQ, the accumulators of K3c at 256. A step passes through a
-//   ring of two 32 KB slots as items: for each panel of the head, that
-//   panel of Q, dO, K and V, accumulated over the whole padded head into S
-//   and dP with wgmma; then the slice's panels of K, which the rounded dS
-//   multiplies. One item is copied while the one before it is multiplied,
-//   one barrier an item. ds comes from dq_scores, which the kernels above
-//   share. The cost: every slice computes the score products and ds again,
-//   so at 512 the tensor cores do 1.67 times K3c's work, and the passing
-//   operands are copied again for each slice (from L2). 66 KB of shared
-//   memory, 248 registers, no spills: two blocks an SM. ptxas injects a
-//   warpgroup.arrive before five of its wgmma batches (C7519: products under
-//   run-time conditions).
+//   K3c: the cluster kernel (flash_bwd_dq_cluster_kernel). A block has
+//   two consumer warpgroups over 64 query rows and owns at most kDqOwn = 8
+//   panels of dQ and of Q and dO (resident, 128 KB), half of them, rounded
+//   up, to group 0 (128 float32 registers of dQ a thread); a third
+//   warpgroup gives its registers up (setmaxnreg: 24 a thread, the
+//   consumers 240) and its first warp is the producer, which keeps TMA
+//   loads of K's and V's panels in flight into a ring of kDqSlots = 4
+//   items of two panels on full and empty mbarriers and writes each key
+//   step's flags beside its first item. The blocks over the same 64 rows
+//   form a cluster along z (dq_cluster_split: as few blocks as hold the
+//   head, the panels balanced over them; one block, no cluster, up to h
+//   512; 7 + 6 + 6 at 1216; above h 4096 several clusters, each block
+//   also computing the terms of the panels its rank owns in the others, as
+//   K3a's cluster kernel does). Key step s: group 0 computes the block's
+//   terms of S over its panels, K's items two panels at a time, group 1
+//   those of dP over V's items; each writes its tile to the block's
+//   exchange buffer, lanes 0 .. n - 1 signal the n blocks' `ready`
+//   mbarriers, and each group sums both tiles over the cluster in rank
+//   order (its own tile's term from its registers, the other group's
+//   through this block's shared memory, the other blocks' through
+//   distributed shared memory), so both groups of every block hold the
+//   same bits of S and dP and compute the same ds (dq_scores); then each
+//   signals the `free` mbarriers (the buffer may be written again once
+//   every block has read it; a block alone alternates the two tiles
+//   between its groups instead) and multiplies its panels of K, passed by
+//   a second time, by the rounded ds. So each score product is computed
+//   once a cluster; K passes twice a step and V once. 231 KB of shared
+//   memory, 384 threads (ptxas reports the 168 registers a thread of the
+//   launch), no spills: one block an SM.
+//   As measured on an NVIDIA H100 80GB HBM3 at 700 W (compare_flash_builds.py
+//   --only dq_cluster against 414d977's sliced kernel, in turns; PERF.md
+//   section 6), bf16 with the ragged key mask: [16, 512, 512] 56.1 us
+//   against 77.1 (causal 56.3 against 74.2; float16 56.2), [25, 512, 320]
+//   81.9 against 92.8, [16, 512, 576] 115.3 against 140.1, [16, 512, 1024]
+//   139.3 against 275.8, [16, 512, 1216] 302.8 against 477.0, [16, 512,
+//   2112] 724.3 against 1402.0. Replaced: flash_bwd_dq_sliced_kernel (a
+//   block one warpgroup and 4 panels of dQ, every slice computing S and dP
+//   over the whole head again: 1.67 times the tensor work at 512). Tried,
+//   and slower: blocks of 4 panels (two in a cluster at h 512, five at
+//   1216), each group summing one tile over the cluster and the two
+//   swapping the sums through the exchange buffer of the other parity
+//   (two buffers, no free barrier): 78.9 us at 512 and 476.8 at 1216;
+//   without the remote loads it took 62.8 and 188.1, without any exchange
+//   49.5 and 146.8: distributed shared memory bound it, about 32 KB a
+//   block a step at 512 and 128 KB at 1216, which the 8-panel blocks cut
+//   to none and 64 KB.
 //   K3b: the cluster kernel. A block is two warpgroups over the same 64 keys
 //   and owns kDkvOwn = 4 panels each of dK and dV, two a warpgroup (as K3b
 //   at 256). The blocks over the same 64 keys form a thread-block cluster
@@ -151,12 +179,9 @@
 //   reduce-scatter's share (kept from three blocks on, two loads in flight
 //   a thread: more took more registers, spilled, and ran slower), 8-byte
 //   st.async pushes counted by the owner's mbarrier, bulk copies between
-//   the blocks, plain remote stores. Its own panels went from two (one warpgroup, clusters of
-//   up to 8) to four (two warpgroups), which halved the terms it exchanges
-//   for the same work. K3c was built the same way (one warpgroup of four
-//   panels of dQ) and ran slower than the sliced kernel at 512 and 1024:
-//   it exchanges 32 KB a block a step for less work than K3b's, where the
-//   sliced K3c repeats its score products only 1.67 times (K3b 2.5).
+//   the blocks, plain remote stores. Its own panels went from two (one
+//   warpgroup, clusters of up to 8) to four (two warpgroups), which halved
+//   the terms it exchanges for the same work.
 //
 // ViT lengths: flash_bwd_dkv_short_kernel. At DeiT-B/16's [1536, 198, 64]
 // the whole-tile design launches 6144 blocks of 64 keys, a head's four key
@@ -280,12 +305,13 @@
 //   Head size 32 (the narrow kernels): one warpgroup a block, K3b 128
 //        registers, K3c 106, no spills, 44 KB of shared memory: four blocks
 //        an SM.
-//   Head size 128: K3b's producer kernel (below), 384 threads, the
-//   consumers at 240 registers, no spills, 195 KB of shared memory: one
-//   block an SM. K3c keeps two warpgroups, 163 KB: one block an SM, 166
-//   registers, no spills.
+//   Head sizes 128 and 256: K3b's producer kernel (below), 384 threads,
+//   the consumers at 240 registers, no spills, 195 KB of shared memory at
+//   128 and 226 KB at 256: one block an SM. K3c at 128 keeps two
+//   warpgroups, 163 KB: one block an SM, 166 registers, no spills.
 //
-// Head size 128: flash_bwd_dkv_producer_kernel. The whole-tile K3b held a
+// Head sizes 128 and 256: flash_bwd_dkv_producer_kernel<T, kPanels>. At
+// 128 the whole-tile K3b held a
 // block's 64 keys' dK and dV in one warpgroup's registers (128 of its 246
 // a thread), 131 KB of shared memory: one warpgroup an SM, and nothing
 // filled the gaps in its chain (stage wait, S^T and dP^T, exponents, the
@@ -296,7 +322,7 @@
 // registers up (setmaxnreg: 24 a thread, the consumers 240) so that its
 // first warp is the producer: it copies the block's K and V tiles once and
 // the passing Q and dO tiles by TMA (tensor maps of [bn, t, 128] whose box
-// is one 64-row panel) into a ring of kPairStages = 4 stages on full and
+// is one 64-row panel) into a ring of four stages (Pair<2>) on full and
 // empty mbarriers, with each tile's exponent offsets and di beside them.
 // So the two groups share each stage's Q and dO (half the bytes a key) and
 // their two chains interleave on the SM. Each group runs K3b's arithmetic
@@ -307,6 +333,29 @@
 // [64, 512, 128] bf16 with the ragged key mask 45.5 us against 55.6
 // (causal 33.3 against 39.7; float16 45.5 against 55.9), every h 128 case
 // bit-equal.
+// At 256 (Pair<4>) a block owns 64 keys, its K and V tiles resident (64
+// KB), the ring two stages of 64 query rows of Q and dO (64 KB each), and
+// the two consumer warpgroups split the head's panels of dK and dV, two
+// each, as the whole-tile kernel's two warpgroups did there: group 0
+// computes S^T over the whole head, group 1 dP^T. Where the whole-tile
+// kernel handed dP^T to group 0, which computed p and ds alone and handed
+// them back (two barriers, the other group idle), here split_scores has
+// each group compute p and ds for half of the tile's query columns: each
+// hands the other the half of its tile the other needs, and the two then
+// hand each other their halves of p and ds rounded to T, so both hold the
+// same pt and dst with the whole-tile kernel's bits, every exponent
+// computed once. As measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (compare_flash_builds.py --only producer256 against 414d977, in turns;
+// PERF.md section 6): at [32, 512, 256] bf16 with the ragged key mask
+// 54.8 us against 58.7 (causal 38.1 against 40.5; float16 54.9 against
+// 59.0), every h 256 case bit-equal. Tried, and slower: both groups
+// swapping whole tiles once a step and each computing every p and ds
+// (59.4 us against 58.7; 48 bytes spilled), and that with the next step's
+// score product in one batch with the step's second products (57.3 against
+// the kept form's 54.6: two stages leave the next stage's copy too little
+// time). Ablated (the swap form): without the swap 56.5 us, without the
+// exponents 53.0, without the second products 46.3: the groups' chain of
+// products, exchange and exponents binds it, not the copies.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -321,11 +370,8 @@ namespace {
 using namespace flash_tiles;
 
 // warpgroups a block, and blocks an SM the compiler fits the registers to,
-// by head panels: K3b's warpgroups split the head's panels over the same
-// 64 keys, K3c's own 64 query rows each
-__host__ __device__ constexpr int dkv_groups(int panels) {
-  return panels == 4 ? 2 : 1;
-}
+// by head panels: K3c's warpgroups own 64 query rows each (K3b's
+// whole-tile kernel is one warpgroup)
 __host__ __device__ constexpr int dq_groups(int panels) {
   return panels == 4 ? 1 : 2;
 }
@@ -336,18 +382,16 @@ __host__ __device__ constexpr int stages(int panels) {
   return panels == 4 ? 2 : 3;
 }
 constexpr int kRowsBytes = 2 * kTileRows * 4; // per-row floats of a stage
-// K3b's hand-over between its two warpgroups: a [64 x 64] float32 tile, 32
-// values a thread
+// a [64 x 64] float32 tile handed between two warpgroups, 32 values a
+// thread (K3b's cluster and producer kernels)
 constexpr int kHandBytes = 128 * 32 * 4;
 
 // a block owns `own` tiles of two operands (own = its warpgroups for K3c,
-// 1 for K3b), a stage holds two tiles, and K3b's split panels add the
-// hand-over
+// 1 for K3b), and a stage holds two tiles
 template <int kPanels>
-__host__ __device__ constexpr size_t smem_bytes(int own, int hand) {
+__host__ __device__ constexpr size_t smem_bytes(int own) {
   return 1024 + own * 2 * tile_bytes<kPanels>() +
-         stages(kPanels) * (2 * tile_bytes<kPanels>() + kRowsBytes) + hand +
-         64;
+         stages(kPanels) * (2 * tile_bytes<kPanels>() + kRowsBytes) + 64;
 }
 
 struct RowStats {
@@ -642,10 +686,9 @@ __global__ void __launch_bounds__(128 * dq_groups(kPanels), dq_blocks(kPanels))
                            scale, group_row0, tq, 1 + at.group, at.tid & 127);
 }
 
-// K3b: dk, dv for the block's 64 keys over all query tiles
+// K3b: dk, dv for the block's 64 keys over all query tiles, one warpgroup
 template <typename T, int kPanels>
-__global__ void __launch_bounds__(128 * dkv_groups(kPanels),
-                                  dkv_blocks(kPanels))
+__global__ void __launch_bounds__(128, dkv_blocks(kPanels))
     flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const T* __restrict__ dout,
@@ -655,33 +698,20 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
                             const float* __restrict__ kv_mask,
                             T* __restrict__ dk, T* __restrict__ dv, int tq,
                             int tk, int n_heads, float scale, int causal) {
-  // kGroups warpgroups over the same 64 keys, each accumulating kOwn of
-  // the head's panels of dK and dV
-  constexpr int kGroups = dkv_groups(kPanels), kOwn = kPanels / kGroups;
-  constexpr int kThreads = 128 * kGroups, kStages = stages(kPanels);
+  constexpr int kThreads = 128, kStages = stages(kPanels);
   constexpr int kHd = kPanels * kPanelCols, kTile = tile_bytes<kPanels>(),
                 kStageBytes = 2 * kTile;
-  constexpr int kHand = kGroups > 1 ? kHandBytes : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t k_s = smem_u32(smem);
   const uint32_t v_s = k_s + kTile;
   const uint32_t ring = k_s + 2 * kTile;
-  // the hand-over between split warpgroups: [value of the fragment][thread
-  // of the warpgroup], 32 words a thread
-  uint32_t* hand_s = reinterpret_cast<uint32_t*>(smem + 2 * kTile +
-                                                 kStages * kStageBytes);
   // [stage][exponent offset, di][query of the tile]
   float* rows_s = reinterpret_cast<float*>(smem + 2 * kTile +
-                                           kStages * kStageBytes + kHand);
+                                           kStages * kStageBytes);
   int* flags_s = reinterpret_cast<int*>(rows_s + kStages * 2 * kTileRows);
 
   const Lanes at;
-  // the warpgroup, the thread's place in it and its first own panel (with
-  // one warpgroup constants, as the kernel had before the split)
-  const int group = kGroups == 1 ? 0 : at.group;
-  const int in_group = kGroups == 1 ? at.tid : at.tid & 127;
-  const int panel0 = group * kOwn;
   const int bn = blockIdx.x, k0 = blockIdx.y * kTileRows;
   const T* qb = q + (size_t)bn * tq * kHd;
   const T* dob = dout + (size_t)bn * tq * kHd;
@@ -736,10 +766,8 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
   int keys_any, keys_all;
   block_keys(key_ok, keys_any, keys_all, mask_row, key_a, tk, at, flags_s);
   if (!keys_any) {  // no key of the block takes part: zeros, nothing read
-    if (group == 0) {
-      store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, in_group);
-      store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, k0, tk, in_group);
-    }
+    store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, k0, tk, at.tid);
+    store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, k0, tk, at.tid);
     return;
   }
 
@@ -752,11 +780,10 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
   if (kStages > 2) store_rows(1, rows1);
   const float scale2 = scale * kLog2e;
 
-  // dK and dV: one [64 x 64] accumulator a panel each, of the warpgroup's
-  // own panels
-  float dk_acc[kOwn][32], dv_acc[kOwn][32];
+  // dK and dV: one [64 x 64] accumulator a panel each
+  float dk_acc[kPanels][32], dv_acc[kPanels][32];
 #pragma unroll
-  for (int p = 0; p < kOwn; ++p)
+  for (int p = 0; p < kPanels; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
@@ -776,75 +803,33 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
 
       float st[32], dpt[32];  // [key][query]
       products_begin();
-      if (kGroups == 1) {
-        product_nt<T, kPanels>(st, k_s, q_s);
-        product_nt<T, kPanels>(dpt, v_s, do_s);
-      } else if (group == 0) {
-        product_nt<T, kPanels>(st, k_s, q_s);
-      } else {
-        product_nt<T, kPanels>(dpt, v_s, do_s);
-      }
+      product_nt<T, kPanels>(st, k_s, q_s);
+      product_nt<T, kPanels>(dpt, v_s, do_s);
       products_end();
-      if (kGroups == 1 || group == 0) keep_registers(st);
-      if (kGroups == 1 || group == 1) keep_registers(dpt);
-      if (kGroups > 1) {  // warpgroup 1's dP^T to warpgroup 0
-        if (group == 1) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            hand_s[i * 128 + in_group] = __float_as_uint(dpt[i]);
-        }
-        __syncthreads();
-        if (group == 0) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i)
-            dpt[i] = __uint_as_float(hand_s[i * 128 + in_group]);
-        }
-      }
+      keep_registers(st);
+      keep_registers(dpt);
 
       // every pair of the tile takes part: no test per element
       const bool unmasked =
           keys_all && q0 + kTileRows <= tq &&
           (!causal || k0 + kTileRows - 1 <= q0 + offset);
-      // p and ds: by the one warpgroup, or by warpgroup 0 of two
-      const bool softmax_here = kGroups == 1 || group == 0;
-      if (softmax_here)
-        dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
-                   key_a, causal, offset, at.t);
+      dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
+                 key_a, causal, offset, at.t);
       uint32_t pt[4][4], dst[4][4];
-      if (softmax_here) {
-        pack_a_fragments<T>(st, pt);
-        pack_a_fragments<T>(dpt, dst);
-      }
-      if (kGroups > 1) {  // p and ds, rounded, over to warpgroup 1
-        if (group == 0) {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            hand_s[i * 128 + in_group] = pt[i / 4][i % 4];
-            hand_s[(16 + i) * 128 + in_group] = dst[i / 4][i % 4];
-          }
-        }
-        __syncthreads();
-        if (group == 1) {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) {
-            pt[i / 4][i % 4] = hand_s[i * 128 + in_group];
-            dst[i / 4][i % 4] = hand_s[(16 + i) * 128 + in_group];
-          }
-        }
-      }
+      pack_a_fragments<T>(st, pt);
+      pack_a_fragments<T>(dpt, dst);
 
       products_begin();
 #pragma unroll
-      for (int p = 0; p < kOwn; ++p) {
-        const int panel = panel0 + p;
-        product_tn<T>(dv_acc[p], pt, do_s + panel * kPanelBytes);
-        product_tn<T>(dk_acc[p], dst, q_s + panel * kPanelBytes);
+      for (int p = 0; p < kPanels; ++p) {
+        product_tn<T>(dv_acc[p], pt, do_s + p * kPanelBytes);
+        product_tn<T>(dk_acc[p], dst, q_s + p * kPanelBytes);
       }
       products_end();
       keep_registers(pt);
       keep_registers(dst);
 #pragma unroll
-      for (int p = 0; p < kOwn; ++p) {
+      for (int p = 0; p < kPanels; ++p) {
         keep_registers(dv_acc[p]);
         keep_registers(dk_acc[p]);
       }
@@ -857,17 +842,15 @@ __global__ void __launch_bounds__(128 * dkv_groups(kPanels),
     __syncthreads();
   }
   // the block's own K and V tiles are read no more: panel p of dV leaves
-  // through panel p of K, and of dK through panel p of V, each warpgroup's
-  // own panels under its own named barrier
+  // through panel p of K, and of dK through panel p of V
 #pragma unroll
-  for (int p = 0; p < kOwn; ++p) {
-    const int panel = panel0 + p;
-    store_accumulator<kHd>(dv + (size_t)bn * tk * kHd + panel * kPanelCols,
-                           smem + panel * kPanelBytes, dv_acc[p], 1.f, k0,
-                           tk, 1 + group, in_group);
-    store_accumulator<kHd>(dk + (size_t)bn * tk * kHd + panel * kPanelCols,
-                           smem + kTile + panel * kPanelBytes, dk_acc[p],
-                           scale, k0, tk, 1 + group, in_group);
+  for (int p = 0; p < kPanels; ++p) {
+    store_accumulator<kHd>(dv + (size_t)bn * tk * kHd + p * kPanelCols,
+                           smem + p * kPanelBytes, dv_acc[p], 1.f, k0, tk,
+                           1, at.tid);
+    store_accumulator<kHd>(dk + (size_t)bn * tk * kHd + p * kPanelCols,
+                           smem + kTile + p * kPanelBytes, dk_acc[p], scale,
+                           k0, tk, 1, at.tid);
   }
 }
 
@@ -916,11 +899,9 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // ---------------------------------------------------------------------------
-// head sizes above 256: K3c's sliced kernel and K3b's cluster kernel (see
-// the note at the top)
+// head sizes above 256: K3b's cluster kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kDqSlice = 4;  // panels of dQ a K3c block: 256 columns
 // panels each of dK and dV a K3b block owns, 256 columns: two warpgroups
 // of two panels each
 constexpr int kDkvOwn = 4;
@@ -938,11 +919,6 @@ __host__ __device__ constexpr ClusterSplit cluster_split(int panels) {
   constexpr int most = kMaxCluster * kDkvOwn;  // a cluster's panels at most
   const int clusters = (panels + most - 1) / most;
   return {(panels + clusters * kDkvOwn - 1) / (clusters * kDkvOwn), clusters};
-}
-
-// K3c's sliced kernel: the ring, the tile's key flags, flags
-__host__ __device__ constexpr size_t sliced_smem_bytes() {
-  return 1024 + kSlots * (kSlotBytes + kRowsBytes) + 64;
 }
 
 // K3b's cluster kernel: its own panels of K and V, the ring, ClusterSum's
@@ -982,159 +958,6 @@ __device__ __forceinline__ void stage_head_panel(uint32_t panel, const T* src,
   const bool inside = col < hd;
   stage_panel<kThreads>(panel, inside ? src + col : src, row0,
                         inside ? rows : 0, hd, tid);
-}
-
-// K3c: dq for the block's 64 query rows and its slice of the head's
-// columns, over all key tiles
-template <typename T>
-__global__ void __launch_bounds__(128, 1)
-    flash_bwd_dq_sliced_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               const float* __restrict__ l,
-                               const float* __restrict__ m,
-                               const float* __restrict__ di,
-                               const float* __restrict__ kv_mask,
-                               T* __restrict__ dq, int tq, int tk, int hd,
-                               int n_heads, float scale, int causal) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t ring = smem_u32(smem);
-  float* valid_s = reinterpret_cast<float*>(smem + kSlots * kSlotBytes);
-  int* flags_s = reinterpret_cast<int*>(valid_s + kSlots * 2 * kTileRows);
-
-  const Lanes at;
-  const int panels = hd / kPanelCols;
-  const int panel0 = blockIdx.z * kDqSlice;
-  const int own = min(kDqSlice, panels - panel0);  // the slice's panels
-  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
-  const T* qb = q + (size_t)bn * tq * hd;
-  const T* dob = dout + (size_t)bn * tq * hd;
-  const T* kb = k + (size_t)bn * tk * hd;
-  const T* vb = v + (size_t)bn * tk * hd;
-  const float* mask_row =
-      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
-  const int offset = tk - tq;
-
-  // the thread's two rows, g and g + 8 of its warp's 16, and their
-  // statistics, loaded before any copy is started
-  const int row_a = q0 + at.warp_in_group * 16 + at.g;
-  RowStats stats[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    stats[r] = row_stats(m, l, di, bn, tq, row_a + 8 * r);
-
-  // keys past the last row's diagonal take no part, nor keys past the last
-  // one the mask keeps (trailing padding)
-  const int k_end = kept_key_end<128>(
-      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
-      flags_s);
-  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
-  T* dq_cols = dq + (size_t)bn * tq * hd + panel0 * kPanelCols;
-  if (steps == 0) {  // no key reaches the block: zeros, nothing read
-    for (int p = 0; p < own; ++p)
-      store_zero_panel(dq_cols + p * kPanelCols, q0, tq, hd, at.tid);
-    return;
-  }
-
-  // A key step is `items` items through the ring: panel p of Q, dO, K and
-  // V for each panel of the head, then the slice's panels of K. The first
-  // item of a step also copies the tile's key flags.
-  const int items = panels + 1, total = steps * items;
-  auto stage_item = [&](int i) {
-    if (i < total) {
-      const int step = i / items, j = i - step * items;
-      const int k0 = step * kTileRows;
-      const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-      if (j < panels) {
-        const int c = j * kPanelCols;
-        stage_panel<128>(slot, qb + c, q0, tq, hd, at.tid);
-        stage_panel<128>(slot + kPanelBytes, dob + c, q0, tq, hd, at.tid);
-        stage_panel<128>(slot + 2 * kPanelBytes, kb + c, k0, tk, hd, at.tid);
-        stage_panel<128>(slot + 3 * kPanelBytes, vb + c, k0, tk, hd, at.tid);
-        if (j == 0 && at.tid < kTileRows)  // which keys take part
-          stage_key_flag(valid_s + (step % 2) * kTileRows + at.tid, mask_row,
-                         k0 + at.tid, tk);
-      } else {
-#pragma unroll
-        for (int p = 0; p < kDqSlice; ++p)
-          if (p < own)
-            stage_panel<128>(slot + p * kPanelBytes,
-                             kb + (panel0 + p) * kPanelCols, k0, tk, hd,
-                             at.tid);
-      }
-    }
-    cp_async_commit();
-  };
-
-  stage_item(0);
-  const float lse2[2] = {exponent_offset(stats[0].m, stats[0].l),
-                         exponent_offset(stats[1].m, stats[1].l)};
-  const float di_r[2] = {stats[0].di, stats[1].di};
-  const float scale2 = scale * kLog2e;
-  const bool rows_inside = q0 + kTileRows <= tq;
-
-  // S and dP over the whole head, dQ one [64 x 64] accumulator a panel of
-  // the slice
-  float s[32], dp[32], acc[kDqSlice][32];
-#pragma unroll
-  for (int p = 0; p < kDqSlice; ++p)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
-  uint32_t ds[4][4];
-  int n_valid = 0;
-
-  for (int i = 0; i < total; ++i) {
-    const int step = i / items, j = i - step * items;
-    const int k0 = step * kTileRows;
-    const float* valid = valid_s + (step % 2) * kTileRows;
-    cp_async_wait<0>();
-    if (j == 0)
-      n_valid = __syncthreads_count(at.tid < kTileRows && valid[at.tid] > 0.f);
-    else
-      __syncthreads();
-    stage_item(i + 1);
-    if (n_valid == 0) continue;  // no valid key in the step's tile
-    const uint32_t slot = ring + (i % kSlots) * kSlotBytes;
-
-    if (j < panels) {
-      products_begin();
-      product_nt_panel<T>(s, slot, slot + 2 * kPanelBytes, 4 * j);
-      product_nt_panel<T>(dp, slot + kPanelBytes, slot + 3 * kPanelBytes,
-                          4 * j);
-      products_end();
-      keep_registers(s);
-      keep_registers(dp);
-      if (j == panels - 1) {  // S and dP are whole: ds
-        const bool unmasked =
-            n_valid == kTileRows && rows_inside &&
-            (!causal || k0 + kTileRows - 1 <= q0 + offset);
-        dq_scores(s, dp, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq,
-                  tk, causal, offset, at.t);
-        pack_a_fragments<T>(s, ds);
-      }
-    } else {
-      products_begin();
-#pragma unroll
-      for (int p = 0; p < kDqSlice; ++p)
-        if (p < own) product_tn<T>(acc[p], ds, slot + p * kPanelBytes);
-      products_end();
-      keep_registers(ds);
-#pragma unroll
-      for (int p = 0; p < kDqSlice; ++p) keep_registers(acc[p]);
-    }
-  }
-
-  // the ring is read no more: panel p of the slice leaves through panel p
-  // of the first slot
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < kDqSlice; ++p)
-    if (p < own)
-      store_panel(dq_cols + p * kPanelCols, smem + p * kPanelBytes, acc[p],
-                  scale, q0, tq, hd, 1, at.tid);
 }
 
 // K3b: dk, dv for the block's 64 keys and its kDkvOwn panels each of the
@@ -2099,27 +1922,111 @@ __global__ void __launch_bounds__(128, kNarrowBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// head size 128: K3b's producer kernel (see the note at the top)
+// head sizes 128 and 256: K3b's producer kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kPairGroups = 2;    // consumer warpgroups, a key tile each
-constexpr int kPairKeys = kPairGroups * kTileRows;  // a block's keys: 128
+constexpr int kPairGroups = 2;  // consumer warpgroups
 // the consumers and one warpgroup whose first warp is the producer
 constexpr int kPairThreads = 128 * (kPairGroups + 1);
-constexpr int kPairStages = 4;    // the ring of Q's and dO's tiles
-constexpr int kPairTile = tile_bytes<2>();          // a 64-row tile: 16 KB
-constexpr int kPairStageBytes = 2 * kPairTile;      // Q and dO: 32 KB
+// the consumers' named barrier (store_panel's are 1 and 2)
+constexpr int kPairBarrier = 3;
 
-// the groups' K and V tiles, the ring, each stage's row statistics, the
-// barriers (each stage's full and empty, K and V's), the consumer warps'
-// words
+// The producer kernel's block by head panels. At 2 (head size 128) each
+// consumer warpgroup owns a key tile of its own (128 keys a block) and
+// accumulates all of its dK and dV; at 4 (256) both own the same 64 keys
+// and split the panels, two each, and the work of p and ds
+// (split_scores).
+template <int kPanels>
+struct Pair {
+  static constexpr bool kSplit = kPanels == 4;
+  static constexpr int kKeyTiles = kSplit ? 1 : kPairGroups;
+  static constexpr int kKeys = kKeyTiles * kTileRows;  // a block's keys
+  static constexpr int kOwn = kSplit ? kPanels / kPairGroups : kPanels;
+  static constexpr int kStages = kSplit ? 2 : 4;  // the ring of Q and dO
+  static constexpr int kTile = tile_bytes<kPanels>();  // 64 rows
+  static constexpr int kStageBytes = 2 * kTile;        // Q and dO
+  // the split groups' swap (split_scores): 32 KB
+  static constexpr int kSwapBytes = kSplit ? 2 * kHandBytes : 0;
+};
+
+// the key tiles' K and V, the ring, the swap, each stage's row statistics,
+// the barriers (each stage's full and empty, K and V's), the consumer
+// warps' words
+template <int kPanels>
 __host__ __device__ constexpr size_t pair_smem_bytes() {
-  return 1024 + 2 * kPairGroups * kPairTile +
-         kPairStages * (kPairStageBytes + kRowsBytes) +
-         (2 * kPairStages + 1) * 8 + 4 * kPairGroups * 4;
+  using P = Pair<kPanels>;
+  return 1024 + 2 * P::kKeyTiles * P::kTile +
+         P::kStages * (P::kStageBytes + kRowsBytes) + P::kSwapBytes +
+         (2 * P::kStages + 1) * 8 + 4 * kPairGroups * 4;
 }
 
-template <typename T>
+// K3b's split groups at head size 256: group kGroup holds its score tile
+// whole (S^T for group 0, dP^T for group 1) and computes p and ds for the
+// query columns 32 kGroup .. 32 kGroup + 31 (the fragment's values 16
+// kGroup ..): it hands the other group the other half of its tile, takes
+// the other tile's half of its own, and the two then hand each other their
+// halves of p and ds rounded to T, so both hold the whole of pt and dst
+// with the bits one group would compute. `swap` (32 KB): the halves of the
+// tiles at word 0, the rounded halves at word 4096, [group][value][thread].
+template <typename T, int kGroup>
+__device__ __forceinline__ void split_scores(
+    float (&st)[32], float (&dpt)[32], uint32_t (&pt)[4][4],
+    uint32_t (&dst)[4][4], uint32_t* swap, int in_group, const float* lse2_s,
+    const float* di_s, float scale2, bool unmasked, int q0, int tq,
+    const bool (&key_ok)[2], int key_a, int causal, int offset, int t) {
+  constexpr int kOther = 1 - kGroup, kArea = 16 * 128;
+  float(&own)[32] = kGroup == 0 ? st : dpt;
+  float(&other)[32] = kGroup == 0 ? dpt : st;
+  uint32_t* halves = swap;
+  uint32_t* rounded = swap + 2 * kArea;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    halves[kGroup * kArea + i * 128 + in_group] =
+        __float_as_uint(own[16 * kOther + i]);
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kPairBarrier),
+               "n"(128 * kPairGroups)
+               : "memory");
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    other[16 * kGroup + i] =
+        __uint_as_float(halves[kOther * kArea + i * 128 + in_group]);
+  float s_half[16], d_half[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    s_half[i] = st[16 * kGroup + i];
+    d_half[i] = dpt[16 * kGroup + i];
+  }
+  dkv_scores(s_half, d_half, lse2_s + 32 * kGroup, di_s + 32 * kGroup,
+             scale2, unmasked, q0 + 32 * kGroup, tq, key_ok, key_a, causal,
+             offset, t);
+  uint32_t p_half[2][4], d_round[2][4];
+  pack_a_fragments<T>(s_half, p_half);
+  pack_a_fragments<T>(d_half, d_round);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      rounded[kGroup * kArea + (4 * ks + x) * 128 + in_group] = p_half[ks][x];
+      rounded[kGroup * kArea + (8 + 4 * ks + x) * 128 + in_group] =
+          d_round[ks][x];
+    }
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kPairBarrier),
+               "n"(128 * kPairGroups)
+               : "memory");
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      pt[2 * kGroup + ks][x] = p_half[ks][x];
+      dst[2 * kGroup + ks][x] = d_round[ks][x];
+      pt[2 * kOther + ks][x] =
+          rounded[kOther * kArea + (4 * ks + x) * 128 + in_group];
+      dst[2 * kOther + ks][x] =
+          rounded[kOther * kArea + (8 + 4 * ks + x) * 128 + in_group];
+    }
+}
+
+template <typename T, int kPanels>
 __global__ void __launch_bounds__(kPairThreads, 1)
     flash_bwd_dkv_producer_kernel(__grid_constant__ const CUtensorMap q_map,
                                   __grid_constant__ const CUtensorMap do_map,
@@ -2132,36 +2039,42 @@ __global__ void __launch_bounds__(kPairThreads, 1)
                                   T* __restrict__ dk, T* __restrict__ dv,
                                   int tq, int tk, int n_heads, float scale,
                                   int causal) {
-  constexpr int kHd = 2 * kPanelCols;
+  using P = Pair<kPanels>;
+  constexpr int kHd = kPanels * kPanelCols, kTile = P::kTile,
+                kStages = P::kStages, kStageBytes = P::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t k_s = smem_u32(smem);  // group g's K tile at g kPairTile
-  const uint32_t v_s = k_s + kPairGroups * kPairTile;
-  const uint32_t ring = v_s + kPairGroups * kPairTile;
+  const uint32_t k_s = smem_u32(smem);  // key tile g's K at g kTile
+  const uint32_t v_s = k_s + P::kKeyTiles * kTile;
+  const uint32_t ring = v_s + P::kKeyTiles * kTile;
+  const uint32_t swap_s = ring + kStages * kStageBytes;
   // [stage][exponent offset, di][query of the tile]
   float* rows_s = reinterpret_cast<float*>(
-      smem + 2 * kPairGroups * kPairTile + kPairStages * kPairStageBytes);
-  const uint32_t full0 = smem_u32(rows_s + kPairStages * 2 * kTileRows);
-  const uint32_t empty0 = full0 + 8 * kPairStages;
-  const uint32_t kv_full = empty0 + 8 * kPairStages;
+      smem + 2 * P::kKeyTiles * kTile + kStages * kStageBytes +
+      P::kSwapBytes);
+  const uint32_t full0 = smem_u32(rows_s + kStages * 2 * kTileRows);
+  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t kv_full = empty0 + 8 * kStages;
   int* flags_s = reinterpret_cast<int*>(smem + (kv_full + 8 - k_s));
 
   const Lanes at;
-  const int bn = blockIdx.x, k0 = blockIdx.y * kPairKeys;
+  const int bn = blockIdx.x, k0 = blockIdx.y * P::kKeys;
   const float* mask_row =
       kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
   const int offset = tk - tq;
   // under the causal mask only query rows with row + offset >= k0 reach
-  // the block's keys (group 1's keys skip more tiles below)
+  // the block's keys (group 1's own keys skip more tiles below)
   const int first = causal && k0 - offset > 0 ? (k0 - offset) / kTileRows : 0;
   const int steps = (tq + kTileRows - 1) / kTileRows - first;
 
   // a consumer thread's two keys, g and g + 8 of its warp's 16 of its
-  // group's tile, whether each takes part, and whether any and all of each
-  // group's 64 keys do
+  // group's key tile, whether each takes part, and whether any and all of
+  // each group's 64 keys do
   const int group = at.group, in_group = at.tid & 127;
   const bool consumer = group < kPairGroups;
-  const int group_k0 = k0 + group * kTileRows;
+  const int group_k0 = k0 + (P::kSplit ? 0 : group * kTileRows);
+  // the group's first panel of dK and dV
+  const int panel0 = P::kSplit ? group * P::kOwn : 0;
   const int key_a = group_k0 + at.warp_in_group * 16 + at.g;
   bool key_ok[2] = {false, false};
   if (consumer) {
@@ -2190,13 +2103,14 @@ __global__ void __launch_bounds__(kPairThreads, 1)
       keys_all = all;
     }
   }
-  if (consumer && !keys_any) {  // no key of the group takes part: zeros
+  // no key of the group's takes part: zeros (split groups: written once)
+  if (consumer && !keys_any && (!P::kSplit || group == 0)) {
     store_zero_rows<kHd>(dv + (size_t)bn * tk * kHd, group_k0, tk, in_group);
     store_zero_rows<kHd>(dk + (size_t)bn * tk * kHd, group_k0, tk, in_group);
   }
   if (active == 0) return;  // nothing read
   if (at.tid == 0) {
-    for (int s = 0; s < kPairStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
       mbar_init(empty0 + 8 * s, 128 * active);  // the working consumers'
     }
@@ -2207,16 +2121,16 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 
   if (!consumer) {
     // the producer: its warpgroup gives its registers up, and its first
-    // warp fills the ring kPairStages steps ahead of the consumers
+    // warp fills the ring kStages steps ahead of the consumers
     producer_registers();
     if (at.warp_in_group != 0) return;
-    if (at.lane == 0) {  // the groups' K and V tiles, once
-      mbar_arrive_expect(kv_full, 2 * kPairGroups * kPairTile);
+    if (at.lane == 0) {  // the key tiles' K and V, once
+      mbar_arrive_expect(kv_full, 2 * P::kKeyTiles * kTile);
 #pragma unroll
-      for (int g = 0; g < kPairGroups; ++g)
+      for (int g = 0; g < P::kKeyTiles; ++g)
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const uint32_t at_tile = g * kPairTile + p * kPanelBytes;
+        for (int p = 0; p < kPanels; ++p) {
+          const uint32_t at_tile = g * kTile + p * kPanelBytes;
           tma_load_head(k_s + at_tile, &k_map, bn, kv_full,
                         k0 + g * kTileRows, p * kPanelCols);
           tma_load_head(v_s + at_tile, &v_map, bn, kv_full,
@@ -2224,7 +2138,7 @@ __global__ void __launch_bounds__(kPairThreads, 1)
         }
     }
     for (int step = 0; step < steps; ++step) {
-      const int stage = step % kPairStages, use = step / kPairStages;
+      const int stage = step % kStages, use = step / kStages;
       if (use > 0) mbar_wait(empty0 + 8 * stage, (use - 1) & 1);
       const int q0 = (first + step) * kTileRows;
       // the tile's rows: exponent offset and di (zeros past tq), two a lane
@@ -2237,14 +2151,14 @@ __global__ void __launch_bounds__(kPairThreads, 1)
       }
       const uint32_t full = full0 + 8 * stage;
       if (at.lane == 0) {
-        const uint32_t q_tile = ring + stage * kPairStageBytes;
-        mbar_arrive_expect(full, kPairStageBytes);
+        const uint32_t q_tile = ring + stage * kStageBytes;
+        mbar_arrive_expect(full, kStageBytes);
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
+        for (int p = 0; p < kPanels; ++p) {
           tma_load_head(q_tile + p * kPanelBytes, &q_map, bn, full, q0,
                         p * kPanelCols);
-          tma_load_head(q_tile + kPairTile + p * kPanelBytes, &do_map, bn,
-                        full, q0, p * kPanelCols);
+          tma_load_head(q_tile + kTile + p * kPanelBytes, &do_map, bn, full,
+                        q0, p * kPanelCols);
         }
       } else {
         mbar_arrive(full);
@@ -2255,60 +2169,79 @@ __global__ void __launch_bounds__(kPairThreads, 1)
 
   consumer_registers();
   if (!keys_any) return;  // written as zeros above
-  const uint32_t own_k = k_s + group * kPairTile;
-  const uint32_t own_v = v_s + group * kPairTile;
+  const uint32_t own_k = k_s + (P::kSplit ? 0 : group * kTile);
+  const uint32_t own_v = v_s + (P::kSplit ? 0 : group * kTile);
   const float scale2 = scale * kLog2e;
 
-  // dK and dV: one [64 x 64] accumulator a panel each
-  float dk_acc[2][32], dv_acc[2][32];
+  // dK and dV: one [64 x 64] accumulator a panel each of the group's own
+  float dk_acc[P::kOwn][32], dv_acc[P::kOwn][32];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < P::kOwn; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int step = 0; step < steps; ++step) {
-    const int stage = step % kPairStages;
+    const int stage = step % kStages;
     const int q0 = (first + step) * kTileRows;
-    mbar_wait(full0 + 8 * stage, (step / kPairStages) & 1);
+    mbar_wait(full0 + 8 * stage, (step / kStages) & 1);
     __syncwarp();  // converged for the warpgroup's products
     // a tile whose last row does not reach the group's first key is
     // skipped
     if (!(causal && group_k0 > q0 + kTileRows - 1 + offset)) {
-      const uint32_t q_s = ring + stage * kPairStageBytes;
-      const uint32_t do_s = q_s + kPairTile;
+      const uint32_t q_s = ring + stage * kStageBytes;
+      const uint32_t do_s = q_s + kTile;
       const float* lse2_s = rows_s + stage * 2 * kTileRows;
       const float* di_s = lse2_s + kTileRows;
 
       float st[32], dpt[32];  // [key][query]
       products_begin();
-      product_nt<T, 2>(st, own_k, q_s);
-      product_nt<T, 2>(dpt, own_v, do_s);
+      if (!P::kSplit) {
+        product_nt<T, kPanels>(st, own_k, q_s);
+        product_nt<T, kPanels>(dpt, own_v, do_s);
+      } else if (group == 0) {
+        product_nt<T, kPanels>(st, own_k, q_s);
+      } else {
+        product_nt<T, kPanels>(dpt, own_v, do_s);
+      }
       products_end();
-      keep_registers(st);
-      keep_registers(dpt);
-
+      if (!P::kSplit || group == 0) keep_registers(st);
+      if (!P::kSplit || group == 1) keep_registers(dpt);
       // every pair of the tile takes part: no test per element
       const bool unmasked =
           keys_all && q0 + kTileRows <= tq &&
           (!causal || group_k0 + kTileRows - 1 <= q0 + offset);
-      dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
-                 key_a, causal, offset, at.t);
       uint32_t pt[4][4], dst[4][4];
-      pack_a_fragments<T>(st, pt);
-      pack_a_fragments<T>(dpt, dst);
+      if (!P::kSplit) {
+        dkv_scores(st, dpt, lse2_s, di_s, scale2, unmasked, q0, tq, key_ok,
+                   key_a, causal, offset, at.t);
+        pack_a_fragments<T>(st, pt);
+        pack_a_fragments<T>(dpt, dst);
+      } else {
+        uint32_t* swap =
+            reinterpret_cast<uint32_t*>(smem + (swap_s - k_s));
+        if (group == 0)
+          split_scores<T, 0>(st, dpt, pt, dst, swap, in_group, lse2_s, di_s,
+                             scale2, unmasked, q0, tq, key_ok, key_a, causal,
+                             offset, at.t);
+        else
+          split_scores<T, 1>(st, dpt, pt, dst, swap, in_group, lse2_s, di_s,
+                             scale2, unmasked, q0, tq, key_ok, key_a, causal,
+                             offset, at.t);
+      }
 
       products_begin();
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        product_tn<T>(dv_acc[p], pt, do_s + p * kPanelBytes);
-        product_tn<T>(dk_acc[p], dst, q_s + p * kPanelBytes);
+      for (int p = 0; p < P::kOwn; ++p) {
+        const int panel = panel0 + p;
+        product_tn<T>(dv_acc[p], pt, do_s + panel * kPanelBytes);
+        product_tn<T>(dk_acc[p], dst, q_s + panel * kPanelBytes);
       }
       products_end();
       keep_registers(pt);
       keep_registers(dst);
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
+      for (int p = 0; p < P::kOwn; ++p) {
         keep_registers(dv_acc[p]);
         keep_registers(dk_acc[p]);
       }
@@ -2316,54 +2249,475 @@ __global__ void __launch_bounds__(kPairThreads, 1)
     mbar_arrive(empty0 + 8 * stage);  // the thread is done with the stage
   }
 
-  // the group's K and V tiles are read no more: panel p of dV leaves
-  // through panel p of its K tile, of dK through panel p of its V tile,
-  // under the group's own named barrier
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+  // the key tiles are read no more: panel p of dV leaves through panel p
+  // of the group's K tile, of dK through panel p of its V tile, under the
+  // group's own named barrier (split groups, each over its own panels of
+  // the one tile, after both are done with it)
+  if (P::kSplit)
+    asm volatile("bar.sync %0, %1;\n" ::"n"(kPairBarrier),
+                 "n"(128 * kPairGroups)
+                 : "memory");
+  else
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
   const size_t cols = (size_t)bn * tk * kHd;
+  const int tile = P::kSplit ? 0 : group;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    store_accumulator<kHd>(dv + cols + p * kPanelCols,
-                           smem + group * kPairTile + p * kPanelBytes,
+  for (int p = 0; p < P::kOwn; ++p) {
+    const int panel = panel0 + p;
+    store_accumulator<kHd>(dv + cols + panel * kPanelCols,
+                           smem + tile * kTile + panel * kPanelBytes,
                            dv_acc[p], 1.f, group_k0, tk, 1 + group, in_group);
     store_accumulator<kHd>(
-        dk + cols + p * kPanelCols,
-        smem + (kPairGroups + group) * kPairTile + p * kPanelBytes, dk_acc[p],
-        scale, group_k0, tk, 1 + group, in_group);
+        dk + cols + panel * kPanelCols,
+        smem + (P::kKeyTiles + tile) * kTile + panel * kPanelBytes,
+        dk_acc[p], scale, group_k0, tk, 1 + group, in_group);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head sizes above 256: K3c's cluster kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// A block: two consumer warpgroups over 64 query rows and at most kDqOwn
+// panels of dQ (Q's and dO's resident), half of them, rounded up, to
+// group 0, and a warpgroup whose first warp is the producer; the ring's
+// items are two panels each
+constexpr int kDqGroups = 2;
+constexpr int kDqOwn = 8;  // 512 columns of dQ a block
+constexpr int kDqGroupPanels = kDqOwn / kDqGroups;  // 128 registers of dQ
+constexpr int kDqConsumers = 128 * kDqGroups;
+constexpr int kDqThreads = kDqConsumers + 128;
+constexpr int kDqItemBytes = 2 * kPanelBytes;
+constexpr int kDqSlots = 4;      // the ring's items
+constexpr int kDqFlagSteps = 4;  // the key flags of the last steps
+// a [64 x 64] float32 tile, 8 units a thread; the exchange buffer holds a
+// block's terms of S and of dP
+constexpr int kDqScoreBytes = 8 * kUnitBytes;
+constexpr int kDqExchangeBytes = 2 * kDqScoreBytes;
+constexpr int kDqBarrier = 3;  // the consumers' named barrier
+
+// How K3c's cluster kernel cuts a head of `panels` panels: `clusters`
+// chunks along z, as few as clusters of the portable size allow, each
+// chunk balanced over its cluster's `blocks` blocks, as few as hold kDqOwn
+// panels a block (h 512: one block, no cluster; h 1216: 7 + 6 + 6)
+struct DqClusterSplit {
+  int blocks, clusters;
+};
+
+__host__ __device__ constexpr DqClusterSplit dq_cluster_split(int panels) {
+  constexpr int most = kMaxCluster * kDqOwn;  // 64 a cluster
+  const int clusters = (panels + most - 1) / most;
+  const int widest = (panels + clusters - 1) / clusters;
+  return {(widest + kDqOwn - 1) / kDqOwn, clusters};
+}
+
+// Q's and dO's own panels, the ring, the exchange buffer, the steps' key
+// flags and counts of valid keys, the barriers (each slot's full and
+// empty, Q's and dO's, the exchange buffer's ready and free), the warps'
+// words of kept_key_end
+__host__ __device__ constexpr size_t dq_cluster_smem_bytes() {
+  return 1024 + 2 * kDqOwn * kPanelBytes + kDqSlots * kDqItemBytes +
+         kDqExchangeBytes + kDqFlagSteps * (kTileRows + 1) * 4 +
+         (2 * kDqSlots + 3) * 8 + kDqThreads / 32 * 4;
+}
+
+// The sum over the cluster's n blocks, in rank order, of a block's tile
+// (8 units a thread) at `tile` (this thread's slot of unit 0, the same
+// offset in every block), four units at a time, four of a rank's loads in
+// flight: this block's terms come from `own` if it holds them in registers
+// (and are left there), else from its shared memory; into `sum`.
+template <bool kOwn>
+__device__ __forceinline__ void cluster_tile_sum(float (&sum)[32],
+                                                 uint32_t tile, int n,
+                                                 int rank) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float4 acc[4];
+    for (int r = 0; r < n; ++r) {
+      float4 term[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t at = tile + (4 * h + u) * kUnitBytes;
+        term[u] = r != rank ? load_remote(at, r)
+                  : kOwn    ? unit_of(sum, 4 * h + u)
+                            : load_shared(at);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = r == 0 ? term[u] : acc[u] + term[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) set_unit(sum, 4 * h + u, acc[u]);
+  }
+}
+
+// K3c: dq for the block's 64 query rows and its panels of the head's
+// columns, over all key tiles. Group 0 computes the block's terms of S,
+// group 1 those of dP; each sums both tiles over the cluster's blocks, so
+// both hold S and dP, and each accumulates its share of the block's
+// panels of dQ.
+template <typename T>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_cluster_kernel(__grid_constant__ const CUtensorMap q_map,
+                                __grid_constant__ const CUtensorMap do_map,
+                                __grid_constant__ const CUtensorMap k_map,
+                                __grid_constant__ const CUtensorMap v_map,
+                                const float* __restrict__ l,
+                                const float* __restrict__ m,
+                                const float* __restrict__ di,
+                                const float* __restrict__ kv_mask,
+                                T* __restrict__ dq, int tq, int tk, int hd,
+                                int n_heads, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t q_s = smem_u32(smem);  // Q's own panels, then dO's
+  const uint32_t do_s = q_s + kDqOwn * kPanelBytes;
+  const uint32_t ring = q_s + 2 * kDqOwn * kPanelBytes;
+  const uint32_t xbuf = ring + kDqSlots * kDqItemBytes;
+  // the key flags of the last kDqFlagSteps steps ([step][key]), written
+  // with a step's first item: a step is at least six items and the ring
+  // holds kDqSlots, so the producer never overwrites a step's flags before
+  // its dQ products
+  float* step_flags =
+      reinterpret_cast<float*>(smem + (xbuf - q_s) + kDqExchangeBytes);
+  int* step_valid = reinterpret_cast<int*>(step_flags +
+                                           kDqFlagSteps * kTileRows);
+  const uint32_t full0 = smem_u32(step_valid + kDqFlagSteps);
+  const uint32_t empty0 = full0 + 8 * kDqSlots;
+  const uint32_t q_full = empty0 + 8 * kDqSlots;
+  const uint32_t ready = q_full + 8, free_bar = ready + 8;
+  int* words = reinterpret_cast<int*>(smem + (free_bar + 8 - q_s));
+
+  const Lanes at;
+  const int group = at.group, in_group = at.tid & 127;
+  const int n = cluster_blocks(), rank = cluster_rank();
+  const int chunks = gridDim.z / n, chunk = blockIdx.z / n;
+  const int panels = hd / kPanelCols;
+  const Span mine = cluster_panels(panels, chunks, chunk, n, rank);
+  const int own = mine.count;
+  // group 0's panels of dQ are the first half0 of the block's, group 1's
+  // the rest
+  const int half0 = (own + 1) / 2;
+  const int group_own = group ? own - half0 : half0;
+  // the block's parts of the other chunks: the panels the blocks of the
+  // same rank own in the other clusters, whose terms of S and dP this
+  // block computes for its own cluster
+  int n_extra = 0;
+  for (int c = 0; c < chunks; ++c)
+    if (c != chunk) n_extra += cluster_panels(panels, chunks, c, n, rank).count;
+  const int bn = blockIdx.x, q0 = blockIdx.y * kTileRows;
+  const float* mask_row =
+      kv_mask ? kv_mask + (size_t)(bn / n_heads) * tk : nullptr;
+  const int offset = tk - tq;
+  // a consumer thread's two rows: g and g + 8 of its warp's 16
+  const int row_a = q0 + at.warp_in_group * 16 + at.g;
+
+  // keys past the last row's diagonal take no part, nor keys past the last
+  // one the mask keeps (trailing padding); the same in every block of the
+  // cluster, as is every skip below, so the blocks take part in the same
+  // exchanges
+  const int k_end = kept_key_end<kDqThreads>(
+      mask_row, causal ? min(tk, q0 + kTileRows + offset) : tk, at.tid,
+      words);
+  const int steps = (max(k_end, 0) + kTileRows - 1) / kTileRows;
+  T* dq_cols = dq + (size_t)bn * tq * hd + mine.first * kPanelCols;
+  if (steps == 0) {  // no key reaches the block: zeros, nothing read
+    for (int p = group; p < own && group < kDqGroups; p += kDqGroups)
+      store_zero_panel(dq_cols + p * kPanelCols, q0, tq, hd, in_group);
+    return;
+  }
+
+  // A key step's items pass through the ring in this order: for each panel
+  // of the block's parts of the other chunks, that panel of Q and of K,
+  // then of dO and of V; then the block's own panels of K and of V, two an
+  // item, K's item j then V's (panels 2 j and 2 j + 1); then K's items for
+  // dQ, item j holding panel j of each group's share (panels j and half0 +
+  // j). A panel past the block's is the block's first panel again, which
+  // a zero panel of Q or dO multiplies or whose dQ is not stored. A step's
+  // first item also brings the tile's key flags and the count of its
+  // valid keys.
+  const int extra_items = 2 * n_extra, score_items = half0;
+  const int step_items = extra_items + 2 * score_items + half0;
+  if (at.tid == 0) {
+    for (int slot = 0; slot < kDqSlots; ++slot) {
+      mbar_init(full0 + 8 * slot, 32);             // the producer's lanes
+      mbar_init(empty0 + 8 * slot, kDqConsumers);  // the consumers
+    }
+    mbar_init(q_full, 1);
+    mbar_init(ready, n);     // a thread of each block: its terms are in
+    mbar_init(free_bar, n);  // a thread of each block: it read the terms
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // every block's barriers are set up before any block arrives on them
+  cluster_arrive();
+  cluster_wait();
+
+  if (group == kDqGroups) {
+    // the producer: its warpgroup gives its registers up, and its first
+    // warp fills the ring kDqSlots items ahead of the consumers
+    producer_registers();
+    if (at.warp_in_group == 0) {
+      const int lane = at.lane;
+      if (lane == 0) {  // Q's and dO's own panels, once
+        mbar_arrive_expect(q_full, 2 * own * kPanelBytes);
+        for (int p = 0; p < own; ++p) {
+          const int col = (mine.first + p) * kPanelCols;
+          tma_load_head(q_s + p * kPanelBytes, &q_map, bn, q_full, q0, col);
+          tma_load_head(do_s + p * kPanelBytes, &do_map, bn, q_full, q0,
+                        col);
+        }
+      }
+      int i = 0;  // the ring's items so far
+      for (int step = 0; step < steps; ++step) {
+        const int k0 = step * kTileRows;
+        for (int j = 0; j < step_items; ++j) {
+          const int slot = i % kDqSlots, use = i / kDqSlots;
+          ++i;
+          if (use > 0) mbar_wait(empty0 + 8 * slot, (use - 1) & 1);
+          if (j == 0) {  // which keys of the step's tile take part
+            float* flags = step_flags + (step % kDqFlagSteps) * kTileRows;
+            int count = 0;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + lane + 32 * e;
+              const float f = key >= tk ? 0.f : mask_row ? mask_row[key] : 1.f;
+              flags[lane + 32 * e] = f;
+              count += __popc(__ballot_sync(0xffffffffu, f > 0.f));
+            }
+            if (lane == 0) step_valid[step % kDqFlagSteps] = count;
+          }
+          const uint32_t full = full0 + 8 * slot;
+          if (lane != 0) {
+            mbar_arrive(full);
+            continue;
+          }
+          const uint32_t dst = ring + slot * kDqItemBytes;
+          mbar_arrive_expect(full, kDqItemBytes);
+          if (j < extra_items) {  // Q and K, or dO and V, of another chunk
+            int e = j / 2, col = 0;
+            for (int c = 0; c < chunks; ++c) {
+              if (c == chunk) continue;
+              const Span part = cluster_panels(panels, chunks, c, n, rank);
+              if (e < part.count) {
+                col = (part.first + e) * kPanelCols;
+                break;
+              }
+              e -= part.count;
+            }
+            const bool scores = (j & 1) == 0;
+            tma_load_head(dst, scores ? &q_map : &do_map, bn, full, q0, col);
+            tma_load_head(dst + kPanelBytes, scores ? &k_map : &v_map, bn,
+                          full, k0, col);
+            continue;
+          }
+          // the own items: K's or V's panels 2 u and 2 u + 1 for the score
+          // products, then K's panels u and half0 + u for dQ
+          const int u = j - extra_items;
+          const bool scores = u < 2 * score_items;
+          const CUtensorMap* map = scores && (u & 1) ? &v_map : &k_map;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = u - 2 * score_items;
+            const int p = scores ? 2 * (u / 2) + e : e ? half0 + x : x;
+            const bool inside =
+                scores ? p < own : x < (e ? own - half0 : half0);
+            tma_load_head(dst + e * kPanelBytes, map, bn, full, k0,
+                          (mine.first + (inside ? p : 0)) * kPanelCols);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    // the producer's warpgroup leaves with the consumers (below)
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  consumer_registers();
+  const float scale2 = scale * kLog2e;
+  // the thread's two rows' exponent offsets and di, zeros past tq
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const RowStats st = row_stats(m, l, di, bn, tq, row_a + 8 * r);
+    lse2[r] = exponent_offset(st.m, st.l);
+    di_r[r] = st.di;
+  }
+  const bool rows_inside = q0 + kTileRows <= tq;
+
+  // group 0's panels of Q, group 1's of dO, past the block's: zeros, which
+  // add nothing to the block's terms
+  for (int p = own; p < kDqOwn; ++p)
+    for (int x = in_group; x < kPanelBytes / 16; x += 128)
+      store_shared((group ? do_s : q_s) + p * kPanelBytes + 16 * x,
+                   make_float4(0.f, 0.f, 0.f, 0.f));
+  fence_async_shared();  // visible to the tensor cores' reads
+  auto consumers_sync = [] {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(kDqBarrier), "n"(kDqConsumers)
+                 : "memory");
+  };
+  consumers_sync();
+  mbar_wait(q_full, 0);
+
+  // the group's panels of dQ: one [64 x 64] accumulator each
+  float acc[kDqGroupPanels][32];
+#pragma unroll
+  for (int p = 0; p < kDqGroupPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  int item = 0, exchanges = 0;
+  // the next item's slot, once it has arrived
+  auto next_item = [&]() {
+    const int slot = item % kDqSlots;
+    mbar_wait(full0 + 8 * slot, (item / kDqSlots) & 1);
+    __syncwarp();  // converged for the warpgroup's products
+    ++item;
+    return slot;
+  };
+  auto release = [&](int slot) { mbar_arrive(empty0 + 8 * slot); };
+  // the group's resident operand: Q for S, dO for dP
+  const uint32_t res = group ? do_s : q_s;
+
+  for (int step = 0; step < steps; ++step) {
+    const int k0 = step * kTileRows;
+    const float* valid = step_flags + (step % kDqFlagSteps) * kTileRows;
+    // the group's score product, S (group 0) or dP (group 1): its terms
+    // over the block's parts of the other chunks, an item each, then over
+    // its own panels, two an item (K's items for S, V's for dP)
+    float s[32], b[32];
+    int chain = 0, n_valid = 0;
+    for (int j = 0; j < extra_items + 2 * score_items; ++j) {
+      const int slot = next_item();
+      if (j == 0) n_valid = step_valid[step % kDqFlagSteps];
+      const uint32_t at_slot = ring + slot * kDqItemBytes;
+      if (n_valid != 0 && (j & 1) == group) {
+        products_begin();
+        if (j < extra_items) {
+          product_nt_panel<T>(s, at_slot, at_slot + kPanelBytes, 4 * chain);
+          ++chain;
+        } else {
+          const int p = 2 * ((j - extra_items) / 2);
+          product_nt_panel<T>(s, res + p * kPanelBytes, at_slot,
+                              4 * (chain + p));
+          product_nt_panel<T>(s, res + (p + 1) * kPanelBytes,
+                              at_slot + kPanelBytes, 4 * (chain + p + 1));
+        }
+        products_end();
+        keep_registers(s);
+      }
+      release(slot);
+    }
+
+    uint32_t ds[4][4];
+    if (n_valid != 0) {
+      // S and dP summed over the cluster's blocks in rank order, the same
+      // bits in every group of every block. Group g writes its terms to
+      // tile g of the exchange buffer (in a cluster of one, tile g ^ e for
+      // the e-th exchange: a group then only overwrites the tile it read
+      // itself at the exchange before); ready counts the blocks whose
+      // terms are in, free the blocks that have read the exchange's terms
+      // from every block.
+      const int e = exchanges++;
+      if (n > 1 && e > 0) mbar_wait_cluster(free_bar, (e - 1) & 1);
+      const int mine_t = n > 1 ? group : group ^ (e & 1);
+      const uint32_t slot_of = xbuf + in_group * 16;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        store_shared(slot_of + mine_t * kDqScoreBytes + u * kUnitBytes,
+                     unit_of(s, u));
+      consumers_sync();
+      if (n > 1) {
+        if (at.tid < n) mbar_arrive_remote(ready, at.tid);
+        mbar_wait_cluster(ready, e & 1);
+      }
+      cluster_tile_sum<true>(s, slot_of + mine_t * kDqScoreBytes, n, rank);
+      cluster_tile_sum<false>(b, slot_of + (mine_t ^ 1) * kDqScoreBytes, n,
+                              rank);
+      if (n > 1) {  // every block may write its next terms once all read
+        consumers_sync();
+        if (at.tid < n) mbar_arrive_remote(free_bar, at.tid);
+      }
+      // ds, the same in both groups: every pair of the tile takes part, or
+      // the per-element tests
+      const bool unmasked = n_valid == kTileRows && rows_inside &&
+                            (!causal || k0 + kTileRows - 1 <= q0 + offset);
+      if (group == 0) {  // s holds S, b dP
+        dq_scores(s, b, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq,
+                  tk, causal, offset, at.t);
+        pack_a_fragments<T>(s, ds);
+      } else {  // s holds dP, b S
+        dq_scores(b, s, lse2, di_r, scale2, unmasked, valid, k0, row_a, tq,
+                  tk, causal, offset, at.t);
+        pack_a_fragments<T>(b, ds);
+      }
+    }
+    // dQ over the group's panels: K's item j holds its panel j
+#pragma unroll
+    for (int j = 0; j < kDqGroupPanels; ++j) {
+      if (j >= half0) break;
+      const int slot = next_item();
+      if (n_valid != 0 && j < group_own) {
+        products_begin();
+        product_tn<T>(acc[j], ds,
+                      ring + slot * kDqItemBytes + group * kPanelBytes);
+        products_end();
+        keep_registers(ds);
+        keep_registers(acc[j]);
+      }
+      release(slot);
+    }
+  }
+  // no block leaves while another may still read its exchange buffer or
+  // arrive on its barriers
+  cluster_arrive();
+  cluster_wait();
+
+  // Q's panels are read no more (the cluster's barrier above): panel a of
+  // the group's share leaves through panel (half0 group + a) of them
+#pragma unroll
+  for (int a = 0; a < kDqGroupPanels; ++a) {
+    if (a < group_own) {
+      const int p = (group ? half0 : 0) + a;
+      store_panel(dq_cols + p * kPanelCols, smem + p * kPanelBytes, acc[a],
+                  scale, q0, tq, hd, 1 + group, in_group);
+    }
   }
 }
 
 // K3b's launch at `panels` panels: the narrow kernel at 0 (head size 32),
-// the whole-tile kernel at 1 or 4 (a block owns 64 keys, its warpgroups
-// split the panels), the producer kernel at 2 (a block owns 128 keys), the
+// the whole-tile kernel at 1, the producer kernel at 2 (a block owns 128
+// keys) and 4 (64 keys, its consumer warpgroups split the panels), the
 // cluster kernel above 4
 LaunchShape dkv_shape(int panels) {
   if (panels == 0) return narrow_shape();
-  if (panels == 2) return {kPairThreads, pair_smem_bytes(), kPairKeys, 1};
+  if (panels == 2)
+    return {kPairThreads, pair_smem_bytes<2>(), Pair<2>::kKeys, 1};
+  if (panels == 4)
+    return {kPairThreads, pair_smem_bytes<4>(), Pair<4>::kKeys, 1};
   if (panels > 4) {
     const ClusterSplit split = cluster_split(panels);
     return {256, cluster_smem_bytes(), kTileRows,
             split.blocks * split.clusters, split.blocks};
   }
-  const int groups = dkv_groups(panels);
-  const int hand = groups > 1 ? kHandBytes : 0;
-  return {128 * groups,
-          panels == 1 ? smem_bytes<1>(1, hand) : smem_bytes<4>(1, hand),
-          kTileRows, 1};
+  return {128, smem_bytes<1>(1), kTileRows, 1};
 }
 
 // K3c's: the narrow kernel at 0 panels (head size 32), the whole-tile
-// kernel (each warpgroup owns 64 query rows) or the sliced one
+// kernel (each warpgroup owns 64 query rows) or, above 4, the cluster
+// kernel
 LaunchShape dq_shape(int panels) {
   if (panels == 0) return narrow_shape();
-  if (panels > 4)
-    return {128, sliced_smem_bytes(), kTileRows,
-            (panels + kDqSlice - 1) / kDqSlice};
+  if (panels > 4) {
+    const DqClusterSplit split = dq_cluster_split(panels);
+    return {kDqThreads, dq_cluster_smem_bytes(), kTileRows,
+            split.blocks * split.clusters, split.blocks};
+  }
   const int groups = dq_groups(panels);
   return {128 * groups,
-          panels == 1   ? smem_bytes<1>(groups, 0)
-          : panels == 2 ? smem_bytes<2>(groups, 0)
-                        : smem_bytes<4>(groups, 0),
+          panels == 1   ? smem_bytes<1>(groups)
+          : panels == 2 ? smem_bytes<2>(groups)
+                        : smem_bytes<4>(groups),
           groups * kTileRows, 1};
 }
 
@@ -2382,18 +2736,37 @@ cudaError_t launch_dkv_cluster(int hd, const void* q, const void* k,
       n_heads, scale, causal);
 }
 
+// tensor maps of Q, dO, K and V of head size hd whose boxes are one panel
+// of 64 rows
 template <typename T>
-cudaError_t launch_dq_sliced(int hd, const void* q, const void* k,
-                             const void* v, const void* dout, const void* l,
-                             const void* m, const void* di,
-                             const void* kv_mask, void* dq, int bn, int tq,
-                             int tk, int n_heads, float scale, int causal,
-                             cudaStream_t stream) {
-  return launch_in<flash_bwd_dq_sliced_kernel<T>>(
-      dq_shape(hd / kPanelCols), bn, tq, stream, (const T*)q, (const T*)k,
-      (const T*)v, (const T*)dout, (const float*)l, (const float*)m,
-      (const float*)di, (const float*)kv_mask, (T*)dq, tq, tk, hd, n_heads,
-      scale, causal);
+cudaError_t panel_maps(CUtensorMap (&maps)[4], const void* q,
+                       const void* dout, const void* k, const void* v,
+                       int bn, int tq, int tk, int hd) {
+  cudaError_t err = head_map<T>(&maps[0], q, bn, tq, kTileRows, hd);
+  if (err == cudaSuccess)
+    err = head_map<T>(&maps[1], dout, bn, tq, kTileRows, hd);
+  if (err == cudaSuccess) err = head_map<T>(&maps[2], k, bn, tk, kTileRows, hd);
+  if (err == cudaSuccess) err = head_map<T>(&maps[3], v, bn, tk, kTileRows, hd);
+  return err;
+}
+
+// K3c's cluster kernel: clusters of blocks along z over each chunk of the
+// head (launch_cluster_in; a cluster the card cannot place is refused
+// there)
+template <typename T>
+cudaError_t launch_dq_cluster(int hd, const void* q, const void* k,
+                              const void* v, const void* dout, const void* l,
+                              const void* m, const void* di,
+                              const void* kv_mask, void* dq, int bn, int tq,
+                              int tk, int n_heads, float scale, int causal,
+                              cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const cudaError_t err = panel_maps<T>(maps, q, dout, k, v, bn, tq, tk, hd);
+  if (err != cudaSuccess) return err;
+  return launch_cluster_in<flash_bwd_dq_cluster_kernel<T>>(
+      dq_shape(hd / kPanelCols), bn, tq, stream, maps[0], maps[1], maps[2],
+      maps[3], (const float*)l, (const float*)m, (const float*)di,
+      (const float*)kv_mask, (T*)dq, tq, tk, hd, n_heads, scale, causal);
 }
 
 template <typename T, int kPanels>
@@ -2409,9 +2782,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       n_heads, scale, causal);
 }
 
-// the producer kernel at head size 128: tensor maps of Q, dO, K and V whose
-// boxes are one panel of 64 rows
-template <typename T>
+// the producer kernel at head size 128 or 256 (kPanels 2 or 4)
+template <typename T, int kPanels>
 cudaError_t launch_dkv_producer(const void* q, const void* k, const void* v,
                                 const void* dout, const void* l,
                                 const void* m, const void* di,
@@ -2419,18 +2791,12 @@ cudaError_t launch_dkv_producer(const void* q, const void* k, const void* v,
                                 int bn, int tq, int tk, int n_heads,
                                 float scale, int causal,
                                 cudaStream_t stream) {
-  constexpr int kCols = 2 * kPanelCols;
   CUtensorMap maps[4];
-  cudaError_t err = head_map<T>(&maps[0], q, bn, tq, kTileRows, kCols);
-  if (err == cudaSuccess)
-    err = head_map<T>(&maps[1], dout, bn, tq, kTileRows, kCols);
-  if (err == cudaSuccess)
-    err = head_map<T>(&maps[2], k, bn, tk, kTileRows, kCols);
-  if (err == cudaSuccess)
-    err = head_map<T>(&maps[3], v, bn, tk, kTileRows, kCols);
+  const cudaError_t err = panel_maps<T>(maps, q, dout, k, v, bn, tq, tk,
+                                        kPanels * kPanelCols);
   if (err != cudaSuccess) return err;
-  return launch_in<flash_bwd_dkv_producer_kernel<T>>(
-      dkv_shape(2), bn, tk, stream, maps[0], maps[1], maps[2], maps[3],
+  return launch_in<flash_bwd_dkv_producer_kernel<T, kPanels>>(
+      dkv_shape(kPanels), bn, tk, stream, maps[0], maps[1], maps[2], maps[3],
       (const float*)l, (const float*)m, (const float*)di,
       (const float*)kv_mask, (T*)dk, (T*)dv, tq, tk, n_heads, scale, causal);
 }
@@ -2520,12 +2886,13 @@ cudaError_t dkv_panels(int panels, const void* q, const void* k,
     return launch_dkv<T, 1>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
                             tq, tk, n_heads, scale, causal, stream);
   if (panels == 2)
-    return launch_dkv_producer<T>(q, k, v, dout, l, m, di, kv_mask, dk, dv,
-                                  bn, tq, tk, n_heads, scale, causal,
-                                  stream);
+    return launch_dkv_producer<T, 2>(q, k, v, dout, l, m, di, kv_mask, dk,
+                                     dv, bn, tq, tk, n_heads, scale, causal,
+                                     stream);
   if (panels == 4)
-    return launch_dkv<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk, dv, bn,
-                            tq, tk, n_heads, scale, causal, stream);
+    return launch_dkv_producer<T, 4>(q, k, v, dout, l, m, di, kv_mask, dk,
+                                     dv, bn, tq, tk, n_heads, scale, causal,
+                                     stream);
   if (panels > 4)
     return launch_dkv_cluster<T>(panels * kPanelCols, q, k, v, dout, l, m,
                                  di, kv_mask, dk, dv, bn, tq, tk, n_heads,
@@ -2552,17 +2919,17 @@ cudaError_t dq_panels(int panels, const void* q, const void* k,
     return launch_dq<T, 4>(q, k, v, dout, l, m, di, kv_mask, dq, bn, tq, tk,
                            n_heads, scale, causal, stream);
   if (panels > 4)
-    return launch_dq_sliced<T>(panels * kPanelCols, q, k, v, dout, l, m, di,
-                               kv_mask, dq, bn, tq, tk, n_heads, scale,
-                               causal, stream);
+    return launch_dq_cluster<T>(panels * kPanelCols, q, k, v, dout, l, m,
+                                di, kv_mask, dq, bn, tq, tk, n_heads, scale,
+                                causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // f16: float16 operands (else bfloat16); panels: the head size over 64, 0
-// (head size 32, the narrow kernels), 1, 2, 4 or any count above 4 (K3b's
-// cluster kernel, K3c's sliced one)
+// (head size 32, the narrow kernels), 1, 2, 4 or any count above 4 (the
+// cluster kernels of K3b and K3c)
 cudaError_t flash_bwd_dkv_tc(int f16, int panels, const void* q,
                              const void* k, const void* v, const void* dout,
                              const void* l, const void* m, const void* di,
@@ -2595,14 +2962,14 @@ cudaError_t flash_bwd_dq_tc(int f16, int panels, const void* q,
 // whole-tile kernel, 1 the short kernel, 2 the cluster kernel, 3 the narrow
 // kernel, 4 the producer kernel)
 int flash_bwd_dkv_kernel_of(int panels, int tq, int tk) {
-  return panels == 0                      ? 3
-         : takes_short_dkv(panels, tq, tk) ? 1
-         : panels > 4                      ? 2
-         : panels == 2                     ? 4
-                                           : 0;
+  return panels == 0                        ? 3
+         : takes_short_dkv(panels, tq, tk)  ? 1
+         : panels > 4                       ? 2
+         : panels == 2 || panels == 4       ? 4
+                                            : 0;
 }
 
-// K3c's kernel at `panels` panels (0 the whole-tile kernel, 1 the sliced
+// K3c's kernel at `panels` panels (0 the whole-tile kernel, 1 the cluster
 // kernel, 2 the narrow kernel)
 int flash_bwd_dq_kernel_of(int panels) {
   return panels == 0 ? 2 : panels > 4 ? 1 : 0;
@@ -2638,17 +3005,19 @@ int flash_bwd_dkv_resident(int f16, int panels, int tq, int tk) {
     case 7:
       return resident_blocks<flash_bwd_dkv_narrow_kernel<__half>>(shape);
     case 8:
-      return resident_blocks<flash_bwd_dkv_producer_kernel<__nv_bfloat16>>(
+      if (panels == 2)
+        return resident_blocks<
+            flash_bwd_dkv_producer_kernel<__nv_bfloat16, 2>>(shape);
+      return resident_blocks<flash_bwd_dkv_producer_kernel<__nv_bfloat16, 4>>(
           shape);
     case 9:
-      return resident_blocks<flash_bwd_dkv_producer_kernel<__half>>(shape);
+      if (panels == 2)
+        return resident_blocks<flash_bwd_dkv_producer_kernel<__half, 2>>(
+            shape);
+      return resident_blocks<flash_bwd_dkv_producer_kernel<__half, 4>>(shape);
   }
-  if (panels == 1)
-    return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 1>>(shape)
-               : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 1>>(
-                     shape);
-  return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 4>>(shape)
-             : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 4>>(
+  return f16 ? resident_blocks<flash_bwd_dkv_tc_kernel<__half, 1>>(shape)
+             : resident_blocks<flash_bwd_dkv_tc_kernel<__nv_bfloat16, 1>>(
                    shape);
 }
 
@@ -2658,10 +3027,10 @@ int flash_bwd_dq_resident(int f16, int panels) {
   const LaunchShape shape = dq_shape(panels);
   switch (flash_bwd_dq_kernel_of(panels) * 2 + (f16 ? 1 : 0)) {
     case 2:
-      return resident_blocks<flash_bwd_dq_sliced_kernel<__nv_bfloat16>>(
+      return resident_blocks<flash_bwd_dq_cluster_kernel<__nv_bfloat16>>(
           shape);
     case 3:
-      return resident_blocks<flash_bwd_dq_sliced_kernel<__half>>(shape);
+      return resident_blocks<flash_bwd_dq_cluster_kernel<__half>>(shape);
     case 4:
       return resident_blocks<flash_bwd_dq_narrow_kernel<__nv_bfloat16>>(
           shape);
@@ -2690,13 +3059,21 @@ int flash_bwd_dkv_max_clusters(int f16, int panels) {
                    flash_bwd_dkv_cluster_kernel<__nv_bfloat16>>(shape);
 }
 
+// the same for K3c's cluster kernel
+int flash_bwd_dq_max_clusters(int f16, int panels) {
+  const LaunchShape shape = dq_shape(panels);
+  return f16 ? max_active_clusters<flash_bwd_dq_cluster_kernel<__half>>(shape)
+             : max_active_clusters<
+                   flash_bwd_dq_cluster_kernel<__nv_bfloat16>>(shape);
+}
+
 // x [128, 64], y [64, 64] bf16 -> nt, tn [128, 64] float32
 extern "C" int flash_tile_products(const void* x, const void* y, void* nt,
                                    void* tn, void* stream) {
   const cudaError_t err =
-      allow_smem<flash_tile_products_kernel>(smem_bytes<1>(2, 0));
+      allow_smem<flash_tile_products_kernel>(smem_bytes<1>(2));
   if (err != cudaSuccess) return (int)err;
-  flash_tile_products_kernel<<<1, 256, smem_bytes<1>(2, 0),
+  flash_tile_products_kernel<<<1, 256, smem_bytes<1>(2),
                                (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, (float*)nt,
       (float*)tn);

@@ -906,17 +906,6 @@ constexpr int kClusterThreads = kConsumerThreads + 128;
 constexpr int kItemBytes = 2 * kPanelBytes;
 constexpr int kClusterSlots = 6;  // the ring's items
 
-// [first, first + count) of `total` items split as evenly as they go over
-// `parts` parts: part i's
-struct Span {
-  int first, count;
-};
-
-__host__ __device__ constexpr Span balanced(int total, int parts, int i) {
-  return {i * (total / parts) + (i < total % parts ? i : total % parts),
-          total / parts + (i < total % parts ? 1 : 0)};
-}
-
 // How the cluster kernel cuts a head of `panels` panels: `clusters`
 // chunks of the head along z, as few as clusters of the portable size
 // allow, each chunk balanced over its cluster's `blocks` blocks, as few as
@@ -933,18 +922,8 @@ __host__ __device__ constexpr FwdClusterSplit fwd_cluster_split(int panels) {
   return {(widest + kBlockPanels - 1) / kBlockPanels, clusters};
 }
 
-// the panels of O (and of Q) that block `rank` of the cluster over chunk
-// `chunk` of `chunks` owns
-__device__ __forceinline__ Span cluster_panels(int panels, int chunks,
-                                               int chunk, int n, int rank) {
-  const Span c = balanced(panels, chunks, chunk);
-  const Span b = balanced(c.count, n, rank);
-  return {c.first + b.first, b.count};
-}
-
 // A block's [64 x 64] float32 score tile in shared memory, 8 units of four
 // values a thread of a warpgroup, [unit][thread]: 16 KB
-constexpr int kUnitBytes = 128 * 16;
 constexpr int kScoreTileBytes = 8 * kUnitBytes;
 // the consumers' named barrier (store_panel's are 1 and 2)
 constexpr int kConsumerBarrier = 3;
@@ -976,26 +955,6 @@ LaunchShape fwd_shape(int panels) {
           : panels == 2 ? smem_bytes<2>()
                         : smem_bytes<4>(),
           kGroups * kTileRows, 1};
-}
-
-__device__ __forceinline__ float4 unit_of(const float (&a)[32], int u) {
-  return make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2], a[4 * u + 3]);
-}
-
-__device__ __forceinline__ void set_unit(float (&a)[32], int u, float4 x) {
-  a[4 * u] = x.x;
-  a[4 * u + 1] = x.y;
-  a[4 * u + 2] = x.z;
-  a[4 * u + 3] = x.w;
-}
-
-__device__ __forceinline__ float4 load_shared(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr)
-               : "memory");
-  return x;
 }
 
 // The cluster kernel's score tile, summed over the cluster in four parts,

@@ -11,8 +11,8 @@
 // either way).
 //
 // Panels and tiles. The head size is kPanels whole panels of 64 columns
-// (kPanels = 1, 2 or 4: head size 64, 128 or 256; the sliced and cluster
-// kernels of larger heads take the count at run time). A panel's row is 128
+// (kPanels = 1, 2 or 4: head size 64, 128 or 256; the cluster kernels of
+// larger heads take the count at run time). A panel's row is 128
 // bytes of T, and a panel of 64 rows, 8 KB, is stored [row][64] with the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r & 7).
 // Panels start at multiples of 1024 bytes, which makes that the layout
@@ -40,12 +40,13 @@
 // conflict free in shared memory). A row past the operand's end is filled
 // with zeros by a source size of 0, so the ragged edge needs no padded
 // operand. stage_panel fills one panel the same way from an operand whose
-// row stride is known only at run time (the sliced and cluster kernels).
+// row stride is known only at run time (K3b's cluster kernel).
 // The short kernels (K3a's and K3b's, ViT lengths) fill whole heads or whole
 // tiles by TMA instead (tma_load_head: the copy engine writes the same
 // swizzled layout, completion on an mbarrier; head_map describes the
-// operand), and a producer warp fills K3a's cluster kernel's and K3b's
-// producer kernel's rings the same way, a panel of a wider head a copy.
+// operand), and a producer warp fills the cluster kernels' rings of K3a
+// and K3c and K3b's producer kernel's the same way, a panel of a wider head
+// a copy.
 //
 // Products. Both product functions are one call per warpgroup and leave or
 // take a [64 x 64] float32 accumulator spread over its 128 threads in the
@@ -61,7 +62,7 @@
 //   product_nt   acc = X . Y^T, both tiles read from shared memory through
 //                descriptors with the B128 layout: four wgmma a panel, one
 //                per 16 values of h (product_nt_panel: one panel of the
-//                chain, which the sliced kernels call panel by panel)
+//                chain, which the cluster kernels call panel by panel)
 //   product_tn   acc += A . Y, A in registers, Y one panel read along its
 //                rows with the descriptor's transpose bit: four wgmma, one
 //                per 16 rows; a head of two panels takes one call and one
@@ -80,7 +81,7 @@
 // thread-block cluster through distributed shared memory, each sum taken
 // once, in rank order, so that every block holds the same bits of it;
 // mbar_arrive_remote and mbar_wait_cluster signal between the blocks of a
-// cluster on mbarriers (K3a's cluster kernel).
+// cluster on mbarriers (the cluster kernels of K3a and K3c).
 
 #pragma once
 
@@ -390,7 +391,8 @@ __device__ __forceinline__ void tma_load_head(uint32_t dst, const void* map,
 }
 
 // ---------------------------------------------------------------------------
-// producer and consumers (K3a above head size 256, K3b at 128)
+// producer and consumers (K3a and K3c above head size 256, K3b at 128 and
+// 256)
 // ---------------------------------------------------------------------------
 
 // A block of two consumer warpgroups and one whose first warp is the
@@ -812,16 +814,14 @@ __device__ __forceinline__ void store_zero_panel(T* dst, int row0, int rows,
 }
 
 // ---------------------------------------------------------------------------
-// the sliced kernels' ring (head sizes above 256)
+// K3b's cluster kernel's ring (head sizes above 256)
 // ---------------------------------------------------------------------------
 
-// A slot holds four panels: the operands of the score products for one or
-// two panels of h, or the panels of the second products' operand that a
-// block's slice of output columns reads. Two slots take turns (K3b's
-// cluster kernel's ring has slots of the same size).
+// A slot holds four panels: one panel each of the score products'
+// operands, or the panels of the second products' operand that a block's
+// columns read.
 constexpr int kSlotPanels = 4;
 constexpr int kSlotBytes = kSlotPanels * kPanelBytes;  // 32 KB
-constexpr int kSlots = 2;
 
 // ---------------------------------------------------------------------------
 // thread-block clusters (K3b above head size 256)
@@ -881,6 +881,53 @@ __device__ __forceinline__ float4 operator+(float4 x, float4 y) {
   return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
 }
 
+__device__ __forceinline__ float4 load_shared(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// A warpgroup's [64 x 64] float32 accumulator as 8 units of four values a
+// thread (unit u is values 4u .. 4u + 3); in shared memory [unit][thread],
+// kUnitBytes a unit
+constexpr int kUnitBytes = 128 * 16;
+
+__device__ __forceinline__ float4 unit_of(const float (&a)[32], int u) {
+  return make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2], a[4 * u + 3]);
+}
+
+__device__ __forceinline__ void set_unit(float (&a)[32], int u, float4 x) {
+  a[4 * u] = x.x;
+  a[4 * u + 1] = x.y;
+  a[4 * u + 2] = x.z;
+  a[4 * u + 3] = x.w;
+}
+
+// [first, first + count) of `total` items split as evenly as they go over
+// `parts` parts: part i's
+struct Span {
+  int first, count;
+};
+
+__host__ __device__ constexpr Span balanced(int total, int parts, int i) {
+  return {i * (total / parts) + (i < total % parts ? i : total % parts),
+          total / parts + (i < total % parts ? 1 : 0)};
+}
+
+// the panels of the head that block `rank` of the cluster over chunk
+// `chunk` of `chunks` owns: the head's panels balanced over the chunks,
+// each chunk's over its cluster's n blocks (the cluster kernels of K3a and
+// K3c)
+__device__ __forceinline__ Span cluster_panels(int panels, int chunks,
+                                               int chunk, int n, int rank) {
+  const Span c = balanced(panels, chunks, chunk);
+  const Span b = balanced(c.count, n, rank);
+  return {c.first + b.first, b.count};
+}
+
 // Sums over the n blocks of a thread-block cluster of a warpgroup's [64 x
 // 64] float32 accumulator, which each of a block's kThreads threads holds
 // as 8 units of four values (unit u is values 4u .. 4u + 3). Every block
@@ -923,24 +970,13 @@ struct ClusterSum {
     cluster_wait();
   }
 
-  __device__ static float4 get(const float (&a)[32], int u) {
-    return make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2], a[4 * u + 3]);
-  }
-
-  __device__ static void put(float (&a)[32], int u, float4 v) {
-    a[4 * u] = v.x;
-    a[4 * u + 1] = v.y;
-    a[4 * u + 2] = v.z;
-    a[4 * u + 3] = v.w;
-  }
-
   __device__ uint32_t at(int u) const { return slots + u * kThreads * 16; }
 
   // a becomes its sum over the cluster
   __device__ void add(float (&a)[32]) {
     if (pending) cluster_wait();
 #pragma unroll
-    for (int u = 0; u < kUnits; ++u) store_shared(at(u), get(a, u));
+    for (int u = 0; u < kUnits; ++u) store_shared(at(u), unit_of(a, u));
     cluster_arrive();
     cluster_wait();
     if (n == 2) {  // each reads the other's terms
@@ -952,8 +988,8 @@ struct ClusterSum {
           other[j] = load_remote(at(u0 + j), 1 - rank);
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          const float4 own = get(a, u0 + j);
-          put(a, u0 + j, rank == 0 ? own + other[j] : other[j] + own);
+          const float4 own = unit_of(a, u0 + j);
+          set_unit(a, u0 + j, rank == 0 ? own + other[j] : other[j] + own);
         }
       }
     } else {
@@ -962,7 +998,7 @@ struct ClusterSum {
 #pragma unroll
       for (int u = 0; u < kUnits; ++u) {
         if (u % n != rank) continue;
-        const float4 own = get(a, u);
+        const float4 own = unit_of(a, u);
         float4 sum = own;
 #pragma unroll
         for (int r0 = 0; r0 < kMaxCluster; r0 += kBatch) {
@@ -978,7 +1014,7 @@ struct ClusterSum {
             sum = r0 + j == 0 ? term : sum + term;
           }
         }
-        put(a, u, sum);
+        set_unit(a, u, sum);
         store_shared(at(u), sum);
       }
       cluster_arrive();
@@ -993,7 +1029,7 @@ struct ClusterSum {
             sums[j] = load_remote(at(u0 + j), (u0 + j) % n);
 #pragma unroll
         for (int j = 0; j < kBatch; ++j)
-          if ((u0 + j) % n != rank) put(a, u0 + j, sums[j]);
+          if ((u0 + j) % n != rank) set_unit(a, u0 + j, sums[j]);
       }
     }
     cluster_arrive();  // this block's reads are done

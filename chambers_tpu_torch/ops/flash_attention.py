@@ -18,9 +18,10 @@ of ``flash_attention_fwd.cu`` (at head size 64 over 64 to 256 queries and
 head's Q, K and V resident) and ``flash_bwd_dkv_tc_kernel`` (at head size
 64 over 1 to 256 queries and 129 to 256 keys its
 ``flash_bwd_dkv_short_kernel``, which keeps a head's Q and dO resident),
-``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (at head size
-128 K3b's ``flash_bwd_dkv_producer_kernel``, two warpgroups of 64 keys
-each fed by a producer warp; all built on
+``flash_bwd_dq_tc_kernel`` of ``flash_attention_bwd.cu`` (at head sizes
+128 and 256 K3b's ``flash_bwd_dkv_producer_kernel``, two consumer
+warpgroups fed by a producer warp, at 128 of 64 keys each, at 256 over
+the same 64 keys, two panels each; all built on
 ``flash_tiles.cuh``, templated on the type; at head size 32
 ``flash_fwd_narrow_kernel``, ``flash_bwd_dkv_narrow_kernel`` and
 ``flash_bwd_dq_narrow_kernel``, on 32-column panels); float32 takes the FMA
@@ -32,12 +33,11 @@ K3a's ``flash_fwd_cluster_kernel`` (blocks of two warpgroups over 64 query
 rows and up to 512 output columns, Q's panels resident, fed by a producer
 warp; above head size 512 several blocks form a thread-block cluster, each
 owning a part of the columns, and sum their terms of the score products
-over it, so each score product is computed once a cluster), K3c's sliced
-``flash_bwd_dq_sliced_kernel``, which gives each block one slice of the
-head's output columns, and the cluster kernel
-``flash_bwd_dkv_cluster_kernel``, whose blocks each own a slice of the
+over it, so each score product is computed once a cluster), and the
+cluster kernels ``flash_bwd_dkv_cluster_kernel`` and
+``flash_bwd_dq_cluster_kernel``, whose blocks each own a slice of the
 columns and sum their terms of the score products over a thread-block
-cluster. See the notes at
+cluster (K3c's blocks are fed by a producer warp, as K3a's). See the notes at
 the top of the CUDA sources for what bounds the kernels on the card and
 for their design. :func:`flash_attention` is the public
 function, ``[batch, heads, t, head_dim]`` in and out, argument order as the
@@ -71,8 +71,8 @@ that is already contiguous).
 
 Head sizes. The kernels work on whole 64-column panels: up to 256 at
 ``HEAD_SIZES`` = 64, 128 and 256, above it at any multiple of 64 (the
-sliced and cluster kernels, and the float32 ``_cols`` kernels, take the
-head size at run time). In bfloat16 and float16 the kernels also take
+cluster kernels, and the float32 ``_cols`` kernels, take the head size at
+run time). In bfloat16 and float16 the kernels also take
 ``NARROW`` = 32, on their narrow kernels. On a CUDA tensor any other head
 size is zero-padded to the next size the kernels take in its type
 (:func:`kernel_head_size`, :func:`pad_head`), the same for K3a, K3b and
@@ -115,7 +115,7 @@ KERNEL_NAMES = {
             "flash_bwd_dkv_cluster_kernel", "flash_bwd_dkv_narrow_kernel",
             "flash_bwd_dkv_producer_kernel"),
     "dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_cols_kernel",
-           "flash_bwd_dq_tc_kernel", "flash_bwd_dq_sliced_kernel",
+           "flash_bwd_dq_tc_kernel", "flash_bwd_dq_cluster_kernel",
            "flash_bwd_dq_narrow_kernel"),
 }
 
@@ -165,8 +165,8 @@ def kernel_head_size(h, dtype):
     """The head size K3a, K3b and K3c run a call of head size ``h`` in
     ``dtype`` at: ``NARROW`` (32) for ``h <= 32`` in bfloat16 and float16,
     the narrow kernels'; else the smallest of ``HEAD_SIZES`` that holds it,
-    and above the largest the next multiple of ``PANEL`` (the sliced and
-    cluster kernels')."""
+    and above the largest the next multiple of ``PANEL`` (the cluster
+    kernels')."""
     if h <= NARROW and dtype in (torch.bfloat16, torch.float16):
         return NARROW
     for size in HEAD_SIZES:
@@ -319,7 +319,7 @@ def launch_backward_dkv(q, k, v, do, l, m, di, kv_mask, scale, causal,
     ``flash_bwd_dkv_narrow_kernel`` at head size 32,
     ``flash_bwd_dkv_short_kernel`` at head size 64 when a head's queries (1
     to 256) and keys (129 to 256) fit in shared memory whole,
-    ``flash_bwd_dkv_producer_kernel`` at head size 128,
+    ``flash_bwd_dkv_producer_kernel`` at head sizes 128 and 256,
     ``flash_bwd_dkv_tc_kernel`` otherwise (above 256
     ``flash_bwd_dkv_cluster_kernel``), float32 ``flash_bwd_dkv_kernel``
     (from 256 on ``flash_bwd_dkv_cols_kernel``). The launch counts in
@@ -343,7 +343,7 @@ def launch_backward_dq(q, k, v, do, l, m, di, kv_mask, scale, causal,
                        n_heads):
     """Launch K3c alone: ``dq``. bfloat16 and float16 operands run
     ``flash_bwd_dq_narrow_kernel`` at head size 32, ``flash_bwd_dq_tc_kernel``
-    otherwise (above 256 ``flash_bwd_dq_sliced_kernel``), float32
+    otherwise (above 256 ``flash_bwd_dq_cluster_kernel``), float32
     ``flash_bwd_dq_kernel`` (from 256 on ``flash_bwd_dq_cols_kernel``). The
     launch counts in ``flash_attention.launches["dq"]`` and under its
     kernel's name in ``flash_attention.dq_launches``."""

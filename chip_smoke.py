@@ -290,9 +290,8 @@ the CUDA toolkit. In order, it:
     with the bf16 step, K3a-c 12 launches each a step by the counters, set
     to 0 just before the timed steps and read just after;
 28. runs the flash kernels at head sizes above 256 (``wide_heads_path``),
-    on K3a's and K3b's cluster and K3c's sliced tensor-core kernels (K3a's
-    one block a cluster up to h 512) and, in float32, the ``_cols`` FMA
-    kernels: (a)
+    on the cluster tensor-core kernels of K3a, K3b and K3c (K3a's one block
+    a cluster up to h 512) and, in float32, the ``_cols`` FMA kernels: (a)
     K3a-c through
     ``flash_attention`` and its backward at
     ``[16, 512, 512]`` (phase 9's width over one head) with the ragged key
@@ -338,13 +337,14 @@ the CUDA toolkit. In order, it:
     h 32, 128 and 256 as ``shape_h32``, ``shape_h128`` and ``shape_h256``
     with their registers and spills, in float16 at ``[128, 512, 64]`` as
     ``float16``, at h 512 as ``shape_h512`` with their registers, spills
-    and launch shapes, K3a at h 1216 as ``shape_h1216``, K3a at one query
-    row at h 128 and 512 as ``decode_h128`` and ``decode_h512``, K3a's two
-    decode shapes as rows of their own after it, and a row of its own for
-    each kernel that runs only at h 32, 128 or above 256: the narrow K3a-c,
-    K3b's producer kernel at h 128, K3a's and K3b's cluster kernels and the
-    sliced K3c, each with its launches on phase 26's or 28's path (K3a's
-    cluster kernel's row also holds its ``shape_h1216``), the card line,
+    and launch shapes, K3a and K3c at h 1216 as ``shape_h1216``, K3a at one
+    query row at h 128 and 512 as ``decode_h128`` and ``decode_h512``,
+    K3a's two decode shapes as rows of their own after it, and a row of its
+    own for each kernel that runs only at h 32, 128, 256 or above 256: the
+    narrow K3a-c, K3b's producer kernel (h 128, and its ``shape_h256``) and
+    the cluster kernels of K3a, K3b and K3c, each with its launches on
+    phase 26's or 28's path (K3a's and K3c's cluster kernels' rows also
+    hold their ``shape_h1216``), the card line,
     and last
     ``{"ok": true, "device": {...}}``.
 
@@ -380,7 +380,7 @@ PTXAS = {}
 FLASH_WORK = {"fwd": (2, 2, 4), "dkv": (4, 3, 8), "dq": (3, 3, 6)}
 # a flash kernel's name in a profiler key, mangled or not
 FLASH_KERNEL = (r"(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"(?:_tc|_short|_cols|_sliced|_cluster|_narrow|_producer)?"
+                r"(?:_tc|_short|_cols|_cluster|_narrow|_producer)?"
                 r"_kernel)")
 # exponents (ex2) an SM's special-function units give a clock: four in each
 # of its four partitions (H100)
@@ -521,7 +521,8 @@ def read_build_report(path, seconds):
 def kernel_name(mangled):
     """``_ZN..16flash_fwd_kernelIfLi64EE..`` -> ``flash_fwd_kernel<f32,
     64>``, ``..flash_bwd_dq_tc_kernelI6__halfLi2EE..`` ->
-    ``flash_bwd_dq_tc_kernel<f16, 128>`` (two 64-column panels),
+    ``flash_bwd_dq_tc_kernel<f16, 128>`` (two 64-column panels; the
+    producer kernels' panels too),
     ``..flash_fwd_cols_kernelIfLi128EE..`` -> ``flash_fwd_cols_kernel<f32>``
     and ``..flash_fwd_cluster_kernelI13__nv_bfloat16EE..`` ->
     ``flash_fwd_cluster_kernel<bf16>`` (the head size at run time),
@@ -545,7 +546,7 @@ def kernel_name(mangled):
     if found.group(4) is None or name.endswith("_cols_kernel"):
         return f"{name}<{dtype}>"
     size = int(found.group(4))
-    if name.endswith("_tc_kernel"):  # templated on the panels
+    if name.endswith(("_tc_kernel", "_producer_kernel")):  # on the panels
         size *= 64
     return f"{name}<{dtype}, {size}>"
 
@@ -6106,11 +6107,11 @@ def head_sizes_path(torch, fa, dev, rows):
             got = next((r for r in timed if r["name"] == row["name"]), None)
             if key is None or got is None:
                 continue
-            # the narrow and producer kernels are templated on the type
-            # alone, the whole-tile ones on the panels too
-            ptxas = (f"{row['name']}_tc_kernel<{{}}, {size}>"
-                     if ran[key].endswith("_tc_kernel") else
-                     f"{ran[key]}<{{}}>")
+            # the narrow kernels are templated on the type alone, the
+            # whole-tile and producer ones on the panels too
+            ptxas = (f"{ran[key]}<{{}}, {size}>"
+                     if ran[key].endswith(("_tc_kernel", "_producer_kernel"))
+                     else f"{ran[key]}<{{}}>")
             row[f"shape_h{h}"] = {
                 "shape": f"[{S2S['batch'] * heads}, {S2S['t']}, {h}] bf16, "
                          f"ragged key mask",
@@ -6292,8 +6293,8 @@ def float16_path(torch, fa, dev, rows):
     return out
 
 
-# phase 28: head sizes above 256 (K3a's and K3b's cluster kernels, the
-# sliced K3c); phase 9's width over one head, small shapes at the other
+# phase 28: head sizes above 256 (the cluster kernels of K3a, K3b and
+# K3c); phase 9's width over one head, small shapes at the other
 # sizes, and phase 9's tokens over one head timed at each
 WIDE = {512: 1}
 # 1216: K3a a cluster of three blocks
@@ -6417,9 +6418,9 @@ def time_wide_kernels(torch, fa, dev, h):
 
 
 def wide_heads_path(torch, fa, dev, rows):
-    """Phase 28: head sizes above 256, on K3a's cluster kernel (one block a
-    cluster up to h 512), the sliced K3c and K3b's cluster kernel (float32 on the
-    ``_cols`` kernels). (a) K3a-c through
+    """Phase 28: head sizes above 256, on the cluster kernels of K3a (one
+    block a cluster up to h 512), K3b and K3c (float32 on the ``_cols``
+    kernels). (a) K3a-c through
     ``flash_attention`` and its backward at ``[16, 512, 512]`` (phase 9's width over one head) with the
     ragged key mask, causal and not, in bf16, float16 and float32, held to
     their plain versions with phase 8's tolerances and timed in bf16 and
@@ -6463,6 +6464,12 @@ def wide_heads_path(torch, fa, dev, rows):
         step_kernel: flash["flash_launches"]["fwd"]},
         f"h {h}: the step's K3a launches all ran {step_kernel} "
         f"({flash['launches_by_kernel']['fwd']})")
+    for key, kernel in (("dkv", fa.backward_kernel(torch.bfloat16, h, t, t)),
+                        ("dq", fa.dq_kernel(torch.bfloat16, h))):
+        check(flash["launches_by_kernel"][key] == {
+            kernel: flash["flash_launches"][key]},
+            f"h {h}: the step's {key} launches all ran {kernel} "
+            f"({flash['launches_by_kernel'][key]})")
     check(set(decode["bf16_k3a_launches_by_kernel"]) == {decode_kernel}
           and sum(decode["bf16_k3a_launches_by_kernel"].values())
           == sum(decode["bf16_k3a_launches_by_shape"].values()),
@@ -6510,7 +6517,7 @@ def wide_heads_path(torch, fa, dev, rows):
             "note": "library_ms is F.scaled_dot_product_attention with the "
                     "same key mask, on the backend named; the bound counts "
                     "the function's work on the kept keys at the true head "
-                    "size, not the score products the slices repeat"}
+                    "size"}
         log(f"{row['name']} h {h}: {got['ms'] * 1e3:.1f} us bf16, "
             f"{got16['ms'] * 1e3:.1f} us float16, bound "
             f"{got['bound_ms'] * 1e3:.2f} us, SDPA ({backend}) "
@@ -6535,26 +6542,31 @@ def wide_heads_path(torch, fa, dev, rows):
 
 
 def clustered_forward_path(torch, fa, dev, rows):
-    """Phase 28 (f): K3a above h 1152, where a block no longer holds a row
-    tile's O, on the cluster kernel's clusters of three blocks, at
-    ``CLUSTERED``'s one head over phase 9's tokens (``[16, 1, 512, 1216]``
-    bf16, the ragged key mask): phase 28 (a)'s two path cases held to the
-    plain versions; one ``flash_attention`` call and its backward with the
-    counters at 0 just before and read just after, every K3a launch on
-    ``flash_fwd_cluster_kernel`` as ``launch_shape`` names it, in clusters
-    the card can place; then K3a timed there as phase 26 times it, against
-    SDPA with the same mask. Adds ``shape_h1216`` to K3a's row of the
-    ``kernels`` line."""
+    """Phase 28 (f): K3a and K3c above h 1152, where a block no longer
+    holds a row tile's O or dQ, on their cluster kernels (clusters of three
+    blocks, 7 + 6 + 6 panels), at ``CLUSTERED``'s one head over phase
+    9's tokens (``[16, 1, 512, 1216]`` bf16, the ragged key mask): phase 28
+    (a)'s two path cases held to the plain versions; one
+    ``flash_attention`` call and its backward with the counters at 0 just
+    before and read just after, its K3a launch on
+    ``flash_fwd_cluster_kernel`` and its K3c launch on
+    ``flash_bwd_dq_cluster_kernel`` as ``launch_shape`` names them, in
+    clusters the card can place; then K3a-c timed there as phase 26 times
+    them, against SDPA with the same mask. Adds ``shape_h1216`` to K3a's
+    and K3c's rows of the ``kernels`` line."""
     (h, heads), = CLUSTERED.items()
     b, t = S2S["batch"], S2S["t"]
     errors = check_flash_kernels(
         torch, fa, dev, h, head_size_cases(torch, dev, h, heads)[:2])
-    shape = fa.launch_shape("fwd", torch.bfloat16, h, t, t)
-    kernel = shape["kernel_name"]
-    check(kernel == "flash_fwd_cluster_kernel" and shape["cluster"] == 3
-          and shape["max_active_clusters"] > 0,
-          f"h {h}: the dispatch names K3a's cluster kernel in clusters of "
-          f"three blocks the card can place ({shape})")
+    shapes = {key: fa.launch_shape(key, torch.bfloat16, h, t, t)
+              for key in ("fwd", "dq")}
+    kernels = {key: shape["kernel_name"] for key, shape in shapes.items()}
+    for key, want, blocks in (("fwd", "flash_fwd_cluster_kernel", 3),
+                              ("dq", "flash_bwd_dq_cluster_kernel", 3)):
+        check(kernels[key] == want and shapes[key]["cluster"] == blocks
+              and shapes[key]["max_active_clusters"] > 0,
+              f"h {h}: the dispatch names {want} in clusters of {blocks} "
+              f"blocks the card can place ({shapes[key]})")
     mask = ragged_mask(torch, b, t, dev)
     gen = torch.Generator(device=dev).manual_seed(281)
     q, k, v, do = (torch.randn((b, heads, t, h), device=dev, generator=gen)
@@ -6566,60 +6578,67 @@ def clustered_forward_path(torch, fa, dev, rows):
     torch.cuda.synchronize()
     launches = dict(fa.flash_attention.launches)
     by_kernel = kernel_counts(fa)
-    check(by_kernel["fwd"].get(kernel, 0) == launches["fwd"] == 1
+    check(all(by_kernel[key].get(kernels[key], 0) == launches[key] == 1
+              for key in kernels)
           and all(bool(torch.isfinite(x).all()) for x in (o, *grads)),
-          f"h {h}: the call's K3a launch ran {kernel} ({by_kernel['fwd']}), "
-          f"finite outputs")
+          f"h {h}: the call's K3a and K3c launches ran {kernels} "
+          f"({by_kernel}), finite outputs")
     del q, k, v, do, o, grads
     timed = time_flash_kernels(torch, fa, dev, launches, errors, h, heads)
-    got = next(r for r in timed if r["name"] == "flash_fwd")
-    entry = {
-        "shape": f"[{b * heads}, {t}, {h}] bf16, ragged key mask",
-        "kernel_head_size": fa.kernel_head_size(h, torch.bfloat16),
-        "kernel_name": kernel,
-        **{x: got[x] for x in (
-            "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
-            "bound_ms", "bound_by", "exp_bound_ms", "library_ms",
-            "causal_ms", "causal_bound_ms", "achieved_tflops",
-            "float32_ms")},
-        "launches_by_kernel": by_kernel,
-        "ptxas": PTXAS.get(f"{kernel}<bf16>"),
-        "ptxas_float16": PTXAS.get(f"{kernel}<f16>"),
-        "launch_shape": shape,
-        "note": "launches: one flash_attention call and its backward; "
-                "library_ms is F.scaled_dot_product_attention with the "
-                "same key mask; the bound counts the function's work on the "
-                "kept keys at the true head size"}
-    for row in rows:
-        if row["name"] == "flash_fwd":
-            row[f"shape_h{h}"] = entry
-    log(f"phase 28 (f) flash_fwd h {h} on {kernel}: {got['ms'] * 1e3:.1f} "
-        f"us, causal {got['causal_ms'] * 1e3:.1f}, plain "
-        f"{got['plain_ms'] * 1e3:.1f}, SDPA {got['library_ms'] * 1e3:.1f}, "
-        f"bound {got['bound_ms'] * 1e3:.2f} us; ptxas {entry['ptxas']}; "
-        f"{shape}; on {CARD}")
-    return {"launches": launches, "launches_by_kernel": by_kernel,
-            "max_abs_err": errors, "kernel": kernel, "ms": got["ms"]}
+    out = {"launches": launches, "launches_by_kernel": by_kernel,
+           "max_abs_err": errors, "kernels": kernels}
+    for key, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq")):
+        got = next(r for r in timed if r["name"] == name)
+        entry = {
+            "shape": f"[{b * heads}, {t}, {h}] bf16, ragged key mask",
+            "kernel_head_size": fa.kernel_head_size(h, torch.bfloat16),
+            "kernel_name": kernels[key],
+            **{x: got[x] for x in (
+                "launches", "max_abs_err", "ms", "plain_ms", "wrapper_ms",
+                "bound_ms", "bound_by", "exp_bound_ms", "library_ms",
+                "causal_ms", "causal_bound_ms", "achieved_tflops",
+                "float32_ms")},
+            "launches_by_kernel": by_kernel,
+            "ptxas": PTXAS.get(f"{kernels[key]}<bf16>"),
+            "ptxas_float16": PTXAS.get(f"{kernels[key]}<f16>"),
+            "launch_shape": shapes[key],
+            "note": "launches: one flash_attention call and its backward; "
+                    "library_ms is F.scaled_dot_product_attention with the "
+                    "same key mask (its whole backward beside K3c); the "
+                    "bound counts the function's work on the kept keys at "
+                    "the true head size"}
+        for row in rows:
+            if row["name"] == name:
+                row[f"shape_h{h}"] = entry
+        out[f"{key}_ms"] = got["ms"]
+        log(f"phase 28 (f) {name} h {h} on {kernels[key]}: "
+            f"{got['ms'] * 1e3:.1f} us, causal {got['causal_ms'] * 1e3:.1f}, "
+            f"plain {got['plain_ms'] * 1e3:.1f}, SDPA "
+            f"{got['library_ms'] * 1e3:.1f}, bound "
+            f"{got['bound_ms'] * 1e3:.2f} us; ptxas {entry['ptxas']}; "
+            f"{shapes[key]}; on {CARD}")
+    return out
 
 
 def rows_of_head_sizes(rows):
     """A row of its own for each kernel that a K3a-c row's ``shape_h32``,
-    ``shape_h128``, ``shape_h512`` or ``shape_h1216`` names
+    ``shape_h128``, ``shape_h256``, ``shape_h512`` or ``shape_h1216`` names
     (``kernel_name``) other than the family's whole-tile kernel (whose
     numbers the family's row holds): the narrow kernels at h 32, K3b's
-    producer kernel at h 128, K3a's and K3b's cluster kernels and the
-    sliced K3c above 256, with the first such shape's launches on its path
-    (phase 26 (b) or 28 (c)), its errors and times, and each later shape
-    that names the same kernel (K3a's cluster kernel at h 1216, phase 28
-    (f)) as a sub-dict of its row; the head size's sub-dict stays in the
-    family's row too."""
+    producer kernel at h 128, the cluster kernels of K3a, K3b and K3c above
+    256, with the first such shape's launches on its path (phase 26 (b) or
+    28 (c)), its errors and times, and each later shape that names the
+    same kernel (K3b's producer kernel at h 256, phase 26 (b); K3a's and
+    K3c's cluster kernels at h 1216, phase 28 (f)) as a sub-dict of its
+    row; the head size's sub-dict stays in the family's row too."""
     names = {row["name"] for row in rows}
     extra = {}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "wrapper_ms", "causal_ms",
             "achieved_tflops", "ptxas", "launch_shape", "shape")
     for row in rows:
-        for key in ("shape_h32", "shape_h128", "shape_h512", "shape_h1216"):
+        for key in ("shape_h32", "shape_h128", "shape_h256", "shape_h512",
+                    "shape_h1216"):
             got = row.get(key)
             kernel = got.get("kernel_name") if got else None
             if (kernel is None or kernel in names

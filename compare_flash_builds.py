@@ -61,6 +61,8 @@ any difference beyond those.
     python3 compare_flash_builds.py OTHER_CHECKOUT --only wide
     python3 compare_flash_builds.py OTHER_CHECKOUT --only cluster
     python3 compare_flash_builds.py OTHER_CHECKOUT --only producer
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only producer256
+    python3 compare_flash_builds.py OTHER_CHECKOUT --only dq_cluster
 
     python3 compare_flash_builds.py OTHER_CHECKOUT --turns 1216,2112 \
         [--kernel fwd] [--also DIR,DIR]
@@ -79,8 +81,12 @@ libraries' differences reported beside), and K3a timed there in bf16 and
 float16 beside
 ``F.scaled_dot_product_attention`` (its forward with the same key mask, in
 each round), or the cases at head size 128, held bit for bit, and K3b
-timed there (``[64, 512, 128]``, causal and not, bf16 and float16) (the
-report says which outputs are bit-equal).
+timed there (``[64, 512, 128]``, causal and not, bf16 and float16), or
+the same at head size 256 (``producer256``: K3b at ``[32, 512, 256]``),
+or the cases at ``DQ_CLUSTER_HEADS`` (K3c on its cluster kernel, within
+the card tests' tolerance of the other library) and K3c timed there in
+bf16 and float16, causal and not, beside SDPA's whole backward with the
+same key mask (the report says which outputs are bit-equal).
 """
 
 import ctypes
@@ -187,6 +193,9 @@ WIDE_HEADS = (512, 1024)
 # K3a above the wide kernel's sizes (h 1152), on its cluster kernel: one
 # cluster of three blocks, of three and of five
 CLUSTER_HEADS = (1216, 1536, 2112)
+# K3c on its cluster kernel: one block (320, 512), clusters of two
+# (576, 1024), three (1216) and five (2112)
+DQ_CLUSTER_HEADS = (320, 512, 576, 1024, 1216, 2112)
 NARROW_HEADS = (32, 16, 8)
 # the narrow kernels' cases (label, bn, n_heads, tq, tk, dtype name,
 # causal, mask kind), at each of NARROW_HEADS
@@ -399,9 +408,10 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
     ``shape`` = ``(bn, n_heads, t)``, with a ragged key mask if ``masked``,
     at each of ``causals``, each library on operands padded to the size it
     runs the kernel at: ``{kernel/causal: {library: [ms of each
-    round]}}``. With ``sdpa``, K3a without the causal mask also times
-    ``F.scaled_dot_product_attention`` on the same operands and key mask
-    once a round (``"sdpa"``)."""
+    round]}}``. With ``sdpa``, each kernel without the causal mask also
+    times ``F.scaled_dot_product_attention`` on the same operands and key
+    mask once a round (``"sdpa"``): its forward beside K3a, its whole
+    backward (dQ, dK and dV) beside K3b and K3c."""
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(16)
     bn, n, t = shape or (max(16, 128 * 64 // h), max(1, 512 // h), 512)
@@ -443,17 +453,31 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
         end.synchronize()
         return start.elapsed_time(end) / 30
 
-    def library_call(i):
-        q, k, v = (x.view(bn // n, n, t, h) for x in sets[i % 3][:3])
+    def sdpa_forward(i, grad=False):
+        q, k, v = (x.view(bn // n, n, t, h).detach().requires_grad_(grad)
+                   for x in sets[i % 3][:3])
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=None if mask is None
-            else mask.bool()[:, None, None, :])
+            else mask.bool()[:, None, None, :]), (q, k, v)
+
+    graphs = []  # SDPA's forward of each set, for its backward
+
+    def library_call(i, kernel):
+        if kernel == "fwd":
+            return sdpa_forward(i)[0]
+        out, leaves, do = graphs[i % 3]
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    if sdpa and set(kernels) - {"fwd"}:
+        for i in range(3):
+            graphs.append((*sdpa_forward(i, True),
+                           sets[i][3].view(bn // n, n, t, h)))
 
     times = {}
     for kernel in kernels:
         for causal in causals:
             key = f"{kernel}{' causal' if causal else ''}"
-            with_sdpa = sdpa and kernel == "fwd" and not causal
+            with_sdpa = sdpa and not causal
             times[key] = {"other": [], "this": [],
                           **({"sdpa": []} if with_sdpa else {})}
             for _ in range(3):
@@ -467,7 +491,9 @@ def time_both(torch, fa, libs, dev, h, dtype=None,
 
                     times[key][name].append(timed(call))
                 if with_sdpa:
-                    times[key]["sdpa"].append(timed(library_call))
+                    times[key]["sdpa"].append(timed(
+                        lambda i, kernel=kernel: library_call(i, kernel)))
+    del graphs
     return times
 
 
@@ -630,6 +656,15 @@ def main(other, only=None):
                      lambda: {"times_ms": time_heads(
                          torch, fa, libs, dev, (128,), (bf16, f16),
                          ("dkv",))}),
+        "producer256": ([(case, 256) for case in cases],
+                        lambda: {"times_ms": time_heads(
+                            torch, fa, libs, dev, (256,), (bf16, f16),
+                            ("dkv",), sdpa=True)}),
+        "dq_cluster": ([(case, h) for h in DQ_CLUSTER_HEADS
+                        for case in wide_cases],
+                       lambda: {"times_ms": time_heads(
+                           torch, fa, libs, dev, DQ_CLUSTER_HEADS,
+                           (bf16, f16), ("dq",), sdpa=True)}),
     }
     against_plain = only == "cluster"
     if only:
@@ -801,7 +836,8 @@ if __name__ == "__main__":
         description=__doc__.split("\n\n")[0])
     parser.add_argument("other", help="the other checkout")
     parser.add_argument("--only", choices=("short", "narrow", "wide",
-                                           "cluster", "producer"),
+                                           "cluster", "producer",
+                                           "producer256", "dq_cluster"),
                         help="hold and time one part alone")
     parser.add_argument("--turns", help="time one kernel of this, the "
                         "other and --also's libraries in turns at these "

@@ -333,21 +333,23 @@ def test_flash_kernels_match_plain(dev, b, n, tq, tk, h, dtype, causal,
 
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 
-# head sizes above 256, on K3a's and K3b's cluster kernels and the sliced
-# K3c (float32: the _cols kernels with the head size at run time): 288
-# padded to 320, whose last slice is partial, 384, 512 (K3a one block),
-# 640 (the last block of K3b's cluster runs past the head; K3a a cluster
-# of 5 + 5 panels), 1024, 1088 (K3b's clusters of five), 1216 (K3a's
-# cluster of 7 + 6 + 6 panels), 2112 (two clusters along the head for K3b;
-# K3a one cluster of five) and 4160 (K3a two clusters of five, each
+# head sizes above 256, on the cluster kernels of K3a, K3b and K3c
+# (float32: the _cols kernels with the head size at run time): 288
+# padded to 320, 384, 512 (K3a and K3c one block), 576 (K3a and K3c a
+# cluster of 5 + 4 panels), 640 (the last block of K3b's cluster runs past
+# the head), 1024, 1088 (K3b's clusters of five), 1216 (K3a's and K3c's
+# clusters of 7 + 6 + 6 panels), 2112 (two clusters along the head for
+# K3b, each computing the other's panels' score terms; K3a and K3c one
+# cluster of five) and 4160 (K3a and K3c two clusters of five, each
 # computing the other's panels' score terms); the edges of FLASH_CASES at
-# small shapes
-WIDE_HEADS = [288, 384, 512, 640, 1024, 1088, 1216, 2112, 4160]
+# small shapes, and the train step's ragged key mask
+WIDE_HEADS = [288, 384, 512, 576, 640, 1024, 1088, 1216, 2112, 4160]
 WIDE_CASES = [
     (2, 2, 257, 257, True, True),    # causal + key mask, an item with none
     (1, 2, 130, 260, True, False),
     (1, 2, 260, 130, True, False),   # rows with no key
     (3, 2, 70, 150, False, True),
+    (2, 1, 200, 200, False, "ragged"),
 ]
 
 
@@ -365,12 +367,12 @@ def test_flash_kernels_above_256_match_plain(dev, b, n, tq, tk, h, dtype,
 @pytest.mark.parametrize("dtype", SIXTEEN_BIT)
 @pytest.mark.parametrize("h", [512, 1088, 2112])
 def test_cluster_kernels_repeat_their_bits(dev, h, dtype):
-    """K3b above 256 and K3a above 1152 sum their blocks' terms of the
-    score products over a cluster in rank order, with no atomics, and K3c's
-    slices each write their own columns: at phase 9's tokens over one head
-    (``[16, 512, h]``, the ragged key mask, causal and not; at 2112 two
-    clusters along the head for K3b, one of five blocks for K3a), where
-    many clusters run at once, three launches give the same bits."""
+    """K3a, K3b and K3c above 256 sum their blocks' terms of the score
+    products over a cluster in rank order, with no atomics: at phase 9's
+    tokens over one head (``[16, 512, h]``, the ragged key mask, causal and
+    not; at 2112 two clusters along the head for K3b, one of five blocks
+    for K3a and K3c), where many clusters run at once, three launches give
+    the same bits."""
     q, k, v, do, mask = _flash_inputs(dev, 16, 1, 512, 512, h, dtype,
                                       "ragged", seed=5)
     for causal in (False, True):
@@ -393,11 +395,18 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
     """Above 256 the blocks of K3b (two warpgroups) own 256 columns each,
     in clusters along z of at most 8 blocks, as few clusters as that
     allows: the shape the launcher reports, and that the card holds at
-    least one such cluster at once in both 16-bit types. K3c's slices (one
-    warpgroup, 256 columns each) run in no cluster."""
+    least one such cluster at once in both 16-bit types. K3c's cluster
+    kernel's blocks (two consumer warpgroups and a producer's, 384
+    threads, at most 8 panels of dQ each, one block an SM) form clusters
+    along z of as few blocks as hold a chunk of the head (one block, no
+    cluster, up to h 512), as few chunks as the portable size of 8 blocks
+    allows, in shared memory the card gives a block."""
     panels = h // 64
     clusters = -(-panels // 32)
     blocks = -(-panels // (clusters * 4))
+    dq_clusters = -(-panels // 64)
+    dq_blocks = -(-(-(-panels // dq_clusters)) // 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in SIXTEEN_BIT:
         shape = fa.launch_shape("dkv", dtype, h, 512, 512)
         assert shape["kernel_name"] == "flash_bwd_dkv_cluster_kernel"
@@ -405,10 +414,17 @@ def test_cluster_launch_shapes_fit_the_card(dev, h):
         assert shape["cluster"] == blocks <= 8
         assert shape["slices"] == blocks * clusters
         assert shape["max_active_clusters"] > 0
-        sliced = fa.launch_shape("dq", dtype, h, 512, 512)
-        assert sliced["kernel_name"] == "flash_bwd_dq_sliced_kernel"
-        assert (sliced["threads"], sliced["slices"], sliced["cluster"],
-                sliced["max_active_clusters"]) == (128, -(-panels // 4), 1, 0)
+        dq = fa.launch_shape("dq", dtype, h, 512, 512)
+        assert dq["kernel_name"] == "flash_bwd_dq_cluster_kernel"
+        assert dq["threads"] == 3 * 128
+        assert dq["cluster"] == dq_blocks <= 8
+        assert dq["slices"] == dq_blocks * dq_clusters
+        if dq_blocks == 1:  # 0 without a cluster, as launch_shape reports it
+            assert dq["max_active_clusters"] == 0
+        else:
+            assert 0 < dq["max_active_clusters"] <= sms // dq_blocks
+        assert dq["resident_blocks"] == sms
+        assert dq["smem_bytes"] <= 227 * 1024
     for kernel in ("dkv", "dq"):
         assert fa.launch_shape(kernel, torch.float32, h, 512,
                                512)["cluster"] == 1
@@ -695,22 +711,32 @@ def test_tile_products_match_matmul(dev):
 
 def _kernel_names(fn):
     """The names of the kernels three calls of ``fn`` launch, from the
-    profiler (which can drop a kernel's record: three calls make a name
-    missing from all of them unlikely). A profile with no record at all
-    fails here and says so: the profiler then saw no kernel (CUPTI did not
-    start, or dropped every record), which says nothing of the dispatch."""
+    profiler's device kernel records only (events whose device type is
+    CUDA; the host's runtime calls, ``cudaLaunchKernelExC`` among them, are
+    no kernel). The profiler can drop a kernel's record: three calls make
+    a name missing from all of them unlikely. A window in which CUPTI lost
+    every kernel record is thrown away and the three calls are profiled
+    again, up to five windows; only when every window came back
+    empty does it fail, and say so: the profiler then saw no kernel, which
+    says nothing of the dispatch."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
+    windows = 5
+    for _ in range(windows):
         torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages())
-    assert names, ("the profiler recorded no kernel over three calls: it "
-                   "did not trace the card (CUPTI), the dispatch is not "
-                   "what failed")
-    return names
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = " ".join(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        if names:
+            return names
+    raise AssertionError(
+        f"the profiler recorded no kernel over three calls in each of "
+        f"{windows} windows: it did not trace the card (CUPTI), the "
+        f"dispatch is not what failed")
 
 
 # (tq, tk) of K3a's calls and the kernel a 16-bit one takes at head size
@@ -799,10 +825,11 @@ BACKWARD_LENGTHS = [((198, 198), "flash_bwd_dkv_short_kernel"),
 @pytest.mark.parametrize("h", [64, 128, 256, 512])
 def test_backward_dtype_chooses_the_kernels(dev, h):
     """bf16 and float16 operands run the tensor-core kernels (above 256
-    K3b's ``_cluster`` kernel and K3c's ``_sliced`` one; at head size 64
-    over at most 256 queries and 129 to 256 keys K3b's short one; at 128
-    K3b's ``_producer`` kernel: two warpgroups of 64 keys each, 128 keys a
-    block, and a third whose first warp feeds them, one block an SM),
+    K3b's and K3c's ``_cluster`` kernels; at head size 64 over at most 256
+    queries and 129 to 256 keys K3b's short one; at 128 and 256 K3b's
+    ``_producer`` kernel: two consumer warpgroups, at 128 of 64 keys each,
+    128 keys a block, at 256 over the same 64 keys, two panels each, and a
+    third whose first warp feeds them, one block an SM),
     float32
     the FMA kernels (``_cols`` from 256 on): read from the profiler's kernel
     names, and for K3b at each of ``BACKWARD_LENGTHS`` from
@@ -821,13 +848,12 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
     assert "_tc_kernel" not in names[torch.float32]
     assert "_sliced_kernel" not in names[torch.float32]
     assert "_cluster_kernel" not in names[torch.float32]
-    dkv, dq = (("_cluster", "_sliced") if h > 256 else
-               ("_producer", "_tc") if h == 128 else ("_tc", "_tc"))
+    dkv, dq = (("_cluster", "_cluster") if h > 256 else
+               ("_producer", "_tc") if h in (128, 256) else ("_tc", "_tc"))
     for dtype in SIXTEEN_BIT:
         assert f"flash_bwd_dkv{dkv}_kernel" in names[dtype]
         assert f"flash_bwd_dq{dq}_kernel" in names[dtype]
-        assert "flash_bwd_dkv_sliced_kernel" not in names[dtype]
-        assert "flash_bwd_dq_cluster_kernel" not in names[dtype]
+        assert "_sliced_kernel" not in names[dtype]
         assert "_short_kernel" not in names[dtype]  # 80 keys: not short
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (tq, tk), short_or_tc in BACKWARD_LENGTHS:
@@ -846,8 +872,9 @@ def test_backward_dtype_chooses_the_kernels(dev, h):
                 assert shape["smem_bytes"] > 2 * 2 * 32 * 1024 + 64 * 1024
                 assert shape["resident_blocks"] == sms
             if want == "flash_bwd_dkv_producer_kernel":
-                # one block an SM: two consumer warpgroups' K and V tiles
-                # (64 KB) beside a ring of four stages of Q and dO (128 KB)
+                # one block an SM: the block's K and V tiles (64 KB)
+                # beside a ring of Q and dO (four stages of 32 KB at h 128,
+                # two of 64 KB at 256)
                 assert shape["threads"] == 3 * 128
                 assert shape["smem_bytes"] > 64 * 1024 + 4 * 32 * 1024
                 assert shape["slices"] == shape["cluster"] == 1
